@@ -2,7 +2,8 @@
 """Start-up check of the PyTorch port (vision_transformers_tpu_torch) on one
 NVIDIA H100: builds the CUDA kernels from csrc/, holds each against its plain
 PyTorch version, runs full-width ViT-S/16 against the JAX package's stored
-logits, and drives the serving entry point end to end.
+logits and train-step gradients, and drives the serving and the training
+entry points end to end.
 
     python3 chip_smoke.py
 
@@ -10,24 +11,44 @@ Phases (each prints its lines and raises on failure, so the script exits
 non-zero and prints no ok line):
 
 1. probe   torch / CUDA / nvcc / nvidia-smi / PIL; the card must be sm_90
-2. build   nvcc → shared library (timed)
-3. kernels each kernel vs its plain version at an odd small shape, at
-           the shape phase 5 gives it and at the timed ViT-S shape, f32,
+2. build   nvcc → shared library, one nvcc per source in parallel (timed)
+3. kernels each forward kernel vs its plain version at an odd small shape,
+           at every shape phases 5 and 6 give it (48 / 160 rows serving,
+           128 rows the trainer's eval) and at the timed ViT-S shapes, f32,
            atol = rtol = 1e-4 (same f32 math, another summation order over
            K ≤ 1536); median ms of kernel and plain version
+3b. backward the attention layer's forward (with saves) + backward kernel vs
+           the plain forward + plain backward at an odd small shape and at
+           the trainer's shape B=128, each with and without a row scale; per
+           tensor max |Δ| ≤ 1e-3·max(1, max|plain|) (f32 sums over up to
+           B·N = 25,216 rows in another order); two runs bit-identical;
+           median ms
 4. golden  ViT-S/16 @224, depth 12, seeded weights, against the JAX logits
            in tests/data/vit_s16_port_golden.npz at 64 rows ('layer' path)
            and 256 rows ('layer1' path); max |Δ| ≤ 1e-3·max(1, max|golden|)
            (12 f32 layers, another summation order)
-5. predict the main path: ``predict.main`` on 48 and then 160 seeded JPEGs
-           with a seeded ``.pt:ema``; the launch counters are zeroed just
-           before and read just after
+4b. train  one f32 train-step gradient of ViT-S/16 (drop_path 0) on the 2
+           golden images tiled to 64 rows ('layer' path, forward and
+           backward kernels) against tests/data/vit_s16_port_train_golden.npz:
+           loss, gradient norm, per-tensor norms and projections, rtol 1e-3
+5. predict the serving path: ``predict.main`` on 48 and then 160 seeded
+           JPEGs with a seeded ``.pt:ema``; the launch counters are zeroed
+           just before and read just after
+6. trainer the slice's main path: ``train.main`` on configs/vit-s-16.conf,
+           f32, batch 128, one synthetic epoch (4 train steps with DropPath
+           0.1 through the attention layer's forward and backward kernels,
+           a valid pass of 256 images through the whole-layer kernel); the
+           counters are zeroed just before and read just after; then
+           ``predict.main`` reads the epoch checkpoint
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record: each kernel's
+launches on the trainer's run (phase 6) and its times at the call that run
+makes (``shape``); the last line is
 ``{"ok": true, "device": {...}}``.  Needs no network and no JAX.
 """
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -41,7 +62,15 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONF = os.path.join(ROOT, "configs", "vit-s-16.conf")
 GOLDEN = os.path.join(ROOT, "tests", "data", "vit_s16_port_golden.npz")
-SOURCE = "vision_transformers_tpu_torch/csrc/fused_layer.cu"
+TRAIN_GOLDEN = os.path.join(ROOT, "tests", "data", "vit_s16_port_train_golden.npz")
+KERNELS = {  # name → (source, the TPU kernel it replaces)
+    "fused_attention_layer": ("vision_transformers_tpu_torch/csrc/fused_layer.cu",
+                              "vision_transformers_tpu/ops/fused_layer.py:116"),
+    "fused_attention_layer_bwd": ("vision_transformers_tpu_torch/csrc/fused_layer_bwd.cu",
+                                  "vision_transformers_tpu/ops/fused_layer.py:183"),
+    "fused_transformer_layer": ("vision_transformers_tpu_torch/csrc/fused_layer.cu",
+                                "vision_transformers_tpu/ops/fused_layer1.py:91"),
+}
 KERNEL_TOL = 1e-4
 DEVICE = "cuda"
 
@@ -148,25 +177,34 @@ def median_ms(torch, fn, reps=20, warmup=3):
     return float(np.median(times))
 
 
+def vit_shape(B):
+    """ViT-S/16 @224 layer shape (B, N, C, H, D, F) at B rows."""
+    return (B, 197, 384, 6, 64, 1536)
+
+
 def kernels(torch):
+    """3: each forward kernel (serving call, no saves) against its plain
+    version at an odd shape, at every shape phases 5 and 6 give it and at the
+    timed shapes; the last timed shape is the record's.  The attention
+    layer's training calls (saves, row scale, B=128) are held in 3b."""
     from vision_transformers_tpu_torch.ops import fused_layer, fused_layer1
 
-    # (kernel, plain version, timed ViT-S shape, the shape phase 5 gives it)
+    # (kernel, plain version, the main paths' shapes, the timed shapes)
     ops = {
         "fused_attention_layer": (
             lambda a, H: fused_layer.fused_attention_layer(*a[:7], H),
             lambda a, H: fused_layer.fused_attention_layer_reference(*a[:7], H),
-            (64, 197, 384, 6, 64, 1536), (48, 197, 384, 6, 64, 1536)),
+            [vit_shape(48)], [vit_shape(64)]),
         "fused_transformer_layer": (
             lambda a, H: fused_layer1.fused_transformer_layer(*a, H),
             lambda a, H: fused_layer1.fused_transformer_layer_reference(*a, H),
-            (256, 197, 384, 6, 64, 1536), (160, 197, 384, 6, 64, 1536)),
+            [vit_shape(160), vit_shape(128)], [vit_shape(256), vit_shape(128)]),
     }
     odd = (3, 37, 48, 2, 24, 96)
     results = {}
-    for name, (kernel, plain, vit_shape, main_shape) in ops.items():
+    for name, (kernel, plain, main_shapes, timed) in ops.items():
         errs = []
-        for shape in (odd, main_shape, vit_shape):
+        for shape in dict.fromkeys((odd, *main_shapes, *timed)):
             a = layer_args(torch, *shape)
             H = shape[3]
             out = kernel(a, H)
@@ -181,14 +219,148 @@ def kernels(torch):
                 f"(atol=rtol={KERNEL_TOL}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise RuntimeError(f"kernels: {name} disagrees with its plain version")
-        a = layer_args(torch, *vit_shape)
-        H = vit_shape[3]
-        ms = median_ms(torch, lambda: kernel(a, H))
-        plain_ms = median_ms(torch, lambda: plain(a, H))
-        log(f"kernels: {name} B={vit_shape[0]} N=197 C=384: kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms (median of 20, CUDA events)")
-        results[name] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms}
+        for shape in timed:
+            a = layer_args(torch, *shape)
+            H = shape[3]
+            ms = median_ms(torch, lambda: kernel(a, H))
+            plain_ms = median_ms(torch, lambda: plain(a, H))
+            work = attn_fwd_work(*shape[:5]) if name == "fused_attention_layer" \
+                else layer_fwd_work(*shape)
+            bound_ms, by = bound(*work)
+            log(f"kernels: {name} B={shape[0]} N=197 C=384: kernel {ms:.3f} ms, "
+                f"plain {plain_ms:.3f} ms (median of 20, CUDA events); bound "
+                f"{bound_ms:.3f} ms ({by})")
+            results[name] = {"shape": "B,N,C,H,D,F=" + ",".join(map(str, shape)),
+                             "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
     return results
+
+
+# ---------------------------------------------------------------------------
+# 3b. the backward kernel vs its plain version
+# ---------------------------------------------------------------------------
+
+H100_F32_FLOPS = 67e12   # f32 FMA peak outside the tensor cores, 700 W
+H100_BYTES = 3.35e12     # HBM3 rate
+
+
+def bound(flops, nbytes):
+    """(bound_ms, bound_by): the least time for this work on the card."""
+    t_ops, t_bytes = flops / H100_F32_FLOPS * 1e3, nbytes / H100_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def attn_fwd_work(B, N, C, H, D, saves=False):
+    """(operations, bytes) of the attention half's forward: four projection
+    products and two attention products; x, weights in, out written, and
+    with ``saves`` the residuals (qkv, acc, mu, rstd, lse) written too."""
+    M, HD = B * N, H * D
+    flops = 8 * M * C * HD + 4 * B * H * N * N * D
+    nbytes = 4 * (2 * M * C + 4 * C * HD + 3 * HD + 3 * C + B)
+    if saves:
+        nbytes += 4 * (4 * M * HD + 2 * M + B * H * N)
+    return flops, nbytes
+
+
+def layer_fwd_work(B, N, C, H, D, F):
+    M, HD = B * N, H * D
+    flops = 8 * M * C * HD + 4 * M * C * F + 4 * B * H * N * N * D
+    nbytes = 4 * (2 * M * C + 4 * C * HD + 2 * C * F + 3 * HD + 5 * C + F)
+    return flops, nbytes
+
+
+def attn_bwd_work(B, N, C, H, D):
+    """(operations, bytes) of the backward: the four projection products of
+    the weight and input gradients (16·M·C·HD) and five attention products
+    (recomputed scores, dv, dp, dk, dq); reads x, dz, the saves and the
+    weights once, writes dx and the parameter gradients once."""
+    M, HD = B * N, H * D
+    flops = 16 * M * C * HD + 10 * B * H * N * N * D
+    nbytes = 4 * (3 * M * C + 4 * M * HD + 2 * M + B * H * N
+                  + 2 * (4 * C * HD + 3 * HD + 3 * C) + 2 * B)
+    return flops, nbytes
+
+
+def bwd_args(torch, B, N, C, H, D, rs, seed=1):
+    """Seeded forward inputs (weights as transposed views), a row scale of
+    dropped / kept samples (keep 0.9) when ``rs``, and the output grad."""
+    a = layer_args(torch, B, N, C, H, D, 4 * C, seed=seed)[:7]
+    rng = np.random.default_rng(seed + 100)
+    r = None
+    if rs:
+        keep = rng.random(B) < 0.9
+        keep[0], keep[-1] = False, True  # both kinds at every shape
+        r = torch.from_numpy((keep / 0.9).astype(np.float32)).to(DEVICE)
+    dz = torch.from_numpy(rng.standard_normal((B, N, C)).astype(np.float32)).to(DEVICE)
+    return a, r, dz
+
+
+GRAD_NAMES = ("dx", "dln_scale", "dln_bias", "dwqkv", "dbqkv", "dwout", "dbout", "drs")
+
+
+def backward_kernel(torch):
+    """3b: forward (with saves) + backward kernel against the plain forward
+    + plain backward, twice for bit-identity, at an odd shape and at the
+    trainer's calls (B=128: layer 0 without a row scale, the others with
+    one); returns the timed records of the training forward and of the
+    backward."""
+    from vision_transformers_tpu_torch.ops import fused_layer as fl
+
+    train_shape = (128, 197, 384, 6, 64)
+    worst = {"out": 0.0, "grads": 0.0}
+    for shape, use_rs in (((3, 37, 48, 2, 24), False), ((3, 37, 48, 2, 24), True),
+                          (train_shape, False), (train_shape, True)):
+        a, rs, dz = bwd_args(torch, *shape, use_rs)
+        H = shape[3]
+        out, saved = fl.fused_attention_layer_fwd(*a, H, row_scale=rs)
+        grads = fl.fused_attention_layer_bwd(saved, dz)
+        again = fl.fused_attention_layer_bwd(saved, dz)
+        torch.cuda.synchronize()
+        out_p, saved_p = fl.fused_attention_layer_fwd_reference(*a, H, row_scale=rs)
+        plain = fl.fused_attention_layer_bwd_reference(saved_p, dz)
+        for name, k, k2, p in zip(("out",) + GRAD_NAMES, (out,) + grads,
+                                  (out,) + again, (out_p,) + plain):
+            if p is None:
+                if k is not None:
+                    raise RuntimeError(f"backward: {name} should be None")
+                continue
+            if k.shape != p.shape or not torch.isfinite(k).all():
+                raise RuntimeError(f"backward {shape}: bad {name}")
+            if not torch.equal(k, k2):
+                raise RuntimeError(f"backward {shape}: {name} differs between two "
+                                   f"runs of the kernel")
+            err = (k - p).abs().max().item()
+            tol = 1e-3 * max(1.0, p.abs().max().item())
+            which = "out" if name == "out" else "grads"
+            worst[which] = max(worst[which], err)
+            log(f"backward: B,N,C,H,D={shape} rs={use_rs} {name}: max|kernel-plain| "
+                f"{err:.3e} (tol {tol:.3e}), bit-identical across two runs")
+            if err > tol:
+                raise RuntimeError(f"backward: {name} disagrees with the plain version")
+
+    a, rs, dz = bwd_args(torch, *train_shape, True)
+    H = train_shape[3]
+    _, saved = fl.fused_attention_layer_fwd(*a, H, row_scale=rs)
+    _, saved_p = fl.fused_attention_layer_fwd_reference(*a, H, row_scale=rs)
+    fwd_ms = median_ms(torch, lambda: fl.fused_attention_layer_fwd(*a, H, row_scale=rs))
+    ms = median_ms(torch, lambda: fl.fused_attention_layer_bwd(saved, dz))
+    plain_fwd_ms = median_ms(
+        torch, lambda: fl.fused_attention_layer_fwd_reference(*a, H, row_scale=rs))
+    plain_ms = median_ms(torch, lambda: fl.fused_attention_layer_bwd_reference(saved_p, dz))
+    bwd_ms, by = bound(*attn_bwd_work(*train_shape))
+    fwd_bound, fwd_by = bound(*attn_fwd_work(*train_shape, saves=True))
+    log(f"backward: B=128 N=197 C=384 H=6 D=64 with rs (median of 20, CUDA events): "
+        f"kernel fwd(saves) {fwd_ms:.3f} + bwd {ms:.3f} = {fwd_ms + ms:.3f} ms; "
+        f"plain fwd {plain_fwd_ms:.3f} + bwd {plain_ms:.3f} = "
+        f"{plain_fwd_ms + plain_ms:.3f} ms; bound fwd {fwd_bound:.3f} + bwd "
+        f"{bwd_ms:.3f} ms ({by})")
+    shape = "B,N,C,H,D=" + ",".join(map(str, train_shape)) + ", row scale"
+    fwd = {"shape": shape + ", saves", "max_abs_err": worst["out"], "ms": fwd_ms,
+           "plain_ms": plain_fwd_ms, "bound_ms": fwd_bound, "bound_by": fwd_by,
+           "library_ms": None}
+    bwd = {"shape": shape, "max_abs_err": worst["grads"], "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bwd_ms, "bound_by": by, "library_ms": None}
+    return fwd, bwd
 
 
 # ---------------------------------------------------------------------------
@@ -211,6 +383,7 @@ def counts():
     from vision_transformers_tpu_torch.ops import fused_layer, fused_layer1
 
     return {"fused_attention_layer": fused_layer.LAUNCHES,
+            "fused_attention_layer_bwd": fused_layer.BWD_LAUNCHES,
             "fused_transformer_layer": fused_layer1.LAUNCHES}
 
 
@@ -218,15 +391,16 @@ def reset_counts():
     from vision_transformers_tpu_torch.ops import fused_layer, fused_layer1
 
     fused_layer.LAUNCHES = 0
+    fused_layer.BWD_LAUNCHES = 0
     fused_layer1.LAUNCHES = 0
 
 
-def expect_path(before, after, kernel, depth, what):
+def expect_path(before, after, expected, what):
+    """Each counter moved by ``expected[name]`` (0 where unnamed)."""
     moved = {k: after[k] - before[k] for k in after}
-    other = ({"fused_attention_layer", "fused_transformer_layer"} - {kernel}).pop()
-    if moved[kernel] != depth or moved[other] != 0:
-        raise RuntimeError(f"{what}: expected {depth} launches of {kernel} and none "
-                           f"of {other}, counted {moved}")
+    want = {k: expected.get(k, 0) for k in after}
+    if moved != want:
+        raise RuntimeError(f"{what}: expected launches {want}, counted {moved}")
 
 
 def golden(torch):
@@ -242,7 +416,7 @@ def golden(torch):
         idx = np.arange(rows) % ref.shape[0]
         before = counts()
         logits, top, _ = predict_batch(model, images[idx], 5, DEVICE)
-        expect_path(before, counts(), kernel, arch.depth, f"golden {rows} rows")
+        expect_path(before, counts(), {kernel: arch.depth}, f"golden {rows} rows")
         if logits.shape != (rows, ref.shape[1]) or not np.isfinite(logits).all():
             raise RuntimeError(f"golden: bad logits {logits.shape}")
         err = float(np.abs(logits - ref[idx]).max())
@@ -253,7 +427,60 @@ def golden(torch):
 
 
 # ---------------------------------------------------------------------------
-# 5. predict end to end (the main path)
+# 4b. a full-width train step against the JAX package's gradients
+# ---------------------------------------------------------------------------
+
+
+def train_golden(torch):
+    from vision_transformers_tpu_torch.config.schema import load_config
+    from vision_transformers_tpu_torch.train import loss as L
+    from vision_transformers_tpu_torch.utils.weights import (grad_projections,
+                                                             seeded_state_dict,
+                                                             seeded_train_batch,
+                                                             to_torch)
+
+    with np.load(TRAIN_GOLDEN) as f:
+        g = {k: f[k] for k in f.files}
+    seed, keys, rtol = int(g["seed"]), list(g["keys"]), 1e-3
+    # the golden is one deterministic step: the conf's drop_path 0.1 off
+    arch = dataclasses.replace(load_config(CONF).arch, drop_path=0.0)
+    model = arch.make()
+    model.load_state_dict(to_torch(seeded_state_dict(arch, seed)), strict=True)
+    model.to(DEVICE).train()
+    batch = seeded_train_batch(seed, 2, arch.image_size, arch.n_class)
+    idx = np.arange(64) % 2  # 64 rows take the 'layer' path; the mean over
+    b = {k: torch.from_numpy(v[idx]).to(DEVICE) for k, v in batch.items()}  # copies = 2-row mean
+    before = counts()
+    logits = model(b["image"].permute(0, 3, 1, 2))
+    loss = L.mix_loss(logits, b["label1"].long(), b["label2"].long(), b["ratio"], eps=0.1)
+    loss.backward()
+    torch.cuda.synchronize()
+    expect_path(before, counts(), {"fused_attention_layer": arch.depth,
+                                   "fused_attention_layer_bwd": arch.depth},
+                "train golden, 64 rows")
+    grads = {k: p.grad.double().cpu().numpy() for k, p in model.named_parameters()}
+    if sorted(grads) != keys:
+        raise RuntimeError("train golden: the port's parameters differ from the golden's")
+    norms = np.array([np.linalg.norm(grads[k]) for k in keys])
+    proj = np.array([grad_projections(grads, seed)[k] for k in keys])
+    checks = {
+        "loss": (float(loss.detach()), float(g["loss"])),
+        "grad_norm": (float(np.sqrt((norms ** 2).sum())), float(g["grad_norm"])),
+    }
+    rel = {k: abs(a - b) / abs(b) for k, (a, b) in checks.items()}
+    rel["tensor norms (worst)"] = float(np.max(np.abs(norms - g["norms"]) / g["norms"]))
+    rel["projections (worst, of the tensor norm)"] = float(
+        np.max(np.abs(proj - g["projections"]) / g["norms"]))
+    log(f"train golden: ViT-S/16 @224 depth 12 f32, 64 rows via the 'layer' kernels: "
+        f"loss {checks['loss'][0]:.6f} (JAX {checks['loss'][1]:.6f}), grad_norm "
+        f"{checks['grad_norm'][0]:.5f} (JAX {checks['grad_norm'][1]:.5f}); relative "
+        + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()) + f" (rtol {rtol})")
+    if not all(np.isfinite(v) and v <= rtol for v in rel.values()):
+        raise RuntimeError("train golden: the port's gradients disagree with the JAX package")
+
+
+# ---------------------------------------------------------------------------
+# 5. predict end to end (the serving path)
 # ---------------------------------------------------------------------------
 
 
@@ -266,6 +493,18 @@ def check_lines(lines, files, topk):
         if entry["file"] != path or len(probs) != topk \
                 or not all(0.0 < p <= 1.0 for p in probs) or sum(probs) > 1.0 + 1e-4:
             raise RuntimeError(f"predict: bad line {line}")
+
+
+def write_jpegs(directory, images):
+    """Seeded uint8 images as JPEGs of a few widths; returns the paths."""
+    from PIL import Image
+
+    files = []
+    for i, img in enumerate(images):
+        path = os.path.join(directory, f"img{i:03d}.jpg")
+        Image.fromarray(img[:, : 200 + (i % 5) * 20]).save(path, quality=90)
+        files.append(path)
+    return files
 
 
 def predict_main_path(torch, has_pil, depth):
@@ -281,15 +520,8 @@ def predict_main_path(torch, has_pil, depth):
         ckpt = os.path.join(tmp, "ckpt.pt")
         torch.save({"ema": sd}, ckpt)
         noise = seeded_images(seed, 160, 256)
-        files = []
-        if has_pil:
-            from PIL import Image
-
-            for i, img in enumerate(noise):
-                path = os.path.join(tmp, f"img{i:03d}.jpg")
-                Image.fromarray(img[:, : 200 + (i % 5) * 20]).save(path, quality=90)
-                files.append(path)
-        else:
+        files = write_jpegs(tmp, noise) if has_pil else []
+        if not has_pil:
             log("predict: PIL does not import on this machine, so JPEG decode is "
                 "not exercised; predict_batch runs on the seeded uint8 images")
         reset_counts()  # the main path's run starts here
@@ -308,7 +540,7 @@ def predict_main_path(torch, has_pil, depth):
                 secs = time.perf_counter() - t0
                 if not ((prob > 0) & (prob <= 1)).all() or (prob.sum(-1) > 1 + 1e-4).any():
                     raise RuntimeError("predict: bad probabilities")
-            expect_path(before, counts(), kernel, depth, f"predict {n} images")
+            expect_path(before, counts(), {kernel: depth}, f"predict {n} images")
             rates[n] = n / secs
             log(f"predict: {n} images through "
                 f"{'predict.main (JPEG decode, checkpoint load, forward)' if has_pil else 'predict_batch'}"
@@ -325,10 +557,90 @@ def predict_main_path(torch, has_pil, depth):
             log(f"predict: predict_batch steady state, {n} uint8 images "
                 f"(host→device, forward, top-k back): {secs * 1e3:.2f} ms = "
                 f"{n / secs:.1f} images/s")
-    for name, k in launches.items():
-        if k == 0:
-            raise RuntimeError(f"predict: {name} was not launched on the main path")
-    log(f"predict: launches on the main path {launches}")
+    for name in ("fused_attention_layer", "fused_transformer_layer"):
+        if launches[name] == 0:
+            raise RuntimeError(f"predict: {name} was not launched on the serving path")
+    log(f"predict: launches on the serving path {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 6. the trainer end to end (the slice's main path)
+# ---------------------------------------------------------------------------
+
+
+def train_main_path(torch, has_pil, depth):
+    from vision_transformers_tpu_torch import predict, train
+    from vision_transformers_tpu_torch.ops import _build
+    from vision_transformers_tpu_torch.train import engine
+    from vision_transformers_tpu_torch.utils.weights import seeded_images
+
+    step_secs = []
+    train_step = engine.train_step
+
+    def timed_step(*args, **kwargs):  # per-step wall time, ended by a sync
+        t0 = time.perf_counter()
+        out = train_step(*args, **kwargs)
+        torch.cuda.synchronize()
+        step_secs.append(time.perf_counter() - t0)
+        return out
+
+    _build._BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build._BUILD_DIR) as tmp:
+        args = ["--conf", CONF, "--device", DEVICE, "precision=f32",
+                "training.dataloader.batch_size=128", "training.epoch=1",
+                "data_backend=synthetic", "log_freq=1",
+                f"checker.storage=[{{type: local, path: {tmp}}}]"]
+        engine.train_step = timed_step
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            reset_counts()  # the main path's run starts here
+            t0 = time.perf_counter()
+            metrics = train.main(args)
+            secs = time.perf_counter() - t0
+            launches = counts()  # read just after the main path's run
+        finally:
+            engine.train_step = train_step
+        peak = torch.cuda.max_memory_allocated()
+        expected = {"fused_attention_layer": 4 * depth,
+                    "fused_attention_layer_bwd": 4 * depth,
+                    "fused_transformer_layer": 2 * depth}
+        if launches != expected:
+            raise RuntimeError(f"trainer: expected launches {expected}, counted {launches}")
+        if not all(np.isfinite(metrics[k]) for k in ("loss", "valid_loss")):
+            raise RuntimeError(f"trainer: non-finite metrics {metrics}")
+        ckpt = os.path.join(tmp, "epoch-001.pt")
+        if not os.path.isfile(ckpt):
+            raise RuntimeError("trainer: no epoch-001.pt")
+        log(f"trainer: 1 epoch of ViT-S/16 f32 (4 steps x 128 images, drop_path 0.1, "
+            f"valid 256 images) in {secs:.2f} s: loss {metrics['loss']:.5f}, "
+            f"valid_loss {metrics['valid_loss']:.5f}, prec1 {metrics['prec1']:.3f}; "
+            f"trainer images/s {metrics['images_per_sec']:.1f}; steps "
+            + ", ".join(f"{t * 1e3:.1f}" for t in step_secs) + " ms; steady state "
+            f"(steps 2-4) {np.mean(step_secs[1:]) * 1e3:.2f} ms/step = "
+            f"{128 / np.mean(step_secs[1:]):.1f} images/s; max_memory_allocated "
+            f"{peak / 2**30:.2f} GiB")
+        log(f"trainer: launches on the main path {launches}")
+        # the epoch checkpoint serves
+        noise = seeded_images(11, 48, 256)
+        if has_pil:
+            files = write_jpegs(tmp, noise)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                predict.main(["--conf", CONF, "--checkpoint", f"{ckpt}:model",
+                              "--topk", "5", "--device", DEVICE, *files])
+            check_lines(buf.getvalue().splitlines(), files, 5)
+        else:
+            from vision_transformers_tpu_torch.config.schema import load_config
+            from vision_transformers_tpu_torch.utils.weights import load_checkpoint
+
+            model = load_config(CONF).arch.make()
+            model.load_state_dict(load_checkpoint(f"{ckpt}:model"), strict=True)
+            _, _, prob = predict.predict_batch(model.to(DEVICE).eval(),
+                                               noise[:, :224, :224], 5, DEVICE)
+            if not ((prob > 0) & (prob <= 1)).all():
+                raise RuntimeError("trainer: bad probabilities from the checkpoint")
+        log("trainer: predict read epoch-001.pt:model and classified 48 images")
     return launches
 
 
@@ -339,13 +651,18 @@ def main() -> None:
     name, _, has_pil = probe(torch)
     build()
     measured = kernels(torch)
+    # the record times each kernel at the call the trainer (phase 6) makes
+    fwd, measured["fused_attention_layer_bwd"] = backward_kernel(torch)
+    fwd["max_abs_err"] = max(fwd["max_abs_err"],
+                             measured["fused_attention_layer"]["max_abs_err"])
+    measured["fused_attention_layer"] = fwd
     golden(torch)
-    launches = predict_main_path(torch, has_pil, depth=12)
-    replaces = {"fused_attention_layer": "vision_transformers_tpu/ops/fused_layer.py:116",
-                "fused_transformer_layer": "vision_transformers_tpu/ops/fused_layer1.py:91"}
+    train_golden(torch)
+    predict_main_path(torch, has_pil, depth=12)
+    launches = train_main_path(torch, has_pil, depth=12)
     record = {"kernels": [
-        {"name": k, "route": "cuda", "source": SOURCE, "replaces": replaces[k],
-         "launches": launches[k], **measured[k]} for k in replaces]}
+        {"name": k, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[k], **measured[k]} for k, (src, rep) in KERNELS.items()]}
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,0 +1,123 @@
+#!/usr/bin/env python3
+"""Where the time goes in the port's ViT-S/16 f32 train step on one GPU.
+
+Runs ``engine.train_step`` (seeded weights and a synthetic batch, f32, no
+TF32, AdamW with the conf's clip, DropPath 0.1 drawn from a seeded
+generator) under ``torch.profiler`` after a warm-up and prints the device
+time by kernel per step, grouped by layer (hand-written GEMM, attention
+forward / backward kernels, other hand-written kernels, cuBLAS, the rest),
+the device's busy share of the wall time, and one JSON line.
+
+    python3 scripts/profile_port_train.py [--rows 128] [--steps 5] [--trace out.json]
+
+``--rows`` ≥ 32 takes the fused attention layer (forward and backward
+kernels).  Needs CUDA; imports no JAX.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONF = os.path.join(ROOT, "configs", "vit-s-16.conf")
+
+# kernel-name substring → layer, first match wins
+GROUPS = (("gemm_kernel", "hand-written GEMM"),
+          ("attn_bwd", "hand-written attention backward"),
+          ("attention_kernel", "hand-written attention forward"),
+          ("splitk_reduce", "other hand-written"), ("colsum", "other hand-written"),
+          ("ln_", "other hand-written"), ("attn_delta", "other hand-written"),
+          ("row_scale_grad", "other hand-written"), ("scale_rows", "other hand-written"),
+          ("gemm", "cuBLAS GEMM"), ("sgemm", "cuBLAS GEMM"), ("cutlass", "cuBLAS GEMM"),
+          ("Memcpy", "copies"), ("foreach", "optimizer (foreach)"))
+
+
+def group(name: str) -> str:
+    for key, label in GROUPS:
+        if key in name:
+            return label
+    return "other (elementwise, reductions, conv)"
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--rows", type=int, default=128)
+    parser.add_argument("--steps", type=int, default=5)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--trace", default=None, help="write a chrome trace here")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs CUDA")
+    sys.path.insert(0, ROOT)
+    from vision_transformers_tpu_torch.config.schema import load_config
+    from vision_transformers_tpu_torch.data.synthetic import SyntheticDataset
+    from vision_transformers_tpu_torch.train import engine
+    from vision_transformers_tpu_torch.train.optim import make_optimizer
+    from vision_transformers_tpu_torch.train.trainer import to_device
+    from vision_transformers_tpu_torch.utils.weights import seeded_state_dict, to_torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip().splitlines()[0]
+    conf = load_config(CONF, ["precision=f32"])
+    arch, training = conf.arch, conf.training
+    model = arch.make()
+    model.load_state_dict(to_torch(seeded_state_dict(arch, args.seed)), strict=True)
+    model = model.cuda()
+    state = engine.create_train_state(
+        model, make_optimizer(training, model, lambda c: 1e-4), ema=training.ema)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    batch = to_device(next(SyntheticDataset(args.rows, arch.image_size, arch.n_class,
+                                            seed=args.seed).batches(args.rows)), "cuda")
+
+    def step():
+        return engine.train_step(state, batch, gen, ema=training.ema,
+                                 clip_grad_norm=training.clip_grad_norm)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / args.steps
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+
+    # device-side events only (kernels, memcpy): a CPU op's device time
+    # repeats the time of the kernels it launched
+    rows = [(e.key, e.count // args.steps, e.self_device_time_total / args.steps / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[2])
+    busy = sum(r[2] for r in rows)
+    groups = {}
+    for name, _, ms in rows:
+        groups[group(name)] = groups.get(group(name), 0.0) + ms
+    print(card)
+    print(f"ViT-S/16 @224 f32 train step, {args.rows} rows, {args.steps} profiled "
+          f"steps: wall {wall * 1e3:.3f} ms ({args.rows / wall:.1f} images/s), "
+          f"device busy {busy:.3f} ms ({busy / (wall * 1e3):.1%})")
+    for label, ms in sorted(groups.items(), key=lambda g: -g[1]):
+        print(f"  {ms:9.3f} ms  {ms / busy:6.1%}  {label}")
+    for name, calls, ms in rows[:25]:
+        print(f"  {ms:9.3f} ms  {ms / busy:6.1%}  x{calls:<4d} {name[:90]}")
+    print(json.dumps({"rows": args.rows, "wall_ms": wall * 1e3, "device_ms": busy,
+                      "device_busy_share": busy / (wall * 1e3), "groups": groups,
+                      "kernels": [{"name": n[:120], "calls": c, "ms": m}
+                                  for n, c, m in rows[:25]]}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,11 @@
 """Package boundary of the PyTorch port: no jax / flax / pydantic on import,
-its config validation, its build refusing to run without nvcc, and its GPU
-entry point refusing to fall back to the CPU.  The CUDA kernel checks need a
-card (marker ``cuda``) and skip elsewhere."""
+no file or module of the JAX package read or imported, its own HOCON parser
+agreeing with the JAX package's, its config validation, its build refusing
+to run without nvcc, and its GPU entry point refusing to fall back to the
+CPU.  The CUDA kernel checks need a card (marker ``cuda``) and skip
+elsewhere."""
 
+import json
 import os
 import subprocess
 import sys
@@ -37,6 +40,79 @@ def test_import_pulls_in_no_jax():
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
 
 
+_AUDIT = r"""
+import importlib, json, os, pkgutil, sys
+root = sys.argv[1]
+jax_pkg = os.path.join(root, "vision_transformers_tpu") + os.sep
+seen = []
+
+def hook(event, args):
+    if event == "open" and isinstance(args[0], (str, bytes, os.PathLike)):
+        path = os.path.abspath(os.fsdecode(args[0]))
+        if path.startswith(jax_pkg):
+            seen.append(["open", path])
+    elif event == "import":
+        name = args[0]
+        if name == "vision_transformers_tpu" or name.startswith("vision_transformers_tpu."):
+            seen.append(["import", name])
+
+sys.addaudithook(hook)
+import vision_transformers_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(vision_transformers_tpu_torch.__path__,
+                                               "vision_transformers_tpu_torch.")
+         if not m.name.endswith("__main__")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke  # noqa: F401  (main() is not run)
+print(json.dumps({"modules": names, "seen": seen}))
+"""
+
+
+def test_port_reads_nothing_of_the_jax_package():
+    """An audit hook on ``open`` and ``import`` events while every module of
+    the port and ``chip_smoke`` are imported: no file under
+    ``vision_transformers_tpu/`` is opened, no module of it imported."""
+    out = subprocess.run([sys.executable, "-c", _AUDIT, ROOT], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=300)
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "vision_transformers_tpu_torch.config.hocon" in result["modules"]
+    assert "vision_transformers_tpu_torch.train.trainer" in result["modules"]
+    assert result["seen"] == [], result["seen"]
+
+
+@pytest.mark.parametrize("conf_name", sorted(os.listdir(os.path.join(ROOT, "configs"))))
+def test_hocon_copy_parses_every_conf_alike(conf_name):
+    from vision_transformers_tpu.config import hocon as jax_hocon
+    from vision_transformers_tpu_torch.config import hocon
+
+    path = os.path.join(ROOT, "configs", conf_name)
+    assert hocon.load(path) == jax_hocon.load(path)
+
+
+def test_hocon_copy_applies_overrides_alike():
+    """Dotted ``key=value`` items with every value form ``parse_value``
+    takes: ints, floats, exponents, booleans, null, bare and quoted strings
+    with escapes, lists and objects."""
+    from vision_transformers_tpu.config import hocon as jax_hocon
+    from vision_transformers_tpu_torch.config import hocon
+
+    items = ["a.int=3", "a.neg=-7", "a.float=2.5", "a.exp=1e-3", "a.t=true",
+             "a.y=yes", "a.on=ON", "a.f=false", "a.no=no", "a.off=off",
+             "a.null=null", "a.none=None", "a.bare=hello world",
+             'a.dq="x: \\"q\\"\\n"', "a.sq='single, quoted'",
+             "a.list=[1, 2.5, x, [3, 4]]", "b.c.d={type: local, path: /tmp/x}",
+             "b.empty=[]", "training.scheduler.warmup=0"]
+    base = hocon.load(CONF)
+    ours = hocon.apply_overrides(json.loads(json.dumps(base)), items)
+    theirs = jax_hocon.apply_overrides(json.loads(json.dumps(base)), items)
+    assert ours == theirs
+    assert ours["a"]["exp"] == 1e-3 and ours["a"]["none"] is None
+    assert ours["b"]["c"]["d"] == {"type": "local", "path": "/tmp/x"}
+    for bad in ("no_equals",):
+        with pytest.raises(ValueError):
+            hocon.apply_overrides({}, [bad])
+
+
 def test_vit_s16_conf_loads():
     conf = load_config(CONF)
     arch = conf.arch
@@ -46,7 +122,9 @@ def test_vit_s16_conf_loads():
     assert isinstance(arch.drop_path, float) and arch.drop_path == 0.1
     assert conf.training.valid_size == 224
     assert conf.training.dataloader.batch_size == 1024
-    assert conf.training.optimizer["type"] == "adamw"  # raw until ported
+    assert conf.training.optimizer.type == "adamw"  # typed through the registry
+    assert conf.training.scheduler.type == "cycle"
+    assert conf.checker.storage == [{"type": "local", "path": "checkpoint/vit-s-16"}]
 
 
 def test_overrides_apply():
@@ -127,12 +205,42 @@ def test_cuda_kernels_match_plain(shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("use_rs", [False, True])
+def test_cuda_backward_matches_plain(use_rs):
+    """Forward with saves + backward kernel against the plain forward +
+    plain backward on the card, f32, through the autograd Function; the
+    backward is bit-identical from run to run.  Limit 1e-3·max(1, max|ref|)
+    per tensor: f32 sums over all B·N rows in another order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a = _layer_args(3, 37, 48, 2, 24, 96, "cuda")[:7]
+    for i in (3, 5):
+        a[i] = a[i].t().contiguous().t()
+    rs = torch.tensor([0.0, 1.25, 1.25], device="cuda") if use_rs else None
+    dz = torch.randn(3, 37, 48, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    before = fused_layer.LAUNCHES, fused_layer.BWD_LAUNCHES
+    out, saved = fused_layer.fused_attention_layer_fwd(*a, 2, row_scale=rs)
+    grads = fused_layer.fused_attention_layer_bwd(saved, dz)
+    again = fused_layer.fused_attention_layer_bwd(saved, dz)
+    assert (fused_layer.LAUNCHES, fused_layer.BWD_LAUNCHES) == (before[0] + 1, before[1] + 2)
+    _, saved_p = fused_layer.fused_attention_layer_fwd_reference(*a, 2, row_scale=rs)
+    plain = fused_layer.fused_attention_layer_bwd_reference(saved_p, dz)
+    for k, k2, p in zip(grads, again, plain):
+        if p is None:
+            assert k is None
+            continue
+        assert torch.equal(k, k2)
+        assert (k - p).abs().max().item() <= 1e-3 * max(1.0, p.abs().max().item())
+
+
+@pytest.mark.cuda
 def test_cuda_refuses_what_the_kernel_does_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
     a = _layer_args(2, 17, 32, 2, 16, 64, "cuda")
     with pytest.raises(NotImplementedError):
-        fused_layer.fused_attention_layer(*a[:7], 2, row_scale=torch.ones(2, device="cuda"))
+        fused_layer.fused_attention_layer(*a[:7], 2, extra=torch.zeros(2, 17, 17, device="cuda"))
     with pytest.raises(NotImplementedError):
         fused_layer1.fused_transformer_layer(*a, 2, activation="gelu")
     with pytest.raises(NotImplementedError):

@@ -111,9 +111,19 @@ def test_dispatch_row_gates():
     assert ops.attention_impl(256, default="layer") == "layer"
 
 
-def test_training_forward_with_drop_path_raises(weights, images):
+def test_training_forward_with_drop_path_trains(weights, images):
+    x = torch.from_numpy(images).permute(0, 3, 1, 2)
     model = ViTConfig(**ARCH, drop_path=0.1).make()
     model.load_state_dict(to_torch(weights), strict=True)
+    out = model.train()(x)
+    assert out.shape == (x.shape[0], ARCH["n_class"]) and torch.isfinite(out).all()
+
+
+def test_training_forward_with_dropout_raises(weights, images):
+    """Dropout is not ported: a training forward raises, eval runs."""
+    x = torch.from_numpy(images).permute(0, 3, 1, 2)
+    model = ViTConfig(**ARCH, drop_path=0.1, dropout=0.1).make()
+    model.load_state_dict(to_torch(weights), strict=True)
     with pytest.raises(NotImplementedError):
-        model.train()(torch.from_numpy(images).permute(0, 3, 1, 2))
-    model.eval()(torch.from_numpy(images).permute(0, 3, 1, 2))
+        model.train()(x)
+    model.eval()(x)

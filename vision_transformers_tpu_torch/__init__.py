@@ -1,16 +1,19 @@
 """vision_transformers_tpu_torch — the PyTorch/CUDA port of vision_transformers_tpu.
 
 Written for an NVIDIA H100 (``sm_90a``); the JAX package beside it is the
-reference it is tested against.  This slice holds the ViT-S/16 serving path
-(``python -m vision_transformers_tpu_torch.predict``) with hand-written CUDA
-kernels for the two forward layer kernels (ops/).  Imports torch, never jax.
+reference it is tested against.  It holds the ViT-S/16 serving path
+(``python -m vision_transformers_tpu_torch.predict``) and the f32 training
+path (``python -m vision_transformers_tpu_torch.train``), with hand-written
+CUDA kernels for the two forward layer kernels and the attention layer's
+backward (ops/).  Imports torch, never jax.
 
 Importing this package populates the config registry, so ``.conf`` files
-resolve their ``arch.type`` tags.
+resolve their ``arch``, ``optimizer``, ``scheduler`` and ``checker`` tags.
 """
 
 from . import config  # noqa: F401
 from .config.schema import ImageNetConfig, load_config  # noqa: F401
 from . import models  # noqa: F401
+from . import train  # noqa: F401
 
 __version__ = "0.1.0"

@@ -2,20 +2,20 @@
 
 Counterpart of ``vision_transformers_tpu/config/schema.py`` (itself the
 reference's ``config.py:27-102``), field for field, so the same ``.conf``
-files load unchanged.  ``arch`` is validated through the port's registry.
-``training.optimizer``, ``training.scheduler``, ``checker`` and ``task``
-stay raw dicts until the optimizer, scheduler, checker and DINO modules are
-ported; the serving path reads none of them.
+files load unchanged.  ``arch``, ``training.optimizer``,
+``training.scheduler`` and ``checker`` are typed through the port's
+registry (namespaces ``model``, ``optimizer``, ``scheduler``, ``checker``;
+the checker's ``storage`` / ``reporter`` items resolve when it is made), as
+in the JAX package; an unregistered type raises a KeyError that lists the
+registered ones.  ``task`` (DINO) stays a raw dict until DINO is ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import importlib.util
-import os
 from typing import Any, List, Optional, Tuple
 
-from . import registry
+from . import hocon, registry
 
 __all__ = [
     "Progressive",
@@ -26,21 +26,6 @@ __all__ = [
     "load_config",
     "hocon",
 ]
-
-
-def _load_hocon():
-    """The JAX package's HOCON parser imports only the stdlib; it is loaded
-    by file path, because ``import vision_transformers_tpu`` imports jax."""
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..",
-                        "vision_transformers_tpu", "config", "hocon.py")
-    spec = importlib.util.spec_from_file_location(
-        "vision_transformers_tpu_torch.config._hocon", os.path.normpath(path))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-hocon = _load_hocon()
 
 
 @dataclasses.dataclass
@@ -74,8 +59,8 @@ class DataLoaderConf:
 class Training:
     """Training hyper-parameters (reference: config.py:59-90)."""
 
-    optimizer: dict
-    scheduler: dict
+    optimizer: Any
+    scheduler: Any
 
     base_lr: float
     weight_decay: float
@@ -109,6 +94,8 @@ class Training:
     dataloader: DataLoaderConf = dataclasses.field(default_factory=DataLoaderConf)
 
     def __post_init__(self):
+        self.optimizer = registry.build("optimizer", self.optimizer)
+        self.scheduler = registry.build("scheduler", self.scheduler)
         if self.augment_backend not in ("device", "host"):
             raise ValueError(f"augment_backend must be 'device' or 'host', "
                              f"got {self.augment_backend!r}")
@@ -132,7 +119,7 @@ class ImageNetConfig:
     task: Optional[dict] = None
 
     log_freq: int = 10
-    checker: Optional[dict] = None
+    checker: Any = None
     fp16: bool = False
     logger: str = "rich"
 
@@ -147,6 +134,10 @@ class ImageNetConfig:
 
     def __post_init__(self):
         self.arch = registry.build("model", self.arch)
+        checker = {"type": "checker"} if self.checker is None else self.checker
+        if isinstance(checker, dict):
+            checker = {"type": "checker", **checker}
+        self.checker = registry.build("checker", checker)
 
 
 def load_config(path: str, overrides: Optional[List[str]] = None) -> ImageNetConfig:

@@ -1,0 +1,285 @@
+// Pieces shared by the port's CUDA sources: the row LayerNorm, the tiled
+// f32 FMA GEMM (with its split-K form for weight gradients) and the
+// fixed-order column sums.  Everything is float32 and launches on the
+// caller's stream; nothing here allocates.
+//
+// Every reduction over rows is two-pass and fixed-order (per-slab partial
+// sums, then one ordered sum over the slabs), never float atomics, so a
+// result is bit-identical from run to run.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+// internal linkage: each .cu that includes this gets its own copy
+namespace {
+
+// largest attention head width: the attention kernels hold a head's
+// vectors in registers, zero-padded to this width
+constexpr int DMAX = 64;
+
+inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+inline long long cdivll(long long a, long long b) { return (a + b - 1) / b; }
+
+#define VTX_CHECK(expr)                   \
+  do {                                    \
+    const cudaError_t err_ = (expr);      \
+    if (err_ != cudaSuccess) return err_; \
+  } while (0)
+
+// ---------------------------------------------------------------------------
+// LayerNorm over rows of [rows, C]: one warp per row.  Statistics in f32 in
+// the fast-variance form E[x²]−μ² (vision_transformers_tpu/ops/
+// fused_layer.py:69-76).  mu / rstd [rows] are written when non-null (the
+// training forward saves them for the backward).
+// ---------------------------------------------------------------------------
+
+constexpr int LN_THREADS = 256;
+
+__global__ void __launch_bounds__(LN_THREADS)
+ln_rows_kernel(const float* __restrict__ x, const float* __restrict__ g,
+               const float* __restrict__ b, float* __restrict__ u,
+               float* __restrict__ mu_out, float* __restrict__ rstd_out,
+               int rows, int C, float eps) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;  // uniform across the warp
+  const float* xr = x + (long long)row * C;
+  float s = 0.f, ss = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    const float v = xr[c];
+    s += v;
+    ss = fmaf(v, v, ss);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, o);
+    ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  }
+  const float mu = s / C;
+  const float var = ss / C - mu * mu;
+  const float r = rsqrtf(var + eps);
+  if (lane == 0 && mu_out) {
+    mu_out[row] = mu;
+    rstd_out[row] = r;
+  }
+  float* ur = u + (long long)row * C;
+  for (int c = lane; c < C; c += 32) ur[c] = (xr[c] - mu) * r * g[c] + b[c];
+}
+
+inline cudaError_t launch_ln(const float* x, const float* g, const float* b,
+                             float* u, float* mu, float* rstd, int rows, int C,
+                             float eps, cudaStream_t stream) {
+  ln_rows_kernel<<<cdiv(rows, LN_THREADS / 32), LN_THREADS, 0, stream>>>(
+      x, g, b, u, mu, rstd, rows, C, eps);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// GEMM: out[M, N] = epilogue(A[M, K] · B[K, N]), row-major out, in two forms:
+//   launch_gemm         A row-major [M, K]; epilogue + bias[n] → silu →
+//                       × rs[m / rs_rows] → + res[m, n], each optional
+//   launch_gemm_splitk  A given as Aᵀ storage (element (m, k) at
+//                       A[m + k·lda]: accᵀ, uᵀ) for the weight gradients
+//                       over K = B·N rows: blockIdx.z takes rows
+//                       [z·k_chunk, (z+1)·k_chunk) of K and writes its own
+//                       slab (no epilogue), which splitk_reduce_kernel sums
+//                       in order
+//   B element (k, n) at B[k*sbk + n*sbn] in both, so transposed weight views
+//   (torch's Linear.weight.t()) are read in place.
+// ---------------------------------------------------------------------------
+
+constexpr int GEMM_THREADS = 256;  // 16 x 16
+constexpr int GBM = 128, GBN = 64, GBK = 16;
+constexpr int TM = GBM / 16, TN = GBN / 16;
+
+// SPLIT_K: the weight-gradient form above.  Otherwise A is indexed with K
+// itself as its leading dimension: a separate leading-dimension operand made
+// the forward's loop 16% slower on the H100 (PERF.md).
+template <bool SPLIT_K>
+__global__ void __launch_bounds__(GEMM_THREADS)
+gemm_kernel(const float* __restrict__ A, int lda,
+            const float* __restrict__ B, long long sbk, long long sbn,
+            const float* __restrict__ bias, const float* __restrict__ rs,
+            int rs_rows, const float* __restrict__ res, float* __restrict__ out,
+            int M, int N, int K, int k_chunk, int silu) {
+  // +1 padding keeps the transposed tile stores off a single bank
+  __shared__ float As[GBK][GBM + 1];
+  __shared__ float Bs[GBK][GBN + 1];
+  const int t = threadIdx.x, tx = t % 16, ty = t / 16;
+  const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
+  const int k_begin = SPLIT_K ? blockIdx.z * k_chunk : 0;
+  const int k_end = SPLIT_K ? min(K, k_begin + k_chunk) : K;
+  if (SPLIT_K) out += (long long)blockIdx.z * M * N;
+  // neighbouring threads walk the contiguous dimension of B
+  const bool b_k_contiguous = (sbk == 1);
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = k_begin; k0 < k_end; k0 += GBK) {
+#pragma unroll
+    for (int l = 0; l < GBM * GBK / GEMM_THREADS; ++l) {
+      // neighbouring threads walk the contiguous dimension of A
+      const int idx = t + l * GEMM_THREADS;
+      if (SPLIT_K) {
+        const int am = idx % GBM, ak = idx / GBM;
+        const int gm = m0 + am, gk = k0 + ak;
+        As[ak][am] = (gm < M && gk < k_end) ? A[gm + (long long)gk * lda] : 0.f;
+      } else {
+        const int am = idx / GBK, ak = idx % GBK;
+        const int gm = m0 + am, gk = k0 + ak;
+        As[ak][am] = (gm < M && gk < K) ? A[(long long)gm * K + gk] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int l = 0; l < GBN * GBK / GEMM_THREADS; ++l) {
+      const int idx = t + l * GEMM_THREADS;
+      int bk, bn;
+      if (b_k_contiguous) {
+        bn = idx / GBK;
+        bk = idx % GBK;
+      } else {
+        bk = idx / GBN;
+        bn = idx % GBN;
+      }
+      const int gk = k0 + bk, gn = n0 + bn;
+      Bs[bk][bn] = (gk < k_end && gn < N)
+                       ? B[(long long)gk * sbk + (long long)gn * sbn] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < GBK; ++k) {
+      float a[TM], bv[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = As[k][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) bv[j] = Bs[k][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = m0 + ty + 16 * i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int n = n0 + tx + 16 * j;
+      if (n >= N) continue;
+      float v = acc[i][j];
+      // the split-K form passes null pointers here; compiled out of it, the
+      // epilogue left that form at 80 registers and 31% slower on the H100
+      // (PERF.md)
+      if (bias) v += bias[n];
+      if (silu) v = v / (1.f + expf(-v));
+      if (rs) v *= rs[m / rs_rows];
+      if (res) v += res[(long long)m * N + n];
+      out[(long long)m * N + n] = v;
+    }
+  }
+}
+
+// out = epilogue(A · B) with A row-major [M, K]
+inline cudaError_t launch_gemm(const float* A, const float* B, long long sbk,
+                               long long sbn, const float* bias, const float* rs,
+                               int rs_rows, const float* res, float* out, int M,
+                               int N, int K, int silu, cudaStream_t stream) {
+  if (cdiv(M, GBM) > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(cdiv(N, GBN), cdiv(M, GBM), 1);
+  gemm_kernel<false><<<grid, GEMM_THREADS, 0, stream>>>(
+      A, K, B, sbk, sbn, bias, rs, rs_rows, res, out, M, N, K, K, silu);
+  return cudaGetLastError();
+}
+
+constexpr int REDUCE_THREADS = 256;
+
+// out[m*som + n*son] = Σ_{z < S} part[z, m, n], summed in z order
+__global__ void __launch_bounds__(REDUCE_THREADS)
+splitk_reduce_kernel(const float* __restrict__ part, int S, int M, int N,
+                     float* __restrict__ out, long long som, long long son) {
+  const long long idx = (long long)blockIdx.x * REDUCE_THREADS + threadIdx.x;
+  const long long MN = (long long)M * N;
+  if (idx >= MN) return;
+  float s = 0.f;
+  for (int z = 0; z < S; ++z) s += part[z * MN + idx];
+  const long long m = idx / N, n = idx % N;
+  out[m * som + n * son] = s;
+}
+
+inline cudaError_t launch_splitk_reduce(const float* part, int S, int M, int N,
+                                        float* out, long long som, long long son,
+                                        cudaStream_t stream) {
+  const long long blocks = cdivll((long long)M * N, REDUCE_THREADS);
+  splitk_reduce_kernel<<<(unsigned)blocks, REDUCE_THREADS, 0, stream>>>(
+      part, S, M, N, out, som, son);
+  return cudaGetLastError();
+}
+
+// out[M, N] (element (m, n) at out[m*som + n*son]) = A · B over a long K,
+// with A as Aᵀ storage (element (m, k) at A[m + k·lda]), as `splits`
+// K-slabs written to `part` ([splits, M, N]) and summed in order
+inline cudaError_t launch_gemm_splitk(const float* A, int lda, const float* B,
+                                      long long sbk, long long sbn, float* part,
+                                      int splits, float* out, long long som,
+                                      long long son, int M, int N, int K,
+                                      cudaStream_t stream) {
+  if (splits < 1 || splits > 65535 || cdiv(M, GBM) > 65535)
+    return cudaErrorInvalidValue;
+  const int k_chunk = cdiv(cdiv(K, splits), GBK) * GBK;
+  const dim3 grid(cdiv(N, GBN), cdiv(M, GBM), splits);
+  gemm_kernel<true><<<grid, GEMM_THREADS, 0, stream>>>(
+      A, lda, B, sbk, sbn, nullptr, nullptr, 1, nullptr, part, M, N, K, k_chunk, 0);
+  VTX_CHECK(cudaGetLastError());
+  return launch_splitk_reduce(part, splits, M, N, out, som, son, stream);
+}
+
+// ---------------------------------------------------------------------------
+// Column sums over rows of [M, C]:
+//   out[c] = Σ_m A[m, c]                                   (X == nullptr)
+//   out[c] = Σ_m A[m, c] · (X[m, c] − mu[m]) · rstd[m]     (the LN's x̂)
+// Pass 1: block (column tile, row chunk z) writes part[z, c]; pass 2 sums
+// the chunks in order.
+// ---------------------------------------------------------------------------
+
+constexpr int COLSUM_THREADS = 128;
+constexpr int COLSUM_ROWS = 128;  // rows per chunk
+
+inline int colsum_chunks(int M) { return cdiv(M, COLSUM_ROWS); }
+
+__global__ void __launch_bounds__(COLSUM_THREADS)
+colsum_kernel(const float* __restrict__ A, const float* __restrict__ X,
+              const float* __restrict__ mu, const float* __restrict__ rstd,
+              float* __restrict__ part, int M, int C) {
+  const int c = blockIdx.x * COLSUM_THREADS + threadIdx.x;
+  if (c >= C) return;
+  const int r0 = blockIdx.y * COLSUM_ROWS, r1 = min(M, r0 + COLSUM_ROWS);
+  float s = 0.f;
+  for (int r = r0; r < r1; ++r) {
+    const long long i = (long long)r * C + c;
+    s += X ? A[i] * ((X[i] - mu[r]) * rstd[r]) : A[i];
+  }
+  part[(long long)blockIdx.y * C + c] = s;
+}
+
+// part: scratch of colsum_chunks(M) * C floats
+inline cudaError_t launch_colsum(const float* A, const float* X, const float* mu,
+                                 const float* rstd, float* part, float* out,
+                                 int M, int C, cudaStream_t stream) {
+  const int chunks = colsum_chunks(M);
+  if (chunks > 65535) return cudaErrorInvalidValue;
+  colsum_kernel<<<dim3(cdiv(C, COLSUM_THREADS), chunks), COLSUM_THREADS, 0, stream>>>(
+      A, X, mu, rstd, part, M, C);
+  VTX_CHECK(cudaGetLastError());
+  return launch_splitk_reduce(part, chunks, 1, C, out, 0, 1, stream);
+}
+
+}  // namespace

@@ -2,16 +2,21 @@
 //
 // Replaces the TPU (Pallas) kernels
 //   vision_transformers_tpu/ops/fused_layer.py:116   _attn_layer_fwd_kernel
-//       z = x + OutProj(MHSA(QkvProj(LN1(x))))
+//       z = x + r ⊙ OutProj(MHSA(QkvProj(LN1(x))))
 //   vision_transformers_tpu/ops/fused_layer1.py:91   _l1_fwd_kernel
 //       o = z + (silu(LN2(z)·W1 + b1)·W2 + b2)
 // with one C entry point per op, each a short sequence of hand-written
 // launches on the caller's stream:
-//   vtx_fused_attention_layer_fwd   = ln_rows → gemm(+bqkv) → attention → gemm(+bout, +x)
+//   vtx_fused_attention_layer_fwd   = ln_rows → gemm(+bqkv) → attention → gemm(+bout, ×r, +x)
 //   vtx_fused_transformer_layer_fwd = the above → ln_rows → gemm(+b1, silu) → gemm(+b2, +z)
 // The Pallas kernels keep every intermediate in VMEM; here the LN output,
 // qkv, the attention output and the FF hidden go through device memory
-// between launches (workspace the wrapper allocates).
+// between launches (workspace the wrapper allocates).  In training the
+// attention half keeps what its backward (fused_layer_bwd.cu) reads instead
+// of discarding it: qkv, the attention output acc, the LN statistics
+// mu / rstd and the softmax log-sum-exp lse [B, H, N] (the JAX kernel's
+// "acc+qkv" save, fused_layer.py:404-419, plus what recomputing u and p
+// needs).  r is the optional per-sample DropPath scale [B].
 //
 // What bounds it on this card.  At ViT-S/16 (N=197, C=384, F=1536) the four
 // projections are about 8.4 GFLOP per image over 12 layers, the scores and
@@ -32,157 +37,26 @@
 // Weights are read through (row, col) strides, so a transposed view
 // (torch's Linear.weight.t()) is consumed in place, without a copy.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "common.cuh"
 
 namespace {
 
-inline int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-// ---------------------------------------------------------------------------
-// LayerNorm over rows of [rows, C]: one warp per row
-// ---------------------------------------------------------------------------
-
-constexpr int LN_THREADS = 256;
-
-__global__ void __launch_bounds__(LN_THREADS)
-ln_rows_kernel(const float* __restrict__ x, const float* __restrict__ g,
-               const float* __restrict__ b, float* __restrict__ u,
-               int rows, int C, float eps) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;  // uniform across the warp
-  const float* xr = x + (long long)row * C;
-  float s = 0.f, ss = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    const float v = xr[c];
-    s += v;
-    ss = fmaf(v, v, ss);
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    s += __shfl_xor_sync(0xffffffffu, s, o);
-    ss += __shfl_xor_sync(0xffffffffu, ss, o);
-  }
-  const float mu = s / C;
-  const float var = ss / C - mu * mu;
-  const float r = rsqrtf(var + eps);
-  float* ur = u + (long long)row * C;
-  for (int c = lane; c < C; c += 32) ur[c] = (xr[c] - mu) * r * g[c] + b[c];
-}
-
-cudaError_t launch_ln(const float* x, const float* g, const float* b, float* u,
-                      int rows, int C, float eps, cudaStream_t stream) {
-  ln_rows_kernel<<<cdiv(rows, LN_THREADS / 32), LN_THREADS, 0, stream>>>(
-      x, g, b, u, rows, C, eps);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// GEMM: out[M, N] = epilogue(A[M, K] · B[K, N])
-//   A row-major (leading dimension K); B element (k, n) at B[k*sbk + n*sbn];
-//   epilogue: + bias[n] (optional) → silu (optional) → + res[m, n] (optional).
-// ---------------------------------------------------------------------------
-
-constexpr int GEMM_THREADS = 256;  // 16 x 16
-constexpr int GBM = 128, GBN = 64, GBK = 16;
-constexpr int TM = GBM / 16, TN = GBN / 16;
-
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
-            long long sbk, long long sbn, const float* __restrict__ bias,
-            const float* __restrict__ res, float* __restrict__ out,
-            int M, int N, int K, int silu) {
-  // +1 padding keeps the transposed tile stores off a single bank
-  __shared__ float As[GBK][GBM + 1];
-  __shared__ float Bs[GBK][GBN + 1];
-  const int t = threadIdx.x, tx = t % 16, ty = t / 16;
-  const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
-  // neighbouring threads walk the contiguous dimension of B
-  const bool b_k_contiguous = (sbk == 1);
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += GBK) {
-#pragma unroll
-    for (int l = 0; l < GBM * GBK / GEMM_THREADS; ++l) {
-      const int idx = t + l * GEMM_THREADS;
-      const int am = idx / GBK, ak = idx % GBK;
-      const int gm = m0 + am, gk = k0 + ak;
-      As[ak][am] = (gm < M && gk < K) ? A[(long long)gm * K + gk] : 0.f;
-    }
-#pragma unroll
-    for (int l = 0; l < GBN * GBK / GEMM_THREADS; ++l) {
-      const int idx = t + l * GEMM_THREADS;
-      int bk, bn;
-      if (b_k_contiguous) {
-        bn = idx / GBK;
-        bk = idx % GBK;
-      } else {
-        bk = idx / GBN;
-        bn = idx % GBN;
-      }
-      const int gk = k0 + bk, gn = n0 + bn;
-      Bs[bk][bn] = (gk < K && gn < N) ? B[(long long)gk * sbk + (long long)gn * sbn] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < GBK; ++k) {
-      float a[TM], bv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) bv[j] = Bs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= N) continue;
-      float v = acc[i][j];
-      if (bias) v += bias[n];
-      if (silu) v = v / (1.f + expf(-v));
-      if (res) v += res[(long long)m * N + n];
-      out[(long long)m * N + n] = v;
-    }
-  }
-}
-
-cudaError_t launch_gemm(const float* A, const float* B, long long sbk, long long sbn,
-                        const float* bias, const float* res, float* out,
-                        int M, int N, int K, int silu, cudaStream_t stream) {
-  const dim3 grid(cdiv(N, GBN), cdiv(M, GBM));
-  gemm_kernel<<<grid, GEMM_THREADS, 0, stream>>>(A, B, sbk, sbn, bias, res, out,
-                                                 M, N, K, silu);
-  return cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
 // Attention over the packed projection qkv [B*N, 3*H*D] (q-heads | k-heads |
-// v-heads) → out [B*N, H*D].  Grid (query tiles, H, B); one query per thread.
+// v-heads) → out [B*N, H*D], and the row log-sum-exp lse [B, H, N] of the
+// scaled scores when lse is non-null.  Grid (query tiles, H, B); one query
+// per thread.
 // ---------------------------------------------------------------------------
 
 constexpr int AQ = 64;     // queries per block = threads per block
 constexpr int AKV = 32;    // keys per shared-memory tile
-constexpr int DMAX = 64;   // largest head width (registers hold q and o)
 
+// SAVE_LSE: the training forward's variant, which also writes lse (a
+// separate instantiation keeps the serving kernel's registers as they were)
+template <bool SAVE_LSE>
 __global__ void __launch_bounds__(AQ)
 attention_kernel(const float* __restrict__ qkv, float* __restrict__ out,
-                 int N, int H, int D, float scale) {
+                 float* __restrict__ lse, int N, int H, int D, float scale) {
   __shared__ float Ks[AKV][DMAX];
   __shared__ float Vs[AKV][DMAX];
   const int b = blockIdx.z, h = blockIdx.y;
@@ -244,38 +118,38 @@ attention_kernel(const float* __restrict__ qkv, float* __restrict__ out,
 #pragma unroll
     for (int d = 0; d < DMAX; ++d)
       if (d < D) orow[d] = o[d] * inv;
+    if (SAVE_LSE) lse[((long long)b * H + h) * N + qi] = m + logf(l);
   }
 }
 
-cudaError_t launch_attention(const float* qkv, float* out, int B, int N, int H,
-                             int D, float scale, cudaStream_t stream) {
+cudaError_t launch_attention(const float* qkv, float* out, float* lse, int B,
+                             int N, int H, int D, float scale,
+                             cudaStream_t stream) {
   if (D > DMAX || B > 65535 || H > 65535) return cudaErrorInvalidValue;
   const dim3 grid(cdiv(N, AQ), H, B);
-  attention_kernel<<<grid, AQ, 0, stream>>>(qkv, out, N, H, D, scale);
+  if (lse)
+    attention_kernel<true><<<grid, AQ, 0, stream>>>(qkv, out, lse, N, H, D, scale);
+  else
+    attention_kernel<false><<<grid, AQ, 0, stream>>>(qkv, out, lse, N, H, D, scale);
   return cudaGetLastError();
 }
 
-#define VTX_CHECK(expr)                 \
-  do {                                  \
-    const cudaError_t err_ = (expr);    \
-    if (err_ != cudaSuccess) return err_; \
-  } while (0)
-
-// z = x + OutProj(MHSA(QkvProj(LN(x)))), writing u, qkv, acc on the way
+// z = x + rs ⊙ OutProj(MHSA(QkvProj(LN(x)))), writing u, qkv, acc on the
+// way (and mu, rstd, lse when non-null)
 cudaError_t attention_half(
     const float* x, const float* ln_g, const float* ln_b,
     const float* wqkv, long long wqkv_s0, long long wqkv_s1, const float* bqkv,
     const float* wout, long long wout_s0, long long wout_s1, const float* bout,
-    float* u, float* qkv, float* acc, float* z,
-    int B, int N, int C, int H, int D, float scale, float eps,
-    cudaStream_t stream) {
+    const float* rs, float* u, float* qkv, float* acc, float* mu, float* rstd,
+    float* lse, float* z, int B, int N, int C, int H, int D, float scale,
+    float eps, cudaStream_t stream) {
   const int M = B * N, HD = H * D;
-  VTX_CHECK(launch_ln(x, ln_g, ln_b, u, M, C, eps, stream));
-  VTX_CHECK(launch_gemm(u, wqkv, wqkv_s0, wqkv_s1, bqkv, nullptr, qkv, M, 3 * HD,
-                        C, 0, stream));
-  VTX_CHECK(launch_attention(qkv, acc, B, N, H, D, scale, stream));
-  VTX_CHECK(launch_gemm(acc, wout, wout_s0, wout_s1, bout, x, z, M, C, HD, 0,
-                        stream));
+  VTX_CHECK(launch_ln(x, ln_g, ln_b, u, mu, rstd, M, C, eps, stream));
+  VTX_CHECK(launch_gemm(u, wqkv, wqkv_s0, wqkv_s1, bqkv, nullptr, 1, nullptr,
+                        qkv, M, 3 * HD, C, 0, stream));
+  VTX_CHECK(launch_attention(qkv, acc, lse, B, N, H, D, scale, stream));
+  VTX_CHECK(launch_gemm(acc, wout, wout_s0, wout_s1, bout, rs, N, x, z, M, C,
+                        HD, 0, stream));
   return cudaSuccess;
 }
 
@@ -292,27 +166,32 @@ cudaError_t transformer_layer(
     cudaStream_t s) {
   const int M = B * N;
   VTX_CHECK(attention_half(x, ln1_g, ln1_b, wqkv, wqkv_s0, wqkv_s1, bqkv, wout,
-                           wout_s0, wout_s1, bout, u, qkv, acc, z, B, N, C, H,
-                           D, scale, eps, s));
-  VTX_CHECK(launch_ln(z, ln2_g, ln2_b, u, M, C, eps, s));
-  VTX_CHECK(launch_gemm(u, w1, w1_s0, w1_s1, b1, nullptr, hid, M, F, C, 1, s));
-  VTX_CHECK(launch_gemm(hid, w2, w2_s0, w2_s1, b2, z, out, M, C, F, 0, s));
+                           wout_s0, wout_s1, bout, nullptr, u, qkv, acc,
+                           nullptr, nullptr, nullptr, z, B, N, C, H, D, scale,
+                           eps, s));
+  VTX_CHECK(launch_ln(z, ln2_g, ln2_b, u, nullptr, nullptr, M, C, eps, s));
+  VTX_CHECK(launch_gemm(u, w1, w1_s0, w1_s1, b1, nullptr, 1, nullptr, hid, M, F,
+                        C, 1, s));
+  VTX_CHECK(launch_gemm(hid, w2, w2_s0, w2_s1, b2, nullptr, 1, z, out, M, C, F,
+                        0, s));
   return cudaSuccess;
 }
 
 }  // namespace
 
 // The C entry points return the first cudaError_t met (0 = success).
+// rs, mu, rstd and lse may be null: the serving forward passes none of them.
 
 extern "C" int vtx_fused_attention_layer_fwd(
     const float* x, const float* ln_g, const float* ln_b,
     const float* wqkv, long long wqkv_s0, long long wqkv_s1, const float* bqkv,
     const float* wout, long long wout_s0, long long wout_s1, const float* bout,
-    float* u, float* qkv, float* acc, float* out,
-    int B, int N, int C, int H, int D, float scale, float eps, void* stream) {
+    const float* rs, float* u, float* qkv, float* acc, float* mu, float* rstd,
+    float* lse, float* out, int B, int N, int C, int H, int D, float scale,
+    float eps, void* stream) {
   return static_cast<int>(attention_half(
       x, ln_g, ln_b, wqkv, wqkv_s0, wqkv_s1, bqkv, wout, wout_s0, wout_s1, bout,
-      u, qkv, acc, out, B, N, C, H, D, scale, eps,
+      rs, u, qkv, acc, mu, rstd, lse, out, B, N, C, H, D, scale, eps,
       static_cast<cudaStream_t>(stream)));
 }
 

@@ -1,0 +1,466 @@
+// Backward of the pre-LN attention residual branch, float32, for Hopper
+// (sm_90a):
+//
+//   z = x + r ⊙ OutProj(MHSA(QkvProj(LN(x))))
+//
+// Replaces the TPU (Pallas) kernel
+//   vision_transformers_tpu/ops/fused_layer.py:183   _attn_layer_bwd_kernel
+// and computes what it computes: dx, dln_scale, dln_bias, dwqkv, dbqkv,
+// dwout, dbout and, when r needs a gradient, dr.  It reads the residuals the
+// training forward (fused_layer.cu) saved: qkv [M, 3HD], the attention
+// output acc [M, HD], the LN statistics mu / rstd [M] and the softmax
+// log-sum-exp lse [B, H, N] (M = B·N rows).  One C entry,
+// vtx_fused_attention_layer_bwd, is a fixed sequence of launches on the
+// caller's stream:
+//
+//   1. da = r ⊙ dz;  dwout = accᵀ·da;  dbout = Σ_rows da
+//   2. dacc₀ = dz·woutᵀ;  dr[b] = Σ_{n∈b}(Σ_k dacc₀⊙acc + Σ_c dz⊙bout)
+//      (the reassociation of fused_layer.py:276-288);  dacc = r ⊙ dacc₀
+//   3. attention backward, FlashAttention-2 style, no N×N matrix in device
+//      memory: Δ = rowsum(dacc_h ⊙ acc_h); a key-tile pass recomputes
+//      p = exp(q·kᵀ·s − lse) and accumulates dv += pᵀ·do, dk += dsᵀ·q·s with
+//      ds = p ⊙ (do·vᵀ − Δ); a query-tile pass accumulates dq += ds·k·s.
+//      Both write dqkv [M, 3HD] (q-heads | k-heads | v-heads).
+//   4. u = LN(x) recomputed from x, mu, rstd;  dwqkv = uᵀ·dqkv;
+//      dbqkv = Σ_rows dqkv
+//   5. dln = dqkv·wqkvᵀ
+//   6. LN backward as _ln_bwd (fused_layer.py:79-87):
+//      dx = dz + rstd·(dx̂ − mean(dx̂) − x̂·mean(dx̂⊙x̂)), dx̂ = dln ⊙ g;
+//      dg = Σ_rows dln ⊙ x̂;  db = Σ_rows dln
+//
+// Determinism: every reduction over rows (the weight GEMMs' K = M sums, the
+// bias / LN-parameter column sums, dr) is a fixed-order two-pass sum (split-K
+// slabs or row chunks, then an ordered sum over them) or one block's fixed
+// tree; there are no float atomics, so the gradients are bit-identical from
+// run to run.
+//
+// What bounds it on this card.  The four projection GEMMs do 16·M·C·HD
+// operations — about 2x the forward's projection work — and attention does
+// 5 products of 2·B·H·N²·D (recomputed scores, dv, dp, dk, dq) — about 2.5x
+// the forward's attention work; at ViT-S/16 (C = HD = 384, N = 197) the
+// GEMMs are ~75% of it.  All of it runs as plain f32 FMAs (no tensor cores):
+// the bound is the f32 FMA rate, 67 TFLOP/s at 700 W.  The GEMMs reuse the
+// forward's tiled FMA GEMM, reading accᵀ, uᵀ, woutᵀ and wqkvᵀ through
+// strides; the attention kernels hold one key (or query) per thread with its
+// accumulators in registers and stream the other side through shared memory,
+// in d-outer passes that keep nothing else live across a tile.
+//
+// What later work changes: wgmma on bf16 operands with TMA-fed shared-memory
+// rings, bf16 storage of the saved residuals, and fusing the launches (the
+// LN backward into the dln GEMM's epilogue, Δ into the attention passes, the
+// column sums into the weight GEMMs).
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int EW_THREADS = 256;
+
+// ---------------------------------------------------------------------------
+// 1. da = rs[m / N] · dz
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(EW_THREADS)
+scale_rows_kernel(const float* __restrict__ src, const float* __restrict__ rs,
+                  int rows_per_scale, int C, long long total,
+                  float* __restrict__ dst) {
+  const long long i = (long long)blockIdx.x * EW_THREADS + threadIdx.x;
+  if (i >= total) return;
+  dst[i] = src[i] * rs[(i / C) / rows_per_scale];
+}
+
+// ---------------------------------------------------------------------------
+// 2. per sample b (one block): dr[b] = Σ_{rows of b} (dacc₀·acc + dz·bout),
+//    and dacc = rs[b] · dacc₀ in place
+// ---------------------------------------------------------------------------
+
+constexpr int DRS_THREADS = 256;
+
+__global__ void __launch_bounds__(DRS_THREADS)
+row_scale_grad_kernel(float* __restrict__ dacc, const float* __restrict__ acc,
+                      const float* __restrict__ dz, const float* __restrict__ bout,
+                      const float* __restrict__ rs, float* __restrict__ drs,
+                      int N, int HD, int C) {
+  __shared__ float red[DRS_THREADS];
+  const int b = blockIdx.x, t = threadIdx.x;
+  const float r = rs[b];
+  const long long a0 = (long long)b * N * HD;
+  float s = 0.f;
+  for (long long i = t; i < (long long)N * HD; i += DRS_THREADS) {
+    const float d0 = dacc[a0 + i];
+    s = fmaf(d0, acc[a0 + i], s);
+    dacc[a0 + i] = d0 * r;
+  }
+  if (drs) {
+    if (bout) {
+      const long long z0 = (long long)b * N * C;
+      for (long long i = t; i < (long long)N * C; i += DRS_THREADS)
+        s = fmaf(dz[z0 + i], bout[i % C], s);
+    }
+    red[t] = s;
+    __syncthreads();
+    for (int o = DRS_THREADS / 2; o > 0; o >>= 1) {
+      if (t < o) red[t] += red[t + o];
+      __syncthreads();
+    }
+    if (t == 0) drs[b] = red[0];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 3a. Δ[b, h, n] = Σ_d dacc[m, h·D + d] · acc[m, h·D + d]   (m = b·N + n)
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(EW_THREADS)
+attn_delta_kernel(const float* __restrict__ dacc, const float* __restrict__ acc,
+                  float* __restrict__ delta, int B, int N, int H, int D) {
+  const long long i = (long long)blockIdx.x * EW_THREADS + threadIdx.x;
+  if (i >= (long long)B * H * N) return;
+  const int n = i % N;
+  const int h = (i / N) % H;
+  const long long b = i / ((long long)N * H);
+  const long long off = (b * N + n) * H * D + (long long)h * D;
+  float s = 0.f;
+  for (int d = 0; d < D; ++d) s = fmaf(dacc[off + d], acc[off + d], s);
+  delta[i] = s;
+}
+
+// ---------------------------------------------------------------------------
+// 3b. key-tile pass: dk, dv.  Grid (key tiles, H, B); one key per thread,
+//     its dk / dv accumulators in registers, its k / v rows in (padded)
+//     shared memory; query tiles of q, do, lse, Δ streamed through shared
+//     memory and read by every thread (broadcast).  Per query tile, two
+//     d-outer passes: the scores and do·v of all BQ queries (k[d], v[d]
+//     read once per d), then the dk / dv updates — so no row but the
+//     accumulators stays in registers.
+// ---------------------------------------------------------------------------
+
+constexpr int BK = 64;   // keys per block = threads per block
+constexpr int BQ = 16;   // queries per shared-memory tile
+
+__global__ void __launch_bounds__(BK)
+attn_bwd_dkdv_kernel(const float* __restrict__ qkv, const float* __restrict__ dacc,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     float* __restrict__ dqkv, int N, int H, int D, float scale) {
+  __shared__ float Ks[BK][DMAX + 1];  // +1: thread t reads row t, bank-free
+  __shared__ float Vs[BK][DMAX + 1];
+  __shared__ float Qs[BQ][DMAX];
+  __shared__ float dOs[BQ][DMAX];
+  __shared__ float Ls[BQ], Ds[BQ];
+  const int b = blockIdx.z, h = blockIdx.y, t = threadIdx.x;
+  const int HD = H * D;
+  const long long row_stride = 3LL * HD;
+  const float* base = qkv + (long long)b * N * row_stride;
+  const float* dbase = dacc + (long long)b * N * HD;
+  const float* lbase = lse + ((long long)b * H + h) * N;
+  const float* delbase = delta + ((long long)b * H + h) * N;
+  const int k0 = blockIdx.x * BK;
+
+  for (int idx = t; idx < BK * DMAX; idx += BK) {
+    const int j = idx / DMAX, d = idx % DMAX;
+    const bool ok = k0 + j < N && d < D;
+    const float* rowp = base + (long long)(k0 + j) * row_stride + h * D + d;
+    Ks[j][d] = ok ? rowp[HD] : 0.f;
+    Vs[j][d] = ok ? rowp[2 * HD] : 0.f;
+  }
+
+  float dk[DMAX], dv[DMAX];
+#pragma unroll
+  for (int d = 0; d < DMAX; ++d) dk[d] = dv[d] = 0.f;
+
+  for (int q0 = 0; q0 < N; q0 += BQ) {
+    __syncthreads();  // Ks / Vs written, or the last tile fully read
+    for (int idx = t; idx < BQ * DMAX; idx += BK) {
+      const int i = idx / DMAX, d = idx % DMAX;
+      const bool ok = q0 + i < N && d < D;
+      Qs[i][d] = ok ? base[(long long)(q0 + i) * row_stride + h * D + d] : 0.f;
+      dOs[i][d] = ok ? dbase[(long long)(q0 + i) * HD + h * D + d] : 0.f;
+    }
+    if (t < BQ) {
+      const bool ok = q0 + t < N;
+      Ls[t] = ok ? lbase[q0 + t] : INFINITY;  // p = exp(-inf) = 0 for padding
+      Ds[t] = ok ? delbase[q0 + t] : 0.f;
+    }
+    __syncthreads();
+    float p[BQ], ds[BQ];
+#pragma unroll
+    for (int i = 0; i < BQ; ++i) p[i] = ds[i] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < DMAX; ++d) {
+      const float kd = Ks[t][d], vd = Vs[t][d];
+#pragma unroll
+      for (int i = 0; i < BQ; ++i) {
+        p[i] = fmaf(Qs[i][d], kd, p[i]);     // the score q_i·k
+        ds[i] = fmaf(dOs[i][d], vd, ds[i]);  // do_i·v
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < BQ; ++i) {
+      p[i] = expf(p[i] * scale - Ls[i]);
+      ds[i] = p[i] * (ds[i] - Ds[i]);
+    }
+#pragma unroll
+    for (int d = 0; d < DMAX; ++d) {
+      float v_acc = dv[d], k_acc = dk[d];
+#pragma unroll
+      for (int i = 0; i < BQ; ++i) {
+        v_acc = fmaf(p[i], dOs[i][d], v_acc);
+        k_acc = fmaf(ds[i], Qs[i][d], k_acc);
+      }
+      dv[d] = v_acc;
+      dk[d] = k_acc;
+    }
+  }
+
+  const int kj = k0 + t;
+  if (kj < N) {
+    float* row = dqkv + ((long long)b * N + kj) * row_stride + h * D;
+#pragma unroll
+    for (int d = 0; d < DMAX; ++d) {
+      if (d < D) {
+        row[HD + d] = dk[d] * scale;
+        row[2 * HD + d] = dv[d];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 3c. query-tile pass: dq.  Grid (query tiles, H, B); one query per thread,
+//     its dq accumulator in registers, its q and do rows in (padded) shared
+//     memory; key tiles of k and v streamed through shared memory
+//     (broadcast).  Per key tile, two d-outer passes as in 3b: the scores
+//     and do·v of all BKV keys, then the dq update.
+// ---------------------------------------------------------------------------
+
+constexpr int BQQ = 64;  // queries per block = threads per block
+constexpr int BKV = 16;  // keys per shared-memory tile
+
+__global__ void __launch_bounds__(BQQ)
+attn_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ dacc,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   float* __restrict__ dqkv, int N, int H, int D, float scale) {
+  __shared__ float Qs[BQQ][DMAX + 1];   // +1: thread t reads row t, bank-free
+  __shared__ float dOs[BQQ][DMAX + 1];
+  __shared__ float Ks[BKV][DMAX];
+  __shared__ float Vs[BKV][DMAX];
+  const int b = blockIdx.z, h = blockIdx.y, t = threadIdx.x;
+  const int HD = H * D;
+  const long long row_stride = 3LL * HD;
+  const float* base = qkv + (long long)b * N * row_stride;
+  const float* dbase = dacc + (long long)b * N * HD;
+  const int q0 = blockIdx.x * BQQ;
+  const int qi = q0 + t;
+
+  for (int idx = t; idx < BQQ * DMAX; idx += BQQ) {
+    const int i = idx / DMAX, d = idx % DMAX;
+    const bool ok = q0 + i < N && d < D;
+    Qs[i][d] = ok ? base[(long long)(q0 + i) * row_stride + h * D + d] : 0.f;
+    dOs[i][d] = ok ? dbase[(long long)(q0 + i) * HD + h * D + d] : 0.f;
+  }
+  float dq[DMAX];
+#pragma unroll
+  for (int d = 0; d < DMAX; ++d) dq[d] = 0.f;
+  const long long lrow = ((long long)b * H + h) * N + qi;
+  const float l = qi < N ? lse[lrow] : 0.f;
+  const float dl = qi < N ? delta[lrow] : 0.f;
+
+  for (int k0 = 0; k0 < N; k0 += BKV) {
+    __syncthreads();  // Qs / dOs written, or the last tile fully read
+    for (int idx = t; idx < BKV * DMAX; idx += BQQ) {
+      const int j = idx / DMAX, d = idx % DMAX;
+      const bool ok = k0 + j < N && d < D;
+      const float* rowp = base + (long long)(k0 + j) * row_stride + h * D + d;
+      Ks[j][d] = ok ? rowp[HD] : 0.f;
+      Vs[j][d] = ok ? rowp[2 * HD] : 0.f;
+    }
+    __syncthreads();
+    float p[BKV], ds[BKV];
+#pragma unroll
+    for (int j = 0; j < BKV; ++j) p[j] = ds[j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < DMAX; ++d) {
+      const float qd = Qs[t][d], dod = dOs[t][d];
+#pragma unroll
+      for (int j = 0; j < BKV; ++j) {
+        p[j] = fmaf(qd, Ks[j][d], p[j]);     // the score q·k_j
+        ds[j] = fmaf(dod, Vs[j][d], ds[j]);  // do·v_j
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < BKV; ++j) {
+      p[j] = (k0 + j < N) ? expf(p[j] * scale - l) : 0.f;
+      ds[j] = p[j] * (ds[j] - dl);
+    }
+#pragma unroll
+    for (int d = 0; d < DMAX; ++d) {
+      float acc = dq[d];
+#pragma unroll
+      for (int j = 0; j < BKV; ++j) acc = fmaf(ds[j], Ks[j][d], acc);
+      dq[d] = acc;
+    }
+  }
+
+  if (qi < N) {
+    float* row = dqkv + ((long long)b * N + qi) * row_stride + h * D;
+#pragma unroll
+    for (int d = 0; d < DMAX; ++d)
+      if (d < D) row[d] = dq[d] * scale;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 4. u = (x − mu)·rstd·g + b, the forward's LayerNorm output, from the saved
+//    statistics (the same expression as ln_rows_kernel, so bit-identical)
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(EW_THREADS)
+ln_apply_kernel(const float* __restrict__ x, const float* __restrict__ mu,
+                const float* __restrict__ rstd, const float* __restrict__ g,
+                const float* __restrict__ b, float* __restrict__ u, int C,
+                long long total) {
+  const long long i = (long long)blockIdx.x * EW_THREADS + threadIdx.x;
+  if (i >= total) return;
+  const long long r = i / C;
+  const int c = i % C;
+  u[i] = (x[i] - mu[r]) * rstd[r] * g[c] + b[c];
+}
+
+// ---------------------------------------------------------------------------
+// 6. LN backward, one warp per row:
+//    dx = dz + rstd·(dx̂ − mean(dx̂) − x̂·mean(dx̂⊙x̂)),  dx̂ = dln ⊙ g
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(LN_THREADS)
+ln_bwd_rows_kernel(const float* __restrict__ dln, const float* __restrict__ x,
+                   const float* __restrict__ mu, const float* __restrict__ rstd,
+                   const float* __restrict__ g, const float* __restrict__ dz,
+                   float* __restrict__ dx, int rows, int C) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;  // uniform across the warp
+  const long long off = (long long)row * C;
+  const float m = mu[row], r = rstd[row];
+  float s1 = 0.f, s2 = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    const float dxh = dln[off + c] * g[c];
+    const float xh = (x[off + c] - m) * r;
+    s1 += dxh;
+    s2 = fmaf(dxh, xh, s2);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+  }
+  const float m1 = s1 / C, m2 = s2 / C;
+  for (int c = lane; c < C; c += 32) {
+    const float dxh = dln[off + c] * g[c];
+    const float xh = (x[off + c] - m) * r;
+    dx[off + c] = dz[off + c] + r * (dxh - m1 - xh * m2);
+  }
+}
+
+inline unsigned ew_blocks(long long total) {
+  return (unsigned)cdivll(total, EW_THREADS);
+}
+
+cudaError_t attention_half_bwd(
+    const float* x, const float* ln_g, const float* ln_b,
+    const float* wqkv, long long wqkv_s0, long long wqkv_s1, const float* bqkv,
+    const float* wout, long long wout_s0, long long wout_s1, const float* bout,
+    const float* rs, const float* qkv, const float* acc, const float* mu,
+    const float* rstd, const float* lse, const float* dz,
+    float* da, float* dacc, float* delta, float* dqkv, float* u, float* dln,
+    float* wpart, int splits_out, int splits_qkv, float* cpart,
+    float* dx, float* dg, float* db,
+    float* dwqkv, long long dwqkv_s0, long long dwqkv_s1, float* dbqkv,
+    float* dwout, long long dwout_s0, long long dwout_s1, float* dbout,
+    float* drs, int B, int N, int C, int H, int D, float scale,
+    cudaStream_t s) {
+  const int M = B * N, HD = H * D;
+  if (D > DMAX || B > 65535 || H > 65535) return cudaErrorInvalidValue;
+
+  // 1. da = rs ⊙ dz; dwout = accᵀ·da; dbout = Σ_rows da
+  const float* dA = dz;
+  if (rs) {
+    scale_rows_kernel<<<ew_blocks((long long)M * C), EW_THREADS, 0, s>>>(
+        dz, rs, N, C, (long long)M * C, da);
+    VTX_CHECK(cudaGetLastError());
+    dA = da;
+  }
+  VTX_CHECK(launch_gemm_splitk(acc, HD, dA, C, 1, wpart, splits_out, dwout,
+                               dwout_s0, dwout_s1, HD, C, M, s));
+  if (dbout) VTX_CHECK(launch_colsum(dA, nullptr, nullptr, nullptr, cpart, dbout, M, C, s));
+
+  // 2. dacc₀ = dz·woutᵀ; dr; dacc = rs ⊙ dacc₀
+  VTX_CHECK(launch_gemm(dz, wout, wout_s1, wout_s0, nullptr, nullptr, 1, nullptr,
+                        dacc, M, HD, C, 0, s));
+  if (rs) {
+    row_scale_grad_kernel<<<B, DRS_THREADS, 0, s>>>(dacc, acc, dz, bout, rs, drs,
+                                                    N, HD, C);
+    VTX_CHECK(cudaGetLastError());
+  }
+
+  // 3. attention backward → dqkv
+  attn_delta_kernel<<<ew_blocks((long long)B * H * N), EW_THREADS, 0, s>>>(
+      dacc, acc, delta, B, N, H, D);
+  VTX_CHECK(cudaGetLastError());
+  attn_bwd_dkdv_kernel<<<dim3(cdiv(N, BK), H, B), BK, 0, s>>>(
+      qkv, dacc, lse, delta, dqkv, N, H, D, scale);
+  VTX_CHECK(cudaGetLastError());
+  attn_bwd_dq_kernel<<<dim3(cdiv(N, BQQ), H, B), BQQ, 0, s>>>(
+      qkv, dacc, lse, delta, dqkv, N, H, D, scale);
+  VTX_CHECK(cudaGetLastError());
+
+  // 4. u from the saved statistics; dwqkv = uᵀ·dqkv; dbqkv = Σ_rows dqkv
+  ln_apply_kernel<<<ew_blocks((long long)M * C), EW_THREADS, 0, s>>>(
+      x, mu, rstd, ln_g, ln_b, u, C, (long long)M * C);
+  VTX_CHECK(cudaGetLastError());
+  VTX_CHECK(launch_gemm_splitk(u, C, dqkv, 3 * HD, 1, wpart, splits_qkv, dwqkv,
+                               dwqkv_s0, dwqkv_s1, C, 3 * HD, M, s));
+  if (dbqkv)
+    VTX_CHECK(launch_colsum(dqkv, nullptr, nullptr, nullptr, cpart, dbqkv, M,
+                            3 * HD, s));
+
+  // 5. dln = dqkv·wqkvᵀ
+  VTX_CHECK(launch_gemm(dqkv, wqkv, wqkv_s1, wqkv_s0, nullptr, nullptr, 1,
+                        nullptr, dln, M, C, 3 * HD, 0, s));
+
+  // 6. LN backward; dg = Σ_rows dln ⊙ x̂; db = Σ_rows dln
+  ln_bwd_rows_kernel<<<cdiv(M, LN_THREADS / 32), LN_THREADS, 0, s>>>(
+      dln, x, mu, rstd, ln_g, dz, dx, M, C);
+  VTX_CHECK(cudaGetLastError());
+  VTX_CHECK(launch_colsum(dln, x, mu, rstd, cpart, dg, M, C, s));
+  VTX_CHECK(launch_colsum(dln, nullptr, nullptr, nullptr, cpart, db, M, C, s));
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// Returns the first cudaError_t met (0 = success).  Workspace, all
+// allocated by the caller: da [M, C] (used only with rs), dacc [M, HD],
+// delta [B·H·N], dqkv [M, 3HD], u [M, C], dln [M, C],
+// wpart [max(splits_out·HD·C, splits_qkv·C·3HD)],
+// cpart [ceil(M / 128) · max(C, 3HD)].  dwqkv / dwout are written through
+// their (row, col) strides, so they may share the layout of the weight view
+// the forward read; bqkv / bout / rs / dbqkv / dbout / drs may be null.
+extern "C" int vtx_fused_attention_layer_bwd(
+    const float* x, const float* ln_g, const float* ln_b,
+    const float* wqkv, long long wqkv_s0, long long wqkv_s1, const float* bqkv,
+    const float* wout, long long wout_s0, long long wout_s1, const float* bout,
+    const float* rs, const float* qkv, const float* acc, const float* mu,
+    const float* rstd, const float* lse, const float* dz,
+    float* da, float* dacc, float* delta, float* dqkv, float* u, float* dln,
+    float* wpart, int splits_out, int splits_qkv, float* cpart,
+    float* dx, float* dg, float* db,
+    float* dwqkv, long long dwqkv_s0, long long dwqkv_s1, float* dbqkv,
+    float* dwout, long long dwout_s0, long long dwout_s1, float* dbout,
+    float* drs, int B, int N, int C, int H, int D, float scale, void* stream) {
+  return static_cast<int>(attention_half_bwd(
+      x, ln_g, ln_b, wqkv, wqkv_s0, wqkv_s1, bqkv, wout, wout_s0, wout_s1, bout,
+      rs, qkv, acc, mu, rstd, lse, dz, da, dacc, delta, dqkv, u, dln, wpart,
+      splits_out, splits_qkv, cpart, dx, dg, db, dwqkv, dwqkv_s0, dwqkv_s1,
+      dbqkv, dwout, dwout_s0, dwout_s1, dbout, drs, B, N, C, H, D, scale,
+      static_cast<cudaStream_t>(stream)));
+}

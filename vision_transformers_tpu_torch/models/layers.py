@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-__all__ = ["layer_norm", "LayerNorm", "FeedForward"]
+__all__ = ["layer_norm", "LayerNorm", "FeedForward", "drop_path_scale"]
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -40,3 +40,15 @@ class FeedForward(nn.Sequential):
     def __init__(self, in_dim: int, dim: int, dropout: float = 0.0):
         super().__init__(nn.Linear(in_dim, dim), nn.SiLU(), nn.Dropout(dropout),
                          nn.Linear(dim, in_dim))
+
+
+def drop_path_scale(b: int, rate: float, generator: torch.Generator | None,
+                    device: torch.device | str) -> torch.Tensor | None:
+    """Per-sample DropPath scale [b] (reference models/layer.py:166-183, the
+    JAX package's ``drop_path``, layers.py:215-229): keep-mask / keep-prob,
+    the mask Bernoulli(1 − rate) from ``generator``; None at rate 0."""
+    if rate == 0.0:
+        return None
+    keep = 1.0 - rate
+    mask = torch.rand(b, generator=generator, device=device) < keep
+    return mask.float() / keep

@@ -1,4 +1,4 @@
-"""Vision Transformer classifier, deterministic forward (counterpart of
+"""Vision Transformer classifier (counterpart of
 ``vision_transformers_tpu/models/vit.py``; reference: models/vit.py).
 
 Module names are the reference torch ``state_dict`` keys
@@ -9,9 +9,13 @@ NCHW.  Each layer dispatches through :func:`ops.attention_impl` as the JAX
 layer does: plain torch (``einsum``), the attention-half kernel
 (``layer``) or the whole-layer kernel (``layer1``).
 
-Only the deterministic forward is ported: ``forward`` raises under
-``self.training`` when dropout or drop_path is non-zero.  scan_layers,
-remat, the DINO head and crop packing are not ported.
+In training, DropPath draws one per-sample scale (keep-mask / keep-prob)
+per residual branch and layer, at the JAX model's rate ramp
+``drop_path·i/(depth−1)`` (vit.py:418), from an explicit
+``torch.Generator``; the ``layer`` path hands the attention branch's scale
+to the kernel as its row scale (vit.py:259-280).  Dropout (``dropout``,
+``drop_attn``, ``drop_ff`` > 0) under training raises NotImplementedError.
+scan_layers, remat, the DINO head and crop packing are not ported.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from torch import nn
 
 from .. import ops
 from ..config.registry import TypedConfig, register
-from .layers import FeedForward, LayerNorm
+from .layers import FeedForward, LayerNorm, drop_path_scale
 
 __all__ = ["MultiHeadedAttention", "TransformerLayer", "PatchEmbedding",
            "VisionTransformer", "ViTConfig"]
@@ -69,8 +73,11 @@ class TransformerLayer(nn.Module):
         self.norm_ff = LayerNorm(dim, eps=_LN_EPS)
         self.ff = FeedForward(dim, dim_ff, dropout=drop_ff)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rs=None) -> torch.Tensor:
+        """``rs``: pre-drawn DropPath scales ``(rs_attn, rs_ff)``, each None
+        or [b] (the JAX layer's ``rs_override``, vit.py:196-208)."""
         b, n, _ = x.shape
+        rs_attn, rs_ff = (None, None) if rs is None else rs
         na, attn, nf, ff = self.norm_attn, self.attn, self.norm_ff, self.ff
         impl = ops.attention_impl(b, default="layer" if n >= 128 else "einsum")
         attn_w = (na.weight, na.bias, attn.qkv.weight.t(), attn.qkv.bias,
@@ -78,13 +85,19 @@ class TransformerLayer(nn.Module):
         if impl == "layer1":
             return ops.fused_transformer_layer(
                 x, *attn_w, nf.weight, nf.bias, ff[0].weight.t(), ff[0].bias,
-                ff[3].weight.t(), ff[3].bias, attn.n_head, activation="silu",
-                eps=_LN_EPS)
+                ff[3].weight.t(), ff[3].bias, attn.n_head, rs_attn=rs_attn,
+                rs_ff=rs_ff, activation="silu", eps=_LN_EPS)
         if impl == "layer":
-            x = ops.fused_attention_layer(x, *attn_w, attn.n_head, eps=_LN_EPS)
+            x = ops.fused_attention_layer(x, *attn_w, attn.n_head,
+                                          row_scale=rs_attn, eps=_LN_EPS)
         else:
-            x = x + attn(na(x))
-        return x + ff(nf(x))
+            x = x + _scaled(attn(na(x)), rs_attn)
+        return x + _scaled(ff(nf(x)), rs_ff)
+
+
+def _scaled(h: torch.Tensor, rs) -> torch.Tensor:
+    """h ⊙ rs per sample (vit.py:223-228); rs None leaves h as it is."""
+    return h if rs is None else h * rs[:, None, None].to(h.dtype)
 
 
 class PatchEmbedding(nn.Module):
@@ -101,8 +114,8 @@ class PatchEmbedding(nn.Module):
 
 class VisionTransformer(nn.Module):
     """(reference: models/vit.py:79-203).  Parameters start at torch's
-    default init (zeros for the embeddings); load real weights with
-    ``load_state_dict``."""
+    default init (zeros for the embeddings): call :meth:`reset_parameters`
+    for the JAX model's initializers, or ``load_state_dict`` real weights."""
 
     def __init__(self, image_size, patch_size: int, depth: int, dim: int,
                  n_head: int, dim_ff: int, dropout: float = 0.0,
@@ -118,8 +131,36 @@ class VisionTransformer(nn.Module):
             TransformerLayer(dim, n_head, dim_ff, drop_ff) for _ in range(depth))
         self.norm = LayerNorm(dim, eps=_LN_EPS)
         self.head = nn.Linear(dim, n_class)
-        self._stochastic = any(r > 0 for r in
-                               (dropout, drop_attn, drop_ff, drop_path))
+        self._dropout = any(r > 0 for r in (dropout, drop_attn, drop_ff))
+        # per-layer DropPath rates (vit.py:418)
+        self.drop_path_rates = [drop_path * i / max(depth - 1, 1)
+                                for i in range(depth)]
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        """The JAX model's initializers: normal(0.02) for cls_token,
+        pos_embed (vit.py:412-417) and every Linear / conv kernel (the JAX
+        package's ``trunc_normal_init(0.02)`` is a plain normal,
+        layers.py:92-95: qkv, out-proj, FF, patch embedding, head), zeros
+        for every bias, ones / zeros for the LayerNorms."""
+        for m in self.modules():
+            if isinstance(m, (nn.Linear, nn.Conv2d)):
+                m.weight.normal_(0.0, 0.02, generator=generator)
+                m.bias.zero_()
+            elif isinstance(m, nn.LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+        self.cls_token.normal_(0.0, 0.02, generator=generator)
+        self.pos_embed.normal_(0.0, 0.02, generator=generator)
+
+    def draw_drop_path(self, b: int, generator: torch.Generator | None = None):
+        """Per-layer ``(rs_attn, rs_ff)``: None at rate 0, else [b]
+        keep-mask / keep-prob drawn from ``generator`` on the model's device
+        (the JAX ``_row_scale``, vit.py:174-187)."""
+        device = self.cls_token.device
+        return [(drop_path_scale(b, r, generator, device),
+                 drop_path_scale(b, r, generator, device))
+                for r in self.drop_path_rates]
 
     def interpolate_pos_embedding(self, n_patch: int) -> torch.Tensor:
         """Bicubic resize of the grid pos-embed when the token count differs
@@ -136,23 +177,28 @@ class VisionTransformer(nn.Module):
         grid = grid.permute(0, 2, 3, 1).reshape(1, side_out * side_out, dim)
         return torch.cat([pos_embed[:, :1], grid], dim=1)
 
-    def forward_feature(self, x: torch.Tensor) -> torch.Tensor:
+    def forward_feature(self, x: torch.Tensor,
+                        generator: torch.Generator | None = None) -> torch.Tensor:
         """(reference: models/vit.py:139-151).  x: NCHW."""
         out = self.patch_embedding(x)
         b, n, dim = out.shape
         cls = self.cls_token.to(out.dtype).expand(b, 1, dim)
         out = torch.cat([cls, out], dim=1)
         out = out + self.interpolate_pos_embedding(n).to(out.dtype)
-        for layer in self.layers:
-            out = layer(out)
+        scales = self.draw_drop_path(b, generator) if self.training \
+            else [None] * len(self.layers)
+        for layer, rs in zip(self.layers, scales):
+            out = layer(out, rs)
         return self.norm(out)[:, 0]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and self._stochastic:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """Logits; in training mode DropPath draws from ``generator``."""
+        if self.training and self._dropout:
             raise NotImplementedError(
-                "only the deterministic forward is ported: call .eval() "
-                "(dropout / drop_path arrive with the train step)")
-        return self.head(self.forward_feature(x).float())
+                "dropout / drop_attn / drop_ff > 0 in training is not ported "
+                "(ROADMAP); ViT-S/16 trains with all three at 0")
+        return self.head(self.forward_feature(x, generator).float())
 
 
 @register("model", "vit")

@@ -1,13 +1,13 @@
 """Hand-written CUDA kernels and the attention dispatch.
 
 Counterpart of ``vision_transformers_tpu/ops/__init__.py``.  Two kernels
-are ported (both forward-only, float32), each beside its plain torch
-version:
+are ported (float32), each beside its plain torch version:
 
 - ``layer``:  :func:`fused_attention_layer` (ops/fused_layer.py) — the
-  pre-LN attention residual branch; the FF half stays plain torch.
+  pre-LN attention residual branch, forward and backward (an autograd
+  Function); the FF half stays plain torch.
 - ``layer1``: :func:`fused_transformer_layer` (ops/fused_layer1.py) — the
-  whole layer, both residual branches.
+  whole layer, both residual branches, forward only (eval and serving).
 
 ``einsum`` is the plain torch attention in models/vit.py.
 """

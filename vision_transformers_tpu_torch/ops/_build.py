@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels at first use and bind them with ctypes.
 
-``nvcc`` compiles ``csrc/*.cu`` for ``sm_90a`` into a shared library with a
+``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a`` (one process per source,
+all started together), then links the objects into a shared library with a
 plain C interface, under ``vision_transformers_tpu_torch/_build/``.  The
 library's name carries a hash of the sources and flags, so a stale build is
 never loaded.  A missing ``nvcc`` or a failed build raises RuntimeError with
@@ -27,7 +28,7 @@ _CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
 _DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+          "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # nvcc's stderr from the build in this process: ptxas's per-kernel
 # register / shared-memory / spill report
@@ -42,9 +43,27 @@ _SIGNATURES = {
         _P, _P, _P,              # x, ln_scale, ln_bias
         _P, _L, _L, _P,          # wqkv, its strides, bqkv
         _P, _L, _L, _P,          # wout, its strides, bout
-        _P, _P, _P, _P,          # u, qkv, acc (workspace), out
+        _P,                      # rs (nullable)
+        _P, _P, _P,              # u, qkv, acc (workspace; qkv, acc saved)
+        _P, _P, _P,              # mu, rstd, lse (nullable saves)
+        _P,                      # out
         _I, _I, _I, _I, _I,      # B, N, C, H, D
         _F, _F, _P,              # scale, eps, stream
+    ],
+    "vtx_fused_attention_layer_bwd": [
+        _P, _P, _P,              # x, ln_scale, ln_bias
+        _P, _L, _L, _P,          # wqkv, its strides, bqkv
+        _P, _L, _L, _P,          # wout, its strides, bout
+        _P, _P, _P, _P, _P, _P,  # rs, qkv, acc, mu, rstd, lse
+        _P,                      # dz
+        _P, _P, _P, _P, _P, _P,  # da, dacc, delta, dqkv, u, dln (workspace)
+        _P, _I, _I, _P,          # wpart, splits_out, splits_qkv, cpart
+        _P, _P, _P,              # dx, dln_scale, dln_bias
+        _P, _L, _L, _P,          # dwqkv, its strides, dbqkv
+        _P, _L, _L, _P,          # dwout, its strides, dbout
+        _P,                      # drs
+        _I, _I, _I, _I, _I,      # B, N, C, H, D
+        _F, _P,                  # scale, stream
     ],
     "vtx_fused_transformer_layer_fwd": [
         _P, _P, _P,              # x, ln1_scale, ln1_bias
@@ -80,22 +99,49 @@ def _library_path(sources: list[Path]) -> Path:
     return _BUILD_DIR / f"libvtx_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands in parallel; raise with nvcc's output on the first
+    failure.  Returns each command's stderr."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    logs, failed = [], None
+    try:
+        for cmd, proc in zip(cmds, procs):
+            try:
+                out, err = proc.communicate(timeout=900)
+            except subprocess.TimeoutExpired as e:
+                raise RuntimeError(f"nvcc timed out after {e.timeout} s: "
+                                   f"{' '.join(cmd)}") from e
+            logs.append(err)
+            if proc.returncode != 0 and failed is None:
+                failed = (f"nvcc failed with exit code {proc.returncode}: "
+                          f"{' '.join(cmd)}\n{err}{out}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError(failed)
+    return logs
+
+
 def _compile(sources: list[Path], so: Path) -> str:
     nvcc = find_nvcc()
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cus = [p for p in sources if p.suffix == ".cu"]
+    objs = [_BUILD_DIR / f"{so.stem}.{os.getpid()}.{p.stem}.o" for p in cus]
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sources if p.suffix == ".cu"]]
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    except subprocess.TimeoutExpired as e:
-        raise RuntimeError(f"nvcc timed out after {e.timeout} s: {' '.join(cmd)}") from e
-    if proc.returncode != 0:
+        logs = _run_all([[nvcc, *_FLAGS, "-c", "-o", str(o), str(p)]
+                         for o, p in zip(objs, cus)])
+        logs += _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, so)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}: "
-                           f"{' '.join(cmd)}\n{proc.stderr}{proc.stdout}")
-    os.replace(tmp, so)
-    return proc.stderr
+        for o in objs:
+            o.unlink(missing_ok=True)
+    return "".join(logs)
 
 
 def build() -> ctypes.CDLL:

@@ -1,4 +1,4 @@
-"""Fused pre-LN attention residual branch (forward):
+"""Fused pre-LN attention residual branch, forward and backward:
 
     z = x + r ⊙ OutProj(MHSA(QkvProj(LN(x))))
 
@@ -9,48 +9,71 @@ wout [H·D, C], extra optional [H, N, N] additive bias (the JAX op also
 takes a grouped [G, H, N, N] form, which arrives with the Swin slice),
 row_scale optional [B] per-sample DropPath scale.
 
-A CPU tensor runs :func:`fused_attention_layer_reference`, the plain torch
-version with the cast points of the JAX package's ``_attn_layer_ref``
-(fused_layer.py:502-542): LN statistics f32, dots f32-accumulated, softmax
-f32.  A CUDA tensor runs the hand-written kernel in ``csrc/fused_layer.cu``
-or raises; it never falls back to the plain version.
+A call that needs gradients goes through a ``torch.autograd.Function``
+whose forward keeps the residuals the backward reads — qkv, the attention
+output acc, the LN statistics mu / rstd and the softmax log-sum-exp lse —
+as the JAX ``custom_vjp`` does (fused_layer.py:422-427,493-499,569-674).
+A call that needs none (``torch.no_grad()``, the serving path) saves
+nothing.
 
-The kernel takes float32, ``extra=None`` and ``row_scale=None`` (the
-serving path); anything else on a CUDA tensor raises NotImplementedError.
-The weights may be any 2-D strided view: the model passes
-``linear.weight.t()``, and the wrapper hands those strides to the kernel
-instead of copying the weights every forward.
+A CPU tensor runs the plain torch versions: the forward
+:func:`fused_attention_layer_reference` (the cast points of the JAX
+package's ``_attn_layer_ref``, fused_layer.py:502-542: LN statistics f32,
+dots f32-accumulated, softmax f32) and the backward
+:func:`fused_attention_layer_bwd_reference`.  A CUDA tensor runs the
+hand-written kernels in ``csrc/fused_layer.cu`` (forward) and
+``csrc/fused_layer_bwd.cu`` (backward) or raises; it never falls back to
+the plain versions.  The kernels take float32 and ``extra=None``;
+anything else on a CUDA tensor raises NotImplementedError.  The weights may
+be any 2-D strided view: the model passes ``linear.weight.t()``, and the
+wrapper hands those strides to the kernels instead of copying the weights;
+their gradients come back in the view's shape and layout.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
-__all__ = ["fused_attention_layer", "fused_attention_layer_reference", "LAUNCHES"]
+__all__ = ["fused_attention_layer", "fused_attention_layer_reference",
+           "fused_attention_layer_bwd_reference", "AttnSaved", "LAUNCHES",
+           "BWD_LAUNCHES"]
 
-# kernel launches through this wrapper (chip_smoke.py reads it to show the
-# main path went through the kernel)
+# kernel launches through this module's wrappers, forward and backward
+# (chip_smoke.py reads them to show the main path went through the kernels)
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
-# largest head width the attention kernel holds in registers (csrc DMAX)
+# largest head width the attention kernels hold in registers (csrc DMAX)
 MAX_DIM_HEAD = 64
+
+
+def _ln_stats(xf: torch.Tensor, eps: float):
+    """f32 LayerNorm statistics in the fast-variance form: (mu, rstd)."""
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf * xf).mean(-1, keepdim=True) - mu * mu
+    return mu, torch.rsqrt(var + eps)
 
 
 def _ln(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
     """LayerNorm with f32 statistics in the fast-variance form."""
     xf = x.float()
-    mu = xf.mean(-1, keepdim=True)
-    var = (xf * xf).mean(-1, keepdim=True) - mu * mu
-    return ((xf - mu) * torch.rsqrt(var + eps) * g.float() + b.float()).to(x.dtype)
+    mu, rstd = _ln_stats(xf, eps)
+    return ((xf - mu) * rstd * g.float() + b.float()).to(x.dtype)
 
 
 def _dot(a: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """[..., K] · [K, N], accumulated in f32, cast to the compute dtype."""
     return torch.matmul(a.float(), w.float()).to(dtype)
+
+
+def _heads(t: torch.Tensor, n_head: int) -> torch.Tensor:
+    """[B, N, H·D] → [B, H, N, D] (f32)."""
+    B, N, HD = t.shape
+    return t.reshape(B, N, n_head, HD // n_head).permute(0, 2, 1, 3).float()
 
 
 def attention_branch_reference(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
@@ -82,15 +105,138 @@ def _residual(x, a, rs):
     return x + a
 
 
+def _default_scale(wqkv, n_head, scale):
+    return 1.0 / math.sqrt(wqkv.shape[1] // 3 // n_head) if scale is None else float(scale)
+
+
 def fused_attention_layer_reference(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
                                     n_head: int, extra=None, row_scale=None,
                                     scale: Optional[float] = None, eps: float = 1e-6):
-    """Plain torch version of :func:`fused_attention_layer`."""
-    if scale is None:
-        scale = 1.0 / math.sqrt(wqkv.shape[1] // 3 // n_head)
+    """Plain torch version of :func:`fused_attention_layer` (forward)."""
+    scale = _default_scale(wqkv, n_head, scale)
     a = attention_branch_reference(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
                                    n_head, extra, scale, eps)
     return _residual(x, a, row_scale)
+
+
+# ---------------------------------------------------------------------------
+# training forward (saves) and backward, plain versions
+# ---------------------------------------------------------------------------
+
+
+class AttnSaved(NamedTuple):
+    """What the backward reads: the forward's inputs and residuals.
+    qkv [B, N, 3HD], acc [B, N, HD], mu / rstd [B, N], lse [B, H, N]."""
+
+    x: torch.Tensor
+    ln_scale: torch.Tensor
+    ln_bias: torch.Tensor
+    wqkv: torch.Tensor
+    bqkv: Optional[torch.Tensor]
+    wout: torch.Tensor
+    bout: Optional[torch.Tensor]
+    row_scale: Optional[torch.Tensor]
+    qkv: torch.Tensor
+    acc: torch.Tensor
+    mu: torch.Tensor
+    rstd: torch.Tensor
+    lse: torch.Tensor
+    n_head: int
+    scale: float
+    eps: float
+
+
+def fused_attention_layer_fwd_reference(x, ln_scale, ln_bias, wqkv, bqkv, wout,
+                                        bout, n_head: int, row_scale=None,
+                                        scale: Optional[float] = None,
+                                        eps: float = 1e-6):
+    """Plain torch training forward: (out, :class:`AttnSaved`), the same
+    arithmetic as :func:`fused_attention_layer_reference` plus the saves."""
+    scale = _default_scale(wqkv, n_head, scale)
+    B, N, C = x.shape
+    HD = wqkv.shape[1] // 3
+    xf = x.float()
+    mu, rstd = _ln_stats(xf, eps)
+    u = ((xf - mu) * rstd * ln_scale.float() + ln_bias.float()).to(x.dtype)
+    qkv = _dot(u, wqkv, x.dtype)
+    if bqkv is not None:
+        qkv = qkv + bqkv
+    q, k, v = (_heads(qkv[..., i * HD:(i + 1) * HD], n_head) for i in range(3))
+    s = torch.einsum("bhnd,bhmd->bhnm", q, k) * scale
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.softmax(s, dim=-1)
+    acc = torch.einsum("bhnm,bhmd->bnhd", p, v).to(x.dtype).reshape(B, N, HD)
+    a = _dot(acc, wout, x.dtype)
+    if bout is not None:
+        a = a + bout
+    out = _residual(x, a, row_scale)
+    return out, AttnSaved(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, row_scale,
+                          qkv, acc, mu[..., 0], rstd[..., 0], lse, n_head, scale, eps)
+
+
+def fused_attention_layer_bwd_reference(saved: AttnSaved, dz: torch.Tensor,
+                                        need_drs: bool = True):
+    """Plain torch backward on the saved residuals, in the kernel's steps
+    (csrc/fused_layer_bwd.cu): → (dx, dln_scale, dln_bias, dwqkv, dbqkv,
+    dwout, dbout, drs); a bias grad is None where the bias is, drs None
+    without a row scale or ``need_drs``."""
+    x, g, b, wqkv, bqkv, wout, bout, rs = saved[:8]
+    B, N, C = x.shape
+    H, scale = saved.n_head, saved.scale
+    HD = wqkv.shape[1] // 3
+    M = B * N
+    f = torch.float32
+    dz2 = dz.reshape(M, C).to(f)
+    acc2 = saved.acc.reshape(M, HD).to(f)
+    rsr = None if rs is None else rs.to(f).repeat_interleave(N)[:, None]
+
+    # 1. da = r ⊙ dz; dwout = accᵀ·da; dbout = Σ_rows da
+    da = dz2 if rs is None else dz2 * rsr
+    dwout = acc2.t() @ da
+    dbout = da.sum(0) if bout is not None else None
+    # 2. dacc₀ = dz·woutᵀ; dr (reassociated); dacc = r ⊙ dacc₀
+    dacc = dz2 @ wout.to(f).t()
+    drs = None
+    if rs is not None:
+        if need_drs:
+            per_row = (dacc * acc2).sum(1)
+            if bout is not None:
+                per_row = per_row + dz2 @ bout.to(f)
+            drs = per_row.reshape(B, N).sum(1).to(rs.dtype)
+        dacc = dacc * rsr
+    # 3. attention backward: p from the saved log-sum-exp
+    q, k, v = (_heads(saved.qkv[..., i * HD:(i + 1) * HD], H) for i in range(3))
+    do = _heads(dacc.reshape(B, N, HD), H)
+    o = _heads(saved.acc, H)
+    delta = (do * o).sum(-1, keepdim=True)
+    p = torch.exp(torch.einsum("bhnd,bhmd->bhnm", q, k) * scale - saved.lse[..., None].to(f))
+    dv = torch.einsum("bhnm,bhnd->bhmd", p, do)
+    ds = p * (torch.einsum("bhnd,bhmd->bhnm", do, v) - delta)
+    dq = torch.einsum("bhnm,bhmd->bhnd", ds, k) * scale
+    dk = torch.einsum("bhnm,bhnd->bhmd", ds, q) * scale
+    dqkv = torch.cat([t.permute(0, 2, 1, 3).reshape(M, HD) for t in (dq, dk, dv)], -1)
+    # 4. u from the saved statistics; dwqkv = uᵀ·dqkv; dbqkv = Σ_rows dqkv
+    xf = x.reshape(M, C).to(f)
+    xhat = (xf - saved.mu.reshape(M, 1)) * saved.rstd.reshape(M, 1)
+    u = xhat * g.to(f) + b.to(f)
+    dwqkv = u.t() @ dqkv
+    dbqkv = dqkv.sum(0) if bqkv is not None else None
+    # 5. dln = dqkv·wqkvᵀ
+    dln = dqkv @ wqkv.to(f).t()
+    # 6. LN backward (fused_layer.py:79-87)
+    dxhat = dln * g.to(f)
+    m1 = dxhat.mean(-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(-1, keepdim=True)
+    dx = dz2 + saved.rstd.reshape(M, 1) * (dxhat - m1 - xhat * m2)
+    dg = (dln * xhat).sum(0)
+    db = dln.sum(0)
+
+    def cast(t, like):
+        return None if t is None else t.to(like.dtype)
+
+    return (dx.reshape(B, N, C).to(x.dtype), cast(dg, g), cast(db, b),
+            cast(dwqkv, wqkv), cast(dbqkv, bqkv), cast(dwout, wout),
+            cast(dbout, bout), drs)
 
 
 # ---------------------------------------------------------------------------
@@ -148,23 +294,30 @@ def check_attention_args(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, n_head):
     return B, N, C, n_head, D
 
 
-def _cuda(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, n_head, extra,
-          row_scale, scale, eps):
+def _raise_on(err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} CUDA launch failed: cudaError_t {err}")
+
+
+def _cuda_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, n_head, row_scale,
+              scale, eps, save: bool):
+    """The forward kernel: out, plus (qkv, acc, mu, rstd, lse) when ``save``."""
     global LAUNCHES
-    if extra is not None or row_scale is not None:
-        raise NotImplementedError(
-            "the CUDA kernel takes extra=None and row_scale=None")
     check_f32(x.device, x=x, ln_scale=ln_scale, ln_bias=ln_bias, wqkv=wqkv,
-              bqkv=bqkv, wout=wout, bout=bout)
+              bqkv=bqkv, wout=wout, bout=bout, row_scale=row_scale)
     B, N, C, H, D = check_attention_args(x, ln_scale, ln_bias, wqkv, bqkv,
                                          wout, bout, n_head)
+    check_vector("row_scale", row_scale, B)
     from ._build import build
 
     lib = build()
     M, HD = B * N, H * D
-    u = torch.empty((M, C), device=x.device, dtype=x.dtype)
-    qkv = torch.empty((M, 3 * HD), device=x.device, dtype=x.dtype)
-    acc = torch.empty((M, HD), device=x.device, dtype=x.dtype)
+    opts = dict(device=x.device, dtype=torch.float32)
+    u = torch.empty((M, C), **opts)
+    qkv = torch.empty((B, N, 3 * HD), **opts)
+    acc = torch.empty((B, N, HD), **opts)
+    mu, rstd, lse = ((torch.empty((B, N), **opts), torch.empty((B, N), **opts),
+                      torch.empty((B, H, N), **opts)) if save else (None, None, None))
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -172,26 +325,150 @@ def _cuda(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, n_head, extra,
         err = lib.vtx_fused_attention_layer_fwd(
             ptr(x), ptr(ln_scale), ptr(ln_bias),
             ptr(wqkv), wqkv.stride(0), wqkv.stride(1), ptr(bqkv),
-            ptr(wout), wout.stride(0), wout.stride(1), ptr(bout),
-            ptr(u), ptr(qkv), ptr(acc), ptr(out),
+            ptr(wout), wout.stride(0), wout.stride(1), ptr(bout), ptr(row_scale),
+            ptr(u), ptr(qkv), ptr(acc), ptr(mu), ptr(rstd), ptr(lse), ptr(out),
             B, N, C, H, D, ctypes.c_float(scale), ctypes.c_float(eps), stream)
-    if err:
-        raise RuntimeError(f"fused_attention_layer CUDA launch failed: "
-                           f"cudaError_t {err}")
-    return out
+    _raise_on(err, "fused_attention_layer")
+    return out, (qkv, acc, mu, rstd, lse)
+
+
+def _like_layout(w: torch.Tensor) -> torch.Tensor:
+    """An empty gradient for weight view ``w``, in its layout when that is
+    dense (the [in, out] view of a torch [out, in] weight is), else
+    contiguous."""
+    if w.is_contiguous() or w.t().is_contiguous():
+        return torch.empty_strided(w.shape, w.stride(), dtype=torch.float32,
+                                   device=w.device)
+    return torch.empty(w.shape, dtype=torch.float32, device=w.device)
+
+
+_SM_WAVE = 4 * 132  # GEMM blocks to aim a split-K weight gradient at
+
+
+def _splits(rows: int, cols: int, k: int) -> int:
+    """K-slabs for a split-K weight-gradient GEMM of [rows, cols] over k
+    (csrc/common.cuh tiles: 128 x 64, k slabs of at least 256)."""
+    tiles = -(-rows // 128) * -(-cols // 64)
+    return max(1, min(-(-_SM_WAVE // tiles), k // 256))
+
+
+def _cuda_bwd(saved: AttnSaved, dz: torch.Tensor, need_drs: bool):
+    """The backward kernel sequence: (dx, dg, db, dwqkv, dbqkv, dwout, dbout,
+    drs)."""
+    global BWD_LAUNCHES
+    x, g, b, wqkv, bqkv, wout, bout, rs = saved[:8]
+    dz = dz.contiguous()
+    check_f32(x.device, dz=dz, qkv=saved.qkv, acc=saved.acc, lse=saved.lse)
+    if dz.shape != x.shape:
+        raise ValueError(f"dz must be {tuple(x.shape)}, got {tuple(dz.shape)}")
+    B, N, C = x.shape
+    H = saved.n_head
+    HD = wqkv.shape[1] // 3
+    D = HD // H
+    M = B * N
+    from ._build import build
+
+    lib = build()
+    opts = dict(device=x.device, dtype=torch.float32)
+    s_out, s_qkv = _splits(HD, C, M), _splits(C, 3 * HD, M)
+    chunks = -(-M // 128)  # csrc COLSUM_ROWS
+    ws = dict(
+        da=torch.empty((M, C), **opts) if rs is not None else None,
+        dacc=torch.empty((M, HD), **opts), delta=torch.empty((B, H, N), **opts),
+        dqkv=torch.empty((M, 3 * HD), **opts), u=torch.empty((M, C), **opts),
+        dln=torch.empty((M, C), **opts),
+        wpart=torch.empty((max(s_out * HD * C, s_qkv * C * 3 * HD),), **opts),
+        cpart=torch.empty((chunks * max(C, 3 * HD),), **opts))
+    dx = torch.empty_like(x)
+    dg, db = torch.empty((C,), **opts), torch.empty((C,), **opts)
+    dwqkv, dwout = _like_layout(wqkv), _like_layout(wout)
+    dbqkv = torch.empty((3 * HD,), **opts) if bqkv is not None else None
+    dbout = torch.empty((C,), **opts) if bout is not None else None
+    drs = torch.empty((B,), **opts) if rs is not None and need_drs else None
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        BWD_LAUNCHES += 1
+        err = lib.vtx_fused_attention_layer_bwd(
+            ptr(x), ptr(g), ptr(b),
+            ptr(wqkv), wqkv.stride(0), wqkv.stride(1), ptr(bqkv),
+            ptr(wout), wout.stride(0), wout.stride(1), ptr(bout),
+            ptr(rs), ptr(saved.qkv), ptr(saved.acc), ptr(saved.mu),
+            ptr(saved.rstd), ptr(saved.lse), ptr(dz),
+            *(ptr(ws[k]) for k in ("da", "dacc", "delta", "dqkv", "u", "dln")),
+            ptr(ws["wpart"]), s_out, s_qkv, ptr(ws["cpart"]),
+            ptr(dx), ptr(dg), ptr(db),
+            ptr(dwqkv), dwqkv.stride(0), dwqkv.stride(1), ptr(dbqkv),
+            ptr(dwout), dwout.stride(0), dwout.stride(1), ptr(dbout), ptr(drs),
+            B, N, C, H, D, ctypes.c_float(saved.scale), stream)
+    _raise_on(err, "fused_attention_layer backward")
+    return dx, dg, db, dwqkv, dbqkv, dwout, dbout, drs
+
+
+def fused_attention_layer_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
+                              n_head: int, row_scale=None,
+                              scale: Optional[float] = None, eps: float = 1e-6):
+    """Training forward with saves: (out, :class:`AttnSaved`) — the kernel
+    for a CUDA tensor, the plain version for a CPU one."""
+    scale = _default_scale(wqkv, n_head, scale)
+    if x.is_cuda:
+        out, res = _cuda_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, n_head,
+                             row_scale, scale, float(eps), save=True)
+        return out, AttnSaved(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
+                              row_scale, *res, n_head, scale, float(eps))
+    if x.device.type == "cpu":
+        return fused_attention_layer_fwd_reference(
+            x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, n_head, row_scale,
+            scale, eps)
+    raise NotImplementedError(f"no fused_attention_layer for device {x.device}")
+
+
+def fused_attention_layer_bwd(saved: AttnSaved, dz: torch.Tensor,
+                              need_drs: bool = True):
+    """Backward on the saves of :func:`fused_attention_layer_fwd` — the
+    kernel for a CUDA tensor, the plain version for a CPU one."""
+    if dz.is_cuda:
+        return _cuda_bwd(saved, dz, need_drs)
+    if dz.device.type == "cpu":
+        return fused_attention_layer_bwd_reference(saved, dz, need_drs)
+    raise NotImplementedError(f"no fused_attention_layer backward for {dz.device}")
+
+
+class _FusedAttentionLayer(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, row_scale,
+                n_head, scale, eps):
+        out, saved = fused_attention_layer_fwd(x, ln_scale, ln_bias, wqkv, bqkv,
+                                               wout, bout, n_head, row_scale,
+                                               scale, eps)
+        ctx.save_for_backward(*saved[:13])
+        ctx.attrs = saved[13:]
+        return out
+
+    @staticmethod
+    def backward(ctx, dz):
+        saved = AttnSaved(*ctx.saved_tensors, *ctx.attrs)
+        grads = fused_attention_layer_bwd(saved, dz, ctx.needs_input_grad[7])
+        return (*grads, None, None, None)
 
 
 def fused_attention_layer(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
                           n_head: int, extra=None, row_scale=None,
                           scale: Optional[float] = None, eps: float = 1e-6):
     """Pre-LN attention residual branch, fused:
-    ``x + row_scale ⊙ OutProj(MHSA(QkvProj(LN(x))))``."""
-    if scale is None:
-        scale = 1.0 / math.sqrt(wqkv.shape[1] // 3 // n_head)
+    ``x + row_scale ⊙ OutProj(MHSA(QkvProj(LN(x))))``, differentiable."""
+    scale = _default_scale(wqkv, n_head, scale)
+    if x.is_cuda and extra is not None:
+        raise NotImplementedError("the CUDA kernels take extra=None")
+    tensors = (x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, row_scale)
+    needs_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+    if needs_grad and extra is None:
+        return _FusedAttentionLayer.apply(*tensors, n_head, scale, float(eps))
     if x.is_cuda:
-        return _cuda(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, n_head,
-                     extra, row_scale, float(scale), float(eps))
+        return _cuda_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, n_head,
+                         row_scale, scale, float(eps), save=False)[0]
     if x.device.type == "cpu":
+        # with extra, a gradient comes from torch autograd of the plain version
         return fused_attention_layer_reference(
             x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, n_head, extra,
             row_scale, scale, eps)

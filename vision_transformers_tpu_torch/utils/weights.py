@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 __all__ = ["state_dict_from_flax", "load_checkpoint", "seeded_state_dict",
-           "seeded_images", "to_torch"]
+           "seeded_images", "seeded_train_batch", "grad_projections", "to_torch"]
 
 
 # ---------------------------------------------------------------------------
@@ -162,3 +162,26 @@ def seeded_images(seed: int, n: int, size: int) -> np.ndarray:
     """``n`` uint8 [size, size, 3] noise images (NHWC) from a numpy seed."""
     rng = np.random.default_rng([seed, 1])
     return rng.integers(0, 256, size=(n, size, size, 3), dtype=np.uint8)
+
+
+def seeded_train_batch(seed: int, n: int, size: int, n_class: int) -> Dict[str, np.ndarray]:
+    """A train-step batch from a numpy seed: ``n`` normalized f32 NHWC
+    images (standard normals, as the synthetic backend's) and labels, with
+    ``label2 = label1`` and ``ratio = 1`` (no mixing)."""
+    rng = np.random.default_rng([seed, 2])
+    labels = rng.integers(0, n_class, size=n).astype(np.int32)
+    return {"image": rng.standard_normal((n, size, size, 3), dtype=np.float32),
+            "label1": labels, "label2": labels.copy(),
+            "ratio": np.ones(n, np.float32)}
+
+
+def grad_projections(grads: Dict[str, np.ndarray], seed: int) -> Dict[str, float]:
+    """state_dict key → Σ grad · v, with v a standard-normal tensor of the
+    grad's shape drawn from ``(seed, 3, i)`` for the i-th key in sorted
+    order: one number per tensor that moves with any part of it."""
+    out = {}
+    for i, k in enumerate(sorted(grads)):
+        g = np.asarray(grads[k], np.float64)
+        v = np.random.default_rng([seed, 3, i]).standard_normal(g.shape, dtype=np.float32)
+        out[k] = float((g * v).sum())
+    return out
