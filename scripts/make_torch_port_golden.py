@@ -23,8 +23,9 @@ CONF = os.path.join(ROOT, "configs", "vit-s-16.conf")
 N_IMAGES = 2
 
 
-def jax_logits(seed: int) -> np.ndarray:
-    """The JAX package's logits for the seeded weights and images."""
+def jax_logits(seed: int, conf: str = CONF) -> np.ndarray:
+    """The JAX package's logits for the seeded weights and images of the
+    model in ``conf``."""
     import jax
     import jax.numpy as jnp
 
@@ -37,10 +38,11 @@ def jax_logits(seed: int) -> np.ndarray:
     from vision_transformers_tpu_torch.utils.weights import (seeded_images,
                                                              seeded_state_dict)
 
-    arch = load_config(CONF).arch
-    sd = seeded_state_dict(port_load_config(CONF).arch, seed)
+    arch = load_config(conf).arch
+    sd = seeded_state_dict(port_load_config(conf).arch, seed)
     variables = convert_variables(arch, sd)
-    images = seeded_images(seed, N_IMAGES, arch.image_size)
+    size = arch.image_size if isinstance(arch.image_size, int) else arch.image_size[0]
+    images = seeded_images(seed, N_IMAGES, size)
     model = arch.make()  # f32, as predict.py
 
     @jax.jit

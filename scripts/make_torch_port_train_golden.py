@@ -26,9 +26,9 @@ CONF = os.path.join(ROOT, "configs", "vit-s-16.conf")
 N_IMAGES = 2
 
 
-def jax_train_grads(seed: int) -> dict:
+def jax_train_grads(seed: int, conf: str = CONF) -> dict:
     """{"loss", "grad_norm", "keys", "norms", "projections"} from the JAX
-    package for the seeded weights and batch."""
+    package for the seeded weights and batch of the model in ``conf``."""
     import jax
     import jax.numpy as jnp
     import optax
@@ -43,9 +43,10 @@ def jax_train_grads(seed: int) -> dict:
                                                              seeded_train_batch,
                                                              state_dict_from_flax)
 
-    arch = load_config(CONF).arch
-    params = convert_variables(arch, seeded_state_dict(port_load_config(CONF).arch, seed))["params"]
-    batch = seeded_train_batch(seed, N_IMAGES, arch.image_size, arch.n_class)
+    arch = load_config(conf).arch
+    params = convert_variables(arch, seeded_state_dict(port_load_config(conf).arch, seed))["params"]
+    size = arch.image_size if isinstance(arch.image_size, int) else arch.image_size[0]
+    batch = seeded_train_batch(seed, N_IMAGES, size, arch.n_class)
     model = arch.make(drop_path=0.0)  # f32
 
     @jax.jit

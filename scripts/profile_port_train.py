@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's ViT-S/16 f32 train step on one GPU.
+"""Where the time goes in the port's f32 train step on one GPU.
 
-Runs ``engine.train_step`` (seeded weights and a synthetic batch, f32, no
-TF32, AdamW with the conf's clip, DropPath 0.1 drawn from a seeded
+Runs ``engine.train_step`` on the model of ``--conf`` (seeded weights and a
+synthetic batch, f32, no TF32, AdamW with the conf's clip and
+grad_accumulation, DropPath at the conf's rate drawn from a seeded
 generator) under ``torch.profiler`` after a warm-up and prints the device
-time by kernel per step, grouped by layer (hand-written GEMM, attention
-forward / backward kernels, other hand-written kernels, cuBLAS, the rest),
-the device's busy share of the wall time, and one JSON line.
+time by kernel per step, grouped by layer (hand-written GEMM in its
+row-major and split-K forms, attention forward / backward kernels, other
+hand-written kernels, cuBLAS, the rest), the device's busy share of the wall
+time, and one JSON line.
 
-    python3 scripts/profile_port_train.py [--rows 128] [--steps 5] [--trace out.json]
+    python3 scripts/profile_port_train.py [--conf configs/vit-s-16.conf] [--rows 128]
+        [--steps 5] [--trace out.json]
 
-``--rows`` ≥ 32 takes the fused attention layer (forward and backward
-kernels).  Needs CUDA; imports no JAX.
+ViT-S/16 at ``--rows`` ≥ 32 takes the fused attention layer (forward and
+backward kernels); Swin-S (``--conf configs/swin-transformer-s.conf``, two
+64-image micro-batches at 128 rows) the whole-layer kernel's forward and
+backward.  Needs CUDA; imports no JAX.
 """
 
 import argparse
@@ -27,12 +32,14 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONF = os.path.join(ROOT, "configs", "vit-s-16.conf")
 
 # kernel-name substring → layer, first match wins
-GROUPS = (("gemm_kernel", "hand-written GEMM"),
+GROUPS = (("gemm_kernel<true>", "hand-written GEMM, split-K (weight gradients)"),
+          ("gemm_kernel", "hand-written GEMM, row-major"),
           ("attn_bwd", "hand-written attention backward"),
           ("attention_kernel", "hand-written attention forward"),
           ("splitk_reduce", "other hand-written"), ("colsum", "other hand-written"),
           ("ln_", "other hand-written"), ("attn_delta", "other hand-written"),
           ("row_scale_grad", "other hand-written"), ("scale_rows", "other hand-written"),
+          ("silu", "other hand-written"), ("group_sum", "other hand-written"),
           ("gemm", "cuBLAS GEMM"), ("sgemm", "cuBLAS GEMM"), ("cutlass", "cuBLAS GEMM"),
           ("Memcpy", "copies"), ("foreach", "optimizer (foreach)"))
 
@@ -46,6 +53,7 @@ def group(name: str) -> str:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--conf", default=CONF)
     parser.add_argument("--rows", type=int, default=128)
     parser.add_argument("--steps", type=int, default=5)
     parser.add_argument("--seed", type=int, default=0)
@@ -66,7 +74,7 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip().splitlines()[0]
-    conf = load_config(CONF, ["precision=f32"])
+    conf = load_config(args.conf, ["precision=f32"])
     arch, training = conf.arch, conf.training
     model = arch.make()
     model.load_state_dict(to_torch(seeded_state_dict(arch, args.seed)), strict=True)
@@ -74,12 +82,14 @@ def main() -> None:
     state = engine.create_train_state(
         model, make_optimizer(training, model, lambda c: 1e-4), ema=training.ema)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    batch = to_device(next(SyntheticDataset(args.rows, arch.image_size, arch.n_class,
+    size = arch.image_size if isinstance(arch.image_size, int) else arch.image_size[0]
+    batch = to_device(next(SyntheticDataset(args.rows, size, arch.n_class,
                                             seed=args.seed).batches(args.rows)), "cuda")
 
     def step():
-        return engine.train_step(state, batch, gen, ema=training.ema,
-                                 clip_grad_norm=training.clip_grad_norm)
+        return engine.train_step(state, batch, gen,
+                                 grad_accumulation=training.grad_accumulation,
+                                 ema=training.ema, clip_grad_norm=training.clip_grad_norm)
 
     for _ in range(3):
         step()
@@ -106,14 +116,16 @@ def main() -> None:
     for name, _, ms in rows:
         groups[group(name)] = groups.get(group(name), 0.0) + ms
     print(card)
-    print(f"ViT-S/16 @224 f32 train step, {args.rows} rows, {args.steps} profiled "
+    print(f"{arch.type} {os.path.basename(args.conf)} f32 train step, {args.rows} rows "
+          f"(grad_accumulation {training.grad_accumulation}), {args.steps} profiled "
           f"steps: wall {wall * 1e3:.3f} ms ({args.rows / wall:.1f} images/s), "
           f"device busy {busy:.3f} ms ({busy / (wall * 1e3):.1%})")
     for label, ms in sorted(groups.items(), key=lambda g: -g[1]):
         print(f"  {ms:9.3f} ms  {ms / busy:6.1%}  {label}")
     for name, calls, ms in rows[:25]:
         print(f"  {ms:9.3f} ms  {ms / busy:6.1%}  x{calls:<4d} {name[:90]}")
-    print(json.dumps({"rows": args.rows, "wall_ms": wall * 1e3, "device_ms": busy,
+    print(json.dumps({"conf": os.path.basename(args.conf), "rows": args.rows,
+                      "wall_ms": wall * 1e3, "device_ms": busy,
                       "device_busy_share": busy / (wall * 1e3), "groups": groups,
                       "kernels": [{"name": n[:120], "calls": c, "ms": m}
                                   for n, c, m in rows[:25]]}))

@@ -28,6 +28,7 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys\n"
         "import vision_transformers_tpu_torch\n"
+        "import vision_transformers_tpu_torch.models.swin\n"
         "import vision_transformers_tpu_torch.models.vit\n"
         "import vision_transformers_tpu_torch.ops\n"
         "import vision_transformers_tpu_torch.ops._build\n"
@@ -77,6 +78,7 @@ def test_port_reads_nothing_of_the_jax_package():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert "vision_transformers_tpu_torch.config.hocon" in result["modules"]
     assert "vision_transformers_tpu_torch.train.trainer" in result["modules"]
+    assert "vision_transformers_tpu_torch.models.swin" in result["modules"]
     assert result["seen"] == [], result["seen"]
 
 
@@ -144,8 +146,8 @@ def test_bad_conf_raises(override, error):
 
 
 def test_unknown_type_lists_registered():
-    with pytest.raises(KeyError, match="registered: vit"):
-        registry.build("model", {"type": "swin_transformer"})
+    with pytest.raises(KeyError, match="registered: swin_transformer, vit"):
+        registry.build("model", {"type": "pvt"})
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -1,11 +1,12 @@
 """vision_transformers_tpu_torch — the PyTorch/CUDA port of vision_transformers_tpu.
 
 Written for an NVIDIA H100 (``sm_90a``); the JAX package beside it is the
-reference it is tested against.  It holds the ViT-S/16 serving path
+reference it is tested against.  It holds the serving path
 (``python -m vision_transformers_tpu_torch.predict``) and the f32 training
-path (``python -m vision_transformers_tpu_torch.train``), with hand-written
-CUDA kernels for the two forward layer kernels and the attention layer's
-backward (ops/).  Imports torch, never jax.
+path (``python -m vision_transformers_tpu_torch.train``) of ViT and Swin,
+with hand-written CUDA kernels for the forward and backward of the
+attention layer and of the whole transformer layer (ops/).  Imports torch,
+never jax.
 
 Importing this package populates the config registry, so ``.conf`` files
 resolve their ``arch``, ``optimizer``, ``scheduler`` and ``checker`` tags.

@@ -16,8 +16,10 @@
 namespace {
 
 // largest attention head width: the attention kernels hold a head's
-// vectors in registers, zero-padded to this width
+// vectors in registers, zero-padded to this width; with an additive bias
+// (Swin, D = 32) the narrower EXTRA_DMAX instantiation runs
 constexpr int DMAX = 64;
+constexpr int EXTRA_DMAX = 32;
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 inline long long cdivll(long long a, long long b) { return (a + b - 1) / b; }
@@ -282,4 +284,135 @@ inline cudaError_t launch_colsum(const float* A, const float* X, const float* mu
   return launch_splitk_reduce(part, chunks, 1, C, out, 0, 1, stream);
 }
 
+// ---------------------------------------------------------------------------
+// Elementwise and row pieces of the backward passes
+// ---------------------------------------------------------------------------
+
+constexpr int EW_THREADS = 256;
+
+inline unsigned ew_blocks(long long total) {
+  return (unsigned)cdivll(total, EW_THREADS);
+}
+
+// dst = rs[row / rows_per_scale] · src over rows of width C
+__global__ void __launch_bounds__(EW_THREADS)
+scale_rows_kernel(const float* __restrict__ src, const float* __restrict__ rs,
+                  int rows_per_scale, int C, long long total,
+                  float* __restrict__ dst) {
+  const long long i = (long long)blockIdx.x * EW_THREADS + threadIdx.x;
+  if (i >= total) return;
+  dst[i] = src[i] * rs[(i / C) / rows_per_scale];
+}
+
+// Per sample b (one block) of a residual branch y = rs[b] ⊙ (a·W + bias):
+// given dacc₀ = dy·Wᵀ [N·HD per sample] and the branch input a,
+//   drs[b] = Σ_{rows of b} (dacc₀·a + dy·bias)   (when drs is non-null)
+//   dacc   = rs[b] · dacc₀                         (in place)
+constexpr int DRS_THREADS = 256;
+
+__global__ void __launch_bounds__(DRS_THREADS)
+row_scale_grad_kernel(float* __restrict__ dacc, const float* __restrict__ acc,
+                      const float* __restrict__ dz, const float* __restrict__ bout,
+                      const float* __restrict__ rs, float* __restrict__ drs,
+                      int N, int HD, int C) {
+  __shared__ float red[DRS_THREADS];
+  const int b = blockIdx.x, t = threadIdx.x;
+  const float r = rs[b];
+  const long long a0 = (long long)b * N * HD;
+  float s = 0.f;
+  for (long long i = t; i < (long long)N * HD; i += DRS_THREADS) {
+    const float d0 = dacc[a0 + i];
+    s = fmaf(d0, acc[a0 + i], s);
+    dacc[a0 + i] = d0 * r;
+  }
+  if (drs) {
+    if (bout) {
+      const long long z0 = (long long)b * N * C;
+      for (long long i = t; i < (long long)N * C; i += DRS_THREADS)
+        s = fmaf(dz[z0 + i], bout[i % C], s);
+    }
+    red[t] = s;
+    __syncthreads();
+    for (int o = DRS_THREADS / 2; o > 0; o >>= 1) {
+      if (t < o) red[t] += red[t + o];
+      __syncthreads();
+    }
+    if (t == 0) drs[b] = red[0];
+  }
+}
+
+// u = (x − mu)·rstd·g + b, a forward LayerNorm's output from its saved
+// statistics (the same expression as ln_rows_kernel, so bit-identical)
+__global__ void __launch_bounds__(EW_THREADS)
+ln_apply_kernel(const float* __restrict__ x, const float* __restrict__ mu,
+                const float* __restrict__ rstd, const float* __restrict__ g,
+                const float* __restrict__ b, float* __restrict__ u, int C,
+                long long total) {
+  const long long i = (long long)blockIdx.x * EW_THREADS + threadIdx.x;
+  if (i >= total) return;
+  const long long r = i / C;
+  const int c = i % C;
+  u[i] = (x[i] - mu[r]) * rstd[r] * g[c] + b[c];
+}
+
+// LayerNorm backward, one warp per row (fused_layer.py:79-87):
+//   dx = dz + rstd·(dx̂ − mean(dx̂) − x̂·mean(dx̂⊙x̂)),  dx̂ = dln ⊙ g
+__global__ void __launch_bounds__(LN_THREADS)
+ln_bwd_rows_kernel(const float* __restrict__ dln, const float* __restrict__ x,
+                   const float* __restrict__ mu, const float* __restrict__ rstd,
+                   const float* __restrict__ g, const float* __restrict__ dz,
+                   float* __restrict__ dx, int rows, int C) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;  // uniform across the warp
+  const long long off = (long long)row * C;
+  const float m = mu[row], r = rstd[row];
+  float s1 = 0.f, s2 = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    const float dxh = dln[off + c] * g[c];
+    const float xh = (x[off + c] - m) * r;
+    s1 += dxh;
+    s2 = fmaf(dxh, xh, s2);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+  }
+  const float m1 = s1 / C, m2 = s2 / C;
+  for (int c = lane; c < C; c += 32) {
+    const float dxh = dln[off + c] * g[c];
+    const float xh = (x[off + c] - m) * r;
+    dx[off + c] = dz[off + c] + r * (dxh - m1 - xh * m2);
+  }
+}
+
+// silu(h) = h·σ(h), the GEMM epilogue's expression (so bit-identical)
+__global__ void __launch_bounds__(EW_THREADS)
+silu_kernel(const float* __restrict__ h, float* __restrict__ out, long long total) {
+  const long long i = (long long)blockIdx.x * EW_THREADS + threadIdx.x;
+  if (i >= total) return;
+  const float v = h[i];
+  out[i] = v / (1.f + expf(-v));
+}
+
 }  // namespace
+
+// Backward of the attention residual branch (fused_layer_bwd.cu), shared by
+// the attention layer's backward and the whole layer's (fused_layer1_bwd.cu).
+// extra / dextra / dsbuf may be null; see fused_layer_bwd.cu.
+namespace vtx {
+cudaError_t attention_half_bwd(
+    const float* x, const float* ln_g, const float* ln_b,
+    const float* wqkv, long long wqkv_s0, long long wqkv_s1, const float* bqkv,
+    const float* wout, long long wout_s0, long long wout_s1, const float* bout,
+    const float* rs, const float* extra, int groups, const float* qkv,
+    const float* acc, const float* mu, const float* rstd, const float* lse,
+    const float* dz, float* da, float* dacc, float* delta, float* dqkv, float* u,
+    float* dln, float* dsbuf, float* wpart, int splits_out, int splits_qkv,
+    float* cpart, float* dx, float* dg, float* db,
+    float* dwqkv, long long dwqkv_s0, long long dwqkv_s1, float* dbqkv,
+    float* dwout, long long dwout_s0, long long dwout_s1, float* dbout,
+    float* drs, float* dextra, int B, int N, int C, int H, int D, float scale,
+    cudaStream_t s);
+}  // namespace vtx

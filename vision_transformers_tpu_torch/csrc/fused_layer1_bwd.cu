@@ -1,0 +1,185 @@
+// Backward of the whole pre-LN transformer layer, float32, for Hopper
+// (sm_90a):
+//
+//   z = x + r₁ ⊙ OutProj(MHSA(QkvProj(LN₁(x)) + extra))
+//   o = z + r₂ ⊙ (silu(LN₂(z)·W₁ + b₁)·W₂ + b₂)
+//
+// Replaces the TPU (Pallas) kernel
+//   vision_transformers_tpu/ops/fused_layer1.py:181   _l1_bwd_kernel
+// and computes what it computes: dx, the gradients of both LayerNorms, of
+// the four weights and their biases, of the grouped additive attention bias
+// extra [G, H, N, N] (Swin's relative-position bias and shift mask; row b is
+// in group b / (B/G)) and, when they are asked for, of both per-sample
+// DropPath scales r₁, r₂ [B].  It reads what the whole layer's training
+// forward (fused_layer.cu) saved: qkv, acc, z, the FF pre-activation hid,
+// the LN₁ / LN₂ statistics and the softmax log-sum-exp — so nothing of the
+// forward is recomputed but the two LayerNorm outputs and silu(hid), which
+// are elementwise.  One C entry, vtx_fused_transformer_layer_bwd, is a
+// fixed sequence of launches on the caller's stream:
+//
+//   FF half, given do:
+//   1. dff = r₂ ⊙ do;  af = silu(hid);  dW₂ = afᵀ·dff;  db₂ = Σ_rows dff
+//   2. da₀ = do·W₂ᵀ;  dr₂[b] = Σ_{rows of b}(da₀⊙af + do⊙b₂) (the
+//      reassociation of fused_layer1.py:232-246);  da = r₂ ⊙ da₀
+//   3. dh = da ⊙ silu'(hid)
+//   4. u₂ = LN₂(z) from the saved statistics;  dW₁ = u₂ᵀ·dh;  db₁ = Σ_rows dh
+//   5. dln₂ = dh·W₁ᵀ;  dz = do + LN₂ᵀ(dln₂);  dg₂, db₂ⁿ = column sums
+//   Attention half, given dz: fused_layer_bwd.cu's attention_half_bwd with
+//   the bias (its step 3d sums dS over each group's rows in row order into
+//   dextra).
+//
+// Determinism: as in fused_layer_bwd.cu, every reduction over rows is a
+// fixed-order two-pass sum (split-K slabs, row chunks, the group sum of dS)
+// or one block's fixed tree; no float atomics, so the gradients are
+// bit-identical from run to run.
+//
+// What bounds it on this card.  The FF half's four GEMMs do 8·M·C·F
+// operations (2x the FF forward), the attention half 16·M·C·HD plus five
+// attention products of 2·B·H·N²·D; at Swin-S (F = 4C, HD = C, N = 98) the
+// GEMMs are ~93% of it, all plain f32 FMAs: the bound is the f32 FMA rate,
+// 67 TFLOP/s at 700 W.  Besides the GEMMs, the FF half moves M·F floats
+// four times (af, da, dh) — Swin-S stage 1 at 64 images is M = 200,704
+// rows, F = 384 — and dS costs B·H·N² floats written and read once
+// (≈ 236 MB at that shape), which is cheaper than recomputing the scores a
+// third time to sum it.
+//
+// What later work changes: the elementwise passes into the GEMM epilogues
+// (silu' into the da GEMM, af into the dW₂ GEMM's loads), wgmma on bf16
+// operands, and the same launch fusion as the attention layer's backward.
+
+#include "common.cuh"
+
+namespace {
+
+// dh = da ⊙ silu'(hid) in place, silu'(h) = σ(h)·(1 + h·(1 − σ(h)))
+// (fused_layer.py:98-102)
+__global__ void __launch_bounds__(EW_THREADS)
+dsilu_mul_kernel(float* __restrict__ da, const float* __restrict__ hid,
+                 long long total) {
+  const long long i = (long long)blockIdx.x * EW_THREADS + threadIdx.x;
+  if (i >= total) return;
+  const float h = hid[i];
+  const float s = 1.f / (1.f + expf(-h));
+  da[i] *= s + h * s * (1.f - s);
+}
+
+cudaError_t transformer_layer_bwd(
+    const float* x, const float* ln1_g, const float* ln1_b,
+    const float* wqkv, long long wqkv_s0, long long wqkv_s1, const float* bqkv,
+    const float* wout, long long wout_s0, long long wout_s1, const float* bout,
+    const float* ln2_g, const float* ln2_b,
+    const float* w1, long long w1_s0, long long w1_s1, const float* b1,
+    const float* w2, long long w2_s0, long long w2_s1, const float* b2,
+    const float* extra, int groups, const float* rs_attn, const float* rs_ff,
+    const float* qkv, const float* acc, const float* z, const float* hid,
+    const float* mu1, const float* rstd1, const float* lse, const float* mu2,
+    const float* rstd2, const float* dout,
+    float* da, float* af, float* dh, float* dz, float* dacc, float* delta,
+    float* dqkv, float* u, float* dln, float* dsbuf, float* wpart,
+    int splits_out, int splits_qkv, int splits_w1, int splits_w2, float* cpart,
+    float* dx, float* dg1, float* db1, float* dwqkv, long long dwqkv_s0,
+    long long dwqkv_s1, float* dbqkv, float* dwout, long long dwout_s0,
+    long long dwout_s1, float* dbout, float* dg2, float* db2,
+    float* dw1, long long dw1_s0, long long dw1_s1, float* db1f,
+    float* dw2, long long dw2_s0, long long dw2_s1, float* db2f,
+    float* dextra, float* drs_attn, float* drs_ff,
+    int B, int N, int C, int H, int D, int F, float scale, cudaStream_t s) {
+  const int M = B * N;
+  const long long MC = (long long)M * C, MF = (long long)M * F;
+  if (B > 65535) return cudaErrorInvalidValue;
+
+  // 1. dff = r₂ ⊙ do (in da); af = silu(hid); dW₂ = afᵀ·dff; db₂ = Σ dff
+  const float* dff = dout;
+  if (rs_ff) {
+    scale_rows_kernel<<<ew_blocks(MC), EW_THREADS, 0, s>>>(dout, rs_ff, N, C, MC, da);
+    VTX_CHECK(cudaGetLastError());
+    dff = da;
+  }
+  silu_kernel<<<ew_blocks(MF), EW_THREADS, 0, s>>>(hid, af, MF);
+  VTX_CHECK(cudaGetLastError());
+  VTX_CHECK(launch_gemm_splitk(af, F, dff, C, 1, wpart, splits_w2, dw2, dw2_s0,
+                               dw2_s1, F, C, M, s));
+  if (db2f) VTX_CHECK(launch_colsum(dff, nullptr, nullptr, nullptr, cpart, db2f, M, C, s));
+
+  // 2. da₀ = do·W₂ᵀ; dr₂; da = r₂ ⊙ da₀  (da₀ / da live in dh)
+  VTX_CHECK(launch_gemm(dout, w2, w2_s1, w2_s0, nullptr, nullptr, 1, nullptr, dh,
+                        M, F, C, 0, s));
+  if (rs_ff) {
+    row_scale_grad_kernel<<<B, DRS_THREADS, 0, s>>>(dh, af, dout, b2, rs_ff,
+                                                    drs_ff, N, F, C);
+    VTX_CHECK(cudaGetLastError());
+  }
+
+  // 3. dh = da ⊙ silu'(hid)
+  dsilu_mul_kernel<<<ew_blocks(MF), EW_THREADS, 0, s>>>(dh, hid, MF);
+  VTX_CHECK(cudaGetLastError());
+
+  // 4. u₂ from the saved statistics; dW₁ = u₂ᵀ·dh; db₁ = Σ dh
+  ln_apply_kernel<<<ew_blocks(MC), EW_THREADS, 0, s>>>(z, mu2, rstd2, ln2_g,
+                                                       ln2_b, u, C, MC);
+  VTX_CHECK(cudaGetLastError());
+  VTX_CHECK(launch_gemm_splitk(u, C, dh, F, 1, wpart, splits_w1, dw1, dw1_s0,
+                               dw1_s1, C, F, M, s));
+  if (db1f) VTX_CHECK(launch_colsum(dh, nullptr, nullptr, nullptr, cpart, db1f, M, F, s));
+
+  // 5. dln₂ = dh·W₁ᵀ; dz = do + LN₂ᵀ(dln₂); dg₂ = Σ dln₂ ⊙ x̂₂; db₂ⁿ = Σ dln₂
+  VTX_CHECK(launch_gemm(dh, w1, w1_s1, w1_s0, nullptr, nullptr, 1, nullptr, dln,
+                        M, C, F, 0, s));
+  ln_bwd_rows_kernel<<<cdiv(M, LN_THREADS / 32), LN_THREADS, 0, s>>>(
+      dln, z, mu2, rstd2, ln2_g, dout, dz, M, C);
+  VTX_CHECK(cudaGetLastError());
+  VTX_CHECK(launch_colsum(dln, z, mu2, rstd2, cpart, dg2, M, C, s));
+  VTX_CHECK(launch_colsum(dln, nullptr, nullptr, nullptr, cpart, db2, M, C, s));
+
+  // attention half, driven by dz
+  return vtx::attention_half_bwd(
+      x, ln1_g, ln1_b, wqkv, wqkv_s0, wqkv_s1, bqkv, wout, wout_s0, wout_s1,
+      bout, rs_attn, extra, groups, qkv, acc, mu1, rstd1, lse, dz, da, dacc,
+      delta, dqkv, u, dln, dsbuf, wpart, splits_out, splits_qkv, cpart, dx, dg1,
+      db1, dwqkv, dwqkv_s0, dwqkv_s1, dbqkv, dwout, dwout_s0, dwout_s1, dbout,
+      drs_attn, dextra, B, N, C, H, D, scale, s);
+}
+
+}  // namespace
+
+// Returns the first cudaError_t met (0 = success).  Workspace, all
+// allocated by the caller (M = B·N): da [M, C] (used only with a row
+// scale), af [M, F], dh [M, F], dz [M, C], dacc [M, HD], delta [B·H·N],
+// dqkv [M, 3HD], u [M, C], dln [M, C], dsbuf [B·H·N·N] (used only with
+// extra and dextra), wpart [max over the four weight gradients of
+// splits·rows·cols], cpart [ceil(M / 128) · max(C, 3HD, F)].  The weight
+// gradients are written through their (row, col) strides, so they may share
+// the layout of the weight views the forward read.  The biases, extra, the
+// row scales and their gradients (dbqkv … db2f, dextra, drs_attn, drs_ff)
+// may be null.
+extern "C" int vtx_fused_transformer_layer_bwd(
+    const float* x, const float* ln1_g, const float* ln1_b,
+    const float* wqkv, long long wqkv_s0, long long wqkv_s1, const float* bqkv,
+    const float* wout, long long wout_s0, long long wout_s1, const float* bout,
+    const float* ln2_g, const float* ln2_b,
+    const float* w1, long long w1_s0, long long w1_s1, const float* b1,
+    const float* w2, long long w2_s0, long long w2_s1, const float* b2,
+    const float* extra, int groups, const float* rs_attn, const float* rs_ff,
+    const float* qkv, const float* acc, const float* z, const float* hid,
+    const float* mu1, const float* rstd1, const float* lse, const float* mu2,
+    const float* rstd2, const float* dout,
+    float* da, float* af, float* dh, float* dz, float* dacc, float* delta,
+    float* dqkv, float* u, float* dln, float* dsbuf, float* wpart,
+    int splits_out, int splits_qkv, int splits_w1, int splits_w2, float* cpart,
+    float* dx, float* dg1, float* db1, float* dwqkv, long long dwqkv_s0,
+    long long dwqkv_s1, float* dbqkv, float* dwout, long long dwout_s0,
+    long long dwout_s1, float* dbout, float* dg2, float* db2,
+    float* dw1, long long dw1_s0, long long dw1_s1, float* db1f,
+    float* dw2, long long dw2_s0, long long dw2_s1, float* db2f,
+    float* dextra, float* drs_attn, float* drs_ff,
+    int B, int N, int C, int H, int D, int F, float scale, void* stream) {
+  return static_cast<int>(transformer_layer_bwd(
+      x, ln1_g, ln1_b, wqkv, wqkv_s0, wqkv_s1, bqkv, wout, wout_s0, wout_s1,
+      bout, ln2_g, ln2_b, w1, w1_s0, w1_s1, b1, w2, w2_s0, w2_s1, b2, extra,
+      groups, rs_attn, rs_ff, qkv, acc, z, hid, mu1, rstd1, lse, mu2, rstd2,
+      dout, da, af, dh, dz, dacc, delta, dqkv, u, dln, dsbuf, wpart, splits_out,
+      splits_qkv, splits_w1, splits_w2, cpart, dx, dg1, db1, dwqkv, dwqkv_s0,
+      dwqkv_s1, dbqkv, dwout, dwout_s0, dwout_s1, dbout, dg2, db2, dw1, dw1_s0,
+      dw1_s1, db1f, dw2, dw2_s0, dw2_s1, db2f, dextra, drs_attn, drs_ff, B, N,
+      C, H, D, F, scale, static_cast<cudaStream_t>(stream)));
+}

@@ -11,7 +11,8 @@
 // output acc [M, HD], the LN statistics mu / rstd [M] and the softmax
 // log-sum-exp lse [B, H, N] (M = B·N rows).  One C entry,
 // vtx_fused_attention_layer_bwd, is a fixed sequence of launches on the
-// caller's stream:
+// caller's stream, vtx::attention_half_bwd, which the whole layer's
+// backward (fused_layer1_bwd.cu) runs as its second half:
 //
 //   1. da = r ⊙ dz;  dwout = accᵀ·da;  dbout = Σ_rows da
 //   2. dacc₀ = dz·woutᵀ;  dr[b] = Σ_{n∈b}(Σ_k dacc₀⊙acc + Σ_c dz⊙bout)
@@ -20,7 +21,12 @@
 //      memory: Δ = rowsum(dacc_h ⊙ acc_h); a key-tile pass recomputes
 //      p = exp(q·kᵀ·s − lse) and accumulates dv += pᵀ·do, dk += dsᵀ·q·s with
 //      ds = p ⊙ (do·vᵀ − Δ); a query-tile pass accumulates dq += ds·k·s.
-//      Both write dqkv [M, 3HD] (q-heads | k-heads | v-heads).
+//      Both write dqkv [M, 3HD] (q-heads | k-heads | v-heads).  With the
+//      grouped additive bias extra [G, H, N, N] of the whole layer's
+//      backward (fused_layer1_bwd.cu), p = exp(q·kᵀ·s + extra[g] − lse),
+//      the key-tile pass also stores ds [B, H, N, N], and dextra[g] is the
+//      sum of ds over the group's rows in row order (3d): the Pallas
+//      kernel's `dextra_ref[0, h] += ds` over its sequential grid.
 //   4. u = LN(x) recomputed from x, mu, rstd;  dwqkv = uᵀ·dqkv;
 //      dbqkv = Σ_rows dqkv
 //   5. dln = dqkv·wqkvᵀ
@@ -39,7 +45,10 @@
 // 5 products of 2·B·H·N²·D (recomputed scores, dv, dp, dk, dq) — about 2.5x
 // the forward's attention work; at ViT-S/16 (C = HD = 384, N = 197) the
 // GEMMs are ~75% of it.  All of it runs as plain f32 FMAs (no tensor cores):
-// the bound is the f32 FMA rate, 67 TFLOP/s at 700 W.  The GEMMs reuse the
+// the bound is the f32 FMA rate, 67 TFLOP/s at 700 W.  The attention
+// kernels hold a head zero-padded to 64 in registers (ViT: D = 64); with the
+// bias (Swin: D = 32) a 32-wide instantiation runs, and wider heads are
+// refused.  The GEMMs reuse the
 // forward's tiled FMA GEMM, reading accᵀ, uᵀ, woutᵀ and wqkvᵀ through
 // strides; the attention kernels hold one key (or query) per thread with its
 // accumulators in registers and stream the other side through shared memory,
@@ -53,59 +62,6 @@
 #include "common.cuh"
 
 namespace {
-
-constexpr int EW_THREADS = 256;
-
-// ---------------------------------------------------------------------------
-// 1. da = rs[m / N] · dz
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(EW_THREADS)
-scale_rows_kernel(const float* __restrict__ src, const float* __restrict__ rs,
-                  int rows_per_scale, int C, long long total,
-                  float* __restrict__ dst) {
-  const long long i = (long long)blockIdx.x * EW_THREADS + threadIdx.x;
-  if (i >= total) return;
-  dst[i] = src[i] * rs[(i / C) / rows_per_scale];
-}
-
-// ---------------------------------------------------------------------------
-// 2. per sample b (one block): dr[b] = Σ_{rows of b} (dacc₀·acc + dz·bout),
-//    and dacc = rs[b] · dacc₀ in place
-// ---------------------------------------------------------------------------
-
-constexpr int DRS_THREADS = 256;
-
-__global__ void __launch_bounds__(DRS_THREADS)
-row_scale_grad_kernel(float* __restrict__ dacc, const float* __restrict__ acc,
-                      const float* __restrict__ dz, const float* __restrict__ bout,
-                      const float* __restrict__ rs, float* __restrict__ drs,
-                      int N, int HD, int C) {
-  __shared__ float red[DRS_THREADS];
-  const int b = blockIdx.x, t = threadIdx.x;
-  const float r = rs[b];
-  const long long a0 = (long long)b * N * HD;
-  float s = 0.f;
-  for (long long i = t; i < (long long)N * HD; i += DRS_THREADS) {
-    const float d0 = dacc[a0 + i];
-    s = fmaf(d0, acc[a0 + i], s);
-    dacc[a0 + i] = d0 * r;
-  }
-  if (drs) {
-    if (bout) {
-      const long long z0 = (long long)b * N * C;
-      for (long long i = t; i < (long long)N * C; i += DRS_THREADS)
-        s = fmaf(dz[z0 + i], bout[i % C], s);
-    }
-    red[t] = s;
-    __syncthreads();
-    for (int o = DRS_THREADS / 2; o > 0; o >>= 1) {
-      if (t < o) red[t] += red[t + o];
-      __syncthreads();
-    }
-    if (t == 0) drs[b] = red[0];
-  }
-}
 
 // ---------------------------------------------------------------------------
 // 3a. Δ[b, h, n] = Σ_d dacc[m, h·D + d] · acc[m, h·D + d]   (m = b·N + n)
@@ -133,19 +89,28 @@ attn_delta_kernel(const float* __restrict__ dacc, const float* __restrict__ acc,
 //     d-outer passes: the scores and do·v of all BQ queries (k[d], v[d]
 //     read once per d), then the dk / dv updates — so no row but the
 //     accumulators stays in registers.
+//     DH: the register width of a head (32 or 64 ≥ D, zero-padded).
+//     HAS_EXTRA: the scores carry the additive bias extra[g, h] of the
+//     row's group g = b / rows_per_group (read straight from device memory:
+//     neighbouring threads are neighbouring keys), and, when ds_out is
+//     non-null, dS = p ⊙ (dP − Δ) of every (query, key) pair is stored to
+//     ds_out [B, H, N, N] for the ordered sum over the group's rows (3d).
 // ---------------------------------------------------------------------------
 
 constexpr int BK = 64;   // keys per block = threads per block
 constexpr int BQ = 16;   // queries per shared-memory tile
 
+template <int DH, bool HAS_EXTRA>
 __global__ void __launch_bounds__(BK)
 attn_bwd_dkdv_kernel(const float* __restrict__ qkv, const float* __restrict__ dacc,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     float* __restrict__ dqkv, int N, int H, int D, float scale) {
-  __shared__ float Ks[BK][DMAX + 1];  // +1: thread t reads row t, bank-free
-  __shared__ float Vs[BK][DMAX + 1];
-  __shared__ float Qs[BQ][DMAX];
-  __shared__ float dOs[BQ][DMAX];
+                     const float* __restrict__ extra, int rows_per_group,
+                     float* __restrict__ ds_out, float* __restrict__ dqkv, int N,
+                     int H, int D, float scale) {
+  __shared__ float Ks[BK][DH + 1];  // +1: thread t reads row t, bank-free
+  __shared__ float Vs[BK][DH + 1];
+  __shared__ float Qs[BQ][DH];
+  __shared__ float dOs[BQ][DH];
   __shared__ float Ls[BQ], Ds[BQ];
   const int b = blockIdx.z, h = blockIdx.y, t = threadIdx.x;
   const int HD = H * D;
@@ -155,23 +120,28 @@ attn_bwd_dkdv_kernel(const float* __restrict__ qkv, const float* __restrict__ da
   const float* lbase = lse + ((long long)b * H + h) * N;
   const float* delbase = delta + ((long long)b * H + h) * N;
   const int k0 = blockIdx.x * BK;
+  const int kj = k0 + t;
+  const long long NN = (long long)N * N;
+  const float* ebase = HAS_EXTRA
+      ? extra + ((long long)(b / rows_per_group) * H + h) * NN : nullptr;
+  float* dsbase = (HAS_EXTRA && ds_out) ? ds_out + ((long long)b * H + h) * NN : nullptr;
 
-  for (int idx = t; idx < BK * DMAX; idx += BK) {
-    const int j = idx / DMAX, d = idx % DMAX;
+  for (int idx = t; idx < BK * DH; idx += BK) {
+    const int j = idx / DH, d = idx % DH;
     const bool ok = k0 + j < N && d < D;
     const float* rowp = base + (long long)(k0 + j) * row_stride + h * D + d;
     Ks[j][d] = ok ? rowp[HD] : 0.f;
     Vs[j][d] = ok ? rowp[2 * HD] : 0.f;
   }
 
-  float dk[DMAX], dv[DMAX];
+  float dk[DH], dv[DH];
 #pragma unroll
-  for (int d = 0; d < DMAX; ++d) dk[d] = dv[d] = 0.f;
+  for (int d = 0; d < DH; ++d) dk[d] = dv[d] = 0.f;
 
   for (int q0 = 0; q0 < N; q0 += BQ) {
     __syncthreads();  // Ks / Vs written, or the last tile fully read
-    for (int idx = t; idx < BQ * DMAX; idx += BK) {
-      const int i = idx / DMAX, d = idx % DMAX;
+    for (int idx = t; idx < BQ * DH; idx += BK) {
+      const int i = idx / DH, d = idx % DH;
       const bool ok = q0 + i < N && d < D;
       Qs[i][d] = ok ? base[(long long)(q0 + i) * row_stride + h * D + d] : 0.f;
       dOs[i][d] = ok ? dbase[(long long)(q0 + i) * HD + h * D + d] : 0.f;
@@ -186,7 +156,7 @@ attn_bwd_dkdv_kernel(const float* __restrict__ qkv, const float* __restrict__ da
 #pragma unroll
     for (int i = 0; i < BQ; ++i) p[i] = ds[i] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < DMAX; ++d) {
+    for (int d = 0; d < DH; ++d) {
       const float kd = Ks[t][d], vd = Vs[t][d];
 #pragma unroll
       for (int i = 0; i < BQ; ++i) {
@@ -196,11 +166,19 @@ attn_bwd_dkdv_kernel(const float* __restrict__ qkv, const float* __restrict__ da
     }
 #pragma unroll
     for (int i = 0; i < BQ; ++i) {
-      p[i] = expf(p[i] * scale - Ls[i]);
-      ds[i] = p[i] * (ds[i] - Ds[i]);
+      if (HAS_EXTRA) {
+        const bool ok = q0 + i < N && kj < N;
+        const float e = ok ? ebase[(long long)(q0 + i) * N + kj] : 0.f;
+        p[i] = expf(p[i] * scale + e - Ls[i]);
+        ds[i] = p[i] * (ds[i] - Ds[i]);
+        if (dsbase && ok) dsbase[(long long)(q0 + i) * N + kj] = ds[i];
+      } else {
+        p[i] = expf(p[i] * scale - Ls[i]);
+        ds[i] = p[i] * (ds[i] - Ds[i]);
+      }
     }
 #pragma unroll
-    for (int d = 0; d < DMAX; ++d) {
+    for (int d = 0; d < DH; ++d) {
       float v_acc = dv[d], k_acc = dk[d];
 #pragma unroll
       for (int i = 0; i < BQ; ++i) {
@@ -212,11 +190,10 @@ attn_bwd_dkdv_kernel(const float* __restrict__ qkv, const float* __restrict__ da
     }
   }
 
-  const int kj = k0 + t;
   if (kj < N) {
     float* row = dqkv + ((long long)b * N + kj) * row_stride + h * D;
 #pragma unroll
-    for (int d = 0; d < DMAX; ++d) {
+    for (int d = 0; d < DH; ++d) {
       if (d < D) {
         row[HD + d] = dk[d] * scale;
         row[2 * HD + d] = dv[d];
@@ -230,20 +207,24 @@ attn_bwd_dkdv_kernel(const float* __restrict__ qkv, const float* __restrict__ da
 //     its dq accumulator in registers, its q and do rows in (padded) shared
 //     memory; key tiles of k and v streamed through shared memory
 //     (broadcast).  Per key tile, two d-outer passes as in 3b: the scores
-//     and do·v of all BKV keys, then the dq update.
+//     and do·v of all BKV keys, then the dq update.  With HAS_EXTRA the
+//     bias tile [BQQ, BKV] is staged in shared memory (loaded along keys).
 // ---------------------------------------------------------------------------
 
 constexpr int BQQ = 64;  // queries per block = threads per block
 constexpr int BKV = 16;  // keys per shared-memory tile
 
+template <int DH, bool HAS_EXTRA>
 __global__ void __launch_bounds__(BQQ)
 attn_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ dacc,
                    const float* __restrict__ lse, const float* __restrict__ delta,
+                   const float* __restrict__ extra, int rows_per_group,
                    float* __restrict__ dqkv, int N, int H, int D, float scale) {
-  __shared__ float Qs[BQQ][DMAX + 1];   // +1: thread t reads row t, bank-free
-  __shared__ float dOs[BQQ][DMAX + 1];
-  __shared__ float Ks[BKV][DMAX];
-  __shared__ float Vs[BKV][DMAX];
+  __shared__ float Qs[BQQ][DH + 1];   // +1: thread t reads row t, bank-free
+  __shared__ float dOs[BQQ][DH + 1];
+  __shared__ float Ks[BKV][DH];
+  __shared__ float Vs[BKV][DH];
+  __shared__ float Es[HAS_EXTRA ? BQQ : 1][BKV + 1];
   const int b = blockIdx.z, h = blockIdx.y, t = threadIdx.x;
   const int HD = H * D;
   const long long row_stride = 3LL * HD;
@@ -251,35 +232,44 @@ attn_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ dacc
   const float* dbase = dacc + (long long)b * N * HD;
   const int q0 = blockIdx.x * BQQ;
   const int qi = q0 + t;
+  const float* ebase = HAS_EXTRA
+      ? extra + ((long long)(b / rows_per_group) * H + h) * N * N : nullptr;
 
-  for (int idx = t; idx < BQQ * DMAX; idx += BQQ) {
-    const int i = idx / DMAX, d = idx % DMAX;
+  for (int idx = t; idx < BQQ * DH; idx += BQQ) {
+    const int i = idx / DH, d = idx % DH;
     const bool ok = q0 + i < N && d < D;
     Qs[i][d] = ok ? base[(long long)(q0 + i) * row_stride + h * D + d] : 0.f;
     dOs[i][d] = ok ? dbase[(long long)(q0 + i) * HD + h * D + d] : 0.f;
   }
-  float dq[DMAX];
+  float dq[DH];
 #pragma unroll
-  for (int d = 0; d < DMAX; ++d) dq[d] = 0.f;
+  for (int d = 0; d < DH; ++d) dq[d] = 0.f;
   const long long lrow = ((long long)b * H + h) * N + qi;
   const float l = qi < N ? lse[lrow] : 0.f;
   const float dl = qi < N ? delta[lrow] : 0.f;
 
   for (int k0 = 0; k0 < N; k0 += BKV) {
     __syncthreads();  // Qs / dOs written, or the last tile fully read
-    for (int idx = t; idx < BKV * DMAX; idx += BQQ) {
-      const int j = idx / DMAX, d = idx % DMAX;
+    for (int idx = t; idx < BKV * DH; idx += BQQ) {
+      const int j = idx / DH, d = idx % DH;
       const bool ok = k0 + j < N && d < D;
       const float* rowp = base + (long long)(k0 + j) * row_stride + h * D + d;
       Ks[j][d] = ok ? rowp[HD] : 0.f;
       Vs[j][d] = ok ? rowp[2 * HD] : 0.f;
+    }
+    if (HAS_EXTRA) {
+      for (int idx = t; idx < BQQ * BKV; idx += BQQ) {
+        const int i = idx / BKV, j = idx % BKV;
+        const bool ok = q0 + i < N && k0 + j < N;
+        Es[i][j] = ok ? ebase[(long long)(q0 + i) * N + k0 + j] : 0.f;
+      }
     }
     __syncthreads();
     float p[BKV], ds[BKV];
 #pragma unroll
     for (int j = 0; j < BKV; ++j) p[j] = ds[j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < DMAX; ++d) {
+    for (int d = 0; d < DH; ++d) {
       const float qd = Qs[t][d], dod = dOs[t][d];
 #pragma unroll
       for (int j = 0; j < BKV; ++j) {
@@ -289,11 +279,14 @@ attn_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ dacc
     }
 #pragma unroll
     for (int j = 0; j < BKV; ++j) {
-      p[j] = (k0 + j < N) ? expf(p[j] * scale - l) : 0.f;
+      if (HAS_EXTRA)
+        p[j] = (k0 + j < N) ? expf(p[j] * scale + Es[t][j] - l) : 0.f;
+      else
+        p[j] = (k0 + j < N) ? expf(p[j] * scale - l) : 0.f;
       ds[j] = p[j] * (ds[j] - dl);
     }
 #pragma unroll
-    for (int d = 0; d < DMAX; ++d) {
+    for (int d = 0; d < DH; ++d) {
       float acc = dq[d];
 #pragma unroll
       for (int j = 0; j < BKV; ++j) acc = fmaf(ds[j], Ks[j][d], acc);
@@ -304,82 +297,65 @@ attn_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ dacc
   if (qi < N) {
     float* row = dqkv + ((long long)b * N + qi) * row_stride + h * D;
 #pragma unroll
-    for (int d = 0; d < DMAX; ++d)
+    for (int d = 0; d < DH; ++d)
       if (d < D) row[d] = dq[d] * scale;
   }
 }
 
 // ---------------------------------------------------------------------------
-// 4. u = (x − mu)·rstd·g + b, the forward's LayerNorm output, from the saved
-//    statistics (the same expression as ln_rows_kernel, so bit-identical)
+// 3d. dextra[g, h, q, k] = Σ_{r < R} ds[g·R + r, h, q, k], R = B / G rows
+//     per group, summed in r order (one thread per output element).
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(EW_THREADS)
-ln_apply_kernel(const float* __restrict__ x, const float* __restrict__ mu,
-                const float* __restrict__ rstd, const float* __restrict__ g,
-                const float* __restrict__ b, float* __restrict__ u, int C,
-                long long total) {
-  const long long i = (long long)blockIdx.x * EW_THREADS + threadIdx.x;
-  if (i >= total) return;
-  const long long r = i / C;
-  const int c = i % C;
-  u[i] = (x[i] - mu[r]) * rstd[r] * g[c] + b[c];
+group_sum_kernel(const float* __restrict__ ds, int R, long long per_row,
+                 long long total, float* __restrict__ out) {
+  const long long e = (long long)blockIdx.x * EW_THREADS + threadIdx.x;
+  if (e >= total) return;
+  const long long g = e / per_row, rem = e % per_row;
+  const float* src = ds + g * R * per_row + rem;
+  float s = 0.f;
+  for (int r = 0; r < R; ++r) s += src[(long long)r * per_row];
+  out[e] = s;
 }
 
-// ---------------------------------------------------------------------------
-// 6. LN backward, one warp per row:
-//    dx = dz + rstd·(dx̂ − mean(dx̂) − x̂·mean(dx̂⊙x̂)),  dx̂ = dln ⊙ g
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(LN_THREADS)
-ln_bwd_rows_kernel(const float* __restrict__ dln, const float* __restrict__ x,
-                   const float* __restrict__ mu, const float* __restrict__ rstd,
-                   const float* __restrict__ g, const float* __restrict__ dz,
-                   float* __restrict__ dx, int rows, int C) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;  // uniform across the warp
-  const long long off = (long long)row * C;
-  const float m = mu[row], r = rstd[row];
-  float s1 = 0.f, s2 = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    const float dxh = dln[off + c] * g[c];
-    const float xh = (x[off + c] - m) * r;
-    s1 += dxh;
-    s2 = fmaf(dxh, xh, s2);
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    s1 += __shfl_xor_sync(0xffffffffu, s1, o);
-    s2 += __shfl_xor_sync(0xffffffffu, s2, o);
-  }
-  const float m1 = s1 / C, m2 = s2 / C;
-  for (int c = lane; c < C; c += 32) {
-    const float dxh = dln[off + c] * g[c];
-    const float xh = (x[off + c] - m) * r;
-    dx[off + c] = dz[off + c] + r * (dxh - m1 - xh * m2);
-  }
+template <int DH, bool HAS_EXTRA>
+cudaError_t launch_attn_bwd(const float* qkv, const float* dacc, const float* lse,
+                            const float* delta, const float* extra,
+                            int rows_per_group, float* dsbuf, float* dqkv, int B,
+                            int N, int H, int D, float scale, cudaStream_t s) {
+  attn_bwd_dkdv_kernel<DH, HAS_EXTRA><<<dim3(cdiv(N, BK), H, B), BK, 0, s>>>(
+      qkv, dacc, lse, delta, extra, rows_per_group, dsbuf, dqkv, N, H, D, scale);
+  VTX_CHECK(cudaGetLastError());
+  attn_bwd_dq_kernel<DH, HAS_EXTRA><<<dim3(cdiv(N, BQQ), H, B), BQQ, 0, s>>>(
+      qkv, dacc, lse, delta, extra, rows_per_group, dqkv, N, H, D, scale);
+  return cudaGetLastError();
 }
 
-inline unsigned ew_blocks(long long total) {
-  return (unsigned)cdivll(total, EW_THREADS);
-}
+}  // namespace
 
-cudaError_t attention_half_bwd(
+// z = x + r ⊙ OutProj(MHSA(QkvProj(LN(x)) + extra)) backward, steps 1-6
+// above.  extra [G, H, N, N] (row b in group b / (B/G)) may be null; with
+// it and a non-null dextra, dsbuf [B, H, N, N] takes dS and dextra
+// [G, H, N, N] its ordered sum over each group's rows.
+cudaError_t vtx::attention_half_bwd(
     const float* x, const float* ln_g, const float* ln_b,
     const float* wqkv, long long wqkv_s0, long long wqkv_s1, const float* bqkv,
     const float* wout, long long wout_s0, long long wout_s1, const float* bout,
-    const float* rs, const float* qkv, const float* acc, const float* mu,
-    const float* rstd, const float* lse, const float* dz,
-    float* da, float* dacc, float* delta, float* dqkv, float* u, float* dln,
-    float* wpart, int splits_out, int splits_qkv, float* cpart,
-    float* dx, float* dg, float* db,
+    const float* rs, const float* extra, int groups, const float* qkv,
+    const float* acc, const float* mu, const float* rstd, const float* lse,
+    const float* dz, float* da, float* dacc, float* delta, float* dqkv, float* u,
+    float* dln, float* dsbuf, float* wpart, int splits_out, int splits_qkv,
+    float* cpart, float* dx, float* dg, float* db,
     float* dwqkv, long long dwqkv_s0, long long dwqkv_s1, float* dbqkv,
     float* dwout, long long dwout_s0, long long dwout_s1, float* dbout,
-    float* drs, int B, int N, int C, int H, int D, float scale,
+    float* drs, float* dextra, int B, int N, int C, int H, int D, float scale,
     cudaStream_t s) {
   const int M = B * N, HD = H * D;
   if (D > DMAX || B > 65535 || H > 65535) return cudaErrorInvalidValue;
+  if (extra && (D > EXTRA_DMAX || groups < 1 || B % groups)) return cudaErrorInvalidValue;
+  const int rows_per_group = extra ? B / groups : 1;
+  float* ds_out = (extra && dextra) ? dsbuf : nullptr;
 
   // 1. da = rs ⊙ dz; dwout = accᵀ·da; dbout = Σ_rows da
   const float* dA = dz;
@@ -402,16 +378,25 @@ cudaError_t attention_half_bwd(
     VTX_CHECK(cudaGetLastError());
   }
 
-  // 3. attention backward → dqkv
+  // 3. attention backward → dqkv (and dS → dextra)
   attn_delta_kernel<<<ew_blocks((long long)B * H * N), EW_THREADS, 0, s>>>(
       dacc, acc, delta, B, N, H, D);
   VTX_CHECK(cudaGetLastError());
-  attn_bwd_dkdv_kernel<<<dim3(cdiv(N, BK), H, B), BK, 0, s>>>(
-      qkv, dacc, lse, delta, dqkv, N, H, D, scale);
-  VTX_CHECK(cudaGetLastError());
-  attn_bwd_dq_kernel<<<dim3(cdiv(N, BQQ), H, B), BQQ, 0, s>>>(
-      qkv, dacc, lse, delta, dqkv, N, H, D, scale);
-  VTX_CHECK(cudaGetLastError());
+  // the instantiations of the forward (fused_layer.cu::launch_attention)
+  const cudaError_t attn_err =
+      extra ? launch_attn_bwd<EXTRA_DMAX, true>(qkv, dacc, lse, delta, extra,
+                                                rows_per_group, ds_out, dqkv, B, N,
+                                                H, D, scale, s)
+            : launch_attn_bwd<DMAX, false>(qkv, dacc, lse, delta, nullptr, 1,
+                                           nullptr, dqkv, B, N, H, D, scale, s);
+  VTX_CHECK(attn_err);
+  if (ds_out) {
+    const long long per_row = (long long)H * N * N;
+    const long long total = (long long)groups * per_row;
+    group_sum_kernel<<<ew_blocks(total), EW_THREADS, 0, s>>>(
+        ds_out, rows_per_group, per_row, total, dextra);
+    VTX_CHECK(cudaGetLastError());
+  }
 
   // 4. u from the saved statistics; dwqkv = uᵀ·dqkv; dbqkv = Σ_rows dqkv
   ln_apply_kernel<<<ew_blocks((long long)M * C), EW_THREADS, 0, s>>>(
@@ -436,8 +421,6 @@ cudaError_t attention_half_bwd(
   return cudaSuccess;
 }
 
-}  // namespace
-
 // Returns the first cudaError_t met (0 = success).  Workspace, all
 // allocated by the caller: da [M, C] (used only with rs), dacc [M, HD],
 // delta [B·H·N], dqkv [M, 3HD], u [M, C], dln [M, C],
@@ -457,10 +440,10 @@ extern "C" int vtx_fused_attention_layer_bwd(
     float* dwqkv, long long dwqkv_s0, long long dwqkv_s1, float* dbqkv,
     float* dwout, long long dwout_s0, long long dwout_s1, float* dbout,
     float* drs, int B, int N, int C, int H, int D, float scale, void* stream) {
-  return static_cast<int>(attention_half_bwd(
+  return static_cast<int>(vtx::attention_half_bwd(
       x, ln_g, ln_b, wqkv, wqkv_s0, wqkv_s1, bqkv, wout, wout_s0, wout_s1, bout,
-      rs, qkv, acc, mu, rstd, lse, dz, da, dacc, delta, dqkv, u, dln, wpart,
-      splits_out, splits_qkv, cpart, dx, dg, db, dwqkv, dwqkv_s0, dwqkv_s1,
-      dbqkv, dwout, dwout_s0, dwout_s1, dbout, drs, B, N, C, H, D, scale,
-      static_cast<cudaStream_t>(stream)));
+      rs, nullptr, 1, qkv, acc, mu, rstd, lse, dz, da, dacc, delta, dqkv, u, dln,
+      nullptr, wpart, splits_out, splits_qkv, cpart, dx, dg, db, dwqkv, dwqkv_s0,
+      dwqkv_s1, dbqkv, dwout, dwout_s0, dwout_s1, dbout, drs, nullptr, B, N, C, H,
+      D, scale, static_cast<cudaStream_t>(stream)));
 }

@@ -6,10 +6,13 @@ Module and parameter names follow the reference torch code
 
 from __future__ import annotations
 
+from typing import Any
+
 import torch
 from torch import nn
 
-__all__ = ["layer_norm", "LayerNorm", "FeedForward", "drop_path_scale"]
+__all__ = ["layer_norm", "LayerNorm", "FeedForward", "drop_path_scale",
+           "patchify", "scaled", "pair"]
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -52,3 +55,21 @@ def drop_path_scale(b: int, rate: float, generator: torch.Generator | None,
     keep = 1.0 - rate
     mask = torch.rand(b, generator=generator, device=device) < keep
     return mask.float() / keep
+
+
+def scaled(h: torch.Tensor, rs: torch.Tensor | None) -> torch.Tensor:
+    """h ⊙ rs per sample (the leading dim); rs None leaves h as it is."""
+    return h if rs is None else h * rs.to(h.dtype).reshape(-1, *([1] * (h.ndim - 1)))
+
+
+def patchify(x: torch.Tensor, size: int) -> torch.Tensor:
+    """[B, H, W, D] → [B, H/s, W/s, s·s·D], feature order (sy, sx, d) (the
+    JAX package's models/swin.py:47-53; reference swin_transformer.py:15-22)."""
+    b, h, w, d = x.shape
+    x = x.reshape(b, h // size, size, w // size, size, d).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h // size, w // size, size * size * d)
+
+
+def pair(v: Any) -> tuple[int, int]:
+    """An int or a 2-sequence as (h, w)."""
+    return (v, v) if isinstance(v, int) else tuple(v)

@@ -30,16 +30,13 @@ from torch import nn
 
 from .. import ops
 from ..config.registry import TypedConfig, register
-from .layers import FeedForward, LayerNorm, drop_path_scale
+from .layers import FeedForward, LayerNorm, drop_path_scale, pair, scaled
 
 __all__ = ["MultiHeadedAttention", "TransformerLayer", "PatchEmbedding",
            "VisionTransformer", "ViTConfig"]
 
 _LN_EPS = 1e-6  # reference: models/vit.py:13
 
-
-def _pair(v: Any) -> tuple[int, int]:
-    return (v, v) if isinstance(v, int) else tuple(v)
 
 
 class MultiHeadedAttention(nn.Module):
@@ -91,13 +88,8 @@ class TransformerLayer(nn.Module):
             x = ops.fused_attention_layer(x, *attn_w, attn.n_head,
                                           row_scale=rs_attn, eps=_LN_EPS)
         else:
-            x = x + _scaled(attn(na(x)), rs_attn)
-        return x + _scaled(ff(nf(x)), rs_ff)
-
-
-def _scaled(h: torch.Tensor, rs) -> torch.Tensor:
-    """h ⊙ rs per sample (vit.py:223-228); rs None leaves h as it is."""
-    return h if rs is None else h * rs[:, None, None].to(h.dtype)
+            x = x + scaled(attn(na(x)), rs_attn)
+        return x + scaled(ff(nf(x)), rs_ff)
 
 
 class PatchEmbedding(nn.Module):
@@ -122,7 +114,7 @@ class VisionTransformer(nn.Module):
                  drop_attn: float = 0.0, drop_ff: float = 0.0,
                  drop_path: float = 0.0, n_class: int = 1000):
         super().__init__()
-        h, w = _pair(image_size)
+        h, w = pair(image_size)
         n_patch = (h // patch_size) * (w // patch_size)
         self.patch_embedding = PatchEmbedding(dim, patch_size)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, dim))

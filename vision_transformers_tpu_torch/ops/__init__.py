@@ -1,15 +1,19 @@
 """Hand-written CUDA kernels and the attention dispatch.
 
 Counterpart of ``vision_transformers_tpu/ops/__init__.py``.  Two kernels
-are ported (float32), each beside its plain torch version:
+are ported (float32), each beside its plain torch version, each forward and
+backward inside a ``torch.autograd.Function``:
 
 - ``layer``:  :func:`fused_attention_layer` (ops/fused_layer.py) — the
-  pre-LN attention residual branch, forward and backward (an autograd
-  Function); the FF half stays plain torch.
+  pre-LN attention residual branch; the FF half stays plain torch.  ViT's
+  training path (32+ rows).
 - ``layer1``: :func:`fused_transformer_layer` (ops/fused_layer1.py) — the
-  whole layer, both residual branches, forward only (eval and serving).
+  whole layer, both residual branches, with the additive attention bias
+  (Swin's grouped [G, H, m, m] relative-position bias + shift mask) and
+  both DropPath row scales.  Swin's default path in training, eval and
+  serving; ViT's under :func:`forward_only` from 128 rows.
 
-``einsum`` is the plain torch attention in models/vit.py.
+``einsum`` is the plain torch attention of the models.
 """
 
 from __future__ import annotations
@@ -63,7 +67,7 @@ def set_attention_impl(impl: Optional[str]) -> None:
 def attention_impl(batch: Optional[int] = None, default: str = "einsum") -> str:
     """Implementation for one attention call site: ``batch`` is the call's
     row count, ``default`` the site's default ('layer' for sequences of
-    ≥ 128 tokens in models/vit.py)."""
+    ≥ 128 tokens in models/vit.py, 'layer1' in models/swin.py)."""
     if _FORCED is not None:
         return _FORCED
     if default != "einsum" and batch is not None and batch < _AUTO_MIN_BATCH:

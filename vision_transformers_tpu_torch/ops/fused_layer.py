@@ -5,9 +5,11 @@
 Counterpart of ``vision_transformers_tpu/ops/fused_layer.py::
 fused_attention_layer``, same signature and weight semantics: x [B, N, C],
 ln_scale/ln_bias [C], wqkv [C, 3·H·D] laid out q-heads | k-heads | v-heads,
-wout [H·D, C], extra optional [H, N, N] additive bias (the JAX op also
-takes a grouped [G, H, N, N] form, which arrives with the Swin slice),
-row_scale optional [B] per-sample DropPath scale.
+wout [H·D, C], extra optional additive attention bias in the JAX op's
+three forms (``ops/fused_block.py:233-243``): [N, N] or [H, N, N] shared by
+every row, or grouped [G, H, N, N] with B % G == 0, row b taking group
+b // (B/G) — Swin's window groups —, row_scale optional [B] per-sample
+DropPath scale.
 
 A call that needs gradients goes through a ``torch.autograd.Function``
 whose forward keeps the residuals the backward reads — qkv, the attention
@@ -23,8 +25,10 @@ dots f32-accumulated, softmax f32) and the backward
 :func:`fused_attention_layer_bwd_reference`.  A CUDA tensor runs the
 hand-written kernels in ``csrc/fused_layer.cu`` (forward) and
 ``csrc/fused_layer_bwd.cu`` (backward) or raises; it never falls back to
-the plain versions.  The kernels take float32 and ``extra=None``;
-anything else on a CUDA tensor raises NotImplementedError.  The weights may
+the plain versions.  The kernels take float32 and ``extra=None`` (the bias
+rides in the whole-layer kernel, :mod:`.fused_layer1`, which Swin takes;
+this op's backward takes it with the DINO slice); anything else on a CUDA
+tensor raises NotImplementedError.  The weights may
 be any 2-D strided view: the model passes ``linear.weight.t()``, and the
 wrapper hands those strides to the kernels instead of copying the weights;
 their gradients come back in the view's shape and layout.
@@ -76,9 +80,47 @@ def _heads(t: torch.Tensor, n_head: int) -> torch.Tensor:
     return t.reshape(B, N, n_head, HD // n_head).permute(0, 2, 1, 3).float()
 
 
+def extra_groups(extra: Optional[torch.Tensor], B: int, n_head: int, N: int):
+    """The JAX ``_extra_form``: (extra as contiguous f32 [G, H, N, N] or
+    None, G).  [N, N] and [H, N, N] broadcast to one group."""
+    if extra is None:
+        return None, 1
+    if extra.ndim == 4:
+        G = extra.shape[0]
+        if B % G:
+            raise ValueError(f"batch {B} not divisible by extra groups {G}")
+        return extra.float().contiguous(), G
+    return extra.float().expand(n_head, N, N)[None].contiguous(), 1
+
+
+def extra_grad(dextra_g: Optional[torch.Tensor], extra: Optional[torch.Tensor]):
+    """The gradient of the grouped bias [G, H, N, N] in the caller's form of
+    ``extra`` (fused_layer1.py:677-687): summed over what was broadcast."""
+    if extra is None or dextra_g is None:
+        return None
+    d = dextra_g
+    if extra.ndim < 4:
+        d = d[0]
+        if extra.ndim == 2:
+            d = d.sum(0)
+        elif extra.shape[0] == 1 and d.shape[0] != 1:
+            d = d.sum(0, keepdim=True)
+    return d.to(extra.dtype)
+
+
+def _scores_bias(s: torch.Tensor, extra_g: Optional[torch.Tensor]) -> torch.Tensor:
+    """s [B, H, N, N] + the grouped bias of each row's group."""
+    if extra_g is None:
+        return s
+    B = s.shape[0]
+    G = extra_g.shape[0]
+    return (s.reshape(G, B // G, *s.shape[1:]) + extra_g[:, None]).reshape(s.shape)
+
+
 def attention_branch_reference(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
                                n_head, extra, scale, eps):
-    """OutProj(MHSA(QkvProj(LN(x)))) — the branch without the residual."""
+    """OutProj(MHSA(QkvProj(LN(x)) + extra)) — the branch without the
+    residual; ``extra`` in any of the three forms."""
     B, N, C = x.shape
     HD = wqkv.shape[1] // 3
     D = HD // n_head
@@ -89,8 +131,11 @@ def attention_branch_reference(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
     q, k, v = (qkv[..., i * HD:(i + 1) * HD].reshape(B, N, n_head, D).float()
                for i in range(3))
     s = torch.einsum("bnhd,bmhd->bhnm", q, k) * scale
-    if extra is not None:  # [H, N, N], shared across the batch
-        s = s + extra.float()
+    if extra is not None:
+        if extra.ndim == 4:
+            s = _scores_bias(s, extra_groups(extra, B, n_head, N)[0])
+        else:
+            s = s + extra.float()
     p = torch.softmax(s, dim=-1).to(x.dtype)
     acc = torch.einsum("bhnm,bmhd->bnhd", p.float(), v).to(x.dtype).reshape(B, N, HD)
     a = _dot(acc, wout, x.dtype)
@@ -149,9 +194,10 @@ class AttnSaved(NamedTuple):
 def fused_attention_layer_fwd_reference(x, ln_scale, ln_bias, wqkv, bqkv, wout,
                                         bout, n_head: int, row_scale=None,
                                         scale: Optional[float] = None,
-                                        eps: float = 1e-6):
+                                        eps: float = 1e-6, extra_g=None):
     """Plain torch training forward: (out, :class:`AttnSaved`), the same
-    arithmetic as :func:`fused_attention_layer_reference` plus the saves."""
+    arithmetic as :func:`fused_attention_layer_reference` plus the saves;
+    ``extra_g`` the grouped bias [G, H, N, N] (the whole layer's)."""
     scale = _default_scale(wqkv, n_head, scale)
     B, N, C = x.shape
     HD = wqkv.shape[1] // 3
@@ -162,7 +208,7 @@ def fused_attention_layer_fwd_reference(x, ln_scale, ln_bias, wqkv, bqkv, wout,
     if bqkv is not None:
         qkv = qkv + bqkv
     q, k, v = (_heads(qkv[..., i * HD:(i + 1) * HD], n_head) for i in range(3))
-    s = torch.einsum("bhnd,bhmd->bhnm", q, k) * scale
+    s = _scores_bias(torch.einsum("bhnd,bhmd->bhnm", q, k) * scale, extra_g)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.softmax(s, dim=-1)
     acc = torch.einsum("bhnm,bhmd->bnhd", p, v).to(x.dtype).reshape(B, N, HD)
@@ -174,19 +220,20 @@ def fused_attention_layer_fwd_reference(x, ln_scale, ln_bias, wqkv, bqkv, wout,
                           qkv, acc, mu[..., 0], rstd[..., 0], lse, n_head, scale, eps)
 
 
-def fused_attention_layer_bwd_reference(saved: AttnSaved, dz: torch.Tensor,
-                                        need_drs: bool = True):
-    """Plain torch backward on the saved residuals, in the kernel's steps
-    (csrc/fused_layer_bwd.cu): → (dx, dln_scale, dln_bias, dwqkv, dbqkv,
-    dwout, dbout, drs); a bias grad is None where the bias is, drs None
-    without a row scale or ``need_drs``."""
+def attention_half_bwd_reference(saved: AttnSaved, dz2: torch.Tensor,
+                                 need_drs: bool = True, extra_g=None,
+                                 need_dextra: bool = False):
+    """The attention half's plain backward in the kernel's steps
+    (csrc/fused_layer_bwd.cu), f32, given dz2 [B·N, C] f32: → (dx [B·N, C]
+    f32, dln_scale, dln_bias, dwqkv, dbqkv, dwout, dbout, drs, dextra_g)
+    with ``extra_g`` the grouped bias [G, H, N, N] the scores carried and
+    dextra_g its gradient [G, H, N, N] (when ``need_dextra``)."""
     x, g, b, wqkv, bqkv, wout, bout, rs = saved[:8]
     B, N, C = x.shape
     H, scale = saved.n_head, saved.scale
     HD = wqkv.shape[1] // 3
     M = B * N
     f = torch.float32
-    dz2 = dz.reshape(M, C).to(f)
     acc2 = saved.acc.reshape(M, HD).to(f)
     rsr = None if rs is None else rs.to(f).repeat_interleave(N)[:, None]
 
@@ -209,9 +256,14 @@ def fused_attention_layer_bwd_reference(saved: AttnSaved, dz: torch.Tensor,
     do = _heads(dacc.reshape(B, N, HD), H)
     o = _heads(saved.acc, H)
     delta = (do * o).sum(-1, keepdim=True)
-    p = torch.exp(torch.einsum("bhnd,bhmd->bhnm", q, k) * scale - saved.lse[..., None].to(f))
+    s = _scores_bias(torch.einsum("bhnd,bhmd->bhnm", q, k) * scale, extra_g)
+    p = torch.exp(s - saved.lse[..., None].to(f))
     dv = torch.einsum("bhnm,bhnd->bhmd", p, do)
     ds = p * (torch.einsum("bhnd,bhmd->bhnm", do, v) - delta)
+    dextra_g = None
+    if extra_g is not None and need_dextra:
+        G = extra_g.shape[0]
+        dextra_g = ds.reshape(G, B // G, H, N, N).sum(1)
     dq = torch.einsum("bhnm,bhmd->bhnd", ds, k) * scale
     dk = torch.einsum("bhnm,bhnd->bhmd", ds, q) * scale
     dqkv = torch.cat([t.permute(0, 2, 1, 3).reshape(M, HD) for t in (dq, dk, dv)], -1)
@@ -224,19 +276,36 @@ def fused_attention_layer_bwd_reference(saved: AttnSaved, dz: torch.Tensor,
     # 5. dln = dqkv·wqkvᵀ
     dln = dqkv @ wqkv.to(f).t()
     # 6. LN backward (fused_layer.py:79-87)
-    dxhat = dln * g.to(f)
+    dx, dg, db = ln_bwd_reference(dln, xhat, saved.rstd.reshape(M, 1), g, dz2)
+    return (dx, cast_like(dg, g), cast_like(db, b), cast_like(dwqkv, wqkv),
+            cast_like(dbqkv, bqkv), cast_like(dwout, wout), cast_like(dbout, bout),
+            drs, dextra_g)
+
+
+def ln_bwd_reference(dln, xhat, rstd, g, dres):
+    """LayerNorm backward (fused_layer.py:79-87) plus the residual's
+    cotangent dres: (dx, dg, db), f32."""
+    dxhat = dln * g.float()
     m1 = dxhat.mean(-1, keepdim=True)
     m2 = (dxhat * xhat).mean(-1, keepdim=True)
-    dx = dz2 + saved.rstd.reshape(M, 1) * (dxhat - m1 - xhat * m2)
-    dg = (dln * xhat).sum(0)
-    db = dln.sum(0)
+    dx = dres + rstd * (dxhat - m1 - xhat * m2)
+    return dx, (dln * xhat).sum(0), dln.sum(0)
 
-    def cast(t, like):
-        return None if t is None else t.to(like.dtype)
 
-    return (dx.reshape(B, N, C).to(x.dtype), cast(dg, g), cast(db, b),
-            cast(dwqkv, wqkv), cast(dbqkv, bqkv), cast(dwout, wout),
-            cast(dbout, bout), drs)
+def cast_like(t: Optional[torch.Tensor], like: Optional[torch.Tensor]):
+    return None if t is None else t.to(like.dtype)
+
+
+def fused_attention_layer_bwd_reference(saved: AttnSaved, dz: torch.Tensor,
+                                        need_drs: bool = True):
+    """Plain torch backward on the saved residuals, in the kernel's steps
+    (csrc/fused_layer_bwd.cu): → (dx, dln_scale, dln_bias, dwqkv, dbqkv,
+    dwout, dbout, drs); a bias grad is None where the bias is, drs None
+    without a row scale or ``need_drs``."""
+    x = saved.x
+    dx, *grads, _ = attention_half_bwd_reference(
+        saved, dz.reshape(-1, x.shape[-1]).float(), need_drs)
+    return (dx.reshape(x.shape).to(x.dtype), *grads)
 
 
 # ---------------------------------------------------------------------------
@@ -332,7 +401,7 @@ def _cuda_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, n_head, row_scale,
     return out, (qkv, acc, mu, rstd, lse)
 
 
-def _like_layout(w: torch.Tensor) -> torch.Tensor:
+def like_layout(w: torch.Tensor) -> torch.Tensor:
     """An empty gradient for weight view ``w``, in its layout when that is
     dense (the [in, out] view of a torch [out, in] weight is), else
     contiguous."""
@@ -381,7 +450,7 @@ def _cuda_bwd(saved: AttnSaved, dz: torch.Tensor, need_drs: bool):
         cpart=torch.empty((chunks * max(C, 3 * HD),), **opts))
     dx = torch.empty_like(x)
     dg, db = torch.empty((C,), **opts), torch.empty((C,), **opts)
-    dwqkv, dwout = _like_layout(wqkv), _like_layout(wout)
+    dwqkv, dwout = like_layout(wqkv), like_layout(wout)
     dbqkv = torch.empty((3 * HD,), **opts) if bqkv is not None else None
     dbout = torch.empty((C,), **opts) if bout is not None else None
     drs = torch.empty((B,), **opts) if rs is not None and need_drs else None

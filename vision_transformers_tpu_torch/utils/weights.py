@@ -1,9 +1,9 @@
-"""Weights for the port's ViT: from the JAX package's flax params, from a
-reference ``.pt`` checkpoint, or generated from a numpy seed.
+"""Weights for the port's ViT and Swin: from the JAX package's flax params,
+from a reference ``.pt`` checkpoint, or generated from a numpy seed.
 
-Every state_dict here is in the reference torch layout (models/vit.py of
-the reference; the keys of the JAX package's
-``utils/torch_convert.py:118-143``).
+Every state_dict here is in the reference torch layout (models/vit.py and
+models/swin_transformer.py of the reference; the keys of the JAX package's
+``utils/torch_convert.py:118-143,192-224``).
 """
 
 from __future__ import annotations
@@ -35,9 +35,46 @@ def _ln(dst, name, p):
     dst[f"{name}.bias"] = np.asarray(p["bias"])
 
 
+def _ff(dst, name, p):
+    _lin(dst, f"{name}.0", p["fc1"])
+    _lin(dst, f"{name}.3", p["fc2"])
+
+
+def _swin_from_flax(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The inverse of the JAX package's ``_convert_swin``
+    (utils/torch_convert.py:192-224)."""
+    dst: Dict[str, np.ndarray] = {}
+    _lin(dst, "patch_embedding.linear", params["patch_embedding"]["linear"])
+    _ln(dst, "patch_embedding.norm", params["patch_embedding"]["norm"])
+    _ln(dst, "final_linear.0", params["final_norm"])
+    _lin(dst, "classifier.2", params["classifier"])
+    s = 1
+    while f"block{s}_0" in params:
+        offset = 0
+        if f"merge{s}" in params:
+            _ln(dst, f"block{s}.0.norm", params[f"merge{s}"]["norm"])
+            _lin(dst, f"block{s}.0.linear", params[f"merge{s}"]["linear"])
+            offset = 1
+        i = 0
+        while f"block{s}_{i}" in params:
+            bp, t = params[f"block{s}_{i}"], f"block{s}.{i + offset}"
+            _ln(dst, f"{t}.norm_attn", bp["norm_attn"])
+            _lin(dst, f"{t}.attn.weight", bp["attn"]["weight"])
+            _lin(dst, f"{t}.attn.linear", bp["attn"]["linear"])
+            dst[f"{t}.attn.rel_pos.weight"] = np.asarray(bp["attn"]["rel_pos"])
+            _ln(dst, f"{t}.norm_ff", bp["norm_ff"])
+            _ff(dst, f"{t}.ff", bp["ff"])
+            i += 1
+        s += 1
+    return dst
+
+
 def state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
-    """The JAX package's flax ViT ``params`` (nested dict of arrays, per-layer
-    ``layers_{i}`` layout) → the port's state_dict, as numpy arrays."""
+    """The JAX package's flax ``params`` (nested dict of arrays) of a ViT
+    (per-layer ``layers_{i}`` layout) or a Swin → the port's state_dict, as
+    numpy arrays."""
+    if "final_norm" in params:
+        return _swin_from_flax(params)
     dst: Dict[str, np.ndarray] = {}
     conv = params["patch_embedding"]["linear"]
     dst["patch_embedding.linear.weight"] = np.asarray(conv["kernel"]).transpose(3, 2, 0, 1)
@@ -52,8 +89,7 @@ def state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
         _lin(dst, f"layers.{i}.attn.qkv", lp["attn"]["qkv"])
         _lin(dst, f"layers.{i}.attn.linear", lp["attn"]["linear"])
         _ln(dst, f"layers.{i}.norm_ff", lp["norm_ff"])
-        _lin(dst, f"layers.{i}.ff.0", lp["ff"]["fc1"])
-        _lin(dst, f"layers.{i}.ff.3", lp["ff"]["fc2"])
+        _ff(dst, f"layers.{i}.ff", lp["ff"])
         i += 1
     if "head" in params:
         _lin(dst, "head", params["head"])
@@ -70,6 +106,13 @@ def to_torch(state_dict: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 
+# state_dict entries of the reference that are no weights: BN step
+# counters and Swin's precomputed relative-position index / shift mask
+# buffers (the port computes both in numpy; the JAX package's list,
+# utils/torch_convert.py:450-458)
+_BUFFER_SUFFIXES = ("num_batches_tracked", ".attn.pos", ".attn.local_mask")
+
+
 def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     """One state_dict from a reference ``.pt[:key]`` checkpoint.
 
@@ -77,7 +120,8 @@ def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     train.py:208-217); without it a wrapper resolves to the first of
     ``model``, ``ema``, ``student``, ``teacher``, ``state_dict`` it holds,
     as the JAX package's ``load_torch_checkpoint`` does.  DDP's ``module.``
-    prefix is stripped.  Orbax checkpoint directories are not read by the
+    prefix is stripped, and the reference's buffers that hold no weights
+    (``_BUFFER_SUFFIXES``) are dropped.  Orbax checkpoint directories are not read by the
     port yet."""
     key: Optional[str] = None
     if ":" in path and not os.path.exists(path):
@@ -106,6 +150,8 @@ def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
                            f"state_dict; append :key, one of {sorted(obj)}")
     out = {}
     for k, v in obj.items():
+        if k.endswith(_BUFFER_SUFFIXES):
+            continue
         if not torch.is_tensor(v):
             raise ValueError(f"{path}: entry {k!r} is {type(v).__name__}, not a "
                              f"tensor; append :key to select a state_dict")
@@ -119,17 +165,15 @@ def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
 
 
 def seeded_state_dict(arch, seed: int) -> Dict[str, np.ndarray]:
-    """Random ViT weights in reference layout from a numpy seed: std-0.02
-    normals for every weight and bias, LayerNorms at ones / zeros.  ``arch``
-    is the port's ViTConfig (or anything with its fields)."""
+    """Random weights in reference layout from a numpy seed: std-0.02
+    normals for every weight and bias, LayerNorms at ones / zeros, and for a
+    Swin std-0.2 normals in the relative-position tables (non-zero, so that
+    a comparison sees the bias; the JAX initializer is zeros).  ``arch`` is
+    the port's ViTConfig or SwinConfig (or anything with its fields)."""
     rng = np.random.default_rng([seed, 0])
-    h, w = (arch.image_size, arch.image_size) if isinstance(arch.image_size, int) \
-        else tuple(arch.image_size)
-    p, dim, ff = arch.window_size, arch.dim, arch.dim_ff
-    n_tok = (h // p) * (w // p) + 1
 
-    def normal(*shape):
-        return rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+    def normal(*shape, std=0.02):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
 
     sd: Dict[str, np.ndarray] = {}
 
@@ -137,10 +181,40 @@ def seeded_state_dict(arch, seed: int) -> Dict[str, np.ndarray]:
         sd[f"{name}.weight"] = np.ones(n, np.float32)
         sd[f"{name}.bias"] = np.zeros(n, np.float32)
 
-    def lin(name, n_out, n_in):
+    def lin(name, n_out, n_in, bias=True):
         sd[f"{name}.weight"] = normal(n_out, n_in)
-        sd[f"{name}.bias"] = normal(n_out)
+        if bias:
+            sd[f"{name}.bias"] = normal(n_out)
 
+    if hasattr(arch, "depths"):  # Swin
+        dims = arch.dims
+        lin("patch_embedding.linear", dims[0], 3 * 4 * 4)
+        ln("patch_embedding.norm", dims[0])
+        for s, depth in enumerate(arch.depths):
+            offset = 0
+            if s > 0:
+                ln(f"block{s + 1}.0.norm", 4 * dims[s - 1])
+                lin(f"block{s + 1}.0.linear", dims[s], 4 * dims[s - 1], bias=False)
+                offset = 1
+            inner = arch.n_heads[s] * arch.dim_head
+            for i in range(depth):
+                t = f"block{s + 1}.{i + offset}"
+                ln(f"{t}.norm_attn", dims[s])
+                lin(f"{t}.attn.weight", 3 * inner, dims[s])
+                lin(f"{t}.attn.linear", dims[s], inner)
+                sd[f"{t}.attn.rel_pos.weight"] = normal(
+                    (2 * arch.window_size - 1) ** 2, arch.n_heads[s], std=0.2)
+                ln(f"{t}.norm_ff", dims[s])
+                lin(f"{t}.ff.0", arch.dim_ffs[s], dims[s])
+                lin(f"{t}.ff.3", dims[s], arch.dim_ffs[s])
+        ln("final_linear.0", dims[-1])
+        lin("classifier.2", arch.n_class, dims[-1])
+        return sd
+
+    h, w = (arch.image_size, arch.image_size) if isinstance(arch.image_size, int) \
+        else tuple(arch.image_size)
+    p, dim, ff = arch.window_size, arch.dim, arch.dim_ff
+    n_tok = (h // p) * (w // p) + 1
     sd["patch_embedding.linear.weight"] = normal(dim, 3, p, p)
     sd["patch_embedding.linear.bias"] = normal(dim)
     sd["cls_token"] = normal(1, 1, dim)
