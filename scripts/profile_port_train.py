@@ -11,12 +11,15 @@ hand-written kernels, cuBLAS, the rest), the device's busy share of the wall
 time, and one JSON line.
 
     python3 scripts/profile_port_train.py [--conf configs/vit-s-16.conf] [--rows 128]
-        [--steps 5] [--trace out.json]
+        [--steps 5] [--trace out.json] [key=value conf overrides ...]
 
 ViT-S/16 at ``--rows`` ≥ 32 takes the fused attention layer (forward and
 backward kernels); Swin-S (``--conf configs/swin-transformer-s.conf``, two
 64-image micro-batches at 128 rows) the whole-layer kernel's forward and
-backward.  Needs CUDA; imports no JAX.
+backward; Halo-S (``--conf tests/data/halo_s_port.conf``, 128 images at
+256 px) the whole Halo layer's (``arch.drop_path=0.1`` as chip_smoke.py's
+trainer run; ``--halo-impl direct`` the halo attention's between torch
+projections).  Needs CUDA; imports no JAX.
 """
 
 import argparse
@@ -34,6 +37,9 @@ CONF = os.path.join(ROOT, "configs", "vit-s-16.conf")
 # kernel-name substring → layer, first match wins
 GROUPS = (("gemm_kernel<true>", "hand-written GEMM, split-K (weight gradients)"),
           ("gemm_kernel", "hand-written GEMM, row-major"),
+          ("halo_attn_bwd", "hand-written halo attention backward"),
+          ("halo_attn_fwd", "hand-written halo attention forward"),
+          ("halo_fold", "other hand-written"),
           ("attn_bwd", "hand-written attention backward"),
           ("attention_kernel", "hand-written attention forward"),
           ("splitk_reduce", "other hand-written"), ("colsum", "other hand-written"),
@@ -58,10 +64,14 @@ def main() -> None:
     parser.add_argument("--steps", type=int, default=5)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--trace", default=None, help="write a chrome trace here")
+    parser.add_argument("--halo-impl", default=None, choices=("layer", "direct", "einsum"),
+                        help="force a Halo path (default: the dispatch's)")
+    parser.add_argument("overrides", nargs="*", help="key=value conf overrides")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs CUDA")
     sys.path.insert(0, ROOT)
+    from vision_transformers_tpu_torch import ops
     from vision_transformers_tpu_torch.config.schema import load_config
     from vision_transformers_tpu_torch.data.synthetic import SyntheticDataset
     from vision_transformers_tpu_torch.train import engine
@@ -69,12 +79,13 @@ def main() -> None:
     from vision_transformers_tpu_torch.train.trainer import to_device
     from vision_transformers_tpu_torch.utils.weights import seeded_state_dict, to_torch
 
+    ops.set_halo_impl(args.halo_impl)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip().splitlines()[0]
-    conf = load_config(args.conf, ["precision=f32"])
+    conf = load_config(args.conf, ["precision=f32", *args.overrides])
     arch, training = conf.arch, conf.training
     model = arch.make()
     model.load_state_dict(to_torch(seeded_state_dict(arch, args.seed)), strict=True)
@@ -116,7 +127,9 @@ def main() -> None:
     for name, _, ms in rows:
         groups[group(name)] = groups.get(group(name), 0.0) + ms
     print(card)
-    print(f"{arch.type} {os.path.basename(args.conf)} f32 train step, {args.rows} rows "
+    print(f"{arch.type} {os.path.basename(args.conf)} {' '.join(args.overrides)} "
+          f"{'halo path ' + args.halo_impl + ' ' if args.halo_impl else ''}f32 "
+          f"train step, {args.rows} rows "
           f"(grad_accumulation {training.grad_accumulation}), {args.steps} profiled "
           f"steps: wall {wall * 1e3:.3f} ms ({args.rows / wall:.1f} images/s), "
           f"device busy {busy:.3f} ms ({busy / (wall * 1e3):.1%})")
@@ -124,7 +137,9 @@ def main() -> None:
         print(f"  {ms:9.3f} ms  {ms / busy:6.1%}  {label}")
     for name, calls, ms in rows[:25]:
         print(f"  {ms:9.3f} ms  {ms / busy:6.1%}  x{calls:<4d} {name[:90]}")
-    print(json.dumps({"conf": os.path.basename(args.conf), "rows": args.rows,
+    print(json.dumps({"conf": os.path.basename(args.conf), "overrides": args.overrides,
+                      "halo_impl": args.halo_impl,
+                      "rows": args.rows,
                       "wall_ms": wall * 1e3, "device_ms": busy,
                       "device_busy_share": busy / (wall * 1e3), "groups": groups,
                       "kernels": [{"name": n[:120], "calls": c, "ms": m}

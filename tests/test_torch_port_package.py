@@ -28,6 +28,7 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys\n"
         "import vision_transformers_tpu_torch\n"
+        "import vision_transformers_tpu_torch.models.halo\n"
         "import vision_transformers_tpu_torch.models.swin\n"
         "import vision_transformers_tpu_torch.models.vit\n"
         "import vision_transformers_tpu_torch.ops\n"
@@ -146,7 +147,7 @@ def test_bad_conf_raises(override, error):
 
 
 def test_unknown_type_lists_registered():
-    with pytest.raises(KeyError, match="registered: swin_transformer, vit"):
+    with pytest.raises(KeyError, match="registered: halo_transformer, swin_transformer, vit"):
         registry.build("model", {"type": "pvt"})
 
 

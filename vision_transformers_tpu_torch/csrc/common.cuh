@@ -396,12 +396,79 @@ silu_kernel(const float* __restrict__ h, float* __restrict__ out, long long tota
   out[i] = v / (1.f + expf(-v));
 }
 
+// Δ[b, h, n] = Σ_d dacc[m, h·D + d] · acc[m, h·D + d]   (m = b·N + n): the
+// row sums of dO ⊙ O that the attention backward passes read
+__global__ void __launch_bounds__(EW_THREADS)
+attn_delta_kernel(const float* __restrict__ dacc, const float* __restrict__ acc,
+                  float* __restrict__ delta, int B, int N, int H, int D) {
+  const long long i = (long long)blockIdx.x * EW_THREADS + threadIdx.x;
+  if (i >= (long long)B * H * N) return;
+  const int n = i % N;
+  const int h = (i / N) % H;
+  const long long b = i / ((long long)N * H);
+  const long long off = (b * N + n) * H * D + (long long)h * D;
+  float s = 0.f;
+  for (int d = 0; d < D; ++d) s = fmaf(dacc[off + d], acc[off + d], s);
+  delta[i] = s;
+}
+
 }  // namespace
+
+// Host-side launch sequences shared between the sources; rows_per_scale is
+// the number of rows that one per-sample row scale covers (N tokens of a
+// sample).
+namespace vtx {
+
+// The FF residual branch of a pre-LN layer (fused_layer.cu):
+//   out = z + rs_ff ⊙ (silu(LN₂(z)·W₁ + b₁)·W₂ + b₂)
+// Serving (af null): the first GEMM's epilogue applies silu into hid.
+// Training (af non-null): hid keeps the pre-activation, af = silu(hid), and
+// mu2 / rstd2 are saved.
+cudaError_t ff_half_fwd(
+    const float* z, const float* ln2_g, const float* ln2_b,
+    const float* w1, long long w1_s0, long long w1_s1, const float* b1,
+    const float* w2, long long w2_s0, long long w2_s1, const float* b2,
+    const float* rs_ff, int rows_per_scale, float* u, float* hid, float* af,
+    float* mu2, float* rstd2, float* out, int M, int C, int F, float eps,
+    cudaStream_t s);
+
+// The FF half's backward, steps 1-5 of fused_layer1_bwd.cu: given dout, the
+// gradients of W₁, b₁, W₂, b₂, LN₂ and r₂, and dz = dout + LN₂ᵀ(dln₂).
+cudaError_t ff_half_bwd(
+    const float* z, const float* ln2_g, const float* ln2_b,
+    const float* w1, long long w1_s0, long long w1_s1, const float* b1,
+    const float* w2, long long w2_s0, long long w2_s1, const float* b2,
+    const float* rs_ff, int rows_per_scale, const float* hid, const float* mu2,
+    const float* rstd2, const float* dout, float* da, float* af, float* dh,
+    float* u, float* dln, float* wpart, int splits_w1, int splits_w2,
+    float* cpart, float* dz, float* dg2, float* db2,
+    float* dw1, long long dw1_s0, long long dw1_s1, float* db1f,
+    float* dw2, long long dw2_s0, long long dw2_s1, float* db2f, float* drs_ff,
+    int B, int M, int C, int F, cudaStream_t s);
+
+// Steps 1-2 of the attention branch's backward (fused_layer_bwd.cu): da =
+// rs ⊙ dz, dwout = accᵀ·da, dbout, dacc = rs ⊙ dz·woutᵀ and dr.
+cudaError_t out_proj_bwd(
+    const float* acc, const float* wout, long long wout_s0, long long wout_s1,
+    const float* bout, const float* rs, int rows_per_scale, const float* dz,
+    float* da, float* dacc, float* wpart, int splits_out, float* cpart,
+    float* dwout, long long dwout_s0, long long dwout_s1, float* dbout,
+    float* drs, int B, int M, int C, int HD, cudaStream_t s);
+
+// Steps 4-6 of the attention branch's backward: u = LN(x) from the saved
+// statistics, dwqkv = uᵀ·dqkv, dbqkv, dln = dqkv·wqkvᵀ and the LN backward
+// dx = dz + LNᵀ(dln) with dg, db.
+cudaError_t qkv_proj_bwd(
+    const float* x, const float* ln_g, const float* ln_b, const float* mu,
+    const float* rstd, const float* wqkv, long long wqkv_s0, long long wqkv_s1,
+    const float* dqkv, const float* dz, float* u, float* dln, float* wpart,
+    int splits_qkv, float* cpart, float* dx, float* dg, float* db,
+    float* dwqkv, long long dwqkv_s0, long long dwqkv_s1, float* dbqkv, int M,
+    int C, int HD, cudaStream_t s);
 
 // Backward of the attention residual branch (fused_layer_bwd.cu), shared by
 // the attention layer's backward and the whole layer's (fused_layer1_bwd.cu).
 // extra / dextra / dsbuf may be null; see fused_layer_bwd.cu.
-namespace vtx {
 cudaError_t attention_half_bwd(
     const float* x, const float* ln_g, const float* ln_b,
     const float* wqkv, long long wqkv_s0, long long wqkv_s1, const float* bqkv,

@@ -197,10 +197,8 @@ cudaError_t attention_half(
   return cudaSuccess;
 }
 
-// o = z + rs_ff ⊙ (silu(LN2(z)·W1 + b1)·W2 + b2) after the attention half.
-// Serving (af null): the first FF GEMM's epilogue applies silu into hid.
-// Training (af non-null): hid keeps the pre-activation, which the backward
-// reads, af = silu(hid) feeds the second GEMM, and mu2 / rstd2 are saved.
+// o = z + rs_ff ⊙ (silu(LN2(z)·W1 + b1)·W2 + b2) after the attention half
+// (vtx::ff_half_fwd below)
 cudaError_t transformer_layer(
     const float* x, const float* ln1_g, const float* ln1_b,
     const float* wqkv, long long wqkv_s0, long long wqkv_s1, const float* bqkv,
@@ -213,11 +211,24 @@ cudaError_t transformer_layer(
     float* mu1, float* rstd1, float* lse, float* mu2, float* rstd2, float* out,
     int B, int N, int C, int H, int D, int F, float scale, float eps,
     cudaStream_t s) {
-  const int M = B * N;
   VTX_CHECK(attention_half(x, ln1_g, ln1_b, wqkv, wqkv_s0, wqkv_s1, bqkv, wout,
                            wout_s0, wout_s1, bout, extra, groups, rs_attn, u,
                            qkv, acc, mu1, rstd1, lse, z, B, N, C, H, D, scale,
                            eps, s));
+  return vtx::ff_half_fwd(z, ln2_g, ln2_b, w1, w1_s0, w1_s1, b1, w2, w2_s0, w2_s1,
+                          b2, rs_ff, N, u, hid, af, mu2, rstd2, out, B * N, C, F,
+                          eps, s);
+}
+
+}  // namespace
+
+cudaError_t vtx::ff_half_fwd(
+    const float* z, const float* ln2_g, const float* ln2_b,
+    const float* w1, long long w1_s0, long long w1_s1, const float* b1,
+    const float* w2, long long w2_s0, long long w2_s1, const float* b2,
+    const float* rs_ff, int rows_per_scale, float* u, float* hid, float* af,
+    float* mu2, float* rstd2, float* out, int M, int C, int F, float eps,
+    cudaStream_t s) {
   VTX_CHECK(launch_ln(z, ln2_g, ln2_b, u, mu2, rstd2, M, C, eps, s));
   VTX_CHECK(launch_gemm(u, w1, w1_s0, w1_s1, b1, nullptr, 1, nullptr, hid, M, F,
                         C, af ? 0 : 1, s));
@@ -226,12 +237,10 @@ cudaError_t transformer_layer(
         hid, af, (long long)M * F);
     VTX_CHECK(cudaGetLastError());
   }
-  VTX_CHECK(launch_gemm(af ? af : hid, w2, w2_s0, w2_s1, b2, rs_ff, N, z, out, M,
-                        C, F, 0, s));
+  VTX_CHECK(launch_gemm(af ? af : hid, w2, w2_s0, w2_s1, b2, rs_ff, rows_per_scale,
+                        z, out, M, C, F, 0, s));
   return cudaSuccess;
 }
-
-}  // namespace
 
 // The C entry points return the first cudaError_t met (0 = success).
 // rs, mu, rstd and lse may be null: the serving forward passes none of them.

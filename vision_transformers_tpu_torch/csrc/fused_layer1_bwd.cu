@@ -84,14 +84,45 @@ cudaError_t transformer_layer_bwd(
     float* dw2, long long dw2_s0, long long dw2_s1, float* db2f,
     float* dextra, float* drs_attn, float* drs_ff,
     int B, int N, int C, int H, int D, int F, float scale, cudaStream_t s) {
-  const int M = B * N;
+  // FF half, steps 1-5, given do
+  VTX_CHECK(vtx::ff_half_bwd(z, ln2_g, ln2_b, w1, w1_s0, w1_s1, b1, w2, w2_s0,
+                             w2_s1, b2, rs_ff, N, hid, mu2, rstd2, dout, da, af,
+                             dh, u, dln, wpart, splits_w1, splits_w2, cpart, dz,
+                             dg2, db2, dw1, dw1_s0, dw1_s1, db1f, dw2, dw2_s0,
+                             dw2_s1, db2f, drs_ff, B, B * N, C, F, s));
+
+  // attention half, driven by dz
+  return vtx::attention_half_bwd(
+      x, ln1_g, ln1_b, wqkv, wqkv_s0, wqkv_s1, bqkv, wout, wout_s0, wout_s1,
+      bout, rs_attn, extra, groups, qkv, acc, mu1, rstd1, lse, dz, da, dacc,
+      delta, dqkv, u, dln, dsbuf, wpart, splits_out, splits_qkv, cpart, dx, dg1,
+      db1, dwqkv, dwqkv_s0, dwqkv_s1, dbqkv, dwout, dwout_s0, dwout_s1, dbout,
+      drs_attn, dextra, B, N, C, H, D, scale, s);
+}
+
+}  // namespace
+
+// Steps 1-5 above (rows_per_scale rows per sample).  Workspace: da [M, C]
+// (only with rs_ff), af, dh [M, F], u, dln [M, C], wpart, cpart.
+cudaError_t vtx::ff_half_bwd(
+    const float* z, const float* ln2_g, const float* ln2_b,
+    const float* w1, long long w1_s0, long long w1_s1, const float* b1,
+    const float* w2, long long w2_s0, long long w2_s1, const float* b2,
+    const float* rs_ff, int rows_per_scale, const float* hid, const float* mu2,
+    const float* rstd2, const float* dout, float* da, float* af, float* dh,
+    float* u, float* dln, float* wpart, int splits_w1, int splits_w2,
+    float* cpart, float* dz, float* dg2, float* db2,
+    float* dw1, long long dw1_s0, long long dw1_s1, float* db1f,
+    float* dw2, long long dw2_s0, long long dw2_s1, float* db2f, float* drs_ff,
+    int B, int M, int C, int F, cudaStream_t s) {
   const long long MC = (long long)M * C, MF = (long long)M * F;
   if (B > 65535) return cudaErrorInvalidValue;
 
   // 1. dff = r₂ ⊙ do (in da); af = silu(hid); dW₂ = afᵀ·dff; db₂ = Σ dff
   const float* dff = dout;
   if (rs_ff) {
-    scale_rows_kernel<<<ew_blocks(MC), EW_THREADS, 0, s>>>(dout, rs_ff, N, C, MC, da);
+    scale_rows_kernel<<<ew_blocks(MC), EW_THREADS, 0, s>>>(dout, rs_ff, rows_per_scale,
+                                                           C, MC, da);
     VTX_CHECK(cudaGetLastError());
     dff = da;
   }
@@ -106,7 +137,7 @@ cudaError_t transformer_layer_bwd(
                         M, F, C, 0, s));
   if (rs_ff) {
     row_scale_grad_kernel<<<B, DRS_THREADS, 0, s>>>(dh, af, dout, b2, rs_ff,
-                                                    drs_ff, N, F, C);
+                                                    drs_ff, rows_per_scale, F, C);
     VTX_CHECK(cudaGetLastError());
   }
 
@@ -130,17 +161,8 @@ cudaError_t transformer_layer_bwd(
   VTX_CHECK(cudaGetLastError());
   VTX_CHECK(launch_colsum(dln, z, mu2, rstd2, cpart, dg2, M, C, s));
   VTX_CHECK(launch_colsum(dln, nullptr, nullptr, nullptr, cpart, db2, M, C, s));
-
-  // attention half, driven by dz
-  return vtx::attention_half_bwd(
-      x, ln1_g, ln1_b, wqkv, wqkv_s0, wqkv_s1, bqkv, wout, wout_s0, wout_s1,
-      bout, rs_attn, extra, groups, qkv, acc, mu1, rstd1, lse, dz, da, dacc,
-      delta, dqkv, u, dln, dsbuf, wpart, splits_out, splits_qkv, cpart, dx, dg1,
-      db1, dwqkv, dwqkv_s0, dwqkv_s1, dbqkv, dwout, dwout_s0, dwout_s1, dbout,
-      drs_attn, dextra, B, N, C, H, D, scale, s);
+  return cudaSuccess;
 }
-
-}  // namespace
 
 // Returns the first cudaError_t met (0 = success).  Workspace, all
 // allocated by the caller (M = B·N): da [M, C] (used only with a row

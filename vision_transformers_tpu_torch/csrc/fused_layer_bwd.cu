@@ -63,23 +63,7 @@
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// 3a. Δ[b, h, n] = Σ_d dacc[m, h·D + d] · acc[m, h·D + d]   (m = b·N + n)
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(EW_THREADS)
-attn_delta_kernel(const float* __restrict__ dacc, const float* __restrict__ acc,
-                  float* __restrict__ delta, int B, int N, int H, int D) {
-  const long long i = (long long)blockIdx.x * EW_THREADS + threadIdx.x;
-  if (i >= (long long)B * H * N) return;
-  const int n = i % N;
-  const int h = (i / N) % H;
-  const long long b = i / ((long long)N * H);
-  const long long off = (b * N + n) * H * D + (long long)h * D;
-  float s = 0.f;
-  for (int d = 0; d < D; ++d) s = fmaf(dacc[off + d], acc[off + d], s);
-  delta[i] = s;
-}
+// 3a. Δ[b, h, n] = rowsum(dacc_h ⊙ acc_h): common.cuh's attn_delta_kernel
 
 // ---------------------------------------------------------------------------
 // 3b. key-tile pass: dk, dv.  Grid (key tiles, H, B); one key per thread,
@@ -334,6 +318,63 @@ cudaError_t launch_attn_bwd(const float* qkv, const float* dacc, const float* ls
 
 }  // namespace
 
+// Steps 1-2: da = rs ⊙ dz; dwout = accᵀ·da; dbout = Σ_rows da; dacc₀ =
+// dz·woutᵀ; dr; dacc = rs ⊙ dacc₀ (rows_per_scale rows per sample)
+cudaError_t vtx::out_proj_bwd(
+    const float* acc, const float* wout, long long wout_s0, long long wout_s1,
+    const float* bout, const float* rs, int rows_per_scale, const float* dz,
+    float* da, float* dacc, float* wpart, int splits_out, float* cpart,
+    float* dwout, long long dwout_s0, long long dwout_s1, float* dbout,
+    float* drs, int B, int M, int C, int HD, cudaStream_t s) {
+  if (B > 65535) return cudaErrorInvalidValue;
+  const float* dA = dz;
+  if (rs) {
+    scale_rows_kernel<<<ew_blocks((long long)M * C), EW_THREADS, 0, s>>>(
+        dz, rs, rows_per_scale, C, (long long)M * C, da);
+    VTX_CHECK(cudaGetLastError());
+    dA = da;
+  }
+  VTX_CHECK(launch_gemm_splitk(acc, HD, dA, C, 1, wpart, splits_out, dwout,
+                               dwout_s0, dwout_s1, HD, C, M, s));
+  if (dbout) VTX_CHECK(launch_colsum(dA, nullptr, nullptr, nullptr, cpart, dbout, M, C, s));
+  VTX_CHECK(launch_gemm(dz, wout, wout_s1, wout_s0, nullptr, nullptr, 1, nullptr,
+                        dacc, M, HD, C, 0, s));
+  if (rs) {
+    row_scale_grad_kernel<<<B, DRS_THREADS, 0, s>>>(dacc, acc, dz, bout, rs, drs,
+                                                    rows_per_scale, HD, C);
+    VTX_CHECK(cudaGetLastError());
+  }
+  return cudaSuccess;
+}
+
+// Steps 4-6: u from the saved statistics; dwqkv = uᵀ·dqkv; dbqkv = Σ_rows
+// dqkv; dln = dqkv·wqkvᵀ; the LN backward with the residual dz; dg = Σ_rows
+// dln ⊙ x̂; db = Σ_rows dln
+cudaError_t vtx::qkv_proj_bwd(
+    const float* x, const float* ln_g, const float* ln_b, const float* mu,
+    const float* rstd, const float* wqkv, long long wqkv_s0, long long wqkv_s1,
+    const float* dqkv, const float* dz, float* u, float* dln, float* wpart,
+    int splits_qkv, float* cpart, float* dx, float* dg, float* db,
+    float* dwqkv, long long dwqkv_s0, long long dwqkv_s1, float* dbqkv, int M,
+    int C, int HD, cudaStream_t s) {
+  ln_apply_kernel<<<ew_blocks((long long)M * C), EW_THREADS, 0, s>>>(
+      x, mu, rstd, ln_g, ln_b, u, C, (long long)M * C);
+  VTX_CHECK(cudaGetLastError());
+  VTX_CHECK(launch_gemm_splitk(u, C, dqkv, 3 * HD, 1, wpart, splits_qkv, dwqkv,
+                               dwqkv_s0, dwqkv_s1, C, 3 * HD, M, s));
+  if (dbqkv)
+    VTX_CHECK(launch_colsum(dqkv, nullptr, nullptr, nullptr, cpart, dbqkv, M,
+                            3 * HD, s));
+  VTX_CHECK(launch_gemm(dqkv, wqkv, wqkv_s1, wqkv_s0, nullptr, nullptr, 1,
+                        nullptr, dln, M, C, 3 * HD, 0, s));
+  ln_bwd_rows_kernel<<<cdiv(M, LN_THREADS / 32), LN_THREADS, 0, s>>>(
+      dln, x, mu, rstd, ln_g, dz, dx, M, C);
+  VTX_CHECK(cudaGetLastError());
+  VTX_CHECK(launch_colsum(dln, x, mu, rstd, cpart, dg, M, C, s));
+  VTX_CHECK(launch_colsum(dln, nullptr, nullptr, nullptr, cpart, db, M, C, s));
+  return cudaSuccess;
+}
+
 // z = x + r ⊙ OutProj(MHSA(QkvProj(LN(x)) + extra)) backward, steps 1-6
 // above.  extra [G, H, N, N] (row b in group b / (B/G)) may be null; with
 // it and a non-null dextra, dsbuf [B, H, N, N] takes dS and dextra
@@ -357,26 +398,10 @@ cudaError_t vtx::attention_half_bwd(
   const int rows_per_group = extra ? B / groups : 1;
   float* ds_out = (extra && dextra) ? dsbuf : nullptr;
 
-  // 1. da = rs ⊙ dz; dwout = accᵀ·da; dbout = Σ_rows da
-  const float* dA = dz;
-  if (rs) {
-    scale_rows_kernel<<<ew_blocks((long long)M * C), EW_THREADS, 0, s>>>(
-        dz, rs, N, C, (long long)M * C, da);
-    VTX_CHECK(cudaGetLastError());
-    dA = da;
-  }
-  VTX_CHECK(launch_gemm_splitk(acc, HD, dA, C, 1, wpart, splits_out, dwout,
-                               dwout_s0, dwout_s1, HD, C, M, s));
-  if (dbout) VTX_CHECK(launch_colsum(dA, nullptr, nullptr, nullptr, cpart, dbout, M, C, s));
-
-  // 2. dacc₀ = dz·woutᵀ; dr; dacc = rs ⊙ dacc₀
-  VTX_CHECK(launch_gemm(dz, wout, wout_s1, wout_s0, nullptr, nullptr, 1, nullptr,
-                        dacc, M, HD, C, 0, s));
-  if (rs) {
-    row_scale_grad_kernel<<<B, DRS_THREADS, 0, s>>>(dacc, acc, dz, bout, rs, drs,
-                                                    N, HD, C);
-    VTX_CHECK(cudaGetLastError());
-  }
+  // 1-2. the out projection
+  VTX_CHECK(vtx::out_proj_bwd(acc, wout, wout_s0, wout_s1, bout, rs, N, dz, da,
+                              dacc, wpart, splits_out, cpart, dwout, dwout_s0,
+                              dwout_s1, dbout, drs, B, M, C, HD, s));
 
   // 3. attention backward → dqkv (and dS → dextra)
   attn_delta_kernel<<<ew_blocks((long long)B * H * N), EW_THREADS, 0, s>>>(
@@ -398,27 +423,10 @@ cudaError_t vtx::attention_half_bwd(
     VTX_CHECK(cudaGetLastError());
   }
 
-  // 4. u from the saved statistics; dwqkv = uᵀ·dqkv; dbqkv = Σ_rows dqkv
-  ln_apply_kernel<<<ew_blocks((long long)M * C), EW_THREADS, 0, s>>>(
-      x, mu, rstd, ln_g, ln_b, u, C, (long long)M * C);
-  VTX_CHECK(cudaGetLastError());
-  VTX_CHECK(launch_gemm_splitk(u, C, dqkv, 3 * HD, 1, wpart, splits_qkv, dwqkv,
-                               dwqkv_s0, dwqkv_s1, C, 3 * HD, M, s));
-  if (dbqkv)
-    VTX_CHECK(launch_colsum(dqkv, nullptr, nullptr, nullptr, cpart, dbqkv, M,
-                            3 * HD, s));
-
-  // 5. dln = dqkv·wqkvᵀ
-  VTX_CHECK(launch_gemm(dqkv, wqkv, wqkv_s1, wqkv_s0, nullptr, nullptr, 1,
-                        nullptr, dln, M, C, 3 * HD, 0, s));
-
-  // 6. LN backward; dg = Σ_rows dln ⊙ x̂; db = Σ_rows dln
-  ln_bwd_rows_kernel<<<cdiv(M, LN_THREADS / 32), LN_THREADS, 0, s>>>(
-      dln, x, mu, rstd, ln_g, dz, dx, M, C);
-  VTX_CHECK(cudaGetLastError());
-  VTX_CHECK(launch_colsum(dln, x, mu, rstd, cpart, dg, M, C, s));
-  VTX_CHECK(launch_colsum(dln, nullptr, nullptr, nullptr, cpart, db, M, C, s));
-  return cudaSuccess;
+  // 4-6. the qkv projection and LN
+  return vtx::qkv_proj_bwd(x, ln_g, ln_b, mu, rstd, wqkv, wqkv_s0, wqkv_s1, dqkv,
+                           dz, u, dln, wpart, splits_qkv, cpart, dx, dg, db,
+                           dwqkv, dwqkv_s0, dwqkv_s1, dbqkv, M, C, HD, s);
 }
 
 // Returns the first cudaError_t met (0 = success).  Workspace, all

@@ -268,12 +268,13 @@ class SwinLayer(nn.Module):
 
 
 class PatchEmbedding(nn.Module):
-    """patchify → linear → LN (eps 1e-5) (reference: :200-213)."""
+    """patchify → linear → LN (eps 1e-5) (reference: :200-213); ``in_dim``
+    channels in (3 for images, the previous stage's width in Halo)."""
 
-    def __init__(self, out_dim: int, patch: int):
+    def __init__(self, out_dim: int, patch: int, in_dim: int = 3):
         super().__init__()
         self.patch = patch
-        self.linear = nn.Linear(3 * patch * patch, out_dim)
+        self.linear = nn.Linear(in_dim * patch * patch, out_dim)
         self.norm = LayerNorm(out_dim, eps=1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -103,6 +103,56 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I,  # B, N, C, H, D, F
         _F, _P,                  # scale, stream
     ],
+    "vtx_fused_halo_layer_fwd": [
+        _P, _P, _P,              # x, ln1_scale, ln1_bias
+        _P, _L, _L,              # wqkv, its strides (no bias)
+        _P, _L, _L, _P,          # wout, its strides, bout
+        _P, _P,                  # ln2_scale, ln2_bias
+        _P, _L, _L, _P,          # w1, its strides, b1
+        _P, _L, _L, _P,          # w2, its strides, b2
+        _P, _P, _P,              # bias, rs_attn, rs_ff (row scales nullable)
+        _P, _P, _P, _P, _P, _P,  # u, qkv, acc, z, hid (workspace), af (nullable)
+        _P, _P, _P, _P, _P,      # mu1, rstd1, lse, mu2, rstd2 (nullable saves)
+        _P,                      # out
+        _I, _I, _I, _I, _I, _I, _I, _I, _I,  # B, H, W, C, heads, D, F, window, halo
+        _F, _F, _P,              # scale, eps, stream
+    ],
+    "vtx_fused_halo_layer_bwd": [
+        _P, _P, _P,              # x, ln1_scale, ln1_bias
+        _P, _L, _L,              # wqkv, its strides
+        _P, _L, _L, _P,          # wout, its strides, bout
+        _P, _P,                  # ln2_scale, ln2_bias
+        _P, _L, _L, _P,          # w1, its strides, b1
+        _P, _L, _L, _P,          # w2, its strides, b2
+        _P, _P, _P,              # bias, rs_attn, rs_ff
+        _P, _P, _P, _P,          # qkv, acc, z, hid
+        _P, _P, _P, _P, _P,      # mu1, rstd1, lse, mu2, rstd2
+        _P,                      # do
+        _P, _P, _P, _P, _P, _P,  # da, af, dh, dz, dacc, delta (workspace)
+        _P, _P, _P, _P, _P, _I,  # dqkv, u, dln, dkvw, dbias partials, chunks
+        _P, _I, _I, _I, _I, _P,  # wpart, splits out / qkv / w1 / w2, cpart
+        _P, _P, _P,              # dx, dln1_scale, dln1_bias
+        _P, _L, _L,              # dwqkv, its strides
+        _P, _L, _L, _P,          # dwout, its strides, dbout
+        _P, _P,                  # dln2_scale, dln2_bias
+        _P, _L, _L, _P,          # dw1, its strides, db1
+        _P, _L, _L, _P,          # dw2, its strides, db2
+        _P, _P, _P,              # dbias, drs_attn, drs_ff
+        _I, _I, _I, _I, _I, _I, _I, _I, _I,  # B, H, W, C, heads, D, F, window, halo
+        _F, _P,                  # scale, stream
+    ],
+    "vtx_halo_attention_direct_fwd": [
+        _P, _P, _P, _P, _P,      # q, kv, bias, out, lse (nullable save)
+        _I, _I, _I, _I, _I, _I, _I,  # B, H, W, heads, D, window, halo
+        _F, _P,                  # scale, stream
+    ],
+    "vtx_halo_attention_direct_bwd": [
+        _P, _P, _P, _P, _P, _P,  # q, kv, bias, out, lse, do
+        _P, _P, _P, _I,          # delta, dkvw, dbias partials (workspace), chunks
+        _P, _P, _P,              # dq, dkv, dbias
+        _I, _I, _I, _I, _I, _I, _I,  # B, H, W, heads, D, window, halo
+        _F, _P,                  # scale, stream
+    ],
 }
 
 

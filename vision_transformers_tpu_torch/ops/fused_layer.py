@@ -145,8 +145,9 @@ def attention_branch_reference(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
 
 
 def _residual(x, a, rs):
+    """x + rs ⊙ a, rs [B] per sample (the leading dim) or None."""
     if rs is not None:
-        a = a * rs[:, None, None].to(a.dtype)
+        a = a * rs.reshape(-1, *([1] * (a.ndim - 1))).to(a.dtype)
     return x + a
 
 
@@ -220,6 +221,51 @@ def fused_attention_layer_fwd_reference(x, ln_scale, ln_bias, wqkv, bqkv, wout,
                           qkv, acc, mu[..., 0], rstd[..., 0], lse, n_head, scale, eps)
 
 
+def out_proj_bwd_reference(acc2, wout, bout, rs, dz2, rows_per_scale: int,
+                           need_drs: bool = True):
+    """Steps 1-2 of the attention half's plain backward, f32, given the
+    branch input acc2 [M, HD] and dz2 [M, C] f32: → (dacc [M, HD] f32, dwout,
+    dbout, drs); ``rows_per_scale`` rows per sample of the row scale."""
+    f = torch.float32
+    acc2 = acc2.to(f)
+    rsr = None if rs is None else rs.to(f).repeat_interleave(rows_per_scale)[:, None]
+    # 1. da = r ⊙ dz; dwout = accᵀ·da; dbout = Σ_rows da
+    da = dz2 if rs is None else dz2 * rsr
+    dwout = acc2.t() @ da
+    dbout = da.sum(0) if bout is not None else None
+    # 2. dacc₀ = dz·woutᵀ; dr (reassociated); dacc = r ⊙ dacc₀
+    dacc = dz2 @ wout.to(f).t()
+    drs = None
+    if rs is not None:
+        if need_drs:
+            per_row = (dacc * acc2).sum(1)
+            if bout is not None:
+                per_row = per_row + dz2 @ bout.to(f)
+            drs = per_row.reshape(-1, rows_per_scale).sum(1).to(rs.dtype)
+        dacc = dacc * rsr
+    return dacc, cast_like(dwout, wout), cast_like(dbout, bout), drs
+
+
+def qkv_proj_bwd_reference(x2, mu, rstd, g, b, wqkv, bqkv, dqkv, dz2):
+    """Steps 4-6 of the attention half's plain backward, f32, given x2
+    [M, C], its saved LN statistics, dqkv [M, 3HD] and the residual's
+    cotangent dz2 [M, C]: → (dx [M, C] f32, dln_scale, dln_bias, dwqkv,
+    dbqkv)."""
+    f = torch.float32
+    M = x2.shape[0]
+    # 4. u from the saved statistics; dwqkv = uᵀ·dqkv; dbqkv = Σ_rows dqkv
+    xhat = (x2.to(f) - mu.reshape(M, 1)) * rstd.reshape(M, 1)
+    u = xhat * g.to(f) + b.to(f)
+    dwqkv = u.t() @ dqkv
+    dbqkv = dqkv.sum(0) if bqkv is not None else None
+    # 5. dln = dqkv·wqkvᵀ
+    dln = dqkv @ wqkv.to(f).t()
+    # 6. LN backward (fused_layer.py:79-87)
+    dx, dg, db = ln_bwd_reference(dln, xhat, rstd.reshape(M, 1), g, dz2)
+    return dx, cast_like(dg, g), cast_like(db, b), cast_like(dwqkv, wqkv), \
+        cast_like(dbqkv, bqkv)
+
+
 def attention_half_bwd_reference(saved: AttnSaved, dz2: torch.Tensor,
                                  need_drs: bool = True, extra_g=None,
                                  need_dextra: bool = False):
@@ -234,23 +280,9 @@ def attention_half_bwd_reference(saved: AttnSaved, dz2: torch.Tensor,
     HD = wqkv.shape[1] // 3
     M = B * N
     f = torch.float32
-    acc2 = saved.acc.reshape(M, HD).to(f)
-    rsr = None if rs is None else rs.to(f).repeat_interleave(N)[:, None]
-
-    # 1. da = r ⊙ dz; dwout = accᵀ·da; dbout = Σ_rows da
-    da = dz2 if rs is None else dz2 * rsr
-    dwout = acc2.t() @ da
-    dbout = da.sum(0) if bout is not None else None
-    # 2. dacc₀ = dz·woutᵀ; dr (reassociated); dacc = r ⊙ dacc₀
-    dacc = dz2 @ wout.to(f).t()
-    drs = None
-    if rs is not None:
-        if need_drs:
-            per_row = (dacc * acc2).sum(1)
-            if bout is not None:
-                per_row = per_row + dz2 @ bout.to(f)
-            drs = per_row.reshape(B, N).sum(1).to(rs.dtype)
-        dacc = dacc * rsr
+    # 1-2. the out projection
+    dacc, dwout, dbout, drs = out_proj_bwd_reference(
+        saved.acc.reshape(M, HD), wout, bout, rs, dz2, N, need_drs)
     # 3. attention backward: p from the saved log-sum-exp
     q, k, v = (_heads(saved.qkv[..., i * HD:(i + 1) * HD], H) for i in range(3))
     do = _heads(dacc.reshape(B, N, HD), H)
@@ -267,19 +299,10 @@ def attention_half_bwd_reference(saved: AttnSaved, dz2: torch.Tensor,
     dq = torch.einsum("bhnm,bhmd->bhnd", ds, k) * scale
     dk = torch.einsum("bhnm,bhnd->bhmd", ds, q) * scale
     dqkv = torch.cat([t.permute(0, 2, 1, 3).reshape(M, HD) for t in (dq, dk, dv)], -1)
-    # 4. u from the saved statistics; dwqkv = uᵀ·dqkv; dbqkv = Σ_rows dqkv
-    xf = x.reshape(M, C).to(f)
-    xhat = (xf - saved.mu.reshape(M, 1)) * saved.rstd.reshape(M, 1)
-    u = xhat * g.to(f) + b.to(f)
-    dwqkv = u.t() @ dqkv
-    dbqkv = dqkv.sum(0) if bqkv is not None else None
-    # 5. dln = dqkv·wqkvᵀ
-    dln = dqkv @ wqkv.to(f).t()
-    # 6. LN backward (fused_layer.py:79-87)
-    dx, dg, db = ln_bwd_reference(dln, xhat, saved.rstd.reshape(M, 1), g, dz2)
-    return (dx, cast_like(dg, g), cast_like(db, b), cast_like(dwqkv, wqkv),
-            cast_like(dbqkv, bqkv), cast_like(dwout, wout), cast_like(dbout, bout),
-            drs, dextra_g)
+    # 4-6. the qkv projection and LN
+    dx, dg, db, dwqkv, dbqkv = qkv_proj_bwd_reference(
+        x.reshape(M, C), saved.mu, saved.rstd, g, b, wqkv, bqkv, dqkv, dz2)
+    return dx, dg, db, dwqkv, dbqkv, dwout, dbout, drs, dextra_g
 
 
 def ln_bwd_reference(dln, xhat, rstd, g, dres):

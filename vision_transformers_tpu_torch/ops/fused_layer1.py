@@ -178,22 +178,29 @@ def fused_transformer_layer_fwd_reference(x, ln1_scale, ln1_bias, wqkv, bqkv,
     z, att = fused_attention_layer_fwd_reference(
         x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout, n_head, rs_attn, scale,
         eps, extra_g=extra_g)
-    zf = z.float()
-    mu2, rstd2 = _ln_stats(zf, eps)
-    u2 = ((zf - mu2) * rstd2 * ln2_scale.float() + ln2_bias.float()).to(x.dtype)
-    hid = _dot(u2, w1, x.dtype)
-    if b1 is not None:
-        hid = hid + b1
-    af = _act(hid.float(), activation).to(x.dtype)
-    out = _dot(af, w2, x.dtype)
-    if b2 is not None:
-        out = out + b2
-    out = _residual(z, out, rs_ff)
+    out, hid, mu2, rstd2 = ff_half_fwd_reference(z, ln2_scale, ln2_bias, w1, b1, w2,
+                                                 b2, rs_ff, activation, eps)
     return out, L1Saved(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout, ln2_scale,
                         ln2_bias, w1, b1, w2, b2, extra_g, rs_attn, rs_ff,
                         att.qkv, att.acc, z, hid, att.mu, att.rstd, att.lse,
-                        mu2[..., 0], rstd2[..., 0], n_head, activation, scale,
-                        float(eps))
+                        mu2, rstd2, n_head, activation, scale, float(eps))
+
+
+def ff_half_fwd_reference(z, ln2_scale, ln2_bias, w1, b1, w2, b2, rs_ff,
+                          activation: str, eps: float):
+    """The FF residual branch's plain training forward on z [..., C]:
+    (out, hid — the pre-activation —, mu2, rstd2 [...])."""
+    zf = z.float()
+    mu2, rstd2 = _ln_stats(zf, eps)
+    u2 = ((zf - mu2) * rstd2 * ln2_scale.float() + ln2_bias.float()).to(z.dtype)
+    hid = _dot(u2, w1, z.dtype)
+    if b1 is not None:
+        hid = hid + b1
+    af = _act(hid.float(), activation).to(z.dtype)
+    out = _dot(af, w2, z.dtype)
+    if b2 is not None:
+        out = out + b2
+    return _residual(z, out, rs_ff), hid, mu2[..., 0], rstd2[..., 0]
 
 
 def _attn_saved(s: L1Saved) -> AttnSaved:
@@ -203,16 +210,15 @@ def _attn_saved(s: L1Saved) -> AttnSaved:
                      s.scale, s.eps)
 
 
-def fused_transformer_layer_bwd_reference(saved: L1Saved, do: torch.Tensor,
-                                          need_drs=(True, True),
-                                          need_dextra: bool = True):
-    """Plain torch backward on the saves, in the kernel's steps
-    (csrc/fused_layer1_bwd.cu): → the 16 gradients of ``GRAD_NAMES``; a bias
-    grad is None where the bias is, dextra (grouped [G, H, N, N]) None
-    without extra or ``need_dextra``, a row scale's None without it or
-    where ``need_drs`` says so."""
-    B, N, C = saved.x.shape
-    M = B * N
+def ff_half_bwd_reference(saved, do: torch.Tensor, need_drs: bool = True):
+    """The FF half's plain backward in the kernel's steps 1-5
+    (csrc/fused_layer1_bwd.cu), on saves with the fields of
+    :class:`L1Saved` (x, z, hid, mu2, rstd2, the LN₂ and FF weights, rs_ff,
+    activation; any token layout [B, ..., C]): → (dz [M, C] f32, dln2_scale,
+    dln2_bias, dw1, db1, dw2, db2, drs_ff)."""
+    B, C = saved.x.shape[0], saved.x.shape[-1]
+    M = saved.x.numel() // C
+    N = M // B
     f = torch.float32
     rs_ff, act = saved.rs_ff, saved.activation
     do2 = do.reshape(M, C).to(f)
@@ -227,7 +233,7 @@ def fused_transformer_layer_bwd_reference(saved: L1Saved, do: torch.Tensor,
     da = do2 @ saved.w2.to(f).t()
     drs_ff = None
     if rs_ff is not None:
-        if need_drs[1]:
+        if need_drs:
             per_row = (da * af).sum(1)
             if saved.b2 is not None:
                 per_row = per_row + do2 @ saved.b2.to(f)
@@ -245,15 +251,27 @@ def fused_transformer_layer_bwd_reference(saved: L1Saved, do: torch.Tensor,
     dln2 = dh @ saved.w1.to(f).t()
     dz, dg2, db2 = ln_bwd_reference(dln2, xhat2, saved.rstd2.reshape(M, 1),
                                     saved.ln2_scale, do2)
+    return (dz, cast_like(dg2, saved.ln2_scale), cast_like(db2, saved.ln2_bias),
+            cast_like(dw1, saved.w1), cast_like(db1f, saved.b1),
+            cast_like(dw2, saved.w2), cast_like(db2f, saved.b2), drs_ff)
+
+
+def fused_transformer_layer_bwd_reference(saved: L1Saved, do: torch.Tensor,
+                                          need_drs=(True, True),
+                                          need_dextra: bool = True):
+    """Plain torch backward on the saves, in the kernel's steps
+    (csrc/fused_layer1_bwd.cu): → the 16 gradients of ``GRAD_NAMES``; a bias
+    grad is None where the bias is, dextra (grouped [G, H, N, N]) None
+    without extra or ``need_dextra``, a row scale's None without it or
+    where ``need_drs`` says so."""
+    dz, dg2, db2, dw1, db1f, dw2, db2f, drs_ff = ff_half_bwd_reference(saved, do,
+                                                                       need_drs[1])
     # attention half, driven by dz
     dx, dg1, db1, dwqkv, dbqkv, dwout, dbout, drs_attn, dextra = \
         attention_half_bwd_reference(_attn_saved(saved), dz, need_drs[0],
                                      saved.extra_g, need_dextra)
     return (dx.reshape(saved.x.shape).to(saved.x.dtype), dg1, db1, dwqkv, dbqkv,
-            dwout, dbout, cast_like(dg2, saved.ln2_scale),
-            cast_like(db2, saved.ln2_bias), cast_like(dw1, saved.w1),
-            cast_like(db1f, saved.b1), cast_like(dw2, saved.w2),
-            cast_like(db2f, saved.b2), dextra, drs_attn, drs_ff)
+            dwout, dbout, dg2, db2, dw1, db1f, dw2, db2f, dextra, drs_attn, drs_ff)
 
 
 # ---------------------------------------------------------------------------

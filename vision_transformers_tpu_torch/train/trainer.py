@@ -42,7 +42,7 @@ def check_supported(conf: ImageNetConfig) -> None:
         raise NotImplementedError(
             f"precision={conf.precision!r} fp16={conf.fp16}: only precision=f32 "
             f"is ported; bf16 arrives with the evaluate + bf16 slice "
-            f"(ROADMAP.md, queue A item 1)")
+            f"(ROADMAP.md, queue A)")
     if conf.n_device > 1:
         raise NotImplementedError(f"n_device={conf.n_device}: multi-GPU {todo}")
     if conf.training.progressive.step > 0:

@@ -1,9 +1,10 @@
-"""Weights for the port's ViT and Swin: from the JAX package's flax params,
-from a reference ``.pt`` checkpoint, or generated from a numpy seed.
+"""Weights for the port's ViT, Swin and Halo: from the JAX package's flax
+params, from a reference ``.pt`` checkpoint, or generated from a numpy seed.
 
-Every state_dict here is in the reference torch layout (models/vit.py and
-models/swin_transformer.py of the reference; the keys of the JAX package's
-``utils/torch_convert.py:118-143,192-224``).
+Every state_dict here is in the reference torch layout (models/vit.py,
+models/swin_transformer.py and models/halo_transformer.py of the reference;
+the keys of the JAX package's ``utils/torch_convert.py:118-143,192-224,
+258-283``).
 """
 
 from __future__ import annotations
@@ -69,11 +70,43 @@ def _swin_from_flax(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
     return dst
 
 
+def _halo_from_flax(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The inverse of the JAX package's ``_convert_halo``
+    (utils/torch_convert.py:258-283); the same keys as its
+    ``utils/torch_export.py::_export_halo`` writes."""
+    dst: Dict[str, np.ndarray] = {}
+    _ln(dst, "final_linear.0", params["final_norm"])
+    _lin(dst, "final_linear.1", params["final_linear"])
+    _ln(dst, "final_linear.2", params["final_norm2"])
+    _lin(dst, "classifier.2", params["classifier"])
+    s = 1
+    while f"embed{s}" in params:
+        _lin(dst, f"block{s}.0.linear", params[f"embed{s}"]["linear"])
+        _ln(dst, f"block{s}.0.norm", params[f"embed{s}"]["norm"])
+        i = 0
+        while f"block{s}_{i}" in params:
+            bp, t = params[f"block{s}_{i}"], f"block{s}.{i + 1}"
+            _ln(dst, f"{t}.norm_attn", bp["norm_attn"])
+            _lin(dst, f"{t}.attn.weight", bp["attn"]["weight"])
+            _lin(dst, f"{t}.attn.linear", bp["attn"]["linear"])
+            dst[f"{t}.attn.rel_pos.weight"] = np.asarray(bp["attn"]["rel_pos"])
+            _ln(dst, f"{t}.norm_ff", bp["norm_ff"])
+            _ff(dst, f"{t}.ff", bp["ff"])
+            i += 1
+        s += 1
+    return dst
+
+
 def state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
     """The JAX package's flax ``params`` (nested dict of arrays) of a ViT
-    (per-layer ``layers_{i}`` layout) or a Swin → the port's state_dict, as
-    numpy arrays."""
-    if "final_norm" in params:
+    (per-layer ``layers_{i}`` layout), a Swin or a Halo → the port's
+    state_dict, as numpy arrays.  The family is told by a top-level key only
+    it has: ``embed1`` (Halo's stage embeddings; Halo also has
+    ``final_norm``), ``final_norm`` beside ``patch_embedding`` (Swin), else
+    ViT."""
+    if "embed1" in params:
+        return _halo_from_flax(params)
+    if "final_norm" in params and "patch_embedding" in params:
         return _swin_from_flax(params)
     dst: Dict[str, np.ndarray] = {}
     conv = params["patch_embedding"]["linear"]
@@ -108,8 +141,8 @@ def to_torch(state_dict: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 
 # state_dict entries of the reference that are no weights: BN step
 # counters and Swin's precomputed relative-position index / shift mask
-# buffers (the port computes both in numpy; the JAX package's list,
-# utils/torch_convert.py:450-458)
+# buffers and Halo's ``.attn.pos`` index (the port computes them in numpy;
+# the JAX package's list, utils/torch_convert.py:450-458)
 _BUFFER_SUFFIXES = ("num_batches_tracked", ".attn.pos", ".attn.local_mask")
 
 
@@ -167,9 +200,10 @@ def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
 def seeded_state_dict(arch, seed: int) -> Dict[str, np.ndarray]:
     """Random weights in reference layout from a numpy seed: std-0.02
     normals for every weight and bias, LayerNorms at ones / zeros, and for a
-    Swin std-0.2 normals in the relative-position tables (non-zero, so that
-    a comparison sees the bias; the JAX initializer is zeros).  ``arch`` is
-    the port's ViTConfig or SwinConfig (or anything with its fields)."""
+    Swin or a Halo std-0.2 normals in the relative-position tables (non-zero,
+    so that a comparison sees the bias; the JAX initializer is zeros).
+    ``arch`` is the port's ViTConfig, SwinConfig or HaloConfig; the family
+    is its registered type."""
     rng = np.random.default_rng([seed, 0])
 
     def normal(*shape, std=0.02):
@@ -186,7 +220,32 @@ def seeded_state_dict(arch, seed: int) -> Dict[str, np.ndarray]:
         if bias:
             sd[f"{name}.bias"] = normal(n_out)
 
-    if hasattr(arch, "depths"):  # Swin
+    if arch.type == "halo_transformer":
+        from ..models.halo import halo_position_index
+
+        dims, in_dim = arch.dims, 3
+        n_pos = halo_position_index(arch.window_size, arch.halo_size)[1] + 1
+        for s, (depth, patch) in enumerate(zip(arch.depths, (4, 2, 2, 2))):
+            lin(f"block{s + 1}.0.linear", dims[s], in_dim * patch * patch)
+            ln(f"block{s + 1}.0.norm", dims[s])
+            inner = arch.n_heads[s] * arch.dim_head
+            for i in range(depth):
+                t = f"block{s + 1}.{i + 1}"
+                ln(f"{t}.norm_attn", dims[s])
+                lin(f"{t}.attn.weight", 3 * inner, dims[s], bias=False)
+                lin(f"{t}.attn.linear", dims[s], inner)
+                sd[f"{t}.attn.rel_pos.weight"] = normal(n_pos, arch.n_heads[s], std=0.2)
+                ln(f"{t}.norm_ff", dims[s])
+                lin(f"{t}.ff.0", arch.dim_ffs[s], dims[s])
+                lin(f"{t}.ff.3", dims[s], arch.dim_ffs[s])
+            in_dim = dims[s]
+        ln("final_linear.0", dims[-1])
+        lin("final_linear.1", 2 * dims[-1], dims[-1])
+        ln("final_linear.2", 2 * dims[-1])
+        lin("classifier.2", arch.n_class, 2 * dims[-1])
+        return sd
+
+    if arch.type == "swin_transformer":
         dims = arch.dims
         lin("patch_embedding.linear", dims[0], 3 * 4 * 4)
         ln("patch_embedding.norm", dims[0])
