@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Start-up check of the PyTorch port (vision_transformers_tpu_torch) on one
 NVIDIA H100: builds the CUDA kernels from csrc/, holds each against its plain
-PyTorch version, runs full-width ViT-S/16, Swin-S and Halo-S against the JAX
-package's stored logits and train-step gradients, and drives the serving and
-the training entry points of the three models end to end.
+PyTorch version, runs full-width ViT-S/16, Swin-S, Halo-S, PVT-S and
+Twins-SVT-S against the JAX package's stored logits and train-step
+gradients, and drives the serving and the training entry points of the
+five models end to end.
 
     python3 chip_smoke.py
 
@@ -38,21 +39,43 @@ non-zero and prints no ok line):
            forward + plain backward, the layer with and without row scales;
            per tensor ≤ 1e-3·max(1, max|plain|); two runs bit-identical;
            median ms at each stage's training call
-4. golden  ViT-S/16 @224 (depth 12), Swin-S @224 (depth 24) and Halo-S @256
-           (depth 12), seeded weights, against the JAX logits in
+3b (Twins) the attention layer with Twins' [m, m] pair mask (−1e9 across the
+           windows of a packed pair) and a row scale, serving forward,
+           training forward and backward vs the plain versions (per tensor
+           ≤ 1e-3·max(1, max|plain|), two runs bit-identical), at an odd
+           shape (also with the mask's gradient) and at the four Twins-SVT-S
+           stages at 128 images (the mask at stages 1-3); median ms
+3s.        the reduced-kv attention (PVT's SRA, Twins' GSA) on the models'
+           strided head views: serving forward and training forward (with
+           lse) within atol = rtol = 1e-4, backward per tensor within
+           1e-3·max(1, max|plain|) and bit-identical across two runs, at odd
+           shapes (M ≠ N, N = 1, 4, 9; heads 64, 32, 24 wide) and at every
+           PVT-S and Twins-SVT-S call at 128 images; median ms beside
+           F.scaled_dot_product_attention on the same problem, forward and
+           its autograd backward
+4. golden  ViT-S/16 @224 (depth 12), Swin-S @224 (depth 24), Halo-S @256
+           (depth 12), PVT-S @224 (depth 16) and Twins-SVT-S @224 (depth
+           18), seeded weights, against the JAX logits in
            tests/data/*_port_golden.npz: ViT at 64 rows ('layer') and 256
            rows ('layer1'), Swin at 64 and 128 rows ('layer1'), Halo at 64
-           and 128 rows (the whole Halo layer); max |Δ| ≤ 1e-3·max(1,
+           and 128 rows (the whole Halo layer), PVT at 64 and 128 rows with
+           its reduced-kv attention forced to 'fused', Twins at 64 and 128
+           rows on its default (the attention layer with the mask) and with
+           its global attention forced to 'fused'; max |Δ| ≤ 1e-3·max(1,
            max|golden|)
 4b. train  one f32 train-step gradient (drop_path 0) of each model on the 2
            golden images tiled to 64 rows (ViT through the attention layer's
            kernels, Swin through the whole layer's, Halo through the whole
            Halo layer's and, forced to 'direct', through the halo
-           attention's) against tests/data/*_port_train_golden.npz: loss,
-           gradient norm, per-tensor norms and projections, rtol 1e-3
+           attention's, PVT through the reduced-kv attention's, Twins
+           through the attention layer's with the mask and, with 'fused'
+           global attention, the reduced-kv attention's too) against
+           tests/data/*_port_train_golden.npz: loss, gradient norm,
+           per-tensor norms and projections, rtol 1e-3
 5. predict the serving path of each model: ``predict.main`` on 48 and then
-           160 seeded JPEGs (Halo: 48 at 256 px) with a seeded ``.pt:ema``;
-           the launch counters are zeroed just before and read just after
+           160 seeded JPEGs (Halo, PVT — 'fused' — and Twins: 48) with a
+           seeded ``.pt:ema``; the launch counters are zeroed just before
+           and read just after
 6. trainer each model's training path: ``train.main`` f32, batch 128, one
            synthetic epoch (4 train steps, then a valid pass of 256 images)
            — ViT-S/16 from configs/vit-s-16.conf (DropPath 0.1 through the
@@ -63,15 +86,20 @@ non-zero and prints no ok line):
            tests/data/halo_s_port.conf (DropPath 0.1; 12 forward and 12
            backward whole-Halo-layer launches per step, none of another
            path) and Halo-S forced to 'direct' (the halo attention's forward
-           and backward between plain projections); the counters are zeroed
-           just before and read just after each; then ``predict.main`` reads
-           the epoch checkpoint
+           and backward between plain projections), PVT-S from
+           tests/data/pvt_s_port.conf with its reduced-kv attention forced
+           to 'fused' (DropPath 0.1; 16 forward and 16 backward launches
+           per step) and Twins-SVT-S from tests/data/twins_svt_s_port.conf
+           on its default (DropPath 0.1; 18 forward and 18 backward
+           attention-layer launches per step, 14 + 14 with the mask); the
+           counters are zeroed just before and read just after each; then
+           ``predict.main`` reads the epoch checkpoint
 
 The line before the last is the kernels' JSON record: each kernel's
 launches on the trainer run that takes it (ViT's for the attention layer,
 Swin's for the whole layer, Halo's for the whole Halo layer, Halo's forced
-to 'direct' for the halo attention; every path's in ``launches_by_path``)
-and its
+to 'direct' for the halo attention, PVT's forced to 'fused' for the
+reduced-kv attention; every path's in ``launches_by_path``) and its
 times at a call that run makes (``shape``; other shapes in
 ``other_shapes``); the last line is ``{"ok": true, "device": {...}}``.
 Needs no network and no JAX.
@@ -101,6 +129,12 @@ MODELS = {  # name → (conf, logits golden, train-step golden, depth)
     "Halo-S": (os.path.join(DATA, "halo_s_port.conf"),
                os.path.join(DATA, "halo_s_port_golden.npz"),
                os.path.join(DATA, "halo_s_port_train_golden.npz"), 12),
+    "PVT-S": (os.path.join(DATA, "pvt_s_port.conf"),
+              os.path.join(DATA, "pvt_s_port_golden.npz"),
+              os.path.join(DATA, "pvt_s_port_train_golden.npz"), 16),
+    "Twins-SVT-S": (os.path.join(DATA, "twins_svt_s_port.conf"),
+                    os.path.join(DATA, "twins_svt_s_port_golden.npz"),
+                    os.path.join(DATA, "twins_svt_s_port_train_golden.npz"), 18),
 }
 KERNELS = {  # name → (source, the TPU kernel it replaces)
     "fused_attention_layer": ("vision_transformers_tpu_torch/csrc/fused_layer.cu",
@@ -119,6 +153,10 @@ KERNELS = {  # name → (source, the TPU kernel it replaces)
                               "vision_transformers_tpu/ops/fused_halo.py:252"),
     "halo_attention_direct_bwd": ("vision_transformers_tpu_torch/csrc/fused_halo.cu",
                                   "vision_transformers_tpu/ops/fused_halo.py:282"),
+    "fused_attention": ("vision_transformers_tpu_torch/csrc/fused_attention.cu",
+                        "vision_transformers_tpu/ops/fused_attention.py:67"),
+    "fused_attention_bwd": ("vision_transformers_tpu_torch/csrc/fused_attention.cu",
+                            "vision_transformers_tpu/ops/fused_attention.py:92"),
 }
 KERNEL_TOL = 1e-4
 DEVICE = "cuda"
@@ -201,16 +239,31 @@ def bound(flops, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def attn_fwd_work(B, N, C, H, D, saves=False):
+def attn_fwd_work(B, N, C, H, D, saves=False, groups=0):
     """(operations, bytes) of the attention half's forward: four projection
-    products and two attention products; x, weights in, out written, and
-    with ``saves`` the residuals (qkv, acc, mu, rstd, lse) written too."""
+    products and two attention products; x, weights (and with ``groups``
+    the bias [G, H, N, N]) in, out written, and with ``saves`` the residuals
+    (qkv, acc, mu, rstd, lse) written too."""
     M, HD = B * N, H * D
     flops = 8 * M * C * HD + 4 * B * H * N * N * D
-    nbytes = 4 * (2 * M * C + 4 * C * HD + 3 * HD + 3 * C + B)
+    nbytes = 4 * (2 * M * C + 4 * C * HD + 3 * HD + 3 * C + B + groups * H * N * N)
     if saves:
         nbytes += 4 * (4 * M * HD + 2 * M + B * H * N)
     return flops, nbytes
+
+
+def sra_fwd_work(B, G, M, N, D, saves=False):
+    """(operations, bytes) of the reduced-kv attention's forward: q·kᵀ and
+    p·v, 4·B·G·M·N·D; q, k, v read, out (and with ``saves`` lse) written."""
+    nbytes = 4 * B * G * (2 * M * D + 2 * N * D + (M if saves else 0))
+    return 4 * B * G * M * N * D, nbytes
+
+
+def sra_bwd_work(B, G, M, N, D):
+    """(operations, bytes) of its backward: five products (recomputed
+    scores, dv, dp, dq, dk), 10·B·G·M·N·D; q, k, v, out, do and lse read,
+    dq, dk and dv written."""
+    return 10 * B * G * M * N * D, 4 * B * G * (4 * M * D + 4 * N * D + M)
 
 
 def layer_fwd_work(B, N, C, H, D, F, groups=0, row_scales=False, saves=False):
@@ -226,15 +279,16 @@ def layer_fwd_work(B, N, C, H, D, F, groups=0, row_scales=False, saves=False):
     return flops, nbytes
 
 
-def attn_bwd_work(B, N, C, H, D):
+def attn_bwd_work(B, N, C, H, D, groups=0):
     """(operations, bytes) of the backward: the four projection products of
     the weight and input gradients (16·M·C·HD) and five attention products
-    (recomputed scores, dv, dp, dk, dq); reads x, dz, the saves and the
-    weights once, writes dx and the parameter gradients once."""
+    (recomputed scores, dv, dp, dk, dq); reads x, dz, the saves, the
+    weights (and with ``groups`` the bias) once, writes dx and the parameter
+    gradients once."""
     M, HD = B * N, H * D
     flops = 16 * M * C * HD + 10 * B * H * N * N * D
     nbytes = 4 * (3 * M * C + 4 * M * HD + 2 * M + B * H * N
-                  + 2 * (4 * C * HD + 3 * HD + 3 * C) + 2 * B)
+                  + 2 * (4 * C * HD + 3 * HD + 3 * C) + 2 * B + groups * H * N * N)
     return flops, nbytes
 
 
@@ -648,8 +702,8 @@ def halo_stages(images):
     geometry and the depth, from tests/data/halo_s_port.conf."""
     from vision_transformers_tpu_torch.config.schema import load_config
 
-    arch = load_config(MODELS["Halo-S"][0]).arch
-    size = image_size(arch) // 4
+    conf = load_config(MODELS["Halo-S"][0])
+    arch, size = conf.arch, image_size(conf) // 4
     out = []
     for s in range(4):
         if s:
@@ -916,38 +970,287 @@ def halo_backward_kernels(torch):
 
 
 # ---------------------------------------------------------------------------
+# 3s. the reduced-kv attention (PVT SRA, Twins GSA) vs its plain version
+# ---------------------------------------------------------------------------
+
+
+def pvt_stages(images):
+    """The reduced-kv attention's calls in PVT-S @224 at ``images`` images,
+    one per stage: dicts of the problem (B, G, M, N, D) — M the stage's
+    tokens (the cls token in stage 4), N the conv-reduced ones — and the
+    depth, from tests/data/pvt_s_port.conf."""
+    from vision_transformers_tpu_torch.config.schema import load_config
+
+    arch = load_config(MODELS["PVT-S"][0]).arch
+    size, out = arch.image_size, []
+    for s, patch in enumerate((4, 2, 2, 2)):
+        size //= patch
+        r, last = arch.reductions[s], s == 3
+        M = size * size + (1 if last else 0)
+        N = (size // r) ** 2 if r > 1 else M
+        G = arch.n_heads[s]
+        out.append(dict(model="PVT-S", stage=s + 1, depth=arch.depths[s],
+                        shape=(images, G, M, N, arch.patch_embed_dims[s] // G)))
+    return out
+
+
+def twins_stages(images):
+    """Twins-SVT-S @224 at ``images`` images, one dict per stage: ``gsa``
+    the global attention's reduced-kv problem (B, G, M, N, D); ``lsa`` the
+    attention layer's call (rows = groups·images, N = m tokens of a packed
+    window pair or a window, C, H, D, F) and ``pack``; from
+    tests/data/twins_svt_s_port.conf."""
+    from vision_transformers_tpu_torch.config.schema import load_config
+    from vision_transformers_tpu_torch.models.twins import LocalAttention
+
+    conf = load_config(MODELS["Twins-SVT-S"][0])
+    arch, size, win, out = conf.arch, conf.training.train_size, conf.arch.window_size, []
+    for s, patch in enumerate((4, 2, 2, 2)):
+        size //= patch
+        C, H, D = arch.dims[s], arch.n_heads[s], arch.dim_head
+        pack = LocalAttention(C, H, D, win).pack(size // win)
+        groups = (size // win) ** 2 // pack
+        out.append(dict(model="Twins-SVT-S", stage=s + 1, depth=arch.depths[s], pack=pack,
+                        images=images, gsa=(images, H, size * size, (size // win) ** 2, C // H),
+                        lsa=(groups * images, pack * win * win, C, H, D, 4 * C)))
+    return out
+
+
+# the odd small reduced-kv problems: M ≠ N, one key (Twins' last stage), four,
+# nine, head widths 64, 32 and 24
+SRA_ODD = [dict(model="odd", stage="odd", depth=1, shape=(3, 2, 37, 1, 64)),
+           dict(model="odd", stage="odd", depth=1, shape=(2, 3, 70, 4, 32)),
+           dict(model="odd", stage="odd", depth=1, shape=(2, 1, 45, 9, 24))]
+
+
+def sra_inputs(torch, B, G, M, N, D, seed=0):
+    """q, k, v and an output grad as the models pass them: [B, G, rows, D]
+    head views of a q projection [B, M, G·D], of the two halves of a kv
+    projection [B, N, 2·G·D] and of the output projection's input grad."""
+    g = torch.Generator(DEVICE).manual_seed(seed)
+    q, kv, do = (torch.randn(B, rows, c * G * D, device=DEVICE, generator=g)
+                 for rows, c in ((M, 1), (N, 2), (M, 1)))
+
+    def heads(t):
+        return t.reshape(B, -1, G, D).permute(0, 2, 1, 3)
+
+    return heads(q), heads(kv[..., :G * D]), heads(kv[..., G * D:]), heads(do)
+
+
+def sra_what(call):
+    return f"{call['model']} stage {call['stage']} B,G,M,N,D={call['shape']}"
+
+
+def sra_kernels(torch):
+    """3s: the reduced-kv attention's serving forward (no saves), training
+    forward (with lse) and backward against the plain versions, the
+    backward twice for bit-identity, at the odd shapes and at every call of
+    PVT-S and of Twins-SVT-S's global attention at 128 images (the trainers'
+    batch and their evals'); median ms of each stage's training forward and
+    backward beside the bound, the plain versions and
+    F.scaled_dot_product_attention on the same problem (forward, and its
+    autograd backward).  Returns the timed entries of the forward and the
+    backward, PVT-S stage 1 first."""
+    import torch.nn.functional as F_
+
+    from vision_transformers_tpu_torch.ops import fused_attention_mod as fa
+
+    worst = {"out": 0.0, "grads": 0.0}
+    fwd_rec, bwd_rec = [], []
+    calls = SRA_ODD + pvt_stages(128) + [
+        dict(model=t["model"], stage=t["stage"], depth=t["depth"], shape=t["gsa"])
+        for t in twins_stages(128)]
+    for call in calls:
+        q, k, v, do = sra_inputs(torch, *call["shape"])
+        what = sra_what(call)
+        with torch.no_grad():
+            out = fa.fused_attention(q, k, v)
+        torch.cuda.synchronize()
+        err = check_close(torch, "fused_attention", out, fa.fused_attention_reference(q, k, v),
+                          what + " (serving)")
+        out, saved = fa.fused_attention_fwd(q, k, v)
+        grads = fa.fused_attention_bwd(saved, do)[:3]
+        again = fa.fused_attention_bwd(saved, do)[:3]
+        torch.cuda.synchronize()
+        scale = saved.scale
+        out_p, lse_p = fa.attention_fwd_reference(q, k, v, None, scale)
+        err = max(err, check_close(torch, "fused_attention", out, out_p, what + " (training)"))
+        check_close(torch, "fused_attention", saved.lse, lse_p, what + " lse")
+        worst["out"] = max(worst["out"], err)
+        plain = fa.attention_bwd_reference(q, k, v, None, lse_p, do, scale)[:3]
+        compare_grads(torch, "fused_attention " + what, ("dq", "dk", "dv"), grads, again,
+                      plain, worst)
+        if call["model"] != "odd":
+            B, G, M, N, D = call["shape"]
+            f_ms = median_ms(torch, lambda: fa.fused_attention_fwd(q, k, v))
+            b_ms = median_ms(torch, lambda: fa.fused_attention_bwd(saved, do))
+            pf_ms = median_ms(torch, lambda: fa.attention_fwd_reference(q, k, v, None, scale))
+            pb_ms = median_ms(torch, lambda: fa.attention_bwd_reference(
+                q, k, v, None, lse_p, do, scale))
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            lib = F_.scaled_dot_product_attention(*leaves)
+            lib_err = (lib.detach() - out).abs().max().item()
+            lf_ms = median_ms(torch, lambda: F_.scaled_dot_product_attention(q, k, v))
+            lb_ms = median_ms(torch, lambda: torch.autograd.grad(lib, leaves, do,
+                                                                 retain_graph=True))
+            fb, fby = bound(*sra_fwd_work(*call["shape"], saves=True))
+            bb, bby = bound(*sra_bwd_work(*call["shape"]))
+            log(f"kernels: fused_attention {what} (median of 20, CUDA events): kernel "
+                f"fwd(lse) {f_ms:.3f} + bwd {b_ms:.3f} ms; plain fwd {pf_ms:.3f} + bwd "
+                f"{pb_ms:.3f} ms; scaled_dot_product_attention fwd {lf_ms:.3f} + its "
+                f"backward {lb_ms:.3f} ms (max|Δ| to the kernel {lib_err:.3e}); bound fwd "
+                f"{fb:.3f} ({fby}) + bwd {bb:.3f} ms ({bby})")
+            shape = f"{call['model']} stage {call['stage']}, B,G,M,N,D=" + ",".join(
+                map(str, call["shape"]))
+            fwd_rec.append({"shape": shape + ", lse", "max_abs_err": worst["out"], "ms": f_ms,
+                            "plain_ms": pf_ms, "bound_ms": fb, "bound_by": fby,
+                            "library_ms": lf_ms})
+            bwd_rec.append({"shape": shape, "max_abs_err": worst["grads"], "ms": b_ms,
+                            "plain_ms": pb_ms, "bound_ms": bb, "bound_by": bby,
+                            "library_ms": lb_ms})
+            del leaves, lib
+        del q, k, v, do, out, saved, grads, again, plain, out_p, lse_p
+    return fwd_rec, bwd_rec
+
+
+# the odd small attention-layer call with Twins' mask: 3x3 windows packed in
+# pairs (m = 18), 6 rows, heads 16 wide
+TWINS_ODD = dict(model="odd", stage="odd", depth=1, pack=2, images=3,
+                 lsa=(6, 18, 48, 3, 16, 192))
+
+
+def twins_layer_inputs(torch, call, seed=1):
+    """Seeded inputs of one attention-layer call of Twins' local attention:
+    ``layer_args`` (weights as transposed views), the [m, m] pair mask of
+    the port's LocalAttention where windows are packed (else None), a
+    per-image DropPath scale (keep 0.9) tiled over the window groups, and an
+    output grad."""
+    from vision_transformers_tpu_torch.models.twins import LocalAttention
+
+    rows, N, C, H, D, F = call["lsa"]
+    a = layer_args(torch, rows, N, C, H, D, F, seed=seed)[:7]
+    win = int(round((N // call["pack"]) ** 0.5))
+    mask = LocalAttention(C, H, D, win).pair_mask(call["pack"], DEVICE)
+    rng = np.random.default_rng(seed + 100)
+    images = call["images"]
+    keep = rng.random(images) < 0.9
+    keep[0], keep[-1] = False, True  # both kinds at every shape
+    r = torch.from_numpy((keep / 0.9).astype(np.float32)).to(DEVICE).repeat(rows // images)
+    dz = torch.from_numpy(rng.standard_normal((rows, N, C)).astype(np.float32)).to(DEVICE)
+    return a, mask, r, dz
+
+
+def twins_layer_kernels(torch):
+    """3b, the attention layer with Twins' pair mask: the serving forward
+    (no saves), the training forward (with saves) and the backward against
+    the plain versions, the backward twice for bit-identity, at an odd shape
+    (also with the mask's gradient) and at the four Twins-SVT-S stages at
+    128 images (the mask at stages 1-3); median ms of each stage's training
+    call.  Returns the timed entries of the forward and the backward."""
+    from vision_transformers_tpu_torch.ops import fused_layer as fl
+
+    worst = {"out": 0.0, "grads": 0.0}
+    fwd_rec, bwd_rec = [], []
+    for call in [TWINS_ODD] + twins_stages(128):
+        a, mask, rs, dz = twins_layer_inputs(torch, call)
+        H = call["lsa"][3]
+        what = (f"{call['model']} stage {call['stage']} B,N,C,H,D={call['lsa'][:5]}, "
+                f"{'pair mask' if mask is not None else 'no mask'}, row scale")
+        with torch.no_grad():
+            out = fl.fused_attention_layer(*a, H, extra=mask, row_scale=rs)
+        torch.cuda.synchronize()
+        err = check_close(torch, "fused_attention_layer", out, fl.fused_attention_layer_reference(
+            *a, H, extra=mask, row_scale=rs), what + " (serving)")
+        worst["out"] = max(worst["out"], err)
+        for need_dextra in ((False, True) if call["model"] == "odd" else (False,)):
+            out, saved = fl.fused_attention_layer_fwd(*a, H, row_scale=rs, extra=mask)
+            grads = fl.fused_attention_layer_bwd(saved, dz, need_dextra=need_dextra)
+            again = fl.fused_attention_layer_bwd(saved, dz, need_dextra=need_dextra)
+            torch.cuda.synchronize()
+            out_p, saved_p = fl.fused_attention_layer_fwd_reference(
+                *a, H, row_scale=rs, extra_g=saved.extra_g)
+            plain = fl.fused_attention_layer_bwd_reference(saved_p, dz, need_dextra=need_dextra)
+            compare_grads(torch, f"{what} dextra={need_dextra}",
+                          ("out",) + GRAD_NAMES + ("dextra",), (out,) + grads,
+                          (out,) + again, (out_p,) + plain, worst)
+            del saved_p, grads, again, plain
+        if call["model"] != "odd":
+            rows, N, C, _, D, _ = call["lsa"]
+            groups = 0 if mask is None else 1
+            _, saved_p = fl.fused_attention_layer_fwd_reference(*a, H, row_scale=rs,
+                                                                 extra_g=saved.extra_g)
+            f_ms = median_ms(torch, lambda: fl.fused_attention_layer_fwd(
+                *a, H, row_scale=rs, extra=mask))
+            b_ms = median_ms(torch, lambda: fl.fused_attention_layer_bwd(
+                saved, dz, need_dextra=False))
+            pf_ms = median_ms(torch, lambda: fl.fused_attention_layer_fwd_reference(
+                *a, H, row_scale=rs, extra_g=saved.extra_g))
+            pb_ms = median_ms(torch, lambda: fl.fused_attention_layer_bwd_reference(
+                saved_p, dz, need_dextra=False))
+            fb, fby = bound(*attn_fwd_work(rows, N, C, H, D, saves=True, groups=groups))
+            bb, bby = bound(*attn_bwd_work(rows, N, C, H, D, groups=groups))
+            log(f"backward: fused_attention_layer Twins stage {call['stage']} train call "
+                f"({what}; median of 20, CUDA events): kernel fwd(saves) {f_ms:.3f} + bwd "
+                f"{b_ms:.3f} ms; plain fwd {pf_ms:.3f} + bwd {pb_ms:.3f} ms; bound fwd "
+                f"{fb:.3f} ({fby}) + bwd {bb:.3f} ms ({bby})")
+            shape = (f"Twins-SVT-S stage {call['stage']} train, B,N,C,H,D="
+                     + ",".join(map(str, call["lsa"][:5]))
+                     + (", pair mask" if mask is not None else "") + ", row scale")
+            fwd_rec.append({"shape": shape + ", saves", "max_abs_err": worst["out"],
+                            "ms": f_ms, "plain_ms": pf_ms, "bound_ms": fb, "bound_by": fby,
+                            "library_ms": None})
+            bwd_rec.append({"shape": shape, "max_abs_err": worst["grads"], "ms": b_ms,
+                            "plain_ms": pb_ms, "bound_ms": bb, "bound_by": bby,
+                            "library_ms": None})
+            del saved_p
+        del a, mask, rs, dz, out, saved
+    return fwd_rec, bwd_rec
+
+
+# ---------------------------------------------------------------------------
 # 4. full width against the JAX package's logits
 # ---------------------------------------------------------------------------
 
 
-def seeded_model(torch, conf, seed):
+def seeded_model(torch, conf_path, seed):
+    """(the conf, its seeded state_dict, the model on the card in eval)."""
     from vision_transformers_tpu_torch.config.schema import load_config
     from vision_transformers_tpu_torch.utils.weights import seeded_state_dict, to_torch
 
-    arch = load_config(conf).arch
-    sd = to_torch(seeded_state_dict(arch, seed))
-    model = arch.make()
+    conf = load_config(conf_path)
+    sd = to_torch(seeded_state_dict(conf.arch, seed))
+    model = conf.arch.make()
     model.load_state_dict(sd, strict=True)
-    return arch, sd, model.to(DEVICE).eval()
+    return conf, sd, model.to(DEVICE).eval()
 
 
-def image_size(arch):
-    return arch.image_size if isinstance(arch.image_size, int) else arch.image_size[0]
+def image_size(conf):
+    """The model's image size; the conf's eval size for a model that has
+    none (Twins-SVT)."""
+    size = getattr(conf.arch, "image_size", None) or conf.training.valid_size
+    return size if isinstance(size, int) else size[0]
 
 
 def counted_modules():
-    """kernel name → (its ops module, the counter's name there)."""
-    from vision_transformers_tpu_torch.ops import (fused_halo, fused_halo_layer,
-                                                   fused_layer, fused_layer1)
+    """counter name → (its ops module, the counter's name there): each
+    kernel's launches, and of the attention layer's those that carried the
+    bias (``+bias``)."""
+    from vision_transformers_tpu_torch.ops import (fused_attention_mod, fused_halo,
+                                                   fused_halo_layer, fused_layer,
+                                                   fused_layer1)
 
     return {"fused_attention_layer": (fused_layer, "LAUNCHES"),
             "fused_attention_layer_bwd": (fused_layer, "BWD_LAUNCHES"),
+            "fused_attention_layer+bias": (fused_layer, "BIAS_LAUNCHES"),
+            "fused_attention_layer_bwd+bias": (fused_layer, "BIAS_BWD_LAUNCHES"),
             "fused_transformer_layer": (fused_layer1, "LAUNCHES"),
             "fused_transformer_layer_bwd": (fused_layer1, "BWD_LAUNCHES"),
             "fused_halo_layer": (fused_halo_layer, "LAUNCHES"),
             "fused_halo_layer_bwd": (fused_halo_layer, "BWD_LAUNCHES"),
             "halo_attention_direct": (fused_halo, "LAUNCHES"),
-            "halo_attention_direct_bwd": (fused_halo, "BWD_LAUNCHES")}
+            "halo_attention_direct_bwd": (fused_halo, "BWD_LAUNCHES"),
+            "fused_attention": (fused_attention_mod, "LAUNCHES"),
+            "fused_attention_bwd": (fused_attention_mod, "BWD_LAUNCHES")}
 
 
 def counts():
@@ -960,15 +1263,18 @@ def reset_counts():
 
 
 @contextlib.contextmanager
-def halo_forced(impl):
-    """The Halo path ``impl`` (None: the default) for the duration."""
+def forced(halo=None, sra=None):
+    """The Halo path ``halo`` and the reduced-kv path ``sra`` (None: the
+    defaults) for the duration."""
     from vision_transformers_tpu_torch import ops
 
-    ops.set_halo_impl(impl)
+    ops.set_halo_impl(halo)
+    ops.set_sra_impl(sra)
     try:
         yield
     finally:
         ops.set_halo_impl(None)
+        ops.set_sra_impl(None)
 
 
 def expect_path(before, after, expected, what):
@@ -979,27 +1285,40 @@ def expect_path(before, after, expected, what):
         raise RuntimeError(f"{what}: expected launches {want}, counted {moved}")
 
 
-def golden(torch, model_name, cases):
-    """``cases``: (rows, the kernel those rows take)."""
+def scaled_counts(expected, n):
+    return {k: v * n for k, v in expected.items()}
+
+
+def path_label(expected, sra=None, halo=None):
+    forced_by = [f"{name} {v}" for name, v in (("halo", halo), ("sra", sra)) if v]
+    return " + ".join(k for k in expected if "+" not in k) + (
+        f" ({', '.join(forced_by)})" if forced_by else "")
+
+
+def golden(torch, model_name, cases, sra=None):
+    """``cases``: (rows, the launches of each counter in one forward of
+    that many rows); ``sra`` forces the reduced-kv path."""
     from vision_transformers_tpu_torch.predict import predict_batch
     from vision_transformers_tpu_torch.utils.weights import seeded_images
 
-    conf, path, _, depth = MODELS[model_name]
+    conf_path, path, _, depth = MODELS[model_name]
     with np.load(path) as f:
         seed, ref = int(f["seed"]), f["logits"]
-    arch, _, model = seeded_model(torch, conf, seed)
-    images = seeded_images(seed, ref.shape[0], image_size(arch))
+    conf, _, model = seeded_model(torch, conf_path, seed)
+    size = image_size(conf)
+    images = seeded_images(seed, ref.shape[0], size)
     tol = 1e-3 * max(1.0, float(np.abs(ref).max()))
-    for rows, kernel in cases:
+    for rows, expected in cases:
         idx = np.arange(rows) % ref.shape[0]
         before = counts()
-        logits, top, _ = predict_batch(model, images[idx], 5, DEVICE)
-        expect_path(before, counts(), {kernel: depth}, f"golden {model_name} {rows} rows")
+        with forced(sra=sra):
+            logits, top, _ = predict_batch(model, images[idx], 5, DEVICE)
+        expect_path(before, counts(), expected, f"golden {model_name} {rows} rows")
         if logits.shape != (rows, ref.shape[1]) or not np.isfinite(logits).all():
             raise RuntimeError(f"golden: bad logits {logits.shape}")
         err = float(np.abs(logits - ref[idx]).max())
-        log(f"golden: {model_name} @{image_size(arch)} depth {depth}, {rows} rows via {kernel}: "
-            f"max|port-JAX| {err:.3e} (tol {tol:.3e})")
+        log(f"golden: {model_name} @{size} depth {depth}, {rows} rows via "
+            f"{path_label(expected, sra)}: max|port-JAX| {err:.3e} (tol {tol:.3e})")
         if err > tol or not (top[:, 0] == ref[idx].argmax(-1)).all():
             raise RuntimeError("golden: the port disagrees with the JAX logits")
 
@@ -1009,9 +1328,9 @@ def golden(torch, model_name, cases):
 # ---------------------------------------------------------------------------
 
 
-def train_golden(torch, model_name, kernels, halo_impl=None):
-    """One train step at 64 rows through ``kernels`` (forward, backward);
-    ``halo_impl`` forces a Halo path."""
+def train_golden(torch, model_name, expected, halo=None, sra=None):
+    """One train step at 64 rows; ``expected`` the launches of each counter
+    in it; ``halo`` / ``sra`` force a Halo / reduced-kv path."""
     from vision_transformers_tpu_torch.config.schema import load_config
     from vision_transformers_tpu_torch.train import loss as L
     from vision_transformers_tpu_torch.utils.weights import (grad_projections,
@@ -1019,27 +1338,28 @@ def train_golden(torch, model_name, kernels, halo_impl=None):
                                                              seeded_train_batch,
                                                              to_torch)
 
-    conf, _, path, depth = MODELS[model_name]
+    conf_path, _, path, depth = MODELS[model_name]
     with np.load(path) as f:
         g = {k: f[k] for k in f.files}
     seed, keys, rtol = int(g["seed"]), list(g["keys"]), 1e-3
+    conf = load_config(conf_path)
     # the golden is one deterministic step: the conf's drop_path off
-    arch = dataclasses.replace(load_config(conf).arch, drop_path=0.0)
+    arch = dataclasses.replace(conf.arch, drop_path=0.0)
     model = arch.make()
     model.load_state_dict(to_torch(seeded_state_dict(arch, seed)), strict=True)
     model.to(DEVICE).train()
-    batch = seeded_train_batch(seed, 2, image_size(arch), arch.n_class)
+    size = image_size(conf)
+    batch = seeded_train_batch(seed, 2, size, arch.n_class)
     idx = np.arange(64) % 2  # 64 rows take the kernels; the mean over
     b = {k: torch.from_numpy(v[idx]).to(DEVICE) for k, v in batch.items()}  # copies = 2-row mean
     before = counts()
-    with halo_forced(halo_impl):
+    with forced(halo, sra):
         logits = model(b["image"].permute(0, 3, 1, 2))
         loss = L.mix_loss(logits, b["label1"].long(), b["label2"].long(), b["ratio"],
                           eps=0.1)
         loss.backward()
     torch.cuda.synchronize()
-    expect_path(before, counts(), {k: depth for k in kernels},
-                f"train golden {model_name}, 64 rows")
+    expect_path(before, counts(), expected, f"train golden {model_name}, 64 rows")
     grads = {k: p.grad.double().cpu().numpy() for k, p in model.named_parameters()}
     if sorted(grads) != keys:
         raise RuntimeError("train golden: the port's parameters differ from the golden's")
@@ -1051,15 +1371,23 @@ def train_golden(torch, model_name, kernels, halo_impl=None):
         "grad_norm": (float(np.sqrt((norms ** 2).sum())), float(g["grad_norm"])),
     }
     rel = {k: abs(a - b) / abs(b) for k, (a, b) in checks.items()}
-    rel["tensor norms (worst)"] = float(np.max(np.abs(norms - g["norms"]) / g["norms"]))
+    # a tensor whose JAX gradient is exactly zero (Twins' last-stage query
+    # projection: a softmax over one key has no gradient) has no relative
+    # error; its norm is held to an absolute limit instead
+    zero = g["norms"] == 0
+    rel["tensor norms (worst)"] = float(np.max(np.abs(norms - g["norms"])[~zero]
+                                               / g["norms"][~zero]))
     rel["projections (worst, of the tensor norm)"] = float(
-        np.max(np.abs(proj - g["projections"]) / g["norms"]))
-    log(f"train golden: {model_name} @{image_size(arch)} depth {depth} f32, 64 rows via "
-        f"{' + '.join(kernels)}: loss {checks['loss'][0]:.6f} (JAX "
+        np.max(np.abs(proj - g["projections"])[~zero] / g["norms"][~zero]))
+    zero_norm, zero_tol = float(norms[zero].max()) if zero.any() else 0.0, 1e-7
+    log(f"train golden: {model_name} @{size} depth {depth} f32, 64 rows via "
+        f"{path_label(expected, sra, halo)}: loss {checks['loss'][0]:.6f} (JAX "
         f"{checks['loss'][1]:.6f}), grad_norm {checks['grad_norm'][0]:.5f} (JAX "
         f"{checks['grad_norm'][1]:.5f}); relative "
-        + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()) + f" (rtol {rtol})")
-    if not all(np.isfinite(v) and v <= rtol for v in rel.values()):
+        + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()) + f" (rtol {rtol})"
+        + (f"; {int(zero.sum())} tensors with a zero JAX gradient: largest norm "
+           f"{zero_norm:.2e} (tol {zero_tol})" if zero.any() else ""))
+    if not all(np.isfinite(v) and v <= rtol for v in rel.values()) or zero_norm > zero_tol:
         raise RuntimeError("train golden: the port's gradients disagree with the JAX package")
 
 
@@ -1091,16 +1419,17 @@ def write_jpegs(directory, images):
     return files
 
 
-def predict_main_path(torch, has_pil, model_name, cases):
-    """``cases``: (images, the kernel that many take)."""
+def predict_main_path(torch, has_pil, model_name, cases, sra=None):
+    """``cases``: (images, the launches of each counter in one forward of
+    that many images); ``sra`` forces the reduced-kv path."""
     from vision_transformers_tpu_torch import predict
     from vision_transformers_tpu_torch.ops import _build
     from vision_transformers_tpu_torch.utils.weights import seeded_images
 
-    conf, _, _, depth = MODELS[model_name]
+    conf, _, _, _ = MODELS[model_name]
     seed = 7
-    arch, sd, model = seeded_model(torch, conf, seed)
-    size = image_size(arch)
+    full, sd, model = seeded_model(torch, conf, seed)
+    size = image_size(full)
     _build._BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build._BUILD_DIR) as tmp:
         ckpt = os.path.join(tmp, "ckpt.pt")
@@ -1111,41 +1440,46 @@ def predict_main_path(torch, has_pil, model_name, cases):
             log("predict: PIL does not import on this machine, so JPEG decode is "
                 "not exercised; predict_batch runs on the seeded uint8 images")
         reset_counts()  # the main path's run starts here
-        for n, kernel in cases:
+        for n, expected in cases:
             before = counts()
             t0 = time.perf_counter()
             if has_pil:
                 buf = io.StringIO()
-                with contextlib.redirect_stdout(buf):
+                with contextlib.redirect_stdout(buf), forced(sra=sra):
                     predict.main(["--conf", conf, "--checkpoint", f"{ckpt}:ema",
                                   "--topk", "5", "--device", DEVICE, *files[:n]])
                 secs = time.perf_counter() - t0
                 check_lines(buf.getvalue().splitlines(), files[:n], 5)
             else:
-                _, top, prob = predict.predict_batch(model, noise[:n, :size, :size], 5, DEVICE)
+                with forced(sra=sra):
+                    _, top, prob = predict.predict_batch(model, noise[:n, :size, :size], 5,
+                                                         DEVICE)
                 secs = time.perf_counter() - t0
                 if not ((prob > 0) & (prob <= 1)).all() or (prob.sum(-1) > 1 + 1e-4).any():
                     raise RuntimeError("predict: bad probabilities")
-            expect_path(before, counts(), {kernel: depth}, f"predict {model_name} {n} images")
+            expect_path(before, counts(), expected, f"predict {model_name} {n} images")
             log(f"predict: {model_name}, {n} images through "
                 f"{'predict.main (JPEG decode, checkpoint load, forward)' if has_pil else 'predict_batch'}"
-                f" in {secs:.3f} s = {n / secs:.1f} images/s end to end, via {kernel}")
+                f" in {secs:.3f} s = {n / secs:.1f} images/s end to end, via "
+                f"{path_label(expected, sra)}")
         launches = counts()  # read just after the main path's run
         off = (256 - size) // 2
         batch = noise[:, off:off + size, off:off + size]
         for n, _ in cases:
-            predict.predict_batch(model, batch[:n], 5, DEVICE)  # warm-up
-            t0 = time.perf_counter()
-            reps = 5
-            for _ in range(reps):
-                predict.predict_batch(model, batch[:n], 5, DEVICE)
-            secs = (time.perf_counter() - t0) / reps
+            with forced(sra=sra):
+                predict.predict_batch(model, batch[:n], 5, DEVICE)  # warm-up
+                t0 = time.perf_counter()
+                reps = 5
+                for _ in range(reps):
+                    predict.predict_batch(model, batch[:n], 5, DEVICE)
+                secs = (time.perf_counter() - t0) / reps
             log(f"predict: {model_name} predict_batch steady state, {n} uint8 images "
                 f"(host→device, forward, top-k back): {secs * 1e3:.2f} ms = "
                 f"{n / secs:.1f} images/s")
-    for _, kernel in cases:
-        if launches[kernel] == 0:
-            raise RuntimeError(f"predict: {kernel} was not launched on the serving path")
+    for _, expected in cases:
+        for kernel in expected:
+            if launches[kernel] == 0:
+                raise RuntimeError(f"predict: {kernel} was not launched on the serving path")
     log(f"predict: {model_name} launches on the serving path {launches}")
     return launches
 
@@ -1155,10 +1489,11 @@ def predict_main_path(torch, has_pil, model_name, cases):
 # ---------------------------------------------------------------------------
 
 
-def train_main_path(torch, has_pil, model_name, expected, overrides=(), halo_impl=None):
+def train_main_path(torch, has_pil, model_name, expected, overrides=(), halo=None,
+                    sra=None):
     """``train.main`` f32 at batch 128 for one synthetic epoch, with conf
-    ``overrides`` and ``halo_impl`` forcing a Halo path; ``expected`` the
-    launches of each kernel on that run."""
+    ``overrides`` and ``halo`` / ``sra`` forcing a Halo / reduced-kv path;
+    ``expected`` the launches of each counter on that run."""
     from vision_transformers_tpu_torch import predict, train
     from vision_transformers_tpu_torch.config.schema import load_config
     from vision_transformers_tpu_torch.ops import _build
@@ -1167,7 +1502,8 @@ def train_main_path(torch, has_pil, model_name, expected, overrides=(), halo_imp
 
     conf_path = MODELS[model_name][0]
     conf = load_config(conf_path, list(overrides))
-    label = model_name + (f" ({halo_impl})" if halo_impl else "")
+    label = model_name + "".join(f" ({name} {v})" for name, v in (("halo", halo),
+                                                                   ("sra", sra)) if v)
     step_secs = []
     train_step = engine.train_step
 
@@ -1187,7 +1523,7 @@ def train_main_path(torch, has_pil, model_name, expected, overrides=(), halo_imp
         engine.train_step = timed_step
         torch.cuda.reset_peak_memory_stats()
         try:
-            with halo_forced(halo_impl):
+            with forced(halo, sra):
                 reset_counts()  # the main path's run starts here
                 t0 = time.perf_counter()
                 metrics = train.main(args)
@@ -1220,7 +1556,7 @@ def train_main_path(torch, has_pil, model_name, expected, overrides=(), halo_imp
         if has_pil:
             files = write_jpegs(tmp, noise)
             buf = io.StringIO()
-            with contextlib.redirect_stdout(buf):
+            with contextlib.redirect_stdout(buf), forced(halo, sra):
                 predict.main(["--conf", conf_path, "--checkpoint", f"{ckpt}:model",
                               "--topk", "5", "--device", DEVICE, *files])
             check_lines(buf.getvalue().splitlines(), files, 5)
@@ -1229,9 +1565,10 @@ def train_main_path(torch, has_pil, model_name, expected, overrides=(), halo_imp
 
             model = conf.arch.make()
             model.load_state_dict(load_checkpoint(f"{ckpt}:model"), strict=True)
-            size = image_size(conf.arch)
-            _, _, prob = predict.predict_batch(model.to(DEVICE).eval(),
-                                               noise[:, :size, :size], 5, DEVICE)
+            size = image_size(conf)
+            with forced(halo, sra):
+                _, _, prob = predict.predict_batch(model.to(DEVICE).eval(),
+                                                   noise[:, :size, :size], 5, DEVICE)
             if not ((prob > 0) & (prob <= 1)).all():
                 raise RuntimeError("trainer: bad probabilities from the checkpoint")
         log(f"trainer: predict read {label}'s epoch-001.pt:model and classified "
@@ -1267,25 +1604,60 @@ def main() -> None:
     timed["fused_halo_layer_bwd"] = hl_bwd
     timed["halo_attention_direct"] = halo_timed["halo_attention_direct"] + hd_fwd
     timed["halo_attention_direct_bwd"] = hd_bwd
+    tw_fwd, tw_bwd = phase("3b attention layer + mask", twins_layer_kernels, torch)
+    timed["fused_attention_layer"] += tw_fwd
+    timed["fused_attention_layer_bwd"] += tw_bwd
+    timed["fused_attention"], timed["fused_attention_bwd"] = phase(
+        "3s reduced-kv", sra_kernels, torch)
     fal, falb = "fused_attention_layer", "fused_attention_layer_bwd"
     ftl, ftlb = "fused_transformer_layer", "fused_transformer_layer_bwd"
     fhl, fhlb = "fused_halo_layer", "fused_halo_layer_bwd"
     had, hadb = "halo_attention_direct", "halo_attention_direct_bwd"
-    phase("4 golden ViT", golden, torch, "ViT-S/16", ((64, fal), (256, ftl)))
-    phase("4 golden Swin", golden, torch, "Swin-S", ((64, ftl), (128, ftl)))
-    phase("4 golden Halo", golden, torch, "Halo-S", ((64, fhl), (128, fhl)))
-    phase("4b train ViT", train_golden, torch, "ViT-S/16", (fal, falb))
-    phase("4b train Swin", train_golden, torch, "Swin-S", (ftl, ftlb))
-    phase("4b train Halo", train_golden, torch, "Halo-S", (fhl, fhlb))
-    phase("4b train Halo direct", train_golden, torch, "Halo-S", (had, hadb), "direct")
+    fa, fab = "fused_attention", "fused_attention_bwd"
+
+    def depth(model, *kernels):  # one launch of each kernel per layer
+        return {k: MODELS[model][3] for k in kernels}
+
+    # Twins-SVT-S: the attention layer in all 18 layers, with the pair mask
+    # in the 14 of stages 1-3; fused GSA adds the reduced-kv kernel in all 18
+    twins = {fal: 18, fal + "+bias": 14}
+    twins_bwd = {falb: 18, falb + "+bias": 14}
+    twins_gsa, twins_gsa_bwd = {**twins, fa: 18}, {**twins_bwd, fab: 18}
+    pvt, pvt_bwd = depth("PVT-S", fa), depth("PVT-S", fab)
+    phase("4 golden ViT", golden, torch, "ViT-S/16",
+          ((64, depth("ViT-S/16", fal)), (256, depth("ViT-S/16", ftl))))
+    phase("4 golden Swin", golden, torch, "Swin-S",
+          ((64, depth("Swin-S", ftl)), (128, depth("Swin-S", ftl))))
+    phase("4 golden Halo", golden, torch, "Halo-S",
+          ((64, depth("Halo-S", fhl)), (128, depth("Halo-S", fhl))))
+    phase("4 golden PVT fused", golden, torch, "PVT-S", ((64, pvt), (128, pvt)), "fused")
+    phase("4 golden Twins", golden, torch, "Twins-SVT-S", ((64, twins), (128, twins)))
+    phase("4 golden Twins fused", golden, torch, "Twins-SVT-S",
+          ((64, twins_gsa), (128, twins_gsa)), "fused")
+    phase("4b train ViT", train_golden, torch, "ViT-S/16", depth("ViT-S/16", fal, falb))
+    phase("4b train Swin", train_golden, torch, "Swin-S", depth("Swin-S", ftl, ftlb))
+    phase("4b train Halo", train_golden, torch, "Halo-S", depth("Halo-S", fhl, fhlb))
+    phase("4b train Halo direct", train_golden, torch, "Halo-S", depth("Halo-S", had, hadb),
+          "direct")
+    phase("4b train PVT fused", train_golden, torch, "PVT-S", {**pvt, **pvt_bwd}, None,
+          "fused")
+    phase("4b train Twins", train_golden, torch, "Twins-SVT-S", {**twins, **twins_bwd})
+    phase("4b train Twins fused", train_golden, torch, "Twins-SVT-S",
+          {**twins_gsa, **twins_gsa_bwd}, None, "fused")
     halo_dp = ("arch.drop_path=0.1",)
     paths = {
         "ViT-S/16 predict": phase("5 predict ViT", predict_main_path, torch, has_pil,
-                                  "ViT-S/16", ((48, fal), (160, ftl))),
+                                  "ViT-S/16", ((48, depth("ViT-S/16", fal)),
+                                               (160, depth("ViT-S/16", ftl)))),
         "Swin-S predict": phase("5 predict Swin", predict_main_path, torch, has_pil,
-                                "Swin-S", ((48, ftl), (160, ftl))),
+                                "Swin-S", ((48, depth("Swin-S", ftl)),
+                                           (160, depth("Swin-S", ftl)))),
         "Halo-S predict": phase("5 predict Halo", predict_main_path, torch, has_pil,
-                                "Halo-S", ((48, fhl),)),
+                                "Halo-S", ((48, depth("Halo-S", fhl)),)),
+        "PVT-S predict": phase("5 predict PVT fused", predict_main_path, torch, has_pil,
+                               "PVT-S", ((48, pvt),), "fused"),
+        "Twins-SVT-S predict": phase("5 predict Twins", predict_main_path, torch, has_pil,
+                                     "Twins-SVT-S", ((48, twins),)),
         # 4 steps x 12 layers; the valid pass: 2 batches x 12 layers
         "ViT-S/16 train": phase("6 trainer ViT", train_main_path, torch, has_pil,
                                 "ViT-S/16", {fal: 48, falb: 48, ftl: 24}),
@@ -1299,11 +1671,20 @@ def main() -> None:
         "Halo-S train (direct)": phase(
             "6 trainer Halo direct", train_main_path, torch, has_pil, "Halo-S",
             {had: 12 * 4 + 12 * 2, hadb: 12 * 4}, halo_dp, "direct"),
+        # 4 steps (16 forward and 16 backward per step); the valid pass: 2 x 16
+        "PVT-S train (sra fused)": phase(
+            "6 trainer PVT fused", train_main_path, torch, has_pil, "PVT-S",
+            {**scaled_counts(pvt, 4 + 2), **scaled_counts(pvt_bwd, 4)}, (), None, "fused"),
+        # 4 steps x 18 layers, the mask in 14; the valid pass: 2 x 18
+        "Twins-SVT-S train": phase(
+            "6 trainer Twins", train_main_path, torch, has_pil, "Twins-SVT-S",
+            {**scaled_counts(twins, 4 + 2), **scaled_counts(twins_bwd, 4)}, halo_dp),
     }
     trainer_of = {fal: "ViT-S/16 train", falb: "ViT-S/16 train",
                   ftl: "Swin-S train", ftlb: "Swin-S train",
                   fhl: "Halo-S train", fhlb: "Halo-S train",
-                  had: "Halo-S train (direct)", hadb: "Halo-S train (direct)"}
+                  had: "Halo-S train (direct)", hadb: "Halo-S train (direct)",
+                  fa: "PVT-S train (sra fused)", fab: "PVT-S train (sra fused)"}
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": paths[trainer_of[k]][k],

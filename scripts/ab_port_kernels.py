@@ -1,0 +1,97 @@
+#!/usr/bin/env python3
+"""Time the port's whole-layer kernels of one source tree on the GPU, for a
+parent / change comparison run in turns within one call:
+
+    for t in parent . . parent; do python3 scripts/ab_port_kernels.py $t; done
+
+``ROOT`` (default: this checkout) is the tree whose
+``vision_transformers_tpu_torch`` is imported and built (each tree builds
+into its own ``_build/``).  Times, as medians of 20 CUDA-event timings
+after 3 warm-up calls: B1 ``fused_attention_layer`` forward with saves and
+backward at ViT-S B=128 with a row scale; B2 ``fused_transformer_layer``
+forward with saves and backward at Swin-S stage 3 at 64 images (128 rows of
+98 tokens, C 384, 12 heads of 32, the grouped bias of 2 groups, both row
+scales); B4 ``fused_halo_layer`` the same at Halo-S stage 1 at 128 images
+(64x64 map, C 96, 3 heads, window 8, halo 2).  Prints the card and one
+JSON line.  Needs CUDA; imports no JAX.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+
+def main() -> None:
+    root = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else
+                           os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    if not torch.cuda.is_available():
+        raise SystemExit("needs CUDA")
+    sys.path.insert(0, root)
+    from vision_transformers_tpu_torch.ops import _build
+    from vision_transformers_tpu_torch.ops import fused_halo_layer as fhl
+    from vision_transformers_tpu_torch.ops import fused_layer as fl
+    from vision_transformers_tpu_torch.ops import fused_layer1 as fl1
+
+    if not _build.__file__.startswith(root):
+        raise SystemExit(f"imported {_build.__file__}, not the tree under {root}")
+    _build.build()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip().splitlines()[0]
+
+    def ms(fn, reps=20):
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(reps):
+            start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return float(np.median(times))
+
+    def args(B, N, C, H, D, F):
+        g = torch.Generator("cuda").manual_seed(0)
+
+        def n(*shape, s=1.0, m=0.0):
+            return m + s * torch.randn(*shape, device="cuda", generator=g)
+
+        HD = H * D
+        return [n(B, N, C), n(C, s=0.1, m=1.0), n(C, s=0.1), n(3 * HD, C, s=0.05).t(),
+                n(3 * HD, s=0.1), n(C, HD, s=0.05).t(), n(C, s=0.1), n(C, s=0.1, m=1.0),
+                n(C, s=0.1), n(F, C, s=0.05).t(), n(F, s=0.1), n(C, F, s=0.05).t(),
+                n(C, s=0.1)]
+
+    out = {}
+    r = torch.ones(128, device="cuda")
+    a = args(128, 197, 384, 6, 64, 1536)
+    dz = torch.randn(128, 197, 384, device="cuda")
+    _, saved = fl.fused_attention_layer_fwd(*a[:7], 6, row_scale=r)
+    out["B1 ViT fwd"] = ms(lambda: fl.fused_attention_layer_fwd(*a[:7], 6, row_scale=r))
+    out["B1 ViT bwd"] = ms(lambda: fl.fused_attention_layer_bwd(saved, dz))
+    a = args(128, 98, 384, 12, 32, 1536)
+    extra = 0.2 * torch.randn(2, 12, 98, 98, device="cuda")
+    dz = torch.randn(128, 98, 384, device="cuda")
+    _, saved = fl1.fused_transformer_layer_fwd(*a, 12, extra, r, r)
+    out["B2 Swin3 fwd"] = ms(lambda: fl1.fused_transformer_layer_fwd(*a, 12, extra, r, r))
+    out["B2 Swin3 bwd"] = ms(lambda: fl1.fused_transformer_layer_bwd(saved, dz))
+    a = args(128, 64 * 64, 96, 3, 32, 384)
+    ha = [a[0].reshape(128, 64, 64, 96), *a[1:4], *a[5:],
+          0.2 * torch.randn(3, 64, 144, device="cuda")]
+    dz = torch.randn(128, 64, 64, 96, device="cuda")
+    _, saved = fhl.fused_halo_layer_fwd(*ha, 3, r, r, window=8, halo=2)
+    out["B4 Halo1 fwd"] = ms(lambda: fhl.fused_halo_layer_fwd(*ha, 3, r, r, window=8, halo=2))
+    out["B4 Halo1 bwd"] = ms(lambda: fhl.fused_halo_layer_bwd(saved, dz))
+    print(card)
+    print(json.dumps({"tree": sys.argv[1] if len(sys.argv) > 1 else ".", **out}))
+
+
+if __name__ == "__main__":
+    main()

@@ -23,6 +23,13 @@ CONF = os.path.join(ROOT, "configs", "vit-s-16.conf")
 N_IMAGES = 2
 
 
+def image_size(conf) -> int:
+    """The model's image size, or the conf's eval size for a model that has
+    none (Twins-SVT)."""
+    size = getattr(conf.arch, "image_size", None) or conf.training.valid_size
+    return size if isinstance(size, int) else size[0]
+
+
 def jax_logits(seed: int, conf: str = CONF) -> np.ndarray:
     """The JAX package's logits for the seeded weights and images of the
     model in ``conf``."""
@@ -38,10 +45,11 @@ def jax_logits(seed: int, conf: str = CONF) -> np.ndarray:
     from vision_transformers_tpu_torch.utils.weights import (seeded_images,
                                                              seeded_state_dict)
 
-    arch = load_config(conf).arch
+    full = load_config(conf)
+    arch = full.arch
     sd = seeded_state_dict(port_load_config(conf).arch, seed)
-    variables = convert_variables(arch, sd)
-    size = arch.image_size if isinstance(arch.image_size, int) else arch.image_size[0]
+    size = image_size(full)
+    variables = convert_variables(arch, sd, size)
     images = seeded_images(seed, N_IMAGES, size)
     model = arch.make()  # f32, as predict.py
 

@@ -26,6 +26,13 @@ CONF = os.path.join(ROOT, "configs", "vit-s-16.conf")
 N_IMAGES = 2
 
 
+def image_size(conf) -> int:
+    """The model's image size, or the conf's training size for a model that
+    has none (Twins-SVT)."""
+    size = getattr(conf.arch, "image_size", None) or conf.training.train_size
+    return size if isinstance(size, int) else size[0]
+
+
 def jax_train_grads(seed: int, conf: str = CONF) -> dict:
     """{"loss", "grad_norm", "keys", "norms", "projections"} from the JAX
     package for the seeded weights and batch of the model in ``conf``."""
@@ -43,9 +50,11 @@ def jax_train_grads(seed: int, conf: str = CONF) -> dict:
                                                              seeded_train_batch,
                                                              state_dict_from_flax)
 
-    arch = load_config(conf).arch
-    params = convert_variables(arch, seeded_state_dict(port_load_config(conf).arch, seed))["params"]
-    size = arch.image_size if isinstance(arch.image_size, int) else arch.image_size[0]
+    full = load_config(conf)
+    arch = full.arch
+    size = image_size(full)
+    params = convert_variables(arch, seeded_state_dict(port_load_config(conf).arch, seed),
+                               size)["params"]
     batch = seeded_train_batch(seed, N_IMAGES, size, arch.n_class)
     model = arch.make(drop_path=0.0)  # f32
 

@@ -11,7 +11,8 @@ hand-written kernels, cuBLAS, the rest), the device's busy share of the wall
 time, and one JSON line.
 
     python3 scripts/profile_port_train.py [--conf configs/vit-s-16.conf] [--rows 128]
-        [--steps 5] [--trace out.json] [key=value conf overrides ...]
+        [--steps 5] [--trace out.json] [--halo-impl ...] [--sra-impl einsum|fused]
+        [key=value conf overrides ...]
 
 ViT-S/16 at ``--rows`` ≥ 32 takes the fused attention layer (forward and
 backward kernels); Swin-S (``--conf configs/swin-transformer-s.conf``, two
@@ -19,7 +20,12 @@ backward kernels); Swin-S (``--conf configs/swin-transformer-s.conf``, two
 backward; Halo-S (``--conf tests/data/halo_s_port.conf``, 128 images at
 256 px) the whole Halo layer's (``arch.drop_path=0.1`` as chip_smoke.py's
 trainer run; ``--halo-impl direct`` the halo attention's between torch
-projections).  Needs CUDA; imports no JAX.
+projections); PVT-S (``--conf tests/data/pvt_s_port.conf``) and Twins-SVT-S
+(``--conf tests/data/twins_svt_s_port.conf arch.drop_path=0.1``) at 224 px,
+their reduced-kv attention on the plain ``einsum`` default or, with
+``--sra-impl fused``, on the hand-written kernel (Twins' local attention
+takes the attention layer with the pair mask either way).  Needs CUDA;
+imports no JAX.
 """
 
 import argparse
@@ -34,9 +40,13 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONF = os.path.join(ROOT, "configs", "vit-s-16.conf")
 
-# kernel-name substring → layer, first match wins
-GROUPS = (("gemm_kernel<true>", "hand-written GEMM, split-K (weight gradients)"),
+# kernel-name substring → layer, first match wins (PyTorch's own kernels
+# first: some share a name part with the hand-written ones, e.g. silu)
+GROUPS = (("at::native", "other (elementwise, reductions, conv)"),
+          ("gemm_kernel<true>", "hand-written GEMM, split-K (weight gradients)"),
           ("gemm_kernel", "hand-written GEMM, row-major"),
+          ("mha_bwd", "hand-written reduced-kv attention backward"),
+          ("mha_fwd", "hand-written reduced-kv attention forward"),
           ("halo_attn_bwd", "hand-written halo attention backward"),
           ("halo_attn_fwd", "hand-written halo attention forward"),
           ("halo_fold", "other hand-written"),
@@ -66,6 +76,9 @@ def main() -> None:
     parser.add_argument("--trace", default=None, help="write a chrome trace here")
     parser.add_argument("--halo-impl", default=None, choices=("layer", "direct", "einsum"),
                         help="force a Halo path (default: the dispatch's)")
+    parser.add_argument("--sra-impl", default=None, choices=("einsum", "fused"),
+                        help="force the reduced-kv path of PVT / Twins (default: the "
+                             "dispatch's, einsum)")
     parser.add_argument("overrides", nargs="*", help="key=value conf overrides")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -80,6 +93,7 @@ def main() -> None:
     from vision_transformers_tpu_torch.utils.weights import seeded_state_dict, to_torch
 
     ops.set_halo_impl(args.halo_impl)
+    ops.set_sra_impl(args.sra_impl)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -93,7 +107,8 @@ def main() -> None:
     state = engine.create_train_state(
         model, make_optimizer(training, model, lambda c: 1e-4), ema=training.ema)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    size = arch.image_size if isinstance(arch.image_size, int) else arch.image_size[0]
+    size = getattr(arch, "image_size", None) or training.train_size  # Twins has none
+    size = size if isinstance(size, int) else size[0]
     batch = to_device(next(SyntheticDataset(args.rows, size, arch.n_class,
                                             seed=args.seed).batches(args.rows)), "cuda")
 
@@ -128,7 +143,8 @@ def main() -> None:
         groups[group(name)] = groups.get(group(name), 0.0) + ms
     print(card)
     print(f"{arch.type} {os.path.basename(args.conf)} {' '.join(args.overrides)} "
-          f"{'halo path ' + args.halo_impl + ' ' if args.halo_impl else ''}f32 "
+          f"{'halo path ' + args.halo_impl + ' ' if args.halo_impl else ''}"
+          f"{'sra path ' + args.sra_impl + ' ' if args.sra_impl else ''}f32 "
           f"train step, {args.rows} rows "
           f"(grad_accumulation {training.grad_accumulation}), {args.steps} profiled "
           f"steps: wall {wall * 1e3:.3f} ms ({args.rows / wall:.1f} images/s), "
@@ -138,7 +154,7 @@ def main() -> None:
     for name, calls, ms in rows[:25]:
         print(f"  {ms:9.3f} ms  {ms / busy:6.1%}  x{calls:<4d} {name[:90]}")
     print(json.dumps({"conf": os.path.basename(args.conf), "overrides": args.overrides,
-                      "halo_impl": args.halo_impl,
+                      "halo_impl": args.halo_impl, "sra_impl": args.sra_impl,
                       "rows": args.rows,
                       "wall_ms": wall * 1e3, "device_ms": busy,
                       "device_busy_share": busy / (wall * 1e3), "groups": groups,

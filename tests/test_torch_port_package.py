@@ -29,9 +29,12 @@ def test_import_pulls_in_no_jax():
         "import sys\n"
         "import vision_transformers_tpu_torch\n"
         "import vision_transformers_tpu_torch.models.halo\n"
+        "import vision_transformers_tpu_torch.models.pvt\n"
         "import vision_transformers_tpu_torch.models.swin\n"
+        "import vision_transformers_tpu_torch.models.twins\n"
         "import vision_transformers_tpu_torch.models.vit\n"
         "import vision_transformers_tpu_torch.ops\n"
+        "import vision_transformers_tpu_torch.ops.fused_attention\n"
         "import vision_transformers_tpu_torch.ops._build\n"
         "import vision_transformers_tpu_torch.predict\n"
         "import vision_transformers_tpu_torch.utils.weights\n"
@@ -80,6 +83,8 @@ def test_port_reads_nothing_of_the_jax_package():
     assert "vision_transformers_tpu_torch.config.hocon" in result["modules"]
     assert "vision_transformers_tpu_torch.train.trainer" in result["modules"]
     assert "vision_transformers_tpu_torch.models.swin" in result["modules"]
+    assert "vision_transformers_tpu_torch.models.twins" in result["modules"]
+    assert "vision_transformers_tpu_torch.ops.fused_attention" in result["modules"]
     assert result["seen"] == [], result["seen"]
 
 
@@ -147,8 +152,9 @@ def test_bad_conf_raises(override, error):
 
 
 def test_unknown_type_lists_registered():
-    with pytest.raises(KeyError, match="registered: halo_transformer, swin_transformer, vit"):
-        registry.build("model", {"type": "pvt"})
+    with pytest.raises(KeyError, match="registered: halo_transformer, pvt, swin_transformer, "
+                                       "twins_svt, vit"):
+        registry.build("model", {"type": "nfnet"})
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -242,8 +248,10 @@ def test_cuda_refuses_what_the_kernel_does_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
     a = _layer_args(2, 17, 32, 2, 16, 64, "cuda")
+    wide = _layer_args(2, 17, 64, 1, 64, 128, "cuda")  # a bias takes heads up to 32 wide
     with pytest.raises(NotImplementedError):
-        fused_layer.fused_attention_layer(*a[:7], 2, extra=torch.zeros(2, 17, 17, device="cuda"))
+        fused_layer.fused_attention_layer(*wide[:7], 1,
+                                          extra=torch.zeros(1, 17, 17, device="cuda"))
     with pytest.raises(NotImplementedError):
         fused_layer1.fused_transformer_layer(*a, 2, activation="gelu")
     with pytest.raises(NotImplementedError):

@@ -412,6 +412,124 @@ attn_delta_kernel(const float* __restrict__ dacc, const float* __restrict__ acc,
   delta[i] = s;
 }
 
+// ---------------------------------------------------------------------------
+// Attention pieces shared by the attention kernels of fused_layer.cu,
+// fused_layer_bwd.cu, fused_halo.cu and fused_attention.cu.  Each kernel
+// holds one query (or one key) per thread with its vectors zero-padded to
+// DH and stages the other side, a tile of KT rows, in shared memory; these
+// are the per-thread steps, so each kernel keeps only its own addressing
+// (packed qkv rows, halo neighbourhoods, strided [B, G, rows, D] operands).
+// ---------------------------------------------------------------------------
+
+// One key tile of the forward's online softmax for the thread's query q:
+// s_j = q·k_j·scale (+ e[j] with HAS_BIAS) for the first n_valid of the KT
+// staged keys, −inf past them; the running max m, sum l and unnormalised
+// output o are rescaled to the new max and take the tile.  Every tile holds
+// at least one valid key, so the new max is finite (alpha is 0 on the first
+// tile, where m is −inf).
+template <int DH, int KT, bool HAS_BIAS>
+__device__ __forceinline__ void softmax_tile_update(
+    const float (&q)[DH], const float (*Ks)[DH], const float (*Vs)[DH],
+    const float* e, int n_valid, float scale, float& m, float& l, float (&o)[DH]) {
+  float s[KT];
+  float tile_max = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < KT; ++j) {
+    float dot = 0.f;
+#pragma unroll
+    for (int d = 0; d < DH; ++d) dot = fmaf(q[d], Ks[j][d], dot);
+    if (HAS_BIAS)
+      s[j] = j < n_valid ? dot * scale + e[j] : -INFINITY;
+    else
+      s[j] = j < n_valid ? dot * scale : -INFINITY;
+    tile_max = fmaxf(tile_max, s[j]);
+  }
+  const float m_new = fmaxf(m, tile_max);
+  const float alpha = expf(m - m_new);
+  l *= alpha;
+#pragma unroll
+  for (int d = 0; d < DH; ++d) o[d] *= alpha;
+#pragma unroll
+  for (int j = 0; j < KT; ++j) {
+    const float p = expf(s[j] - m_new);  // 0 past the valid keys
+    l += p;
+#pragma unroll
+    for (int d = 0; d < DH; ++d) o[d] = fmaf(p, Vs[j][d], o[d]);
+  }
+  m = m_new;
+}
+
+// Key-thread backward pass (dk / dv), first of its two d-outer passes: for
+// the BQ staged queries, p[i] = q_i·k and dp[i] = do_i·v, with k, v the
+// thread's rows (k[d], v[d] read once per d; nothing else stays live).
+template <int DH, int BQ>
+__device__ __forceinline__ void key_thread_dots(
+    const float (*Qs)[DH], const float (*dOs)[DH], const float* k, const float* v,
+    float (&p)[BQ], float (&dp)[BQ]) {
+#pragma unroll
+  for (int i = 0; i < BQ; ++i) p[i] = dp[i] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < DH; ++d) {
+    const float kd = k[d], vd = v[d];
+#pragma unroll
+    for (int i = 0; i < BQ; ++i) {
+      p[i] = fmaf(Qs[i][d], kd, p[i]);     // the score q_i·k
+      dp[i] = fmaf(dOs[i][d], vd, dp[i]);  // do_i·v
+    }
+  }
+}
+
+// ... and its second: dv += Σ_i p_i·do_i, dk += Σ_i ds_i·q_i
+template <int DH, int BQ>
+__device__ __forceinline__ void key_thread_accumulate(
+    const float (*Qs)[DH], const float (*dOs)[DH], const float (&p)[BQ],
+    const float (&ds)[BQ], float (&dk)[DH], float (&dv)[DH]) {
+#pragma unroll
+  for (int d = 0; d < DH; ++d) {
+    float v_acc = dv[d], k_acc = dk[d];
+#pragma unroll
+    for (int i = 0; i < BQ; ++i) {
+      v_acc = fmaf(p[i], dOs[i][d], v_acc);
+      k_acc = fmaf(ds[i], Qs[i][d], k_acc);
+    }
+    dv[d] = v_acc;
+    dk[d] = k_acc;
+  }
+}
+
+// Query-thread backward pass (dq), first of its two d-outer passes: for the
+// KT staged keys, p[j] = q·k_j and dp[j] = do·v_j, with q, do the thread's
+// rows
+template <int DH, int KT>
+__device__ __forceinline__ void query_thread_dots(
+    const float* q, const float* dO, const float (*Ks)[DH], const float (*Vs)[DH],
+    float (&p)[KT], float (&dp)[KT]) {
+#pragma unroll
+  for (int j = 0; j < KT; ++j) p[j] = dp[j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < DH; ++d) {
+    const float qd = q[d], dod = dO[d];
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+      p[j] = fmaf(qd, Ks[j][d], p[j]);     // the score q·k_j
+      dp[j] = fmaf(dod, Vs[j][d], dp[j]);  // do·v_j
+    }
+  }
+}
+
+// ... and its second: dq += Σ_j ds_j·k_j
+template <int DH, int KT>
+__device__ __forceinline__ void query_thread_accumulate(
+    const float (*Ks)[DH], const float (&ds)[KT], float (&dq)[DH]) {
+#pragma unroll
+  for (int d = 0; d < DH; ++d) {
+    float acc = dq[d];
+#pragma unroll
+    for (int j = 0; j < KT; ++j) acc = fmaf(ds[j], Ks[j][d], acc);
+    dq[d] = acc;
+  }
+}
+
 }  // namespace
 
 // Host-side launch sequences shared between the sources; rows_per_scale is

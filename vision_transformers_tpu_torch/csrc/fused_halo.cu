@@ -150,31 +150,7 @@ halo_attn_fwd_kernel(const float* __restrict__ q, int qs, const float* __restric
       Es[i][jj] = (i < nq && j0 + jj < nk) ? bh[(long long)i * nk + j0 + jj] : 0.f;
     }
     __syncthreads();
-
-    float s[HKV];
-    float tile_max = -INFINITY;
-#pragma unroll
-    for (int jj = 0; jj < HKV; ++jj) {
-      float dot = 0.f;
-#pragma unroll
-      for (int d = 0; d < HDH; ++d) dot = fmaf(qr[d], Ks[jj][d], dot);
-      s[jj] = (j0 + jj < nk) ? dot * scale + Es[t][jj] : -INFINITY;
-      tile_max = fmaxf(tile_max, s[jj]);
-    }
-    // every tile holds at least one position, so m_new is finite
-    const float m_new = fmaxf(m, tile_max);
-    const float alpha = expf(m - m_new);  // 0 on the first tile
-    l *= alpha;
-#pragma unroll
-    for (int d = 0; d < HDH; ++d) o[d] *= alpha;
-#pragma unroll
-    for (int jj = 0; jj < HKV; ++jj) {
-      const float p = expf(s[jj] - m_new);  // 0 past the neighbourhood
-      l += p;
-#pragma unroll
-      for (int d = 0; d < HDH; ++d) o[d] = fmaf(p, Vs[jj][d], o[d]);
-    }
-    m = m_new;
+    softmax_tile_update<HDH, HKV, true>(qr, Ks, Vs, Es[t], nk - j0, scale, m, l, o);
     __syncthreads();
   }
 
@@ -258,18 +234,8 @@ halo_attn_bwd_dkdv_kernel(const float* __restrict__ q, int qs,
         Ds[t] = ok ? delta[r] : 0.f;
       }
       __syncthreads();
-      float p[HBQ], ds[HBQ];
-#pragma unroll
-      for (int i = 0; i < HBQ; ++i) p[i] = ds[i] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < HDH; ++d) {
-        const float kd = Ks[t][d], vd = Vs[t][d];
-#pragma unroll
-        for (int i = 0; i < HBQ; ++i) {
-          p[i] = fmaf(Qs[i][d], kd, p[i]);     // the score q_i·k
-          ds[i] = fmaf(dOs[i][d], vd, ds[i]);  // do_i·v
-        }
-      }
+      float p[HBQ], ds[HBQ];  // the scores and do·v, then p and dS
+      key_thread_dots<HDH, HBQ>(Qs, dOs, Ks[t], Vs[t], p, ds);
 #pragma unroll
       for (int i = 0; i < HBQ; ++i) {
         const bool ok = q0 + i < nq && key;
@@ -278,17 +244,7 @@ halo_attn_bwd_dkdv_kernel(const float* __restrict__ q, int qs,
         ds[i] = p[i] * (ds[i] - Ds[i]);
         if (q0 + i < nq) Bacc[q0 + i][t] += ds[i];
       }
-#pragma unroll
-      for (int d = 0; d < HDH; ++d) {
-        float v_acc = dv[d], k_acc = dk[d];
-#pragma unroll
-        for (int i = 0; i < HBQ; ++i) {
-          v_acc = fmaf(p[i], dOs[i][d], v_acc);
-          k_acc = fmaf(ds[i], Qs[i][d], k_acc);
-        }
-        dv[d] = v_acc;
-        dk[d] = k_acc;
-      }
+      key_thread_accumulate<HDH, HBQ>(Qs, dOs, p, ds, dk, dv);
     }
 
     // a key outside the map is a zero, not a function of x: dropped
@@ -366,30 +322,14 @@ halo_attn_bwd_dq_kernel(const float* __restrict__ q, int qs,
       Es[i][jj] = (i < nq && j0 + jj < nk) ? bh[(long long)i * nk + j0 + jj] : 0.f;
     }
     __syncthreads();
-    float p[HKV], ds[HKV];
-#pragma unroll
-    for (int jj = 0; jj < HKV; ++jj) p[jj] = ds[jj] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HDH; ++d) {
-      const float qd = Qs[t][d], dod = dOs[t][d];
-#pragma unroll
-      for (int jj = 0; jj < HKV; ++jj) {
-        p[jj] = fmaf(qd, Ks[jj][d], p[jj]);     // the score q·k_j
-        ds[jj] = fmaf(dod, Vs[jj][d], ds[jj]);  // do·v_j
-      }
-    }
+    float p[HKV], ds[HKV];  // the scores and do·v, then p and dS
+    query_thread_dots<HDH, HKV>(Qs[t], dOs[t], Ks, Vs, p, ds);
 #pragma unroll
     for (int jj = 0; jj < HKV; ++jj) {
       p[jj] = (active && j0 + jj < nk) ? expf(p[jj] * scale + Es[t][jj] - l) : 0.f;
       ds[jj] = p[jj] * (ds[jj] - dl);
     }
-#pragma unroll
-    for (int d = 0; d < HDH; ++d) {
-      float acc = dqa[d];
-#pragma unroll
-      for (int jj = 0; jj < HKV; ++jj) acc = fmaf(ds[jj], Ks[jj][d], acc);
-      dqa[d] = acc;
-    }
+    query_thread_accumulate<HDH, HKV>(Ks, ds, dqa);
   }
 
   if (active) {

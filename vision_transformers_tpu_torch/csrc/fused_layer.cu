@@ -16,8 +16,10 @@
 // of discarding it: qkv, the attention output acc, the LN statistics
 // mu / rstd and the softmax log-sum-exp lse [B, H, N] (the JAX kernel's
 // "acc+qkv" save, fused_layer.py:404-419, plus what recomputing u and p
-// needs).  r is the optional per-sample DropPath scale [B].  The whole
-// layer's training forward (fused_layer1.py:526's "z+acc+qkv" save) keeps
+// needs).  r is the optional per-sample DropPath scale [B]; the attention
+// half takes an optional additive bias [G, H, N, N] as the whole layer does
+// (Twins' block mask of a packed window pair, G = 1).  The whole layer's
+// training forward (fused_layer1.py:526's "z+acc+qkv" save) keeps
 // the same plus z, the LN₂ statistics and the FF pre-activation hid, which
 // its backward (fused_layer1_bwd.cu) reads; it takes both row scales
 // (r₁ = rs_attn, r₂ = rs_ff) and Swin's grouped attention bias extra
@@ -106,34 +108,8 @@ attention_kernel(const float* __restrict__ qkv, const float* __restrict__ extra,
       }
     }
     __syncthreads();
-
-    float s[AKV];
-    float tile_max = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < AKV; ++j) {
-      float dot = 0.f;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) dot = fmaf(q[d], Ks[j][d], dot);
-      if (HAS_EXTRA)
-        s[j] = (k0 + j < N) ? dot * scale + Es[threadIdx.x][j] : -INFINITY;
-      else
-        s[j] = (k0 + j < N) ? dot * scale : -INFINITY;
-      tile_max = fmaxf(tile_max, s[j]);
-    }
-    // every tile holds at least one real key, so m_new is finite
-    const float m_new = fmaxf(m, tile_max);
-    const float alpha = expf(m - m_new);  // 0 on the first tile
-    l *= alpha;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) o[d] *= alpha;
-#pragma unroll
-    for (int j = 0; j < AKV; ++j) {
-      const float p = expf(s[j] - m_new);  // 0 for padded keys
-      l += p;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) o[d] = fmaf(p, Vs[j][d], o[d]);
-    }
-    m = m_new;
+    softmax_tile_update<DH, AKV, HAS_EXTRA>(q, Ks, Vs, Es[HAS_EXTRA ? threadIdx.x : 0],
+                                            N - k0, scale, m, l, o);
     __syncthreads();
   }
 
@@ -243,18 +219,19 @@ cudaError_t vtx::ff_half_fwd(
 }
 
 // The C entry points return the first cudaError_t met (0 = success).
-// rs, mu, rstd and lse may be null: the serving forward passes none of them.
+// extra [G, H, N, N] (groups = G; heads up to 32 wide), rs, mu, rstd and lse
+// may be null: the serving forward passes none of the last four.
 
 extern "C" int vtx_fused_attention_layer_fwd(
     const float* x, const float* ln_g, const float* ln_b,
     const float* wqkv, long long wqkv_s0, long long wqkv_s1, const float* bqkv,
     const float* wout, long long wout_s0, long long wout_s1, const float* bout,
-    const float* rs, float* u, float* qkv, float* acc, float* mu, float* rstd,
-    float* lse, float* out, int B, int N, int C, int H, int D, float scale,
-    float eps, void* stream) {
+    const float* extra, int groups, const float* rs, float* u, float* qkv,
+    float* acc, float* mu, float* rstd, float* lse, float* out, int B, int N, int C,
+    int H, int D, float scale, float eps, void* stream) {
   return static_cast<int>(attention_half(
       x, ln_g, ln_b, wqkv, wqkv_s0, wqkv_s1, bqkv, wout, wout_s0, wout_s1, bout,
-      nullptr, 1, rs, u, qkv, acc, mu, rstd, lse, out, B, N, C, H, D, scale, eps,
+      extra, groups, rs, u, qkv, acc, mu, rstd, lse, out, B, N, C, H, D, scale, eps,
       static_cast<cudaStream_t>(stream)));
 }
 

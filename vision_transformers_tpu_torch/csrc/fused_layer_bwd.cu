@@ -22,11 +22,13 @@
 //      p = exp(q·kᵀ·s − lse) and accumulates dv += pᵀ·do, dk += dsᵀ·q·s with
 //      ds = p ⊙ (do·vᵀ − Δ); a query-tile pass accumulates dq += ds·k·s.
 //      Both write dqkv [M, 3HD] (q-heads | k-heads | v-heads).  With the
-//      grouped additive bias extra [G, H, N, N] of the whole layer's
-//      backward (fused_layer1_bwd.cu), p = exp(q·kᵀ·s + extra[g] − lse),
-//      the key-tile pass also stores ds [B, H, N, N], and dextra[g] is the
-//      sum of ds over the group's rows in row order (3d): the Pallas
-//      kernel's `dextra_ref[0, h] += ds` over its sequential grid.
+//      grouped additive bias extra [G, H, N, N] (Swin's in the whole
+//      layer's backward, fused_layer1_bwd.cu; Twins' pair mask in this
+//      entry's), p = exp(q·kᵀ·s + extra[g] − lse), and where the bias needs
+//      a gradient the key-tile pass also stores ds [B, H, N, N] and
+//      dextra[g] is the sum of ds over the group's rows in row order (3d):
+//      the Pallas kernel's `dextra_ref[0, h] += ds` over its sequential
+//      grid.
 //   4. u = LN(x) recomputed from x, mu, rstd;  dwqkv = uᵀ·dqkv;
 //      dbqkv = Σ_rows dqkv
 //   5. dln = dqkv·wqkvᵀ
@@ -136,18 +138,8 @@ attn_bwd_dkdv_kernel(const float* __restrict__ qkv, const float* __restrict__ da
       Ds[t] = ok ? delbase[q0 + t] : 0.f;
     }
     __syncthreads();
-    float p[BQ], ds[BQ];
-#pragma unroll
-    for (int i = 0; i < BQ; ++i) p[i] = ds[i] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DH; ++d) {
-      const float kd = Ks[t][d], vd = Vs[t][d];
-#pragma unroll
-      for (int i = 0; i < BQ; ++i) {
-        p[i] = fmaf(Qs[i][d], kd, p[i]);     // the score q_i·k
-        ds[i] = fmaf(dOs[i][d], vd, ds[i]);  // do_i·v
-      }
-    }
+    float p[BQ], ds[BQ];  // the scores and do·v, then p and dS
+    key_thread_dots<DH, BQ>(Qs, dOs, Ks[t], Vs[t], p, ds);
 #pragma unroll
     for (int i = 0; i < BQ; ++i) {
       if (HAS_EXTRA) {
@@ -161,17 +153,7 @@ attn_bwd_dkdv_kernel(const float* __restrict__ qkv, const float* __restrict__ da
         ds[i] = p[i] * (ds[i] - Ds[i]);
       }
     }
-#pragma unroll
-    for (int d = 0; d < DH; ++d) {
-      float v_acc = dv[d], k_acc = dk[d];
-#pragma unroll
-      for (int i = 0; i < BQ; ++i) {
-        v_acc = fmaf(p[i], dOs[i][d], v_acc);
-        k_acc = fmaf(ds[i], Qs[i][d], k_acc);
-      }
-      dv[d] = v_acc;
-      dk[d] = k_acc;
-    }
+    key_thread_accumulate<DH, BQ>(Qs, dOs, p, ds, dk, dv);
   }
 
   if (kj < N) {
@@ -249,18 +231,8 @@ attn_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ dacc
       }
     }
     __syncthreads();
-    float p[BKV], ds[BKV];
-#pragma unroll
-    for (int j = 0; j < BKV; ++j) p[j] = ds[j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DH; ++d) {
-      const float qd = Qs[t][d], dod = dOs[t][d];
-#pragma unroll
-      for (int j = 0; j < BKV; ++j) {
-        p[j] = fmaf(qd, Ks[j][d], p[j]);     // the score q·k_j
-        ds[j] = fmaf(dod, Vs[j][d], ds[j]);  // do·v_j
-      }
-    }
+    float p[BKV], ds[BKV];  // the scores and do·v, then p and dS
+    query_thread_dots<DH, BKV>(Qs[t], dOs[t], Ks, Vs, p, ds);
 #pragma unroll
     for (int j = 0; j < BKV; ++j) {
       if (HAS_EXTRA)
@@ -269,13 +241,7 @@ attn_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ dacc
         p[j] = (k0 + j < N) ? expf(p[j] * scale - l) : 0.f;
       ds[j] = p[j] * (ds[j] - dl);
     }
-#pragma unroll
-    for (int d = 0; d < DH; ++d) {
-      float acc = dq[d];
-#pragma unroll
-      for (int j = 0; j < BKV; ++j) acc = fmaf(ds[j], Ks[j][d], acc);
-      dq[d] = acc;
-    }
+    query_thread_accumulate<DH, BKV>(Ks, ds, dq);
   }
 
   if (qi < N) {
@@ -431,27 +397,31 @@ cudaError_t vtx::attention_half_bwd(
 
 // Returns the first cudaError_t met (0 = success).  Workspace, all
 // allocated by the caller: da [M, C] (used only with rs), dacc [M, HD],
-// delta [B·H·N], dqkv [M, 3HD], u [M, C], dln [M, C],
-// wpart [max(splits_out·HD·C, splits_qkv·C·3HD)],
+// delta [B·H·N], dqkv [M, 3HD], u [M, C], dln [M, C], dsbuf [B, H, N, N]
+// (used only with dextra), wpart [max(splits_out·HD·C, splits_qkv·C·3HD)],
 // cpart [ceil(M / 128) · max(C, 3HD)].  dwqkv / dwout are written through
 // their (row, col) strides, so they may share the layout of the weight view
-// the forward read; bqkv / bout / rs / dbqkv / dbout / drs may be null.
+// the forward read; bqkv / bout / rs / dbqkv / dbout / drs may be null, and
+// so may extra [G, H, N, N] (groups = G; heads up to 32 wide) and its
+// gradient dextra [G, H, N, N] (null when the bias needs none).
 extern "C" int vtx_fused_attention_layer_bwd(
     const float* x, const float* ln_g, const float* ln_b,
     const float* wqkv, long long wqkv_s0, long long wqkv_s1, const float* bqkv,
     const float* wout, long long wout_s0, long long wout_s1, const float* bout,
+    const float* extra, int groups,
     const float* rs, const float* qkv, const float* acc, const float* mu,
     const float* rstd, const float* lse, const float* dz,
     float* da, float* dacc, float* delta, float* dqkv, float* u, float* dln,
-    float* wpart, int splits_out, int splits_qkv, float* cpart,
+    float* dsbuf, float* wpart, int splits_out, int splits_qkv, float* cpart,
     float* dx, float* dg, float* db,
     float* dwqkv, long long dwqkv_s0, long long dwqkv_s1, float* dbqkv,
     float* dwout, long long dwout_s0, long long dwout_s1, float* dbout,
-    float* drs, int B, int N, int C, int H, int D, float scale, void* stream) {
+    float* drs, float* dextra, int B, int N, int C, int H, int D, float scale,
+    void* stream) {
   return static_cast<int>(vtx::attention_half_bwd(
       x, ln_g, ln_b, wqkv, wqkv_s0, wqkv_s1, bqkv, wout, wout_s0, wout_s1, bout,
-      rs, nullptr, 1, qkv, acc, mu, rstd, lse, dz, da, dacc, delta, dqkv, u, dln,
-      nullptr, wpart, splits_out, splits_qkv, cpart, dx, dg, db, dwqkv, dwqkv_s0,
-      dwqkv_s1, dbqkv, dwout, dwout_s0, dwout_s1, dbout, drs, nullptr, B, N, C, H,
+      rs, extra, groups, qkv, acc, mu, rstd, lse, dz, da, dacc, delta, dqkv, u, dln,
+      dsbuf, wpart, splits_out, splits_qkv, cpart, dx, dg, db, dwqkv, dwqkv_s0,
+      dwqkv_s1, dbqkv, dwout, dwout_s0, dwout_s1, dbout, drs, dextra, B, N, C, H,
       D, scale, static_cast<cudaStream_t>(stream)));
 }

@@ -22,8 +22,7 @@ the pair at −1e9, JAX swin.py:180-206).  Each layer dispatches through
   order with the grouped bias [G, H, m, m] (relative-position bias + shift
   mask) and both DropPath scales tiled over the groups (swin.py:239-276);
 - ``layer`` (forced only): the attention-half op with the same bias, the
-  FF half in plain torch — on the CPU; its CUDA entry points do not take
-  the bias yet and raise;
+  FF half in plain torch;
 - ``einsum``: plain torch on the packed windows (swin.py:302-330).
 
 Reference quirks reproduced: ``shift = i % 2 == 0`` (the first layer of each

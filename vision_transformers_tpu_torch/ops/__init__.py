@@ -1,12 +1,14 @@
 """Hand-written CUDA kernels and the attention dispatch.
 
-Counterpart of ``vision_transformers_tpu/ops/__init__.py``.  Two kernels
-are ported (float32), each beside its plain torch version, each forward and
-backward inside a ``torch.autograd.Function``:
+Counterpart of ``vision_transformers_tpu/ops/__init__.py``.  Each kernel
+(float32) sits beside its plain torch version, forward and backward inside
+a ``torch.autograd.Function``.  Two take the attention dispatch of
+:func:`attention_impl`:
 
 - ``layer``:  :func:`fused_attention_layer` (ops/fused_layer.py) — the
-  pre-LN attention residual branch; the FF half stays plain torch.  ViT's
-  training path (32+ rows).
+  pre-LN attention residual branch, with an optional additive bias; the FF
+  half stays plain torch.  ViT's training path (32+ rows) and Twins' local
+  attention (window pairs under a block-diagonal mask).
 - ``layer1``: :func:`fused_transformer_layer` (ops/fused_layer1.py) — the
   whole layer, both residual branches, with the additive attention bias
   (Swin's grouped [G, H, m, m] relative-position bias + shift mask) and
@@ -14,6 +16,15 @@ backward inside a ``torch.autograd.Function``:
   serving; ViT's under :func:`forward_only` from 128 rows.
 
 ``einsum`` is the plain torch attention of the models.
+
+The reduced-kv attention of PVT (spatial reduction) and Twins (global
+sub-sampled attention) has its own dispatch, :func:`sra_impl` (the JAX
+``sra_attention_impl``): ``fused`` runs :func:`fused_attention`
+(ops/fused_attention.py) on the projected q [B, H, M, D] and the reduced
+k / v [B, H, N, D], ``einsum`` (the default, as in the JAX package) its
+plain torch version.  The name ``fused_attention`` here is the function; its
+module (launch counters, plain versions) is ``fused_attention_mod``, as in
+the JAX package.
 
 Halo attention has its own dispatch, :func:`halo_impl` (the JAX
 ``halo_impl``): ``layer`` runs ``fused_halo_layer.fused_halo_layer``
@@ -30,17 +41,20 @@ import contextlib
 import threading
 from typing import Optional
 
+from . import fused_attention as fused_attention_mod  # noqa: F401  (the module)
 from . import fused_halo_layer  # noqa: F401  (the module; see above)
+from .fused_attention import fused_attention  # noqa: F401  (the function)
 from .fused_halo import halo_attention_direct  # noqa: F401
 from .fused_layer import fused_attention_layer  # noqa: F401
 from .fused_layer1 import fused_transformer_layer  # noqa: F401
 
 __all__ = ["forward_only", "set_attention_impl", "attention_impl", "set_halo_impl",
-           "halo_impl", "fused_attention_layer", "fused_transformer_layer",
-           "halo_attention_direct"]
+           "halo_impl", "set_sra_impl", "sra_impl", "fused_attention", "fused_attention_mod",
+           "fused_attention_layer", "fused_transformer_layer", "halo_attention_direct"]
 
 _FORCED: Optional[str] = None
 _HALO_FORCED: Optional[str] = None
+_SRA_FORCED: Optional[str] = None
 # thread-local, as in the JAX package: one thread's eval forward never
 # changes another thread's dispatch
 _TLS = threading.local()
@@ -113,3 +127,28 @@ def halo_impl(window: int, halo: int) -> str:
             f"(fused_halo.py::halo_attention), which is not ported (ROADMAP B5); "
             f"set_halo_impl('einsum') runs the plain attention")
     return impl
+
+
+def set_sra_impl(impl: Optional[str]) -> None:
+    """Force the reduced-kv attention implementation: "einsum" | "fused";
+    None = the default of :func:`sra_impl`."""
+    global _SRA_FORCED
+    if impl not in (None, "einsum", "fused"):
+        raise ValueError(f"unknown sra impl {impl!r}")
+    _SRA_FORCED = impl
+
+
+def sra_impl(n_kv: int) -> str:
+    """Implementation for one reduced-kv attention call (PVT SRA, Twins GSA)
+    with ``n_kv`` reduced key / value tokens: a :func:`set_sra_impl` force,
+    else "einsum" — the JAX package's default, which
+    ``set_attention_impl("einsum")`` (its global force) keeps too; on every
+    device, and a CPU tensor takes the op's plain version.  The JAX
+    package's n_kv < 8 gate works round a TPU compiler fault and is not
+    carried over: the CUDA kernel takes any n_kv ≥ 1 (Twins' last stage
+    reduces to one token).  Which arm is faster on the H100 is measured,
+    not assumed (PERF.md); the default stays the reference's until that
+    A/B settles it (ROADMAP B)."""
+    if n_kv < 1:
+        raise ValueError(f"reduced-kv attention over {n_kv} tokens")
+    return _SRA_FORCED or "einsum"

@@ -43,7 +43,7 @@ _SIGNATURES = {
         _P, _P, _P,              # x, ln_scale, ln_bias
         _P, _L, _L, _P,          # wqkv, its strides, bqkv
         _P, _L, _L, _P,          # wout, its strides, bout
-        _P,                      # rs (nullable)
+        _P, _I, _P,              # extra, groups, rs (extra, rs nullable)
         _P, _P, _P,              # u, qkv, acc (workspace; qkv, acc saved)
         _P, _P, _P,              # mu, rstd, lse (nullable saves)
         _P,                      # out
@@ -54,14 +54,15 @@ _SIGNATURES = {
         _P, _P, _P,              # x, ln_scale, ln_bias
         _P, _L, _L, _P,          # wqkv, its strides, bqkv
         _P, _L, _L, _P,          # wout, its strides, bout
+        _P, _I,                  # extra, groups
         _P, _P, _P, _P, _P, _P,  # rs, qkv, acc, mu, rstd, lse
         _P,                      # dz
         _P, _P, _P, _P, _P, _P,  # da, dacc, delta, dqkv, u, dln (workspace)
-        _P, _I, _I, _P,          # wpart, splits_out, splits_qkv, cpart
+        _P, _P, _I, _I, _P,      # dsbuf, wpart, splits_out, splits_qkv, cpart
         _P, _P, _P,              # dx, dln_scale, dln_bias
         _P, _L, _L, _P,          # dwqkv, its strides, dbqkv
         _P, _L, _L, _P,          # dwout, its strides, dbout
-        _P,                      # drs
+        _P, _P,                  # drs, dextra
         _I, _I, _I, _I, _I,      # B, N, C, H, D
         _F, _P,                  # scale, stream
     ],
@@ -144,6 +145,25 @@ _SIGNATURES = {
     "vtx_halo_attention_direct_fwd": [
         _P, _P, _P, _P, _P,      # q, kv, bias, out, lse (nullable save)
         _I, _I, _I, _I, _I, _I, _I,  # B, H, W, heads, D, window, halo
+        _F, _P,                  # scale, stream
+    ],
+    "vtx_fused_attention_fwd": [
+        _P, _L, _L, _L,          # q, its (b, g, row) strides
+        _P, _L, _L, _L,          # k, its strides
+        _P, _L, _L, _L,          # v, its strides
+        _P, _P,                  # out, lse (nullable save)
+        _I, _I, _I, _I, _I,      # B, G, M, N, D
+        _F, _P,                  # scale, stream
+    ],
+    "vtx_fused_attention_bwd": [
+        _P, _L, _L, _L,          # q, its strides
+        _P, _L, _L, _L,          # k, its strides
+        _P, _L, _L, _L,          # v, its strides
+        _P, _P,                  # out, lse
+        _P, _L, _L, _L,          # do, its strides
+        _P, _P, _I,              # delta, dk / dv partials (workspace), chunks
+        _P, _P,                  # dq, dkv
+        _I, _I, _I, _I, _I,      # B, G, M, N, D
         _F, _P,                  # scale, stream
     ],
     "vtx_halo_attention_direct_bwd": [

@@ -1,0 +1,282 @@
+"""Reduced-kv attention, forward and backward:
+
+    out = softmax(q·kᵀ·scale + extra)·v
+
+with q [B, G, M, D] and k, v [B, G, N, D], M ≠ N allowed, ``scale``
+defaulting to 1/√D.  Counterpart of ``vision_transformers_tpu/ops/
+fused_attention.py::fused_attention``, same signature and layouts: ``extra``
+optional, broadcastable to [G, M, N], its gradient un-broadcast to the
+caller's form (fused_attention.py:286-294).  PVT's spatial-reduction
+attention and Twins' global sub-sampled attention take it when
+:func:`ops.sra_impl` says ``fused``.
+
+A call that needs gradients goes through a ``torch.autograd.Function``
+whose forward keeps the output and the softmax log-sum-exp lse [B, G, M];
+its backward is the JAX ``_bwd_kernel``'s math (fused_attention.py:92-146):
+p from the saved lse, dv = pᵀ·do, dS = p ⊙ (dp − Σ dp ⊙ p), dq = dS·k·scale,
+dk = dSᵀ·q·scale, dextra = Σ_b dS.
+
+A CPU tensor runs the plain torch versions, :func:`attention_fwd_reference`
+(the cast points of the JAX ``_fwd_kernel``, :67-89: scores f32, the
+max-subtracted softmax in f32, then p·v) and
+:func:`attention_bwd_reference`.  A CUDA tensor runs the hand-written
+kernels of ``csrc/fused_attention.cu`` or raises; it never falls back to the
+plain versions.  The kernels take float32, heads up to ``MAX_DIM_HEAD``
+wide, any N ≥ 1 and ``extra=None`` (no model passes a bias here; the bias
+on the card is still to port, ROADMAP B6); anything else on a CUDA tensor
+raises NotImplementedError.  q, k and v may be strided views with a unit
+stride along D — the heads of a projection's [B, rows, G·D] output, as the
+models pass them — and their strides go to the kernels instead of a copy.
+The output (and dq) is written in the [B, M, G·D] memory order the output
+projection reads and returned as the [B, G, M, D] view; dk and dv come back
+as [B, G, N, D] views of one [2, B, N, G, D] buffer.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from .fused_layer import _raise_on, check_f32, ptr
+
+__all__ = ["fused_attention", "fused_attention_reference", "fused_attention_fwd",
+           "fused_attention_bwd", "attention_fwd_reference", "attention_bwd_reference",
+           "dkdv_chunks", "SraSaved", "LAUNCHES", "BWD_LAUNCHES"]
+
+# kernel launches through this module's wrappers, forward and backward
+# (chip_smoke.py reads them to show the main path went through the kernels)
+LAUNCHES = 0
+BWD_LAUNCHES = 0
+
+MAX_DIM_HEAD = 64  # csrc DMAX: the register width of a head
+
+# dk / dv blocks to aim the backward's query chunking at: about two waves of
+# 132 SMs x the 5 blocks (41 KB of shared memory each) one SM holds
+_DKDV_BLOCKS = 2 * 132 * 5
+
+
+def _default_scale(D: int, scale: Optional[float]) -> float:
+    return 1.0 / math.sqrt(D) if scale is None else float(scale)
+
+
+def _scores(q, k, extra, scale):
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    return s if extra is None else s + extra.float()
+
+
+def attention_fwd_reference(q, k, v, extra, scale: float):
+    """Plain forward with the saves: (out [B, G, M, D] in q's dtype, lse
+    [B, G, M] f32)."""
+    s = _scores(q, k, extra, scale)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)  # noqa: E741
+    out = torch.matmul((p / l).to(v.dtype).float(), v.float()).to(q.dtype)
+    return out, (m + torch.log(l))[..., 0]
+
+
+def fused_attention_reference(q, k, v, extra=None, scale: Optional[float] = None):
+    """Plain torch version of :func:`fused_attention` (forward)."""
+    return attention_fwd_reference(q, k, v, extra, _default_scale(q.shape[-1], scale))[0]
+
+
+def attention_bwd_reference(q, k, v, extra, lse, do, scale: float,
+                            need_dextra: bool = True):
+    """Plain backward, f32: → (dq, dk, dv, dextra) with dextra [G, M, N]
+    (summed over B; None without ``extra`` or ``need_dextra``)."""
+    f = torch.float32
+    p = torch.exp(_scores(q, k, extra, scale) - lse[..., None].to(f))
+    do = do.to(f)
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    dp = torch.matmul(do, v.to(f).transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dextra = ds.sum(0) if extra is not None and need_dextra else None
+    dq = torch.matmul(ds * scale, k.to(f))
+    dk = torch.matmul((ds * scale).transpose(-1, -2), q.to(f))
+    return dq, dk, dv, dextra
+
+
+def extra_grad(dextra: Optional[torch.Tensor], extra: Optional[torch.Tensor]):
+    """dextra [G, M, N] un-broadcast to the caller's ``extra`` (the JAX
+    rule, fused_attention.py:286-294)."""
+    if extra is None or dextra is None:
+        return None
+    d = dextra
+    if extra.ndim == 2:
+        d = d.sum(0)
+    elif extra.shape[0] == 1 and d.shape[0] != 1:
+        d = d.sum(0, keepdim=True)
+    return d.to(extra.dtype)
+
+
+class SraSaved(NamedTuple):
+    """What the backward reads: q, k, v, the bias (or None), the output and
+    lse [B, G, M]."""
+
+    q: torch.Tensor
+    k: torch.Tensor
+    v: torch.Tensor
+    extra: Optional[torch.Tensor]
+    out: torch.Tensor
+    lse: torch.Tensor
+    scale: float
+
+
+N_SAVED_TENSORS = 6  # SraSaved's tensor fields; the rest are attributes
+
+
+# ---------------------------------------------------------------------------
+# CUDA path
+# ---------------------------------------------------------------------------
+
+
+def _unit_d(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where its D stride is 1 (the kernels read rows in place),
+    else a contiguous copy."""
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def _check(q, k, v, extra):
+    """Shapes and types the kernels take; returns (B, G, M, N, D)."""
+    if extra is not None:
+        raise NotImplementedError(
+            "the CUDA fused_attention takes extra=None; the bias on the card is "
+            "still to port (ROADMAP B6)")
+    check_f32(q.device, q=q, k=k, v=v)
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError("q, k and v must be [B, G, rows, D] tensors")
+    B, G, M, D = q.shape
+    N = k.shape[2]
+    if tuple(k.shape) != (B, G, N, D) or tuple(v.shape) != (B, G, N, D):
+        raise ValueError(f"k and v must be [{B}, {G}, N, {D}]; got {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if min(B, G, M, N, D) < 1:
+        raise ValueError(f"empty attention problem {tuple(q.shape)} x {tuple(k.shape)}")
+    if D > MAX_DIM_HEAD:
+        raise NotImplementedError(
+            f"the CUDA fused_attention holds heads up to {MAX_DIM_HEAD} wide; got {D}")
+    return B, G, M, N, D
+
+
+def dkdv_chunks(B: int, G: int, M: int, N: int) -> int:
+    """Chunks of the M queries for the dk / dv pass: one partial dk / dv
+    each, summed in order afterwards."""
+    key_tiles = -(-N // 64)  # csrc FKB
+    return max(1, min(M, -(-_DKDV_BLOCKS // (B * G * key_tiles))))
+
+
+def _strides(t: torch.Tensor):
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
+def _cuda_fwd(q, k, v, extra, scale, save: bool):
+    """The forward kernel: out (the [B, G, M, D] view of a [B, M, G, D]
+    buffer) and, when ``save``, lse [B, G, M]."""
+    global LAUNCHES
+    q, k, v = map(_unit_d, (q, k, v))
+    B, G, M, N, D = _check(q, k, v, extra)
+    from ._build import build
+
+    lib = build()
+    opts = dict(device=q.device, dtype=torch.float32)
+    out = torch.empty((B, M, G, D), **opts).permute(0, 2, 1, 3)
+    lse = torch.empty((B, G, M), **opts) if save else None
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        LAUNCHES += 1
+        err = lib.vtx_fused_attention_fwd(
+            ptr(q), *_strides(q), ptr(k), *_strides(k), ptr(v), *_strides(v),
+            ptr(out), ptr(lse), B, G, M, N, D, ctypes.c_float(scale), stream)
+    _raise_on(err, "fused_attention")
+    return out, lse
+
+
+def _cuda_bwd(saved: SraSaved, do: torch.Tensor):
+    """The backward kernel sequence: (dq, dk, dv)."""
+    global BWD_LAUNCHES
+    q, k, v, _, out, lse = saved[:N_SAVED_TENSORS]
+    q, k, v, do = map(_unit_d, (q, k, v, do))
+    check_f32(q.device, do=do, out=out, lse=lse)
+    B, G, M, N, D = _check(q, k, v, None)
+    if do.shape != q.shape:
+        raise ValueError(f"do must be {tuple(q.shape)}, got {tuple(do.shape)}")
+    if out.permute(0, 2, 1, 3).stride() != (M * G * D, G * D, D, 1):
+        raise ValueError("out must be the forward kernel's [B, M, G, D] buffer")
+    chunks = dkdv_chunks(B, G, M, N)
+    from ._build import build
+
+    lib = build()
+    opts = dict(device=q.device, dtype=torch.float32)
+    delta = torch.empty((B * G * M,), **opts)
+    part = torch.empty((chunks * 2 * B * N * G * D,), **opts)
+    dq = torch.empty((B, M, G, D), **opts).permute(0, 2, 1, 3)
+    dkv = torch.empty((2, B, N, G, D), **opts)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        BWD_LAUNCHES += 1
+        err = lib.vtx_fused_attention_bwd(
+            ptr(q), *_strides(q), ptr(k), *_strides(k), ptr(v), *_strides(v),
+            ptr(out), ptr(lse), ptr(do), *_strides(do), ptr(delta), ptr(part), chunks,
+            ptr(dq), ptr(dkv), B, G, M, N, D, ctypes.c_float(saved.scale), stream)
+    _raise_on(err, "fused_attention backward")
+    return dq, dkv[0].permute(0, 2, 1, 3), dkv[1].permute(0, 2, 1, 3)
+
+
+def fused_attention_fwd(q, k, v, extra=None, scale: Optional[float] = None):
+    """Training forward with saves: (out, :class:`SraSaved`) — the kernel for
+    a CUDA tensor, the plain version for a CPU one."""
+    scale = _default_scale(q.shape[-1], scale)
+    if q.is_cuda:
+        out, lse = _cuda_fwd(q, k, v, extra, scale, save=True)
+    elif q.device.type == "cpu":
+        out, lse = attention_fwd_reference(q, k, v, extra, scale)
+    else:
+        raise NotImplementedError(f"no fused_attention for device {q.device}")
+    return out, SraSaved(q, k, v, extra, out, lse, scale)
+
+
+def fused_attention_bwd(saved: SraSaved, do: torch.Tensor, need_dextra: bool = True):
+    """Backward on the saves of :func:`fused_attention_fwd`: (dq, dk, dv,
+    dextra [G, M, N] or None) — the kernels for a CUDA tensor, the plain
+    version for a CPU one."""
+    if do.is_cuda:
+        return (*_cuda_bwd(saved, do), None)
+    if do.device.type == "cpu":
+        q, k, v, extra, _, lse = saved[:N_SAVED_TENSORS]
+        dq, dk, dv, dextra = attention_bwd_reference(q, k, v, extra, lse, do,
+                                                     saved.scale, need_dextra)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dextra
+    raise NotImplementedError(f"no fused_attention backward for {do.device}")
+
+
+class _FusedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, extra, scale):
+        out, saved = fused_attention_fwd(q, k, v, extra, scale)
+        ctx.save_for_backward(*saved[:N_SAVED_TENSORS])
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        saved = SraSaved(*ctx.saved_tensors, ctx.scale)
+        dq, dk, dv, dextra = fused_attention_bwd(saved, do, ctx.needs_input_grad[3])
+        return dq, dk, dv, extra_grad(dextra, saved.extra), None
+
+
+def fused_attention(q, k, v, extra=None, scale: Optional[float] = None):
+    """softmax(q·kᵀ·scale + extra)·v, differentiable in q, k, v and extra:
+    q [B, G, M, D], k / v [B, G, N, D], extra broadcastable to [G, M, N] or
+    None → [B, G, M, D]."""
+    scale = _default_scale(q.shape[-1], scale)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (q, k, v, extra)):
+        return _FusedAttention.apply(q, k, v, extra, scale)
+    if q.is_cuda:
+        return _cuda_fwd(q, k, v, extra, scale, save=False)[0]
+    if q.device.type == "cpu":
+        return fused_attention_reference(q, k, v, extra, scale)
+    raise NotImplementedError(f"no fused_attention for device {q.device}")

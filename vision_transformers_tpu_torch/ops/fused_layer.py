@@ -13,10 +13,12 @@ DropPath scale.
 
 A call that needs gradients goes through a ``torch.autograd.Function``
 whose forward keeps the residuals the backward reads — qkv, the attention
-output acc, the LN statistics mu / rstd and the softmax log-sum-exp lse —
-as the JAX ``custom_vjp`` does (fused_layer.py:422-427,493-499,569-674).
-A call that needs none (``torch.no_grad()``, the serving path) saves
-nothing.
+output acc, the LN statistics mu / rstd, the softmax log-sum-exp lse and
+the bias in its grouped form — as the JAX ``custom_vjp`` does
+(fused_layer.py:422-427,493-499,569-674).  The backward returns the
+bias's gradient, in the caller's form, only when the bias requires one
+(Twins' block mask does not).  A call that needs none
+(``torch.no_grad()``, the serving path) saves nothing.
 
 A CPU tensor runs the plain torch versions: the forward
 :func:`fused_attention_layer_reference` (the cast points of the JAX
@@ -25,10 +27,9 @@ dots f32-accumulated, softmax f32) and the backward
 :func:`fused_attention_layer_bwd_reference`.  A CUDA tensor runs the
 hand-written kernels in ``csrc/fused_layer.cu`` (forward) and
 ``csrc/fused_layer_bwd.cu`` (backward) or raises; it never falls back to
-the plain versions.  The kernels take float32 and ``extra=None`` (the bias
-rides in the whole-layer kernel, :mod:`.fused_layer1`, which Swin takes;
-this op's backward takes it with the DINO slice); anything else on a CUDA
-tensor raises NotImplementedError.  The weights may
+the plain versions.  The kernels take float32 and the bias only with heads
+up to ``MAX_BIAS_DIM_HEAD`` wide (Twins' and Swin's are 32); anything else
+on a CUDA tensor raises NotImplementedError.  The weights may
 be any 2-D strided view: the model passes ``linear.weight.t()``, and the
 wrapper hands those strides to the kernels instead of copying the weights;
 their gradients come back in the view's shape and layout.
@@ -44,15 +45,20 @@ import torch
 
 __all__ = ["fused_attention_layer", "fused_attention_layer_reference",
            "fused_attention_layer_bwd_reference", "AttnSaved", "LAUNCHES",
-           "BWD_LAUNCHES"]
+           "BWD_LAUNCHES", "BIAS_LAUNCHES", "BIAS_BWD_LAUNCHES"]
 
 # kernel launches through this module's wrappers, forward and backward
-# (chip_smoke.py reads them to show the main path went through the kernels)
+# (chip_smoke.py reads them to show the main path went through the kernels),
+# and of those the launches that carried the bias
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+BIAS_LAUNCHES = 0
+BIAS_BWD_LAUNCHES = 0
 
 # largest head width the attention kernels hold in registers (csrc DMAX)
 MAX_DIM_HEAD = 64
+# widest head the kernels take with the additive bias (csrc EXTRA_DMAX)
+MAX_BIAS_DIM_HEAD = 32
 
 
 def _ln_stats(xf: torch.Tensor, eps: float):
@@ -172,7 +178,8 @@ def fused_attention_layer_reference(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout
 
 class AttnSaved(NamedTuple):
     """What the backward reads: the forward's inputs and residuals.
-    qkv [B, N, 3HD], acc [B, N, HD], mu / rstd [B, N], lse [B, H, N]."""
+    qkv [B, N, 3HD], acc [B, N, HD], mu / rstd [B, N], lse [B, H, N], the
+    bias in its grouped [G, H, N, N] f32 form (or None)."""
 
     x: torch.Tensor
     ln_scale: torch.Tensor
@@ -187,9 +194,13 @@ class AttnSaved(NamedTuple):
     mu: torch.Tensor
     rstd: torch.Tensor
     lse: torch.Tensor
+    extra_g: Optional[torch.Tensor]
     n_head: int
     scale: float
     eps: float
+
+
+N_SAVED_TENSORS = 14  # AttnSaved's tensor fields; the rest are attributes
 
 
 def fused_attention_layer_fwd_reference(x, ln_scale, ln_bias, wqkv, bqkv, wout,
@@ -218,7 +229,8 @@ def fused_attention_layer_fwd_reference(x, ln_scale, ln_bias, wqkv, bqkv, wout,
         a = a + bout
     out = _residual(x, a, row_scale)
     return out, AttnSaved(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, row_scale,
-                          qkv, acc, mu[..., 0], rstd[..., 0], lse, n_head, scale, eps)
+                          qkv, acc, mu[..., 0], rstd[..., 0], lse, extra_g, n_head,
+                          scale, eps)
 
 
 def out_proj_bwd_reference(acc2, wout, bout, rs, dz2, rows_per_scale: int,
@@ -267,14 +279,14 @@ def qkv_proj_bwd_reference(x2, mu, rstd, g, b, wqkv, bqkv, dqkv, dz2):
 
 
 def attention_half_bwd_reference(saved: AttnSaved, dz2: torch.Tensor,
-                                 need_drs: bool = True, extra_g=None,
-                                 need_dextra: bool = False):
+                                 need_drs: bool = True, need_dextra: bool = False):
     """The attention half's plain backward in the kernel's steps
     (csrc/fused_layer_bwd.cu), f32, given dz2 [B·N, C] f32: → (dx [B·N, C]
     f32, dln_scale, dln_bias, dwqkv, dbqkv, dwout, dbout, drs, dextra_g)
-    with ``extra_g`` the grouped bias [G, H, N, N] the scores carried and
-    dextra_g its gradient [G, H, N, N] (when ``need_dextra``)."""
+    with dextra_g the gradient [G, H, N, N] of the grouped bias the scores
+    carried (when ``need_dextra``)."""
     x, g, b, wqkv, bqkv, wout, bout, rs = saved[:8]
+    extra_g = saved.extra_g
     B, N, C = x.shape
     H, scale = saved.n_head, saved.scale
     HD = wqkv.shape[1] // 3
@@ -320,14 +332,16 @@ def cast_like(t: Optional[torch.Tensor], like: Optional[torch.Tensor]):
 
 
 def fused_attention_layer_bwd_reference(saved: AttnSaved, dz: torch.Tensor,
-                                        need_drs: bool = True):
+                                        need_drs: bool = True,
+                                        need_dextra: bool = True):
     """Plain torch backward on the saved residuals, in the kernel's steps
     (csrc/fused_layer_bwd.cu): → (dx, dln_scale, dln_bias, dwqkv, dbqkv,
-    dwout, dbout, drs); a bias grad is None where the bias is, drs None
-    without a row scale or ``need_drs``."""
+    dwout, dbout, drs, dextra_g); a bias grad is None where the bias is,
+    drs None without a row scale or ``need_drs``, dextra_g (grouped
+    [G, H, N, N]) None without the bias or ``need_dextra``."""
     x = saved.x
-    dx, *grads, _ = attention_half_bwd_reference(
-        saved, dz.reshape(-1, x.shape[-1]).float(), need_drs)
+    dx, *grads = attention_half_bwd_reference(
+        saved, dz.reshape(-1, x.shape[-1]).float(), need_drs, need_dextra)
     return (dx.reshape(x.shape).to(x.dtype), *grads)
 
 
@@ -386,19 +400,34 @@ def check_attention_args(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, n_head):
     return B, N, C, n_head, D
 
 
+def check_extra(extra_g: Optional[torch.Tensor], H: int, N: int, D: int) -> None:
+    """The grouped bias [G, H, N, N] the kernels take, heads up to
+    ``MAX_BIAS_DIM_HEAD`` wide."""
+    if extra_g is None:
+        return
+    if D > MAX_BIAS_DIM_HEAD:
+        raise NotImplementedError(
+            f"the CUDA kernel takes the bias with heads up to {MAX_BIAS_DIM_HEAD} "
+            f"wide; got {D}")
+    if extra_g.ndim != 4 or tuple(extra_g.shape[1:]) != (H, N, N):
+        raise ValueError(f"extra must be [G, {H}, {N}, {N}], got {tuple(extra_g.shape)}")
+
+
 def _raise_on(err: int, what: str) -> None:
     if err:
         raise RuntimeError(f"{what} CUDA launch failed: cudaError_t {err}")
 
 
-def _cuda_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, n_head, row_scale,
-              scale, eps, save: bool):
-    """The forward kernel: out, plus (qkv, acc, mu, rstd, lse) when ``save``."""
-    global LAUNCHES
+def _cuda_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, n_head, extra_g, groups,
+              row_scale, scale, eps, save: bool):
+    """The forward kernel: out, plus (qkv, acc, mu, rstd, lse) when ``save``;
+    ``extra_g`` the grouped bias [G, H, N, N] (``groups`` = G) or None."""
+    global LAUNCHES, BIAS_LAUNCHES
     check_f32(x.device, x=x, ln_scale=ln_scale, ln_bias=ln_bias, wqkv=wqkv,
-              bqkv=bqkv, wout=wout, bout=bout, row_scale=row_scale)
+              bqkv=bqkv, wout=wout, bout=bout, extra=extra_g, row_scale=row_scale)
     B, N, C, H, D = check_attention_args(x, ln_scale, ln_bias, wqkv, bqkv,
                                          wout, bout, n_head)
+    check_extra(extra_g, H, N, D)
     check_vector("row_scale", row_scale, B)
     from ._build import build
 
@@ -414,10 +443,12 @@ def _cuda_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, n_head, row_scale,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         LAUNCHES += 1
+        BIAS_LAUNCHES += extra_g is not None
         err = lib.vtx_fused_attention_layer_fwd(
             ptr(x), ptr(ln_scale), ptr(ln_bias),
             ptr(wqkv), wqkv.stride(0), wqkv.stride(1), ptr(bqkv),
-            ptr(wout), wout.stride(0), wout.stride(1), ptr(bout), ptr(row_scale),
+            ptr(wout), wout.stride(0), wout.stride(1), ptr(bout),
+            ptr(extra_g), groups, ptr(row_scale),
             ptr(u), ptr(qkv), ptr(acc), ptr(mu), ptr(rstd), ptr(lse), ptr(out),
             B, N, C, H, D, ctypes.c_float(scale), ctypes.c_float(eps), stream)
     _raise_on(err, "fused_attention_layer")
@@ -444,11 +475,12 @@ def _splits(rows: int, cols: int, k: int) -> int:
     return max(1, min(-(-_SM_WAVE // tiles), k // 256))
 
 
-def _cuda_bwd(saved: AttnSaved, dz: torch.Tensor, need_drs: bool):
+def _cuda_bwd(saved: AttnSaved, dz: torch.Tensor, need_drs: bool, need_dextra: bool):
     """The backward kernel sequence: (dx, dg, db, dwqkv, dbqkv, dwout, dbout,
-    drs)."""
-    global BWD_LAUNCHES
+    drs, dextra_g)."""
+    global BWD_LAUNCHES, BIAS_BWD_LAUNCHES
     x, g, b, wqkv, bqkv, wout, bout, rs = saved[:8]
+    extra_g = saved.extra_g
     dz = dz.contiguous()
     check_f32(x.device, dz=dz, qkv=saved.qkv, acc=saved.acc, lse=saved.lse)
     if dz.shape != x.shape:
@@ -464,11 +496,13 @@ def _cuda_bwd(saved: AttnSaved, dz: torch.Tensor, need_drs: bool):
     opts = dict(device=x.device, dtype=torch.float32)
     s_out, s_qkv = _splits(HD, C, M), _splits(C, 3 * HD, M)
     chunks = -(-M // 128)  # csrc COLSUM_ROWS
+    want_dextra = extra_g is not None and need_dextra
     ws = dict(
         da=torch.empty((M, C), **opts) if rs is not None else None,
         dacc=torch.empty((M, HD), **opts), delta=torch.empty((B, H, N), **opts),
         dqkv=torch.empty((M, 3 * HD), **opts), u=torch.empty((M, C), **opts),
         dln=torch.empty((M, C), **opts),
+        dsbuf=torch.empty((B, H, N, N), **opts) if want_dextra else None,
         wpart=torch.empty((max(s_out * HD * C, s_qkv * C * 3 * HD),), **opts),
         cpart=torch.empty((chunks * max(C, 3 * HD),), **opts))
     dx = torch.empty_like(x)
@@ -477,90 +511,100 @@ def _cuda_bwd(saved: AttnSaved, dz: torch.Tensor, need_drs: bool):
     dbqkv = torch.empty((3 * HD,), **opts) if bqkv is not None else None
     dbout = torch.empty((C,), **opts) if bout is not None else None
     drs = torch.empty((B,), **opts) if rs is not None and need_drs else None
+    dextra = torch.empty_like(extra_g) if want_dextra else None
+    groups = 1 if extra_g is None else extra_g.shape[0]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         BWD_LAUNCHES += 1
+        BIAS_BWD_LAUNCHES += extra_g is not None
         err = lib.vtx_fused_attention_layer_bwd(
             ptr(x), ptr(g), ptr(b),
             ptr(wqkv), wqkv.stride(0), wqkv.stride(1), ptr(bqkv),
             ptr(wout), wout.stride(0), wout.stride(1), ptr(bout),
+            ptr(extra_g), groups,
             ptr(rs), ptr(saved.qkv), ptr(saved.acc), ptr(saved.mu),
             ptr(saved.rstd), ptr(saved.lse), ptr(dz),
-            *(ptr(ws[k]) for k in ("da", "dacc", "delta", "dqkv", "u", "dln")),
+            *(ptr(ws[k]) for k in ("da", "dacc", "delta", "dqkv", "u", "dln", "dsbuf")),
             ptr(ws["wpart"]), s_out, s_qkv, ptr(ws["cpart"]),
             ptr(dx), ptr(dg), ptr(db),
             ptr(dwqkv), dwqkv.stride(0), dwqkv.stride(1), ptr(dbqkv),
             ptr(dwout), dwout.stride(0), dwout.stride(1), ptr(dbout), ptr(drs),
-            B, N, C, H, D, ctypes.c_float(saved.scale), stream)
+            ptr(dextra), B, N, C, H, D, ctypes.c_float(saved.scale), stream)
     _raise_on(err, "fused_attention_layer backward")
-    return dx, dg, db, dwqkv, dbqkv, dwout, dbout, drs
+    return dx, dg, db, dwqkv, dbqkv, dwout, dbout, drs, dextra
 
 
 def fused_attention_layer_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
                               n_head: int, row_scale=None,
-                              scale: Optional[float] = None, eps: float = 1e-6):
+                              scale: Optional[float] = None, eps: float = 1e-6,
+                              extra=None):
     """Training forward with saves: (out, :class:`AttnSaved`) — the kernel
-    for a CUDA tensor, the plain version for a CPU one."""
+    for a CUDA tensor, the plain version for a CPU one; ``extra`` in any of
+    the three forms of :func:`extra_groups`."""
     scale = _default_scale(wqkv, n_head, scale)
+    B, N, _ = x.shape
+    extra_g, groups = extra_groups(extra, B, n_head, N)
     if x.is_cuda:
         out, res = _cuda_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, n_head,
-                             row_scale, scale, float(eps), save=True)
+                             extra_g, groups, row_scale, scale, float(eps), save=True)
         return out, AttnSaved(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
-                              row_scale, *res, n_head, scale, float(eps))
+                              row_scale, *res, extra_g, n_head, scale, float(eps))
     if x.device.type == "cpu":
         return fused_attention_layer_fwd_reference(
             x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, n_head, row_scale,
-            scale, eps)
+            scale, eps, extra_g)
     raise NotImplementedError(f"no fused_attention_layer for device {x.device}")
 
 
 def fused_attention_layer_bwd(saved: AttnSaved, dz: torch.Tensor,
-                              need_drs: bool = True):
+                              need_drs: bool = True, need_dextra: bool = True):
     """Backward on the saves of :func:`fused_attention_layer_fwd` — the
-    kernel for a CUDA tensor, the plain version for a CPU one."""
+    kernel for a CUDA tensor, the plain version for a CPU one; dextra comes
+    back in the grouped [G, H, N, N] form."""
     if dz.is_cuda:
-        return _cuda_bwd(saved, dz, need_drs)
+        return _cuda_bwd(saved, dz, need_drs, need_dextra)
     if dz.device.type == "cpu":
-        return fused_attention_layer_bwd_reference(saved, dz, need_drs)
+        return fused_attention_layer_bwd_reference(saved, dz, need_drs, need_dextra)
     raise NotImplementedError(f"no fused_attention_layer backward for {dz.device}")
 
 
 class _FusedAttentionLayer(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, row_scale,
+    def forward(ctx, x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, extra, row_scale,
                 n_head, scale, eps):
         out, saved = fused_attention_layer_fwd(x, ln_scale, ln_bias, wqkv, bqkv,
                                                wout, bout, n_head, row_scale,
-                                               scale, eps)
-        ctx.save_for_backward(*saved[:13])
-        ctx.attrs = saved[13:]
+                                               scale, eps, extra)
+        ctx.save_for_backward(*saved[:N_SAVED_TENSORS])
+        ctx.attrs = saved[N_SAVED_TENSORS:]
+        ctx.extra = extra  # its form; the grouped copy is among the saves
         return out
 
     @staticmethod
     def backward(ctx, dz):
         saved = AttnSaved(*ctx.saved_tensors, *ctx.attrs)
-        grads = fused_attention_layer_bwd(saved, dz, ctx.needs_input_grad[7])
-        return (*grads, None, None, None)
+        need = ctx.needs_input_grad
+        *grads, dextra = fused_attention_layer_bwd(saved, dz, need[8], need[7])
+        return (*grads[:7], extra_grad(dextra, ctx.extra), grads[7], None, None, None)
 
 
 def fused_attention_layer(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
                           n_head: int, extra=None, row_scale=None,
                           scale: Optional[float] = None, eps: float = 1e-6):
     """Pre-LN attention residual branch, fused:
-    ``x + row_scale ⊙ OutProj(MHSA(QkvProj(LN(x))))``, differentiable."""
+    ``x + row_scale ⊙ OutProj(MHSA(QkvProj(LN(x)) + extra))``,
+    differentiable (in ``extra`` too, where it requires a gradient)."""
     scale = _default_scale(wqkv, n_head, scale)
-    if x.is_cuda and extra is not None:
-        raise NotImplementedError("the CUDA kernels take extra=None")
-    tensors = (x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, row_scale)
-    needs_grad = torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors)
-    if needs_grad and extra is None:
+    tensors = (x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, extra, row_scale)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
         return _FusedAttentionLayer.apply(*tensors, n_head, scale, float(eps))
     if x.is_cuda:
-        return _cuda_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, n_head,
-                         row_scale, scale, float(eps), save=False)[0]
+        B, N, _ = x.shape
+        extra_g, groups = extra_groups(extra, B, n_head, N)
+        return _cuda_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, n_head, extra_g,
+                         groups, row_scale, scale, float(eps), save=False)[0]
     if x.device.type == "cpu":
-        # with extra, a gradient comes from torch autograd of the plain version
         return fused_attention_layer_reference(
             x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, n_head, extra,
             row_scale, scale, eps)

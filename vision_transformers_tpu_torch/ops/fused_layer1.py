@@ -47,11 +47,11 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from .fused_layer import (AttnSaved, _default_scale, _dot, _ln, _ln_stats,
-                          _raise_on, _residual, _splits, attention_branch_reference,
-                          attention_half_bwd_reference, cast_like,
-                          check_attention_args, check_f32, check_matrix,
-                          check_vector, extra_grad, extra_groups,
+from .fused_layer import (AttnSaved, _default_scale, _dot, _ln,
+                          _ln_stats, _raise_on, _residual, _splits,
+                          attention_branch_reference, attention_half_bwd_reference,
+                          cast_like, check_attention_args, check_extra, check_f32,
+                          check_matrix, check_vector, extra_grad, extra_groups,
                           fused_attention_layer_fwd_reference, like_layout,
                           ln_bwd_reference, ptr)
 
@@ -65,9 +65,6 @@ __all__ = ["fused_transformer_layer", "fused_transformer_layer_reference",
 # (chip_smoke.py reads them to show the main path went through the kernels)
 LAUNCHES = 0
 BWD_LAUNCHES = 0
-
-# widest head the kernels take with the additive bias (csrc EXTRA_DMAX)
-MAX_BIAS_DIM_HEAD = 32
 
 GRAD_NAMES = ("dx", "dln1_scale", "dln1_bias", "dwqkv", "dbqkv", "dwout", "dbout",
               "dln2_scale", "dln2_bias", "dw1", "db1", "dw2", "db2", "dextra",
@@ -206,8 +203,8 @@ def ff_half_fwd_reference(z, ln2_scale, ln2_bias, w1, b1, w2, b2, rs_ff,
 def _attn_saved(s: L1Saved) -> AttnSaved:
     """The attention half's view of the saves."""
     return AttnSaved(s.x, s.ln1_scale, s.ln1_bias, s.wqkv, s.bqkv, s.wout, s.bout,
-                     s.rs_attn, s.qkv, s.acc, s.mu1, s.rstd1, s.lse, s.n_head,
-                     s.scale, s.eps)
+                     s.rs_attn, s.qkv, s.acc, s.mu1, s.rstd1, s.lse, s.extra_g,
+                     s.n_head, s.scale, s.eps)
 
 
 def ff_half_bwd_reference(saved, do: torch.Tensor, need_drs: bool = True):
@@ -268,8 +265,7 @@ def fused_transformer_layer_bwd_reference(saved: L1Saved, do: torch.Tensor,
                                                                        need_drs[1])
     # attention half, driven by dz
     dx, dg1, db1, dwqkv, dbqkv, dwout, dbout, drs_attn, dextra = \
-        attention_half_bwd_reference(_attn_saved(saved), dz, need_drs[0],
-                                     saved.extra_g, need_dextra)
+        attention_half_bwd_reference(_attn_saved(saved), dz, need_drs[0], need_dextra)
     return (dx.reshape(saved.x.shape).to(saved.x.dtype), dg1, db1, dwqkv, dbqkv,
             dwout, dbout, dg2, db2, dw1, db1f, dw2, db2f, dextra, drs_attn, drs_ff)
 
@@ -291,13 +287,7 @@ def _check(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout, ln2_scale, ln2_bias,
               rs_attn=rs_attn, rs_ff=rs_ff)
     B, N, C, H, D = check_attention_args(x, ln1_scale, ln1_bias, wqkv, bqkv,
                                          wout, bout, n_head)
-    if extra_g is not None:
-        if D > MAX_BIAS_DIM_HEAD:
-            raise NotImplementedError(
-                f"the CUDA kernel takes the bias with heads up to {MAX_BIAS_DIM_HEAD} "
-                f"wide; got {D}")
-        if extra_g.ndim != 4 or tuple(extra_g.shape[1:]) != (H, N, N):
-            raise ValueError(f"extra must be [G, {H}, {N}, {N}], got {tuple(extra_g.shape)}")
+    check_extra(extra_g, H, N, D)
     if w1.ndim != 2:
         raise ValueError(f"w1 must be [C, F], got {tuple(w1.shape)}")
     Fdim = w1.shape[1]

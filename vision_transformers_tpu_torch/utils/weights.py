@@ -1,10 +1,11 @@
-"""Weights for the port's ViT, Swin and Halo: from the JAX package's flax
-params, from a reference ``.pt`` checkpoint, or generated from a numpy seed.
+"""Weights for the port's ViT, Swin, Halo, PVT and Twins-SVT: from the JAX
+package's flax params, from a reference ``.pt`` checkpoint, or generated
+from a numpy seed.
 
 Every state_dict here is in the reference torch layout (models/vit.py,
-models/swin_transformer.py and models/halo_transformer.py of the reference;
-the keys of the JAX package's ``utils/torch_convert.py:118-143,192-224,
-258-283``).
+models/swin_transformer.py, models/halo_transformer.py, models/pvt.py and
+models/twins.py of the reference; the keys of the JAX package's
+``utils/torch_convert.py:118-143,192-224,227-255,258-283,287-328``).
 """
 
 from __future__ import annotations
@@ -39,6 +40,13 @@ def _ln(dst, name, p):
 def _ff(dst, name, p):
     _lin(dst, f"{name}.0", p["fc1"])
     _lin(dst, f"{name}.3", p["fc2"])
+
+
+def _conv(dst, name, p):
+    """flax Conv kernel [kh, kw, in, out] → torch weight [out, in, kh, kw]."""
+    dst[f"{name}.weight"] = np.asarray(p["kernel"]).transpose(3, 2, 0, 1)
+    if "bias" in p:
+        dst[f"{name}.bias"] = np.asarray(p["bias"])
 
 
 def _swin_from_flax(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
@@ -97,13 +105,87 @@ def _halo_from_flax(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
     return dst
 
 
+def _pvt_from_flax(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The inverse of the JAX package's ``_convert_pvt``
+    (utils/torch_convert.py:227-255)."""
+    dst: Dict[str, np.ndarray] = {}
+    _ln(dst, "norm", params["norm"])
+    _lin(dst, "classifier", params["classifier"])
+    s = 0
+    while f"patch_embedding_{s}" in params:
+        pe, t = params[f"patch_embedding_{s}"], f"patch_embedding.{s}"
+        _conv(dst, f"{t}.conv", pe["conv"])
+        _ln(dst, f"{t}.norm", pe["norm"])
+        dst[f"{t}.pos"] = np.asarray(pe["pos"])
+        if "cls_token" in pe:  # the last stage only
+            dst[f"{t}.cls_token"] = np.asarray(pe["cls_token"])
+        i = 0
+        while f"block{s + 1}_{i}" in params:
+            bp, t = params[f"block{s + 1}_{i}"], f"block{s + 1}.{i}"
+            _ln(dst, f"{t}.norm_attn", bp["norm_attn"])
+            for name in ("linear_q", "linear_kv", "linear"):
+                _lin(dst, f"{t}.attn.{name}", bp["attn"][name])
+            if "reduce_conv" in bp["attn"]:  # reduction > 1
+                _conv(dst, f"{t}.attn.reduce_conv", bp["attn"]["reduce_conv"])
+                _ln(dst, f"{t}.attn.reduce_norm", bp["attn"]["reduce_norm"])
+            _ln(dst, f"{t}.norm_ff", bp["norm_ff"])
+            _ff(dst, f"{t}.ff", bp["ff"])
+            i += 1
+        s += 1
+    return dst
+
+
+def _twins_layer_index(i: int) -> int:
+    """Torch index of layer ``i`` in a Twins stage's Sequential(embedding,
+    layer 0, PEG, layer 1, ...): 1 for i = 0, else i + 2."""
+    return 1 if i == 0 else i + 2
+
+
+def _twins_from_flax(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The inverse of the JAX package's ``_convert_twins``
+    (utils/torch_convert.py:287-328)."""
+    dst: Dict[str, np.ndarray] = {}
+    _ln(dst, "final_linear.0", params["final_norm"])
+    _lin(dst, "classifier.2", params["classifier"])
+    s = 1
+    while f"embed{s}" in params:
+        _lin(dst, f"block{s}.0.linear", params[f"embed{s}"]["linear"])
+        _ln(dst, f"block{s}.0.norm", params[f"embed{s}"]["norm"])
+        i = 0
+        while f"block{s}_{i}" in params:
+            bp, t = params[f"block{s}_{i}"], f"block{s}.{_twins_layer_index(i)}"
+            _ln(dst, f"{t}.norm_attn_local", bp["norm_attn_local"])
+            _lin(dst, f"{t}.attn_local.weight", bp["attn_local"]["weight"])
+            _lin(dst, f"{t}.attn_local.linear", bp["attn_local"]["linear"])
+            _ln(dst, f"{t}.norm_ff_local", bp["norm_ff_local"])
+            _ff(dst, f"{t}.ff_local", bp["ff_local"])
+            _ln(dst, f"{t}.norm_attn_global", bp["norm_attn_global"])
+            for name in ("linear_q", "linear_kv", "linear"):
+                _lin(dst, f"{t}.attn_global.{name}", bp["attn_global"][name])
+            if "reduce_conv" in bp["attn_global"]:
+                _conv(dst, f"{t}.attn_global.reduce_conv", bp["attn_global"]["reduce_conv"])
+            _ln(dst, f"{t}.norm_ff_global", bp["norm_ff_global"])
+            _ff(dst, f"{t}.ff_global", bp["ff_global"])
+            i += 1
+        # the depthwise PEG conv after layer 0 (no bias)
+        _conv(dst, f"block{s}.2.proj", params[f"peg{s}"]["proj"])
+        s += 1
+    return dst
+
+
 def state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
     """The JAX package's flax ``params`` (nested dict of arrays) of a ViT
-    (per-layer ``layers_{i}`` layout), a Swin or a Halo → the port's
-    state_dict, as numpy arrays.  The family is told by a top-level key only
-    it has: ``embed1`` (Halo's stage embeddings; Halo also has
-    ``final_norm``), ``final_norm`` beside ``patch_embedding`` (Swin), else
-    ViT."""
+    (per-layer ``layers_{i}`` layout), a Swin, a Halo, a PVT or a Twins-SVT
+    → the port's state_dict, as numpy arrays.  The family is told by a
+    top-level key only it has: ``peg1`` (Twins' positional-encoding
+    generator; Twins also has ``embed1`` and ``final_norm``),
+    ``patch_embedding_0`` (PVT's per-stage embeddings), ``embed1`` without
+    ``peg1`` (Halo's stage embeddings; Halo also has ``final_norm``),
+    ``final_norm`` beside ``patch_embedding`` (Swin), else ViT."""
+    if "peg1" in params:
+        return _twins_from_flax(params)
+    if "patch_embedding_0" in params:
+        return _pvt_from_flax(params)
     if "embed1" in params:
         return _halo_from_flax(params)
     if "final_norm" in params and "patch_embedding" in params:
@@ -199,10 +281,11 @@ def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
 
 def seeded_state_dict(arch, seed: int) -> Dict[str, np.ndarray]:
     """Random weights in reference layout from a numpy seed: std-0.02
-    normals for every weight and bias, LayerNorms at ones / zeros, and for a
-    Swin or a Halo std-0.2 normals in the relative-position tables (non-zero,
-    so that a comparison sees the bias; the JAX initializer is zeros).
-    ``arch`` is the port's ViTConfig, SwinConfig or HaloConfig; the family
+    normals for every weight and bias (and PVT's position embeddings and
+    cls token), LayerNorms at ones / zeros, and for a Swin or a Halo std-0.2
+    normals in the relative-position tables (non-zero, so that a comparison
+    sees the bias; the JAX initializer is zeros).  ``arch`` is the port's
+    ViTConfig, SwinConfig, HaloConfig, PVTConfig or TwinsConfig; the family
     is its registered type."""
     rng = np.random.default_rng([seed, 0])
 
@@ -219,6 +302,71 @@ def seeded_state_dict(arch, seed: int) -> Dict[str, np.ndarray]:
         sd[f"{name}.weight"] = normal(n_out, n_in)
         if bias:
             sd[f"{name}.bias"] = normal(n_out)
+
+    def conv(name, n_out, n_in, k, bias=True):
+        sd[f"{name}.weight"] = normal(n_out, n_in, k, k)
+        if bias:
+            sd[f"{name}.bias"] = normal(n_out)
+
+    def ff(name, dim, dim_ff):
+        lin(f"{name}.0", dim_ff, dim)
+        lin(f"{name}.3", dim, dim_ff)
+
+    if arch.type == "pvt":
+        h, w = (arch.image_size, arch.image_size) if isinstance(arch.image_size, int) \
+            else tuple(arch.image_size)
+        dims, in_dim = arch.patch_embed_dims, 3
+        for s, (depth, patch) in enumerate(zip(arch.depths, (4, 2, 2, 2))):
+            h, w, t = h // patch, w // patch, f"patch_embedding.{s}"
+            conv(f"{t}.conv", dims[s], in_dim, patch)
+            ln(f"{t}.norm", dims[s])
+            last = s == len(arch.depths) - 1
+            sd[f"{t}.pos"] = normal(h * w + (1 if last else 0), dims[s])
+            if last:
+                sd[f"{t}.cls_token"] = normal(dims[s])
+            for i in range(depth):
+                t = f"block{s + 1}.{i}"
+                ln(f"{t}.norm_attn", dims[s])
+                lin(f"{t}.attn.linear_q", dims[s], dims[s], bias=False)
+                lin(f"{t}.attn.linear_kv", 2 * dims[s], dims[s], bias=False)
+                lin(f"{t}.attn.linear", dims[s], dims[s])
+                if arch.reductions[s] > 1:
+                    conv(f"{t}.attn.reduce_conv", dims[s], dims[s], arch.reductions[s])
+                    ln(f"{t}.attn.reduce_norm", dims[s])
+                ln(f"{t}.norm_ff", dims[s])
+                ff(f"{t}.ff", dims[s], arch.dim_ffs[s])
+            in_dim = dims[s]
+        ln("norm", dims[-1])
+        lin("classifier", arch.n_class, dims[-1])
+        return sd
+
+    if arch.type == "twins_svt":
+        dims, in_dim = arch.dims, 3
+        for s, (depth, patch) in enumerate(zip(arch.depths, (4, 2, 2, 2))):
+            lin(f"block{s + 1}.0.linear", dims[s], in_dim * patch * patch)
+            ln(f"block{s + 1}.0.norm", dims[s])
+            inner = arch.n_heads[s] * arch.dim_head
+            for i in range(depth):
+                t = f"block{s + 1}.{_twins_layer_index(i)}"
+                ln(f"{t}.norm_attn_local", dims[s])
+                lin(f"{t}.attn_local.weight", 3 * inner, dims[s])
+                lin(f"{t}.attn_local.linear", dims[s], inner)
+                ln(f"{t}.norm_ff_local", dims[s])
+                ff(f"{t}.ff_local", dims[s], arch.dim_ffs[s])
+                ln(f"{t}.norm_attn_global", dims[s])
+                lin(f"{t}.attn_global.linear_q", dims[s], dims[s], bias=False)
+                lin(f"{t}.attn_global.linear_kv", 2 * dims[s], dims[s], bias=False)
+                lin(f"{t}.attn_global.linear", dims[s], dims[s])
+                if arch.window_size > 1:  # the GSA reduction is the window
+                    conv(f"{t}.attn_global.reduce_conv", dims[s], dims[s],
+                         arch.window_size)
+                ln(f"{t}.norm_ff_global", dims[s])
+                ff(f"{t}.ff_global", dims[s], arch.dim_ffs[s])
+            sd[f"block{s + 1}.2.proj.weight"] = normal(dims[s], 1, 3, 3)
+            in_dim = dims[s]
+        ln("final_linear.0", dims[-1])
+        lin("classifier.2", arch.n_class, dims[-1])
+        return sd
 
     if arch.type == "halo_transformer":
         from ..models.halo import halo_position_index
