@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Start-up check of the PyTorch port (vision_transformers_tpu_torch) on one
 NVIDIA H100: builds the CUDA kernels from csrc/, holds each against its plain
-PyTorch version, runs full-width ViT-S/16, Swin-S, Halo-S, PVT-S and
-Twins-SVT-S against the JAX package's stored logits and train-step
-gradients, and drives the serving and the training entry points of the
-five models end to end.
+PyTorch version, runs full-width ViT-S/16 (also with dropout and with the FF
+kernel), Swin-S, Halo-S, PVT-S and Twins-SVT-S against the JAX package's
+stored logits and train-step gradients, and drives the serving and the
+training entry points of the five models end to end.
 
     python3 chip_smoke.py
 
@@ -53,6 +53,19 @@ non-zero and prints no ok line):
            PVT-S and Twins-SVT-S call at 128 images; median ms beside
            F.scaled_dot_product_attention on the same problem, forward and
            its autograd backward
+3q.        the packed-qkv attention (ViT's dropout path, Swin's forced
+           'fused'): serving forward and training forward (with lse) within
+           atol = rtol = 1e-4, backward per tensor within 1e-3·max(1,
+           max|plain|) and bit-identical across two runs, at odd shapes (no
+           bias at D = 64; each bias form — [N, N], [H, N, N], [1, N, N],
+           grouped — at D = 32), at ViT-S/16's training call (B 128) and at
+           Swin-S's four stages at 64 images with the grouped bias; median ms
+           beside F.scaled_dot_product_attention on [B, H, N, D] views of the
+           same qkv, forward and its autograd backward
+3f.        the FF residual branch (the FF-kernel path): the same checks with
+           silu at ViT-S/16's call (M = 25,216 rows, C 384, F 1536) with and
+           without the row scale, silu and tanh-gelu at an odd shape; median
+           ms of the ViT-S/16 training call
 4. golden  ViT-S/16 @224 (depth 12), Swin-S @224 (depth 24), Halo-S @256
            (depth 12), PVT-S @224 (depth 16) and Twins-SVT-S @224 (depth
            18), seeded weights, against the JAX logits in
@@ -69,9 +82,14 @@ non-zero and prints no ok line):
            Halo layer's and, forced to 'direct', through the halo
            attention's, PVT through the reduced-kv attention's, Twins
            through the attention layer's with the mask and, with 'fused'
-           global attention, the reduced-kv attention's too) against
-           tests/data/*_port_train_golden.npz: loss, gradient norm,
-           per-tensor norms and projections, rtol 1e-3
+           global attention, the reduced-kv attention's too; ViT with the FF
+           kernel on, through the attention layer's and the FF layer's; Swin
+           forced to 'fused', through the packed-qkv attention's) against
+           tests/data/*_port_train_golden.npz, and ViT at dropout = drop_ff
+           = 0.1 forced to 'fused' (the packed-qkv attention's kernels, the
+           masks regenerated from the golden's seed) against
+           tests/data/vit_s16_port_dropout_train_golden.npz: loss, gradient
+           norm, per-tensor norms and projections, rtol 1e-3
 5. predict the serving path of each model: ``predict.main`` on 48 and then
            160 seeded JPEGs (Halo, PVT — 'fused' — and Twins: 48) with a
            seeded ``.pt:ema``; the launch counters are zeroed just before
@@ -91,15 +109,21 @@ non-zero and prints no ok line):
            to 'fused' (DropPath 0.1; 16 forward and 16 backward launches
            per step) and Twins-SVT-S from tests/data/twins_svt_s_port.conf
            on its default (DropPath 0.1; 18 forward and 18 backward
-           attention-layer launches per step, 14 + 14 with the mask); the
-           counters are zeroed just before and read just after each; then
+           attention-layer launches per step, 14 + 14 with the mask), ViT-S/16
+           with ``arch.dropout=0.1 arch.drop_ff=0.1`` (12 + 12 packed-qkv
+           attention launches per step, eval through the whole-layer
+           kernel) and ViT-S/16 with the FF kernel on (12 + 12 attention
+           layer and 12 + 12 FF layer launches per step); the counters are
+           zeroed just before and read just after each; then
            ``predict.main`` reads the epoch checkpoint
 
 The line before the last is the kernels' JSON record: each kernel's
 launches on the trainer run that takes it (ViT's for the attention layer,
 Swin's for the whole layer, Halo's for the whole Halo layer, Halo's forced
 to 'direct' for the halo attention, PVT's forced to 'fused' for the
-reduced-kv attention; every path's in ``launches_by_path``) and its
+reduced-kv attention, ViT's with dropout for the packed-qkv attention,
+ViT's with the FF kernel for the FF layer; every path's in
+``launches_by_path``) and its
 times at a call that run makes (``shape``; other shapes in
 ``other_shapes``); the last line is ``{"ok": true, "device": {...}}``.
 Needs no network and no JAX.
@@ -157,6 +181,14 @@ KERNELS = {  # name → (source, the TPU kernel it replaces)
                         "vision_transformers_tpu/ops/fused_attention.py:67"),
     "fused_attention_bwd": ("vision_transformers_tpu_torch/csrc/fused_attention.cu",
                             "vision_transformers_tpu/ops/fused_attention.py:92"),
+    "fused_attention_qkv": ("vision_transformers_tpu_torch/csrc/fused_layer.cu",
+                            "vision_transformers_tpu/ops/fused_attention.py:313"),
+    "fused_attention_qkv_bwd": ("vision_transformers_tpu_torch/csrc/fused_layer_bwd.cu",
+                                "vision_transformers_tpu/ops/fused_attention.py:342"),
+    "fused_ff_layer": ("vision_transformers_tpu_torch/csrc/fused_layer.cu",
+                       "vision_transformers_tpu/ops/fused_layer.py:701"),
+    "fused_ff_layer_bwd": ("vision_transformers_tpu_torch/csrc/fused_layer1_bwd.cu",
+                           "vision_transformers_tpu/ops/fused_layer.py:743"),
 }
 KERNEL_TOL = 1e-4
 DEVICE = "cuda"
@@ -264,6 +296,43 @@ def sra_bwd_work(B, G, M, N, D):
     scores, dv, dp, dq, dk), 10·B·G·M·N·D; q, k, v, out, do and lse read,
     dq, dk and dv written."""
     return 10 * B * G * M * N * D, 4 * B * G * (4 * M * D + 4 * N * D + M)
+
+
+def qkv_fwd_work(B, N, H, D, groups=0, saves=False):
+    """(operations, bytes) of the packed-qkv attention's forward: q·kᵀ and
+    p·v, 4·B·H·N²·D; qkv (and with ``groups`` the bias [G, H, N, N]) read,
+    out (and with ``saves`` lse) written."""
+    HD = H * D
+    nbytes = 4 * (4 * B * N * HD + groups * H * N * N + (B * H * N if saves else 0))
+    return 4 * B * H * N * N * D, nbytes
+
+
+def qkv_bwd_work(B, N, H, D, groups=0):
+    """(operations, bytes) of its backward: five products (scores, dv, dp,
+    dq, dk), 10·B·H·N²·D; qkv, out, lse, do and the bias read, dqkv and
+    dextra written."""
+    HD = H * D
+    return 10 * B * H * N * N * D, 4 * (8 * B * N * HD + B * H * N
+                                        + 2 * groups * H * N * N)
+
+
+def ff_fwd_work(B, N, C, F, row_scale=False, saves=False):
+    """(operations, bytes) of the FF residual branch's forward: two GEMMs,
+    4·M·C·F; x, the LN and FF parameters (and the row scale) read, out (and
+    with ``saves`` hid, mu, rstd) written."""
+    M = B * N
+    nbytes = 4 * (2 * M * C + 2 * C * F + F + 3 * C + (B if row_scale else 0))
+    if saves:
+        nbytes += 4 * (M * F + 2 * M)
+    return 4 * M * C * F, nbytes
+
+
+def ff_bwd_work(B, N, C, F, row_scale=False):
+    """(operations, bytes) of its backward: four GEMMs, 8·M·C·F; x, do, the
+    saves and the parameters read, dx and the parameter gradients written."""
+    M = B * N
+    params = 2 * C * F + F + 3 * C + (B if row_scale else 0)
+    return 8 * M * C * F, 4 * (3 * M * C + M * F + 2 * M + 2 * params)
 
 
 def layer_fwd_work(B, N, C, H, D, F, groups=0, row_scales=False, saves=False):
@@ -1208,6 +1277,198 @@ def twins_layer_kernels(torch):
 
 
 # ---------------------------------------------------------------------------
+# 3q. the packed-qkv attention (B3) vs its plain version
+# ---------------------------------------------------------------------------
+
+
+def qkv_inputs(torch, B, N, H, D, extra_shape=None, seed=0):
+    """Seeded qkv [B, N, 3·H·D], an output grad [B, N, H·D] and, with
+    ``extra_shape``, a std-0.5 additive bias of that shape."""
+    g = torch.Generator(DEVICE).manual_seed(seed)
+    qkv = torch.randn(B, N, 3 * H * D, device=DEVICE, generator=g)
+    do = torch.randn(B, N, H * D, device=DEVICE, generator=g)
+    extra = None if extra_shape is None else \
+        0.5 * torch.randn(*extra_shape, device=DEVICE, generator=g)
+    return qkv, extra, do
+
+
+def qkv_calls():
+    """(label, B, N, H, D, the bias or a recipe for it) of every call 3q
+    checks: odd shapes without a bias (D = 64) and with each bias form
+    (D = 32), ViT-S/16's training call, and Swin-S's four stages at 64
+    images under a forced 'fused' (the grouped bias of a shifted layer)."""
+    B, N, H = 3, 37, 2
+    calls = [("odd, no bias", B, N, H, 64, None),
+             ("odd, [N, N] bias", B, N, H, 32, (N, N)),
+             ("odd, [H, N, N] bias", B, N, H, 32, (H, N, N)),
+             ("odd, [1, N, N] bias", B, N, H, 32, (1, N, N)),
+             ("odd, grouped [3, H, N, N] bias", 6, N, H, 32, (3, H, N, N)),
+             ("ViT-S/16 train", 128, 197, 6, 64, None)]
+    for call in swin_stages(64):
+        rows, m, _, heads, D, _ = call["shape"]
+        calls.append((f"Swin-S stage {call['stage']} (fused), G={call['groups']}", rows,
+                      m, heads, D, call))
+    return calls
+
+
+def qkv_kernels(torch):
+    """3q: the packed-qkv attention's serving forward (no saves), training
+    forward (with lse) and backward against the plain versions, the
+    backward twice for bit-identity, at ``qkv_calls()``; median ms of the
+    ViT-S/16 and Swin-S calls beside the bound, the plain versions and
+    F.scaled_dot_product_attention on [B, H, N, D] views of the same qkv
+    (forward, and its autograd backward; with the bias as ``attn_mask``, its
+    gradient not asked).  Returns the timed entries of the forward and the
+    backward, the ViT-S/16 call first."""
+    import torch.nn.functional as F_
+
+    from vision_transformers_tpu_torch.ops import fused_attention_mod as fa
+
+    worst = {"out": 0.0, "grads": 0.0}
+    fwd_rec, bwd_rec = [], []
+    for label, B, N, H, D, bias in qkv_calls():
+        if isinstance(bias, dict):  # a Swin stage: its grouped bias
+            qkv, _, do = qkv_inputs(torch, B, N, H, D)
+            extra = swin_layer_inputs(torch, bias, row_scales=False)[1]
+        else:
+            qkv, extra, do = qkv_inputs(torch, B, N, H, D, bias)
+        what = f"{label}, B,N,H,D={B},{N},{H},{D}"
+        with torch.no_grad():
+            out = fa.fused_attention_qkv(qkv, H, extra)
+        torch.cuda.synchronize()
+        err = check_close(torch, "fused_attention_qkv", out,
+                          fa.fused_attention_qkv_reference(qkv, H, extra), what + " (serving)")
+        out, saved = fa.fused_attention_qkv_fwd(qkv, H, extra)
+        grads = fa.fused_attention_qkv_bwd(saved, do)
+        again = fa.fused_attention_qkv_bwd(saved, do)
+        torch.cuda.synchronize()
+        out_p, lse_p = fa.qkv_attention_fwd_reference(qkv, H, saved.extra_g, saved.scale)
+        err = max(err, check_close(torch, "fused_attention_qkv", out, out_p,
+                                   what + " (training)"))
+        check_close(torch, "fused_attention_qkv", saved.lse, lse_p, what + " lse")
+        worst["out"] = max(worst["out"], err)
+        plain = fa.qkv_attention_bwd_reference(qkv, H, saved.extra_g, do, saved.scale)
+        compare_grads(torch, "fused_attention_qkv " + what, ("dqkv", "dextra"), grads,
+                      again, plain, worst)
+        del grads, again, plain
+        if B >= 32:
+            groups = 0 if extra is None else saved.extra_g.shape[0]
+            f_ms = median_ms(torch, lambda: fa.fused_attention_qkv_fwd(qkv, H, extra))
+            b_ms = median_ms(torch, lambda: fa.fused_attention_qkv_bwd(saved, do))
+            pf_ms = median_ms(torch, lambda: fa.qkv_attention_fwd_reference(
+                qkv, H, saved.extra_g, saved.scale))
+            pb_ms = median_ms(torch, lambda: fa.qkv_attention_bwd_reference(
+                qkv, H, saved.extra_g, do, saved.scale))
+            HD = H * D
+            leaf = qkv.detach().clone().requires_grad_()
+            q, k, v = (leaf[..., i * HD:(i + 1) * HD].unflatten(-1, (H, D)).transpose(1, 2)
+                       for i in range(3))
+            mask = None if extra is None else saved.extra_g.repeat_interleave(
+                B // saved.extra_g.shape[0], 0)
+            lib = F_.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  scale=saved.scale)
+            dlib = do.unflatten(-1, (H, D)).transpose(1, 2)
+            lib_err = (lib.detach().transpose(1, 2).reshape(B, N, HD) - out).abs().max().item()
+            lf_ms = median_ms(torch, lambda: F_.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=saved.scale))
+            lb_ms = median_ms(torch, lambda: torch.autograd.grad(lib, leaf, dlib,
+                                                                 retain_graph=True))
+            fb, fby = bound(*qkv_fwd_work(B, N, H, D, groups, saves=True))
+            bb, bby = bound(*qkv_bwd_work(B, N, H, D, groups))
+            log(f"kernels: fused_attention_qkv {what} (median of 20, CUDA events): kernel "
+                f"fwd(lse) {f_ms:.3f} + bwd {b_ms:.3f} ms; plain fwd {pf_ms:.3f} + bwd "
+                f"{pb_ms:.3f} ms; scaled_dot_product_attention fwd {lf_ms:.3f} + its "
+                f"backward {lb_ms:.3f} ms (max|Δ| to the kernel {lib_err:.3e}); bound fwd "
+                f"{fb:.3f} ({fby}) + bwd {bb:.3f} ms ({bby})")
+            shape = f"{label}, B,N,H,D={B},{N},{H},{D}"
+            fwd_rec.append({"shape": shape + ", lse", "max_abs_err": worst["out"],
+                            "ms": f_ms, "plain_ms": pf_ms, "bound_ms": fb, "bound_by": fby,
+                            "library_ms": lf_ms})
+            bwd_rec.append({"shape": shape, "max_abs_err": worst["grads"], "ms": b_ms,
+                            "plain_ms": pb_ms, "bound_ms": bb, "bound_by": bby,
+                            "library_ms": lb_ms})
+            del leaf, q, k, v, mask, lib, dlib
+        del qkv, extra, do, out, saved, out_p, lse_p
+    return fwd_rec, bwd_rec
+
+
+# ---------------------------------------------------------------------------
+# 3f. the FF residual branch (B7) vs its plain version
+# ---------------------------------------------------------------------------
+
+
+def ff_inputs(torch, B, N, C, F, row_scale, seed=2):
+    """Seeded FF inputs from ``layer_args`` (x, LN₂, w1 / b1 / w2 / b2 as
+    the model's transposed weight views), a row scale of dropped / kept
+    samples (keep 0.9) and an output grad."""
+    a = layer_args(torch, B, N, C, 1, C, F, seed=seed)
+    rng = np.random.default_rng(seed + 100)
+    r = None
+    if row_scale:
+        keep = rng.random(B) < 0.9
+        keep[0], keep[-1] = False, True  # both kinds at every shape
+        r = torch.from_numpy((keep / 0.9).astype(np.float32)).to(DEVICE)
+    do = torch.from_numpy(rng.standard_normal((B, N, C)).astype(np.float32)).to(DEVICE)
+    return [a[0], *a[7:]], r, do
+
+
+VIT_FF = (128, 197, 384, 1536)  # ViT-S/16's FF call in training: B, N, C, F
+
+
+def ff_kernels(torch):
+    """3f: the FF residual branch's serving forward, training forward (with
+    saves) and backward against the plain versions, the backward twice for
+    bit-identity: silu at ViT-S/16's call (M = 128·197 rows, C 384, F 1536)
+    with and without the row scale, silu and tanh-gelu at an odd shape;
+    median ms of the ViT-S/16 call with the row scale (the trainer's)
+    beside the bound and the plain versions.  Returns the timed entries of
+    the forward and the backward."""
+    from vision_transformers_tpu_torch.ops import fused_layer as fl
+
+    worst = {"out": 0.0, "grads": 0.0}
+    vit = VIT_FF
+    for shape, act, use_rs in (((3, 37, 48, 96), "silu", True),
+                               ((3, 37, 48, 96), "gelu", False),
+                               ((3, 37, 48, 96), "gelu", True),
+                               (vit, "silu", False), (vit, "silu", True)):
+        a, rs, do = ff_inputs(torch, *shape, use_rs)
+        what = f"B,N,C,F={shape} {act} rs={use_rs}"
+        with torch.no_grad():
+            out = fl.fused_ff_layer(*a, act, rs)
+        torch.cuda.synchronize()
+        worst["out"] = max(worst["out"], check_close(
+            torch, "fused_ff_layer", out, fl.fused_ff_layer_reference(*a, act, rs),
+            what + " (serving)"))
+        out, saved = fl.fused_ff_layer_fwd(*a, act, rs)
+        grads = fl.fused_ff_layer_bwd(saved, do)
+        again = fl.fused_ff_layer_bwd(saved, do)
+        torch.cuda.synchronize()
+        out_p, saved_p = fl.fused_ff_layer_fwd_reference(*a, act, rs)
+        plain = fl.fused_ff_layer_bwd_reference(saved_p, do)
+        compare_grads(torch, "fused_ff_layer " + what, ("out",) + fl.FF_GRAD_NAMES,
+                      (out,) + grads, (out,) + again, (out_p,) + plain, worst)
+        del saved, saved_p, grads, again, plain
+    a, rs, do = ff_inputs(torch, *vit, True)
+    _, saved = fl.fused_ff_layer_fwd(*a, "silu", rs)
+    _, saved_p = fl.fused_ff_layer_fwd_reference(*a, "silu", rs)
+    f_ms = median_ms(torch, lambda: fl.fused_ff_layer_fwd(*a, "silu", rs))
+    b_ms = median_ms(torch, lambda: fl.fused_ff_layer_bwd(saved, do))
+    pf_ms = median_ms(torch, lambda: fl.fused_ff_layer_fwd_reference(*a, "silu", rs))
+    pb_ms = median_ms(torch, lambda: fl.fused_ff_layer_bwd_reference(saved_p, do))
+    fb, fby = bound(*ff_fwd_work(*vit, row_scale=True, saves=True))
+    bb, bby = bound(*ff_bwd_work(*vit, row_scale=True))
+    log(f"backward: fused_ff_layer ViT-S/16 train call (B,N,C,F={vit}, silu, row scale; "
+        f"median of 20, CUDA events): kernel fwd(saves) {f_ms:.3f} + bwd {b_ms:.3f} ms; "
+        f"plain fwd {pf_ms:.3f} + bwd {pb_ms:.3f} ms; bound fwd {fb:.3f} ({fby}) + bwd "
+        f"{bb:.3f} ms ({bby})")
+    shape = "ViT-S/16 train, B,N,C,F=" + ",".join(map(str, vit)) + ", silu, row scale"
+    return ([{"shape": shape + ", saves", "max_abs_err": worst["out"], "ms": f_ms,
+              "plain_ms": pf_ms, "bound_ms": fb, "bound_by": fby, "library_ms": None}],
+            [{"shape": shape, "max_abs_err": worst["grads"], "ms": b_ms, "plain_ms": pb_ms,
+              "bound_ms": bb, "bound_by": bby, "library_ms": None}])
+
+
+# ---------------------------------------------------------------------------
 # 4. full width against the JAX package's logits
 # ---------------------------------------------------------------------------
 
@@ -1250,7 +1511,11 @@ def counted_modules():
             "halo_attention_direct": (fused_halo, "LAUNCHES"),
             "halo_attention_direct_bwd": (fused_halo, "BWD_LAUNCHES"),
             "fused_attention": (fused_attention_mod, "LAUNCHES"),
-            "fused_attention_bwd": (fused_attention_mod, "BWD_LAUNCHES")}
+            "fused_attention_bwd": (fused_attention_mod, "BWD_LAUNCHES"),
+            "fused_attention_qkv": (fused_attention_mod, "QKV_LAUNCHES"),
+            "fused_attention_qkv_bwd": (fused_attention_mod, "QKV_BWD_LAUNCHES"),
+            "fused_ff_layer": (fused_layer, "FF_LAUNCHES"),
+            "fused_ff_layer_bwd": (fused_layer, "FF_BWD_LAUNCHES")}
 
 
 def counts():
@@ -1263,18 +1528,23 @@ def reset_counts():
 
 
 @contextlib.contextmanager
-def forced(halo=None, sra=None):
-    """The Halo path ``halo`` and the reduced-kv path ``sra`` (None: the
-    defaults) for the duration."""
+def forced(halo=None, sra=None, attn=None, ff=None):
+    """The Halo path ``halo``, the reduced-kv path ``sra``, the attention
+    path ``attn`` and the FF-kernel switch ``ff`` (None: the defaults) for
+    the duration."""
     from vision_transformers_tpu_torch import ops
 
     ops.set_halo_impl(halo)
     ops.set_sra_impl(sra)
+    ops.set_attention_impl(attn)
+    ops.set_ff_kernel(ff)
     try:
         yield
     finally:
         ops.set_halo_impl(None)
         ops.set_sra_impl(None)
+        ops.set_attention_impl(None)
+        ops.set_ff_kernel(None)
 
 
 def expect_path(before, after, expected, what):
@@ -1289,8 +1559,9 @@ def scaled_counts(expected, n):
     return {k: v * n for k, v in expected.items()}
 
 
-def path_label(expected, sra=None, halo=None):
-    forced_by = [f"{name} {v}" for name, v in (("halo", halo), ("sra", sra)) if v]
+def path_label(expected, sra=None, halo=None, attn=None, ff=None):
+    forced_by = [f"{name} {v}" for name, v in (("halo", halo), ("sra", sra),
+                                                ("attention", attn), ("FF kernel", ff)) if v]
     return " + ".join(k for k in expected if "+" not in k) + (
         f" ({', '.join(forced_by)})" if forced_by else "")
 
@@ -1328,38 +1599,61 @@ def golden(torch, model_name, cases, sra=None):
 # ---------------------------------------------------------------------------
 
 
-def train_golden(torch, model_name, expected, halo=None, sra=None):
+# the ViT-S/16 dropout train golden (scripts/make_torch_port_train_golden.py
+# --dropout): dropout = drop_ff = DROPOUT, the masks regenerated from its seed
+DROPOUT_GOLDEN = os.path.join(DATA, "vit_s16_port_dropout_train_golden.npz")
+DROPOUT = 0.1
+GOLDEN_ROWS = 64  # the train goldens' 2 images, tiled
+
+
+def train_golden(torch, model_name, expected, halo=None, sra=None, attn=None, ff=None,
+                 dropout=False):
     """One train step at 64 rows; ``expected`` the launches of each counter
-    in it; ``halo`` / ``sra`` force a Halo / reduced-kv path."""
+    in it; ``halo`` / ``sra`` / ``attn`` force a Halo / reduced-kv /
+    attention path, ``ff`` the FF kernel; ``dropout``: the dropout golden,
+    every dropout mask from its seed (the golden's 2 images' masks tiled
+    as the images are)."""
     from vision_transformers_tpu_torch.config.schema import load_config
     from vision_transformers_tpu_torch.train import loss as L
     from vision_transformers_tpu_torch.utils.weights import (grad_projections,
+                                                             seeded_dropout_masks,
                                                              seeded_state_dict,
                                                              seeded_train_batch,
-                                                             to_torch)
+                                                             supplied_dropout_masks,
+                                                             to_torch, vit_dropout_calls)
 
     conf_path, _, path, depth = MODELS[model_name]
+    path = DROPOUT_GOLDEN if dropout else path
     with np.load(path) as f:
         g = {k: f[k] for k in f.files}
     seed, keys, rtol = int(g["seed"]), list(g["keys"]), 1e-3
     conf = load_config(conf_path)
-    # the golden is one deterministic step: the conf's drop_path off
-    arch = dataclasses.replace(conf.arch, drop_path=0.0)
+    # the golden is one step with no DropPath: the conf's drop_path off
+    rates = dict(dropout=DROPOUT, drop_ff=DROPOUT) if dropout else {}
+    arch = dataclasses.replace(conf.arch, drop_path=0.0, **rates)
     model = arch.make()
     model.load_state_dict(to_torch(seeded_state_dict(arch, seed)), strict=True)
     model.to(DEVICE).train()
     size = image_size(conf)
     batch = seeded_train_batch(seed, 2, size, arch.n_class)
-    idx = np.arange(64) % 2  # 64 rows take the kernels; the mean over
+    idx = np.arange(GOLDEN_ROWS) % 2  # 64 rows take the kernels; the mean over
     b = {k: torch.from_numpy(v[idx]).to(DEVICE) for k, v in batch.items()}  # copies = 2-row mean
+    masks = []
+    if dropout:
+        shapes, mask_rates = zip(*vit_dropout_calls(arch, 2))
+        masks = [torch.from_numpy(m[idx]).to(DEVICE)
+                 for m in seeded_dropout_masks(seed, shapes, mask_rates)]
     before = counts()
-    with forced(halo, sra):
+    with forced(halo, sra, attn, ff), supplied_dropout_masks(masks) as calls:
         logits = model(b["image"].permute(0, 3, 1, 2))
         loss = L.mix_loss(logits, b["label1"].long(), b["label2"].long(), b["ratio"],
                           eps=0.1)
         loss.backward()
     torch.cuda.synchronize()
-    expect_path(before, counts(), expected, f"train golden {model_name}, 64 rows")
+    if len(calls) != len(masks):
+        raise RuntimeError(f"train golden: {len(calls)} dropout calls for "
+                           f"{len(masks)} masks")
+    expect_path(before, counts(), expected, f"train golden {model_name}, {GOLDEN_ROWS} rows")
     grads = {k: p.grad.double().cpu().numpy() for k, p in model.named_parameters()}
     if sorted(grads) != keys:
         raise RuntimeError("train golden: the port's parameters differ from the golden's")
@@ -1380,8 +1674,10 @@ def train_golden(torch, model_name, expected, halo=None, sra=None):
     rel["projections (worst, of the tensor norm)"] = float(
         np.max(np.abs(proj - g["projections"])[~zero] / g["norms"][~zero]))
     zero_norm, zero_tol = float(norms[zero].max()) if zero.any() else 0.0, 1e-7
-    log(f"train golden: {model_name} @{size} depth {depth} f32, 64 rows via "
-        f"{path_label(expected, sra, halo)}: loss {checks['loss'][0]:.6f} (JAX "
+    log(f"train golden: {model_name} @{size} depth {depth} f32"
+        f"{f', dropout = drop_ff = {DROPOUT} ({len(masks)} masks from the seed)' if dropout else ''}"
+        f", {GOLDEN_ROWS} rows via {path_label(expected, sra, halo, attn, ff)}: loss "
+        f"{checks['loss'][0]:.6f} (JAX "
         f"{checks['loss'][1]:.6f}), grad_norm {checks['grad_norm'][0]:.5f} (JAX "
         f"{checks['grad_norm'][1]:.5f}); relative "
         + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()) + f" (rtol {rtol})"
@@ -1490,10 +1786,11 @@ def predict_main_path(torch, has_pil, model_name, cases, sra=None):
 
 
 def train_main_path(torch, has_pil, model_name, expected, overrides=(), halo=None,
-                    sra=None):
+                    sra=None, ff=None):
     """``train.main`` f32 at batch 128 for one synthetic epoch, with conf
-    ``overrides`` and ``halo`` / ``sra`` forcing a Halo / reduced-kv path;
-    ``expected`` the launches of each counter on that run."""
+    ``overrides``, ``halo`` / ``sra`` forcing a Halo / reduced-kv path and
+    ``ff`` the FF kernel; ``expected`` the launches of each counter on that
+    run."""
     from vision_transformers_tpu_torch import predict, train
     from vision_transformers_tpu_torch.config.schema import load_config
     from vision_transformers_tpu_torch.ops import _build
@@ -1502,8 +1799,9 @@ def train_main_path(torch, has_pil, model_name, expected, overrides=(), halo=Non
 
     conf_path = MODELS[model_name][0]
     conf = load_config(conf_path, list(overrides))
-    label = model_name + "".join(f" ({name} {v})" for name, v in (("halo", halo),
-                                                                   ("sra", sra)) if v)
+    label = model_name + "".join(f" ({name} {v})" for name, v in (
+        ("halo", halo), ("sra", sra), ("FF kernel", ff)) if v) + "".join(
+        f" {o}" for o in overrides if "dropout" in o or "drop_ff" in o)
     step_secs = []
     train_step = engine.train_step
 
@@ -1523,7 +1821,7 @@ def train_main_path(torch, has_pil, model_name, expected, overrides=(), halo=Non
         engine.train_step = timed_step
         torch.cuda.reset_peak_memory_stats()
         try:
-            with forced(halo, sra):
+            with forced(halo, sra, ff=ff):
                 reset_counts()  # the main path's run starts here
                 t0 = time.perf_counter()
                 metrics = train.main(args)
@@ -1556,7 +1854,7 @@ def train_main_path(torch, has_pil, model_name, expected, overrides=(), halo=Non
         if has_pil:
             files = write_jpegs(tmp, noise)
             buf = io.StringIO()
-            with contextlib.redirect_stdout(buf), forced(halo, sra):
+            with contextlib.redirect_stdout(buf), forced(halo, sra, ff=ff):
                 predict.main(["--conf", conf_path, "--checkpoint", f"{ckpt}:model",
                               "--topk", "5", "--device", DEVICE, *files])
             check_lines(buf.getvalue().splitlines(), files, 5)
@@ -1566,7 +1864,7 @@ def train_main_path(torch, has_pil, model_name, expected, overrides=(), halo=Non
             model = conf.arch.make()
             model.load_state_dict(load_checkpoint(f"{ckpt}:model"), strict=True)
             size = image_size(conf)
-            with forced(halo, sra):
+            with forced(halo, sra, ff=ff):
                 _, _, prob = predict.predict_batch(model.to(DEVICE).eval(),
                                                    noise[:, :size, :size], 5, DEVICE)
             if not ((prob > 0) & (prob <= 1)).all():
@@ -1609,11 +1907,17 @@ def main() -> None:
     timed["fused_attention_layer_bwd"] += tw_bwd
     timed["fused_attention"], timed["fused_attention_bwd"] = phase(
         "3s reduced-kv", sra_kernels, torch)
+    timed["fused_attention_qkv"], timed["fused_attention_qkv_bwd"] = phase(
+        "3q packed-qkv attention", qkv_kernels, torch)
+    timed["fused_ff_layer"], timed["fused_ff_layer_bwd"] = phase(
+        "3f FF layer", ff_kernels, torch)
     fal, falb = "fused_attention_layer", "fused_attention_layer_bwd"
     ftl, ftlb = "fused_transformer_layer", "fused_transformer_layer_bwd"
     fhl, fhlb = "fused_halo_layer", "fused_halo_layer_bwd"
     had, hadb = "halo_attention_direct", "halo_attention_direct_bwd"
     fa, fab = "fused_attention", "fused_attention_bwd"
+    qkv, qkvb = "fused_attention_qkv", "fused_attention_qkv_bwd"
+    ffl, fflb = "fused_ff_layer", "fused_ff_layer_bwd"
 
     def depth(model, *kernels):  # one launch of each kernel per layer
         return {k: MODELS[model][3] for k in kernels}
@@ -1644,6 +1948,12 @@ def main() -> None:
     phase("4b train Twins", train_golden, torch, "Twins-SVT-S", {**twins, **twins_bwd})
     phase("4b train Twins fused", train_golden, torch, "Twins-SVT-S",
           {**twins_gsa, **twins_gsa_bwd}, None, "fused")
+    phase("4b train ViT dropout fused", train_golden, torch, "ViT-S/16",
+          depth("ViT-S/16", qkv, qkvb), None, None, "fused", None, True)
+    phase("4b train ViT FF kernel", train_golden, torch, "ViT-S/16",
+          depth("ViT-S/16", fal, falb, ffl, fflb), None, None, None, True)
+    phase("4b train Swin fused", train_golden, torch, "Swin-S", depth("Swin-S", qkv, qkvb),
+          None, None, "fused")
     halo_dp = ("arch.drop_path=0.1",)
     paths = {
         "ViT-S/16 predict": phase("5 predict ViT", predict_main_path, torch, has_pil,
@@ -1679,12 +1989,24 @@ def main() -> None:
         "Twins-SVT-S train": phase(
             "6 trainer Twins", train_main_path, torch, has_pil, "Twins-SVT-S",
             {**scaled_counts(twins, 4 + 2), **scaled_counts(twins_bwd, 4)}, halo_dp),
+        # dropout: 4 steps x 12 layers of the packed-qkv attention; the valid
+        # pass (no dropout in eval): 2 batches x 12 whole layers
+        "ViT-S/16 train (dropout)": phase(
+            "6 trainer ViT dropout", train_main_path, torch, has_pil, "ViT-S/16",
+            {qkv: 48, qkvb: 48, ftl: 24}, ("arch.dropout=0.1", "arch.drop_ff=0.1")),
+        # the FF kernel: 4 steps x 12 layers of both halves; the valid pass
+        # as above
+        "ViT-S/16 train (FF kernel)": phase(
+            "6 trainer ViT FF kernel", train_main_path, torch, has_pil, "ViT-S/16",
+            {fal: 48, falb: 48, ffl: 48, fflb: 48, ftl: 24}, (), None, None, True),
     }
     trainer_of = {fal: "ViT-S/16 train", falb: "ViT-S/16 train",
                   ftl: "Swin-S train", ftlb: "Swin-S train",
                   fhl: "Halo-S train", fhlb: "Halo-S train",
                   had: "Halo-S train (direct)", hadb: "Halo-S train (direct)",
-                  fa: "PVT-S train (sra fused)", fab: "PVT-S train (sra fused)"}
+                  fa: "PVT-S train (sra fused)", fab: "PVT-S train (sra fused)",
+                  qkv: "ViT-S/16 train (dropout)", qkvb: "ViT-S/16 train (dropout)",
+                  ffl: "ViT-S/16 train (FF kernel)", fflb: "ViT-S/16 train (FF kernel)"}
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": paths[trainer_of[k]][k],

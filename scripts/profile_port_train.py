@@ -12,6 +12,7 @@ time, and one JSON line.
 
     python3 scripts/profile_port_train.py [--conf configs/vit-s-16.conf] [--rows 128]
         [--steps 5] [--trace out.json] [--halo-impl ...] [--sra-impl einsum|fused]
+        [--attn-impl einsum|fused|layer|layer1] [--ff-kernel]
         [key=value conf overrides ...]
 
 ViT-S/16 at ``--rows`` ≥ 32 takes the fused attention layer (forward and
@@ -24,8 +25,11 @@ projections); PVT-S (``--conf tests/data/pvt_s_port.conf``) and Twins-SVT-S
 (``--conf tests/data/twins_svt_s_port.conf arch.drop_path=0.1``) at 224 px,
 their reduced-kv attention on the plain ``einsum`` default or, with
 ``--sra-impl fused``, on the hand-written kernel (Twins' local attention
-takes the attention layer with the pair mask either way).  Needs CUDA;
-imports no JAX.
+takes the attention layer with the pair mask either way).  ViT-S/16 with
+``arch.dropout=0.1 arch.drop_ff=0.1`` leaves the layer kernels for the
+packed-qkv attention kernel between cuBLAS projections (``--attn-impl
+einsum`` its plain einsum); ``--ff-kernel`` turns the FF-half kernel on at
+the 'layer' sites.  Needs CUDA; imports no JAX.
 """
 
 import argparse
@@ -56,6 +60,7 @@ GROUPS = (("at::native", "other (elementwise, reductions, conv)"),
           ("ln_", "other hand-written"), ("attn_delta", "other hand-written"),
           ("row_scale_grad", "other hand-written"), ("scale_rows", "other hand-written"),
           ("silu", "other hand-written"), ("group_sum", "other hand-written"),
+          ("act_kernel", "other hand-written"), ("dact_mul", "other hand-written"),
           ("gemm", "cuBLAS GEMM"), ("sgemm", "cuBLAS GEMM"), ("cutlass", "cuBLAS GEMM"),
           ("Memcpy", "copies"), ("foreach", "optimizer (foreach)"))
 
@@ -79,6 +84,11 @@ def main() -> None:
     parser.add_argument("--sra-impl", default=None, choices=("einsum", "fused"),
                         help="force the reduced-kv path of PVT / Twins (default: the "
                              "dispatch's, einsum)")
+    parser.add_argument("--attn-impl", default=None,
+                        choices=("einsum", "fused", "layer", "layer1"),
+                        help="force the attention path (default: the dispatch's)")
+    parser.add_argument("--ff-kernel", action="store_true",
+                        help="the FF-half kernel at the 'layer' sites (default off)")
     parser.add_argument("overrides", nargs="*", help="key=value conf overrides")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -94,6 +104,8 @@ def main() -> None:
 
     ops.set_halo_impl(args.halo_impl)
     ops.set_sra_impl(args.sra_impl)
+    ops.set_attention_impl(args.attn_impl)
+    ops.set_ff_kernel(args.ff_kernel or None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -144,7 +156,9 @@ def main() -> None:
     print(card)
     print(f"{arch.type} {os.path.basename(args.conf)} {' '.join(args.overrides)} "
           f"{'halo path ' + args.halo_impl + ' ' if args.halo_impl else ''}"
-          f"{'sra path ' + args.sra_impl + ' ' if args.sra_impl else ''}f32 "
+          f"{'sra path ' + args.sra_impl + ' ' if args.sra_impl else ''}"
+          f"{'attention ' + args.attn_impl + ' ' if args.attn_impl else ''}"
+          f"{'FF kernel ' if args.ff_kernel else ''}f32 "
           f"train step, {args.rows} rows "
           f"(grad_accumulation {training.grad_accumulation}), {args.steps} profiled "
           f"steps: wall {wall * 1e3:.3f} ms ({args.rows / wall:.1f} images/s), "
@@ -155,6 +169,7 @@ def main() -> None:
         print(f"  {ms:9.3f} ms  {ms / busy:6.1%}  x{calls:<4d} {name[:90]}")
     print(json.dumps({"conf": os.path.basename(args.conf), "overrides": args.overrides,
                       "halo_impl": args.halo_impl, "sra_impl": args.sra_impl,
+                      "attn_impl": args.attn_impl, "ff_kernel": args.ff_kernel,
                       "rows": args.rows,
                       "wall_ms": wall * 1e3, "device_ms": busy,
                       "device_busy_share": busy / (wall * 1e3), "groups": groups,

@@ -337,8 +337,7 @@ def test_drop_path_layer_path_drops_whole_samples(weights):
 
 
 def test_training_forward_draws_from_the_generator(weights):
-    """Same generator seed → same draws; the ViT-S/16 conf's drop_path 0.1
-    trains; dropout > 0 in training raises."""
+    """Same generator seed → same draws, DropPath's and dropout's."""
     model = ViTConfig(**{**ARCH, "drop_path": 0.3}).make()
     model.load_state_dict(to_torch(weights), strict=True)
     x = torch.from_numpy(seeded_batch(1, n=8)["image"]).permute(0, 3, 1, 2)
@@ -346,8 +345,11 @@ def test_training_forward_draws_from_the_generator(weights):
     b = model(x, torch.Generator().manual_seed(3))
     c = model(x, torch.Generator().manual_seed(5))
     assert torch.equal(a, b) and not torch.equal(a, c)
-    with pytest.raises(NotImplementedError):
-        ViTConfig(**{**ARCH, "dropout": 0.1}).make().train()(x)
+    model = ViTConfig(**{**ARCH, "dropout": 0.1, "drop_ff": 0.1}).make().train()
+    model.load_state_dict(to_torch(weights), strict=True)
+    a = model(x, torch.Generator().manual_seed(3))
+    assert torch.equal(a, model(x, torch.Generator().manual_seed(3)))
+    assert not torch.equal(a, model(x, torch.Generator().manual_seed(5)))
 
 
 def test_reset_parameters_follows_jax_initializers():

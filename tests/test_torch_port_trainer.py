@@ -86,7 +86,7 @@ def test_epoch_checkpoint_loads_into_predict(port_run, tmp_path):
 
 @pytest.mark.parametrize("override", ["precision=bf16", "training.progressive.step=1",
                                       "resume=auto", "data_backend=records",
-                                      "training.agc=0.01", "arch.dropout=0.1"])
+                                      "training.agc=0.01", "arch.remat=true"])
 def test_unported_options_raise(override, tmp_path):
     with pytest.raises(NotImplementedError):
         train.main(["--conf", CONF, "--device", "cpu", *TINY, override,

@@ -119,11 +119,18 @@ def test_training_forward_with_drop_path_trains(weights, images):
     assert out.shape == (x.shape[0], ARCH["n_class"]) and torch.isfinite(out).all()
 
 
-def test_training_forward_with_dropout_raises(weights, images):
-    """Dropout is not ported: a training forward raises, eval runs."""
+def test_training_forward_with_dropout_trains(weights, images):
+    """Dropout is ported: a training forward runs, draws its masks from the
+    generator it is given (the same seed gives the same logits, the global
+    RNG is untouched) and differs from the eval forward."""
     x = torch.from_numpy(images).permute(0, 3, 1, 2)
     model = ViTConfig(**ARCH, drop_path=0.1, dropout=0.1).make()
     model.load_state_dict(to_torch(weights), strict=True)
-    with pytest.raises(NotImplementedError):
-        model.train()(x)
-    model.eval()(x)
+    state = torch.get_rng_state()
+    out = model.train()(x, torch.Generator().manual_seed(0))
+    again = model(x, torch.Generator().manual_seed(0))
+    other = model(x, torch.Generator().manual_seed(1))
+    assert torch.equal(torch.get_rng_state(), state)
+    assert out.shape == (x.shape[0], ARCH["n_class"]) and torch.isfinite(out).all()
+    assert torch.equal(out, again) and not torch.equal(out, other)
+    assert not torch.allclose(out, model.eval()(x))

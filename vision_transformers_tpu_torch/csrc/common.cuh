@@ -387,13 +387,37 @@ ln_bwd_rows_kernel(const float* __restrict__ dln, const float* __restrict__ x,
   }
 }
 
-// silu(h) = h·σ(h), the GEMM epilogue's expression (so bit-identical)
+// The FF activations of vision_transformers_tpu/ops/fused_layer.py:90-108:
+// silu(h) = h·σ(h) in the GEMM epilogue's expression (so bit-identical), and
+// gelu's tanh approximation (jax.nn.gelu's default)
+constexpr int ACT_SILU = 0, ACT_GELU = 1;
+constexpr float GELU_C = 0.7978845608028654f;  // √(2/π)
+
+template <int ACT>
+__device__ __forceinline__ float act_fwd(float h) {
+  if (ACT == ACT_SILU) return h / (1.f + expf(-h));
+  return 0.5f * h * (1.f + tanhf(GELU_C * (h + 0.044715f * h * h * h)));
+}
+
+// d act / d h at h (fused_layer.py:98-108)
+template <int ACT>
+__device__ __forceinline__ float act_grad(float h) {
+  if (ACT == ACT_SILU) {
+    const float s = 1.f / (1.f + expf(-h));
+    return s + h * s * (1.f - s);
+  }
+  const float t = tanhf(GELU_C * (h + 0.044715f * h * h * h));
+  const float dt = (1.f - t * t) * GELU_C * (1.f + 3.f * 0.044715f * h * h);
+  return 0.5f * (1.f + t) + 0.5f * h * dt;
+}
+
+// out = act(h), elementwise (in place allowed)
+template <int ACT>
 __global__ void __launch_bounds__(EW_THREADS)
-silu_kernel(const float* __restrict__ h, float* __restrict__ out, long long total) {
+act_kernel(const float* h, float* out, long long total) {
   const long long i = (long long)blockIdx.x * EW_THREADS + threadIdx.x;
   if (i >= total) return;
-  const float v = h[i];
-  out[i] = v / (1.f + expf(-v));
+  out[i] = act_fwd<ACT>(h[i]);
 }
 
 // Δ[b, h, n] = Σ_d dacc[m, h·D + d] · acc[m, h·D + d]   (m = b·N + n): the
@@ -537,17 +561,19 @@ __device__ __forceinline__ void query_thread_accumulate(
 // sample).
 namespace vtx {
 
-// The FF residual branch of a pre-LN layer (fused_layer.cu):
-//   out = z + rs_ff ⊙ (silu(LN₂(z)·W₁ + b₁)·W₂ + b₂)
-// Serving (af null): the first GEMM's epilogue applies silu into hid.
-// Training (af non-null): hid keeps the pre-activation, af = silu(hid), and
-// mu2 / rstd2 are saved.
+// The FF residual branch of a pre-LN layer (fused_layer.cu), act = ACT_SILU
+// or ACT_GELU (the template parameter of its kernels):
+//   out = z + rs_ff ⊙ (act(LN₂(z)·W₁ + b₁)·W₂ + b₂)
+// Serving (af null): silu rides in the first GEMM's epilogue into hid, gelu
+// is applied to hid in place.  Training (af non-null): hid keeps the
+// pre-activation, af = act(hid), and mu2 / rstd2 are saved.  b₁, b₂ and
+// rs_ff may be null.
 cudaError_t ff_half_fwd(
     const float* z, const float* ln2_g, const float* ln2_b,
     const float* w1, long long w1_s0, long long w1_s1, const float* b1,
     const float* w2, long long w2_s0, long long w2_s1, const float* b2,
     const float* rs_ff, int rows_per_scale, float* u, float* hid, float* af,
-    float* mu2, float* rstd2, float* out, int M, int C, int F, float eps,
+    float* mu2, float* rstd2, float* out, int M, int C, int F, float eps, int act,
     cudaStream_t s);
 
 // The FF half's backward, steps 1-5 of fused_layer1_bwd.cu: given dout, the
@@ -562,7 +588,7 @@ cudaError_t ff_half_bwd(
     float* cpart, float* dz, float* dg2, float* db2,
     float* dw1, long long dw1_s0, long long dw1_s1, float* db1f,
     float* dw2, long long dw2_s0, long long dw2_s1, float* db2f, float* drs_ff,
-    int B, int M, int C, int F, cudaStream_t s);
+    int B, int M, int C, int F, int act, cudaStream_t s);
 
 // Steps 1-2 of the attention branch's backward (fused_layer_bwd.cu): da =
 // rs ⊙ dz, dwout = accᵀ·da, dbout, dacc = rs ⊙ dz·woutᵀ and dr.

@@ -462,7 +462,8 @@ extern "C" int vtx_fused_halo_layer_fwd(
                         HD, 0, s));
   return static_cast<int>(vtx::ff_half_fwd(z, ln2_g, ln2_b, w1, w1_s0, w1_s1, b1, w2,
                                            w2_s0, w2_s1, b2, rs_ff, N, u, hid, af,
-                                           mu2, rstd2, out, M, C, F, eps, s));
+                                           mu2, rstd2, out, M, C, F, eps, ACT_SILU,
+                                           s));
 }
 
 // Workspace, all allocated by the caller: da [M, C] (used only with a row
@@ -504,7 +505,7 @@ extern "C" int vtx_fused_halo_layer_bwd(
                              w2_s1, b2, rs_ff, N, hid, mu2, rstd2, dout, da, af,
                              dh, u, dln, wpart, splits_w1, splits_w2, cpart, dz,
                              dg2, db2, dw1, dw1_s0, dw1_s1, db1f, dw2, dw2_s0,
-                             dw2_s1, db2f, drs_ff, B, M, C, F, s));
+                             dw2_s1, db2f, drs_ff, B, M, C, F, ACT_SILU, s));
   // the out projection → dacc
   VTX_CHECK(vtx::out_proj_bwd(acc, wout, wout_s0, wout_s1, bout, rs_attn, N, dz, da,
                               dacc, wpart, splits_out, cpart, dwout, dwout_s0,

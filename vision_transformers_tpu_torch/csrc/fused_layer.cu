@@ -5,10 +5,16 @@
 //       z = x + r ⊙ OutProj(MHSA(QkvProj(LN1(x))))
 //   vision_transformers_tpu/ops/fused_layer1.py:91   _l1_fwd_kernel
 //       o = z + (silu(LN2(z)·W1 + b1)·W2 + b2)
+//   vision_transformers_tpu/ops/fused_attention.py:313   _qkv_fwd_kernel
+//       out = softmax(q·kᵀ·scale + extra)·v per head, from the packed qkv
+//   vision_transformers_tpu/ops/fused_layer.py:701   _ff_fwd_kernel
+//       o = x + r ⊙ (act(LN(x)·W1 + b1)·W2 + b2), act silu or tanh-gelu
 // with one C entry point per op, each a short sequence of hand-written
 // launches on the caller's stream:
 //   vtx_fused_attention_layer_fwd   = ln_rows → gemm(+bqkv) → attention → gemm(+bout, ×r, +x)
 //   vtx_fused_transformer_layer_fwd = the above → ln_rows → gemm(+b1, silu) → gemm(+b2, ×r₂, +z)
+//   vtx_fused_attention_qkv_fwd     = attention alone, [B, N, 3·H·D] → [B, N, H·D]
+//   vtx_fused_ff_layer_fwd          = ln_rows → gemm(+b1, act) → gemm(+b2, ×r, +x)
 // The Pallas kernels keep every intermediate in VMEM; here the LN output,
 // qkv, the attention output and the FF hidden go through device memory
 // between launches (workspace the wrapper allocates).  In training the
@@ -38,6 +44,21 @@
 // What later work changes: bf16 operands on wgmma with TMA-fed shared-memory
 // rings (the tensor cores are ~15x the f32 FMA rate), and fusing each op's
 // launch sequence into fewer launches so intermediates stay on chip.
+//
+// B3 (the attention alone, ViT's training path with dropout and Swin's
+// forced 'fused' path) is the attention kernel above with its own entry: it
+// reads the projection output [B, N, 3·H·D] as it lies and writes
+// [B, N, H·D], the out projection's input, so nothing is transposed on
+// either side, and keeps lse for its backward where the Pallas kernel
+// recomputes the softmax.  At ViT-S/16 (B = 128, N = 197, H = 6, D = 64) it
+// does 4·B·H·N²·D = 7.6 GFLOP over 58 MB of qkv and out: bound by the f32
+// FMA rate (~0.11 ms at 67 TFLOP/s) against ~0.02 ms of bytes.  B7 (the FF
+// residual branch alone, under the FF-kernel switch) is the whole layer's
+// FF half: LN, a GEMM with b₁ and the activation (silu in its epilogue when
+// nothing is saved, else a separate elementwise pass writing act(hid)), and
+// a GEMM with b₂, the row scale and the residual; at ViT-S/16's 25,216
+// rows its 4·M·C·F = 59.5 GFLOP of GEMM bound it (~0.9 ms at the f32 FMA
+// rate).
 //
 // Numerics follow the JAX kernels: LN statistics in f32 in the fast-variance
 // form E[x²]−μ² (fused_layer.py:69-76), f32 accumulation, softmax in f32.
@@ -193,7 +214,30 @@ cudaError_t transformer_layer(
                            eps, s));
   return vtx::ff_half_fwd(z, ln2_g, ln2_b, w1, w1_s0, w1_s1, b1, w2, w2_s0, w2_s1,
                           b2, rs_ff, N, u, hid, af, mu2, rstd2, out, B * N, C, F,
-                          eps, s);
+                          eps, ACT_SILU, s);
+}
+
+template <int ACT>
+cudaError_t ff_half_fwd_act(
+    const float* z, const float* ln2_g, const float* ln2_b,
+    const float* w1, long long w1_s0, long long w1_s1, const float* b1,
+    const float* w2, long long w2_s0, long long w2_s1, const float* b2,
+    const float* rs_ff, int rows_per_scale, float* u, float* hid, float* af,
+    float* mu2, float* rstd2, float* out, int M, int C, int F, float eps,
+    cudaStream_t s) {
+  const long long MF = (long long)M * F;
+  // silu rides in the GEMM's epilogue where nothing keeps the pre-activation
+  const bool epilogue_silu = ACT == ACT_SILU && !af;
+  VTX_CHECK(launch_ln(z, ln2_g, ln2_b, u, mu2, rstd2, M, C, eps, s));
+  VTX_CHECK(launch_gemm(u, w1, w1_s0, w1_s1, b1, nullptr, 1, nullptr, hid, M, F,
+                        C, epilogue_silu ? 1 : 0, s));
+  if (!epilogue_silu) {
+    act_kernel<ACT><<<ew_blocks(MF), EW_THREADS, 0, s>>>(hid, af ? af : hid, MF);
+    VTX_CHECK(cudaGetLastError());
+  }
+  VTX_CHECK(launch_gemm(af ? af : hid, w2, w2_s0, w2_s1, b2, rs_ff, rows_per_scale,
+                        z, out, M, C, F, 0, s));
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -203,19 +247,17 @@ cudaError_t vtx::ff_half_fwd(
     const float* w1, long long w1_s0, long long w1_s1, const float* b1,
     const float* w2, long long w2_s0, long long w2_s1, const float* b2,
     const float* rs_ff, int rows_per_scale, float* u, float* hid, float* af,
-    float* mu2, float* rstd2, float* out, int M, int C, int F, float eps,
+    float* mu2, float* rstd2, float* out, int M, int C, int F, float eps, int act,
     cudaStream_t s) {
-  VTX_CHECK(launch_ln(z, ln2_g, ln2_b, u, mu2, rstd2, M, C, eps, s));
-  VTX_CHECK(launch_gemm(u, w1, w1_s0, w1_s1, b1, nullptr, 1, nullptr, hid, M, F,
-                        C, af ? 0 : 1, s));
-  if (af) {
-    silu_kernel<<<ew_blocks((long long)M * F), EW_THREADS, 0, s>>>(
-        hid, af, (long long)M * F);
-    VTX_CHECK(cudaGetLastError());
-  }
-  VTX_CHECK(launch_gemm(af ? af : hid, w2, w2_s0, w2_s1, b2, rs_ff, rows_per_scale,
-                        z, out, M, C, F, 0, s));
-  return cudaSuccess;
+  if (act == ACT_SILU)
+    return ff_half_fwd_act<ACT_SILU>(z, ln2_g, ln2_b, w1, w1_s0, w1_s1, b1, w2, w2_s0,
+                                     w2_s1, b2, rs_ff, rows_per_scale, u, hid, af, mu2,
+                                     rstd2, out, M, C, F, eps, s);
+  if (act == ACT_GELU)
+    return ff_half_fwd_act<ACT_GELU>(z, ln2_g, ln2_b, w1, w1_s0, w1_s1, b1, w2, w2_s0,
+                                     w2_s1, b2, rs_ff, rows_per_scale, u, hid, af, mu2,
+                                     rstd2, out, M, C, F, eps, s);
+  return cudaErrorInvalidValue;
 }
 
 // The C entry points return the first cudaError_t met (0 = success).
@@ -257,4 +299,34 @@ extern "C" int vtx_fused_transformer_layer_fwd(
       groups, rs_attn, rs_ff, u, qkv, acc, z, hid, af, mu1, rstd1, lse, mu2,
       rstd2, out, B, N, C, H, D, F, scale, eps,
       static_cast<cudaStream_t>(stream)));
+}
+
+// B3: attention straight from the packed projection qkv [B, N, 3·H·D] into
+// out [B, N, H·D], no relayout on either side, and the row log-sum-exp lse
+// [B, H, N] its backward (fused_layer_bwd.cu) reads when lse is non-null.
+// extra [G, H, N, N] (groups = G; heads up to 32 wide) may be null; heads
+// without it up to 64 wide.
+extern "C" int vtx_fused_attention_qkv_fwd(
+    const float* qkv, const float* extra, int groups, float* out, float* lse,
+    int B, int N, int H, int D, float scale, void* stream) {
+  return static_cast<int>(launch_attention(qkv, extra, groups, out, lse, B, N, H, D,
+                                           scale, static_cast<cudaStream_t>(stream)));
+}
+
+// B7: the pre-LN FF residual branch out = x + rs ⊙ (act(LN(x)·W₁ + b₁)·W₂ + b₂)
+// over M = B·N rows, rs [B] per sample (N rows each), act 0 = silu, 1 =
+// tanh-gelu.  u [M, C] and hid [M, F] are workspace; in training (af [M, F]
+// non-null) hid keeps the pre-activation and mu / rstd [M] are saved for
+// the backward (fused_layer1_bwd.cu).  b1, b2, rs, af, mu and rstd may be
+// null.
+extern "C" int vtx_fused_ff_layer_fwd(
+    const float* x, const float* ln_g, const float* ln_b,
+    const float* w1, long long w1_s0, long long w1_s1, const float* b1,
+    const float* w2, long long w2_s0, long long w2_s1, const float* b2,
+    const float* rs, float* u, float* hid, float* af, float* mu, float* rstd,
+    float* out, int B, int N, int C, int F, int act, float eps, void* stream) {
+  if (B < 1 || N < 1 || (long long)B * N > 0x7fffffffLL) return cudaErrorInvalidValue;
+  return static_cast<int>(vtx::ff_half_fwd(
+      x, ln_g, ln_b, w1, w1_s0, w1_s1, b1, w2, w2_s0, w2_s1, b2, rs, N, u, hid, af,
+      mu, rstd, out, B * N, C, F, eps, act, static_cast<cudaStream_t>(stream)));
 }

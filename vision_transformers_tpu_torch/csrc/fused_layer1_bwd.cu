@@ -4,8 +4,12 @@
 //   z = x + r₁ ⊙ OutProj(MHSA(QkvProj(LN₁(x)) + extra))
 //   o = z + r₂ ⊙ (silu(LN₂(z)·W₁ + b₁)·W₂ + b₂)
 //
-// Replaces the TPU (Pallas) kernel
+// Replaces the TPU (Pallas) kernels
 //   vision_transformers_tpu/ops/fused_layer1.py:181   _l1_bwd_kernel
+//   vision_transformers_tpu/ops/fused_layer.py:743    _ff_bwd_kernel
+//       (B7's backward: the FF half alone, steps 1-5, with silu or
+//       tanh-gelu, vtx_fused_ff_layer_bwd; its 8·M·C·F GEMM operations
+//       bound it, as the FF half bounds the whole layer's)
 // and computes what it computes: dx, the gradients of both LayerNorms, of
 // the four weights and their biases, of the grouped additive attention bias
 // extra [G, H, N, N] (Swin's relative-position bias and shift mask; row b is
@@ -51,16 +55,15 @@
 
 namespace {
 
-// dh = da ⊙ silu'(hid) in place, silu'(h) = σ(h)·(1 + h·(1 − σ(h)))
-// (fused_layer.py:98-102)
+// dh = da ⊙ act'(hid) in place (common.cuh act_grad; silu'(h) =
+// σ(h)·(1 + h·(1 − σ(h))), fused_layer.py:98-108)
+template <int ACT>
 __global__ void __launch_bounds__(EW_THREADS)
-dsilu_mul_kernel(float* __restrict__ da, const float* __restrict__ hid,
-                 long long total) {
+dact_mul_kernel(float* __restrict__ da, const float* __restrict__ hid,
+                long long total) {
   const long long i = (long long)blockIdx.x * EW_THREADS + threadIdx.x;
   if (i >= total) return;
-  const float h = hid[i];
-  const float s = 1.f / (1.f + expf(-h));
-  da[i] *= s + h * s * (1.f - s);
+  da[i] *= act_grad<ACT>(hid[i]);
 }
 
 cudaError_t transformer_layer_bwd(
@@ -89,7 +92,7 @@ cudaError_t transformer_layer_bwd(
                              w2_s1, b2, rs_ff, N, hid, mu2, rstd2, dout, da, af,
                              dh, u, dln, wpart, splits_w1, splits_w2, cpart, dz,
                              dg2, db2, dw1, dw1_s0, dw1_s1, db1f, dw2, dw2_s0,
-                             dw2_s1, db2f, drs_ff, B, B * N, C, F, s));
+                             dw2_s1, db2f, drs_ff, B, B * N, C, F, ACT_SILU, s));
 
   // attention half, driven by dz
   return vtx::attention_half_bwd(
@@ -114,9 +117,9 @@ cudaError_t vtx::ff_half_bwd(
     float* cpart, float* dz, float* dg2, float* db2,
     float* dw1, long long dw1_s0, long long dw1_s1, float* db1f,
     float* dw2, long long dw2_s0, long long dw2_s1, float* db2f, float* drs_ff,
-    int B, int M, int C, int F, cudaStream_t s) {
+    int B, int M, int C, int F, int act, cudaStream_t s) {
   const long long MC = (long long)M * C, MF = (long long)M * F;
-  if (B > 65535) return cudaErrorInvalidValue;
+  if (B > 65535 || (act != ACT_SILU && act != ACT_GELU)) return cudaErrorInvalidValue;
 
   // 1. dff = r₂ ⊙ do (in da); af = silu(hid); dW₂ = afᵀ·dff; db₂ = Σ dff
   const float* dff = dout;
@@ -126,7 +129,10 @@ cudaError_t vtx::ff_half_bwd(
     VTX_CHECK(cudaGetLastError());
     dff = da;
   }
-  silu_kernel<<<ew_blocks(MF), EW_THREADS, 0, s>>>(hid, af, MF);
+  if (act == ACT_SILU)
+    act_kernel<ACT_SILU><<<ew_blocks(MF), EW_THREADS, 0, s>>>(hid, af, MF);
+  else
+    act_kernel<ACT_GELU><<<ew_blocks(MF), EW_THREADS, 0, s>>>(hid, af, MF);
   VTX_CHECK(cudaGetLastError());
   VTX_CHECK(launch_gemm_splitk(af, F, dff, C, 1, wpart, splits_w2, dw2, dw2_s0,
                                dw2_s1, F, C, M, s));
@@ -141,8 +147,11 @@ cudaError_t vtx::ff_half_bwd(
     VTX_CHECK(cudaGetLastError());
   }
 
-  // 3. dh = da ⊙ silu'(hid)
-  dsilu_mul_kernel<<<ew_blocks(MF), EW_THREADS, 0, s>>>(dh, hid, MF);
+  // 3. dh = da ⊙ act'(hid)
+  if (act == ACT_SILU)
+    dact_mul_kernel<ACT_SILU><<<ew_blocks(MF), EW_THREADS, 0, s>>>(dh, hid, MF);
+  else
+    dact_mul_kernel<ACT_GELU><<<ew_blocks(MF), EW_THREADS, 0, s>>>(dh, hid, MF);
   VTX_CHECK(cudaGetLastError());
 
   // 4. u₂ from the saved statistics; dW₁ = u₂ᵀ·dh; db₁ = Σ dh
@@ -204,4 +213,32 @@ extern "C" int vtx_fused_transformer_layer_bwd(
       dwqkv_s1, dbqkv, dwout, dwout_s0, dwout_s1, dbout, dg2, db2, dw1, dw1_s0,
       dw1_s1, db1f, dw2, dw2_s0, dw2_s1, db2f, dextra, drs_attn, drs_ff, B, N,
       C, H, D, F, scale, static_cast<cudaStream_t>(stream)));
+}
+
+// B7's backward (vision_transformers_tpu/ops/fused_layer.py:743,
+// _ff_bwd_kernel): steps 1-5 above with dz = dx, on the saves of
+// vtx_fused_ff_layer_fwd (hid — the pre-activation —, mu, rstd [M]) over
+// M = B·N rows, rs [B] per sample (N rows each), act 0 = silu, 1 =
+// tanh-gelu.  Returns the first cudaError_t met.  Workspace: da [M, C] (used
+// only with rs), af, dh [M, F], u, dln [M, C], wpart [max(splits_w1·C·F,
+// splits_w2·F·C)], cpart [ceil(M / 128) · max(C, F)].  dw1 / dw2 are
+// written through their (row, col) strides; b1, b2, rs, db1, db2 and drs
+// may be null.
+extern "C" int vtx_fused_ff_layer_bwd(
+    const float* x, const float* ln_g, const float* ln_b,
+    const float* w1, long long w1_s0, long long w1_s1, const float* b1,
+    const float* w2, long long w2_s0, long long w2_s1, const float* b2,
+    const float* rs, const float* hid, const float* mu, const float* rstd,
+    const float* dout, float* da, float* af, float* dh, float* u, float* dln,
+    float* wpart, int splits_w1, int splits_w2, float* cpart,
+    float* dx, float* dg, float* db,
+    float* dw1, long long dw1_s0, long long dw1_s1, float* db1,
+    float* dw2, long long dw2_s0, long long dw2_s1, float* db2, float* drs,
+    int B, int N, int C, int F, int act, void* stream) {
+  if (B < 1 || N < 1 || (long long)B * N > 0x7fffffffLL) return cudaErrorInvalidValue;
+  return static_cast<int>(vtx::ff_half_bwd(
+      x, ln_g, ln_b, w1, w1_s0, w1_s1, b1, w2, w2_s0, w2_s1, b2, rs, N, hid, mu,
+      rstd, dout, da, af, dh, u, dln, wpart, splits_w1, splits_w2, cpart, dx, dg, db,
+      dw1, dw1_s0, dw1_s1, db1, dw2, dw2_s0, dw2_s1, db2, drs, B, B * N, C, F, act,
+      static_cast<cudaStream_t>(stream)));
 }

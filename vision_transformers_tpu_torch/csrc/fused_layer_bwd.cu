@@ -3,8 +3,10 @@
 //
 //   z = x + r ⊙ OutProj(MHSA(QkvProj(LN(x))))
 //
-// Replaces the TPU (Pallas) kernel
+// Replaces the TPU (Pallas) kernels
 //   vision_transformers_tpu/ops/fused_layer.py:183   _attn_layer_bwd_kernel
+//   vision_transformers_tpu/ops/fused_attention.py:342   _qkv_bwd_kernel
+//       (B3's backward: step 3 below alone, vtx_fused_attention_qkv_bwd)
 // and computes what it computes: dx, dln_scale, dln_bias, dwqkv, dbqkv,
 // dwout, dbout and, when r needs a gradient, dr.  It reads the residuals the
 // training forward (fused_layer.cu) saved: qkv [M, 3HD], the attention
@@ -282,6 +284,41 @@ cudaError_t launch_attn_bwd(const float* qkv, const float* dacc, const float* ls
   return cudaGetLastError();
 }
 
+// 3a-3d: Δ, the key-tile and query-tile passes and, when dextra is
+// non-null (with extra), dS into dsbuf [B, H, N, N] and its ordered sum over
+// each group's rows into dextra [G, H, N, N].  The forward's instantiations
+// (fused_layer.cu::launch_attention): heads up to 64 wide, up to 32 with
+// the bias.
+cudaError_t attention_core_bwd(const float* qkv, const float* dacc,
+                               const float* acc, const float* lse,
+                               const float* extra, int groups, float* delta,
+                               float* dsbuf, float* dqkv, float* dextra, int B,
+                               int N, int H, int D, float scale, cudaStream_t s) {
+  if (D < 1 || D > DMAX || N < 1 || B < 1 || B > 65535 || H > 65535)
+    return cudaErrorInvalidValue;
+  if (extra && (D > EXTRA_DMAX || groups < 1 || B % groups)) return cudaErrorInvalidValue;
+  const int rows_per_group = extra ? B / groups : 1;
+  float* ds_out = (extra && dextra) ? dsbuf : nullptr;
+  attn_delta_kernel<<<ew_blocks((long long)B * H * N), EW_THREADS, 0, s>>>(
+      dacc, acc, delta, B, N, H, D);
+  VTX_CHECK(cudaGetLastError());
+  const cudaError_t attn_err =
+      extra ? launch_attn_bwd<EXTRA_DMAX, true>(qkv, dacc, lse, delta, extra,
+                                                rows_per_group, ds_out, dqkv, B, N,
+                                                H, D, scale, s)
+            : launch_attn_bwd<DMAX, false>(qkv, dacc, lse, delta, nullptr, 1,
+                                           nullptr, dqkv, B, N, H, D, scale, s);
+  VTX_CHECK(attn_err);
+  if (ds_out) {
+    const long long per_row = (long long)H * N * N;
+    const long long total = (long long)groups * per_row;
+    group_sum_kernel<<<ew_blocks(total), EW_THREADS, 0, s>>>(
+        ds_out, rows_per_group, per_row, total, dextra);
+    VTX_CHECK(cudaGetLastError());
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // Steps 1-2: da = rs ⊙ dz; dwout = accᵀ·da; dbout = Σ_rows da; dacc₀ =
@@ -361,8 +398,6 @@ cudaError_t vtx::attention_half_bwd(
   const int M = B * N, HD = H * D;
   if (D > DMAX || B > 65535 || H > 65535) return cudaErrorInvalidValue;
   if (extra && (D > EXTRA_DMAX || groups < 1 || B % groups)) return cudaErrorInvalidValue;
-  const int rows_per_group = extra ? B / groups : 1;
-  float* ds_out = (extra && dextra) ? dsbuf : nullptr;
 
   // 1-2. the out projection
   VTX_CHECK(vtx::out_proj_bwd(acc, wout, wout_s0, wout_s1, bout, rs, N, dz, da,
@@ -370,24 +405,8 @@ cudaError_t vtx::attention_half_bwd(
                               dwout_s1, dbout, drs, B, M, C, HD, s));
 
   // 3. attention backward → dqkv (and dS → dextra)
-  attn_delta_kernel<<<ew_blocks((long long)B * H * N), EW_THREADS, 0, s>>>(
-      dacc, acc, delta, B, N, H, D);
-  VTX_CHECK(cudaGetLastError());
-  // the instantiations of the forward (fused_layer.cu::launch_attention)
-  const cudaError_t attn_err =
-      extra ? launch_attn_bwd<EXTRA_DMAX, true>(qkv, dacc, lse, delta, extra,
-                                                rows_per_group, ds_out, dqkv, B, N,
-                                                H, D, scale, s)
-            : launch_attn_bwd<DMAX, false>(qkv, dacc, lse, delta, nullptr, 1,
-                                           nullptr, dqkv, B, N, H, D, scale, s);
-  VTX_CHECK(attn_err);
-  if (ds_out) {
-    const long long per_row = (long long)H * N * N;
-    const long long total = (long long)groups * per_row;
-    group_sum_kernel<<<ew_blocks(total), EW_THREADS, 0, s>>>(
-        ds_out, rows_per_group, per_row, total, dextra);
-    VTX_CHECK(cudaGetLastError());
-  }
+  VTX_CHECK(attention_core_bwd(qkv, dacc, acc, lse, extra, groups, delta, dsbuf, dqkv,
+                               dextra, B, N, H, D, scale, s));
 
   // 4-6. the qkv projection and LN
   return vtx::qkv_proj_bwd(x, ln_g, ln_b, mu, rstd, wqkv, wqkv_s0, wqkv_s1, dqkv,
@@ -424,4 +443,21 @@ extern "C" int vtx_fused_attention_layer_bwd(
       dsbuf, wpart, splits_out, splits_qkv, cpart, dx, dg, db, dwqkv, dwqkv_s0,
       dwqkv_s1, dbqkv, dwout, dwout_s0, dwout_s1, dbout, drs, dextra, B, N, C, H,
       D, scale, static_cast<cudaStream_t>(stream)));
+}
+
+// B3's backward (vision_transformers_tpu/ops/fused_attention.py:342,
+// _qkv_bwd_kernel): steps 3a-3d alone on the packed projection.  qkv
+// [B, N, 3·H·D], the forward's out [B, N, H·D] and lse [B, H, N], dout
+// [B, N, H·D]; writes dqkv [B, N, 3·H·D] (q-heads | k-heads | v-heads) in
+// the layout of qkv.  Workspace delta [B·H·N] and, with extra and a
+// non-null dextra [G, H, N, N], dsbuf [B, H, N, N]: dextra[g] is the sum
+// of dS over the group's rows in row order (no float atomics, so it is
+// bit-identical from run to run).  extra / dsbuf / dextra may be null.
+extern "C" int vtx_fused_attention_qkv_bwd(
+    const float* qkv, const float* extra, int groups, const float* out,
+    const float* lse, const float* dout, float* delta, float* dsbuf, float* dqkv,
+    float* dextra, int B, int N, int H, int D, float scale, void* stream) {
+  return static_cast<int>(attention_core_bwd(
+      qkv, dout, out, lse, extra, groups, delta, dsbuf, dqkv, dextra, B, N, H, D,
+      scale, static_cast<cudaStream_t>(stream)));
 }

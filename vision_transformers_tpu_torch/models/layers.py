@@ -11,7 +11,7 @@ from typing import Any
 import torch
 from torch import nn
 
-__all__ = ["layer_norm", "LayerNorm", "FeedForward", "drop_path_scale",
+__all__ = ["layer_norm", "LayerNorm", "FeedForward", "dropout", "drop_path_scale",
            "patchify", "scaled", "pair"]
 
 
@@ -35,14 +35,40 @@ class LayerNorm(nn.LayerNorm):
         return layer_norm(x, self.weight, self.bias, self.eps)
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """Inverted dropout as flax's ``nn.Dropout`` computes it:
+    ``where(mask, x / keep, 0)`` with the mask Bernoulli(keep = 1 − rate)
+    drawn from ``generator`` on x's device; x itself at rate 0.  Every
+    dropout mask of the port is drawn here, in the JAX models' call order,
+    so a test can supply the masks by replacing this one function."""
+    if rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class FeedForward(nn.Sequential):
     """Positionwise FF: Linear → SiLU → Dropout → Linear (reference:
     models/layer.py:186-196), keyed ``0`` / ``3`` as the reference's
-    Sequential is."""
+    Sequential is; in training the dropout between the activation and the
+    second Linear draws its mask from the caller's generator
+    (:func:`dropout`)."""
 
     def __init__(self, in_dim: int, dim: int, dropout: float = 0.0):
-        super().__init__(nn.Linear(in_dim, dim), nn.SiLU(), nn.Dropout(dropout),
+        super().__init__(nn.Linear(in_dim, dim), nn.SiLU(), nn.Identity(),
                          nn.Linear(dim, in_dim))
+        self.rate = dropout
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        h = self[1](self[0](x))
+        if self.training:
+            h = dropout(h, self.rate, generator)
+        return self[3](h)
 
 
 def drop_path_scale(b: int, rate: float, generator: torch.Generator | None,

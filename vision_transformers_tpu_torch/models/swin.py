@@ -22,7 +22,13 @@ the pair at −1e9, JAX swin.py:180-206).  Each layer dispatches through
   order with the grouped bias [G, H, m, m] (relative-position bias + shift
   mask) and both DropPath scales tiled over the groups (swin.py:239-276);
 - ``layer`` (forced only): the attention-half op with the same bias, the
-  FF half in plain torch;
+  FF half in plain torch or, under :func:`ops.set_ff_kernel`, through the
+  FF kernel (:func:`ops.fused_ff_layer`) on the same partitioned rows
+  with the FF scale tiled over the groups (swin.py:396-400);
+- ``fused`` (forced only): the window partition, the qkv projection, the
+  packed-qkv attention kernel (:func:`ops.fused_attention_qkv`) with the
+  grouped bias, the out projection and the unpartition (swin.py:163-170,
+  288-293); LN, the residuals and the FF in plain torch;
 - ``einsum``: plain torch on the packed windows (swin.py:302-330).
 
 Reference quirks reproduced: ``shift = i % 2 == 0`` (the first layer of each
@@ -202,10 +208,16 @@ class WindowAttention(nn.Module):
         out = out.permute(2, 0, 4, 1, 3, 5, 6).reshape(b, h, w, -1)
         return self._roll(out, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Plain packed-window attention on an LN'd map [b, H, W, C]
-        (JAX swin.py:302-330)."""
+    def forward(self, x: torch.Tensor, fused: bool = False) -> torch.Tensor:
+        """Packed-window attention on an LN'd map [b, H, W, C]: plain torch
+        (JAX swin.py:302-330) or, with ``fused``, the packed-qkv kernel on
+        the partitioned rows with the grouped bias (swin.py:288-293)."""
         b, h, w, _ = x.shape
+        if fused:
+            qkv = self.weight(self.partition(x))
+            out = ops.fused_attention_qkv(qkv, self.n_head, self.grouped_bias(),
+                                          1.0 / self.dim_head ** 0.5)
+            return self.unpartition(self.linear(out), b)
         win, pack, H, D = self.window, self.pack, self.n_head, self.dim_head
         hs, wsp = h // win, w // win // pack
         qkv = self.weight(self._roll(x, -1))
@@ -242,8 +254,8 @@ class SwinLayer(nn.Module):
         rs_attn, rs_ff = (None, None) if rs is None else rs
         na, attn, nf, ff = self.norm_attn, self.attn, self.norm_ff, self.ff
         impl = ops.attention_impl(b, default="layer1")
-        if impl == "einsum":
-            x = x + scaled(attn(na(x)), rs_attn)
+        if impl in ("einsum", "fused"):
+            x = x + scaled(attn(na(x), fused=impl == "fused"), rs_attn)
             return x + scaled(ff(nf(x)), rs_ff)
         # kernel paths: LN, the residuals and the row scales are token-
         # pointwise, so they commute with the roll / partition permutation;
@@ -262,6 +274,11 @@ class SwinLayer(nn.Module):
         out = ops.fused_attention_layer(xw, *attn_w, attn.n_head,
                                         extra=attn.grouped_bias(),
                                         row_scale=tile(rs_attn), eps=_LN_EPS)
+        if ops.ff_kernel_enabled():
+            out = ops.fused_ff_layer(out, nf.weight, nf.bias, ff[0].weight.t(),
+                                     ff[0].bias, ff[3].weight.t(), ff[3].bias, "silu",
+                                     tile(rs_ff), _LN_EPS)
+            return attn.unpartition(out, b)
         x = attn.unpartition(out, b)
         return x + scaled(ff(nf(x)), rs_ff)
 

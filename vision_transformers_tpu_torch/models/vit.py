@@ -6,16 +6,25 @@ Module names are the reference torch ``state_dict`` keys
 ``layers.{i}.{norm_attn,attn.qkv,attn.linear,norm_ff,ff.0,ff.3}``, ``norm``,
 ``head``), so a reference ``.pt`` loads with ``strict=True``.  Images are
 NCHW.  Each layer dispatches through :func:`ops.attention_impl` as the JAX
-layer does: plain torch (``einsum``), the attention-half kernel
-(``layer``) or the whole-layer kernel (``layer1``).
+layer does (vit.py:229-303): plain torch (``einsum``), the attention-half
+kernel (``layer``, with the FF-half kernel too under
+:func:`ops.set_ff_kernel`) or the whole-layer kernel (``layer1``) — the
+layer kernels only where no dropout is active: in eval, or with
+``dropout``, ``drop_attn`` and ``drop_ff`` all 0.  Otherwise the layer runs
+as two residual branches, its attention through the packed-qkv kernel
+(``fused``, from 32 rows and 128 tokens) or, with attention-probability
+dropout in training, through the plain einsum (vit.py:111-113).
 
 In training, DropPath draws one per-sample scale (keep-mask / keep-prob)
 per residual branch and layer, at the JAX model's rate ramp
 ``drop_path·i/(depth−1)`` (vit.py:418), from an explicit
-``torch.Generator``; the ``layer`` path hands the attention branch's scale
-to the kernel as its row scale (vit.py:259-280).  Dropout (``dropout``,
-``drop_attn``, ``drop_ff`` > 0) under training raises NotImplementedError.
-scan_layers, remat, the DINO head and crop packing are not ported.
+``torch.Generator``; the ``layer`` path hands the scales to the kernels as
+their row scales (vit.py:259-280).  Dropout draws its masks from the same
+generator through :func:`layers.dropout`, in the JAX model's order: after
+the pos-embed add, then per layer the attention probabilities
+(``drop_attn``), the attention branch (``dropout``), the FF hidden
+(``drop_ff``) and the FF branch (``dropout``).  scan_layers, remat, the
+DINO head and crop packing are not ported.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from torch import nn
 
 from .. import ops
 from ..config.registry import TypedConfig, register
+from . import layers
 from .layers import FeedForward, LayerNorm, drop_path_scale, pair, scaled
 
 __all__ = ["MultiHeadedAttention", "TransformerLayer", "PatchEmbedding",
@@ -40,22 +50,31 @@ _LN_EPS = 1e-6  # reference: models/vit.py:13
 
 
 class MultiHeadedAttention(nn.Module):
-    """Fused-qkv MHSA (reference: models/vit.py:16-45); ``forward`` is the
-    plain torch path."""
+    """Fused-qkv MHSA (reference: models/vit.py:16-45); ``dropout`` is the
+    attention-probability rate (the conf's ``drop_attn``)."""
 
-    def __init__(self, dim: int, n_head: int):
+    def __init__(self, dim: int, n_head: int, dropout: float = 0.0):
         super().__init__()
         self.n_head = n_head
+        self.dropout = dropout
         self.qkv = nn.Linear(dim, dim * 3)
         self.linear = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
+                fused: bool = False) -> torch.Tensor:
+        """``fused``: the packed-qkv kernel (:func:`ops.fused_attention_qkv`,
+        vit.py:124-129), which takes no probability dropout; else plain
+        torch, with the probabilities' dropout in training."""
         b, n, dim = x.shape
         d = dim // self.n_head
-        qkv = self.qkv(x).reshape(b, n, 3, self.n_head, d)
-        q, k, v = qkv.unbind(2)
+        qkv = self.qkv(x)
+        if fused:
+            return self.linear(ops.fused_attention_qkv(qkv, self.n_head))
+        q, k, v = qkv.reshape(b, n, 3, self.n_head, d).unbind(2)
         attn = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(d))
         attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
+        if self.training:
+            attn = layers.dropout(attn, self.dropout, generator)
         out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, n, dim)
         return self.linear(out)
 
@@ -63,33 +82,46 @@ class MultiHeadedAttention(nn.Module):
 class TransformerLayer(nn.Module):
     """Pre-LN block (reference: models/vit.py:48-66)."""
 
-    def __init__(self, dim: int, n_head: int, dim_ff: int, drop_ff: float = 0.0):
+    def __init__(self, dim: int, n_head: int, dim_ff: int, dropout: float = 0.0,
+                 drop_attn: float = 0.0, drop_ff: float = 0.0):
         super().__init__()
         self.norm_attn = LayerNorm(dim, eps=_LN_EPS)
-        self.attn = MultiHeadedAttention(dim, n_head)
+        self.attn = MultiHeadedAttention(dim, n_head, dropout=drop_attn)
         self.norm_ff = LayerNorm(dim, eps=_LN_EPS)
         self.ff = FeedForward(dim, dim_ff, dropout=drop_ff)
+        self.dropout = dropout
 
-    def forward(self, x: torch.Tensor, rs=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rs=None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         """``rs``: pre-drawn DropPath scales ``(rs_attn, rs_ff)``, each None
-        or [b] (the JAX layer's ``rs_override``, vit.py:196-208)."""
+        or [b] (the JAX layer's ``rs_override``, vit.py:196-208);
+        ``generator``: the dropout masks' source in training."""
         b, n, _ = x.shape
         rs_attn, rs_ff = (None, None) if rs is None else rs
         na, attn, nf, ff = self.norm_attn, self.attn, self.norm_ff, self.ff
         impl = ops.attention_impl(b, default="layer" if n >= 128 else "einsum")
+        dropping = self.training and (self.dropout, attn.dropout, ff.rate) != (0, 0, 0)
         attn_w = (na.weight, na.bias, attn.qkv.weight.t(), attn.qkv.bias,
                   attn.linear.weight.t(), attn.linear.bias)
-        if impl == "layer1":
+        ff_w = (nf.weight, nf.bias, ff[0].weight.t(), ff[0].bias, ff[3].weight.t(),
+                ff[3].bias)
+        if impl == "layer1" and not dropping:
             return ops.fused_transformer_layer(
-                x, *attn_w, nf.weight, nf.bias, ff[0].weight.t(), ff[0].bias,
-                ff[3].weight.t(), ff[3].bias, attn.n_head, rs_attn=rs_attn,
-                rs_ff=rs_ff, activation="silu", eps=_LN_EPS)
-        if impl == "layer":
+                x, *attn_w, *ff_w, attn.n_head, rs_attn=rs_attn, rs_ff=rs_ff,
+                activation="silu", eps=_LN_EPS)
+        if impl == "layer" and not dropping:
             x = ops.fused_attention_layer(x, *attn_w, attn.n_head,
                                           row_scale=rs_attn, eps=_LN_EPS)
-        else:
-            x = x + scaled(attn(na(x)), rs_attn)
-        return x + scaled(ff(nf(x)), rs_ff)
+            if ops.ff_kernel_enabled():
+                return ops.fused_ff_layer(x, *ff_w, "silu", rs_ff, _LN_EPS)
+            return x + scaled(ff(nf(x)), rs_ff)
+        # two residual branches; the attention's own dispatch (vit.py:111-113)
+        fused = ops.attention_impl(b, seq=n, default="fused") == "fused" \
+            and not (self.training and attn.dropout > 0)
+        drop = (lambda h: layers.dropout(h, self.dropout, generator)) if self.training \
+            else (lambda h: h)
+        x = x + scaled(drop(attn(na(x), generator, fused)), rs_attn)
+        return x + scaled(drop(ff(nf(x), generator)), rs_ff)
 
 
 class PatchEmbedding(nn.Module):
@@ -120,10 +152,11 @@ class VisionTransformer(nn.Module):
         self.cls_token = nn.Parameter(torch.zeros(1, 1, dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, n_patch + 1, dim))
         self.layers = nn.ModuleList(
-            TransformerLayer(dim, n_head, dim_ff, drop_ff) for _ in range(depth))
+            TransformerLayer(dim, n_head, dim_ff, dropout, drop_attn, drop_ff)
+            for _ in range(depth))
         self.norm = LayerNorm(dim, eps=_LN_EPS)
         self.head = nn.Linear(dim, n_class)
-        self._dropout = any(r > 0 for r in (dropout, drop_attn, drop_ff))
+        self.dropout = dropout  # after the pos-embed add (vit.py:447)
         # per-layer DropPath rates (vit.py:418)
         self.drop_path_rates = [drop_path * i / max(depth - 1, 1)
                                 for i in range(depth)]
@@ -177,19 +210,18 @@ class VisionTransformer(nn.Module):
         cls = self.cls_token.to(out.dtype).expand(b, 1, dim)
         out = torch.cat([cls, out], dim=1)
         out = out + self.interpolate_pos_embedding(n).to(out.dtype)
-        scales = self.draw_drop_path(b, generator) if self.training \
-            else [None] * len(self.layers)
+        scales = [None] * len(self.layers)
+        if self.training:
+            scales = self.draw_drop_path(b, generator)
+            out = layers.dropout(out, self.dropout, generator)
         for layer, rs in zip(self.layers, scales):
-            out = layer(out, rs)
+            out = layer(out, rs, generator)
         return self.norm(out)[:, 0]
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        """Logits; in training mode DropPath draws from ``generator``."""
-        if self.training and self._dropout:
-            raise NotImplementedError(
-                "dropout / drop_attn / drop_ff > 0 in training is not ported "
-                "(ROADMAP); ViT-S/16 trains with all three at 0")
+        """Logits; in training mode DropPath and dropout draw from
+        ``generator``."""
         return self.head(self.forward_feature(x, generator).float())
 
 

@@ -2,18 +2,27 @@
 
 Counterpart of ``vision_transformers_tpu/ops/__init__.py``.  Each kernel
 (float32) sits beside its plain torch version, forward and backward inside
-a ``torch.autograd.Function``.  Two take the attention dispatch of
+a ``torch.autograd.Function``.  Three take the attention dispatch of
 :func:`attention_impl`:
 
 - ``layer``:  :func:`fused_attention_layer` (ops/fused_layer.py) — the
-  pre-LN attention residual branch, with an optional additive bias; the FF
-  half stays plain torch.  ViT's training path (32+ rows) and Twins' local
-  attention (window pairs under a block-diagonal mask).
+  pre-LN attention residual branch, with an optional additive bias.  ViT's
+  training path without dropout (32+ rows) and Twins' local attention
+  (window pairs under a block-diagonal mask).  The FF half stays plain
+  torch unless :func:`set_ff_kernel` (or ``VTX_FF_KERNEL``) turns on
+  :func:`fused_ff_layer` (ops/fused_layer.py), the pre-LN FF residual
+  branch with silu or tanh-gelu and a DropPath row scale — off by default,
+  as in the JAX package.
 - ``layer1``: :func:`fused_transformer_layer` (ops/fused_layer1.py) — the
   whole layer, both residual branches, with the additive attention bias
   (Swin's grouped [G, H, m, m] relative-position bias + shift mask) and
   both DropPath row scales.  Swin's default path in training, eval and
   serving; ViT's under :func:`forward_only` from 128 rows.
+- ``fused``:  :func:`fused_attention_qkv` (ops/fused_attention.py) — the
+  attention alone, straight from the packed qkv projection, with an
+  optional shared or grouped bias.  ViT's training path with dropout (the
+  layer kernels take no dropout; 32+ rows, 128+ tokens, and no
+  attention-probability dropout); Swin's under a force.
 
 ``einsum`` is the plain torch attention of the models.
 
@@ -38,34 +47,43 @@ projections; ``einsum`` the plain torch neighbourhood attention.
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 from typing import Optional
 
 from . import fused_attention as fused_attention_mod  # noqa: F401  (the module)
 from . import fused_halo_layer  # noqa: F401  (the module; see above)
 from .fused_attention import fused_attention  # noqa: F401  (the function)
+from .fused_attention import fused_attention_qkv  # noqa: F401
 from .fused_halo import halo_attention_direct  # noqa: F401
-from .fused_layer import fused_attention_layer  # noqa: F401
+from .fused_layer import fused_attention_layer, fused_ff_layer  # noqa: F401
 from .fused_layer1 import fused_transformer_layer  # noqa: F401
 
-__all__ = ["forward_only", "set_attention_impl", "attention_impl", "set_halo_impl",
-           "halo_impl", "set_sra_impl", "sra_impl", "fused_attention", "fused_attention_mod",
-           "fused_attention_layer", "fused_transformer_layer", "halo_attention_direct"]
+__all__ = ["forward_only", "set_attention_impl", "attention_impl", "set_ff_kernel",
+           "ff_kernel_enabled", "set_halo_impl", "halo_impl", "set_sra_impl", "sra_impl",
+           "fused_attention", "fused_attention_mod", "fused_attention_qkv",
+           "fused_attention_layer", "fused_ff_layer", "fused_transformer_layer",
+           "halo_attention_direct"]
 
 _FORCED: Optional[str] = None
+_FF_KERNEL_FORCED: Optional[bool] = None
 _HALO_FORCED: Optional[str] = None
+_FF_KERNEL_FORCED: Optional[bool] = None
 _SRA_FORCED: Optional[str] = None
+_FF_KERNEL_FORCED: Optional[bool] = None
 # thread-local, as in the JAX package: one thread's eval forward never
 # changes another thread's dispatch
 _TLS = threading.local()
 
 # Row-count gates copied from the JAX package (vision_transformers_tpu/ops/
 # __init__.py:66-79) so that the port takes the reference's path: below
-# _AUTO_MIN_BATCH rows the einsum path runs, and under forward_only() the
-# 'layer' default becomes 'layer1' from _FWDONLY_L1_MIN_BATCH rows up.  Both
-# values were chosen by measurements on another chip; an A/B on the H100 is
-# to settle them (ROADMAP).
+# _AUTO_MIN_BATCH rows the einsum path runs, a 'fused' default needs
+# _AUTO_MIN_SEQ tokens, and under forward_only() the 'layer' default becomes
+# 'layer1' from _FWDONLY_L1_MIN_BATCH rows up.  The values were chosen by
+# measurements on another chip; an A/B on the H100 is to settle them
+# (ROADMAP).
 _AUTO_MIN_BATCH = 32
+_AUTO_MIN_SEQ = 128
 _FWDONLY_L1_MIN_BATCH = 128
 
 
@@ -82,26 +100,50 @@ def forward_only():
 
 
 def set_attention_impl(impl: Optional[str]) -> None:
-    """Force the attention implementation: "einsum" | "layer" | "layer1";
-    None = the row-count dispatch of :func:`attention_impl`."""
+    """Force the attention implementation: "einsum" | "fused" | "layer" |
+    "layer1"; None = the row / token-count dispatch of
+    :func:`attention_impl`."""
     global _FORCED
-    if impl not in (None, "einsum", "layer", "layer1"):
+    if impl not in (None, "einsum", "fused", "layer", "layer1"):
         raise ValueError(f"unknown attention impl {impl!r}")
     _FORCED = impl
 
 
-def attention_impl(batch: Optional[int] = None, default: str = "einsum") -> str:
+def attention_impl(batch: Optional[int] = None, seq: Optional[int] = None,
+                   default: str = "einsum") -> str:
     """Implementation for one attention call site: ``batch`` is the call's
-    row count, ``default`` the site's default ('layer' for sequences of
-    ≥ 128 tokens in models/vit.py, 'layer1' in models/swin.py)."""
+    row count, ``seq`` its token count, ``default`` the site's default
+    ('layer' for sequences of ≥ 128 tokens and 'fused' for the attention
+    itself in models/vit.py, 'layer1' in models/swin.py)."""
     if _FORCED is not None:
         return _FORCED
     if default != "einsum" and batch is not None and batch < _AUTO_MIN_BATCH:
+        return "einsum"
+    if default == "fused" and seq is not None and seq < _AUTO_MIN_SEQ:
         return "einsum"
     if default == "layer" and getattr(_TLS, "forward_only", False) and \
             (batch is None or batch >= _FWDONLY_L1_MIN_BATCH):
         return "layer1"
     return default
+
+
+def set_ff_kernel(enabled: Optional[bool]) -> None:
+    """Force the FF kernel (:func:`fused_ff_layer`) on or off at the
+    'layer' sites; None = :func:`ff_kernel_enabled`'s default."""
+    global _FF_KERNEL_FORCED
+    _FF_KERNEL_FORCED = enabled
+
+
+def ff_kernel_enabled() -> bool:
+    """Whether the 'layer' sites (ViT's and Swin's) run their FF residual
+    branch through :func:`fused_ff_layer`: a :func:`set_ff_kernel` force,
+    else ``VTX_FF_KERNEL`` (anything but 0 / false / off is on), else off —
+    the JAX package's default (ops/__init__.py:251-268).  Whether it pays
+    on the H100 is measured, not assumed (PERF.md)."""
+    if _FF_KERNEL_FORCED is not None:
+        return _FF_KERNEL_FORCED
+    env = os.environ.get("VTX_FF_KERNEL")
+    return env is not None and env not in ("0", "false", "off")
 
 
 def set_halo_impl(impl: Optional[str]) -> None:

@@ -166,6 +166,46 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I,      # B, G, M, N, D
         _F, _P,                  # scale, stream
     ],
+    "vtx_fused_attention_qkv_fwd": [
+        _P, _P, _I,              # qkv, extra (nullable), groups
+        _P, _P,                  # out, lse (nullable save)
+        _I, _I, _I, _I,          # B, N, H, D
+        _F, _P,                  # scale, stream
+    ],
+    "vtx_fused_attention_qkv_bwd": [
+        _P, _P, _I,              # qkv, extra (nullable), groups
+        _P, _P, _P,              # out, lse, dout
+        _P, _P,                  # delta, dsbuf (workspace; dsbuf nullable)
+        _P, _P,                  # dqkv, dextra (nullable)
+        _I, _I, _I, _I,          # B, N, H, D
+        _F, _P,                  # scale, stream
+    ],
+    "vtx_fused_ff_layer_fwd": [
+        _P, _P, _P,              # x, ln_scale, ln_bias
+        _P, _L, _L, _P,          # w1, its strides, b1 (nullable)
+        _P, _L, _L, _P,          # w2, its strides, b2 (nullable)
+        _P,                      # row scale (nullable)
+        _P, _P, _P,              # u, hid (workspace), af (nullable)
+        _P, _P,                  # mu, rstd (nullable saves)
+        _P,                      # out
+        _I, _I, _I, _I, _I,      # B, N, C, F, activation (0 silu, 1 gelu)
+        _F, _P,                  # eps, stream
+    ],
+    "vtx_fused_ff_layer_bwd": [
+        _P, _P, _P,              # x, ln_scale, ln_bias
+        _P, _L, _L, _P,          # w1, its strides, b1
+        _P, _L, _L, _P,          # w2, its strides, b2
+        _P, _P, _P, _P,          # row scale, hid, mu, rstd
+        _P,                      # dout
+        _P, _P, _P, _P, _P,      # da, af, dh, u, dln (workspace)
+        _P, _I, _I, _P,          # wpart, splits w1 / w2, cpart
+        _P, _P, _P,              # dx, dln_scale, dln_bias
+        _P, _L, _L, _P,          # dw1, its strides, db1
+        _P, _L, _L, _P,          # dw2, its strides, db2
+        _P,                      # drs
+        _I, _I, _I, _I, _I,      # B, N, C, F, activation
+        _P,                      # stream
+    ],
     "vtx_halo_attention_direct_bwd": [
         _P, _P, _P, _P, _P, _P,  # q, kv, bias, out, lse, do
         _P, _P, _P, _I,          # delta, dkvw, dbias partials (workspace), chunks

@@ -43,8 +43,8 @@ from .fused_halo import (attention_bwd_reference, attention_fwd_reference,
 from .fused_layer import (_default_scale, _dot, _ln_stats, _raise_on, _residual,
                           _splits, cast_like, check_f32, check_matrix, check_vector,
                           like_layout, out_proj_bwd_reference, ptr,
+                          ff_half_bwd_reference, ff_half_fwd_reference,
                           qkv_proj_bwd_reference)
-from .fused_layer1 import ff_half_bwd_reference, ff_half_fwd_reference
 
 __all__ = ["fused_halo_layer", "fused_halo_layer_reference", "fused_halo_layer_fwd",
            "fused_halo_layer_bwd", "fused_halo_layer_fwd_reference",
@@ -152,7 +152,9 @@ def fused_halo_layer_bwd_reference(saved: HaloSaved, do: torch.Tensor,
     HD = s.wqkv.shape[1] // 3
     M = B * H * W
     # FF half → dz
-    dz, dg2, db2, dw1, db1f, dw2, db2f, drs_ff = ff_half_bwd_reference(s, do, need_drs[1])
+    dz, dg2, db2, dw1, db1f, dw2, db2f, drs_ff = ff_half_bwd_reference(
+        s.z, s.ln2_scale, s.ln2_bias, s.w1, s.b1, s.w2, s.b2, s.rs_ff, s.hid, s.mu2,
+        s.rstd2, s.activation, do, need_drs[1])
     # the out projection → dacc
     dacc, dwout, dbout, drs_attn = out_proj_bwd_reference(
         s.acc.reshape(M, HD), s.wout, s.bout, s.rs_attn, dz, H * W, need_drs[0])

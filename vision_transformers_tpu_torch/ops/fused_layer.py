@@ -33,6 +33,16 @@ on a CUDA tensor raises NotImplementedError.  The weights may
 be any 2-D strided view: the model passes ``linear.weight.t()``, and the
 wrapper hands those strides to the kernels instead of copying the weights;
 their gradients come back in the view's shape and layout.
+
+The FF residual branch has its own op here, as in the JAX module
+(fused_layer.py:701-971): :func:`fused_ff_layer`, ``x + row_scale ⊙
+(act(LN(x)·W₁ + b₁)·W₂ + b₂)`` with act silu or tanh-gelu and b₁, b₂,
+row_scale each optional.  Its forward saves the pre-activation and the LN
+statistics (the Pallas backward recomputes them); its backward returns dx,
+dln_scale, dln_bias, dW₁, db₁, dW₂, db₂ and drs.  A CPU tensor runs
+:func:`fused_ff_layer_reference` / :func:`fused_ff_layer_bwd_reference`, a
+CUDA tensor the kernels of ``csrc/fused_layer.cu`` (forward) and
+``csrc/fused_layer1_bwd.cu`` (backward), f32 only, or raises.
 """
 
 from __future__ import annotations
@@ -45,7 +55,10 @@ import torch
 
 __all__ = ["fused_attention_layer", "fused_attention_layer_reference",
            "fused_attention_layer_bwd_reference", "AttnSaved", "LAUNCHES",
-           "BWD_LAUNCHES", "BIAS_LAUNCHES", "BIAS_BWD_LAUNCHES"]
+           "BWD_LAUNCHES", "BIAS_LAUNCHES", "BIAS_BWD_LAUNCHES", "fused_ff_layer",
+           "fused_ff_layer_reference", "fused_ff_layer_fwd", "fused_ff_layer_bwd",
+           "fused_ff_layer_fwd_reference", "fused_ff_layer_bwd_reference", "FFSaved",
+           "FF_GRAD_NAMES", "FF_LAUNCHES", "FF_BWD_LAUNCHES"]
 
 # kernel launches through this module's wrappers, forward and backward
 # (chip_smoke.py reads them to show the main path went through the kernels),
@@ -609,3 +622,311 @@ def fused_attention_layer(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
             x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, n_head, extra,
             row_scale, scale, eps)
     raise NotImplementedError(f"no fused_attention_layer for device {x.device}")
+
+
+# ---------------------------------------------------------------------------
+# the FF residual branch: fused_ff_layer (B7)
+# ---------------------------------------------------------------------------
+
+# kernel launches through fused_ff_layer's wrappers, forward and backward
+FF_LAUNCHES = 0
+FF_BWD_LAUNCHES = 0
+
+ACTIVATIONS = {"silu": 0, "gelu": 1}  # csrc ACT_SILU, ACT_GELU
+
+
+def _act(h: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "silu":
+        return h * torch.sigmoid(h)
+    if kind == "gelu":  # tanh approximation (jax.nn.gelu default)
+        return torch.nn.functional.gelu(h, approximate="tanh")
+    raise ValueError(kind)
+
+
+def _act_grad(h: torch.Tensor, kind: str) -> torch.Tensor:
+    """d act / d h at h, f32 (the JAX package's ``_act_bwd``,
+    ops/fused_layer.py:98-108)."""
+    if kind == "silu":
+        s = torch.sigmoid(h)
+        return s + h * s * (1.0 - s)
+    if kind == "gelu":
+        c = math.sqrt(2.0 / math.pi)
+        t = torch.tanh(c * (h + 0.044715 * h ** 3))
+        dt = (1.0 - t * t) * c * (1.0 + 3 * 0.044715 * h * h)
+        return 0.5 * (1.0 + t) + 0.5 * h * dt
+    raise ValueError(kind)
+
+
+def ff_half_fwd_reference(z, ln2_scale, ln2_bias, w1, b1, w2, b2, rs_ff,
+                          activation: str, eps: float):
+    """The FF residual branch's plain training forward on z [B, ..., C]:
+    (out, hid — the pre-activation —, mu2, rstd2 [B, ...])."""
+    zf = z.float()
+    mu2, rstd2 = _ln_stats(zf, eps)
+    u2 = ((zf - mu2) * rstd2 * ln2_scale.float() + ln2_bias.float()).to(z.dtype)
+    hid = _dot(u2, w1, z.dtype)
+    if b1 is not None:
+        hid = hid + b1
+    af = _act(hid.float(), activation).to(z.dtype)
+    out = _dot(af, w2, z.dtype)
+    if b2 is not None:
+        out = out + b2
+    return _residual(z, out, rs_ff), hid, mu2[..., 0], rstd2[..., 0]
+
+
+def ff_half_bwd_reference(z, ln2_scale, ln2_bias, w1, b1, w2, b2, rs_ff, hid, mu2,
+                          rstd2, activation: str, do: torch.Tensor,
+                          need_drs: bool = True):
+    """The FF half's plain backward in the kernel's steps 1-5
+    (csrc/fused_layer1_bwd.cu), on the branch input z [B, ..., C] (any token
+    layout; rs_ff [B] per sample) and the saves of
+    :func:`ff_half_fwd_reference`: → (dz [M, C] f32, dln2_scale, dln2_bias,
+    dw1, db1, dw2, db2, drs_ff)."""
+    B, C = z.shape[0], z.shape[-1]
+    M = z.numel() // C
+    N = M // B
+    f = torch.float32
+    do2 = do.reshape(M, C).to(f)
+    hid = hid.reshape(M, -1).to(f)
+    # 1. dff = r₂ ⊙ do; af = act(hid); dW₂ = afᵀ·dff; db₂ = Σ_rows dff
+    rsr = None if rs_ff is None else rs_ff.to(f).repeat_interleave(N)[:, None]
+    dff = do2 if rs_ff is None else do2 * rsr
+    af = _act(hid, activation)
+    dw2 = af.t() @ dff
+    db2f = dff.sum(0) if b2 is not None else None
+    # 2. da₀ = do·W₂ᵀ; dr₂ (reassociated); da = r₂ ⊙ da₀
+    da = do2 @ w2.to(f).t()
+    drs_ff = None
+    if rs_ff is not None:
+        if need_drs:
+            per_row = (da * af).sum(1)
+            if b2 is not None:
+                per_row = per_row + do2 @ b2.to(f)
+            drs_ff = per_row.reshape(B, N).sum(1).to(rs_ff.dtype)
+        da = da * rsr
+    # 3. dh = da ⊙ act'(hid)
+    dh = da * _act_grad(hid, activation)
+    # 4. u₂ from the saved statistics; dW₁ = u₂ᵀ·dh; db₁ = Σ_rows dh
+    xhat2 = (z.reshape(M, C).to(f) - mu2.reshape(M, 1)) * rstd2.reshape(M, 1)
+    u2 = xhat2 * ln2_scale.to(f) + ln2_bias.to(f)
+    dw1 = u2.t() @ dh
+    db1f = dh.sum(0) if b1 is not None else None
+    # 5. dln₂ = dh·W₁ᵀ; dz = do + LN₂ᵀ(dln₂)
+    dln2 = dh @ w1.to(f).t()
+    dz, dg2, db2n = ln_bwd_reference(dln2, xhat2, rstd2.reshape(M, 1), ln2_scale, do2)
+    return (dz, cast_like(dg2, ln2_scale), cast_like(db2n, ln2_bias), cast_like(dw1, w1),
+            cast_like(db1f, b1), cast_like(dw2, w2), cast_like(db2f, b2), drs_ff)
+
+
+class FFSaved(NamedTuple):
+    """What the FF backward reads: the forward's inputs and the saves hid
+    [B, N, F] (the pre-activation) and mu / rstd [B, N]."""
+
+    x: torch.Tensor
+    ln_scale: torch.Tensor
+    ln_bias: torch.Tensor
+    w1: torch.Tensor
+    b1: Optional[torch.Tensor]
+    w2: torch.Tensor
+    b2: Optional[torch.Tensor]
+    row_scale: Optional[torch.Tensor]
+    hid: torch.Tensor
+    mu: torch.Tensor
+    rstd: torch.Tensor
+    activation: str
+    eps: float
+
+
+N_FF_SAVED_TENSORS = 11  # FFSaved's tensor fields; the rest are attributes
+
+FF_GRAD_NAMES = ("dx", "dln_scale", "dln_bias", "dw1", "db1", "dw2", "db2", "drs")
+
+
+def fused_ff_layer_reference(x, ln_scale, ln_bias, w1, b1, w2, b2,
+                             activation: str = "silu", row_scale=None,
+                             eps: float = 1e-6):
+    """Plain torch version of :func:`fused_ff_layer` (forward)."""
+    return ff_half_fwd_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, row_scale,
+                                 activation, eps)[0]
+
+
+def fused_ff_layer_fwd_reference(x, ln_scale, ln_bias, w1, b1, w2, b2,
+                                 activation: str = "silu", row_scale=None,
+                                 eps: float = 1e-6):
+    """Plain training forward: (out, :class:`FFSaved`)."""
+    out, hid, mu, rstd = ff_half_fwd_reference(x, ln_scale, ln_bias, w1, b1, w2, b2,
+                                               row_scale, activation, eps)
+    return out, FFSaved(x, ln_scale, ln_bias, w1, b1, w2, b2, row_scale, hid, mu,
+                        rstd, activation, float(eps))
+
+
+def fused_ff_layer_bwd_reference(saved: FFSaved, do: torch.Tensor,
+                                 need_drs: bool = True):
+    """Plain backward on the saves, in the kernel's steps: the 8 gradients
+    of ``FF_GRAD_NAMES`` (a bias's or the row scale's None where it is, drs
+    None unless ``need_drs``)."""
+    s = saved
+    dx, *grads = ff_half_bwd_reference(s.x, s.ln_scale, s.ln_bias, s.w1, s.b1, s.w2,
+                                       s.b2, s.row_scale, s.hid, s.mu, s.rstd,
+                                       s.activation, do, need_drs)
+    return (dx.reshape(s.x.shape).to(s.x.dtype), *grads)
+
+
+def _check_ff(x, ln_scale, ln_bias, w1, b1, w2, b2, row_scale, activation):
+    """Shapes and types the CUDA FF op takes; returns (B, N, C, F)."""
+    if activation not in ACTIVATIONS:
+        raise NotImplementedError(
+            f"the CUDA FF kernel takes activation 'silu' or 'gelu', got {activation!r}")
+    check_f32(x.device, x=x, ln_scale=ln_scale, ln_bias=ln_bias, w1=w1, b1=b1, w2=w2,
+              b2=b2, row_scale=row_scale)
+    if x.ndim != 3 or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous [B, N, C] tensor, got shape "
+                         f"{tuple(x.shape)} strides {x.stride()}")
+    B, N, C = x.shape
+    if w1.ndim != 2:
+        raise ValueError(f"w1 must be [C, F], got {tuple(w1.shape)}")
+    F = w1.shape[1]
+    check_vector("ln_scale", ln_scale, C)
+    check_vector("ln_bias", ln_bias, C)
+    check_matrix("w1", w1, C, F)
+    check_vector("b1", b1, F)
+    check_matrix("w2", w2, F, C)
+    check_vector("b2", b2, C)
+    check_vector("row_scale", row_scale, B)
+    return B, N, C, F
+
+
+def _cuda_ff_fwd(x, ln_scale, ln_bias, w1, b1, w2, b2, activation, row_scale, eps,
+                 save: bool):
+    """The FF forward kernel: out, plus (hid, mu, rstd) when ``save``."""
+    global FF_LAUNCHES
+    B, N, C, F = _check_ff(x, ln_scale, ln_bias, w1, b1, w2, b2, row_scale, activation)
+    from ._build import build
+
+    lib = build()
+    M = B * N
+    opts = dict(device=x.device, dtype=torch.float32)
+    u = torch.empty((M, C), **opts)
+    hid = torch.empty((B, N, F), **opts)
+    af = torch.empty((M, F), **opts) if save else None
+    mu, rstd = (torch.empty((B, N), **opts), torch.empty((B, N), **opts)) if save \
+        else (None, None)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        FF_LAUNCHES += 1
+        err = lib.vtx_fused_ff_layer_fwd(
+            ptr(x), ptr(ln_scale), ptr(ln_bias),
+            ptr(w1), w1.stride(0), w1.stride(1), ptr(b1),
+            ptr(w2), w2.stride(0), w2.stride(1), ptr(b2), ptr(row_scale),
+            ptr(u), ptr(hid), ptr(af), ptr(mu), ptr(rstd), ptr(out),
+            B, N, C, F, ACTIVATIONS[activation], ctypes.c_float(eps), stream)
+    _raise_on(err, "fused_ff_layer")
+    return out, (hid, mu, rstd)
+
+
+def _cuda_ff_bwd(saved: FFSaved, do: torch.Tensor, need_drs: bool):
+    """The FF backward kernel sequence: the 8 gradients of ``FF_GRAD_NAMES``."""
+    global FF_BWD_LAUNCHES
+    s = saved
+    x = s.x
+    do = do.contiguous()
+    check_f32(x.device, do=do, hid=s.hid, mu=s.mu, rstd=s.rstd)
+    if do.shape != x.shape:
+        raise ValueError(f"do must be {tuple(x.shape)}, got {tuple(do.shape)}")
+    B, N, C, F = _check_ff(x, s.ln_scale, s.ln_bias, s.w1, s.b1, s.w2, s.b2,
+                           s.row_scale, s.activation)
+    M = B * N
+    from ._build import build
+
+    lib = build()
+    opts = dict(device=x.device, dtype=torch.float32)
+    s_w1, s_w2 = _splits(C, F, M), _splits(F, C, M)
+    chunks = -(-M // 128)  # csrc COLSUM_ROWS
+    ws = dict(da=torch.empty((M, C), **opts) if s.row_scale is not None else None,
+              af=torch.empty((M, F), **opts), dh=torch.empty((M, F), **opts),
+              u=torch.empty((M, C), **opts), dln=torch.empty((M, C), **opts),
+              wpart=torch.empty((max(s_w1, s_w2) * C * F,), **opts),
+              cpart=torch.empty((chunks * max(C, F),), **opts))
+    dx = torch.empty_like(x)
+    dg, db = torch.empty((C,), **opts), torch.empty((C,), **opts)
+    dw1, dw2 = like_layout(s.w1), like_layout(s.w2)
+    db1 = torch.empty((F,), **opts) if s.b1 is not None else None
+    db2 = torch.empty((C,), **opts) if s.b2 is not None else None
+    drs = torch.empty((B,), **opts) if s.row_scale is not None and need_drs else None
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        FF_BWD_LAUNCHES += 1
+        err = lib.vtx_fused_ff_layer_bwd(
+            ptr(x), ptr(s.ln_scale), ptr(s.ln_bias),
+            ptr(s.w1), s.w1.stride(0), s.w1.stride(1), ptr(s.b1),
+            ptr(s.w2), s.w2.stride(0), s.w2.stride(1), ptr(s.b2),
+            ptr(s.row_scale), ptr(s.hid), ptr(s.mu), ptr(s.rstd), ptr(do),
+            *(ptr(ws[k]) for k in ("da", "af", "dh", "u", "dln", "wpart")),
+            s_w1, s_w2, ptr(ws["cpart"]),
+            ptr(dx), ptr(dg), ptr(db),
+            ptr(dw1), dw1.stride(0), dw1.stride(1), ptr(db1),
+            ptr(dw2), dw2.stride(0), dw2.stride(1), ptr(db2), ptr(drs),
+            B, N, C, F, ACTIVATIONS[s.activation], stream)
+    _raise_on(err, "fused_ff_layer backward")
+    return dx, dg, db, dw1, db1, dw2, db2, drs
+
+
+def fused_ff_layer_fwd(x, ln_scale, ln_bias, w1, b1, w2, b2, activation: str = "silu",
+                       row_scale=None, eps: float = 1e-6):
+    """Training forward with saves: (out, :class:`FFSaved`) — the kernel for
+    a CUDA tensor, the plain version for a CPU one."""
+    if x.is_cuda:
+        out, (hid, mu, rstd) = _cuda_ff_fwd(x, ln_scale, ln_bias, w1, b1, w2, b2,
+                                            activation, row_scale, float(eps), save=True)
+        return out, FFSaved(x, ln_scale, ln_bias, w1, b1, w2, b2, row_scale, hid, mu,
+                            rstd, activation, float(eps))
+    if x.device.type == "cpu":
+        return fused_ff_layer_fwd_reference(x, ln_scale, ln_bias, w1, b1, w2, b2,
+                                            activation, row_scale, eps)
+    raise NotImplementedError(f"no fused_ff_layer for device {x.device}")
+
+
+def fused_ff_layer_bwd(saved: FFSaved, do: torch.Tensor, need_drs: bool = True):
+    """Backward on the saves of :func:`fused_ff_layer_fwd` — the kernel for
+    a CUDA tensor, the plain version for a CPU one."""
+    if do.is_cuda:
+        return _cuda_ff_bwd(saved, do, need_drs)
+    if do.device.type == "cpu":
+        return fused_ff_layer_bwd_reference(saved, do, need_drs)
+    raise NotImplementedError(f"no fused_ff_layer backward for {do.device}")
+
+
+class _FusedFFLayer(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, w1, b1, w2, b2, row_scale, activation, eps):
+        out, saved = fused_ff_layer_fwd(x, ln_scale, ln_bias, w1, b1, w2, b2,
+                                        activation, row_scale, eps)
+        ctx.save_for_backward(*saved[:N_FF_SAVED_TENSORS])
+        ctx.attrs = saved[N_FF_SAVED_TENSORS:]
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        saved = FFSaved(*ctx.saved_tensors, *ctx.attrs)
+        grads = fused_ff_layer_bwd(saved, do, ctx.needs_input_grad[7])
+        return (*grads, None, None)
+
+
+def fused_ff_layer(x, ln_scale, ln_bias, w1, b1, w2, b2, activation: str = "silu",
+                   row_scale=None, eps: float = 1e-6):
+    """Pre-LN feed-forward residual branch, fused:
+    ``x + row_scale ⊙ (act(LN(x)·W₁ + b₁)·W₂ + b₂)``, differentiable; x
+    [B, N, C], w1 [C, F], w2 [F, C], b1 / b2 / row_scale [B] optional,
+    activation "silu" | "gelu" (tanh approximation)."""
+    tensors = (x, ln_scale, ln_bias, w1, b1, w2, b2, row_scale)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        return _FusedFFLayer.apply(*tensors, activation, float(eps))
+    if x.is_cuda:
+        return _cuda_ff_fwd(x, ln_scale, ln_bias, w1, b1, w2, b2, activation,
+                            row_scale, float(eps), save=False)[0]
+    if x.device.type == "cpu":
+        return fused_ff_layer_reference(x, ln_scale, ln_bias, w1, b1, w2, b2,
+                                        activation, row_scale, eps)
+    raise NotImplementedError(f"no fused_ff_layer for device {x.device}")

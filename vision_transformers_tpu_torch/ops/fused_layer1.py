@@ -41,19 +41,17 @@ view's layout).
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import NamedTuple, Optional
 
 import torch
-import torch.nn.functional as F
 
-from .fused_layer import (AttnSaved, _default_scale, _dot, _ln,
-                          _ln_stats, _raise_on, _residual, _splits,
+from .fused_layer import (AttnSaved, _act, _default_scale, _dot, _ln,
+                          _raise_on, _residual, _splits,
                           attention_branch_reference, attention_half_bwd_reference,
-                          cast_like, check_attention_args, check_extra, check_f32,
+                          check_attention_args, check_extra, check_f32,
                           check_matrix, check_vector, extra_grad, extra_groups,
-                          fused_attention_layer_fwd_reference, like_layout,
-                          ln_bwd_reference, ptr)
+                          ff_half_bwd_reference, ff_half_fwd_reference,
+                          fused_attention_layer_fwd_reference, like_layout, ptr)
 
 __all__ = ["fused_transformer_layer", "fused_transformer_layer_reference",
            "fused_transformer_layer_fwd", "fused_transformer_layer_bwd",
@@ -69,28 +67,6 @@ BWD_LAUNCHES = 0
 GRAD_NAMES = ("dx", "dln1_scale", "dln1_bias", "dwqkv", "dbqkv", "dwout", "dbout",
               "dln2_scale", "dln2_bias", "dw1", "db1", "dw2", "db2", "dextra",
               "drs_attn", "drs_ff")
-
-
-def _act(h: torch.Tensor, kind: str) -> torch.Tensor:
-    if kind == "silu":
-        return h * torch.sigmoid(h)
-    if kind == "gelu":  # tanh approximation (jax.nn.gelu default)
-        return F.gelu(h, approximate="tanh")
-    raise ValueError(kind)
-
-
-def _act_grad(h: torch.Tensor, kind: str) -> torch.Tensor:
-    """d act / d h at h, f32 (the JAX package's ``_act_bwd``,
-    ops/fused_layer.py:98-108)."""
-    if kind == "silu":
-        s = torch.sigmoid(h)
-        return s + h * s * (1.0 - s)
-    if kind == "gelu":
-        c = math.sqrt(2.0 / math.pi)
-        t = torch.tanh(c * (h + 0.044715 * h ** 3))
-        dt = (1.0 - t * t) * c * (1.0 + 3 * 0.044715 * h * h)
-        return 0.5 * (1.0 + t) + 0.5 * h * dt
-    raise ValueError(kind)
 
 
 def fused_transformer_layer_reference(x, ln1_scale, ln1_bias, wqkv, bqkv, wout,
@@ -183,74 +159,11 @@ def fused_transformer_layer_fwd_reference(x, ln1_scale, ln1_bias, wqkv, bqkv,
                         mu2, rstd2, n_head, activation, scale, float(eps))
 
 
-def ff_half_fwd_reference(z, ln2_scale, ln2_bias, w1, b1, w2, b2, rs_ff,
-                          activation: str, eps: float):
-    """The FF residual branch's plain training forward on z [..., C]:
-    (out, hid — the pre-activation —, mu2, rstd2 [...])."""
-    zf = z.float()
-    mu2, rstd2 = _ln_stats(zf, eps)
-    u2 = ((zf - mu2) * rstd2 * ln2_scale.float() + ln2_bias.float()).to(z.dtype)
-    hid = _dot(u2, w1, z.dtype)
-    if b1 is not None:
-        hid = hid + b1
-    af = _act(hid.float(), activation).to(z.dtype)
-    out = _dot(af, w2, z.dtype)
-    if b2 is not None:
-        out = out + b2
-    return _residual(z, out, rs_ff), hid, mu2[..., 0], rstd2[..., 0]
-
-
 def _attn_saved(s: L1Saved) -> AttnSaved:
     """The attention half's view of the saves."""
     return AttnSaved(s.x, s.ln1_scale, s.ln1_bias, s.wqkv, s.bqkv, s.wout, s.bout,
                      s.rs_attn, s.qkv, s.acc, s.mu1, s.rstd1, s.lse, s.extra_g,
                      s.n_head, s.scale, s.eps)
-
-
-def ff_half_bwd_reference(saved, do: torch.Tensor, need_drs: bool = True):
-    """The FF half's plain backward in the kernel's steps 1-5
-    (csrc/fused_layer1_bwd.cu), on saves with the fields of
-    :class:`L1Saved` (x, z, hid, mu2, rstd2, the LN₂ and FF weights, rs_ff,
-    activation; any token layout [B, ..., C]): → (dz [M, C] f32, dln2_scale,
-    dln2_bias, dw1, db1, dw2, db2, drs_ff)."""
-    B, C = saved.x.shape[0], saved.x.shape[-1]
-    M = saved.x.numel() // C
-    N = M // B
-    f = torch.float32
-    rs_ff, act = saved.rs_ff, saved.activation
-    do2 = do.reshape(M, C).to(f)
-    hid = saved.hid.reshape(M, -1).to(f)
-    # 1. dff = r₂ ⊙ do; af = act(hid); dW₂ = afᵀ·dff; db₂ = Σ_rows dff
-    rsr = None if rs_ff is None else rs_ff.to(f).repeat_interleave(N)[:, None]
-    dff = do2 if rs_ff is None else do2 * rsr
-    af = _act(hid, act)
-    dw2 = af.t() @ dff
-    db2f = dff.sum(0) if saved.b2 is not None else None
-    # 2. da₀ = do·W₂ᵀ; dr₂ (reassociated); da = r₂ ⊙ da₀
-    da = do2 @ saved.w2.to(f).t()
-    drs_ff = None
-    if rs_ff is not None:
-        if need_drs:
-            per_row = (da * af).sum(1)
-            if saved.b2 is not None:
-                per_row = per_row + do2 @ saved.b2.to(f)
-            drs_ff = per_row.reshape(B, N).sum(1).to(rs_ff.dtype)
-        da = da * rsr
-    # 3. dh = da ⊙ act'(hid)
-    dh = da * _act_grad(hid, act)
-    # 4. u₂ from the saved statistics; dW₁ = u₂ᵀ·dh; db₁ = Σ_rows dh
-    xhat2 = (saved.z.reshape(M, C).to(f) - saved.mu2.reshape(M, 1)) \
-        * saved.rstd2.reshape(M, 1)
-    u2 = xhat2 * saved.ln2_scale.to(f) + saved.ln2_bias.to(f)
-    dw1 = u2.t() @ dh
-    db1f = dh.sum(0) if saved.b1 is not None else None
-    # 5. dln₂ = dh·W₁ᵀ; dz = do + LN₂ᵀ(dln₂)
-    dln2 = dh @ saved.w1.to(f).t()
-    dz, dg2, db2 = ln_bwd_reference(dln2, xhat2, saved.rstd2.reshape(M, 1),
-                                    saved.ln2_scale, do2)
-    return (dz, cast_like(dg2, saved.ln2_scale), cast_like(db2, saved.ln2_bias),
-            cast_like(dw1, saved.w1), cast_like(db1f, saved.b1),
-            cast_like(dw2, saved.w2), cast_like(db2f, saved.b2), drs_ff)
 
 
 def fused_transformer_layer_bwd_reference(saved: L1Saved, do: torch.Tensor,
@@ -261,8 +174,10 @@ def fused_transformer_layer_bwd_reference(saved: L1Saved, do: torch.Tensor,
     grad is None where the bias is, dextra (grouped [G, H, N, N]) None
     without extra or ``need_dextra``, a row scale's None without it or
     where ``need_drs`` says so."""
-    dz, dg2, db2, dw1, db1f, dw2, db2f, drs_ff = ff_half_bwd_reference(saved, do,
-                                                                       need_drs[1])
+    s = saved
+    dz, dg2, db2, dw1, db1f, dw2, db2f, drs_ff = ff_half_bwd_reference(
+        s.z, s.ln2_scale, s.ln2_bias, s.w1, s.b1, s.w2, s.b2, s.rs_ff, s.hid, s.mu2,
+        s.rstd2, s.activation, do, need_drs[1])
     # attention half, driven by dz
     dx, dg1, db1, dwqkv, dbqkv, dwout, dbout, drs_attn, dextra = \
         attention_half_bwd_reference(_attn_saved(saved), dz, need_drs[0], need_dextra)

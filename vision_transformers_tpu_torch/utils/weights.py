@@ -1,6 +1,7 @@
 """Weights for the port's ViT, Swin, Halo, PVT and Twins-SVT: from the JAX
 package's flax params, from a reference ``.pt`` checkpoint, or generated
-from a numpy seed.
+from a numpy seed; and the seeded dropout masks a train-step golden and
+its checks share.
 
 Every state_dict here is in the reference torch layout (models/vit.py,
 models/swin_transformer.py, models/halo_transformer.py, models/pvt.py and
@@ -10,6 +11,7 @@ models/twins.py of the reference; the keys of the JAX package's
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Any, Dict, Optional
 
@@ -17,7 +19,9 @@ import numpy as np
 import torch
 
 __all__ = ["state_dict_from_flax", "load_checkpoint", "seeded_state_dict",
-           "seeded_images", "seeded_train_batch", "grad_projections", "to_torch"]
+           "seeded_images", "seeded_train_batch", "seeded_dropout_masks",
+           "supplied_dropout_masks", "vit_dropout_calls", "grad_projections",
+           "to_torch"]
 
 
 # ---------------------------------------------------------------------------
@@ -454,6 +458,59 @@ def seeded_train_batch(seed: int, n: int, size: int, n_class: int) -> Dict[str, 
     return {"image": rng.standard_normal((n, size, size, 3), dtype=np.float32),
             "label1": labels, "label2": labels.copy(),
             "ratio": np.ones(n, np.float32)}
+
+
+def seeded_dropout_masks(seed: int, shapes, rate) -> list:
+    """One boolean keep-mask per shape, True with probability 1 − ``rate``
+    (one rate, or one per shape), the i-th from the numpy stream
+    ``(seed, 4, i)`` drawn in row-major order — so a mask depends on its
+    element count, not on how the caller splits the dims: the dropout masks
+    of a train-step golden, made the same way by the script that writes
+    it, its test and chip_smoke.py."""
+    rates = [rate] * len(shapes) if np.ndim(rate) == 0 else list(rate)
+    return [np.random.default_rng([seed, 4, i]).random(int(np.prod(shape)))
+            .reshape(shape) < 1.0 - r for i, (shape, r) in enumerate(zip(shapes, rates))]
+
+
+@contextlib.contextmanager
+def supplied_dropout_masks(masks):
+    """Within the block every active dropout of the port (``models.layers.
+    dropout``, rate > 0) takes the next of ``masks`` (boolean arrays or
+    tensors of its element count, in call order) instead of drawing one:
+    ``where(mask, x / keep, 0)``.  Yields the list of the (shape, rate) of
+    each call that took one."""
+    from ..models import layers
+
+    feed, calls, draw = iter(masks), [], layers.dropout
+
+    def supplied(x, rate, generator=None):
+        if rate == 0.0:
+            return x
+        calls.append((tuple(x.shape), rate))
+        mask = torch.as_tensor(next(feed), device=x.device).reshape(x.shape)
+        return torch.where(mask, x / (1.0 - rate),
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+
+    layers.dropout = supplied
+    try:
+        yield calls
+    finally:
+        layers.dropout = draw
+
+
+def vit_dropout_calls(arch, n: int) -> list:
+    """(shape, rate) of each of a ViT's dropout masks in one training
+    forward of ``n`` images, in the JAX model's call order (vit.py:296-303,
+    447): the pos-embed output, then per layer the attention probabilities
+    (where ``drop_attn`` > 0), the attention branch, the FF hidden (where
+    ``drop_ff`` > 0) and the FF branch (where ``dropout`` > 0)."""
+    size = arch.image_size if isinstance(arch.image_size, int) else arch.image_size[0]
+    tokens = (size // arch.window_size) ** 2 + 1
+    row, hidden = (n, tokens, arch.dim), (n, tokens, arch.dim_ff)
+    probs = (n, arch.n_head, tokens, tokens)
+    layer = [(probs, arch.drop_attn), (row, arch.dropout), (hidden, arch.drop_ff),
+             (row, arch.dropout)]
+    return [c for c in [(row, arch.dropout)] + layer * arch.depth if c[1] > 0]
 
 
 def grad_projections(grads: Dict[str, np.ndarray], seed: int) -> Dict[str, float]:
