@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Start-up check of the PyTorch port (vision_transformers_tpu_torch) on one
 NVIDIA H100: builds the CUDA kernels from csrc/, holds each against its plain
-PyTorch version, runs full-width ViT-S/16 (also with dropout and with the FF
-kernel), Swin-S, Halo-S, PVT-S and Twins-SVT-S against the JAX package's
+PyTorch version, runs full-width ViT-S/16 (also with dropout, with the FF
+kernel and under the 'block' force), Swin-S (also under 'block'), Halo-S
+(also on the gather path), PVT-S and Twins-SVT-S against the JAX package's
 stored logits and train-step gradients, and drives the serving and the
 training entry points of the five models end to end.
 
@@ -66,6 +67,22 @@ non-zero and prints no ok line):
            silu at ViT-S/16's call (M = 25,216 rows, C 384, F 1536) with and
            without the row scale, silu and tanh-gelu at an odd shape; median
            ms of the ViT-S/16 training call
+3g.        the gathered halo attention (Halo's gather path): serving forward
+           and training forward (with lse) within atol = rtol = 1e-4,
+           backward per tensor within 1e-3·max(1, max|plain|) and
+           bit-identical across two runs, on neighbourhoods gathered from
+           seeded maps as the model gathers them: an odd call (a 12x8 map,
+           window 4, halo 3, heads 24 wide), the four Halo-S stages at 128
+           images (B' = 8192 / 2048 / 512 / 128 windows of 64 queries, 144
+           keys) and stage 1 of the window-4 / halo-3 model at 128 images
+           (B' = 32,768 windows of 16 queries, 100 keys); median ms beside
+           F.scaled_dot_product_attention on the same gathered problem
+3k.        the attention block (ViT's and Swin's 'block' path): the same
+           checks at an odd call ([N, N] bias, Cout 40 ≠ C 48), ViT-S/16 at
+           B 128 and 64 (no bias) and Swin-S's four stages at 64 images
+           with the grouped bias; median ms beside
+           F.multi_head_attention_forward (need_weights=False, the same
+           weights, the bias as a float mask) and its autograd backward
 4. golden  ViT-S/16 @224 (depth 12), Swin-S @224 (depth 24), Halo-S @256
            (depth 12), PVT-S @224 (depth 16) and Twins-SVT-S @224 (depth
            18), seeded weights, against the JAX logits in
@@ -74,8 +91,9 @@ non-zero and prints no ok line):
            and 128 rows (the whole Halo layer), PVT at 64 and 128 rows with
            its reduced-kv attention forced to 'fused', Twins at 64 and 128
            rows on its default (the attention layer with the mask) and with
-           its global attention forced to 'fused'; max |Δ| ≤ 1e-3·max(1,
-           max|golden|)
+           its global attention forced to 'fused', Halo forced to 'gather'
+           (64, 128 rows), ViT-S/16 and Swin-S forced to 'block' (64 rows);
+           max |Δ| ≤ 1e-3·max(1, max|golden|)
 4b. train  one f32 train-step gradient (drop_path 0) of each model on the 2
            golden images tiled to 64 rows (ViT through the attention layer's
            kernels, Swin through the whole layer's, Halo through the whole
@@ -88,8 +106,12 @@ non-zero and prints no ok line):
            tests/data/*_port_train_golden.npz, and ViT at dropout = drop_ff
            = 0.1 forced to 'fused' (the packed-qkv attention's kernels, the
            masks regenerated from the golden's seed) against
-           tests/data/vit_s16_port_dropout_train_golden.npz: loss, gradient
-           norm, per-tensor norms and projections, rtol 1e-3
+           tests/data/vit_s16_port_dropout_train_golden.npz; Halo forced to
+           'gather' (the gathered halo attention's kernels), ViT-S/16 and
+           Swin-S forced to 'block' (the attention block's) against their
+           train goldens, and ViT-S/16 with dropout under 'block' against
+           the dropout golden: loss, gradient norm, per-tensor norms and
+           projections, rtol 1e-3
 5. predict the serving path of each model: ``predict.main`` on 48 and then
            160 seeded JPEGs (Halo, PVT — 'fused' — and Twins: 48) with a
            seeded ``.pt:ema``; the launch counters are zeroed just before
@@ -113,17 +135,22 @@ non-zero and prints no ok line):
            with ``arch.dropout=0.1 arch.drop_ff=0.1`` (12 + 12 packed-qkv
            attention launches per step, eval through the whole-layer
            kernel) and ViT-S/16 with the FF kernel on (12 + 12 attention
-           layer and 12 + 12 FF layer launches per step); the counters are
-           zeroed just before and read just after each; then
-           ``predict.main`` reads the epoch checkpoint
+           layer and 12 + 12 FF layer launches per step), Halo-S forced to
+           'gather' and Halo-S with ``arch.window_size=4 arch.halo_size=3``
+           on its default dispatch (12 + 12 gathered halo attention launches
+           per step each), ViT-S/16 under 'block' without and with dropout
+           (12 + 12 attention block launches per step, the valid pass on
+           the block too); the counters are zeroed just before and read
+           just after each; then ``predict.main`` reads the epoch checkpoint
 
 The line before the last is the kernels' JSON record: each kernel's
 launches on the trainer run that takes it (ViT's for the attention layer,
 Swin's for the whole layer, Halo's for the whole Halo layer, Halo's forced
 to 'direct' for the halo attention, PVT's forced to 'fused' for the
 reduced-kv attention, ViT's with dropout for the packed-qkv attention,
-ViT's with the FF kernel for the FF layer; every path's in
-``launches_by_path``) and its
+ViT's with the FF kernel for the FF layer, Halo's forced to 'gather' for
+the gathered halo attention, ViT's under 'block' for the attention block;
+every path's in ``launches_by_path``) and its
 times at a call that run makes (``shape``; other shapes in
 ``other_shapes``); the last line is ``{"ok": true, "device": {...}}``.
 Needs no network and no JAX.
@@ -189,6 +216,14 @@ KERNELS = {  # name → (source, the TPU kernel it replaces)
                        "vision_transformers_tpu/ops/fused_layer.py:701"),
     "fused_ff_layer_bwd": ("vision_transformers_tpu_torch/csrc/fused_layer1_bwd.cu",
                            "vision_transformers_tpu/ops/fused_layer.py:743"),
+    "halo_attention": ("vision_transformers_tpu_torch/csrc/fused_halo.cu",
+                       "vision_transformers_tpu/ops/fused_halo.py:44"),
+    "halo_attention_bwd": ("vision_transformers_tpu_torch/csrc/fused_halo.cu",
+                           "vision_transformers_tpu/ops/fused_halo.py:72"),
+    "fused_attention_block": ("vision_transformers_tpu_torch/csrc/fused_layer.cu",
+                              "vision_transformers_tpu/ops/fused_block.py:57"),
+    "fused_attention_block_bwd": ("vision_transformers_tpu_torch/csrc/fused_layer_bwd.cu",
+                                  "vision_transformers_tpu/ops/fused_block.py:100"),
 }
 KERNEL_TOL = 1e-4
 DEVICE = "cuda"
@@ -417,6 +452,51 @@ def halo_attn_bwd_work(B, H, W, nh, D, window, halo):
     kv, out, lse, do and the bias read, dq, dkv and dbias written."""
     M, HD, k2 = B * H * W, nh * D, (window + 2 * halo) ** 2
     return 10 * M * k2 * HD, 4 * (8 * M * HD + nh * M + 2 * nh * window * window * k2)
+
+
+def gather_fwd_work(Bw, M, N, nh, D, saves=False):
+    """(operations, bytes) of the gathered halo attention's forward over Bw
+    windows: 4·Bw·M·N·HD; q, kv and the bias read, out (and with ``saves``
+    lse) written."""
+    HD = nh * D
+    nbytes = 4 * (2 * Bw * M * HD + 2 * Bw * N * HD + nh * M * N
+                  + (Bw * nh * M if saves else 0))
+    return 4 * Bw * M * N * HD, nbytes
+
+
+def gather_bwd_work(Bw, M, N, nh, D):
+    """(operations, bytes) of its backward: five products, 10·Bw·M·N·HD; q,
+    kv, out, lse, do and the bias read, dq, dkv and dbias written."""
+    HD = nh * D
+    return 10 * Bw * M * N * HD, 4 * (4 * Bw * M * HD + 4 * Bw * N * HD + Bw * nh * M
+                                      + 2 * nh * M * N)
+
+
+def block_fwd_work(B, N, C, H, D, Cout, groups=0, saves=False):
+    """(operations, bytes) of the attention block's forward: the two
+    projections (2·M·C·3HD + 2·M·HD·Cout) and the attention (4·B·H·N²·D);
+    x, the weights and biases (and with ``groups`` the bias [G, H, N, N])
+    read, out (and with ``saves`` qkv, acc, lse) written."""
+    M, HD = B * N, H * D
+    flops = 6 * M * C * HD + 2 * M * HD * Cout + 4 * B * H * N * N * D
+    nbytes = 4 * (M * C + M * Cout + 3 * C * HD + HD * Cout + 3 * HD + Cout
+                  + groups * H * N * N)
+    if saves:
+        nbytes += 4 * (4 * M * HD + B * H * N)
+    return flops, nbytes
+
+
+def block_bwd_work(B, N, C, H, D, Cout, groups=0):
+    """(operations, bytes) of its backward: dWout, dacc (4·M·HD·Cout), dWqkv,
+    dx (12·M·C·HD) and five attention products (10·B·H·N²·D); x, dout, the
+    saves, the weights and the bias read once, dx and the parameter and bias
+    gradients written once."""
+    M, HD = B * N, H * D
+    flops = 4 * M * HD * Cout + 12 * M * C * HD + 10 * B * H * N * N * D
+    params = 3 * C * HD + HD * Cout + 3 * HD + Cout
+    nbytes = 4 * (2 * M * C + M * Cout + 4 * M * HD + B * H * N + 2 * params
+                  + 2 * groups * H * N * N)
+    return flops, nbytes
 
 
 # ---------------------------------------------------------------------------
@@ -1039,6 +1119,236 @@ def halo_backward_kernels(torch):
 
 
 # ---------------------------------------------------------------------------
+# 3g. the gathered halo attention (B5b) vs its plain version
+# ---------------------------------------------------------------------------
+
+
+def gather_calls():
+    """The gathered halo attention's calls, as dicts of the map shape
+    (images, H, W, C, heads, D, F) and the window geometry: an odd small
+    call (a non-square 12x8 map, window 4, halo 3, heads 24 wide), the four
+    Halo-S stages on the gather path at 128 images (the trainer's batch and
+    its eval's) and stage 1 of the window-4 / halo-3 model at 128 images
+    (2·halo > window: the default dispatch's gather path)."""
+    stages = halo_stages(128)
+    return ([dict(stage="odd", window=4, halo=3, depth=1, shape=(3, 12, 8, 48, 2, 24, 96))]
+            + stages + [dict(stages[0], stage="1 (window 4, halo 3)", window=4, halo=3)])
+
+
+def gathered_problem(torch, call, seed=0):
+    """q [B', w², HD] and kv [B', k², 2HD] gathered from seeded maps as the
+    model gathers them (zero rows outside the map), the bias [heads, w², k²]
+    and an output grad."""
+    from vision_transformers_tpu_torch.ops.fused_halo import neighborhoods, windows
+
+    nh, D = call["shape"][4:6]
+    w, halo = call["window"], call["halo"]
+    q, kv, bias, _ = halo_attn_inputs(torch, call, seed)
+    qw = windows(q, w).reshape(-1, w * w, nh * D).contiguous()
+    nb = neighborhoods(kv, w, halo).reshape(qw.shape[0], -1, 2 * nh * D).contiguous()
+    do = torch.randn(qw.shape, device=DEVICE,
+                     generator=torch.Generator(DEVICE).manual_seed(seed + 1))
+    return qw, nb, bias, do
+
+
+def gather_kernels(torch):
+    """3g: the gathered halo attention's serving forward (no saves),
+    training forward (with lse) and backward against the plain versions,
+    the backward twice for bit-identity, at ``gather_calls()``; median ms of
+    each timed call's training forward and backward beside the bound, the
+    plain versions and F.scaled_dot_product_attention on the same gathered
+    problem (the bias as attn_mask; forward, and its autograd backward with
+    the mask's gradient).  Returns the timed entries of the forward and the
+    backward, Halo-S stage 1 first."""
+    import torch.nn.functional as F_
+
+    from vision_transformers_tpu_torch.ops import fused_halo as fh
+
+    worst = {"out": 0.0, "grads": 0.0}
+    fwd_rec, bwd_rec = [], []
+    for call in gather_calls():
+        q, kv, bias, do = gathered_problem(torch, call)
+        Bw, M, HD = q.shape
+        N = kv.shape[1]
+        nh, D = call["shape"][4:6]
+        what = halo_what(call, f", B'={Bw} M={M} N={N}")
+        with torch.no_grad():
+            out = fh.halo_attention(q, kv, bias, nh)
+        torch.cuda.synchronize()
+        err = check_close(torch, "halo_attention", out,
+                          fh.halo_attention_reference(q, kv, bias, nh), what + " (serving)")
+        out, saved = fh.halo_attention_fwd(q, kv, bias, nh)
+        grads = fh.halo_attention_bwd(saved, do)
+        again = fh.halo_attention_bwd(saved, do)
+        torch.cuda.synchronize()
+        scale = saved.scale
+        out_p, lse_p = fh.gathered_fwd_reference(q, kv, bias, nh, scale)
+        err = max(err, check_close(torch, "halo_attention", out, out_p, what + " (training)"))
+        check_close(torch, "halo_attention", saved.lse, lse_p, what + " lse")
+        worst["out"] = max(worst["out"], err)
+        plain = fh.gathered_bwd_reference(q, kv, bias, lse_p, do, nh, scale)
+        compare_grads(torch, "halo_attention " + what, ("dq", "dkv", "dbias"), grads, again,
+                      plain, worst)
+        del grads, again, plain
+        if call["stage"] != "odd":
+            f_ms = median_ms(torch, lambda: fh.halo_attention_fwd(q, kv, bias, nh))
+            b_ms = median_ms(torch, lambda: fh.halo_attention_bwd(saved, do))
+            pf_ms = median_ms(torch, lambda: fh.gathered_fwd_reference(q, kv, bias, nh, scale))
+            pb_ms = median_ms(torch, lambda: fh.gathered_bwd_reference(
+                q, kv, bias, lse_p, do, nh, scale))
+            heads = lambda t: t.unflatten(-1, (nh, D)).transpose(1, 2).contiguous()  # noqa: E731
+            leaves = [t.requires_grad_() for t in (heads(q), heads(kv[..., :HD]),
+                                                   heads(kv[..., HD:]), bias[None].clone())]
+            lib = F_.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3],
+                                                  scale=scale)
+            lib_err = (lib.detach().transpose(1, 2).reshape(Bw, M, HD) - out).abs().max().item()
+            with torch.no_grad():
+                lf_ms = median_ms(torch, lambda: F_.scaled_dot_product_attention(
+                    *leaves[:3], attn_mask=leaves[3], scale=scale))
+            dlib = heads(do)
+            lb_ms = median_ms(torch, lambda: torch.autograd.grad(lib, leaves, dlib,
+                                                                 retain_graph=True))
+            fb, fby = bound(*gather_fwd_work(Bw, M, N, nh, D, saves=True))
+            bb, bby = bound(*gather_bwd_work(Bw, M, N, nh, D))
+            log(f"kernels: halo_attention {what} (median of 20, CUDA events): kernel "
+                f"fwd(lse) {f_ms:.3f} + bwd {b_ms:.3f} ms; plain fwd {pf_ms:.3f} + bwd "
+                f"{pb_ms:.3f} ms; scaled_dot_product_attention fwd {lf_ms:.3f} + its "
+                f"backward {lb_ms:.3f} ms (max|Δ| to the kernel {lib_err:.3e}); bound fwd "
+                f"{fb:.3f} ({fby}) + bwd {bb:.3f} ms ({bby}); {M} of each block's 64 "
+                f"threads hold a query")
+            shape = (f"Halo-S stage {call['stage']}, B',M,N,heads,D={Bw},{M},{N},{nh},{D}")
+            fwd_rec.append({"shape": shape + ", lse", "max_abs_err": worst["out"], "ms": f_ms,
+                            "plain_ms": pf_ms, "bound_ms": fb, "bound_by": fby,
+                            "library_ms": lf_ms})
+            bwd_rec.append({"shape": shape, "max_abs_err": worst["grads"], "ms": b_ms,
+                            "plain_ms": pb_ms, "bound_ms": bb, "bound_by": bby,
+                            "library_ms": lb_ms})
+            del leaves, lib, dlib
+        del q, kv, bias, do, out, saved, out_p, lse_p
+    return fwd_rec, bwd_rec
+
+
+# ---------------------------------------------------------------------------
+# 3k. the attention block (B8) vs its plain version
+# ---------------------------------------------------------------------------
+
+
+def block_calls():
+    """(label, B, N, C, H, D, Cout, the bias or a recipe for it) of 3k's
+    calls: an odd call with an [N, N] bias and Cout ≠ C, ViT-S/16 under
+    'block' at 128 rows (the trainer's) and 64 (no bias), and Swin-S's four
+    stages at 64 images with the grouped bias of a shifted layer."""
+    calls = [("odd, [N, N] bias, Cout 40", 6, 37, 48, 2, 24, 40, (37, 37)),
+             ("ViT-S/16 B=128", 128, 197, 384, 6, 64, 384, None),
+             ("ViT-S/16 B=64", 64, 197, 384, 6, 64, 384, None)]
+    for call in swin_stages(64):
+        rows, m, C, heads, D, _ = call["shape"]
+        calls.append((f"Swin-S stage {call['stage']}, G={call['groups']}", rows, m, C,
+                      heads, D, C, call))
+    return calls
+
+
+def block_inputs(torch, B, N, C, H, D, Cout, seed=0):
+    """Seeded x, wqkv and wout as transposed views of [out, in] matrices
+    (as the models pass ``linear.weight.t()``), bqkv, bout and an output
+    grad."""
+    rng = np.random.default_rng(seed)
+
+    def n(*shape, s=1.0):
+        return torch.from_numpy((s * rng.standard_normal(shape)).astype(np.float32)).to(DEVICE)
+
+    HD = H * D
+    return [n(B, N, C), n(3 * HD, C, s=0.05).t(), n(3 * HD, s=0.1), n(Cout, HD, s=0.05).t(),
+            n(Cout, s=0.1)], n(B, N, Cout)
+
+
+def block_kernels(torch):
+    """3k: the attention block's serving forward (no saves), training
+    forward (with qkv, acc and lse) and backward against the plain
+    versions, the backward twice for bit-identity, at ``block_calls()``;
+    median ms of the ViT-S/16 and Swin-S calls beside the bound, the plain
+    versions and F.multi_head_attention_forward with the same weights
+    (need_weights=False, the bias as a float attn_mask; forward, and its
+    autograd backward to x and the four weights).  Returns the timed entries
+    of the forward and the backward, ViT-S/16 B=128 first."""
+    import torch.nn.functional as F_
+
+    from vision_transformers_tpu_torch.ops import fused_block as fb
+
+    worst = {"out": 0.0, "grads": 0.0}
+    fwd_rec, bwd_rec = [], []
+    for label, B, N, C, H, D, Cout, bias in block_calls():
+        (x, wqkv, bqkv, wout, bout), do = block_inputs(torch, B, N, C, H, D, Cout)
+        if isinstance(bias, dict):  # a Swin stage: its grouped bias
+            extra = swin_layer_inputs(torch, bias, row_scales=False)[1]
+        else:
+            extra = None if bias is None else 0.5 * torch.randn(
+                *bias, device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(3))
+        w = (x, wqkv, bqkv, wout, bout)
+        what = f"{label}, B,N,C,H,D,Cout={B},{N},{C},{H},{D},{Cout}"
+        with torch.no_grad():
+            out = fb.fused_attention_block(*w, H, extra)
+        torch.cuda.synchronize()
+        err = check_close(torch, "fused_attention_block", out,
+                          fb.fused_attention_block_reference(*w, H, extra), what + " (serving)")
+        out, saved = fb.fused_attention_block_fwd(*w, H, extra)
+        grads = fb.fused_attention_block_bwd(saved, do)
+        again = fb.fused_attention_block_bwd(saved, do)
+        torch.cuda.synchronize()
+        out_p, *res_p = fb.block_fwd_reference(*w, H, saved.extra_g, saved.scale)
+        err = max(err, check_close(torch, "fused_attention_block", out, out_p,
+                                   what + " (training)"))
+        check_close(torch, "fused_attention_block", saved.lse, res_p[2], what + " lse")
+        worst["out"] = max(worst["out"], err)
+        saved_p = fb.BlockSaved(*w, saved.extra_g, *res_p, H, saved.scale)
+        plain = fb.block_bwd_reference(saved_p, do)
+        compare_grads(torch, "fused_attention_block " + what, fb.GRAD_NAMES, grads, again,
+                      plain, worst)
+        del grads, again, plain
+        if label.startswith(("ViT", "Swin")):
+            groups = 0 if extra is None else saved.extra_g.shape[0]
+            f_ms = median_ms(torch, lambda: fb.fused_attention_block_fwd(*w, H, extra))
+            b_ms = median_ms(torch, lambda: fb.fused_attention_block_bwd(saved, do))
+            pf_ms = median_ms(torch, lambda: fb.block_fwd_reference(
+                *w, H, saved.extra_g, saved.scale))
+            pb_ms = median_ms(torch, lambda: fb.block_bwd_reference(saved_p, do))
+            mask = None if extra is None else saved.extra_g.repeat_interleave(
+                B // groups, 0).reshape(B * H, N, N)
+            leaves = [t.detach().clone().requires_grad_()
+                      for t in (x, wqkv.t(), bqkv, wout.t(), bout)]
+
+            def mha(xl, wi, bi, wo, bo):
+                xt = xl.transpose(0, 1)
+                return F_.multi_head_attention_forward(
+                    xt, xt, xt, C, H, wi, bi, None, None, False, 0.0, wo, bo,
+                    training=True, need_weights=False, attn_mask=mask)[0]
+
+            lib = mha(*leaves)
+            lib_err = (lib.detach().transpose(0, 1) - out).abs().max().item()
+            with torch.no_grad():
+                lf_ms = median_ms(torch, lambda: mha(*leaves))
+            dlib = do.transpose(0, 1)
+            lb_ms = median_ms(torch, lambda: torch.autograd.grad(lib, leaves, dlib,
+                                                                 retain_graph=True))
+            fb_ms, fby = bound(*block_fwd_work(B, N, C, H, D, Cout, groups, saves=True))
+            bb_ms, bby = bound(*block_bwd_work(B, N, C, H, D, Cout, groups))
+            log(f"kernels: fused_attention_block {what} (median of 20, CUDA events): "
+                f"kernel fwd(saves) {f_ms:.3f} + bwd {b_ms:.3f} ms; plain fwd {pf_ms:.3f} + "
+                f"bwd {pb_ms:.3f} ms; multi_head_attention_forward fwd {lf_ms:.3f} + its "
+                f"backward {lb_ms:.3f} ms (max|Δ| to the kernel {lib_err:.3e}); bound fwd "
+                f"{fb_ms:.3f} ({fby}) + bwd {bb_ms:.3f} ms ({bby})")
+            fwd_rec.append({"shape": what + ", saves", "max_abs_err": worst["out"],
+                            "ms": f_ms, "plain_ms": pf_ms, "bound_ms": fb_ms,
+                            "bound_by": fby, "library_ms": lf_ms})
+            bwd_rec.append({"shape": what, "max_abs_err": worst["grads"], "ms": b_ms,
+                            "plain_ms": pb_ms, "bound_ms": bb_ms, "bound_by": bby,
+                            "library_ms": lb_ms})
+            del leaves, lib, dlib, mask
+        del x, wqkv, bqkv, wout, bout, w, do, extra, out, saved, saved_p, out_p, res_p
+    return fwd_rec, bwd_rec
+
+
+# ---------------------------------------------------------------------------
 # 3s. the reduced-kv attention (PVT SRA, Twins GSA) vs its plain version
 # ---------------------------------------------------------------------------
 
@@ -1496,9 +1806,9 @@ def counted_modules():
     """counter name → (its ops module, the counter's name there): each
     kernel's launches, and of the attention layer's those that carried the
     bias (``+bias``)."""
-    from vision_transformers_tpu_torch.ops import (fused_attention_mod, fused_halo,
-                                                   fused_halo_layer, fused_layer,
-                                                   fused_layer1)
+    from vision_transformers_tpu_torch.ops import (fused_attention_mod, fused_block,
+                                                   fused_halo, fused_halo_layer,
+                                                   fused_layer, fused_layer1)
 
     return {"fused_attention_layer": (fused_layer, "LAUNCHES"),
             "fused_attention_layer_bwd": (fused_layer, "BWD_LAUNCHES"),
@@ -1515,7 +1825,11 @@ def counted_modules():
             "fused_attention_qkv": (fused_attention_mod, "QKV_LAUNCHES"),
             "fused_attention_qkv_bwd": (fused_attention_mod, "QKV_BWD_LAUNCHES"),
             "fused_ff_layer": (fused_layer, "FF_LAUNCHES"),
-            "fused_ff_layer_bwd": (fused_layer, "FF_BWD_LAUNCHES")}
+            "fused_ff_layer_bwd": (fused_layer, "FF_BWD_LAUNCHES"),
+            "halo_attention": (fused_halo, "HALO_GATHER_LAUNCHES"),
+            "halo_attention_bwd": (fused_halo, "HALO_GATHER_BWD_LAUNCHES"),
+            "fused_attention_block": (fused_block, "BLOCK_LAUNCHES"),
+            "fused_attention_block_bwd": (fused_block, "BLOCK_BWD_LAUNCHES")}
 
 
 def counts():
@@ -1566,9 +1880,10 @@ def path_label(expected, sra=None, halo=None, attn=None, ff=None):
         f" ({', '.join(forced_by)})" if forced_by else "")
 
 
-def golden(torch, model_name, cases, sra=None):
+def golden(torch, model_name, cases, sra=None, halo=None, attn=None):
     """``cases``: (rows, the launches of each counter in one forward of
-    that many rows); ``sra`` forces the reduced-kv path."""
+    that many rows); ``sra`` / ``halo`` / ``attn`` force the reduced-kv /
+    Halo / attention path."""
     from vision_transformers_tpu_torch.predict import predict_batch
     from vision_transformers_tpu_torch.utils.weights import seeded_images
 
@@ -1582,14 +1897,15 @@ def golden(torch, model_name, cases, sra=None):
     for rows, expected in cases:
         idx = np.arange(rows) % ref.shape[0]
         before = counts()
-        with forced(sra=sra):
+        with forced(halo=halo, sra=sra, attn=attn):
             logits, top, _ = predict_batch(model, images[idx], 5, DEVICE)
         expect_path(before, counts(), expected, f"golden {model_name} {rows} rows")
         if logits.shape != (rows, ref.shape[1]) or not np.isfinite(logits).all():
             raise RuntimeError(f"golden: bad logits {logits.shape}")
         err = float(np.abs(logits - ref[idx]).max())
         log(f"golden: {model_name} @{size} depth {depth}, {rows} rows via "
-            f"{path_label(expected, sra)}: max|port-JAX| {err:.3e} (tol {tol:.3e})")
+            f"{path_label(expected, sra, halo, attn)}: max|port-JAX| {err:.3e} "
+            f"(tol {tol:.3e})")
         if err > tol or not (top[:, 0] == ref[idx].argmax(-1)).all():
             raise RuntimeError("golden: the port disagrees with the JAX logits")
 
@@ -1786,11 +2102,11 @@ def predict_main_path(torch, has_pil, model_name, cases, sra=None):
 
 
 def train_main_path(torch, has_pil, model_name, expected, overrides=(), halo=None,
-                    sra=None, ff=None):
+                    sra=None, ff=None, attn=None):
     """``train.main`` f32 at batch 128 for one synthetic epoch, with conf
-    ``overrides``, ``halo`` / ``sra`` forcing a Halo / reduced-kv path and
-    ``ff`` the FF kernel; ``expected`` the launches of each counter on that
-    run."""
+    ``overrides``, ``halo`` / ``sra`` / ``attn`` forcing a Halo / reduced-kv
+    / attention path and ``ff`` the FF kernel; ``expected`` the launches of
+    each counter on that run."""
     from vision_transformers_tpu_torch import predict, train
     from vision_transformers_tpu_torch.config.schema import load_config
     from vision_transformers_tpu_torch.ops import _build
@@ -1800,8 +2116,8 @@ def train_main_path(torch, has_pil, model_name, expected, overrides=(), halo=Non
     conf_path = MODELS[model_name][0]
     conf = load_config(conf_path, list(overrides))
     label = model_name + "".join(f" ({name} {v})" for name, v in (
-        ("halo", halo), ("sra", sra), ("FF kernel", ff)) if v) + "".join(
-        f" {o}" for o in overrides if "dropout" in o or "drop_ff" in o)
+        ("halo", halo), ("sra", sra), ("attention", attn), ("FF kernel", ff)) if v) + "".join(
+        f" {o}" for o in overrides if not o.startswith("arch.drop_path"))
     step_secs = []
     train_step = engine.train_step
 
@@ -1821,7 +2137,7 @@ def train_main_path(torch, has_pil, model_name, expected, overrides=(), halo=Non
         engine.train_step = timed_step
         torch.cuda.reset_peak_memory_stats()
         try:
-            with forced(halo, sra, ff=ff):
+            with forced(halo, sra, attn, ff):
                 reset_counts()  # the main path's run starts here
                 t0 = time.perf_counter()
                 metrics = train.main(args)
@@ -1854,9 +2170,10 @@ def train_main_path(torch, has_pil, model_name, expected, overrides=(), halo=Non
         if has_pil:
             files = write_jpegs(tmp, noise)
             buf = io.StringIO()
-            with contextlib.redirect_stdout(buf), forced(halo, sra, ff=ff):
+            with contextlib.redirect_stdout(buf), forced(halo, sra, attn, ff):
                 predict.main(["--conf", conf_path, "--checkpoint", f"{ckpt}:model",
-                              "--topk", "5", "--device", DEVICE, *files])
+                              "--topk", "5", "--device", DEVICE, *files,
+                              *(o for o in overrides if o.startswith("arch."))])
             check_lines(buf.getvalue().splitlines(), files, 5)
         else:
             from vision_transformers_tpu_torch.utils.weights import load_checkpoint
@@ -1864,7 +2181,7 @@ def train_main_path(torch, has_pil, model_name, expected, overrides=(), halo=Non
             model = conf.arch.make()
             model.load_state_dict(load_checkpoint(f"{ckpt}:model"), strict=True)
             size = image_size(conf)
-            with forced(halo, sra, ff=ff):
+            with forced(halo, sra, attn, ff):
                 _, _, prob = predict.predict_batch(model.to(DEVICE).eval(),
                                                    noise[:, :size, :size], 5, DEVICE)
             if not ((prob > 0) & (prob <= 1)).all():
@@ -1911,6 +2228,10 @@ def main() -> None:
         "3q packed-qkv attention", qkv_kernels, torch)
     timed["fused_ff_layer"], timed["fused_ff_layer_bwd"] = phase(
         "3f FF layer", ff_kernels, torch)
+    timed["halo_attention"], timed["halo_attention_bwd"] = phase(
+        "3g gathered halo attention", gather_kernels, torch)
+    timed["fused_attention_block"], timed["fused_attention_block_bwd"] = phase(
+        "3k attention block", block_kernels, torch)
     fal, falb = "fused_attention_layer", "fused_attention_layer_bwd"
     ftl, ftlb = "fused_transformer_layer", "fused_transformer_layer_bwd"
     fhl, fhlb = "fused_halo_layer", "fused_halo_layer_bwd"
@@ -1918,6 +2239,8 @@ def main() -> None:
     fa, fab = "fused_attention", "fused_attention_bwd"
     qkv, qkvb = "fused_attention_qkv", "fused_attention_qkv_bwd"
     ffl, fflb = "fused_ff_layer", "fused_ff_layer_bwd"
+    hg, hgb = "halo_attention", "halo_attention_bwd"
+    blk, blkb = "fused_attention_block", "fused_attention_block_bwd"
 
     def depth(model, *kernels):  # one launch of each kernel per layer
         return {k: MODELS[model][3] for k in kernels}
@@ -1938,6 +2261,12 @@ def main() -> None:
     phase("4 golden Twins", golden, torch, "Twins-SVT-S", ((64, twins), (128, twins)))
     phase("4 golden Twins fused", golden, torch, "Twins-SVT-S",
           ((64, twins_gsa), (128, twins_gsa)), "fused")
+    phase("4 golden Halo gather", golden, torch, "Halo-S",
+          ((64, depth("Halo-S", hg)), (128, depth("Halo-S", hg))), None, "gather")
+    phase("4 golden ViT block", golden, torch, "ViT-S/16", ((64, depth("ViT-S/16", blk)),),
+          None, None, "block")
+    phase("4 golden Swin block", golden, torch, "Swin-S", ((64, depth("Swin-S", blk)),),
+          None, None, "block")
     phase("4b train ViT", train_golden, torch, "ViT-S/16", depth("ViT-S/16", fal, falb))
     phase("4b train Swin", train_golden, torch, "Swin-S", depth("Swin-S", ftl, ftlb))
     phase("4b train Halo", train_golden, torch, "Halo-S", depth("Halo-S", fhl, fhlb))
@@ -1954,6 +2283,14 @@ def main() -> None:
           depth("ViT-S/16", fal, falb, ffl, fflb), None, None, None, True)
     phase("4b train Swin fused", train_golden, torch, "Swin-S", depth("Swin-S", qkv, qkvb),
           None, None, "fused")
+    phase("4b train Halo gather", train_golden, torch, "Halo-S", depth("Halo-S", hg, hgb),
+          "gather")
+    phase("4b train ViT block", train_golden, torch, "ViT-S/16",
+          depth("ViT-S/16", blk, blkb), None, None, "block")
+    phase("4b train Swin block", train_golden, torch, "Swin-S", depth("Swin-S", blk, blkb),
+          None, None, "block")
+    phase("4b train ViT dropout block", train_golden, torch, "ViT-S/16",
+          depth("ViT-S/16", blk, blkb), None, None, "block", None, True)
     halo_dp = ("arch.drop_path=0.1",)
     paths = {
         "ViT-S/16 predict": phase("5 predict ViT", predict_main_path, torch, has_pil,
@@ -1999,6 +2336,26 @@ def main() -> None:
         "ViT-S/16 train (FF kernel)": phase(
             "6 trainer ViT FF kernel", train_main_path, torch, has_pil, "ViT-S/16",
             {fal: 48, falb: 48, ffl: 48, fflb: 48, ftl: 24}, (), None, None, True),
+        # the gathered halo attention forced: 4 steps x 12 layers; the valid
+        # pass: 2 batches x 12
+        "Halo-S train (gather)": phase(
+            "6 trainer Halo gather", train_main_path, torch, has_pil, "Halo-S",
+            {hg: 12 * 4 + 12 * 2, hgb: 12 * 4}, halo_dp, "gather"),
+        # window 4, halo 3, no force: the default dispatch takes the gathered
+        # kernel in all 12 layers
+        "Halo-S train (window 4, halo 3)": phase(
+            "6 trainer Halo w4 h3", train_main_path, torch, has_pil, "Halo-S",
+            {hg: 12 * 4 + 12 * 2, hgb: 12 * 4},
+            ("arch.window_size=4", "arch.halo_size=3") + halo_dp),
+        # the attention block forced, in training and eval: 4 steps x 12
+        # layers; the valid pass: 2 batches x 12
+        "ViT-S/16 train (block)": phase(
+            "6 trainer ViT block", train_main_path, torch, has_pil, "ViT-S/16",
+            {blk: 48 + 24, blkb: 48}, (), None, None, None, "block"),
+        "ViT-S/16 train (block, dropout)": phase(
+            "6 trainer ViT block dropout", train_main_path, torch, has_pil, "ViT-S/16",
+            {blk: 48 + 24, blkb: 48}, ("arch.dropout=0.1", "arch.drop_ff=0.1"), None, None,
+            None, "block"),
     }
     trainer_of = {fal: "ViT-S/16 train", falb: "ViT-S/16 train",
                   ftl: "Swin-S train", ftlb: "Swin-S train",
@@ -2006,7 +2363,9 @@ def main() -> None:
                   had: "Halo-S train (direct)", hadb: "Halo-S train (direct)",
                   fa: "PVT-S train (sra fused)", fab: "PVT-S train (sra fused)",
                   qkv: "ViT-S/16 train (dropout)", qkvb: "ViT-S/16 train (dropout)",
-                  ffl: "ViT-S/16 train (FF kernel)", fflb: "ViT-S/16 train (FF kernel)"}
+                  ffl: "ViT-S/16 train (FF kernel)", fflb: "ViT-S/16 train (FF kernel)",
+                  hg: "Halo-S train (gather)", hgb: "Halo-S train (gather)",
+                  blk: "ViT-S/16 train (block)", blkb: "ViT-S/16 train (block)"}
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": paths[trainer_of[k]][k],

@@ -12,8 +12,12 @@ backward at ViT-S B=128 with a row scale; B2 ``fused_transformer_layer``
 forward with saves and backward at Swin-S stage 3 at 64 images (128 rows of
 98 tokens, C 384, 12 heads of 32, the grouped bias of 2 groups, both row
 scales); B4 ``fused_halo_layer`` the same at Halo-S stage 1 at 128 images
-(64x64 map, C 96, 3 heads, window 8, halo 2).  Prints the card and one
-JSON line.  Needs CUDA; imports no JAX.
+(64x64 map, C 96, 3 heads, window 8, halo 2); B3 ``fused_attention_qkv``
+forward with lse and backward at ViT-S B=128 (no bias) and at Swin-S stage
+1 at 64 images (2048 rows of 98 tokens, 3 heads of 32, the grouped bias of
+32 groups); B5a ``halo_attention_direct`` forward with lse and backward at
+Halo-S stage 1 at 128 images.  Prints the card and one JSON line.  Needs
+CUDA; imports no JAX.
 """
 
 import json
@@ -32,6 +36,8 @@ def main() -> None:
         raise SystemExit("needs CUDA")
     sys.path.insert(0, root)
     from vision_transformers_tpu_torch.ops import _build
+    from vision_transformers_tpu_torch.ops import fused_attention_mod as fa
+    from vision_transformers_tpu_torch.ops import fused_halo as fh
     from vision_transformers_tpu_torch.ops import fused_halo_layer as fhl
     from vision_transformers_tpu_torch.ops import fused_layer as fl
     from vision_transformers_tpu_torch.ops import fused_layer1 as fl1
@@ -89,6 +95,22 @@ def main() -> None:
     _, saved = fhl.fused_halo_layer_fwd(*ha, 3, r, r, window=8, halo=2)
     out["B4 Halo1 fwd"] = ms(lambda: fhl.fused_halo_layer_fwd(*ha, 3, r, r, window=8, halo=2))
     out["B4 Halo1 bwd"] = ms(lambda: fhl.fused_halo_layer_bwd(saved, dz))
+    del ha, saved
+    for name, (B, N, H, D, G) in (("B3 ViT", (128, 197, 6, 64, 0)),
+                                  ("B3 Swin1", (2048, 98, 3, 32, 32))):
+        g = torch.Generator("cuda").manual_seed(1)
+        qkv = torch.randn(B, N, 3 * H * D, device="cuda", generator=g)
+        do = torch.randn(B, N, H * D, device="cuda", generator=g)
+        extra = 0.2 * torch.randn(G, H, N, N, device="cuda", generator=g) if G else None
+        _, saved = fa.fused_attention_qkv_fwd(qkv, H, extra)
+        out[name + " fwd"] = ms(lambda: fa.fused_attention_qkv_fwd(qkv, H, extra))
+        out[name + " bwd"] = ms(lambda: fa.fused_attention_qkv_bwd(saved, do))
+    g = torch.Generator("cuda").manual_seed(2)
+    q, kv, do = (torch.randn(128, 64, 64, c, device="cuda", generator=g) for c in (96, 192, 96))
+    bias = 0.2 * torch.randn(3, 64, 144, device="cuda", generator=g)
+    _, saved = fh.halo_attention_direct_fwd(q, kv, bias, 8, 2, 3)
+    out["B5a Halo1 fwd"] = ms(lambda: fh.halo_attention_direct_fwd(q, kv, bias, 8, 2, 3))
+    out["B5a Halo1 bwd"] = ms(lambda: fh.halo_attention_direct_bwd(saved, do))
     print(card)
     print(json.dumps({"tree": sys.argv[1] if len(sys.argv) > 1 else ".", **out}))
 

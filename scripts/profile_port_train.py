@@ -12,7 +12,7 @@ time, and one JSON line.
 
     python3 scripts/profile_port_train.py [--conf configs/vit-s-16.conf] [--rows 128]
         [--steps 5] [--trace out.json] [--halo-impl ...] [--sra-impl einsum|fused]
-        [--attn-impl einsum|fused|layer|layer1] [--ff-kernel]
+        [--attn-impl einsum|fused|layer|layer1|block] [--ff-kernel]
         [key=value conf overrides ...]
 
 ViT-S/16 at ``--rows`` ≥ 32 takes the fused attention layer (forward and
@@ -21,7 +21,8 @@ backward kernels); Swin-S (``--conf configs/swin-transformer-s.conf``, two
 backward; Halo-S (``--conf tests/data/halo_s_port.conf``, 128 images at
 256 px) the whole Halo layer's (``arch.drop_path=0.1`` as chip_smoke.py's
 trainer run; ``--halo-impl direct`` the halo attention's between torch
-projections); PVT-S (``--conf tests/data/pvt_s_port.conf``) and Twins-SVT-S
+projections, ``--halo-impl gather`` the gathered halo attention's, the
+neighbourhood gather and its adjoint in torch); PVT-S (``--conf tests/data/pvt_s_port.conf``) and Twins-SVT-S
 (``--conf tests/data/twins_svt_s_port.conf arch.drop_path=0.1``) at 224 px,
 their reduced-kv attention on the plain ``einsum`` default or, with
 ``--sra-impl fused``, on the hand-written kernel (Twins' local attention
@@ -29,7 +30,9 @@ takes the attention layer with the pair mask either way).  ViT-S/16 with
 ``arch.dropout=0.1 arch.drop_ff=0.1`` leaves the layer kernels for the
 packed-qkv attention kernel between cuBLAS projections (``--attn-impl
 einsum`` its plain einsum); ``--ff-kernel`` turns the FF-half kernel on at
-the 'layer' sites.  Needs CUDA; imports no JAX.
+the 'layer' sites; ``--attn-impl block`` runs ViT's and Swin's attention
+through the attention block kernel (projections inside it).  Needs CUDA;
+imports no JAX.
 """
 
 import argparse
@@ -79,13 +82,14 @@ def main() -> None:
     parser.add_argument("--steps", type=int, default=5)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--trace", default=None, help="write a chrome trace here")
-    parser.add_argument("--halo-impl", default=None, choices=("layer", "direct", "einsum"),
+    parser.add_argument("--halo-impl", default=None,
+                        choices=("layer", "direct", "gather", "einsum"),
                         help="force a Halo path (default: the dispatch's)")
     parser.add_argument("--sra-impl", default=None, choices=("einsum", "fused"),
                         help="force the reduced-kv path of PVT / Twins (default: the "
                              "dispatch's, einsum)")
     parser.add_argument("--attn-impl", default=None,
-                        choices=("einsum", "fused", "layer", "layer1"),
+                        choices=("einsum", "fused", "layer", "layer1", "block"),
                         help="force the attention path (default: the dispatch's)")
     parser.add_argument("--ff-kernel", action="store_true",
                         help="the FF-half kernel at the 'layer' sites (default off)")

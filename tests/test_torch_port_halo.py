@@ -275,11 +275,12 @@ def test_wd_mask_matches_jax(tiny):
 
 
 def test_halo_dispatch():
-    """'layer' by default wherever 2·halo ≤ window; forced paths; 'einsum'
-    under the global attention force; a wider halo (the unported gather
-    kernel) raises instead of running einsum quietly."""
+    """'layer' by default wherever 2·halo ≤ window, 'gather' (the gathered
+    kernel) where the halo is wider; forced paths; 'einsum' under the global
+    attention force; a 'layer' force on a wide halo becomes 'gather', a
+    'direct' force on one raises."""
     assert ops.halo_impl(8, 2) == ops.halo_impl(2, 1) == "layer"
-    for name in ("direct", "einsum"):
+    for name in ("direct", "einsum", "gather"):
         with halo_path(name):
             assert ops.halo_impl(8, 2) == name
     ops.set_attention_impl("einsum")
@@ -287,12 +288,15 @@ def test_halo_dispatch():
         assert ops.halo_impl(8, 2) == "einsum"
     finally:
         ops.set_attention_impl(None)
-    with pytest.raises(NotImplementedError, match="ROADMAP B5"):
+    assert ops.halo_impl(4, 3) == "gather"
+    with halo_path("layer"):
+        assert ops.halo_impl(4, 3) == "gather"
+    with halo_path("direct"), pytest.raises(NotImplementedError, match="2·halo ≤ window"):
         ops.halo_impl(4, 3)
     with halo_path("einsum"):
         assert ops.halo_impl(4, 3) == "einsum"
     with pytest.raises(ValueError):
-        ops.set_halo_impl("gather")
+        ops.set_halo_impl("map")
 
 
 def test_training_refuses_dropout():

@@ -212,7 +212,7 @@ def test_cuda_refuses_what_the_kernels_do_not_take(monkeypatch):
     with fake_cuda(monkeypatch), pytest.raises(NotImplementedError, match="64 tokens"):
         fhl._cuda_fwd(*big, 2, None, None, "silu", 16, 1, 0.25, 1e-6, save=False)
     deep, _, _ = halo_inputs(window=4, halo=3)
-    with fake_cuda(monkeypatch), pytest.raises(NotImplementedError, match="ROADMAP B5"):
+    with fake_cuda(monkeypatch), pytest.raises(NotImplementedError, match="2·halo ≤ window"):
         fhl._cuda_fwd(*deep, 2, None, None, "silu", 4, 3, 0.25, 1e-6, save=False)
     with fake_cuda(monkeypatch), pytest.raises(ValueError, match="bias must be"):
         fhl._cuda_fwd(*args[:12], args[12][:, :8], 2, None, None, "silu", 4, 1, 0.25,

@@ -332,8 +332,13 @@ def test_dispatch_gates():
         assert ops.attention_impl(2, seq=17, default="layer") == "fused"
     finally:
         ops.set_attention_impl(None)
+    ops.set_attention_impl("block")
+    try:
+        assert ops.attention_impl(2, seq=17, default="fused") == "block"
+    finally:
+        ops.set_attention_impl(None)
     with pytest.raises(ValueError):
-        ops.set_attention_impl("block")
+        ops.set_attention_impl("swin")
 
 
 @pytest.mark.parametrize("rates,train_mode,want", [

@@ -11,7 +11,12 @@
 //   vision_transformers_tpu/ops/fused_halo.py:282  _direct_bwd_kernel
 //       the attention alone, straight off q [B, H, W, C] and kv [B, H, W, 2C]
 //       (k lanes, then v lanes)
-// with four C entry points, each a short sequence of launches on the
+//   vision_transformers_tpu/ops/fused_halo.py:44   _fwd_kernel
+//   vision_transformers_tpu/ops/fused_halo.py:72   _bwd_kernel
+//       the attention on gathered neighbourhoods: q [B', M, C] (a window's
+//       queries), kv [B', N, 2C] (its neighbourhood, zero rows outside the
+//       map), bias [heads, M, N]
+// with six C entry points, each a short sequence of launches on the
 // caller's stream:
 //   vtx_fused_halo_layer_fwd      ln_rows → gemm (qkv) → halo attention (+ lse)
 //                                 → gemm (+bout, ×r₁, +x) → ln_rows →
@@ -26,6 +31,10 @@
 //   vtx_halo_attention_direct_fwd the halo attention (+ lse)
 //   vtx_halo_attention_direct_bwd Δ, the halo attention backward, the fold
 //                                 and the dbias sum
+//   vtx_halo_attention_fwd        the gathered halo attention (+ lse)
+//   vtx_halo_attention_bwd        Δ, the gathered backward (dk / dv straight
+//                                 into dkv [B', N, 2C], no fold) and the
+//                                 dbias sum
 //
 // Halo attention.  Windows are w x w tiles of the map; the w² queries of a
 // window attend to the k² keys of its neighbourhood, the k x k square
@@ -72,6 +81,18 @@
 // dkvw buffer costs B·S·k²·2HD floats written and read once (0.9 GB at
 // stage 1 for 128 images) instead of atomics.
 //
+// The gathered entries run the same three attention kernels with GATHER =
+// true, a template parameter that changes only the addressing: window j's
+// queries are rows j·M … j·M+M−1 of q and its keys and values rows j·N …
+// of kv, every position is read (out-of-map positions are the zero rows
+// the gather wrote), and the dk / dv pass writes each window's rows of dkv
+// in place, so the fold (the gather's adjoint) stays outside the kernel, in
+// torch, as in the JAX package.  M ≤ 64 queries per window (one per thread;
+// at windows of 16 queries 48 of the block's 64 threads idle); N is any
+// count, streamed in key tiles.  Bound at Halo-S stage 1 (B' = 8192
+// windows, M 64, N 144, C 96): 29.0 GFLOP forward, the f32 FMA rate, as the
+// direct op; the gathered kv is 906 MB against the map's 201 MB of q.
+//
 // What later work changes: mma / wgmma tiles for the attention products,
 // the attention fused into the qkv GEMM's consumer, bf16 operands.
 
@@ -85,14 +106,22 @@ constexpr int HKV = 16;   // keys per shared-memory tile (forward, dq)
 constexpr int HKB = 64;   // keys per block = threads (dk / dv)
 constexpr int HBQ = 16;   // queries per shared-memory tile (dk / dv)
 
-// map geometry: H x W tokens per image, windows w x w, neighbourhoods k x k
+// map geometry: H x W tokens per image, windows w x w, neighbourhoods k x k,
+// hs x ws windows per image; nq / nk queries / keys of a window, qn / kn
+// rows of q / kv per image (H·W on the map; nq / nk gathered, where each
+// "image" is one window)
 struct HaloGeom {
-  int H, W, w, halo, k, hs, ws;  // hs x ws windows per image
+  int H, W, w, halo, k, hs, ws, nq, nk, qn, kn;
 };
 
 inline HaloGeom halo_geom(int H, int W, int window, int halo) {
-  return {H, W, window, halo, window + 2 * halo, H / window, W / window};
+  const int k = window + 2 * halo;
+  return {H, W, window, halo, k, H / window, W / window, window * window, k * k,
+          H * W, H * W};
 }
+
+// the gathered problem: M queries against N neighbourhood rows per window
+inline HaloGeom gather_geom(int M, int N) { return {0, 0, 0, 0, 0, 1, 1, M, N, M, N}; }
 
 // token (y·W + x) of query i of window (wy, wx)
 __device__ __forceinline__ int q_token(const HaloGeom& g, int wy, int wx, int i) {
@@ -106,13 +135,26 @@ __device__ __forceinline__ int nb_token(const HaloGeom& g, int wy, int wx, int j
   return (y >= 0 && y < g.H && x >= 0 && x < g.W) ? y * g.W + x : -1;
 }
 
+// the row of query i / key j within its image's rows: the map's tokens, or
+// (GATHER) the window's own rows, every key in range
+template <bool GATHER>
+__device__ __forceinline__ int q_row(const HaloGeom& g, int wy, int wx, int i) {
+  return GATHER ? i : q_token(g, wy, wx, i);
+}
+
+template <bool GATHER>
+__device__ __forceinline__ int k_row(const HaloGeom& g, int wy, int wx, int j) {
+  return GATHER ? j : nb_token(g, wy, wx, j);
+}
+
 // ---------------------------------------------------------------------------
-// forward: grid (windows, heads, images), one query per thread.  q, k, v
-// are the maps' first lanes of the head-0 query / key / value (element
-// (token, h·D + d) at ptr[token·stride + h·D + d]); out [M, HD].
+// forward: grid (windows, heads, images) on the map, (windows, heads)
+// gathered; one query per thread.  q, k, v are the first lanes of the
+// head-0 query / key / value (element (row, h·D + d) at ptr[row·stride +
+// h·D + d]); out [rows, HD].
 // ---------------------------------------------------------------------------
 
-template <bool SAVE_LSE>
+template <bool SAVE_LSE, bool GATHER>
 __global__ void __launch_bounds__(HQ)
 halo_attn_fwd_kernel(const float* __restrict__ q, int qs, const float* __restrict__ k,
                      const float* __restrict__ v, int kvs, const float* __restrict__ bias,
@@ -121,18 +163,19 @@ halo_attn_fwd_kernel(const float* __restrict__ q, int qs, const float* __restric
   __shared__ float Ks[HKV][HDH];
   __shared__ float Vs[HKV][HDH];
   __shared__ float Es[HQ][HKV + 1];
-  const int win = blockIdx.x, h = blockIdx.y, b = blockIdx.z, t = threadIdx.x;
+  const int h = blockIdx.y, t = threadIdx.x;
+  const int win = GATHER ? 0 : blockIdx.x, b = GATHER ? blockIdx.x : blockIdx.z;
   const int wy = win / g.ws, wx = win % g.ws;
-  const int nq = g.w * g.w, nk = g.k * g.k, HD = nh * D;
-  const long long img = (long long)b * g.H * g.W;
+  const int nq = g.nq, nk = g.nk, HD = nh * D;
+  const long long qimg = (long long)b * g.qn, kimg = (long long)b * g.kn;
   const bool active = t < nq;
-  const int tok = active ? q_token(g, wy, wx, t) : 0;
+  const int tok = active ? q_row<GATHER>(g, wy, wx, t) : 0;
   const float* bh = bias + (long long)h * nq * nk;
 
   float qr[HDH], o[HDH];
 #pragma unroll
   for (int d = 0; d < HDH; ++d) {
-    qr[d] = (active && d < D) ? q[(img + tok) * qs + h * D + d] : 0.f;
+    qr[d] = (active && d < D) ? q[(qimg + tok) * qs + h * D + d] : 0.f;
     o[d] = 0.f;
   }
   float m = -INFINITY, l = 0.f;
@@ -140,8 +183,8 @@ halo_attn_fwd_kernel(const float* __restrict__ q, int qs, const float* __restric
   for (int j0 = 0; j0 < nk; j0 += HKV) {
     for (int idx = t; idx < HKV * HDH; idx += HQ) {
       const int jj = idx / HDH, d = idx % HDH, j = j0 + jj;
-      const int kt = (j < nk && d < D) ? nb_token(g, wy, wx, j) : -1;
-      const long long off = (img + kt) * kvs + h * D + d;
+      const int kt = (j < nk && d < D) ? k_row<GATHER>(g, wy, wx, j) : -1;
+      const long long off = (kimg + kt) * kvs + h * D + d;
       Ks[jj][d] = kt >= 0 ? k[off] : 0.f;  // zero key / value outside the map
       Vs[jj][d] = kt >= 0 ? v[off] : 0.f;
     }
@@ -156,23 +199,26 @@ halo_attn_fwd_kernel(const float* __restrict__ q, int qs, const float* __restric
 
   if (active) {
     const float inv = 1.f / l;
-    float* orow = out + (img + tok) * HD + h * D;
+    float* orow = out + (qimg + tok) * HD + h * D;
 #pragma unroll
     for (int d = 0; d < HDH; ++d)
       if (d < D) orow[d] = o[d] * inv;
-    if (SAVE_LSE) lse[((long long)b * nh + h) * g.H * g.W + tok] = m + logf(l);
+    if (SAVE_LSE) lse[((long long)b * nh + h) * g.qn + tok] = m + logf(l);
   }
 }
 
 // ---------------------------------------------------------------------------
 // dk / dv and the dbias partials: grid (chunks · key tiles, heads), one
 // neighbourhood key per thread.  Chunk c walks pairs [c·per, (c+1)·per) of
-// the B·S (image, window) pairs in order; per pair, query tiles of q, do,
-// lse, Δ are streamed through shared memory (broadcast) in d-outer passes
-// as in fused_layer_bwd.cu's key-tile pass.  Thread t keeps column t of
-// the chunk's dS sum, Bacc[i][t], in shared memory.
+// the B·S (image, window) pairs in order (gathered: the B' windows, S = 1);
+// per pair, query tiles of q, do, lse, Δ are streamed through shared
+// memory (broadcast) in d-outer passes as in fused_layer_bwd.cu's key-tile
+// pass.  Thread t keeps column t of the chunk's dS sum, Bacc[i][t], in
+// shared memory.  dk / dv of pair (b, win) go to rows (b·S + win)·k² of
+// dkvw — gathered, exactly dkv [B', N, 2HD].
 // ---------------------------------------------------------------------------
 
+template <bool GATHER>
 __global__ void __launch_bounds__(HKB)
 halo_attn_bwd_dkdv_kernel(const float* __restrict__ q, int qs,
                           const float* __restrict__ k, const float* __restrict__ v,
@@ -190,8 +236,7 @@ halo_attn_bwd_dkdv_kernel(const float* __restrict__ q, int qs,
   __shared__ int Tk[HKB];
   const int c = blockIdx.x / ktiles, kt = blockIdx.x % ktiles;
   const int h = blockIdx.y, t = threadIdx.x;
-  const int nq = g.w * g.w, nk = g.k * g.k, HD = nh * D, S = g.hs * g.ws;
-  const long long HW = (long long)g.H * g.W;
+  const int nq = g.nq, nk = g.nk, HD = nh * D, S = g.hs * g.ws;
   const int j = kt * HKB + t;
   const bool key = j < nk;
   const float* bh = bias + (long long)h * nq * nk;
@@ -201,14 +246,14 @@ halo_attn_bwd_dkdv_kernel(const float* __restrict__ q, int qs,
   for (int pr = c * per_chunk; pr < p_end; ++pr) {
     const int b = pr / S, win = pr % S;
     const int wy = win / g.ws, wx = win % g.ws;
-    const long long img = (long long)b * HW;
+    const long long qimg = (long long)b * g.qn, kimg = (long long)b * g.kn;
     __syncthreads();  // the last pair's tiles fully read
-    Tk[t] = key ? nb_token(g, wy, wx, j) : -1;
+    Tk[t] = key ? k_row<GATHER>(g, wy, wx, j) : -1;
     __syncthreads();
     for (int idx = t; idx < HKB * HDH; idx += HKB) {
       const int jj = idx / HDH, d = idx % HDH;
       const int tk = d < D ? Tk[jj] : -1;
-      const long long off = (img + tk) * kvs + h * D + d;
+      const long long off = (kimg + tk) * kvs + h * D + d;
       Ks[jj][d] = tk >= 0 ? k[off] : 0.f;
       Vs[jj][d] = tk >= 0 ? v[off] : 0.f;
     }
@@ -222,14 +267,14 @@ halo_attn_bwd_dkdv_kernel(const float* __restrict__ q, int qs,
       for (int idx = t; idx < HBQ * HDH; idx += HKB) {
         const int i = idx / HDH, d = idx % HDH;
         const bool ok = q0 + i < nq && d < D;
-        const long long tq = ok ? img + q_token(g, wy, wx, q0 + i) : 0;
+        const long long tq = ok ? qimg + q_row<GATHER>(g, wy, wx, q0 + i) : 0;
         Qs[i][d] = ok ? q[tq * qs + h * D + d] : 0.f;
         dOs[i][d] = ok ? dout[tq * HD + h * D + d] : 0.f;
       }
       if (t < HBQ) {
         const bool ok = q0 + t < nq;
-        const long long r = ((long long)b * nh + h) * HW +
-                            (ok ? q_token(g, wy, wx, q0 + t) : 0);
+        const long long r = ((long long)b * nh + h) * g.qn +
+                            (ok ? q_row<GATHER>(g, wy, wx, q0 + t) : 0);
         Ls[t] = ok ? lse[r] : INFINITY;  // p = exp(−inf) = 0 for padding
         Ds[t] = ok ? delta[r] : 0.f;
       }
@@ -267,12 +312,13 @@ halo_attn_bwd_dkdv_kernel(const float* __restrict__ q, int qs,
 }
 
 // ---------------------------------------------------------------------------
-// dq: grid (windows, heads, images), one query per thread, its q and do rows
-// in (padded) shared memory, neighbourhood key tiles and the bias tile
-// staged as in the forward; two d-outer passes per tile as in
-// fused_layer_bwd.cu's query-tile pass.  dq [token·dqs + h·D + d].
+// dq: the forward's grid, one query per thread, its q and do rows in
+// (padded) shared memory, neighbourhood key tiles and the bias tile staged
+// as in the forward; two d-outer passes per tile as in fused_layer_bwd.cu's
+// query-tile pass.  dq [row·dqs + h·D + d].
 // ---------------------------------------------------------------------------
 
+template <bool GATHER>
 __global__ void __launch_bounds__(HQ)
 halo_attn_bwd_dq_kernel(const float* __restrict__ q, int qs,
                         const float* __restrict__ k, const float* __restrict__ v,
@@ -285,23 +331,23 @@ halo_attn_bwd_dq_kernel(const float* __restrict__ q, int qs,
   __shared__ float Ks[HKV][HDH];
   __shared__ float Vs[HKV][HDH];
   __shared__ float Es[HQ][HKV + 1];
-  const int win = blockIdx.x, h = blockIdx.y, b = blockIdx.z, t = threadIdx.x;
+  const int h = blockIdx.y, t = threadIdx.x;
+  const int win = GATHER ? 0 : blockIdx.x, b = GATHER ? blockIdx.x : blockIdx.z;
   const int wy = win / g.ws, wx = win % g.ws;
-  const int nq = g.w * g.w, nk = g.k * g.k, HD = nh * D;
-  const long long HW = (long long)g.H * g.W;
-  const long long img = (long long)b * HW;
+  const int nq = g.nq, nk = g.nk, HD = nh * D;
+  const long long qimg = (long long)b * g.qn, kimg = (long long)b * g.kn;
   const float* bh = bias + (long long)h * nq * nk;
 
   for (int idx = t; idx < HQ * HDH; idx += HQ) {
     const int i = idx / HDH, d = idx % HDH;
     const bool ok = i < nq && d < D;
-    const long long tq = ok ? img + q_token(g, wy, wx, i) : 0;
+    const long long tq = ok ? qimg + q_row<GATHER>(g, wy, wx, i) : 0;
     Qs[i][d] = ok ? q[tq * qs + h * D + d] : 0.f;
     dOs[i][d] = ok ? dout[tq * HD + h * D + d] : 0.f;
   }
   const bool active = t < nq;
-  const int tok = active ? q_token(g, wy, wx, t) : 0;
-  const long long r = ((long long)b * nh + h) * HW + tok;
+  const int tok = active ? q_row<GATHER>(g, wy, wx, t) : 0;
+  const long long r = ((long long)b * nh + h) * g.qn + tok;
   const float l = active ? lse[r] : 0.f;
   const float dl = active ? delta[r] : 0.f;
   float dqa[HDH];
@@ -312,8 +358,8 @@ halo_attn_bwd_dq_kernel(const float* __restrict__ q, int qs,
     __syncthreads();  // Qs / dOs written, or the last tile fully read
     for (int idx = t; idx < HKV * HDH; idx += HQ) {
       const int jj = idx / HDH, d = idx % HDH, j = j0 + jj;
-      const int kt = (j < nk && d < D) ? nb_token(g, wy, wx, j) : -1;
-      const long long off = (img + kt) * kvs + h * D + d;
+      const int kt = (j < nk && d < D) ? k_row<GATHER>(g, wy, wx, j) : -1;
+      const long long off = (kimg + kt) * kvs + h * D + d;
       Ks[jj][d] = kt >= 0 ? k[off] : 0.f;
       Vs[jj][d] = kt >= 0 ? v[off] : 0.f;
     }
@@ -333,7 +379,7 @@ halo_attn_bwd_dq_kernel(const float* __restrict__ q, int qs,
   }
 
   if (active) {
-    float* row = dq + (img + tok) * dqs + h * D;
+    float* row = dq + (qimg + tok) * dqs + h * D;
 #pragma unroll
     for (int d = 0; d < HDH; ++d)
       if (d < D) row[d] = dqa[d] * scale;
@@ -386,23 +432,35 @@ cudaError_t check_geom(const HaloGeom& g, int B, int nh, int D) {
   return cudaSuccess;
 }
 
+// the gathered problem: B' windows (on the grid's x), M ≤ HQ queries, any N
+cudaError_t check_gather(const HaloGeom& g, int B, int nh, int D) {
+  if (D < 1 || D > HDH || g.nq < 1 || g.nq > HQ || g.nk < 1 || B < 1 || nh < 1 ||
+      nh > 65535)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+// GATHER: B is the number of windows B' of the gathered problem
+template <bool GATHER = false>
 cudaError_t halo_attention_fwd(const float* q, int qs, const float* k, const float* v,
                                int kvs, const float* bias, float* out, float* lse,
                                int B, const HaloGeom& g, int nh, int D, float scale,
                                cudaStream_t s) {
-  VTX_CHECK(check_geom(g, B, nh, D));
-  const dim3 grid(g.hs * g.ws, nh, B);
+  VTX_CHECK(GATHER ? check_gather(g, B, nh, D) : check_geom(g, B, nh, D));
+  const dim3 grid = GATHER ? dim3(B, nh, 1) : dim3(g.hs * g.ws, nh, B);
   if (lse)
-    halo_attn_fwd_kernel<true><<<grid, HQ, 0, s>>>(q, qs, k, v, kvs, bias, out, lse,
-                                                   g, nh, D, scale);
+    halo_attn_fwd_kernel<true, GATHER><<<grid, HQ, 0, s>>>(q, qs, k, v, kvs, bias, out,
+                                                           lse, g, nh, D, scale);
   else
-    halo_attn_fwd_kernel<false><<<grid, HQ, 0, s>>>(q, qs, k, v, kvs, bias, out,
-                                                    nullptr, g, nh, D, scale);
+    halo_attn_fwd_kernel<false, GATHER><<<grid, HQ, 0, s>>>(q, qs, k, v, kvs, bias, out,
+                                                            nullptr, g, nh, D, scale);
   return cudaGetLastError();
 }
 
-// dq [token·dqs + h·D + d], dkv [token·dkvs + lane] (2HD lanes), dbias
-// [heads, w², k²]; workspace dkvw [B·S·k²·2HD], part [chunks·heads·w²·k²]
+// dq [row·dqs + h·D + d], dkv [token·dkvs + lane] (2HD lanes), dbias
+// [heads, w², k²]; workspace dkvw [B·S·k²·2HD], part [chunks·heads·w²·k²].
+// GATHER: dkvw is dkv itself [B', N, 2HD], and nothing is folded.
+template <bool GATHER = false>
 cudaError_t halo_attention_bwd(const float* q, int qs, const float* k, const float* v,
                                int kvs, const float* bias, const float* dout,
                                const float* lse, const float* delta, float* dkvw,
@@ -410,22 +468,25 @@ cudaError_t halo_attention_bwd(const float* q, int qs, const float* k, const flo
                                float* dkv, int dkvs, float* dbias, int B,
                                const HaloGeom& g, int nh, int D, float scale,
                                cudaStream_t s) {
-  VTX_CHECK(check_geom(g, B, nh, D));
+  VTX_CHECK(GATHER ? check_gather(g, B, nh, D) : check_geom(g, B, nh, D));
   const int S = g.hs * g.ws, pairs = B * S, HD = nh * D;
-  const int nq = g.w * g.w, nk = g.k * g.k;
+  const int nq = g.nq, nk = g.nk;
   if (chunks < 1 || chunks > pairs) return cudaErrorInvalidValue;
   const int per_chunk = cdiv(pairs, chunks), ktiles = cdiv(nk, HKB);
-  halo_attn_bwd_dkdv_kernel<<<dim3(chunks * ktiles, nh), HKB, 0, s>>>(
+  halo_attn_bwd_dkdv_kernel<GATHER><<<dim3(chunks * ktiles, nh), HKB, 0, s>>>(
       q, qs, k, v, kvs, bias, dout, lse, delta, dkvw, part, pairs, per_chunk,
       ktiles, g, nh, D, scale);
   VTX_CHECK(cudaGetLastError());
-  halo_attn_bwd_dq_kernel<<<dim3(S, nh, B), HQ, 0, s>>>(
+  const dim3 grid = GATHER ? dim3(B, nh, 1) : dim3(S, nh, B);
+  halo_attn_bwd_dq_kernel<GATHER><<<grid, HQ, 0, s>>>(
       q, qs, k, v, kvs, bias, dout, lse, delta, dq, dqs, g, nh, D, scale);
   VTX_CHECK(cudaGetLastError());
-  const long long total = (long long)B * g.H * g.W * 2 * HD;
-  halo_fold_kernel<<<ew_blocks(total), EW_THREADS, 0, s>>>(dkvw, g, 2 * HD, total,
-                                                          dkv, dkvs);
-  VTX_CHECK(cudaGetLastError());
+  if (!GATHER) {
+    const long long total = (long long)B * g.H * g.W * 2 * HD;
+    halo_fold_kernel<<<ew_blocks(total), EW_THREADS, 0, s>>>(dkvw, g, 2 * HD, total,
+                                                            dkv, dkvs);
+    VTX_CHECK(cudaGetLastError());
+  }
   return launch_splitk_reduce(part, chunks, 1, nh * nq * nk, dbias, 0, 1, s);
 }
 
@@ -552,4 +613,36 @@ extern "C" int vtx_halo_attention_direct_bwd(
   return static_cast<int>(halo_attention_bwd(
       q, HD, kv, kv + HD, 2 * HD, bias, dout, lse, delta, dkvw, part, chunks, dq, HD,
       dkv, 2 * HD, dbias, B, halo_geom(H, W, window, halo), nh, D, scale, s));
+}
+
+// The gathered halo attention (B5b): q [B', M, HD] (a window's queries), kv
+// [B', N, 2HD] (its neighbourhood, k lanes then v lanes, zero rows outside
+// the map), bias [heads, M, N]; out [B', M, HD]; lse [B', heads, M] may be
+// null (no saves)
+extern "C" int vtx_halo_attention_fwd(
+    const float* q, const float* kv, const float* bias, float* out, float* lse,
+    int B, int M, int N, int nh, int D, float scale, void* stream) {
+  const int HD = nh * D;
+  return static_cast<int>(halo_attention_fwd<true>(
+      q, HD, kv, kv + HD, 2 * HD, bias, out, lse, B, gather_geom(M, N), nh, D, scale,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// out and lse: the training forward's; workspace delta [B'·heads·M], part
+// [chunks·heads·M·N]; dq [B', M, HD], dkv [B', N, 2HD] (every row written),
+// dbias [heads, M, N] (the chunks' partials summed in chunk order)
+extern "C" int vtx_halo_attention_bwd(
+    const float* q, const float* kv, const float* bias, const float* out,
+    const float* lse, const float* dout, float* delta, float* part, int chunks,
+    float* dq, float* dkv, float* dbias, int B, int M, int N, int nh, int D,
+    float scale, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int HD = nh * D;
+  if (B < 1 || M < 1) return static_cast<int>(cudaErrorInvalidValue);
+  attn_delta_kernel<<<ew_blocks((long long)B * nh * M), EW_THREADS, 0, s>>>(
+      dout, out, delta, B, M, nh, D);
+  VTX_CHECK(cudaGetLastError());
+  return static_cast<int>(halo_attention_bwd<true>(
+      q, HD, kv, kv + HD, 2 * HD, bias, dout, lse, delta, dkv, part, chunks, dq, HD,
+      dkv, 2 * HD, dbias, B, gather_geom(M, N), nh, D, scale, s));
 }

@@ -9,12 +9,15 @@
 //       out = softmax(q·kᵀ·scale + extra)·v per head, from the packed qkv
 //   vision_transformers_tpu/ops/fused_layer.py:701   _ff_fwd_kernel
 //       o = x + r ⊙ (act(LN(x)·W1 + b1)·W2 + b2), act silu or tanh-gelu
+//   vision_transformers_tpu/ops/fused_block.py:57   _blk_fwd_kernel
+//       out = OutProj(MHSA(x·Wqkv + bqkv + extra)), no LN, no residual
 // with one C entry point per op, each a short sequence of hand-written
 // launches on the caller's stream:
 //   vtx_fused_attention_layer_fwd   = ln_rows → gemm(+bqkv) → attention → gemm(+bout, ×r, +x)
 //   vtx_fused_transformer_layer_fwd = the above → ln_rows → gemm(+b1, silu) → gemm(+b2, ×r₂, +z)
 //   vtx_fused_attention_qkv_fwd     = attention alone, [B, N, 3·H·D] → [B, N, H·D]
 //   vtx_fused_ff_layer_fwd          = ln_rows → gemm(+b1, act) → gemm(+b2, ×r, +x)
+//   vtx_fused_attention_block_fwd   = gemm(+bqkv) → attention → gemm(+bout)
 // The Pallas kernels keep every intermediate in VMEM; here the LN output,
 // qkv, the attention output and the FF hidden go through device memory
 // between launches (workspace the wrapper allocates).  In training the
@@ -59,6 +62,12 @@
 // a GEMM with b₂, the row scale and the residual; at ViT-S/16's 25,216
 // rows its 4·M·C·F = 59.5 GFLOP of GEMM bound it (~0.9 ms at the f32 FMA
 // rate).
+//
+// B8 (the attention block, ViT's and Swin's path under a 'block' force) is
+// the attention half without its LN, residual and row scale: the same
+// GEMM → attention → GEMM sequence (attention_block below, which the
+// attention half runs after its LN), the output Cout wide.  At ViT-S/16
+// (B = 128) its 37.4 GFLOP forward bound it (~0.56 ms at the f32 FMA rate).
 //
 // Numerics follow the JAX kernels: LN statistics in f32 in the fast-variance
 // form E[x²]−μ² (fused_layer.py:69-76), f32 accumulation, softmax in f32.
@@ -175,6 +184,24 @@ cudaError_t launch_attention(const float* qkv, const float* extra, int groups,
                                                N, H, D, scale, stream);
 }
 
+// out = res + rs ⊙ (MHSA(a·Wqkv + bqkv + extra)·Wout + bout) over a [B·N, C]
+// → out [B·N, Cout], writing qkv and acc on the way (and lse when non-null);
+// rs (per sample, N rows each) and res may be null
+cudaError_t attention_block(
+    const float* a, const float* wqkv, long long wqkv_s0, long long wqkv_s1,
+    const float* bqkv, const float* wout, long long wout_s0, long long wout_s1,
+    const float* bout, const float* extra, int groups, const float* rs,
+    const float* res, float* qkv, float* acc, float* lse, float* out, int B, int N,
+    int C, int H, int D, int Cout, float scale, cudaStream_t stream) {
+  const int M = B * N, HD = H * D;
+  VTX_CHECK(launch_gemm(a, wqkv, wqkv_s0, wqkv_s1, bqkv, nullptr, 1, nullptr,
+                        qkv, M, 3 * HD, C, 0, stream));
+  VTX_CHECK(launch_attention(qkv, extra, groups, acc, lse, B, N, H, D, scale, stream));
+  VTX_CHECK(launch_gemm(acc, wout, wout_s0, wout_s1, bout, rs, N, res, out, M, Cout,
+                        HD, 0, stream));
+  return cudaSuccess;
+}
+
 // z = x + rs ⊙ OutProj(MHSA(QkvProj(LN(x)) + extra)), writing u, qkv, acc
 // on the way (and mu, rstd, lse when non-null)
 cudaError_t attention_half(
@@ -184,14 +211,10 @@ cudaError_t attention_half(
     const float* extra, int groups, const float* rs, float* u, float* qkv,
     float* acc, float* mu, float* rstd, float* lse, float* z, int B, int N,
     int C, int H, int D, float scale, float eps, cudaStream_t stream) {
-  const int M = B * N, HD = H * D;
-  VTX_CHECK(launch_ln(x, ln_g, ln_b, u, mu, rstd, M, C, eps, stream));
-  VTX_CHECK(launch_gemm(u, wqkv, wqkv_s0, wqkv_s1, bqkv, nullptr, 1, nullptr,
-                        qkv, M, 3 * HD, C, 0, stream));
-  VTX_CHECK(launch_attention(qkv, extra, groups, acc, lse, B, N, H, D, scale, stream));
-  VTX_CHECK(launch_gemm(acc, wout, wout_s0, wout_s1, bout, rs, N, x, z, M, C,
-                        HD, 0, stream));
-  return cudaSuccess;
+  VTX_CHECK(launch_ln(x, ln_g, ln_b, u, mu, rstd, B * N, C, eps, stream));
+  return attention_block(u, wqkv, wqkv_s0, wqkv_s1, bqkv, wout, wout_s0, wout_s1, bout,
+                         extra, groups, rs, x, qkv, acc, lse, z, B, N, C, H, D, C, scale,
+                         stream);
 }
 
 // o = z + rs_ff ⊙ (silu(LN2(z)·W1 + b1)·W2 + b2) after the attention half
@@ -329,4 +352,21 @@ extern "C" int vtx_fused_ff_layer_fwd(
   return static_cast<int>(vtx::ff_half_fwd(
       x, ln_g, ln_b, w1, w1_s0, w1_s1, b1, w2, w2_s0, w2_s1, b2, rs, N, u, hid, af,
       mu, rstd, out, B * N, C, F, eps, act, static_cast<cudaStream_t>(stream)));
+}
+
+// B8: out = OutProj(MHSA(x·Wqkv + bqkv + extra)) + bout, x [B, N, C] → out
+// [B, N, Cout], no LN and no residual.  qkv [B, N, 3·H·D] and acc [B, N, H·D]
+// are workspace the training forward keeps with lse [B, H, N] for its
+// backward (fused_layer_bwd.cu); lse may be null (serving).  extra
+// [G, H, N, N] (groups = G; heads up to 32 wide), bqkv and bout may be null.
+extern "C" int vtx_fused_attention_block_fwd(
+    const float* x, const float* wqkv, long long wqkv_s0, long long wqkv_s1,
+    const float* bqkv, const float* wout, long long wout_s0, long long wout_s1,
+    const float* bout, const float* extra, int groups, float* qkv, float* acc,
+    float* lse, float* out, int B, int N, int C, int H, int D, int Cout, float scale,
+    void* stream) {
+  return static_cast<int>(attention_block(
+      x, wqkv, wqkv_s0, wqkv_s1, bqkv, wout, wout_s0, wout_s1, bout, extra, groups,
+      nullptr, nullptr, qkv, acc, lse, out, B, N, C, H, D, Cout, scale,
+      static_cast<cudaStream_t>(stream)));
 }

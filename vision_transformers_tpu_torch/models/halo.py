@@ -19,11 +19,15 @@ dropped (utils/weights.py::load_checkpoint drops them).  Images are NCHW;
 the model works on NHWC maps inside.
 
 Each layer dispatches through :func:`ops.halo_impl` (the JAX
-``halo_impl``): ``layer`` (the default) runs the whole layer as one op,
-:func:`ops.fused_halo_layer.fused_halo_layer`; ``direct`` the attention
-alone, :func:`ops.halo_attention_direct`, between plain projections (the JAX
-path when the layer kernel is not taken, halo.py:150-162); ``einsum`` the
-plain torch neighbourhood attention (halo.py:179-204).
+``halo_impl``): ``layer`` (the default where 2·halo ≤ window) runs the whole
+layer as one op, :func:`ops.fused_halo_layer.fused_halo_layer`; ``direct``
+the attention alone, :func:`ops.halo_attention_direct`, between plain
+projections (the JAX path when the layer kernel is not taken,
+halo.py:150-162); ``gather`` (the default where 2·halo > window) the
+attention on the gathered neighbourhoods, :func:`ops.halo_attention`, between
+plain projections, the gather and its adjoint torch data movement
+(halo.py:163-175); ``einsum`` the plain torch neighbourhood attention
+(halo.py:179-204).
 
 Reference quirks reproduced: the qkv projection has no bias, LayerNorm eps
 1e-6 in the layers and 1e-5 in the embeddings and the head, the widened
@@ -46,7 +50,8 @@ from torch import nn
 
 from .. import ops
 from ..config.registry import TypedConfig, register
-from ..ops.fused_halo import attention_fwd_reference, halo_attention_direct
+from ..ops.fused_halo import (attention_fwd_reference, halo_attention,
+                              halo_attention_direct, unwindows, windows)
 from ..ops.fused_halo import neighborhoods as halo_neighborhoods
 from ..ops.fused_halo_layer import fused_halo_layer
 from .layers import FeedForward, LayerNorm, drop_path_scale, scaled
@@ -102,6 +107,16 @@ class HaloAttention(nn.Module):
             out = halo_attention_direct(q.contiguous(), kv.contiguous(),
                                         self.relative_bias(), self.window, self.halo, H,
                                         scale)
+        elif impl == "gather":
+            # queries window-partitioned, heads left on lanes; the kv
+            # neighbourhoods exactly as the gather emits them (JAX
+            # halo.py:163-175)
+            b, h, w, _ = x.shape
+            win, k = self.window, self.window + 2 * self.halo
+            qw = windows(q, win).reshape(-1, win * win, inner).contiguous()
+            nb = halo_neighborhoods(kv, win, self.halo).reshape(-1, k * k, 2 * inner)
+            out = halo_attention(qw, nb.contiguous(), self.relative_bias(), H, scale)
+            out = unwindows(out.reshape(b, -1, win * win, inner), win, h, w)
         else:  # the plain neighbourhood attention (JAX halo.py:179-204)
             out = attention_fwd_reference(q, kv[..., :inner], kv[..., inner:],
                                           self.relative_bias(), H, self.window,

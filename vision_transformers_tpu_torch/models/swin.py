@@ -208,15 +208,23 @@ class WindowAttention(nn.Module):
         out = out.permute(2, 0, 4, 1, 3, 5, 6).reshape(b, h, w, -1)
         return self._roll(out, 1)
 
-    def forward(self, x: torch.Tensor, fused: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, impl: str = "einsum") -> torch.Tensor:
         """Packed-window attention on an LN'd map [b, H, W, C]: plain torch
-        (JAX swin.py:302-330) or, with ``fused``, the packed-qkv kernel on
-        the partitioned rows with the grouped bias (swin.py:288-293)."""
+        (JAX swin.py:302-330) or, on the partitioned rows with the grouped
+        bias, the packed-qkv kernel between the projections (``impl``
+        "fused", swin.py:288-293) or the attention-block kernel with the
+        projections inside (``impl`` "block", swin.py:280-286)."""
         b, h, w, _ = x.shape
-        if fused:
+        scale = 1.0 / self.dim_head ** 0.5
+        if impl == "block":
+            out = ops.fused_attention_block(
+                self.partition(x).contiguous(), self.weight.weight.t(), self.weight.bias,
+                self.linear.weight.t(), self.linear.bias, self.n_head, self.grouped_bias(),
+                scale)
+            return self.unpartition(out, b)
+        if impl == "fused":
             qkv = self.weight(self.partition(x))
-            out = ops.fused_attention_qkv(qkv, self.n_head, self.grouped_bias(),
-                                          1.0 / self.dim_head ** 0.5)
+            out = ops.fused_attention_qkv(qkv, self.n_head, self.grouped_bias(), scale)
             return self.unpartition(self.linear(out), b)
         win, pack, H, D = self.window, self.pack, self.n_head, self.dim_head
         hs, wsp = h // win, w // win // pack
@@ -254,8 +262,8 @@ class SwinLayer(nn.Module):
         rs_attn, rs_ff = (None, None) if rs is None else rs
         na, attn, nf, ff = self.norm_attn, self.attn, self.norm_ff, self.ff
         impl = ops.attention_impl(b, default="layer1")
-        if impl in ("einsum", "fused"):
-            x = x + scaled(attn(na(x), fused=impl == "fused"), rs_attn)
+        if impl in ("einsum", "fused", "block"):
+            x = x + scaled(attn(na(x), impl), rs_attn)
             return x + scaled(ff(nf(x)), rs_ff)
         # kernel paths: LN, the residuals and the row scales are token-
         # pointwise, so they commute with the roll / partition permutation;

@@ -12,8 +12,10 @@ kernel (``layer``, with the FF-half kernel too under
 layer kernels only where no dropout is active: in eval, or with
 ``dropout``, ``drop_attn`` and ``drop_ff`` all 0.  Otherwise the layer runs
 as two residual branches, its attention through the packed-qkv kernel
-(``fused``, from 32 rows and 128 tokens) or, with attention-probability
-dropout in training, through the plain einsum (vit.py:111-113).
+(``fused``, from 32 rows and 128 tokens), through the attention-block kernel
+under a ``block`` force (the projections inside it, vit.py:115-122) or,
+with attention-probability dropout in training, through the plain einsum
+(vit.py:111-113).
 
 In training, DropPath draws one per-sample scale (keep-mask / keep-prob)
 per residual branch and layer, at the JAX model's rate ramp
@@ -61,14 +63,21 @@ class MultiHeadedAttention(nn.Module):
         self.linear = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
-                fused: bool = False) -> torch.Tensor:
-        """``fused``: the packed-qkv kernel (:func:`ops.fused_attention_qkv`,
-        vit.py:124-129), which takes no probability dropout; else plain
-        torch, with the probabilities' dropout in training."""
+                impl: str = "einsum") -> torch.Tensor:
+        """``impl``: "block", the whole block as one op
+        (:func:`ops.fused_attention_block`, vit.py:115-122); "fused", the
+        packed-qkv kernel between the projections
+        (:func:`ops.fused_attention_qkv`, vit.py:124-129) — neither takes
+        probability dropout —; else plain torch, with the probabilities'
+        dropout in training."""
         b, n, dim = x.shape
         d = dim // self.n_head
+        if impl == "block":
+            return ops.fused_attention_block(x, self.qkv.weight.t(), self.qkv.bias,
+                                             self.linear.weight.t(), self.linear.bias,
+                                             self.n_head)
         qkv = self.qkv(x)
-        if fused:
+        if impl == "fused":
             return self.linear(ops.fused_attention_qkv(qkv, self.n_head))
         q, k, v = qkv.reshape(b, n, 3, self.n_head, d).unbind(2)
         attn = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(d))
@@ -116,11 +125,12 @@ class TransformerLayer(nn.Module):
                 return ops.fused_ff_layer(x, *ff_w, "silu", rs_ff, _LN_EPS)
             return x + scaled(ff(nf(x)), rs_ff)
         # two residual branches; the attention's own dispatch (vit.py:111-113)
-        fused = ops.attention_impl(b, seq=n, default="fused") == "fused" \
-            and not (self.training and attn.dropout > 0)
+        attn_impl = ops.attention_impl(b, seq=n, default="fused")
+        if self.training and attn.dropout > 0:
+            attn_impl = "einsum"  # attention dropout needs materialized probs
         drop = (lambda h: layers.dropout(h, self.dropout, generator)) if self.training \
             else (lambda h: h)
-        x = x + scaled(drop(attn(na(x), generator, fused)), rs_attn)
+        x = x + scaled(drop(attn(na(x), generator, attn_impl)), rs_attn)
         return x + scaled(drop(ff(nf(x), generator)), rs_ff)
 
 

@@ -23,6 +23,13 @@ a ``torch.autograd.Function``.  Three take the attention dispatch of
   optional shared or grouped bias.  ViT's training path with dropout (the
   layer kernels take no dropout; 32+ rows, 128+ tokens, and no
   attention-probability dropout); Swin's under a force.
+- ``block``:  :func:`fused_attention_block` (ops/fused_block.py) — the qkv
+  projection, the attention with an optional shared or grouped bias and the
+  out projection, no LN and no residual.  Only under a force
+  (``set_attention_impl("block")`` or ``VTX_ATTN_IMPL=block``), as in the
+  JAX package; ViT's and Swin's two-branch layer runs it, with LN, the
+  residuals, DropPath and dropout outside (einsum instead where attention
+  probabilities are dropped in training).
 
 ``einsum`` is the plain torch attention of the models.
 
@@ -41,7 +48,10 @@ Halo attention has its own dispatch, :func:`halo_impl` (the JAX
 layer off the feature map — the default wherever 2·halo ≤ window, in
 training, eval and serving —; ``direct`` the attention alone,
 :func:`halo_attention_direct` (ops/fused_halo.py), between plain torch
-projections; ``einsum`` the plain torch neighbourhood attention.
+projections; ``gather`` the attention on gathered neighbourhoods,
+:func:`halo_attention` (ops/fused_halo.py) — the default wherever
+2·halo > window, the neighbourhood gather and its adjoint plain torch data
+movement around it —; ``einsum`` the plain torch neighbourhood attention.
 """
 
 from __future__ import annotations
@@ -55,7 +65,8 @@ from . import fused_attention as fused_attention_mod  # noqa: F401  (the module)
 from . import fused_halo_layer  # noqa: F401  (the module; see above)
 from .fused_attention import fused_attention  # noqa: F401  (the function)
 from .fused_attention import fused_attention_qkv  # noqa: F401
-from .fused_halo import halo_attention_direct  # noqa: F401
+from .fused_block import fused_attention_block  # noqa: F401
+from .fused_halo import halo_attention, halo_attention_direct  # noqa: F401
 from .fused_layer import fused_attention_layer, fused_ff_layer  # noqa: F401
 from .fused_layer1 import fused_transformer_layer  # noqa: F401
 
@@ -63,14 +74,12 @@ __all__ = ["forward_only", "set_attention_impl", "attention_impl", "set_ff_kerne
            "ff_kernel_enabled", "set_halo_impl", "halo_impl", "set_sra_impl", "sra_impl",
            "fused_attention", "fused_attention_mod", "fused_attention_qkv",
            "fused_attention_layer", "fused_ff_layer", "fused_transformer_layer",
-           "halo_attention_direct"]
+           "fused_attention_block", "halo_attention", "halo_attention_direct"]
 
 _FORCED: Optional[str] = None
 _FF_KERNEL_FORCED: Optional[bool] = None
 _HALO_FORCED: Optional[str] = None
-_FF_KERNEL_FORCED: Optional[bool] = None
 _SRA_FORCED: Optional[str] = None
-_FF_KERNEL_FORCED: Optional[bool] = None
 # thread-local, as in the JAX package: one thread's eval forward never
 # changes another thread's dispatch
 _TLS = threading.local()
@@ -101,10 +110,10 @@ def forward_only():
 
 def set_attention_impl(impl: Optional[str]) -> None:
     """Force the attention implementation: "einsum" | "fused" | "layer" |
-    "layer1"; None = the row / token-count dispatch of
+    "layer1" | "block"; None = the row / token-count dispatch of
     :func:`attention_impl`."""
     global _FORCED
-    if impl not in (None, "einsum", "fused", "layer", "layer1"):
+    if impl not in (None, "einsum", "fused", "layer", "layer1", "block"):
         raise ValueError(f"unknown attention impl {impl!r}")
     _FORCED = impl
 
@@ -148,26 +157,33 @@ def ff_kernel_enabled() -> bool:
 
 def set_halo_impl(impl: Optional[str]) -> None:
     """Force the Halo attention implementation: "layer" | "direct" |
-    "einsum"; None = the default of :func:`halo_impl`."""
+    "gather" | "einsum"; None = the default of :func:`halo_impl`."""
     global _HALO_FORCED
-    if impl not in (None, "layer", "direct", "einsum"):
+    if impl not in (None, "layer", "direct", "gather", "einsum"):
         raise ValueError(f"unknown halo impl {impl!r}")
     _HALO_FORCED = impl
 
 
 def halo_impl(window: int, halo: int) -> str:
-    """Implementation for a Halo layer: a :func:`set_halo_impl` force, else
-    "einsum" under ``set_attention_impl("einsum")`` (as the JAX package's
-    global force), else "layer" — on every device; a CPU tensor takes the
-    op's plain version.  The layer and direct ops need 2·halo ≤ window (a
-    token in at most 2 x 2 neighbourhoods); a wider halo takes the JAX
-    package's gather kernel, which is not ported, and raises."""
-    impl = _HALO_FORCED or ("einsum" if _FORCED == "einsum" else "layer")
-    if impl != "einsum" and 2 * halo > window:
+    """Implementation for a Halo layer, the JAX ``halo_impl``
+    (ops/__init__.py:194-227): a :func:`set_halo_impl` force, else "einsum"
+    under ``set_attention_impl("einsum")`` (as the JAX package's global
+    force), else "layer" where 2·halo ≤ window and "gather" where the halo is
+    wider — on every device; a CPU tensor takes the op's plain version.  The
+    layer and direct ops need 2·halo ≤ window (a token in at most 2 x 2
+    neighbourhoods): a "layer" force on a wider halo becomes "gather", as in
+    JAX, and a "direct" force on one raises NotImplementedError.  JAX's
+    8 | window clause (aligned slices on the TPU) is not carried over: the
+    CUDA kernels take any window (ROADMAP A10)."""
+    wide = 2 * halo > window
+    impl = _HALO_FORCED or ("einsum" if _FORCED == "einsum" else
+                            "gather" if wide else "layer")
+    if wide and impl == "layer":
+        return "gather"
+    if wide and impl == "direct":
         raise NotImplementedError(
-            f"halo {halo} > window {window} / 2 needs the gather kernel "
-            f"(fused_halo.py::halo_attention), which is not ported (ROADMAP B5); "
-            f"set_halo_impl('einsum') runs the plain attention")
+            f"the direct halo attention needs 2·halo ≤ window; got window {window}, "
+            f"halo {halo} (set_halo_impl('gather') runs the gathered kernel)")
     return impl
 
 

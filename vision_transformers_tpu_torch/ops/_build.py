@@ -213,6 +213,41 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _I,  # B, H, W, heads, D, window, halo
         _F, _P,                  # scale, stream
     ],
+    "vtx_halo_attention_fwd": [
+        _P, _P, _P, _P, _P,      # q, kv, bias, out, lse (nullable save)
+        _I, _I, _I, _I, _I,      # B' windows, M, N, heads, D
+        _F, _P,                  # scale, stream
+    ],
+    "vtx_halo_attention_bwd": [
+        _P, _P, _P, _P, _P, _P,  # q, kv, bias, out, lse, do
+        _P, _P, _I,              # delta, dbias partials (workspace), chunks
+        _P, _P, _P,              # dq, dkv, dbias
+        _I, _I, _I, _I, _I,      # B' windows, M, N, heads, D
+        _F, _P,                  # scale, stream
+    ],
+    "vtx_fused_attention_block_fwd": [
+        _P,                      # x
+        _P, _L, _L, _P,          # wqkv, its strides, bqkv (nullable)
+        _P, _L, _L, _P,          # wout, its strides, bout (nullable)
+        _P, _I,                  # extra (nullable), groups
+        _P, _P, _P, _P,          # qkv, acc (workspace, saved), lse (nullable), out
+        _I, _I, _I, _I, _I, _I,  # B, N, C, H, D, Cout
+        _F, _P,                  # scale, stream
+    ],
+    "vtx_fused_attention_block_bwd": [
+        _P, _P, _L, _L,          # x; wqkv, its strides
+        _P, _L, _L,              # wout, its strides
+        _P, _I,                  # extra (nullable), groups
+        _P, _P, _P, _P,          # qkv, acc, lse, dout
+        _P, _P, _P, _P,          # dacc, delta, dqkv, dsbuf (workspace; dsbuf nullable)
+        _P, _I, _I, _P,          # wpart, splits out / qkv, cpart
+        _P,                      # dx
+        _P, _L, _L, _P,          # dwqkv, its strides, dbqkv (nullable)
+        _P, _L, _L, _P,          # dwout, its strides, dbout (nullable)
+        _P,                      # dextra (nullable)
+        _I, _I, _I, _I, _I, _I,  # B, N, C, H, D, Cout
+        _F, _P,                  # scale, stream
+    ],
 }
 
 

@@ -27,6 +27,21 @@ back to the plain versions.  The kernels take float32, heads up to
 ``MAX_DIM_HEAD`` wide, windows of up to ``MAX_QUERIES`` tokens and
 2·halo ≤ window (each token lies in at most 2 x 2 neighbourhoods);
 anything else on a CUDA tensor raises NotImplementedError.
+
+The module also holds the JAX module's gathered form, :func:`halo_attention`
+(``fused_halo.py::halo_attention``, :145): the same softmax on the
+neighbourhoods as the model gathers them, q [B', M, C] (a window's M
+queries) against kv [B', N, 2C] (its N neighbourhood positions, zero rows
+outside the map), bias [n_head, M, N] → [B', M, C], with any halo: Halo's
+path where 2·halo > window.  The gather and its adjoint (the fold of dkv
+back onto the map) stay torch data movement outside it, as in the JAX
+package.  Its forward keeps lse [B', n_head, M]; its backward returns dq,
+dkv [B', N, 2C] and dbias summed over the B' windows.  A CPU tensor runs
+:func:`gathered_fwd_reference` / :func:`gathered_bwd_reference`; a CUDA
+tensor runs the same three kernels of ``csrc/fused_halo.cu`` as the direct
+op, in their gathered addressing, f32, heads up to ``MAX_DIM_HEAD`` wide,
+windows of up to ``MAX_QUERIES`` queries and any N (the keys stream in
+tiles), or raises.
 """
 
 from __future__ import annotations
@@ -38,18 +53,26 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from .fused_attention import attention_bwd_reference as sra_bwd_reference
+from .fused_attention import attention_fwd_reference as sra_fwd_reference
 from .fused_layer import _raise_on, check_f32, ptr
 
 __all__ = ["halo_attention_direct", "halo_attention_direct_reference",
            "halo_attention_direct_fwd", "halo_attention_direct_bwd",
            "attention_fwd_reference", "attention_bwd_reference", "neighborhoods",
            "fold_neighborhoods", "windows", "unwindows", "DirectSaved", "LAUNCHES",
-           "BWD_LAUNCHES"]
+           "BWD_LAUNCHES", "halo_attention", "halo_attention_reference",
+           "halo_attention_fwd", "halo_attention_bwd", "gathered_fwd_reference",
+           "gathered_bwd_reference", "GatherSaved", "HALO_GATHER_LAUNCHES",
+           "HALO_GATHER_BWD_LAUNCHES"]
 
 # kernel launches through this module's wrappers, forward and backward
-# (chip_smoke.py reads them to show the main path went through the kernels)
+# (chip_smoke.py reads them to show the main path went through the kernels):
+# the direct op's and the gathered op's
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+HALO_GATHER_LAUNCHES = 0
+HALO_GATHER_BWD_LAUNCHES = 0
 
 MAX_DIM_HEAD = 32  # csrc HDH: the register width of a head
 MAX_QUERIES = 64   # csrc HQ: one query of a window per thread
@@ -234,8 +257,8 @@ def check_halo_geometry(H: int, W: int, n_head: int, D: int, window: int,
                          f"windows")
     if 2 * halo > window:
         raise NotImplementedError(
-            f"the CUDA halo kernels need 2·halo ≤ window (got window {window}, halo "
-            f"{halo}); the gather kernel for wider halos is not ported (ROADMAP B5)")
+            f"the map-resident halo kernels need 2·halo ≤ window (got window {window}, "
+            f"halo {halo}); a wider halo takes the gathered halo_attention")
     if window * window > MAX_QUERIES or D > MAX_DIM_HEAD:
         raise NotImplementedError(
             f"the CUDA halo kernels take windows of up to {MAX_QUERIES} tokens and heads "
@@ -253,8 +276,12 @@ def check_bias(bias: torch.Tensor, n_head: int, window: int, halo: int) -> None:
 def dbias_chunks(pairs: int, n_head: int, window: int, halo: int) -> int:
     """Chunks of the B·S (image, window) pairs for the dk / dv pass: one
     dbias partial [n_head, w², k²] each, summed in order afterwards."""
-    k = window + 2 * halo
-    key_tiles = -(-k * k // 64)  # csrc HKB
+    return _chunks(pairs, n_head, (window + 2 * halo) ** 2)
+
+
+def _chunks(pairs: int, n_head: int, n_keys: int) -> int:
+    """dk / dv chunks of ``pairs`` windows of ``n_keys`` keys each."""
+    key_tiles = -(-n_keys // 64)  # csrc HKB
     return max(1, min(pairs, _DKDV_BLOCKS // (key_tiles * n_head)))
 
 
@@ -380,3 +407,191 @@ def halo_attention_direct(q, kv, bias, window: int, halo: int, n_head: int,
     if q.device.type == "cpu":
         return halo_attention_direct_reference(q, kv, bias, window, halo, n_head, scale)
     raise NotImplementedError(f"no halo_attention_direct for device {q.device}")
+
+
+# ---------------------------------------------------------------------------
+# the gathered form: halo_attention (B5b)
+# ---------------------------------------------------------------------------
+
+
+def _gathered_heads(q, kv, n_head):
+    """q [B', M, C], kv [B', N, 2C] → q, k, v as [B', heads, rows, D] views."""
+    C = q.shape[-1]
+    return (_heads(t, n_head) for t in (q, kv[..., :C], kv[..., C:]))
+
+
+def _heads(t, n_head):
+    return t.unflatten(-1, (n_head, -1)).transpose(1, 2)
+
+
+def _rows(t):
+    """[B', heads, rows, D] → [B', rows, heads·D]."""
+    return t.transpose(1, 2).flatten(-2)
+
+
+def gathered_fwd_reference(q, kv, bias, n_head: int, scale: float):
+    """softmax(q·kᵀ·scale + bias)·v per head, f32 — the reduced-kv
+    attention's plain forward (``fused_attention.attention_fwd_reference``,
+    the cast points of the JAX kernels) on the heads: → (out [B', M, C] in
+    q's dtype, lse [B', n_head, M] f32)."""
+    out, lse = sra_fwd_reference(*_gathered_heads(q, kv, n_head), bias, scale)
+    return _rows(out), lse
+
+
+def gathered_bwd_reference(q, kv, bias, lse, do, n_head: int, scale: float):
+    """The plain backward, f32, the reduced-kv attention's on the heads (p
+    from the saved lse, dv = pᵀ·do, dS = p ⊙ (dp − Σ dp ⊙ p), dq = dS·k·s,
+    dk = dSᵀ·q·s, dbias = Σ over the windows of dS): → (dq [B', M, C], dkv
+    [B', N, 2C], dbias [n_head, M, N])."""
+    dq, dk, dv, dbias = sra_bwd_reference(*_gathered_heads(q, kv, n_head), bias, lse,
+                                          _heads(do, n_head), scale)
+    return (_rows(dq).to(q.dtype), torch.cat([_rows(dk), _rows(dv)], -1).to(kv.dtype),
+            dbias.to(bias.dtype))
+
+
+def halo_attention_reference(q, kv, bias, n_head: int, scale: Optional[float] = None):
+    """Plain torch version of :func:`halo_attention` (forward)."""
+    scale = _default_scale(q.shape[-1], n_head, scale)
+    return gathered_fwd_reference(q, kv, bias, n_head, scale)[0]
+
+
+class GatherSaved(NamedTuple):
+    """What the gathered backward reads: q, kv, bias (contiguous f32), the
+    output and lse [B', n_head, M]."""
+
+    q: torch.Tensor
+    kv: torch.Tensor
+    bias: torch.Tensor
+    out: torch.Tensor
+    lse: torch.Tensor
+    n_head: int
+    scale: float
+
+
+def _check_gathered(q, kv, bias, n_head):
+    """Shapes, layouts and limits the gathered kernels take; returns (B', M,
+    N, D)."""
+    check_f32(q.device, q=q, kv=kv, bias=bias)
+    if q.ndim != 3 or kv.ndim != 3 or not q.is_contiguous() or not kv.is_contiguous():
+        raise ValueError("q and kv must be contiguous [B', M, C] / [B', N, 2C] tensors")
+    B, M, C = q.shape
+    N = kv.shape[1]
+    if kv.shape[0] != B or kv.shape[2] != 2 * C or C % n_head or min(B, M, N) < 1:
+        raise ValueError(f"kv must be [{B}, N, {2 * C}] with {n_head} heads dividing "
+                         f"{C}; got q {tuple(q.shape)}, kv {tuple(kv.shape)}")
+    if tuple(bias.shape) != (n_head, M, N) or not bias.is_contiguous():
+        raise ValueError(f"bias must be a contiguous [{n_head}, {M}, {N}] tensor, got "
+                         f"shape {tuple(bias.shape)} strides {bias.stride()}")
+    D = C // n_head
+    if M > MAX_QUERIES or D > MAX_DIM_HEAD:
+        raise NotImplementedError(
+            f"the CUDA halo_attention takes windows of up to {MAX_QUERIES} queries and "
+            f"heads up to {MAX_DIM_HEAD} wide; got {M} queries, head width {D} "
+            f"(ROADMAP B)")
+    return B, M, N, D
+
+
+def _cuda_gathered_fwd(q, kv, bias, n_head, scale, save: bool):
+    """The gathered forward kernel: out, and lse [B', n_head, M] when
+    ``save``."""
+    global HALO_GATHER_LAUNCHES
+    B, M, N, D = _check_gathered(q, kv, bias, n_head)
+    from ._build import build
+
+    lib = build()
+    out = torch.empty_like(q)
+    lse = torch.empty((B, n_head, M), device=q.device, dtype=torch.float32) \
+        if save else None
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        HALO_GATHER_LAUNCHES += 1
+        err = lib.vtx_halo_attention_fwd(ptr(q), ptr(kv), ptr(bias), ptr(out), ptr(lse),
+                                         B, M, N, n_head, D, ctypes.c_float(scale), stream)
+    _raise_on(err, "halo_attention")
+    return out, lse
+
+
+def _cuda_gathered_bwd(saved: GatherSaved, do: torch.Tensor):
+    """The gathered backward kernel sequence: (dq, dkv, dbias), dq and dkv
+    written in place in q's and kv's layouts."""
+    global HALO_GATHER_BWD_LAUNCHES
+    q, kv, bias, out, lse = saved[:5]
+    do = do.contiguous()
+    B, M, N, D = _check_gathered(q, kv, bias, saved.n_head)
+    check_f32(q.device, do=do, out=out, lse=lse)
+    if do.shape != q.shape or out.shape != q.shape:
+        raise ValueError(f"do and out must be {tuple(q.shape)}, got {tuple(do.shape)}, "
+                         f"{tuple(out.shape)}")
+    nh = saved.n_head
+    chunks = _chunks(B, nh, N)
+    from ._build import build
+
+    lib = build()
+    opts = dict(device=q.device, dtype=torch.float32)
+    delta = torch.empty((B * nh * M,), **opts)
+    part = torch.empty((chunks * nh * M * N,), **opts)
+    dq, dkv, dbias = torch.empty_like(q), torch.empty_like(kv), torch.empty_like(bias)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        HALO_GATHER_BWD_LAUNCHES += 1
+        err = lib.vtx_halo_attention_bwd(
+            ptr(q), ptr(kv), ptr(bias), ptr(out), ptr(lse), ptr(do), ptr(delta),
+            ptr(part), chunks, ptr(dq), ptr(dkv), ptr(dbias), B, M, N, nh, D,
+            ctypes.c_float(saved.scale), stream)
+    _raise_on(err, "halo_attention backward")
+    return dq, dkv, dbias
+
+
+def halo_attention_fwd(q, kv, bias, n_head: int, scale: Optional[float] = None):
+    """Training forward with saves: (out, :class:`GatherSaved`) — the kernel
+    for a CUDA tensor, the plain version for a CPU one."""
+    scale = _default_scale(q.shape[-1], n_head, scale)
+    bias = bias.float().contiguous()
+    if q.is_cuda:
+        out, lse = _cuda_gathered_fwd(q, kv, bias, n_head, scale, save=True)
+    elif q.device.type == "cpu":
+        out, lse = gathered_fwd_reference(q, kv, bias, n_head, scale)
+    else:
+        raise NotImplementedError(f"no halo_attention for device {q.device}")
+    return out, GatherSaved(q, kv, bias, out, lse, n_head, scale)
+
+
+def halo_attention_bwd(saved: GatherSaved, do: torch.Tensor):
+    """Backward on the saves of :func:`halo_attention_fwd`: (dq, dkv, dbias)
+    — the kernels for a CUDA tensor, the plain version for a CPU one."""
+    if do.is_cuda:
+        return _cuda_gathered_bwd(saved, do)
+    if do.device.type == "cpu":
+        return gathered_bwd_reference(saved.q, saved.kv, saved.bias, saved.lse, do,
+                                      saved.n_head, saved.scale)
+    raise NotImplementedError(f"no halo_attention backward for {do.device}")
+
+
+class _HaloAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, kv, bias, n_head, scale):
+        out, saved = halo_attention_fwd(q, kv, bias, n_head, scale)
+        ctx.save_for_backward(*saved[:5])
+        ctx.attrs = saved[5:]
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        saved = GatherSaved(*ctx.saved_tensors, *ctx.attrs)
+        return (*halo_attention_bwd(saved, do), None, None)
+
+
+def halo_attention(q, kv, bias, n_head: int, scale: Optional[float] = None):
+    """Halo attention on gathered neighbourhoods, differentiable in q, kv and
+    bias: q [B', M, C] (a window's queries, heads on lanes h·D), kv
+    [B', N, 2C] (its neighbourhood, k lanes then v lanes), bias
+    [n_head, M, N] → [B', M, C]."""
+    scale = _default_scale(q.shape[-1], n_head, scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, kv, bias)):
+        return _HaloAttention.apply(q, kv, bias.float().contiguous(), n_head, scale)
+    if q.is_cuda:
+        return _cuda_gathered_fwd(q, kv, bias.float().contiguous(), n_head, scale,
+                                  save=False)[0]
+    if q.device.type == "cpu":
+        return halo_attention_reference(q, kv, bias, n_head, scale)
+    raise NotImplementedError(f"no halo_attention for device {q.device}")
