@@ -2,10 +2,11 @@
 """Start-up check of the PyTorch port (vision_transformers_tpu_torch) on one
 NVIDIA H100: builds the CUDA kernels from csrc/, holds each against its plain
 PyTorch version, runs full-width ViT-S/16 (also with dropout, with the FF
-kernel and under the 'block' force), Swin-S (also under 'block'), Halo-S
-(also on the gather path), PVT-S and Twins-SVT-S against the JAX package's
-stored logits and train-step gradients, and drives the serving and the
-training entry points of the five models end to end.
+kernel and under the 'block' force), Swin-S (also under 'block' and under
+'swin', the map-resident whole layer), Halo-S (also on the gather path),
+PVT-S and Twins-SVT-S against the JAX package's stored logits and
+train-step gradients, and drives the serving and the training entry points
+of the five models end to end.
 
     python3 chip_smoke.py
 
@@ -83,6 +84,16 @@ non-zero and prints no ok line):
            with the grouped bias; median ms beside
            F.multi_head_attention_forward (need_weights=False, the same
            weights, the bias as a float mask) and its autograd backward
+3w.        the map-resident Swin layer (Swin's 'swin' path) at the four
+           Swin-S stage calls of the trainer (64 images), each shifted
+           (the grouped layout-native bias) and unshifted (one slab), with
+           and without both per-image row scales: serving forward and
+           training forward within atol = rtol = 1e-4, backward per tensor
+           within 1e-3·max(1, max|plain|) and bit-identical across two
+           runs; median ms of the shifted call with row scales beside the
+           plain version and beside the whole-layer kernel between the
+           torch roll / window partition and unpartition / unroll (the
+           'layer1' path's layer), forward with saves and backward
 4. golden  ViT-S/16 @224 (depth 12), Swin-S @224 (depth 24), Halo-S @256
            (depth 12), PVT-S @224 (depth 16) and Twins-SVT-S @224 (depth
            18), seeded weights, against the JAX logits in
@@ -92,8 +103,9 @@ non-zero and prints no ok line):
            its reduced-kv attention forced to 'fused', Twins at 64 and 128
            rows on its default (the attention layer with the mask) and with
            its global attention forced to 'fused', Halo forced to 'gather'
-           (64, 128 rows), ViT-S/16 and Swin-S forced to 'block' (64 rows);
-           max |Δ| ≤ 1e-3·max(1, max|golden|)
+           (64, 128 rows), ViT-S/16 and Swin-S forced to 'block' (64 rows),
+           Swin-S forced to 'swin' (64 rows); max |Δ| ≤ 1e-3·max(1,
+           max|golden|)
 4b. train  one f32 train-step gradient (drop_path 0) of each model on the 2
            golden images tiled to 64 rows (ViT through the attention layer's
            kernels, Swin through the whole layer's, Halo through the whole
@@ -109,9 +121,10 @@ non-zero and prints no ok line):
            tests/data/vit_s16_port_dropout_train_golden.npz; Halo forced to
            'gather' (the gathered halo attention's kernels), ViT-S/16 and
            Swin-S forced to 'block' (the attention block's) against their
-           train goldens, and ViT-S/16 with dropout under 'block' against
-           the dropout golden: loss, gradient norm, per-tensor norms and
-           projections, rtol 1e-3
+           train goldens, ViT-S/16 with dropout under 'block' against
+           the dropout golden, and Swin-S forced to 'swin' (the map-resident
+           layer's kernels) against its train golden: loss, gradient norm,
+           per-tensor norms and projections, rtol 1e-3
 5. predict the serving path of each model: ``predict.main`` on 48 and then
            160 seeded JPEGs (Halo, PVT — 'fused' — and Twins: 48) with a
            seeded ``.pt:ema``; the launch counters are zeroed just before
@@ -140,8 +153,14 @@ non-zero and prints no ok line):
            on its default dispatch (12 + 12 gathered halo attention launches
            per step each), ViT-S/16 under 'block' without and with dropout
            (12 + 12 attention block launches per step, the valid pass on
-           the block too); the counters are zeroed just before and read
-           just after each; then ``predict.main`` reads the epoch checkpoint
+           the block too), Swin-S under ``VTX_ATTN_IMPL=swin`` set in the
+           environment (24 + 24 map-resident layer launches per
+           micro-batch, the valid pass on it too) and Swin-S with
+           ``arch.drop_attn=0.1 arch.drop_ff=0.1`` (training on the two
+           residual branches with einsum attention, the valid pass on the
+           whole-layer kernel); the counters are zeroed just before and
+           read just after each; then ``predict.main`` reads the epoch
+           checkpoint
 
 The line before the last is the kernels' JSON record: each kernel's
 launches on the trainer run that takes it (ViT's for the attention layer,
@@ -149,8 +168,9 @@ Swin's for the whole layer, Halo's for the whole Halo layer, Halo's forced
 to 'direct' for the halo attention, PVT's forced to 'fused' for the
 reduced-kv attention, ViT's with dropout for the packed-qkv attention,
 ViT's with the FF kernel for the FF layer, Halo's forced to 'gather' for
-the gathered halo attention, ViT's under 'block' for the attention block;
-every path's in ``launches_by_path``) and its
+the gathered halo attention, ViT's under 'block' for the attention block,
+Swin's under ``VTX_ATTN_IMPL=swin`` for the map-resident layer; every
+path's in ``launches_by_path``) and its
 times at a call that run makes (``shape``; other shapes in
 ``other_shapes``); the last line is ``{"ok": true, "device": {...}}``.
 Needs no network and no JAX.
@@ -224,6 +244,10 @@ KERNELS = {  # name → (source, the TPU kernel it replaces)
                               "vision_transformers_tpu/ops/fused_block.py:57"),
     "fused_attention_block_bwd": ("vision_transformers_tpu_torch/csrc/fused_layer_bwd.cu",
                                   "vision_transformers_tpu/ops/fused_block.py:100"),
+    "fused_swin_layer": ("vision_transformers_tpu_torch/csrc/fused_swin.cu",
+                         "vision_transformers_tpu/ops/fused_swin.py:99"),
+    "fused_swin_layer_bwd": ("vision_transformers_tpu_torch/csrc/fused_swin.cu",
+                             "vision_transformers_tpu/ops/fused_swin.py:200"),
 }
 KERNEL_TOL = 1e-4
 DEVICE = "cuda"
@@ -837,6 +861,146 @@ def swin_backward_kernel(torch):
         bwd.append({"shape": shape, "max_abs_err": worst["grads"], "ms": b_ms,
                     "plain_ms": pb_ms, "bound_ms": bb, "bound_by": bby, "library_ms": None})
         del saved, saved_p
+    return fwd, bwd
+
+
+# ---------------------------------------------------------------------------
+# 3w. the map-resident Swin layer vs its plain version
+# ---------------------------------------------------------------------------
+
+
+def swin_map_fwd_work(call, groups, saves=False):
+    """(operations, bytes) of the map-resident layer's forward: the whole
+    layer's on its images·G window pairs (layer_fwd_work) with the bias
+    [groups, H, m, m] and two per-image row scales."""
+    flops, nbytes = layer_fwd_work(*call["shape"], groups=groups, saves=saves)
+    return flops, nbytes + 4 * 2 * call["images"]
+
+
+def swin_map_bwd_work(call, groups):
+    """(operations, bytes) of its backward (layer_bwd_work), the row scales
+    and their gradients per image."""
+    flops, nbytes = layer_bwd_work(*call["shape"], groups=groups)
+    return flops, nbytes + 4 * 4 * call["images"]
+
+
+def swin_map_inputs(torch, call, shift, row_scales, seed=0):
+    """Seeded inputs of one map-resident layer call at a Swin-S stage: the
+    map [images, h, w, C] and the weights of ``layer_args``; a port
+    WindowAttention of the stage (std-0.2 table) with its layout-native map
+    bias ([G, H, m, m] shifted, [1, H, m, m] not) and its grouped bias
+    [G, H, m, m] (the 'layer1' path's); with ``row_scales`` two per-image
+    DropPath scales (keep 0.9)."""
+    from vision_transformers_tpu_torch.models.swin import WindowAttention
+
+    _, _, C, H, D, F = call["shape"]
+    images, (h, w) = call["images"], call["size"]
+    a = layer_args(torch, images, h * w, C, H, D, F, seed=seed)
+    a[0] = a[0].reshape(images, h, w, C)
+    attn = WindowAttention(C, H, D, call["size"], call["window"], shift=shift)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        attn.rel_pos.weight.normal_(0.0, 0.2, generator=gen)
+        attn = attn.to(DEVICE)
+        map_bias, grouped = attn.map_bias(), attn.grouped_bias()
+    rs = [None, None]
+    if row_scales:
+        rng = np.random.default_rng(seed + 100)
+        for i in range(2):
+            keep = rng.random(images) < 0.9
+            keep[0], keep[-1] = False, True  # both kinds at every shape
+            rs[i] = torch.from_numpy((keep / 0.9).astype(np.float32)).to(DEVICE)
+    return a, map_bias, grouped, attn, rs
+
+
+def swin_map_kernels(torch):
+    """3w: the map-resident layer's serving forward, forward with saves and
+    backward against the plain versions at the four Swin-S stage calls of
+    the trainer's 64-image micro-batches, shifted and unshifted, with and
+    without row scales (backward twice for bit-identity); then, per stage,
+    median ms of the shifted call with row scales: the kernels, the plain
+    versions, and the whole-layer kernel with the torch roll / partition
+    and unpartition / unroll around it (forward) and their adjoints
+    (backward).  Returns the timed entries of the forward and of the
+    backward, stage 3 (18 of the 24 layers) first."""
+    from vision_transformers_tpu_torch.ops import fused_layer1 as fl1
+    from vision_transformers_tpu_torch.ops import fused_swin as fs
+
+    worst = {"out": 0.0, "grads": 0.0}
+    stages = swin_stages(64)
+    for call in stages:
+        H = call["shape"][3]
+        for shift in (True, False):
+            for use_rs in (False, True):
+                a, extra, _, _, (r1, r2) = swin_map_inputs(torch, call, shift, use_rs, 1)
+                kw = dict(window=call["window"], shift=shift, pack=call["shape"][1] // call["window"] ** 2)
+                do = torch.randn(a[0].shape, device=DEVICE,
+                                 generator=torch.Generator(DEVICE).manual_seed(2))
+                serve = fs.fused_swin_layer(*a, H, extra, r1, r2, **kw)
+                out, saved = fs.fused_swin_layer_fwd(*a, H, extra, r1, r2, **kw)
+                grads = fs.fused_swin_layer_bwd(saved, do)
+                again = fs.fused_swin_layer_bwd(saved, do)
+                torch.cuda.synchronize()
+                out_p, saved_p = fs.fused_swin_layer_fwd_reference(*a, H, extra, r1, r2,
+                                                                   **kw)
+                plain = fs.fused_swin_layer_bwd_reference(saved_p, do)
+                what = (f"Swin stage {call['stage']} map {call['size']} x {call['images']} images, "
+                        f"C,H,D,F={call['shape'][2:]}, {'shifted' if shift else 'unshifted'}"
+                        f" bias {tuple(extra.shape)}, rs={use_rs}")
+                for name, o in (("serving", serve), ("training", out)):
+                    err = check_close(torch, "fused_swin_layer", o, out_p, f"{what} {name}")
+                    worst["out"] = max(worst["out"], err)
+                compare_grads(torch, what, fs.GRAD_NAMES, grads, again, plain, worst)
+                del saved, saved_p, grads, again, plain
+
+    fwd, bwd = [], []
+    for call in sorted(stages, key=lambda c: c["stage"] != 3):
+        H, G = call["shape"][3], call["groups"]
+        a, extra, grouped, attn, (r1, r2) = swin_map_inputs(torch, call, True, True, 1)
+        kw = dict(window=call["window"], shift=True, pack=call["shape"][1] // call["window"] ** 2)
+        do = torch.randn(a[0].shape, device=DEVICE,
+                         generator=torch.Generator(DEVICE).manual_seed(2))
+        _, saved = fs.fused_swin_layer_fwd(*a, H, extra, r1, r2, **kw)
+        _, saved_p = fs.fused_swin_layer_fwd_reference(*a, H, extra, r1, r2, **kw)
+        tiled = (r1.repeat(G), r2.repeat(G))
+
+        def b2_fwd():  # the 'layer1' path's layer: partition, B2, unpartition
+            out, res = fl1.fused_transformer_layer_fwd(attn.partition(a[0]), *a[1:], H,
+                                                       grouped, *tiled)
+            return attn.unpartition(out, call["images"]), res
+
+        _, saved_b2 = b2_fwd()
+
+        def b2_bwd():
+            g = fl1.fused_transformer_layer_bwd(saved_b2, attn.partition(do))
+            return (attn.unpartition(g[0], call["images"]), g[14].reshape(G, -1).sum(0),
+                    g[15].reshape(G, -1).sum(0))
+
+        f_ms = median_ms(torch, lambda: fs.fused_swin_layer_fwd(*a, H, extra, r1, r2, **kw))
+        b_ms = median_ms(torch, lambda: fs.fused_swin_layer_bwd(saved, do))
+        pf_ms = median_ms(
+            torch, lambda: fs.fused_swin_layer_fwd_reference(*a, H, extra, r1, r2, **kw))
+        pb_ms = median_ms(torch, lambda: fs.fused_swin_layer_bwd_reference(saved_p, do))
+        b2f_ms, b2b_ms = median_ms(torch, b2_fwd), median_ms(torch, b2_bwd)
+        fb, fby = bound(*swin_map_fwd_work(call, G, saves=True))
+        bb, bby = bound(*swin_map_bwd_work(call, G))
+        log(f"kernels: fused_swin_layer Swin stage {call['stage']} train call (64 images, "
+            f"map {call['size']}, C,H,D,F={call['shape'][2:]}, {G} pairs of "
+            f"{call['shape'][1]} tokens per image, shifted, row scales; median of 20, "
+            f"CUDA events): kernel fwd(saves) {f_ms:.3f} + bwd {b_ms:.3f} ms; plain fwd "
+            f"{pf_ms:.3f} + bwd {pb_ms:.3f} ms; whole-layer kernel between torch roll / "
+            f"partition fwd {b2f_ms:.3f} + bwd {b2b_ms:.3f} ms; bound fwd {fb:.3f} ({fby}) "
+            f"+ bwd {bb:.3f} ms ({bby})")
+        shape = (f"Swin-S stage {call['stage']} train, map {call['size'][0]}x"
+                 f"{call['size'][1]} x 64, C,H,D,F=" + ",".join(map(str, call["shape"][2:]))
+                 + f", {G} pairs of {call['shape'][1]}, shifted, row scales")
+        fwd.append({"shape": shape + ", saves", "max_abs_err": worst["out"], "ms": f_ms,
+                    "plain_ms": pf_ms, "bound_ms": fb, "bound_by": fby, "library_ms": None,
+                    "layer1_partition_ms": b2f_ms})
+        bwd.append({"shape": shape, "max_abs_err": worst["grads"], "ms": b_ms,
+                    "plain_ms": pb_ms, "bound_ms": bb, "bound_by": bby, "library_ms": None,
+                    "layer1_partition_ms": b2b_ms})
+        del saved, saved_p, saved_b2
     return fwd, bwd
 
 
@@ -1808,7 +1972,7 @@ def counted_modules():
     bias (``+bias``)."""
     from vision_transformers_tpu_torch.ops import (fused_attention_mod, fused_block,
                                                    fused_halo, fused_halo_layer,
-                                                   fused_layer, fused_layer1)
+                                                   fused_layer, fused_layer1, fused_swin)
 
     return {"fused_attention_layer": (fused_layer, "LAUNCHES"),
             "fused_attention_layer_bwd": (fused_layer, "BWD_LAUNCHES"),
@@ -1829,7 +1993,9 @@ def counted_modules():
             "halo_attention": (fused_halo, "HALO_GATHER_LAUNCHES"),
             "halo_attention_bwd": (fused_halo, "HALO_GATHER_BWD_LAUNCHES"),
             "fused_attention_block": (fused_block, "BLOCK_LAUNCHES"),
-            "fused_attention_block_bwd": (fused_block, "BLOCK_BWD_LAUNCHES")}
+            "fused_attention_block_bwd": (fused_block, "BLOCK_BWD_LAUNCHES"),
+            "fused_swin_layer": (fused_swin, "LAUNCHES"),
+            "fused_swin_layer_bwd": (fused_swin, "BWD_LAUNCHES")}
 
 
 def counts():
@@ -1859,6 +2025,21 @@ def forced(halo=None, sra=None, attn=None, ff=None):
         ops.set_sra_impl(None)
         ops.set_attention_impl(None)
         ops.set_ff_kernel(None)
+
+
+@contextlib.contextmanager
+def environ(env):
+    """The environment variables ``env`` set for the duration."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def expect_path(before, after, expected, what):
@@ -2102,11 +2283,12 @@ def predict_main_path(torch, has_pil, model_name, cases, sra=None):
 
 
 def train_main_path(torch, has_pil, model_name, expected, overrides=(), halo=None,
-                    sra=None, ff=None, attn=None):
+                    sra=None, ff=None, attn=None, env=None):
     """``train.main`` f32 at batch 128 for one synthetic epoch, with conf
     ``overrides``, ``halo`` / ``sra`` / ``attn`` forcing a Halo / reduced-kv
-    / attention path and ``ff`` the FF kernel; ``expected`` the launches of
-    each counter on that run."""
+    / attention path, ``ff`` the FF kernel and ``env`` environment variables
+    set (the dispatch's forces); ``expected`` the launches of each counter
+    on that run."""
     from vision_transformers_tpu_torch import predict, train
     from vision_transformers_tpu_torch.config.schema import load_config
     from vision_transformers_tpu_torch.ops import _build
@@ -2117,7 +2299,8 @@ def train_main_path(torch, has_pil, model_name, expected, overrides=(), halo=Non
     conf = load_config(conf_path, list(overrides))
     label = model_name + "".join(f" ({name} {v})" for name, v in (
         ("halo", halo), ("sra", sra), ("attention", attn), ("FF kernel", ff)) if v) + "".join(
-        f" {o}" for o in overrides if not o.startswith("arch.drop_path"))
+        f" {o}" for o in overrides if not o.startswith("arch.drop_path")) + "".join(
+        f" ({k}={v})" for k, v in (env or {}).items())
     step_secs = []
     train_step = engine.train_step
 
@@ -2137,7 +2320,7 @@ def train_main_path(torch, has_pil, model_name, expected, overrides=(), halo=Non
         engine.train_step = timed_step
         torch.cuda.reset_peak_memory_stats()
         try:
-            with forced(halo, sra, attn, ff):
+            with forced(halo, sra, attn, ff), environ(env or {}):
                 reset_counts()  # the main path's run starts here
                 t0 = time.perf_counter()
                 metrics = train.main(args)
@@ -2170,7 +2353,8 @@ def train_main_path(torch, has_pil, model_name, expected, overrides=(), halo=Non
         if has_pil:
             files = write_jpegs(tmp, noise)
             buf = io.StringIO()
-            with contextlib.redirect_stdout(buf), forced(halo, sra, attn, ff):
+            with contextlib.redirect_stdout(buf), forced(halo, sra, attn, ff), \
+                    environ(env or {}):
                 predict.main(["--conf", conf_path, "--checkpoint", f"{ckpt}:model",
                               "--topk", "5", "--device", DEVICE, *files,
                               *(o for o in overrides if o.startswith("arch."))])
@@ -2181,7 +2365,7 @@ def train_main_path(torch, has_pil, model_name, expected, overrides=(), halo=Non
             model = conf.arch.make()
             model.load_state_dict(load_checkpoint(f"{ckpt}:model"), strict=True)
             size = image_size(conf)
-            with forced(halo, sra, attn, ff):
+            with forced(halo, sra, attn, ff), environ(env or {}):
                 _, _, prob = predict.predict_batch(model.to(DEVICE).eval(),
                                                    noise[:, :size, :size], 5, DEVICE)
             if not ((prob > 0) & (prob <= 1)).all():
@@ -2232,6 +2416,8 @@ def main() -> None:
         "3g gathered halo attention", gather_kernels, torch)
     timed["fused_attention_block"], timed["fused_attention_block_bwd"] = phase(
         "3k attention block", block_kernels, torch)
+    timed["fused_swin_layer"], timed["fused_swin_layer_bwd"] = phase(
+        "3w map-resident Swin layer", swin_map_kernels, torch)
     fal, falb = "fused_attention_layer", "fused_attention_layer_bwd"
     ftl, ftlb = "fused_transformer_layer", "fused_transformer_layer_bwd"
     fhl, fhlb = "fused_halo_layer", "fused_halo_layer_bwd"
@@ -2241,6 +2427,7 @@ def main() -> None:
     ffl, fflb = "fused_ff_layer", "fused_ff_layer_bwd"
     hg, hgb = "halo_attention", "halo_attention_bwd"
     blk, blkb = "fused_attention_block", "fused_attention_block_bwd"
+    fsl, fslb = "fused_swin_layer", "fused_swin_layer_bwd"
 
     def depth(model, *kernels):  # one launch of each kernel per layer
         return {k: MODELS[model][3] for k in kernels}
@@ -2267,6 +2454,8 @@ def main() -> None:
           None, None, "block")
     phase("4 golden Swin block", golden, torch, "Swin-S", ((64, depth("Swin-S", blk)),),
           None, None, "block")
+    phase("4 golden Swin swin", golden, torch, "Swin-S", ((64, depth("Swin-S", fsl)),),
+          None, None, "swin")
     phase("4b train ViT", train_golden, torch, "ViT-S/16", depth("ViT-S/16", fal, falb))
     phase("4b train Swin", train_golden, torch, "Swin-S", depth("Swin-S", ftl, ftlb))
     phase("4b train Halo", train_golden, torch, "Halo-S", depth("Halo-S", fhl, fhlb))
@@ -2291,6 +2480,8 @@ def main() -> None:
           None, None, "block")
     phase("4b train ViT dropout block", train_golden, torch, "ViT-S/16",
           depth("ViT-S/16", blk, blkb), None, None, "block", None, True)
+    phase("4b train Swin swin", train_golden, torch, "Swin-S", depth("Swin-S", fsl, fslb),
+          None, None, "swin")
     halo_dp = ("arch.drop_path=0.1",)
     paths = {
         "ViT-S/16 predict": phase("5 predict ViT", predict_main_path, torch, has_pil,
@@ -2356,6 +2547,17 @@ def main() -> None:
             "6 trainer ViT block dropout", train_main_path, torch, has_pil, "ViT-S/16",
             {blk: 48 + 24, blkb: 48}, ("arch.dropout=0.1", "arch.drop_ff=0.1"), None, None,
             None, "block"),
+        # the map-resident layer, forced through the environment: 4 steps x
+        # 2 micro-batches x 24 layers; the valid pass: 2 batches x 24
+        "Swin-S train (swin)": phase(
+            "6 trainer Swin swin", train_main_path, torch, has_pil, "Swin-S",
+            {fsl: 24 * 2 * 4 + 24 * 2, fslb: 24 * 2 * 4}, (), None, None, None, None,
+            {"VTX_ATTN_IMPL": "swin"}),
+        # dropout: training on the two residual branches with einsum
+        # attention; the valid pass (no dropout in eval): 2 x 24 whole layers
+        "Swin-S train (dropout)": phase(
+            "6 trainer Swin dropout", train_main_path, torch, has_pil, "Swin-S",
+            {ftl: 24 * 2}, ("arch.drop_attn=0.1", "arch.drop_ff=0.1")),
     }
     trainer_of = {fal: "ViT-S/16 train", falb: "ViT-S/16 train",
                   ftl: "Swin-S train", ftlb: "Swin-S train",
@@ -2365,7 +2567,8 @@ def main() -> None:
                   qkv: "ViT-S/16 train (dropout)", qkvb: "ViT-S/16 train (dropout)",
                   ffl: "ViT-S/16 train (FF kernel)", fflb: "ViT-S/16 train (FF kernel)",
                   hg: "Halo-S train (gather)", hgb: "Halo-S train (gather)",
-                  blk: "ViT-S/16 train (block)", blkb: "ViT-S/16 train (block)"}
+                  blk: "ViT-S/16 train (block)", blkb: "ViT-S/16 train (block)",
+                  fsl: "Swin-S train (swin)", fslb: "Swin-S train (swin)"}
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": paths[trainer_of[k]][k],

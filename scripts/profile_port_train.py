@@ -12,7 +12,7 @@ time, and one JSON line.
 
     python3 scripts/profile_port_train.py [--conf configs/vit-s-16.conf] [--rows 128]
         [--steps 5] [--trace out.json] [--halo-impl ...] [--sra-impl einsum|fused]
-        [--attn-impl einsum|fused|layer|layer1|block] [--ff-kernel]
+        [--attn-impl einsum|fused|layer|layer1|block|swin] [--ff-kernel]
         [key=value conf overrides ...]
 
 ViT-S/16 at ``--rows`` ≥ 32 takes the fused attention layer (forward and
@@ -31,8 +31,9 @@ takes the attention layer with the pair mask either way).  ViT-S/16 with
 packed-qkv attention kernel between cuBLAS projections (``--attn-impl
 einsum`` its plain einsum); ``--ff-kernel`` turns the FF-half kernel on at
 the 'layer' sites; ``--attn-impl block`` runs ViT's and Swin's attention
-through the attention block kernel (projections inside it).  Needs CUDA;
-imports no JAX.
+through the attention block kernel (projections inside it), ``--attn-impl
+swin`` Swin's layers through the map-resident whole-layer kernel (no roll or
+window partition around it).  Needs CUDA; imports no JAX.
 """
 
 import argparse
@@ -50,7 +51,7 @@ CONF = os.path.join(ROOT, "configs", "vit-s-16.conf")
 # kernel-name substring → layer, first match wins (PyTorch's own kernels
 # first: some share a name part with the hand-written ones, e.g. silu)
 GROUPS = (("at::native", "other (elementwise, reductions, conv)"),
-          ("gemm_kernel<true>", "hand-written GEMM, split-K (weight gradients)"),
+          ("gemm_kernel<true", "hand-written GEMM, split-K (weight gradients)"),
           ("gemm_kernel", "hand-written GEMM, row-major"),
           ("mha_bwd", "hand-written reduced-kv attention backward"),
           ("mha_fwd", "hand-written reduced-kv attention forward"),
@@ -64,6 +65,7 @@ GROUPS = (("at::native", "other (elementwise, reductions, conv)"),
           ("row_scale_grad", "other hand-written"), ("scale_rows", "other hand-written"),
           ("silu", "other hand-written"), ("group_sum", "other hand-written"),
           ("act_kernel", "other hand-written"), ("dact_mul", "other hand-written"),
+          ("gather_rows", "other hand-written"),
           ("gemm", "cuBLAS GEMM"), ("sgemm", "cuBLAS GEMM"), ("cutlass", "cuBLAS GEMM"),
           ("Memcpy", "copies"), ("foreach", "optimizer (foreach)"))
 
@@ -89,7 +91,7 @@ def main() -> None:
                         help="force the reduced-kv path of PVT / Twins (default: the "
                              "dispatch's, einsum)")
     parser.add_argument("--attn-impl", default=None,
-                        choices=("einsum", "fused", "layer", "layer1", "block"),
+                        choices=("einsum", "fused", "layer", "layer1", "block", "swin"),
                         help="force the attention path (default: the dispatch's)")
     parser.add_argument("--ff-kernel", action="store_true",
                         help="the FF-half kernel at the 'layer' sites (default off)")

@@ -9,7 +9,8 @@ labels and projections are regenerated from the seed.  The JAX package must
 still reproduce the logits (so the files cannot go stale), and the port's
 CPU path must match both, on the einsum path (2 rows take it) and through
 the whole-layer op's autograd Function ('layer1' forced: its plain forward
-with saves and plain backward).  Logits within 1e-3·max(1, max|golden|),
+with saves and plain backward) and through the map-resident whole-layer
+op's ('swin' forced: the same arithmetic on the map).  Logits within 1e-3·max(1, max|golden|),
 the tolerance chip_smoke.py holds the card to; gradients rtol 1e-4, a
 projection to 1e-4 of its tensor's norm: 24 f32 layers in another
 summation order.
@@ -69,7 +70,8 @@ def test_jax_package_reproduces_golden(script):
                                rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("impl", [None, "layer1"], ids=["default-einsum", "layer1"])
+@pytest.mark.parametrize("impl", [None, "layer1", "swin"],
+                         ids=["default-einsum", "layer1", "swin"])
 def test_port_matches_golden_on_cpu(script, impl):
     g = load(script.GOLDEN)
     seed, logits = int(g["seed"]), g["logits"]
@@ -84,7 +86,8 @@ def test_port_matches_golden_on_cpu(script, impl):
     np.testing.assert_array_equal(top[:, 0], logits.argmax(-1))
 
 
-@pytest.mark.parametrize("impl", [None, "layer1"], ids=["default-einsum", "layer1"])
+@pytest.mark.parametrize("impl", [None, "layer1", "swin"],
+                         ids=["default-einsum", "layer1", "swin"])
 def test_port_matches_train_golden_on_cpu(script, impl):
     g = load(script.TRAIN_GOLDEN)
     seed = int(g["seed"])

@@ -337,8 +337,13 @@ def test_dispatch_gates():
         assert ops.attention_impl(2, seq=17, default="fused") == "block"
     finally:
         ops.set_attention_impl(None)
+    ops.set_attention_impl("swin")
+    try:
+        assert ops.attention_impl(2, seq=17, default="fused") == "swin"
+    finally:
+        ops.set_attention_impl(None)
     with pytest.raises(ValueError):
-        ops.set_attention_impl("swin")
+        ops.set_attention_impl("map")
 
 
 @pytest.mark.parametrize("rates,train_mode,want", [

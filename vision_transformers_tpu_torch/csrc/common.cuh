@@ -24,6 +24,20 @@ constexpr int EXTRA_DMAX = 32;
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 inline long long cdivll(long long a, long long b) { return (a + b - 1) / b; }
 
+// B9's map addressing (fused_swin.cu): row r of the sample-major window-pair
+// rows lives at map pixel (r / hw)·hw + pix[r % hw], pix [hw] the table of
+// ops/fused_swin.py::map_rows (hw = H·W, the rows of one sample).  The
+// kernels below that take a MAP template parameter read (or write) the map
+// through it; their MAP = false instantiations ignore it.
+struct MapRows {
+  const int* pix;
+  int hw;
+};
+
+__device__ __forceinline__ long long map_pixel(const MapRows& mr, int r) {
+  return (long long)(r / mr.hw) * mr.hw + mr.pix[r % mr.hw];
+}
+
 #define VTX_CHECK(expr)                   \
   do {                                    \
     const cudaError_t err_ = (expr);      \
@@ -34,20 +48,22 @@ inline long long cdivll(long long a, long long b) { return (a + b - 1) / b; }
 // LayerNorm over rows of [rows, C]: one warp per row.  Statistics in f32 in
 // the fast-variance form E[x²]−μ² (vision_transformers_tpu/ops/
 // fused_layer.py:69-76).  mu / rstd [rows] are written when non-null (the
-// training forward saves them for the backward).
+// training forward saves them for the backward).  MAP: row r of x is map
+// pixel map_pixel(rows_map, r) (u and the statistics stay in row order).
 // ---------------------------------------------------------------------------
 
 constexpr int LN_THREADS = 256;
 
+template <bool MAP>
 __global__ void __launch_bounds__(LN_THREADS)
 ln_rows_kernel(const float* __restrict__ x, const float* __restrict__ g,
                const float* __restrict__ b, float* __restrict__ u,
                float* __restrict__ mu_out, float* __restrict__ rstd_out,
-               int rows, int C, float eps) {
+               int rows, int C, float eps, MapRows rows_map) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;  // uniform across the warp
-  const float* xr = x + (long long)row * C;
+  const float* xr = x + (MAP ? map_pixel(rows_map, row) : (long long)row) * C;
   float s = 0.f, ss = 0.f;
   for (int c = lane; c < C; c += 32) {
     const float v = xr[c];
@@ -73,8 +89,17 @@ ln_rows_kernel(const float* __restrict__ x, const float* __restrict__ g,
 inline cudaError_t launch_ln(const float* x, const float* g, const float* b,
                              float* u, float* mu, float* rstd, int rows, int C,
                              float eps, cudaStream_t stream) {
-  ln_rows_kernel<<<cdiv(rows, LN_THREADS / 32), LN_THREADS, 0, stream>>>(
-      x, g, b, u, mu, rstd, rows, C, eps);
+  ln_rows_kernel<false><<<cdiv(rows, LN_THREADS / 32), LN_THREADS, 0, stream>>>(
+      x, g, b, u, mu, rstd, rows, C, eps, MapRows{nullptr, 1});
+  return cudaGetLastError();
+}
+
+// the same with x read through the map addressing
+inline cudaError_t launch_ln_map(const float* x, const float* g, const float* b,
+                                 float* u, float* mu, float* rstd, int rows, int C,
+                                 float eps, MapRows rows_map, cudaStream_t stream) {
+  ln_rows_kernel<true><<<cdiv(rows, LN_THREADS / 32), LN_THREADS, 0, stream>>>(
+      x, g, b, u, mu, rstd, rows, C, eps, rows_map);
   return cudaGetLastError();
 }
 
@@ -90,22 +115,27 @@ inline cudaError_t launch_ln(const float* x, const float* g, const float* b,
 //                       in order
 //   B element (k, n) at B[k*sbk + n*sbn] in both, so transposed weight views
 //   (torch's Linear.weight.t()) are read in place.
+//   MAP (row-major form only, B9's instantiations): MAP_RES reads the
+//   residual row m at map pixel map_pixel(rows_map, m), MAP_OUT writes the
+//   output row there; MAP_NONE, the other ops' instantiation, ignores
+//   rows_map.
 // ---------------------------------------------------------------------------
 
 constexpr int GEMM_THREADS = 256;  // 16 x 16
 constexpr int GBM = 128, GBN = 64, GBK = 16;
 constexpr int TM = GBM / 16, TN = GBN / 16;
+constexpr int MAP_NONE = 0, MAP_RES = 1, MAP_OUT = 2;
 
 // SPLIT_K: the weight-gradient form above.  Otherwise A is indexed with K
 // itself as its leading dimension: a separate leading-dimension operand made
 // the forward's loop 16% slower on the H100 (PERF.md).
-template <bool SPLIT_K>
+template <bool SPLIT_K, int MAP>
 __global__ void __launch_bounds__(GEMM_THREADS)
 gemm_kernel(const float* __restrict__ A, int lda,
             const float* __restrict__ B, long long sbk, long long sbn,
             const float* __restrict__ bias, const float* __restrict__ rs,
             int rs_rows, const float* __restrict__ res, float* __restrict__ out,
-            int M, int N, int K, int k_chunk, int silu) {
+            int M, int N, int K, int k_chunk, int silu, MapRows rows_map) {
   // +1 padding keeps the transposed tile stores off a single bank
   __shared__ float As[GBK][GBM + 1];
   __shared__ float Bs[GBK][GBN + 1];
@@ -173,6 +203,8 @@ gemm_kernel(const float* __restrict__ A, int lda,
   for (int i = 0; i < TM; ++i) {
     const int m = m0 + ty + 16 * i;
     if (m >= M) continue;
+    // the map row, once per output row (MAP_NONE: unused, compiled out)
+    const long long map_off = MAP == MAP_NONE ? 0 : map_pixel(rows_map, m) * N;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int n = n0 + tx + 16 * j;
@@ -184,8 +216,8 @@ gemm_kernel(const float* __restrict__ A, int lda,
       if (bias) v += bias[n];
       if (silu) v = v / (1.f + expf(-v));
       if (rs) v *= rs[m / rs_rows];
-      if (res) v += res[(long long)m * N + n];
-      out[(long long)m * N + n] = v;
+      if (res) v += res[(MAP == MAP_RES ? map_off : (long long)m * N) + n];
+      out[(MAP == MAP_OUT ? map_off : (long long)m * N) + n] = v;
     }
   }
 }
@@ -197,8 +229,24 @@ inline cudaError_t launch_gemm(const float* A, const float* B, long long sbk,
                                int N, int K, int silu, cudaStream_t stream) {
   if (cdiv(M, GBM) > 65535) return cudaErrorInvalidValue;
   const dim3 grid(cdiv(N, GBN), cdiv(M, GBM), 1);
-  gemm_kernel<false><<<grid, GEMM_THREADS, 0, stream>>>(
-      A, K, B, sbk, sbn, bias, rs, rs_rows, res, out, M, N, K, K, silu);
+  gemm_kernel<false, MAP_NONE><<<grid, GEMM_THREADS, 0, stream>>>(
+      A, K, B, sbk, sbn, bias, rs, rs_rows, res, out, M, N, K, K, silu,
+      MapRows{nullptr, 1});
+  return cudaGetLastError();
+}
+
+// the same with the residual read (MAP_RES) or the output written
+// (MAP_OUT) through the map addressing
+template <int MAP>
+inline cudaError_t launch_gemm_map(const float* A, const float* B, long long sbk,
+                                   long long sbn, const float* bias, const float* rs,
+                                   int rs_rows, const float* res, float* out, int M,
+                                   int N, int K, int silu, MapRows rows_map,
+                                   cudaStream_t stream) {
+  if (cdiv(M, GBM) > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(cdiv(N, GBN), cdiv(M, GBM), 1);
+  gemm_kernel<false, MAP><<<grid, GEMM_THREADS, 0, stream>>>(
+      A, K, B, sbk, sbn, bias, rs, rs_rows, res, out, M, N, K, K, silu, rows_map);
   return cudaGetLastError();
 }
 
@@ -238,8 +286,9 @@ inline cudaError_t launch_gemm_splitk(const float* A, int lda, const float* B,
     return cudaErrorInvalidValue;
   const int k_chunk = cdiv(cdiv(K, splits), GBK) * GBK;
   const dim3 grid(cdiv(N, GBN), cdiv(M, GBM), splits);
-  gemm_kernel<true><<<grid, GEMM_THREADS, 0, stream>>>(
-      A, lda, B, sbk, sbn, nullptr, nullptr, 1, nullptr, part, M, N, K, k_chunk, 0);
+  gemm_kernel<true, MAP_NONE><<<grid, GEMM_THREADS, 0, stream>>>(
+      A, lda, B, sbk, sbn, nullptr, nullptr, 1, nullptr, part, M, N, K, k_chunk, 0,
+      MapRows{nullptr, 1});
   VTX_CHECK(cudaGetLastError());
   return launch_splitk_reduce(part, splits, M, N, out, som, son, stream);
 }
@@ -249,7 +298,7 @@ inline cudaError_t launch_gemm_splitk(const float* A, int lda, const float* B,
 //   out[c] = Σ_m A[m, c]                                   (X == nullptr)
 //   out[c] = Σ_m A[m, c] · (X[m, c] − mu[m]) · rstd[m]     (the LN's x̂)
 // Pass 1: block (column tile, row chunk z) writes part[z, c]; pass 2 sums
-// the chunks in order.
+// the chunks in order.  MAP: row r of X is map pixel map_pixel(rows_map, r).
 // ---------------------------------------------------------------------------
 
 constexpr int COLSUM_THREADS = 128;
@@ -257,29 +306,38 @@ constexpr int COLSUM_ROWS = 128;  // rows per chunk
 
 inline int colsum_chunks(int M) { return cdiv(M, COLSUM_ROWS); }
 
+template <bool MAP>
 __global__ void __launch_bounds__(COLSUM_THREADS)
 colsum_kernel(const float* __restrict__ A, const float* __restrict__ X,
               const float* __restrict__ mu, const float* __restrict__ rstd,
-              float* __restrict__ part, int M, int C) {
+              float* __restrict__ part, int M, int C, MapRows rows_map) {
   const int c = blockIdx.x * COLSUM_THREADS + threadIdx.x;
   if (c >= C) return;
   const int r0 = blockIdx.y * COLSUM_ROWS, r1 = min(M, r0 + COLSUM_ROWS);
   float s = 0.f;
   for (int r = r0; r < r1; ++r) {
     const long long i = (long long)r * C + c;
-    s += X ? A[i] * ((X[i] - mu[r]) * rstd[r]) : A[i];
+    const long long xi = MAP ? map_pixel(rows_map, r) * C + c : i;
+    s += X ? A[i] * ((X[xi] - mu[r]) * rstd[r]) : A[i];
   }
   part[(long long)blockIdx.y * C + c] = s;
 }
 
-// part: scratch of colsum_chunks(M) * C floats
+// part: scratch of colsum_chunks(M) * C floats; with rows_map.pix non-null,
+// X is read through the map addressing
 inline cudaError_t launch_colsum(const float* A, const float* X, const float* mu,
                                  const float* rstd, float* part, float* out,
-                                 int M, int C, cudaStream_t stream) {
+                                 int M, int C, cudaStream_t stream,
+                                 MapRows rows_map = MapRows{nullptr, 1}) {
   const int chunks = colsum_chunks(M);
   if (chunks > 65535) return cudaErrorInvalidValue;
-  colsum_kernel<<<dim3(cdiv(C, COLSUM_THREADS), chunks), COLSUM_THREADS, 0, stream>>>(
-      A, X, mu, rstd, part, M, C);
+  const dim3 grid(cdiv(C, COLSUM_THREADS), chunks);
+  if (rows_map.pix)
+    colsum_kernel<true><<<grid, COLSUM_THREADS, 0, stream>>>(A, X, mu, rstd, part, M, C,
+                                                            rows_map);
+  else
+    colsum_kernel<false><<<grid, COLSUM_THREADS, 0, stream>>>(A, X, mu, rstd, part, M,
+                                                             C, rows_map);
   VTX_CHECK(cudaGetLastError());
   return launch_splitk_reduce(part, chunks, 1, C, out, 0, 1, stream);
 }
@@ -342,35 +400,42 @@ row_scale_grad_kernel(float* __restrict__ dacc, const float* __restrict__ acc,
 }
 
 // u = (x − mu)·rstd·g + b, a forward LayerNorm's output from its saved
-// statistics (the same expression as ln_rows_kernel, so bit-identical)
+// statistics (the same expression as ln_rows_kernel, so bit-identical);
+// MAP: row r of x is map pixel map_pixel(rows_map, r)
+template <bool MAP>
 __global__ void __launch_bounds__(EW_THREADS)
 ln_apply_kernel(const float* __restrict__ x, const float* __restrict__ mu,
                 const float* __restrict__ rstd, const float* __restrict__ g,
                 const float* __restrict__ b, float* __restrict__ u, int C,
-                long long total) {
+                long long total, MapRows rows_map) {
   const long long i = (long long)blockIdx.x * EW_THREADS + threadIdx.x;
   if (i >= total) return;
   const long long r = i / C;
   const int c = i % C;
-  u[i] = (x[i] - mu[r]) * rstd[r] * g[c] + b[c];
+  const long long xi = MAP ? map_pixel(rows_map, (int)r) * C + c : i;
+  u[i] = (x[xi] - mu[r]) * rstd[r] * g[c] + b[c];
 }
 
 // LayerNorm backward, one warp per row (fused_layer.py:79-87):
 //   dx = dz + rstd·(dx̂ − mean(dx̂) − x̂·mean(dx̂⊙x̂)),  dx̂ = dln ⊙ g
+// MAP: row r of x and of dx is map pixel map_pixel(rows_map, r) (dln, dz
+// and the statistics stay in row order)
+template <bool MAP>
 __global__ void __launch_bounds__(LN_THREADS)
 ln_bwd_rows_kernel(const float* __restrict__ dln, const float* __restrict__ x,
                    const float* __restrict__ mu, const float* __restrict__ rstd,
                    const float* __restrict__ g, const float* __restrict__ dz,
-                   float* __restrict__ dx, int rows, int C) {
+                   float* __restrict__ dx, int rows, int C, MapRows rows_map) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;  // uniform across the warp
   const long long off = (long long)row * C;
+  const long long xoff = MAP ? map_pixel(rows_map, row) * C : off;
   const float m = mu[row], r = rstd[row];
   float s1 = 0.f, s2 = 0.f;
   for (int c = lane; c < C; c += 32) {
     const float dxh = dln[off + c] * g[c];
-    const float xh = (x[off + c] - m) * r;
+    const float xh = (x[xoff + c] - m) * r;
     s1 += dxh;
     s2 = fmaf(dxh, xh, s2);
   }
@@ -382,8 +447,8 @@ ln_bwd_rows_kernel(const float* __restrict__ dln, const float* __restrict__ x,
   const float m1 = s1 / C, m2 = s2 / C;
   for (int c = lane; c < C; c += 32) {
     const float dxh = dln[off + c] * g[c];
-    const float xh = (x[off + c] - m) * r;
-    dx[off + c] = dz[off + c] + r * (dxh - m1 - xh * m2);
+    const float xh = (x[xoff + c] - m) * r;
+    dx[xoff + c] = dz[off + c] + r * (dxh - m1 - xh * m2);
   }
 }
 
@@ -626,4 +691,21 @@ cudaError_t attention_half_bwd(
     float* dwout, long long dwout_s0, long long dwout_s1, float* dbout,
     float* drs, float* dextra, int B, int N, int C, int H, int D, float scale,
     cudaStream_t s);
+
+// B9's attention over sample-major window pairs (fused_swin.cu): qkv
+// [P·N, 3·H·D] of P = B·G pairs, pair p taking the bias extra[p mod
+// groups] [H, N, N] (groups = G, or 1 for one slab), heads up to 32 wide;
+// the forward writes out [P·N, H·D] and, when non-null, lse [P, H, N]
+// (fused_layer.cu) ...
+cudaError_t window_attention_fwd(const float* qkv, const float* extra, int groups,
+                                 float* out, float* lse, int P, int N, int H, int D,
+                                 float scale, cudaStream_t s);
+
+// ... and the backward writes dqkv and, when dextra is non-null, dS into
+// dsbuf [P, H, N, N] and dextra[g] = Σ_b dS[b·groups + g] in sample order
+// (fused_layer_bwd.cu)
+cudaError_t window_attention_bwd(const float* qkv, const float* dacc, const float* acc,
+                                 const float* lse, const float* extra, int groups,
+                                 float* delta, float* dsbuf, float* dqkv, float* dextra,
+                                 int P, int N, int H, int D, float scale, cudaStream_t s);
 }  // namespace vtx

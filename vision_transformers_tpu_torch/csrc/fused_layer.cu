@@ -94,8 +94,10 @@ constexpr int AQ = 64;     // queries per block = threads per block
 constexpr int AKV = 32;    // keys per shared-memory tile
 
 // SAVE_LSE: the training forward's variant, which also writes lse (a
-// separate instantiation keeps the serving kernel's registers as they were)
-template <int DH, bool SAVE_LSE, bool HAS_EXTRA>
+// separate instantiation keeps the serving kernel's registers as they were).
+// CYCLIC: B9's sample-major pairs, row b in group b mod rows_per_group (the
+// argument is then the group count G) instead of b / rows_per_group.
+template <int DH, bool SAVE_LSE, bool HAS_EXTRA, bool CYCLIC>
 __global__ void __launch_bounds__(AQ)
 attention_kernel(const float* __restrict__ qkv, const float* __restrict__ extra,
                  int rows_per_group, float* __restrict__ out,
@@ -109,8 +111,8 @@ attention_kernel(const float* __restrict__ qkv, const float* __restrict__ extra,
   const float* base = qkv + (long long)b * N * row_stride;
   const int q0 = blockIdx.x * AQ;
   const int qi = q0 + threadIdx.x;
-  const float* ebase = HAS_EXTRA
-      ? extra + ((long long)(b / rows_per_group) * H + h) * N * N : nullptr;
+  const int group = CYCLIC ? b % rows_per_group : b / rows_per_group;
+  const float* ebase = HAS_EXTRA ? extra + ((long long)group * H + h) * N * N : nullptr;
 
   // zero-padded to DH, so the unrolled dots need no width test
   float q[DH], o[DH];
@@ -153,17 +155,17 @@ attention_kernel(const float* __restrict__ qkv, const float* __restrict__ extra,
   }
 }
 
-template <int DH, bool HAS_EXTRA>
+template <int DH, bool HAS_EXTRA, bool CYCLIC = false>
 cudaError_t launch_attention_dh(const float* qkv, const float* extra,
                                 int rows_per_group, float* out, float* lse,
                                 int B, int N, int H, int D, float scale,
                                 cudaStream_t stream) {
   const dim3 grid(cdiv(N, AQ), H, B);
   if (lse)
-    attention_kernel<DH, true, HAS_EXTRA><<<grid, AQ, 0, stream>>>(
+    attention_kernel<DH, true, HAS_EXTRA, CYCLIC><<<grid, AQ, 0, stream>>>(
         qkv, extra, rows_per_group, out, lse, N, H, D, scale);
   else
-    attention_kernel<DH, false, HAS_EXTRA><<<grid, AQ, 0, stream>>>(
+    attention_kernel<DH, false, HAS_EXTRA, CYCLIC><<<grid, AQ, 0, stream>>>(
         qkv, extra, rows_per_group, out, lse, N, H, D, scale);
   return cudaGetLastError();
 }
@@ -281,6 +283,17 @@ cudaError_t vtx::ff_half_fwd(
                                      w2_s1, b2, rs_ff, rows_per_scale, u, hid, af, mu2,
                                      rstd2, out, M, C, F, eps, s);
   return cudaErrorInvalidValue;
+}
+
+// B9's attention (common.cuh): pair p of the P = B·G sample-major pairs
+// takes extra[p mod groups]; the 32-wide instantiation with the bias
+cudaError_t vtx::window_attention_fwd(const float* qkv, const float* extra, int groups,
+                                      float* out, float* lse, int P, int N, int H,
+                                      int D, float scale, cudaStream_t s) {
+  if (!extra || D > EXTRA_DMAX || P > 65535 || H > 65535 || groups < 1 || P % groups)
+    return cudaErrorInvalidValue;
+  return launch_attention_dh<EXTRA_DMAX, true, true>(qkv, extra, groups, out, lse, P,
+                                                     N, H, D, scale, s);
 }
 
 // The C entry points return the first cudaError_t met (0 = success).

@@ -155,8 +155,8 @@ cudaError_t vtx::ff_half_bwd(
   VTX_CHECK(cudaGetLastError());
 
   // 4. u₂ from the saved statistics; dW₁ = u₂ᵀ·dh; db₁ = Σ dh
-  ln_apply_kernel<<<ew_blocks(MC), EW_THREADS, 0, s>>>(z, mu2, rstd2, ln2_g,
-                                                       ln2_b, u, C, MC);
+  ln_apply_kernel<false><<<ew_blocks(MC), EW_THREADS, 0, s>>>(
+      z, mu2, rstd2, ln2_g, ln2_b, u, C, MC, MapRows{nullptr, 1});
   VTX_CHECK(cudaGetLastError());
   VTX_CHECK(launch_gemm_splitk(u, C, dh, F, 1, wpart, splits_w1, dw1, dw1_s0,
                                dw1_s1, C, F, M, s));
@@ -165,8 +165,8 @@ cudaError_t vtx::ff_half_bwd(
   // 5. dln₂ = dh·W₁ᵀ; dz = do + LN₂ᵀ(dln₂); dg₂ = Σ dln₂ ⊙ x̂₂; db₂ⁿ = Σ dln₂
   VTX_CHECK(launch_gemm(dh, w1, w1_s1, w1_s0, nullptr, nullptr, 1, nullptr, dln,
                         M, C, F, 0, s));
-  ln_bwd_rows_kernel<<<cdiv(M, LN_THREADS / 32), LN_THREADS, 0, s>>>(
-      dln, z, mu2, rstd2, ln2_g, dout, dz, M, C);
+  ln_bwd_rows_kernel<false><<<cdiv(M, LN_THREADS / 32), LN_THREADS, 0, s>>>(
+      dln, z, mu2, rstd2, ln2_g, dout, dz, M, C, MapRows{nullptr, 1});
   VTX_CHECK(cudaGetLastError());
   VTX_CHECK(launch_colsum(dln, z, mu2, rstd2, cpart, dg2, M, C, s));
   VTX_CHECK(launch_colsum(dln, nullptr, nullptr, nullptr, cpart, db2, M, C, s));

@@ -86,12 +86,14 @@ namespace {
 //     neighbouring threads are neighbouring keys), and, when ds_out is
 //     non-null, dS = p ⊙ (dP − Δ) of every (query, key) pair is stored to
 //     ds_out [B, H, N, N] for the ordered sum over the group's rows (3d).
+//     CYCLIC: B9's sample-major pairs, row b in group b mod rows_per_group
+//     (the argument is then the group count), as in fused_layer.cu.
 // ---------------------------------------------------------------------------
 
 constexpr int BK = 64;   // keys per block = threads per block
 constexpr int BQ = 16;   // queries per shared-memory tile
 
-template <int DH, bool HAS_EXTRA>
+template <int DH, bool HAS_EXTRA, bool CYCLIC>
 __global__ void __launch_bounds__(BK)
 attn_bwd_dkdv_kernel(const float* __restrict__ qkv, const float* __restrict__ dacc,
                      const float* __restrict__ lse, const float* __restrict__ delta,
@@ -113,8 +115,8 @@ attn_bwd_dkdv_kernel(const float* __restrict__ qkv, const float* __restrict__ da
   const int k0 = blockIdx.x * BK;
   const int kj = k0 + t;
   const long long NN = (long long)N * N;
-  const float* ebase = HAS_EXTRA
-      ? extra + ((long long)(b / rows_per_group) * H + h) * NN : nullptr;
+  const int group = CYCLIC ? b % rows_per_group : b / rows_per_group;
+  const float* ebase = HAS_EXTRA ? extra + ((long long)group * H + h) * NN : nullptr;
   float* dsbase = (HAS_EXTRA && ds_out) ? ds_out + ((long long)b * H + h) * NN : nullptr;
 
   for (int idx = t; idx < BK * DH; idx += BK) {
@@ -185,7 +187,7 @@ attn_bwd_dkdv_kernel(const float* __restrict__ qkv, const float* __restrict__ da
 constexpr int BQQ = 64;  // queries per block = threads per block
 constexpr int BKV = 16;  // keys per shared-memory tile
 
-template <int DH, bool HAS_EXTRA>
+template <int DH, bool HAS_EXTRA, bool CYCLIC>
 __global__ void __launch_bounds__(BQQ)
 attn_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ dacc,
                    const float* __restrict__ lse, const float* __restrict__ delta,
@@ -203,8 +205,8 @@ attn_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ dacc
   const float* dbase = dacc + (long long)b * N * HD;
   const int q0 = blockIdx.x * BQQ;
   const int qi = q0 + t;
-  const float* ebase = HAS_EXTRA
-      ? extra + ((long long)(b / rows_per_group) * H + h) * N * N : nullptr;
+  const int group = CYCLIC ? b % rows_per_group : b / rows_per_group;
+  const float* ebase = HAS_EXTRA ? extra + ((long long)group * H + h) * N * N : nullptr;
 
   for (int idx = t; idx < BQQ * DH; idx += BQQ) {
     const int i = idx / DH, d = idx % DH;
@@ -259,30 +261,35 @@ attn_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ dacc
 
 // ---------------------------------------------------------------------------
 // 3d. dextra[g, h, q, k] = Σ_{r < R} ds[g·R + r, h, q, k], R = B / G rows
-//     per group, summed in r order (one thread per output element).
+//     per group, summed in r order (one thread per output element); CYCLIC
+//     (B9): Σ_{r < R} ds[r·G + g, h, q, k] over the R = B / G samples, in
+//     sample order.
 // ---------------------------------------------------------------------------
 
+template <bool CYCLIC>
 __global__ void __launch_bounds__(EW_THREADS)
 group_sum_kernel(const float* __restrict__ ds, int R, long long per_row,
                  long long total, float* __restrict__ out) {
   const long long e = (long long)blockIdx.x * EW_THREADS + threadIdx.x;
   if (e >= total) return;
   const long long g = e / per_row, rem = e % per_row;
-  const float* src = ds + g * R * per_row + rem;
+  // total = G·per_row: the stride from one sample's pair g to the next's
+  const float* src = ds + (CYCLIC ? g : g * R) * per_row + rem;
+  const long long step = CYCLIC ? total : per_row;
   float s = 0.f;
-  for (int r = 0; r < R; ++r) s += src[(long long)r * per_row];
+  for (int r = 0; r < R; ++r) s += src[(long long)r * step];
   out[e] = s;
 }
 
-template <int DH, bool HAS_EXTRA>
+template <int DH, bool HAS_EXTRA, bool CYCLIC = false>
 cudaError_t launch_attn_bwd(const float* qkv, const float* dacc, const float* lse,
                             const float* delta, const float* extra,
                             int rows_per_group, float* dsbuf, float* dqkv, int B,
                             int N, int H, int D, float scale, cudaStream_t s) {
-  attn_bwd_dkdv_kernel<DH, HAS_EXTRA><<<dim3(cdiv(N, BK), H, B), BK, 0, s>>>(
+  attn_bwd_dkdv_kernel<DH, HAS_EXTRA, CYCLIC><<<dim3(cdiv(N, BK), H, B), BK, 0, s>>>(
       qkv, dacc, lse, delta, extra, rows_per_group, dsbuf, dqkv, N, H, D, scale);
   VTX_CHECK(cudaGetLastError());
-  attn_bwd_dq_kernel<DH, HAS_EXTRA><<<dim3(cdiv(N, BQQ), H, B), BQQ, 0, s>>>(
+  attn_bwd_dq_kernel<DH, HAS_EXTRA, CYCLIC><<<dim3(cdiv(N, BQQ), H, B), BQQ, 0, s>>>(
       qkv, dacc, lse, delta, extra, rows_per_group, dqkv, N, H, D, scale);
   return cudaGetLastError();
 }
@@ -315,7 +322,7 @@ cudaError_t attention_core_bwd(const float* qkv, const float* dacc,
   if (ds_out) {
     const long long per_row = (long long)H * N * N;
     const long long total = (long long)groups * per_row;
-    group_sum_kernel<<<ew_blocks(total), EW_THREADS, 0, s>>>(
+    group_sum_kernel<false><<<ew_blocks(total), EW_THREADS, 0, s>>>(
         ds_out, rows_per_group, per_row, total, dextra);
     VTX_CHECK(cudaGetLastError());
   }
@@ -339,6 +346,33 @@ cudaError_t qkv_in_bwd(const float* a, const float* wqkv, long long wqkv_s0,
 }
 
 }  // namespace
+
+// B9's attention backward (common.cuh): 3a-3d on the P = B·G sample-major
+// pairs, pair p taking extra[p mod groups], dextra[g] summed over the
+// samples in order
+cudaError_t vtx::window_attention_bwd(const float* qkv, const float* dacc,
+                                      const float* acc, const float* lse,
+                                      const float* extra, int groups, float* delta,
+                                      float* dsbuf, float* dqkv, float* dextra, int P,
+                                      int N, int H, int D, float scale, cudaStream_t s) {
+  if (!extra || D < 1 || D > EXTRA_DMAX || N < 1 || P < 1 || P > 65535 || H > 65535 ||
+      groups < 1 || P % groups)
+    return cudaErrorInvalidValue;
+  float* ds_out = dextra ? dsbuf : nullptr;
+  attn_delta_kernel<<<ew_blocks((long long)P * H * N), EW_THREADS, 0, s>>>(
+      dacc, acc, delta, P, N, H, D);
+  VTX_CHECK(cudaGetLastError());
+  VTX_CHECK((launch_attn_bwd<EXTRA_DMAX, true, true>(qkv, dacc, lse, delta, extra, groups,
+                                                     ds_out, dqkv, P, N, H, D, scale, s)));
+  if (ds_out) {
+    const long long per_row = (long long)H * N * N;
+    const long long total = (long long)groups * per_row;
+    group_sum_kernel<true><<<ew_blocks(total), EW_THREADS, 0, s>>>(
+        ds_out, P / groups, per_row, total, dextra);
+    VTX_CHECK(cudaGetLastError());
+  }
+  return cudaSuccess;
+}
 
 // Steps 1-2: da = rs ⊙ dz; dwout = accᵀ·da; dbout = Σ_rows da; dacc₀ =
 // dz·woutᵀ; dr; dacc = rs ⊙ dacc₀ (rows_per_scale rows per sample)
@@ -379,13 +413,13 @@ cudaError_t vtx::qkv_proj_bwd(
     int splits_qkv, float* cpart, float* dx, float* dg, float* db,
     float* dwqkv, long long dwqkv_s0, long long dwqkv_s1, float* dbqkv, int M,
     int C, int HD, cudaStream_t s) {
-  ln_apply_kernel<<<ew_blocks((long long)M * C), EW_THREADS, 0, s>>>(
-      x, mu, rstd, ln_g, ln_b, u, C, (long long)M * C);
+  ln_apply_kernel<false><<<ew_blocks((long long)M * C), EW_THREADS, 0, s>>>(
+      x, mu, rstd, ln_g, ln_b, u, C, (long long)M * C, MapRows{nullptr, 1});
   VTX_CHECK(cudaGetLastError());
   VTX_CHECK(qkv_in_bwd(u, wqkv, wqkv_s0, wqkv_s1, dqkv, wpart, splits_qkv, cpart, dwqkv,
                        dwqkv_s0, dwqkv_s1, dbqkv, dln, M, C, HD, s));
-  ln_bwd_rows_kernel<<<cdiv(M, LN_THREADS / 32), LN_THREADS, 0, s>>>(
-      dln, x, mu, rstd, ln_g, dz, dx, M, C);
+  ln_bwd_rows_kernel<false><<<cdiv(M, LN_THREADS / 32), LN_THREADS, 0, s>>>(
+      dln, x, mu, rstd, ln_g, dz, dx, M, C, MapRows{nullptr, 1});
   VTX_CHECK(cudaGetLastError());
   VTX_CHECK(launch_colsum(dln, x, mu, rstd, cpart, dg, M, C, s));
   VTX_CHECK(launch_colsum(dln, nullptr, nullptr, nullptr, cpart, db, M, C, s));

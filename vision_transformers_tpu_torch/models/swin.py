@@ -29,7 +29,22 @@ the pair at −1e9, JAX swin.py:180-206).  Each layer dispatches through
   packed-qkv attention kernel (:func:`ops.fused_attention_qkv`) with the
   grouped bias, the out projection and the unpartition (swin.py:163-170,
   288-293); LN, the residuals and the FF in plain torch;
+- ``swin`` (forced only): the whole layer on the map
+  (:func:`ops.fused_swin_layer`, swin.py:208-236): the roll, the window-pair
+  partition in layout-native token order, both residual branches and both
+  per-sample DropPath scales (untiled) in one op, with the packed slab
+  permuted by :func:`ops.swin_token_perm` — [1, H, m, m] on the unshifted
+  layers, [G, H, m, m] with the permuted shift mask on the shifted ones;
 - ``einsum``: plain torch on the packed windows (swin.py:302-330).
+
+The kernel paths (``layer1``, ``layer``, ``swin``) run where no dropout is
+active (eval, or drop_attn = drop_ff = 0, swin.py:376-378); otherwise a
+layer takes the two residual branches, its attention on einsum unless
+forced to ``fused`` / ``block`` with no attention-probability dropout
+(swin.py:166-170).  In training the dropout masks (the attention
+probabilities [b, G, H, m, m] at drop_attn, the FF hidden at drop_ff) come
+from the trainer's generator, layer by layer in the JAX call order
+(:func:`utils.weights.swin_dropout_calls`).
 
 Reference quirks reproduced: ``shift = i % 2 == 0`` (the first layer of each
 stage is shifted), the mask criterion on pre-roll coordinates, the
@@ -37,8 +52,8 @@ zero-initialised bias table, the index taken from window 0 of the rolled
 grid (which wraps inside the window when the grid equals it: the last
 stage), and the DropPath ramp ``drop_path·i/sum(depths)``.  In training
 each layer draws two independent per-sample DropPath scales from an
-explicit ``torch.Generator``; dropout, drop_attn and drop_ff > 0 in
-training raise NotImplementedError.  remat is not ported.
+explicit ``torch.Generator``, all of them before the first dropout mask.
+remat is not ported.
 """
 
 from __future__ import annotations
@@ -52,6 +67,7 @@ from torch import nn
 
 from .. import ops
 from ..config.registry import TypedConfig, register
+from . import layers
 from .layers import FeedForward, LayerNorm, drop_path_scale, pair, patchify, scaled
 
 __all__ = ["relative_position_index", "shifted_window_mask", "WindowAttention",
@@ -145,10 +161,12 @@ class WindowAttention(nn.Module):
     plain packed-window path on an LN'd map."""
 
     def __init__(self, dim: int, n_head: int, dim_head: int,
-                 input_size: Tuple[int, int], window: int, shift: bool):
+                 input_size: Tuple[int, int], window: int, shift: bool,
+                 dropout: float = 0.0):
         super().__init__()
         inner = n_head * dim_head
         self.n_head, self.dim_head = n_head, dim_head
+        self.dropout = dropout
         self.input_size, self.window, self.shift = input_size, window, shift
         self.weight = nn.Linear(dim, inner * 3)  # qkv, q-heads | k-heads | v-heads
         self.linear = nn.Linear(inner, dim)
@@ -157,11 +175,17 @@ class WindowAttention(nn.Module):
         self.register_buffer("pos_index", torch.from_numpy(
             relative_position_index(window, input_size, shift).astype(np.int64)),
             persistent=False)
+        # the map-resident op's layout-native token order (JAX swin.py:218-
+        # 225), on the module's device: nothing is copied per call
+        perm = torch.from_numpy(ops.swin_token_perm(window, self.pack))
+        self.register_buffer("map_perm", perm, persistent=False)
         if shift:
             mask = torch.from_numpy(packed_shift_mask(input_size, window, self.pack))
             self.register_buffer("shift_mask", mask, persistent=False)
+            self.register_buffer("map_shift_mask", mask[:, perm][:, :, perm].contiguous(),
+                                 persistent=False)
         else:
-            self.shift_mask = None
+            self.shift_mask = self.map_shift_mask = None
 
     @property
     def groups(self) -> int:
@@ -188,6 +212,16 @@ class WindowAttention(nn.Module):
             extra = extra + self.shift_mask[:, None]
         return extra.contiguous()
 
+    def map_bias(self) -> torch.Tensor:
+        """The bias of :func:`ops.fused_swin_layer`, f32 in its layout-native
+        token order: the packed slab [1, H, m, m] unshifted, plus the shift
+        mask [G, H, m, m] shifted (JAX swin.py:218-225)."""
+        perm = self.map_perm
+        slab = self.packed_slab().float()[:, perm][:, :, perm][None]
+        if self.map_shift_mask is None:
+            return slab.contiguous()
+        return (slab + self.map_shift_mask[:, None]).contiguous()
+
     def _roll(self, x: torch.Tensor, sign: int) -> torch.Tensor:
         if not self.shift:
             return x
@@ -208,12 +242,14 @@ class WindowAttention(nn.Module):
         out = out.permute(2, 0, 4, 1, 3, 5, 6).reshape(b, h, w, -1)
         return self._roll(out, 1)
 
-    def forward(self, x: torch.Tensor, impl: str = "einsum") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, impl: str = "einsum",
+                generator: torch.Generator | None = None) -> torch.Tensor:
         """Packed-window attention on an LN'd map [b, H, W, C]: plain torch
-        (JAX swin.py:302-330) or, on the partitioned rows with the grouped
-        bias, the packed-qkv kernel between the projections (``impl``
-        "fused", swin.py:288-293) or the attention-block kernel with the
-        projections inside (``impl`` "block", swin.py:280-286)."""
+        (JAX swin.py:302-330), in training with the probabilities' dropout
+        drawn from ``generator``, or, on the partitioned rows with the
+        grouped bias, the packed-qkv kernel between the projections
+        (``impl`` "fused", swin.py:288-293) or the attention-block kernel
+        with the projections inside (``impl`` "block", swin.py:280-286)."""
         b, h, w, _ = x.shape
         scale = 1.0 / self.dim_head ** 0.5
         if impl == "block":
@@ -237,6 +273,8 @@ class WindowAttention(nn.Module):
         if self.shift_mask is not None:
             score = score + self.shift_mask.to(score.dtype)[None, :, None]
         attn = torch.softmax(score.float(), dim=-1).to(x.dtype)
+        if self.training:
+            attn = layers.dropout(attn, self.dropout, generator)
         out = torch.einsum("bshqk,bshkd->bshqd", attn, v)
         out = out.reshape(b, hs, wsp, H, pack, win, win, D)
         out = out.permute(0, 1, 5, 2, 4, 6, 3, 7).reshape(b, h, w, H * D)
@@ -248,23 +286,39 @@ class SwinLayer(nn.Module):
 
     def __init__(self, dim: int, n_head: int, dim_head: int, dim_ff: int,
                  input_size: Tuple[int, int], window: int, shift: bool,
-                 drop_ff: float = 0.0):
+                 drop_ff: float = 0.0, drop_attn: float = 0.0):
         super().__init__()
         self.norm_attn = LayerNorm(dim, eps=_LN_EPS)
-        self.attn = WindowAttention(dim, n_head, dim_head, input_size, window, shift)
+        self.attn = WindowAttention(dim, n_head, dim_head, input_size, window, shift,
+                                    drop_attn)
         self.norm_ff = LayerNorm(dim, eps=_LN_EPS)
         self.ff = FeedForward(dim, dim_ff, dropout=drop_ff)
 
-    def forward(self, x: torch.Tensor, rs=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rs=None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         """x [b, H, W, C]; ``rs``: pre-drawn DropPath scales
-        ``(rs_attn, rs_ff)``, each None or [b]."""
+        ``(rs_attn, rs_ff)``, each None or [b]; ``generator``: the dropout
+        masks' source in training."""
         b = x.shape[0]
         rs_attn, rs_ff = (None, None) if rs is None else rs
         na, attn, nf, ff = self.norm_attn, self.attn, self.norm_ff, self.ff
         impl = ops.attention_impl(b, default="layer1")
-        if impl in ("einsum", "fused", "block"):
-            x = x + scaled(attn(na(x), impl), rs_attn)
-            return x + scaled(ff(nf(x)), rs_ff)
+        dropping = self.training and (attn.dropout > 0 or ff.rate > 0)
+        if impl not in ("layer", "layer1", "swin") or dropping:
+            # two residual branches; the attention's own dispatch (swin.py:
+            # 166-170): einsum but under a 'fused' / 'block' force, and
+            # einsum wherever the probabilities are dropped
+            if impl not in ("fused", "block") or (self.training and attn.dropout > 0):
+                impl = "einsum"
+            x = x + scaled(attn(na(x), impl, generator), rs_attn)
+            return x + scaled(ff(nf(x), generator), rs_ff)
+        if impl == "swin":
+            return ops.fused_swin_layer(
+                x, na.weight, na.bias, attn.weight.weight.t(), attn.weight.bias,
+                attn.linear.weight.t(), attn.linear.bias, nf.weight, nf.bias,
+                ff[0].weight.t(), ff[0].bias, ff[3].weight.t(), ff[3].bias, attn.n_head,
+                attn.map_bias(), rs_attn, rs_ff, "silu", window=attn.window,
+                shift=attn.shift, pack=attn.pack, eps=_LN_EPS)
         # kernel paths: LN, the residuals and the row scales are token-
         # pointwise, so they commute with the roll / partition permutation;
         # rows are (group, image) pairs, so the scales tile over the groups
@@ -337,7 +391,8 @@ class SwinTransformer(nn.Module):
                 size = (size[0] // 2, size[1] // 2)
             for i in range(depth):
                 layer = SwinLayer(dims[s], n_heads[s], dim_head, dim_ffs[s], size,
-                                  window_size, shift=i % 2 == 0, drop_ff=drop_ff)
+                                  window_size, shift=i % 2 == 0, drop_ff=drop_ff,
+                                  drop_attn=drop_attn)
                 stage.append(layer)
             setattr(self, f"block{s + 1}", nn.ModuleList(stage))
         self.n_stages = len(depths)
@@ -345,7 +400,6 @@ class SwinTransformer(nn.Module):
         self.final_linear = nn.Sequential(LayerNorm(dims[-1], eps=1e-5))
         self.classifier = nn.Sequential(nn.Identity(), nn.Identity(),
                                         nn.Linear(dims[-1], n_class))
-        self._dropout = drop_attn > 0 or drop_ff > 0
         n_layers = sum(depths)
         # per-layer DropPath rates (JAX swin.py:474-476)
         self.drop_path_rates = [drop_path * i / n_layers for i in range(n_layers)]
@@ -378,19 +432,15 @@ class SwinTransformer(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        """Logits of NCHW images; in training mode DropPath draws from
-        ``generator``."""
-        if self.training and self._dropout:
-            raise NotImplementedError(
-                "drop_attn / drop_ff > 0 in training is not ported (ROADMAP); "
-                "Swin-S trains with both at 0")
+        """Logits of NCHW images; in training mode DropPath and dropout draw
+        from ``generator``."""
         out = self.patch_embedding(x.permute(0, 2, 3, 1))
         scales = iter(self.draw_drop_path(out.shape[0], generator) if self.training
                       else [None] * len(self.drop_path_rates))
         for s in range(self.n_stages):
             for block in getattr(self, f"block{s + 1}"):
-                out = block(out, next(scales)) if isinstance(block, SwinLayer) \
-                    else block(out)
+                out = block(out, next(scales), generator) \
+                    if isinstance(block, SwinLayer) else block(out)
         out = self.final_linear(out).mean(dim=(1, 2))
         return self.classifier(out.float())
 

@@ -104,6 +104,46 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I,  # B, N, C, H, D, F
         _F, _P,                  # scale, stream
     ],
+    "vtx_fused_swin_layer_fwd": [
+        _P, _P, _P,              # x (map), ln1_scale, ln1_bias
+        _P, _L, _L, _P,          # wqkv, its strides, bqkv
+        _P, _L, _L, _P,          # wout, its strides, bout
+        _P, _P,                  # ln2_scale, ln2_bias
+        _P, _L, _L, _P,          # w1, its strides, b1
+        _P, _L, _L, _P,          # w2, its strides, b2
+        _P, _I, _P, _P,          # extra, groups, rs_attn, rs_ff (nullable)
+        _P,                      # the row → pixel table
+        _P, _P, _P, _P, _P, _P,  # u, qkv, acc, z, hid (workspace), af (nullable)
+        _P, _P, _P, _P, _P,      # mu1, rstd1, lse, mu2, rstd2 (nullable saves)
+        _P,                      # out (map)
+        _I, _I, _I, _I, _I, _I, _I, _I, _I,  # B, H, W, C, heads, D, F, window, pack
+        _F, _F, _P,              # scale, eps, stream
+    ],
+    "vtx_fused_swin_layer_bwd": [
+        _P, _P, _P,              # x (map), ln1_scale, ln1_bias
+        _P, _L, _L, _P,          # wqkv, its strides, bqkv
+        _P, _L, _L, _P,          # wout, its strides, bout
+        _P, _P,                  # ln2_scale, ln2_bias
+        _P, _L, _L, _P,          # w1, its strides, b1
+        _P, _L, _L, _P,          # w2, its strides, b2
+        _P, _I, _P, _P,          # extra, groups, rs_attn, rs_ff
+        _P,                      # the row → pixel table
+        _P, _P, _P, _P,          # qkv, acc, z, hid
+        _P, _P, _P, _P, _P,      # mu1, rstd1, lse, mu2, rstd2
+        _P,                      # do (map)
+        _P, _P, _P, _P, _P, _P, _P,  # dor, da, af, dh, dz, dacc, delta (workspace)
+        _P, _P, _P, _P, _P,      # dqkv, u, dln, dsbuf, wpart
+        _I, _I, _I, _I, _P,      # splits out / qkv / w1 / w2, cpart
+        _P, _P, _P,              # dx (map), dln1_scale, dln1_bias
+        _P, _L, _L, _P,          # dwqkv, its strides, dbqkv
+        _P, _L, _L, _P,          # dwout, its strides, dbout
+        _P, _P,                  # dln2_scale, dln2_bias
+        _P, _L, _L, _P,          # dw1, its strides, db1
+        _P, _L, _L, _P,          # dw2, its strides, db2
+        _P, _P, _P,              # dextra, drs_attn, drs_ff
+        _I, _I, _I, _I, _I, _I, _I, _I, _I,  # B, H, W, C, heads, D, F, window, pack
+        _F, _P,                  # scale, stream
+    ],
     "vtx_fused_halo_layer_fwd": [
         _P, _P, _P,              # x, ln1_scale, ln1_bias
         _P, _L, _L,              # wqkv, its strides (no bias)

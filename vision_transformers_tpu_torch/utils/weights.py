@@ -20,8 +20,8 @@ import torch
 
 __all__ = ["state_dict_from_flax", "load_checkpoint", "seeded_state_dict",
            "seeded_images", "seeded_train_batch", "seeded_dropout_masks",
-           "supplied_dropout_masks", "vit_dropout_calls", "grad_projections",
-           "to_torch"]
+           "supplied_dropout_masks", "vit_dropout_calls", "swin_dropout_calls",
+           "grad_projections", "to_torch"]
 
 
 # ---------------------------------------------------------------------------
@@ -511,6 +511,29 @@ def vit_dropout_calls(arch, n: int) -> list:
     layer = [(probs, arch.drop_attn), (row, arch.dropout), (hidden, arch.drop_ff),
              (row, arch.dropout)]
     return [c for c in [(row, arch.dropout)] + layer * arch.depth if c[1] > 0]
+
+
+def swin_dropout_calls(arch, n: int) -> list:
+    """(shape, rate) of each of a Swin's dropout masks in one training
+    forward of ``n`` images, in the JAX model's call order (swin.py:320,
+    layers.py:346): per layer, stage by stage, the attention probabilities
+    [n, G, heads, m, m] of the packed windows (where ``drop_attn`` > 0),
+    then the FF hidden [n, h, w, dim_ff] (where ``drop_ff`` > 0)."""
+    from ..models.swin import window_pack
+
+    size = arch.image_size
+    h, w = (size, size) if isinstance(size, int) else tuple(size)
+    h, w = h // 4, w // 4
+    win, calls = arch.window_size, []
+    for s, depth in enumerate(arch.depths):
+        if s:
+            h, w = h // 2, w // 2
+        pack = window_pack(win, (h, w))
+        groups = (h // win) * (w // win) // pack
+        probs = (n, groups, arch.n_heads[s], pack * win * win, pack * win * win)
+        hidden = (n, h, w, arch.dim_ffs[s])
+        calls += [(probs, arch.drop_attn), (hidden, arch.drop_ff)] * depth
+    return [c for c in calls if c[1] > 0]
 
 
 def grad_projections(grads: Dict[str, np.ndarray], seed: int) -> Dict[str, float]:
