@@ -14,7 +14,10 @@ Phases (each prints its lines and raises on failure, so the script exits
 non-zero and prints no ok line):
 
 1. probe   torch / CUDA / nvcc / nvidia-smi / PIL; the card must be sm_90
-2. build   nvcc → shared library, one nvcc per source in parallel (timed)
+2. build   nvcc → shared library, one nvcc per source in parallel (timed);
+           ptxas's registers and spills, and the HMMA count (cuobjdump
+           -sass) of every instantiation of the tensor-core attention
+           kernels that B6 and B3 run (raises on a copy without one)
 3. kernels each forward kernel vs its plain version, f32, atol = rtol = 1e-4
            (same f32 math, another summation order over K ≤ 3072): at an odd
            small shape, at every ViT-S shape phases 5 and 6 give it (48 / 160
@@ -51,19 +54,22 @@ non-zero and prints no ok line):
            strided head views: serving forward and training forward (with
            lse) within atol = rtol = 1e-4, backward per tensor within
            1e-3·max(1, max|plain|) and bit-identical across two runs, at odd
-           shapes (M ≠ N, N = 1, 4, 9; heads 64, 32, 24 wide) and at every
-           PVT-S and Twins-SVT-S call at 128 images; median ms beside
-           F.scaled_dot_product_attention on the same problem, forward and
-           its autograd backward
+           shapes (M ≠ N, N = 1, 4, 9; heads 64, 32, 24 wide; the bias as
+           [M, N], [1, M, N] and [G, M, N] with its gradient, N up to 97)
+           and at every PVT-S and Twins-SVT-S call at 128 images; median ms
+           beside F.scaled_dot_product_attention on the same problem,
+           forward and its autograd backward; bound at the tensor-core rate
 3q.        the packed-qkv attention (ViT's dropout path, Swin's forced
            'fused'): serving forward and training forward (with lse) within
            atol = rtol = 1e-4, backward per tensor within 1e-3·max(1,
            max|plain|) and bit-identical across two runs, at odd shapes (no
            bias at D = 64; each bias form — [N, N], [H, N, N], [1, N, N],
-           grouped — at D = 32), at ViT-S/16's training call (B 128) and at
-           Swin-S's four stages at 64 images with the grouped bias; median ms
-           beside F.scaled_dot_product_attention on [B, H, N, D] views of the
-           same qkv, forward and its autograd backward
+           grouped — at D = 32; [H, N, N] and grouped at D = 64), at ViT-S/16's
+           training call (B 128) and at Swin-S's four stages at 64 images
+           with the grouped bias; median ms beside
+           F.scaled_dot_product_attention on [B, H, N, D] views of the same
+           qkv, forward and its autograd backward; bound at the tensor-core
+           rate
 3f.        the FF residual branch (the FF-kernel path): the same checks with
            silu at ViT-S/16's call (M = 25,216 rows, C 384, F 1536) with and
            without the row scale, silu and tanh-gelu at an odd shape; median
@@ -181,6 +187,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -228,9 +235,9 @@ KERNELS = {  # name → (source, the TPU kernel it replaces)
                         "vision_transformers_tpu/ops/fused_attention.py:67"),
     "fused_attention_bwd": ("vision_transformers_tpu_torch/csrc/fused_attention.cu",
                             "vision_transformers_tpu/ops/fused_attention.py:92"),
-    "fused_attention_qkv": ("vision_transformers_tpu_torch/csrc/fused_layer.cu",
+    "fused_attention_qkv": ("vision_transformers_tpu_torch/csrc/fused_attention_qkv.cu",
                             "vision_transformers_tpu/ops/fused_attention.py:313"),
-    "fused_attention_qkv_bwd": ("vision_transformers_tpu_torch/csrc/fused_layer_bwd.cu",
+    "fused_attention_qkv_bwd": ("vision_transformers_tpu_torch/csrc/fused_attention_qkv.cu",
                                 "vision_transformers_tpu/ops/fused_attention.py:342"),
     "fused_ff_layer": ("vision_transformers_tpu_torch/csrc/fused_layer.cu",
                        "vision_transformers_tpu/ops/fused_layer.py:701"),
@@ -249,6 +256,10 @@ KERNELS = {  # name → (source, the TPU kernel it replaces)
     "fused_swin_layer_bwd": ("vision_transformers_tpu_torch/csrc/fused_swin.cu",
                              "vision_transformers_tpu/ops/fused_swin.py:200"),
 }
+# the tensor-core attention kernels (3xTF32, csrc/attention_tc.cuh) that B6 and
+# B3 run: the build phase counts their HMMA, and their bound takes the
+# f32-accurate tensor-core rate
+TENSOR_CORE_FUNCTIONS = ("attn_fwd_kernel", "attn_bwd_kernel")
 KERNEL_TOL = 1e-4
 DEVICE = "cuda"
 
@@ -307,13 +318,42 @@ def build():
     from vision_transformers_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.build()
+    lib = _build.build()
     secs = time.perf_counter() - t0
     log(f"build: {secs:.2f} s")
     for line in _build.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"build: {line.strip()}")
+    tensor_core_counts(_build, lib._name)
     return secs
+
+
+def tensor_core_counts(_build, library):
+    """The tensor-core instructions (HMMA in ``cuobjdump -sass``) of each
+    instantiation of the tensor-core attention kernels (attention_tc.cuh),
+    in each source that compiles them (fused_attention.cu for B6,
+    fused_attention_qkv.cu for B3); raises if one has none."""
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = run([cuobjdump, "-sass", library], timeout=300)
+    pattern = re.compile(r"_GLOBAL__N__\w+?_\d+_(\w+?)_cu_[0-9a-f]+3tca\d+("
+                         + "|".join(TENSOR_CORE_FUNCTIONS) + r")I((?:L[ib]\d+E)+)E")
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            m = pattern.search(line)
+            name = None
+            if m:
+                args = ",".join(re.findall(r"L[ib](\d+)E", m.group(3)))
+                name = f"{m.group(1)}.cu {m.group(2)}<{args}>"
+                counts[name] = 0
+        elif name and "HMMA" in line:
+            counts[name] += 1
+    if not counts:
+        raise RuntimeError("build: no tensor-core attention kernel in the library")
+    for name, n in sorted(counts.items()):
+        log(f"build: {name}: HMMA {n}")
+        if n == 0:
+            raise RuntimeError(f"build: {name} has no tensor-core instruction")
 
 
 # ---------------------------------------------------------------------------
@@ -321,12 +361,17 @@ def build():
 # ---------------------------------------------------------------------------
 
 H100_F32_FLOPS = 67e12   # f32 FMA peak outside the tensor cores, 700 W
+H100_TF32X3_FLOPS = 495e12 / 3  # f32-accurate products on the tensor cores (3xTF32)
 H100_BYTES = 3.35e12     # HBM3 rate
 
 
-def bound(flops, nbytes):
-    """(bound_ms, bound_by): the least time for this work on the card."""
-    t_ops, t_bytes = flops / H100_F32_FLOPS * 1e3, nbytes / H100_BYTES * 1e3
+def bound(flops, nbytes, tensor_cores=False):
+    """(bound_ms, bound_by): the least time for this work on the card, the
+    larger of bytes / 3.35 TB/s and operations / the rate of the route the
+    kernel takes: 67 TFLOP/s for f32 FMA, 495 / 3 = 165 TFLOP/s for
+    ``tensor_cores`` (three TF32 passes a product keep f32 accuracy)."""
+    rate = H100_TF32X3_FLOPS if tensor_cores else H100_F32_FLOPS
+    t_ops, t_bytes = flops / rate * 1e3, nbytes / H100_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -1560,16 +1605,22 @@ def twins_stages(images):
 
 
 # the odd small reduced-kv problems: M ≠ N, one key (Twins' last stage), four,
-# nine, head widths 64, 32 and 24
+# nine, head widths 64, 32 and 24; then the bias in each form ([M, N],
+# [1, M, N], [G, M, N]) at odd shapes, one of them past one key tile
 SRA_ODD = [dict(model="odd", stage="odd", depth=1, shape=(3, 2, 37, 1, 64)),
            dict(model="odd", stage="odd", depth=1, shape=(2, 3, 70, 4, 32)),
-           dict(model="odd", stage="odd", depth=1, shape=(2, 1, 45, 9, 24))]
+           dict(model="odd", stage="odd", depth=1, shape=(2, 1, 45, 9, 24)),
+           dict(model="odd", stage="odd", depth=1, shape=(3, 2, 77, 49, 64), extra="mn"),
+           dict(model="odd", stage="odd", depth=1, shape=(2, 3, 70, 9, 32), extra="1mn"),
+           dict(model="odd", stage="odd", depth=1, shape=(2, 5, 130, 50, 64), extra="gmn"),
+           dict(model="odd", stage="odd", depth=1, shape=(2, 2, 45, 97, 24), extra="gmn")]
 
 
-def sra_inputs(torch, B, G, M, N, D, seed=0):
+def sra_inputs(torch, B, G, M, N, D, extra=None, seed=0):
     """q, k, v and an output grad as the models pass them: [B, G, rows, D]
     head views of a q projection [B, M, G·D], of the two halves of a kv
-    projection [B, N, 2·G·D] and of the output projection's input grad."""
+    projection [B, N, 2·G·D] and of the output projection's input grad;
+    with ``extra`` ("mn", "1mn", "gmn") a std-0.5 bias of that form."""
     g = torch.Generator(DEVICE).manual_seed(seed)
     q, kv, do = (torch.randn(B, rows, c * G * D, device=DEVICE, generator=g)
                  for rows, c in ((M, 1), (N, 2), (M, 1)))
@@ -1577,11 +1628,14 @@ def sra_inputs(torch, B, G, M, N, D, seed=0):
     def heads(t):
         return t.reshape(B, -1, G, D).permute(0, 2, 1, 3)
 
-    return heads(q), heads(kv[..., :G * D]), heads(kv[..., G * D:]), heads(do)
+    shape = {None: None, "mn": (M, N), "1mn": (1, M, N), "gmn": (G, M, N)}[extra]
+    bias = None if shape is None else 0.5 * torch.randn(*shape, device=DEVICE, generator=g)
+    return heads(q), heads(kv[..., :G * D]), heads(kv[..., G * D:]), heads(do), bias
 
 
 def sra_what(call):
-    return f"{call['model']} stage {call['stage']} B,G,M,N,D={call['shape']}"
+    bias = f", [{call['extra']}] bias" if call.get("extra") else ""
+    return f"{call['model']} stage {call['stage']} B,G,M,N,D={call['shape']}{bias}"
 
 
 def sra_kernels(torch):
@@ -1604,25 +1658,25 @@ def sra_kernels(torch):
         dict(model=t["model"], stage=t["stage"], depth=t["depth"], shape=t["gsa"])
         for t in twins_stages(128)]
     for call in calls:
-        q, k, v, do = sra_inputs(torch, *call["shape"])
+        q, k, v, do, extra = sra_inputs(torch, *call["shape"], call.get("extra"))
         what = sra_what(call)
         with torch.no_grad():
-            out = fa.fused_attention(q, k, v)
+            out = fa.fused_attention(q, k, v, extra)
         torch.cuda.synchronize()
-        err = check_close(torch, "fused_attention", out, fa.fused_attention_reference(q, k, v),
-                          what + " (serving)")
-        out, saved = fa.fused_attention_fwd(q, k, v)
-        grads = fa.fused_attention_bwd(saved, do)[:3]
-        again = fa.fused_attention_bwd(saved, do)[:3]
+        err = check_close(torch, "fused_attention", out,
+                          fa.fused_attention_reference(q, k, v, extra), what + " (serving)")
+        out, saved = fa.fused_attention_fwd(q, k, v, extra)
+        grads = fa.fused_attention_bwd(saved, do)
+        again = fa.fused_attention_bwd(saved, do)
         torch.cuda.synchronize()
         scale = saved.scale
-        out_p, lse_p = fa.attention_fwd_reference(q, k, v, None, scale)
+        out_p, lse_p = fa.attention_fwd_reference(q, k, v, extra, scale)
         err = max(err, check_close(torch, "fused_attention", out, out_p, what + " (training)"))
         check_close(torch, "fused_attention", saved.lse, lse_p, what + " lse")
         worst["out"] = max(worst["out"], err)
-        plain = fa.attention_bwd_reference(q, k, v, None, lse_p, do, scale)[:3]
-        compare_grads(torch, "fused_attention " + what, ("dq", "dk", "dv"), grads, again,
-                      plain, worst)
+        plain = fa.attention_bwd_reference(q, k, v, extra, lse_p, do, scale)
+        compare_grads(torch, "fused_attention " + what, ("dq", "dk", "dv", "dextra"), grads,
+                      again, plain, worst)
         if call["model"] != "odd":
             B, G, M, N, D = call["shape"]
             f_ms = median_ms(torch, lambda: fa.fused_attention_fwd(q, k, v))
@@ -1636,8 +1690,8 @@ def sra_kernels(torch):
             lf_ms = median_ms(torch, lambda: F_.scaled_dot_product_attention(q, k, v))
             lb_ms = median_ms(torch, lambda: torch.autograd.grad(lib, leaves, do,
                                                                  retain_graph=True))
-            fb, fby = bound(*sra_fwd_work(*call["shape"], saves=True))
-            bb, bby = bound(*sra_bwd_work(*call["shape"]))
+            fb, fby = bound(*sra_fwd_work(*call["shape"], saves=True), tensor_cores=True)
+            bb, bby = bound(*sra_bwd_work(*call["shape"]), tensor_cores=True)
             log(f"kernels: fused_attention {what} (median of 20, CUDA events): kernel "
                 f"fwd(lse) {f_ms:.3f} + bwd {b_ms:.3f} ms; plain fwd {pf_ms:.3f} + bwd "
                 f"{pb_ms:.3f} ms; scaled_dot_product_attention fwd {lf_ms:.3f} + its "
@@ -1652,7 +1706,7 @@ def sra_kernels(torch):
                             "plain_ms": pb_ms, "bound_ms": bb, "bound_by": bby,
                             "library_ms": lb_ms})
             del leaves, lib
-        del q, k, v, do, out, saved, grads, again, plain, out_p, lse_p
+        del q, k, v, do, extra, out, saved, grads, again, plain, out_p, lse_p
     return fwd_rec, bwd_rec
 
 
@@ -1769,14 +1823,18 @@ def qkv_inputs(torch, B, N, H, D, extra_shape=None, seed=0):
 def qkv_calls():
     """(label, B, N, H, D, the bias or a recipe for it) of every call 3q
     checks: odd shapes without a bias (D = 64) and with each bias form
-    (D = 32), ViT-S/16's training call, and Swin-S's four stages at 64
-    images under a forced 'fused' (the grouped bias of a shifted layer)."""
+    (D = 32; two at D = 64), ViT-S/16's training call, and Swin-S's four
+    stages at 64 images under a forced 'fused' (the grouped bias of a
+    shifted layer)."""
     B, N, H = 3, 37, 2
     calls = [("odd, no bias", B, N, H, 64, None),
              ("odd, [N, N] bias", B, N, H, 32, (N, N)),
              ("odd, [H, N, N] bias", B, N, H, 32, (H, N, N)),
              ("odd, [1, N, N] bias", B, N, H, 32, (1, N, N)),
              ("odd, grouped [3, H, N, N] bias", 6, N, H, 32, (3, H, N, N)),
+             ("odd, [H, N, N] bias, heads 64 wide", B, N, H, 64, (H, N, N)),
+             ("odd, grouped [2, H, 150, 150] bias, heads 64 wide", 4, 150, H, 64,
+              (2, H, 150, 150)),
              ("ViT-S/16 train", 128, 197, 6, 64, None)]
     for call in swin_stages(64):
         rows, m, _, heads, D, _ = call["shape"]
@@ -1847,8 +1905,8 @@ def qkv_kernels(torch):
                 q, k, v, attn_mask=mask, scale=saved.scale))
             lb_ms = median_ms(torch, lambda: torch.autograd.grad(lib, leaf, dlib,
                                                                  retain_graph=True))
-            fb, fby = bound(*qkv_fwd_work(B, N, H, D, groups, saves=True))
-            bb, bby = bound(*qkv_bwd_work(B, N, H, D, groups))
+            fb, fby = bound(*qkv_fwd_work(B, N, H, D, groups, saves=True), tensor_cores=True)
+            bb, bby = bound(*qkv_bwd_work(B, N, H, D, groups), tensor_cores=True)
             log(f"kernels: fused_attention_qkv {what} (median of 20, CUDA events): kernel "
                 f"fwd(lse) {f_ms:.3f} + bwd {b_ms:.3f} ms; plain fwd {pf_ms:.3f} + bwd "
                 f"{pb_ms:.3f} ms; scaled_dot_product_attention fwd {lf_ms:.3f} + its "

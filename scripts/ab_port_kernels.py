@@ -21,10 +21,12 @@ Halo-S stage 1 at 128 images; B8 ``fused_attention_block`` forward with
 saves and backward at ViT-S B=128 (no bias); where the tree has it, B9
 ``fused_swin_layer`` forward with saves and backward at Swin-S stages 1 and
 3 at 64 images (shifted: the grouped bias of 32 / 2 groups, both per-sample
-row scales).  Prints the card, ptxas's registers and spills of every kernel
-compiled from fused_layer.cu, fused_layer_bwd.cu and fused_layer1_bwd.cu
-(B1, B2, B3, B7, B8) when this process builds the tree, and one JSON line.
-Needs CUDA; imports no JAX.
+row scales); B6 ``fused_attention`` forward with lse and backward at PVT-S
+stages 1 and 3 at 128 images (the models' strided head views).  Prints the
+card, ptxas's registers and spills of every kernel compiled from
+fused_layer.cu, fused_layer_bwd.cu, fused_layer1_bwd.cu, fused_attention.cu
+and fused_attention_qkv.cu (B1, B2, B3, B6, B7, B8) when this process
+builds the tree, and one JSON line.  Needs CUDA; imports no JAX.
 """
 
 import json
@@ -155,13 +157,27 @@ def main() -> None:
         out[name + " fwd"] = ms(lambda: fs.fused_swin_layer_fwd(*a, H, extra, r, r, **kw))
         out[name + " bwd"] = ms(lambda: fs.fused_swin_layer_bwd(saved, dz))
         del saved
+    for name, (G, M, N) in (("B6 PVT1", (1, 3136, 49)), ("B6 PVT3", (5, 196, 49))):
+        g = torch.Generator("cuda").manual_seed(3)
+        q, kv, do = (torch.randn(128, rows, c * G * 64, device="cuda", generator=g)
+                     for rows, c in ((M, 1), (N, 2), (M, 1)))
+
+        def heads(t):
+            return t.reshape(128, -1, G, 64).permute(0, 2, 1, 3)
+
+        q, k, v, do = heads(q), heads(kv[..., :G * 64]), heads(kv[..., G * 64:]), heads(do)
+        _, saved = fa.fused_attention_fwd(q, k, v)
+        out[name + " fwd"] = ms(lambda: fa.fused_attention_fwd(q, k, v))
+        out[name + " bwd"] = ms(lambda: fa.fused_attention_bwd(saved, do))
+        del saved
     registers, entry = {}, None
     for line in _build.BUILD_LOG.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
         elif ("registers" in line or "spill" in line) and entry and any(
                 f"_{src}_cu_" in entry for src in ("fused_layer", "fused_layer_bwd",
-                                                  "fused_layer1_bwd")):
+                                                  "fused_layer1_bwd", "fused_attention",
+                                                  "fused_attention_qkv")):
             source = entry.split("_cu_")[0].split("__")[-1].split("_", 2)[2]
             key = f"{source} {entry.split('_cu_')[1][8:]}"
             registers[key] = (registers.get(key, "") + " " + line.split(": ")[-1]).strip()

@@ -53,12 +53,11 @@ CONF = os.path.join(ROOT, "configs", "vit-s-16.conf")
 GROUPS = (("at::native", "other (elementwise, reductions, conv)"),
           ("gemm_kernel<true", "hand-written GEMM, split-K (weight gradients)"),
           ("gemm_kernel", "hand-written GEMM, row-major"),
-          ("mha_bwd", "hand-written reduced-kv attention backward"),
-          ("mha_fwd", "hand-written reduced-kv attention forward"),
           ("halo_attn_bwd", "hand-written halo attention backward"),
           ("halo_attn_fwd", "hand-written halo attention forward"),
           ("halo_fold", "other hand-written"),
           ("attn_bwd", "hand-written attention backward"),
+          ("attn_fwd", "hand-written attention forward"),
           ("attention_kernel", "hand-written attention forward"),
           ("splitk_reduce", "other hand-written"), ("colsum", "other hand-written"),
           ("ln_", "other hand-written"), ("attn_delta", "other hand-written"),

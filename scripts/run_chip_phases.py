@@ -1,0 +1,46 @@
+#!/usr/bin/env python3
+"""Run a few of chip_smoke.py's phases on the GPU, for a short check of a
+kernel change: the probe, the build (ptxas's registers and spills, the
+tensor-core instruction counts) and the named kernel phases, each printing
+the same lines as in the whole script, then each timed record as one JSON
+line.
+
+    python3 scripts/run_chip_phases.py            # 3s and 3q
+    python3 scripts/run_chip_phases.py 3s         # the reduced-kv attention only
+
+Phases: ``3s`` (the reduced-kv attention, B6) and ``3q`` (the packed-qkv
+attention, B3).  Exits non-zero when a phase fails.  Needs CUDA; imports no
+JAX.
+"""
+
+import json
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PHASES = {"3s": "sra_kernels", "3q": "qkv_kernels"}
+
+
+def main() -> None:
+    which = sys.argv[1:] or list(PHASES)
+    unknown = [p for p in which if p not in PHASES]
+    if unknown:
+        raise SystemExit(f"unknown phases {unknown}; choose from {sorted(PHASES)}")
+    sys.path.insert(0, ROOT)
+    import torch
+
+    import chip_smoke
+
+    t0 = time.perf_counter()
+    chip_smoke.probe(torch)
+    chip_smoke.build()
+    for phase in which:
+        fwd, bwd = getattr(chip_smoke, PHASES[phase])(torch)
+        for rec in fwd + bwd:
+            print(json.dumps({"phase": phase, **rec}), flush=True)
+    print(f"phases {' '.join(which)} ok in {time.perf_counter() - t0:.1f} s")
+
+
+if __name__ == "__main__":
+    main()

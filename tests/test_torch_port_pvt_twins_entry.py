@@ -12,11 +12,12 @@ of the reduced-kv attention and of the attention layer with a bias.
   with a bias, forward and backward: with the kernel library replaced by
   ctypes callbacks of the declared signatures (this machine has no card),
   each call passes every argument the C entry declares — the strides of
-  the head views, the query chunks of the dk / dv pass, the bias, its
-  group count, its gradient buffers — and counts one launch; what the
-  kernels do not take raises.
+  the head views, the query chunks of the backward, the bias (B6's in each
+  form, read through its (g, m) strides), its group count, its gradient
+  buffers — and counts one launch; what the kernels do not take raises.
 - On a card (marker ``cuda``): both against their plain versions, the
-  backward bit-identical across two runs.
+  backward bit-identical across two runs; B6 also with each bias form and
+  its gradient.
 """
 
 import contextlib
@@ -153,37 +154,47 @@ def test_cuda_fused_attention_passes_the_views_strides(monkeypatch):
         fwd = lib.calls["vtx_fused_attention_fwd"]
         saved = fa.SraSaved(q, k, v, None, out, lse, 0.3)
         do = torch.zeros(2, 10, 4, 8).permute(0, 2, 1, 3)
-        dq, dk, dv = fa._cuda_bwd(saved, do)
+        dq, dk, dv, dextra = fa._cuda_bwd(saved, do)
         bwd = lib.calls["vtx_fused_attention_bwd"]
     assert (fa.LAUNCHES, fa.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
     # no copy: the views' pointers and (b, g, row) strides
     assert fwd[:4] == (q.data_ptr(), 10 * 32, 8, 32)
     assert fwd[4:8] == (k.data_ptr(), 3 * 64, 8, 64)
     assert fwd[8] == v.data_ptr() == k.data_ptr() + 32 * 4
-    assert fwd[12:19] == (out.data_ptr(), lse.data_ptr(), 2, 4, 10, 3, 8)
-    assert abs(fwd[19] - 0.3) < 1e-7
+    assert fwd[12:15] == (None, 0, 0)  # no bias
+    assert fwd[15:22] == (out.data_ptr(), lse.data_ptr(), 2, 4, 10, 3, 8)
+    assert abs(fwd[22] - 0.3) < 1e-7
     # out and dq in the [B, M, G, D] memory order, returned as [B, G, M, D]
     assert out.shape == dq.shape == (2, 4, 10, 8)
     assert out.stride() == dq.stride() == (320, 8, 32, 1) and lse.shape == (2, 4, 10)
-    assert bwd[14:18] == (do.data_ptr(), *do.stride()[:3])
+    assert bwd[15:17] == (out.data_ptr(), lse.data_ptr())
+    assert bwd[17:21] == (do.data_ptr(), *do.stride()[:3])
     chunks = fa.dkdv_chunks(2, 4, 10, 3)
-    assert bwd[20] == chunks and 1 <= chunks <= 10
-    assert bwd[21:23] == (dq.data_ptr(), dk.data_ptr()) and bwd[23:28] == (2, 4, 10, 3, 8)
+    # one query tile and one key tile: no partials
+    assert bwd[21:25] == (None, None, chunks, None) and chunks == 1
+    assert bwd[25:28] == (dq.data_ptr(), dk.data_ptr(), None) and bwd[28:33] == (2, 4, 10, 3, 8)
     assert dk.shape == dv.shape == (2, 4, 3, 8) and dv.data_ptr() > dk.data_ptr()
+    assert dextra is None
 
 
 def test_cuda_fused_attention_serving_call_saves_nothing(monkeypatch):
     q, k, v = head_views(N=1)
     with fake_cuda(monkeypatch) as lib:
         out, lse = fa._cuda_fwd(q, k, v, None, 0.3, save=False)
-    assert lib.calls["vtx_fused_attention_fwd"][13] is None and lse is None
+    assert lib.calls["vtx_fused_attention_fwd"][16] is None and lse is None
     assert out.shape == q.shape
 
 
 def test_cuda_fused_attention_refuses_what_the_kernels_do_not_take(monkeypatch):
     q, k, v = head_views()
-    with fake_cuda(monkeypatch), pytest.raises(NotImplementedError, match="ROADMAP B6"):
-        fa._cuda_fwd(q, k, v, torch.zeros(10, 3), 0.1, save=False)
+    with fake_cuda(monkeypatch), pytest.raises(ValueError, match="does not broadcast"):
+        fa._cuda_fwd(q, k, v, torch.zeros(10, 4), 0.1, save=False)
+    with fake_cuda(monkeypatch), pytest.raises(NotImplementedError, match="float32"):
+        fa._cuda_fwd(q, k, v, torch.zeros(10, 3, dtype=torch.float64), 0.1, save=False)
+    with fake_cuda(monkeypatch) as lib:  # a bias the kernels take passes its pointer
+        extra = torch.zeros(10, 3)
+        fa._cuda_fwd(q, k, v, extra, 0.1, save=False)
+    assert lib.calls["vtx_fused_attention_fwd"][12:15] == (extra.data_ptr(), 0, 3)
     wq, wk, wv = head_views(D=72)
     with fake_cuda(monkeypatch), pytest.raises(NotImplementedError, match="64 wide"):
         fa._cuda_fwd(wq, wk, wv, None, 0.1, save=False)
@@ -191,6 +202,46 @@ def test_cuda_fused_attention_refuses_what_the_kernels_do_not_take(monkeypatch):
         fa._cuda_fwd(q.double(), k.double(), v.double(), None, 0.1, save=False)
     with fake_cuda(monkeypatch), pytest.raises(ValueError, match="k and v"):
         fa._cuda_fwd(q, k, v[:, :, :2], None, 0.1, save=False)
+
+
+@pytest.mark.parametrize("form", ["mn", "1mn", "gmn", "g1n"])
+@pytest.mark.parametrize("need_dextra", [False, True])
+def test_cuda_fused_attention_passes_the_bias_and_its_gradient(monkeypatch, form, need_dextra):
+    """Each form of the bias goes to the kernels as a [G, M, N] view (stride
+    0 where it broadcasts, no copy), and with its gradient asked the
+    backward hands over the dS buffer and dextra [G, M, N]."""
+    q, k, v = head_views(B=2, M=10, N=3, G=4, D=8)
+    shape = {"mn": (10, 3), "1mn": (1, 10, 3), "gmn": (4, 10, 3), "g1n": (4, 1, 3)}[form]
+    extra = torch.randn(*shape)
+    strides = {"mn": (0, 3), "1mn": (0, 3), "gmn": (30, 3), "g1n": (3, 0)}[form]
+    with fake_cuda(monkeypatch) as lib:
+        out, lse = fa._cuda_fwd(q, k, v, extra, 0.3, save=True)
+        fwd = lib.calls["vtx_fused_attention_fwd"]
+        saved = fa.SraSaved(q, k, v, extra, out, lse, 0.3)
+        dq, dk, dv, dextra = fa._cuda_bwd(saved, torch.zeros_like(out), need_dextra)
+        bwd = lib.calls["vtx_fused_attention_bwd"]
+    assert fwd[12:15] == (extra.data_ptr(), *strides)
+    assert bwd[12:15] == (extra.data_ptr(), *strides)
+    if need_dextra:
+        assert dextra.shape == (4, 10, 3) and bwd[27] == dextra.data_ptr()
+        assert bwd[24] is not None  # the dS buffer
+        assert fa.extra_grad(dextra, extra).shape == extra.shape
+    else:
+        assert dextra is None and bwd[24] is None and bwd[27] is None
+
+
+def test_cuda_fused_attention_backward_partials_past_one_tile(monkeypatch):
+    """More than 64 keys: dq goes through key-tile partials; few (b, g) pairs
+    and many query tiles: dk / dv through query-chunk partials."""
+    q, k, v = head_views(B=1, M=300, N=70, G=1, D=8)
+    with fake_cuda(monkeypatch) as lib:
+        out, lse = fa._cuda_fwd(q, k, v, None, 0.3, save=True)
+        saved = fa.SraSaved(q, k, v, None, out, lse, 0.3)
+        fa._cuda_bwd(saved, torch.zeros_like(out))
+        bwd = lib.calls["vtx_fused_attention_bwd"]
+    chunks = fa.dkdv_chunks(1, 1, 300, 70)
+    assert chunks == 5  # five query tiles, one chunk each
+    assert bwd[21] is not None and bwd[22] is not None and bwd[23] == chunks
 
 
 def layer_inputs(B=4, N=18, C=32, H=2, D=16, seed=0):
@@ -276,6 +327,29 @@ def test_cuda_fused_attention_matches_plain(shape):
     plain = fa.attention_bwd_reference(q, k, v, None, lse_p, do, saved.scale)[:3]
     torch.testing.assert_close(out, out_p, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(saved.lse, lse_p, atol=1e-4, rtol=1e-4)
+    for g, g2, p in zip(grads, again, plain):
+        assert torch.equal(g, g2) and _close(g, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["mn", "1mn", "gmn"])
+def test_cuda_fused_attention_with_bias_matches_plain(form):
+    """B6 with each bias form on the card: forward within 1e-4, dq / dk /
+    dv / dextra within 1e-3·max(1, max|plain|), bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    B, G, M, N, D = 2, 3, 77, 49, 64
+    q, k, v = (t.cuda() for t in head_views(B, M, N, G, D))
+    shape = {"mn": (M, N), "1mn": (1, M, N), "gmn": (G, M, N)}[form]
+    gen = torch.Generator("cuda").manual_seed(2)
+    extra = 0.5 * torch.randn(*shape, device="cuda", generator=gen)
+    do = torch.randn(B, G, M, D, device="cuda", generator=gen)
+    out, saved = fa.fused_attention_fwd(q, k, v, extra)
+    grads = fa.fused_attention_bwd(saved, do)
+    again = fa.fused_attention_bwd(saved, do)
+    out_p, lse_p = fa.attention_fwd_reference(q, k, v, extra, saved.scale)
+    plain = fa.attention_bwd_reference(q, k, v, extra, lse_p, do, saved.scale)
+    torch.testing.assert_close(out, out_p, atol=1e-4, rtol=1e-4)
     for g, g2, p in zip(grads, again, plain):
         assert torch.equal(g, g2) and _close(g, p)
 

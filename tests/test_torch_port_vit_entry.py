@@ -127,11 +127,15 @@ def test_qkv_cuda_forward_and_backward_pass_every_argument(monkeypatch):
 def test_qkv_cuda_refuses_what_the_kernels_do_not_take(monkeypatch):
     qkv, extra, _ = (torch.from_numpy(a) for a in qkv_inputs(37, 64, "grouped"))
     extra_g, _ = fa.extra_groups(extra, B, H, 37)
-    with fake_cuda(monkeypatch), pytest.raises(NotImplementedError, match="ROADMAP B"):
-        fa._cuda_qkv_fwd(qkv, H, extra_g, 0.125, save=False)  # bias with D = 64
+    with fake_cuda(monkeypatch) as lib:  # a bias with heads 64 wide passes its pointer
+        fa._cuda_qkv_fwd(qkv, H, extra_g, 0.125, save=False)
+    assert lib.calls["vtx_fused_attention_qkv_fwd"][1:3] == (extra_g.data_ptr(), 2)
     wide = torch.zeros(B, 37, 3 * H * 80)
     with fake_cuda(monkeypatch), pytest.raises(NotImplementedError, match="64 wide"):
         fa._cuda_qkv_fwd(wide, H, None, 0.1, save=False)
+    wide_g, _ = fa.extra_groups(torch.zeros(2, H, 37, 37), B, H, 37)
+    with fake_cuda(monkeypatch), pytest.raises(NotImplementedError, match="64 wide"):
+        fa._cuda_qkv_fwd(wide, H, wide_g, 0.1, save=False)  # heads over 64 with a bias
     with fake_cuda(monkeypatch), pytest.raises(ValueError, match="contiguous"):
         fa._cuda_qkv_fwd(qkv.transpose(0, 1), H, None, 0.1, save=False)
     with fake_cuda(monkeypatch), pytest.raises(NotImplementedError, match="float32"):
@@ -140,6 +144,27 @@ def test_qkv_cuda_refuses_what_the_kernels_do_not_take(monkeypatch):
                     for a in qkv_inputs(37, 32, "grouped"))
     with fake_cuda(monkeypatch), pytest.raises(ValueError, match="extra must be"):
         fa._cuda_qkv_fwd(small, H, torch.zeros(3, H, 37, 37), 0.1, save=False)
+
+
+@pytest.mark.parametrize("N", [37, 197])
+def test_qkv_cuda_passes_the_wide_bias_and_its_gradient(monkeypatch, N):
+    """The grouped bias with heads 64 wide, forward and backward: its
+    pointer and groups, the dS buffer and dextra; past 64 tokens the dq
+    key-tile partials."""
+    qkv, extra, do = (torch.from_numpy(a) for a in qkv_inputs(N, 64, "grouped"))
+    extra_g, _ = fa.extra_groups(extra, B, H, N)
+    with fake_cuda(monkeypatch) as lib:
+        out, lse = fa._cuda_qkv_fwd(qkv, H, extra_g, 0.125, save=True)
+        fwd = lib.calls["vtx_fused_attention_qkv_fwd"]
+        saved = fa.QkvSaved(qkv, extra_g, out, lse, H, 0.125)
+        dqkv, dextra = fa._cuda_qkv_bwd(saved, do, need_dextra=True)
+        bwd = lib.calls["vtx_fused_attention_qkv_bwd"]
+    assert fwd[1:5] == (extra_g.data_ptr(), 2, out.data_ptr(), lse.data_ptr())
+    assert fwd[5:9] == (B, N, H, 64)
+    assert bwd[1:3] == (extra_g.data_ptr(), 2) and bwd[7] is not None
+    assert (bwd[6] is not None) == (N > 64)  # dq partials past one key tile
+    assert bwd[8:10] == (dqkv.data_ptr(), dextra.data_ptr()) and bwd[10:14] == (B, N, H, 64)
+    assert dextra.shape == (2, H, N, N)
 
 
 # ---------------------------------------------------------------------------
@@ -167,6 +192,28 @@ def test_qkv_cuda_kernels_match_plain(form):
         if p is None:
             assert k is None
             continue
+        assert torch.equal(k, k2)
+        assert (k.cpu() - p).abs().max().item() <= 1e-3 * max(1.0, p.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [37, 150])
+@pytest.mark.parametrize("form", ["hnn", "grouped"])
+def test_qkv_cuda_kernels_match_plain_with_a_wide_bias(form, N):
+    """The bias with heads 64 wide on the card (one and three key tiles):
+    forward within 1e-4, dqkv and dextra within 1e-3·max(1, max|plain|),
+    bit-identical across two runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    qkv, extra, do = qkv_inputs(N, 64, form)
+    q, do, e = (torch.from_numpy(a).cuda() for a in (qkv, do, extra))
+    out, saved = fa.fused_attention_qkv_fwd(q, H, e)
+    grads = fa.fused_attention_qkv_bwd(saved, do)
+    again = fa.fused_attention_qkv_bwd(saved, do)
+    out_p, saved_p = fa.fused_attention_qkv_fwd(q.cpu(), H, e.cpu())
+    plain = fa.fused_attention_qkv_bwd(saved_p, do.cpu())
+    torch.testing.assert_close(out.cpu(), out_p, atol=1e-4, rtol=1e-4)
+    for k, k2, p in zip(grads, again, plain):
         assert torch.equal(k, k2)
         assert (k.cpu() - p).abs().max().item() <= 1e-3 * max(1.0, p.abs().max().item())
 

@@ -502,8 +502,30 @@ attn_delta_kernel(const float* __restrict__ dacc, const float* __restrict__ acc,
 }
 
 // ---------------------------------------------------------------------------
+// The grouped bias's gradient: dextra[g, h, q, k] = Σ_{r < R} ds[g·R + r,
+// h, q, k], R = B / G rows per group, summed in r order (one thread per
+// output element); CYCLIC (B9): Σ_{r < R} ds[r·G + g, h, q, k] over the
+// R = B / G samples, in sample order.
+// ---------------------------------------------------------------------------
+
+template <bool CYCLIC>
+__global__ void __launch_bounds__(EW_THREADS)
+group_sum_kernel(const float* __restrict__ ds, int R, long long per_row,
+                 long long total, float* __restrict__ out) {
+  const long long e = (long long)blockIdx.x * EW_THREADS + threadIdx.x;
+  if (e >= total) return;
+  const long long g = e / per_row, rem = e % per_row;
+  // total = G·per_row: the stride from one sample's pair g to the next's
+  const float* src = ds + (CYCLIC ? g : g * R) * per_row + rem;
+  const long long step = CYCLIC ? total : per_row;
+  float s = 0.f;
+  for (int r = 0; r < R; ++r) s += src[(long long)r * step];
+  out[e] = s;
+}
+
+// ---------------------------------------------------------------------------
 // Attention pieces shared by the attention kernels of fused_layer.cu,
-// fused_layer_bwd.cu, fused_halo.cu and fused_attention.cu.  Each kernel
+// fused_layer_bwd.cu and fused_halo.cu.  Each kernel
 // holds one query (or one key) per thread with its vectors zero-padded to
 // DH and stages the other side, a tile of KT rows, in shared memory; these
 // are the per-thread steps, so each kernel keeps only its own addressing

@@ -5,8 +5,6 @@
 //       z = x + r ⊙ OutProj(MHSA(QkvProj(LN1(x))))
 //   vision_transformers_tpu/ops/fused_layer1.py:91   _l1_fwd_kernel
 //       o = z + (silu(LN2(z)·W1 + b1)·W2 + b2)
-//   vision_transformers_tpu/ops/fused_attention.py:313   _qkv_fwd_kernel
-//       out = softmax(q·kᵀ·scale + extra)·v per head, from the packed qkv
 //   vision_transformers_tpu/ops/fused_layer.py:701   _ff_fwd_kernel
 //       o = x + r ⊙ (act(LN(x)·W1 + b1)·W2 + b2), act silu or tanh-gelu
 //   vision_transformers_tpu/ops/fused_block.py:57   _blk_fwd_kernel
@@ -15,7 +13,6 @@
 // launches on the caller's stream:
 //   vtx_fused_attention_layer_fwd   = ln_rows → gemm(+bqkv) → attention → gemm(+bout, ×r, +x)
 //   vtx_fused_transformer_layer_fwd = the above → ln_rows → gemm(+b1, silu) → gemm(+b2, ×r₂, +z)
-//   vtx_fused_attention_qkv_fwd     = attention alone, [B, N, 3·H·D] → [B, N, H·D]
 //   vtx_fused_ff_layer_fwd          = ln_rows → gemm(+b1, act) → gemm(+b2, ×r, +x)
 //   vtx_fused_attention_block_fwd   = gemm(+bqkv) → attention → gemm(+bout)
 // The Pallas kernels keep every intermediate in VMEM; here the LN output,
@@ -48,20 +45,13 @@
 // rings (the tensor cores are ~15x the f32 FMA rate), and fusing each op's
 // launch sequence into fewer launches so intermediates stay on chip.
 //
-// B3 (the attention alone, ViT's training path with dropout and Swin's
-// forced 'fused' path) is the attention kernel above with its own entry: it
-// reads the projection output [B, N, 3·H·D] as it lies and writes
-// [B, N, H·D], the out projection's input, so nothing is transposed on
-// either side, and keeps lse for its backward where the Pallas kernel
-// recomputes the softmax.  At ViT-S/16 (B = 128, N = 197, H = 6, D = 64) it
-// does 4·B·H·N²·D = 7.6 GFLOP over 58 MB of qkv and out: bound by the f32
-// FMA rate (~0.11 ms at 67 TFLOP/s) against ~0.02 ms of bytes.  B7 (the FF
-// residual branch alone, under the FF-kernel switch) is the whole layer's
-// FF half: LN, a GEMM with b₁ and the activation (silu in its epilogue when
-// nothing is saved, else a separate elementwise pass writing act(hid)), and
-// a GEMM with b₂, the row scale and the residual; at ViT-S/16's 25,216
-// rows its 4·M·C·F = 59.5 GFLOP of GEMM bound it (~0.9 ms at the f32 FMA
-// rate).
+// B7 (the FF residual branch alone, under the FF-kernel switch) is the
+// whole layer's FF half: LN, a GEMM with b₁ and the activation (silu in its
+// epilogue when nothing is saved, else a separate elementwise pass writing
+// act(hid)), and a GEMM with b₂, the row scale and the residual; at
+// ViT-S/16's 25,216 rows its 4·M·C·F = 59.5 GFLOP of GEMM bound it (~0.9 ms
+// at the f32 FMA rate).  B3 (the packed-qkv attention alone) has its own
+// tensor-core kernels in fused_attention_qkv.cu.
 //
 // B8 (the attention block, ViT's and Swin's path under a 'block' force) is
 // the attention half without its LN, residual and row scale: the same
@@ -335,18 +325,6 @@ extern "C" int vtx_fused_transformer_layer_fwd(
       groups, rs_attn, rs_ff, u, qkv, acc, z, hid, af, mu1, rstd1, lse, mu2,
       rstd2, out, B, N, C, H, D, F, scale, eps,
       static_cast<cudaStream_t>(stream)));
-}
-
-// B3: attention straight from the packed projection qkv [B, N, 3·H·D] into
-// out [B, N, H·D], no relayout on either side, and the row log-sum-exp lse
-// [B, H, N] its backward (fused_layer_bwd.cu) reads when lse is non-null.
-// extra [G, H, N, N] (groups = G; heads up to 32 wide) may be null; heads
-// without it up to 64 wide.
-extern "C" int vtx_fused_attention_qkv_fwd(
-    const float* qkv, const float* extra, int groups, float* out, float* lse,
-    int B, int N, int H, int D, float scale, void* stream) {
-  return static_cast<int>(launch_attention(qkv, extra, groups, out, lse, B, N, H, D,
-                                           scale, static_cast<cudaStream_t>(stream)));
 }
 
 // B7: the pre-LN FF residual branch out = x + rs ⊙ (act(LN(x)·W₁ + b₁)·W₂ + b₂)

@@ -5,8 +5,6 @@
 //
 // Replaces the TPU (Pallas) kernels
 //   vision_transformers_tpu/ops/fused_layer.py:183   _attn_layer_bwd_kernel
-//   vision_transformers_tpu/ops/fused_attention.py:342   _qkv_bwd_kernel
-//       (B3's backward: step 3 below alone, vtx_fused_attention_qkv_bwd)
 //   vision_transformers_tpu/ops/fused_block.py:100   _blk_bwd_kernel
 //       (B8's backward: steps 1-5 without the row scale and the LN,
 //       vtx_fused_attention_block_bwd)
@@ -259,27 +257,8 @@ attn_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ dacc
   }
 }
 
-// ---------------------------------------------------------------------------
-// 3d. dextra[g, h, q, k] = Σ_{r < R} ds[g·R + r, h, q, k], R = B / G rows
-//     per group, summed in r order (one thread per output element); CYCLIC
-//     (B9): Σ_{r < R} ds[r·G + g, h, q, k] over the R = B / G samples, in
-//     sample order.
-// ---------------------------------------------------------------------------
-
-template <bool CYCLIC>
-__global__ void __launch_bounds__(EW_THREADS)
-group_sum_kernel(const float* __restrict__ ds, int R, long long per_row,
-                 long long total, float* __restrict__ out) {
-  const long long e = (long long)blockIdx.x * EW_THREADS + threadIdx.x;
-  if (e >= total) return;
-  const long long g = e / per_row, rem = e % per_row;
-  // total = G·per_row: the stride from one sample's pair g to the next's
-  const float* src = ds + (CYCLIC ? g : g * R) * per_row + rem;
-  const long long step = CYCLIC ? total : per_row;
-  float s = 0.f;
-  for (int r = 0; r < R; ++r) s += src[(long long)r * step];
-  out[e] = s;
-}
+// 3d. dextra[g] = the ordered sum of dS over the group's rows: common.cuh's
+//     group_sum_kernel
 
 template <int DH, bool HAS_EXTRA, bool CYCLIC = false>
 cudaError_t launch_attn_bwd(const float* qkv, const float* dacc, const float* lse,
@@ -491,23 +470,6 @@ extern "C" int vtx_fused_attention_layer_bwd(
       dsbuf, wpart, splits_out, splits_qkv, cpart, dx, dg, db, dwqkv, dwqkv_s0,
       dwqkv_s1, dbqkv, dwout, dwout_s0, dwout_s1, dbout, drs, dextra, B, N, C, H,
       D, scale, static_cast<cudaStream_t>(stream)));
-}
-
-// B3's backward (vision_transformers_tpu/ops/fused_attention.py:342,
-// _qkv_bwd_kernel): steps 3a-3d alone on the packed projection.  qkv
-// [B, N, 3·H·D], the forward's out [B, N, H·D] and lse [B, H, N], dout
-// [B, N, H·D]; writes dqkv [B, N, 3·H·D] (q-heads | k-heads | v-heads) in
-// the layout of qkv.  Workspace delta [B·H·N] and, with extra and a
-// non-null dextra [G, H, N, N], dsbuf [B, H, N, N]: dextra[g] is the sum
-// of dS over the group's rows in row order (no float atomics, so it is
-// bit-identical from run to run).  extra / dsbuf / dextra may be null.
-extern "C" int vtx_fused_attention_qkv_bwd(
-    const float* qkv, const float* extra, int groups, const float* out,
-    const float* lse, const float* dout, float* delta, float* dsbuf, float* dqkv,
-    float* dextra, int B, int N, int H, int D, float scale, void* stream) {
-  return static_cast<int>(attention_core_bwd(
-      qkv, dout, out, lse, extra, groups, delta, dsbuf, dqkv, dextra, B, N, H, D,
-      scale, static_cast<cudaStream_t>(stream)));
 }
 
 // B8's backward (vision_transformers_tpu/ops/fused_block.py:100,

@@ -191,6 +191,7 @@ _SIGNATURES = {
         _P, _L, _L, _L,          # q, its (b, g, row) strides
         _P, _L, _L, _L,          # k, its strides
         _P, _L, _L, _L,          # v, its strides
+        _P, _L, _L,              # extra (nullable), its (g, m) strides
         _P, _P,                  # out, lse (nullable save)
         _I, _I, _I, _I, _I,      # B, G, M, N, D
         _F, _P,                  # scale, stream
@@ -199,10 +200,12 @@ _SIGNATURES = {
         _P, _L, _L, _L,          # q, its strides
         _P, _L, _L, _L,          # k, its strides
         _P, _L, _L, _L,          # v, its strides
+        _P, _L, _L,              # extra (nullable), its (g, m) strides
         _P, _P,                  # out, lse
         _P, _L, _L, _L,          # do, its strides
-        _P, _P, _I,              # delta, dk / dv partials (workspace), chunks
-        _P, _P,                  # dq, dkv
+        _P, _P, _I,              # dq / dk-dv partials (workspace, nullable), chunks
+        _P,                      # dsbuf (workspace, nullable)
+        _P, _P, _P,              # dq, dkv, dextra (nullable)
         _I, _I, _I, _I, _I,      # B, G, M, N, D
         _F, _P,                  # scale, stream
     ],
@@ -215,7 +218,7 @@ _SIGNATURES = {
     "vtx_fused_attention_qkv_bwd": [
         _P, _P, _I,              # qkv, extra (nullable), groups
         _P, _P, _P,              # out, lse, dout
-        _P, _P,                  # delta, dsbuf (workspace; dsbuf nullable)
+        _P, _P,                  # dq partials, dsbuf (workspace, nullable)
         _P, _P,                  # dqkv, dextra (nullable)
         _I, _I, _I, _I,          # B, N, H, D
         _F, _P,                  # scale, stream

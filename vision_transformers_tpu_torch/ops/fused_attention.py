@@ -20,11 +20,13 @@ A CPU tensor runs the plain torch versions, :func:`attention_fwd_reference`
 (the cast points of the JAX ``_fwd_kernel``, :67-89: scores f32, the
 max-subtracted softmax in f32, then p·v) and
 :func:`attention_bwd_reference`.  A CUDA tensor runs the hand-written
-kernels of ``csrc/fused_attention.cu`` or raises; it never falls back to the
-plain versions.  The kernels take float32, heads up to ``MAX_DIM_HEAD``
-wide, any N ≥ 1 and ``extra=None`` (no model passes a bias here; the bias
-on the card is still to port, ROADMAP B6); anything else on a CUDA tensor
-raises NotImplementedError.  q, k and v may be strided views with a unit
+tensor-core kernels of ``csrc/fused_attention.cu`` (3xTF32, f32-accurate)
+or raises; it never falls back to the plain versions.  The kernels take
+float32, heads up to ``MAX_DIM_HEAD`` wide, any N ≥ 1 and the bias
+``extra`` in any form broadcastable to [G, M, N], read in place through its
+(g, m) strides; its gradient Σ_b dS is summed in b order on the card and
+un-broadcast by :func:`extra_grad`.  Anything else on a CUDA tensor raises
+NotImplementedError.  q, k and v may be strided views with a unit
 stride along D — the heads of a projection's [B, rows, G·D] output, as the
 models pass them — and their strides go to the kernels instead of a copy.
 The output (and dq) is written in the [B, M, G·D] memory order the output
@@ -41,11 +43,11 @@ training path with dropout takes it (``ops.attention_impl`` default
 ``fused``), Swin under a ``fused`` force.  Its forward keeps lse (the
 Pallas backward recomputes the softmax instead).  A CPU tensor runs
 :func:`qkv_attention_fwd_reference` / :func:`qkv_attention_bwd_reference`;
-a CUDA tensor runs the kernels of ``csrc/fused_layer.cu`` (forward,
-B1's attention kernel under its own entry) and ``csrc/fused_layer_bwd.cu``
-(backward), which read qkv and write out and dqkv in place in the packed
-layout, f32, heads up to 64 wide, up to 32 with a bias; anything else on a
-CUDA tensor raises NotImplementedError.
+a CUDA tensor runs the tensor-core kernels of
+``csrc/fused_attention_qkv.cu`` (the core B6 runs, 3xTF32), which read qkv
+and write out and dqkv in place in the packed layout, f32, heads up to 64
+wide with or without the bias; anything else on a CUDA tensor raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -56,8 +58,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .fused_layer import (MAX_BIAS_DIM_HEAD, _raise_on, _scores_bias, check_f32,
-                          extra_groups, ptr)
+from .fused_layer import _raise_on, _scores_bias, check_f32, extra_groups, ptr
 from .fused_layer import extra_grad as layer_extra_grad
 
 __all__ = ["fused_attention", "fused_attention_reference", "fused_attention_fwd",
@@ -72,11 +73,9 @@ __all__ = ["fused_attention", "fused_attention_reference", "fused_attention_fwd"
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 
-MAX_DIM_HEAD = 64  # csrc DMAX: the register width of a head
-
-# dk / dv blocks to aim the backward's query chunking at: about two waves of
-# 132 SMs x the 5 blocks (41 KB of shared memory each) one SM holds
-_DKDV_BLOCKS = 2 * 132 * 5
+MAX_DIM_HEAD = 64  # csrc DMAX: the widest head the kernels stage
+_TILE = 64  # csrc attention_tc.cuh TQ = TK: the backward's queries / keys per tile
+_SMS = 132  # H100 SXM; the backward holds one 8-warp block an SM
 
 
 def _default_scale(D: int, scale: Optional[float]) -> float:
@@ -121,15 +120,17 @@ def attention_bwd_reference(q, k, v, extra, lse, do, scale: float,
 
 
 def extra_grad(dextra: Optional[torch.Tensor], extra: Optional[torch.Tensor]):
-    """dextra [G, M, N] un-broadcast to the caller's ``extra`` (the JAX
-    rule, fused_attention.py:286-294)."""
+    """dextra [G, M, N] un-broadcast to the caller's ``extra``: summed over
+    the leading dimensions it lacks and over each dimension it broadcasts
+    (the JAX rule, fused_attention.py:286-294, for [M, N] and [1, M, N])."""
     if extra is None or dextra is None:
         return None
     d = dextra
-    if extra.ndim == 2:
+    while d.ndim > extra.ndim:
         d = d.sum(0)
-    elif extra.shape[0] == 1 and d.shape[0] != 1:
-        d = d.sum(0, keepdim=True)
+    for i, n in enumerate(extra.shape):
+        if n == 1 and d.shape[i] != 1:
+            d = d.sum(i, keepdim=True)
     return d.to(extra.dtype)
 
 
@@ -160,13 +161,9 @@ def _unit_d(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
-def _check(q, k, v, extra):
+def _check(q, k, v, extra=None):
     """Shapes and types the kernels take; returns (B, G, M, N, D)."""
-    if extra is not None:
-        raise NotImplementedError(
-            "the CUDA fused_attention takes extra=None; the bias on the card is "
-            "still to port (ROADMAP B6)")
-    check_f32(q.device, q=q, k=k, v=v)
+    check_f32(q.device, q=q, k=k, v=v, extra=extra)
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("q, k and v must be [B, G, rows, D] tensors")
     B, G, M, D = q.shape
@@ -179,14 +176,37 @@ def _check(q, k, v, extra):
     if D > MAX_DIM_HEAD:
         raise NotImplementedError(
             f"the CUDA fused_attention holds heads up to {MAX_DIM_HEAD} wide; got {D}")
+    if extra is not None:
+        try:
+            ok = torch.broadcast_shapes(extra.shape, (G, M, N)) == (G, M, N)
+        except RuntimeError:
+            ok = False
+        if not ok:
+            raise ValueError(f"extra {tuple(extra.shape)} does not broadcast to "
+                             f"[{G}, {M}, {N}]")
     return B, G, M, N, D
 
 
+def _bias_view(extra, G: int, M: int, N: int):
+    """(extra as a [G, M, N] view with a unit stride along N, its g stride,
+    its m stride), or (None, 0, 0): a broadcast dimension gets stride 0 and
+    no copy is made unless N itself is broadcast."""
+    if extra is None:
+        return None, 0, 0
+    e = extra.expand(G, M, N)
+    if e.stride(2) != 1:
+        e = e.contiguous()
+    return e, e.stride(0), e.stride(1)
+
+
 def dkdv_chunks(B: int, G: int, M: int, N: int) -> int:
-    """Chunks of the M queries for the dk / dv pass: one partial dk / dv
-    each, summed in order afterwards."""
-    key_tiles = -(-N // 64)  # csrc FKB
-    return max(1, min(M, -(-_DKDV_BLOCKS // (B * G * key_tiles))))
+    """Chunks of the M queries for the backward: a block per (chunk, key
+    tile, g, b), about two waves of them, each chunk's dk / dv a partial
+    summed in order afterwards; no chunk is empty."""
+    q_tiles, key_tiles = -(-M // _TILE), -(-N // _TILE)
+    chunks = max(1, min(q_tiles, 2 * _SMS // (B * G * key_tiles)))
+    per = -(-q_tiles // chunks)
+    return -(-q_tiles // per)
 
 
 def _strides(t: torch.Tensor):
@@ -199,6 +219,7 @@ def _cuda_fwd(q, k, v, extra, scale, save: bool):
     global LAUNCHES
     q, k, v = map(_unit_d, (q, k, v))
     B, G, M, N, D = _check(q, k, v, extra)
+    e, e_sg, e_sm = _bias_view(extra, G, M, N)
     from ._build import build
 
     lib = build()
@@ -210,40 +231,47 @@ def _cuda_fwd(q, k, v, extra, scale, save: bool):
         LAUNCHES += 1
         err = lib.vtx_fused_attention_fwd(
             ptr(q), *_strides(q), ptr(k), *_strides(k), ptr(v), *_strides(v),
-            ptr(out), ptr(lse), B, G, M, N, D, ctypes.c_float(scale), stream)
+            ptr(e), e_sg, e_sm, ptr(out), ptr(lse), B, G, M, N, D, ctypes.c_float(scale),
+            stream)
     _raise_on(err, "fused_attention")
     return out, lse
 
 
-def _cuda_bwd(saved: SraSaved, do: torch.Tensor):
-    """The backward kernel sequence: (dq, dk, dv)."""
+def _cuda_bwd(saved: SraSaved, do: torch.Tensor, need_dextra: bool = True):
+    """The backward kernel sequence: (dq, dk, dv, dextra [G, M, N] or None)."""
     global BWD_LAUNCHES
-    q, k, v, _, out, lse = saved[:N_SAVED_TENSORS]
+    q, k, v, extra, out, lse = saved[:N_SAVED_TENSORS]
     q, k, v, do = map(_unit_d, (q, k, v, do))
     check_f32(q.device, do=do, out=out, lse=lse)
-    B, G, M, N, D = _check(q, k, v, None)
+    B, G, M, N, D = _check(q, k, v, extra)
     if do.shape != q.shape:
         raise ValueError(f"do must be {tuple(q.shape)}, got {tuple(do.shape)}")
     if out.permute(0, 2, 1, 3).stride() != (M * G * D, G * D, D, 1):
         raise ValueError("out must be the forward kernel's [B, M, G, D] buffer")
+    e, e_sg, e_sm = _bias_view(extra, G, M, N)
+    want_dextra = extra is not None and need_dextra
     chunks = dkdv_chunks(B, G, M, N)
+    key_tiles = -(-N // _TILE)
     from ._build import build
 
     lib = build()
     opts = dict(device=q.device, dtype=torch.float32)
-    delta = torch.empty((B * G * M,), **opts)
-    part = torch.empty((chunks * 2 * B * N * G * D,), **opts)
+    dq_part = torch.empty((key_tiles * B * M * G * D,), **opts) if key_tiles > 1 else None
+    dkv_part = torch.empty((2 * chunks * B * N * G * D,), **opts) if chunks > 1 else None
+    dsbuf = torch.empty((B * G * M * N,), **opts) if want_dextra else None
     dq = torch.empty((B, M, G, D), **opts).permute(0, 2, 1, 3)
     dkv = torch.empty((2, B, N, G, D), **opts)
+    dextra = torch.empty((G, M, N), **opts) if want_dextra else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         BWD_LAUNCHES += 1
         err = lib.vtx_fused_attention_bwd(
             ptr(q), *_strides(q), ptr(k), *_strides(k), ptr(v), *_strides(v),
-            ptr(out), ptr(lse), ptr(do), *_strides(do), ptr(delta), ptr(part), chunks,
-            ptr(dq), ptr(dkv), B, G, M, N, D, ctypes.c_float(saved.scale), stream)
+            ptr(e), e_sg, e_sm, ptr(out), ptr(lse), ptr(do), *_strides(do), ptr(dq_part),
+            ptr(dkv_part), chunks, ptr(dsbuf), ptr(dq), ptr(dkv), ptr(dextra), B, G, M, N,
+            D, ctypes.c_float(saved.scale), stream)
     _raise_on(err, "fused_attention backward")
-    return dq, dkv[0].permute(0, 2, 1, 3), dkv[1].permute(0, 2, 1, 3)
+    return dq, dkv[0].permute(0, 2, 1, 3), dkv[1].permute(0, 2, 1, 3), dextra
 
 
 def fused_attention_fwd(q, k, v, extra=None, scale: Optional[float] = None):
@@ -264,7 +292,7 @@ def fused_attention_bwd(saved: SraSaved, do: torch.Tensor, need_dextra: bool = T
     dextra [G, M, N] or None) — the kernels for a CUDA tensor, the plain
     version for a CPU one."""
     if do.is_cuda:
-        return (*_cuda_bwd(saved, do), None)
+        return _cuda_bwd(saved, do, need_dextra)
     if do.device.type == "cpu":
         q, k, v, extra, _, lse = saved[:N_SAVED_TENSORS]
         dq, dk, dv, dextra = attention_bwd_reference(q, k, v, extra, lse, do,
@@ -403,10 +431,6 @@ def _check_qkv(qkv, n_head, extra_g):
             f"the CUDA fused_attention_qkv holds heads up to {MAX_DIM_HEAD} wide; got "
             f"{D} (ROADMAP B)")
     if extra_g is not None:
-        if D > MAX_BIAS_DIM_HEAD:
-            raise NotImplementedError(
-                f"the CUDA fused_attention_qkv takes the bias with heads up to "
-                f"{MAX_BIAS_DIM_HEAD} wide; got {D} (ROADMAP B)")
         if extra_g.ndim != 4 or tuple(extra_g.shape[1:]) != (n_head, N, N) \
                 or B % extra_g.shape[0] or not extra_g.is_contiguous():
             raise ValueError(f"extra must be a contiguous [G, {n_head}, {N}, {N}] with "
@@ -449,11 +473,12 @@ def _cuda_qkv_bwd(saved: QkvSaved, do: torch.Tensor, need_dextra: bool):
         raise ValueError(f"do and out must be [{B}, {N}, {H * D}], got "
                          f"{tuple(do.shape)}, {tuple(out.shape)}")
     want_dextra = extra_g is not None and need_dextra
+    key_tiles = -(-N // _TILE)
     from ._build import build
 
     lib = build()
     opts = dict(device=qkv.device, dtype=torch.float32)
-    delta = torch.empty((B, H, N), **opts)
+    dq_part = torch.empty((key_tiles * B * N * H * D,), **opts) if key_tiles > 1 else None
     dsbuf = torch.empty((B, H, N, N), **opts) if want_dextra else None
     dqkv = torch.empty_like(qkv)
     dextra = torch.empty_like(extra_g) if want_dextra else None
@@ -462,7 +487,7 @@ def _cuda_qkv_bwd(saved: QkvSaved, do: torch.Tensor, need_dextra: bool):
         QKV_BWD_LAUNCHES += 1
         err = lib.vtx_fused_attention_qkv_bwd(
             ptr(qkv), ptr(extra_g), _groups(extra_g), ptr(out), ptr(lse), ptr(do),
-            ptr(delta), ptr(dsbuf), ptr(dqkv), ptr(dextra), B, N, H, D,
+            ptr(dq_part), ptr(dsbuf), ptr(dqkv), ptr(dextra), B, N, H, D,
             ctypes.c_float(saved.scale), stream)
     _raise_on(err, "fused_attention_qkv backward")
     return dqkv, dextra
