@@ -17,7 +17,8 @@ non-zero and prints no ok line):
 2. build   nvcc → shared library, one nvcc per source in parallel (timed);
            ptxas's registers and spills, and the HMMA count (cuobjdump
            -sass) of every instantiation of the tensor-core attention
-           kernels that B6 and B3 run (raises on a copy without one)
+           kernels that B6, B3, B5a, B5b and B4 run (raises on a copy
+           without one)
 3. kernels each forward kernel vs its plain version, f32, atol = rtol = 1e-4
            (same f32 math, another summation order over K ≤ 3072): at an odd
            small shape, at every ViT-S shape phases 5 and 6 give it (48 / 160
@@ -41,9 +42,12 @@ non-zero and prints no ok line):
            beside F.scaled_dot_product_attention with the bias as attn_mask
            on the gathered [b·S, H, w², k²] problem (gather excluded)
 3hb.       each Halo kernel's forward (with saves) + backward vs the plain
-           forward + plain backward, the layer with and without row scales;
-           per tensor ≤ 1e-3·max(1, max|plain|); two runs bit-identical;
-           median ms at each stage's training call
+           forward + plain backward, the layer with and without row scales,
+           the halo attention also at heads 64 wide; per tensor ≤
+           1e-3·max(1, max|plain|); two runs bit-identical; median ms at
+           each stage's training call; the halo attention's bound at the
+           tensor-core rate, the layer's with its GEMMs at the FMA rate and
+           its attention at the tensor-core rate
 3b (Twins) the attention layer with Twins' [m, m] pair mask (−1e9 across the
            windows of a packed pair) and a row scale, serving forward,
            training forward and backward vs the plain versions (per tensor
@@ -79,11 +83,13 @@ non-zero and prints no ok line):
            backward per tensor within 1e-3·max(1, max|plain|) and
            bit-identical across two runs, on neighbourhoods gathered from
            seeded maps as the model gathers them: an odd call (a 12x8 map,
-           window 4, halo 3, heads 24 wide), the four Halo-S stages at 128
-           images (B' = 8192 / 2048 / 512 / 128 windows of 64 queries, 144
-           keys) and stage 1 of the window-4 / halo-3 model at 128 images
-           (B' = 32,768 windows of 16 queries, 100 keys); median ms beside
-           F.scaled_dot_product_attention on the same gathered problem
+           window 4, halo 3, heads 24 wide), window 8 / halo 5 (324 keys,
+           past the keys a block keeps resident), heads 64 wide, the four
+           Halo-S stages at 128 images (B' = 8192 / 2048 / 512 / 128
+           windows of 64 queries, 144 keys) and stage 1 of the window-4 /
+           halo-3 model at 128 images (B' = 32,768 windows of 16 queries,
+           100 keys); median ms beside F.scaled_dot_product_attention on the
+           same gathered problem; bound at the tensor-core rate
 3k.        the attention block (ViT's and Swin's 'block' path): the same
            checks at an odd call ([N, N] bias, Cout 40 ≠ C 48), ViT-S/16 at
            B 128 and 64 (no bias) and Swin-S's four stages at 64 images
@@ -227,9 +233,9 @@ KERNELS = {  # name → (source, the TPU kernel it replaces)
                          "vision_transformers_tpu/ops/fused_halo_layer.py:92"),
     "fused_halo_layer_bwd": ("vision_transformers_tpu_torch/csrc/fused_halo.cu",
                              "vision_transformers_tpu/ops/fused_halo_layer.py:179"),
-    "halo_attention_direct": ("vision_transformers_tpu_torch/csrc/fused_halo.cu",
+    "halo_attention_direct": ("vision_transformers_tpu_torch/csrc/halo_attention_tc.cuh",
                               "vision_transformers_tpu/ops/fused_halo.py:252"),
-    "halo_attention_direct_bwd": ("vision_transformers_tpu_torch/csrc/fused_halo.cu",
+    "halo_attention_direct_bwd": ("vision_transformers_tpu_torch/csrc/halo_attention_tc.cuh",
                                   "vision_transformers_tpu/ops/fused_halo.py:282"),
     "fused_attention": ("vision_transformers_tpu_torch/csrc/fused_attention.cu",
                         "vision_transformers_tpu/ops/fused_attention.py:67"),
@@ -243,9 +249,9 @@ KERNELS = {  # name → (source, the TPU kernel it replaces)
                        "vision_transformers_tpu/ops/fused_layer.py:701"),
     "fused_ff_layer_bwd": ("vision_transformers_tpu_torch/csrc/fused_layer1_bwd.cu",
                            "vision_transformers_tpu/ops/fused_layer.py:743"),
-    "halo_attention": ("vision_transformers_tpu_torch/csrc/fused_halo.cu",
+    "halo_attention": ("vision_transformers_tpu_torch/csrc/halo_attention_tc.cuh",
                        "vision_transformers_tpu/ops/fused_halo.py:44"),
-    "halo_attention_bwd": ("vision_transformers_tpu_torch/csrc/fused_halo.cu",
+    "halo_attention_bwd": ("vision_transformers_tpu_torch/csrc/halo_attention_tc.cuh",
                            "vision_transformers_tpu/ops/fused_halo.py:72"),
     "fused_attention_block": ("vision_transformers_tpu_torch/csrc/fused_layer.cu",
                               "vision_transformers_tpu/ops/fused_block.py:57"),
@@ -256,10 +262,12 @@ KERNELS = {  # name → (source, the TPU kernel it replaces)
     "fused_swin_layer_bwd": ("vision_transformers_tpu_torch/csrc/fused_swin.cu",
                              "vision_transformers_tpu/ops/fused_swin.py:200"),
 }
-# the tensor-core attention kernels (3xTF32, csrc/attention_tc.cuh) that B6 and
-# B3 run: the build phase counts their HMMA, and their bound takes the
+# the tensor-core attention kernels (3xTF32): csrc/attention_tc.cuh's, which B6
+# and B3 run, and csrc/halo_attention_tc.cuh's, which B5a, B5b and B4's
+# attention run; the build phase counts their HMMA, and their bound takes the
 # f32-accurate tensor-core rate
-TENSOR_CORE_FUNCTIONS = ("attn_fwd_kernel", "attn_bwd_kernel")
+TENSOR_CORE_FUNCTIONS = ("attn_fwd_kernel", "attn_bwd_kernel", "halo_fwd_kernel",
+                         "halo_bwd_kernel")
 KERNEL_TOL = 1e-4
 DEVICE = "cuda"
 
@@ -330,12 +338,13 @@ def build():
 
 def tensor_core_counts(_build, library):
     """The tensor-core instructions (HMMA in ``cuobjdump -sass``) of each
-    instantiation of the tensor-core attention kernels (attention_tc.cuh),
-    in each source that compiles them (fused_attention.cu for B6,
-    fused_attention_qkv.cu for B3); raises if one has none."""
+    instantiation of the tensor-core attention kernels (attention_tc.cuh,
+    halo_attention_tc.cuh), in each source that compiles them
+    (fused_attention.cu for B6, fused_attention_qkv.cu for B3, fused_halo.cu
+    for B5a, B5b and B4); raises if one has none."""
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     sass = run([cuobjdump, "-sass", library], timeout=300)
-    pattern = re.compile(r"_GLOBAL__N__\w+?_\d+_(\w+?)_cu_[0-9a-f]+3tca\d+("
+    pattern = re.compile(r"_GLOBAL__N__\w+?_\d+_(\w+?)_cu_[0-9a-f]+3(?:tca|hta)\d+("
                          + "|".join(TENSOR_CORE_FUNCTIONS) + r")I((?:L[ib]\d+E)+)E")
     counts, name = {}, None
     for line in sass.splitlines():
@@ -369,9 +378,15 @@ def bound(flops, nbytes, tensor_cores=False):
     """(bound_ms, bound_by): the least time for this work on the card, the
     larger of bytes / 3.35 TB/s and operations / the rate of the route the
     kernel takes: 67 TFLOP/s for f32 FMA, 495 / 3 = 165 TFLOP/s for
-    ``tensor_cores`` (three TF32 passes a product keep f32 accuracy)."""
-    rate = H100_TF32X3_FLOPS if tensor_cores else H100_F32_FLOPS
-    t_ops, t_bytes = flops / rate * 1e3, nbytes / H100_BYTES * 1e3
+    ``tensor_cores`` (three TF32 passes a product keep f32 accuracy).
+    ``flops`` may be a pair (FMA operations, tensor-core operations) of a
+    kernel sequence that takes both routes: their times add."""
+    if isinstance(flops, tuple):
+        t_ops = (flops[0] / H100_F32_FLOPS + flops[1] / H100_TF32X3_FLOPS) * 1e3
+    else:
+        rate = H100_TF32X3_FLOPS if tensor_cores else H100_F32_FLOPS
+        t_ops = flops / rate * 1e3
+    t_bytes = nbytes / H100_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -480,13 +495,14 @@ def layer_bwd_work(B, N, C, H, D, F, groups=0, row_scales=False):
 
 def halo_layer_fwd_work(B, H, W, C, nh, D, F, window, halo, row_scales=False,
                        saves=False):
-    """(operations, bytes) of the whole Halo layer's forward on M = B·H·W
-    tokens: the four projection GEMMs (8·M·C·HD + 4·M·C·F) and halo
-    attention over k² = (w + 2·halo)² positions (4·M·k²·HD); x, the weights
-    and the bias [nh, w², k²] read, out written, and with ``saves`` qkv,
-    acc, z, hid, the statistics and lse written too."""
+    """((FMA operations, tensor-core operations), bytes) of the whole Halo
+    layer's forward on M = B·H·W tokens: the four projection GEMMs (8·M·C·HD
+    + 4·M·C·F, f32 FMA) and halo attention over k² = (w + 2·halo)²
+    positions (4·M·k²·HD, tensor cores); x, the weights and the bias [nh,
+    w², k²] read, out written, and with ``saves`` qkv, acc, z, hid, the
+    statistics and lse written too."""
     M, HD, k2 = B * H * W, nh * D, (window + 2 * halo) ** 2
-    flops = 8 * M * C * HD + 4 * M * C * F + 4 * M * k2 * HD
+    flops = (8 * M * C * HD + 4 * M * C * F, 4 * M * k2 * HD)
     nbytes = 4 * (2 * M * C + 4 * C * HD + 2 * C * F + 6 * C + F
                   + nh * window * window * k2 + (2 * B if row_scales else 0))
     if saves:
@@ -495,12 +511,13 @@ def halo_layer_fwd_work(B, H, W, C, nh, D, F, window, halo, row_scales=False,
 
 
 def halo_layer_bwd_work(B, H, W, C, nh, D, F, window, halo, row_scales=False):
-    """(operations, bytes) of the whole Halo layer's backward: 16·M·C·HD +
-    8·M·C·F of GEMMs and five halo attention products (recomputed scores,
-    dv, dp, dk, dq: 10·M·k²·HD); reads x, do, the saves and the weights and
-    bias once, writes dx, the parameter gradients and dbias once."""
+    """((FMA operations, tensor-core operations), bytes) of the whole Halo
+    layer's backward: 16·M·C·HD + 8·M·C·F of GEMMs (f32 FMA) and five halo
+    attention products (recomputed scores, dv, dp, dk, dq: 10·M·k²·HD,
+    tensor cores); reads x, do, the saves and the weights and bias once,
+    writes dx, the parameter gradients and dbias once."""
     M, HD, k2 = B * H * W, nh * D, (window + 2 * halo) ** 2
-    flops = 16 * M * C * HD + 8 * M * C * F + 10 * M * k2 * HD
+    flops = (16 * M * C * HD + 8 * M * C * F, 10 * M * k2 * HD)
     params = 4 * C * HD + 2 * C * F + 6 * C + F
     nbytes = 4 * (3 * M * C + 4 * M * HD + M * C + M * F + 4 * M + nh * M
                   + 2 * params + 2 * nh * window * window * k2
@@ -1077,6 +1094,9 @@ def halo_stages(images):
 # and 3x3 windows (k² = 25 positions) with heads 20 wide
 HALO_ODD = [dict(stage="odd", window=4, halo=2, depth=1, shape=(3, 12, 8, 48, 2, 24, 96)),
             dict(stage="odd", window=3, halo=1, depth=1, shape=(2, 6, 9, 40, 2, 20, 80))]
+# heads 64 wide, the halo attention alone (the whole layer takes heads up to 32)
+HALO_WIDE = dict(stage="odd (heads 64 wide)", window=8, halo=2, depth=1,
+                 shape=(2, 16, 16, 128, 2, 64, 256))
 
 
 def halo_bias(torch, call, seed):
@@ -1202,7 +1222,8 @@ def halo_kernels(torch):
                 out, call["window"]).reshape(-1, nh * D)).abs().max().item()
             library_ms = median_ms(torch, lambda: F_.scaled_dot_product_attention(
                 qg, kg, vg, attn_mask=mask, scale=scale))
-            bound_ms, by = bound(*halo_attn_fwd_work(B, H, W, nh, D, **kw))
+            bound_ms, by = bound(*halo_attn_fwd_work(B, H, W, nh, D, **kw),
+                                 tensor_cores=True)
             log(f"kernels: halo_attention_direct Halo stage {call['stage']} (128 images): "
                 f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, scaled_dot_product_attention "
                 f"on the gathered problem {library_ms:.3f} ms (max|Δ| to the kernel "
@@ -1234,10 +1255,10 @@ def halo_backward_kernels(torch):
     worst_d = {"out": 0.0, "grads": 0.0}
     stages = halo_stages(128)
     out_rec = {k: [] for k in ("fwd", "bwd", "dfwd", "dbwd")}
-    for call in HALO_ODD + stages:
+    for call in HALO_ODD + stages + [HALO_WIDE]:
         nh = call["shape"][4]
         kw = dict(window=call["window"], halo=call["halo"])
-        for use_rs in (False, True):
+        for use_rs in (False, True) if call is not HALO_WIDE else ():
             a, (r1, r2) = halo_layer_inputs(torch, call, use_rs, seed=1)
             do = torch.randn(a[0].shape, device=DEVICE,
                              generator=torch.Generator(DEVICE).manual_seed(2))
@@ -1308,8 +1329,9 @@ def halo_backward_kernels(torch):
         dlib = torch.randn_like(lib)
         lib_ms = median_ms(torch, lambda: torch.autograd.grad(lib, leaves, dlib,
                                                               retain_graph=True))
-        fb, fby = bound(*halo_attn_fwd_work(B, H, W, nh, D, **kw, saves=True))
-        bb, bby = bound(*halo_attn_bwd_work(B, H, W, nh, D, **kw))
+        fb, fby = bound(*halo_attn_fwd_work(B, H, W, nh, D, **kw, saves=True),
+                        tensor_cores=True)
+        bb, bby = bound(*halo_attn_bwd_work(B, H, W, nh, D, **kw), tensor_cores=True)
         log(f"backward: halo_attention_direct Halo stage {call['stage']} (128 images): "
             f"kernel fwd(saves) {f_ms:.3f} + bwd {b_ms:.3f} ms; plain fwd {pf_ms:.3f} + "
             f"bwd {pb_ms:.3f} ms; scaled_dot_product_attention's backward on the "
@@ -1335,12 +1357,17 @@ def halo_backward_kernels(torch):
 def gather_calls():
     """The gathered halo attention's calls, as dicts of the map shape
     (images, H, W, C, heads, D, F) and the window geometry: an odd small
-    call (a non-square 12x8 map, window 4, halo 3, heads 24 wide), the four
-    Halo-S stages on the gather path at 128 images (the trainer's batch and
-    its eval's) and stage 1 of the window-4 / halo-3 model at 128 images
-    (2·halo > window: the default dispatch's gather path)."""
+    call (a non-square 12x8 map, window 4, halo 3, heads 24 wide), one with
+    more keys than a block keeps resident (window 8, halo 5: 324 keys), one
+    with heads 64 wide, the four Halo-S stages on the gather path at 128
+    images (the trainer's batch and its eval's) and stage 1 of the window-4
+    / halo-3 model at 128 images (2·halo > window: the default dispatch's
+    gather path)."""
     stages = halo_stages(128)
-    return ([dict(stage="odd", window=4, halo=3, depth=1, shape=(3, 12, 8, 48, 2, 24, 96))]
+    return ([dict(stage="odd", window=4, halo=3, depth=1, shape=(3, 12, 8, 48, 2, 24, 96)),
+             dict(stage="odd (324 keys)", window=8, halo=5, depth=1,
+                  shape=(2, 16, 16, 48, 2, 24, 96)),
+             dict(HALO_WIDE, stage="odd (heads 64 wide)")]
             + stages + [dict(stages[0], stage="1 (window 4, halo 3)", window=4, halo=3)])
 
 
@@ -1399,7 +1426,7 @@ def gather_kernels(torch):
         compare_grads(torch, "halo_attention " + what, ("dq", "dkv", "dbias"), grads, again,
                       plain, worst)
         del grads, again, plain
-        if call["stage"] != "odd":
+        if not str(call["stage"]).startswith("odd"):
             f_ms = median_ms(torch, lambda: fh.halo_attention_fwd(q, kv, bias, nh))
             b_ms = median_ms(torch, lambda: fh.halo_attention_bwd(saved, do))
             pf_ms = median_ms(torch, lambda: fh.gathered_fwd_reference(q, kv, bias, nh, scale))
@@ -1417,14 +1444,13 @@ def gather_kernels(torch):
             dlib = heads(do)
             lb_ms = median_ms(torch, lambda: torch.autograd.grad(lib, leaves, dlib,
                                                                  retain_graph=True))
-            fb, fby = bound(*gather_fwd_work(Bw, M, N, nh, D, saves=True))
-            bb, bby = bound(*gather_bwd_work(Bw, M, N, nh, D))
+            fb, fby = bound(*gather_fwd_work(Bw, M, N, nh, D, saves=True), tensor_cores=True)
+            bb, bby = bound(*gather_bwd_work(Bw, M, N, nh, D), tensor_cores=True)
             log(f"kernels: halo_attention {what} (median of 20, CUDA events): kernel "
                 f"fwd(lse) {f_ms:.3f} + bwd {b_ms:.3f} ms; plain fwd {pf_ms:.3f} + bwd "
                 f"{pb_ms:.3f} ms; scaled_dot_product_attention fwd {lf_ms:.3f} + its "
                 f"backward {lb_ms:.3f} ms (max|Δ| to the kernel {lib_err:.3e}); bound fwd "
-                f"{fb:.3f} ({fby}) + bwd {bb:.3f} ms ({bby}); {M} of each block's 64 "
-                f"threads hold a query")
+                f"{fb:.3f} ({fby}) + bwd {bb:.3f} ms ({bby})")
             shape = (f"Halo-S stage {call['stage']}, B',M,N,heads,D={Bw},{M},{N},{nh},{D}")
             fwd_rec.append({"shape": shape + ", lse", "max_abs_err": worst["out"], "ms": f_ms,
                             "plain_ms": pf_ms, "bound_ms": fb, "bound_by": fby,

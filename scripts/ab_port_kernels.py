@@ -5,28 +5,30 @@ parent / change comparison run in turns within one call:
     for t in parent . . parent; do python3 scripts/ab_port_kernels.py $t; done
 
 ``ROOT`` (default: this checkout) is the tree whose
-``vision_transformers_tpu_torch`` is imported and built (each tree builds
-into its own ``_build/``).  Times, as medians of 20 CUDA-event timings
-after 3 warm-up calls: B1 ``fused_attention_layer`` forward with saves and
-backward at ViT-S B=128 with a row scale; B2 ``fused_transformer_layer``
-forward with saves and backward at Swin-S stages 3 and 1 at 64 images (128
-rows of 98 tokens, C 384, 12 heads of 32, the grouped bias of 2 groups;
-2048 rows, C 96, 3 heads, 32 groups; both row scales); B4
-``fused_halo_layer`` the same at Halo-S stage 1 at 128 images (64x64 map,
-C 96, 3 heads, window 8, halo 2); B3 ``fused_attention_qkv`` forward with
-lse and backward at ViT-S B=128 (no bias) and at Swin-S stage 1 at 64
-images (2048 rows of 98 tokens, 3 heads of 32, the grouped bias of 32
-groups); B5a ``halo_attention_direct`` forward with lse and backward at
-Halo-S stage 1 at 128 images; B8 ``fused_attention_block`` forward with
-saves and backward at ViT-S B=128 (no bias); where the tree has it, B9
-``fused_swin_layer`` forward with saves and backward at Swin-S stages 1 and
-3 at 64 images (shifted: the grouped bias of 32 / 2 groups, both per-sample
-row scales); B6 ``fused_attention`` forward with lse and backward at PVT-S
-stages 1 and 3 at 128 images (the models' strided head views).  Prints the
-card, ptxas's registers and spills of every kernel compiled from
-fused_layer.cu, fused_layer_bwd.cu, fused_layer1_bwd.cu, fused_attention.cu
-and fused_attention_qkv.cu (B1, B2, B3, B6, B7, B8) when this process
-builds the tree, and one JSON line.  Needs CUDA; imports no JAX.
+``vision_transformers_tpu_torch`` is imported and built (each tree builds into
+its own ``_build/``). Times, as medians of 20 CUDA-event timings after 3 warm-
+up calls: B1 ``fused_attention_layer`` forward with saves and backward at ViT-S
+B=128 with a row scale; B2 ``fused_transformer_layer`` forward with saves and
+backward at Swin-S stages 3 and 1 at 64 images (128 rows of 98 tokens, C 384,
+12 heads of 32, the grouped bias of 2 groups; 2048 rows, C 96, 3 heads, 32
+groups; both row scales); B4 ``fused_halo_layer`` the same at Halo-S stage 1 at
+128 images (64x64 map, C 96, 3 heads, window 8, halo 2); B3
+``fused_attention_qkv`` forward with lse and backward at ViT-S B=128 (no bias)
+and at Swin-S stage 1 at 64 images (2048 rows of 98 tokens, 3 heads of 32, the
+grouped bias of 32 groups); B5a ``halo_attention_direct`` forward with lse and
+backward at Halo-S stage 1 at 128 images; B5b ``halo_attention`` forward with
+lse and backward on the gathered problem of Halo-S stage 1 at 128 images (B' =
+8192 windows of 64 queries, 144 keys, 3 heads of 32) and of the window-4 /
+halo-3 model's stage 1 (B' = 32,768 windows of 16 queries, 100 keys); B8
+``fused_attention_block`` forward with saves and backward at ViT-S B=128 (no
+bias); where the tree has it, B9 ``fused_swin_layer`` forward with saves and
+backward at Swin-S stages 1 and 3 at 64 images (shifted: the grouped bias of 32
+/ 2 groups, both per-sample row scales); B6 ``fused_attention`` forward with
+lse and backward at PVT-S stages 1 and 3 at 128 images (the models' strided
+head views). Prints the card, ptxas's registers and spills of every kernel
+compiled from fused_layer.cu, fused_layer_bwd.cu, fused_layer1_bwd.cu,
+fused_attention.cu, fused_attention_qkv.cu and fused_halo.cu (B1-B8) when this
+process builds the tree, and one JSON line. Needs CUDA; imports no JAX.
 """
 
 import json
@@ -139,6 +141,15 @@ def main() -> None:
     _, saved = fh.halo_attention_direct_fwd(q, kv, bias, 8, 2, 3)
     out["B5a Halo1 fwd"] = ms(lambda: fh.halo_attention_direct_fwd(q, kv, bias, 8, 2, 3))
     out["B5a Halo1 bwd"] = ms(lambda: fh.halo_attention_direct_bwd(saved, do))
+    del q, kv, do, saved
+    for name, (Bw, M, N) in (("B5b Halo1", (8192, 64, 144)), ("B5b w4h3", (32768, 16, 100))):
+        q, kv, do = (torch.randn(Bw, rows, c, device="cuda", generator=g)
+                     for rows, c in ((M, 96), (N, 192), (M, 96)))
+        bias = 0.2 * torch.randn(3, M, N, device="cuda", generator=g)
+        _, saved = fh.halo_attention_fwd(q, kv, bias, 3)
+        out[name + " fwd"] = ms(lambda: fh.halo_attention_fwd(q, kv, bias, 3))
+        out[name + " bwd"] = ms(lambda: fh.halo_attention_bwd(saved, do))
+        del q, kv, do, saved
     try:
         from vision_transformers_tpu_torch.ops import fused_swin as fs
     except ImportError:
@@ -177,7 +188,7 @@ def main() -> None:
         elif ("registers" in line or "spill" in line) and entry and any(
                 f"_{src}_cu_" in entry for src in ("fused_layer", "fused_layer_bwd",
                                                   "fused_layer1_bwd", "fused_attention",
-                                                  "fused_attention_qkv")):
+                                                  "fused_attention_qkv", "fused_halo")):
             source = entry.split("_cu_")[0].split("__")[-1].split("_", 2)[2]
             key = f"{source} {entry.split('_cu_')[1][8:]}"
             registers[key] = (registers.get(key, "") + " " + line.split(": ")[-1]).strip()

@@ -53,8 +53,8 @@ CONF = os.path.join(ROOT, "configs", "vit-s-16.conf")
 GROUPS = (("at::native", "other (elementwise, reductions, conv)"),
           ("gemm_kernel<true", "hand-written GEMM, split-K (weight gradients)"),
           ("gemm_kernel", "hand-written GEMM, row-major"),
-          ("halo_attn_bwd", "hand-written halo attention backward"),
-          ("halo_attn_fwd", "hand-written halo attention forward"),
+          ("halo_bwd_kernel", "hand-written halo attention backward"),
+          ("halo_fwd_kernel", "hand-written halo attention forward"),
           ("halo_fold", "other hand-written"),
           ("attn_bwd", "hand-written attention backward"),
           ("attn_fwd", "hand-written attention forward"),

@@ -8,9 +8,11 @@ line.
     python3 scripts/run_chip_phases.py            # 3s and 3q
     python3 scripts/run_chip_phases.py 3s         # the reduced-kv attention only
 
-Phases: ``3s`` (the reduced-kv attention, B6) and ``3q`` (the packed-qkv
-attention, B3).  Exits non-zero when a phase fails.  Needs CUDA; imports no
-JAX.
+Phases: ``3s`` (the reduced-kv attention, B6), ``3q`` (the packed-qkv
+attention, B3), ``3h`` (the Halo kernels' forwards: the whole Halo layer
+B4 and the halo attention B5a), ``3hb`` (their backwards) and ``3g`` (the
+gathered halo attention, B5b).  Exits non-zero when a phase fails.  Needs
+CUDA; imports no JAX.
 """
 
 import json
@@ -19,11 +21,13 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PHASES = {"3s": "sra_kernels", "3q": "qkv_kernels"}
+PHASES = {"3s": "sra_kernels", "3q": "qkv_kernels", "3h": "halo_kernels",
+          "3hb": "halo_backward_kernels", "3g": "gather_kernels"}
+DEFAULT = ("3s", "3q")
 
 
 def main() -> None:
-    which = sys.argv[1:] or list(PHASES)
+    which = sys.argv[1:] or list(DEFAULT)
     unknown = [p for p in which if p not in PHASES]
     if unknown:
         raise SystemExit(f"unknown phases {unknown}; choose from {sorted(PHASES)}")
@@ -36,8 +40,10 @@ def main() -> None:
     chip_smoke.probe(torch)
     chip_smoke.build()
     for phase in which:
-        fwd, bwd = getattr(chip_smoke, PHASES[phase])(torch)
-        for rec in fwd + bwd:
+        result = getattr(chip_smoke, PHASES[phase])(torch)
+        records = [r for part in (result.values() if isinstance(result, dict) else result)
+                   for r in part]
+        for rec in records:
             print(json.dumps({"phase": phase, **rec}), flush=True)
     print(f"phases {' '.join(which)} ok in {time.perf_counter() - t0:.1f} s")
 

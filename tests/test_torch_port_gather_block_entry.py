@@ -123,7 +123,8 @@ def test_gather_cuda_forward_and_backward_pass_every_argument(monkeypatch):
     assert serving[4] is None and lse.shape == (5, 2, 16) and out.shape == q.shape
     assert bwd[:6] == (q.data_ptr(), kv.data_ptr(), bias.data_ptr(), out.data_ptr(),
                        lse.data_ptr(), do.data_ptr())
-    assert bwd[8] == fused_halo._chunks(5, 2, 100) == 5  # at most one chunk per window
+    assert bwd[7] == fused_halo._chunks(5, 2, 100, 8) == 5  # at most one chunk per window
+    assert bwd[8] is None  # one key tile: no dq partials
     assert bwd[9:12] == (dq.data_ptr(), dkv.data_ptr(), dbias.data_ptr())
     assert bwd[12:17] == (5, 16, 100, 2, 8)
     assert dq.shape == q.shape and dkv.shape == kv.shape and dbias.shape == bias.shape
@@ -134,7 +135,15 @@ def test_gather_cuda_refuses_what_the_kernels_do_not_take(monkeypatch):
     with fake_cuda(monkeypatch), pytest.raises(NotImplementedError, match="ROADMAP B"):
         fused_halo._cuda_gathered_fwd(*gather_inputs(M=81)[:3], 2, 0.3, save=False)
     with fake_cuda(monkeypatch), pytest.raises(NotImplementedError, match="ROADMAP B"):
-        fused_halo._cuda_gathered_fwd(*gather_inputs(D=40)[:3], 2, 0.3, save=False)
+        fused_halo._cuda_gathered_fwd(*gather_inputs(D=72)[:3], 2, 0.3, save=False)
+    with fake_cuda(monkeypatch) as lib:  # heads 40 wide: the kernels' 64-wide tiles
+        wide = gather_inputs(D=40)
+        out, lse = fused_halo._cuda_gathered_fwd(*wide[:3], 2, 0.3, save=True)
+        assert lib.calls["vtx_halo_attention_fwd"][5:10] == (5, 16, 100, 2, 40)
+        dq, dkv, _ = fused_halo._cuda_gathered_bwd(
+            fused_halo.GatherSaved(*wide[:3], out, lse, 2, 0.3), wide[3])
+        bwd = lib.calls["vtx_halo_attention_bwd"]
+        assert bwd[8] is not None and bwd[9:11] == (dq.data_ptr(), dkv.data_ptr())
     with fake_cuda(monkeypatch), pytest.raises(ValueError, match="bias must be"):
         fused_halo._cuda_gathered_fwd(q, kv, bias[:, :, :64], 2, 0.3, save=False)
     with fake_cuda(monkeypatch), pytest.raises(ValueError, match="kv must be"):
@@ -245,7 +254,9 @@ def _compare(out, out_p, grads, again, plain):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,N,D", [(64, 144, 32), (16, 100, 24)], ids=["w8-h2", "w4-h3"])
+@pytest.mark.parametrize("M,N,D", [(64, 144, 32), (16, 100, 24), (16, 100, 32), (64, 144, 64),
+                                   (64, 324, 32)],
+                         ids=["w8-h2", "w4-h3", "w4-h3-d32", "w8-h2-d64", "w8-h5-streamed"])
 def test_gather_cuda_kernels_match_plain(M, N, D):
     """Forward within 1e-4, backward per tensor within 1e-3·max(1,
     max|plain|) and bit-identical across two runs."""

@@ -168,8 +168,9 @@ def test_cuda_layer_backward_passes_chunks_and_gradients(monkeypatch):
         call = lib.calls["vtx_fused_halo_layer_bwd"]
     assert fhl.BWD_LAUNCHES == before + 1
     assert len(grads) == len(fhl.GRAD_NAMES)
-    chunks = fused_halo.dbias_chunks(2 * 4, 2, 4, 1)
+    chunks = fused_halo.dbias_chunks(2 * 4, 2, 4, 1, 8)
     assert call[44] == chunks and 1 <= chunks <= 8
+    assert call[38] is None  # one key tile: no dq partials
     dbias, drs_attn, drs_ff = grads[12:]
     assert dbias.shape == args[12].shape and drs_attn.shape == drs_ff.shape == (2,)
     assert call[71:74] == (dbias.data_ptr(), drs_attn.data_ptr(), drs_ff.data_ptr())
@@ -196,7 +197,8 @@ def test_cuda_direct_forward_and_backward(monkeypatch):
     assert fwd[:5] == (q.data_ptr(), kv.data_ptr(), bias.data_ptr(), out.data_ptr(),
                        lse.data_ptr())
     assert fwd[5:12] == (2, 8, 12, 2, 8, 4, 2) and lse.shape == (2, 2, 96)
-    assert bwd[9] == fused_halo.dbias_chunks(12, 2, 4, 2)
+    assert bwd[8] == fused_halo.dbias_chunks(12, 2, 4, 2, 8)
+    assert bwd[9] is None  # one key tile: no dq partials
     assert bwd[10:13] == (dq.data_ptr(), dkv.data_ptr(), dbias.data_ptr())
     assert dq.shape == q.shape and dkv.shape == kv.shape and dbias.shape == bias.shape
 
@@ -208,6 +210,17 @@ def test_cuda_refuses_what_the_kernels_do_not_take(monkeypatch):
     wide, _, _ = halo_inputs(C=80, nh=2, D=40)
     with fake_cuda(monkeypatch), pytest.raises(NotImplementedError, match="32 wide"):
         fhl._cuda_fwd(*wide, 2, None, None, "silu", 4, 1, 0.25, 1e-6, save=False)
+    # the attention alone takes heads up to 64 wide: 40 passes its pointers on
+    q40, kv40 = torch.zeros(1, 8, 8, 80), torch.zeros(1, 8, 8, 160)
+    with fake_cuda(monkeypatch) as lib:
+        out, _ = fused_halo._cuda_fwd(q40, kv40, torch.zeros(2, 16, 36), 4, 1, 2, 0.3,
+                                      save=False)
+        call = lib.calls["vtx_halo_attention_direct_fwd"]
+    assert call[:2] == (q40.data_ptr(), kv40.data_ptr()) and call[3] == out.data_ptr()
+    assert call[5:12] == (1, 8, 8, 2, 40, 4, 1)
+    q72, kv72 = torch.zeros(1, 8, 8, 144), torch.zeros(1, 8, 8, 288)
+    with fake_cuda(monkeypatch), pytest.raises(NotImplementedError, match="64 wide"):
+        fused_halo._cuda_fwd(q72, kv72, torch.zeros(2, 16, 36), 4, 1, 2, 0.3, save=False)
     big, _, _ = halo_inputs(H=16, W=16, window=16, halo=1)
     with fake_cuda(monkeypatch), pytest.raises(NotImplementedError, match="64 tokens"):
         fhl._cuda_fwd(*big, 2, None, None, "silu", 16, 1, 0.25, 1e-6, save=False)
@@ -260,20 +273,27 @@ def test_cuda_layer_backward_matches_plain(use_rs):
 
 
 @pytest.mark.cuda
-def test_cuda_direct_backward_matches_plain():
+@pytest.mark.parametrize("D,window,halo", [(32, 8, 2), (64, 8, 2), (32, 8, 4)],
+                         ids=["d32", "d64", "two-key-tiles"])
+def test_cuda_direct_backward_matches_plain(D, window, halo):
+    """Forward and backward kernels against the plain versions on 8x16
+    maps: heads 32 and 64 wide, and 256 keys a window (two backward key
+    tiles, dq summed over them in order); the backward bit-identical from
+    run to run."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
     g = torch.Generator(device="cuda").manual_seed(0)
-    q = torch.randn(2, 8, 16, 64, device="cuda", generator=g)
-    kv = torch.randn(2, 8, 16, 128, device="cuda", generator=g)
-    bias = torch.randn(2, 64, 144, device="cuda", generator=g)
-    do = torch.randn(2, 8, 16, 64, device="cuda", generator=g)
-    out, saved = fused_halo.halo_attention_direct_fwd(q, kv, bias, 8, 2, 2)
+    k = window + 2 * halo
+    q = torch.randn(2, 8, 16, 2 * D, device="cuda", generator=g)
+    kv = torch.randn(2, 8, 16, 4 * D, device="cuda", generator=g)
+    bias = torch.randn(2, window * window, k * k, device="cuda", generator=g)
+    do = torch.randn(2, 8, 16, 2 * D, device="cuda", generator=g)
+    out, saved = fused_halo.halo_attention_direct_fwd(q, kv, bias, window, halo, 2)
     grads = fused_halo.halo_attention_direct_bwd(saved, do)
     again = fused_halo.halo_attention_direct_bwd(saved, do)
     out_p, saved_p = fused_halo.halo_attention_direct_fwd(q.cpu(), kv.cpu(), bias.cpu(),
-                                                          8, 2, 2)
+                                                          window, halo, 2)
     plain = fused_halo.halo_attention_direct_bwd(saved_p, do.cpu())
     torch.testing.assert_close(out.cpu(), out_p, atol=1e-4, rtol=1e-4)
-    for k, k2, p in zip(grads, again, plain):
-        assert torch.equal(k, k2) and _close(k.cpu(), p)
+    for k_, k2, p in zip(grads, again, plain):
+        assert torch.equal(k_, k2) and _close(k_.cpu(), p)

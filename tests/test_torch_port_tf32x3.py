@@ -1,6 +1,7 @@
 """The precision argument of the tensor-core attention kernels (B3
-``fused_attention_qkv`` and B6 ``fused_attention``, csrc/attention_tc.cuh),
-checked on the CPU.
+``fused_attention_qkv`` and B6 ``fused_attention``, csrc/attention_tc.cuh;
+B5a ``halo_attention_direct`` and B5b ``halo_attention``,
+csrc/halo_attention_tc.cuh), checked on the CPU.
 
 The kernels take every product on the tensor cores in 3xTF32: each operand
 is split as x = hi + lo, hi = tf32(x), lo = tf32(x − hi), both rounded by
@@ -9,9 +10,14 @@ and a product is lo·hi + hi·lo + hi·hi (csrc/mma_tf32.cuh).  Here torch
 emulates those products bit for bit in the rounding of their operands and
 runs the kernels' attention with them, forward (S = q·kᵀ, O = P·V) and
 backward (the five products S, dP = do·vᵀ, dV = Pᵀ·do, dQ = dS·k, dK =
-dSᵀ·q), at ViT-S/16 (B 2), PVT-S stage 1 (B 1) and Swin (D 32, the grouped
-bias with the pair mask) shapes, with q, k, v of std 1 (chip_smoke's
-inputs) and of std 3.  The result holds chip_smoke.py's limits against the
+dSᵀ·q), at ViT-S/16 (B 2), PVT-S stage 1 (B 1), Swin (D 32, the grouped
+bias with the pair mask) and halo shapes (a few windows of Halo-S stage 1,
+64 queries against 144 keys, and of window 4 / halo 3, 16 against 100;
+one [H, M, N] bias shared by the windows, every seventh key and value row
+zero as out-of-map positions are), with q, k, v of std 1 (chip_smoke's
+inputs) and of std 3.  The halo kernels pass lo = x − hi to the tensor core
+unrounded, which reads its top 19 bits (lo truncated to TF32); their shapes
+are emulated so.  The result holds chip_smoke.py's limits against the
 port's f32 plain versions (forward atol = rtol = 1e-4, backward
 1e-3·max(1, max|plain|) per tensor); the same products in one TF32 pass do
 not: the forward misses by 4-6x at std 1 and by two orders at std 3, the
@@ -26,10 +32,12 @@ import torch
 from vision_transformers_tpu_torch.ops import fused_attention_mod as fa
 
 FWD_TOL = 1e-4  # chip_smoke.KERNEL_TOL
-SHAPES = {  # name → (B, H, M, N, D, bias groups or 0)
+SHAPES = {  # name → (B, H, M, N, D, bias groups or 0, or "halo": windows)
     "vit_s16": (2, 6, 197, 197, 64, 0),
     "pvt_s_stage1": (1, 1, 3136, 49, 64, 0),
     "swin_stage1": (4, 3, 98, 98, 32, 2),
+    "halo_s_stage1": (6, 3, 64, 144, 32, "halo"),
+    "halo_w4_h3": (8, 3, 16, 100, 32, "halo"),
 }
 
 
@@ -40,16 +48,23 @@ def tf32(x: torch.Tensor) -> torch.Tensor:
     return ((u + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def split(x: torch.Tensor):
+def truncated(x: torch.Tensor) -> torch.Tensor:
+    """x as the tensor core reads a TF32 operand: its low 13 bits dropped."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def split(x: torch.Tensor, trunc: bool = False):
+    """(hi, lo): lo rounded as hi is, or (``trunc``, the halo kernels) passed
+    unrounded and truncated by the tensor core."""
     hi = tf32(x)
-    return hi, tf32(x - hi)
+    return hi, (truncated if trunc else tf32)(x - hi)
 
 
-def mm(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+def mm(a: torch.Tensor, b: torch.Tensor, passes: int, trunc: bool = False) -> torch.Tensor:
     """a·b with TF32 operands: three passes, small terms first (3xTF32), or
     one (1xTF32)."""
-    a_hi, a_lo = split(a)
-    b_hi, b_lo = split(b)
+    a_hi, a_lo = split(a, trunc)
+    b_hi, b_lo = split(b, trunc)
     if passes == 1:
         return a_hi @ b_hi
     return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
@@ -58,7 +73,9 @@ def mm(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
 def inputs(name, std=1.0, seed=0):
     """q, k, v of std ``std``, do [B, H, rows, D] of std 1 and the bias
     [B, H, M, N] or None: for Swin a std-0.5 table per group with −1e9
-    between the two windows of a packed pair, rows b in group b // (B/G)."""
+    between the two windows of a packed pair, rows b in group b // (B/G);
+    for the halo shapes B windows, one std-0.5 bias [H, M, N] for all, and
+    zero key / value rows."""
     B, H, M, N, D, G = SHAPES[name]
     rng = np.random.default_rng([seed, M, N, D])
 
@@ -68,39 +85,43 @@ def inputs(name, std=1.0, seed=0):
     q, k, v, do = n(B, H, M, D, s=std), n(B, H, N, D, s=std), n(B, H, N, D, s=std), \
         n(B, H, M, D)
     bias = None
-    if G:
+    if G == "halo":
+        k[:, :, ::7] = 0
+        v[:, :, ::7] = 0
+        bias = n(H, M, N, s=0.5)
+    elif G:
         win = torch.arange(N) // (N // 2)
         mask = torch.where(win[:, None] == win[None, :], 0.0, -1e9)
         bias = (n(G, H, M, N, s=0.5) + mask).repeat_interleave(B // G, 0)
     return q, k, v, do, bias
 
 
-def forward(q, k, v, bias, scale, passes):
+def forward(q, k, v, bias, scale, passes, trunc=False):
     """The kernels' forward: S, the max-subtracted softmax in f32, O = P·V
     (normalised after the product) → (out, lse)."""
-    s = mm(q, k.transpose(-1, -2), passes) * scale
+    s = mm(q, k.transpose(-1, -2), passes, trunc) * scale
     if bias is not None:
         s = s + bias
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)  # noqa: E741
-    return mm(p, v, passes) / l, (m + torch.log(l))[..., 0]
+    return mm(p, v, passes, trunc) / l, (m + torch.log(l))[..., 0]
 
 
-def backward(q, k, v, bias, out, lse, do, scale, passes):
+def backward(q, k, v, bias, out, lse, do, scale, passes, trunc=False):
     """The kernels' backward from the saved lse: P, dP, dS = P ⊙ (dP − Δ)
     with Δ = rowsum(do ⊙ out), dV = Pᵀ·do, dK = (dS·scale)ᵀ·q, dQ =
     (dS·scale)·k → (dq, dk, dv, dS)."""
-    s = mm(q, k.transpose(-1, -2), passes) * scale
+    s = mm(q, k.transpose(-1, -2), passes, trunc) * scale
     if bias is not None:
         s = s + bias
     p = torch.exp(s - lse[..., None])
-    dp = mm(do, v.transpose(-1, -2), passes)
+    dp = mm(do, v.transpose(-1, -2), passes, trunc)
     ds = p * (dp - (do * out).sum(-1, keepdim=True))
     dss = ds * scale
-    dv = mm(p.transpose(-1, -2), do, passes)
-    dk = mm(dss.transpose(-1, -2), q, passes)
-    dq = mm(dss, k, passes)
+    dv = mm(p.transpose(-1, -2), do, passes, trunc)
+    dk = mm(dss.transpose(-1, -2), q, passes, trunc)
+    dq = mm(dss, k, passes, trunc)
     return dq, dk, dv, ds
 
 
@@ -134,8 +155,9 @@ def bwd_excess(grads, plain_grads):
 @pytest.fixture(scope="module", params=[(name, std) for std in (1.0, 3.0) for name in SHAPES],
                 ids=lambda p: f"{p[0]}-std{p[1]:g}")
 def case(request):
+    """(label, whether lo is truncated: the halo kernels, the plain run)."""
     name, std = request.param
-    return f"{name} std {std:g}", std, plain(name, std)
+    return f"{name} std {std:g}", SHAPES[name][5] == "halo", plain(name, std)
 
 
 def test_tf32_rounding_is_cvt_rna():
@@ -152,8 +174,8 @@ def test_tf32_rounding_is_cvt_rna():
 
 
 def test_3xtf32_forward_within_the_limits(case):
-    name, _, ((q, k, v, _, bias), scale, out_p, lse_p, _) = case
-    out, lse = forward(q, k, v, bias, scale, passes=3)
+    name, trunc, ((q, k, v, _, bias), scale, out_p, lse_p, _) = case
+    out, lse = forward(q, k, v, bias, scale, passes=3, trunc=trunc)
     assert fwd_within(out, lse, out_p, lse_p), name
     # inside by a margin: at most half of the limit (a tenth at std 1)
     err = ((out - out_p).abs() / (FWD_TOL * (1 + out_p.abs()))).max().item()
@@ -167,8 +189,8 @@ def test_1xtf32_forward_outside_the_limits(case):
 
 
 def test_3xtf32_backward_within_the_limits(case):
-    name, _, ((q, k, v, do, bias), scale, out_p, lse_p, grads_p) = case
-    dq, dk, dv, ds = backward(q, k, v, bias, out_p, lse_p, do, scale, passes=3)
+    name, trunc, ((q, k, v, do, bias), scale, out_p, lse_p, grads_p) = case
+    dq, dk, dv, ds = backward(q, k, v, bias, out_p, lse_p, do, scale, passes=3, trunc=trunc)
     dbias = ds.sum(0) if bias is not None else None
     assert bwd_excess((dq, dk, dv, dbias), grads_p) < 0.1, name
 

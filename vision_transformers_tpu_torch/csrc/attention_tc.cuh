@@ -148,16 +148,6 @@ __device__ __forceinline__ void split_tile(float* T, float* L) {
   }
 }
 
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 // ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
@@ -217,7 +207,7 @@ __device__ __forceinline__ void fwd_tile(const float* Qw, const float* Kh, const
   float alpha[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const float mn = fmaxf(m[r], quad_max(mx[r]));  // finite: the tile has a key
+    const float mn = fmaxf(m[r], tc::quad_max(mx[r]));  // finite: the tile has a key
     alpha[r] = expf(m[r] - mn);                      // 0 on the first tile
     m[r] = mn;
     l[r] *= alpha[r];
@@ -320,7 +310,7 @@ __global__ void __launch_bounds__(THREADS, 1) attn_fwd_kernel(const FwdArgs a) {
     }
     if (rows) {
 #pragma unroll
-      for (int r = 0; r < 2; ++r) l[r] = quad_sum(l[r]);
+      for (int r = 0; r < 2; ++r) l[r] = tc::quad_sum(l[r]);
       const float inv[2] = {1.f / l[0], 1.f / l[1]};
 #pragma unroll
       for (int r = 0; r < 2; ++r) {

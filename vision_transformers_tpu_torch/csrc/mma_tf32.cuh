@@ -129,6 +129,17 @@ __device__ __forceinline__ void load_b_kperm(FragB& f, const float* Hi, const fl
   f.lo[1] = __float_as_uint(Lo[(2 * t + 1) * ld + g]);
 }
 
+// the max / sum over the quad of lanes that holds one row of a C fragment
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
 // ---------------------------------------------------------------------------
 // cp.async staging: 16- or 4-byte copies global → shared that zero-fill
 // when ``ok`` is false (src is then not read, but must be a valid,

@@ -169,7 +169,7 @@ _SIGNATURES = {
         _P, _P, _P, _P,          # qkv, acc, z, hid
         _P, _P, _P, _P, _P,      # mu1, rstd1, lse, mu2, rstd2
         _P,                      # do
-        _P, _P, _P, _P, _P, _P,  # da, af, dh, dz, dacc, delta (workspace)
+        _P, _P, _P, _P, _P, _P,  # da, af, dh, dz, dacc, dq partials (workspace, nullable)
         _P, _P, _P, _P, _P, _I,  # dqkv, u, dln, dkvw, dbias partials, chunks
         _P, _I, _I, _I, _I, _P,  # wpart, splits out / qkv / w1 / w2, cpart
         _P, _P, _P,              # dx, dln1_scale, dln1_bias
@@ -251,7 +251,7 @@ _SIGNATURES = {
     ],
     "vtx_halo_attention_direct_bwd": [
         _P, _P, _P, _P, _P, _P,  # q, kv, bias, out, lse, do
-        _P, _P, _P, _I,          # delta, dkvw, dbias partials (workspace), chunks
+        _P, _P, _I, _P,          # dkvw, dbias partials, chunks, dq partials (nullable)
         _P, _P, _P,              # dq, dkv, dbias
         _I, _I, _I, _I, _I, _I, _I,  # B, H, W, heads, D, window, halo
         _F, _P,                  # scale, stream
@@ -263,7 +263,7 @@ _SIGNATURES = {
     ],
     "vtx_halo_attention_bwd": [
         _P, _P, _P, _P, _P, _P,  # q, kv, bias, out, lse, do
-        _P, _P, _I,              # delta, dbias partials (workspace), chunks
+        _P, _I, _P,              # dbias partials, chunks, dq partials (nullable)
         _P, _P, _P,              # dq, dkv, dbias
         _I, _I, _I, _I, _I,      # B' windows, M, N, heads, D
         _F, _P,                  # scale, stream

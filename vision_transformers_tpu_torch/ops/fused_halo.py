@@ -23,10 +23,13 @@ A CPU tensor runs the plain torch versions
 scores, softmax and products, the kernels' steps); the whole Halo layer's
 op (:mod:`.fused_halo_layer`) shares them.  A CUDA tensor runs the
 hand-written kernels of ``csrc/fused_halo.cu`` or raises; it never falls
-back to the plain versions.  The kernels take float32, heads up to
-``MAX_DIM_HEAD`` wide, windows of up to ``MAX_QUERIES`` tokens and
-2·halo ≤ window (each token lies in at most 2 x 2 neighbourhoods);
-anything else on a CUDA tensor raises NotImplementedError.
+back to the plain versions: two tensor-core kernels (3xTF32) of
+``csrc/halo_attention_tc.cuh``, a block per head and chunk of windows with
+the head's bias resident, one pass per window each way.  The kernels take
+float32, heads up to ``MAX_DIM_HEAD`` wide, windows of up to
+``MAX_QUERIES`` tokens and 2·halo ≤ window (each token lies in at most
+2 x 2 neighbourhoods); anything else on a CUDA tensor raises
+NotImplementedError.
 
 The module also holds the JAX module's gathered form, :func:`halo_attention`
 (``fused_halo.py::halo_attention``, :145): the same softmax on the
@@ -38,10 +41,10 @@ back onto the map) stay torch data movement outside it, as in the JAX
 package.  Its forward keeps lse [B', n_head, M]; its backward returns dq,
 dkv [B', N, 2C] and dbias summed over the B' windows.  A CPU tensor runs
 :func:`gathered_fwd_reference` / :func:`gathered_bwd_reference`; a CUDA
-tensor runs the same three kernels of ``csrc/fused_halo.cu`` as the direct
-op, in their gathered addressing, f32, heads up to ``MAX_DIM_HEAD`` wide,
-windows of up to ``MAX_QUERIES`` queries and any N (the keys stream in
-tiles), or raises.
+tensor runs the same two kernels as the direct op, in their gathered
+addressing, f32, heads up to ``MAX_DIM_HEAD`` wide, windows of up to
+``MAX_QUERIES`` queries and any N (past one resident tile the keys
+stream), or raises.
 """
 
 from __future__ import annotations
@@ -74,12 +77,12 @@ BWD_LAUNCHES = 0
 HALO_GATHER_LAUNCHES = 0
 HALO_GATHER_BWD_LAUNCHES = 0
 
-MAX_DIM_HEAD = 32  # csrc HDH: the register width of a head
-MAX_QUERIES = 64   # csrc HQ: one query of a window per thread
+MAX_DIM_HEAD = 64  # csrc halo_attention_tc.cuh: heads 32 or 64 wide in shared memory
+MAX_QUERIES = 64   # four 16-row query slices of a window
 
-# dk / dv blocks to aim the backward's chunking at: two waves of 132 SMs x
-# the 6 blocks (37 KB of shared memory each) one SM holds
-_DKDV_BLOCKS = 2 * 132 * 6
+# backward blocks to aim the chunking at: two waves of 132 SMs x the one
+# block (up to 8 warps, ~185 KB of shared memory) an SM holds
+_BWD_BLOCKS = 2 * 132
 
 
 # ---------------------------------------------------------------------------
@@ -273,16 +276,30 @@ def check_bias(bias: torch.Tensor, n_head: int, window: int, halo: int) -> None:
                          f"{tuple(bias.shape)} strides {bias.stride()}")
 
 
-def dbias_chunks(pairs: int, n_head: int, window: int, halo: int) -> int:
-    """Chunks of the B·S (image, window) pairs for the dk / dv pass: one
-    dbias partial [n_head, w², k²] each, summed in order afterwards."""
-    return _chunks(pairs, n_head, (window + 2 * halo) ** 2)
+def dbias_chunks(pairs: int, n_head: int, window: int, halo: int, dim_head: int) -> int:
+    """Chunks of the B·S (image, window) pairs for the backward: one dbias
+    partial [n_head, w², k²] each, summed in order afterwards."""
+    return _chunks(pairs, n_head, (window + 2 * halo) ** 2, dim_head)
 
 
-def _chunks(pairs: int, n_head: int, n_keys: int) -> int:
-    """dk / dv chunks of ``pairs`` windows of ``n_keys`` keys each."""
-    key_tiles = -(-n_keys // 64)  # csrc HKB
-    return max(1, min(pairs, _DKDV_BLOCKS // (key_tiles * n_head)))
+def key_tiles(n_keys: int, dim_head: int) -> int:
+    """The backward's key tiles of a window (csrc hta::bwd_key_tile: 144 keys
+    at heads up to 32 wide, 72 at 64); past one, dq comes as a partial per
+    tile, summed in order."""
+    return -(-n_keys // (144 if dim_head <= 32 else 72))
+
+
+def _chunks(pairs: int, n_head: int, n_keys: int, dim_head: int) -> int:
+    """Backward chunks of ``pairs`` windows of ``n_keys`` keys each: a block
+    per (chunk, head, key tile)."""
+    return max(1, min(pairs, 65535, _BWD_BLOCKS // (key_tiles(n_keys, dim_head) * n_head)))
+
+
+def dq_partials(n_keys: int, rows: int, dim_head: int, n_head: int, **opts):
+    """The dq partials' workspace [key tiles·rows·HD], or None with one key
+    tile."""
+    kt = key_tiles(n_keys, dim_head)
+    return torch.empty((kt * rows * n_head * dim_head,), **opts) if kt > 1 else None
 
 
 def _check_maps(q, kv, n_head):
@@ -328,25 +345,25 @@ def _cuda_bwd(saved: DirectSaved, do: torch.Tensor):
         raise ValueError(f"do must be {tuple(q.shape)}, got {tuple(do.shape)}")
     b, H, W, C = q.shape
     nh, window, halo = saved.n_head, saved.window, saved.halo
-    k = window + 2 * halo
+    k, D = window + 2 * halo, C // nh
     S = (H // window) * (W // window)
-    chunks = dbias_chunks(b * S, nh, window, halo)
+    chunks = dbias_chunks(b * S, nh, window, halo, D)
     from ._build import build
 
     lib = build()
     opts = dict(device=q.device, dtype=torch.float32)
-    delta = torch.empty((b * nh * H * W,), **opts)
     dkvw = torch.empty((b * S * k * k * 2 * C,), **opts)
     part = torch.empty((chunks * nh * window * window * k * k,), **opts)
+    dq_part = dq_partials(k * k, b * H * W, D, nh, **opts)
     dq, dkv = torch.empty_like(q), torch.empty_like(kv)
     dbias = torch.empty_like(bias)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         BWD_LAUNCHES += 1
         err = lib.vtx_halo_attention_direct_bwd(
-            ptr(q), ptr(kv), ptr(bias), ptr(out), ptr(lse), ptr(do), ptr(delta),
-            ptr(dkvw), ptr(part), chunks, ptr(dq), ptr(dkv), ptr(dbias), b, H, W, nh,
-            C // nh, window, halo, ctypes.c_float(saved.scale), stream)
+            ptr(q), ptr(kv), ptr(bias), ptr(out), ptr(lse), ptr(do), ptr(dkvw),
+            ptr(part), chunks, ptr(dq_part), ptr(dq), ptr(dkv), ptr(dbias), b, H, W, nh,
+            D, window, halo, ctypes.c_float(saved.scale), stream)
     _raise_on(err, "halo_attention_direct backward")
     return dq, dkv, dbias
 
@@ -523,20 +540,20 @@ def _cuda_gathered_bwd(saved: GatherSaved, do: torch.Tensor):
         raise ValueError(f"do and out must be {tuple(q.shape)}, got {tuple(do.shape)}, "
                          f"{tuple(out.shape)}")
     nh = saved.n_head
-    chunks = _chunks(B, nh, N)
+    chunks = _chunks(B, nh, N, D)
     from ._build import build
 
     lib = build()
     opts = dict(device=q.device, dtype=torch.float32)
-    delta = torch.empty((B * nh * M,), **opts)
     part = torch.empty((chunks * nh * M * N,), **opts)
+    dq_part = dq_partials(N, B * M, D, nh, **opts)
     dq, dkv, dbias = torch.empty_like(q), torch.empty_like(kv), torch.empty_like(bias)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         HALO_GATHER_BWD_LAUNCHES += 1
         err = lib.vtx_halo_attention_bwd(
-            ptr(q), ptr(kv), ptr(bias), ptr(out), ptr(lse), ptr(do), ptr(delta),
-            ptr(part), chunks, ptr(dq), ptr(dkv), ptr(dbias), B, M, N, nh, D,
+            ptr(q), ptr(kv), ptr(bias), ptr(out), ptr(lse), ptr(do), ptr(part), chunks,
+            ptr(dq_part), ptr(dq), ptr(dkv), ptr(dbias), B, M, N, nh, D,
             ctypes.c_float(saved.scale), stream)
     _raise_on(err, "halo_attention backward")
     return dq, dkv, dbias

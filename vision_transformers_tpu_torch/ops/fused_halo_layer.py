@@ -25,8 +25,9 @@ nothing.
 A CPU tensor runs the plain torch versions (LN statistics f32, dots
 f32-accumulated, softmax and activation f32); a CUDA tensor runs the
 hand-written kernels of ``csrc/fused_halo.cu`` or raises, never the plain
-versions.  The kernels take float32, ``activation="silu"`` and the
-geometry :func:`.fused_halo.check_halo_geometry` admits.  Weights may be
+versions.  The kernels take float32, ``activation="silu"``, heads up to
+``MAX_DIM_HEAD`` wide and the geometry
+:func:`.fused_halo.check_halo_geometry` admits.  Weights may be
 any 2-D strided view (the model passes ``linear.weight.t()``; their
 gradients come back in the view's layout).
 """
@@ -39,7 +40,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .fused_halo import (attention_bwd_reference, attention_fwd_reference,
-                         check_bias, check_halo_geometry, dbias_chunks)
+                         check_bias, check_halo_geometry, dbias_chunks, dq_partials)
 from .fused_layer import (_default_scale, _dot, _ln_stats, _raise_on, _residual,
                           _splits, cast_like, check_f32, check_matrix, check_vector,
                           like_layout, out_proj_bwd_reference, ptr,
@@ -55,6 +56,8 @@ __all__ = ["fused_halo_layer", "fused_halo_layer_reference", "fused_halo_layer_f
 # (chip_smoke.py reads them to show the main path went through the kernels)
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+
+MAX_DIM_HEAD = 32  # the whole layer's own limit (the attention alone takes 64)
 
 GRAD_NAMES = ("dx", "dln1_scale", "dln1_bias", "dwqkv", "dwout", "dbout",
               "dln2_scale", "dln2_bias", "dw1", "db1", "dw2", "db2", "dbias",
@@ -196,6 +199,9 @@ def _check(x, ln1_scale, ln1_bias, wqkv, wout, bout, ln2_scale, ln2_bias, w1, b1
                          f"{tuple(wqkv.shape)}, {tuple(w1.shape)}")
     HD = wqkv.shape[1] // 3
     D, Fdim = HD // n_head, w1.shape[1]
+    if D > MAX_DIM_HEAD:
+        raise NotImplementedError(
+            f"the CUDA fused_halo_layer takes heads up to {MAX_DIM_HEAD} wide; got {D}")
     check_halo_geometry(H, W, n_head, D, window, halo)
     check_bias(bias, n_head, window, halo)
     check_vector("ln1_scale", ln1_scale, C)
@@ -272,7 +278,7 @@ def _cuda_bwd(saved: HaloSaved, do: torch.Tensor, need_drs):
     D, Fdim = HD // nh, s.w1.shape[1]
     M, k = B * H * W, window + 2 * halo
     S = (H // window) * (W // window)
-    chunks = dbias_chunks(B * S, nh, window, halo)
+    chunks = dbias_chunks(B * S, nh, window, halo, D)
     from ._build import build
 
     lib = build()
@@ -287,7 +293,7 @@ def _cuda_bwd(saved: HaloSaved, do: torch.Tensor, need_drs):
         else None,
         af=torch.empty((M, Fdim), **opts), dh=torch.empty((M, Fdim), **opts),
         dz=torch.empty((M, C), **opts), dacc=torch.empty((M, HD), **opts),
-        delta=torch.empty((B * nh * H * W,), **opts),
+        dq_part=dq_partials(k * k, M, D, nh, **opts),
         dqkv=torch.empty((M, 3 * HD), **opts), u=torch.empty((M, C), **opts),
         dln=torch.empty((M, C), **opts),
         dkvw=torch.empty((B * S * k * k * 2 * HD,), **opts),
@@ -315,7 +321,7 @@ def _cuda_bwd(saved: HaloSaved, do: torch.Tensor, need_drs):
             ptr(s.bias), ptr(s.rs_attn), ptr(s.rs_ff),
             *map(ptr, (s.qkv, s.acc, s.z, s.hid, s.mu1, s.rstd1, s.lse, s.mu2,
                        s.rstd2, do)),
-            *(ptr(ws[n]) for n in ("da", "af", "dh", "dz", "dacc", "delta", "dqkv",
+            *(ptr(ws[n]) for n in ("da", "af", "dh", "dz", "dacc", "dq_part", "dqkv",
                                    "u", "dln", "dkvw", "part")), chunks,
             ptr(wpart_t), *splits, ptr(cpart),
             ptr(dx), ptr(dg1), ptr(db1),
