@@ -15,10 +15,21 @@ non-zero and prints no ok line):
 
 1. probe   torch / CUDA / nvcc / nvidia-smi / PIL; the card must be sm_90
 2. build   nvcc → shared library, one nvcc per source in parallel (timed);
-           ptxas's registers and spills, and the HMMA count (cuobjdump
-           -sass) of every instantiation of the tensor-core attention
-           kernels that B6, B3, B5a, B5b and B4 run (raises on a copy
-           without one)
+           ptxas's registers and spills, and the tensor-core instruction
+           counts (cuobjdump -sass: HMMA, HGMMA) of every instantiation of
+           the tensor-core attention kernels that B6, B3, B8, B5a, B5b and
+           B4 run and of the GEMM core (raises on a copy without one)
+3m. gemm   the GEMM core (csrc/gemm_tc.cu, 3xTF32 on wgmma), under every
+           projection of B1, B2, B4, B7, B8 and B9, alone through its thin C
+           entry: the three forms (row-major A with the epilogue; B9's map
+           forms; split-K over Aᵀ storage), every epilogue combination the
+           paths use, the weight K-major and N-major, odd small shapes and
+           the main paths' products (ViT-S/16 at 25,216 rows, Swin-S stages
+           1 and 3 at 64 images, their split-K weight gradients); row forms
+           within atol = rtol = 1e-4 of torch.matmul in f32 (TF32 off),
+           split-K within 1e-3·max(1, max|plain|) and bit-identical across
+           two runs; median ms, TFLOP/s and the bound beside torch.matmul's
+           f32 time
 3. kernels each forward kernel vs its plain version, f32, atol = rtol = 1e-4
            (same f32 math, another summation order over K ≤ 3072): at an odd
            small shape, at every ViT-S shape phases 5 and 6 give it (48 / 160
@@ -45,9 +56,9 @@ non-zero and prints no ok line):
            forward + plain backward, the layer with and without row scales,
            the halo attention also at heads 64 wide; per tensor ≤
            1e-3·max(1, max|plain|); two runs bit-identical; median ms at
-           each stage's training call; the halo attention's bound at the
-           tensor-core rate, the layer's with its GEMMs at the FMA rate and
-           its attention at the tensor-core rate
+           each stage's training call; the bounds at the tensor-core rate
+           (the layer's GEMMs on the GEMM core, its attention and the halo
+           attention on halo_attention_tc.cuh)
 3b (Twins) the attention layer with Twins' [m, m] pair mask (−1e9 across the
            windows of a packed pair) and a row scale, serving forward,
            training forward and backward vs the plain versions (per tensor
@@ -91,9 +102,10 @@ non-zero and prints no ok line):
            100 keys); median ms beside F.scaled_dot_product_attention on the
            same gathered problem; bound at the tensor-core rate
 3k.        the attention block (ViT's and Swin's 'block' path): the same
-           checks at an odd call ([N, N] bias, Cout 40 ≠ C 48), ViT-S/16 at
-           B 128 and 64 (no bias) and Swin-S's four stages at 64 images
-           with the grouped bias; median ms beside
+           checks at an odd call ([N, N] bias, Cout 40 ≠ C 48), heads 64
+           wide with a grouped bias (odd) and an [H, N, N] bias (ViT-S/16
+           widths), ViT-S/16 at B 128 and 64 (no bias) and Swin-S's four
+           stages at 64 images with the grouped bias; median ms beside
            F.multi_head_attention_forward (need_weights=False, the same
            weights, the bias as a float mask) and its autograd backward
 3w.        the map-resident Swin layer (Swin's 'swin' path) at the four
@@ -253,21 +265,23 @@ KERNELS = {  # name → (source, the TPU kernel it replaces)
                        "vision_transformers_tpu/ops/fused_halo.py:44"),
     "halo_attention_bwd": ("vision_transformers_tpu_torch/csrc/halo_attention_tc.cuh",
                            "vision_transformers_tpu/ops/fused_halo.py:72"),
-    "fused_attention_block": ("vision_transformers_tpu_torch/csrc/fused_layer.cu",
+    "fused_attention_block": ("vision_transformers_tpu_torch/csrc/fused_attention_qkv.cu",
                               "vision_transformers_tpu/ops/fused_block.py:57"),
-    "fused_attention_block_bwd": ("vision_transformers_tpu_torch/csrc/fused_layer_bwd.cu",
+    "fused_attention_block_bwd": ("vision_transformers_tpu_torch/csrc/fused_attention_qkv.cu",
                                   "vision_transformers_tpu/ops/fused_block.py:100"),
     "fused_swin_layer": ("vision_transformers_tpu_torch/csrc/fused_swin.cu",
                          "vision_transformers_tpu/ops/fused_swin.py:99"),
     "fused_swin_layer_bwd": ("vision_transformers_tpu_torch/csrc/fused_swin.cu",
                              "vision_transformers_tpu/ops/fused_swin.py:200"),
 }
-# the tensor-core attention kernels (3xTF32): csrc/attention_tc.cuh's, which B6
-# and B3 run, and csrc/halo_attention_tc.cuh's, which B5a, B5b and B4's
-# attention run; the build phase counts their HMMA, and their bound takes the
-# f32-accurate tensor-core rate
+# the tensor-core kernels (3xTF32): the attention of csrc/attention_tc.cuh, which
+# B6, B3 and B8 run, and of csrc/halo_attention_tc.cuh, which B5a, B5b and B4's
+# attention run (mma.sync), and the GEMM core of csrc/gemm_tc.cu, which every
+# projection of B1, B2, B4, B7, B8 and B9 runs (wgmma); the build phase counts
+# their tensor-core instructions, and their bound takes the f32-accurate
+# tensor-core rate
 TENSOR_CORE_FUNCTIONS = ("attn_fwd_kernel", "attn_bwd_kernel", "halo_fwd_kernel",
-                         "halo_bwd_kernel")
+                         "halo_bwd_kernel", "gemm_tc_kernel")
 KERNEL_TOL = 1e-4
 DEVICE = "cuda"
 
@@ -337,14 +351,15 @@ def build():
 
 
 def tensor_core_counts(_build, library):
-    """The tensor-core instructions (HMMA in ``cuobjdump -sass``) of each
-    instantiation of the tensor-core attention kernels (attention_tc.cuh,
-    halo_attention_tc.cuh), in each source that compiles them
-    (fused_attention.cu for B6, fused_attention_qkv.cu for B3, fused_halo.cu
-    for B5a, B5b and B4); raises if one has none."""
+    """The tensor-core instructions in ``cuobjdump -sass`` (HMMA: mma.sync;
+    HGMMA: wgmma) of each instantiation of the tensor-core kernels — the
+    attention of attention_tc.cuh and halo_attention_tc.cuh, in each source
+    that compiles them (fused_attention.cu for B6, fused_attention_qkv.cu
+    for B3 and B8, fused_halo.cu for B5a, B5b and B4), and the GEMM core's
+    (gemm_tc.cu); raises if one has none."""
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     sass = run([cuobjdump, "-sass", library], timeout=300)
-    pattern = re.compile(r"_GLOBAL__N__\w+?_\d+_(\w+?)_cu_[0-9a-f]+3(?:tca|hta)\d+("
+    pattern = re.compile(r"_GLOBAL__N__\w+?_\d+_(\w+?)_cu_[0-9a-f]+3(?:tca|hta|gtc)\d+("
                          + "|".join(TENSOR_CORE_FUNCTIONS) + r")I((?:L[ib]\d+E)+)E")
     counts, name = {}, None
     for line in sass.splitlines():
@@ -354,14 +369,17 @@ def tensor_core_counts(_build, library):
             if m:
                 args = ",".join(re.findall(r"L[ib](\d+)E", m.group(3)))
                 name = f"{m.group(1)}.cu {m.group(2)}<{args}>"
-                counts[name] = 0
-        elif name and "HMMA" in line:
-            counts[name] += 1
-    if not counts:
-        raise RuntimeError("build: no tensor-core attention kernel in the library")
+                counts[name] = {"HMMA": 0, "HGMMA": 0}
+        elif name:
+            for op in ("HGMMA", "HMMA"):
+                if op in line:
+                    counts[name][op] += 1
+                    break
+    if not any(n.endswith(">") and "gemm_tc_kernel" in n for n in counts):
+        raise RuntimeError("build: no GEMM core kernel in the library")
     for name, n in sorted(counts.items()):
-        log(f"build: {name}: HMMA {n}")
-        if n == 0:
+        log(f"build: {name}: HMMA {n['HMMA']}, HGMMA {n['HGMMA']}")
+        if not n["HMMA"] + n["HGMMA"]:
             raise RuntimeError(f"build: {name} has no tensor-core instruction")
 
 
@@ -391,12 +409,13 @@ def bound(flops, nbytes, tensor_cores=False):
 
 
 def attn_fwd_work(B, N, C, H, D, saves=False, groups=0):
-    """(operations, bytes) of the attention half's forward: four projection
-    products and two attention products; x, weights (and with ``groups``
-    the bias [G, H, N, N]) in, out written, and with ``saves`` the residuals
-    (qkv, acc, mu, rstd, lse) written too."""
+    """((FMA operations, tensor-core operations), bytes) of the attention
+    half's forward: two attention products (4·B·H·N²·D, f32 FMA) and four
+    projection products (8·M·C·HD, the GEMM core's tensor cores); x, weights
+    (and with ``groups`` the bias [G, H, N, N]) in, out written, and with
+    ``saves`` the residuals (qkv, acc, mu, rstd, lse) written too."""
     M, HD = B * N, H * D
-    flops = 8 * M * C * HD + 4 * B * H * N * N * D
+    flops = (4 * B * H * N * N * D, 8 * M * C * HD)
     nbytes = 4 * (2 * M * C + 4 * C * HD + 3 * HD + 3 * C + B + groups * H * N * N)
     if saves:
         nbytes += 4 * (4 * M * HD + 2 * M + B * H * N)
@@ -436,8 +455,8 @@ def qkv_bwd_work(B, N, H, D, groups=0):
 
 
 def ff_fwd_work(B, N, C, F, row_scale=False, saves=False):
-    """(operations, bytes) of the FF residual branch's forward: two GEMMs,
-    4·M·C·F; x, the LN and FF parameters (and the row scale) read, out (and
+    """(operations, bytes) of the FF residual branch's forward: two GEMMs
+    on the tensor cores, 4·M·C·F; x, the LN and FF parameters (and the row scale) read, out (and
     with ``saves`` hid, mu, rstd) written."""
     M = B * N
     nbytes = 4 * (2 * M * C + 2 * C * F + F + 3 * C + (B if row_scale else 0))
@@ -447,7 +466,8 @@ def ff_fwd_work(B, N, C, F, row_scale=False, saves=False):
 
 
 def ff_bwd_work(B, N, C, F, row_scale=False):
-    """(operations, bytes) of its backward: four GEMMs, 8·M·C·F; x, do, the
+    """(operations, bytes) of its backward: four GEMMs on the tensor cores,
+    8·M·C·F; x, do, the
     saves and the parameters read, dx and the parameter gradients written."""
     M = B * N
     params = 2 * C * F + F + 3 * C + (B if row_scale else 0)
@@ -455,11 +475,12 @@ def ff_bwd_work(B, N, C, F, row_scale=False):
 
 
 def layer_fwd_work(B, N, C, H, D, F, groups=0, row_scales=False, saves=False):
-    """(operations, bytes) of the whole layer's forward: the attention half
-    plus the FF GEMMs (4·M·C·F); with ``groups`` the bias [G, H, N, N] read,
-    with ``saves`` qkv, acc, z, hid and the statistics written."""
+    """((FMA operations, tensor-core operations), bytes) of the whole
+    layer's forward: the attention half plus the FF GEMMs (4·M·C·F, tensor
+    cores); with ``groups`` the bias [G, H, N, N] read, with ``saves`` qkv,
+    acc, z, hid and the statistics written."""
     M, HD = B * N, H * D
-    flops = 8 * M * C * HD + 4 * M * C * F + 4 * B * H * N * N * D
+    flops = (4 * B * H * N * N * D, 8 * M * C * HD + 4 * M * C * F)
     nbytes = 4 * (2 * M * C + 4 * C * HD + 2 * C * F + 3 * HD + 5 * C + F
                   + groups * H * N * N + (2 * B if row_scales else 0))
     if saves:
@@ -468,25 +489,26 @@ def layer_fwd_work(B, N, C, H, D, F, groups=0, row_scales=False, saves=False):
 
 
 def attn_bwd_work(B, N, C, H, D, groups=0):
-    """(operations, bytes) of the backward: the four projection products of
-    the weight and input gradients (16·M·C·HD) and five attention products
-    (recomputed scores, dv, dp, dk, dq); reads x, dz, the saves, the
-    weights (and with ``groups`` the bias) once, writes dx and the parameter
-    gradients once."""
+    """((FMA operations, tensor-core operations), bytes) of the backward:
+    five attention products (recomputed scores, dv, dp, dk, dq; f32 FMA) and
+    the four projection products of the weight and input gradients
+    (16·M·C·HD, tensor cores); reads x, dz, the saves, the weights (and with
+    ``groups`` the bias) once, writes dx and the parameter gradients once."""
     M, HD = B * N, H * D
-    flops = 16 * M * C * HD + 10 * B * H * N * N * D
+    flops = (10 * B * H * N * N * D, 16 * M * C * HD)
     nbytes = 4 * (3 * M * C + 4 * M * HD + 2 * M + B * H * N
                   + 2 * (4 * C * HD + 3 * HD + 3 * C) + 2 * B + groups * H * N * N)
     return flops, nbytes
 
 
 def layer_bwd_work(B, N, C, H, D, F, groups=0, row_scales=False):
-    """(operations, bytes) of the whole layer's backward: the attention
-    half's (attn_bwd_work) plus the FF half's four GEMMs (8·M·C·F); reads x,
-    do, the saves (qkv, acc, z, hid, statistics, lse), the weights and the
-    bias once, writes dx, the parameter gradients and dextra once."""
+    """((FMA operations, tensor-core operations), bytes) of the whole
+    layer's backward: the attention half's (attn_bwd_work) plus the FF
+    half's four GEMMs (8·M·C·F, tensor cores); reads x, do, the saves (qkv,
+    acc, z, hid, statistics, lse), the weights and the bias once, writes dx,
+    the parameter gradients and dextra once."""
     M, HD = B * N, H * D
-    flops = 16 * M * C * HD + 8 * M * C * F + 10 * B * H * N * N * D
+    flops = (10 * B * H * N * N * D, 16 * M * C * HD + 8 * M * C * F)
     nbytes = 4 * (3 * M * C + 4 * M * HD + M * C + M * F + 4 * M + B * H * N
                   + 2 * (4 * C * HD + 2 * C * F + 3 * HD + 7 * C + F)
                   + 2 * groups * H * N * N + (4 * B if row_scales else 0))
@@ -496,13 +518,13 @@ def layer_bwd_work(B, N, C, H, D, F, groups=0, row_scales=False):
 def halo_layer_fwd_work(B, H, W, C, nh, D, F, window, halo, row_scales=False,
                        saves=False):
     """((FMA operations, tensor-core operations), bytes) of the whole Halo
-    layer's forward on M = B·H·W tokens: the four projection GEMMs (8·M·C·HD
-    + 4·M·C·F, f32 FMA) and halo attention over k² = (w + 2·halo)²
-    positions (4·M·k²·HD, tensor cores); x, the weights and the bias [nh,
+    layer's forward on M = B·H·W tokens, all of it on the tensor cores: the
+    four projection GEMMs (8·M·C·HD + 4·M·C·F) and halo attention over k² =
+    (w + 2·halo)² positions (4·M·k²·HD); x, the weights and the bias [nh,
     w², k²] read, out written, and with ``saves`` qkv, acc, z, hid, the
     statistics and lse written too."""
     M, HD, k2 = B * H * W, nh * D, (window + 2 * halo) ** 2
-    flops = (8 * M * C * HD + 4 * M * C * F, 4 * M * k2 * HD)
+    flops = (0, 8 * M * C * HD + 4 * M * C * F + 4 * M * k2 * HD)
     nbytes = 4 * (2 * M * C + 4 * C * HD + 2 * C * F + 6 * C + F
                   + nh * window * window * k2 + (2 * B if row_scales else 0))
     if saves:
@@ -512,12 +534,12 @@ def halo_layer_fwd_work(B, H, W, C, nh, D, F, window, halo, row_scales=False,
 
 def halo_layer_bwd_work(B, H, W, C, nh, D, F, window, halo, row_scales=False):
     """((FMA operations, tensor-core operations), bytes) of the whole Halo
-    layer's backward: 16·M·C·HD + 8·M·C·F of GEMMs (f32 FMA) and five halo
-    attention products (recomputed scores, dv, dp, dk, dq: 10·M·k²·HD,
-    tensor cores); reads x, do, the saves and the weights and bias once,
-    writes dx, the parameter gradients and dbias once."""
+    layer's backward, all of it on the tensor cores: 16·M·C·HD + 8·M·C·F
+    of GEMMs and five halo attention products (recomputed scores, dv, dp,
+    dk, dq: 10·M·k²·HD); reads x, do, the saves and the weights and bias
+    once, writes dx, the parameter gradients and dbias once."""
     M, HD, k2 = B * H * W, nh * D, (window + 2 * halo) ** 2
-    flops = (16 * M * C * HD + 8 * M * C * F, 10 * M * k2 * HD)
+    flops = (0, 16 * M * C * HD + 8 * M * C * F + 10 * M * k2 * HD)
     params = 4 * C * HD + 2 * C * F + 6 * C + F
     nbytes = 4 * (3 * M * C + 4 * M * HD + M * C + M * F + 4 * M + nh * M
                   + 2 * params + 2 * nh * window * window * k2
@@ -559,8 +581,9 @@ def gather_bwd_work(Bw, M, N, nh, D):
 
 
 def block_fwd_work(B, N, C, H, D, Cout, groups=0, saves=False):
-    """(operations, bytes) of the attention block's forward: the two
-    projections (2·M·C·3HD + 2·M·HD·Cout) and the attention (4·B·H·N²·D);
+    """(operations, bytes) of the attention block's forward, all on the
+    tensor cores: the two projections (2·M·C·3HD + 2·M·HD·Cout) and the
+    attention (4·B·H·N²·D);
     x, the weights and biases (and with ``groups`` the bias [G, H, N, N])
     read, out (and with ``saves`` qkv, acc, lse) written."""
     M, HD = B * N, H * D
@@ -573,8 +596,9 @@ def block_fwd_work(B, N, C, H, D, Cout, groups=0, saves=False):
 
 
 def block_bwd_work(B, N, C, H, D, Cout, groups=0):
-    """(operations, bytes) of its backward: dWout, dacc (4·M·HD·Cout), dWqkv,
-    dx (12·M·C·HD) and five attention products (10·B·H·N²·D); x, dout, the
+    """(operations, bytes) of its backward, all on the tensor cores: dWout,
+    dacc (4·M·HD·Cout), dWqkv, dx (12·M·C·HD) and five attention products
+    (10·B·H·N²·D); x, dout, the
     saves, the weights and the bias read once, dx and the parameter and bias
     gradients written once."""
     M, HD = B * N, H * D
@@ -583,6 +607,162 @@ def block_bwd_work(B, N, C, H, D, Cout, groups=0):
     nbytes = 4 * (2 * M * C + M * Cout + 4 * M * HD + B * H * N + 2 * params
                   + 2 * groups * H * N * N)
     return flops, nbytes
+
+
+# ---------------------------------------------------------------------------
+# 3m. the GEMM core alone vs its plain version
+# ---------------------------------------------------------------------------
+
+
+# the odd small calls: K and N not multiples of 4 or 8, M off the 128-row
+# tile, a K of one step, and the map forms on a 7x7 window's row table
+GEMM_ODD = ((37, 29, 45), (130, 7, 3), (300, 200, 100), (1000, 64, 48), (777, 96, 384),
+            (5, 133, 1536))
+GEMM_ODD_SPLITK = ((45, 29, 37), (24, 40, 1000), (96, 288, 5003))
+
+
+def gemm_main_calls():
+    """(label, form, M, N, K, epilogue) of the main paths' products: the
+    forward's projections (weights as ``linear.weight.t()`` views, K-major)
+    with their epilogues, a data gradient (``dY·W``, the weight read
+    N-major) and the split-K weight gradients (``xᵀ·dY``) at ViT-S/16's
+    25,216 training rows (128 images of 197 tokens) and Swin-S stages 1 and
+    3 at 64 images (200,704 and 12,544 rows)."""
+    calls = []
+    for model, M, C in (("ViT-S/16", 25216, 384), ("Swin-S stage 1", 200704, 96),
+                        ("Swin-S stage 3", 12544, 384)):
+        calls += [(f"{model} qkv", "rows", M, 3 * C, C, "bias"),
+                  (f"{model} out-proj", "rows", M, C, C, "bias+rs+res"),
+                  (f"{model} FF1", "rows", M, 4 * C, C, "bias+silu"),
+                  (f"{model} FF2", "rows", M, C, 4 * C, "bias+rs+res"),
+                  (f"{model} dX = dqkv·Wqkv", "nmajor", M, C, 3 * C, ""),
+                  (f"{model} dWqkv = xᵀ·dqkv", "splitk", C, 3 * C, M, ""),
+                  (f"{model} dW1 = xᵀ·dh", "splitk", C, 4 * C, M, ""),
+                  (f"{model} dW2 = hᵀ·dy", "splitk", 4 * C, C, M, "")]
+    return calls
+
+
+def gemm_inputs(torch, form, M, N, K, epilogue, seed=0, rs_rows=197):
+    """Seeded operands of one call: a [M, K] (split-K: its transpose's
+    storage [K, M]), b [K, N] as the path reads it (a weight view
+    ``w.t()`` of w [N, K] for the forward, a row-major [K, N] for the data
+    and weight gradients), and the epilogue's tensors (a row scale per
+    ``rs_rows`` rows)."""
+    g = torch.Generator(DEVICE).manual_seed(seed)
+
+    def n(*shape, s=1.0):
+        return s * torch.randn(*shape, device=DEVICE, generator=g)
+
+    a = n(K, M) if form == "splitk" else n(M, K)
+    if form == "rows":
+        b = n(N, K, s=K ** -0.5).t()
+    else:
+        b = n(K, N, s=1.0 if form == "splitk" else K ** -0.5)
+    kw = {}
+    if "bias" in epilogue:
+        kw["bias"] = n(N, s=0.1)
+    if "silu" in epilogue:
+        kw["silu"] = True
+    if "rs" in epilogue:
+        kw["rs"] = 0.5 + torch.rand(-(-M // rs_rows), device=DEVICE, generator=g)
+        kw["rs_rows"] = rs_rows
+    if "res" in epilogue:
+        kw["res"] = n(M, N)
+    return a, b, kw
+
+
+def gemm_check(torch, gm, label, form, a, b, kw, splits, worst):
+    """One call against its plain version: atol = rtol = 1e-4 (row forms),
+    or ≤ 1e-3·max(1, max|plain|) and bit-identical across two runs
+    (split-K).  Returns (error, plain)."""
+    if form == "splitk":
+        out = gm.gemm(a, b, form="splitk", splits=splits)
+        again = gm.gemm(a, b, form="splitk", splits=splits)
+        torch.cuda.synchronize()
+        plain = gm.gemm_reference(a, b, form="splitk")
+        err = (out - plain).abs().max().item()
+        lim = 1e-3 * max(1.0, plain.abs().max().item())
+        same = torch.equal(out, again)
+        log(f"gemm: {label} (split-K, {splits} slabs): max|Δ| {err:.3e} (limit {lim:.3e}), "
+            f"two runs bit-identical: {same} {'ok' if err <= lim and same else 'FAIL'}")
+        if not (err <= lim and same) or not torch.isfinite(out).all():
+            raise RuntimeError(f"gemm: the split-K form disagrees or varies at {label}")
+        worst["splitk"] = max(worst["splitk"], err / lim)
+        return err, plain
+    form_ = "rows" if form == "nmajor" else form
+    out = gm.gemm(a, b, **kw, form=form_)
+    torch.cuda.synchronize()
+    plain = gm.gemm_reference(a, b, **kw, form=form_)
+    err = check_close(torch, "gemm", out, plain, label)
+    worst["rows"] = max(worst["rows"], err)
+    return err, plain
+
+
+def gemm_kernels(torch):
+    """3m: the GEMM core (csrc/gemm_tc.cu) through its thin C entry, in its
+    three forms (row-major A; B9's map forms, the residual read or the output
+    written at the map row; split-K over Aᵀ storage), against
+    :func:`gemm_reference` (``torch.matmul`` in f32, TF32 off): every
+    epilogue combination the paths use (none, bias, bias + silu, bias + row
+    scale + residual, the map forms with bias, row scale and residual), the
+    weight read K-major (the forward's ``linear.weight.t()``) and N-major
+    (the data gradients' ``dY·W``), odd small shapes, and the main paths'
+    products at full size (``gemm_main_calls``); median ms of 20 CUDA-event
+    timings of 10 calls in a row, TFLOP/s, the bound at the f32-accurate
+    tensor-core rate and ``torch.matmul``'s f32 time timed the same way on
+    the same operands.  Returns the timed
+    records."""
+    from vision_transformers_tpu_torch.ops import fused_layer as fl
+    from vision_transformers_tpu_torch.ops import gemm as gm
+
+    worst = {"rows": 0.0, "splitk": 0.0}
+    for M, N, K in GEMM_ODD:
+        for form in ("rows", "nmajor"):
+            for epi in ("", "bias", "bias+silu", "rs", "bias+rs+res", "bias+silu+rs+res"):
+                a, b, kw = gemm_inputs(torch, form, M, N, K, epi, seed=M + N + K, rs_rows=10)
+                gemm_check(torch, gm, f"odd {form} M,N,K={M},{N},{K} {epi or 'no epilogue'}",
+                           form, a, b, kw, 1, worst)
+    for M, N, K in GEMM_ODD_SPLITK:
+        for splits in (1, 3):
+            a, b, _ = gemm_inputs(torch, "splitk", M, N, K, "", seed=K)
+            gemm_check(torch, gm, f"odd M,N,K={M},{N},{K}", "splitk", a, b, {}, splits, worst)
+    # the map forms: 5 images of a 7x7 window's rows, the pixel table a
+    # permutation of the 49 rows (B9's window-pair table is one)
+    for images, hw, N, K in ((5, 49, 96, 64), (3, 98, 45, 37)):
+        M = images * hw
+        pix = torch.randperm(hw, device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(hw))
+        pix = pix.to(torch.int32)
+        for form in ("map_res", "map_out"):
+            for epi in ("bias+rs+res", "bias+silu", "res"):
+                a, b, kw = gemm_inputs(torch, "rows", M, N, K, epi, seed=7, rs_rows=hw)
+                gemm_check(torch, gm, f"{form} {images} images x {hw} rows, N,K={N},{K} "
+                           f"{epi}", form, a, b, dict(kw, pix=pix), 1, worst)
+
+    records = []
+    for label, form, M, N, K, epi in gemm_main_calls():
+        a, b, kw = gemm_inputs(torch, form, M, N, K, epi, seed=1)
+        splits = fl._splits(M, N, K) if form == "splitk" else 1
+        what = f"{label} M,N,K={M},{N},{K}" + (f" {epi}" if epi else "")
+        err, plain = gemm_check(torch, gm, what, form, a, b, kw, splits, worst)
+        del plain
+        form_ = "rows" if form == "nmajor" else form
+        ms = median_ms_queued(torch, lambda: gm.gemm(a, b, **kw, form=form_, splits=splits))
+        lhs = a.t() if form == "splitk" else a
+        lib_ms = median_ms_queued(torch, lambda: torch.matmul(lhs, b))
+        flops = 2 * M * N * K
+        nbytes = 4 * (M * K + K * N + M * N + (M * N if "res" in epi else 0)
+                      + (N if "bias" in epi else 0))
+        bound_ms, by = bound(flops, nbytes, tensor_cores=True)
+        log(f"gemm: {what}: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+            f"torch.matmul f32 {lib_ms:.3f} ms ({flops / lib_ms / 1e9:.1f} TFLOP/s); bound "
+            f"{bound_ms:.3f} ms ({by}, {100 * bound_ms / ms:.0f}% of it) (median of 20 "
+            f"CUDA-event timings of 10 calls in a row)")
+        records.append({"shape": what, "max_abs_err": err, "ms": ms, "tflops": flops / ms / 1e9,
+                        "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms})
+        del a, b, kw
+    log(f"gemm: worst max|Δ| of the row forms {worst['rows']:.3e}; worst split-K max|Δ| "
+        f"{worst['splitk']:.3f} of its limit")
+    return records
 
 
 # ---------------------------------------------------------------------------
@@ -622,6 +802,16 @@ def median_ms(torch, fn, reps=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def median_ms_queued(torch, fn, reps=20, inner=10, warmup=3):
+    """median_ms of ``inner`` back-to-back calls, over ``inner``: the calls
+    queue on the card, so the host's per-call work (a wrapper's checks and
+    allocations) stays out of a short kernel's time."""
+    def many():
+        for _ in range(inner):
+            fn()
+    return median_ms(torch, many, reps, warmup) / inner
 
 
 def vit_shape(B):
@@ -1470,10 +1660,16 @@ def gather_kernels(torch):
 
 def block_calls():
     """(label, B, N, C, H, D, Cout, the bias or a recipe for it) of 3k's
-    calls: an odd call with an [N, N] bias and Cout ≠ C, ViT-S/16 under
-    'block' at 128 rows (the trainer's) and 64 (no bias), and Swin-S's four
-    stages at 64 images with the grouped bias of a shifted layer."""
+    calls: an odd call with an [N, N] bias and Cout ≠ C, heads 64 wide with
+    a grouped bias (odd) and an [H, N, N] bias (ViT-S/16's widths at 16
+    rows), ViT-S/16 under 'block' at 128 rows (the trainer's) and 64 (no
+    bias), and Swin-S's four stages at 64 images with the grouped bias of a
+    shifted layer."""
     calls = [("odd, [N, N] bias, Cout 40", 6, 37, 48, 2, 24, 40, (37, 37)),
+             ("odd, grouped bias (G 2) at D 64, Cout 40", 6, 37, 128, 2, 64, 40,
+              (2, 2, 37, 37)),
+             ("[H, N, N] bias at D 64, ViT-S/16 widths", 16, 197, 384, 6, 64, 384,
+              (6, 197, 197)),
              ("ViT-S/16 B=128", 128, 197, 384, 6, 64, 384, None),
              ("ViT-S/16 B=64", 64, 197, 384, 6, 64, 384, None)]
     for call in swin_stages(64):
@@ -1565,8 +1761,10 @@ def block_kernels(torch):
             dlib = do.transpose(0, 1)
             lb_ms = median_ms(torch, lambda: torch.autograd.grad(lib, leaves, dlib,
                                                                  retain_graph=True))
-            fb_ms, fby = bound(*block_fwd_work(B, N, C, H, D, Cout, groups, saves=True))
-            bb_ms, bby = bound(*block_bwd_work(B, N, C, H, D, Cout, groups))
+            fb_ms, fby = bound(*block_fwd_work(B, N, C, H, D, Cout, groups, saves=True),
+                               tensor_cores=True)
+            bb_ms, bby = bound(*block_bwd_work(B, N, C, H, D, Cout, groups),
+                               tensor_cores=True)
             log(f"kernels: fused_attention_block {what} (median of 20, CUDA events): "
                 f"kernel fwd(saves) {f_ms:.3f} + bwd {b_ms:.3f} ms; plain fwd {pf_ms:.3f} + "
                 f"bwd {pb_ms:.3f} ms; multi_head_attention_forward fwd {lf_ms:.3f} + its "
@@ -2013,8 +2211,8 @@ def ff_kernels(torch):
     b_ms = median_ms(torch, lambda: fl.fused_ff_layer_bwd(saved, do))
     pf_ms = median_ms(torch, lambda: fl.fused_ff_layer_fwd_reference(*a, "silu", rs))
     pb_ms = median_ms(torch, lambda: fl.fused_ff_layer_bwd_reference(saved_p, do))
-    fb, fby = bound(*ff_fwd_work(*vit, row_scale=True, saves=True))
-    bb, bby = bound(*ff_bwd_work(*vit, row_scale=True))
+    fb, fby = bound(*ff_fwd_work(*vit, row_scale=True, saves=True), tensor_cores=True)
+    bb, bby = bound(*ff_bwd_work(*vit, row_scale=True), tensor_cores=True)
     log(f"backward: fused_ff_layer ViT-S/16 train call (B,N,C,F={vit}, silu, row scale; "
         f"median of 20, CUDA events): kernel fwd(saves) {f_ms:.3f} + bwd {b_ms:.3f} ms; "
         f"plain fwd {pf_ms:.3f} + bwd {pb_ms:.3f} ms; bound fwd {fb:.3f} ({fby}) + bwd "
@@ -2473,6 +2671,7 @@ def main() -> None:
 
     name, _, has_pil = phase("1 probe", probe, torch)
     phase("2 build", build)
+    phase("3m GEMM core", gemm_kernels, torch)
     timed = phase("3 kernels", kernels, torch)
     attn_fwd, attn_bwd = phase("3b attention layer", backward_kernel, torch)
     l1_fwd, l1_bwd = phase("3b whole layer", swin_backward_kernel, torch)
@@ -2659,6 +2858,14 @@ def main() -> None:
          "launches_by_path": {p: c[k] for p, c in paths.items()},
          **timed[k][0], "other_shapes": timed[k][1:]}
         for k, (src, rep) in KERNELS.items()]}
+    # a bound is the least time the card could take: no kernel beats it
+    shares = {f"{k} {e['shape']}": e["bound_ms"] / e["ms"] for k in KERNELS
+              for e in timed[k]}
+    worst = max(shares, key=shares.get)
+    log(f"bounds: the largest share of its bound a kernel reached: "
+        f"{100 * shares[worst]:.1f}% ({worst})")
+    if shares[worst] > 1:
+        raise RuntimeError(f"bounds: {worst} ran faster than its bound")
     log("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_secs.items()))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(record))

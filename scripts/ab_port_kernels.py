@@ -29,8 +29,18 @@ head views). Prints the card, ptxas's registers and spills of every kernel
 compiled from fused_layer.cu, fused_layer_bwd.cu, fused_layer1_bwd.cu,
 fused_attention.cu, fused_attention_qkv.cu and fused_halo.cu (B1-B8) when this
 process builds the tree, and one JSON line. Needs CUDA; imports no JAX.
+
+Also the GEMM core under B1, B2, B4, B7, B8 and B9 alone, at the main
+paths' products (``GEMM_CALLS``: ViT-S/16 at 25,216 rows, Swin-S stages 1
+and 3 at 64 images, forward with its epilogue, a data gradient and split-K
+weight gradients in the tree's own slab counts), through the C entry
+``vtx_gemm_tc`` where the tree has ``csrc/gemm_tc.cu``, else through a shim
+compiled here against the tree's ``csrc/common.cuh`` (the same launchers,
+inline there); B7 ``fused_ff_layer`` forward with saves and backward at
+ViT-S/16 (25,216 rows, silu, a row scale); and B8 at B=64 too.
 """
 
+import ctypes
 import json
 import os
 import subprocess
@@ -38,6 +48,91 @@ import sys
 
 import numpy as np
 import torch
+
+# (label, form, M, N, K, epilogue): rows = A row-major and the weight a
+# linear.weight.t() view; nmajor = the weight read N-major (a data
+# gradient); splitk = A as Aᵀ storage [K, M]
+GEMM_CALLS = (("ViT qkv", "rows", 25216, 1152, 384, "bias"),
+              ("ViT FF1", "rows", 25216, 1536, 384, "bias+silu"),
+              ("ViT FF2", "rows", 25216, 384, 1536, "bias+rs+res"),
+              ("ViT dX", "nmajor", 25216, 384, 1152, ""),
+              ("ViT dWqkv", "splitk", 384, 1152, 25216, ""),
+              ("Swin1 qkv", "rows", 200704, 288, 96, "bias"),
+              ("Swin1 dWqkv", "splitk", 96, 288, 200704, ""),
+              ("Swin3 qkv", "rows", 12544, 1152, 384, "bias"))
+
+# vtx_gemm_tc (csrc/gemm_tc.cu) over a tree that predates it: forms 0 and 3
+# on the tree's own launch_gemm / launch_gemm_splitk
+SHIM = r"""
+#include "common.cuh"
+extern "C" int vtx_gemm_tc(const float* A, int lda, const float* B, long long sbk,
+                           long long sbn, const float* bias, const float* rs, int rs_rows,
+                           const float* res, float* out, const int* pix, int map_hw,
+                           int form, float* part, int splits, long long som, long long son,
+                           int M, int N, int K, int silu, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (form == 0)
+    return static_cast<int>(launch_gemm(A, B, sbk, sbn, bias, rs, rs_rows, res, out, M, N,
+                                        K, silu, s));
+  if (form == 3)
+    return static_cast<int>(launch_gemm_splitk(A, lda, B, sbk, sbn, part, splits, out, som,
+                                               son, M, N, K, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+"""
+
+
+def gemm_entry(root, _build):
+    """The tree's vtx_gemm_tc: its own library's, or the shim's."""
+    pkg = os.path.join(root, "vision_transformers_tpu_torch")
+    if os.path.exists(os.path.join(pkg, "csrc", "gemm_tc.cu")):
+        lib = _build.build()
+    else:
+        src = os.path.join(pkg, "_build", "gemm_shim.cu")
+        so = os.path.join(pkg, "_build", "gemm_shim.so")
+        with open(src, "w") as f:
+            f.write(SHIM)
+        subprocess.run([_build.find_nvcc(), *_build._FLAGS, "-shared", "-I",
+                        os.path.join(pkg, "csrc"), "-o", so, src], check=True,
+                       capture_output=True, timeout=600)
+        lib = ctypes.CDLL(so)
+    fn = lib.vtx_gemm_tc
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [P, I, P, L, L, P, P, I, P, P, P, I, I, P, I, L, L, I, I, I, I, P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def gemm_times(fn, splits_of, ms):
+    """Median ms of each GEMM_CALLS product on the entry fn."""
+    out = {}
+    g = torch.Generator("cuda").manual_seed(4)
+    stream = torch.cuda.current_stream().cuda_stream
+    for label, form, M, N, K, epi in GEMM_CALLS:
+        a = torch.randn(*((K, M) if form == "splitk" else (M, K)), device="cuda", generator=g)
+        b = torch.randn(N, K, device="cuda", generator=g).t() if form == "rows" else \
+            torch.randn(K, N, device="cuda", generator=g)
+        bias = torch.randn(N, device="cuda", generator=g) if "bias" in epi else None
+        rs = torch.rand(-(-M // 197), device="cuda", generator=g) if "rs" in epi else None
+        res = torch.randn(M, N, device="cuda", generator=g) if "res" in epi else None
+        o = torch.empty(M, N, device="cuda")
+        splits = splits_of(M, N, K) if form == "splitk" else 1
+        part = torch.empty(splits * M * N, device="cuda") if form == "splitk" else None
+
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
+        def call():
+            err = fn(ptr(a), M if form == "splitk" else K, ptr(b), b.stride(0), b.stride(1),
+                     ptr(bias), ptr(rs), 197, ptr(res), ptr(o), None, 0,
+                     3 if form == "splitk" else 0, ptr(part), splits, N, 1, M, N, K,
+                     int("silu" in epi), stream)
+            if err:
+                raise RuntimeError(f"vtx_gemm_tc {label}: CUDA error {err}")
+
+        out[f"GEMM {label}"] = ms(call)
+        del a, b, bias, rs, res, o, part
+    return out
 
 
 def main() -> None:
@@ -86,7 +181,7 @@ def main() -> None:
                 n(C, s=0.1), n(F, C, s=0.05).t(), n(F, s=0.1), n(C, F, s=0.05).t(),
                 n(C, s=0.1)]
 
-    out = {}
+    out = gemm_times(gemm_entry(root, _build), fl._splits, ms)
     r = torch.ones(128, device="cuda")
     a = args(128, 197, 384, 6, 64, 1536)
     dz = torch.randn(128, 197, 384, device="cuda")
@@ -134,7 +229,18 @@ def main() -> None:
         _, saved = fb.fused_attention_block_fwd(a[0], *a[3:7], 6)
         out["B8 ViT fwd"] = ms(lambda: fb.fused_attention_block_fwd(a[0], *a[3:7], 6))
         out["B8 ViT bwd"] = ms(lambda: fb.fused_attention_block_bwd(saved, dz))
+        x64, dz64 = a[0][:64].contiguous(), dz[:64].contiguous()
+        _, saved = fb.fused_attention_block_fwd(x64, *a[3:7], 6)
+        out["B8 ViT64 fwd"] = ms(lambda: fb.fused_attention_block_fwd(x64, *a[3:7], 6))
+        out["B8 ViT64 bwd"] = ms(lambda: fb.fused_attention_block_bwd(saved, dz64))
         del saved
+    a = args(128, 197, 384, 6, 64, 1536)
+    dz = torch.randn(128, 197, 384, device="cuda")
+    ff = [a[0], a[7], a[8], *a[9:]]
+    _, saved = fl.fused_ff_layer_fwd(*ff, "silu", r)
+    out["B7 ViT fwd"] = ms(lambda: fl.fused_ff_layer_fwd(*ff, "silu", r))
+    out["B7 ViT bwd"] = ms(lambda: fl.fused_ff_layer_bwd(saved, dz))
+    del saved, ff
     g = torch.Generator("cuda").manual_seed(2)
     q, kv, do = (torch.randn(128, 64, 64, c, device="cuda", generator=g) for c in (96, 192, 96))
     bias = 0.2 * torch.randn(3, 64, 144, device="cuda", generator=g)
@@ -188,7 +294,8 @@ def main() -> None:
         elif ("registers" in line or "spill" in line) and entry and any(
                 f"_{src}_cu_" in entry for src in ("fused_layer", "fused_layer_bwd",
                                                   "fused_layer1_bwd", "fused_attention",
-                                                  "fused_attention_qkv", "fused_halo")):
+                                                  "fused_attention_qkv", "fused_halo",
+                                                  "gemm_tc")):
             source = entry.split("_cu_")[0].split("__")[-1].split("_", 2)[2]
             key = f"{source} {entry.split('_cu_')[1][8:]}"
             registers[key] = (registers.get(key, "") + " " + line.split(": ")[-1]).strip()

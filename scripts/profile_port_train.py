@@ -51,8 +51,9 @@ CONF = os.path.join(ROOT, "configs", "vit-s-16.conf")
 # kernel-name substring → layer, first match wins (PyTorch's own kernels
 # first: some share a name part with the hand-written ones, e.g. silu)
 GROUPS = (("at::native", "other (elementwise, reductions, conv)"),
-          ("gemm_kernel<true", "hand-written GEMM, split-K (weight gradients)"),
-          ("gemm_kernel", "hand-written GEMM, row-major"),
+          ("gemm_tc_kernel<128, true", "hand-written GEMM, split-K (weight gradients)"),
+          ("gemm_tc_kernel<64, true", "hand-written GEMM, split-K (weight gradients)"),
+          ("gemm_tc_kernel", "hand-written GEMM, row-major"),
           ("halo_bwd_kernel", "hand-written halo attention backward"),
           ("halo_fwd_kernel", "hand-written halo attention forward"),
           ("halo_fold", "other hand-written"),

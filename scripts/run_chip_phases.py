@@ -7,11 +7,14 @@ line.
 
     python3 scripts/run_chip_phases.py            # 3s and 3q
     python3 scripts/run_chip_phases.py 3s         # the reduced-kv attention only
+    python3 scripts/run_chip_phases.py 3m 3k      # the GEMM core and B8
 
-Phases: ``3s`` (the reduced-kv attention, B6), ``3q`` (the packed-qkv
+Phases: ``3m`` (the GEMM core under every projection of B1, B2, B4, B7, B8
+and B9), ``3s`` (the reduced-kv attention, B6), ``3q`` (the packed-qkv
 attention, B3), ``3h`` (the Halo kernels' forwards: the whole Halo layer
-B4 and the halo attention B5a), ``3hb`` (their backwards) and ``3g`` (the
-gathered halo attention, B5b).  Exits non-zero when a phase fails.  Needs
+B4 and the halo attention B5a), ``3hb`` (their backwards), ``3g`` (the
+gathered halo attention, B5b), ``3k`` (the attention block, B8), ``3w``
+(the map-resident Swin layer, B9) and ``3f`` (the FF layer, B7).  Exits non-zero when a phase fails.  Needs
 CUDA; imports no JAX.
 """
 
@@ -21,8 +24,9 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PHASES = {"3s": "sra_kernels", "3q": "qkv_kernels", "3h": "halo_kernels",
-          "3hb": "halo_backward_kernels", "3g": "gather_kernels"}
+PHASES = {"3m": "gemm_kernels", "3s": "sra_kernels", "3q": "qkv_kernels",
+          "3h": "halo_kernels", "3hb": "halo_backward_kernels", "3g": "gather_kernels",
+          "3k": "block_kernels", "3w": "swin_map_kernels", "3f": "ff_kernels"}
 DEFAULT = ("3s", "3q")
 
 
@@ -41,6 +45,8 @@ def main() -> None:
     chip_smoke.build()
     for phase in which:
         result = getattr(chip_smoke, PHASES[phase])(torch)
+        if isinstance(result, list) and result and isinstance(result[0], dict):
+            result = [result]  # one list of records
         records = [r for part in (result.values() if isinstance(result, dict) else result)
                    for r in part]
         for rec in records:

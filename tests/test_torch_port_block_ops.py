@@ -7,7 +7,8 @@ autograd Function on its plain forward and backward), from numpy-seeded
 inputs, at B = 4, N = 13, C = 16, H = 2, D = 8: without a bias and with each
 of its forms — [N, N], [1, N, N], [H, N, N] shared and [G, H, N, N] grouped
 with G = 2 —, with and without the qkv and out biases, and with Cout = 24 ≠
-C.  Forward within atol = rtol = 1e-5 (the same f32 math in another
+C; and the grouped and [H, N, N] biases on heads 64 wide (``"grouped@64"``,
+``"hnn@64"``), the widest the card takes them at.  Forward within atol = rtol = 1e-5 (the same f32 math in another
 summation order); each gradient within 1e-4·max(1, max|JAX|).
 
 The CUDA dispatch and the card-only checks are in
@@ -28,20 +29,31 @@ from vision_transformers_tpu_torch.ops import fused_block as fb
 B, N, C, H, D = 4, 13, 16, 2, 8
 SHAPES = {None: None, "nn": (N, N), "1nn": (1, N, N), "hnn": (H, N, N),
           "grouped": (2, H, N, N)}
-# (bias form, qkv / out biases, Cout)
+# (bias form, qkv / out biases, Cout); "form@64": that bias on heads 64 wide
 CASES = [(None, True, C), (None, False, 24), ("nn", True, C), ("1nn", False, C),
-         ("hnn", True, 24), ("grouped", True, C), ("grouped", False, 24)]
+         ("hnn", True, 24), ("grouped", True, C), ("grouped", False, 24),
+         ("grouped@64", True, C), ("hnn@64", False, 24)]
+
+
+def bias_form(form):
+    """(the bias form, the head width) of a case's form."""
+    if form is not None and "@" in form:
+        base, width = form.split("@")
+        return base, int(width)
+    return form, D
 
 
 def inputs(form, biases, cout, seed=0):
     """x, wqkv [C, 3HD], bqkv, wout [HD, Cout], bout (None without
     ``biases``), the bias in ``form`` (or None) and an output grad."""
-    rng = np.random.default_rng([seed, cout, list(SHAPES).index(form)])
+    form, dh = bias_form(form)
+    rng = np.random.default_rng([seed, cout, list(SHAPES).index(form)]
+                                + ([dh] if dh != D else []))
 
     def n(*shape, s=1.0):
         return (s * rng.normal(size=shape)).astype(np.float32)
 
-    HD = H * D
+    HD = H * dh
     shape = SHAPES[form]
     return (n(B, N, C), n(C, 3 * HD, s=0.2), n(3 * HD, s=0.1) if biases else None,
             n(HD, cout, s=0.2), n(cout, s=0.1) if biases else None,

@@ -13,8 +13,9 @@ a card (README: the card-only tests).
 - The CUDA wrappers, with the kernel library replaced by ctypes callbacks
   of the declared signatures (this machine has no card): each call passes
   every argument the C entries declare — the gathered geometry and the dbias
-  chunks, the weight views' strides, the bias and its groups, the saves,
-  the split-K slabs — and counts one launch; what the kernels do not take
+  chunks, the weight views' strides, the bias and its groups (at heads up
+  to 64 wide on B8), the saves, the split-K slabs, B8's dq partials past
+  one key tile — and counts one launch; what the kernels do not take
   raises.
 - On a card (marker ``cuda``): both kernels against their plain versions,
   forward within 1e-4, each backward tensor within 1e-3·max(1, max|plain|)
@@ -212,18 +213,43 @@ def test_block_cuda_forward_and_backward_pass_every_argument(monkeypatch):
     assert bwd[29:31] == (dbout.data_ptr(), dextra.data_ptr())
     assert bwd[31:37] == (4, 13, 16, 2, 8, 24)
     assert bwd[16] is not None and bwd_nd[16] is None and bwd_nd[30] is None
+    assert bwd[13] is not None and bwd[15] is not None  # dacc, dqkv
+    assert bwd[14] is None  # one key tile: no dq partials
     assert no_dextra is None and dextra.shape == (2, 2, 13, 13)
     # the weight gradients come back in the weight views' layout
     assert dwqkv.shape == wqkv.shape and dwqkv.stride() == wqkv.stride()
     assert dwout.shape == wout.shape and dwout.stride() == wout.stride()
 
 
+@pytest.mark.parametrize("N", [13, 70], ids=["one-key-tile", "two-key-tiles"])
+def test_block_cuda_takes_a_grouped_bias_on_heads_64_wide(monkeypatch, N):
+    # the attention runs on attention_tc.cuh, which takes the bias at heads
+    # up to 64 wide; past one 64-key tile the backward gets the dq partials'
+    # workspace
+    (x, wqkv, bqkv, wout, bout, extra), do = block_inputs(N=N, C=128, D=64)
+    extra_g, G = fb.extra_groups(extra, 4, 2, N)
+    with fake_cuda(monkeypatch) as lib:
+        out, (qkv, acc, lse) = fb._cuda_fwd(x, wqkv, bqkv, wout, bout, 2, extra_g, 0.125,
+                                            save=True)
+        fwd = lib.calls["vtx_fused_attention_block_fwd"]
+        saved = fb.BlockSaved(x, wqkv, bqkv, wout, bout, extra_g, qkv, acc, lse, 2, 0.125)
+        *_, dextra = fb._cuda_bwd(saved, do, need_dextra=True)
+        bwd = lib.calls["vtx_fused_attention_block_bwd"]
+    assert G == 2 and fwd[9:11] == (extra_g.data_ptr(), 2)
+    assert fwd[15:21] == (4, N, 128, 2, 64, 24)
+    assert bwd[7:9] == (extra_g.data_ptr(), 2) and bwd[30] == dextra.data_ptr()
+    assert (bwd[14] is not None) == (N > 64)  # dq partials past one key tile
+    assert bwd[31:37] == (4, N, 128, 2, 64, 24)
+    assert out.shape == (4, N, 24) and dextra.shape == (2, 2, N, N)
+
+
 def test_block_cuda_refuses_what_the_kernels_do_not_take(monkeypatch):
     (x, wqkv, bqkv, wout, bout, _), _ = block_inputs()
     wide, _ = block_inputs(C=128, D=64, form="nn")
     wide_g, _ = fb.extra_groups(wide[5], 4, 2, 13)
-    with fake_cuda(monkeypatch), pytest.raises(NotImplementedError, match="ROADMAP B"):
-        fb._cuda_fwd(*wide[:5], 2, wide_g, 0.125, save=False)  # a bias with D = 64
+    with fake_cuda(monkeypatch) as lib:  # a bias at D = 64: taken since the
+        fb._cuda_fwd(*wide[:5], 2, wide_g, 0.125, save=False)  # tensor-core attention
+    assert lib.calls["vtx_fused_attention_block_fwd"][19] == 64
     fatter, _ = block_inputs(C=160, D=80, form=None)
     with fake_cuda(monkeypatch), pytest.raises(NotImplementedError, match="64 wide"):
         fb._cuda_fwd(*fatter[:5], 2, None, 0.1, save=False)
@@ -273,7 +299,8 @@ def test_gather_cuda_kernels_match_plain(M, N, D):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("form,biases,D", [(None, True, 64), ("grouped", True, 32),
-                                           ("nn", False, 16)])
+                                           ("nn", False, 16), ("grouped", True, 64),
+                                           ("nn", True, 64)])
 def test_block_cuda_kernels_match_plain(form, biases, D):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")

@@ -1,7 +1,8 @@
-// Pieces shared by the port's CUDA sources: the row LayerNorm, the tiled
-// f32 FMA GEMM (with its split-K form for weight gradients) and the
-// fixed-order column sums.  Everything is float32 and launches on the
-// caller's stream; nothing here allocates.
+// Pieces shared by the port's CUDA sources: the row LayerNorm, the
+// declarations of the GEMM core (csrc/gemm_tc.cu: 3xTF32 on wgmma, with its
+// split-K form for weight gradients) and the fixed-order column sums.
+// Everything is float32 and launches on the caller's stream; nothing here
+// allocates.
 //
 // Every reduction over rows is two-pass and fixed-order (per-slab partial
 // sums, then one ordered sum over the slabs), never float atomics, so a
@@ -12,17 +13,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-// internal linkage: each .cu that includes this gets its own copy
-namespace {
-
-// largest attention head width: the attention kernels hold a head's
-// vectors in registers, zero-padded to this width; with an additive bias
-// (Swin, D = 32) the narrower EXTRA_DMAX instantiation runs
-constexpr int DMAX = 64;
-constexpr int EXTRA_DMAX = 32;
-
-inline int cdiv(int a, int b) { return (a + b - 1) / b; }
-inline long long cdivll(long long a, long long b) { return (a + b - 1) / b; }
+namespace vtx {
 
 // B9's map addressing (fused_swin.cu): row r of the sample-major window-pair
 // rows lives at map pixel (r / hw)·hw + pix[r % hw], pix [hw] the table of
@@ -37,6 +28,64 @@ struct MapRows {
 __device__ __forceinline__ long long map_pixel(const MapRows& mr, int r) {
   return (long long)(r / mr.hw) * mr.hw + mr.pix[r % mr.hw];
 }
+
+// ---------------------------------------------------------------------------
+// GEMM (csrc/gemm_tc.cu, one copy for every source): out[M, N] =
+// epilogue(A[M, K] · B[K, N]), row-major out, products in 3xTF32 on the
+// tensor cores, in three forms:
+//   launch_gemm         A row-major [M, K]; epilogue + bias[n] → silu →
+//                       × rs[m / rs_rows] → + res[m, n], each optional
+//   launch_gemm_map     the same, B9's: MAP_RES reads the residual row m at
+//                       map pixel map_pixel(rows_map, m), MAP_OUT writes the
+//                       output row there
+//   launch_gemm_splitk  A given as Aᵀ storage (element (m, k) at
+//                       A[m + k·lda]: accᵀ, uᵀ) for the weight gradients
+//                       over K = B·N rows, as `splits` K-slabs written to
+//                       `part` ([splits, M, N], no epilogue) and summed in
+//                       order into out (element (m, n) at out[m*som + n*son])
+//   B element (k, n) at B[k*sbk + n*sbn] in all three, so transposed weight
+//   views (torch's Linear.weight.t()) are read in place.
+// ---------------------------------------------------------------------------
+
+constexpr int MAP_NONE = 0, MAP_RES = 1, MAP_OUT = 2;
+
+cudaError_t launch_gemm(const float* A, const float* B, long long sbk, long long sbn,
+                        const float* bias, const float* rs, int rs_rows, const float* res,
+                        float* out, int M, int N, int K, int silu, cudaStream_t stream);
+
+template <int MAP>
+cudaError_t launch_gemm_map(const float* A, const float* B, long long sbk, long long sbn,
+                            const float* bias, const float* rs, int rs_rows,
+                            const float* res, float* out, int M, int N, int K, int silu,
+                            MapRows rows_map, cudaStream_t stream);
+
+cudaError_t launch_gemm_splitk(const float* A, int lda, const float* B, long long sbk,
+                               long long sbn, float* part, int splits, float* out,
+                               long long som, long long son, int M, int N, int K,
+                               cudaStream_t stream);
+
+}  // namespace vtx
+
+using vtx::MapRows;
+using vtx::map_pixel;
+using vtx::MAP_NONE;
+using vtx::MAP_RES;
+using vtx::MAP_OUT;
+using vtx::launch_gemm;
+using vtx::launch_gemm_map;
+using vtx::launch_gemm_splitk;
+
+// internal linkage: each .cu that includes this gets its own copy
+namespace {
+
+// largest attention head width: the attention kernels hold a head's
+// vectors in registers, zero-padded to this width; with an additive bias
+// (Swin, D = 32) the narrower EXTRA_DMAX instantiation runs
+constexpr int DMAX = 64;
+constexpr int EXTRA_DMAX = 32;
+
+inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+inline long long cdivll(long long a, long long b) { return (a + b - 1) / b; }
 
 #define VTX_CHECK(expr)                   \
   do {                                    \
@@ -103,153 +152,6 @@ inline cudaError_t launch_ln_map(const float* x, const float* g, const float* b,
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// GEMM: out[M, N] = epilogue(A[M, K] · B[K, N]), row-major out, in two forms:
-//   launch_gemm         A row-major [M, K]; epilogue + bias[n] → silu →
-//                       × rs[m / rs_rows] → + res[m, n], each optional
-//   launch_gemm_splitk  A given as Aᵀ storage (element (m, k) at
-//                       A[m + k·lda]: accᵀ, uᵀ) for the weight gradients
-//                       over K = B·N rows: blockIdx.z takes rows
-//                       [z·k_chunk, (z+1)·k_chunk) of K and writes its own
-//                       slab (no epilogue), which splitk_reduce_kernel sums
-//                       in order
-//   B element (k, n) at B[k*sbk + n*sbn] in both, so transposed weight views
-//   (torch's Linear.weight.t()) are read in place.
-//   MAP (row-major form only, B9's instantiations): MAP_RES reads the
-//   residual row m at map pixel map_pixel(rows_map, m), MAP_OUT writes the
-//   output row there; MAP_NONE, the other ops' instantiation, ignores
-//   rows_map.
-// ---------------------------------------------------------------------------
-
-constexpr int GEMM_THREADS = 256;  // 16 x 16
-constexpr int GBM = 128, GBN = 64, GBK = 16;
-constexpr int TM = GBM / 16, TN = GBN / 16;
-constexpr int MAP_NONE = 0, MAP_RES = 1, MAP_OUT = 2;
-
-// SPLIT_K: the weight-gradient form above.  Otherwise A is indexed with K
-// itself as its leading dimension: a separate leading-dimension operand made
-// the forward's loop 16% slower on the H100 (PERF.md).
-template <bool SPLIT_K, int MAP>
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_kernel(const float* __restrict__ A, int lda,
-            const float* __restrict__ B, long long sbk, long long sbn,
-            const float* __restrict__ bias, const float* __restrict__ rs,
-            int rs_rows, const float* __restrict__ res, float* __restrict__ out,
-            int M, int N, int K, int k_chunk, int silu, MapRows rows_map) {
-  // +1 padding keeps the transposed tile stores off a single bank
-  __shared__ float As[GBK][GBM + 1];
-  __shared__ float Bs[GBK][GBN + 1];
-  const int t = threadIdx.x, tx = t % 16, ty = t / 16;
-  const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
-  const int k_begin = SPLIT_K ? blockIdx.z * k_chunk : 0;
-  const int k_end = SPLIT_K ? min(K, k_begin + k_chunk) : K;
-  if (SPLIT_K) out += (long long)blockIdx.z * M * N;
-  // neighbouring threads walk the contiguous dimension of B
-  const bool b_k_contiguous = (sbk == 1);
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = k_begin; k0 < k_end; k0 += GBK) {
-#pragma unroll
-    for (int l = 0; l < GBM * GBK / GEMM_THREADS; ++l) {
-      // neighbouring threads walk the contiguous dimension of A
-      const int idx = t + l * GEMM_THREADS;
-      if (SPLIT_K) {
-        const int am = idx % GBM, ak = idx / GBM;
-        const int gm = m0 + am, gk = k0 + ak;
-        As[ak][am] = (gm < M && gk < k_end) ? A[gm + (long long)gk * lda] : 0.f;
-      } else {
-        const int am = idx / GBK, ak = idx % GBK;
-        const int gm = m0 + am, gk = k0 + ak;
-        As[ak][am] = (gm < M && gk < K) ? A[(long long)gm * K + gk] : 0.f;
-      }
-    }
-#pragma unroll
-    for (int l = 0; l < GBN * GBK / GEMM_THREADS; ++l) {
-      const int idx = t + l * GEMM_THREADS;
-      int bk, bn;
-      if (b_k_contiguous) {
-        bn = idx / GBK;
-        bk = idx % GBK;
-      } else {
-        bk = idx / GBN;
-        bn = idx % GBN;
-      }
-      const int gk = k0 + bk, gn = n0 + bn;
-      Bs[bk][bn] = (gk < k_end && gn < N)
-                       ? B[(long long)gk * sbk + (long long)gn * sbn] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < GBK; ++k) {
-      float a[TM], bv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) bv[j] = Bs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-    // the map row, once per output row (MAP_NONE: unused, compiled out)
-    const long long map_off = MAP == MAP_NONE ? 0 : map_pixel(rows_map, m) * N;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= N) continue;
-      float v = acc[i][j];
-      // the split-K form passes null pointers here; compiled out of it, the
-      // epilogue left that form at 80 registers and 31% slower on the H100
-      // (PERF.md)
-      if (bias) v += bias[n];
-      if (silu) v = v / (1.f + expf(-v));
-      if (rs) v *= rs[m / rs_rows];
-      if (res) v += res[(MAP == MAP_RES ? map_off : (long long)m * N) + n];
-      out[(MAP == MAP_OUT ? map_off : (long long)m * N) + n] = v;
-    }
-  }
-}
-
-// out = epilogue(A · B) with A row-major [M, K]
-inline cudaError_t launch_gemm(const float* A, const float* B, long long sbk,
-                               long long sbn, const float* bias, const float* rs,
-                               int rs_rows, const float* res, float* out, int M,
-                               int N, int K, int silu, cudaStream_t stream) {
-  if (cdiv(M, GBM) > 65535) return cudaErrorInvalidValue;
-  const dim3 grid(cdiv(N, GBN), cdiv(M, GBM), 1);
-  gemm_kernel<false, MAP_NONE><<<grid, GEMM_THREADS, 0, stream>>>(
-      A, K, B, sbk, sbn, bias, rs, rs_rows, res, out, M, N, K, K, silu,
-      MapRows{nullptr, 1});
-  return cudaGetLastError();
-}
-
-// the same with the residual read (MAP_RES) or the output written
-// (MAP_OUT) through the map addressing
-template <int MAP>
-inline cudaError_t launch_gemm_map(const float* A, const float* B, long long sbk,
-                                   long long sbn, const float* bias, const float* rs,
-                                   int rs_rows, const float* res, float* out, int M,
-                                   int N, int K, int silu, MapRows rows_map,
-                                   cudaStream_t stream) {
-  if (cdiv(M, GBM) > 65535) return cudaErrorInvalidValue;
-  const dim3 grid(cdiv(N, GBN), cdiv(M, GBM), 1);
-  gemm_kernel<false, MAP><<<grid, GEMM_THREADS, 0, stream>>>(
-      A, K, B, sbk, sbn, bias, rs, rs_rows, res, out, M, N, K, K, silu, rows_map);
-  return cudaGetLastError();
-}
-
 constexpr int REDUCE_THREADS = 256;
 
 // out[m*som + n*son] = Σ_{z < S} part[z, m, n], summed in z order
@@ -272,25 +174,6 @@ inline cudaError_t launch_splitk_reduce(const float* part, int S, int M, int N,
   splitk_reduce_kernel<<<(unsigned)blocks, REDUCE_THREADS, 0, stream>>>(
       part, S, M, N, out, som, son);
   return cudaGetLastError();
-}
-
-// out[M, N] (element (m, n) at out[m*som + n*son]) = A · B over a long K,
-// with A as Aᵀ storage (element (m, k) at A[m + k·lda]), as `splits`
-// K-slabs written to `part` ([splits, M, N]) and summed in order
-inline cudaError_t launch_gemm_splitk(const float* A, int lda, const float* B,
-                                      long long sbk, long long sbn, float* part,
-                                      int splits, float* out, long long som,
-                                      long long son, int M, int N, int K,
-                                      cudaStream_t stream) {
-  if (splits < 1 || splits > 65535 || cdiv(M, GBM) > 65535)
-    return cudaErrorInvalidValue;
-  const int k_chunk = cdiv(cdiv(K, splits), GBK) * GBK;
-  const dim3 grid(cdiv(N, GBN), cdiv(M, GBM), splits);
-  gemm_kernel<true, MAP_NONE><<<grid, GEMM_THREADS, 0, stream>>>(
-      A, lda, B, sbk, sbn, nullptr, nullptr, 1, nullptr, part, M, N, K, k_chunk, 0,
-      MapRows{nullptr, 1});
-  VTX_CHECK(cudaGetLastError());
-  return launch_splitk_reduce(part, splits, M, N, out, som, son, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -685,6 +568,15 @@ cudaError_t out_proj_bwd(
     float* da, float* dacc, float* wpart, int splits_out, float* cpart,
     float* dwout, long long dwout_s0, long long dwout_s1, float* dbout,
     float* drs, int B, int M, int C, int HD, cudaStream_t s);
+
+// Steps 4-5 on the qkv projection's input a [M, C] (fused_layer_bwd.cu):
+// dwqkv = aᵀ·dqkv (split-K slabs summed in order), dbqkv = Σ_rows dqkv (when
+// non-null), da = dqkv·wqkvᵀ; B8's backward (fused_attention_qkv.cu) ends
+// with it
+cudaError_t qkv_in_bwd(const float* a, const float* wqkv, long long wqkv_s0,
+                       long long wqkv_s1, const float* dqkv, float* wpart, int splits_qkv,
+                       float* cpart, float* dwqkv, long long dwqkv_s0, long long dwqkv_s1,
+                       float* dbqkv, float* da, int M, int C, int HD, cudaStream_t s);
 
 // Steps 4-6 of the attention branch's backward: u = LN(x) from the saved
 // statistics, dwqkv = uᵀ·dqkv, dbqkv, dln = dqkv·wqkvᵀ and the LN backward

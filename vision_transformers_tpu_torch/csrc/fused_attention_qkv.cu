@@ -13,7 +13,10 @@
 // ViT-S/16) and Swin's forced 'fused' path (2048 / 512 / 128 / 64 rows of
 // 98 / 98 / 98 / 49 tokens, D = 32, the grouped bias).  extra is the
 // grouped bias [G, H, N, N], row b in group b / (B / G), heads up to 64
-// wide.
+// wide.  The attention block B8 (vision_transformers_tpu/ops/fused_block.py:57
+// / :100, ViT's and Swin's 'block' path) runs the same attention between two
+// launches of the GEMM core (gemm_tc.cu): vtx_fused_attention_block_fwd /
+// _bwd below.
 //
 // The kernels are attention_tc.cuh's, in 3xTF32 on the tensor cores (f32
 // accuracy, mma_tf32.cuh), FlashAttention-2 in layout:
@@ -55,7 +58,7 @@
 // in flight.
 //
 // What later work changes: wgmma tiles (V transposed K-major), bf16
-// operands, B1 and B8 (D = 64) moved onto this core.
+// operands, B1's, B2's and B9's attention moved onto this core.
 
 #include "attention_tc.cuh"
 
@@ -80,15 +83,9 @@ void packed(tca::Rows& q, tca::Rows& k, tca::Rows& v, tca::Bias& bias, const flo
   bias = tca::Bias{extra, extra ? B / groups : 1, H * NN, NN, N};
 }
 
-}  // namespace
-
-// The C entry points return the first cudaError_t met (0 = success).  qkv
-// [B, N, 3·H·D]; extra [G, H, N, N] (groups = G) may be null; D ≤ 64.
-
-// out [B, N, H·D]; lse [B, H, N] or null (no saves)
-extern "C" int vtx_fused_attention_qkv_fwd(
-    const float* qkv, const float* extra, int groups, float* out, float* lse,
-    int B, int N, int H, int D, float scale, void* stream) {
+// the forward over the packed rows: out [B, N, H·D], lse or null
+cudaError_t packed_fwd(const float* qkv, const float* extra, int groups, float* out,
+                       float* lse, int B, int N, int H, int D, float scale, cudaStream_t s) {
   VTX_CHECK(check_dims(extra, groups, B, N, H, D));
   tca::FwdArgs a{};
   packed(a.q, a.k, a.v, a.bias, qkv, extra, groups, B, N, H, D);
@@ -98,21 +95,17 @@ extern "C" int vtx_fused_attention_qkv_fwd(
   a.M = a.N = N;
   a.D = D;
   a.scale = scale;
-  return static_cast<int>(tca::attention_fwd(a, B, H, static_cast<cudaStream_t>(stream)));
+  return tca::attention_fwd(a, B, H, s);
 }
 
-// out and lse: the training forward's; dout [B, N, H·D].  Writes dqkv
-// [B, N, 3·H·D] in the layout of qkv.  Workspace: dq_part [KT·B·N·H·D]
-// for N > 64 (KT = ceil(N / 64) key tiles), else null; with extra and a
-// non-null dextra [G, H, N, N], dsbuf [B, H, N, N]: dextra[g] is the sum of
-// dS over the group's rows in row order.
-extern "C" int vtx_fused_attention_qkv_bwd(
-    const float* qkv, const float* extra, int groups, const float* out,
-    const float* lse, const float* dout, float* dq_part, float* dsbuf, float* dqkv,
-    float* dextra, int B, int N, int H, int D, float scale, void* stream) {
+// the backward: dqkv in the layout of qkv, and with a non-null dextra dS
+// into dsbuf and its ordered sum over each group's rows into dextra
+cudaError_t packed_bwd(const float* qkv, const float* extra, int groups, const float* out,
+                       const float* lse, const float* dout, float* dq_part, float* dsbuf,
+                       float* dqkv, float* dextra, int B, int N, int H, int D, float scale,
+                       cudaStream_t s) {
   VTX_CHECK(check_dims(extra, groups, B, N, H, D));
-  if (dextra && (!extra || !dsbuf)) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dextra && (!extra || !dsbuf)) return cudaErrorInvalidValue;
   const long long HD = (long long)H * D, rs = 3 * HD;
   tca::BwdArgs a{};
   packed(a.q, a.k, a.v, a.bias, qkv, extra, groups, B, N, H, D);
@@ -134,4 +127,95 @@ extern "C" int vtx_fused_attention_qkv_bwd(
     VTX_CHECK(cudaGetLastError());
   }
   return cudaSuccess;
+}
+
+}  // namespace
+
+// The C entry points return the first cudaError_t met (0 = success).  qkv
+// [B, N, 3·H·D]; extra [G, H, N, N] (groups = G) may be null; D ≤ 64.
+
+// out [B, N, H·D]; lse [B, H, N] or null (no saves)
+extern "C" int vtx_fused_attention_qkv_fwd(
+    const float* qkv, const float* extra, int groups, float* out, float* lse,
+    int B, int N, int H, int D, float scale, void* stream) {
+  return static_cast<int>(packed_fwd(qkv, extra, groups, out, lse, B, N, H, D, scale,
+                                     static_cast<cudaStream_t>(stream)));
+}
+
+// out and lse: the training forward's; dout [B, N, H·D].  Writes dqkv
+// [B, N, 3·H·D] in the layout of qkv.  Workspace: dq_part [KT·B·N·H·D]
+// for N > 64 (KT = ceil(N / 64) key tiles), else null; with extra and a
+// non-null dextra [G, H, N, N], dsbuf [B, H, N, N]: dextra[g] is the sum of
+// dS over the group's rows in row order.
+extern "C" int vtx_fused_attention_qkv_bwd(
+    const float* qkv, const float* extra, int groups, const float* out,
+    const float* lse, const float* dout, float* dq_part, float* dsbuf, float* dqkv,
+    float* dextra, int B, int N, int H, int D, float scale, void* stream) {
+  return static_cast<int>(packed_bwd(qkv, extra, groups, out, lse, dout, dq_part, dsbuf,
+                                     dqkv, dextra, B, N, H, D, scale,
+                                     static_cast<cudaStream_t>(stream)));
+}
+
+// B8 (vision_transformers_tpu/ops/fused_block.py:57, _blk_fwd_kernel): out =
+// OutProj(MHSA(x·Wqkv + bqkv + extra)) + bout, x [B, N, C] → out [B, N, Cout],
+// no LN and no residual, as three launches: the GEMM core (gemm_tc.cu) with
+// bqkv → qkv, the packed-qkv attention above → acc (and lse in training), the
+// GEMM core with bout.  qkv [B, N, 3·H·D] and acc [B, N, H·D] are workspace
+// the training forward keeps with lse [B, H, N] for the backward; lse may be
+// null (serving).  extra [G, H, N, N] (groups = G), bqkv and bout may be
+// null; heads up to 64 wide, with or without the bias.
+extern "C" int vtx_fused_attention_block_fwd(
+    const float* x, const float* wqkv, long long wqkv_s0, long long wqkv_s1,
+    const float* bqkv, const float* wout, long long wout_s0, long long wout_s1,
+    const float* bout, const float* extra, int groups, float* qkv, float* acc,
+    float* lse, float* out, int B, int N, int C, int H, int D, int Cout, float scale,
+    void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  VTX_CHECK(check_dims(extra, groups, B, N, H, D));
+  const int M = B * N, HD = H * D;
+  VTX_CHECK(launch_gemm(x, wqkv, wqkv_s0, wqkv_s1, bqkv, nullptr, 1, nullptr, qkv, M,
+                        3 * HD, C, 0, s));
+  VTX_CHECK(packed_fwd(qkv, extra, groups, acc, lse, B, N, H, D, scale, s));
+  return static_cast<int>(launch_gemm(acc, wout, wout_s0, wout_s1, bout, nullptr, 1,
+                                      nullptr, out, M, Cout, HD, 0, s));
+}
+
+// B8's backward (fused_block.py:100, _blk_bwd_kernel) on the forward's saves
+// qkv, acc, lse and dout [B, N, Cout]:
+//   1-2. dwout = accᵀ·dout and dbout = Σ_rows dout (split-K slabs and row
+//        chunks summed in order); dacc = dout·woutᵀ  (vtx::out_proj_bwd)
+//   3.   the packed-qkv attention's backward above → dqkv (Δ, the key-tile
+//        pass with dq partials summed in key-tile order), and with extra and
+//        a non-null dextra dS into dsbuf [B, H, N, N], summed over each
+//        group's rows in row order into dextra [G, H, N, N]
+//   4-5. dwqkv = xᵀ·dqkv, dbqkv = Σ_rows dqkv, dx = dqkv·wqkvᵀ
+//        (vtx::qkv_in_bwd)
+// Workspace, all allocated by the caller: dacc [B·N, H·D], dq_part
+// [KT·B·N·H·D] for N > 64 (KT = ceil(N / 64)) else null, dqkv
+// [B·N, 3·H·D], dsbuf (with dextra), wpart [max(splits_out·HD·Cout,
+// splits_qkv·C·3HD)], cpart [ceil(B·N / 128) · max(Cout, 3HD)].  The weight
+// gradients are written through their (row, col) strides; dbqkv, dbout
+// (null where the bias is absent), extra, dsbuf and dextra may be null.  No
+// float atomics, so the gradients are bit-identical from run to run.
+extern "C" int vtx_fused_attention_block_bwd(
+    const float* x, const float* wqkv, long long wqkv_s0, long long wqkv_s1,
+    const float* wout, long long wout_s0, long long wout_s1, const float* extra,
+    int groups, const float* qkv, const float* acc, const float* lse,
+    const float* dout, float* dacc, float* dq_part, float* dqkv, float* dsbuf,
+    float* wpart, int splits_out, int splits_qkv, float* cpart, float* dx,
+    float* dwqkv, long long dwqkv_s0, long long dwqkv_s1, float* dbqkv,
+    float* dwout, long long dwout_s0, long long dwout_s1, float* dbout,
+    float* dextra, int B, int N, int C, int H, int D, int Cout, float scale,
+    void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  VTX_CHECK(check_dims(extra, groups, B, N, H, D));
+  const int M = B * N, HD = H * D;
+  VTX_CHECK(vtx::out_proj_bwd(acc, wout, wout_s0, wout_s1, nullptr, nullptr, N, dout,
+                              nullptr, dacc, wpart, splits_out, cpart, dwout, dwout_s0,
+                              dwout_s1, dbout, nullptr, B, M, Cout, HD, s));
+  VTX_CHECK(packed_bwd(qkv, extra, groups, acc, lse, dacc, dq_part, dsbuf, dqkv, dextra,
+                       B, N, H, D, scale, s));
+  return static_cast<int>(vtx::qkv_in_bwd(x, wqkv, wqkv_s0, wqkv_s1, dqkv, wpart,
+                                          splits_qkv, cpart, dwqkv, dwqkv_s0, dwqkv_s1,
+                                          dbqkv, dx, M, C, HD, s));
 }

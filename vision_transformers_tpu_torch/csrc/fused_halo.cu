@@ -66,10 +66,10 @@
 //
 // What bounds it on this card.  At Halo-S (window 8, halo 2, D = 32,
 // k² = 144) the layer's four projection GEMMs are 24·M·C² operations
-// forward (116 GFLOP per layer at 128 images, the same at each stage), all
-// plain f32 FMAs in the hand-written GEMM: their bound is the f32 FMA rate,
-// 67 TFLOP/s at 700 W; the halo attention (4·M·k²·HD, 28.9 GFLOP at stage
-// 1) runs on the tensor cores at up to 165 TFLOP/s f32-accurate.  The
+// forward (116 GFLOP per layer at 128 images, the same at each stage), on
+// the GEMM core (gemm_tc.cu, 3xTF32 on wgmma), and the halo attention
+// (4·M·k²·HD, 28.9 GFLOP at stage 1) on the tensor cores too: all of it is
+// bound at 165 TFLOP/s f32-accurate at 700 W.  The
 // per-window dkvw buffer costs B·S·k²·2HD floats written and read once
 // (0.9 GB at stage 1 for 128 images) instead of atomics.
 //
@@ -85,8 +85,7 @@
 // MB of q.
 //
 // What later work changes: wgmma tiles for the attention products, the
-// attention fused into the qkv GEMM's consumer, the GEMMs on the tensor
-// cores, bf16 operands.
+// attention fused into the qkv GEMM's consumer, bf16 operands.
 
 #include "halo_attention_tc.cuh"
 

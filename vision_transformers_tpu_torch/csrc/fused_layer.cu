@@ -7,14 +7,12 @@
 //       o = z + (silu(LN2(z)·W1 + b1)·W2 + b2)
 //   vision_transformers_tpu/ops/fused_layer.py:701   _ff_fwd_kernel
 //       o = x + r ⊙ (act(LN(x)·W1 + b1)·W2 + b2), act silu or tanh-gelu
-//   vision_transformers_tpu/ops/fused_block.py:57   _blk_fwd_kernel
-//       out = OutProj(MHSA(x·Wqkv + bqkv + extra)), no LN, no residual
 // with one C entry point per op, each a short sequence of hand-written
 // launches on the caller's stream:
 //   vtx_fused_attention_layer_fwd   = ln_rows → gemm(+bqkv) → attention → gemm(+bout, ×r, +x)
 //   vtx_fused_transformer_layer_fwd = the above → ln_rows → gemm(+b1, silu) → gemm(+b2, ×r₂, +z)
 //   vtx_fused_ff_layer_fwd          = ln_rows → gemm(+b1, act) → gemm(+b2, ×r, +x)
-//   vtx_fused_attention_block_fwd   = gemm(+bqkv) → attention → gemm(+bout)
+// (gemm: the GEMM core, gemm_tc.cu)
 // The Pallas kernels keep every intermediate in VMEM; here the LN output,
 // qkv, the attention output and the FF hidden go through device memory
 // between launches (workspace the wrapper allocates).  In training the
@@ -33,31 +31,26 @@
 //
 // What bounds it on this card.  At ViT-S/16 (N=197, C=384, F=1536) the four
 // projections are about 8.4 GFLOP per image over 12 layers, the scores and
-// AV about 0.7, so the layer is bound by the GEMMs' arithmetic.  This first
-// version computes them with plain f32 FMAs (no tensor cores, no TF32), in a
-// tiled shared-memory GEMM: 128x64 output tiles, 16-deep k slabs, 8x4
-// outputs per thread.  Attention never stores an N x N matrix: one block per
-// (batch, head, 64-query tile), one query per thread, key/value tiles
-// streamed through shared memory with an online max-subtracted softmax in
-// f32, so any N works.
+// AV about 0.7, so the layer is bound by the GEMMs' arithmetic.  The
+// projections run on the GEMM core (gemm_tc.cu: 3xTF32 on wgmma, f32
+// accurate, bound at 165 TFLOP/s); the attention stays on plain f32 FMAs
+// (67 TFLOP/s): it never stores an N x N matrix: one block per (batch, head,
+// 64-query tile), one query per thread, key/value tiles streamed through
+// shared memory with an online max-subtracted softmax in f32, so any N
+// works.
 //
-// What later work changes: bf16 operands on wgmma with TMA-fed shared-memory
-// rings (the tensor cores are ~15x the f32 FMA rate), and fusing each op's
-// launch sequence into fewer launches so intermediates stay on chip.
+// What later work changes: the attention onto the tensor-core core of
+// attention_tc.cuh (as B8's), bf16 operands, and fusing each op's launch
+// sequence into fewer launches so intermediates stay on chip.
 //
 // B7 (the FF residual branch alone, under the FF-kernel switch) is the
 // whole layer's FF half: LN, a GEMM with b₁ and the activation (silu in its
 // epilogue when nothing is saved, else a separate elementwise pass writing
 // act(hid)), and a GEMM with b₂, the row scale and the residual; at
-// ViT-S/16's 25,216 rows its 4·M·C·F = 59.5 GFLOP of GEMM bound it (~0.9 ms
-// at the f32 FMA rate).  B3 (the packed-qkv attention alone) has its own
-// tensor-core kernels in fused_attention_qkv.cu.
-//
-// B8 (the attention block, ViT's and Swin's path under a 'block' force) is
-// the attention half without its LN, residual and row scale: the same
-// GEMM → attention → GEMM sequence (attention_block below, which the
-// attention half runs after its LN), the output Cout wide.  At ViT-S/16
-// (B = 128) its 37.4 GFLOP forward bound it (~0.56 ms at the f32 FMA rate).
+// ViT-S/16's 25,216 rows its 4·M·C·F = 59.5 GFLOP of GEMM bound it (~0.36
+// ms at the GEMM core's 165 TFLOP/s).  B3 (the packed-qkv attention alone)
+// and B8 (the attention block) have their own tensor-core attention in
+// fused_attention_qkv.cu.
 //
 // Numerics follow the JAX kernels: LN statistics in f32 in the fast-variance
 // form E[x²]−μ² (fused_layer.py:69-76), f32 accumulation, softmax in f32.
@@ -176,26 +169,9 @@ cudaError_t launch_attention(const float* qkv, const float* extra, int groups,
                                                N, H, D, scale, stream);
 }
 
-// out = res + rs ⊙ (MHSA(a·Wqkv + bqkv + extra)·Wout + bout) over a [B·N, C]
-// → out [B·N, Cout], writing qkv and acc on the way (and lse when non-null);
-// rs (per sample, N rows each) and res may be null
-cudaError_t attention_block(
-    const float* a, const float* wqkv, long long wqkv_s0, long long wqkv_s1,
-    const float* bqkv, const float* wout, long long wout_s0, long long wout_s1,
-    const float* bout, const float* extra, int groups, const float* rs,
-    const float* res, float* qkv, float* acc, float* lse, float* out, int B, int N,
-    int C, int H, int D, int Cout, float scale, cudaStream_t stream) {
-  const int M = B * N, HD = H * D;
-  VTX_CHECK(launch_gemm(a, wqkv, wqkv_s0, wqkv_s1, bqkv, nullptr, 1, nullptr,
-                        qkv, M, 3 * HD, C, 0, stream));
-  VTX_CHECK(launch_attention(qkv, extra, groups, acc, lse, B, N, H, D, scale, stream));
-  VTX_CHECK(launch_gemm(acc, wout, wout_s0, wout_s1, bout, rs, N, res, out, M, Cout,
-                        HD, 0, stream));
-  return cudaSuccess;
-}
-
 // z = x + rs ⊙ OutProj(MHSA(QkvProj(LN(x)) + extra)), writing u, qkv, acc
-// on the way (and mu, rstd, lse when non-null)
+// on the way (and mu, rstd, lse when non-null); rs (per sample, N rows
+// each) may be null
 cudaError_t attention_half(
     const float* x, const float* ln_g, const float* ln_b,
     const float* wqkv, long long wqkv_s0, long long wqkv_s1, const float* bqkv,
@@ -203,10 +179,12 @@ cudaError_t attention_half(
     const float* extra, int groups, const float* rs, float* u, float* qkv,
     float* acc, float* mu, float* rstd, float* lse, float* z, int B, int N,
     int C, int H, int D, float scale, float eps, cudaStream_t stream) {
-  VTX_CHECK(launch_ln(x, ln_g, ln_b, u, mu, rstd, B * N, C, eps, stream));
-  return attention_block(u, wqkv, wqkv_s0, wqkv_s1, bqkv, wout, wout_s0, wout_s1, bout,
-                         extra, groups, rs, x, qkv, acc, lse, z, B, N, C, H, D, C, scale,
-                         stream);
+  const int M = B * N, HD = H * D;
+  VTX_CHECK(launch_ln(x, ln_g, ln_b, u, mu, rstd, M, C, eps, stream));
+  VTX_CHECK(launch_gemm(u, wqkv, wqkv_s0, wqkv_s1, bqkv, nullptr, 1, nullptr, qkv, M,
+                        3 * HD, C, 0, stream));
+  VTX_CHECK(launch_attention(qkv, extra, groups, acc, lse, B, N, H, D, scale, stream));
+  return launch_gemm(acc, wout, wout_s0, wout_s1, bout, rs, N, x, z, M, C, HD, 0, stream);
 }
 
 // o = z + rs_ff ⊙ (silu(LN2(z)·W1 + b1)·W2 + b2) after the attention half
@@ -343,21 +321,4 @@ extern "C" int vtx_fused_ff_layer_fwd(
   return static_cast<int>(vtx::ff_half_fwd(
       x, ln_g, ln_b, w1, w1_s0, w1_s1, b1, w2, w2_s0, w2_s1, b2, rs, N, u, hid, af,
       mu, rstd, out, B * N, C, F, eps, act, static_cast<cudaStream_t>(stream)));
-}
-
-// B8: out = OutProj(MHSA(x·Wqkv + bqkv + extra)) + bout, x [B, N, C] → out
-// [B, N, Cout], no LN and no residual.  qkv [B, N, 3·H·D] and acc [B, N, H·D]
-// are workspace the training forward keeps with lse [B, H, N] for its
-// backward (fused_layer_bwd.cu); lse may be null (serving).  extra
-// [G, H, N, N] (groups = G; heads up to 32 wide), bqkv and bout may be null.
-extern "C" int vtx_fused_attention_block_fwd(
-    const float* x, const float* wqkv, long long wqkv_s0, long long wqkv_s1,
-    const float* bqkv, const float* wout, long long wout_s0, long long wout_s1,
-    const float* bout, const float* extra, int groups, float* qkv, float* acc,
-    float* lse, float* out, int B, int N, int C, int H, int D, int Cout, float scale,
-    void* stream) {
-  return static_cast<int>(attention_block(
-      x, wqkv, wqkv_s0, wqkv_s1, bqkv, wout, wout_s0, wout_s1, bout, extra, groups,
-      nullptr, nullptr, qkv, acc, lse, out, B, N, C, H, D, Cout, scale,
-      static_cast<cudaStream_t>(stream)));
 }

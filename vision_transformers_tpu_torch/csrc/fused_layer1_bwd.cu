@@ -40,16 +40,17 @@
 // What bounds it on this card.  The FF half's four GEMMs do 8·M·C·F
 // operations (2x the FF forward), the attention half 16·M·C·HD plus five
 // attention products of 2·B·H·N²·D; at Swin-S (F = 4C, HD = C, N = 98) the
-// GEMMs are ~93% of it, all plain f32 FMAs: the bound is the f32 FMA rate,
-// 67 TFLOP/s at 700 W.  Besides the GEMMs, the FF half moves M·F floats
+// GEMMs are ~93% of it, on the GEMM core (gemm_tc.cu, 3xTF32 on wgmma,
+// 165 TFLOP/s f32-accurate at 700 W); the attention, on plain f32 FMAs,
+// is bound at 67 TFLOP/s.  Besides the GEMMs, the FF half moves M·F floats
 // four times (af, da, dh) — Swin-S stage 1 at 64 images is M = 200,704
 // rows, F = 384 — and dS costs B·H·N² floats written and read once
 // (≈ 236 MB at that shape), which is cheaper than recomputing the scores a
 // third time to sum it.
 //
 // What later work changes: the elementwise passes into the GEMM epilogues
-// (silu' into the da GEMM, af into the dW₂ GEMM's loads), wgmma on bf16
-// operands, and the same launch fusion as the attention layer's backward.
+// (silu' into the da GEMM, af into the dW₂ GEMM's loads), the attention on
+// the tensor cores, bf16 operands, and the same launch fusion as the attention layer's backward.
 
 #include "common.cuh"
 

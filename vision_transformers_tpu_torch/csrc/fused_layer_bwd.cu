@@ -5,9 +5,8 @@
 //
 // Replaces the TPU (Pallas) kernels
 //   vision_transformers_tpu/ops/fused_layer.py:183   _attn_layer_bwd_kernel
-//   vision_transformers_tpu/ops/fused_block.py:100   _blk_bwd_kernel
-//       (B8's backward: steps 1-5 without the row scale and the LN,
-//       vtx_fused_attention_block_bwd)
+// (B8's backward, fused_attention_qkv.cu, runs steps 1-2 and 4-5 below
+// around the tensor-core attention's backward)
 // and computes what it computes: dx, dln_scale, dln_bias, dwqkv, dbqkv,
 // dwout, dbout and, when r needs a gradient, dr.  It reads the residuals the
 // training forward (fused_layer.cu) saved: qkv [M, 3HD], the attention
@@ -49,18 +48,17 @@
 // operations — about 2x the forward's projection work — and attention does
 // 5 products of 2·B·H·N²·D (recomputed scores, dv, dp, dk, dq) — about 2.5x
 // the forward's attention work; at ViT-S/16 (C = HD = 384, N = 197) the
-// GEMMs are ~75% of it.  All of it runs as plain f32 FMAs (no tensor cores):
-// the bound is the f32 FMA rate, 67 TFLOP/s at 700 W.  The attention
-// kernels hold a head zero-padded to 64 in registers (ViT: D = 64); with the
-// bias (Swin: D = 32) a 32-wide instantiation runs, and wider heads are
-// refused.  The GEMMs reuse the
-// forward's tiled FMA GEMM, reading accᵀ, uᵀ, woutᵀ and wqkvᵀ through
-// strides; the attention kernels hold one key (or query) per thread with its
+// GEMMs are ~75% of it.  The GEMMs run on the GEMM core (gemm_tc.cu, 3xTF32
+// on wgmma, bound at 165 TFLOP/s f32-accurate at 700 W), reading accᵀ, uᵀ,
+// woutᵀ and wqkvᵀ through strides; the attention on plain f32 FMAs (67
+// TFLOP/s).  The attention kernels hold a head zero-padded to 64 in
+// registers (ViT: D = 64); with the bias (Swin: D = 32) a 32-wide
+// instantiation runs, and wider heads are refused.  The attention kernels hold one key (or query) per thread with its
 // accumulators in registers and stream the other side through shared memory,
 // in d-outer passes that keep nothing else live across a tile.
 //
-// What later work changes: wgmma on bf16 operands with TMA-fed shared-memory
-// rings, bf16 storage of the saved residuals, and fusing the launches (the
+// What later work changes: the attention onto attention_tc.cuh's tensor-core
+// core (as B8's), bf16 storage of the saved residuals, and fusing the launches (the
 // LN backward into the dln GEMM's epilogue, Δ into the attention passes, the
 // column sums into the weight GEMMs).
 
@@ -308,22 +306,6 @@ cudaError_t attention_core_bwd(const float* qkv, const float* dacc,
   return cudaSuccess;
 }
 
-// Steps 4-5 on the projection's input a [M, C]: dwqkv = aᵀ·dqkv (split-K
-// slabs summed in order); dbqkv = Σ_rows dqkv (when non-null); da =
-// dqkv·wqkvᵀ
-cudaError_t qkv_in_bwd(const float* a, const float* wqkv, long long wqkv_s0,
-                       long long wqkv_s1, const float* dqkv, float* wpart, int splits_qkv,
-                       float* cpart, float* dwqkv, long long dwqkv_s0, long long dwqkv_s1,
-                       float* dbqkv, float* da, int M, int C, int HD, cudaStream_t s) {
-  VTX_CHECK(launch_gemm_splitk(a, C, dqkv, 3 * HD, 1, wpart, splits_qkv, dwqkv,
-                               dwqkv_s0, dwqkv_s1, C, 3 * HD, M, s));
-  if (dbqkv)
-    VTX_CHECK(launch_colsum(dqkv, nullptr, nullptr, nullptr, cpart, dbqkv, M,
-                            3 * HD, s));
-  return launch_gemm(dqkv, wqkv, wqkv_s1, wqkv_s0, nullptr, nullptr, 1, nullptr, da, M,
-                     C, 3 * HD, 0, s);
-}
-
 }  // namespace
 
 // B9's attention backward (common.cuh): 3a-3d on the P = B·G sample-major
@@ -380,6 +362,22 @@ cudaError_t vtx::out_proj_bwd(
     VTX_CHECK(cudaGetLastError());
   }
   return cudaSuccess;
+}
+
+// Steps 4-5 on the projection's input a [M, C]: dwqkv = aᵀ·dqkv (split-K
+// slabs summed in order); dbqkv = Σ_rows dqkv (when non-null); da =
+// dqkv·wqkvᵀ
+cudaError_t vtx::qkv_in_bwd(const float* a, const float* wqkv, long long wqkv_s0,
+                       long long wqkv_s1, const float* dqkv, float* wpart, int splits_qkv,
+                       float* cpart, float* dwqkv, long long dwqkv_s0, long long dwqkv_s1,
+                       float* dbqkv, float* da, int M, int C, int HD, cudaStream_t s) {
+  VTX_CHECK(launch_gemm_splitk(a, C, dqkv, 3 * HD, 1, wpart, splits_qkv, dwqkv,
+                               dwqkv_s0, dwqkv_s1, C, 3 * HD, M, s));
+  if (dbqkv)
+    VTX_CHECK(launch_colsum(dqkv, nullptr, nullptr, nullptr, cpart, dbqkv, M,
+                            3 * HD, s));
+  return launch_gemm(dqkv, wqkv, wqkv_s1, wqkv_s0, nullptr, nullptr, 1, nullptr, da, M,
+                     C, 3 * HD, 0, s);
 }
 
 // Steps 4-6: u from the saved statistics; dwqkv = uᵀ·dqkv; dbqkv = Σ_rows
@@ -470,44 +468,4 @@ extern "C" int vtx_fused_attention_layer_bwd(
       dsbuf, wpart, splits_out, splits_qkv, cpart, dx, dg, db, dwqkv, dwqkv_s0,
       dwqkv_s1, dbqkv, dwout, dwout_s0, dwout_s1, dbout, drs, dextra, B, N, C, H,
       D, scale, static_cast<cudaStream_t>(stream)));
-}
-
-// B8's backward (vision_transformers_tpu/ops/fused_block.py:100,
-// _blk_bwd_kernel): out = OutProj(MHSA(x·Wqkv + bqkv + extra)) + bout, x
-// [B, N, C], out [B, N, Cout].  Reads the forward's saves qkv [B, N, 3·H·D],
-// acc [B, N, H·D] and lse [B, H, N] and dout [B, N, Cout]:
-//   1-2. dwout = accᵀ·dout and dbout = Σ_rows dout (split-K slabs and row
-//        chunks summed in order); dacc = dout·woutᵀ
-//   3.   the attention backward → dqkv, and with extra and a non-null dextra
-//        dS into dsbuf [B, H, N, N], summed over each group's rows in row
-//        order into dextra [G, H, N, N]
-//   4-5. dwqkv = xᵀ·dqkv, dbqkv = Σ_rows dqkv, dx = dqkv·wqkvᵀ
-// Workspace, all allocated by the caller: dacc [B·N, H·D], delta [B·H·N],
-// dqkv [B·N, 3·H·D], dsbuf (with dextra), wpart [max(splits_out·HD·Cout,
-// splits_qkv·C·3HD)], cpart [ceil(B·N / 128) · max(Cout, 3HD)].  The weight
-// gradients are written through their (row, col) strides; dbqkv, dbout
-// (null where the bias is absent), extra, dsbuf and dextra may be null.  No
-// float atomics, so the gradients are bit-identical from run to run.
-extern "C" int vtx_fused_attention_block_bwd(
-    const float* x, const float* wqkv, long long wqkv_s0, long long wqkv_s1,
-    const float* wout, long long wout_s0, long long wout_s1, const float* extra,
-    int groups, const float* qkv, const float* acc, const float* lse,
-    const float* dout, float* dacc, float* delta, float* dqkv, float* dsbuf,
-    float* wpart, int splits_out, int splits_qkv, float* cpart, float* dx,
-    float* dwqkv, long long dwqkv_s0, long long dwqkv_s1, float* dbqkv,
-    float* dwout, long long dwout_s0, long long dwout_s1, float* dbout,
-    float* dextra, int B, int N, int C, int H, int D, int Cout, float scale,
-    void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int M = B * N, HD = H * D;
-  if (B < 1 || N < 1 || (long long)B * N > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  VTX_CHECK(vtx::out_proj_bwd(acc, wout, wout_s0, wout_s1, nullptr, nullptr, N, dout,
-                              nullptr, dacc, wpart, splits_out, cpart, dwout, dwout_s0,
-                              dwout_s1, dbout, nullptr, B, M, Cout, HD, s));
-  VTX_CHECK(attention_core_bwd(qkv, dacc, acc, lse, extra, groups, delta, dsbuf, dqkv,
-                               dextra, B, N, H, D, scale, s));
-  return static_cast<int>(qkv_in_bwd(x, wqkv, wqkv_s0, wqkv_s1, dqkv, wpart, splits_qkv,
-                                     cpart, dwqkv, dwqkv_s0, dwqkv_s1, dbqkv, dx, M, C,
-                                     HD, s));
 }

@@ -59,15 +59,16 @@
 //
 // What bounds it on this card.  The arithmetic is the whole layer's: at
 // Swin-S (F = 4C, HD = C, m = 98) the projection and FF GEMMs are ~93% of
-// it, all plain f32 FMAs, so the bound is the f32 FMA rate, 67 TFLOP/s at
-// 700 W.  What this design removes is data movement around the layer: the
+// it, on the GEMM core (gemm_tc.cu, 3xTF32 on wgmma, 165 TFLOP/s
+// f32-accurate at 700 W); the attention stays on plain f32 FMAs (67
+// TFLOP/s).  What this design removes is data movement around the layer: the
 // torch roll, partition, unpartition and unroll passes over the map and
 // their adjoints, ~4-8 map passes a layer each way.  What it adds is one
 // table load and an integer division per row in the map-reading and
 // map-writing passes.
 //
-// What later work changes: wgmma on bf16 operands with TMA-fed shared-memory
-// rings (the tensor cores are ~15x the f32 FMA rate), and fewer launches.
+// What later work changes: the attention onto attention_tc.cuh's
+// tensor-core core, bf16 operands, and fewer launches.
 
 #include "common.cuh"
 

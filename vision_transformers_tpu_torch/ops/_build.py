@@ -282,7 +282,8 @@ _SIGNATURES = {
         _P, _L, _L,              # wout, its strides
         _P, _I,                  # extra (nullable), groups
         _P, _P, _P, _P,          # qkv, acc, lse, dout
-        _P, _P, _P, _P,          # dacc, delta, dqkv, dsbuf (workspace; dsbuf nullable)
+        _P, _P, _P, _P,          # dacc, dq partials, dqkv, dsbuf (workspace; nullable
+                                 # but dacc, dqkv)
         _P, _I, _I, _P,          # wpart, splits out / qkv, cpart
         _P,                      # dx
         _P, _L, _L, _P,          # dwqkv, its strides, dbqkv (nullable)
@@ -290,6 +291,15 @@ _SIGNATURES = {
         _P,                      # dextra (nullable)
         _I, _I, _I, _I, _I, _I,  # B, N, C, H, D, Cout
         _F, _P,                  # scale, stream
+    ],
+    "vtx_gemm_tc": [
+        _P, _I, _P, _L, _L,      # A, lda (split-K), B, its (k, n) strides
+        _P, _P, _I, _P,          # bias, row scale, rows per scale, res (nullable)
+        _P,                      # out
+        _P, _I, _I,              # the row → pixel table (nullable), its length, form
+        _P, _I, _L, _L,          # split-K slabs (workspace), their count, out strides
+        _I, _I, _I, _I,          # M, N, K, silu
+        _P,                      # stream
     ],
 }
 

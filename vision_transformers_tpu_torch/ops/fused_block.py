@@ -23,16 +23,17 @@ input was None.
 A CPU tensor runs the plain torch versions, :func:`block_fwd_reference` and
 :func:`block_bwd_reference` (f32 products, the packed-qkv attention's plain
 versions in between).  A CUDA tensor runs the hand-written kernels of
-``csrc/fused_layer.cu`` (forward: the GEMM with the qkv bias, the packed-qkv
-attention with lse, the GEMM with the out bias — B1's launch sequence
-without its LN and residual) and ``csrc/fused_layer_bwd.cu`` (backward:
-split-K weight gradients summed in order, the attention backward with dS
-summed per group in row order, no float atomics) or raises; it never falls
-back to the plain versions.  The kernels take float32, heads up to 64 wide,
-and the bias only with heads up to ``MAX_BIAS_DIM_HEAD`` wide; anything else
-on a CUDA tensor raises NotImplementedError.  The weights may be any 2-D
-strided view (the models pass ``linear.weight.t()``); their gradients come
-back in the view's layout.
+``csrc/fused_attention_qkv.cu`` — forward: the GEMM core (``csrc/gemm_tc.cu``,
+3xTF32 on the tensor cores) with the qkv bias, the packed-qkv attention of
+``csrc/attention_tc.cuh`` (B3's, 3xTF32) with lse, the GEMM core with the
+out bias; backward: split-K weight gradients summed in order, the
+attention's backward with its dq partials summed in key-tile order and dS
+summed per group in row order, no float atomics — or raises; it never falls
+back to the plain versions.  The kernels take float32 and heads up to
+``MAX_DIM_HEAD`` (64) wide, with or without the bias; anything else on a
+CUDA tensor raises NotImplementedError.  The weights may be any 2-D strided
+view (the models pass ``linear.weight.t()``); their gradients come back in
+the view's layout.
 """
 
 from __future__ import annotations
@@ -43,10 +44,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .fused_attention import qkv_attention_bwd_reference, qkv_attention_fwd_reference
-from .fused_layer import (MAX_BIAS_DIM_HEAD, MAX_DIM_HEAD, _raise_on, _splits, cast_like,
-                          check_f32, check_matrix, check_vector, extra_grad, extra_groups,
-                          like_layout, ptr)
+from .fused_attention import (_TILE, qkv_attention_bwd_reference,
+                              qkv_attention_fwd_reference)
+from .fused_layer import (MAX_DIM_HEAD, _raise_on, _splits, cast_like, check_f32,
+                          check_matrix, check_vector, extra_grad, extra_groups, like_layout,
+                          ptr)
 
 __all__ = ["fused_attention_block", "fused_attention_block_reference",
            "fused_attention_block_fwd", "fused_attention_block_bwd", "block_fwd_reference",
@@ -160,10 +162,6 @@ def _check(x, wqkv, bqkv, wout, bout, n_head, extra_g):
             f"the CUDA fused_attention_block holds heads up to {MAX_DIM_HEAD} wide; got "
             f"{D} (ROADMAP B)")
     if extra_g is not None:
-        if D > MAX_BIAS_DIM_HEAD:
-            raise NotImplementedError(
-                f"the CUDA fused_attention_block takes the bias with heads up to "
-                f"{MAX_BIAS_DIM_HEAD} wide; got {D} (ROADMAP B)")
         if extra_g.ndim != 4 or tuple(extra_g.shape[1:]) != (n_head, N, N) \
                 or B % extra_g.shape[0] or not extra_g.is_contiguous():
             raise ValueError(f"extra must be a contiguous [G, {n_head}, {N}, {N}] with "
@@ -218,7 +216,9 @@ def _cuda_bwd(saved: BlockSaved, do: torch.Tensor, need_dextra: bool):
 
     lib = build()
     opts = dict(device=x.device, dtype=torch.float32)
-    dacc, delta = torch.empty((M, HD), **opts), torch.empty((B, H, N), **opts)
+    key_tiles = -(-N // _TILE)
+    dacc = torch.empty((M, HD), **opts)
+    dq_part = torch.empty((key_tiles * M * HD,), **opts) if key_tiles > 1 else None
     dqkv = torch.empty((M, 3 * HD), **opts)
     dsbuf = torch.empty((B, H, N, N), **opts) if want_dextra else None
     wpart = torch.empty((max(s_out * HD * Cout, s_qkv * C * 3 * HD),), **opts)
@@ -235,7 +235,7 @@ def _cuda_bwd(saved: BlockSaved, do: torch.Tensor, need_dextra: bool):
             ptr(x), ptr(wqkv), wqkv.stride(0), wqkv.stride(1),
             ptr(wout), wout.stride(0), wout.stride(1), ptr(extra_g), _groups(extra_g),
             ptr(saved.qkv), ptr(saved.acc), ptr(saved.lse), ptr(do),
-            ptr(dacc), ptr(delta), ptr(dqkv), ptr(dsbuf), ptr(wpart), s_out, s_qkv,
+            ptr(dacc), ptr(dq_part), ptr(dqkv), ptr(dsbuf), ptr(wpart), s_out, s_qkv,
             ptr(cpart), ptr(dx), ptr(dwqkv), dwqkv.stride(0), dwqkv.stride(1), ptr(dbqkv),
             ptr(dwout), dwout.stride(0), dwout.stride(1), ptr(dbout), ptr(dextra),
             B, N, C, H, D, Cout, ctypes.c_float(saved.scale), stream)

@@ -478,14 +478,26 @@ def like_layout(w: torch.Tensor) -> torch.Tensor:
     return torch.empty(w.shape, dtype=torch.float32, device=w.device)
 
 
-_SM_WAVE = 4 * 132  # GEMM blocks to aim a split-K weight gradient at
+_SMS = 132  # the H100's SMs: the GEMM core runs one persistent block on each
 
 
 def _splits(rows: int, cols: int, k: int) -> int:
     """K-slabs for a split-K weight-gradient GEMM of [rows, cols] over k
-    (csrc/common.cuh tiles: 128 x 64, k slabs of at least 256)."""
-    tiles = -(-rows // 128) * -(-cols // 64)
-    return max(1, min(-(-_SM_WAVE // tiles), k // 256))
+    (csrc/gemm_tc.cu: 128 x 128 tiles, 128 x 64 where 64-column ones pad
+    cols less, walked by one persistent block an SM): the fewest slabs, each
+    at least 512 deep (32 of its 16-deep steps), that give every SM two
+    tiles or more and leave at most a tenth of the last round's blocks
+    idle; failing that, the count that idles least."""
+    bn = 64 if -(-cols // 64) * 64 < -(-cols // 128) * 128 else 128
+    tiles = -(-rows // 128) * -(-cols // bn)
+    counts = range(1, max(1, k // 512) + 1)
+
+    def idle(s):  # the idle share of the rounds of tiles·s over the SMs
+        room = -(-tiles * s // _SMS) * _SMS
+        return (room - tiles * s) / room
+
+    return next((s for s in counts if tiles * s >= 2 * _SMS and idle(s) <= 0.1),
+                min(counts, key=lambda s: (idle(s), s)))
 
 
 def _cuda_bwd(saved: AttnSaved, dz: torch.Tensor, need_drs: bool, need_dextra: bool):
