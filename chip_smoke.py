@@ -36,8 +36,9 @@ non-zero and prints no ok line):
            rows serving, 128 rows the trainer's eval) and at the timed ViT-S
            shapes; the whole-layer kernel also with Swin's grouped bias and
            both row scales at an odd small shape and at every Swin-S stage of
-           the trainer (64 images) and of its eval (128 images); median ms of
-           kernel and plain version
+           the trainer (64 images) and of its eval (128 images), and the
+           attention layer with Twins-SVT-S stage 3's pair mask (B1's bias
+           call, 128 images); median ms of kernel and plain version
 3b. backward each forward (with saves) + backward kernel vs the plain forward
            + plain backward, with and without row scales; per tensor max |Δ|
            ≤ 1e-3·max(1, max|plain|) (f32 sums over all rows in another
@@ -108,8 +109,8 @@ non-zero and prints no ok line):
            stages at 64 images with the grouped bias; median ms beside
            F.multi_head_attention_forward (need_weights=False, the same
            weights, the bias as a float mask) and its autograd backward
-3w.        the map-resident Swin layer (Swin's 'swin' path) at the four
-           Swin-S stage calls of the trainer (64 images), each shifted
+3w.        the map-resident Swin layer (Swin's 'swin' path) at SWIN_ODD and
+           the four Swin-S stage calls of the trainer (64 images), each shifted
            (the grouped layout-native bias) and unshifted (one slab), with
            and without both per-image row scales: serving forward and
            training forward within atol = rtol = 1e-4, backward per tensor
@@ -118,6 +119,18 @@ non-zero and prints no ok line):
            plain version and beside the whole-layer kernel between the
            torch roll / window partition and unpartition / unroll (the
            'layer1' path's layer), forward with saves and backward
+3a.        the tensor-core window attention alone (csrc/window_attention_tc.cuh:
+           the attention of B1's bias calls, B2 and B9) through its thin C
+           entries, at the four Swin-S stages of the trainer (64 images, the
+           shifted layers' grouped bias), Twins-SVT-S stage 3's pair mask (128
+           images), SWIN_ODD and 113 tokens in 3 groups, each in B2's
+           group-major and B9's sample-major layout: forward (out, lse)
+           within atol = rtol = 1e-4, backward (dqkv, dbias) within
+           1e-3·max(1, max|plain|) and bit-identical across two runs; median
+           ms forward and backward beside the plain version,
+           F.scaled_dot_product_attention with the bias as a float attn_mask
+           (its backward taking the bias's gradient) and the bound at the
+           tensor-core rate
 4. golden  ViT-S/16 @224 (depth 12), Swin-S @224 (depth 24), Halo-S @256
            (depth 12), PVT-S @224 (depth 16) and Twins-SVT-S @224 (depth
            18), seeded weights, against the JAX logits in
@@ -281,7 +294,8 @@ KERNELS = {  # name → (source, the TPU kernel it replaces)
 # their tensor-core instructions, and their bound takes the f32-accurate
 # tensor-core rate
 TENSOR_CORE_FUNCTIONS = ("attn_fwd_kernel", "attn_bwd_kernel", "halo_fwd_kernel",
-                         "halo_bwd_kernel", "gemm_tc_kernel")
+                         "halo_bwd_kernel", "window_fwd_kernel", "window_bwd_kernel",
+                         "gemm_tc_kernel")
 KERNEL_TOL = 1e-4
 DEVICE = "cuda"
 
@@ -353,21 +367,23 @@ def build():
 def tensor_core_counts(_build, library):
     """The tensor-core instructions in ``cuobjdump -sass`` (HMMA: mma.sync;
     HGMMA: wgmma) of each instantiation of the tensor-core kernels — the
-    attention of attention_tc.cuh and halo_attention_tc.cuh, in each source
-    that compiles them (fused_attention.cu for B6, fused_attention_qkv.cu
-    for B3 and B8, fused_halo.cu for B5a, B5b and B4), and the GEMM core's
-    (gemm_tc.cu); raises if one has none."""
+    attention of attention_tc.cuh, halo_attention_tc.cuh and
+    window_attention_tc.cuh, in each source that compiles them
+    (fused_attention.cu for B6, fused_attention_qkv.cu for B3 and B8,
+    fused_halo.cu for B5a, B5b and B4, fused_layer.cu / fused_layer_bwd.cu
+    for B1's bias calls, B2 and B9), and the GEMM core's (gemm_tc.cu);
+    raises if one has none."""
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     sass = run([cuobjdump, "-sass", library], timeout=300)
-    pattern = re.compile(r"_GLOBAL__N__\w+?_\d+_(\w+?)_cu_[0-9a-f]+3(?:tca|hta|gtc)\d+("
-                         + "|".join(TENSOR_CORE_FUNCTIONS) + r")I((?:L[ib]\d+E)+)E")
+    pattern = re.compile(r"_GLOBAL__N__\w+?_\d+_(\w+?)_cu_[0-9a-f]+3(?:tca|hta|gtc|wta)\d+("
+                         + "|".join(TENSOR_CORE_FUNCTIONS) + r")(?:I((?:L[ib]\d+E)+)E)?")
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function : " in line:
             m = pattern.search(line)
             name = None
             if m:
-                args = ",".join(re.findall(r"L[ib](\d+)E", m.group(3)))
+                args = ",".join(re.findall(r"L[ib](\d+)E", m.group(3) or ""))
                 name = f"{m.group(1)}.cu {m.group(2)}<{args}>"
                 counts[name] = {"HMMA": 0, "HGMMA": 0}
         elif name:
@@ -408,14 +424,23 @@ def bound(flops, nbytes, tensor_cores=False):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def attention_route(attn, other, groups):
+    """(FMA operations, tensor-core operations) of a kernel sequence whose
+    attention products ``attn`` run on f32 FMAs without a bias (ViT's) and
+    on the tensor-core window attention with one (``groups`` > 0: B1's bias
+    calls, B2, B9), the ``other`` (projection) products on the GEMM core."""
+    return (0, attn + other) if groups else (attn, other)
+
+
 def attn_fwd_work(B, N, C, H, D, saves=False, groups=0):
     """((FMA operations, tensor-core operations), bytes) of the attention
-    half's forward: two attention products (4·B·H·N²·D, f32 FMA) and four
-    projection products (8·M·C·HD, the GEMM core's tensor cores); x, weights
-    (and with ``groups`` the bias [G, H, N, N]) in, out written, and with
-    ``saves`` the residuals (qkv, acc, mu, rstd, lse) written too."""
+    half's forward: two attention products (4·B·H·N²·D; f32 FMA, on the
+    tensor cores with the bias) and four projection products (8·M·C·HD, the
+    GEMM core's tensor cores); x, weights (and with ``groups`` the bias [G,
+    H, N, N]) in, out written, and with ``saves`` the residuals (qkv, acc,
+    mu, rstd, lse) written too."""
     M, HD = B * N, H * D
-    flops = (4 * B * H * N * N * D, 8 * M * C * HD)
+    flops = attention_route(4 * B * H * N * N * D, 8 * M * C * HD, groups)
     nbytes = 4 * (2 * M * C + 4 * C * HD + 3 * HD + 3 * C + B + groups * H * N * N)
     if saves:
         nbytes += 4 * (4 * M * HD + 2 * M + B * H * N)
@@ -477,10 +502,11 @@ def ff_bwd_work(B, N, C, F, row_scale=False):
 def layer_fwd_work(B, N, C, H, D, F, groups=0, row_scales=False, saves=False):
     """((FMA operations, tensor-core operations), bytes) of the whole
     layer's forward: the attention half plus the FF GEMMs (4·M·C·F, tensor
-    cores); with ``groups`` the bias [G, H, N, N] read, with ``saves`` qkv,
-    acc, z, hid and the statistics written."""
+    cores); with ``groups`` the bias [G, H, N, N] read (and the attention
+    on the tensor cores), with ``saves`` qkv, acc, z, hid and the
+    statistics written."""
     M, HD = B * N, H * D
-    flops = (4 * B * H * N * N * D, 8 * M * C * HD + 4 * M * C * F)
+    flops = attention_route(4 * B * H * N * N * D, 8 * M * C * HD + 4 * M * C * F, groups)
     nbytes = 4 * (2 * M * C + 4 * C * HD + 2 * C * F + 3 * HD + 5 * C + F
                   + groups * H * N * N + (2 * B if row_scales else 0))
     if saves:
@@ -490,12 +516,13 @@ def layer_fwd_work(B, N, C, H, D, F, groups=0, row_scales=False, saves=False):
 
 def attn_bwd_work(B, N, C, H, D, groups=0):
     """((FMA operations, tensor-core operations), bytes) of the backward:
-    five attention products (recomputed scores, dv, dp, dk, dq; f32 FMA) and
-    the four projection products of the weight and input gradients
-    (16·M·C·HD, tensor cores); reads x, dz, the saves, the weights (and with
-    ``groups`` the bias) once, writes dx and the parameter gradients once."""
+    five attention products (recomputed scores, dv, dp, dk, dq; f32 FMA, on
+    the tensor cores with the bias) and the four projection products of the
+    weight and input gradients (16·M·C·HD, tensor cores); reads x, dz, the
+    saves, the weights (and with ``groups`` the bias) once, writes dx and
+    the parameter gradients once."""
     M, HD = B * N, H * D
-    flops = (10 * B * H * N * N * D, 16 * M * C * HD)
+    flops = attention_route(10 * B * H * N * N * D, 16 * M * C * HD, groups)
     nbytes = 4 * (3 * M * C + 4 * M * HD + 2 * M + B * H * N
                   + 2 * (4 * C * HD + 3 * HD + 3 * C) + 2 * B + groups * H * N * N)
     return flops, nbytes
@@ -506,9 +533,11 @@ def layer_bwd_work(B, N, C, H, D, F, groups=0, row_scales=False):
     layer's backward: the attention half's (attn_bwd_work) plus the FF
     half's four GEMMs (8·M·C·F, tensor cores); reads x, do, the saves (qkv,
     acc, z, hid, statistics, lse), the weights and the bias once, writes dx,
-    the parameter gradients and dextra once."""
+    the parameter gradients and dextra once; with ``groups`` the attention
+    on the tensor cores."""
     M, HD = B * N, H * D
-    flops = (10 * B * H * N * N * D, 16 * M * C * HD + 8 * M * C * F)
+    flops = attention_route(10 * B * H * N * N * D, 16 * M * C * HD + 8 * M * C * F,
+                            groups)
     nbytes = 4 * (3 * M * C + 4 * M * HD + M * C + M * F + 4 * M + B * H * N
                   + 2 * (4 * C * HD + 2 * C * F + 3 * HD + 7 * C + F)
                   + 2 * groups * H * N * N + (4 * B if row_scales else 0))
@@ -959,6 +988,17 @@ def kernels(torch):
                          + ",".join(map(str, call["shape"])) + f", G={call['groups']}",
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": by, "library_ms": None})
+
+    # the attention layer with Twins-SVT-S stage 3's pair mask (128 images):
+    # B1's bias call, on the window attention
+    call = twins_stages(128)[2]
+    a, mask, rs, _ = twins_layer_inputs(torch, call)
+    H = call["lsa"][3]
+    out = fused_layer.fused_attention_layer(*a, H, extra=mask, row_scale=rs)
+    torch.cuda.synchronize()
+    check_close(torch, "fused_attention_layer", out,
+                fused_layer.fused_attention_layer_reference(*a, H, extra=mask, row_scale=rs),
+                f"Twins-SVT-S stage 3 B,N,C,H,D={call['lsa'][:5]}, pair mask, row scale")
     return results
 
 
@@ -1180,7 +1220,7 @@ def swin_map_kernels(torch):
 
     worst = {"out": 0.0, "grads": 0.0}
     stages = swin_stages(64)
-    for call in stages:
+    for call in [SWIN_ODD] + stages:
         H = call["shape"][3]
         for shift in (True, False):
             for use_rs in (False, True):
@@ -1254,6 +1294,173 @@ def swin_map_kernels(torch):
                     "layer1_partition_ms": b2b_ms})
         del saved, saved_p, saved_b2
     return fwd, bwd
+
+
+# ---------------------------------------------------------------------------
+# 3a. the tensor-core window attention alone vs its plain version
+# ---------------------------------------------------------------------------
+
+
+def window_fwd_work(P, N, H, D, G):
+    """(operations, bytes) of the window attention's forward: q·kᵀ and p·v,
+    4·P·H·N²·D on the tensor cores; qkv and the bias [G, H, N, N] read, out
+    and lse written."""
+    HD = H * D
+    return 4 * P * H * N * N * D, 4 * (4 * P * N * HD + P * H * N + G * H * N * N)
+
+
+def window_bwd_work(P, N, H, D, G):
+    """(operations, bytes) of its backward: five products (scores, dp, dq,
+    dk, dv), 10·P·H·N²·D on the tensor cores; qkv, out, do, lse and the bias
+    read, dqkv and dbias written."""
+    HD = H * D
+    return 10 * P * H * N * N * D, 4 * (8 * P * N * HD + P * H * N + 2 * G * H * N * N)
+
+
+def window_calls():
+    """The window attention's calls: the four Swin-S stages of the trainer's
+    64-image micro-batches with the shifted layers' grouped bias (B2's and
+    B9's), Twins-SVT-S stage 3's pair mask at 128 images (B1's), SWIN_ODD,
+    and 113 tokens in 3 groups (past a warp's 16 rows, past one backward
+    round of 64, odd); each with (P, N, H, D, G) and how its bias is made."""
+    calls = []
+    for c in swin_stages(64):
+        rows, N, C, H, D, _ = c["shape"]
+        calls.append(dict(what=f"Swin-S stage {c['stage']}", P=rows, N=N, H=H, D=D,
+                          G=c["groups"], swin=c, timed=True))
+    tw = twins_stages(128)[2]
+    rows, N, C, H, D, _ = tw["lsa"]
+    calls.append(dict(what="Twins-SVT-S stage 3 pair mask", P=rows, N=N, H=H, D=D, G=1,
+                      twins=tw, timed=True))
+    rows, N, C, H, D, _ = SWIN_ODD["shape"]
+    calls.append(dict(what="SWIN_ODD", P=rows, N=N, H=H, D=D, G=SWIN_ODD["groups"],
+                      swin=SWIN_ODD, timed=False))
+    calls.append(dict(what="odd 113 tokens", P=24, N=113, H=4, D=32, G=3, timed=False))
+    return calls
+
+
+def window_inputs(torch, call, seed=0):
+    """qkv [P·N, 3·H·D] and dout [P·N, H·D] (std 1) and the call's bias: a
+    port WindowAttention's grouped bias of a shifted layer (std-0.2 table),
+    the port LocalAttention's pair mask, or a std-1 table with a −1e9 block."""
+    from vision_transformers_tpu_torch.models.swin import WindowAttention
+    from vision_transformers_tpu_torch.models.twins import LocalAttention
+
+    P, N, H, D, G = (call[k] for k in ("P", "N", "H", "D", "G"))
+    gen = torch.Generator(DEVICE).manual_seed(seed)
+    qkv = torch.randn(P * N, 3 * H * D, device=DEVICE, generator=gen)
+    dout = torch.randn(P * N, H * D, device=DEVICE, generator=gen)
+    if "swin" in call:
+        c = call["swin"]
+        attn = WindowAttention(c["shape"][2], H, D, c["size"], c["window"], shift=True)
+        with torch.no_grad():
+            attn.rel_pos.weight.normal_(0.0, 0.2, generator=torch.Generator().manual_seed(seed))
+            bias = attn.to(DEVICE).grouped_bias().contiguous()
+    elif "twins" in call:
+        c = call["twins"]
+        win = int(round((N // c["pack"]) ** 0.5))
+        mask = LocalAttention(c["lsa"][2], H, D, win).pair_mask(c["pack"], DEVICE)
+        bias = mask.float().expand(1, H, N, N).contiguous()
+    else:
+        bias = torch.randn(G, H, N, N, device=DEVICE, generator=gen)
+        bias[..., : N // 2, N // 2:] = -1e9
+    if bias.shape != (G, H, N, N):
+        raise RuntimeError(f"window inputs: bias {tuple(bias.shape)} for {call['what']}")
+    return qkv, dout, bias
+
+
+def sdpa_window(torch, qkv, bias, call, scale, cyclic):
+    """The library's yardstick on the same windows: q, k, v [P, H, N, D] and
+    the bias as a float attn_mask [P, H, N, N] (gathered from the leaf
+    ``bias`` per window, so the backward takes the bias's gradient); returns
+    (forward fn, backward fn) of F.scaled_dot_product_attention."""
+    import torch.nn.functional as F
+
+    P, N, H = call["P"], call["N"], call["H"]
+    q, k, v = (t.contiguous().requires_grad_() for t in
+               qkv.view(P, N, 3, H, -1).permute(2, 0, 3, 1, 4).unbind(0))
+    b = bias.clone().requires_grad_()
+    p = torch.arange(P, device=DEVICE)
+    gi = p % call["G"] if cyclic else p // (P // call["G"])
+    mask = bias[gi].contiguous()
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=b[gi], scale=scale)
+    do = torch.randn_like(out)
+
+    def fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+
+    def bwd():
+        return torch.autograd.grad(out, (q, k, v, b), do, retain_graph=True)
+
+    return fwd, bwd
+
+
+def window_kernels(torch):
+    """3a: the tensor-core window attention (csrc/window_attention_tc.cuh:
+    the attention of B1's bias calls, B2 and B9) alone, through its thin C
+    entries, at each call of window_calls() in both group layouts (B2's
+    group-major windows, B9's sample-major ones): the forward (out and lse)
+    within atol = rtol = 1e-4 of the plain version, the backward (dqkv and
+    the bias's gradient) within 1e-3·max(1, max|plain|) and bit-identical
+    across two runs; at the timed calls (B2's layout) median ms of the
+    kernel, the plain version and F.scaled_dot_product_attention with the
+    bias as a float attn_mask, forward and backward, beside the bound at the
+    tensor-core rate.  Returns the timed records of the forward and of the
+    backward."""
+    from vision_transformers_tpu_torch.ops import window_attention as wa
+
+    worst = {"out": 0.0, "grads": 0.0}
+    fwd_rec, bwd_rec = [], []
+    for call in window_calls():
+        P, N, H, D, G = (call[k] for k in ("P", "N", "H", "D", "G"))
+        qkv, dout, bias = window_inputs(torch, call)
+        scale = D ** -0.5
+        for cyclic in (False, True):
+            what = (f"{call['what']} P,N,H,D,G={P},{N},{H},{D},{G} "
+                    f"{'sample-major' if cyclic else 'group-major'}")
+            out, lse = wa.window_attention_fwd(qkv, bias, H, scale, cyclic)
+            torch.cuda.synchronize()
+            out_p, lse_p = wa.window_attention_fwd_reference(qkv, bias, H, scale, cyclic)
+            err = check_close(torch, "window_attention", out, out_p, what + " out")
+            check_close(torch, "window_attention", lse, lse_p, what + " lse")
+            worst["out"] = max(worst["out"], err)
+            grads = wa.window_attention_bwd(qkv, bias, out, lse, dout, H, scale, cyclic)
+            again = wa.window_attention_bwd(qkv, bias, out, lse, dout, H, scale, cyclic)
+            torch.cuda.synchronize()
+            plain = wa.window_attention_bwd_reference(qkv, bias, dout, H, scale, cyclic)
+            compare_grads(torch, what, ("dqkv", "dbias"), grads, again, plain, worst)
+            del grads, again, plain
+            if not call["timed"] or cyclic:
+                continue
+            k_f = median_ms(torch, lambda: wa.window_attention_fwd(qkv, bias, H, scale))
+            k_b = median_ms(torch, lambda: wa.window_attention_bwd(qkv, bias, out, lse, dout,
+                                                                   H, scale))
+            p_f = median_ms(torch, lambda: wa.window_attention_fwd_reference(qkv, bias, H,
+                                                                             scale))
+            p_b = median_ms(torch, lambda: wa.window_attention_bwd_reference(qkv, bias, dout,
+                                                                             H, scale))
+            s_fwd, s_bwd = sdpa_window(torch, qkv, bias, call, scale, False)
+            l_f, l_b = median_ms(torch, s_fwd), median_ms(torch, s_bwd)
+            del s_fwd, s_bwd
+            fb, fby = bound(*window_fwd_work(P, N, H, D, G), tensor_cores=True)
+            bb, bby = bound(*window_bwd_work(P, N, H, D, G), tensor_cores=True)
+            log(f"kernels: window_attention {what} (median of 20, CUDA events): kernel fwd "
+                f"{k_f:.3f} + bwd {k_b:.3f} ms; plain fwd {p_f:.3f} + bwd {p_b:.3f} ms; "
+                f"scaled_dot_product_attention fwd {l_f:.3f} + bwd {l_b:.3f} ms; bound "
+                f"fwd {fb:.3f} ({fby}) + bwd {bb:.3f} ms ({bby})")
+            shape = f"{call['what']}, P,N,H,D,G={P},{N},{H},{D},{G}"
+            fwd_rec.append({"shape": shape + ", lse", "max_abs_err": worst["out"], "ms": k_f,
+                            "plain_ms": p_f, "bound_ms": fb, "bound_by": fby,
+                            "library_ms": l_f})
+            bwd_rec.append({"shape": shape + ", dbias", "max_abs_err": worst["grads"],
+                            "ms": k_b, "plain_ms": p_b, "bound_ms": bb, "bound_by": bby,
+                            "library_ms": l_b})
+        del qkv, dout, bias, out, lse
+    for rec in fwd_rec + bwd_rec:
+        if rec["bound_ms"] > rec["ms"]:
+            raise RuntimeError(f"window attention: {rec['shape']} ran faster than its bound")
+    return fwd_rec, bwd_rec
 
 
 # ---------------------------------------------------------------------------
@@ -2701,6 +2908,7 @@ def main() -> None:
         "3k attention block", block_kernels, torch)
     timed["fused_swin_layer"], timed["fused_swin_layer_bwd"] = phase(
         "3w map-resident Swin layer", swin_map_kernels, torch)
+    phase("3a window attention", window_kernels, torch)
     fal, falb = "fused_attention_layer", "fused_attention_layer_bwd"
     ftl, ftlb = "fused_transformer_layer", "fused_transformer_layer_bwd"
     fhl, fhlb = "fused_halo_layer", "fused_halo_layer_bwd"

@@ -7,15 +7,17 @@ parent / change comparison run in turns within one call:
 ``ROOT`` (default: this checkout) is the tree whose
 ``vision_transformers_tpu_torch`` is imported and built (each tree builds into
 its own ``_build/``). Times, as medians of 20 CUDA-event timings after 3 warm-
-up calls: B1 ``fused_attention_layer`` forward with saves and backward at ViT-S
-B=128 with a row scale; B2 ``fused_transformer_layer`` forward with saves and
-backward at Swin-S stages 3 and 1 at 64 images (128 rows of 98 tokens, C 384,
-12 heads of 32, the grouped bias of 2 groups; 2048 rows, C 96, 3 heads, 32
-groups; both row scales); B4 ``fused_halo_layer`` the same at Halo-S stage 1 at
-128 images (64x64 map, C 96, 3 heads, window 8, halo 2); B3
-``fused_attention_qkv`` forward with lse and backward at ViT-S B=128 (no bias)
-and at Swin-S stage 1 at 64 images (2048 rows of 98 tokens, 3 heads of 32, the
-grouped bias of 32 groups); B5a ``halo_attention_direct`` forward with lse and
+up calls: B1 ``fused_attention_layer`` forward with saves and backward at
+ViT-S B=128 with a row scale, and at Twins-SVT-S stage 3 at 128 images (256
+rows of 98 tokens, C 256, 8 heads of 32, the pair mask, no mask gradient); B2
+``fused_transformer_layer`` forward with saves and backward at Swin-S stages 3
+and 1 at 64 images (128 rows of 98 tokens, C 384, 12 heads of 32, the grouped
+bias of 2 groups; 2048 rows, C 96, 3 heads, 32 groups; both row scales); B4
+``fused_halo_layer`` the same at Halo-S stage 1 at 128 images (64x64 map, C
+96, 3 heads, window 8, halo 2); B3 ``fused_attention_qkv`` forward with lse
+and backward at ViT-S B=128 (no bias) and at Swin-S stage 1 at 64 images (2048
+rows of 98 tokens, 3 heads of 32, the grouped bias of 32 groups); B5a
+``halo_attention_direct`` forward with lse and
 backward at Halo-S stage 1 at 128 images; B5b ``halo_attention`` forward with
 lse and backward on the gathered problem of Halo-S stage 1 at 128 images (B' =
 8192 windows of 64 queries, 144 keys, 3 heads of 32) and of the window-4 /
@@ -188,6 +190,17 @@ def main() -> None:
     _, saved = fl.fused_attention_layer_fwd(*a[:7], 6, row_scale=r)
     out["B1 ViT fwd"] = ms(lambda: fl.fused_attention_layer_fwd(*a[:7], 6, row_scale=r))
     out["B1 ViT bwd"] = ms(lambda: fl.fused_attention_layer_bwd(saved, dz))
+    a = args(256, 98, 256, 8, 32, 1024)
+    win = torch.arange(98, device="cuda") // 49
+    mask = torch.where(win[:, None] == win[None, :], 0.0, -1e9)
+    dz = torch.randn(256, 98, 256, device="cuda")
+    r = torch.ones(256, device="cuda")
+    _, saved = fl.fused_attention_layer_fwd(*a[:7], 8, row_scale=r, extra=mask)
+    out["B1 Twins3 fwd"] = ms(lambda: fl.fused_attention_layer_fwd(*a[:7], 8, row_scale=r,
+                                                                   extra=mask))
+    out["B1 Twins3 bwd"] = ms(lambda: fl.fused_attention_layer_bwd(saved, dz,
+                                                                   need_dextra=False))
+    r = torch.ones(128, device="cuda")
     a = args(128, 98, 384, 12, 32, 1536)
     extra = 0.2 * torch.randn(2, 12, 98, 98, device="cuda")
     dz = torch.randn(128, 98, 384, device="cuda")

@@ -57,6 +57,8 @@ GROUPS = (("at::native", "other (elementwise, reductions, conv)"),
           ("halo_bwd_kernel", "hand-written halo attention backward"),
           ("halo_fwd_kernel", "hand-written halo attention forward"),
           ("halo_fold", "other hand-written"),
+          ("window_bwd_kernel", "hand-written attention backward"),
+          ("window_fwd_kernel", "hand-written attention forward"),
           ("attn_bwd", "hand-written attention backward"),
           ("attn_fwd", "hand-written attention forward"),
           ("attention_kernel", "hand-written attention forward"),

@@ -9,13 +9,17 @@ line.
     python3 scripts/run_chip_phases.py 3s         # the reduced-kv attention only
     python3 scripts/run_chip_phases.py 3m 3k      # the GEMM core and B8
 
-Phases: ``3m`` (the GEMM core under every projection of B1, B2, B4, B7, B8
-and B9), ``3s`` (the reduced-kv attention, B6), ``3q`` (the packed-qkv
-attention, B3), ``3h`` (the Halo kernels' forwards: the whole Halo layer
-B4 and the halo attention B5a), ``3hb`` (their backwards), ``3g`` (the
-gathered halo attention, B5b), ``3k`` (the attention block, B8), ``3w``
-(the map-resident Swin layer, B9) and ``3f`` (the FF layer, B7).  Exits non-zero when a phase fails.  Needs
-CUDA; imports no JAX.
+Phases: ``3m`` (the GEMM core under every projection of B1, B2, B4, B7, B8 and
+B9), ``3`` (the forwards of the attention layer B1 and the whole layer B2,
+Swin-S's stages and Twins-SVT-S stage 3's mask call among them), ``3b`` (B2's
+training forward and backward at Swin-S's stages), ``3t`` (B1 with Twins' pair
+mask, forward and backward), ``3a`` (the tensor-core window attention alone,
+under B1's bias calls, B2 and B9), ``3s`` (the reduced-kv attention, B6),
+``3q`` (the packed-qkv attention, B3), ``3h`` (the Halo kernels' forwards: the
+whole Halo layer B4 and the halo attention B5a), ``3hb`` (their backwards),
+``3g`` (the gathered halo attention, B5b), ``3k`` (the attention block, B8),
+``3w`` (the map-resident Swin layer, B9) and ``3f`` (the FF layer, B7).  Exits
+non-zero when a phase fails.  Needs CUDA; imports no JAX.
 """
 
 import json
@@ -24,9 +28,11 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PHASES = {"3m": "gemm_kernels", "3s": "sra_kernels", "3q": "qkv_kernels",
-          "3h": "halo_kernels", "3hb": "halo_backward_kernels", "3g": "gather_kernels",
-          "3k": "block_kernels", "3w": "swin_map_kernels", "3f": "ff_kernels"}
+PHASES = {"3m": "gemm_kernels", "3": "kernels", "3b": "swin_backward_kernel",
+          "3t": "twins_layer_kernels", "3a": "window_kernels", "3s": "sra_kernels",
+          "3q": "qkv_kernels", "3h": "halo_kernels", "3hb": "halo_backward_kernels",
+          "3g": "gather_kernels", "3k": "block_kernels", "3w": "swin_map_kernels",
+          "3f": "ff_kernels"}
 DEFAULT = ("3s", "3q")
 
 

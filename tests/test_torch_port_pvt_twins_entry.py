@@ -280,13 +280,15 @@ def test_cuda_layer_passes_the_bias_forward_and_backward(monkeypatch, need_dextr
     assert after == tuple(b + 1 for b in before)
     assert fwd[11:14] == (extra_g.data_ptr(), 1, rs.data_ptr())
     assert bwd[11:14] == (extra_g.data_ptr(), 1, rs.data_ptr())
-    dsbuf, dextra = bwd[26], bwd[43]
+    # the window attention computes Δ itself: no delta workspace with the bias
+    delta, dbpart, dextra = bwd[22], bwd[26], bwd[43]
+    assert delta is None
     assert len(grads) == 9 and grads[7].shape == (4,)
     if need_dextra:
         assert grads[8].shape == (1, 2, 18, 18) and dextra == grads[8].data_ptr()
-        assert dsbuf is not None
+        assert dbpart is not None
     else:
-        assert grads[8] is None and dextra is None and dsbuf is None
+        assert grads[8] is None and dextra is None and dbpart is None
     assert bwd[44:49] == (4, 18, 32, 2, 16)
 
 

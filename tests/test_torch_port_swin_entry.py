@@ -145,7 +145,7 @@ def test_cuda_backward_takes_bias_and_row_scales(monkeypatch):
     dextra, drs_attn, drs_ff = grads[13:]
     assert dextra.shape == extra.shape and drs_attn.shape == drs_ff.shape == (4,)
     assert call[72:75] == (dextra.data_ptr(), drs_attn.data_ptr(), drs_ff.data_ptr())
-    assert call[44] is not None  # dS buffer for the group sum
+    assert call[44] is not None  # the dbias partials of the window attention
     # without a bias gradient or row-scale gradients asked for: null pointers
     grads = fused_layer1._cuda_bwd(saved, torch.zeros_like(args[0]), (False, False), False)
     assert grads[13:] == (None, None, None)

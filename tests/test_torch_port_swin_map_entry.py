@@ -226,14 +226,14 @@ def test_cuda_backward_returns_every_gradient(monkeypatch):
         dx, dextra, drs_attn, drs_ff = grads[0], *grads[13:]
         assert dx.shape == args[0].shape and dextra.shape == extra.shape
         assert drs_attn.shape == drs_ff.shape == (2,)
-        assert call[46] is not None  # dS buffer for the group sum
-        assert call[74:77] == (dextra.data_ptr(), drs_attn.data_ptr(), drs_ff.data_ptr())
+        assert call[45] is not None  # the dbias partials of the window attention
+        assert call[73:76] == (dextra.data_ptr(), drs_attn.data_ptr(), drs_ff.data_ptr())
         # nothing asked of the bias or the row scales: null pointers
         grads = fused_swin._cuda_bwd(saved, torch.zeros_like(args[0]), (False, False),
                                      False)
         call = lib.calls["vtx_fused_swin_layer_bwd"]
     assert grads[13:] == (None, None, None)
-    assert call[46] is None and call[74:77] == (None, None, None)
+    assert call[45] is None and call[73:76] == (None, None, None)
 
 
 def test_cuda_refuses_what_the_kernel_does_not_take(monkeypatch):

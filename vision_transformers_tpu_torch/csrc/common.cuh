@@ -78,9 +78,10 @@ using vtx::launch_gemm_splitk;
 // internal linkage: each .cu that includes this gets its own copy
 namespace {
 
-// largest attention head width: the attention kernels hold a head's
-// vectors in registers, zero-padded to this width; with an additive bias
-// (Swin, D = 32) the narrower EXTRA_DMAX instantiation runs
+// largest attention head width: the FMA attention kernels hold a head's
+// vectors in registers, zero-padded to this width; with an additive bias the
+// tensor-core window attention (window_attention_tc.cuh) takes heads up to
+// EXTRA_DMAX wide
 constexpr int DMAX = 64;
 constexpr int EXTRA_DMAX = 32;
 
@@ -387,44 +388,38 @@ attn_delta_kernel(const float* __restrict__ dacc, const float* __restrict__ acc,
 // ---------------------------------------------------------------------------
 // The grouped bias's gradient: dextra[g, h, q, k] = Σ_{r < R} ds[g·R + r,
 // h, q, k], R = B / G rows per group, summed in r order (one thread per
-// output element); CYCLIC (B9): Σ_{r < R} ds[r·G + g, h, q, k] over the
-// R = B / G samples, in sample order.
+// output element)
 // ---------------------------------------------------------------------------
 
-template <bool CYCLIC>
 __global__ void __launch_bounds__(EW_THREADS)
 group_sum_kernel(const float* __restrict__ ds, int R, long long per_row,
                  long long total, float* __restrict__ out) {
   const long long e = (long long)blockIdx.x * EW_THREADS + threadIdx.x;
   if (e >= total) return;
   const long long g = e / per_row, rem = e % per_row;
-  // total = G·per_row: the stride from one sample's pair g to the next's
-  const float* src = ds + (CYCLIC ? g : g * R) * per_row + rem;
-  const long long step = CYCLIC ? total : per_row;
+  const float* src = ds + g * R * per_row + rem;
   float s = 0.f;
-  for (int r = 0; r < R; ++r) s += src[(long long)r * step];
+  for (int r = 0; r < R; ++r) s += src[(long long)r * per_row];
   out[e] = s;
 }
 
 // ---------------------------------------------------------------------------
-// Attention pieces shared by the attention kernels of fused_layer.cu,
-// fused_layer_bwd.cu and fused_halo.cu.  Each kernel
-// holds one query (or one key) per thread with its vectors zero-padded to
-// DH and stages the other side, a tile of KT rows, in shared memory; these
-// are the per-thread steps, so each kernel keeps only its own addressing
-// (packed qkv rows, halo neighbourhoods, strided [B, G, rows, D] operands).
+// Attention pieces of the FMA attention kernels of fused_layer.cu and
+// fused_layer_bwd.cu (ViT's attention, without a bias).  Each kernel holds
+// one query (or one key) per thread with its vectors zero-padded to DH and
+// stages the other side, a tile of KT rows, in shared memory; these are the
+// per-thread steps.
 // ---------------------------------------------------------------------------
 
 // One key tile of the forward's online softmax for the thread's query q:
-// s_j = q·k_j·scale (+ e[j] with HAS_BIAS) for the first n_valid of the KT
-// staged keys, −inf past them; the running max m, sum l and unnormalised
-// output o are rescaled to the new max and take the tile.  Every tile holds
-// at least one valid key, so the new max is finite (alpha is 0 on the first
-// tile, where m is −inf).
-template <int DH, int KT, bool HAS_BIAS>
+// s_j = q·k_j·scale for the first n_valid of the KT staged keys, −inf past
+// them; the running max m, sum l and unnormalised output o are rescaled to
+// the new max and take the tile.  Every tile holds at least one valid key,
+// so the new max is finite (alpha is 0 on the first tile, where m is −inf).
+template <int DH, int KT>
 __device__ __forceinline__ void softmax_tile_update(
-    const float (&q)[DH], const float (*Ks)[DH], const float (*Vs)[DH],
-    const float* e, int n_valid, float scale, float& m, float& l, float (&o)[DH]) {
+    const float (&q)[DH], const float (*Ks)[DH], const float (*Vs)[DH], int n_valid,
+    float scale, float& m, float& l, float (&o)[DH]) {
   float s[KT];
   float tile_max = -INFINITY;
 #pragma unroll
@@ -432,10 +427,7 @@ __device__ __forceinline__ void softmax_tile_update(
     float dot = 0.f;
 #pragma unroll
     for (int d = 0; d < DH; ++d) dot = fmaf(q[d], Ks[j][d], dot);
-    if (HAS_BIAS)
-      s[j] = j < n_valid ? dot * scale + e[j] : -INFINITY;
-    else
-      s[j] = j < n_valid ? dot * scale : -INFINITY;
+    s[j] = j < n_valid ? dot * scale : -INFINITY;
     tile_max = fmaxf(tile_max, s[j]);
   }
   const float m_new = fmaxf(m, tile_max);
@@ -591,7 +583,7 @@ cudaError_t qkv_proj_bwd(
 
 // Backward of the attention residual branch (fused_layer_bwd.cu), shared by
 // the attention layer's backward and the whole layer's (fused_layer1_bwd.cu).
-// extra / dextra / dsbuf may be null; see fused_layer_bwd.cu.
+// extra / dextra / dbpart may be null; see fused_layer_bwd.cu.
 cudaError_t attention_half_bwd(
     const float* x, const float* ln_g, const float* ln_b,
     const float* wqkv, long long wqkv_s0, long long wqkv_s1, const float* bqkv,
@@ -599,7 +591,7 @@ cudaError_t attention_half_bwd(
     const float* rs, const float* extra, int groups, const float* qkv,
     const float* acc, const float* mu, const float* rstd, const float* lse,
     const float* dz, float* da, float* dacc, float* delta, float* dqkv, float* u,
-    float* dln, float* dsbuf, float* wpart, int splits_out, int splits_qkv,
+    float* dln, float* dbpart, float* wpart, int splits_out, int splits_qkv,
     float* cpart, float* dx, float* dg, float* db,
     float* dwqkv, long long dwqkv_s0, long long dwqkv_s1, float* dbqkv,
     float* dwout, long long dwout_s0, long long dwout_s1, float* dbout,
@@ -615,11 +607,13 @@ cudaError_t window_attention_fwd(const float* qkv, const float* extra, int group
                                  float* out, float* lse, int P, int N, int H, int D,
                                  float scale, cudaStream_t s);
 
-// ... and the backward writes dqkv and, when dextra is non-null, dS into
-// dsbuf [P, H, N, N] and dextra[g] = Σ_b dS[b·groups + g] in sample order
-// (fused_layer_bwd.cu)
+// ... and the backward writes dqkv and, when dextra is non-null, the
+// per-block dS sums into dbpart [wta::bwd_chunks(P, groups, H), groups, H,
+// N, N] and dextra[g] = their sum in chunk order, the windows of a chunk in
+// sample order (fused_layer_bwd.cu); both on the tensor-core window
+// attention (window_attention_tc.cuh), N ≤ 128
 cudaError_t window_attention_bwd(const float* qkv, const float* dacc, const float* acc,
                                  const float* lse, const float* extra, int groups,
-                                 float* delta, float* dsbuf, float* dqkv, float* dextra,
-                                 int P, int N, int H, int D, float scale, cudaStream_t s);
+                                 float* dbpart, float* dqkv, float* dextra, int P, int N,
+                                 int H, int D, float scale, cudaStream_t s);
 }  // namespace vtx

@@ -58,7 +58,9 @@
 // in flight.
 //
 // What later work changes: wgmma tiles (V transposed K-major), bf16
-// operands, B1's, B2's and B9's attention moved onto this core.
+// operands.  (B1's bias calls, B2's and B9's attention run on
+// window_attention_tc.cuh, which keeps a group's bias resident over a chunk
+// of windows instead of one (pair, head) a block.)
 
 #include "attention_tc.cuh"
 
@@ -122,7 +124,7 @@ cudaError_t packed_bwd(const float* qkv, const float* extra, int groups, const f
   VTX_CHECK(tca::attention_bwd(a, B, H, 1, dq_part, nullptr, s));
   if (dextra) {
     const long long per_row = (long long)H * N * N, total = groups * per_row;
-    group_sum_kernel<false><<<ew_blocks(total), EW_THREADS, 0, s>>>(dsbuf, B / groups,
+    group_sum_kernel<<<ew_blocks(total), EW_THREADS, 0, s>>>(dsbuf, B / groups,
                                                                     per_row, total, dextra);
     VTX_CHECK(cudaGetLastError());
   }

@@ -33,15 +33,20 @@
 // projections are about 8.4 GFLOP per image over 12 layers, the scores and
 // AV about 0.7, so the layer is bound by the GEMMs' arithmetic.  The
 // projections run on the GEMM core (gemm_tc.cu: 3xTF32 on wgmma, f32
-// accurate, bound at 165 TFLOP/s); the attention stays on plain f32 FMAs
-// (67 TFLOP/s): it never stores an N x N matrix: one block per (batch, head,
-// 64-query tile), one query per thread, key/value tiles streamed through
-// shared memory with an online max-subtracted softmax in f32, so any N
-// works.
+// accurate, bound at 165 TFLOP/s).  With a bias (Twins' pair mask in B1,
+// Swin's grouped bias in B2 and B9) the attention runs on the tensor-core
+// window attention (window_attention_tc.cuh: 3xTF32 on mma.sync, the same
+// 165 TFLOP/s bound; N ≤ 128, heads up to 32 wide): a block owns one
+// (group, head) and a chunk of its windows with the bias resident, and a
+// window's softmax is exact in one pass.  Without one (ViT's B1, N = 197,
+// D = 64) it stays on plain f32 FMAs (67 TFLOP/s): it never stores an N x N
+// matrix: one block per (batch, head, 64-query tile), one query per thread,
+// key/value tiles streamed through shared memory with an online
+// max-subtracted softmax in f32, so any N works.
 //
-// What later work changes: the attention onto the tensor-core core of
-// attention_tc.cuh (as B8's), bf16 operands, and fusing each op's launch
-// sequence into fewer launches so intermediates stay on chip.
+// What later work changes: ViT's attention onto the tensor cores, bf16
+// operands, and fusing each op's launch sequence into fewer launches so
+// intermediates stay on chip.
 //
 // B7 (the FF residual branch alone, under the FF-kernel switch) is the
 // whole layer's FF half: LN, a GEMM with b₁ and the activation (silu in its
@@ -57,45 +62,37 @@
 // Weights are read through (row, col) strides, so a transposed view
 // (torch's Linear.weight.t()) is consumed in place, without a copy.
 
-#include "common.cuh"
+#include "window_attention_tc.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// Attention over the packed projection qkv [B*N, 3*H*D] (q-heads | k-heads |
-// v-heads) → out [B*N, H*D], and the row log-sum-exp lse [B, H, N] of the
-// scaled scores when lse is non-null.  Grid (query tiles, H, B); one query
-// per thread.  DH: the register width of a head (≥ D, zero-padded).  HAS_EXTRA: the scores carry the additive bias
-// extra[g, h] [N, N] of the row's group g = b / rows_per_group (Swin's
-// relative-position bias and shift mask), staged in shared memory per key
-// tile.  Masked pairs hold −1e9, not −inf: a tile whose keys are all masked
-// gives finite scores, and the first tile with a visible key rescales what
-// it left by exp(−1e9 − m) = 0, so neither lse nor the output sees a NaN.
+// Attention without a bias over the packed projection qkv [B*N, 3*H*D]
+// (q-heads | k-heads | v-heads) → out [B*N, H*D], and the row log-sum-exp
+// lse [B, H, N] of the scaled scores when lse is non-null: ViT's, any N.
+// Grid (query tiles, H, B); one query per thread, key / value tiles streamed
+// through shared memory with an online max-subtracted softmax.  DH: the
+// register width of a head (≥ D, zero-padded).  With a bias the attention
+// is window_attention_tc.cuh's (N ≤ 128, heads up to 32 wide).
 // ---------------------------------------------------------------------------
 
 constexpr int AQ = 64;     // queries per block = threads per block
 constexpr int AKV = 32;    // keys per shared-memory tile
 
 // SAVE_LSE: the training forward's variant, which also writes lse (a
-// separate instantiation keeps the serving kernel's registers as they were).
-// CYCLIC: B9's sample-major pairs, row b in group b mod rows_per_group (the
-// argument is then the group count G) instead of b / rows_per_group.
-template <int DH, bool SAVE_LSE, bool HAS_EXTRA, bool CYCLIC>
+// separate instantiation keeps the serving kernel's registers as they were)
+template <int DH, bool SAVE_LSE>
 __global__ void __launch_bounds__(AQ)
-attention_kernel(const float* __restrict__ qkv, const float* __restrict__ extra,
-                 int rows_per_group, float* __restrict__ out,
+attention_kernel(const float* __restrict__ qkv, float* __restrict__ out,
                  float* __restrict__ lse, int N, int H, int D, float scale) {
   __shared__ float Ks[AKV][DH];
   __shared__ float Vs[AKV][DH];
-  __shared__ float Es[HAS_EXTRA ? AQ : 1][AKV + 1];
   const int b = blockIdx.z, h = blockIdx.y;
   const int HD = H * D;
   const long long row_stride = 3LL * HD;
   const float* base = qkv + (long long)b * N * row_stride;
   const int q0 = blockIdx.x * AQ;
   const int qi = q0 + threadIdx.x;
-  const int group = CYCLIC ? b % rows_per_group : b / rows_per_group;
-  const float* ebase = HAS_EXTRA ? extra + ((long long)group * H + h) * N * N : nullptr;
 
   // zero-padded to DH, so the unrolled dots need no width test
   float q[DH], o[DH];
@@ -115,16 +112,8 @@ attention_kernel(const float* __restrict__ qkv, const float* __restrict__ extra,
       Ks[j][d] = ok ? rowp[HD] : 0.f;
       Vs[j][d] = ok ? rowp[2 * HD] : 0.f;
     }
-    if (HAS_EXTRA) {
-      for (int idx = threadIdx.x; idx < AQ * AKV; idx += AQ) {
-        const int i = idx / AKV, j = idx % AKV;
-        const bool ok = q0 + i < N && k0 + j < N;
-        Es[i][j] = ok ? ebase[(long long)(q0 + i) * N + k0 + j] : 0.f;
-      }
-    }
     __syncthreads();
-    softmax_tile_update<DH, AKV, HAS_EXTRA>(q, Ks, Vs, Es[HAS_EXTRA ? threadIdx.x : 0],
-                                            N - k0, scale, m, l, o);
+    softmax_tile_update<DH, AKV>(q, Ks, Vs, N - k0, scale, m, l, o);
     __syncthreads();
   }
 
@@ -138,35 +127,23 @@ attention_kernel(const float* __restrict__ qkv, const float* __restrict__ extra,
   }
 }
 
-template <int DH, bool HAS_EXTRA, bool CYCLIC = false>
-cudaError_t launch_attention_dh(const float* qkv, const float* extra,
-                                int rows_per_group, float* out, float* lse,
-                                int B, int N, int H, int D, float scale,
-                                cudaStream_t stream) {
-  const dim3 grid(cdiv(N, AQ), H, B);
-  if (lse)
-    attention_kernel<DH, true, HAS_EXTRA, CYCLIC><<<grid, AQ, 0, stream>>>(
-        qkv, extra, rows_per_group, out, lse, N, H, D, scale);
-  else
-    attention_kernel<DH, false, HAS_EXTRA, CYCLIC><<<grid, AQ, 0, stream>>>(
-        qkv, extra, rows_per_group, out, lse, N, H, D, scale);
-  return cudaGetLastError();
-}
-
-// extra [G, H, N, N] or null; rows b of group b / (B / G).  Two
-// instantiations serve the paths the port runs: without a bias the 64-wide
-// heads of ViT (narrower heads are zero-padded), with a bias heads up to 32
-// wide (Swin's D = 32); a bias with wider heads is refused.
+// extra [G, H, N, N] or null; row (window) b in group b / (B / G).  Without
+// a bias the 64-wide instantiation (ViT; narrower heads zero-padded); with
+// one the tensor-core window attention, which refuses N > 128 and heads
+// wider than 32.
 cudaError_t launch_attention(const float* qkv, const float* extra, int groups,
                              float* out, float* lse, int B, int N, int H, int D,
                              float scale, cudaStream_t stream) {
+  if (extra)
+    return wta::attention_fwd(qkv, extra, groups, false, out, lse, B, N, H, D, scale,
+                              stream);
   if (D > DMAX || B > 65535 || H > 65535) return cudaErrorInvalidValue;
-  if (!extra)
-    return launch_attention_dh<DMAX, false>(qkv, nullptr, 1, out, lse, B, N, H, D,
-                                            scale, stream);
-  if (D > EXTRA_DMAX || groups < 1 || B % groups) return cudaErrorInvalidValue;
-  return launch_attention_dh<EXTRA_DMAX, true>(qkv, extra, B / groups, out, lse, B,
-                                               N, H, D, scale, stream);
+  const dim3 grid(cdiv(N, AQ), H, B);
+  if (lse)
+    attention_kernel<DMAX, true><<<grid, AQ, 0, stream>>>(qkv, out, lse, N, H, D, scale);
+  else
+    attention_kernel<DMAX, false><<<grid, AQ, 0, stream>>>(qkv, out, lse, N, H, D, scale);
+  return cudaGetLastError();
 }
 
 // z = x + rs ⊙ OutProj(MHSA(QkvProj(LN(x)) + extra)), writing u, qkv, acc
@@ -254,19 +231,16 @@ cudaError_t vtx::ff_half_fwd(
 }
 
 // B9's attention (common.cuh): pair p of the P = B·G sample-major pairs
-// takes extra[p mod groups]; the 32-wide instantiation with the bias
+// takes extra[p mod groups]
 cudaError_t vtx::window_attention_fwd(const float* qkv, const float* extra, int groups,
                                       float* out, float* lse, int P, int N, int H,
                                       int D, float scale, cudaStream_t s) {
-  if (!extra || D > EXTRA_DMAX || P > 65535 || H > 65535 || groups < 1 || P % groups)
-    return cudaErrorInvalidValue;
-  return launch_attention_dh<EXTRA_DMAX, true, true>(qkv, extra, groups, out, lse, P,
-                                                     N, H, D, scale, s);
+  return wta::attention_fwd(qkv, extra, groups, true, out, lse, P, N, H, D, scale, s);
 }
 
 // The C entry points return the first cudaError_t met (0 = success).
-// extra [G, H, N, N] (groups = G; heads up to 32 wide), rs, mu, rstd and lse
-// may be null: the serving forward passes none of the last four.
+// extra [G, H, N, N] (groups = G; N ≤ 128, heads up to 32 wide), rs, mu,
+// rstd and lse may be null: the serving forward passes none of the last four.
 
 extern "C" int vtx_fused_attention_layer_fwd(
     const float* x, const float* ln_g, const float* ln_b,
@@ -303,6 +277,19 @@ extern "C" int vtx_fused_transformer_layer_fwd(
       groups, rs_attn, rs_ff, u, qkv, acc, z, hid, af, mu1, rstd1, lse, mu2,
       rstd2, out, B, N, C, H, D, F, scale, eps,
       static_cast<cudaStream_t>(stream)));
+}
+
+// The window attention alone (window_attention_tc.cuh), the thin door that
+// ops/window_attention.py gives chip_smoke.py and the card's tests: out
+// [P·N, H·D] and, when lse is non-null, lse [P, H, N] from qkv [P·N, 3·H·D]
+// and the bias [G, H, N, N]; window p in group p / (P/G), or p mod G when
+// ``cyclic``.
+extern "C" int vtx_window_attention_fwd(const float* qkv, const float* bias, int groups,
+                                        int cyclic, float* out, float* lse, int P, int N,
+                                        int H, int D, float scale, void* stream) {
+  return static_cast<int>(wta::attention_fwd(qkv, bias, groups, cyclic != 0, out, lse, P,
+                                             N, H, D, scale,
+                                             static_cast<cudaStream_t>(stream)));
 }
 
 // B7: the pre-LN FF residual branch out = x + rs ⊙ (act(LN(x)·W₁ + b₁)·W₂ + b₂)

@@ -29,11 +29,13 @@
 //   4. u₂ = LN₂(z) from the saved statistics;  dW₁ = u₂ᵀ·dh;  db₁ = Σ_rows dh
 //   5. dln₂ = dh·W₁ᵀ;  dz = do + LN₂ᵀ(dln₂);  dg₂, db₂ⁿ = column sums
 //   Attention half, given dz: fused_layer_bwd.cu's attention_half_bwd with
-//   the bias (its step 3d sums dS over each group's rows in row order into
-//   dextra).
+//   the bias (the window attention's backward, window_attention_tc.cuh,
+//   sums dS over each group's rows into dextra: per chunk of rows in row
+//   order, then over the chunks in order).
 //
 // Determinism: as in fused_layer_bwd.cu, every reduction over rows is a
-// fixed-order two-pass sum (split-K slabs, row chunks, the group sum of dS)
+// fixed-order two-pass sum (split-K slabs, row chunks, the chunked group
+// sum of dS)
 // or one block's fixed tree; no float atomics, so the gradients are
 // bit-identical from run to run.
 //
@@ -41,16 +43,16 @@
 // operations (2x the FF forward), the attention half 16·M·C·HD plus five
 // attention products of 2·B·H·N²·D; at Swin-S (F = 4C, HD = C, N = 98) the
 // GEMMs are ~93% of it, on the GEMM core (gemm_tc.cu, 3xTF32 on wgmma,
-// 165 TFLOP/s f32-accurate at 700 W); the attention, on plain f32 FMAs,
-// is bound at 67 TFLOP/s.  Besides the GEMMs, the FF half moves M·F floats
-// four times (af, da, dh) — Swin-S stage 1 at 64 images is M = 200,704
-// rows, F = 384 — and dS costs B·H·N² floats written and read once
-// (≈ 236 MB at that shape), which is cheaper than recomputing the scores a
-// third time to sum it.
+// 165 TFLOP/s f32-accurate at 700 W), and the attention is on the tensor
+// cores too (window_attention_tc.cuh, 3xTF32 on mma.sync, the same bound).
+// Besides the GEMMs, the FF half moves M·F floats four times (af, da, dh)
+// — Swin-S stage 1 at 64 images is M = 200,704 rows, F = 384.  dS stays in
+// the attention's registers: its per-group sum leaves a block as one
+// partial [G, H, N, N] per chunk of windows (≈ 11 MB at that shape).
 //
 // What later work changes: the elementwise passes into the GEMM epilogues
-// (silu' into the da GEMM, af into the dW₂ GEMM's loads), the attention on
-// the tensor cores, bf16 operands, and the same launch fusion as the attention layer's backward.
+// (silu' into the da GEMM, af into the dW₂ GEMM's loads), bf16 operands,
+// and the same launch fusion as the attention layer's backward.
 
 #include "common.cuh"
 
@@ -79,7 +81,7 @@ cudaError_t transformer_layer_bwd(
     const float* mu1, const float* rstd1, const float* lse, const float* mu2,
     const float* rstd2, const float* dout,
     float* da, float* af, float* dh, float* dz, float* dacc, float* delta,
-    float* dqkv, float* u, float* dln, float* dsbuf, float* wpart,
+    float* dqkv, float* u, float* dln, float* dbpart, float* wpart,
     int splits_out, int splits_qkv, int splits_w1, int splits_w2, float* cpart,
     float* dx, float* dg1, float* db1, float* dwqkv, long long dwqkv_s0,
     long long dwqkv_s1, float* dbqkv, float* dwout, long long dwout_s0,
@@ -99,7 +101,7 @@ cudaError_t transformer_layer_bwd(
   return vtx::attention_half_bwd(
       x, ln1_g, ln1_b, wqkv, wqkv_s0, wqkv_s1, bqkv, wout, wout_s0, wout_s1,
       bout, rs_attn, extra, groups, qkv, acc, mu1, rstd1, lse, dz, da, dacc,
-      delta, dqkv, u, dln, dsbuf, wpart, splits_out, splits_qkv, cpart, dx, dg1,
+      delta, dqkv, u, dln, dbpart, wpart, splits_out, splits_qkv, cpart, dx, dg1,
       db1, dwqkv, dwqkv_s0, dwqkv_s1, dbqkv, dwout, dwout_s0, dwout_s1, dbout,
       drs_attn, dextra, B, N, C, H, D, scale, s);
 }
@@ -176,10 +178,11 @@ cudaError_t vtx::ff_half_bwd(
 
 // Returns the first cudaError_t met (0 = success).  Workspace, all
 // allocated by the caller (M = B·N): da [M, C] (used only with a row
-// scale), af [M, F], dh [M, F], dz [M, C], dacc [M, HD], delta [B·H·N],
-// dqkv [M, 3HD], u [M, C], dln [M, C], dsbuf [B·H·N·N] (used only with
-// extra and dextra), wpart [max over the four weight gradients of
-// splits·rows·cols], cpart [ceil(M / 128) · max(C, 3HD, F)].  The weight
+// scale), af [M, F], dh [M, F], dz [M, C], dacc [M, HD], delta [B·H·N]
+// (used only without extra), dqkv [M, 3HD], u [M, C], dln [M, C], dbpart
+// [wta::bwd_chunks(B, G, H)·G·H·N·N] (used only with extra and dextra;
+// ops/fused_layer.py window_chunks), wpart [max over the four weight
+// gradients of splits·rows·cols], cpart [ceil(M / 128) · max(C, 3HD, F)].  The weight
 // gradients are written through their (row, col) strides, so they may share
 // the layout of the weight views the forward read.  The biases, extra, the
 // row scales and their gradients (dbqkv … db2f, dextra, drs_attn, drs_ff)
@@ -196,7 +199,7 @@ extern "C" int vtx_fused_transformer_layer_bwd(
     const float* mu1, const float* rstd1, const float* lse, const float* mu2,
     const float* rstd2, const float* dout,
     float* da, float* af, float* dh, float* dz, float* dacc, float* delta,
-    float* dqkv, float* u, float* dln, float* dsbuf, float* wpart,
+    float* dqkv, float* u, float* dln, float* dbpart, float* wpart,
     int splits_out, int splits_qkv, int splits_w1, int splits_w2, float* cpart,
     float* dx, float* dg1, float* db1, float* dwqkv, long long dwqkv_s0,
     long long dwqkv_s1, float* dbqkv, float* dwout, long long dwout_s0,
@@ -209,7 +212,7 @@ extern "C" int vtx_fused_transformer_layer_bwd(
       x, ln1_g, ln1_b, wqkv, wqkv_s0, wqkv_s1, bqkv, wout, wout_s0, wout_s1,
       bout, ln2_g, ln2_b, w1, w1_s0, w1_s1, b1, w2, w2_s0, w2_s1, b2, extra,
       groups, rs_attn, rs_ff, qkv, acc, z, hid, mu1, rstd1, lse, mu2, rstd2,
-      dout, da, af, dh, dz, dacc, delta, dqkv, u, dln, dsbuf, wpart, splits_out,
+      dout, da, af, dh, dz, dacc, delta, dqkv, u, dln, dbpart, wpart, splits_out,
       splits_qkv, splits_w1, splits_w2, cpart, dx, dg1, db1, dwqkv, dwqkv_s0,
       dwqkv_s1, dbqkv, dwout, dwout_s0, dwout_s1, dbout, dg2, db2, dw1, dw1_s0,
       dw1_s1, db1f, dw2, dw2_s0, dw2_s1, db2f, dextra, drs_attn, drs_ff, B, N,

@@ -26,11 +26,12 @@
 //      Both write dqkv [M, 3HD] (q-heads | k-heads | v-heads).  With the
 //      grouped additive bias extra [G, H, N, N] (Swin's in the whole
 //      layer's backward, fused_layer1_bwd.cu; Twins' pair mask in this
-//      entry's), p = exp(q·kᵀ·s + extra[g] − lse), and where the bias needs
-//      a gradient the key-tile pass also stores ds [B, H, N, N] and
-//      dextra[g] is the sum of ds over the group's rows in row order (3d):
-//      the Pallas kernel's `dextra_ref[0, h] += ds` over its sequential
-//      grid.
+//      entry's), p = exp(q·kᵀ·s + extra[g] − lse) on the window attention
+//      (window_attention_tc.cuh), and where the bias needs a gradient
+//      dextra[g] is the sum of ds over the group's rows: per block over a
+//      chunk of them in row order, then over the chunks in order — the
+//      Pallas kernel's `dextra_ref[0, h] += ds` over its sequential grid,
+//      regrouped.
 //   4. u = LN(x) recomputed from x, mu, rstd;  dwqkv = uᵀ·dqkv;
 //      dbqkv = Σ_rows dqkv
 //   5. dln = dqkv·wqkvᵀ
@@ -50,22 +51,30 @@
 // the forward's attention work; at ViT-S/16 (C = HD = 384, N = 197) the
 // GEMMs are ~75% of it.  The GEMMs run on the GEMM core (gemm_tc.cu, 3xTF32
 // on wgmma, bound at 165 TFLOP/s f32-accurate at 700 W), reading accᵀ, uᵀ,
-// woutᵀ and wqkvᵀ through strides; the attention on plain f32 FMAs (67
-// TFLOP/s).  The attention kernels hold a head zero-padded to 64 in
-// registers (ViT: D = 64); with the bias (Swin: D = 32) a 32-wide
-// instantiation runs, and wider heads are refused.  The attention kernels hold one key (or query) per thread with its
-// accumulators in registers and stream the other side through shared memory,
-// in d-outer passes that keep nothing else live across a tile.
+// woutᵀ and wqkvᵀ through strides.  With the bias (Twins' pair mask, Swin's
+// grouped bias: N ≤ 128, heads up to 32 wide) the attention backward is the
+// tensor-core window attention's (window_attention_tc.cuh, 3xTF32 on
+// mma.sync, bound at the same 165 TFLOP/s): one pass per window computing
+// Δ, dq, dk and dv straight into dqkv, and dextra as per-block register
+// sums over a chunk of each group's windows, summed over the chunks in
+// order — no [B, H, N, N] dS buffer.  Without one (ViT: D = 64) it stays on
+// plain f32 FMAs (67 TFLOP/s): the kernels hold a head zero-padded to 64
+// in registers, one key (or query) per thread with its accumulators, and
+// stream the other side through shared memory, in d-outer passes that keep
+// nothing else live across a tile.
 //
-// What later work changes: the attention onto attention_tc.cuh's tensor-core
-// core (as B8's), bf16 storage of the saved residuals, and fusing the launches (the
-// LN backward into the dln GEMM's epilogue, Δ into the attention passes, the
-// column sums into the weight GEMMs).
+// What later work changes: ViT's attention onto the tensor cores, bf16
+// storage of the saved residuals, and fusing the launches (the LN backward
+// into the dln GEMM's epilogue, Δ into the attention passes, the column
+// sums into the weight GEMMs).
 
-#include "common.cuh"
+#include "window_attention_tc.cuh"
 
 namespace {
 
+// ViT's attention backward (no bias), 3a-3c below; with a bias the
+// attention backward is window_attention_tc.cuh's (wta::attention_bwd).
+//
 // 3a. Δ[b, h, n] = rowsum(dacc_h ⊙ acc_h): common.cuh's attn_delta_kernel
 
 // ---------------------------------------------------------------------------
@@ -76,26 +85,17 @@ namespace {
 //     d-outer passes: the scores and do·v of all BQ queries (k[d], v[d]
 //     read once per d), then the dk / dv updates — so no row but the
 //     accumulators stays in registers.
-//     DH: the register width of a head (32 or 64 ≥ D, zero-padded).
-//     HAS_EXTRA: the scores carry the additive bias extra[g, h] of the
-//     row's group g = b / rows_per_group (read straight from device memory:
-//     neighbouring threads are neighbouring keys), and, when ds_out is
-//     non-null, dS = p ⊙ (dP − Δ) of every (query, key) pair is stored to
-//     ds_out [B, H, N, N] for the ordered sum over the group's rows (3d).
-//     CYCLIC: B9's sample-major pairs, row b in group b mod rows_per_group
-//     (the argument is then the group count), as in fused_layer.cu.
+//     DH: the register width of a head (≥ D, zero-padded).
 // ---------------------------------------------------------------------------
 
 constexpr int BK = 64;   // keys per block = threads per block
 constexpr int BQ = 16;   // queries per shared-memory tile
 
-template <int DH, bool HAS_EXTRA, bool CYCLIC>
+template <int DH>
 __global__ void __launch_bounds__(BK)
 attn_bwd_dkdv_kernel(const float* __restrict__ qkv, const float* __restrict__ dacc,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     const float* __restrict__ extra, int rows_per_group,
-                     float* __restrict__ ds_out, float* __restrict__ dqkv, int N,
-                     int H, int D, float scale) {
+                     float* __restrict__ dqkv, int N, int H, int D, float scale) {
   __shared__ float Ks[BK][DH + 1];  // +1: thread t reads row t, bank-free
   __shared__ float Vs[BK][DH + 1];
   __shared__ float Qs[BQ][DH];
@@ -110,10 +110,6 @@ attn_bwd_dkdv_kernel(const float* __restrict__ qkv, const float* __restrict__ da
   const float* delbase = delta + ((long long)b * H + h) * N;
   const int k0 = blockIdx.x * BK;
   const int kj = k0 + t;
-  const long long NN = (long long)N * N;
-  const int group = CYCLIC ? b % rows_per_group : b / rows_per_group;
-  const float* ebase = HAS_EXTRA ? extra + ((long long)group * H + h) * NN : nullptr;
-  float* dsbase = (HAS_EXTRA && ds_out) ? ds_out + ((long long)b * H + h) * NN : nullptr;
 
   for (int idx = t; idx < BK * DH; idx += BK) {
     const int j = idx / DH, d = idx % DH;
@@ -145,16 +141,8 @@ attn_bwd_dkdv_kernel(const float* __restrict__ qkv, const float* __restrict__ da
     key_thread_dots<DH, BQ>(Qs, dOs, Ks[t], Vs[t], p, ds);
 #pragma unroll
     for (int i = 0; i < BQ; ++i) {
-      if (HAS_EXTRA) {
-        const bool ok = q0 + i < N && kj < N;
-        const float e = ok ? ebase[(long long)(q0 + i) * N + kj] : 0.f;
-        p[i] = expf(p[i] * scale + e - Ls[i]);
-        ds[i] = p[i] * (ds[i] - Ds[i]);
-        if (dsbase && ok) dsbase[(long long)(q0 + i) * N + kj] = ds[i];
-      } else {
-        p[i] = expf(p[i] * scale - Ls[i]);
-        ds[i] = p[i] * (ds[i] - Ds[i]);
-      }
+      p[i] = expf(p[i] * scale - Ls[i]);
+      ds[i] = p[i] * (ds[i] - Ds[i]);
     }
     key_thread_accumulate<DH, BQ>(Qs, dOs, p, ds, dk, dv);
   }
@@ -176,24 +164,21 @@ attn_bwd_dkdv_kernel(const float* __restrict__ qkv, const float* __restrict__ da
 //     its dq accumulator in registers, its q and do rows in (padded) shared
 //     memory; key tiles of k and v streamed through shared memory
 //     (broadcast).  Per key tile, two d-outer passes as in 3b: the scores
-//     and do·v of all BKV keys, then the dq update.  With HAS_EXTRA the
-//     bias tile [BQQ, BKV] is staged in shared memory (loaded along keys).
+//     and do·v of all BKV keys, then the dq update.
 // ---------------------------------------------------------------------------
 
 constexpr int BQQ = 64;  // queries per block = threads per block
 constexpr int BKV = 16;  // keys per shared-memory tile
 
-template <int DH, bool HAS_EXTRA, bool CYCLIC>
+template <int DH>
 __global__ void __launch_bounds__(BQQ)
 attn_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ dacc,
                    const float* __restrict__ lse, const float* __restrict__ delta,
-                   const float* __restrict__ extra, int rows_per_group,
                    float* __restrict__ dqkv, int N, int H, int D, float scale) {
   __shared__ float Qs[BQQ][DH + 1];   // +1: thread t reads row t, bank-free
   __shared__ float dOs[BQQ][DH + 1];
   __shared__ float Ks[BKV][DH];
   __shared__ float Vs[BKV][DH];
-  __shared__ float Es[HAS_EXTRA ? BQQ : 1][BKV + 1];
   const int b = blockIdx.z, h = blockIdx.y, t = threadIdx.x;
   const int HD = H * D;
   const long long row_stride = 3LL * HD;
@@ -201,8 +186,6 @@ attn_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ dacc
   const float* dbase = dacc + (long long)b * N * HD;
   const int q0 = blockIdx.x * BQQ;
   const int qi = q0 + t;
-  const int group = CYCLIC ? b % rows_per_group : b / rows_per_group;
-  const float* ebase = HAS_EXTRA ? extra + ((long long)group * H + h) * N * N : nullptr;
 
   for (int idx = t; idx < BQQ * DH; idx += BQQ) {
     const int i = idx / DH, d = idx % DH;
@@ -226,22 +209,12 @@ attn_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ dacc
       Ks[j][d] = ok ? rowp[HD] : 0.f;
       Vs[j][d] = ok ? rowp[2 * HD] : 0.f;
     }
-    if (HAS_EXTRA) {
-      for (int idx = t; idx < BQQ * BKV; idx += BQQ) {
-        const int i = idx / BKV, j = idx % BKV;
-        const bool ok = q0 + i < N && k0 + j < N;
-        Es[i][j] = ok ? ebase[(long long)(q0 + i) * N + k0 + j] : 0.f;
-      }
-    }
     __syncthreads();
     float p[BKV], ds[BKV];  // the scores and do·v, then p and dS
     query_thread_dots<DH, BKV>(Qs[t], dOs[t], Ks, Vs, p, ds);
 #pragma unroll
     for (int j = 0; j < BKV; ++j) {
-      if (HAS_EXTRA)
-        p[j] = (k0 + j < N) ? expf(p[j] * scale + Es[t][j] - l) : 0.f;
-      else
-        p[j] = (k0 + j < N) ? expf(p[j] * scale - l) : 0.f;
+      p[j] = (k0 + j < N) ? expf(p[j] * scale - l) : 0.f;
       ds[j] = p[j] * (ds[j] - dl);
     }
     query_thread_accumulate<DH, BKV>(Ks, ds, dq);
@@ -255,84 +228,58 @@ attn_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ dacc
   }
 }
 
-// 3d. dextra[g] = the ordered sum of dS over the group's rows: common.cuh's
-//     group_sum_kernel
-
-template <int DH, bool HAS_EXTRA, bool CYCLIC = false>
-cudaError_t launch_attn_bwd(const float* qkv, const float* dacc, const float* lse,
-                            const float* delta, const float* extra,
-                            int rows_per_group, float* dsbuf, float* dqkv, int B,
-                            int N, int H, int D, float scale, cudaStream_t s) {
-  attn_bwd_dkdv_kernel<DH, HAS_EXTRA, CYCLIC><<<dim3(cdiv(N, BK), H, B), BK, 0, s>>>(
-      qkv, dacc, lse, delta, extra, rows_per_group, dsbuf, dqkv, N, H, D, scale);
-  VTX_CHECK(cudaGetLastError());
-  attn_bwd_dq_kernel<DH, HAS_EXTRA, CYCLIC><<<dim3(cdiv(N, BQQ), H, B), BQQ, 0, s>>>(
-      qkv, dacc, lse, delta, extra, rows_per_group, dqkv, N, H, D, scale);
-  return cudaGetLastError();
-}
-
-// 3a-3d: Δ, the key-tile and query-tile passes and, when dextra is
-// non-null (with extra), dS into dsbuf [B, H, N, N] and its ordered sum over
-// each group's rows into dextra [G, H, N, N].  The forward's instantiations
-// (fused_layer.cu::launch_attention): heads up to 64 wide, up to 32 with
-// the bias.
+// Step 3 → dqkv.  With the bias extra [G, H, N, N] (row b in group b /
+// (B/G)): the window attention's backward (N ≤ 128, heads up to 32 wide),
+// which computes Δ itself and, when dextra is non-null, sums dS per block
+// into dbpart [wta::bwd_chunks(B, G, H), G, H, N, N] and those partials in
+// order into dextra [G, H, N, N].  Without: Δ into delta [B, H, N], then the
+// key-tile and query-tile passes (heads up to 64 wide).
 cudaError_t attention_core_bwd(const float* qkv, const float* dacc,
                                const float* acc, const float* lse,
                                const float* extra, int groups, float* delta,
-                               float* dsbuf, float* dqkv, float* dextra, int B,
+                               float* dbpart, float* dqkv, float* dextra, int B,
                                int N, int H, int D, float scale, cudaStream_t s) {
+  if (extra)
+    return wta::attention_bwd(qkv, acc, dacc, lse, extra, groups, false, dqkv, dbpart,
+                              dextra, B, N, H, D, scale, s);
   if (D < 1 || D > DMAX || N < 1 || B < 1 || B > 65535 || H > 65535)
     return cudaErrorInvalidValue;
-  if (extra && (D > EXTRA_DMAX || groups < 1 || B % groups)) return cudaErrorInvalidValue;
-  const int rows_per_group = extra ? B / groups : 1;
-  float* ds_out = (extra && dextra) ? dsbuf : nullptr;
   attn_delta_kernel<<<ew_blocks((long long)B * H * N), EW_THREADS, 0, s>>>(
       dacc, acc, delta, B, N, H, D);
   VTX_CHECK(cudaGetLastError());
-  const cudaError_t attn_err =
-      extra ? launch_attn_bwd<EXTRA_DMAX, true>(qkv, dacc, lse, delta, extra,
-                                                rows_per_group, ds_out, dqkv, B, N,
-                                                H, D, scale, s)
-            : launch_attn_bwd<DMAX, false>(qkv, dacc, lse, delta, nullptr, 1,
-                                           nullptr, dqkv, B, N, H, D, scale, s);
-  VTX_CHECK(attn_err);
-  if (ds_out) {
-    const long long per_row = (long long)H * N * N;
-    const long long total = (long long)groups * per_row;
-    group_sum_kernel<false><<<ew_blocks(total), EW_THREADS, 0, s>>>(
-        ds_out, rows_per_group, per_row, total, dextra);
-    VTX_CHECK(cudaGetLastError());
-  }
-  return cudaSuccess;
+  attn_bwd_dkdv_kernel<DMAX><<<dim3(cdiv(N, BK), H, B), BK, 0, s>>>(
+      qkv, dacc, lse, delta, dqkv, N, H, D, scale);
+  VTX_CHECK(cudaGetLastError());
+  attn_bwd_dq_kernel<DMAX><<<dim3(cdiv(N, BQQ), H, B), BQQ, 0, s>>>(
+      qkv, dacc, lse, delta, dqkv, N, H, D, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// B9's attention backward (common.cuh): 3a-3d on the P = B·G sample-major
-// pairs, pair p taking extra[p mod groups], dextra[g] summed over the
-// samples in order
+// B9's attention backward (common.cuh): the window attention's on the
+// P = B·G sample-major pairs, pair p taking extra[p mod groups]
 cudaError_t vtx::window_attention_bwd(const float* qkv, const float* dacc,
                                       const float* acc, const float* lse,
-                                      const float* extra, int groups, float* delta,
-                                      float* dsbuf, float* dqkv, float* dextra, int P,
-                                      int N, int H, int D, float scale, cudaStream_t s) {
-  if (!extra || D < 1 || D > EXTRA_DMAX || N < 1 || P < 1 || P > 65535 || H > 65535 ||
-      groups < 1 || P % groups)
-    return cudaErrorInvalidValue;
-  float* ds_out = dextra ? dsbuf : nullptr;
-  attn_delta_kernel<<<ew_blocks((long long)P * H * N), EW_THREADS, 0, s>>>(
-      dacc, acc, delta, P, N, H, D);
-  VTX_CHECK(cudaGetLastError());
-  VTX_CHECK((launch_attn_bwd<EXTRA_DMAX, true, true>(qkv, dacc, lse, delta, extra, groups,
-                                                     ds_out, dqkv, P, N, H, D, scale, s)));
-  if (ds_out) {
-    const long long per_row = (long long)H * N * N;
-    const long long total = (long long)groups * per_row;
-    group_sum_kernel<true><<<ew_blocks(total), EW_THREADS, 0, s>>>(
-        ds_out, P / groups, per_row, total, dextra);
-    VTX_CHECK(cudaGetLastError());
-  }
-  return cudaSuccess;
+                                      const float* extra, int groups, float* dbpart,
+                                      float* dqkv, float* dextra, int P, int N, int H,
+                                      int D, float scale, cudaStream_t s) {
+  return wta::attention_bwd(qkv, acc, dacc, lse, extra, groups, true, dqkv, dbpart, dextra,
+                            P, N, H, D, scale, s);
+}
+
+// The window attention's backward alone (ops/window_attention.py): dqkv
+// [P·N, 3·H·D] from qkv, the forward's out and lse and dout [P·N, H·D]; with
+// dbias [G, H, N, N] non-null, the blocks' dS sums in dbpart
+// [wta::bwd_chunks(P, G, H), G, H, N, N] and their ordered sum in dbias
+extern "C" int vtx_window_attention_bwd(const float* qkv, const float* out,
+                                        const float* dout, const float* lse,
+                                        const float* bias, int groups, int cyclic,
+                                        float* dqkv, float* dbpart, float* dbias, int P,
+                                        int N, int H, int D, float scale, void* stream) {
+  return static_cast<int>(wta::attention_bwd(qkv, out, dout, lse, bias, groups,
+                                             cyclic != 0, dqkv, dbpart, dbias, P, N, H, D,
+                                             scale, static_cast<cudaStream_t>(stream)));
 }
 
 // Steps 1-2: da = rs ⊙ dz; dwout = accᵀ·da; dbout = Σ_rows da; dacc₀ =
@@ -405,8 +352,9 @@ cudaError_t vtx::qkv_proj_bwd(
 
 // z = x + r ⊙ OutProj(MHSA(QkvProj(LN(x)) + extra)) backward, steps 1-6
 // above.  extra [G, H, N, N] (row b in group b / (B/G)) may be null; with
-// it and a non-null dextra, dsbuf [B, H, N, N] takes dS and dextra
-// [G, H, N, N] its ordered sum over each group's rows.
+// it and a non-null dextra, dbpart [wta::bwd_chunks(B, G, H), G, H, N, N]
+// takes the window attention's per-block dS sums and dextra [G, H, N, N]
+// their ordered sum.
 cudaError_t vtx::attention_half_bwd(
     const float* x, const float* ln_g, const float* ln_b,
     const float* wqkv, long long wqkv_s0, long long wqkv_s1, const float* bqkv,
@@ -414,7 +362,7 @@ cudaError_t vtx::attention_half_bwd(
     const float* rs, const float* extra, int groups, const float* qkv,
     const float* acc, const float* mu, const float* rstd, const float* lse,
     const float* dz, float* da, float* dacc, float* delta, float* dqkv, float* u,
-    float* dln, float* dsbuf, float* wpart, int splits_out, int splits_qkv,
+    float* dln, float* dbpart, float* wpart, int splits_out, int splits_qkv,
     float* cpart, float* dx, float* dg, float* db,
     float* dwqkv, long long dwqkv_s0, long long dwqkv_s1, float* dbqkv,
     float* dwout, long long dwout_s0, long long dwout_s1, float* dbout,
@@ -422,15 +370,16 @@ cudaError_t vtx::attention_half_bwd(
     cudaStream_t s) {
   const int M = B * N, HD = H * D;
   if (D > DMAX || B > 65535 || H > 65535) return cudaErrorInvalidValue;
-  if (extra && (D > EXTRA_DMAX || groups < 1 || B % groups)) return cudaErrorInvalidValue;
+  if (extra && (D > EXTRA_DMAX || N > wta::NMAX || groups < 1 || B % groups))
+    return cudaErrorInvalidValue;
 
   // 1-2. the out projection
   VTX_CHECK(vtx::out_proj_bwd(acc, wout, wout_s0, wout_s1, bout, rs, N, dz, da,
                               dacc, wpart, splits_out, cpart, dwout, dwout_s0,
                               dwout_s1, dbout, drs, B, M, C, HD, s));
 
-  // 3. attention backward → dqkv (and dS → dextra)
-  VTX_CHECK(attention_core_bwd(qkv, dacc, acc, lse, extra, groups, delta, dsbuf, dqkv,
+  // 3. attention backward → dqkv (and dextra)
+  VTX_CHECK(attention_core_bwd(qkv, dacc, acc, lse, extra, groups, delta, dbpart, dqkv,
                                dextra, B, N, H, D, scale, s));
 
   // 4-6. the qkv projection and LN
@@ -441,12 +390,14 @@ cudaError_t vtx::attention_half_bwd(
 
 // Returns the first cudaError_t met (0 = success).  Workspace, all
 // allocated by the caller: da [M, C] (used only with rs), dacc [M, HD],
-// delta [B·H·N], dqkv [M, 3HD], u [M, C], dln [M, C], dsbuf [B, H, N, N]
-// (used only with dextra), wpart [max(splits_out·HD·C, splits_qkv·C·3HD)],
+// delta [B·H·N] (used only without extra), dqkv [M, 3HD], u [M, C], dln
+// [M, C], dbpart [wta::bwd_chunks(B, G, H)·G·H·N·N] (used only with dextra;
+// ops/fused_layer.py window_chunks), wpart [max(splits_out·HD·C,
+// splits_qkv·C·3HD)],
 // cpart [ceil(M / 128) · max(C, 3HD)].  dwqkv / dwout are written through
 // their (row, col) strides, so they may share the layout of the weight view
 // the forward read; bqkv / bout / rs / dbqkv / dbout / drs may be null, and
-// so may extra [G, H, N, N] (groups = G; heads up to 32 wide) and its
+// so may extra [G, H, N, N] (groups = G; N ≤ 128, heads up to 32 wide) and its
 // gradient dextra [G, H, N, N] (null when the bias needs none).
 extern "C" int vtx_fused_attention_layer_bwd(
     const float* x, const float* ln_g, const float* ln_b,
@@ -456,7 +407,7 @@ extern "C" int vtx_fused_attention_layer_bwd(
     const float* rs, const float* qkv, const float* acc, const float* mu,
     const float* rstd, const float* lse, const float* dz,
     float* da, float* dacc, float* delta, float* dqkv, float* u, float* dln,
-    float* dsbuf, float* wpart, int splits_out, int splits_qkv, float* cpart,
+    float* dbpart, float* wpart, int splits_out, int splits_qkv, float* cpart,
     float* dx, float* dg, float* db,
     float* dwqkv, long long dwqkv_s0, long long dwqkv_s1, float* dbqkv,
     float* dwout, long long dwout_s0, long long dwout_s1, float* dbout,
@@ -465,7 +416,7 @@ extern "C" int vtx_fused_attention_layer_bwd(
   return static_cast<int>(vtx::attention_half_bwd(
       x, ln_g, ln_b, wqkv, wqkv_s0, wqkv_s1, bqkv, wout, wout_s0, wout_s1, bout,
       rs, extra, groups, qkv, acc, mu, rstd, lse, dz, da, dacc, delta, dqkv, u, dln,
-      dsbuf, wpart, splits_out, splits_qkv, cpart, dx, dg, db, dwqkv, dwqkv_s0,
+      dbpart, wpart, splits_out, splits_qkv, cpart, dx, dg, db, dwqkv, dwqkv_s0,
       dwqkv_s1, dbqkv, dwout, dwout_s0, dwout_s1, dbout, drs, dextra, B, N, C, H,
       D, scale, static_cast<cudaStream_t>(stream)));
 }

@@ -21,9 +21,9 @@
 // layout [B, G, m, ·]; so a sample's rows are H·W consecutive rows, and the
 // per-sample row scales ride in the GEMM epilogue (rs[m / (H·W)]) untiled.
 // Pair b·G + g takes the bias extra[g] (extra[0] when it is one slab): the
-// attention kernels' CYCLIC instantiation (fused_layer.cu,
-// fused_layer_bwd.cu), whose dS sum over each group runs over the samples in
-// sample order.
+// tensor-core window attention's cyclic layout (window_attention_tc.cuh,
+// through vtx::window_attention_fwd / _bwd), whose dS sums over each group
+// run over the samples in sample order.
 //
 // Map addressing instead of copies.  Token t of pair (b, g) lives at map
 // pixel b·H·W + ((wy·w + r + s) mod H)·W + (p·pack·w + c + s) mod W: the
@@ -54,21 +54,21 @@
 //
 // Determinism: as in fused_layer1_bwd.cu, every reduction over rows is a
 // fixed-order two-pass sum (split-K slabs, row chunks, the per-sample dr
-// sums, the per-group dS sums in sample order); no float atomics, so two
-// runs of the backward are bit-identical.
+// sums, the per-group dS sums over chunks of samples, then over the chunks
+// in order); no float atomics, so two runs of the backward are
+// bit-identical.
 //
 // What bounds it on this card.  The arithmetic is the whole layer's: at
-// Swin-S (F = 4C, HD = C, m = 98) the projection and FF GEMMs are ~93% of
-// it, on the GEMM core (gemm_tc.cu, 3xTF32 on wgmma, 165 TFLOP/s
-// f32-accurate at 700 W); the attention stays on plain f32 FMAs (67
-// TFLOP/s).  What this design removes is data movement around the layer: the
-// torch roll, partition, unpartition and unroll passes over the map and
-// their adjoints, ~4-8 map passes a layer each way.  What it adds is one
-// table load and an integer division per row in the map-reading and
-// map-writing passes.
+// Swin-S (F = 4C, HD = C, m = 98) the projection and FF GEMMs are ~93% of it,
+// on the GEMM core (gemm_tc.cu, 3xTF32 on wgmma, 165 TFLOP/s f32-accurate at
+// 700 W), and so is the attention (window_attention_tc.cuh, 3xTF32 on
+// mma.sync, the same 165 TFLOP/s bound).  What this design removes is data
+// movement around the layer: the torch roll, partition, unpartition and
+// unroll passes over the map and their adjoints, ~4-8 map passes a layer each
+// way.  What it adds is one table load and an integer division per row in the
+// map-reading and map-writing passes.
 //
-// What later work changes: the attention onto attention_tc.cuh's
-// tensor-core core, bf16 operands, and fewer launches.
+// What later work changes: bf16 operands, and fewer launches.
 
 #include "common.cuh"
 
@@ -144,8 +144,8 @@ cudaError_t swin_layer_bwd(
     const int* pix, const float* qkv, const float* acc, const float* z,
     const float* hid, const float* mu1, const float* rstd1, const float* lse,
     const float* mu2, const float* rstd2, const float* dout,
-    float* dor, float* da, float* af, float* dh, float* dz, float* dacc, float* delta,
-    float* dqkv, float* u, float* dln, float* dsbuf, float* wpart,
+    float* dor, float* da, float* af, float* dh, float* dz, float* dacc, float* dqkv,
+    float* u, float* dln, float* dbpart, float* wpart,
     int splits_out, int splits_qkv, int splits_w1, int splits_w2, float* cpart,
     float* dx, float* dg1, float* db1, float* dwqkv, long long dwqkv_s0,
     long long dwqkv_s1, float* dbqkv, float* dwout, long long dwout_s0,
@@ -179,7 +179,7 @@ cudaError_t swin_layer_bwd(
   VTX_CHECK(vtx::out_proj_bwd(acc, wout, wout_s0, wout_s1, bout, rs_attn, hw, dz, da,
                               dacc, wpart, splits_out, cpart, dwout, dwout_s0, dwout_s1,
                               dbout, drs_attn, B, M, C, HD, s));
-  VTX_CHECK(vtx::window_attention_bwd(qkv, dacc, acc, lse, extra, groups, delta, dsbuf,
+  VTX_CHECK(vtx::window_attention_bwd(qkv, dacc, acc, lse, extra, groups, dbpart,
                                       dqkv, dextra, P, m, nh, D, scale, s));
 
   // the qkv projection and LN₁, x read off the map, dx written onto it
@@ -231,8 +231,9 @@ extern "C" int vtx_fused_swin_layer_fwd(
 // forward's saves (qkv, acc, z, hid, mu1, rstd1, lse, mu2, rstd2) and dout
 // [B, H, W, C]; writes dx [B, H, W, C].  Workspace, all allocated by the
 // caller (M = B·H·W): dor [M, C], da [M, C] (used only with a row scale), af,
-// dh [M, F], dz [M, C], dacc [M, HD], delta [B·G·nh·m], dqkv [M, 3HD], u,
-// dln [M, C], dsbuf [B·G, nh, m, m] (used only with dextra), wpart [max over
+// dh [M, F], dz [M, C], dacc [M, HD], dqkv [M, 3HD], u, dln [M, C], dbpart
+// [wta::bwd_chunks(B·G, groups, nh), groups, nh, m, m] (used only with dextra;
+// ops/fused_layer.py window_chunks), wpart [max over
 // the four weight gradients of splits·rows·cols], cpart [ceil(M / 128) ·
 // max(C, 3HD, F)].  The weight gradients are written through their (row,
 // col) strides; the biases, the row scales and the gradients dbqkv … db2f,
@@ -248,8 +249,8 @@ extern "C" int vtx_fused_swin_layer_bwd(
     const int* pix, const float* qkv, const float* acc, const float* z, const float* hid,
     const float* mu1, const float* rstd1, const float* lse, const float* mu2,
     const float* rstd2, const float* dout,
-    float* dor, float* da, float* af, float* dh, float* dz, float* dacc, float* delta,
-    float* dqkv, float* u, float* dln, float* dsbuf, float* wpart,
+    float* dor, float* da, float* af, float* dh, float* dz, float* dacc, float* dqkv,
+    float* u, float* dln, float* dbpart, float* wpart,
     int splits_out, int splits_qkv, int splits_w1, int splits_w2, float* cpart,
     float* dx, float* dg1, float* db1, float* dwqkv, long long dwqkv_s0,
     long long dwqkv_s1, float* dbqkv, float* dwout, long long dwout_s0,
@@ -263,7 +264,7 @@ extern "C" int vtx_fused_swin_layer_bwd(
       x, ln1_g, ln1_b, wqkv, wqkv_s0, wqkv_s1, bqkv, wout, wout_s0, wout_s1, bout, ln2_g,
       ln2_b, w1, w1_s0, w1_s1, b1, w2, w2_s0, w2_s1, b2, extra, groups, rs_attn, rs_ff,
       pix, qkv, acc, z, hid, mu1, rstd1, lse, mu2, rstd2, dout, dor, da, af, dh, dz, dacc,
-      delta, dqkv, u, dln, dsbuf, wpart, splits_out, splits_qkv, splits_w1, splits_w2,
+      dqkv, u, dln, dbpart, wpart, splits_out, splits_qkv, splits_w1, splits_w2,
       cpart, dx, dg1, db1, dwqkv, dwqkv_s0, dwqkv_s1, dbqkv, dwout, dwout_s0, dwout_s1,
       dbout, dg2, db2, dw1, dw1_s0, dw1_s1, db1f, dw2, dw2_s0, dw2_s1, db2f, dextra,
       drs_attn, drs_ff, B, H, W, C, nh, D, F, window, pack, scale,

@@ -150,85 +150,7 @@ __host__ __device__ __forceinline__ int bwd_group_floats(int DH, int Mp, int KTp
 
 __host__ __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
 
-// the warps of group ``grp`` (``warps`` of them) meet: a named barrier, or
-// the warp alone
-__device__ __forceinline__ void group_sync(int grp, int warps) {
-  if (warps == 1)
-    __syncwarp();
-  else
-    asm volatile("bar.sync %0, %1;" ::"r"(grp + 1), "r"(warps * 32) : "memory");
-}
-
-// x = hi + lo: hi rounded to TF32, lo = x − hi left for the tensor core to
-// truncate
-__device__ __forceinline__ void split_lo(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tc::to_tf32(x);
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// the fragment loads of mma_tf32.cuh with this split: A from an f32
-// row-major tile at (r0, k0) ...
-__device__ __forceinline__ void ld_a(tc::FragA& f, const float* T, int ld, int g, int t) {
-  split_lo(T[g * ld + t], f.hi[0], f.lo[0]);
-  split_lo(T[(g + 8) * ld + t], f.hi[1], f.lo[1]);
-  split_lo(T[g * ld + t + 4], f.hi[2], f.lo[2]);
-  split_lo(T[(g + 8) * ld + t + 4], f.hi[3], f.lo[3]);
-}
-
-// ... A (r, k) = T[k][r] from a tile stored transposed, k permuted ...
-__device__ __forceinline__ void ld_a_tperm(tc::FragA& f, const float* T, int ld, int g,
-                                           int t) {
-  split_lo(T[2 * t * ld + g], f.hi[0], f.lo[0]);
-  split_lo(T[2 * t * ld + g + 8], f.hi[1], f.lo[1]);
-  split_lo(T[(2 * t + 1) * ld + g], f.hi[2], f.lo[2]);
-  split_lo(T[(2 * t + 1) * ld + g + 8], f.hi[3], f.lo[3]);
-}
-
-// ... A from a C fragment (k permuted) ...
-__device__ __forceinline__ void c_to_a(tc::FragA& f, const float (&c)[4]) {
-  split_lo(c[0], f.hi[0], f.lo[0]);
-  split_lo(c[2], f.hi[1], f.lo[1]);
-  split_lo(c[1], f.hi[2], f.lo[2]);
-  split_lo(c[3], f.hi[3], f.lo[3]);
-}
-
-// ... B (k, n) = T[n][k] from a tile stored n-major (K for q·kᵀ) ...
-__device__ __forceinline__ void ld_b_nmajor(tc::FragB& f, const float* T, int ld, int g,
-                                            int t) {
-  split_lo(T[g * ld + t], f.hi[0], f.lo[0]);
-  split_lo(T[g * ld + t + 4], f.hi[1], f.lo[1]);
-}
-
-// ... B (k, n) = T[k][n] from a tile stored k-major, k permuted (rows 2t and
-// 2t + 1: the A operand is a C fragment or a tperm load) ...
-__device__ __forceinline__ void ld_b_kperm(tc::FragB& f, const float* T, int ld, int g,
-                                           int t) {
-  split_lo(T[2 * t * ld + g], f.hi[0], f.lo[0]);
-  split_lo(T[(2 * t + 1) * ld + g], f.hi[1], f.lo[1]);
-}
-
-// ... and the pair forms of q·kᵀ in the forward: the k index of a step of 8
-// relabelled for both operands (hardware k = t is column 2t, k = t + 4 is
-// 2t + 1), so a thread's two columns are adjacent and load as one float2;
-// tiles with a row stride ≡ 8 (mod 32) floats, conflict-free.  A from a
-// row-major tile at (r0, k0) ...
-__device__ __forceinline__ void ld_a_pairs(tc::FragA& f, const float* T, int ld, int g,
-                                           int t) {
-  const float2 x0 = *reinterpret_cast<const float2*>(T + g * ld + 2 * t);
-  const float2 x1 = *reinterpret_cast<const float2*>(T + (g + 8) * ld + 2 * t);
-  split_lo(x0.x, f.hi[0], f.lo[0]);
-  split_lo(x1.x, f.hi[1], f.lo[1]);
-  split_lo(x0.y, f.hi[2], f.lo[2]);
-  split_lo(x1.y, f.hi[3], f.lo[3]);
-}
-
-// ... B (k, n) = T[n][k] from a tile stored n-major
-__device__ __forceinline__ void ld_b_pairs(tc::FragB& f, const float* T, int ld, int g,
-                                           int t) {
-  const float2 x = *reinterpret_cast<const float2*>(T + g * ld + 2 * t);
-  split_lo(x.x, f.hi[0], f.lo[0]);
-  split_lo(x.y, f.hi[1], f.lo[1]);
-}
+using namespace tc;  // split_lo and its fragment loads, group_sync
 
 // token (y·W + x) of query i of window (wy, wx)
 __device__ __forceinline__ int q_token(const HaloGeom& g, int wy, int wx, int i) {
@@ -819,8 +741,6 @@ __global__ void __launch_bounds__(THREADS, 1) halo_bwd_kernel(const BwdArgs a) {
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-
-inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 // blocks a chunk count aims at: two waves of the blocks one SM holds
 inline int wave_chunks(size_t smem, int threads, int rows_of_blocks, int pairs, int NG) {

@@ -146,6 +146,9 @@ __device__ __forceinline__ float quad_sum(float x) {
 // aligned address), grouped by commit and waited on by group
 // ---------------------------------------------------------------------------
 
+// a pointer a 16-byte copy may take
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -170,6 +173,92 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// The split the attention kernels use (halo_attention_tc.cuh,
+// window_attention_tc.cuh): one conversion an element, lo left for the
+// tensor core to truncate, and the fragment loads that split with it
+// ---------------------------------------------------------------------------
+
+// the warps of group ``grp`` (``warps`` of them) meet: a named barrier, or
+// the warp alone
+__device__ __forceinline__ void group_sync(int grp, int warps) {
+  if (warps == 1)
+    __syncwarp();
+  else
+    asm volatile("bar.sync %0, %1;" ::"r"(grp + 1), "r"(warps * 32) : "memory");
+}
+
+// x = hi + lo: hi rounded to TF32, lo = x − hi left for the tensor core to
+// truncate (an error below 2⁻²¹·|x|, as CUTLASS's fast 3xTF32 takes it)
+__device__ __forceinline__ void split_lo(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// the fragment loads with this split: A from an f32 row-major tile at
+// (r0, k0) ...
+__device__ __forceinline__ void ld_a(FragA& f, const float* T, int ld, int g, int t) {
+  split_lo(T[g * ld + t], f.hi[0], f.lo[0]);
+  split_lo(T[(g + 8) * ld + t], f.hi[1], f.lo[1]);
+  split_lo(T[g * ld + t + 4], f.hi[2], f.lo[2]);
+  split_lo(T[(g + 8) * ld + t + 4], f.hi[3], f.lo[3]);
+}
+
+// ... A (r, k) = T[k][r] from a tile stored transposed, k permuted ...
+__device__ __forceinline__ void ld_a_tperm(FragA& f, const float* T, int ld, int g,
+                                           int t) {
+  split_lo(T[2 * t * ld + g], f.hi[0], f.lo[0]);
+  split_lo(T[2 * t * ld + g + 8], f.hi[1], f.lo[1]);
+  split_lo(T[(2 * t + 1) * ld + g], f.hi[2], f.lo[2]);
+  split_lo(T[(2 * t + 1) * ld + g + 8], f.hi[3], f.lo[3]);
+}
+
+// ... A from a C fragment (k permuted) ...
+__device__ __forceinline__ void c_to_a(FragA& f, const float (&c)[4]) {
+  split_lo(c[0], f.hi[0], f.lo[0]);
+  split_lo(c[2], f.hi[1], f.lo[1]);
+  split_lo(c[1], f.hi[2], f.lo[2]);
+  split_lo(c[3], f.hi[3], f.lo[3]);
+}
+
+// ... B (k, n) = T[n][k] from a tile stored n-major (K for q·kᵀ) ...
+__device__ __forceinline__ void ld_b_nmajor(FragB& f, const float* T, int ld, int g,
+                                            int t) {
+  split_lo(T[g * ld + t], f.hi[0], f.lo[0]);
+  split_lo(T[g * ld + t + 4], f.hi[1], f.lo[1]);
+}
+
+// ... B (k, n) = T[k][n] from a tile stored k-major, k permuted (rows 2t and
+// 2t + 1: the A operand is a C fragment or a tperm load) ...
+__device__ __forceinline__ void ld_b_kperm(FragB& f, const float* T, int ld, int g,
+                                           int t) {
+  split_lo(T[2 * t * ld + g], f.hi[0], f.lo[0]);
+  split_lo(T[(2 * t + 1) * ld + g], f.hi[1], f.lo[1]);
+}
+
+// ... and the pair forms of q·kᵀ in the forward: the k index of a step of 8
+// relabelled for both operands (hardware k = t is column 2t, k = t + 4 is
+// 2t + 1), so a thread's two columns are adjacent and load as one float2;
+// tiles with a row stride ≡ 8 (mod 32) floats, conflict-free.  A from a
+// row-major tile at (r0, k0) ...
+__device__ __forceinline__ void ld_a_pairs(FragA& f, const float* T, int ld, int g,
+                                           int t) {
+  const float2 x0 = *reinterpret_cast<const float2*>(T + g * ld + 2 * t);
+  const float2 x1 = *reinterpret_cast<const float2*>(T + (g + 8) * ld + 2 * t);
+  split_lo(x0.x, f.hi[0], f.lo[0]);
+  split_lo(x1.x, f.hi[1], f.lo[1]);
+  split_lo(x0.y, f.hi[2], f.lo[2]);
+  split_lo(x1.y, f.hi[3], f.lo[3]);
+}
+
+// ... B (k, n) = T[n][k] from a tile stored n-major
+__device__ __forceinline__ void ld_b_pairs(FragB& f, const float* T, int ld, int g,
+                                           int t) {
+  const float2 x = *reinterpret_cast<const float2*>(T + g * ld + 2 * t);
+  split_lo(x.x, f.hi[0], f.lo[0]);
+  split_lo(x.y, f.hi[1], f.lo[1]);
 }
 
 }  // namespace tc

@@ -58,12 +58,25 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P,  # rs, qkv, acc, mu, rstd, lse
         _P,                      # dz
         _P, _P, _P, _P, _P, _P,  # da, dacc, delta, dqkv, u, dln (workspace)
-        _P, _P, _I, _I, _P,      # dsbuf, wpart, splits_out, splits_qkv, cpart
+        _P, _P, _I, _I, _P,      # dbpart, wpart, splits_out, splits_qkv, cpart
         _P, _P, _P,              # dx, dln_scale, dln_bias
         _P, _L, _L, _P,          # dwqkv, its strides, dbqkv
         _P, _L, _L, _P,          # dwout, its strides, dbout
         _P, _P,                  # drs, dextra
         _I, _I, _I, _I, _I,      # B, N, C, H, D
+        _F, _P,                  # scale, stream
+    ],
+    "vtx_window_attention_fwd": [
+        _P, _P, _I, _I,          # qkv, bias, groups, cyclic
+        _P, _P,                  # out, lse (nullable)
+        _I, _I, _I, _I,          # P, N, H, D
+        _F, _P,                  # scale, stream
+    ],
+    "vtx_window_attention_bwd": [
+        _P, _P, _P, _P,          # qkv, out, dout, lse
+        _P, _I, _I,              # bias, groups, cyclic
+        _P, _P, _P,              # dqkv, dbpart (nullable), dbias (nullable)
+        _I, _I, _I, _I,          # P, N, H, D
         _F, _P,                  # scale, stream
     ],
     "vtx_fused_transformer_layer_fwd": [
@@ -92,7 +105,7 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P,      # mu1, rstd1, lse, mu2, rstd2
         _P,                      # do
         _P, _P, _P, _P, _P, _P,  # da, af, dh, dz, dacc, delta (workspace)
-        _P, _P, _P, _P, _P,      # dqkv, u, dln, dsbuf, wpart
+        _P, _P, _P, _P, _P,      # dqkv, u, dln, dbpart, wpart
         _I, _I, _I, _I, _P,      # splits out / qkv / w1 / w2, cpart
         _P, _P, _P,              # dx, dln1_scale, dln1_bias
         _P, _L, _L, _P,          # dwqkv, its strides, dbqkv
@@ -131,8 +144,8 @@ _SIGNATURES = {
         _P, _P, _P, _P,          # qkv, acc, z, hid
         _P, _P, _P, _P, _P,      # mu1, rstd1, lse, mu2, rstd2
         _P,                      # do (map)
-        _P, _P, _P, _P, _P, _P, _P,  # dor, da, af, dh, dz, dacc, delta (workspace)
-        _P, _P, _P, _P, _P,      # dqkv, u, dln, dsbuf, wpart
+        _P, _P, _P, _P, _P, _P,  # dor, da, af, dh, dz, dacc (workspace)
+        _P, _P, _P, _P, _P,      # dqkv, u, dln, dbpart, wpart
         _I, _I, _I, _I, _P,      # splits out / qkv / w1 / w2, cpart
         _P, _P, _P,              # dx (map), dln1_scale, dln1_bias
         _P, _L, _L, _P,          # dwqkv, its strides, dbqkv

@@ -28,8 +28,10 @@ dots f32-accumulated, softmax f32) and the backward
 hand-written kernels in ``csrc/fused_layer.cu`` (forward) and
 ``csrc/fused_layer_bwd.cu`` (backward) or raises; it never falls back to
 the plain versions.  The kernels take float32 and the bias only with heads
-up to ``MAX_BIAS_DIM_HEAD`` wide (Twins' and Swin's are 32); anything else
-on a CUDA tensor raises NotImplementedError.  The weights may
+up to ``MAX_BIAS_DIM_HEAD`` wide (Twins' and Swin's are 32) and windows of
+up to ``MAX_BIAS_TOKENS`` tokens (the tensor-core window attention,
+``csrc/window_attention_tc.cuh``; Swin's and Twins' pairs are 98); anything
+else on a CUDA tensor raises NotImplementedError.  The weights may
 be any 2-D strided view: the model passes ``linear.weight.t()``, and the
 wrapper hands those strides to the kernels instead of copying the weights;
 their gradients come back in the view's shape and layout.
@@ -46,6 +48,8 @@ CUDA tensor the kernels of ``csrc/fused_layer.cu`` (forward) and
 """
 
 from __future__ import annotations
+
+import functools
 
 import ctypes
 import math
@@ -70,8 +74,10 @@ BIAS_BWD_LAUNCHES = 0
 
 # largest head width the attention kernels hold in registers (csrc DMAX)
 MAX_DIM_HEAD = 64
-# widest head the kernels take with the additive bias (csrc EXTRA_DMAX)
+# widest head the kernels take with the additive bias (csrc EXTRA_DMAX) ...
 MAX_BIAS_DIM_HEAD = 32
+# ... and most tokens (csrc wta::NMAX)
+MAX_BIAS_TOKENS = 128
 
 
 def _ln_stats(xf: torch.Tensor, eps: float):
@@ -415,13 +421,17 @@ def check_attention_args(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, n_head):
 
 def check_extra(extra_g: Optional[torch.Tensor], H: int, N: int, D: int) -> None:
     """The grouped bias [G, H, N, N] the kernels take, heads up to
-    ``MAX_BIAS_DIM_HEAD`` wide."""
+    ``MAX_BIAS_DIM_HEAD`` wide and N up to ``MAX_BIAS_TOKENS``."""
     if extra_g is None:
         return
     if D > MAX_BIAS_DIM_HEAD:
         raise NotImplementedError(
             f"the CUDA kernel takes the bias with heads up to {MAX_BIAS_DIM_HEAD} "
             f"wide; got {D}")
+    if N > MAX_BIAS_TOKENS:
+        raise NotImplementedError(
+            f"the CUDA kernel takes the bias over up to {MAX_BIAS_TOKENS} tokens; "
+            f"got {N}")
     if extra_g.ndim != 4 or tuple(extra_g.shape[1:]) != (H, N, N):
         raise ValueError(f"extra must be [G, {H}, {N}, {N}], got {tuple(extra_g.shape)}")
 
@@ -481,6 +491,27 @@ def like_layout(w: torch.Tensor) -> torch.Tensor:
 _SMS = 132  # the H100's SMs: the GEMM core runs one persistent block on each
 
 
+@functools.lru_cache(maxsize=None)
+def window_chunks(P: int, G: int, H: int) -> int:
+    """Chunks of each group's windows in the window attention's backward
+    (csrc/window_attention_tc.cuh wta::bwd_chunks): the fewest c whose
+    rounds of blocks (one an SM) times the windows a block takes,
+    ⌈G·H·c / 132⌉·⌈R / c⌉ for R = P / G, come within 5% of the least over
+    c ≤ R.  Its dbias partials are [chunks, G, H, N, N]."""
+    R, GH = P // G, G * H
+
+    def cost(c):
+        return -(-GH * c // _SMS) * -(-R // c)
+
+    best = min(cost(c) for c in range(1, R + 1))
+    return next(c for c in range(1, R + 1) if 20 * cost(c) <= 21 * best)
+
+
+def bias_partials(P: int, G: int, H: int, N: int, opts) -> torch.Tensor:
+    """The window attention backward's dbias partials workspace."""
+    return torch.empty((window_chunks(P, G, H), G, H, N, N), **opts)
+
+
 def _splits(rows: int, cols: int, k: int) -> int:
     """K-slabs for a split-K weight-gradient GEMM of [rows, cols] over k
     (csrc/gemm_tc.cu: 128 x 128 tiles, 128 x 64 where 64-column ones pad
@@ -522,12 +553,14 @@ def _cuda_bwd(saved: AttnSaved, dz: torch.Tensor, need_drs: bool, need_dextra: b
     s_out, s_qkv = _splits(HD, C, M), _splits(C, 3 * HD, M)
     chunks = -(-M // 128)  # csrc COLSUM_ROWS
     want_dextra = extra_g is not None and need_dextra
+    groups = 1 if extra_g is None else extra_g.shape[0]
     ws = dict(
         da=torch.empty((M, C), **opts) if rs is not None else None,
-        dacc=torch.empty((M, HD), **opts), delta=torch.empty((B, H, N), **opts),
+        dacc=torch.empty((M, HD), **opts),
+        delta=torch.empty((B, H, N), **opts) if extra_g is None else None,
         dqkv=torch.empty((M, 3 * HD), **opts), u=torch.empty((M, C), **opts),
         dln=torch.empty((M, C), **opts),
-        dsbuf=torch.empty((B, H, N, N), **opts) if want_dextra else None,
+        dbpart=bias_partials(B, groups, H, N, opts) if want_dextra else None,
         wpart=torch.empty((max(s_out * HD * C, s_qkv * C * 3 * HD),), **opts),
         cpart=torch.empty((chunks * max(C, 3 * HD),), **opts))
     dx = torch.empty_like(x)
@@ -537,7 +570,6 @@ def _cuda_bwd(saved: AttnSaved, dz: torch.Tensor, need_drs: bool, need_dextra: b
     dbout = torch.empty((C,), **opts) if bout is not None else None
     drs = torch.empty((B,), **opts) if rs is not None and need_drs else None
     dextra = torch.empty_like(extra_g) if want_dextra else None
-    groups = 1 if extra_g is None else extra_g.shape[0]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         BWD_LAUNCHES += 1
@@ -549,7 +581,7 @@ def _cuda_bwd(saved: AttnSaved, dz: torch.Tensor, need_drs: bool, need_dextra: b
             ptr(extra_g), groups,
             ptr(rs), ptr(saved.qkv), ptr(saved.acc), ptr(saved.mu),
             ptr(saved.rstd), ptr(saved.lse), ptr(dz),
-            *(ptr(ws[k]) for k in ("da", "dacc", "delta", "dqkv", "u", "dln", "dsbuf")),
+            *(ptr(ws[k]) for k in ("da", "dacc", "delta", "dqkv", "u", "dln", "dbpart")),
             ptr(ws["wpart"]), s_out, s_qkv, ptr(ws["cpart"]),
             ptr(dx), ptr(dg), ptr(db),
             ptr(dwqkv), dwqkv.stride(0), dwqkv.stride(1), ptr(dbqkv),

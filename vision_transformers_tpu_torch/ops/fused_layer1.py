@@ -46,7 +46,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .fused_layer import (AttnSaved, _act, _default_scale, _dot, _ln,
-                          _raise_on, _residual, _splits,
+                          _raise_on, _residual, _splits, bias_partials,
                           attention_branch_reference, attention_half_bwd_reference,
                           check_attention_args, check_extra, check_f32,
                           check_matrix, check_vector, extra_grad, extra_groups,
@@ -291,9 +291,10 @@ def _cuda_bwd(saved: L1Saved, do: torch.Tensor, need_drs, need_dextra: bool):
         else None,
         af=torch.empty((M, Fdim), **opts), dh=torch.empty((M, Fdim), **opts),
         dz=torch.empty((M, C), **opts), dacc=torch.empty((M, HD), **opts),
-        delta=torch.empty((B, H, N), **opts), dqkv=torch.empty((M, 3 * HD), **opts),
+        delta=torch.empty((B, H, N), **opts) if s.extra_g is None else None,
+        dqkv=torch.empty((M, 3 * HD), **opts),
         u=torch.empty((M, C), **opts), dln=torch.empty((M, C), **opts),
-        dsbuf=torch.empty((B, H, N, N), **opts) if want_dextra else None,
+        dbpart=bias_partials(B, groups, H, N, opts) if want_dextra else None,
         wpart=torch.empty((wpart,), **opts),
         cpart=torch.empty((chunks * max(C, 3 * HD, Fdim),), **opts))
     vec = lambda n, t: torch.empty((n,), **opts) if t is not None else None  # noqa: E731
@@ -319,7 +320,7 @@ def _cuda_bwd(saved: L1Saved, do: torch.Tensor, need_drs, need_dextra: bool):
             *map(ptr, (s.qkv, s.acc, s.z, s.hid, s.mu1, s.rstd1, s.lse, s.mu2,
                        s.rstd2, do)),
             *(ptr(ws[k]) for k in ("da", "af", "dh", "dz", "dacc", "delta", "dqkv",
-                                   "u", "dln", "dsbuf", "wpart")),
+                                   "u", "dln", "dbpart", "wpart")),
             *splits, ptr(ws["cpart"]),
             ptr(dx), ptr(dg1), ptr(db1),
             ptr(dwqkv), dwqkv.stride(0), dwqkv.stride(1), ptr(dbqkv),

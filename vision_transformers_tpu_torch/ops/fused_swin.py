@@ -35,8 +35,9 @@ hand-written kernels of ``csrc/fused_swin.cu`` or raises; it never falls
 back to the plain versions.  The kernels read and write the map in place
 through a row → pixel table (:func:`map_rows`): no roll, partition,
 unpartition or unroll pass runs around them.  They take float32,
-``activation="silu"`` and heads up to 32 wide with the bias (Swin's are 32);
-anything else on a CUDA tensor raises NotImplementedError (ROADMAP B).
+``activation="silu"``, heads up to 32 wide and window pairs of up to 128
+tokens with the bias (Swin's are 32 wide, 98 tokens); anything else on a
+CUDA tensor raises NotImplementedError (ROADMAP B).
 Weights may be any 2-D strided view (the model passes ``linear.weight.t()``;
 nothing is copied, and their gradients come back in the view's layout).
 """
@@ -50,9 +51,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .fused_layer import (MAX_BIAS_DIM_HEAD, _default_scale, _raise_on, _splits,
-                          check_attention_args, check_f32, check_matrix, check_vector,
-                          like_layout, ptr)
+from .fused_layer import (MAX_BIAS_DIM_HEAD, MAX_BIAS_TOKENS, _default_scale,
+                          _raise_on, _splits, bias_partials, check_attention_args,
+                          check_f32, check_matrix, check_vector, like_layout, ptr)
 from .fused_layer1 import (GRAD_NAMES, N_SAVED_TENSORS, L1Saved,
                            fused_transformer_layer_bwd_reference,
                            fused_transformer_layer_fwd_reference,
@@ -262,6 +263,10 @@ def _check(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout, ln2_scale, ln2_bias,
         raise NotImplementedError(
             f"the CUDA kernel takes the bias with heads up to {MAX_BIAS_DIM_HEAD} wide; "
             f"got {D} (ROADMAP B)")
+    if geo.m > MAX_BIAS_TOKENS:
+        raise NotImplementedError(
+            f"the CUDA kernel takes window pairs of up to {MAX_BIAS_TOKENS} tokens; "
+            f"got {geo.m}")
     if extra.shape[1] != H_ or not extra.is_contiguous():
         raise ValueError(f"extra must be a contiguous [1 or {geo.G}, {H_}, {geo.m}, "
                          f"{geo.m}] tensor, got {tuple(extra.shape)}")
@@ -355,11 +360,10 @@ def _cuda_bwd(saved: SwinSaved, do: torch.Tensor, need_drs, need_dextra: bool):
         else None,
         af=torch.empty((M, Fdim), **opts), dh=torch.empty((M, Fdim), **opts),
         dz=torch.empty((M, C), **opts), dacc=torch.empty((M, HD), **opts),
-        delta=torch.empty((B * geo.G, nh, geo.m), **opts),
         dqkv=torch.empty((M, 3 * HD), **opts),
         u=torch.empty((M, C), **opts), dln=torch.empty((M, C), **opts),
-        dsbuf=torch.empty((B * geo.G, nh, geo.m, geo.m), **opts) if need_dextra
-        else None,
+        dbpart=bias_partials(B * geo.G, s.extra_g.shape[0], nh, geo.m, opts)
+        if need_dextra else None,
         wpart=torch.empty((wpart,), **opts),
         cpart=torch.empty((chunks * max(C, 3 * HD, Fdim),), **opts))
     vec = lambda n, t: torch.empty((n,), **opts) if t is not None else None  # noqa: E731
@@ -384,8 +388,8 @@ def _cuda_bwd(saved: SwinSaved, do: torch.Tensor, need_drs, need_dextra: bool):
             ptr(s.extra_g), s.extra_g.shape[0], ptr(s.rs_attn), ptr(s.rs_ff), ptr(pix),
             *map(ptr, (s.qkv, s.acc, s.z, s.hid, s.mu1, s.rstd1, s.lse, s.mu2,
                        s.rstd2, do)),
-            *(ptr(ws[k]) for k in ("dor", "da", "af", "dh", "dz", "dacc", "delta",
-                                   "dqkv", "u", "dln", "dsbuf", "wpart")),
+            *(ptr(ws[k]) for k in ("dor", "da", "af", "dh", "dz", "dacc", "dqkv", "u",
+                                   "dln", "dbpart", "wpart")),
             *splits, ptr(ws["cpart"]),
             ptr(dx), ptr(dg1), ptr(db1),
             ptr(dwqkv), dwqkv.stride(0), dwqkv.stride(1), ptr(dbqkv),
