@@ -727,6 +727,143 @@ def gemm_check(torch, gm, label, form, a, b, kw, splits, worst):
     return err, plain
 
 
+# the passes the core takes in (csrc/common.cuh GemmExtra): odd small shapes,
+# then Halo-S stage 1's products at 128 images (524,288 rows, C 96, F 384),
+# where B4's forward stages LN₁, LN₂ and silu and its backward's dh GEMM
+# takes silu', r₂ and the dr₂ / db₁ partials in its epilogue
+GEMM_PASS_ODD = ((37, 29, 45), (130, 7, 3), (300, 200, 100), (777, 96, 384))
+HALO1_ROWS = 128 * 64 * 64
+
+
+def gemm_pass_calls():
+    """(label, form, M, N, K, options) of B4's products at Halo-S stage 1."""
+    M = HALO1_ROWS
+    return [("Halo-S stage 1 qkv, LN₁ staged", "rows", M, 288, 96, "ln"),
+            ("Halo-S stage 1 FF1, LN₂ staged", "rows", M, 384, 96, "ln+bias"),
+            ("Halo-S stage 1 FF2, silu staged", "rows", M, 96, 384, "act+bias+rs+res"),
+            ("Halo-S stage 1 dh = dy·W₂ᵀ, silu' and r₂ with the dr₂ and db₁ partials",
+             "nmajor", M, 384, 96, "hid+rs+partials"),
+            ("Halo-S stage 1 dW₂ = silu(hid)ᵀ·(r₂ ⊙ dy)", "splitk", 384, 96, M, "act+rs_b"),
+            ("Halo-S stage 1 dW₁ = LN₂(z)ᵀ·dh", "splitk", 96, 384, M, "ln")]
+
+
+def gemm_pass_inputs(torch, form, M, N, K, options, act="silu", seed=0, rs_rows=4096):
+    """Seeded operands of one call with the passes' options: ``gemm_inputs``'
+    a and b (the epilogue's tensors for ``bias``, ``rs``, ``res``) and
+    LayerNorm statistics and parameters (ln: over a's rows, or its k in
+    the split-K form), the staged act, B's row scale (rs_b) and a hid
+    tile with both partials (hid, partials)."""
+    a, b, kw = gemm_inputs(torch, "splitk" if form == "splitk" else form, M, N, K,
+                           options.replace("rs_b", ""), seed=seed, rs_rows=rs_rows)
+    g = torch.Generator(DEVICE).manual_seed(seed + 1)
+
+    def n(*shape, s=1.0, mean=0.0):
+        return mean + s * torch.randn(*shape, device=DEVICE, generator=g)
+
+    tokens, feats = (K, M) if form == "splitk" else (M, K)
+    if "ln" in options:
+        kw["ln"] = (n(tokens, s=0.3), 0.5 + torch.rand(tokens, device=DEVICE, generator=g),
+                    n(feats, s=0.1, mean=1.0), n(feats, s=0.1))
+    if "act" in options:
+        kw["act_a"] = act
+    if "rs_b" in options:
+        kw["rs_b"] = 0.5 + torch.rand(-(-K // rs_rows), device=DEVICE, generator=g)
+        kw["rs_b_rows"] = rs_rows
+    if "hid" in options:
+        kw.update(hid=n(M, N), hid_act=act)
+    if "partials" in options:
+        kw.update(row_partials=True, col_partials=True)
+    return a, b, kw
+
+
+def gemm_pass_check(torch, gm, label, form, a, b, kw, splits, worst):
+    """One call with the passes' options against :func:`gemm_reference`
+    (the staged values and the partials in the kernel's order): the row
+    forms within atol = rtol = 1e-4, the split-K form and the partials
+    within 1e-3·max(1, max|plain|) and bit-identical across two runs.
+    Returns the output's error."""
+    if form == "splitk":
+        out = gm.gemm(a, b, form="splitk", splits=splits, **kw)
+        again = gm.gemm(a, b, form="splitk", splits=splits, **kw)
+        torch.cuda.synchronize()
+        plain = gm.gemm_reference(a, b, form="splitk", **kw)
+        pairs = [("out", out, again, plain)]
+    else:
+        form_ = "rows" if form == "nmajor" else form
+        res = gm.gemm(a, b, **kw, form=form_)
+        torch.cuda.synchronize()
+        plain = gm.gemm_reference(a, b, **kw, form=form_)
+        if not isinstance(res, tuple):
+            err = check_close(torch, "gemm", res, plain, label)
+            worst["rows"] = max(worst["rows"], err)
+            return err
+        again = gm.gemm(a, b, **kw, form=form_)
+        err = check_close(torch, "gemm", res[0], plain[0], label)
+        worst["rows"] = max(worst["rows"], err)
+        pairs = [(name, x, y, p) for name, x, y, p in
+                 zip(("row partials", "column partials"), res[1:], again[1:], plain[1:])]
+    for name, x, y, p in pairs:
+        e = (x - p).abs().max().item()
+        lim = 1e-3 * max(1.0, p.abs().max().item())
+        same = torch.equal(x, y)
+        log(f"gemm: {label}: {name} max|Δ| {e:.3e} (limit {lim:.3e}), two runs "
+            f"bit-identical: {same} {'ok' if e <= lim and same else 'FAIL'}")
+        if not (e <= lim and same) or not torch.isfinite(x).all():
+            raise RuntimeError(f"gemm: {name} disagree or vary at {label}")
+        worst["splitk"] = max(worst["splitk"], e / lim)
+    return (pairs[0][1] - pairs[0][3]).abs().max().item()
+
+
+def gemm_pass_kernels(torch, gm, fl, worst):
+    """The passes' options at the odd shapes (every option, silu and gelu,
+    split-K in one and three slabs), then B4's products at Halo-S stage 1:
+    checked, and timed beside the same product without the options and
+    ``torch.matmul`` f32.  Returns the timed records."""
+    for M, N, K in GEMM_PASS_ODD:
+        seed = M + N + K
+        for act in ("silu", "gelu"):
+            for form, opts in (("rows", "ln+bias"), ("rows", "act+bias+rs+res"),
+                               ("nmajor", "hid+rs+partials"), ("nmajor", "hid+partials")):
+                a, b, kw = gemm_pass_inputs(torch, form, M, N, K, opts, act, seed, rs_rows=10)
+                gemm_pass_check(torch, gm, f"odd {form} M,N,K={M},{N},{K} {opts} ({act})",
+                                form, a, b, kw, 1, worst)
+            for opts in ("ln", "act+rs_b"):
+                for splits in (1, 3):
+                    a, b, kw = gemm_pass_inputs(torch, "splitk", M, N, K, opts, act, seed,
+                                                rs_rows=10)
+                    gemm_pass_check(torch, gm, f"odd split-K M,N,K={M},{N},{K} {opts} "
+                                    f"({act}, {splits} slabs)", "splitk", a, b, kw, splits,
+                                    worst)
+    records = []
+    for label, form, M, N, K, opts in gemm_pass_calls():
+        a, b, kw = gemm_pass_inputs(torch, form, M, N, K, opts, seed=1)
+        splits = fl._splits(M, N, K) if form == "splitk" else 1
+        what = f"{label} M,N,K={M},{N},{K} {opts}"
+        err = gemm_pass_check(torch, gm, what, form, a, b, kw, splits, worst)
+        form_ = "rows" if form == "nmajor" else form
+        passes = ("ln", "act_a", "rs_b", "rs_b_rows", "hid", "hid_act", "row_partials",
+                  "col_partials")
+        bare = {k: v for k, v in kw.items() if k not in passes}
+        ms = median_ms_queued(torch, lambda: gm.gemm(a, b, **kw, form=form_, splits=splits))
+        bare_ms = median_ms_queued(torch, lambda: gm.gemm(a, b, **bare, form=form_,
+                                                          splits=splits))
+        lhs = a.t() if form == "splitk" else a
+        lib_ms = median_ms_queued(torch, lambda: torch.matmul(lhs, b))
+        flops = 2 * M * N * K
+        nbytes = 4 * (M * K + K * N + M * N + (M * N if "res" in opts else 0)
+                      + (2 * M * N if "hid" in opts else 0))
+        bound_ms, by = bound(flops, nbytes, tensor_cores=True)
+        log(f"gemm: {what}: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), the same "
+            f"product without the options {bare_ms:.3f} ms, torch.matmul f32 {lib_ms:.3f} "
+            f"ms; bound {bound_ms:.3f} ms ({by}, {100 * bound_ms / ms:.0f}% of it) (median "
+            f"of 20 CUDA-event timings of 10 calls in a row)")
+        records.append({"shape": what, "max_abs_err": err, "ms": ms, "bare_ms": bare_ms,
+                        "tflops": flops / ms / 1e9, "bound_ms": bound_ms, "bound_by": by,
+                        "library_ms": lib_ms})
+        del a, b, kw, bare
+    return records
+
+
 def gemm_kernels(torch):
     """3m: the GEMM core (csrc/gemm_tc.cu) through its thin C entry, in its
     three forms (row-major A; B9's map forms, the residual read or the output
@@ -736,11 +873,13 @@ def gemm_kernels(torch):
     scale + residual, the map forms with bias, row scale and residual), the
     weight read K-major (the forward's ``linear.weight.t()``) and N-major
     (the data gradients' ``dY·W``), odd small shapes, and the main paths'
-    products at full size (``gemm_main_calls``); median ms of 20 CUDA-event
-    timings of 10 calls in a row, TFLOP/s, the bound at the f32-accurate
-    tensor-core rate and ``torch.matmul``'s f32 time timed the same way on
-    the same operands.  Returns the timed
-    records."""
+    products at full size (``gemm_main_calls``); then the passes it takes in
+    (``gemm_pass_kernels``: the producer's LayerNorm apply, act and row
+    scale, the epilogue's silu' with the row and column partials) beside
+    their emulation; median ms of 20 CUDA-event timings of 10 calls in a
+    row, TFLOP/s, the bound at the f32-accurate tensor-core rate and
+    ``torch.matmul``'s f32 time timed the same way on the same operands.
+    Returns the timed records."""
     from vision_transformers_tpu_torch.ops import fused_layer as fl
     from vision_transformers_tpu_torch.ops import gemm as gm
 
@@ -789,8 +928,9 @@ def gemm_kernels(torch):
         records.append({"shape": what, "max_abs_err": err, "ms": ms, "tflops": flops / ms / 1e9,
                         "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms})
         del a, b, kw
-    log(f"gemm: worst max|Δ| of the row forms {worst['rows']:.3e}; worst split-K max|Δ| "
-        f"{worst['splitk']:.3f} of its limit")
+    records += gemm_pass_kernels(torch, gm, fl, worst)
+    log(f"gemm: worst max|Δ| of the row forms {worst['rows']:.3e}; worst split-K (and "
+        f"partials) max|Δ| {worst['splitk']:.3f} of its limit")
     return records
 
 

@@ -13,8 +13,9 @@ rows of 98 tokens, C 256, 8 heads of 32, the pair mask, no mask gradient); B2
 ``fused_transformer_layer`` forward with saves and backward at Swin-S stages 3
 and 1 at 64 images (128 rows of 98 tokens, C 384, 12 heads of 32, the grouped
 bias of 2 groups; 2048 rows, C 96, 3 heads, 32 groups; both row scales); B4
-``fused_halo_layer`` the same at Halo-S stage 1 at 128 images (64x64 map, C
-96, 3 heads, window 8, halo 2); B3 ``fused_attention_qkv`` forward with lse
+``fused_halo_layer`` the same at the four Halo-S stages at 128 images (64x64
+to 8x8 maps, C 96 to 768, 3 to 24 heads of 32, F = 4C, window 8, halo 2, both
+row scales); B3 ``fused_attention_qkv`` forward with lse
 and backward at ViT-S B=128 (no bias) and at Swin-S stage 1 at 64 images (2048
 rows of 98 tokens, 3 heads of 32, the grouped bias of 32 groups); B5a
 ``halo_attention_direct`` forward with lse and
@@ -100,7 +101,10 @@ def gemm_entry(root, _build):
         lib = ctypes.CDLL(so)
     fn = lib.vtx_gemm_tc
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [P, I, P, L, L, P, P, I, P, P, P, I, I, P, I, L, L, I, I, I, I, P]
+    # the tree's own declaration where it has one (the passes' options since
+    # they moved into the core), else the shim's
+    fn.argtypes = getattr(_build, "_SIGNATURES", {}).get(
+        "vtx_gemm_tc", [P, I, P, L, L, P, P, I, P, P, P, I, I, P, I, L, L, I, I, I, I, P])
     fn.restype = ctypes.c_int
     return fn
 
@@ -124,11 +128,16 @@ def gemm_times(fn, splits_of, ms):
         def ptr(t):
             return None if t is None else t.data_ptr()
 
+        # no pass options: ln (4), act (ACT_NONE), B's row scale and its rows,
+        # hid and its act, the two partials
+        extra = (None, None, None, None, -1, None, 1, None, 0, None, None) \
+            if len(fn.argtypes) > 22 else ()
+
         def call():
             err = fn(ptr(a), M if form == "splitk" else K, ptr(b), b.stride(0), b.stride(1),
                      ptr(bias), ptr(rs), 197, ptr(res), ptr(o), None, 0,
                      3 if form == "splitk" else 0, ptr(part), splits, N, 1, M, N, K,
-                     int("silu" in epi), stream)
+                     int("silu" in epi), *extra, stream)
             if err:
                 raise RuntimeError(f"vtx_gemm_tc {label}: CUDA error {err}")
 
@@ -215,14 +224,17 @@ def main() -> None:
     out["B2 Swin1 fwd"] = ms(lambda: fl1.fused_transformer_layer_fwd(*a, 3, extra, r, r))
     out["B2 Swin1 bwd"] = ms(lambda: fl1.fused_transformer_layer_bwd(saved, dz))
     r = torch.ones(128, device="cuda")
-    a = args(128, 64 * 64, 96, 3, 32, 384)
-    ha = [a[0].reshape(128, 64, 64, 96), *a[1:4], *a[5:],
-          0.2 * torch.randn(3, 64, 144, device="cuda")]
-    dz = torch.randn(128, 64, 64, 96, device="cuda")
-    _, saved = fhl.fused_halo_layer_fwd(*ha, 3, r, r, window=8, halo=2)
-    out["B4 Halo1 fwd"] = ms(lambda: fhl.fused_halo_layer_fwd(*ha, 3, r, r, window=8, halo=2))
-    out["B4 Halo1 bwd"] = ms(lambda: fhl.fused_halo_layer_bwd(saved, dz))
-    del ha, saved
+    for stage, (size, C, H) in enumerate(((64, 96, 3), (32, 192, 6), (16, 384, 12),
+                                          (8, 768, 24)), 1):
+        a = args(128, size * size, C, H, 32, 4 * C)
+        ha = [a[0].reshape(128, size, size, C), *a[1:4], *a[5:],
+              0.2 * torch.randn(H, 64, 144, device="cuda")]
+        dz = torch.randn(128, size, size, C, device="cuda")
+        _, saved = fhl.fused_halo_layer_fwd(*ha, H, r, r, window=8, halo=2)
+        out[f"B4 Halo{stage} fwd"] = ms(lambda: fhl.fused_halo_layer_fwd(
+            *ha, H, r, r, window=8, halo=2))
+        out[f"B4 Halo{stage} bwd"] = ms(lambda: fhl.fused_halo_layer_bwd(saved, dz))
+        del ha, saved, dz
     for name, (B, N, H, D, G) in (("B3 ViT", (128, 197, 6, 64, 0)),
                                   ("B3 Swin1", (2048, 98, 3, 32, 32))):
         g = torch.Generator("cuda").manual_seed(1)

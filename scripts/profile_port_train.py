@@ -8,7 +8,8 @@ generator) under ``torch.profiler`` after a warm-up and prints the device
 time by kernel per step, grouped by layer (hand-written GEMM in its
 row-major and split-K forms, attention forward / backward kernels, other
 hand-written kernels, cuBLAS, the rest), the device's busy share of the wall
-time, and one JSON line.
+time, the census of the "other hand-written" passes (each kernel's launches
+and ms per step), and one JSON line.
 
     python3 scripts/profile_port_train.py [--conf configs/vit-s-16.conf] [--rows 128]
         [--steps 5] [--trace out.json] [--halo-impl ...] [--sra-impl einsum|fused]
@@ -67,7 +68,7 @@ GROUPS = (("at::native", "other (elementwise, reductions, conv)"),
           ("row_scale_grad", "other hand-written"), ("scale_rows", "other hand-written"),
           ("silu", "other hand-written"), ("group_sum", "other hand-written"),
           ("act_kernel", "other hand-written"), ("dact_mul", "other hand-written"),
-          ("gather_rows", "other hand-written"),
+          ("gather_rows", "other hand-written"), ("drs_part", "other hand-written"),
           ("gemm", "cuBLAS GEMM"), ("sgemm", "cuBLAS GEMM"), ("cutlass", "cuBLAS GEMM"),
           ("Memcpy", "copies"), ("foreach", "optimizer (foreach)"))
 
@@ -175,6 +176,10 @@ def main() -> None:
         print(f"  {ms:9.3f} ms  {ms / busy:6.1%}  {label}")
     for name, calls, ms in rows[:25]:
         print(f"  {ms:9.3f} ms  {ms / busy:6.1%}  x{calls:<4d} {name[:90]}")
+    passes = [(n, c, m) for n, c, m in rows if group(n) == "other hand-written"]
+    print("other hand-written, by kernel (launches and ms per step):")
+    for name, calls, ms in passes:
+        print(f"  {ms:9.3f} ms  x{calls:<4d} {name[:90]}")
     print(json.dumps({"conf": os.path.basename(args.conf), "overrides": args.overrides,
                       "halo_impl": args.halo_impl, "sra_impl": args.sra_impl,
                       "attn_impl": args.attn_impl, "ff_kernel": args.ff_kernel,
@@ -182,7 +187,9 @@ def main() -> None:
                       "wall_ms": wall * 1e3, "device_ms": busy,
                       "device_busy_share": busy / (wall * 1e3), "groups": groups,
                       "kernels": [{"name": n[:120], "calls": c, "ms": m}
-                                  for n, c, m in rows[:25]]}))
+                                  for n, c, m in rows[:25]],
+                      "passes": [{"name": n[:120], "calls": c, "ms": m}
+                                 for n, c, m in passes]}))
 
 
 if __name__ == "__main__":

@@ -34,6 +34,7 @@ from vision_transformers_tpu.utils.torch_convert import convert_state_dict
 from vision_transformers_tpu_torch.models.swin import SwinConfig
 from vision_transformers_tpu_torch.utils.weights import (seeded_state_dict,
                                                          seeded_train_batch, to_torch)
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 
 def eval_logits_both(cfg_jax, model, sd, images):

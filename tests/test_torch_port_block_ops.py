@@ -25,6 +25,7 @@ from vision_transformers_tpu.ops.fused_block import \
     fused_attention_block as jax_fused_attention_block
 from vision_transformers_tpu_torch import ops
 from vision_transformers_tpu_torch.ops import fused_block as fb
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 B, N, C, H, D = 4, 13, 16, 2, 8
 SHAPES = {None: None, "nn": (N, N), "1nn": (1, N, N), "hnn": (H, N, N),

@@ -32,6 +32,7 @@ from vision_transformers_tpu_torch.utils.weights import (grad_projections,
                                                          supplied_dropout_masks,
                                                          to_torch,
                                                          vit_dropout_calls)
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SCRIPT = os.path.join(ROOT, "scripts", "make_torch_port_train_golden.py")

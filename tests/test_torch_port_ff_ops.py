@@ -22,6 +22,7 @@ import torch
 from vision_transformers_tpu.ops.fused_layer import fused_ff_layer as jax_fused_ff_layer
 from vision_transformers_tpu_torch import ops
 from vision_transformers_tpu_torch.ops import fused_layer as fl
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 B, N, C, F = 3, 5, 16, 40
 NAMES = ("x", "ln_scale", "ln_bias", "w1", "b1", "w2", "b2", "row_scale")

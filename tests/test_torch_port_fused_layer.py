@@ -15,6 +15,7 @@ import torch
 from vision_transformers_tpu.ops.fused_layer import \
     fused_attention_layer as jax_fused_attention_layer
 from vision_transformers_tpu_torch.ops import fused_layer
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=5e-5, rtol=5e-5)
 

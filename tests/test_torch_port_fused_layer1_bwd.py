@@ -23,6 +23,7 @@ import torch
 from vision_transformers_tpu.ops.fused_layer1 import \
     fused_transformer_layer as jax_fused_transformer_layer
 from vision_transformers_tpu_torch.ops import fused_layer1
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 NAMES = ["dx", "dln1_scale", "dln1_bias", "dwqkv", "dbqkv", "dwout", "dbout",
          "dln2_scale", "dln2_bias", "dw1", "db1", "dw2", "db2", "dextra",

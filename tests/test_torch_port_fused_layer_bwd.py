@@ -19,6 +19,7 @@ import torch
 from vision_transformers_tpu.ops.fused_layer import \
     fused_attention_layer as jax_fused_attention_layer
 from vision_transformers_tpu_torch.ops import fused_layer
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 NAMES = ["dx", "dln_scale", "dln_bias", "dwqkv", "dbqkv", "dwout", "dbout", "drs"]
 SHAPES = [(4, 17, 64, 2, 32), (3, 37, 48, 2, 24), (2, 197, 384, 6, 64)]

@@ -36,6 +36,7 @@ from vision_transformers_tpu_torch import ops, predict, train
 from vision_transformers_tpu_torch.ops import fused_block as fb
 from vision_transformers_tpu_torch.ops import fused_halo
 from vision_transformers_tpu_torch.utils.weights import seeded_images
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 VIT_CONF = os.path.join(ROOT, "configs", "vit-s-16.conf")

@@ -23,6 +23,7 @@ import torch
 
 from test_torch_port_halo_entry import fake_cuda
 from vision_transformers_tpu_torch.ops import gemm as gm
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 
 def operands(M, N, K, seed=0):

@@ -49,6 +49,7 @@ import pytest
 import torch
 
 from vision_transformers_tpu_torch.ops import fused_layer as fl
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-4            # chip_smoke.KERNEL_TOL: phase 3m's row forms, phase 3's forwards
 BWD_TOL = 1e-3        # phase 3m's split-K and phase 3b's limit, × max(1, max|plain|)

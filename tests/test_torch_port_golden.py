@@ -20,6 +20,7 @@ from vision_transformers_tpu_torch.predict import predict_batch
 from vision_transformers_tpu_torch.utils.weights import (seeded_images,
                                                          seeded_state_dict,
                                                          to_torch)
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SCRIPT = os.path.join(ROOT, "scripts", "make_torch_port_golden.py")

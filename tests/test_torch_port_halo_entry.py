@@ -30,6 +30,7 @@ from vision_transformers_tpu_torch import predict, train
 from vision_transformers_tpu_torch.ops import _build, fused_halo
 from vision_transformers_tpu_torch.ops import fused_halo_layer as fhl
 from vision_transformers_tpu_torch.utils.weights import seeded_images
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 CONF = os.path.join(ROOT, "tests", "data", "halo_s_port.conf")
@@ -151,9 +152,10 @@ def test_cuda_layer_forward_passes_geometry_bias_and_row_scales(monkeypatch):
     for call in (serving, training):
         assert call[3:6] == (wqkv.data_ptr(), *wqkv.stride())  # the view's strides
         assert call[20:23] == (args[12].data_ptr(), r1.data_ptr(), r2.data_ptr())
-        assert call[35:44] == (2, 8, 8, 16, 2, 8, 32, 4, 1)
-    assert serving[28:34] == (None,) * 6  # af and the statistics: no saves
-    assert all(p is not None for p in training[28:34])
+        assert call[33:42] == (2, 8, 8, 16, 2, 8, 32, 4, 1)
+        assert all(p is not None for p in call[27:29] + call[30:32])  # the statistics
+    assert serving[29] is None and serving[44] == 0  # no lse: no saves
+    assert training[29] is not None and training[44] == 1
     assert out.shape == args[0].shape
     assert saves[0].shape == (2, 8, 8, 48) and saves[6].shape == (2, 2, 64)  # qkv, lse
 
@@ -169,12 +171,12 @@ def test_cuda_layer_backward_passes_chunks_and_gradients(monkeypatch):
     assert fhl.BWD_LAUNCHES == before + 1
     assert len(grads) == len(fhl.GRAD_NAMES)
     chunks = fused_halo.dbias_chunks(2 * 4, 2, 4, 1, 8)
-    assert call[44] == chunks and 1 <= chunks <= 8
-    assert call[38] is None  # one key tile: no dq partials
+    assert call[42] == chunks and 1 <= chunks <= 8
+    assert call[36] is None  # one key tile: no dq partials
     dbias, drs_attn, drs_ff = grads[12:]
     assert dbias.shape == args[12].shape and drs_attn.shape == drs_ff.shape == (2,)
-    assert call[71:74] == (dbias.data_ptr(), drs_attn.data_ptr(), drs_ff.data_ptr())
-    assert call[74:83] == (2, 8, 8, 16, 2, 8, 32, 4, 1)
+    assert call[69:72] == (dbias.data_ptr(), drs_attn.data_ptr(), drs_ff.data_ptr())
+    assert call[72:81] == (2, 8, 8, 16, 2, 8, 32, 4, 1)
     # the weight gradients come back in the weight views' layout
     assert grads[3].shape == args[3].shape and grads[3].stride() == args[3].stride()
     grads = fhl._cuda_bwd(saved, torch.zeros_like(args[0]), (False, False))

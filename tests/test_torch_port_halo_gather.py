@@ -40,6 +40,7 @@ from vision_transformers_tpu_torch.train import loss as L
 from vision_transformers_tpu_torch.utils.weights import (seeded_state_dict,
                                                          seeded_train_batch,
                                                          state_dict_from_flax, to_torch)
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(image_size=128, n_class=10, depths=[1, 1, 1, 1], dims=[16, 32, 64, 128],
             dim_head=8, n_heads=[2, 4, 8, 16], dim_ffs=[32, 64, 128, 256], window_size=4,

@@ -29,6 +29,7 @@ from vision_transformers_tpu.ops.fused_halo import \
 from vision_transformers_tpu.ops.fused_halo_layer import \
     fused_halo_layer as jax_fused_halo_layer
 from vision_transformers_tpu_torch.ops import fused_halo, fused_halo_layer
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 NAMES = fused_halo_layer.GRAD_NAMES
 

@@ -19,6 +19,7 @@ from vision_transformers_tpu_torch.config import registry
 from vision_transformers_tpu_torch.config.schema import load_config
 from vision_transformers_tpu_torch.models.vit import ViTConfig
 from vision_transformers_tpu_torch.ops import _build, fused_layer, fused_layer1
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 CONF = os.path.join(ROOT, "configs", "vit-s-16.conf")

@@ -19,6 +19,7 @@ from vision_transformers_tpu_torch import predict
 from vision_transformers_tpu_torch.config.schema import load_config
 from vision_transformers_tpu_torch.data.pipeline import decode_valid
 from vision_transformers_tpu_torch.utils.weights import seeded_state_dict, to_torch
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 CONF = os.path.join(ROOT, "configs", "vit-s-16.conf")

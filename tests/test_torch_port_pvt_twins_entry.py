@@ -34,6 +34,7 @@ from vision_transformers_tpu_torch import ops, predict, train
 from vision_transformers_tpu_torch.ops import _build, fused_layer
 from vision_transformers_tpu_torch.ops import fused_attention_mod as fa
 from vision_transformers_tpu_torch.utils.weights import seeded_images
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 COMMON = ["precision=f32", "training.epoch=1", "training.dataloader.batch_size=8",

@@ -24,6 +24,7 @@ from vision_transformers_tpu.ops.fused_attention import \
     fused_attention_qkv as jax_fused_attention_qkv
 from vision_transformers_tpu_torch import ops
 from vision_transformers_tpu_torch.ops import fused_attention_mod as fa
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 B, H = 4, 2
 FORMS = [None, "nn", "hnn", "1nn", "grouped"]

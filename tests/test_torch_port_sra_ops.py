@@ -29,6 +29,7 @@ from vision_transformers_tpu.ops.fused_layer import \
 from vision_transformers_tpu_torch import ops
 from vision_transformers_tpu_torch.ops import fused_layer
 from vision_transformers_tpu_torch.ops import fused_attention_mod as fa
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 # (B, G, M, N, D)
 SHAPES = [(2, 3, 13, 1, 8), (2, 2, 16, 4, 32), (3, 4, 10, 9, 8), (1, 2, 49, 4, 32)]

@@ -37,6 +37,7 @@ from vision_transformers_tpu_torch.utils.weights import (load_checkpoint,
                                                          seeded_train_batch,
                                                          state_dict_from_flax,
                                                          to_torch)
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 ARCH = dict(image_size=[64, 64], n_class=10, depths=[2, 2, 2, 2], dims=[8, 16, 32, 64],
             dim_head=4, n_heads=[2, 4, 8, 16], dim_ffs=[32, 64, 128, 256], window_size=2)
@@ -121,7 +122,9 @@ def test_train_step_grads_match_jax(weights, batch, name):
             logits = cfg.make().apply({"params": p}, b["image"], deterministic=False)
             return jax_loss.mix_loss(logits, b["label1"], b["label2"], b["ratio"], eps=0.1)
 
-        loss_j, g = jax.value_and_grad(f)(params)
+        # one XLA program for the step (traced under the forced impl), not
+        # the op-by-op dispatch of thousands of small computations
+        loss_j, g = jax.jit(jax.value_and_grad(f))(params)
         logits = model(tb["image"].permute(0, 3, 1, 2))
         loss = L.mix_loss(logits, tb["label1"].long(), tb["label2"].long(), tb["ratio"],
                           eps=0.1)

@@ -27,6 +27,7 @@ import torch
 from vision_transformers_tpu_torch import predict, train
 from vision_transformers_tpu_torch.ops import _build, fused_layer1
 from vision_transformers_tpu_torch.utils.weights import seeded_images
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 CONF = os.path.join(ROOT, "configs", "swin-transformer-s.conf")

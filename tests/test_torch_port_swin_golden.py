@@ -33,6 +33,7 @@ from vision_transformers_tpu_torch.utils.weights import (grad_projections,
                                                          seeded_state_dict,
                                                          seeded_train_batch,
                                                          to_torch)
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SCRIPT = os.path.join(ROOT, "scripts", "make_torch_port_swin_golden.py")

@@ -47,6 +47,7 @@ from vision_transformers_tpu_torch.utils.weights import (seeded_dropout_masks,
                                                          state_dict_from_flax,
                                                          supplied_dropout_masks,
                                                          swin_dropout_calls, to_torch)
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 SWIN = dict(image_size=[64, 64], n_class=10, depths=[2, 2, 2, 2], dims=[8, 16, 32, 64],

@@ -33,6 +33,7 @@ from vision_transformers_tpu_torch import ops, predict, train
 from vision_transformers_tpu_torch.models import layers
 from vision_transformers_tpu_torch.ops import _build, fused_swin
 from vision_transformers_tpu_torch.utils.weights import seeded_images
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 CONF = os.path.join(ROOT, "configs", "swin-transformer-s.conf")

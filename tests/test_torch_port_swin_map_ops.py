@@ -26,6 +26,7 @@ import torch
 from vision_transformers_tpu.ops import fused_swin as jax_swin
 from vision_transformers_tpu_torch import ops
 from vision_transformers_tpu_torch.ops import fused_swin
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 B, H, W, C, NH, D, F, WIN, PACK = 2, 8, 8, 16, 2, 8, 32, 2, 2
 HD, M = NH * D, PACK * WIN * WIN

@@ -30,6 +30,7 @@ import pytest
 import torch
 
 from vision_transformers_tpu_torch.ops import fused_attention_mod as fa
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 FWD_TOL = 1e-4  # chip_smoke.KERNEL_TOL
 SHAPES = {  # name → (B, H, M, N, D, bias groups or 0, or "halo": windows)

@@ -34,6 +34,7 @@ from vision_transformers_tpu_torch.train import loss as L
 from vision_transformers_tpu_torch.utils.weights import (seeded_state_dict,
                                                          state_dict_from_flax,
                                                          to_torch)
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 ARCH = dict(image_size=32, window_size=8, depth=2, dim=64, n_head=2,
             dim_ff=128, n_class=10)

@@ -19,6 +19,7 @@ from vision_transformers_tpu_torch.models.vit import ViTConfig
 from vision_transformers_tpu_torch.utils.weights import (seeded_images,
                                                          seeded_state_dict,
                                                          to_torch)
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 CONF = os.path.join(ROOT, "configs", "vit-s-16.conf")

@@ -47,6 +47,7 @@ from vision_transformers_tpu_torch.utils.weights import (seeded_state_dict,
                                                          seeded_train_batch,
                                                          state_dict_from_flax,
                                                          to_torch)
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 TINY = dict(n_class=10, depths=[1, 1, 1, 1], dims=[16, 32, 64, 128], dim_head=8,

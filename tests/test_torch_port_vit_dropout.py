@@ -41,6 +41,7 @@ from vision_transformers_tpu_torch.utils.weights import (seeded_dropout_masks,
                                                          state_dict_from_flax,
                                                          supplied_dropout_masks,
                                                          to_torch, vit_dropout_calls)
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 ARCH = dict(image_size=32, window_size=8, depth=2, dim=64, n_head=2, dim_ff=128,

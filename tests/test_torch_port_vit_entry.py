@@ -30,6 +30,7 @@ from vision_transformers_tpu_torch.ops import fused_attention_mod as fa
 from vision_transformers_tpu_torch.ops import fused_layer as fl
 from vision_transformers_tpu_torch.utils.weights import seeded_images
 from test_torch_port_halo_entry import fake_cuda
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 B, H = 4, 2  # the B3 calls

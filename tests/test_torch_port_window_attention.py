@@ -37,6 +37,7 @@ from vision_transformers_tpu_torch.models.swin import WindowAttention
 from vision_transformers_tpu_torch.ops import _build
 from vision_transformers_tpu_torch.ops import fused_layer, fused_layer1, fused_swin
 from vision_transformers_tpu_torch.ops import window_attention as wa
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 FWD_TOL = 1e-4  # chip_smoke.KERNEL_TOL
 HEADER = (Path(__file__).resolve().parent.parent / "vision_transformers_tpu_torch" / "csrc"

@@ -45,13 +45,57 @@ __device__ __forceinline__ long long map_pixel(const MapRows& mr, int r) {
 //                       order into out (element (m, n) at out[m*som + n*son])
 //   B element (k, n) at B[k*sbk + n*sbn] in all three, so transposed weight
 //   views (torch's Linear.weight.t()) are read in place.
+// launch_gemm_x and launch_gemm_splitk_x take GemmExtra besides: operand
+// transforms that the producer applies in registers as it stages a tile
+// (before the TF32 split), so a LayerNorm's output, an activation or a row
+// scale is never written to device memory, and epilogue options that take a
+// pass's work into the output tile.
 // ---------------------------------------------------------------------------
 
 constexpr int MAP_NONE = 0, MAP_RES = 1, MAP_OUT = 2;
 
+// The FF activations of vision_transformers_tpu/ops/fused_layer.py:90-108
+// (ACT_NONE: none)
+constexpr int ACT_NONE = -1, ACT_SILU = 0, ACT_GELU = 1;
+
+// Column groups of the epilogue's row partials (rpart is [M, cdiv(N, 64)]),
+// rows of its column partials' slices (cpart is [cdiv(M, 16), N]), and the
+// rows a block of the row-scale gradient's pass sums (launch_drs)
+constexpr int RPART_COLS = 64, CPART_ROWS = 16, DRS_ROWS = 64;
+
+struct GemmExtra {
+  // A (the producer): the LayerNorm apply (a − ln_mu[t])·ln_rstd[t]·ln_g[f]
+  // + ln_b[f] from saved statistics, t the token (A's row; in the split-K
+  // form its k) and f the feature (its k; in the split-K form its row); or,
+  // without ln_mu, act_fwd<a_act>(a)
+  const float* ln_mu = nullptr;
+  const float* ln_rstd = nullptr;
+  const float* ln_g = nullptr;
+  const float* ln_b = nullptr;
+  int a_act = ACT_NONE;
+  // B (the producer): × b_rs[k / b_rs_rows]
+  const float* b_rs = nullptr;
+  int b_rs_rows = 1;
+  // the epilogue (launch_gemm_x): with hid [M, N] (row stride N), after the
+  // bias and silu, rpart [M, cdiv(N, 64)] (when non-null) takes Σ v·
+  // act_fwd<hid_act>(hid) over each row's 64-column groups, then v ×= rs,
+  // v ×= act_grad<hid_act>(hid); cpart [cdiv(M, 16), N] (when non-null)
+  // takes the column sums of the final value over each 16-row slice (a
+  // thread's two rows, then the eight lanes' as a shuffle tree)
+  const float* hid = nullptr;
+  int hid_act = ACT_SILU;
+  float* rpart = nullptr;
+  float* cpart = nullptr;
+};
+
 cudaError_t launch_gemm(const float* A, const float* B, long long sbk, long long sbn,
                         const float* bias, const float* rs, int rs_rows, const float* res,
                         float* out, int M, int N, int K, int silu, cudaStream_t stream);
+
+cudaError_t launch_gemm_x(const float* A, const float* B, long long sbk, long long sbn,
+                          const float* bias, const float* rs, int rs_rows, const float* res,
+                          float* out, int M, int N, int K, int silu, const GemmExtra& x,
+                          cudaStream_t stream);
 
 template <int MAP>
 cudaError_t launch_gemm_map(const float* A, const float* B, long long sbk, long long sbn,
@@ -64,16 +108,31 @@ cudaError_t launch_gemm_splitk(const float* A, int lda, const float* B, long lon
                                long long som, long long son, int M, int N, int K,
                                cudaStream_t stream);
 
+// the producer's transforms only (no epilogue in this form)
+cudaError_t launch_gemm_splitk_x(const float* A, int lda, const float* B, long long sbk,
+                                 long long sbn, float* part, int splits, float* out,
+                                 long long som, long long son, int M, int N, int K,
+                                 const GemmExtra& x, cudaStream_t stream);
+
 }  // namespace vtx
 
+using vtx::GemmExtra;
 using vtx::MapRows;
 using vtx::map_pixel;
+using vtx::ACT_NONE;
+using vtx::ACT_SILU;
+using vtx::ACT_GELU;
+using vtx::RPART_COLS;
+using vtx::DRS_ROWS;
+using vtx::CPART_ROWS;
 using vtx::MAP_NONE;
 using vtx::MAP_RES;
 using vtx::MAP_OUT;
 using vtx::launch_gemm;
 using vtx::launch_gemm_map;
 using vtx::launch_gemm_splitk;
+using vtx::launch_gemm_splitk_x;
+using vtx::launch_gemm_x;
 
 // internal linkage: each .cu that includes this gets its own copy
 namespace {
@@ -86,6 +145,19 @@ constexpr int DMAX = 64;
 constexpr int EXTRA_DMAX = 32;
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// The GEMM core's output tiles along N (128 columns, or 64 where that pads
+// N less) and along M (128 rows).  A transform the producer stages is
+// redone for every tile its operand's tile meets, so the backward stages
+// one only where that is at most STAGE_TILES times (STAGE_ACT_TILES for an
+// activation, whose exponential costs more), and otherwise runs the pass
+// into free workspace (PERF.md: at Halo-S stage 1 the staged transforms
+// cost less than the passes, at the later stages more)
+constexpr int STAGE_TILES = 5, STAGE_ACT_TILES = 1;
+inline int gemm_col_tiles(int N) {
+  return cdiv(N, cdiv(N, 64) * 64 < cdiv(N, 128) * 128 ? 64 : 128);
+}
+inline int gemm_row_tiles(int M) { return cdiv(M, 128); }
 inline long long cdivll(long long a, long long b) { return (a + b - 1) / b; }
 
 #define VTX_CHECK(expr)                   \
@@ -104,16 +176,10 @@ inline long long cdivll(long long a, long long b) { return (a + b - 1) / b; }
 
 constexpr int LN_THREADS = 256;
 
-template <bool MAP>
-__global__ void __launch_bounds__(LN_THREADS)
-ln_rows_kernel(const float* __restrict__ x, const float* __restrict__ g,
-               const float* __restrict__ b, float* __restrict__ u,
-               float* __restrict__ mu_out, float* __restrict__ rstd_out,
-               int rows, int C, float eps, MapRows rows_map) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+// a warp's row statistics (every lane gets them): mu, rstd = rsqrt(var + eps)
+__device__ __forceinline__ void ln_row_stats(const float* xr, int C, float eps, float& mu,
+                                             float& r) {
   const int lane = threadIdx.x & 31;
-  if (row >= rows) return;  // uniform across the warp
-  const float* xr = x + (MAP ? map_pixel(rows_map, row) : (long long)row) * C;
   float s = 0.f, ss = 0.f;
   for (int c = lane; c < C; c += 32) {
     const float v = xr[c];
@@ -125,15 +191,52 @@ ln_rows_kernel(const float* __restrict__ x, const float* __restrict__ g,
     s += __shfl_xor_sync(0xffffffffu, s, o);
     ss += __shfl_xor_sync(0xffffffffu, ss, o);
   }
-  const float mu = s / C;
+  mu = s / C;
   const float var = ss / C - mu * mu;
-  const float r = rsqrtf(var + eps);
+  r = rsqrtf(var + eps);
+}
+
+template <bool MAP>
+__global__ void __launch_bounds__(LN_THREADS)
+ln_rows_kernel(const float* __restrict__ x, const float* __restrict__ g,
+               const float* __restrict__ b, float* __restrict__ u,
+               float* __restrict__ mu_out, float* __restrict__ rstd_out,
+               int rows, int C, float eps, MapRows rows_map) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;  // uniform across the warp
+  const float* xr = x + (MAP ? map_pixel(rows_map, row) : (long long)row) * C;
+  float mu, r;
+  ln_row_stats(xr, C, eps, mu, r);
   if (lane == 0 && mu_out) {
     mu_out[row] = mu;
     rstd_out[row] = r;
   }
   float* ur = u + (long long)row * C;
   for (int c = lane; c < C; c += 32) ur[c] = (xr[c] - mu) * r * g[c] + b[c];
+}
+
+// The statistics alone (mu, rstd [rows]), the same values as
+// ln_rows_kernel's: the GEMM core's producer applies the LayerNorm from
+// them (GemmExtra::ln_*), so its output is never written
+__global__ void __launch_bounds__(LN_THREADS)
+ln_stats_kernel(const float* __restrict__ x, float* __restrict__ mu_out,
+                float* __restrict__ rstd_out, int rows, int C, float eps) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (row >= rows) return;  // uniform across the warp
+  float mu, r;
+  ln_row_stats(x + (long long)row * C, C, eps, mu, r);
+  if ((threadIdx.x & 31) == 0) {
+    mu_out[row] = mu;
+    rstd_out[row] = r;
+  }
+}
+
+inline cudaError_t launch_ln_stats(const float* x, float* mu, float* rstd, int rows, int C,
+                                   float eps, cudaStream_t stream) {
+  ln_stats_kernel<<<cdiv(rows, LN_THREADS / 32), LN_THREADS, 0, stream>>>(x, mu, rstd, rows,
+                                                                           C, eps);
+  return cudaGetLastError();
 }
 
 inline cudaError_t launch_ln(const float* x, const float* g, const float* b,
@@ -180,13 +283,14 @@ inline cudaError_t launch_splitk_reduce(const float* part, int S, int M, int N,
 // ---------------------------------------------------------------------------
 // Column sums over rows of [M, C]:
 //   out[c] = Σ_m A[m, c]                                   (X == nullptr)
+//   out[c] = Σ_m A[m, c] · rs[m / rs_rows]                 (rs: a row scale)
 //   out[c] = Σ_m A[m, c] · (X[m, c] − mu[m]) · rstd[m]     (the LN's x̂)
 // Pass 1: block (column tile, row chunk z) writes part[z, c]; pass 2 sums
 // the chunks in order.  MAP: row r of X is map pixel map_pixel(rows_map, r).
 // ---------------------------------------------------------------------------
 
 constexpr int COLSUM_THREADS = 128;
-constexpr int COLSUM_ROWS = 128;  // rows per chunk
+constexpr int COLSUM_ROWS = 128;  // rows per chunk (the GEMM epilogue's tile)
 
 inline int colsum_chunks(int M) { return cdiv(M, COLSUM_ROWS); }
 
@@ -194,6 +298,7 @@ template <bool MAP>
 __global__ void __launch_bounds__(COLSUM_THREADS)
 colsum_kernel(const float* __restrict__ A, const float* __restrict__ X,
               const float* __restrict__ mu, const float* __restrict__ rstd,
+              const float* __restrict__ rs, int rs_rows,
               float* __restrict__ part, int M, int C, MapRows rows_map) {
   const int c = blockIdx.x * COLSUM_THREADS + threadIdx.x;
   if (c >= C) return;
@@ -202,26 +307,28 @@ colsum_kernel(const float* __restrict__ A, const float* __restrict__ X,
   for (int r = r0; r < r1; ++r) {
     const long long i = (long long)r * C + c;
     const long long xi = MAP ? map_pixel(rows_map, r) * C + c : i;
-    s += X ? A[i] * ((X[xi] - mu[r]) * rstd[r]) : A[i];
+    // the scaled value rounded once, as a scaled copy would hold it
+    s += X ? A[i] * ((X[xi] - mu[r]) * rstd[r]) : rs ? __fmul_rn(A[i], rs[r / rs_rows]) : A[i];
   }
   part[(long long)blockIdx.y * C + c] = s;
 }
 
 // part: scratch of colsum_chunks(M) * C floats; with rows_map.pix non-null,
-// X is read through the map addressing
+// X is read through the map addressing; rs (per rs_rows rows) only without X
 inline cudaError_t launch_colsum(const float* A, const float* X, const float* mu,
                                  const float* rstd, float* part, float* out,
                                  int M, int C, cudaStream_t stream,
-                                 MapRows rows_map = MapRows{nullptr, 1}) {
+                                 MapRows rows_map = MapRows{nullptr, 1},
+                                 const float* rs = nullptr, int rs_rows = 1) {
   const int chunks = colsum_chunks(M);
   if (chunks > 65535) return cudaErrorInvalidValue;
   const dim3 grid(cdiv(C, COLSUM_THREADS), chunks);
   if (rows_map.pix)
-    colsum_kernel<true><<<grid, COLSUM_THREADS, 0, stream>>>(A, X, mu, rstd, part, M, C,
-                                                            rows_map);
+    colsum_kernel<true><<<grid, COLSUM_THREADS, 0, stream>>>(A, X, mu, rstd, rs, rs_rows,
+                                                            part, M, C, rows_map);
   else
-    colsum_kernel<false><<<grid, COLSUM_THREADS, 0, stream>>>(A, X, mu, rstd, part, M,
-                                                             C, rows_map);
+    colsum_kernel<false><<<grid, COLSUM_THREADS, 0, stream>>>(A, X, mu, rstd, rs, rs_rows,
+                                                             part, M, C, rows_map);
   VTX_CHECK(cudaGetLastError());
   return launch_splitk_reduce(part, chunks, 1, C, out, 0, 1, stream);
 }
@@ -283,6 +390,48 @@ row_scale_grad_kernel(float* __restrict__ dacc, const float* __restrict__ acc,
   }
 }
 
+// The row-scale gradient from the GEMM epilogue's row partials (GemmExtra::
+// rpart) of a residual branch y = rs[b] ⊙ (a·W + bias):
+//   drs[b] = Σ_{rows of b} (Σ_t rpart[row, t] + Σ_c dy[row, c]·bias[c])
+// Block (chunk z, sample b) sums DRS_ROWS rows in a fixed order into
+// dpart[z, b] (rpart's T partials of each row, then dy·bias when bias is
+// non-null); then the chunks in order.
+
+inline int drs_chunks(int rows_per_scale) { return cdiv(rows_per_scale, DRS_ROWS); }
+
+__global__ void __launch_bounds__(DRS_THREADS)
+drs_part_kernel(const float* __restrict__ rpart, int T, const float* __restrict__ dy,
+                const float* __restrict__ bias, int C, int rows_per_scale,
+                float* __restrict__ dpart) {
+  __shared__ float red[DRS_THREADS];
+  const int z = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
+  const long long r0 = (long long)b * rows_per_scale + (long long)z * DRS_ROWS;
+  const int rows = min(DRS_ROWS, rows_per_scale - z * DRS_ROWS);
+  float s = 0.f;
+  for (int i = t; i < rows * T; i += DRS_THREADS) s += rpart[r0 * T + i];
+  if (bias)
+    for (int i = t; i < rows * C; i += DRS_THREADS) s = fmaf(dy[r0 * C + i], bias[i % C], s);
+  red[t] = s;
+  __syncthreads();
+  for (int o = DRS_THREADS / 2; o > 0; o >>= 1) {
+    if (t < o) red[t] += red[t + o];
+    __syncthreads();
+  }
+  if (t == 0) dpart[(long long)z * gridDim.y + b] = red[0];
+}
+
+// dpart: scratch of drs_chunks(rows_per_scale)·B floats
+inline cudaError_t launch_drs(const float* rpart, int N, const float* dy, const float* bias,
+                              int C, int rows_per_scale, int B, float* dpart, float* drs,
+                              cudaStream_t stream) {
+  const int chunks = drs_chunks(rows_per_scale);
+  if (B > 65535) return cudaErrorInvalidValue;
+  drs_part_kernel<<<dim3(chunks, B), DRS_THREADS, 0, stream>>>(
+      rpart, cdiv(N, RPART_COLS), dy, bias, C, rows_per_scale, dpart);
+  VTX_CHECK(cudaGetLastError());
+  return launch_splitk_reduce(dpart, chunks, 1, B, drs, 0, 1, stream);
+}
+
 // u = (x − mu)·rstd·g + b, a forward LayerNorm's output from its saved
 // statistics (the same expression as ln_rows_kernel, so bit-identical);
 // MAP: row r of x is map pixel map_pixel(rows_map, r)
@@ -336,15 +485,19 @@ ln_bwd_rows_kernel(const float* __restrict__ dln, const float* __restrict__ x,
   }
 }
 
-// The FF activations of vision_transformers_tpu/ops/fused_layer.py:90-108:
-// silu(h) = h·σ(h) in the GEMM epilogue's expression (so bit-identical), and
-// gelu's tanh approximation (jax.nn.gelu's default)
-constexpr int ACT_SILU = 0, ACT_GELU = 1;
+// The FF activations (ACT_SILU, ACT_GELU above): silu(h) = h·σ(h) in one
+// expression for the GEMM core's producer and epilogue and every pass (so
+// bit-identical), and gelu's tanh approximation (jax.nn.gelu's default).
+// σ(h) = 1 / (1 + e^-h) by the fast reciprocal (2 ulp, no branch: the IEEE
+// division's slow-path check serialized the GEMM core's per-element work);
+// a huge 1 + e^-h (h below -87) gives σ = 0, as it should.
 constexpr float GELU_C = 0.7978845608028654f;  // √(2/π)
+
+__device__ __forceinline__ float sigmoid(float h) { return __fdividef(1.f, 1.f + expf(-h)); }
 
 template <int ACT>
 __device__ __forceinline__ float act_fwd(float h) {
-  if (ACT == ACT_SILU) return h / (1.f + expf(-h));
+  if (ACT == ACT_SILU) return h * sigmoid(h);
   return 0.5f * h * (1.f + tanhf(GELU_C * (h + 0.044715f * h * h * h)));
 }
 
@@ -352,7 +505,7 @@ __device__ __forceinline__ float act_fwd(float h) {
 template <int ACT>
 __device__ __forceinline__ float act_grad(float h) {
   if (ACT == ACT_SILU) {
-    const float s = 1.f / (1.f + expf(-h));
+    const float s = sigmoid(h);
     return s + h * s * (1.f - s);
   }
   const float t = tanhf(GELU_C * (h + 0.044715f * h * h * h));
@@ -524,59 +677,76 @@ __device__ __forceinline__ void query_thread_accumulate(
 namespace vtx {
 
 // The FF residual branch of a pre-LN layer (fused_layer.cu), act = ACT_SILU
-// or ACT_GELU (the template parameter of its kernels):
+// or ACT_GELU:
 //   out = z + rs_ff ⊙ (act(LN₂(z)·W₁ + b₁)·W₂ + b₂)
-// Serving (af null): silu rides in the first GEMM's epilogue into hid, gelu
-// is applied to hid in place.  Training (af non-null): hid keeps the
-// pre-activation, af = act(hid), and mu2 / rstd2 are saved.  b₁, b₂ and
-// rs_ff may be null.
+// The statistics pass writes mu2 / rstd2 (never null: the saves in
+// training, workspace in serving); the FF1 GEMM's producer applies LN₂ from
+// them and the FF2 GEMM's producer applies act to hid, so neither LN₂(z)
+// nor act(hid) is written (each where its operand's tiles meet few output
+// tiles, else a pass: LN₂(z) into out, act(hid) into af where given).
+// Training (save): hid keeps the pre-activation.  Serving with silu: silu
+// rides in FF1's epilogue.  b₁, b₂, rs_ff and af may be null.
 cudaError_t ff_half_fwd(
     const float* z, const float* ln2_g, const float* ln2_b,
     const float* w1, long long w1_s0, long long w1_s1, const float* b1,
     const float* w2, long long w2_s0, long long w2_s1, const float* b2,
-    const float* rs_ff, int rows_per_scale, float* u, float* hid, float* af,
-    float* mu2, float* rstd2, float* out, int M, int C, int F, float eps, int act,
+    const float* rs_ff, int rows_per_scale, float* hid, float* af, float* mu2,
+    float* rstd2, float* out, int M, int C, int F, float eps, int act, int save,
     cudaStream_t s);
 
-// The FF half's backward, steps 1-5 of fused_layer1_bwd.cu: given dout, the
+// rpart's floats in ff_half_bwd: the dh GEMM's row partials [M, cdiv(F,
+// 64)], the drs pass's chunk sums [cdiv(rows_per_scale, 64), B], then the
+// dh GEMM's column partials [cdiv(M, 16), F]
+inline long long ff_rpart_floats(int M, int F, int B, int rows_per_scale) {
+  return (long long)M * ((F + RPART_COLS - 1) / RPART_COLS) +
+         (long long)B * ((rows_per_scale + DRS_ROWS - 1) / DRS_ROWS) +
+         (long long)((M + CPART_ROWS - 1) / CPART_ROWS) * F;
+}
+
+// The FF half's backward, steps 1-4 of fused_layer1_bwd.cu: given dout, the
 // gradients of W₁, b₁, W₂, b₂, LN₂ and r₂, and dz = dout + LN₂ᵀ(dln₂).
+// Workspace: dh [M, F], dln [M, C], rpart [ff_rpart_floats] (used with rs_ff
+// and drs_ff, or db1f), wpart, cpart.
 cudaError_t ff_half_bwd(
     const float* z, const float* ln2_g, const float* ln2_b,
     const float* w1, long long w1_s0, long long w1_s1, const float* b1,
     const float* w2, long long w2_s0, long long w2_s1, const float* b2,
     const float* rs_ff, int rows_per_scale, const float* hid, const float* mu2,
-    const float* rstd2, const float* dout, float* da, float* af, float* dh,
-    float* u, float* dln, float* wpart, int splits_w1, int splits_w2,
+    const float* rstd2, const float* dout, float* dh, float* dln, float* rpart,
+    float* wpart, int splits_w1, int splits_w2,
     float* cpart, float* dz, float* dg2, float* db2,
     float* dw1, long long dw1_s0, long long dw1_s1, float* db1f,
     float* dw2, long long dw2_s0, long long dw2_s1, float* db2f, float* drs_ff,
     int B, int M, int C, int F, int act, cudaStream_t s);
 
-// Steps 1-2 of the attention branch's backward (fused_layer_bwd.cu): da =
-// rs ⊙ dz, dwout = accᵀ·da, dbout, dacc = rs ⊙ dz·woutᵀ and dr.
+// Steps 1-2 of the attention branch's backward (fused_layer_bwd.cu): dwout =
+// accᵀ·(rs ⊙ dz) (the scale applied as the GEMM stages dz), dbout, dacc =
+// rs ⊙ dz·woutᵀ and dr.
 cudaError_t out_proj_bwd(
     const float* acc, const float* wout, long long wout_s0, long long wout_s1,
     const float* bout, const float* rs, int rows_per_scale, const float* dz,
-    float* da, float* dacc, float* wpart, int splits_out, float* cpart,
+    float* dacc, float* wpart, int splits_out, float* cpart,
     float* dwout, long long dwout_s0, long long dwout_s1, float* dbout,
     float* drs, int B, int M, int C, int HD, cudaStream_t s);
 
 // Steps 4-5 on the qkv projection's input a [M, C] (fused_layer_bwd.cu):
-// dwqkv = aᵀ·dqkv (split-K slabs summed in order), dbqkv = Σ_rows dqkv (when
+// dwqkv = xa(a)ᵀ·dqkv (split-K slabs summed in order; xa the producer's
+// transform of a, e.g. the LayerNorm apply), dbqkv = Σ_rows dqkv (when
 // non-null), da = dqkv·wqkvᵀ; B8's backward (fused_attention_qkv.cu) ends
 // with it
-cudaError_t qkv_in_bwd(const float* a, const float* wqkv, long long wqkv_s0,
-                       long long wqkv_s1, const float* dqkv, float* wpart, int splits_qkv,
-                       float* cpart, float* dwqkv, long long dwqkv_s0, long long dwqkv_s1,
-                       float* dbqkv, float* da, int M, int C, int HD, cudaStream_t s);
+cudaError_t qkv_in_bwd(const float* a, const GemmExtra& xa, const float* wqkv,
+                       long long wqkv_s0, long long wqkv_s1, const float* dqkv, float* wpart,
+                       int splits_qkv, float* cpart, float* dwqkv, long long dwqkv_s0,
+                       long long dwqkv_s1, float* dbqkv, float* da, int M, int C, int HD,
+                       cudaStream_t s);
 
-// Steps 4-6 of the attention branch's backward: u = LN(x) from the saved
-// statistics, dwqkv = uᵀ·dqkv, dbqkv, dln = dqkv·wqkvᵀ and the LN backward
-// dx = dz + LNᵀ(dln) with dg, db.
+// Steps 4-6 of the attention branch's backward: dwqkv = LN(x)ᵀ·dqkv with the
+// LayerNorm applied from the saved statistics as the GEMM stages x, dbqkv,
+// dln = dqkv·wqkvᵀ and the LN backward dx = dz + LNᵀ(dln) with dg, db.
 cudaError_t qkv_proj_bwd(
     const float* x, const float* ln_g, const float* ln_b, const float* mu,
     const float* rstd, const float* wqkv, long long wqkv_s0, long long wqkv_s1,
-    const float* dqkv, const float* dz, float* u, float* dln, float* wpart,
+    const float* dqkv, const float* dz, float* dln, float* wpart,
     int splits_qkv, float* cpart, float* dx, float* dg, float* db,
     float* dwqkv, long long dwqkv_s0, long long dwqkv_s1, float* dbqkv, int M,
     int C, int HD, cudaStream_t s);
@@ -590,7 +760,7 @@ cudaError_t attention_half_bwd(
     const float* wout, long long wout_s0, long long wout_s1, const float* bout,
     const float* rs, const float* extra, int groups, const float* qkv,
     const float* acc, const float* mu, const float* rstd, const float* lse,
-    const float* dz, float* da, float* dacc, float* delta, float* dqkv, float* u,
+    const float* dz, float* dacc, float* delta, float* dqkv,
     float* dln, float* dbpart, float* wpart, int splits_out, int splits_qkv,
     float* cpart, float* dx, float* dg, float* db,
     float* dwqkv, long long dwqkv_s0, long long dwqkv_s1, float* dbqkv,

@@ -213,11 +213,11 @@ extern "C" int vtx_fused_attention_block_bwd(
   VTX_CHECK(check_dims(extra, groups, B, N, H, D));
   const int M = B * N, HD = H * D;
   VTX_CHECK(vtx::out_proj_bwd(acc, wout, wout_s0, wout_s1, nullptr, nullptr, N, dout,
-                              nullptr, dacc, wpart, splits_out, cpart, dwout, dwout_s0,
+                              dacc, wpart, splits_out, cpart, dwout, dwout_s0,
                               dwout_s1, dbout, nullptr, B, M, Cout, HD, s));
   VTX_CHECK(packed_bwd(qkv, extra, groups, acc, lse, dacc, dq_part, dsbuf, dqkv, dextra,
                        B, N, H, D, scale, s));
-  return static_cast<int>(vtx::qkv_in_bwd(x, wqkv, wqkv_s0, wqkv_s1, dqkv, wpart,
+  return static_cast<int>(vtx::qkv_in_bwd(x, GemmExtra{}, wqkv, wqkv_s0, wqkv_s1, dqkv, wpart,
                                           splits_qkv, cpart, dwqkv, dwqkv_s0, dwqkv_s1,
                                           dbqkv, dx, M, C, HD, s));
 }

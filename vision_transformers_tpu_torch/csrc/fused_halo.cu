@@ -18,9 +18,13 @@
 //       map), bias [heads, M, N]
 // with six C entry points, each a short sequence of launches on the
 // caller's stream:
-//   vtx_fused_halo_layer_fwd      ln_rows → gemm (qkv) → halo attention (+ lse)
-//                                 → gemm (+bout, ×r₁, +x) → ln_rows →
-//                                 gemm (+b₁, silu) → gemm (+b₂, ×r₂, +z)
+//   vtx_fused_halo_layer_fwd      ln_stats → gemm (LN₁ staged: qkv) → halo
+//                                 attention (+ lse) → gemm (+bout, ×r₁, +x)
+//                                 → ln_stats → gemm (LN₂ staged, +b₁; serving
+//                                 + silu) → gemm (training: silu staged; +b₂,
+//                                 ×r₂, +z): 7 launches (past Halo-S stage 1,
+//                                 where the GEMMs have many column tiles, the
+//                                 LayerNorms run as passes into z and out)
 //   vtx_fused_halo_layer_bwd      the FF half and the out projection's
 //                                 backward as the whole transformer layer's
 //                                 (fused_layer1_bwd.cu, fused_layer_bwd.cu),
@@ -28,6 +32,13 @@
 //                                 dv per window, the dbias partials), the
 //                                 dkv fold, the ordered dbias sum, the qkv
 //                                 projection's and LN₁'s backward
+// "staged": applied by the GEMM core's producer as it stages the operand
+// (GemmExtra, common.cuh), so at Halo-S stage 1 neither LayerNorm's output
+// nor silu(hid) is written, in either direction, and the FF backward's
+// silu', row scale, dr₂ partials and db₁ partials ride in the dh GEMM's
+// epilogue.  A staged transform is redone for every output tile its operand
+// meets, so where that is more than STAGE_TILES (common.cuh: the later
+// stages) it runs as a pass into workspace that is free at that point.
 //   vtx_halo_attention_direct_fwd the halo attention (+ lse)
 //   vtx_halo_attention_direct_bwd the halo attention backward, the fold and
 //                                 the dbias sum
@@ -215,10 +226,11 @@ cudaError_t halo_attention_bwd(const float* q, int qs, const float* k, const flo
 // whole layer takes heads up to 32 wide (its GEMM tiles), the attention
 // alone up to 64.
 
-// x [M, C]; qkv has no bias; rs_attn / rs_ff [B] and the saves af [M, F],
-// mu1, rstd1, lse, mu2, rstd2 may be null (serving); u, qkv, acc, z, hid are
-// workspace the training forward keeps (hid then holds the FF
-// pre-activation).
+// x [M, C]; qkv has no bias; rs_attn / rs_ff [B] and lse may be null; mu1,
+// rstd1, mu2, rstd2 [M] are the LayerNorms' statistics (saves in training,
+// workspace in serving); qkv, acc, z, hid are workspace the training forward
+// keeps.  save: training (hid keeps the FF pre-activation, lse is written
+// when non-null); else silu rides in FF1's epilogue.
 extern "C" int vtx_fused_halo_layer_fwd(
     const float* x, const float* ln1_g, const float* ln1_b,
     const float* wqkv, long long wqkv_s0, long long wqkv_s1,
@@ -227,35 +239,47 @@ extern "C" int vtx_fused_halo_layer_fwd(
     const float* w1, long long w1_s0, long long w1_s1, const float* b1,
     const float* w2, long long w2_s0, long long w2_s1, const float* b2,
     const float* bias, const float* rs_attn, const float* rs_ff,
-    float* u, float* qkv, float* acc, float* z, float* hid, float* af,
+    float* qkv, float* acc, float* z, float* hid,
     float* mu1, float* rstd1, float* lse, float* mu2, float* rstd2, float* out,
     int B, int H, int W, int C, int nh, int D, int F, int window, int halo,
-    float scale, float eps, void* stream) {
+    float scale, float eps, int save, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const HaloGeom g = halo_geom(H, W, window, halo);
   const int N = H * W, M = B * N, HD = nh * D;
-  if (D > 32) return static_cast<int>(cudaErrorInvalidValue);
-  VTX_CHECK(launch_ln(x, ln1_g, ln1_b, u, mu1, rstd1, M, C, eps, s));
-  VTX_CHECK(launch_gemm(u, wqkv, wqkv_s0, wqkv_s1, nullptr, nullptr, 1, nullptr,
-                        qkv, M, 3 * HD, C, 0, s));
+  if (D > 32 || !mu1 || !rstd1) return static_cast<int>(cudaErrorInvalidValue);
+  // LN₁ staged where x's tiles meet few output tiles, else LN₁(x) into z
+  // (written by the out projection)
+  GemmExtra ln1;
+  const float* u = x;
+  if (gemm_col_tiles(3 * HD) <= STAGE_TILES) {
+    VTX_CHECK(launch_ln_stats(x, mu1, rstd1, M, C, eps, s));
+    ln1.ln_mu = mu1;
+    ln1.ln_rstd = rstd1;
+    ln1.ln_g = ln1_g;
+    ln1.ln_b = ln1_b;
+  } else {
+    VTX_CHECK(launch_ln(x, ln1_g, ln1_b, z, mu1, rstd1, M, C, eps, s));
+    u = z;
+  }
+  VTX_CHECK(launch_gemm_x(u, wqkv, wqkv_s0, wqkv_s1, nullptr, nullptr, 1, nullptr, qkv, M,
+                          3 * HD, C, 0, ln1, s));
   VTX_CHECK(halo_attention_fwd(qkv, 3 * HD, qkv + HD, qkv + 2 * HD, 3 * HD, bias,
                                acc, lse, B, g, nh, D, scale, s));
   VTX_CHECK(launch_gemm(acc, wout, wout_s0, wout_s1, bout, rs_attn, N, x, z, M, C,
                         HD, 0, s));
   return static_cast<int>(vtx::ff_half_fwd(z, ln2_g, ln2_b, w1, w1_s0, w1_s1, b1, w2,
-                                           w2_s0, w2_s1, b2, rs_ff, N, u, hid, af,
-                                           mu2, rstd2, out, M, C, F, eps, ACT_SILU,
-                                           s));
+                                           w2_s0, w2_s1, b2, rs_ff, N, hid, nullptr, mu2,
+                                           rstd2, out, M, C, F, eps, ACT_SILU, save, s));
 }
 
-// Workspace, all allocated by the caller: da [M, C] (used only with a row
-// scale), af [M, F], dh [M, F], dz [M, C], dacc [M, HD], dq_part [key
-// tiles·M·HD] (null with one key tile of the attention's backward), dqkv
-// [M, 3HD], u [M, C], dln [M, C], dkvw [B·S·k²·2HD], part
-// [chunks·heads·w²·k²], wpart [max over the four weight gradients of
-// splits·rows·cols], cpart [ceil(M / 128) · max(C, 3HD, F)].  The weight
-// gradients are written through their (row, col) strides; bout, b1, b2,
-// the row scales and their gradients may be null.
+// Workspace, all allocated by the caller: dh [M, F], dz [M, C], dacc [M,
+// HD], dq_part [key tiles·M·HD] (null with one key tile of the attention's
+// backward), dqkv [M, 3HD], dln [M, C], rpart [ff_rpart_floats(M, F, B,
+// H·W)] (the dh GEMM's partials; used with rs_ff and drs_ff, or db1f), dkvw
+// [B·S·k²·2HD], part [chunks·heads·w²·k²], wpart [max over the four weight
+// gradients of splits·rows·cols], cpart [ceil(M / 128) · max(C, 3HD, F)].
+// The weight gradients are written through their (row, col) strides; bout,
+// b1, b2, the row scales and their gradients may be null.
 extern "C" int vtx_fused_halo_layer_bwd(
     const float* x, const float* ln1_g, const float* ln1_b,
     const float* wqkv, long long wqkv_s0, long long wqkv_s1,
@@ -267,8 +291,8 @@ extern "C" int vtx_fused_halo_layer_bwd(
     const float* qkv, const float* acc, const float* z, const float* hid,
     const float* mu1, const float* rstd1, const float* lse, const float* mu2,
     const float* rstd2, const float* dout,
-    float* da, float* af, float* dh, float* dz, float* dacc, float* dq_part,
-    float* dqkv, float* u, float* dln, float* dkvw, float* part, int chunks,
+    float* dh, float* dz, float* dacc, float* dq_part, float* dqkv, float* dln,
+    float* rpart, float* dkvw, float* part, int chunks,
     float* wpart, int splits_out, int splits_qkv, int splits_w1, int splits_w2,
     float* cpart,
     float* dx, float* dg1, float* db1,
@@ -286,12 +310,12 @@ extern "C" int vtx_fused_halo_layer_bwd(
   if (D > 32) return static_cast<int>(cudaErrorInvalidValue);
   // FF half, given do → dz
   VTX_CHECK(vtx::ff_half_bwd(z, ln2_g, ln2_b, w1, w1_s0, w1_s1, b1, w2, w2_s0,
-                             w2_s1, b2, rs_ff, N, hid, mu2, rstd2, dout, da, af,
-                             dh, u, dln, wpart, splits_w1, splits_w2, cpart, dz,
+                             w2_s1, b2, rs_ff, N, hid, mu2, rstd2, dout, dh, dln, rpart,
+                             wpart, splits_w1, splits_w2, cpart, dz,
                              dg2, db2, dw1, dw1_s0, dw1_s1, db1f, dw2, dw2_s0,
                              dw2_s1, db2f, drs_ff, B, M, C, F, ACT_SILU, s));
   // the out projection → dacc
-  VTX_CHECK(vtx::out_proj_bwd(acc, wout, wout_s0, wout_s1, bout, rs_attn, N, dz, da,
+  VTX_CHECK(vtx::out_proj_bwd(acc, wout, wout_s0, wout_s1, bout, rs_attn, N, dz,
                               dacc, wpart, splits_out, cpart, dwout, dwout_s0,
                               dwout_s1, dbout, drs_attn, B, M, C, HD, s));
   // halo attention → dqkv, dbias
@@ -300,7 +324,7 @@ extern "C" int vtx_fused_halo_layer_bwd(
                                dqkv + HD, 3 * HD, dbias, B, g, nh, D, scale, s));
   // the qkv projection (no bias) and LN₁, with the residual dz
   return static_cast<int>(vtx::qkv_proj_bwd(
-      x, ln1_g, ln1_b, mu1, rstd1, wqkv, wqkv_s0, wqkv_s1, dqkv, dz, u, dln, wpart,
+      x, ln1_g, ln1_b, mu1, rstd1, wqkv, wqkv_s0, wqkv_s1, dqkv, dz, dln, wpart,
       splits_qkv, cpart, dx, dg1, db1, dwqkv, dwqkv_s0, dwqkv_s1, nullptr, M, C, HD,
       s));
 }

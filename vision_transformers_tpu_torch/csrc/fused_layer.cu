@@ -10,9 +10,12 @@
 // with one C entry point per op, each a short sequence of hand-written
 // launches on the caller's stream:
 //   vtx_fused_attention_layer_fwd   = ln_rows → gemm(+bqkv) → attention → gemm(+bout, ×r, +x)
-//   vtx_fused_transformer_layer_fwd = the above → ln_rows → gemm(+b1, silu) → gemm(+b2, ×r₂, +z)
-//   vtx_fused_ff_layer_fwd          = ln_rows → gemm(+b1, act) → gemm(+b2, ×r, +x)
-// (gemm: the GEMM core, gemm_tc.cu)
+//   vtx_fused_transformer_layer_fwd = the above → ln_stats → gemm(LN₂ staged, +b1[, silu])
+//                                     → gemm(act staged, +b2, ×r₂, +z)
+//   vtx_fused_ff_layer_fwd          = ln_stats → gemm(LN staged, +b1[, silu])
+//                                     → gemm(act staged, +b2, ×r, +x)
+// (gemm: the GEMM core, gemm_tc.cu; "staged": applied by its producer, so
+// LN₂(z) and act(hid) are never written)
 // The Pallas kernels keep every intermediate in VMEM; here the LN output,
 // qkv, the attention output and the FF hidden go through device memory
 // between launches (workspace the wrapper allocates).  In training the
@@ -49,9 +52,10 @@
 // intermediates stay on chip.
 //
 // B7 (the FF residual branch alone, under the FF-kernel switch) is the
-// whole layer's FF half: LN, a GEMM with b₁ and the activation (silu in its
-// epilogue when nothing is saved, else a separate elementwise pass writing
-// act(hid)), and a GEMM with b₂, the row scale and the residual; at
+// whole layer's FF half: the LN statistics, a GEMM that applies the LN as
+// it stages its input, with b₁ (and silu in its epilogue when nothing is
+// saved), and a GEMM that applies the activation as it stages hid, with b₂,
+// the row scale and the residual; at
 // ViT-S/16's 25,216 rows its 4·M·C·F = 59.5 GFLOP of GEMM bound it (~0.36
 // ms at the GEMM core's 165 TFLOP/s).  B3 (the packed-qkv attention alone)
 // and B8 (the attention block) have their own tensor-core attention in
@@ -182,52 +186,58 @@ cudaError_t transformer_layer(
                            wout_s0, wout_s1, bout, extra, groups, rs_attn, u,
                            qkv, acc, mu1, rstd1, lse, z, B, N, C, H, D, scale,
                            eps, s));
-  return vtx::ff_half_fwd(z, ln2_g, ln2_b, w1, w1_s0, w1_s1, b1, w2, w2_s0, w2_s1,
-                          b2, rs_ff, N, u, hid, af, mu2, rstd2, out, B * N, C, F,
-                          eps, ACT_SILU, s);
-}
-
-template <int ACT>
-cudaError_t ff_half_fwd_act(
-    const float* z, const float* ln2_g, const float* ln2_b,
-    const float* w1, long long w1_s0, long long w1_s1, const float* b1,
-    const float* w2, long long w2_s0, long long w2_s1, const float* b2,
-    const float* rs_ff, int rows_per_scale, float* u, float* hid, float* af,
-    float* mu2, float* rstd2, float* out, int M, int C, int F, float eps,
-    cudaStream_t s) {
-  const long long MF = (long long)M * F;
-  // silu rides in the GEMM's epilogue where nothing keeps the pre-activation
-  const bool epilogue_silu = ACT == ACT_SILU && !af;
-  VTX_CHECK(launch_ln(z, ln2_g, ln2_b, u, mu2, rstd2, M, C, eps, s));
-  VTX_CHECK(launch_gemm(u, w1, w1_s0, w1_s1, b1, nullptr, 1, nullptr, hid, M, F,
-                        C, epilogue_silu ? 1 : 0, s));
-  if (!epilogue_silu) {
-    act_kernel<ACT><<<ew_blocks(MF), EW_THREADS, 0, s>>>(hid, af ? af : hid, MF);
-    VTX_CHECK(cudaGetLastError());
-  }
-  VTX_CHECK(launch_gemm(af ? af : hid, w2, w2_s0, w2_s1, b2, rs_ff, rows_per_scale,
-                        z, out, M, C, F, 0, s));
-  return cudaSuccess;
+  // serving (no saves): the LN₂ statistics in u, free once the qkv GEMM
+  // has read it
+  const int M = B * N;
+  return vtx::ff_half_fwd(z, ln2_g, ln2_b, w1, w1_s0, w1_s1, b1, w2, w2_s0, w2_s1, b2,
+                          rs_ff, N, hid, af, mu2 ? mu2 : u, mu2 ? rstd2 : u + M, out, M, C,
+                          F, eps, ACT_SILU, af != nullptr, s);
 }
 
 }  // namespace
 
+// The statistics pass, FF1 with LN₂ applied as its producer stages z (where
+// z's tiles meet few output tiles; else LN₂(z) into out, written last), FF2
+// with act applied as its producer stages hid (training, or gelu); serving
+// with silu keeps it in FF1's epilogue
 cudaError_t vtx::ff_half_fwd(
     const float* z, const float* ln2_g, const float* ln2_b,
     const float* w1, long long w1_s0, long long w1_s1, const float* b1,
     const float* w2, long long w2_s0, long long w2_s1, const float* b2,
-    const float* rs_ff, int rows_per_scale, float* u, float* hid, float* af,
-    float* mu2, float* rstd2, float* out, int M, int C, int F, float eps, int act,
+    const float* rs_ff, int rows_per_scale, float* hid, float* af, float* mu2,
+    float* rstd2, float* out, int M, int C, int F, float eps, int act, int save,
     cudaStream_t s) {
-  if (act == ACT_SILU)
-    return ff_half_fwd_act<ACT_SILU>(z, ln2_g, ln2_b, w1, w1_s0, w1_s1, b1, w2, w2_s0,
-                                     w2_s1, b2, rs_ff, rows_per_scale, u, hid, af, mu2,
-                                     rstd2, out, M, C, F, eps, s);
-  if (act == ACT_GELU)
-    return ff_half_fwd_act<ACT_GELU>(z, ln2_g, ln2_b, w1, w1_s0, w1_s1, b1, w2, w2_s0,
-                                     w2_s1, b2, rs_ff, rows_per_scale, u, hid, af, mu2,
-                                     rstd2, out, M, C, F, eps, s);
-  return cudaErrorInvalidValue;
+  if ((act != ACT_SILU && act != ACT_GELU) || !mu2 || !rstd2) return cudaErrorInvalidValue;
+  const bool epilogue_silu = act == ACT_SILU && !save;
+  GemmExtra ln;
+  const float* u = z;
+  if (gemm_col_tiles(F) <= STAGE_TILES) {
+    VTX_CHECK(launch_ln_stats(z, mu2, rstd2, M, C, eps, s));
+    ln.ln_mu = mu2;
+    ln.ln_rstd = rstd2;
+    ln.ln_g = ln2_g;
+    ln.ln_b = ln2_b;
+  } else {
+    VTX_CHECK(launch_ln(z, ln2_g, ln2_b, out, mu2, rstd2, M, C, eps, s));
+    u = out;
+  }
+  VTX_CHECK(launch_gemm_x(u, w1, w1_s0, w1_s1, b1, nullptr, 1, nullptr, hid, M, F, C,
+                          epilogue_silu ? 1 : 0, ln, s));
+  GemmExtra a;
+  const float* h = hid;
+  if (!epilogue_silu && af && gemm_col_tiles(C) > STAGE_ACT_TILES) {
+    const long long MF = (long long)M * F;
+    if (act == ACT_SILU)
+      act_kernel<ACT_SILU><<<ew_blocks(MF), EW_THREADS, 0, s>>>(hid, af, MF);
+    else
+      act_kernel<ACT_GELU><<<ew_blocks(MF), EW_THREADS, 0, s>>>(hid, af, MF);
+    VTX_CHECK(cudaGetLastError());
+    h = af;
+  } else if (!epilogue_silu) {
+    a.a_act = act;
+  }
+  return launch_gemm_x(h, w2, w2_s0, w2_s1, b2, rs_ff, rows_per_scale, z, out, M, C, F, 0, a,
+                       s);
 }
 
 // B9's attention (common.cuh): pair p of the P = B·G sample-major pairs
@@ -256,9 +266,11 @@ extern "C" int vtx_fused_attention_layer_fwd(
 }
 
 // extra [G, H, N, N] (groups = G), rs_attn / rs_ff [B] and the saves
-// af [M, F], mu1, rstd1 [M], lse [B, H, N], mu2, rstd2 [M] may be null; u,
-// qkv, acc, z, hid are workspace the training forward keeps (hid then holds
-// the FF pre-activation).
+// mu1, rstd1 [M], lse [B, H, N], mu2, rstd2 [M] may be null; af [M, F]
+// non-null asks for the training saves (and is the act pass's workspace
+// where FF2 would stage it over many tiles); u, qkv, acc, z, hid are
+// workspace the training forward keeps (hid then holds the FF
+// pre-activation; serving puts the LN₂ statistics in u).
 extern "C" int vtx_fused_transformer_layer_fwd(
     const float* x, const float* ln1_g, const float* ln1_b,
     const float* wqkv, long long wqkv_s0, long long wqkv_s1, const float* bqkv,
@@ -294,18 +306,23 @@ extern "C" int vtx_window_attention_fwd(const float* qkv, const float* bias, int
 
 // B7: the pre-LN FF residual branch out = x + rs ⊙ (act(LN(x)·W₁ + b₁)·W₂ + b₂)
 // over M = B·N rows, rs [B] per sample (N rows each), act 0 = silu, 1 =
-// tanh-gelu.  u [M, C] and hid [M, F] are workspace; in training (af [M, F]
-// non-null) hid keeps the pre-activation and mu / rstd [M] are saved for
-// the backward (fused_layer1_bwd.cu).  b1, b2, rs, af, mu and rstd may be
-// null.
+// tanh-gelu.  u [M, C] (serving: the statistics' workspace) and hid [M, F]
+// are workspace; in training (af [M, F] non-null: the act pass's workspace
+// where FF2 would stage it over many tiles) hid keeps the pre-activation
+// and mu / rstd [M] are saved for the backward (fused_layer1_bwd.cu).  b1,
+// b2, rs, af, mu and rstd may be null.
 extern "C" int vtx_fused_ff_layer_fwd(
     const float* x, const float* ln_g, const float* ln_b,
     const float* w1, long long w1_s0, long long w1_s1, const float* b1,
     const float* w2, long long w2_s0, long long w2_s1, const float* b2,
     const float* rs, float* u, float* hid, float* af, float* mu, float* rstd,
     float* out, int B, int N, int C, int F, int act, float eps, void* stream) {
-  if (B < 1 || N < 1 || (long long)B * N > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (B < 1 || N < 1 || (long long)B * N > 0x7fffffffLL || C < 2)
+    return cudaErrorInvalidValue;
+  const int M = B * N;
+  // serving (no saves): the statistics in u
   return static_cast<int>(vtx::ff_half_fwd(
-      x, ln_g, ln_b, w1, w1_s0, w1_s1, b1, w2, w2_s0, w2_s1, b2, rs, N, u, hid, af,
-      mu, rstd, out, B * N, C, F, eps, act, static_cast<cudaStream_t>(stream)));
+      x, ln_g, ln_b, w1, w1_s0, w1_s1, b1, w2, w2_s0, w2_s1, b2, rs, N, hid, af,
+      mu ? mu : u, mu ? rstd : u + M, out, M, C, F, eps, act, af != nullptr,
+      static_cast<cudaStream_t>(stream)));
 }

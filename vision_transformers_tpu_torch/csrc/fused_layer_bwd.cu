@@ -16,7 +16,8 @@
 // caller's stream, vtx::attention_half_bwd, which the whole layer's
 // backward (fused_layer1_bwd.cu) runs as its second half:
 //
-//   1. da = r ⊙ dz;  dwout = accᵀ·da;  dbout = Σ_rows da
+//   1. dwout = accᵀ·(r ⊙ dz) (r applied as the GEMM stages dz);
+//      dbout = Σ_rows r ⊙ dz
 //   2. dacc₀ = dz·woutᵀ;  dr[b] = Σ_{n∈b}(Σ_k dacc₀⊙acc + Σ_c dz⊙bout)
 //      (the reassociation of fused_layer.py:276-288);  dacc = r ⊙ dacc₀
 //   3. attention backward, FlashAttention-2 style, no N×N matrix in device
@@ -32,8 +33,8 @@
 //      chunk of them in row order, then over the chunks in order — the
 //      Pallas kernel's `dextra_ref[0, h] += ds` over its sequential grid,
 //      regrouped.
-//   4. u = LN(x) recomputed from x, mu, rstd;  dwqkv = uᵀ·dqkv;
-//      dbqkv = Σ_rows dqkv
+//   4. dwqkv = LN(x)ᵀ·dqkv, the LN applied from x, mu, rstd as the GEMM
+//      stages x (never written);  dbqkv = Σ_rows dqkv
 //   5. dln = dqkv·wqkvᵀ
 //   6. LN backward as _ln_bwd (fused_layer.py:79-87):
 //      dx = dz + rstd·(dx̂ − mean(dx̂) − x̂·mean(dx̂⊙x̂)), dx̂ = dln ⊙ g;
@@ -282,25 +283,34 @@ extern "C" int vtx_window_attention_bwd(const float* qkv, const float* out,
                                              scale, static_cast<cudaStream_t>(stream)));
 }
 
-// Steps 1-2: da = rs ⊙ dz; dwout = accᵀ·da; dbout = Σ_rows da; dacc₀ =
+// Steps 1-2: dwout = accᵀ·(rs ⊙ dz); dbout = Σ_rows rs ⊙ dz; dacc₀ =
 // dz·woutᵀ; dr; dacc = rs ⊙ dacc₀ (rows_per_scale rows per sample)
 cudaError_t vtx::out_proj_bwd(
     const float* acc, const float* wout, long long wout_s0, long long wout_s1,
     const float* bout, const float* rs, int rows_per_scale, const float* dz,
-    float* da, float* dacc, float* wpart, int splits_out, float* cpart,
+    float* dacc, float* wpart, int splits_out, float* cpart,
     float* dwout, long long dwout_s0, long long dwout_s1, float* dbout,
     float* drs, int B, int M, int C, int HD, cudaStream_t s) {
   if (B > 65535) return cudaErrorInvalidValue;
-  const float* dA = dz;
-  if (rs) {
-    scale_rows_kernel<<<ew_blocks((long long)M * C), EW_THREADS, 0, s>>>(
-        dz, rs, rows_per_scale, C, (long long)M * C, da);
+  // rs staged on dz where dz's tiles meet few output tiles, else rs ⊙ dz
+  // into dacc (written below; [M, HD], so where HD ≥ C)
+  GemmExtra x;
+  const float* b = dz;
+  if (rs && (gemm_row_tiles(HD) <= STAGE_TILES || HD < C)) {
+    x.b_rs = rs;
+    x.b_rs_rows = rows_per_scale;
+  } else if (rs) {
+    const long long MC = (long long)M * C;
+    scale_rows_kernel<<<ew_blocks(MC), EW_THREADS, 0, s>>>(dz, rs, rows_per_scale, C, MC,
+                                                           dacc);
     VTX_CHECK(cudaGetLastError());
-    dA = da;
+    b = dacc;
   }
-  VTX_CHECK(launch_gemm_splitk(acc, HD, dA, C, 1, wpart, splits_out, dwout,
-                               dwout_s0, dwout_s1, HD, C, M, s));
-  if (dbout) VTX_CHECK(launch_colsum(dA, nullptr, nullptr, nullptr, cpart, dbout, M, C, s));
+  VTX_CHECK(launch_gemm_splitk_x(acc, HD, b, C, 1, wpart, splits_out, dwout, dwout_s0,
+                                 dwout_s1, HD, C, M, x, s));
+  if (dbout)
+    VTX_CHECK(launch_colsum(dz, nullptr, nullptr, nullptr, cpart, dbout, M, C, s,
+                            MapRows{nullptr, 1}, rs, rows_per_scale));
   VTX_CHECK(launch_gemm(dz, wout, wout_s1, wout_s0, nullptr, nullptr, 1, nullptr,
                         dacc, M, HD, C, 0, s));
   if (rs) {
@@ -311,15 +321,16 @@ cudaError_t vtx::out_proj_bwd(
   return cudaSuccess;
 }
 
-// Steps 4-5 on the projection's input a [M, C]: dwqkv = aᵀ·dqkv (split-K
-// slabs summed in order); dbqkv = Σ_rows dqkv (when non-null); da =
+// Steps 4-5 on the projection's input a [M, C]: dwqkv = xa(a)ᵀ·dqkv
+// (split-K slabs summed in order); dbqkv = Σ_rows dqkv (when non-null); da =
 // dqkv·wqkvᵀ
-cudaError_t vtx::qkv_in_bwd(const float* a, const float* wqkv, long long wqkv_s0,
-                       long long wqkv_s1, const float* dqkv, float* wpart, int splits_qkv,
-                       float* cpart, float* dwqkv, long long dwqkv_s0, long long dwqkv_s1,
-                       float* dbqkv, float* da, int M, int C, int HD, cudaStream_t s) {
-  VTX_CHECK(launch_gemm_splitk(a, C, dqkv, 3 * HD, 1, wpart, splits_qkv, dwqkv,
-                               dwqkv_s0, dwqkv_s1, C, 3 * HD, M, s));
+cudaError_t vtx::qkv_in_bwd(const float* a, const GemmExtra& xa, const float* wqkv,
+                            long long wqkv_s0, long long wqkv_s1, const float* dqkv,
+                            float* wpart, int splits_qkv, float* cpart, float* dwqkv,
+                            long long dwqkv_s0, long long dwqkv_s1, float* dbqkv, float* da,
+                            int M, int C, int HD, cudaStream_t s) {
+  VTX_CHECK(launch_gemm_splitk_x(a, C, dqkv, 3 * HD, 1, wpart, splits_qkv, dwqkv, dwqkv_s0,
+                                 dwqkv_s1, C, 3 * HD, M, xa, s));
   if (dbqkv)
     VTX_CHECK(launch_colsum(dqkv, nullptr, nullptr, nullptr, cpart, dbqkv, M,
                             3 * HD, s));
@@ -327,20 +338,33 @@ cudaError_t vtx::qkv_in_bwd(const float* a, const float* wqkv, long long wqkv_s0
                      C, 3 * HD, 0, s);
 }
 
-// Steps 4-6: u from the saved statistics; dwqkv = uᵀ·dqkv; dbqkv = Σ_rows
-// dqkv; dln = dqkv·wqkvᵀ; the LN backward with the residual dz; dg = Σ_rows
-// dln ⊙ x̂; db = Σ_rows dln
+// Steps 4-6: dwqkv = LN(x)ᵀ·dqkv (the LN applied from the saved statistics
+// as the GEMM stages x); dbqkv = Σ_rows dqkv; dln = dqkv·wqkvᵀ; the LN
+// backward with the residual dz; dg = Σ_rows dln ⊙ x̂; db = Σ_rows dln
 cudaError_t vtx::qkv_proj_bwd(
     const float* x, const float* ln_g, const float* ln_b, const float* mu,
     const float* rstd, const float* wqkv, long long wqkv_s0, long long wqkv_s1,
-    const float* dqkv, const float* dz, float* u, float* dln, float* wpart,
+    const float* dqkv, const float* dz, float* dln, float* wpart,
     int splits_qkv, float* cpart, float* dx, float* dg, float* db,
     float* dwqkv, long long dwqkv_s0, long long dwqkv_s1, float* dbqkv, int M,
     int C, int HD, cudaStream_t s) {
-  ln_apply_kernel<false><<<ew_blocks((long long)M * C), EW_THREADS, 0, s>>>(
-      x, mu, rstd, ln_g, ln_b, u, C, (long long)M * C, MapRows{nullptr, 1});
-  VTX_CHECK(cudaGetLastError());
-  VTX_CHECK(qkv_in_bwd(u, wqkv, wqkv_s0, wqkv_s1, dqkv, wpart, splits_qkv, cpart, dwqkv,
+  // LN staged where x's tiles meet few output tiles, else LN(x) into dln
+  // (written by the data gradient's GEMM after dwqkv's)
+  GemmExtra ln;
+  const float* a = x;
+  if (gemm_col_tiles(3 * HD) <= STAGE_TILES) {
+    ln.ln_mu = mu;
+    ln.ln_rstd = rstd;
+    ln.ln_g = ln_g;
+    ln.ln_b = ln_b;
+  } else {
+    const long long MC = (long long)M * C;
+    ln_apply_kernel<false><<<ew_blocks(MC), EW_THREADS, 0, s>>>(x, mu, rstd, ln_g, ln_b, dln,
+                                                                C, MC, MapRows{nullptr, 1});
+    VTX_CHECK(cudaGetLastError());
+    a = dln;
+  }
+  VTX_CHECK(qkv_in_bwd(a, ln, wqkv, wqkv_s0, wqkv_s1, dqkv, wpart, splits_qkv, cpart, dwqkv,
                        dwqkv_s0, dwqkv_s1, dbqkv, dln, M, C, HD, s));
   ln_bwd_rows_kernel<false><<<cdiv(M, LN_THREADS / 32), LN_THREADS, 0, s>>>(
       dln, x, mu, rstd, ln_g, dz, dx, M, C, MapRows{nullptr, 1});
@@ -361,7 +385,7 @@ cudaError_t vtx::attention_half_bwd(
     const float* wout, long long wout_s0, long long wout_s1, const float* bout,
     const float* rs, const float* extra, int groups, const float* qkv,
     const float* acc, const float* mu, const float* rstd, const float* lse,
-    const float* dz, float* da, float* dacc, float* delta, float* dqkv, float* u,
+    const float* dz, float* dacc, float* delta, float* dqkv,
     float* dln, float* dbpart, float* wpart, int splits_out, int splits_qkv,
     float* cpart, float* dx, float* dg, float* db,
     float* dwqkv, long long dwqkv_s0, long long dwqkv_s1, float* dbqkv,
@@ -374,7 +398,7 @@ cudaError_t vtx::attention_half_bwd(
     return cudaErrorInvalidValue;
 
   // 1-2. the out projection
-  VTX_CHECK(vtx::out_proj_bwd(acc, wout, wout_s0, wout_s1, bout, rs, N, dz, da,
+  VTX_CHECK(vtx::out_proj_bwd(acc, wout, wout_s0, wout_s1, bout, rs, N, dz,
                               dacc, wpart, splits_out, cpart, dwout, dwout_s0,
                               dwout_s1, dbout, drs, B, M, C, HD, s));
 
@@ -384,17 +408,16 @@ cudaError_t vtx::attention_half_bwd(
 
   // 4-6. the qkv projection and LN
   return vtx::qkv_proj_bwd(x, ln_g, ln_b, mu, rstd, wqkv, wqkv_s0, wqkv_s1, dqkv,
-                           dz, u, dln, wpart, splits_qkv, cpart, dx, dg, db,
+                           dz, dln, wpart, splits_qkv, cpart, dx, dg, db,
                            dwqkv, dwqkv_s0, dwqkv_s1, dbqkv, M, C, HD, s);
 }
 
 // Returns the first cudaError_t met (0 = success).  Workspace, all
-// allocated by the caller: da [M, C] (used only with rs), dacc [M, HD],
-// delta [B·H·N] (used only without extra), dqkv [M, 3HD], u [M, C], dln
-// [M, C], dbpart [wta::bwd_chunks(B, G, H)·G·H·N·N] (used only with dextra;
+// allocated by the caller: da, u [M, C] (no longer read), dacc [M, HD],
+// delta [B·H·N] (used only without extra), dqkv [M, 3HD], dln [M, C],
+// dbpart [wta::bwd_chunks(B, G, H)·G·H·N·N] (used only with dextra;
 // ops/fused_layer.py window_chunks), wpart [max(splits_out·HD·C,
-// splits_qkv·C·3HD)],
-// cpart [ceil(M / 128) · max(C, 3HD)].  dwqkv / dwout are written through
+// splits_qkv·C·3HD)], cpart [ceil(M / 128) · max(C, 3HD)].  dwqkv / dwout are written through
 // their (row, col) strides, so they may share the layout of the weight view
 // the forward read; bqkv / bout / rs / dbqkv / dbout / drs may be null, and
 // so may extra [G, H, N, N] (groups = G; N ≤ 128, heads up to 32 wide) and its
@@ -415,7 +438,7 @@ extern "C" int vtx_fused_attention_layer_bwd(
     void* stream) {
   return static_cast<int>(vtx::attention_half_bwd(
       x, ln_g, ln_b, wqkv, wqkv_s0, wqkv_s1, bqkv, wout, wout_s0, wout_s1, bout,
-      rs, extra, groups, qkv, acc, mu, rstd, lse, dz, da, dacc, delta, dqkv, u, dln,
+      rs, extra, groups, qkv, acc, mu, rstd, lse, dz, dacc, delta, dqkv, dln,
       dbpart, wpart, splits_out, splits_qkv, cpart, dx, dg, db, dwqkv, dwqkv_s0,
       dwqkv_s1, dbqkv, dwout, dwout_s0, dwout_s1, dbout, drs, dextra, B, N, C, H,
       D, scale, static_cast<cudaStream_t>(stream)));

@@ -46,7 +46,7 @@
 //             +x(map)) → ln → gemm(+b₁, silu) → gemm(+b₂, ×r₂, +z) → o(map)
 //             (training: hid keeps the pre-activation, af = silu(hid), and
 //             the statistics and lse are saved)
-//   backward  gather do → the FF half's steps 1-5 (vtx::ff_half_bwd) → the
+//   backward  gather do → the FF half's steps 1-4 (vtx::ff_half_bwd) → the
 //             out projection's (vtx::out_proj_bwd) → the attention's
 //             (vtx::window_attention_bwd) → u₁ = LN₁(x(map)) from the saved
 //             statistics, dW_qkv = u₁ᵀ·dqkv, db_qkv, dln₁ = dqkv·W_qkvᵀ →
@@ -166,17 +166,18 @@ cudaError_t swin_layer_bwd(
   gather_rows_kernel<<<ew_blocks(MC), EW_THREADS, 0, s>>>(dout, dor, C, MC, rows_map);
   VTX_CHECK(cudaGetLastError());
 
-  // FF half, steps 1-5 of fused_layer1_bwd.cu, given do: → dz and the FF
-  // parameters' gradients, dr₂ per sample (H·W rows each)
+  // FF half, steps 1-4 of fused_layer1_bwd.cu, given do: → dz and the FF
+  // parameters' gradients, dr₂ per sample (H·W rows each; af: the row
+  // partials' workspace)
   VTX_CHECK(vtx::ff_half_bwd(z, ln2_g, ln2_b, w1, w1_s0, w1_s1, b1, w2, w2_s0, w2_s1,
-                             b2, rs_ff, hw, hid, mu2, rstd2, dor, da, af, dh, u, dln,
+                             b2, rs_ff, hw, hid, mu2, rstd2, dor, dh, dln, af,
                              wpart, splits_w1, splits_w2, cpart, dz, dg2, db2, dw1,
                              dw1_s0, dw1_s1, db1f, dw2, dw2_s0, dw2_s1, db2f, drs_ff, B,
                              M, C, F, ACT_SILU, s));
 
   // attention half, driven by dz: the out projection (dr₁ per sample), the
   // attention over the pairs (dS summed per group over the samples)
-  VTX_CHECK(vtx::out_proj_bwd(acc, wout, wout_s0, wout_s1, bout, rs_attn, hw, dz, da,
+  VTX_CHECK(vtx::out_proj_bwd(acc, wout, wout_s0, wout_s1, bout, rs_attn, hw, dz,
                               dacc, wpart, splits_out, cpart, dwout, dwout_s0, dwout_s1,
                               dbout, drs_attn, B, M, C, HD, s));
   VTX_CHECK(vtx::window_attention_bwd(qkv, dacc, acc, lse, extra, groups, dbpart,
@@ -230,8 +231,8 @@ extern "C" int vtx_fused_swin_layer_fwd(
 // Returns the first cudaError_t met (0 = success).  Reads the training
 // forward's saves (qkv, acc, z, hid, mu1, rstd1, lse, mu2, rstd2) and dout
 // [B, H, W, C]; writes dx [B, H, W, C].  Workspace, all allocated by the
-// caller (M = B·H·W): dor [M, C], da [M, C] (used only with a row scale), af,
-// dh [M, F], dz [M, C], dacc [M, HD], dqkv [M, 3HD], u, dln [M, C], dbpart
+// caller (M = B·H·W): dor [M, C], da [M, C] (no longer read), af [M, F]
+// (the dr₂ pass's row partials), dh [M, F], dz [M, C], dacc [M, HD], dqkv [M, 3HD], u, dln [M, C], dbpart
 // [wta::bwd_chunks(B·G, groups, nh), groups, nh, m, m] (used only with dextra;
 // ops/fused_layer.py window_chunks), wpart [max over
 // the four weight gradients of splits·rows·cols], cpart [ceil(M / 128) ·

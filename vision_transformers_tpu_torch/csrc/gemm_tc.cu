@@ -15,6 +15,23 @@
 // each optional.  No float atomics anywhere: every result, the split-K
 // weight gradients included, is bit-identical from run to run.
 //
+// What passes it takes in (GemmExtra, common.cuh), so that the layers'
+// [M, C] and [M, F] intermediates are not written and read back:
+//   the producer  transforms an operand in registers after its load and
+//                 before the TF32 split (each operand is still split once):
+//                 on A the LayerNorm apply from saved statistics (the
+//                 expression of ln_rows_kernel, so every staged value is
+//                 the one the LN pass wrote) or act_fwd; on B a row scale
+//                 rs[k / rows].  Both layouts (vec and tvec) take them; in
+//                 the split-K form the token is the k index.
+//   the epilogue  (row forms) with a same-shaped tile hid: the partials of
+//                 Σ v·act_fwd(hid) per row and 64-column group (rpart), then
+//                 v ×= rs, v ×= act_grad(hid) (the FF backward's dh); and the
+//                 column sums of the final value per 16-row slice (cpart, the
+//                 bias gradients), summed in a fixed order: a thread's two
+//                 rows, then the lanes by a shuffle tree.  The caller sums
+//                 the partials with the ordered reduces.
+//
 // Replaces, for the TPU kernels, the projections that the Pallas bodies
 // compute on the MXU inside
 //   vision_transformers_tpu/ops/fused_layer.py:116 / :183   B1 fwd / bwd
@@ -106,6 +123,15 @@ static_assert(2 * STAGES < 16, "named barriers 1 .. 2·STAGES");
 // tvec: 16-byte loads along the rows, transposed in registers (s_row = 1,
 // s_k and rows multiples of 4, p 16-byte aligned: the weight gradients'
 // operands, the data gradients' weights), in 128-row tiles.
+// What a kernel takes in of the passes (GemmExtra): nothing; one of the
+// producer's transforms (A's LayerNorm; act on A, with B's row scale where
+// set; B's row scale); or the epilogue's options.  A separate instantiation
+// each, the activation a template parameter, so that every kernel carries
+// only its own code and registers (one with every option and both
+// activations inlined at each element was 2-4x the size and ran 2-4x
+// slower)
+constexpr int XF_NONE = 0, XF_LN = 1, XF_ACT = 2, XF_SCALE = 3, XF_EPILOGUE = 4;
+
 struct Operand {
   const float* p;
   long long s_row, s_k;
@@ -115,6 +141,7 @@ struct Operand {
 
 struct Args {
   Operand a, b;
+  GemmExtra x;
   const float* bias;
   const float* rs;
   int rs_rows;
@@ -321,17 +348,213 @@ __host__ __device__ constexpr int smem_bytes() {
   return STAGES * stage_floats<BN>() * (int)sizeof(float);
 }
 
-// one slab's operands in registers, between its loads and its staging
+// one slab's operands in registers, between its loads and its staging; with
+// the producer's transforms also the parameters they need at the slab's k,
+// loaded with the slab one slab ahead
 template <int BN>
 struct Slab {
   float4 a[units<BM>()], b[units<BN>()];
+  float kp[4], kq[4];  // XF_LN: the LayerNorm's parameters at the slab's k
+  // XF_ACT (with b_rs), XF_SCALE: B's row scales over the slab, sc0 below
+  // k = kb, sc1 from there (a slab of BK k meets at most two samples where
+  // b_rs_rows ≥ BK; below that, the scalar division)
+  float sc0, sc1;
+  int kb;
 };
 
-template <int BN>
+// XF_LN: the LayerNorm's parameters of the tile's fixed rows
+struct Fixed {
+  float p[4], q[4];
+};
+
+// The producer's transforms.  Where a load puts each element of an operand
+// tile: a K-contiguous tile (kmajor) gives unit i row r0 + row_i (the same
+// over the tile's slabs) and k = k0 + 4·(lane / 8) + j in component j, the
+// same k for every unit; a tvec tile rows r0 + 4·lane + j and k = k0 +
+// 4·warp + i; any other (scalar) unit i row r0 + row_i and k = k0 +
+// 4·chunk_i + j.  So a thread needs the LayerNorm's parameters of four
+// fixed rows (mu, rstd of token rows; g, b of feature rows in the split-K
+// form, where the token is k) once a tile, and of four k (g, b; mu, rstd)
+// or the row scales of the (at most two) samples it meets once a slab (the
+// scalar layout, odd shapes only, reads its LayerNorm k's as it goes).
+// Positions past o.rows or k_end stay zero: act(0) = 0 and 0·s = 0, and the
+// LayerNorm keeps them by a select.
+template <int R>
+__device__ __forceinline__ bool along_rows(const Operand& o) {
+  if constexpr (R == 128 && units<R>() == 4) return o.tvec;
+  return false;
+}
+
+// the tile row of the thread's i-th fixed row: unit i's, or the tvec row i
+template <int R>
+__device__ __forceinline__ int fixed_row(const Operand& o, int pt, int i) {
+  if (along_rows<R>(o)) return 4 * (pt & 31) + i;
+  int r, c;
+  unit<R>(o.kmajor, pt, i < units<R>() ? i : 0, r, c);
+  return r;
+}
+
+// the thread's i-th k of the slab at k0: tvec k0 + 4·warp + i, kmajor
+// k0 + 4·(lane / 8) + i
+template <int R>
+__device__ __forceinline__ int slab_k(const Operand& o, int pt, int k0, int i) {
+  return along_rows<R>(o) ? k0 + 4 * (pt >> 5) + i : k0 + 4 * ((pt & 31) >> 3) + i;
+}
+
+// the LayerNorm's arrays by role: of the fixed rows (P, Q) and of k (KP, KQ)
+template <bool SPLIT_K>
+__device__ __forceinline__ void ln_arrays(const GemmExtra& x, const float*& P,
+                                          const float*& Q, const float*& KP,
+                                          const float*& KQ) {
+  P = SPLIT_K ? x.ln_g : x.ln_mu;
+  Q = SPLIT_K ? x.ln_b : x.ln_rstd;
+  KP = SPLIT_K ? x.ln_mu : x.ln_g;
+  KQ = SPLIT_K ? x.ln_rstd : x.ln_b;
+}
+
+template <bool SPLIT_K>
+__device__ __forceinline__ void load_fixed(Fixed& f, const Args& a, int pt, int m0) {
+  const float *P, *Q, *KP, *KQ;
+  ln_arrays<SPLIT_K>(a.x, P, Q, KP, KQ);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = m0 + fixed_row<BM>(a.a, pt, i);
+    f.p[i] = r < a.a.rows ? __ldg(P + r) : 0.f;
+    f.q[i] = r < a.a.rows ? __ldg(Q + r) : 0.f;
+  }
+}
+
+template <int BN, bool SPLIT_K, int XF>
+__device__ __forceinline__ void load_params(Slab<BN>& r, const Args& a, int pt, int k0,
+                                            int k_end) {
+  if constexpr (XF == XF_LN) {
+    const float *P, *Q, *KP, *KQ;
+    ln_arrays<SPLIT_K>(a.x, P, Q, KP, KQ);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = slab_k<BM>(a.a, pt, k0, i);
+      r.kp[i] = k < k_end ? __ldg(KP + k) : 0.f;
+      r.kq[i] = k < k_end ? __ldg(KQ + k) : 0.f;
+    }
+  }
+  if constexpr (XF == XF_ACT || XF == XF_SCALE) {
+    if (XF == XF_SCALE || a.x.b_rs) {
+      const int rows = a.x.b_rs_rows, smp = k0 / rows, last = (a.K - 1) / rows;
+      r.kb = (smp + 1) * rows;
+      r.sc0 = __ldg(a.x.b_rs + smp);
+      r.sc1 = smp < last ? __ldg(a.x.b_rs + smp + 1) : 1.f;
+    }
+  }
+}
+
+template <int BN, bool SPLIT_K, int XF>
 __device__ __forceinline__ void load_slab(Slab<BN>& r, const Args& a, int pt, int m0,
                                           int n0, int k0, int k_end) {
   load_tile<BM>(r.a, a.a, pt, m0, k0, k_end);
   load_tile<BN>(r.b, a.b, pt, n0, k0, k_end);
+  load_params<BN, SPLIT_K, XF>(r, a, pt, k0, k_end);
+}
+
+// the LayerNorm apply, ln_rows_kernel's expression ((v − mu)·rstd)·g + b,
+// of element e at a valid position (ok), with the token's (mu, rstd) and
+// the feature's (g, b) parameters
+__device__ __forceinline__ float ln_at(float e, bool ok, float mu, float rstd, float g,
+                                       float b) {
+  const float u = (e - mu) * rstd * g + b;
+  return ok ? u : e;
+}
+
+// XF_LN on A (R = BM): the token is the row (fixed: mu, rstd; k: g, b) or,
+// in the split-K form, k (k: mu, rstd; fixed: g, b)
+template <int BN, bool SPLIT_K>
+__device__ __forceinline__ void ln_tile(Slab<BN>& s, const Fixed& f, const Args& a, int pt,
+                                        int k0, int k_end, int r0) {
+  const Operand& o = a.a;
+  auto apply = [&](float& e, bool ok, float fp, float fq, float kp, float kq) {
+    e = SPLIT_K ? ln_at(e, ok, kp, kq, fp, fq) : ln_at(e, ok, fp, fq, kp, kq);
+  };
+  if (along_rows<BM>(o)) {  // rows r0 + 4·lane + j, k = k0 + 4·warp + i
+    const int gr = r0 + 4 * (pt & 31);
+#pragma unroll
+    for (int i = 0; i < units<BM>(); ++i) {
+      const bool kv = k0 + 4 * (pt >> 5) + i < k_end;
+      apply(s.a[i].x, kv && gr < o.rows, f.p[0], f.q[0], s.kp[i], s.kq[i]);
+      apply(s.a[i].y, kv && gr + 1 < o.rows, f.p[1], f.q[1], s.kp[i], s.kq[i]);
+      apply(s.a[i].z, kv && gr + 2 < o.rows, f.p[2], f.q[2], s.kp[i], s.kq[i]);
+      apply(s.a[i].w, kv && gr + 3 < o.rows, f.p[3], f.q[3], s.kp[i], s.kq[i]);
+    }
+  } else if (o.kmajor) {  // unit i row r0 + row_i, k = k0 + 4·(lane / 8) + j
+    const int kb = k0 + 4 * ((pt & 31) >> 3);
+#pragma unroll
+    for (int i = 0; i < units<BM>(); ++i) {
+      const bool rv = r0 + fixed_row<BM>(o, pt, i) < o.rows;
+      apply(s.a[i].x, rv && kb < k_end, f.p[i], f.q[i], s.kp[0], s.kq[0]);
+      apply(s.a[i].y, rv && kb + 1 < k_end, f.p[i], f.q[i], s.kp[1], s.kq[1]);
+      apply(s.a[i].z, rv && kb + 2 < k_end, f.p[i], f.q[i], s.kp[2], s.kq[2]);
+      apply(s.a[i].w, rv && kb + 3 < k_end, f.p[i], f.q[i], s.kp[3], s.kq[3]);
+    }
+  } else {  // scalar: unit i row r0 + row_i, k = k0 + 4·chunk_i + j, read here
+    const float *P, *Q, *KP, *KQ;
+    ln_arrays<SPLIT_K>(a.x, P, Q, KP, KQ);
+#pragma unroll
+    for (int i = 0; i < units<BM>(); ++i) {
+      int r, c;
+      unit<BM>(false, pt, i, r, c);
+      const bool rv = r0 + r < o.rows;
+      const int kb = k0 + 4 * c;
+      float kp[4], kq[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        kp[j] = kb + j < k_end ? __ldg(KP + kb + j) : 0.f;
+        kq[j] = kb + j < k_end ? __ldg(KQ + kb + j) : 0.f;
+      }
+      apply(s.a[i].x, rv && kb < k_end, f.p[i], f.q[i], kp[0], kq[0]);
+      apply(s.a[i].y, rv && kb + 1 < k_end, f.p[i], f.q[i], kp[1], kq[1]);
+      apply(s.a[i].z, rv && kb + 2 < k_end, f.p[i], f.q[i], kp[2], kq[2]);
+      apply(s.a[i].w, rv && kb + 3 < k_end, f.p[i], f.q[i], kp[3], kq[3]);
+    }
+  }
+}
+
+// B's row scale at k (XF_ACT with b_rs, XF_SCALE): sc0 below s.kb, sc1 from
+// there (b_rs_rows ≥ BK), else rs[k / rows] read here
+template <int BN>
+__device__ __forceinline__ void scale_tile(Slab<BN>& s, const Args& a, int pt, int k0) {
+  const Operand& o = a.b;
+  const bool two = a.x.b_rs_rows >= BK;
+  auto sc = [&](int k) {
+    return two ? (k < s.kb ? s.sc0 : s.sc1)
+               : __ldg(a.x.b_rs + min(k, a.K - 1) / a.x.b_rs_rows);
+  };
+#pragma unroll
+  for (int i = 0; i < units<BN>(); ++i) {
+    if (along_rows<BN>(o)) {  // the unit's four rows at k = k0 + 4·warp + i
+      const float c = sc(k0 + 4 * (pt >> 5) + i);
+      s.b[i] = make_float4(s.b[i].x * c, s.b[i].y * c, s.b[i].z * c, s.b[i].w * c);
+    } else {  // component j at k = k0 + 4·chunk + j
+      int r, c;
+      unit<BN>(o.kmajor, pt, i, r, c);
+      const int kb = k0 + 4 * c;
+      s.b[i] = make_float4(s.b[i].x * sc(kb), s.b[i].y * sc(kb + 1), s.b[i].z * sc(kb + 2),
+                           s.b[i].w * sc(kb + 3));
+    }
+  }
+}
+
+// the producer's transform of slab s (XF_LN: A's LayerNorm; XF_ACT: act on
+// A, and B's row scale with b_rs; XF_SCALE: B's row scale)
+template <int BN, bool SPLIT_K, int XF, int ACT>
+__device__ __forceinline__ void transform_slab(Slab<BN>& s, const Fixed& f, const Args& a,
+                                               int pt, int k0, int k_end, int r0) {
+  if constexpr (XF == XF_LN) ln_tile<BN, SPLIT_K>(s, f, a, pt, k0, k_end, r0);
+  if constexpr (XF == XF_ACT) {
+#pragma unroll
+    for (int i = 0; i < units<BM>(); ++i)
+      s.a[i] = make_float4(act_fwd<ACT>(s.a[i].x), act_fwd<ACT>(s.a[i].y),
+                           act_fwd<ACT>(s.a[i].z), act_fwd<ACT>(s.a[i].w));
+    if (a.x.b_rs) scale_tile<BN>(s, a, pt, k0);
+  }
+  if constexpr (XF == XF_SCALE) scale_tile<BN>(s, a, pt, k0);
 }
 
 // split into stage st: A_hi, A_lo, B_hi, B_lo
@@ -387,13 +610,16 @@ struct Tile {
 
 // producer: slab it of tile T (in cur), the block's slab j, into its stage
 // once the consumers have left it (slab j − STAGES's), slab it + 1 loaded
-// into nxt first so that its loads are in flight meanwhile
-template <int BN>
+// into nxt first so that its loads are in flight meanwhile; (XF) cur
+// transformed (GemmExtra) on the way
+template <int BN, bool SPLIT_K, int XF, int ACT>
 __device__ __forceinline__ void produce(Slab<BN>& cur, Slab<BN>& nxt, float* smem,
-                                        const Args& a, int pt, const Tile& T, int it, int j) {
+                                        const Args& a, int pt, const Tile& T, int it, int j,
+                                        const Fixed& f) {
   if (it + 1 < T.slabs)
-    load_slab(nxt, a, pt, T.m0, T.n0, T.k_begin + (it + 1) * BK, T.k_end);
+    load_slab<BN, SPLIT_K, XF>(nxt, a, pt, T.m0, T.n0, T.k_begin + (it + 1) * BK, T.k_end);
   const int st = j % STAGES;
+  transform_slab<BN, SPLIT_K, XF, ACT>(cur, f, a, pt, T.k_begin + it * BK, T.k_end, T.m0);
   if (j >= STAGES) bar_sync(empty_bar(st));
   store_slab(smem + st * stage_floats<BN>(), cur, a, pt);
   fence_proxy_async();
@@ -461,11 +687,139 @@ __device__ __forceinline__ void epilogue(const Args& a, const Tile& T, int wg,
   }
 }
 
+// act(h) and act'(h) at once, one exponential (silu) or tanh (gelu) for
+// both: act_fwd's and act_grad's expressions, so the values are theirs
+template <int ACT>
+__device__ __forceinline__ void act_and_grad(float h, float& f, float& g) {
+  if constexpr (ACT == ACT_SILU) {
+    const float s = sigmoid(h);
+    f = h * s;
+    g = s + h * s * (1.f - s);
+  } else {
+    const float t = tanhf(GELU_C * (h + 0.044715f * h * h * h));
+    f = 0.5f * h * (1.f + t);
+    const float dt = (1.f - t * t) * GELU_C * (1.f + 3.f * 0.044715f * h * h);
+    g = 0.5f * (1.f + t) + 0.5f * h * dt;
+  }
+}
+
+// The row form's epilogue with the passes' options (XF_EPILOGUE, 64-column
+// tiles): + bias → silu → with hid the row partials of v·act(hid), v ×= rs,
+// v ×= act'(hid) → + res; the column partials of the final value, one row
+// of cpart per 16-row warp slice.  The tile's hid values are loaded first,
+// so that their latencies overlap; then column pairs outer (j), the
+// thread's two rows inner, each pair's column sums down the lane tree and
+// written by lanes 0-3 (no shared memory, no barrier).
+template <int BN, int ACT>
+__device__ __forceinline__ void epilogue_x(const Args& a, const Tile& T, int wg,
+                                           const float (&acc)[BN / 2]) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;  // w: 0 .. 7
+  const int row0 = T.m0 + 64 * wg + 16 * (w & 3) + (lane >> 2);
+  const int col0 = T.n0 + 2 * (lane & 3);
+  const int M = a.M, N = a.N;
+  const GemmExtra& x = a.x;
+  // the passes' partials (uniform across the block: kernel arguments)
+  const bool rsum_on = x.rpart != nullptr, csum_on = x.cpart != nullptr;
+  bool row_ok[2];
+  float r[2];
+  long long row_off[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = row0 + 8 * h;
+    row_ok[h] = m < M;
+    r[h] = a.rs && row_ok[h] ? a.rs[m / a.rs_rows] : 1.f;
+    row_off[h] = (long long)m * N;
+  }
+  float rsum[2][BN / RPART_COLS];  // Σ v·act(hid) over each row's 64-column groups
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < BN / RPART_COLS; ++i) rsum[h][i] = 0.f;
+  float hg[BN / 8][2][2];  // the tile's hid values, loaded first
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = col0 + 8 * j;
+      if (x.hid && row_ok[h] && n + 1 < N && N % 2 == 0) {  // 8-byte aligned
+        const float2 p = *reinterpret_cast<const float2*>(x.hid + row_off[h] + n);
+        hg[j][h][0] = p.x;
+        hg[j][h][1] = p.y;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          hg[j][h][e] = x.hid && row_ok[h] && n + e < N ? x.hid[row_off[h] + n + e] : 0.f;
+      }
+    }
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int n = col0 + 8 * j;  // even: this thread's columns n, n + 1
+    float c[2] = {0.f, 0.f};     // the pair's sums over the thread's rows
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        v[e] = acc[4 * j + 2 * h + e];
+        if (row_ok[h] && n + e < N) {
+          if (a.bias) v[e] += a.bias[n + e];
+          if (a.silu) v[e] = act_fwd<ACT_SILU>(v[e]);
+          float fh = 0.f, gh = 1.f;
+          if (x.hid) act_and_grad<ACT>(hg[j][h][e], fh, gh);
+          if (rsum_on) rsum[h][j / 8] += v[e] * fh;
+          if (a.rs) v[e] *= r[h];
+          if (x.hid) v[e] *= gh;
+          if (a.res) v[e] += a.res[row_off[h] + n + e];
+          c[e] += v[e];
+        }
+      }
+      if (row_ok[h] && n < N) {
+        float* orow = a.out + row_off[h];
+        if (N % 2 == 0) {
+          *reinterpret_cast<float2*>(orow + n) = make_float2(v[0], v[1]);
+        } else {
+          orow[n] = v[0];
+          if (n + 1 < N) orow[n + 1] = v[1];
+        }
+      }
+    }
+    if (csum_on) {  // the warp's 8 row groups
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        c[e] += __shfl_xor_sync(0xffffffffu, c[e], 4);
+        c[e] += __shfl_xor_sync(0xffffffffu, c[e], 8);
+        c[e] += __shfl_xor_sync(0xffffffffu, c[e], 16);
+      }
+      // the warp's 16-row slice (lanes 0-3 hold its sums of columns n, n + 1)
+      const int slice = (T.m0 + 64 * wg + 16 * (w & 3)) / CPART_ROWS;
+      if (lane < 4 && slice * CPART_ROWS < M) {
+        float* crow = x.cpart + (long long)slice * N;
+        if (n < N) crow[n] = c[0];
+        if (n + 1 < N) crow[n + 1] = c[1];
+      }
+    }
+  }
+  if (rsum_on) {  // each row's four lanes, then one writes each group's sum
+    const int T64 = (N + RPART_COLS - 1) / RPART_COLS;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < BN / RPART_COLS; ++i) {
+        float s = rsum[h][i];
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        s += __shfl_xor_sync(0xffffffffu, s, 2);
+        const int grp = T.n0 / RPART_COLS + i;
+        if (row_ok[h] && (lane & 3) == 0 && grp < T64)
+          x.rpart[(long long)(row0 + 8 * h) * T64 + grp] = s;
+      }
+  }
+}
+
 // A persistent block (one an SM) takes tiles blockIdx.x, + gridDim.x, ...;
 // its slabs run through the ring in one sequence, g counting them, so the
 // producer fills the next tile's stages while the consumers finish a tile
 // and write it out.
-template <int BN, bool SPLIT_K, int MAP>
+template <int BN, bool SPLIT_K, int MAP, int XF, int ACT>
 __global__ void __launch_bounds__(THREADS, 1) gemm_tc_kernel(const Args a, int tiles) {
   extern __shared__ __align__(128) float smem[];
   const int wg = threadIdx.x >> 7;
@@ -478,10 +832,13 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_tc_kernel(const Args a, int t
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       const Tile T = tile_of<BN, SPLIT_K>(a, t);
       Slab<BN> r0, r1;  // two slabs, so that each register set is named statically
-      if (T.slabs > 0) load_slab(r0, a, pt, T.m0, T.n0, T.k_begin, T.k_end);
+      if (T.slabs > 0) load_slab<BN, SPLIT_K, XF>(r0, a, pt, T.m0, T.n0, T.k_begin, T.k_end);
+      Fixed f;  // XF_LN: the tile's fixed rows' parameters
+      if constexpr (XF == XF_LN) load_fixed<SPLIT_K>(f, a, pt, T.m0);
       for (int it = 0; it < T.slabs; it += 2) {
-        produce<BN>(r0, r1, smem, a, pt, T, it, g + it);
-        if (it + 1 < T.slabs) produce<BN>(r1, r0, smem, a, pt, T, it + 1, g + it + 1);
+        produce<BN, SPLIT_K, XF, ACT>(r0, r1, smem, a, pt, T, it, g + it, f);
+        if (it + 1 < T.slabs)
+          produce<BN, SPLIT_K, XF, ACT>(r1, r0, smem, a, pt, T, it + 1, g + it + 1, f);
       }
       g += T.slabs;
     }
@@ -516,7 +873,10 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_tc_kernel(const Args a, int t
       }
       if (j >= 1 && j - 1 + STAGES < total) bar_arrive(empty_bar((j - 1) % STAGES));
     }
-    epilogue<BN, SPLIT_K, MAP>(a, T, wg, acc);
+    if constexpr (XF == XF_EPILOGUE)
+      epilogue_x<BN, ACT>(a, T, wg, acc);
+    else
+      epilogue<BN, SPLIT_K, MAP>(a, T, wg, acc);
     g += T.slabs;
   }
 }
@@ -532,12 +892,12 @@ inline Operand operand(const float* p, long long s_row, long long s_k, int rows,
                  !kmajor && s_row == 1 && s_k % 4 == 0 && rows % 4 == 0 && aligned16(p)};
 }
 
-template <int BN, bool SPLIT_K, int MAP>
+template <int BN, bool SPLIT_K, int MAP, int XF, int ACT>
 cudaError_t launch_t(const Args& a, int splits, cudaStream_t s) {
   static_assert(smem_bytes<BN>() <= 227 * 1024, "a block's shared memory");
   static bool sized = false;  // the attribute once per instantiation
   if (!sized) {
-    VTX_CHECK(cudaFuncSetAttribute(gemm_tc_kernel<BN, SPLIT_K, MAP>,
+    VTX_CHECK(cudaFuncSetAttribute(gemm_tc_kernel<BN, SPLIT_K, MAP, XF, ACT>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    smem_bytes<BN>()));
     sized = true;
@@ -548,25 +908,66 @@ cudaError_t launch_t(const Args& a, int splits, cudaStream_t s) {
   const long long tiles = (long long)cdiv(a.N, BN) * cdiv(a.M, BM) * splits;
   if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   const int blocks = (int)(tiles < sms ? tiles : sms);
-  gemm_tc_kernel<BN, SPLIT_K, MAP><<<blocks, THREADS, smem_bytes<BN>(), s>>>(a, (int)tiles);
+  gemm_tc_kernel<BN, SPLIT_K, MAP, XF, ACT><<<blocks, THREADS, smem_bytes<BN>(), s>>>(
+      a, (int)tiles);
   return cudaGetLastError();
 }
 
 template <bool SPLIT_K, int MAP>
 cudaError_t launch(const Args& a, int splits, cudaStream_t s) {
   if (a.M < 1 || a.N < 1 || a.K < 0 || splits < 1) return cudaErrorInvalidValue;
+  const GemmExtra& x = a.x;
+  // the epilogue's options: row forms without the map; a row scale's rows
+  if ((x.hid || x.rpart || x.cpart) && (SPLIT_K || MAP != MAP_NONE))
+    return cudaErrorInvalidValue;
+  if ((x.rpart && !x.hid) || (x.ln_mu && !(x.ln_rstd && x.ln_g && x.ln_b)) ||
+      (x.b_rs && x.b_rs_rows < 1) || x.a_act < ACT_NONE || x.a_act > ACT_GELU ||
+      x.hid_act < ACT_SILU || x.hid_act > ACT_GELU)
+    return cudaErrorInvalidValue;
   // 128-column tiles unless 64-column ones pad N less
   const bool narrow = cdiv(a.N, 64) * 64 < cdiv(a.N, 128) * 128;
-  return narrow ? launch_t<64, SPLIT_K, MAP>(a, splits, s)
-                : launch_t<128, SPLIT_K, MAP>(a, splits, s);
+  // the passes' instantiations only where an option is set: the producer's
+  // transforms or the epilogue's options (not both), the activation theirs
+  const bool prod = x.ln_mu || x.a_act != ACT_NONE || x.b_rs;
+  const bool epi = x.hid || x.rpart || x.cpart;
+  if constexpr (MAP == MAP_NONE) {
+    if (prod && epi) return cudaErrorInvalidValue;
+    // A's LayerNorm, or act (with B's row scale where set), or B's row
+    // scale alone: the paths never ask for two of them on A
+    if (x.ln_mu && (x.a_act != ACT_NONE || x.b_rs)) return cudaErrorInvalidValue;
+    if (x.ln_mu)
+      return narrow ? launch_t<64, SPLIT_K, MAP, XF_LN, ACT_SILU>(a, splits, s)
+                    : launch_t<128, SPLIT_K, MAP, XF_LN, ACT_SILU>(a, splits, s);
+    if (x.a_act == ACT_GELU)
+      return narrow ? launch_t<64, SPLIT_K, MAP, XF_ACT, ACT_GELU>(a, splits, s)
+                    : launch_t<128, SPLIT_K, MAP, XF_ACT, ACT_GELU>(a, splits, s);
+    if (x.a_act == ACT_SILU)
+      return narrow ? launch_t<64, SPLIT_K, MAP, XF_ACT, ACT_SILU>(a, splits, s)
+                    : launch_t<128, SPLIT_K, MAP, XF_ACT, ACT_SILU>(a, splits, s);
+    if (prod)
+      return narrow ? launch_t<64, SPLIT_K, MAP, XF_SCALE, ACT_SILU>(a, splits, s)
+                    : launch_t<128, SPLIT_K, MAP, XF_SCALE, ACT_SILU>(a, splits, s);
+    // the epilogue's options on 64-column tiles: at 128 its registers spill
+    // into the main loop (the H100 ran it 3x slower)
+    if constexpr (!SPLIT_K) {
+      if (epi && x.hid_act == ACT_GELU)
+        return launch_t<64, false, MAP, XF_EPILOGUE, ACT_GELU>(a, splits, s);
+      if (epi) return launch_t<64, false, MAP, XF_EPILOGUE, ACT_SILU>(a, splits, s);
+    }
+  } else if (prod || epi) {
+    return cudaErrorInvalidValue;
+  }
+  return narrow ? launch_t<64, SPLIT_K, MAP, XF_NONE, ACT_SILU>(a, splits, s)
+                : launch_t<128, SPLIT_K, MAP, XF_NONE, ACT_SILU>(a, splits, s);
 }
 
 template <int MAP>
 cudaError_t launch_rows(const float* A, const float* B, long long sbk, long long sbn,
                         const float* bias, const float* rs, int rs_rows, const float* res,
                         float* out, int M, int N, int K, int silu, MapRows rows_map,
-                        cudaStream_t stream) {
+                        const GemmExtra& x, cudaStream_t stream) {
   Args a{};
+  a.x = x;
   a.a = operand(A, K, 1, M, K);
   a.b = operand(B, sbn, sbk, N, K);
   a.bias = bias;
@@ -591,7 +992,15 @@ cudaError_t vtx::launch_gemm(const float* A, const float* B, long long sbk, long
                              const float* res, float* out, int M, int N, int K, int silu,
                              cudaStream_t stream) {
   return gtc::launch_rows<MAP_NONE>(A, B, sbk, sbn, bias, rs, rs_rows, res, out, M, N, K,
-                                    silu, MapRows{nullptr, 1}, stream);
+                                    silu, MapRows{nullptr, 1}, GemmExtra{}, stream);
+}
+
+cudaError_t vtx::launch_gemm_x(const float* A, const float* B, long long sbk, long long sbn,
+                               const float* bias, const float* rs, int rs_rows,
+                               const float* res, float* out, int M, int N, int K, int silu,
+                               const GemmExtra& x, cudaStream_t stream) {
+  return gtc::launch_rows<MAP_NONE>(A, B, sbk, sbn, bias, rs, rs_rows, res, out, M, N, K,
+                                    silu, MapRows{nullptr, 1}, x, stream);
 }
 
 template <int MAP>
@@ -600,7 +1009,7 @@ cudaError_t vtx::launch_gemm_map(const float* A, const float* B, long long sbk,
                                  int rs_rows, const float* res, float* out, int M, int N,
                                  int K, int silu, MapRows rows_map, cudaStream_t stream) {
   return gtc::launch_rows<MAP>(A, B, sbk, sbn, bias, rs, rs_rows, res, out, M, N, K, silu,
-                               rows_map, stream);
+                               rows_map, GemmExtra{}, stream);
 }
 
 template cudaError_t vtx::launch_gemm_map<vtx::MAP_RES>(
@@ -614,8 +1023,17 @@ cudaError_t vtx::launch_gemm_splitk(const float* A, int lda, const float* B, lon
                                     long long sbn, float* part, int splits, float* out,
                                     long long som, long long son, int M, int N, int K,
                                     cudaStream_t stream) {
+  return launch_gemm_splitk_x(A, lda, B, sbk, sbn, part, splits, out, som, son, M, N, K,
+                              GemmExtra{}, stream);
+}
+
+cudaError_t vtx::launch_gemm_splitk_x(const float* A, int lda, const float* B, long long sbk,
+                                      long long sbn, float* part, int splits, float* out,
+                                      long long som, long long son, int M, int N, int K,
+                                      const GemmExtra& x, cudaStream_t stream) {
   if (splits < 1) return cudaErrorInvalidValue;
   gtc::Args a{};
+  a.x = x;
   a.a = gtc::operand(A, 1, lda, M, K);
   a.b = gtc::operand(B, sbn, sbk, N, K);
   a.rs_rows = 1;
@@ -631,32 +1049,51 @@ cudaError_t vtx::launch_gemm_splitk(const float* A, int lda, const float* B, lon
 }
 
 // The GEMM core alone, for its checks and timings (chip_smoke.py phase 3m):
-// form 0 launch_gemm, 1 launch_gemm_map<MAP_RES>, 2 launch_gemm_map<MAP_OUT>
-// (pix [map_hw] the row → pixel table), 3 launch_gemm_splitk (A as Aᵀ
+// form 0 launch_gemm_x, 1 launch_gemm_map<MAP_RES>, 2 launch_gemm_map<MAP_OUT>
+// (pix [map_hw] the row → pixel table), 3 launch_gemm_splitk_x (A as Aᵀ
 // storage with leading dimension lda, part [splits, M, N] workspace, out
-// through (som, son)).  Returns the first cudaError_t met (0 = success).
+// through (som, son)).  ln_mu … cpart are GemmExtra's fields (common.cuh):
+// the producer's transforms in forms 0 and 3, the epilogue's options in
+// form 0; the map forms take none.  Returns the first cudaError_t met (0 =
+// success).
 extern "C" int vtx_gemm_tc(const float* A, int lda, const float* B, long long sbk,
                            long long sbn, const float* bias, const float* rs, int rs_rows,
                            const float* res, float* out, const int* pix, int map_hw,
                            int form, float* part, int splits, long long som, long long son,
-                           int M, int N, int K, int silu, void* stream) {
+                           int M, int N, int K, int silu, const float* ln_mu,
+                           const float* ln_rstd, const float* ln_g, const float* ln_b,
+                           int a_act, const float* b_rs, int b_rs_rows, const float* hid,
+                           int hid_act, float* rpart, float* cpart, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const MapRows rows_map{pix, map_hw};
+  GemmExtra x;
+  x.ln_mu = ln_mu;
+  x.ln_rstd = ln_rstd;
+  x.ln_g = ln_g;
+  x.ln_b = ln_b;
+  x.a_act = a_act;
+  x.b_rs = b_rs;
+  x.b_rs_rows = b_rs_rows;
+  x.hid = hid;
+  x.hid_act = hid_act;
+  x.rpart = rpart;
+  x.cpart = cpart;
+  const bool extra = ln_mu || a_act != ACT_NONE || b_rs || hid || rpart || cpart;
   switch (form) {
     case 0:
       return static_cast<int>(
-          launch_gemm(A, B, sbk, sbn, bias, rs, rs_rows, res, out, M, N, K, silu, s));
+          launch_gemm_x(A, B, sbk, sbn, bias, rs, rs_rows, res, out, M, N, K, silu, x, s));
     case 1:
-      if (!pix || map_hw < 1) break;
+      if (!pix || map_hw < 1 || extra) break;
       return static_cast<int>(launch_gemm_map<MAP_RES>(A, B, sbk, sbn, bias, rs, rs_rows,
                                                        res, out, M, N, K, silu, rows_map, s));
     case 2:
-      if (!pix || map_hw < 1) break;
+      if (!pix || map_hw < 1 || extra) break;
       return static_cast<int>(launch_gemm_map<MAP_OUT>(A, B, sbk, sbn, bias, rs, rs_rows,
                                                        res, out, M, N, K, silu, rows_map, s));
     case 3:
-      return static_cast<int>(launch_gemm_splitk(A, lda, B, sbk, sbn, part, splits, out,
-                                                 som, son, M, N, K, s));
+      return static_cast<int>(launch_gemm_splitk_x(A, lda, B, sbk, sbn, part, splits, out,
+                                                   som, son, M, N, K, x, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

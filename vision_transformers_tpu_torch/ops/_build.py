@@ -165,11 +165,11 @@ _SIGNATURES = {
         _P, _L, _L, _P,          # w1, its strides, b1
         _P, _L, _L, _P,          # w2, its strides, b2
         _P, _P, _P,              # bias, rs_attn, rs_ff (row scales nullable)
-        _P, _P, _P, _P, _P, _P,  # u, qkv, acc, z, hid (workspace), af (nullable)
-        _P, _P, _P, _P, _P,      # mu1, rstd1, lse, mu2, rstd2 (nullable saves)
+        _P, _P, _P, _P,          # qkv, acc, z, hid (workspace the training forward keeps)
+        _P, _P, _P, _P, _P,      # mu1, rstd1, lse (nullable), mu2, rstd2 (statistics)
         _P,                      # out
         _I, _I, _I, _I, _I, _I, _I, _I, _I,  # B, H, W, C, heads, D, F, window, halo
-        _F, _F, _P,              # scale, eps, stream
+        _F, _F, _I, _P,          # scale, eps, save, stream
     ],
     "vtx_fused_halo_layer_bwd": [
         _P, _P, _P,              # x, ln1_scale, ln1_bias
@@ -182,8 +182,8 @@ _SIGNATURES = {
         _P, _P, _P, _P,          # qkv, acc, z, hid
         _P, _P, _P, _P, _P,      # mu1, rstd1, lse, mu2, rstd2
         _P,                      # do
-        _P, _P, _P, _P, _P, _P,  # da, af, dh, dz, dacc, dq partials (workspace, nullable)
-        _P, _P, _P, _P, _P, _I,  # dqkv, u, dln, dkvw, dbias partials, chunks
+        _P, _P, _P, _P, _P, _P,  # dh, dz, dacc, dq partials (nullable), dqkv, dln (workspace)
+        _P, _P, _P, _I,          # dr₂ row partials, dkvw, dbias partials, chunks
         _P, _I, _I, _I, _I, _P,  # wpart, splits out / qkv / w1 / w2, cpart
         _P, _P, _P,              # dx, dln1_scale, dln1_bias
         _P, _L, _L,              # dwqkv, its strides
@@ -312,6 +312,9 @@ _SIGNATURES = {
         _P, _I, _I,              # the row → pixel table (nullable), its length, form
         _P, _I, _L, _L,          # split-K slabs (workspace), their count, out strides
         _I, _I, _I, _I,          # M, N, K, silu
+        _P, _P, _P, _P, _I,      # A's LayerNorm: mu, rstd, scale, bias (nullable); A's act
+        _P, _I,                  # B's row scale (nullable), its rows
+        _P, _I, _P, _P,          # hid (nullable), its act, row partials, column partials
         _P,                      # stream
     ],
 }

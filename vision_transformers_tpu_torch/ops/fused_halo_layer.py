@@ -43,7 +43,7 @@ from .fused_halo import (attention_bwd_reference, attention_fwd_reference,
                          check_bias, check_halo_geometry, dbias_chunks, dq_partials)
 from .fused_layer import (_default_scale, _dot, _ln_stats, _raise_on, _residual,
                           _splits, cast_like, check_f32, check_matrix, check_vector,
-                          like_layout, out_proj_bwd_reference, ptr,
+                          like_layout, out_proj_bwd_reference, ptr, rpart_floats,
                           ff_half_bwd_reference, ff_half_fwd_reference,
                           qkv_proj_bwd_reference)
 
@@ -234,15 +234,14 @@ def _cuda_fwd(x, ln1_scale, ln1_bias, wqkv, wout, bout, ln2_scale, ln2_bias, w1,
     lib = build()
     HD = n_head * D
     opts = dict(device=x.device, dtype=torch.float32)
-    u = torch.empty((B, H, W, C), **opts)
     qkv = torch.empty((B, H, W, 3 * HD), **opts)
     acc = torch.empty((B, H, W, HD), **opts)
     z = torch.empty((B, H, W, C), **opts)
     hid = torch.empty((B, H, W, Fdim), **opts)
-    af = torch.empty((B, H, W, Fdim), **opts) if save else None
+    # the LayerNorms' statistics (saves, or the serving call's workspace) and lse
     stats = [torch.empty((B, H, W), **opts) for _ in range(2)] + \
-        [torch.empty((B, n_head, H * W), **opts)] + \
-        [torch.empty((B, H, W), **opts) for _ in range(2)] if save else [None] * 5
+        [torch.empty((B, n_head, H * W), **opts) if save else None] + \
+        [torch.empty((B, H, W), **opts) for _ in range(2)]
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -255,10 +254,9 @@ def _cuda_fwd(x, ln1_scale, ln1_bias, wqkv, wout, bout, ln2_scale, ln2_bias, w1,
             ptr(w1), w1.stride(0), w1.stride(1), ptr(b1),
             ptr(w2), w2.stride(0), w2.stride(1), ptr(b2),
             ptr(bias), ptr(rs_attn), ptr(rs_ff),
-            ptr(u), ptr(qkv), ptr(acc), ptr(z), ptr(hid), ptr(af),
-            *map(ptr, stats), ptr(out),
+            ptr(qkv), ptr(acc), ptr(z), ptr(hid), *map(ptr, stats), ptr(out),
             B, H, W, C, n_head, D, Fdim, window, halo, ctypes.c_float(scale),
-            ctypes.c_float(eps), stream)
+            ctypes.c_float(eps), int(save), stream)
     _raise_on(err, "fused_halo_layer")
     return out, (qkv, acc, z, hid, *stats)
 
@@ -289,13 +287,11 @@ def _cuda_bwd(saved: HaloSaved, do: torch.Tensor, need_drs):
                 splits[3] * Fdim * C)
     chunks_c = -(-M // 128)  # csrc COLSUM_ROWS
     ws = dict(
-        da=torch.empty((M, C), **opts) if s.rs_attn is not None or s.rs_ff is not None
-        else None,
-        af=torch.empty((M, Fdim), **opts), dh=torch.empty((M, Fdim), **opts),
-        dz=torch.empty((M, C), **opts), dacc=torch.empty((M, HD), **opts),
-        dq_part=dq_partials(k * k, M, D, nh, **opts),
-        dqkv=torch.empty((M, 3 * HD), **opts), u=torch.empty((M, C), **opts),
-        dln=torch.empty((M, C), **opts),
+        dh=torch.empty((M, Fdim), **opts), dz=torch.empty((M, C), **opts),
+        dacc=torch.empty((M, HD), **opts), dq_part=dq_partials(k * k, M, D, nh, **opts),
+        dqkv=torch.empty((M, 3 * HD), **opts), dln=torch.empty((M, C), **opts),
+        rpart=torch.empty((rpart_floats(M, Fdim, B, H * W),), **opts)
+        if (s.rs_ff is not None and need_drs[1]) or s.b1 is not None else None,
         dkvw=torch.empty((B * S * k * k * 2 * HD,), **opts),
         part=torch.empty((chunks * nh * window * window * k * k,), **opts))
     wpart_t = torch.empty((wpart,), **opts)
@@ -321,8 +317,8 @@ def _cuda_bwd(saved: HaloSaved, do: torch.Tensor, need_drs):
             ptr(s.bias), ptr(s.rs_attn), ptr(s.rs_ff),
             *map(ptr, (s.qkv, s.acc, s.z, s.hid, s.mu1, s.rstd1, s.lse, s.mu2,
                        s.rstd2, do)),
-            *(ptr(ws[n]) for n in ("da", "af", "dh", "dz", "dacc", "dq_part", "dqkv",
-                                   "u", "dln", "dkvw", "part")), chunks,
+            *(ptr(ws[n]) for n in ("dh", "dz", "dacc", "dq_part", "dqkv", "dln", "rpart",
+                                   "dkvw", "part")), chunks,
             ptr(wpart_t), *splits, ptr(cpart),
             ptr(dx), ptr(dg1), ptr(db1),
             ptr(dwqkv), dwqkv.stride(0), dwqkv.stride(1),

@@ -531,6 +531,14 @@ def _splits(rows: int, cols: int, k: int) -> int:
                 min(counts, key=lambda s: (idle(s), s)))
 
 
+def rpart_floats(rows: int, F: int, B: int, rows_per_scale: int) -> int:
+    """The FF backward's partials workspace (csrc/common.cuh
+    ff_rpart_floats): the dh GEMM's row partials [rows, ceil(F / 64)], the
+    dr pass's chunk sums [ceil(rows_per_scale / 64), B], then the dh GEMM's
+    column partials [ceil(rows / 16), F]."""
+    return rows * -(-F // 64) + B * -(-rows_per_scale // 64) + -(-rows // 16) * F
+
+
 def _cuda_bwd(saved: AttnSaved, dz: torch.Tensor, need_drs: bool, need_dextra: bool):
     """The backward kernel sequence: (dx, dg, db, dwqkv, dbqkv, dwout, dbout,
     drs, dextra_g)."""
