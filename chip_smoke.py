@@ -15,10 +15,13 @@ non-zero and prints no ok line):
 
 1. probe   torch / CUDA / nvcc / nvidia-smi / PIL; the card must be sm_90
 2. build   nvcc → shared library, one nvcc per source in parallel (timed);
-           ptxas's registers and spills, and the tensor-core instruction
-           counts (cuobjdump -sass: HMMA, HGMMA) of every instantiation of
-           the tensor-core attention kernels that B6, B3, B8, B5a, B5b and
-           B4 run and of the GEMM core (raises on a copy without one)
+           ptxas's registers and spills, how many kernels spill, and the
+           tensor-core instruction counts (cuobjdump -sass: HMMA, HGMMA) of
+           every instantiation of the tensor-core attention kernels (B6,
+           B3, B8 and the bias-free attention of B1 and B2 on
+           attention_tc.cuh; B5a, B5b and B4 on halo_attention_tc.cuh; the
+           bias calls of B1, B2 and B9 on window_attention_tc.cuh) and of
+           the GEMM core (raises on a copy without one)
 3m. gemm   the GEMM core (csrc/gemm_tc.cu, 3xTF32 on wgmma), under every
            projection of B1, B2, B4, B7, B8 and B9, alone through its thin C
            entry: the three forms (row-major A with the epilogue; B9's map
@@ -43,9 +46,11 @@ non-zero and prints no ok line):
            + plain backward, with and without row scales; per tensor max |Δ|
            ≤ 1e-3·max(1, max|plain|) (f32 sums over all rows in another
            order); two runs bit-identical; median ms.  The attention layer
-           at an odd small shape and at the ViT trainer's B=128; the whole
-           layer, with the grouped bias, at an odd small shape and at the
-           four Swin-S stages of the trainer's 64-image micro-batches
+           at an odd small shape and at the ViT trainer's B=128 (no bias:
+           the packed-row tensor-core attention); the whole layer, with the
+           grouped bias, at an odd small shape and at the four Swin-S
+           stages of the trainer's 64-image micro-batches, and without one
+           at ViT-S/16's widths (8 rows)
 3h. halo   the Halo kernels vs their plain versions at two odd small shapes
            and at the four Halo-S @256 stages at 128 images (the trainer's
            batch and its eval's): the whole Halo layer's forward (serving
@@ -65,7 +70,9 @@ non-zero and prints no ok line):
            training forward and backward vs the plain versions (per tensor
            ≤ 1e-3·max(1, max|plain|), two runs bit-identical), at an odd
            shape (also with the mask's gradient) and at the four Twins-SVT-S
-           stages at 128 images (the mask at stages 1-3); median ms
+           stages at 128 images (the mask at stages 1-3; stage 4 without
+           one, 49 tokens, heads 32 wide, on the packed-row tensor-core
+           attention); median ms
 3s.        the reduced-kv attention (PVT's SRA, Twins' GSA) on the models'
            strided head views: serving forward and training forward (with
            lse) within atol = rtol = 1e-4, backward per tensor within
@@ -262,9 +269,9 @@ KERNELS = {  # name → (source, the TPU kernel it replaces)
                               "vision_transformers_tpu/ops/fused_halo.py:252"),
     "halo_attention_direct_bwd": ("vision_transformers_tpu_torch/csrc/halo_attention_tc.cuh",
                                   "vision_transformers_tpu/ops/fused_halo.py:282"),
-    "fused_attention": ("vision_transformers_tpu_torch/csrc/fused_attention.cu",
+    "fused_attention": ("vision_transformers_tpu_torch/csrc/fused_attention_qkv.cu",
                         "vision_transformers_tpu/ops/fused_attention.py:67"),
-    "fused_attention_bwd": ("vision_transformers_tpu_torch/csrc/fused_attention.cu",
+    "fused_attention_bwd": ("vision_transformers_tpu_torch/csrc/fused_attention_qkv.cu",
                             "vision_transformers_tpu/ops/fused_attention.py:92"),
     "fused_attention_qkv": ("vision_transformers_tpu_torch/csrc/fused_attention_qkv.cu",
                             "vision_transformers_tpu/ops/fused_attention.py:313"),
@@ -360,8 +367,27 @@ def build():
     for line in _build.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"build: {line.strip()}")
+    entries, spilling = spills(_build.BUILD_LOG)
+    log(f"build: {len(spilling)} of {len(entries)} kernels spill (ptxas: spill stores or "
+        f"loads > 0)" + "".join(f"\nbuild: spills: {name}" for name in sorted(spilling)))
     tensor_core_counts(_build, lib._name)
     return secs
+
+
+def spills(build_log):
+    """(every kernel ptxas compiled, those whose spill stores or loads are
+    not 0), by mangled name, from nvcc's ``-Xptxas -v`` report."""
+    entries, spilling, entry = set(), set(), None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+            entries.add(entry)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and entry and (int(m.group(1)) or int(m.group(2))):
+            spilling.add(entry)
+    return entries, spilling
 
 
 def tensor_core_counts(_build, library):
@@ -369,10 +395,11 @@ def tensor_core_counts(_build, library):
     HGMMA: wgmma) of each instantiation of the tensor-core kernels — the
     attention of attention_tc.cuh, halo_attention_tc.cuh and
     window_attention_tc.cuh, in each source that compiles them
-    (fused_attention.cu for B6, fused_attention_qkv.cu for B3 and B8,
-    fused_halo.cu for B5a, B5b and B4, fused_layer.cu / fused_layer_bwd.cu
-    for B1's bias calls, B2 and B9), and the GEMM core's (gemm_tc.cu);
-    raises if one has none."""
+    (fused_attention_qkv.cu alone for attention_tc.cuh: B6, B3, B8 and the
+    bias-free attention of B1 and B2; fused_halo.cu for B5a, B5b and B4;
+    fused_layer.cu / fused_layer_bwd.cu for B1's bias calls, B2 and B9),
+    and the GEMM core's (gemm_tc.cu); raises if one has none, or if
+    attention_tc.cuh's kernels come from more than one source."""
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     sass = run([cuobjdump, "-sass", library], timeout=300)
     pattern = re.compile(r"_GLOBAL__N__\w+?_\d+_(\w+?)_cu_[0-9a-f]+3(?:tca|hta|gtc|wta)\d+("
@@ -397,50 +424,40 @@ def tensor_core_counts(_build, library):
         log(f"build: {name}: HMMA {n['HMMA']}, HGMMA {n['HGMMA']}")
         if not n["HMMA"] + n["HGMMA"]:
             raise RuntimeError(f"build: {name} has no tensor-core instruction")
+    core = sorted({n.split()[0] for n in counts if " attn_" in n})
+    log(f"build: attention_tc.cuh's kernels compiled in {', '.join(core)}")
+    if core != ["fused_attention_qkv.cu"]:
+        raise RuntimeError(f"build: attention_tc.cuh compiled into {core}")
 
 
 # ---------------------------------------------------------------------------
 # work counts and bounds
 # ---------------------------------------------------------------------------
 
-H100_F32_FLOPS = 67e12   # f32 FMA peak outside the tensor cores, 700 W
 H100_TF32X3_FLOPS = 495e12 / 3  # f32-accurate products on the tensor cores (3xTF32)
 H100_BYTES = 3.35e12     # HBM3 rate
 
 
-def bound(flops, nbytes, tensor_cores=False):
+def bound(flops, nbytes):
     """(bound_ms, bound_by): the least time for this work on the card, the
-    larger of bytes / 3.35 TB/s and operations / the rate of the route the
-    kernel takes: 67 TFLOP/s for f32 FMA, 495 / 3 = 165 TFLOP/s for
-    ``tensor_cores`` (three TF32 passes a product keep f32 accuracy).
-    ``flops`` may be a pair (FMA operations, tensor-core operations) of a
-    kernel sequence that takes both routes: their times add."""
-    if isinstance(flops, tuple):
-        t_ops = (flops[0] / H100_F32_FLOPS + flops[1] / H100_TF32X3_FLOPS) * 1e3
-    else:
-        rate = H100_TF32X3_FLOPS if tensor_cores else H100_F32_FLOPS
-        t_ops = flops / rate * 1e3
+    larger of bytes / 3.35 TB/s and operations / 495 / 3 = 165 TFLOP/s:
+    every product of the port's kernels runs on the tensor cores in three
+    TF32 passes, which keep f32 accuracy (the attention of B1 and B2 without
+    a bias too, since it moved onto the packed-row core)."""
+    t_ops = flops / H100_TF32X3_FLOPS * 1e3
     t_bytes = nbytes / H100_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def attention_route(attn, other, groups):
-    """(FMA operations, tensor-core operations) of a kernel sequence whose
-    attention products ``attn`` run on f32 FMAs without a bias (ViT's) and
-    on the tensor-core window attention with one (``groups`` > 0: B1's bias
-    calls, B2, B9), the ``other`` (projection) products on the GEMM core."""
-    return (0, attn + other) if groups else (attn, other)
-
-
 def attn_fwd_work(B, N, C, H, D, saves=False, groups=0):
-    """((FMA operations, tensor-core operations), bytes) of the attention
-    half's forward: two attention products (4·B·H·N²·D; f32 FMA, on the
-    tensor cores with the bias) and four projection products (8·M·C·HD, the
-    GEMM core's tensor cores); x, weights (and with ``groups`` the bias [G,
+    """(operations, bytes) of the attention half's forward: two attention
+    products (4·B·H·N²·D; the window attention with the bias, the packed-row
+    core without) and four projection products (8·M·C·HD, the GEMM core);
+    x, weights (and with ``groups`` the bias [G,
     H, N, N]) in, out written, and with ``saves`` the residuals (qkv, acc,
     mu, rstd, lse) written too."""
     M, HD = B * N, H * D
-    flops = attention_route(4 * B * H * N * N * D, 8 * M * C * HD, groups)
+    flops = 4 * B * H * N * N * D + 8 * M * C * HD
     nbytes = 4 * (2 * M * C + 4 * C * HD + 3 * HD + 3 * C + B + groups * H * N * N)
     if saves:
         nbytes += 4 * (4 * M * HD + 2 * M + B * H * N)
@@ -500,13 +517,11 @@ def ff_bwd_work(B, N, C, F, row_scale=False):
 
 
 def layer_fwd_work(B, N, C, H, D, F, groups=0, row_scales=False, saves=False):
-    """((FMA operations, tensor-core operations), bytes) of the whole
-    layer's forward: the attention half plus the FF GEMMs (4·M·C·F, tensor
-    cores); with ``groups`` the bias [G, H, N, N] read (and the attention
-    on the tensor cores), with ``saves`` qkv, acc, z, hid and the
-    statistics written."""
+    """(operations, bytes) of the whole layer's forward: the attention half
+    plus the FF GEMMs (4·M·C·F); with ``groups`` the bias [G, H, N, N] read,
+    with ``saves`` qkv, acc, z, hid and the statistics written."""
     M, HD = B * N, H * D
-    flops = attention_route(4 * B * H * N * N * D, 8 * M * C * HD + 4 * M * C * F, groups)
+    flops = 4 * B * H * N * N * D + 8 * M * C * HD + 4 * M * C * F
     nbytes = 4 * (2 * M * C + 4 * C * HD + 2 * C * F + 3 * HD + 5 * C + F
                   + groups * H * N * N + (2 * B if row_scales else 0))
     if saves:
@@ -515,29 +530,25 @@ def layer_fwd_work(B, N, C, H, D, F, groups=0, row_scales=False, saves=False):
 
 
 def attn_bwd_work(B, N, C, H, D, groups=0):
-    """((FMA operations, tensor-core operations), bytes) of the backward:
-    five attention products (recomputed scores, dv, dp, dk, dq; f32 FMA, on
-    the tensor cores with the bias) and the four projection products of the
-    weight and input gradients (16·M·C·HD, tensor cores); reads x, dz, the
+    """(operations, bytes) of the backward: five attention products
+    (recomputed scores, dv, dp, dk, dq) and the four projection products of
+    the weight and input gradients (16·M·C·HD); reads x, dz, the
     saves, the weights (and with ``groups`` the bias) once, writes dx and
     the parameter gradients once."""
     M, HD = B * N, H * D
-    flops = attention_route(10 * B * H * N * N * D, 16 * M * C * HD, groups)
+    flops = 10 * B * H * N * N * D + 16 * M * C * HD
     nbytes = 4 * (3 * M * C + 4 * M * HD + 2 * M + B * H * N
                   + 2 * (4 * C * HD + 3 * HD + 3 * C) + 2 * B + groups * H * N * N)
     return flops, nbytes
 
 
 def layer_bwd_work(B, N, C, H, D, F, groups=0, row_scales=False):
-    """((FMA operations, tensor-core operations), bytes) of the whole
-    layer's backward: the attention half's (attn_bwd_work) plus the FF
-    half's four GEMMs (8·M·C·F, tensor cores); reads x, do, the saves (qkv,
-    acc, z, hid, statistics, lse), the weights and the bias once, writes dx,
-    the parameter gradients and dextra once; with ``groups`` the attention
-    on the tensor cores."""
+    """(operations, bytes) of the whole layer's backward: the attention
+    half's (attn_bwd_work) plus the FF half's four GEMMs (8·M·C·F); reads x,
+    do, the saves (qkv, acc, z, hid, statistics, lse), the weights and the
+    bias once, writes dx, the parameter gradients and dextra once."""
     M, HD = B * N, H * D
-    flops = attention_route(10 * B * H * N * N * D, 16 * M * C * HD + 8 * M * C * F,
-                            groups)
+    flops = 10 * B * H * N * N * D + 16 * M * C * HD + 8 * M * C * F
     nbytes = 4 * (3 * M * C + 4 * M * HD + M * C + M * F + 4 * M + B * H * N
                   + 2 * (4 * C * HD + 2 * C * F + 3 * HD + 7 * C + F)
                   + 2 * groups * H * N * N + (4 * B if row_scales else 0))
@@ -546,14 +557,13 @@ def layer_bwd_work(B, N, C, H, D, F, groups=0, row_scales=False):
 
 def halo_layer_fwd_work(B, H, W, C, nh, D, F, window, halo, row_scales=False,
                        saves=False):
-    """((FMA operations, tensor-core operations), bytes) of the whole Halo
-    layer's forward on M = B·H·W tokens, all of it on the tensor cores: the
-    four projection GEMMs (8·M·C·HD + 4·M·C·F) and halo attention over k² =
-    (w + 2·halo)² positions (4·M·k²·HD); x, the weights and the bias [nh,
-    w², k²] read, out written, and with ``saves`` qkv, acc, z, hid, the
-    statistics and lse written too."""
+    """(operations, bytes) of the whole Halo layer's forward on M = B·H·W
+    tokens: the four projection GEMMs (8·M·C·HD + 4·M·C·F) and halo
+    attention over k² = (w + 2·halo)² positions (4·M·k²·HD); x, the weights
+    and the bias [nh, w², k²] read, out written, and with ``saves`` qkv,
+    acc, z, hid, the statistics and lse written too."""
     M, HD, k2 = B * H * W, nh * D, (window + 2 * halo) ** 2
-    flops = (0, 8 * M * C * HD + 4 * M * C * F + 4 * M * k2 * HD)
+    flops = 8 * M * C * HD + 4 * M * C * F + 4 * M * k2 * HD
     nbytes = 4 * (2 * M * C + 4 * C * HD + 2 * C * F + 6 * C + F
                   + nh * window * window * k2 + (2 * B if row_scales else 0))
     if saves:
@@ -562,13 +572,12 @@ def halo_layer_fwd_work(B, H, W, C, nh, D, F, window, halo, row_scales=False,
 
 
 def halo_layer_bwd_work(B, H, W, C, nh, D, F, window, halo, row_scales=False):
-    """((FMA operations, tensor-core operations), bytes) of the whole Halo
-    layer's backward, all of it on the tensor cores: 16·M·C·HD + 8·M·C·F
-    of GEMMs and five halo attention products (recomputed scores, dv, dp,
-    dk, dq: 10·M·k²·HD); reads x, do, the saves and the weights and bias
+    """(operations, bytes) of the whole Halo layer's backward: 16·M·C·HD +
+    8·M·C·F of GEMMs and five halo attention products (recomputed scores,
+    dv, dp, dk, dq: 10·M·k²·HD); reads x, do, the saves and the weights and bias
     once, writes dx, the parameter gradients and dbias once."""
     M, HD, k2 = B * H * W, nh * D, (window + 2 * halo) ** 2
-    flops = (0, 16 * M * C * HD + 8 * M * C * F + 10 * M * k2 * HD)
+    flops = 16 * M * C * HD + 8 * M * C * F + 10 * M * k2 * HD
     params = 4 * C * HD + 2 * C * F + 6 * C + F
     nbytes = 4 * (3 * M * C + 4 * M * HD + M * C + M * F + 4 * M + nh * M
                   + 2 * params + 2 * nh * window * window * k2
@@ -852,7 +861,7 @@ def gemm_pass_kernels(torch, gm, fl, worst):
         flops = 2 * M * N * K
         nbytes = 4 * (M * K + K * N + M * N + (M * N if "res" in opts else 0)
                       + (2 * M * N if "hid" in opts else 0))
-        bound_ms, by = bound(flops, nbytes, tensor_cores=True)
+        bound_ms, by = bound(flops, nbytes)
         log(f"gemm: {what}: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), the same "
             f"product without the options {bare_ms:.3f} ms, torch.matmul f32 {lib_ms:.3f} "
             f"ms; bound {bound_ms:.3f} ms ({by}, {100 * bound_ms / ms:.0f}% of it) (median "
@@ -920,7 +929,7 @@ def gemm_kernels(torch):
         flops = 2 * M * N * K
         nbytes = 4 * (M * K + K * N + M * N + (M * N if "res" in epi else 0)
                       + (N if "bias" in epi else 0))
-        bound_ms, by = bound(flops, nbytes, tensor_cores=True)
+        bound_ms, by = bound(flops, nbytes)
         log(f"gemm: {what}: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
             f"torch.matmul f32 {lib_ms:.3f} ms ({flops / lib_ms / 1e9:.1f} TFLOP/s); bound "
             f"{bound_ms:.3f} ms ({by}, {100 * bound_ms / ms:.0f}% of it) (median of 20 "
@@ -1264,6 +1273,25 @@ def swin_backward_kernel(torch):
             compare_grads(torch, what, ("out",) + fl1.GRAD_NAMES, (out,) + grads,
                           (out,) + again, (out_p,) + plain, worst)
             del saved, saved_p, grads, again, plain
+    # without a bias (ViT-S/16's widths at 8 rows): the packed-row attention
+    shape = vit_shape(8)
+    for use_rs in (False, True):
+        a = layer_args(torch, *shape, seed=1)
+        r = None
+        if use_rs:
+            r = torch.tensor([0.0] + [1 / 0.9] * (shape[0] - 1), device=DEVICE)
+        do = torch.randn(a[0].shape, device=DEVICE,
+                         generator=torch.Generator(DEVICE).manual_seed(2))
+        out, saved = fl1.fused_transformer_layer_fwd(*a, shape[3], None, r, r)
+        grads = fl1.fused_transformer_layer_bwd(saved, do)
+        again = fl1.fused_transformer_layer_bwd(saved, do)
+        torch.cuda.synchronize()
+        out_p, saved_p = fl1.fused_transformer_layer_fwd_reference(*a, shape[3], None, r, r)
+        plain = fl1.fused_transformer_layer_bwd_reference(saved_p, do)
+        compare_grads(torch, f"ViT-S B,N,C,H,D,F={shape} no bias rs={use_rs}",
+                      ("out",) + fl1.GRAD_NAMES, (out,) + grads, (out,) + again,
+                      (out_p,) + plain, worst)
+        del saved, saved_p, grads, again, plain
 
     fwd, bwd = [], []
     for call in sorted(stages, key=lambda c: c["stage"] != 3):
@@ -1583,8 +1611,8 @@ def window_kernels(torch):
             s_fwd, s_bwd = sdpa_window(torch, qkv, bias, call, scale, False)
             l_f, l_b = median_ms(torch, s_fwd), median_ms(torch, s_bwd)
             del s_fwd, s_bwd
-            fb, fby = bound(*window_fwd_work(P, N, H, D, G), tensor_cores=True)
-            bb, bby = bound(*window_bwd_work(P, N, H, D, G), tensor_cores=True)
+            fb, fby = bound(*window_fwd_work(P, N, H, D, G))
+            bb, bby = bound(*window_bwd_work(P, N, H, D, G))
             log(f"kernels: window_attention {what} (median of 20, CUDA events): kernel fwd "
                 f"{k_f:.3f} + bwd {k_b:.3f} ms; plain fwd {p_f:.3f} + bwd {p_b:.3f} ms; "
                 f"scaled_dot_product_attention fwd {l_f:.3f} + bwd {l_b:.3f} ms; bound "
@@ -1759,8 +1787,7 @@ def halo_kernels(torch):
                 out, call["window"]).reshape(-1, nh * D)).abs().max().item()
             library_ms = median_ms(torch, lambda: F_.scaled_dot_product_attention(
                 qg, kg, vg, attn_mask=mask, scale=scale))
-            bound_ms, by = bound(*halo_attn_fwd_work(B, H, W, nh, D, **kw),
-                                 tensor_cores=True)
+            bound_ms, by = bound(*halo_attn_fwd_work(B, H, W, nh, D, **kw))
             log(f"kernels: halo_attention_direct Halo stage {call['stage']} (128 images): "
                 f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, scaled_dot_product_attention "
                 f"on the gathered problem {library_ms:.3f} ms (max|Δ| to the kernel "
@@ -1866,9 +1893,8 @@ def halo_backward_kernels(torch):
         dlib = torch.randn_like(lib)
         lib_ms = median_ms(torch, lambda: torch.autograd.grad(lib, leaves, dlib,
                                                               retain_graph=True))
-        fb, fby = bound(*halo_attn_fwd_work(B, H, W, nh, D, **kw, saves=True),
-                        tensor_cores=True)
-        bb, bby = bound(*halo_attn_bwd_work(B, H, W, nh, D, **kw), tensor_cores=True)
+        fb, fby = bound(*halo_attn_fwd_work(B, H, W, nh, D, **kw, saves=True))
+        bb, bby = bound(*halo_attn_bwd_work(B, H, W, nh, D, **kw))
         log(f"backward: halo_attention_direct Halo stage {call['stage']} (128 images): "
             f"kernel fwd(saves) {f_ms:.3f} + bwd {b_ms:.3f} ms; plain fwd {pf_ms:.3f} + "
             f"bwd {pb_ms:.3f} ms; scaled_dot_product_attention's backward on the "
@@ -1981,8 +2007,8 @@ def gather_kernels(torch):
             dlib = heads(do)
             lb_ms = median_ms(torch, lambda: torch.autograd.grad(lib, leaves, dlib,
                                                                  retain_graph=True))
-            fb, fby = bound(*gather_fwd_work(Bw, M, N, nh, D, saves=True), tensor_cores=True)
-            bb, bby = bound(*gather_bwd_work(Bw, M, N, nh, D), tensor_cores=True)
+            fb, fby = bound(*gather_fwd_work(Bw, M, N, nh, D, saves=True))
+            bb, bby = bound(*gather_bwd_work(Bw, M, N, nh, D))
             log(f"kernels: halo_attention {what} (median of 20, CUDA events): kernel "
                 f"fwd(lse) {f_ms:.3f} + bwd {b_ms:.3f} ms; plain fwd {pf_ms:.3f} + bwd "
                 f"{pb_ms:.3f} ms; scaled_dot_product_attention fwd {lf_ms:.3f} + its "
@@ -2108,10 +2134,8 @@ def block_kernels(torch):
             dlib = do.transpose(0, 1)
             lb_ms = median_ms(torch, lambda: torch.autograd.grad(lib, leaves, dlib,
                                                                  retain_graph=True))
-            fb_ms, fby = bound(*block_fwd_work(B, N, C, H, D, Cout, groups, saves=True),
-                               tensor_cores=True)
-            bb_ms, bby = bound(*block_bwd_work(B, N, C, H, D, Cout, groups),
-                               tensor_cores=True)
+            fb_ms, fby = bound(*block_fwd_work(B, N, C, H, D, Cout, groups, saves=True))
+            bb_ms, bby = bound(*block_bwd_work(B, N, C, H, D, Cout, groups))
             log(f"kernels: fused_attention_block {what} (median of 20, CUDA events): "
                 f"kernel fwd(saves) {f_ms:.3f} + bwd {b_ms:.3f} ms; plain fwd {pf_ms:.3f} + "
                 f"bwd {pb_ms:.3f} ms; multi_head_attention_forward fwd {lf_ms:.3f} + its "
@@ -2261,8 +2285,8 @@ def sra_kernels(torch):
             lf_ms = median_ms(torch, lambda: F_.scaled_dot_product_attention(q, k, v))
             lb_ms = median_ms(torch, lambda: torch.autograd.grad(lib, leaves, do,
                                                                  retain_graph=True))
-            fb, fby = bound(*sra_fwd_work(*call["shape"], saves=True), tensor_cores=True)
-            bb, bby = bound(*sra_bwd_work(*call["shape"]), tensor_cores=True)
+            fb, fby = bound(*sra_fwd_work(*call["shape"], saves=True))
+            bb, bby = bound(*sra_bwd_work(*call["shape"]))
             log(f"kernels: fused_attention {what} (median of 20, CUDA events): kernel "
                 f"fwd(lse) {f_ms:.3f} + bwd {b_ms:.3f} ms; plain fwd {pf_ms:.3f} + bwd "
                 f"{pb_ms:.3f} ms; scaled_dot_product_attention fwd {lf_ms:.3f} + its "
@@ -2476,8 +2500,8 @@ def qkv_kernels(torch):
                 q, k, v, attn_mask=mask, scale=saved.scale))
             lb_ms = median_ms(torch, lambda: torch.autograd.grad(lib, leaf, dlib,
                                                                  retain_graph=True))
-            fb, fby = bound(*qkv_fwd_work(B, N, H, D, groups, saves=True), tensor_cores=True)
-            bb, bby = bound(*qkv_bwd_work(B, N, H, D, groups), tensor_cores=True)
+            fb, fby = bound(*qkv_fwd_work(B, N, H, D, groups, saves=True))
+            bb, bby = bound(*qkv_bwd_work(B, N, H, D, groups))
             log(f"kernels: fused_attention_qkv {what} (median of 20, CUDA events): kernel "
                 f"fwd(lse) {f_ms:.3f} + bwd {b_ms:.3f} ms; plain fwd {pf_ms:.3f} + bwd "
                 f"{pb_ms:.3f} ms; scaled_dot_product_attention fwd {lf_ms:.3f} + its "
@@ -2558,8 +2582,8 @@ def ff_kernels(torch):
     b_ms = median_ms(torch, lambda: fl.fused_ff_layer_bwd(saved, do))
     pf_ms = median_ms(torch, lambda: fl.fused_ff_layer_fwd_reference(*a, "silu", rs))
     pb_ms = median_ms(torch, lambda: fl.fused_ff_layer_bwd_reference(saved_p, do))
-    fb, fby = bound(*ff_fwd_work(*vit, row_scale=True, saves=True), tensor_cores=True)
-    bb, bby = bound(*ff_bwd_work(*vit, row_scale=True), tensor_cores=True)
+    fb, fby = bound(*ff_fwd_work(*vit, row_scale=True, saves=True))
+    bb, bby = bound(*ff_bwd_work(*vit, row_scale=True))
     log(f"backward: fused_ff_layer ViT-S/16 train call (B,N,C,F={vit}, silu, row scale; "
         f"median of 20, CUDA events): kernel fwd(saves) {f_ms:.3f} + bwd {b_ms:.3f} ms; "
         f"plain fwd {pf_ms:.3f} + bwd {pb_ms:.3f} ms; bound fwd {fb:.3f} ({fby}) + bwd "

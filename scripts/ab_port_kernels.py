@@ -8,8 +8,11 @@ parent / change comparison run in turns within one call:
 ``vision_transformers_tpu_torch`` is imported and built (each tree builds into
 its own ``_build/``). Times, as medians of 20 CUDA-event timings after 3 warm-
 up calls: B1 ``fused_attention_layer`` forward with saves and backward at
-ViT-S B=128 with a row scale, and at Twins-SVT-S stage 3 at 128 images (256
-rows of 98 tokens, C 256, 8 heads of 32, the pair mask, no mask gradient); B2
+ViT-S B=128 with a row scale, at Twins-SVT-S stages 3 and 1 at 128 images
+(256 rows of 98 tokens, C 256, 8 heads of 32; 4096 rows, C 64, 2 heads; the
+pair mask, no mask gradient) and
+at Twins-SVT-S stage 4 at 128 images (49 tokens, C 512, 16 heads of 32, no
+mask); B2's serving forward at ViT-S B=128 (the eval call, no bias); B2
 ``fused_transformer_layer`` forward with saves and backward at Swin-S stages 3
 and 1 at 64 images (128 rows of 98 tokens, C 384, 12 heads of 32, the grouped
 bias of 2 groups; 2048 rows, C 96, 3 heads, 32 groups; both row scales); B4
@@ -30,7 +33,8 @@ backward at Swin-S stages 1 and 3 at 64 images (shifted: the grouped bias of 32
 lse and backward at PVT-S stages 1 and 3 at 128 images (the models' strided
 head views). Prints the card, ptxas's registers and spills of every kernel
 compiled from fused_layer.cu, fused_layer_bwd.cu, fused_layer1_bwd.cu,
-fused_attention.cu, fused_attention_qkv.cu and fused_halo.cu (B1-B8) when this
+fused_attention.cu (where the tree has it), fused_attention_qkv.cu and
+fused_halo.cu (B1-B8) when this
 process builds the tree, and one JSON line. Needs CUDA; imports no JAX.
 
 Also the GEMM core under B1, B2, B4, B7, B8 and B9 alone, at the main
@@ -199,16 +203,27 @@ def main() -> None:
     _, saved = fl.fused_attention_layer_fwd(*a[:7], 6, row_scale=r)
     out["B1 ViT fwd"] = ms(lambda: fl.fused_attention_layer_fwd(*a[:7], 6, row_scale=r))
     out["B1 ViT bwd"] = ms(lambda: fl.fused_attention_layer_bwd(saved, dz))
-    a = args(256, 98, 256, 8, 32, 1024)
     win = torch.arange(98, device="cuda") // 49
     mask = torch.where(win[:, None] == win[None, :], 0.0, -1e9)
-    dz = torch.randn(256, 98, 256, device="cuda")
-    r = torch.ones(256, device="cuda")
-    _, saved = fl.fused_attention_layer_fwd(*a[:7], 8, row_scale=r, extra=mask)
-    out["B1 Twins3 fwd"] = ms(lambda: fl.fused_attention_layer_fwd(*a[:7], 8, row_scale=r,
-                                                                   extra=mask))
-    out["B1 Twins3 bwd"] = ms(lambda: fl.fused_attention_layer_bwd(saved, dz,
-                                                                   need_dextra=False))
+    for stage, (rows, C, H) in ((3, (256, 256, 8)), (1, (4096, 64, 2))):
+        a = args(rows, 98, C, H, 32, 4 * C)
+        dz = torch.randn(rows, 98, C, device="cuda")
+        r = torch.ones(rows, device="cuda")
+        _, saved = fl.fused_attention_layer_fwd(*a[:7], H, row_scale=r, extra=mask)
+        out[f"B1 Twins{stage} fwd"] = ms(lambda: fl.fused_attention_layer_fwd(
+            *a[:7], H, row_scale=r, extra=mask))
+        out[f"B1 Twins{stage} bwd"] = ms(lambda: fl.fused_attention_layer_bwd(
+            saved, dz, need_dextra=False))
+        del saved
+    a = args(128, 49, 512, 16, 32, 2048)
+    dz = torch.randn(128, 49, 512, device="cuda")
+    r = torch.ones(128, device="cuda")
+    _, saved = fl.fused_attention_layer_fwd(*a[:7], 16, row_scale=r)
+    out["B1 Twins4 fwd"] = ms(lambda: fl.fused_attention_layer_fwd(*a[:7], 16, row_scale=r))
+    out["B1 Twins4 bwd"] = ms(lambda: fl.fused_attention_layer_bwd(saved, dz))
+    a = args(128, 197, 384, 6, 64, 1536)
+    with torch.no_grad():
+        out["B2 ViT eval fwd"] = ms(lambda: fl1.fused_transformer_layer(*a, 6))
     r = torch.ones(128, device="cuda")
     a = args(128, 98, 384, 12, 32, 1536)
     extra = 0.2 * torch.randn(2, 12, 98, 98, device="cuda")

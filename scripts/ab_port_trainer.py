@@ -4,9 +4,11 @@ and path that chip_smoke.py's phase 6 trains, for a parent / change
 comparison run in turns within one call:
 
     for t in parent . . parent; do python3 scripts/ab_port_trainer.py $t; done
+    python3 scripts/ab_port_trainer.py . "ViT-S/16 block" "Swin-S swin"
 
 ``ROOT`` (default: this checkout) is the tree whose
-``vision_transformers_tpu_torch`` is imported and built.  Each run is
+``vision_transformers_tpu_torch`` is imported and built; labels after it
+(those of ``RUNS``) keep only those runs.  Each run is
 ``train.main`` f32 at batch 128 for one synthetic epoch (4 steps, then the
 256-image valid pass), as phase 6 runs it: ViT-S/16 (default; dropout;
 the FF kernel; 'block' with and without dropout), Swin-S ('layer1'
@@ -98,7 +100,13 @@ def main() -> None:
                           text=True, timeout=60).stdout.strip().splitlines()[0]
     train_step = engine.train_step
     out = {}
+    only = sys.argv[2:]
+    unknown = set(only) - {run[0] for run in RUNS}
+    if unknown:
+        raise SystemExit(f"unknown runs {sorted(unknown)}")
     for label, conf, overrides, forces, env in RUNS:
+        if only and label not in only:
+            continue
         steps = []
 
         def timed(*args, **kwargs):

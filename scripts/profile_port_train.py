@@ -62,9 +62,8 @@ GROUPS = (("at::native", "other (elementwise, reductions, conv)"),
           ("window_fwd_kernel", "hand-written attention forward"),
           ("attn_bwd", "hand-written attention backward"),
           ("attn_fwd", "hand-written attention forward"),
-          ("attention_kernel", "hand-written attention forward"),
           ("splitk_reduce", "other hand-written"), ("colsum", "other hand-written"),
-          ("ln_", "other hand-written"), ("attn_delta", "other hand-written"),
+          ("ln_", "other hand-written"),
           ("row_scale_grad", "other hand-written"), ("scale_rows", "other hand-written"),
           ("silu", "other hand-written"), ("group_sum", "other hand-written"),
           ("act_kernel", "other hand-written"), ("dact_mul", "other hand-written"),

@@ -11,9 +11,11 @@ line.
 
 Phases: ``3m`` (the GEMM core under every projection of B1, B2, B4, B7, B8 and
 B9), ``3`` (the forwards of the attention layer B1 and the whole layer B2,
-Swin-S's stages and Twins-SVT-S stage 3's mask call among them), ``3b`` (B2's
-training forward and backward at Swin-S's stages), ``3t`` (B1 with Twins' pair
-mask, forward and backward), ``3a`` (the tensor-core window attention alone,
+Swin-S's stages and Twins-SVT-S stage 3's mask call among them), ``3v`` (B1's
+training forward and backward at ViT-S/16, no bias), ``3b`` (B2's training
+forward and backward at Swin-S's stages and without a bias at ViT-S/16's
+widths), ``3t`` (B1 with Twins' pair mask at stages 1-3 and without one at
+stage 4, forward and backward), ``3a`` (the tensor-core window attention alone,
 under B1's bias calls, B2 and B9), ``3s`` (the reduced-kv attention, B6),
 ``3q`` (the packed-qkv attention, B3), ``3h`` (the Halo kernels' forwards: the
 whole Halo layer B4 and the halo attention B5a), ``3hb`` (their backwards),
@@ -28,7 +30,8 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PHASES = {"3m": "gemm_kernels", "3": "kernels", "3b": "swin_backward_kernel",
+PHASES = {"3m": "gemm_kernels", "3": "kernels", "3v": "backward_kernel",
+          "3b": "swin_backward_kernel",
           "3t": "twins_layer_kernels", "3a": "window_kernels", "3s": "sra_kernels",
           "3q": "qkv_kernels", "3h": "halo_kernels", "3hb": "halo_backward_kernels",
           "3g": "gather_kernels", "3k": "block_kernels", "3w": "swin_map_kernels",
@@ -51,10 +54,9 @@ def main() -> None:
     chip_smoke.build()
     for phase in which:
         result = getattr(chip_smoke, PHASES[phase])(torch)
-        if isinstance(result, list) and result and isinstance(result[0], dict):
-            result = [result]  # one list of records
-        records = [r for part in (result.values() if isinstance(result, dict) else result)
-                   for r in part]
+        parts = result.values() if isinstance(result, dict) else result or ()
+        # a phase returns records, lists of records or {kernel: records}
+        records = [r for part in parts for r in ([part] if isinstance(part, dict) else part)]
         for rec in records:
             print(json.dumps({"phase": phase, **rec}), flush=True)
     print(f"phases {' '.join(which)} ok in {time.perf_counter() - t0:.1f} s")

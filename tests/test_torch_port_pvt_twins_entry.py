@@ -281,16 +281,16 @@ def test_cuda_layer_passes_the_bias_forward_and_backward(monkeypatch, need_dextr
     assert after == tuple(b + 1 for b in before)
     assert fwd[11:14] == (extra_g.data_ptr(), 1, rs.data_ptr())
     assert bwd[11:14] == (extra_g.data_ptr(), 1, rs.data_ptr())
-    # the window attention computes Δ itself: no delta workspace with the bias
-    delta, dbpart, dextra = bwd[22], bwd[26], bwd[43]
-    assert delta is None
+    # the window attention writes dq itself: no dq partials with the bias
+    dq_part, dbpart, dextra = bwd[21], bwd[24], bwd[41]
+    assert dq_part is None
     assert len(grads) == 9 and grads[7].shape == (4,)
     if need_dextra:
         assert grads[8].shape == (1, 2, 18, 18) and dextra == grads[8].data_ptr()
         assert dbpart is not None
     else:
         assert grads[8] is None and dextra is None and dbpart is None
-    assert bwd[44:49] == (4, 18, 32, 2, 16)
+    assert bwd[42:47] == (4, 18, 32, 2, 16)
 
 
 def test_cuda_layer_refuses_a_bias_with_wide_heads(monkeypatch):

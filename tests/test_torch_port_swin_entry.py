@@ -145,12 +145,12 @@ def test_cuda_backward_takes_bias_and_row_scales(monkeypatch):
     assert call[21:25] == (extra.data_ptr(), 2, r1.data_ptr(), r2.data_ptr())
     dextra, drs_attn, drs_ff = grads[13:]
     assert dextra.shape == extra.shape and drs_attn.shape == drs_ff.shape == (4,)
-    assert call[72:75] == (dextra.data_ptr(), drs_attn.data_ptr(), drs_ff.data_ptr())
-    assert call[44] is not None  # the dbias partials of the window attention
+    assert call[70:73] == (dextra.data_ptr(), drs_attn.data_ptr(), drs_ff.data_ptr())
+    assert call[42] is not None  # the dbias partials of the window attention
     # without a bias gradient or row-scale gradients asked for: null pointers
     grads = fused_layer1._cuda_bwd(saved, torch.zeros_like(args[0]), (False, False), False)
     assert grads[13:] == (None, None, None)
-    assert lib.calls["vtx_fused_transformer_layer_bwd"][72:75] == (None, None, None)
+    assert lib.calls["vtx_fused_transformer_layer_bwd"][70:73] == (None, None, None)
 
 
 def test_cuda_refuses_what_the_kernel_does_not_take(monkeypatch):

@@ -10,12 +10,13 @@ and a product is lo·hi + hi·lo + hi·hi (csrc/mma_tf32.cuh).  Here torch
 emulates those products bit for bit in the rounding of their operands and
 runs the kernels' attention with them, forward (S = q·kᵀ, O = P·V) and
 backward (the five products S, dP = do·vᵀ, dV = Pᵀ·do, dQ = dS·k, dK =
-dSᵀ·q), at ViT-S/16 (B 2), PVT-S stage 1 (B 1), Swin (D 32, the grouped
-bias with the pair mask) and halo shapes (a few windows of Halo-S stage 1,
-64 queries against 144 keys, and of window 4 / halo 3, 16 against 100;
-one [H, M, N] bias shared by the windows, every seventh key and value row
-zero as out-of-map positions are), with q, k, v of std 1 (chip_smoke's
-inputs) and of std 3.  The halo kernels pass lo = x − hi to the tensor core
+dSᵀ·q), at ViT-S/16 (B 2), Twins-SVT-S stage 4 (B 2: 49 tokens, heads 32
+wide, no bias: the attention layer B1's call there), PVT-S stage 1 (B 1),
+Swin (D 32, the grouped bias with the pair mask) and halo shapes (a few
+windows of Halo-S stage 1, 64 queries against 144 keys, and of window 4 /
+halo 3, 16 against 100; one [H, M, N] bias shared by the windows, every
+seventh key and value row zero as out-of-map positions are), with q, k, v
+of std 1 (chip_smoke's inputs) and of std 3.  The halo kernels pass lo = x − hi to the tensor core
 unrounded, which reads its top 19 bits (lo truncated to TF32); their shapes
 are emulated so.  The result holds chip_smoke.py's limits against the
 port's f32 plain versions (forward atol = rtol = 1e-4, backward
@@ -35,6 +36,7 @@ from torch_port_threads import one_torch_thread  # noqa: F401
 FWD_TOL = 1e-4  # chip_smoke.KERNEL_TOL
 SHAPES = {  # name → (B, H, M, N, D, bias groups or 0, or "halo": windows)
     "vit_s16": (2, 6, 197, 197, 64, 0),
+    "twins_stage4": (2, 16, 49, 49, 32, 0),  # B1's bias-free call at D 32
     "pvt_s_stage1": (1, 1, 3136, 49, 64, 0),
     "swin_stage1": (4, 3, 98, 98, 32, 2),
     "halo_s_stage1": (6, 3, 64, 144, 32, "halo"),

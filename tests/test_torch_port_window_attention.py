@@ -276,10 +276,10 @@ def test_b1_bias_backward_passes_the_partials(monkeypatch):
         saved = fused_layer.AttnSaved(*args, None, *res, extra, H, 0.25, 1e-6)
         grads = fused_layer._cuda_bwd(saved, torch.zeros_like(out), False, True)
         bwd = lib.calls["vtx_fused_attention_layer_bwd"]
-    assert len(made) == 1 and bwd[26] == made[0].data_ptr()
+    assert len(made) == 1 and bwd[24] == made[0].data_ptr()
     assert made[0].shape == (fused_layer.window_chunks(B, G, H), G, H, N, N)
-    assert bwd[22] is None  # no Δ workspace: the kernel computes it
-    assert bwd[43] == grads[8].data_ptr() and grads[8].shape == extra.shape
+    assert bwd[21] is None  # no dq partials: the window kernel writes dq itself
+    assert bwd[41] == grads[8].data_ptr() and grads[8].shape == extra.shape
 
 
 def test_b2_backward_passes_the_partials(monkeypatch):
@@ -295,11 +295,11 @@ def test_b2_backward_passes_the_partials(monkeypatch):
         call = lib.calls["vtx_fused_transformer_layer_bwd"]
         fused_layer1._cuda_bwd(saved, torch.zeros_like(args[0]), (False, False), False)
         no_grad = lib.calls["vtx_fused_transformer_layer_bwd"]
-    assert len(made) == 1 and call[44] == made[0].data_ptr()
+    assert len(made) == 1 and call[42] == made[0].data_ptr()
     assert made[0].shape == (fused_layer.window_chunks(B, G, H), G, H, N, N)
-    assert call[40] is None  # no Δ workspace
-    assert call[72] == grads[13].data_ptr()
-    assert no_grad[44] is None and no_grad[72] is None
+    assert call[39] is None  # no dq partials
+    assert call[70] == grads[13].data_ptr()
+    assert no_grad[42] is None and no_grad[70] is None
 
 
 def test_b9_backward_passes_the_partials(monkeypatch):

@@ -137,10 +137,10 @@ using vtx::launch_gemm_x;
 // internal linkage: each .cu that includes this gets its own copy
 namespace {
 
-// largest attention head width: the FMA attention kernels hold a head's
-// vectors in registers, zero-padded to this width; with an additive bias the
-// tensor-core window attention (window_attention_tc.cuh) takes heads up to
-// EXTRA_DMAX wide
+// largest attention head width: the tensor-core attention core
+// (attention_tc.cuh) stages a head 32 or 64 floats wide; with an additive
+// bias the layers' window attention (window_attention_tc.cuh) takes heads up
+// to EXTRA_DMAX wide
 constexpr int DMAX = 64;
 constexpr int EXTRA_DMAX = 32;
 
@@ -522,153 +522,6 @@ act_kernel(const float* h, float* out, long long total) {
   out[i] = act_fwd<ACT>(h[i]);
 }
 
-// Δ[b, h, n] = Σ_d dacc[m, h·D + d] · acc[m, h·D + d]   (m = b·N + n): the
-// row sums of dO ⊙ O that the attention backward passes read
-__global__ void __launch_bounds__(EW_THREADS)
-attn_delta_kernel(const float* __restrict__ dacc, const float* __restrict__ acc,
-                  float* __restrict__ delta, int B, int N, int H, int D) {
-  const long long i = (long long)blockIdx.x * EW_THREADS + threadIdx.x;
-  if (i >= (long long)B * H * N) return;
-  const int n = i % N;
-  const int h = (i / N) % H;
-  const long long b = i / ((long long)N * H);
-  const long long off = (b * N + n) * H * D + (long long)h * D;
-  float s = 0.f;
-  for (int d = 0; d < D; ++d) s = fmaf(dacc[off + d], acc[off + d], s);
-  delta[i] = s;
-}
-
-// ---------------------------------------------------------------------------
-// The grouped bias's gradient: dextra[g, h, q, k] = Σ_{r < R} ds[g·R + r,
-// h, q, k], R = B / G rows per group, summed in r order (one thread per
-// output element)
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(EW_THREADS)
-group_sum_kernel(const float* __restrict__ ds, int R, long long per_row,
-                 long long total, float* __restrict__ out) {
-  const long long e = (long long)blockIdx.x * EW_THREADS + threadIdx.x;
-  if (e >= total) return;
-  const long long g = e / per_row, rem = e % per_row;
-  const float* src = ds + g * R * per_row + rem;
-  float s = 0.f;
-  for (int r = 0; r < R; ++r) s += src[(long long)r * per_row];
-  out[e] = s;
-}
-
-// ---------------------------------------------------------------------------
-// Attention pieces of the FMA attention kernels of fused_layer.cu and
-// fused_layer_bwd.cu (ViT's attention, without a bias).  Each kernel holds
-// one query (or one key) per thread with its vectors zero-padded to DH and
-// stages the other side, a tile of KT rows, in shared memory; these are the
-// per-thread steps.
-// ---------------------------------------------------------------------------
-
-// One key tile of the forward's online softmax for the thread's query q:
-// s_j = q·k_j·scale for the first n_valid of the KT staged keys, −inf past
-// them; the running max m, sum l and unnormalised output o are rescaled to
-// the new max and take the tile.  Every tile holds at least one valid key,
-// so the new max is finite (alpha is 0 on the first tile, where m is −inf).
-template <int DH, int KT>
-__device__ __forceinline__ void softmax_tile_update(
-    const float (&q)[DH], const float (*Ks)[DH], const float (*Vs)[DH], int n_valid,
-    float scale, float& m, float& l, float (&o)[DH]) {
-  float s[KT];
-  float tile_max = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < KT; ++j) {
-    float dot = 0.f;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) dot = fmaf(q[d], Ks[j][d], dot);
-    s[j] = j < n_valid ? dot * scale : -INFINITY;
-    tile_max = fmaxf(tile_max, s[j]);
-  }
-  const float m_new = fmaxf(m, tile_max);
-  const float alpha = expf(m - m_new);
-  l *= alpha;
-#pragma unroll
-  for (int d = 0; d < DH; ++d) o[d] *= alpha;
-#pragma unroll
-  for (int j = 0; j < KT; ++j) {
-    const float p = expf(s[j] - m_new);  // 0 past the valid keys
-    l += p;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) o[d] = fmaf(p, Vs[j][d], o[d]);
-  }
-  m = m_new;
-}
-
-// Key-thread backward pass (dk / dv), first of its two d-outer passes: for
-// the BQ staged queries, p[i] = q_i·k and dp[i] = do_i·v, with k, v the
-// thread's rows (k[d], v[d] read once per d; nothing else stays live).
-template <int DH, int BQ>
-__device__ __forceinline__ void key_thread_dots(
-    const float (*Qs)[DH], const float (*dOs)[DH], const float* k, const float* v,
-    float (&p)[BQ], float (&dp)[BQ]) {
-#pragma unroll
-  for (int i = 0; i < BQ; ++i) p[i] = dp[i] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < DH; ++d) {
-    const float kd = k[d], vd = v[d];
-#pragma unroll
-    for (int i = 0; i < BQ; ++i) {
-      p[i] = fmaf(Qs[i][d], kd, p[i]);     // the score q_i·k
-      dp[i] = fmaf(dOs[i][d], vd, dp[i]);  // do_i·v
-    }
-  }
-}
-
-// ... and its second: dv += Σ_i p_i·do_i, dk += Σ_i ds_i·q_i
-template <int DH, int BQ>
-__device__ __forceinline__ void key_thread_accumulate(
-    const float (*Qs)[DH], const float (*dOs)[DH], const float (&p)[BQ],
-    const float (&ds)[BQ], float (&dk)[DH], float (&dv)[DH]) {
-#pragma unroll
-  for (int d = 0; d < DH; ++d) {
-    float v_acc = dv[d], k_acc = dk[d];
-#pragma unroll
-    for (int i = 0; i < BQ; ++i) {
-      v_acc = fmaf(p[i], dOs[i][d], v_acc);
-      k_acc = fmaf(ds[i], Qs[i][d], k_acc);
-    }
-    dv[d] = v_acc;
-    dk[d] = k_acc;
-  }
-}
-
-// Query-thread backward pass (dq), first of its two d-outer passes: for the
-// KT staged keys, p[j] = q·k_j and dp[j] = do·v_j, with q, do the thread's
-// rows
-template <int DH, int KT>
-__device__ __forceinline__ void query_thread_dots(
-    const float* q, const float* dO, const float (*Ks)[DH], const float (*Vs)[DH],
-    float (&p)[KT], float (&dp)[KT]) {
-#pragma unroll
-  for (int j = 0; j < KT; ++j) p[j] = dp[j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < DH; ++d) {
-    const float qd = q[d], dod = dO[d];
-#pragma unroll
-    for (int j = 0; j < KT; ++j) {
-      p[j] = fmaf(qd, Ks[j][d], p[j]);     // the score q·k_j
-      dp[j] = fmaf(dod, Vs[j][d], dp[j]);  // do·v_j
-    }
-  }
-}
-
-// ... and its second: dq += Σ_j ds_j·k_j
-template <int DH, int KT>
-__device__ __forceinline__ void query_thread_accumulate(
-    const float (*Ks)[DH], const float (&ds)[KT], float (&dq)[DH]) {
-#pragma unroll
-  for (int d = 0; d < DH; ++d) {
-    float acc = dq[d];
-#pragma unroll
-    for (int j = 0; j < KT; ++j) acc = fmaf(ds[j], Ks[j][d], acc);
-    dq[d] = acc;
-  }
-}
-
 }  // namespace
 
 // Host-side launch sequences shared between the sources; rows_per_scale is
@@ -753,20 +606,42 @@ cudaError_t qkv_proj_bwd(
 
 // Backward of the attention residual branch (fused_layer_bwd.cu), shared by
 // the attention layer's backward and the whole layer's (fused_layer1_bwd.cu).
-// extra / dextra / dbpart may be null; see fused_layer_bwd.cu.
+// extra / dextra / dbpart may be null, and so may dq_part where N ≤ 64 or
+// with extra; see fused_layer_bwd.cu.
 cudaError_t attention_half_bwd(
     const float* x, const float* ln_g, const float* ln_b,
     const float* wqkv, long long wqkv_s0, long long wqkv_s1, const float* bqkv,
     const float* wout, long long wout_s0, long long wout_s1, const float* bout,
     const float* rs, const float* extra, int groups, const float* qkv,
     const float* acc, const float* mu, const float* rstd, const float* lse,
-    const float* dz, float* dacc, float* delta, float* dqkv,
+    const float* dz, float* dacc, float* dq_part, float* dqkv,
     float* dln, float* dbpart, float* wpart, int splits_out, int splits_qkv,
     float* cpart, float* dx, float* dg, float* db,
     float* dwqkv, long long dwqkv_s0, long long dwqkv_s1, float* dbqkv,
     float* dwout, long long dwout_s0, long long dwout_s1, float* dbout,
     float* drs, float* dextra, int B, int N, int C, int H, int D, float scale,
     cudaStream_t s);
+
+// The packed-row attention on the tensor cores (attention_tc.cuh, compiled
+// into fused_attention_qkv.cu alone): qkv [B, N, 3·H·D] (q-heads | k-heads
+// | v-heads), extra the grouped bias [G, H, N, N] (row b in group b / (B /
+// G)) or null, heads up to 64 wide, any N.  The forward writes out [B, N,
+// H·D] and, when non-null, lse [B, H, N]: B3, B8 and the bias-free
+// attention of B1 and B2 (fused_layer.cu) ...
+cudaError_t packed_attention_fwd(const float* qkv, const float* extra, int groups,
+                                 float* out, float* lse, int B, int N, int H, int D,
+                                 float scale, cudaStream_t s);
+
+// ... and the backward, on the forward's out and lse and dout [B, N, H·D],
+// writes dqkv in the layout of qkv: Δ in its prologue, one pass of key-tile
+// blocks, dq through the partials dq_part [ceil(N / 64), B·N, H·D] (null
+// where N ≤ 64) summed in key-tile order; with a non-null dextra, dS into
+// dsbuf [B, H, N, N] and its ordered sum over each group's rows into dextra
+// (fused_layer_bwd.cu)
+cudaError_t packed_attention_bwd(const float* qkv, const float* extra, int groups,
+                                 const float* out, const float* lse, const float* dout,
+                                 float* dq_part, float* dsbuf, float* dqkv, float* dextra,
+                                 int B, int N, int H, int D, float scale, cudaStream_t s);
 
 // B9's attention over sample-major window pairs (fused_swin.cu): qkv
 // [P·N, 3·H·D] of P = B·G pairs, pair p taking the bias extra[p mod

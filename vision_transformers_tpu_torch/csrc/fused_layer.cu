@@ -41,15 +41,18 @@
 // window attention (window_attention_tc.cuh: 3xTF32 on mma.sync, the same
 // 165 TFLOP/s bound; N ≤ 128, heads up to 32 wide): a block owns one
 // (group, head) and a chunk of its windows with the bias resident, and a
-// window's softmax is exact in one pass.  Without one (ViT's B1, N = 197,
-// D = 64) it stays on plain f32 FMAs (67 TFLOP/s): it never stores an N x N
-// matrix: one block per (batch, head, 64-query tile), one query per thread,
-// key/value tiles streamed through shared memory with an online
-// max-subtracted softmax in f32, so any N works.
+// window's softmax is exact in one pass.  Without one (ViT's B1 and B2, N =
+// 197, D = 64; Twins' last stage, N = 49, D = 32) it runs on B3's packed-row
+// core (attention_tc.cuh, compiled into fused_attention_qkv.cu and called
+// through vtx::packed_attention_fwd: 3xTF32 on mma.sync, the same bound):
+// 8-warp blocks of 128 queries, K / V tiles of 64 keys double-buffered
+// through 16-byte cp.async and split into hi / lo once, the online softmax
+// on the accumulator fragments, P to the next product through registers;
+// it never stores an N x N matrix, so any N works.  No attention of the
+// layer runs on f32 FMAs.
 //
-// What later work changes: ViT's attention onto the tensor cores, bf16
-// operands, and fusing each op's launch sequence into fewer launches so
-// intermediates stay on chip.
+// What later work changes: bf16 operands, and fusing each op's launch
+// sequence into fewer launches so intermediates stay on chip.
 //
 // B7 (the FF residual branch alone, under the FF-kernel switch) is the
 // whole layer's FF half: the LN statistics, a GEMM that applies the LN as
@@ -70,84 +73,20 @@
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// Attention without a bias over the packed projection qkv [B*N, 3*H*D]
-// (q-heads | k-heads | v-heads) → out [B*N, H*D], and the row log-sum-exp
-// lse [B, H, N] of the scaled scores when lse is non-null: ViT's, any N.
-// Grid (query tiles, H, B); one query per thread, key / value tiles streamed
-// through shared memory with an online max-subtracted softmax.  DH: the
-// register width of a head (≥ D, zero-padded).  With a bias the attention
-// is window_attention_tc.cuh's (N ≤ 128, heads up to 32 wide).
-// ---------------------------------------------------------------------------
-
-constexpr int AQ = 64;     // queries per block = threads per block
-constexpr int AKV = 32;    // keys per shared-memory tile
-
-// SAVE_LSE: the training forward's variant, which also writes lse (a
-// separate instantiation keeps the serving kernel's registers as they were)
-template <int DH, bool SAVE_LSE>
-__global__ void __launch_bounds__(AQ)
-attention_kernel(const float* __restrict__ qkv, float* __restrict__ out,
-                 float* __restrict__ lse, int N, int H, int D, float scale) {
-  __shared__ float Ks[AKV][DH];
-  __shared__ float Vs[AKV][DH];
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int HD = H * D;
-  const long long row_stride = 3LL * HD;
-  const float* base = qkv + (long long)b * N * row_stride;
-  const int q0 = blockIdx.x * AQ;
-  const int qi = q0 + threadIdx.x;
-
-  // zero-padded to DH, so the unrolled dots need no width test
-  float q[DH], o[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) {
-    q[d] = (qi < N && d < D) ? base[(long long)qi * row_stride + h * D + d] : 0.f;
-    o[d] = 0.f;
-  }
-  float m = -INFINITY, l = 0.f;
-
-  for (int k0 = 0; k0 < N; k0 += AKV) {
-    for (int idx = threadIdx.x; idx < AKV * DH; idx += AQ) {
-      const int j = idx / DH, d = idx % DH;
-      const int kj = k0 + j;
-      const bool ok = kj < N && d < D;
-      const float* rowp = base + (long long)kj * row_stride + h * D + d;
-      Ks[j][d] = ok ? rowp[HD] : 0.f;
-      Vs[j][d] = ok ? rowp[2 * HD] : 0.f;
-    }
-    __syncthreads();
-    softmax_tile_update<DH, AKV>(q, Ks, Vs, N - k0, scale, m, l, o);
-    __syncthreads();
-  }
-
-  if (qi < N) {
-    const float inv = 1.f / l;
-    float* orow = out + ((long long)b * N + qi) * HD + h * D;
-#pragma unroll
-    for (int d = 0; d < DH; ++d)
-      if (d < D) orow[d] = o[d] * inv;
-    if (SAVE_LSE) lse[((long long)b * H + h) * N + qi] = m + logf(l);
-  }
-}
-
-// extra [G, H, N, N] or null; row (window) b in group b / (B / G).  Without
-// a bias the 64-wide instantiation (ViT; narrower heads zero-padded); with
-// one the tensor-core window attention, which refuses N > 128 and heads
-// wider than 32.
+// The attention of qkv [B·N, 3·H·D] → out [B·N, H·D] (and lse [B, H, N]
+// when non-null), both on the tensor cores.  extra [G, H, N, N] or null; row
+// (window) b in group b / (B / G).  With a bias the window attention
+// (window_attention_tc.cuh: N ≤ 128, heads up to 32 wide); without one
+// (ViT's, Twins' last stage) the packed-row attention core
+// (vtx::packed_attention_fwd, fused_attention_qkv.cu: any N, heads up to
+// DMAX = 64 wide).
 cudaError_t launch_attention(const float* qkv, const float* extra, int groups,
                              float* out, float* lse, int B, int N, int H, int D,
                              float scale, cudaStream_t stream) {
   if (extra)
     return wta::attention_fwd(qkv, extra, groups, false, out, lse, B, N, H, D, scale,
                               stream);
-  if (D > DMAX || B > 65535 || H > 65535) return cudaErrorInvalidValue;
-  const dim3 grid(cdiv(N, AQ), H, B);
-  if (lse)
-    attention_kernel<DMAX, true><<<grid, AQ, 0, stream>>>(qkv, out, lse, N, H, D, scale);
-  else
-    attention_kernel<DMAX, false><<<grid, AQ, 0, stream>>>(qkv, out, lse, N, H, D, scale);
-  return cudaGetLastError();
+  return vtx::packed_attention_fwd(qkv, nullptr, 1, out, lse, B, N, H, D, scale, stream);
 }
 
 // z = x + rs ⊙ OutProj(MHSA(QkvProj(LN(x)) + extra)), writing u, qkv, acc

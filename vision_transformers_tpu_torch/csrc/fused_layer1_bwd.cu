@@ -34,10 +34,13 @@
 //   3. dW₁ = LN₂(z)ᵀ·dh: split-K, LN₂ applied to z from the saved
 //      statistics as the producer stages it
 //   4. dln₂ = dh·W₁ᵀ;  dz = do + LN₂ᵀ(dln₂);  dg₂, db₂ⁿ = column sums
-//   Attention half, given dz: fused_layer_bwd.cu's attention_half_bwd with
-//   the bias (the window attention's backward, window_attention_tc.cuh,
-//   sums dS over each group's rows into dextra: per chunk of rows in row
-//   order, then over the chunks in order).
+//   Attention half, given dz: fused_layer_bwd.cu's attention_half_bwd; with
+//   the bias the window attention's backward (window_attention_tc.cuh)
+//   sums dS over each group's rows into dextra (per chunk of rows in row
+//   order, then over the chunks in order), without it (a layer with no
+//   bias, as ViT's: N = 197, D = 64) the packed-row core's backward
+//   (attention_tc.cuh, fused_attention_qkv.cu) sums dq's key-tile partials
+//   in order.
 //
 // Determinism: as in fused_layer_bwd.cu, every reduction over rows is a
 // fixed-order two-pass sum (split-K slabs, row chunks, the chunked group
@@ -50,7 +53,8 @@
 // attention products of 2·B·H·N²·D; at Swin-S (F = 4C, HD = C, N = 98) the
 // GEMMs are ~93% of it, on the GEMM core (gemm_tc.cu, 3xTF32 on wgmma,
 // 165 TFLOP/s f32-accurate at 700 W), and the attention is on the tensor
-// cores too (window_attention_tc.cuh, 3xTF32 on mma.sync, the same bound).
+// cores too (window_attention_tc.cuh, or attention_tc.cuh without a bias;
+// 3xTF32 on mma.sync, the same bound).
 // Besides the GEMMs, the FF half writes dh [M, F] once and reads it twice
 // (the dW₁ and dln₂ GEMMs) — Swin-S stage 1 at 64 images is M = 200,704
 // rows, F = 384.  dS stays in
@@ -76,8 +80,8 @@ cudaError_t transformer_layer_bwd(
     const float* qkv, const float* acc, const float* z, const float* hid,
     const float* mu1, const float* rstd1, const float* lse, const float* mu2,
     const float* rstd2, const float* dout,
-    float* da, float* af, float* dh, float* dz, float* dacc, float* delta,
-    float* dqkv, float* u, float* dln, float* dbpart, float* wpart,
+    float* af, float* dh, float* dz, float* dacc, float* dq_part,
+    float* dqkv, float* dln, float* dbpart, float* wpart,
     int splits_out, int splits_qkv, int splits_w1, int splits_w2, float* cpart,
     float* dx, float* dg1, float* db1, float* dwqkv, long long dwqkv_s0,
     long long dwqkv_s1, float* dbqkv, float* dwout, long long dwout_s0,
@@ -97,7 +101,7 @@ cudaError_t transformer_layer_bwd(
   return vtx::attention_half_bwd(
       x, ln1_g, ln1_b, wqkv, wqkv_s0, wqkv_s1, bqkv, wout, wout_s0, wout_s1,
       bout, rs_attn, extra, groups, qkv, acc, mu1, rstd1, lse, dz, dacc,
-      delta, dqkv, dln, dbpart, wpart, splits_out, splits_qkv, cpart, dx, dg1,
+      dq_part, dqkv, dln, dbpart, wpart, splits_out, splits_qkv, cpart, dx, dg1,
       db1, dwqkv, dwqkv_s0, dwqkv_s1, dbqkv, dwout, dwout_s0, dwout_s1, dbout,
       drs_attn, dextra, B, N, C, H, D, scale, s);
 }
@@ -201,10 +205,11 @@ cudaError_t vtx::ff_half_bwd(
 }
 
 // Returns the first cudaError_t met (0 = success).  Workspace, all
-// allocated by the caller (M = B·N): da [M, C] and u [M, C] (no longer
-// read), af [M, F] (the row partials of the dr₂ pass, used only with rs_ff
-// and drs_ff), dh [M, F], dz [M, C], dacc [M, HD], delta [B·H·N]
-// (used only without extra), dqkv [M, 3HD], dln [M, C], dbpart
+// allocated by the caller (M = B·N): af [M, F] (the row partials of the dr₂
+// pass, used only with rs_ff and drs_ff), dh [M, F], dz [M, C], dacc
+// [M, HD], dq_part [ceil(N / 64)·M·HD] (the packed-row attention's dq
+// partials, used only without extra and where N > 64, else null), dqkv
+// [M, 3HD], dln [M, C], dbpart
 // [wta::bwd_chunks(B, G, H)·G·H·N·N] (used only with extra and dextra;
 // ops/fused_layer.py window_chunks), wpart [max over the four weight
 // gradients of splits·rows·cols], cpart [ceil(M / 128) · max(C, 3HD, F)].  The weight
@@ -223,8 +228,8 @@ extern "C" int vtx_fused_transformer_layer_bwd(
     const float* qkv, const float* acc, const float* z, const float* hid,
     const float* mu1, const float* rstd1, const float* lse, const float* mu2,
     const float* rstd2, const float* dout,
-    float* da, float* af, float* dh, float* dz, float* dacc, float* delta,
-    float* dqkv, float* u, float* dln, float* dbpart, float* wpart,
+    float* af, float* dh, float* dz, float* dacc, float* dq_part,
+    float* dqkv, float* dln, float* dbpart, float* wpart,
     int splits_out, int splits_qkv, int splits_w1, int splits_w2, float* cpart,
     float* dx, float* dg1, float* db1, float* dwqkv, long long dwqkv_s0,
     long long dwqkv_s1, float* dbqkv, float* dwout, long long dwout_s0,
@@ -237,7 +242,7 @@ extern "C" int vtx_fused_transformer_layer_bwd(
       x, ln1_g, ln1_b, wqkv, wqkv_s0, wqkv_s1, bqkv, wout, wout_s0, wout_s1,
       bout, ln2_g, ln2_b, w1, w1_s0, w1_s1, b1, w2, w2_s0, w2_s1, b2, extra,
       groups, rs_attn, rs_ff, qkv, acc, z, hid, mu1, rstd1, lse, mu2, rstd2,
-      dout, da, af, dh, dz, dacc, delta, dqkv, u, dln, dbpart, wpart, splits_out,
+      dout, af, dh, dz, dacc, dq_part, dqkv, dln, dbpart, wpart, splits_out,
       splits_qkv, splits_w1, splits_w2, cpart, dx, dg1, db1, dwqkv, dwqkv_s0,
       dwqkv_s1, dbqkv, dwout, dwout_s0, dwout_s1, dbout, dg2, db2, dw1, dw1_s0,
       dw1_s1, db1f, dw2, dw2_s0, dw2_s1, db2f, dextra, drs_attn, drs_ff, B, N,

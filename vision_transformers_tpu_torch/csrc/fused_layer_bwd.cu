@@ -21,11 +21,14 @@
 //   2. dacc₀ = dz·woutᵀ;  dr[b] = Σ_{n∈b}(Σ_k dacc₀⊙acc + Σ_c dz⊙bout)
 //      (the reassociation of fused_layer.py:276-288);  dacc = r ⊙ dacc₀
 //   3. attention backward, FlashAttention-2 style, no N×N matrix in device
-//      memory: Δ = rowsum(dacc_h ⊙ acc_h); a key-tile pass recomputes
-//      p = exp(q·kᵀ·s − lse) and accumulates dv += pᵀ·do, dk += dsᵀ·q·s with
-//      ds = p ⊙ (do·vᵀ − Δ); a query-tile pass accumulates dq += ds·k·s.
-//      Both write dqkv [M, 3HD] (q-heads | k-heads | v-heads).  With the
-//      grouped additive bias extra [G, H, N, N] (Swin's in the whole
+//      memory: Δ = rowsum(dacc_h ⊙ acc_h); one pass of key-tile blocks
+//      recomputes p = exp(q·kᵀ·s − lse) and accumulates dv += pᵀ·do,
+//      dk += dsᵀ·q·s with ds = p ⊙ (do·vᵀ − Δ), and dq = ds·k·s as one
+//      partial per key tile (dq_part), summed in key-tile order: the
+//      packed-row core of B3 (attention_tc.cuh through
+//      vtx::packed_attention_bwd, fused_attention_qkv.cu).  It writes dqkv
+//      [M, 3HD] (q-heads | k-heads | v-heads).  With the grouped additive
+//      bias extra [G, H, N, N] (Swin's in the whole
 //      layer's backward, fused_layer1_bwd.cu; Twins' pair mask in this
 //      entry's), p = exp(q·kᵀ·s + extra[g] − lse) on the window attention
 //      (window_attention_tc.cuh), and where the bias needs a gradient
@@ -51,209 +54,48 @@
 // 5 products of 2·B·H·N²·D (recomputed scores, dv, dp, dk, dq) — about 2.5x
 // the forward's attention work; at ViT-S/16 (C = HD = 384, N = 197) the
 // GEMMs are ~75% of it.  The GEMMs run on the GEMM core (gemm_tc.cu, 3xTF32
-// on wgmma, bound at 165 TFLOP/s f32-accurate at 700 W), reading accᵀ, uᵀ,
-// woutᵀ and wqkvᵀ through strides.  With the bias (Twins' pair mask, Swin's
+// on wgmma, bound at 165 TFLOP/s f32-accurate at 700 W), reading accᵀ, xᵀ
+// (its LN staged), woutᵀ and wqkvᵀ through strides.  With the bias (Twins' pair mask, Swin's
 // grouped bias: N ≤ 128, heads up to 32 wide) the attention backward is the
 // tensor-core window attention's (window_attention_tc.cuh, 3xTF32 on
 // mma.sync, bound at the same 165 TFLOP/s): one pass per window computing
 // Δ, dq, dk and dv straight into dqkv, and dextra as per-block register
 // sums over a chunk of each group's windows, summed over the chunks in
-// order — no [B, H, N, N] dS buffer.  Without one (ViT: D = 64) it stays on
-// plain f32 FMAs (67 TFLOP/s): the kernels hold a head zero-padded to 64
-// in registers, one key (or query) per thread with its accumulators, and
-// stream the other side through shared memory, in d-outer passes that keep
-// nothing else live across a tile.
+// order — no [B, H, N, N] dS buffer.  Without one (ViT: N = 197, D = 64;
+// Twins' last stage: N = 49, D = 32) it is the packed-row core's one-pass
+// backward (3xTF32 on mma.sync, the same bound): a block owns one key tile
+// of one (b, h), its K and V split into hi / lo once and resident, and
+// walks the query tiles, Δ in its prologue, dS to the next product through
+// registers; dk and dv leave once, dq as ceil(N / 64) partials (155 MB at
+// ViT-S/16, B = 128) summed in order, so no float atomics.
 //
-// What later work changes: ViT's attention onto the tensor cores, bf16
-// storage of the saved residuals, and fusing the launches (the LN backward
-// into the dln GEMM's epilogue, Δ into the attention passes, the column
+// What later work changes: bf16 storage of the saved residuals, and fusing
+// the launches (the LN backward into the dln GEMM's epilogue, the column
 // sums into the weight GEMMs).
 
 #include "window_attention_tc.cuh"
 
 namespace {
 
-// ViT's attention backward (no bias), 3a-3c below; with a bias the
-// attention backward is window_attention_tc.cuh's (wta::attention_bwd).
-//
-// 3a. Δ[b, h, n] = rowsum(dacc_h ⊙ acc_h): common.cuh's attn_delta_kernel
-
-// ---------------------------------------------------------------------------
-// 3b. key-tile pass: dk, dv.  Grid (key tiles, H, B); one key per thread,
-//     its dk / dv accumulators in registers, its k / v rows in (padded)
-//     shared memory; query tiles of q, do, lse, Δ streamed through shared
-//     memory and read by every thread (broadcast).  Per query tile, two
-//     d-outer passes: the scores and do·v of all BQ queries (k[d], v[d]
-//     read once per d), then the dk / dv updates — so no row but the
-//     accumulators stays in registers.
-//     DH: the register width of a head (≥ D, zero-padded).
-// ---------------------------------------------------------------------------
-
-constexpr int BK = 64;   // keys per block = threads per block
-constexpr int BQ = 16;   // queries per shared-memory tile
-
-template <int DH>
-__global__ void __launch_bounds__(BK)
-attn_bwd_dkdv_kernel(const float* __restrict__ qkv, const float* __restrict__ dacc,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     float* __restrict__ dqkv, int N, int H, int D, float scale) {
-  __shared__ float Ks[BK][DH + 1];  // +1: thread t reads row t, bank-free
-  __shared__ float Vs[BK][DH + 1];
-  __shared__ float Qs[BQ][DH];
-  __shared__ float dOs[BQ][DH];
-  __shared__ float Ls[BQ], Ds[BQ];
-  const int b = blockIdx.z, h = blockIdx.y, t = threadIdx.x;
-  const int HD = H * D;
-  const long long row_stride = 3LL * HD;
-  const float* base = qkv + (long long)b * N * row_stride;
-  const float* dbase = dacc + (long long)b * N * HD;
-  const float* lbase = lse + ((long long)b * H + h) * N;
-  const float* delbase = delta + ((long long)b * H + h) * N;
-  const int k0 = blockIdx.x * BK;
-  const int kj = k0 + t;
-
-  for (int idx = t; idx < BK * DH; idx += BK) {
-    const int j = idx / DH, d = idx % DH;
-    const bool ok = k0 + j < N && d < D;
-    const float* rowp = base + (long long)(k0 + j) * row_stride + h * D + d;
-    Ks[j][d] = ok ? rowp[HD] : 0.f;
-    Vs[j][d] = ok ? rowp[2 * HD] : 0.f;
-  }
-
-  float dk[DH], dv[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) dk[d] = dv[d] = 0.f;
-
-  for (int q0 = 0; q0 < N; q0 += BQ) {
-    __syncthreads();  // Ks / Vs written, or the last tile fully read
-    for (int idx = t; idx < BQ * DH; idx += BK) {
-      const int i = idx / DH, d = idx % DH;
-      const bool ok = q0 + i < N && d < D;
-      Qs[i][d] = ok ? base[(long long)(q0 + i) * row_stride + h * D + d] : 0.f;
-      dOs[i][d] = ok ? dbase[(long long)(q0 + i) * HD + h * D + d] : 0.f;
-    }
-    if (t < BQ) {
-      const bool ok = q0 + t < N;
-      Ls[t] = ok ? lbase[q0 + t] : INFINITY;  // p = exp(-inf) = 0 for padding
-      Ds[t] = ok ? delbase[q0 + t] : 0.f;
-    }
-    __syncthreads();
-    float p[BQ], ds[BQ];  // the scores and do·v, then p and dS
-    key_thread_dots<DH, BQ>(Qs, dOs, Ks[t], Vs[t], p, ds);
-#pragma unroll
-    for (int i = 0; i < BQ; ++i) {
-      p[i] = expf(p[i] * scale - Ls[i]);
-      ds[i] = p[i] * (ds[i] - Ds[i]);
-    }
-    key_thread_accumulate<DH, BQ>(Qs, dOs, p, ds, dk, dv);
-  }
-
-  if (kj < N) {
-    float* row = dqkv + ((long long)b * N + kj) * row_stride + h * D;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) {
-      if (d < D) {
-        row[HD + d] = dk[d] * scale;
-        row[2 * HD + d] = dv[d];
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// 3c. query-tile pass: dq.  Grid (query tiles, H, B); one query per thread,
-//     its dq accumulator in registers, its q and do rows in (padded) shared
-//     memory; key tiles of k and v streamed through shared memory
-//     (broadcast).  Per key tile, two d-outer passes as in 3b: the scores
-//     and do·v of all BKV keys, then the dq update.
-// ---------------------------------------------------------------------------
-
-constexpr int BQQ = 64;  // queries per block = threads per block
-constexpr int BKV = 16;  // keys per shared-memory tile
-
-template <int DH>
-__global__ void __launch_bounds__(BQQ)
-attn_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ dacc,
-                   const float* __restrict__ lse, const float* __restrict__ delta,
-                   float* __restrict__ dqkv, int N, int H, int D, float scale) {
-  __shared__ float Qs[BQQ][DH + 1];   // +1: thread t reads row t, bank-free
-  __shared__ float dOs[BQQ][DH + 1];
-  __shared__ float Ks[BKV][DH];
-  __shared__ float Vs[BKV][DH];
-  const int b = blockIdx.z, h = blockIdx.y, t = threadIdx.x;
-  const int HD = H * D;
-  const long long row_stride = 3LL * HD;
-  const float* base = qkv + (long long)b * N * row_stride;
-  const float* dbase = dacc + (long long)b * N * HD;
-  const int q0 = blockIdx.x * BQQ;
-  const int qi = q0 + t;
-
-  for (int idx = t; idx < BQQ * DH; idx += BQQ) {
-    const int i = idx / DH, d = idx % DH;
-    const bool ok = q0 + i < N && d < D;
-    Qs[i][d] = ok ? base[(long long)(q0 + i) * row_stride + h * D + d] : 0.f;
-    dOs[i][d] = ok ? dbase[(long long)(q0 + i) * HD + h * D + d] : 0.f;
-  }
-  float dq[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) dq[d] = 0.f;
-  const long long lrow = ((long long)b * H + h) * N + qi;
-  const float l = qi < N ? lse[lrow] : 0.f;
-  const float dl = qi < N ? delta[lrow] : 0.f;
-
-  for (int k0 = 0; k0 < N; k0 += BKV) {
-    __syncthreads();  // Qs / dOs written, or the last tile fully read
-    for (int idx = t; idx < BKV * DH; idx += BQQ) {
-      const int j = idx / DH, d = idx % DH;
-      const bool ok = k0 + j < N && d < D;
-      const float* rowp = base + (long long)(k0 + j) * row_stride + h * D + d;
-      Ks[j][d] = ok ? rowp[HD] : 0.f;
-      Vs[j][d] = ok ? rowp[2 * HD] : 0.f;
-    }
-    __syncthreads();
-    float p[BKV], ds[BKV];  // the scores and do·v, then p and dS
-    query_thread_dots<DH, BKV>(Qs[t], dOs[t], Ks, Vs, p, ds);
-#pragma unroll
-    for (int j = 0; j < BKV; ++j) {
-      p[j] = (k0 + j < N) ? expf(p[j] * scale - l) : 0.f;
-      ds[j] = p[j] * (ds[j] - dl);
-    }
-    query_thread_accumulate<DH, BKV>(Ks, ds, dq);
-  }
-
-  if (qi < N) {
-    float* row = dqkv + ((long long)b * N + qi) * row_stride + h * D;
-#pragma unroll
-    for (int d = 0; d < DH; ++d)
-      if (d < D) row[d] = dq[d] * scale;
-  }
-}
-
-// Step 3 → dqkv.  With the bias extra [G, H, N, N] (row b in group b /
-// (B/G)): the window attention's backward (N ≤ 128, heads up to 32 wide),
-// which computes Δ itself and, when dextra is non-null, sums dS per block
-// into dbpart [wta::bwd_chunks(B, G, H), G, H, N, N] and those partials in
-// order into dextra [G, H, N, N].  Without: Δ into delta [B, H, N], then the
-// key-tile and query-tile passes (heads up to 64 wide).
+// Step 3 → dqkv, on the tensor cores.  With the bias extra [G, H, N, N] (row
+// b in group b / (B/G)): the window attention's backward (N ≤ 128, heads up
+// to 32 wide), which computes Δ itself and, when dextra is non-null, sums dS
+// per block into dbpart [wta::bwd_chunks(B, G, H), G, H, N, N] and those
+// partials in order into dextra [G, H, N, N].  Without (ViT's, Twins' last
+// stage): the packed-row core's one-pass backward (vtx::packed_attention_bwd,
+// fused_attention_qkv.cu; heads up to 64 wide, any N), Δ in its prologue,
+// dq through the key-tile partials dq_part [ceil(N / 64), B·N, H·D] (null
+// where N ≤ 64) summed in key-tile order.
 cudaError_t attention_core_bwd(const float* qkv, const float* dacc,
                                const float* acc, const float* lse,
-                               const float* extra, int groups, float* delta,
+                               const float* extra, int groups, float* dq_part,
                                float* dbpart, float* dqkv, float* dextra, int B,
                                int N, int H, int D, float scale, cudaStream_t s) {
   if (extra)
     return wta::attention_bwd(qkv, acc, dacc, lse, extra, groups, false, dqkv, dbpart,
                               dextra, B, N, H, D, scale, s);
-  if (D < 1 || D > DMAX || N < 1 || B < 1 || B > 65535 || H > 65535)
-    return cudaErrorInvalidValue;
-  attn_delta_kernel<<<ew_blocks((long long)B * H * N), EW_THREADS, 0, s>>>(
-      dacc, acc, delta, B, N, H, D);
-  VTX_CHECK(cudaGetLastError());
-  attn_bwd_dkdv_kernel<DMAX><<<dim3(cdiv(N, BK), H, B), BK, 0, s>>>(
-      qkv, dacc, lse, delta, dqkv, N, H, D, scale);
-  VTX_CHECK(cudaGetLastError());
-  attn_bwd_dq_kernel<DMAX><<<dim3(cdiv(N, BQQ), H, B), BQQ, 0, s>>>(
-      qkv, dacc, lse, delta, dqkv, N, H, D, scale);
-  return cudaGetLastError();
+  return vtx::packed_attention_bwd(qkv, nullptr, 1, acc, lse, dacc, dq_part, nullptr, dqkv,
+                                   nullptr, B, N, H, D, scale, s);
 }
 
 }  // namespace
@@ -378,14 +220,15 @@ cudaError_t vtx::qkv_proj_bwd(
 // above.  extra [G, H, N, N] (row b in group b / (B/G)) may be null; with
 // it and a non-null dextra, dbpart [wta::bwd_chunks(B, G, H), G, H, N, N]
 // takes the window attention's per-block dS sums and dextra [G, H, N, N]
-// their ordered sum.
+// their ordered sum; without it, dq_part [ceil(N / 64), B·N, H·D] (null
+// where N ≤ 64) takes the packed-row core's dq partials.
 cudaError_t vtx::attention_half_bwd(
     const float* x, const float* ln_g, const float* ln_b,
     const float* wqkv, long long wqkv_s0, long long wqkv_s1, const float* bqkv,
     const float* wout, long long wout_s0, long long wout_s1, const float* bout,
     const float* rs, const float* extra, int groups, const float* qkv,
     const float* acc, const float* mu, const float* rstd, const float* lse,
-    const float* dz, float* dacc, float* delta, float* dqkv,
+    const float* dz, float* dacc, float* dq_part, float* dqkv,
     float* dln, float* dbpart, float* wpart, int splits_out, int splits_qkv,
     float* cpart, float* dx, float* dg, float* db,
     float* dwqkv, long long dwqkv_s0, long long dwqkv_s1, float* dbqkv,
@@ -403,7 +246,7 @@ cudaError_t vtx::attention_half_bwd(
                               dwout_s1, dbout, drs, B, M, C, HD, s));
 
   // 3. attention backward → dqkv (and dextra)
-  VTX_CHECK(attention_core_bwd(qkv, dacc, acc, lse, extra, groups, delta, dbpart, dqkv,
+  VTX_CHECK(attention_core_bwd(qkv, dacc, acc, lse, extra, groups, dq_part, dbpart, dqkv,
                                dextra, B, N, H, D, scale, s));
 
   // 4-6. the qkv projection and LN
@@ -413,8 +256,9 @@ cudaError_t vtx::attention_half_bwd(
 }
 
 // Returns the first cudaError_t met (0 = success).  Workspace, all
-// allocated by the caller: da, u [M, C] (no longer read), dacc [M, HD],
-// delta [B·H·N] (used only without extra), dqkv [M, 3HD], dln [M, C],
+// allocated by the caller: dacc [M, HD], dq_part [ceil(N / 64)·M·HD]
+// (used only without extra and where N > 64, else null), dqkv [M, 3HD],
+// dln [M, C],
 // dbpart [wta::bwd_chunks(B, G, H)·G·H·N·N] (used only with dextra;
 // ops/fused_layer.py window_chunks), wpart [max(splits_out·HD·C,
 // splits_qkv·C·3HD)], cpart [ceil(M / 128) · max(C, 3HD)].  dwqkv / dwout are written through
@@ -429,7 +273,7 @@ extern "C" int vtx_fused_attention_layer_bwd(
     const float* extra, int groups,
     const float* rs, const float* qkv, const float* acc, const float* mu,
     const float* rstd, const float* lse, const float* dz,
-    float* da, float* dacc, float* delta, float* dqkv, float* u, float* dln,
+    float* dacc, float* dq_part, float* dqkv, float* dln,
     float* dbpart, float* wpart, int splits_out, int splits_qkv, float* cpart,
     float* dx, float* dg, float* db,
     float* dwqkv, long long dwqkv_s0, long long dwqkv_s1, float* dbqkv,
@@ -438,7 +282,7 @@ extern "C" int vtx_fused_attention_layer_bwd(
     void* stream) {
   return static_cast<int>(vtx::attention_half_bwd(
       x, ln_g, ln_b, wqkv, wqkv_s0, wqkv_s1, bqkv, wout, wout_s0, wout_s1, bout,
-      rs, extra, groups, qkv, acc, mu, rstd, lse, dz, dacc, delta, dqkv, dln,
+      rs, extra, groups, qkv, acc, mu, rstd, lse, dz, dacc, dq_part, dqkv, dln,
       dbpart, wpart, splits_out, splits_qkv, cpart, dx, dg, db, dwqkv, dwqkv_s0,
       dwqkv_s1, dbqkv, dwout, dwout_s0, dwout_s1, dbout, drs, dextra, B, N, C, H,
       D, scale, static_cast<cudaStream_t>(stream)));

@@ -57,7 +57,7 @@ _SIGNATURES = {
         _P, _I,                  # extra, groups
         _P, _P, _P, _P, _P, _P,  # rs, qkv, acc, mu, rstd, lse
         _P,                      # dz
-        _P, _P, _P, _P, _P, _P,  # da, dacc, delta, dqkv, u, dln (workspace)
+        _P, _P, _P, _P,          # dacc, dq partials (nullable), dqkv, dln (workspace)
         _P, _P, _I, _I, _P,      # dbpart, wpart, splits_out, splits_qkv, cpart
         _P, _P, _P,              # dx, dln_scale, dln_bias
         _P, _L, _L, _P,          # dwqkv, its strides, dbqkv
@@ -104,8 +104,8 @@ _SIGNATURES = {
         _P, _P, _P, _P,          # qkv, acc, z, hid
         _P, _P, _P, _P, _P,      # mu1, rstd1, lse, mu2, rstd2
         _P,                      # do
-        _P, _P, _P, _P, _P, _P,  # da, af, dh, dz, dacc, delta (workspace)
-        _P, _P, _P, _P, _P,      # dqkv, u, dln, dbpart, wpart
+        _P, _P, _P, _P, _P,      # af, dh, dz, dacc, dq partials (workspace; nullable)
+        _P, _P, _P, _P,          # dqkv, dln, dbpart, wpart
         _I, _I, _I, _I, _P,      # splits out / qkv / w1 / w2, cpart
         _P, _P, _P,              # dx, dln1_scale, dln1_bias
         _P, _L, _L, _P,          # dwqkv, its strides, dbqkv

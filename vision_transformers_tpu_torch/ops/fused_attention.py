@@ -58,7 +58,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .fused_layer import _raise_on, _scores_bias, check_f32, extra_groups, ptr
+from .fused_layer import _raise_on, _scores_bias, check_f32, dq_partials, extra_groups, ptr
 from .fused_layer import extra_grad as layer_extra_grad
 
 __all__ = ["fused_attention", "fused_attention_reference", "fused_attention_fwd",
@@ -251,12 +251,11 @@ def _cuda_bwd(saved: SraSaved, do: torch.Tensor, need_dextra: bool = True):
     e, e_sg, e_sm = _bias_view(extra, G, M, N)
     want_dextra = extra is not None and need_dextra
     chunks = dkdv_chunks(B, G, M, N)
-    key_tiles = -(-N // _TILE)
     from ._build import build
 
     lib = build()
     opts = dict(device=q.device, dtype=torch.float32)
-    dq_part = torch.empty((key_tiles * B * M * G * D,), **opts) if key_tiles > 1 else None
+    dq_part = dq_partials(N, B * M, G * D, opts)
     dkv_part = torch.empty((2 * chunks * B * N * G * D,), **opts) if chunks > 1 else None
     dsbuf = torch.empty((B * G * M * N,), **opts) if want_dextra else None
     dq = torch.empty((B, M, G, D), **opts).permute(0, 2, 1, 3)
@@ -473,12 +472,11 @@ def _cuda_qkv_bwd(saved: QkvSaved, do: torch.Tensor, need_dextra: bool):
         raise ValueError(f"do and out must be [{B}, {N}, {H * D}], got "
                          f"{tuple(do.shape)}, {tuple(out.shape)}")
     want_dextra = extra_g is not None and need_dextra
-    key_tiles = -(-N // _TILE)
     from ._build import build
 
     lib = build()
     opts = dict(device=qkv.device, dtype=torch.float32)
-    dq_part = torch.empty((key_tiles * B * N * H * D,), **opts) if key_tiles > 1 else None
+    dq_part = dq_partials(N, B * N, H * D, opts)
     dsbuf = torch.empty((B, H, N, N), **opts) if want_dextra else None
     dqkv = torch.empty_like(qkv)
     dextra = torch.empty_like(extra_g) if want_dextra else None

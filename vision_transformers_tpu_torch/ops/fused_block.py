@@ -44,11 +44,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .fused_attention import (_TILE, qkv_attention_bwd_reference,
-                              qkv_attention_fwd_reference)
+from .fused_attention import qkv_attention_bwd_reference, qkv_attention_fwd_reference
 from .fused_layer import (MAX_DIM_HEAD, _raise_on, _splits, cast_like, check_f32,
-                          check_matrix, check_vector, extra_grad, extra_groups, like_layout,
-                          ptr)
+                          check_matrix, check_vector, dq_partials, extra_grad, extra_groups,
+                          like_layout, ptr)
 
 __all__ = ["fused_attention_block", "fused_attention_block_reference",
            "fused_attention_block_fwd", "fused_attention_block_bwd", "block_fwd_reference",
@@ -216,9 +215,8 @@ def _cuda_bwd(saved: BlockSaved, do: torch.Tensor, need_dextra: bool):
 
     lib = build()
     opts = dict(device=x.device, dtype=torch.float32)
-    key_tiles = -(-N // _TILE)
     dacc = torch.empty((M, HD), **opts)
-    dq_part = torch.empty((key_tiles * M * HD,), **opts) if key_tiles > 1 else None
+    dq_part = dq_partials(N, M, HD, opts)
     dqkv = torch.empty((M, 3 * HD), **opts)
     dsbuf = torch.empty((B, H, N, N), **opts) if want_dextra else None
     wpart = torch.empty((max(s_out * HD * Cout, s_qkv * C * 3 * HD),), **opts)

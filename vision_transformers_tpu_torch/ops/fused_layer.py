@@ -27,9 +27,12 @@ dots f32-accumulated, softmax f32) and the backward
 :func:`fused_attention_layer_bwd_reference`.  A CUDA tensor runs the
 hand-written kernels in ``csrc/fused_layer.cu`` (forward) and
 ``csrc/fused_layer_bwd.cu`` (backward) or raises; it never falls back to
-the plain versions.  The kernels take float32 and the bias only with heads
-up to ``MAX_BIAS_DIM_HEAD`` wide (Twins' and Swin's are 32) and windows of
-up to ``MAX_BIAS_TOKENS`` tokens (the tensor-core window attention,
+the plain versions.  The kernels take float32; without a bias, heads up to
+``MAX_DIM_HEAD`` wide and any number of tokens (the packed-row tensor-core
+attention, ``csrc/attention_tc.cuh``, whose backward takes dq as per
+key-tile partials, :func:`dq_partials`); the bias only with heads up to
+``MAX_BIAS_DIM_HEAD`` wide (Twins' and Swin's are 32) and windows of up to
+``MAX_BIAS_TOKENS`` tokens (the tensor-core window attention,
 ``csrc/window_attention_tc.cuh``; Swin's and Twins' pairs are 98); anything
 else on a CUDA tensor raises NotImplementedError.  The weights may
 be any 2-D strided view: the model passes ``linear.weight.t()``, and the
@@ -72,7 +75,8 @@ BWD_LAUNCHES = 0
 BIAS_LAUNCHES = 0
 BIAS_BWD_LAUNCHES = 0
 
-# largest head width the attention kernels hold in registers (csrc DMAX)
+# widest head the attention takes without a bias (csrc DMAX: the packed-row
+# tensor-core core, attention_tc.cuh, stages heads 32 or 64 floats wide)
 MAX_DIM_HEAD = 64
 # widest head the kernels take with the additive bias (csrc EXTRA_DMAX) ...
 MAX_BIAS_DIM_HEAD = 32
@@ -409,7 +413,7 @@ def check_attention_args(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, n_head):
     D = HD // n_head
     if D > MAX_DIM_HEAD:
         raise NotImplementedError(
-            f"the attention kernel holds heads up to {MAX_DIM_HEAD} wide; got {D}")
+            f"the attention kernel takes heads up to {MAX_DIM_HEAD} wide; got {D}")
     check_vector("ln_scale", ln_scale, C)
     check_vector("ln_bias", ln_bias, C)
     check_matrix("wqkv", wqkv, C, 3 * HD)
@@ -531,6 +535,14 @@ def _splits(rows: int, cols: int, k: int) -> int:
                 min(counts, key=lambda s: (idle(s), s)))
 
 
+def dq_partials(n_keys: int, rows: int, width: int, opts) -> Optional[torch.Tensor]:
+    """The dq partials of csrc/attention_tc.cuh's backward (B1's and B2's
+    bias-free attention, B3, B6, B8): [ceil(n_keys / 64), rows, width], one
+    a 64-key tile, summed in key-tile order; None with one key tile."""
+    key_tiles = -(-n_keys // 64)
+    return torch.empty((key_tiles, rows, width), **opts) if key_tiles > 1 else None
+
+
 def rpart_floats(rows: int, F: int, B: int, rows_per_scale: int) -> int:
     """The FF backward's partials workspace (csrc/common.cuh
     ff_rpart_floats): the dh GEMM's row partials [rows, ceil(F / 64)], the
@@ -563,11 +575,9 @@ def _cuda_bwd(saved: AttnSaved, dz: torch.Tensor, need_drs: bool, need_dextra: b
     want_dextra = extra_g is not None and need_dextra
     groups = 1 if extra_g is None else extra_g.shape[0]
     ws = dict(
-        da=torch.empty((M, C), **opts) if rs is not None else None,
         dacc=torch.empty((M, HD), **opts),
-        delta=torch.empty((B, H, N), **opts) if extra_g is None else None,
-        dqkv=torch.empty((M, 3 * HD), **opts), u=torch.empty((M, C), **opts),
-        dln=torch.empty((M, C), **opts),
+        dq_part=dq_partials(N, M, HD, opts) if extra_g is None else None,
+        dqkv=torch.empty((M, 3 * HD), **opts), dln=torch.empty((M, C), **opts),
         dbpart=bias_partials(B, groups, H, N, opts) if want_dextra else None,
         wpart=torch.empty((max(s_out * HD * C, s_qkv * C * 3 * HD),), **opts),
         cpart=torch.empty((chunks * max(C, 3 * HD),), **opts))
@@ -589,7 +599,7 @@ def _cuda_bwd(saved: AttnSaved, dz: torch.Tensor, need_drs: bool, need_dextra: b
             ptr(extra_g), groups,
             ptr(rs), ptr(saved.qkv), ptr(saved.acc), ptr(saved.mu),
             ptr(saved.rstd), ptr(saved.lse), ptr(dz),
-            *(ptr(ws[k]) for k in ("da", "dacc", "delta", "dqkv", "u", "dln", "dbpart")),
+            *(ptr(ws[k]) for k in ("dacc", "dq_part", "dqkv", "dln", "dbpart")),
             ptr(ws["wpart"]), s_out, s_qkv, ptr(ws["cpart"]),
             ptr(dx), ptr(dg), ptr(db),
             ptr(dwqkv), dwqkv.stride(0), dwqkv.stride(1), ptr(dbqkv),

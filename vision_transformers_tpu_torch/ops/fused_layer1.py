@@ -49,7 +49,7 @@ from .fused_layer import (AttnSaved, _act, _default_scale, _dot, _ln,
                           _raise_on, _residual, _splits, bias_partials,
                           attention_branch_reference, attention_half_bwd_reference,
                           check_attention_args, check_extra, check_f32,
-                          check_matrix, check_vector, extra_grad, extra_groups,
+                          check_matrix, check_vector, dq_partials, extra_grad, extra_groups,
                           ff_half_bwd_reference, ff_half_fwd_reference,
                           fused_attention_layer_fwd_reference, like_layout, ptr)
 
@@ -287,13 +287,10 @@ def _cuda_bwd(saved: L1Saved, do: torch.Tensor, need_drs, need_dextra: bool):
     chunks = -(-M // 128)  # csrc COLSUM_ROWS
     want_dextra = s.extra_g is not None and need_dextra
     ws = dict(
-        da=torch.empty((M, C), **opts) if s.rs_attn is not None or s.rs_ff is not None
-        else None,
         af=torch.empty((M, Fdim), **opts), dh=torch.empty((M, Fdim), **opts),
         dz=torch.empty((M, C), **opts), dacc=torch.empty((M, HD), **opts),
-        delta=torch.empty((B, H, N), **opts) if s.extra_g is None else None,
-        dqkv=torch.empty((M, 3 * HD), **opts),
-        u=torch.empty((M, C), **opts), dln=torch.empty((M, C), **opts),
+        dq_part=dq_partials(N, M, HD, opts) if s.extra_g is None else None,
+        dqkv=torch.empty((M, 3 * HD), **opts), dln=torch.empty((M, C), **opts),
         dbpart=bias_partials(B, groups, H, N, opts) if want_dextra else None,
         wpart=torch.empty((wpart,), **opts),
         cpart=torch.empty((chunks * max(C, 3 * HD, Fdim),), **opts))
@@ -319,8 +316,8 @@ def _cuda_bwd(saved: L1Saved, do: torch.Tensor, need_drs, need_dextra: bool):
             ptr(s.extra_g), groups, ptr(s.rs_attn), ptr(s.rs_ff),
             *map(ptr, (s.qkv, s.acc, s.z, s.hid, s.mu1, s.rstd1, s.lse, s.mu2,
                        s.rstd2, do)),
-            *(ptr(ws[k]) for k in ("da", "af", "dh", "dz", "dacc", "delta", "dqkv",
-                                   "u", "dln", "dbpart", "wpart")),
+            *(ptr(ws[k]) for k in ("af", "dh", "dz", "dacc", "dq_part", "dqkv", "dln",
+                                   "dbpart", "wpart")),
             *splits, ptr(ws["cpart"]),
             ptr(dx), ptr(dg1), ptr(db1),
             ptr(dwqkv), dwqkv.stride(0), dwqkv.stride(1), ptr(dbqkv),
