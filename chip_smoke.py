@@ -4,9 +4,9 @@ NVIDIA H100: builds the CUDA kernels from csrc/, holds each against its plain
 PyTorch version, runs full-width ViT-S/16 (also with dropout, with the FF
 kernel and under the 'block' force), Swin-S (also under 'block' and under
 'swin', the map-resident whole layer), Halo-S (also on the gather path),
-PVT-S and Twins-SVT-S against the JAX package's stored logits and
-train-step gradients, and drives the serving and the training entry points
-of the five models end to end.
+PVT-S, Twins-SVT-S and DINO DeiT-S/16 against the JAX package's stored
+logits, train-step gradients and DINO step, and drives the serving and the
+training entry points of the five models and DINO's trainer end to end.
 
     python3 chip_smoke.py
 
@@ -73,6 +73,18 @@ non-zero and prints no ok line):
            stages at 128 images (the mask at stages 1-3; stage 4 without
            one, 49 tokens, heads 32 wide, on the packed-row tensor-core
            attention); median ms
+3d.        the attention layer with DINO's block mask (−1e9 across the 3
+           crops of 37 tokens a packed row; heads 64 wide, so the
+           packed-row tensor-core attention with the bias, not the window
+           attention): serving forward, training forward and backward vs the
+           plain versions (forward atol = rtol = 1e-4, per tensor ≤
+           1e-3·max(1, max|plain|), two runs bit-identical, the mask without
+           a gradient, each crop's output unmoved by the other crops'
+           tokens) at an odd call (2 crops a row, 74 tokens) and at DINO
+           DeiT-S/16's local call at 96 images (256 rows of 111 tokens);
+           median ms beside the plain version and
+           F.scaled_dot_product_attention with the mask as a float attn_mask
+           (the attention alone), forward and its autograd backward
 3s.        the reduced-kv attention (PVT's SRA, Twins' GSA) on the models'
            strided head views: serving forward and training forward (with
            lse) within atol = rtol = 1e-4, backward per tensor within
@@ -169,6 +181,14 @@ non-zero and prints no ok line):
            the dropout golden, and Swin-S forced to 'swin' (the map-resident
            layer's kernels) against its train golden: loss, gradient norm,
            per-tensor norms and projections, rtol 1e-3
+4d. DINO   one f32 DINO step of DeiT-S/16 (depth 12, the head to 65,536)
+           under the 'layer' force on 3 seeded images (6 globals at 224, 24
+           locals at 96 packed 3 to a row under the mask), seeded student,
+           teacher and center, against tests/data/dino_deit_s16_port_golden.npz
+           (scripts/make_torch_port_dino_golden.py): the loss, both nets'
+           outputs as per-crop norms and projections, the gradient norm and
+           each tensor's gradient norm and projection, rtol 1e-3; B1 in every
+           layer, with the mask on the locals
 5. predict the serving path of each model: ``predict.main`` on 48 and then
            160 seeded JPEGs (Halo, PVT — 'fused' — and Twins: 48) with a
            seeded ``.pt:ema``; the launch counters are zeroed just before
@@ -204,7 +224,14 @@ non-zero and prints no ok line):
            residual branches with einsum attention, the valid pass on the
            whole-layer kernel); the counters are zeroed just before and
            read just after each; then ``predict.main`` reads the epoch
-           checkpoint
+           checkpoint.  DINO: ``train_dino.main`` f32 from
+           configs/dino_deit-s-16.conf at 96 images a step (the conf's 1024
+           cut to fit one card), two synthetic epochs of 4 steps, the first
+           with the last layer frozen, student_drop_path 0.1: per step and
+           layer B1 on the student's 192 global rows and, with the mask, its
+           256 packed local rows, forward and backward, and B2 on the
+           teacher's 192 global rows (192 + 192 B1 launches, 96 + 96 of them
+           with the mask, 96 B2 launches); the steady-state step time
 
 The line before the last is the kernels' JSON record: each kernel's
 launches on the trainer run that takes it (ViT's for the attention layer,
@@ -213,8 +240,9 @@ to 'direct' for the halo attention, PVT's forced to 'fused' for the
 reduced-kv attention, ViT's with dropout for the packed-qkv attention,
 ViT's with the FF kernel for the FF layer, Halo's forced to 'gather' for
 the gathered halo attention, ViT's under 'block' for the attention block,
-Swin's under ``VTX_ATTN_IMPL=swin`` for the map-resident layer; every
-path's in ``launches_by_path``) and its
+Swin's under ``VTX_ATTN_IMPL=swin`` for the map-resident layer, DINO's
+for the attention layer's bias calls, ``+bias``, timed at DINO's local
+call; every path's in ``launches_by_path``) and its
 times at a call that run makes (``shape``; other shapes in
 ``other_shapes``); the last line is ``{"ok": true, "device": {...}}``.
 Needs no network and no JAX.
@@ -293,6 +321,13 @@ KERNELS = {  # name → (source, the TPU kernel it replaces)
                          "vision_transformers_tpu/ops/fused_swin.py:99"),
     "fused_swin_layer_bwd": ("vision_transformers_tpu_torch/csrc/fused_swin.cu",
                              "vision_transformers_tpu/ops/fused_swin.py:200"),
+    # B1's calls with the additive bias, timed at DINO's packed local crops
+    # (the block mask at heads 64 wide, on the packed-row core) and counted
+    # on the DINO trainer's run
+    "fused_attention_layer+bias": ("vision_transformers_tpu_torch/csrc/fused_layer.cu",
+                                   "vision_transformers_tpu/ops/fused_layer.py:116"),
+    "fused_attention_layer_bwd+bias": ("vision_transformers_tpu_torch/csrc/fused_layer_bwd.cu",
+                                       "vision_transformers_tpu/ops/fused_layer.py:183"),
 }
 # the tensor-core kernels (3xTF32): the attention of csrc/attention_tc.cuh, which
 # B6, B3 and B8 run, and of csrc/halo_attention_tc.cuh, which B5a, B5b and B4's
@@ -2400,6 +2435,99 @@ def twins_layer_kernels(torch):
 
 
 # ---------------------------------------------------------------------------
+# 3d. the attention layer (B1) with DINO's block mask at heads 64 wide
+# ---------------------------------------------------------------------------
+
+
+# DINO DeiT-S/16's local call (configs/dino_deit-s-16.conf at 96 images: 768
+# local crops of 37 tokens, packed 3 to a row), and an odd one: 2 crops of 37
+# a row at a narrow width
+DINO_LOCAL = dict(label="DINO DeiT-S/16 locals (96 images)", shape=(256, 111, 384, 6, 64),
+                  pack=3)
+DINO_ODD = dict(label="odd", shape=(6, 74, 128, 2, 64), pack=2)
+
+
+def dino_layer_kernels(torch):
+    """3d: B1 with the block-diagonal −1e9 mask of packed local crops at
+    heads 64 wide (the packed-row core, the mask added in f32 after the
+    product): the serving forward (no saves), the training forward (with
+    saves) and the backward against the plain versions, the backward twice
+    for bit-identity, the mask without a gradient, at an odd call and at
+    DINO's local call; each crop's output blind to the others' tokens;
+    median ms of the local call beside the plain version and
+    F.scaled_dot_product_attention on the same q, k, v with the mask as a
+    float attn_mask (forward, and its backward through autograd; the
+    attention alone, without the layer's LN and projections).  Returns the
+    timed entries of the forward and the backward."""
+    import torch.nn.functional as F_
+
+    from vision_transformers_tpu_torch.models.vit import pack_mask
+    from vision_transformers_tpu_torch.ops import fused_layer as fl
+
+    worst = {"out": 0.0, "grads": 0.0}
+    for call in (DINO_ODD, DINO_LOCAL):
+        B, N, C, H, D = call["shape"]
+        a, _, dz = bwd_args(torch, B, N, C, H, D, False)
+        mask = pack_mask(call["pack"], N // call["pack"], DEVICE)
+        what = f"{call['label']} B,N,C,H,D={call['shape']}, block mask"
+        with torch.no_grad():
+            out = fl.fused_attention_layer(*a, H, extra=mask)
+            moved = a[0].clone()
+            moved[:, N // call["pack"]:] += 1.0  # every crop but the first
+            other = fl.fused_attention_layer(moved, *a[1:], H, extra=mask)
+        torch.cuda.synchronize()
+        err = check_close(torch, "fused_attention_layer", out, fl.fused_attention_layer_reference(
+            *a, H, extra=mask), what + " (serving)")
+        worst["out"] = max(worst["out"], err)
+        if not torch.equal(other[:, :N // call["pack"]], out[:, :N // call["pack"]]):
+            raise RuntimeError(f"kernels: {what}: a crop's output moved with another crop")
+        out, saved = fl.fused_attention_layer_fwd(*a, H, extra=mask)
+        grads = fl.fused_attention_layer_bwd(saved, dz, need_dextra=False)
+        again = fl.fused_attention_layer_bwd(saved, dz, need_dextra=False)
+        torch.cuda.synchronize()
+        if not torch.isfinite(saved.lse).all():
+            raise RuntimeError(f"kernels: {what}: non-finite lse")
+        out_p, saved_p = fl.fused_attention_layer_fwd_reference(*a, H, extra_g=saved.extra_g)
+        plain = fl.fused_attention_layer_bwd_reference(saved_p, dz, need_dextra=False)
+        compare_grads(torch, what, ("out",) + GRAD_NAMES + ("dextra",), (out,) + grads,
+                      (out,) + again, (out_p,) + plain, worst)
+        del grads, again, plain, saved_p, other, moved
+    f_ms = median_ms(torch, lambda: fl.fused_attention_layer_fwd(*a, H, extra=mask))
+    b_ms = median_ms(torch, lambda: fl.fused_attention_layer_bwd(saved, dz, need_dextra=False))
+    _, saved_p = fl.fused_attention_layer_fwd_reference(*a, H, extra_g=saved.extra_g)
+    pf_ms = median_ms(torch, lambda: fl.fused_attention_layer_fwd_reference(
+        *a, H, extra_g=saved.extra_g))
+    pb_ms = median_ms(torch, lambda: fl.fused_attention_layer_bwd_reference(
+        saved_p, dz, need_dextra=False))
+    del saved_p
+    HD = H * D
+    leaf = saved.qkv.detach().clone().requires_grad_()
+    q, k, v = (leaf[..., i * HD:(i + 1) * HD].unflatten(-1, (H, D)).transpose(1, 2)
+               for i in range(3))
+    lib = F_.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=saved.scale)
+    lib_err = (lib.detach().transpose(1, 2).reshape(B, N, HD) - saved.acc).abs().max().item()
+    dlib = torch.randn_like(lib)
+    lf_ms = median_ms(torch, lambda: F_.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=saved.scale))
+    lb_ms = median_ms(torch, lambda: torch.autograd.grad(lib, leaf, dlib, retain_graph=True))
+    fb, fby = bound(*attn_fwd_work(B, N, C, H, D, saves=True, groups=1))
+    bb, bby = bound(*attn_bwd_work(B, N, C, H, D, groups=1))
+    log(f"backward: fused_attention_layer {what} train call (median of 20, CUDA events): "
+        f"kernel fwd(saves) {f_ms:.3f} + bwd {b_ms:.3f} ms; plain fwd {pf_ms:.3f} + bwd "
+        f"{pb_ms:.3f} ms; scaled_dot_product_attention (the attention alone) fwd "
+        f"{lf_ms:.3f} + its backward {lb_ms:.3f} ms (max|Δ| to the kernel's attention "
+        f"output {lib_err:.3e}); bound fwd {fb:.3f} ({fby}) + bwd {bb:.3f} ms ({bby})")
+    shape = f"{DINO_LOCAL['label']}, B,N,C,H,D=" + ",".join(map(str, DINO_LOCAL["shape"])) \
+        + ", block mask"
+    fwd = {"shape": shape + ", saves", "max_abs_err": worst["out"], "ms": f_ms,
+           "plain_ms": pf_ms, "bound_ms": fb, "bound_by": fby, "library_ms": lf_ms}
+    bwd = {"shape": shape, "max_abs_err": worst["grads"], "ms": b_ms, "plain_ms": pb_ms,
+           "bound_ms": bb, "bound_by": bby, "library_ms": lb_ms}
+    del leaf, q, k, v, lib, dlib, a, dz, out, saved
+    return fwd, bwd
+
+
+# ---------------------------------------------------------------------------
 # 3q. the packed-qkv attention (B3) vs its plain version
 # ---------------------------------------------------------------------------
 
@@ -2838,6 +2966,64 @@ def train_golden(torch, model_name, expected, halo=None, sra=None, attn=None, ff
 
 
 # ---------------------------------------------------------------------------
+# 4d. a full-width DINO step against the JAX package's
+# ---------------------------------------------------------------------------
+
+
+DINO_CONF = os.path.join(ROOT, "configs", "dino_deit-s-16.conf")
+DINO_GOLDEN_SCRIPT = os.path.join(ROOT, "scripts", "make_torch_port_dino_golden.py")
+
+
+def dino_golden(torch):
+    """One f32 DINO step of DeiT-S/16 (depth 12, head → 65,536) under the
+    'layer' force, on the golden's 3 images (6 globals at 224, 24 locals at
+    96 packed 3 to a row: 8 rows under the mask, which the einsum gate would
+    otherwise take), seeded weights, center and temperature, against
+    tests/data/dino_deit_s16_port_golden.npz: the loss, both nets' outputs
+    (per-crop norms and projections), the gradient norm and each tensor's
+    gradient norm and projection, rtol 1e-3.  Each of the 12 layers runs B1:
+    the teacher on the globals (serving), the student on the globals and,
+    with the mask, on the locals, forward and backward."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("make_torch_port_dino_golden",
+                                                  DINO_GOLDEN_SCRIPT)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)  # numpy at import; the port's step imports no JAX
+    with np.load(mod.GOLDEN) as f:
+        g = {k: f[k] for k in f.files}
+    fal, falb = "fused_attention_layer", "fused_attention_layer_bwd"
+    expected = {fal: 36, fal + "+bias": 12, falb: 24, falb + "+bias": 12}
+    before = counts()
+    with forced(attn="layer"):
+        ours = mod.port_dino_step(int(g["seed"]), DEVICE)
+    torch.cuda.synchronize()
+    expect_path(before, counts(), expected, "golden DINO")
+    if list(ours["keys"]) != list(g["keys"]):
+        raise RuntimeError("golden DINO: the port's parameters differ from the golden's")
+    rtol, norms = 1e-3, g["norms"]
+    rel = {"loss": abs(ours["loss"] - g["loss"]) / abs(g["loss"]),
+           "grad_norm": abs(ours["grad_norm"] - g["grad_norm"]) / g["grad_norm"],
+           "tensor norms (worst)": float(np.max(np.abs(ours["norms"] - norms) / norms)),
+           "projections (worst, of the tensor norm)": float(np.max(
+               np.abs(ours["projections"] - g["projections"]) / norms))}
+    for net in ("student", "teacher"):
+        rel[f"{net} output norms (worst)"] = float(np.max(
+            np.abs(ours[f"{net}_norms"] - g[f"{net}_norms"]) / g[f"{net}_norms"]))
+        scale = float(np.abs(g[f"{net}_projections"]).max())
+        rel[f"{net} output projections (worst, of the largest)"] = float(np.max(
+            np.abs(ours[f"{net}_projections"] - g[f"{net}_projections"])) / scale)
+    log(f"golden: DINO DeiT-S/16 depth 12, {len(g['student_norms'])} student crops (6 x "
+        f"224, 24 x 96 packed 3 to a row) and {len(g['teacher_norms'])} teacher crops via "
+        f"{path_label(expected, attn='layer')}: loss {ours['loss']:.6f} (JAX "
+        f"{float(g['loss']):.6f}), grad_norm {ours['grad_norm']:.5f} (JAX "
+        f"{float(g['grad_norm']):.5f}); relative " + ", ".join(
+            f"{k} {v:.2e}" for k, v in rel.items()) + f" (rtol {rtol})")
+    if not all(np.isfinite(v) and v <= rtol for v in rel.values()):
+        raise RuntimeError("golden DINO: the port disagrees with the JAX package")
+
+
+# ---------------------------------------------------------------------------
 # 5. predict end to end (the serving path)
 # ---------------------------------------------------------------------------
 
@@ -3028,6 +3214,83 @@ def train_main_path(torch, has_pil, model_name, expected, overrides=(), halo=Non
     return launches
 
 
+# DINO at 96 images a step (the conf's 1024 cut: 768 locals pack 3 to a row),
+# 2 epochs of 4 synthetic steps, epoch 0 with the last layer frozen
+DINO_BATCH, DINO_EPOCHS = 96, 2
+
+
+def dino_train_main_path(torch):
+    """``train_dino.main`` f32 from configs/dino_deit-s-16.conf at 96 images
+    a step for two synthetic epochs (4 steps each; the last layer frozen in
+    the first), DropPath 0.1 on the student: per step and layer, the student
+    takes B1 on its 192 global rows (per-sample row scales) and, with the
+    mask, on its 256 packed local rows (token-level scales applied outside),
+    forward and backward, and the teacher the whole-layer kernel B2 on its
+    192 global rows (forward only).  The counters are zeroed just before and
+    read just after; the loss must be finite and the epoch checkpoint hold
+    both nets.  Logs the steady-state step time."""
+    from vision_transformers_tpu_torch import train_dino
+    from vision_transformers_tpu_torch.ops import _build
+    from vision_transformers_tpu_torch.train import dino
+    from vision_transformers_tpu_torch.utils.weights import load_dino_checkpoint
+
+    steps = 4 * DINO_EPOCHS
+    fal, falb, ftl = "fused_attention_layer", "fused_attention_layer_bwd", \
+        "fused_transformer_layer"
+    expected = {fal: 24 * steps, fal + "+bias": 12 * steps, falb: 24 * steps,
+                falb + "+bias": 12 * steps, ftl: 12 * steps}
+    step_secs = []
+    make_step = dino.make_dino_train_step
+
+    def timed_make_step(*args, **kwargs):  # per-step wall time, ended by a sync
+        optimizer, step = make_step(*args, **kwargs)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            out = step(*a, **kw)
+            torch.cuda.synchronize()
+            step_secs.append(time.perf_counter() - t0)
+            return out
+        return optimizer, timed
+
+    _build._BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build._BUILD_DIR) as tmp:
+        args = ["--conf", DINO_CONF, "--device", DEVICE, "precision=f32",
+                f"training.dataloader.batch_size={DINO_BATCH}",
+                f"training.epoch={DINO_EPOCHS}", "log_freq=1",
+                f"checker.storage=[{{type: local, path: {tmp}}}]"]
+        dino.make_dino_train_step = timed_make_step
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            reset_counts()  # the main path's run starts here
+            t0 = time.perf_counter()
+            metrics = train_dino.main(args)
+            secs = time.perf_counter() - t0
+            launches = counts()  # read just after the main path's run
+        finally:
+            dino.make_dino_train_step = make_step
+        peak = torch.cuda.max_memory_allocated()
+        want = {k: expected.get(k, 0) for k in launches}
+        if launches != want:
+            raise RuntimeError(f"trainer DINO: expected launches {want}, counted {launches}")
+        if not np.isfinite(metrics["loss"]):
+            raise RuntimeError(f"trainer DINO: non-finite metrics {metrics}")
+        student, teacher = load_dino_checkpoint(os.path.join(tmp, f"epoch-{DINO_EPOCHS:03d}.pt"))
+        if teacher is None or not all(torch.isfinite(v).all() for v in student.values()):
+            raise RuntimeError("trainer DINO: the epoch checkpoint lacks a net")
+    steady = float(np.mean(step_secs[1:]))
+    log(f"trainer: {DINO_EPOCHS} epochs of DINO DeiT-S/16 f32 ({len(step_secs)} steps x "
+        f"{DINO_BATCH} images: 2 x 224 + 8 x 96 crops each, the locals packed 3 to a row; "
+        f"student_drop_path 0.1; epoch 0 with the last layer frozen) in {secs:.2f} s: loss "
+        f"{metrics['loss']:.5f}; trainer images/s {metrics['images_per_sec']:.1f}; steps "
+        + ", ".join(f"{t * 1e3:.1f}" for t in step_secs) + " ms; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"trainer: DINO steady state (steps 2-{len(step_secs)}): {steady * 1e3:.2f} ms/step = "
+        f"{DINO_BATCH / steady:.1f} images/s")
+    log(f"trainer: DINO launches on the main path {launches}")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -3060,6 +3323,9 @@ def main() -> None:
     tw_fwd, tw_bwd = phase("3b attention layer + mask", twins_layer_kernels, torch)
     timed["fused_attention_layer"] += tw_fwd
     timed["fused_attention_layer_bwd"] += tw_bwd
+    dino_fwd, dino_bwd = phase("3d attention layer + DINO mask", dino_layer_kernels, torch)
+    timed["fused_attention_layer+bias"] = [dino_fwd]
+    timed["fused_attention_layer_bwd+bias"] = [dino_bwd]
     timed["fused_attention"], timed["fused_attention_bwd"] = phase(
         "3s reduced-kv", sra_kernels, torch)
     timed["fused_attention_qkv"], timed["fused_attention_qkv_bwd"] = phase(
@@ -3111,6 +3377,7 @@ def main() -> None:
           None, None, "block")
     phase("4 golden Swin swin", golden, torch, "Swin-S", ((64, depth("Swin-S", fsl)),),
           None, None, "swin")
+    phase("4d golden DINO", dino_golden, torch)
     phase("4b train ViT", train_golden, torch, "ViT-S/16", depth("ViT-S/16", fal, falb))
     phase("4b train Swin", train_golden, torch, "Swin-S", depth("Swin-S", ftl, ftlb))
     phase("4b train Halo", train_golden, torch, "Halo-S", depth("Halo-S", fhl, fhlb))
@@ -3213,6 +3480,10 @@ def main() -> None:
         "Swin-S train (dropout)": phase(
             "6 trainer Swin dropout", train_main_path, torch, has_pil, "Swin-S",
             {ftl: 24 * 2}, ("arch.drop_attn=0.1", "arch.drop_ff=0.1")),
+        # DINO: 8 steps x 12 layers of B1 on the student's globals and, with
+        # the mask, on its packed locals, forward and backward, and of B2 on
+        # the teacher's globals
+        "DINO train": phase("6 trainer DINO", dino_train_main_path, torch),
     }
     trainer_of = {fal: "ViT-S/16 train", falb: "ViT-S/16 train",
                   ftl: "Swin-S train", ftlb: "Swin-S train",
@@ -3223,7 +3494,8 @@ def main() -> None:
                   ffl: "ViT-S/16 train (FF kernel)", fflb: "ViT-S/16 train (FF kernel)",
                   hg: "Halo-S train (gather)", hgb: "Halo-S train (gather)",
                   blk: "ViT-S/16 train (block)", blkb: "ViT-S/16 train (block)",
-                  fsl: "Swin-S train (swin)", fslb: "Swin-S train (swin)"}
+                  fsl: "Swin-S train (swin)", fslb: "Swin-S train (swin)",
+                  fal + "+bias": "DINO train", falb + "+bias": "DINO train"}
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": paths[trainer_of[k]][k],

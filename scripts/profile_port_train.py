@@ -34,7 +34,15 @@ einsum`` its plain einsum); ``--ff-kernel`` turns the FF-half kernel on at
 the 'layer' sites; ``--attn-impl block`` runs ViT's and Swin's attention
 through the attention block kernel (projections inside it), ``--attn-impl
 swin`` Swin's layers through the map-resident whole-layer kernel (no roll or
-window partition around it).  Needs CUDA; imports no JAX.
+window partition around it).  DINO (``--conf configs/dino_deit-s-16.conf
+--rows 96``, the conf's batch cut to 96 images) profiles the DINO step as its
+trainer runs it: the uint8 multi-crop batch to the card, the augmentation,
+the teacher's forward on the 2 globals (the whole-layer kernel), the
+student's forward and backward on all 10 crops (the attention layer, the
+locals packed 3 to a row under the block mask), the DINO loss, the clip,
+AdamW with the scheduled decay and the teacher EMA (``--freeze`` with the
+last layer frozen); the conf's ``student_drop_path`` 0.1.  Needs CUDA;
+imports no JAX.
 """
 
 import argparse
@@ -79,6 +87,42 @@ def group(name: str) -> str:
     return "other (elementwise, reductions, conv)"
 
 
+def dino_step(conf, images, seed, freeze, gen):
+    """The DINO trainer's step at ``images`` images a step, seeded weights
+    (the teacher a copy of the student), as train/dino.py runs it."""
+    from vision_transformers_tpu_torch.data.dino import make_dino_device_augment
+    from vision_transformers_tpu_torch.data.synthetic import synthetic_dino_batches
+    from vision_transformers_tpu_torch.train.dino import DINOTrainState, make_dino_train_step
+    from vision_transformers_tpu_torch.train.schedule import cosine_schedule
+    from vision_transformers_tpu_torch.utils.weights import seeded_state_dict, to_torch
+
+    arch, task, training = conf.arch, conf.task, conf.training
+    sd = to_torch(seeded_state_dict(arch, seed))
+    student = arch.make(drop_path=task.student_drop_path)
+    teacher = arch.make(drop_path=0.0)
+    student.load_state_dict(sd, strict=True)
+    teacher.load_state_dict(sd, strict=True)
+    student.cuda()
+    teacher.cuda().requires_grad_(False)
+    optimizer, train_step = make_dino_train_step(
+        training, student, lambda c: 1e-4, cosine_schedule(training.weight_decay,
+                                                           task.weight_decay_end, 100),
+        task.n_local_crop + 2)
+    state = DINOTrainState(student, teacher, optimizer,
+                           torch.zeros((1, arch.dim_head_out), device="cuda"))
+    host = next(synthetic_dino_batches(images, task.global_crop_size, task.local_crop_size,
+                                       task.n_local_crop, 1, seed=seed))
+    augment = make_dino_device_augment(task.n_local_crop)
+    aug_gen = torch.Generator(device="cuda").manual_seed(seed + 23)
+
+    def step():
+        crops = augment(aug_gen, torch.from_numpy(host["globals"]).cuda(),
+                        torch.from_numpy(host["locals"]).cuda())
+        return train_step(state, crops, gen, task.warmup_teacher_temperature, 0.996, freeze)
+
+    return step
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--conf", default=CONF)
@@ -97,6 +141,8 @@ def main() -> None:
                         help="force the attention path (default: the dispatch's)")
     parser.add_argument("--ff-kernel", action="store_true",
                         help="the FF-half kernel at the 'layer' sites (default off)")
+    parser.add_argument("--freeze", action="store_true",
+                        help="DINO: the last layer frozen (epoch 0 of the recipe)")
     parser.add_argument("overrides", nargs="*", help="key=value conf overrides")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -121,21 +167,25 @@ def main() -> None:
                           text=True, timeout=60).stdout.strip().splitlines()[0]
     conf = load_config(args.conf, ["precision=f32", *args.overrides])
     arch, training = conf.arch, conf.training
-    model = arch.make()
-    model.load_state_dict(to_torch(seeded_state_dict(arch, args.seed)), strict=True)
-    model = model.cuda()
-    state = engine.create_train_state(
-        model, make_optimizer(training, model, lambda c: 1e-4), ema=training.ema)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    size = getattr(arch, "image_size", None) or training.train_size  # Twins has none
-    size = size if isinstance(size, int) else size[0]
-    batch = to_device(next(SyntheticDataset(args.rows, size, arch.n_class,
-                                            seed=args.seed).batches(args.rows)), "cuda")
+    if arch.type == "dino":
+        step = dino_step(conf, args.rows, args.seed, args.freeze, gen)
+    else:
+        model = arch.make()
+        model.load_state_dict(to_torch(seeded_state_dict(arch, args.seed)), strict=True)
+        model = model.cuda()
+        state = engine.create_train_state(
+            model, make_optimizer(training, model, lambda c: 1e-4), ema=training.ema)
+        size = getattr(arch, "image_size", None) or training.train_size  # Twins has none
+        size = size if isinstance(size, int) else size[0]
+        batch = to_device(next(SyntheticDataset(args.rows, size, arch.n_class,
+                                                seed=args.seed).batches(args.rows)), "cuda")
 
-    def step():
-        return engine.train_step(state, batch, gen,
-                                 grad_accumulation=training.grad_accumulation,
-                                 ema=training.ema, clip_grad_norm=training.clip_grad_norm)
+        def step():
+            return engine.train_step(state, batch, gen,
+                                     grad_accumulation=training.grad_accumulation,
+                                     ema=training.ema,
+                                     clip_grad_norm=training.clip_grad_norm)
 
     for _ in range(3):
         step()
@@ -167,7 +217,7 @@ def main() -> None:
           f"{'sra path ' + args.sra_impl + ' ' if args.sra_impl else ''}"
           f"{'attention ' + args.attn_impl + ' ' if args.attn_impl else ''}"
           f"{'FF kernel ' if args.ff_kernel else ''}f32 "
-          f"train step, {args.rows} rows "
+          f"{'(last layer frozen) ' if args.freeze else ''}train step, {args.rows} rows "
           f"(grad_accumulation {training.grad_accumulation}), {args.steps} profiled "
           f"steps: wall {wall * 1e3:.3f} ms ({args.rows / wall:.1f} images/s), "
           f"device busy {busy:.3f} ms ({busy / (wall * 1e3):.1%})")

@@ -20,7 +20,9 @@ under B1's bias calls, B2 and B9), ``3s`` (the reduced-kv attention, B6),
 ``3q`` (the packed-qkv attention, B3), ``3h`` (the Halo kernels' forwards: the
 whole Halo layer B4 and the halo attention B5a), ``3hb`` (their backwards),
 ``3g`` (the gathered halo attention, B5b), ``3k`` (the attention block, B8),
-``3w`` (the map-resident Swin layer, B9) and ``3f`` (the FF layer, B7).  Exits
+``3w`` (the map-resident Swin layer, B9), ``3f`` (the FF layer, B7), ``3d`` (B1
+with DINO's block mask at heads 64 wide), and two of chip_smoke's model
+phases: ``4d`` (the DINO golden) and ``6d`` (the DINO trainer).  Exits
 non-zero when a phase fails.  Needs CUDA; imports no JAX.
 """
 
@@ -35,7 +37,8 @@ PHASES = {"3m": "gemm_kernels", "3": "kernels", "3v": "backward_kernel",
           "3t": "twins_layer_kernels", "3a": "window_kernels", "3s": "sra_kernels",
           "3q": "qkv_kernels", "3h": "halo_kernels", "3hb": "halo_backward_kernels",
           "3g": "gather_kernels", "3k": "block_kernels", "3w": "swin_map_kernels",
-          "3f": "ff_kernels"}
+          "3f": "ff_kernels", "3d": "dino_layer_kernels", "4d": "dino_golden",
+          "6d": "dino_train_main_path"}
 DEFAULT = ("3s", "3q")
 
 
@@ -56,7 +59,9 @@ def main() -> None:
         result = getattr(chip_smoke, PHASES[phase])(torch)
         parts = result.values() if isinstance(result, dict) else result or ()
         # a phase returns records, lists of records or {kernel: records}
-        records = [r for part in parts for r in ([part] if isinstance(part, dict) else part)]
+        # (a model phase: None, or its launch counts)
+        records = [r for part in parts if isinstance(part, (dict, list, tuple))
+                   for r in ([part] if isinstance(part, dict) else part)]
         for rec in records:
             print(json.dumps({"phase": phase, **rec}), flush=True)
     print(f"phases {' '.join(which)} ok in {time.perf_counter() - t0:.1f} s")

@@ -1,0 +1,198 @@
+"""The port's DINO trainer (vision_transformers_tpu_torch/train/dino.py)
+against the JAX package's, on the CPU.
+
+Three optimizer steps through ``make_dino_train_step`` on both sides from
+one seeded reference-layout state_dict, at ``student_drop_path`` 0, the
+clip engaged: two with the last layer frozen, one after.  Each step holds
+the loss (rtol 1e-5), the center, the student and the teacher to the JAX
+package's at the tolerances of tests/test_torch_port_train.py; the frozen
+layer stays at its initial values while frozen on both sides, and after the
+freeze its bias correction runs at its own step count (torch's semantics,
+JAX dino.py:172-216).  Then the ``train_dino`` command line on
+``--device cpu`` for tiny epochs: a frozen and a free epoch, the checkpoint
+in the reference layout, ``finetune`` from it, and what is not ported.
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vision_transformers_tpu.config.schema import Training as JaxTraining
+from vision_transformers_tpu.models.vit import DINOConfig as JaxDINOConfig
+from vision_transformers_tpu.train.dino import DINOTrainState as JaxState
+from vision_transformers_tpu.train.dino import make_dino_train_step as jax_make_step
+from vision_transformers_tpu.utils.torch_convert import convert_state_dict
+from vision_transformers_tpu_torch import ops
+from vision_transformers_tpu_torch.config.registry import from_dict
+from vision_transformers_tpu_torch.config.schema import Training
+from vision_transformers_tpu_torch.models.vit import DINOConfig
+from vision_transformers_tpu_torch.train.dino import DINOTrainState, make_dino_train_step
+from vision_transformers_tpu_torch.train.schedule import cosine_schedule
+from vision_transformers_tpu_torch.utils.weights import (load_checkpoint,
+                                                         load_dino_checkpoint,
+                                                         seeded_dino_crops,
+                                                         seeded_state_dict,
+                                                         state_dict_from_flax, to_torch)
+from vision_transformers_tpu_torch.train_dino import main as train_dino_main
+from torch_port_threads import one_torch_thread  # noqa: F401
+
+ARCH = dict(image_size=32, window_size=8, depth=2, dim=64, n_head=2, dim_ff=128,
+            dim_head_out=128, norm_last_layer=False, depth_head=3, dim_head_ff=96,
+            dim_head_bottleneck=32)
+B, N_LOCAL = 6, 2  # 6 locals of 5 tokens pack 3 to a row
+LR, WD, WD_END, CLIP, STEPS = 1e-3, 0.04, 0.4, 0.5, 3
+FREEZE = (True, True, False)
+TEMP, MOMENTUM = (0.04, 0.05, 0.06), cosine_schedule(0.996, 1.0, STEPS)
+
+
+def train_confs():
+    kw = dict(optimizer={"type": "adamw", "lr": LR},
+              scheduler={"type": "constant", "lr": LR}, base_lr=LR, weight_decay=WD,
+              wd_skip="dino", epoch=1, clip_grad_norm=CLIP, grad_accumulation=1)
+    return JaxTraining(**kw), from_dict(Training, kw)
+
+
+def tree_sd(tree):
+    return state_dict_from_flax(jax.tree.map(np.asarray, tree))
+
+
+@pytest.fixture(scope="module")
+def trajectories():
+    """Per step: (JAX loss, student, teacher, center), the port's the same."""
+    sd = seeded_state_dict(DINOConfig(**ARCH), seed=4)
+    crops = seeded_dino_crops(4, B, 32, 16, N_LOCAL)
+    n_crop = len(crops)
+    wd_sched = cosine_schedule(WD, WD_END, STEPS)
+    jconf, pconf = train_confs()
+    # JAX
+    jmodel = JaxDINOConfig(**ARCH).make(drop_path=0.0)
+    params = jax.tree.map(jnp.asarray, convert_state_dict(JaxDINOConfig(**ARCH), sd)["params"])
+    tx, step = jax_make_step(jconf, jmodel, jmodel, params, lambda c: LR, wd_sched, n_crop)
+    state = JaxState(step=jnp.zeros((), jnp.int32), student=params,
+                     teacher=jax.tree.map(jnp.copy, params), opt_state=tx.init(params),
+                     center=jnp.zeros((1, ARCH["dim_head_out"]), jnp.float32))
+    step = jax.jit(step)
+    jcrops = [jnp.asarray(c) for c in crops]
+    theirs = []
+    for t in range(STEPS):
+        state, m = step(state, jcrops, jax.random.PRNGKey(0), jnp.float32(TEMP[t]),
+                        jnp.float32(MOMENTUM[t]), jnp.float32(FREEZE[t]))
+        theirs.append((float(m["loss"]), float(m["grad_norm"]), tree_sd(state.student),
+                       tree_sd(state.teacher), np.asarray(state.center)))
+    # port
+    student = DINOConfig(**ARCH).make(drop_path=0.0)
+    student.load_state_dict(to_torch(sd), strict=True)
+    teacher = DINOConfig(**ARCH).make(drop_path=0.0)
+    teacher.load_state_dict(to_torch(sd), strict=True)
+    teacher.requires_grad_(False)
+    opt, pstep = make_dino_train_step(pconf, student, lambda c: LR, wd_sched, n_crop)
+    pstate = DINOTrainState(student, teacher, opt, torch.zeros(1, ARCH["dim_head_out"]))
+    pcrops = [torch.from_numpy(c).permute(0, 3, 1, 2) for c in crops]
+    ours, steps_seen = [], []
+    ops.set_attention_impl("layer")  # B1's autograd Function, packed rows too
+    try:
+        for t in range(STEPS):
+            m = pstep(pstate, pcrops, None, TEMP[t], MOMENTUM[t], FREEZE[t])
+            sd_np = lambda mod: {k: v.detach().numpy().copy()  # noqa: E731
+                                 for k, v in mod.state_dict().items()}
+            ours.append((float(m["loss"]), float(m["grad_norm"]), sd_np(student),
+                         sd_np(teacher), pstate.center.numpy().copy()))
+            steps_seen.append(dict(zip(opt.names, opt.steps)))
+    finally:
+        ops.set_attention_impl(None)
+    return sd, theirs, ours, steps_seen, pstate
+
+
+def test_three_steps_match_jax(trajectories):
+    sd, theirs, ours, _, _ = trajectories
+    for t, ((jl, jn, js, jt, jc), (pl, pn, ps, pt, pc)) in enumerate(zip(theirs, ours)):
+        np.testing.assert_allclose(pl, jl, rtol=1e-5, err_msg=f"loss step {t}")
+        np.testing.assert_allclose(pn, jn, rtol=1e-4, err_msg=f"grad_norm step {t}")
+        assert pn > CLIP  # the clip is active
+        np.testing.assert_allclose(pc, jc, rtol=1e-4, atol=1e-7, err_msg=f"center step {t}")
+        assert sorted(ps) == sorted(js) == sorted(pt) == sorted(jt)
+        # test_torch_port_train.py's one-step tolerance, per step taken
+        for what, a_sd, b_sd in (("student", ps, js), ("teacher", pt, jt)):
+            for k in a_sd:
+                a, b = a_sd[k], b_sd[k]
+                assert np.isclose(a, b, rtol=2e-3, atol=5e-5).mean() >= 0.999, (t, what, k)
+                assert np.abs(a - b).max() <= (t + 1) * LR * 0.01, (t, what, k)
+
+
+def test_the_frozen_last_layer_keeps_torch_semantics(trajectories):
+    sd, theirs, ours, steps_seen, pstate = trajectories
+    last = ("head.last.weight_v", "head.last.weight_g")
+    for t in range(STEPS):
+        for k in last:
+            frozen = all(FREEZE[:t + 1])
+            for tag, sd_t in (("JAX", theirs[t][2]), ("port", ours[t][2])):
+                assert np.array_equal(sd_t[k], sd[k]) == frozen, (tag, t, k)
+    # torch AdamW's per-parameter step: the frozen steps are not counted
+    assert steps_seen[1]["head.last.weight_v"] == 0 and steps_seen[1]["head.mlp.0.weight"] == 2
+    assert steps_seen[2]["head.last.weight_g"] == 1 and steps_seen[2]["cls_token"] == 3
+    assert pstate.frozen_steps == 2 and pstate.step == 3 and pstate.optimizer.count == 3
+
+
+# ---------------------------------------------------------------------------
+# the command line
+# ---------------------------------------------------------------------------
+
+
+CONF = os.path.join(os.path.dirname(__file__), "..", "configs", "dino_deit-s-16.conf")
+TINY = ["precision=f32", "arch.depth=2", "arch.dim=64", "arch.n_head=2", "arch.dim_ff=128",
+        "arch.image_size=32", "arch.window_size=8", "arch.dim_head_out=128",
+        "arch.dim_head_ff=64", "arch.dim_head_bottleneck=32", "task.global_crop_size=32",
+        "task.local_crop_size=16", "task.n_local_crop=2", "training.dataloader.batch_size=6",
+        "log_freq=1"]
+
+
+def test_train_dino_cli_on_cpu(tmp_path):
+    store = f"checker.storage=[{{type: local, path: {tmp_path}}}]"
+    metrics = train_dino_main(["--conf", CONF, *TINY[:3], "--device", "cpu", *TINY[3:],
+                               "training.epoch=2", store])
+    assert metrics["epoch"] == 1 and np.isfinite(metrics["loss"])
+    assert metrics["images_per_sec"] > 0 and 0.04 < metrics["weight_decay"] <= 0.4
+    ckpt = tmp_path / "epoch-002.pt"
+    obj = torch.load(ckpt, weights_only=False)
+    assert {"student", "teacher", "center", "optimizer", "frozen_steps", "epoch"} <= set(obj)
+    assert obj["frozen_steps"] == 4 and obj["optimizer"]["count"] == 8
+    assert obj["optimizer"]["steps"]["head.last.weight_v"] == 4
+    assert obj["center"].shape == (1, 128) and obj["epoch"] == 1
+    assert obj["student"]["head.last.weight_g"].shape == (128, 1)
+    student, teacher = load_dino_checkpoint(str(ckpt))
+    assert not torch.equal(student["cls_token"], teacher["cls_token"])
+    assert torch.equal(load_checkpoint(str(ckpt))["cls_token"], student["cls_token"])
+    assert torch.equal(load_checkpoint(f"{ckpt}:teacher")["cls_token"], teacher["cls_token"])
+    # finetune: both nets from a DINO checkpoint, or the teacher seeded from
+    # a bare state_dict
+    torch.save(student, tmp_path / "bare.pt")
+    for src in (ckpt, tmp_path / "bare.pt"):
+        out = tmp_path / f"ft-{src.stem}"
+        m = train_dino_main(["--conf", CONF, "--device", "cpu", *TINY, "training.epoch=1",
+                             f"finetune={src}", f"checker.storage=[{{type: local, path: {out}}}]"])
+        assert np.isfinite(m["loss"]) and (out / "epoch-001.pt").is_file()
+
+
+@pytest.mark.parametrize("override,error", [
+    ("precision=bf16", NotImplementedError),
+    ("training.agc=0.01", NotImplementedError),
+    ("resume=auto", NotImplementedError),
+    ("data_backend=records", NotImplementedError),
+    ("arch.use_bn=true", NotImplementedError),
+], ids=["bf16", "agc", "resume", "records", "use_bn"])
+def test_train_dino_refuses_what_is_not_ported(override, error, tmp_path):
+    with pytest.raises(error):
+        train_dino_main(["--conf", CONF, "--device", "cpu", *TINY, override,
+                         f"checker.storage=[{{type: local, path: {tmp_path}}}]"])
+
+
+def test_train_dino_refuses_several_devices_and_a_missing_card(tmp_path, monkeypatch):
+    with pytest.raises(NotImplementedError):
+        train_dino_main(["--conf", CONF, "--device", "cpu", "--n_device", "2", *TINY])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_dino_main(["--conf", CONF, *TINY])

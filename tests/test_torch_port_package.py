@@ -153,8 +153,8 @@ def test_bad_conf_raises(override, error):
 
 
 def test_unknown_type_lists_registered():
-    with pytest.raises(KeyError, match="registered: halo_transformer, pvt, swin_transformer, "
-                                       "twins_svt, vit"):
+    with pytest.raises(KeyError, match="registered: dino, halo_transformer, pvt, "
+                                       "swin_transformer, twins_svt, vit"):
         registry.build("model", {"type": "nfnet"})
 
 
@@ -249,7 +249,7 @@ def test_cuda_refuses_what_the_kernel_does_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
     a = _layer_args(2, 17, 32, 2, 16, 64, "cuda")
-    wide = _layer_args(2, 17, 64, 1, 64, 128, "cuda")  # a bias takes heads up to 32 wide
+    wide = _layer_args(2, 17, 80, 1, 80, 160, "cuda")  # heads up to 64 wide, bias or not
     with pytest.raises(NotImplementedError):
         fused_layer.fused_attention_layer(*wide[:7], 1,
                                           extra=torch.zeros(1, 17, 17, device="cuda"))

@@ -294,11 +294,17 @@ def test_cuda_layer_passes_the_bias_forward_and_backward(monkeypatch, need_dextr
 
 
 def test_cuda_layer_refuses_a_bias_with_wide_heads(monkeypatch):
-    args, _, _ = layer_inputs(C=64, H=1, D=64)
+    # heads wider than 64 are refused with or without the bias ...
+    args, _, _ = layer_inputs(C=80, H=1, D=80)
     extra_g, groups = fused_layer.extra_groups(torch.zeros(18, 18), 4, 1, 18)
-    with fake_cuda(monkeypatch), pytest.raises(NotImplementedError, match="32 wide"):
+    with fake_cuda(monkeypatch), pytest.raises(NotImplementedError, match="64 wide"):
         fused_layer._cuda_fwd(*args, 1, extra_g, groups, None, 0.125, 1e-6, save=False)
-    with fake_cuda(monkeypatch) as lib:  # without a bias heads up to 64 wide run
+    # ... and up to 64 wide the bias runs, on the packed-row core (heads over
+    # 32 wide leave the window attention), as it does without one
+    args, _, _ = layer_inputs(C=64, H=1, D=64)
+    with fake_cuda(monkeypatch) as lib:
+        fused_layer._cuda_fwd(*args, 1, extra_g, groups, None, 0.125, 1e-6, save=False)
+        assert lib.calls["vtx_fused_attention_layer_fwd"][11:13] == (extra_g.data_ptr(), 1)
         fused_layer._cuda_fwd(*args, 1, None, 1, None, 0.125, 1e-6, save=False)
     assert lib.calls["vtx_fused_attention_layer_fwd"][11:13] == (None, 1)
 

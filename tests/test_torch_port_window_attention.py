@@ -347,11 +347,15 @@ def test_bias_calls_refuse_more_than_128_tokens(monkeypatch):
     B, N, C, H, D = 2, 130, 32, 2, 16
     args = layer_inputs(B, N, C, H, D, 4 * C)
     extra = torch.zeros(1, H, N, N)
-    with fake_cuda(monkeypatch), pytest.raises(NotImplementedError, match="128 tokens"):
-        fused_layer._cuda_fwd(*args[:7], H, extra, 1, None, 0.25, 1e-6, save=False)
+    # B2's bias calls stay on the window attention, which takes ≤ 128 tokens
     with fake_cuda(monkeypatch), pytest.raises(NotImplementedError, match="128 tokens"):
         fused_layer1._cuda_fwd(*args, H, extra, 1, None, None, "silu", 0.25, 1e-6,
                                save=False)
+    # B1's leave it past 128 tokens for the packed-row core, which takes any N
+    assert not fused_layer.window_on_bias(True, N, D)
+    with fake_cuda(monkeypatch) as lib:
+        fused_layer._cuda_fwd(*args[:7], H, extra, 1, None, 0.25, 1e-6, save=False)
+    assert lib.calls["vtx_fused_attention_layer_fwd"][11:13] == (extra.data_ptr(), 1)
 
 
 @pytest.mark.cuda

@@ -3,7 +3,9 @@
 Written for an NVIDIA H100 (``sm_90a``); the JAX package beside it is the
 reference it is tested against.  It holds the serving path
 (``python -m vision_transformers_tpu_torch.predict``) and the f32 training
-path (``python -m vision_transformers_tpu_torch.train``) of ViT and Swin,
+path (``python -m vision_transformers_tpu_torch.train``) of ViT, Swin,
+Halo, PVT and Twins-SVT, DINO's self-distillation training
+(``python -m vision_transformers_tpu_torch.train_dino``),
 with hand-written CUDA kernels for the forward and backward of the
 attention layer and of the whole transformer layer (ops/).  Imports torch,
 never jax.

@@ -7,7 +7,7 @@ files load unchanged.  ``arch``, ``training.optimizer``,
 registry (namespaces ``model``, ``optimizer``, ``scheduler``, ``checker``;
 the checker's ``storage`` / ``reporter`` items resolve when it is made), as
 in the JAX package; an unregistered type raises a KeyError that lists the
-registered ones.  ``task`` (DINO) stays a raw dict until DINO is ported.
+registered ones.  ``task`` is the typed DINO block, :class:`DINOTask`.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from . import hocon, registry
 
 __all__ = [
     "Progressive",
+    "DINOTask",
     "DataLoaderConf",
     "Training",
     "MeshConf",
@@ -43,6 +44,26 @@ class Progressive:
     drop_paths: Tuple[float, float] = (0.2, 0.2)
     grad_accumulation: Optional[List[int]] = None
     verbose: bool = True
+
+
+@dataclasses.dataclass
+class DINOTask:
+    """DINO self-distillation task settings (reference: config.py:42-56; the
+    JAX package's DINOTask, schema.py:54)."""
+
+    type: str = "dino"
+    global_crop_size: int = 224
+    local_crop_size: int = 96
+    global_crop_scale: Tuple[float, float] = (0.4, 1.0)
+    local_crop_scale: Tuple[float, float] = (0.05, 0.4)
+    n_local_crop: int = 8
+    student_drop_path: float = 0.1
+    warmup_teacher_temperature: float = 0.04
+    teacher_temperature: float = 0.07
+    warmup_teacher_temperature_epoch: int = 30
+    teacher_momentum: float = 0.9
+    weight_decay_end: float = 0.4
+    freeze_last_layer: int = 1
 
 
 @dataclasses.dataclass
@@ -116,7 +137,7 @@ class ImageNetConfig:
     arch: Any
     training: Training
     dataset_path: str
-    task: Optional[dict] = None
+    task: Optional[DINOTask] = None
 
     log_freq: int = 10
     checker: Any = None

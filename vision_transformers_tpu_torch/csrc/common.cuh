@@ -138,9 +138,10 @@ using vtx::launch_gemm_x;
 namespace {
 
 // largest attention head width: the tensor-core attention core
-// (attention_tc.cuh) stages a head 32 or 64 floats wide; with an additive
-// bias the layers' window attention (window_attention_tc.cuh) takes heads up
-// to EXTRA_DMAX wide
+// (attention_tc.cuh) stages a head 32 or 64 floats wide, with or without an
+// additive bias; the window attention (window_attention_tc.cuh), which takes
+// the bias calls of B1 and B2 over windows of up to 128 tokens and of B9,
+// heads up to EXTRA_DMAX wide
 constexpr int DMAX = 64;
 constexpr int EXTRA_DMAX = 32;
 
@@ -607,7 +608,7 @@ cudaError_t qkv_proj_bwd(
 // Backward of the attention residual branch (fused_layer_bwd.cu), shared by
 // the attention layer's backward and the whole layer's (fused_layer1_bwd.cu).
 // extra / dextra / dbpart may be null, and so may dq_part where N ≤ 64 or
-// with extra; see fused_layer_bwd.cu.
+// where the bias takes the window attention; see fused_layer_bwd.cu.
 cudaError_t attention_half_bwd(
     const float* x, const float* ln_g, const float* ln_b,
     const float* wqkv, long long wqkv_s0, long long wqkv_s1, const float* bqkv,

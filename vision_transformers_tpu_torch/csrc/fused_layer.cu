@@ -36,13 +36,15 @@
 // projections are about 8.4 GFLOP per image over 12 layers, the scores and
 // AV about 0.7, so the layer is bound by the GEMMs' arithmetic.  The
 // projections run on the GEMM core (gemm_tc.cu: 3xTF32 on wgmma, f32
-// accurate, bound at 165 TFLOP/s).  With a bias (Twins' pair mask in B1,
-// Swin's grouped bias in B2 and B9) the attention runs on the tensor-core
-// window attention (window_attention_tc.cuh: 3xTF32 on mma.sync, the same
-// 165 TFLOP/s bound; N ≤ 128, heads up to 32 wide): a block owns one
-// (group, head) and a chunk of its windows with the bias resident, and a
-// window's softmax is exact in one pass.  Without one (ViT's B1 and B2, N =
-// 197, D = 64; Twins' last stage, N = 49, D = 32) it runs on B3's packed-row
+// accurate, bound at 165 TFLOP/s).  With a bias over windows of up to 128
+// tokens and heads up to 32 wide (Twins' pair mask in B1, Swin's grouped
+// bias in B2 and B9) the attention runs on the tensor-core window attention
+// (window_attention_tc.cuh: 3xTF32 on mma.sync, the same 165 TFLOP/s bound):
+// a block owns one (group, head) and a chunk of its windows with the bias
+// resident, and a window's softmax is exact in one pass.  Every other call
+// (ViT's B1 and B2, N = 197, D = 64; Twins' last stage, N = 49, D = 32; and
+// DINO's packed local crops, N = 111, D = 64, with the block-diagonal −1e9
+// mask as the bias, added in f32 after the product) runs on B3's packed-row
 // core (attention_tc.cuh, compiled into fused_attention_qkv.cu and called
 // through vtx::packed_attention_fwd: 3xTF32 on mma.sync, the same bound):
 // 8-warp blocks of 128 queries, K / V tiles of 64 keys double-buffered
@@ -75,18 +77,21 @@ namespace {
 
 // The attention of qkv [B·N, 3·H·D] → out [B·N, H·D] (and lse [B, H, N]
 // when non-null), both on the tensor cores.  extra [G, H, N, N] or null; row
-// (window) b in group b / (B / G).  With a bias the window attention
-// (window_attention_tc.cuh: N ≤ 128, heads up to 32 wide); without one
-// (ViT's, Twins' last stage) the packed-row attention core
-// (vtx::packed_attention_fwd, fused_attention_qkv.cu: any N, heads up to
-// DMAX = 64 wide).
+// (window) b in group b / (B / G).  A bias call the window attention takes
+// (window_on_bias: N ≤ 128, heads up to 32 wide — Twins' pair mask, Swin's
+// grouped bias) runs there; every other call (ViT's without a bias, Twins'
+// last stage, DINO's packed local crops with their block mask at heads 64
+// wide) on the packed-row attention core (vtx::packed_attention_fwd,
+// fused_attention_qkv.cu: any N, heads up to DMAX = 64 wide, the bias added
+// in f32 after the 3xTF32 product).
 cudaError_t launch_attention(const float* qkv, const float* extra, int groups,
                              float* out, float* lse, int B, int N, int H, int D,
                              float scale, cudaStream_t stream) {
-  if (extra)
+  if (window_on_bias(extra, N, D))
     return wta::attention_fwd(qkv, extra, groups, false, out, lse, B, N, H, D, scale,
                               stream);
-  return vtx::packed_attention_fwd(qkv, nullptr, 1, out, lse, B, N, H, D, scale, stream);
+  return vtx::packed_attention_fwd(qkv, extra, groups, out, lse, B, N, H, D, scale,
+                                   stream);
 }
 
 // z = x + rs ⊙ OutProj(MHSA(QkvProj(LN(x)) + extra)), writing u, qkv, acc
@@ -188,7 +193,7 @@ cudaError_t vtx::window_attention_fwd(const float* qkv, const float* extra, int 
 }
 
 // The C entry points return the first cudaError_t met (0 = success).
-// extra [G, H, N, N] (groups = G; N ≤ 128, heads up to 32 wide), rs, mu,
+// extra [G, H, N, N] (groups = G; heads up to 64 wide, window_on_bias), rs, mu,
 // rstd and lse may be null: the serving forward passes none of the last four.
 
 extern "C" int vtx_fused_attention_layer_fwd(

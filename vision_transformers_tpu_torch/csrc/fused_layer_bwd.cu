@@ -61,8 +61,9 @@
 // mma.sync, bound at the same 165 TFLOP/s): one pass per window computing
 // Δ, dq, dk and dv straight into dqkv, and dextra as per-block register
 // sums over a chunk of each group's windows, summed over the chunks in
-// order — no [B, H, N, N] dS buffer.  Without one (ViT: N = 197, D = 64;
-// Twins' last stage: N = 49, D = 32) it is the packed-row core's one-pass
+// order — no [B, H, N, N] dS buffer.  Every other call (ViT: N = 197, D =
+// 64; Twins' last stage: N = 49, D = 32, both without a bias; DINO's packed
+// local crops: N = 111, D = 64 with the block mask) takes the packed-row core's one-pass
 // backward (3xTF32 on mma.sync, the same bound): a block owns one key tile
 // of one (b, h), its K and V split into hi / lo once and resident, and
 // walks the query tiles, Δ in its prologue, dS to the next product through
@@ -77,25 +78,29 @@
 
 namespace {
 
-// Step 3 → dqkv, on the tensor cores.  With the bias extra [G, H, N, N] (row
-// b in group b / (B/G)): the window attention's backward (N ≤ 128, heads up
-// to 32 wide), which computes Δ itself and, when dextra is non-null, sums dS
-// per block into dbpart [wta::bwd_chunks(B, G, H), G, H, N, N] and those
-// partials in order into dextra [G, H, N, N].  Without (ViT's, Twins' last
-// stage): the packed-row core's one-pass backward (vtx::packed_attention_bwd,
-// fused_attention_qkv.cu; heads up to 64 wide, any N), Δ in its prologue,
-// dq through the key-tile partials dq_part [ceil(N / 64), B·N, H·D] (null
-// where N ≤ 64) summed in key-tile order.
+// Step 3 → dqkv, on the tensor cores, on the forward's route
+// (window_on_bias).  A bias call the window attention takes (extra [G, H, N,
+// N], row b in group b / (B/G); N ≤ 128, heads up to 32 wide): its backward,
+// which computes Δ itself and, when dextra is non-null, sums dS per block
+// into dbpart [wta::bwd_chunks(B, G, H), G, H, N, N] and those partials in
+// order into dextra [G, H, N, N].  Every other call (ViT's and Twins' last
+// stage without a bias; DINO's block mask at heads 64 wide): the packed-row
+// core's one-pass backward (vtx::packed_attention_bwd, fused_attention_qkv.cu;
+// heads up to 64 wide, any N), Δ in its prologue, dq through the key-tile
+// partials dq_part [ceil(N / 64), B·N, H·D] (null where N ≤ 64) summed in
+// key-tile order, and with a bias that needs a gradient (dextra non-null)
+// dS into dbpart [B, H, N, N] and its ordered sum over each group's rows
+// into dextra.  DINO's mask needs none: dextra and dbpart stay null.
 cudaError_t attention_core_bwd(const float* qkv, const float* dacc,
                                const float* acc, const float* lse,
                                const float* extra, int groups, float* dq_part,
                                float* dbpart, float* dqkv, float* dextra, int B,
                                int N, int H, int D, float scale, cudaStream_t s) {
-  if (extra)
+  if (window_on_bias(extra, N, D))
     return wta::attention_bwd(qkv, acc, dacc, lse, extra, groups, false, dqkv, dbpart,
                               dextra, B, N, H, D, scale, s);
-  return vtx::packed_attention_bwd(qkv, nullptr, 1, acc, lse, dacc, dq_part, nullptr, dqkv,
-                                   nullptr, B, N, H, D, scale, s);
+  return vtx::packed_attention_bwd(qkv, extra, groups, acc, lse, dacc, dq_part, dbpart,
+                                   dqkv, dextra, B, N, H, D, scale, s);
 }
 
 }  // namespace
@@ -217,11 +222,12 @@ cudaError_t vtx::qkv_proj_bwd(
 }
 
 // z = x + r ⊙ OutProj(MHSA(QkvProj(LN(x)) + extra)) backward, steps 1-6
-// above.  extra [G, H, N, N] (row b in group b / (B/G)) may be null; with
-// it and a non-null dextra, dbpart [wta::bwd_chunks(B, G, H), G, H, N, N]
-// takes the window attention's per-block dS sums and dextra [G, H, N, N]
-// their ordered sum; without it, dq_part [ceil(N / 64), B·N, H·D] (null
-// where N ≤ 64) takes the packed-row core's dq partials.
+// above.  extra [G, H, N, N] (row b in group b / (B/G)) may be null.  On
+// the window attention (window_on_bias) a non-null dextra takes the ordered
+// sum of the per-block dS sums in dbpart [wta::bwd_chunks(B, G, H), G, H, N,
+// N]; on the packed-row core dq_part [ceil(N / 64), B·N, H·D] (null where N
+// ≤ 64) takes the dq partials, and a non-null dextra the ordered sum of dS
+// in dbpart [B, H, N, N].
 cudaError_t vtx::attention_half_bwd(
     const float* x, const float* ln_g, const float* ln_b,
     const float* wqkv, long long wqkv_s0, long long wqkv_s1, const float* bqkv,
@@ -237,8 +243,7 @@ cudaError_t vtx::attention_half_bwd(
     cudaStream_t s) {
   const int M = B * N, HD = H * D;
   if (D > DMAX || B > 65535 || H > 65535) return cudaErrorInvalidValue;
-  if (extra && (D > EXTRA_DMAX || N > wta::NMAX || groups < 1 || B % groups))
-    return cudaErrorInvalidValue;
+  if (extra && (groups < 1 || B % groups)) return cudaErrorInvalidValue;
 
   // 1-2. the out projection
   VTX_CHECK(vtx::out_proj_bwd(acc, wout, wout_s0, wout_s1, bout, rs, N, dz,
@@ -257,15 +262,15 @@ cudaError_t vtx::attention_half_bwd(
 
 // Returns the first cudaError_t met (0 = success).  Workspace, all
 // allocated by the caller: dacc [M, HD], dq_part [ceil(N / 64)·M·HD]
-// (used only without extra and where N > 64, else null), dqkv [M, 3HD],
-// dln [M, C],
-// dbpart [wta::bwd_chunks(B, G, H)·G·H·N·N] (used only with dextra;
-// ops/fused_layer.py window_chunks), wpart [max(splits_out·HD·C,
+// (used only on the packed-row core and where N > 64, else null), dqkv
+// [M, 3HD], dln [M, C], dbpart (used only with dextra: on the window
+// attention [wta::bwd_chunks(B, G, H)·G·H·N·N], ops/fused_layer.py
+// window_chunks; on the packed-row core [B·H·N·N]), wpart [max(splits_out·HD·C,
 // splits_qkv·C·3HD)], cpart [ceil(M / 128) · max(C, 3HD)].  dwqkv / dwout are written through
 // their (row, col) strides, so they may share the layout of the weight view
 // the forward read; bqkv / bout / rs / dbqkv / dbout / drs may be null, and
-// so may extra [G, H, N, N] (groups = G; N ≤ 128, heads up to 32 wide) and its
-// gradient dextra [G, H, N, N] (null when the bias needs none).
+// so may extra [G, H, N, N] (groups = G) and its gradient dextra [G, H, N,
+// N] (null when the bias needs none).
 extern "C" int vtx_fused_attention_layer_bwd(
     const float* x, const float* ln_g, const float* ln_b,
     const float* wqkv, long long wqkv_s0, long long wqkv_s1, const float* bqkv,

@@ -731,4 +731,14 @@ inline cudaError_t attention_bwd(const float* qkv, const float* out, const float
 }
 
 }  // namespace wta
+
+// Whether an attention call of B1 or B2 (fused_layer.cu, fused_layer_bwd.cu)
+// takes the window attention: a bias, N ≤ NMAX and heads up to EXTRA_DMAX
+// wide (Twins' pair mask, Swin's grouped bias).  Every other call takes the
+// packed-row core (attention_tc.cuh), with or without the bias
+// (ops/fused_layer.py window_on_bias mirrors this rule).
+inline bool window_on_bias(const float* extra, int N, int D) {
+  return extra && N <= wta::NMAX && D <= EXTRA_DMAX;
+}
+
 }  // namespace

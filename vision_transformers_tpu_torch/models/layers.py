@@ -72,20 +72,30 @@ class FeedForward(nn.Sequential):
 
 
 def drop_path_scale(b: int, rate: float, generator: torch.Generator | None,
-                    device: torch.device | str) -> torch.Tensor | None:
-    """Per-sample DropPath scale [b] (reference models/layer.py:166-183, the
-    JAX package's ``drop_path``, layers.py:215-229): keep-mask / keep-prob,
-    the mask Bernoulli(1 − rate) from ``generator``; None at rate 0."""
+                    device: torch.device | str, pack: int = 1,
+                    n: int | None = None) -> torch.Tensor | None:
+    """DropPath scale (reference models/layer.py:166-183, the JAX package's
+    ``drop_path``, layers.py:215-229, and ``TransformerLayer._row_scale``,
+    vit.py:174-187): keep-mask / keep-prob, the mask Bernoulli(1 − rate)
+    from ``generator``; None at rate 0.  Per sample [b] where a row is one
+    crop; token level [b, pack·n] where ``pack`` crops of ``n`` tokens share
+    a row: one draw per (row, crop), repeated over the crop's tokens."""
     if rate == 0.0:
         return None
     keep = 1.0 - rate
-    mask = torch.rand(b, generator=generator, device=device) < keep
-    return mask.float() / keep
+    if pack == 1:
+        mask = torch.rand(b, generator=generator, device=device) < keep
+        return mask.float() / keep
+    mask = torch.rand((b, pack), generator=generator, device=device) < keep
+    return mask.float().repeat_interleave(n, dim=1) / keep
 
 
 def scaled(h: torch.Tensor, rs: torch.Tensor | None) -> torch.Tensor:
-    """h ⊙ rs per sample (the leading dim); rs None leaves h as it is."""
-    return h if rs is None else h * rs.to(h.dtype).reshape(-1, *([1] * (h.ndim - 1)))
+    """h ⊙ rs per sample ([b], the leading dim) or per token ([b, n], the
+    leading two); rs None leaves h as it is."""
+    if rs is None:
+        return h
+    return h * rs.to(h.dtype).reshape(*rs.shape, *([1] * (h.ndim - rs.ndim)))
 
 
 def patchify(x: torch.Tensor, size: int) -> torch.Tensor:

@@ -27,14 +27,16 @@ dots f32-accumulated, softmax f32) and the backward
 :func:`fused_attention_layer_bwd_reference`.  A CUDA tensor runs the
 hand-written kernels in ``csrc/fused_layer.cu`` (forward) and
 ``csrc/fused_layer_bwd.cu`` (backward) or raises; it never falls back to
-the plain versions.  The kernels take float32; without a bias, heads up to
-``MAX_DIM_HEAD`` wide and any number of tokens (the packed-row tensor-core
-attention, ``csrc/attention_tc.cuh``, whose backward takes dq as per
-key-tile partials, :func:`dq_partials`); the bias only with heads up to
-``MAX_BIAS_DIM_HEAD`` wide (Twins' and Swin's are 32) and windows of up to
-``MAX_BIAS_TOKENS`` tokens (the tensor-core window attention,
-``csrc/window_attention_tc.cuh``; Swin's and Twins' pairs are 98); anything
-else on a CUDA tensor raises NotImplementedError.  The weights may
+the plain versions.  The kernels take float32 and heads up to ``MAX_DIM_HEAD``
+wide.  A bias call over windows of up to ``MAX_BIAS_TOKENS`` tokens with
+heads up to ``MAX_BIAS_DIM_HEAD`` wide (Twins' and Swin's: 98 tokens, heads
+32 wide) runs on the tensor-core window attention
+(``csrc/window_attention_tc.cuh``, :func:`window_on_bias`); every other call
+— without a bias (ViT), or with one at heads 64 wide (DINO's packed local
+crops: 111 tokens under the block-diagonal −1e9 mask) — on the packed-row
+tensor-core attention (``csrc/attention_tc.cuh``, any number of tokens),
+whose backward takes dq as per key-tile partials (:func:`dq_partials`).
+Anything else on a CUDA tensor raises NotImplementedError.  The weights may
 be any 2-D strided view: the model passes ``linear.weight.t()``, and the
 wrapper hands those strides to the kernels instead of copying the weights;
 their gradients come back in the view's shape and layout.
@@ -75,13 +77,21 @@ BWD_LAUNCHES = 0
 BIAS_LAUNCHES = 0
 BIAS_BWD_LAUNCHES = 0
 
-# widest head the attention takes without a bias (csrc DMAX: the packed-row
-# tensor-core core, attention_tc.cuh, stages heads 32 or 64 floats wide)
+# widest head the attention takes (csrc DMAX: the packed-row tensor-core
+# core, attention_tc.cuh, stages heads 32 or 64 floats wide)
 MAX_DIM_HEAD = 64
-# widest head the kernels take with the additive bias (csrc EXTRA_DMAX) ...
+# widest head the window attention takes with the additive bias (csrc
+# EXTRA_DMAX) ...
 MAX_BIAS_DIM_HEAD = 32
 # ... and most tokens (csrc wta::NMAX)
 MAX_BIAS_TOKENS = 128
+
+
+def window_on_bias(has_bias: bool, N: int, D: int) -> bool:
+    """Whether a B1 / B2 attention call runs on the window attention
+    (csrc window_on_bias): a bias, N ≤ ``MAX_BIAS_TOKENS`` and heads up to
+    ``MAX_BIAS_DIM_HEAD`` wide; every other call on the packed-row core."""
+    return has_bias and N <= MAX_BIAS_TOKENS and D <= MAX_BIAS_DIM_HEAD
 
 
 def _ln_stats(xf: torch.Tensor, eps: float):
@@ -423,16 +433,19 @@ def check_attention_args(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, n_head):
     return B, N, C, n_head, D
 
 
-def check_extra(extra_g: Optional[torch.Tensor], H: int, N: int, D: int) -> None:
-    """The grouped bias [G, H, N, N] the kernels take, heads up to
+def check_extra(extra_g: Optional[torch.Tensor], H: int, N: int, D: int,
+                window_only: bool = False) -> None:
+    """The grouped bias [G, H, N, N] the kernels take.  B1 takes it at any
+    head width the attention takes; with ``window_only`` (B2, whose bias
+    calls — Swin's — stay on the window attention) heads up to
     ``MAX_BIAS_DIM_HEAD`` wide and N up to ``MAX_BIAS_TOKENS``."""
     if extra_g is None:
         return
-    if D > MAX_BIAS_DIM_HEAD:
+    if window_only and D > MAX_BIAS_DIM_HEAD:
         raise NotImplementedError(
             f"the CUDA kernel takes the bias with heads up to {MAX_BIAS_DIM_HEAD} "
             f"wide; got {D}")
-    if N > MAX_BIAS_TOKENS:
+    if window_only and N > MAX_BIAS_TOKENS:
         raise NotImplementedError(
             f"the CUDA kernel takes the bias over up to {MAX_BIAS_TOKENS} tokens; "
             f"got {N}")
@@ -537,10 +550,24 @@ def _splits(rows: int, cols: int, k: int) -> int:
 
 def dq_partials(n_keys: int, rows: int, width: int, opts) -> Optional[torch.Tensor]:
     """The dq partials of csrc/attention_tc.cuh's backward (B1's and B2's
-    bias-free attention, B3, B6, B8): [ceil(n_keys / 64), rows, width], one
-    a 64-key tile, summed in key-tile order; None with one key tile."""
+    attention off the window attention, B3, B6, B8): [ceil(n_keys / 64),
+    rows, width], one a 64-key tile, summed in key-tile order; None with one
+    key tile."""
     key_tiles = -(-n_keys // 64)
     return torch.empty((key_tiles, rows, width), **opts) if key_tiles > 1 else None
+
+
+def attention_workspace(B: int, groups: int, H: int, N: int, D: int, has_bias: bool,
+                        want_dextra: bool, opts):
+    """(dq_part, dbpart) of B1's and B2's attention backward on the route of
+    :func:`window_on_bias`: on the window attention no dq partials, and with
+    a bias gradient its per-block partials (:func:`bias_partials`); on the
+    packed-row core the dq partials, and with a bias gradient the dS buffer
+    [B, H, N, N] — DINO's mask needs no gradient, so none."""
+    if window_on_bias(has_bias, N, D):
+        return None, bias_partials(B, groups, H, N, opts) if want_dextra else None
+    return (dq_partials(N, B * N, H * D, opts),
+            torch.empty((B, H, N, N), **opts) if want_dextra else None)
 
 
 def rpart_floats(rows: int, F: int, B: int, rows_per_scale: int) -> int:
@@ -574,11 +601,12 @@ def _cuda_bwd(saved: AttnSaved, dz: torch.Tensor, need_drs: bool, need_dextra: b
     chunks = -(-M // 128)  # csrc COLSUM_ROWS
     want_dextra = extra_g is not None and need_dextra
     groups = 1 if extra_g is None else extra_g.shape[0]
+    dq_part, dbpart = attention_workspace(B, groups, H, N, D, extra_g is not None,
+                                          want_dextra, opts)
     ws = dict(
-        dacc=torch.empty((M, HD), **opts),
-        dq_part=dq_partials(N, M, HD, opts) if extra_g is None else None,
+        dacc=torch.empty((M, HD), **opts), dq_part=dq_part,
         dqkv=torch.empty((M, 3 * HD), **opts), dln=torch.empty((M, C), **opts),
-        dbpart=bias_partials(B, groups, H, N, opts) if want_dextra else None,
+        dbpart=dbpart,
         wpart=torch.empty((max(s_out * HD * C, s_qkv * C * 3 * HD),), **opts),
         cpart=torch.empty((chunks * max(C, 3 * HD),), **opts))
     dx = torch.empty_like(x)

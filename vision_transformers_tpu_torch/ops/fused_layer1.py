@@ -202,7 +202,7 @@ def _check(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout, ln2_scale, ln2_bias,
               rs_attn=rs_attn, rs_ff=rs_ff)
     B, N, C, H, D = check_attention_args(x, ln1_scale, ln1_bias, wqkv, bqkv,
                                          wout, bout, n_head)
-    check_extra(extra_g, H, N, D)
+    check_extra(extra_g, H, N, D, window_only=True)
     if w1.ndim != 2:
         raise ValueError(f"w1 must be [C, F], got {tuple(w1.shape)}")
     Fdim = w1.shape[1]

@@ -16,7 +16,7 @@ from typing import Callable, Tuple
 
 from ..config.registry import TypedConfig, register
 
-__all__ = ["CycleScheduler", "ConstantScheduler", "make_schedule"]
+__all__ = ["CycleScheduler", "ConstantScheduler", "make_schedule", "cosine_schedule"]
 
 
 def _anneal_cos(start, end, proportion):
@@ -85,3 +85,22 @@ def make_schedule(train_conf, epoch_len: int) -> Callable[[int], float]:
     if sched.type == "constant":
         return sched.make(lr=lr)
     return sched.make(lr=lr, n_iter=n_iter, warmup=warmup)
+
+
+def cosine_schedule(base: float, final: float, step: int, warmup: int = 0,
+                    warmup_start: float = 0.0) -> list:
+    """A precomputed cosine schedule of ``step`` values from ``base`` to
+    ``final`` after an optional linear warmup (reference: train_util.py:6-22,
+    the JAX package's schedule.py:209): DINO's weight-decay and
+    teacher-momentum tables (reference train_dino.py:135-142)."""
+    out = []
+    if warmup > 0:
+        if warmup == 1:
+            out.append(warmup_start)
+        else:
+            out.extend(warmup_start + (base - warmup_start) * i / (warmup - 1)
+                       for i in range(warmup))
+    n = step - warmup
+    out.extend(final + 0.5 * (base - final) * (1 + math.cos(math.pi * i / n))
+               for i in range(n))
+    return out

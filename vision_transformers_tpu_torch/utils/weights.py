@@ -1,12 +1,12 @@
-"""Weights for the port's ViT, Swin, Halo, PVT and Twins-SVT: from the JAX
-package's flax params, from a reference ``.pt`` checkpoint, or generated
+"""Weights for the port's ViT, DINO, Swin, Halo, PVT and Twins-SVT: from the
+JAX package's flax params, from a reference ``.pt`` checkpoint, or generated
 from a numpy seed; and the seeded dropout masks a train-step golden and
 its checks share.
 
 Every state_dict here is in the reference torch layout (models/vit.py,
 models/swin_transformer.py, models/halo_transformer.py, models/pvt.py and
 models/twins.py of the reference; the keys of the JAX package's
-``utils/torch_convert.py:118-143,192-224,227-255,258-283,287-328``).
+``utils/torch_convert.py:118-328``).
 """
 
 from __future__ import annotations
@@ -18,8 +18,10 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_flax", "load_checkpoint", "seeded_state_dict",
-           "seeded_images", "seeded_train_batch", "seeded_dropout_masks",
+__all__ = ["state_dict_from_flax", "load_checkpoint", "load_dino_checkpoint",
+           "seeded_state_dict",
+           "seeded_images", "seeded_train_batch", "seeded_dino_crops",
+           "seeded_dropout_masks", "row_projections",
            "supplied_dropout_masks", "vit_dropout_calls", "swin_dropout_calls",
            "grad_projections", "to_torch"]
 
@@ -177,15 +179,40 @@ def _twins_from_flax(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
     return dst
 
 
+def _dino_head_from_flax(head: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The inverse of the head half of the JAX package's ``_convert_dino``
+    (utils/torch_convert.py:146-189): ``mlp_i`` → ``head.mlp.{2i}`` (the
+    GELUs hold the odd slots; a bare ``head.mlp`` at depth 1), ``last_v``
+    [in, out] → ``head.last.weight_v`` [out, in], ``last_g`` [out] →
+    ``head.last.weight_g`` [out, 1] (ones where the gain is frozen, as the
+    reference's weight_norm keeps it)."""
+    if any(k.startswith("bn_") for k in head):
+        raise NotImplementedError("the DINO head's BatchNorm (use_bn) is not ported")
+    dst: Dict[str, np.ndarray] = {}
+    n_mlp = sum(k.startswith("mlp_") for k in head)
+    for i in range(n_mlp):
+        _lin(dst, "head.mlp" if n_mlp == 1 else f"head.mlp.{2 * i}", head[f"mlp_{i}"])
+    v = np.asarray(head["last_v"])
+    dst["head.last.weight_v"] = v.T
+    dst["head.last.weight_g"] = (np.asarray(head["last_g"]).reshape(-1, 1) if "last_g" in head
+                                 else np.ones((v.shape[1], 1), v.dtype))
+    return dst
+
+
 def state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
     """The JAX package's flax ``params`` (nested dict of arrays) of a ViT
-    (per-layer ``layers_{i}`` layout), a Swin, a Halo, a PVT or a Twins-SVT
-    → the port's state_dict, as numpy arrays.  The family is told by a
-    top-level key only it has: ``peg1`` (Twins' positional-encoding
-    generator; Twins also has ``embed1`` and ``final_norm``),
-    ``patch_embedding_0`` (PVT's per-stage embeddings), ``embed1`` without
-    ``peg1`` (Halo's stage embeddings; Halo also has ``final_norm``),
-    ``final_norm`` beside ``patch_embedding`` (Swin), else ViT."""
+    (per-layer ``layers_{i}`` layout), a DINO network, a Swin, a Halo, a
+    PVT or a Twins-SVT → the port's state_dict, as numpy arrays.  The
+    family is told by a top-level key only it has: ``backbone`` beside
+    ``head`` (DINO: the ViT trunk at top level, the head under ``head.``),
+    ``peg1`` (Twins' positional-encoding generator; Twins also has
+    ``embed1`` and ``final_norm``), ``patch_embedding_0`` (PVT's per-stage
+    embeddings), ``embed1`` without ``peg1`` (Halo's stage embeddings; Halo
+    also has ``final_norm``), ``final_norm`` beside ``patch_embedding``
+    (Swin), else ViT."""
+    if "backbone" in params and "head" in params:
+        return {**state_dict_from_flax(params["backbone"]),
+                **_dino_head_from_flax(params["head"])}
     if "peg1" in params:
         return _twins_from_flax(params)
     if "patch_embedding_0" in params:
@@ -258,8 +285,9 @@ def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
         if key not in obj:
             raise KeyError(f"{path} has no {key!r}; top-level keys: {sorted(obj)}")
         obj = obj[key]
-    elif any(isinstance(v, dict) for v in obj.values()) and \
-            not any(torch.is_tensor(v) for v in obj.values()):
+    elif any(isinstance(v, dict) for v in obj.values()):
+        # a wrapper (a state_dict holds tensors only): a DINO checkpoint
+        # keeps its center tensor beside the two nets
         for candidate in ("model", "ema", "student", "teacher", "state_dict"):
             if candidate in obj:
                 obj = obj[candidate]
@@ -267,6 +295,10 @@ def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
         else:
             raise KeyError(f"{path} is a checkpoint wrapper, not a bare "
                            f"state_dict; append :key, one of {sorted(obj)}")
+    return _state_dict(obj, path)
+
+
+def _state_dict(obj: Dict[str, Any], path: str) -> Dict[str, torch.Tensor]:
     out = {}
     for k, v in obj.items():
         if k.endswith(_BUFFER_SUFFIXES):
@@ -276,6 +308,19 @@ def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
                              f"tensor; append :key to select a state_dict")
         out[k[len("module."):] if k.startswith("module.") else k] = v
     return out
+
+
+def load_dino_checkpoint(path: str):
+    """(student, teacher) state_dicts of a reference DINO ``.pt`` holding
+    both nets (reference train_dino.py:173-181; the JAX package's
+    ``load_torch_dino_checkpoint``), with one file read; (state_dict, None)
+    for any other file :func:`load_checkpoint` reads (``PATH:key`` too) —
+    the caller seeds the teacher from the student."""
+    if os.path.isfile(path):
+        obj = torch.load(path, map_location="cpu", weights_only=False)
+        if isinstance(obj, dict) and "student" in obj and "teacher" in obj:
+            return _state_dict(obj["student"], path), _state_dict(obj["teacher"], path)
+    return load_checkpoint(path), None
 
 
 # ---------------------------------------------------------------------------
@@ -290,7 +335,8 @@ def seeded_state_dict(arch, seed: int) -> Dict[str, np.ndarray]:
     normals in the relative-position tables (non-zero, so that a comparison
     sees the bias; the JAX initializer is zeros).  ``arch`` is the port's
     ViTConfig, SwinConfig, HaloConfig, PVTConfig or TwinsConfig; the family
-    is its registered type."""
+    is its registered type (a DINOConfig: the ViT trunk, then the head,
+    whose trainable gain is drawn around 1)."""
     rng = np.random.default_rng([seed, 0])
 
     def normal(*shape, std=0.02):
@@ -439,7 +485,21 @@ def seeded_state_dict(arch, seed: int) -> Dict[str, np.ndarray]:
         lin(f"{t}.ff.0", ff, dim)
         lin(f"{t}.ff.3", dim, ff)
     ln("norm", dim)
-    lin("head", arch.n_class, dim)
+    if arch.type != "dino":
+        lin("head", arch.n_class, dim)
+        return sd
+    # the head after the trunk: std-0.02 normals, and a gain around 1
+    # that is not 1 where it trains (unit gains would hide its gradient)
+    bottleneck, width = arch.dim_head_bottleneck, arch.dim_head_ff
+    dims = [arch.dim] + [width] * (arch.depth_head - 1) + [bottleneck]
+    for i in range(arch.depth_head):
+        name = "head.mlp" if arch.depth_head == 1 else f"head.mlp.{2 * i}"
+        sd[f"{name}.weight"] = normal(dims[i + 1], dims[i])
+        sd[f"{name}.bias"] = normal(dims[i + 1])
+    sd["head.last.weight_v"] = normal(arch.dim_head_out, bottleneck)
+    sd["head.last.weight_g"] = (np.ones((arch.dim_head_out, 1), np.float32)
+                                if arch.norm_last_layer else
+                                1.0 + normal(arch.dim_head_out, 1, std=0.2))
     return sd
 
 
@@ -458,6 +518,25 @@ def seeded_train_batch(seed: int, n: int, size: int, n_class: int) -> Dict[str, 
     return {"image": rng.standard_normal((n, size, size, 3), dtype=np.float32),
             "label1": labels, "label2": labels.copy(),
             "ratio": np.ones(n, np.float32)}
+
+
+def seeded_dino_crops(seed: int, n: int, global_size: int, local_size: int,
+                      n_local: int) -> list:
+    """The crops of a DINO step from a numpy seed, as the step takes them
+    after the augmentation: 2 global f32 NHWC batches [n, S, S, 3], then
+    ``n_local`` local ones [n, s, s, 3], standard normals (normalized
+    images)."""
+    rng = np.random.default_rng([seed, 5])
+    return [rng.standard_normal((n, size, size, 3), dtype=np.float32)
+            for size in [global_size] * 2 + [local_size] * n_local]
+
+
+def row_projections(out: np.ndarray, seed: int) -> np.ndarray:
+    """out [rows, K] → Σ_k out[r, k] · v[k] per row, v a standard-normal
+    [K] vector from ``(seed, 6)``: one number per row (a crop's DINO
+    output) that moves with any part of it."""
+    v = np.random.default_rng([seed, 6]).standard_normal(out.shape[-1], dtype=np.float32)
+    return np.asarray(out, np.float64) @ v.astype(np.float64)
 
 
 def seeded_dropout_masks(seed: int, shapes, rate) -> list:
