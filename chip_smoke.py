@@ -5,8 +5,10 @@ PyTorch version, runs full-width ViT-S/16 (also with dropout, with the FF
 kernel and under the 'block' force), Swin-S (also under 'block' and under
 'swin', the map-resident whole layer), Halo-S (also on the gather path),
 PVT-S, Twins-SVT-S and DINO DeiT-S/16 against the JAX package's stored
-logits, train-step gradients and DINO step, and drives the serving and the
-training entry points of the five models and DINO's trainer end to end.
+logits, train-step gradients and DINO step, ViT-S/16 at bf16 (the confs'
+default precision) against the JAX package's bf16 and f32, and drives the
+serving and the training entry points of the five models and DINO's
+trainer end to end, ViT-S/16's also at bf16.
 
     python3 chip_smoke.py
 
@@ -150,6 +152,22 @@ non-zero and prints no ok line):
            F.scaled_dot_product_attention with the bias as a float attn_mask
            (its backward taking the bias's gradient) and the bound at the
            tensor-core rate
+3bf. bf16  the bf16 forms (bf16 activations, weights and biases; f32
+           statistics, sums and LN parameters): the GEMM core's (its row
+           form with each epilogue the paths use, its f32-out form, its
+           split-K form with B's row scale) at odd shapes and ViT-S/16's
+           products at 128 images (qkv, out projection, the eval's FF1 /
+           FF2, dln, the dW split-K sums), timed beside torch.matmul in bf16
+           with f32 reduction; B1 forward (saves, serving) and backward at
+           two odd calls (N 17, 33, heads 32 wide) and the ViT-S/16
+           trainer's (128 x 197, with and without per-sample row scales),
+           B2's serving forward at the same shapes: forward within
+           1.6e-2·max(1, max|plain|) (4 bf16 ulps), each gradient within
+           3e-2·max(1, max|plain|) and bit-identical across two runs; median
+           ms of B1 forward / backward at the trainer's call and B2 at the
+           eval's, bounds at the dense bf16 rate (989 TFLOP/s); the
+           packed-row core's bf16 form alone beside
+           F.scaled_dot_product_attention on the same bf16 q, k, v
 4. golden  ViT-S/16 @224 (depth 12), Swin-S @224 (depth 24), Halo-S @256
            (depth 12), PVT-S @224 (depth 16) and Twins-SVT-S @224 (depth
            18), seeded weights, against the JAX logits in
@@ -189,6 +207,14 @@ non-zero and prints no ok line):
            outputs as per-crop norms and projections, the gradient norm and
            each tensor's gradient norm and projection, rtol 1e-3; B1 in every
            layer, with the mask on the locals
+4bf. bf16  ViT-S/16 in bf16 (seeded weights, DropPath off) against
+           tests/data/vit_s16_bf16_port_golden.npz
+           (scripts/make_torch_port_bf16_golden.py: the JAX package at bf16
+           on B1 and B2 in interpret mode, and at f32): the golden's two
+           images' logits tiled to 64 rows on B1's bf16 form and to 256 rows
+           on B2's, and one train step at 64 rows on B1's bf16 forward and
+           backward (loss, gradient norms and projections, a few whole
+           gradients), each within 3 x the JAX package's own bf16 error
 5. predict the serving path of each model: ``predict.main`` on 48 and then
            160 seeded JPEGs (Halo, PVT — 'fused' — and Twins: 48) with a
            seeded ``.pt:ema``; the launch counters are zeroed just before
@@ -231,7 +257,11 @@ non-zero and prints no ok line):
            layer B1 on the student's 192 global rows and, with the mask, its
            256 packed local rows, forward and backward, and B2 on the
            teacher's 192 global rows (192 + 192 B1 launches, 96 + 96 of them
-           with the mask, 96 B2 launches); the steady-state step time
+           with the mask, 96 B2 launches); the steady-state step time.
+           ViT-S/16 at the conf's default precision, bf16 (no precision
+           override): the same launches as its f32 run, every one on the
+           bf16 forms; its steady-state step, images/s and peak memory are
+           printed beside the f32 run's
 
 The line before the last is the kernels' JSON record: each kernel's
 launches on the trainer run that takes it (ViT's for the attention layer,
@@ -242,7 +272,8 @@ ViT's with the FF kernel for the FF layer, Halo's forced to 'gather' for
 the gathered halo attention, ViT's under 'block' for the attention block,
 Swin's under ``VTX_ATTN_IMPL=swin`` for the map-resident layer, DINO's
 for the attention layer's bias calls, ``+bias``, timed at DINO's local
-call; every path's in ``launches_by_path``) and its
+call, ViT's at bf16 for the bf16 forms, ``[bf16]``, whose bound is at the
+bf16 rate; every path's in ``launches_by_path``) and its
 times at a call that run makes (``shape``; other shapes in
 ``other_shapes``); the last line is ``{"ok": true, "device": {...}}``.
 Needs no network and no JAX.
@@ -328,6 +359,14 @@ KERNELS = {  # name → (source, the TPU kernel it replaces)
                                    "vision_transformers_tpu/ops/fused_layer.py:116"),
     "fused_attention_layer_bwd+bias": ("vision_transformers_tpu_torch/csrc/fused_layer_bwd.cu",
                                        "vision_transformers_tpu/ops/fused_layer.py:183"),
+    # the bf16 forms (the JAX package's default precision), timed at the
+    # ViT-S/16 trainer's and eval's calls and counted on the bf16 trainer's run
+    "fused_attention_layer[bf16]": ("vision_transformers_tpu_torch/csrc/fused_layer.cu",
+                                    "vision_transformers_tpu/ops/fused_layer.py:116"),
+    "fused_attention_layer_bwd[bf16]": ("vision_transformers_tpu_torch/csrc/fused_layer_bwd.cu",
+                                        "vision_transformers_tpu/ops/fused_layer.py:183"),
+    "fused_transformer_layer[bf16]": ("vision_transformers_tpu_torch/csrc/fused_layer.cu",
+                                      "vision_transformers_tpu/ops/fused_layer1.py:91"),
 }
 # the tensor-core kernels (3xTF32): the attention of csrc/attention_tc.cuh, which
 # B6, B3 and B8 run, and of csrc/halo_attention_tc.cuh, which B5a, B5b and B4's
@@ -470,16 +509,19 @@ def tensor_core_counts(_build, library):
 # ---------------------------------------------------------------------------
 
 H100_TF32X3_FLOPS = 495e12 / 3  # f32-accurate products on the tensor cores (3xTF32)
+H100_BF16_FLOPS = 989e12  # dense bf16 products on the tensor cores
 H100_BYTES = 3.35e12     # HBM3 rate
 
 
-def bound(flops, nbytes):
+def bound(flops, nbytes, peak=H100_TF32X3_FLOPS):
     """(bound_ms, bound_by): the least time for this work on the card, the
-    larger of bytes / 3.35 TB/s and operations / 495 / 3 = 165 TFLOP/s:
-    every product of the port's kernels runs on the tensor cores in three
-    TF32 passes, which keep f32 accuracy (the attention of B1 and B2 without
-    a bias too, since it moved onto the packed-row core)."""
-    t_ops = flops / H100_TF32X3_FLOPS * 1e3
+    larger of bytes / 3.35 TB/s and operations / ``peak``: for the f32
+    kernels 495 / 3 = 165 TFLOP/s — every product of the port's kernels runs
+    on the tensor cores in three TF32 passes, which keep f32 accuracy (the
+    attention of B1 and B2 without a bias too, since it moved onto the
+    packed-row core) —, for the bf16 forms the dense bf16 rate, 989
+    TFLOP/s."""
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / H100_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -1184,6 +1226,250 @@ def kernels(torch):
                 fused_layer.fused_attention_layer_reference(*a, H, extra=mask, row_scale=rs),
                 f"Twins-SVT-S stage 3 B,N,C,H,D={call['lsa'][:5]}, pair mask, row scale")
     return results
+
+
+# ---------------------------------------------------------------------------
+# 3bf. the bf16 forms vs their plain versions
+# ---------------------------------------------------------------------------
+
+# one bf16 ulp is 2⁻⁸: a forward within 4 ulps of the largest value, a
+# gradient within 3e-2 of it
+BF16_FWD_TOL, BF16_BWD_TOL = 1.6e-2, 3e-2
+BF16_ODD = ((4, 17, 64, 2, 32, 128), (4, 33, 64, 2, 32, 128))
+VIT_TRAIN = (128, 197, 384, 6, 64, 1536)  # the trainer's call: B, N, C, H, D, F
+
+
+def bf16_args(torch, B, N, C, H, D, F, seed=0):
+    """layer_args as the bf16 model passes them: activations, weights and
+    biases bf16, the LayerNorm parameters f32."""
+    a = layer_args(torch, B, N, C, H, D, F, seed)
+    return [t if i in (1, 2, 7, 8) else t.to(torch.bfloat16) for i, t in enumerate(a)]
+
+
+def bf16_close(torch, what, k, p, tol):
+    """max|kernel − plain| within tol·max(1, max|plain|), finite, same shape."""
+    k32, p32 = k.float(), p.float()
+    if k.shape != p.shape or not torch.isfinite(k32).all():
+        raise RuntimeError(f"bf16: {what}: bad shape or non-finite values")
+    err = (k32 - p32).abs().max().item()
+    lim = tol * max(1.0, p32.abs().max().item())
+    log(f"bf16: {what}: max|kernel-plain| {err:.3e} (limit {lim:.3e})")
+    if err > lim:
+        raise RuntimeError(f"bf16: {what} disagrees with its plain version")
+    return err
+
+
+def b1_bf16_work(B, N, C, H, D, backward=False):
+    """(operations, bytes) of B1's bf16 form with the saves (forward) or its
+    backward: the activations, weights and biases 2 bytes, the LN
+    parameters, statistics, lse and row scale 4."""
+    M, HD = B * N, H * D
+    small = 4 * (2 * M + B * H * N + 2 * C + B)  # mu, rstd, lse, ln g / b, rs
+    params = 4 * C * HD + 3 * HD + C
+    if backward:  # x, dz, qkv, acc, the weights read; dx, their gradients, dg, db written
+        return (10 * B * H * N * N * D + 16 * M * C * HD,
+                2 * (3 * M * C + 4 * M * HD + 2 * params) + small + 4 * (2 * C + B))
+    return (4 * B * H * N * N * D + 8 * M * C * HD,
+            2 * (2 * M * C + params + 4 * M * HD) + small)
+
+
+def b2_bf16_work(B, N, C, H, D, F):
+    """(operations, bytes) of B2's bf16 serving forward."""
+    M, HD = B * N, H * D
+    return (4 * B * H * N * N * D + 8 * M * C * HD + 4 * M * C * F,
+            2 * (2 * M * C + 4 * C * HD + 2 * C * F + 3 * HD + 2 * C + F) + 4 * 4 * C)
+
+
+def gemm_bf16_calls():
+    """(label, form, M, N, K, options) of the GEMM core's bf16 checks: odd
+    shapes, and ViT-S/16's products at the trainer's 128 images (qkv and the
+    out projection, FF1 / FF2 of the eval's whole layer, the split-K weight
+    gradients of both projections)."""
+    M = 128 * 197
+    return [("odd", "rows", 37, 29, 45, ("bias", "rs", "res")),
+            ("odd", "rows", 300, 200, 104, ("bias", "silu")),
+            ("odd", "rows", 130, 7, 3, ("f32",)),
+            ("odd", "splitk", 45, 29, 1000, ()),
+            ("odd", "splitk", 48, 40, 1000, ()),
+            ("odd", "splitk", 40, 200, 333, ()),
+            ("ViT-S/16 qkv", "rows", M, 1152, 384, ("bias",)),
+            ("ViT-S/16 out projection", "rows", M, 384, 384, ("bias", "rs", "res")),
+            ("ViT-S/16 FF1 (eval)", "rows", M, 1536, 384, ("bias", "silu")),
+            ("ViT-S/16 FF2 (eval)", "rows", M, 384, 1536, ("bias", "res")),
+            ("ViT-S/16 dln (f32 out)", "rows", M, 384, 1152, ("f32",)),
+            ("ViT-S/16 dwqkv", "splitk", 384, 1152, M, ()),
+            ("ViT-S/16 dwout", "splitk", 384, 384, M, ())]
+
+
+def gemm_bf16_kernels(torch):
+    """The GEMM core's bf16 form against its plain version (the odd shapes
+    off 8-element chunks on the register path, the rest copied), timed
+    beside torch.matmul in bf16 (f32 reduction) at ViT-S/16's products."""
+    from vision_transformers_tpu_torch.ops import fused_layer as fl
+    from vision_transformers_tpu_torch.ops import gemm as gm
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    for label, form, M, N, K, opts in gemm_bf16_calls():
+        def r(*shape, s=1.0):
+            return (s * torch.randn(shape, generator=g, device=DEVICE)).to(bf)
+        splitk = form == "splitk"
+        a = r(K, M) if splitk else r(M, K)  # split-K: a [K, M], the storage of aᵀ
+        b = r(K, N) if splitk else r(N, K, s=0.05).t()
+        kw = {}
+        if "bias" in opts:
+            kw["bias"] = r(N, s=0.1)
+        if "silu" in opts:
+            kw["silu"] = True
+        if "rs" in opts:
+            kw.update(rs=torch.rand(-(-M // 197), generator=g, device=DEVICE) + 0.5,
+                      rs_rows=197)
+        if "res" in opts:
+            kw["res"] = r(M, N)
+        if "f32" in opts:
+            kw["out_f32"] = True
+        splits = fl._splits(M, N, K) if splitk else 1
+        if splitk:
+            kw["splits"] = splits
+        out = gm.gemm_bf16(a, b, form=form, **kw)
+        torch.cuda.synchronize()
+        ref_kw = {k: v for k, v in kw.items() if k != "splits"}
+        plain = gm.gemm_bf16_reference(a, b, form=form, **ref_kw)
+        f32_out = splitk or "f32" in opts
+        what = f"GEMM core {label} [{M}, {N}, {K}] {form} {'+'.join(opts) or 'plain'}"
+        bf16_close(torch, what, out, plain, 1e-3 if f32_out else BF16_FWD_TOL)
+        if label != "odd":
+            ms = median_ms(torch, lambda: gm.gemm_bf16(a, b, form=form, **kw))
+            lhs = a.t() if splitk else a
+            lib_ms = median_ms(torch, lambda: torch.matmul(lhs, b))
+            nbytes = 2 * (M * K + K * N) + (4 if f32_out else 2) * M * N
+            bound_ms, by = bound(2 * M * N * K, nbytes, H100_BF16_FLOPS)
+            log(f"bf16: {what}: kernel {ms:.3f} ms, torch.matmul (bf16, f32 reduction) "
+                f"{lib_ms:.3f} ms, bound {bound_ms:.3f} ms ({by})"
+                + (f", {splits} K-slabs" if splitk else ""))
+
+
+def bf16_kernels(torch):
+    """3bf: the bf16 forms of B1 (forward with saves, serving, backward) and
+    B2 (serving) against their plain versions at odd shapes and at the
+    ViT-S/16 trainer's and eval's calls (128 images, per-sample row scales),
+    the backward twice for bit-identity; the GEMM core's bf16 form at the
+    products of those calls, and the packed-row core's bf16 form alone beside
+    scaled_dot_product_attention on the same bf16 q, k, v.  Returns the
+    timed records of the three entries."""
+    from vision_transformers_tpu_torch.ops import fused_layer as fl
+    from vision_transformers_tpu_torch.ops import fused_layer1 as fl1
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    bf = torch.bfloat16
+    gemm_bf16_kernels(torch)
+    worst = {"fwd": 0.0, "bwd": 0.0, "l1": 0.0}
+    for shape in BF16_ODD + (VIT_TRAIN,):
+        B, N, C, H, D, F = shape
+        a = bf16_args(torch, *shape, seed=B + N)
+        for rows_scaled in (False, True):
+            r = None
+            if rows_scaled:
+                r = torch.full((B,), 1 / 0.9, device=DEVICE)
+                r[::3] = 0.0  # dropped samples beside kept ones
+            what = f"B1 B,N,C,H,D={shape[:5]} rs={rows_scaled}"
+            out, saved = fl.fused_attention_layer_fwd(*a[:7], H, row_scale=r)
+            dz = torch.randn(B, N, C, device=DEVICE, generator=torch.Generator(
+                device=DEVICE).manual_seed(N)).to(bf)
+            grads = fl.fused_attention_layer_bwd(saved, dz)
+            again = fl.fused_attention_layer_bwd(saved, dz)
+            serving = fl.fused_attention_layer(*a[:7], H, row_scale=r)
+            torch.cuda.synchronize()
+            out_p, saved_p = fl.fused_attention_layer_fwd_reference(*a[:7], H, row_scale=r)
+            plain = fl.fused_attention_layer_bwd_reference(saved_p, dz)
+            worst["fwd"] = max(worst["fwd"], bf16_close(torch, what + " out", out, out_p,
+                                                        BF16_FWD_TOL))
+            bf16_close(torch, what + " serving", serving, out_p, BF16_FWD_TOL)
+            for name, k, k2, p in zip(GRAD_NAMES, grads, again, plain):
+                if p is None:
+                    if k is not None:
+                        raise RuntimeError(f"bf16: {what} {name} should be None")
+                    continue
+                if not torch.equal(k, k2):
+                    raise RuntimeError(f"bf16: {what} {name} differs between two runs")
+                worst["bwd"] = max(worst["bwd"], bf16_close(
+                    torch, f"{what} {name} ({k.dtype}, bit-identical across two runs)", k,
+                    p, BF16_BWD_TOL))
+        a2 = bf16_args(torch, *shape, seed=B)
+        out = fl1.fused_transformer_layer(*a2, H)
+        torch.cuda.synchronize()
+        worst["l1"] = max(worst["l1"], bf16_close(
+            torch, f"B2 B,N,C,H,D,F={shape}", out,
+            fl1.fused_transformer_layer_reference(*a2, H), BF16_FWD_TOL))
+
+    # the trainer's call (128 images, row scales) and the eval's (128 rows)
+    B, N, C, H, D, F = VIT_TRAIN
+    a = bf16_args(torch, *VIT_TRAIN, seed=1)
+    r = torch.full((B,), 1 / 0.9, device=DEVICE)
+    r[::10] = 0.0
+    dz = torch.randn(B, N, C, device=DEVICE).to(bf)
+    _, saved = fl.fused_attention_layer_fwd(*a[:7], H, row_scale=r)
+    _, saved_p = fl.fused_attention_layer_fwd_reference(*a[:7], H, row_scale=r)
+    fwd_ms = median_ms(torch, lambda: fl.fused_attention_layer_fwd(*a[:7], H, row_scale=r))
+    bwd_ms = median_ms(torch, lambda: fl.fused_attention_layer_bwd(saved, dz))
+    plain_fwd_ms = median_ms(
+        torch, lambda: fl.fused_attention_layer_fwd_reference(*a[:7], H, row_scale=r))
+    plain_bwd_ms = median_ms(torch, lambda: fl.fused_attention_layer_bwd_reference(saved_p,
+                                                                                   dz))
+    l1_ms = median_ms(torch, lambda: fl1.fused_transformer_layer(*a, H))
+    plain_l1_ms = median_ms(torch, lambda: fl1.fused_transformer_layer_reference(*a, H))
+    fwd_bound, fwd_by = bound(*b1_bf16_work(B, N, C, H, D), H100_BF16_FLOPS)
+    bwd_bound, bwd_by = bound(*b1_bf16_work(B, N, C, H, D, backward=True), H100_BF16_FLOPS)
+    l1_bound, l1_by = bound(*b2_bf16_work(*VIT_TRAIN), H100_BF16_FLOPS)
+    # the packed-row core's bf16 form alone beside SDPA on the same q, k, v
+    qkv = torch.randn(B, N, 3 * H * D, device=DEVICE).to(bf)
+    do = torch.randn(B, N, H * D, device=DEVICE).to(bf)
+    att_out, lse = fl.packed_attention_bf16(qkv, H)
+    att_fwd_ms = median_ms(torch, lambda: fl.packed_attention_bf16(qkv, H))
+    att_bwd_ms = median_ms(torch, lambda: fl.packed_attention_bf16_bwd(qkv, att_out, lse, do,
+                                                                       H))
+    q, k, v = qkv.view(B, N, 3, H, D).permute(2, 0, 3, 1, 4).unbind(0)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_fwd_ms = median_ms(torch, lambda: sdpa(q, k, v))
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    dog = do.view(B, N, H, D).transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        sdpa(qg, kg, vg).backward(dog)
+
+    sdpa_both_ms = median_ms(torch, sdpa_fwd_bwd)
+    bf16_close(torch, "packed-row attention B,N,H,D=(128,197,6,64) vs SDPA",
+               att_out.view(B, N, H, D).transpose(1, 2), sdpa(q, k, v), BF16_FWD_TOL)
+    att_work = 4 * B * H * N * N * D
+    att_fwd_bound, _ = bound(att_work, 2 * 4 * B * N * H * D + 4 * B * H * N,
+                             H100_BF16_FLOPS)
+    att_bwd_bound, _ = bound(2.5 * att_work, 2 * 8 * B * N * H * D + 4 * B * H * N,
+                             H100_BF16_FLOPS)
+    log(f"bf16: B1 at the ViT-S/16 trainer's call B,N,C,H,D={VIT_TRAIN[:5]} with row scales "
+        f"(median of 20, CUDA events): kernel fwd(saves) {fwd_ms:.3f} + bwd {bwd_ms:.3f} = "
+        f"{fwd_ms + bwd_ms:.3f} ms; plain fwd {plain_fwd_ms:.3f} + bwd {plain_bwd_ms:.3f} ms; "
+        f"bound (bf16 989 TFLOP/s) fwd {fwd_bound:.3f} ({fwd_by}) + bwd {bwd_bound:.3f} "
+        f"({bwd_by}) ms")
+    log(f"bf16: B2 at the eval's call (128 rows): kernel {l1_ms:.3f} ms, plain "
+        f"{plain_l1_ms:.3f} ms, bound {l1_bound:.3f} ms ({l1_by})")
+    log(f"bf16: the packed-row attention alone (128 x 197, 6 heads x 64): kernel fwd "
+        f"{att_fwd_ms:.3f} ms (bound {att_fwd_bound:.3f}), bwd {att_bwd_ms:.3f} ms (bound "
+        f"{att_bwd_bound:.3f}); scaled_dot_product_attention fwd {sdpa_fwd_ms:.3f} ms, fwd + "
+        f"bwd {sdpa_both_ms:.3f} ms")
+    shape = "ViT-S/16 trainer, B,N,C,H,D=" + ",".join(map(str, VIT_TRAIN[:5])) + ", row scale"
+    return {
+        "fused_attention_layer[bf16]": [{
+            "shape": shape + ", saves", "max_abs_err": worst["fwd"], "ms": fwd_ms,
+            "plain_ms": plain_fwd_ms, "bound_ms": fwd_bound, "bound_by": fwd_by,
+            "library_ms": None}],
+        "fused_attention_layer_bwd[bf16]": [{
+            "shape": shape, "max_abs_err": worst["bwd"], "ms": bwd_ms,
+            "plain_ms": plain_bwd_ms, "bound_ms": bwd_bound, "bound_by": bwd_by,
+            "library_ms": None}],
+        "fused_transformer_layer[bf16]": [{
+            "shape": "ViT-S/16 eval, B,N,C,H,D,F=" + ",".join(map(str, VIT_TRAIN)),
+            "max_abs_err": worst["l1"], "ms": l1_ms, "plain_ms": plain_l1_ms,
+            "bound_ms": l1_bound, "bound_by": l1_by, "library_ms": None}]}
 
 
 # ---------------------------------------------------------------------------
@@ -2749,8 +3035,9 @@ def image_size(conf):
 
 def counted_modules():
     """counter name → (its ops module, the counter's name there): each
-    kernel's launches, and of the attention layer's those that carried the
-    bias (``+bias``)."""
+    kernel's launches, of the attention layer's those that carried the bias
+    (``+bias``), and of B1's and B2's those of their bf16 forms
+    (``[bf16]``)."""
     from vision_transformers_tpu_torch.ops import (fused_attention_mod, fused_block,
                                                    fused_halo, fused_halo_layer,
                                                    fused_layer, fused_layer1, fused_swin)
@@ -2776,7 +3063,10 @@ def counted_modules():
             "fused_attention_block": (fused_block, "BLOCK_LAUNCHES"),
             "fused_attention_block_bwd": (fused_block, "BLOCK_BWD_LAUNCHES"),
             "fused_swin_layer": (fused_swin, "LAUNCHES"),
-            "fused_swin_layer_bwd": (fused_swin, "BWD_LAUNCHES")}
+            "fused_swin_layer_bwd": (fused_swin, "BWD_LAUNCHES"),
+            "fused_attention_layer[bf16]": (fused_layer, "BF16_LAUNCHES"),
+            "fused_attention_layer_bwd[bf16]": (fused_layer, "BF16_BWD_LAUNCHES"),
+            "fused_transformer_layer[bf16]": (fused_layer1, "BF16_LAUNCHES")}
 
 
 def counts():
@@ -3024,6 +3314,54 @@ def dino_golden(torch):
 
 
 # ---------------------------------------------------------------------------
+# 4bf. ViT-S/16 at bf16 against the JAX package's bf16 and f32
+# ---------------------------------------------------------------------------
+
+
+BF16_GOLDEN_SCRIPT = os.path.join(ROOT, "scripts", "make_torch_port_bf16_golden.py")
+
+
+def bf16_golden(torch):
+    """The bf16 port at full width and depth (seeded weights, DropPath off)
+    against tests/data/vit_s16_bf16_port_golden.npz: the logits of the
+    golden's two images tiled to 64 rows on B1 ('layer') and to 256 rows on
+    B2 ('layer1'), and one bf16 train step at 64 rows on B1's bf16 forward
+    and backward; each within GAP_FACTOR times the JAX package's own bf16
+    error (its bf16 against its f32)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("make_torch_port_bf16_golden",
+                                                  BF16_GOLDEN_SCRIPT)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)  # numpy at import; the port's side imports no JAX
+    with np.load(mod.GOLDEN) as f:
+        g = {k: f[k] for k in f.files}
+    seed = int(g["seed"])
+    model = mod.port_model(seed, DEVICE)
+    fal, falb, ftl = "fused_attention_layer", "fused_attention_layer_bwd", \
+        "fused_transformer_layer"
+    for rows, impl, kernel in ((64, "layer", fal), (256, "layer1", ftl)):
+        before = counts()
+        logits = mod.port_logits(seed, DEVICE, rows, impl, model)
+        torch.cuda.synchronize()
+        expect_path(before, counts(), {kernel: 12, kernel + "[bf16]": 12},
+                    f"bf16 golden, {rows} rows on {impl}")
+        err, lim = mod.check_logits(logits, g, impl)
+        log(f"golden: ViT-S/16 bf16 logits, {rows} rows via {kernel} (bf16): max|port - JAX "
+            f"bf16| {err:.4e} (limit {mod.GAP_FACTOR} x JAX's bf16 gap = {lim:.4e})")
+    before = counts()
+    ours = mod.port_train(seed, DEVICE, GOLDEN_ROWS, None, model)
+    torch.cuda.synchronize()
+    expect_path(before, counts(), {fal: 12, fal + "[bf16]": 12, falb: 12, falb + "[bf16]": 12},
+                f"bf16 golden train step, {GOLDEN_ROWS} rows")
+    checks = mod.check_train(ours, g)
+    log(f"golden: ViT-S/16 bf16 train step, {GOLDEN_ROWS} rows via {fal} (bf16) forward and "
+        f"backward: loss {float(ours['loss_port']):.6f} (JAX bf16 "
+        f"{float(g['loss_bf16']):.6f}, f32 {float(g['loss_f32']):.6f}); error (limit) "
+        + ", ".join(f"{k} {e:.3e} ({lim:.3e})" for k, (e, lim) in checks.items()))
+
+
+# ---------------------------------------------------------------------------
 # 5. predict end to end (the serving path)
 # ---------------------------------------------------------------------------
 
@@ -3122,12 +3460,14 @@ def predict_main_path(torch, has_pil, model_name, cases, sra=None):
 
 
 def train_main_path(torch, has_pil, model_name, expected, overrides=(), halo=None,
-                    sra=None, ff=None, attn=None, env=None):
-    """``train.main`` f32 at batch 128 for one synthetic epoch, with conf
+                    sra=None, ff=None, attn=None, env=None, precision="f32", steady_out=None):
+    """``train.main`` at batch 128 for one synthetic epoch, with conf
     ``overrides``, ``halo`` / ``sra`` / ``attn`` forcing a Halo / reduced-kv
     / attention path, ``ff`` the FF kernel and ``env`` environment variables
     set (the dispatch's forces); ``expected`` the launches of each counter
-    on that run."""
+    on that run.  ``precision`` "f32" overrides the conf's; None leaves the
+    conf's default (bf16).  Returns the launches; puts the steady-state
+    seconds a step and the peak bytes in the dict ``steady_out`` if given."""
     from vision_transformers_tpu_torch import predict, train
     from vision_transformers_tpu_torch.config.schema import load_config
     from vision_transformers_tpu_torch.ops import _build
@@ -3152,7 +3492,8 @@ def train_main_path(torch, has_pil, model_name, expected, overrides=(), halo=Non
 
     _build._BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build._BUILD_DIR) as tmp:
-        args = ["--conf", conf_path, "--device", DEVICE, "precision=f32",
+        args = ["--conf", conf_path, "--device", DEVICE,
+                *([f"precision={precision}"] if precision else []),
                 "training.dataloader.batch_size=128", "training.epoch=1",
                 "data_backend=synthetic", "log_freq=1", *overrides,
                 f"checker.storage=[{{type: local, path: {tmp}}}]"]
@@ -3178,7 +3519,8 @@ def train_main_path(torch, has_pil, model_name, expected, overrides=(), halo=Non
         if not os.path.isfile(ckpt):
             raise RuntimeError("trainer: no epoch-001.pt")
         steady = np.mean(step_secs[1:])
-        log(f"trainer: 1 epoch of {label} f32 ({len(step_secs)} steps x 128 images, "
+        dtype = precision or f"{conf.precision} (the conf's default)"
+        log(f"trainer: 1 epoch of {label} {dtype} ({len(step_secs)} steps x 128 images, "
             f"grad_accumulation {conf.training.grad_accumulation}, drop_path "
             f"{conf.arch.drop_path}, valid 256 images) in {secs:.2f} s: loss "
             f"{metrics['loss']:.5f}, valid_loss {metrics['valid_loss']:.5f}, prec1 "
@@ -3211,7 +3553,31 @@ def train_main_path(torch, has_pil, model_name, expected, overrides=(), halo=Non
                 raise RuntimeError("trainer: bad probabilities from the checkpoint")
         log(f"trainer: predict read {label}'s epoch-001.pt:model and classified "
             f"48 images")
+    if steady_out is not None:
+        steady_out.update(seconds=float(steady), peak=peak)
     return launches
+
+
+def vit_trainers(torch, has_pil):
+    """6 (ViT-S/16): the trainer at f32 and at the conf's default precision,
+    bf16 — the same launches, every one of the bf16 run on the bf16 forms —
+    and the two steady-state steps, images/s and peak memory side by side.
+    Returns (f32 launches, bf16 launches)."""
+    fal, falb, ftl = "fused_attention_layer", "fused_attention_layer_bwd", \
+        "fused_transformer_layer"
+    # 4 steps x 12 layers; the valid pass: 2 batches x 12
+    expected = {fal: 48, falb: 48, ftl: 24}
+    f32_run, bf16_run = {}, {}
+    f32 = train_main_path(torch, has_pil, "ViT-S/16", expected, steady_out=f32_run)
+    bf16 = train_main_path(torch, has_pil, "ViT-S/16",
+                           {**expected, **{k + "[bf16]": v for k, v in expected.items()}},
+                           precision=None, steady_out=bf16_run)
+    (f32_s, f32_peak), (bf_s, bf_peak) = f32_run.values(), bf16_run.values()
+    log(f"trainer: ViT-S/16 at 128 images, steady state in this run: f32 {f32_s * 1e3:.2f} "
+        f"ms/step = {128 / f32_s:.1f} images/s, max_memory_allocated "
+        f"{f32_peak / 2**30:.2f} GiB; bf16 (the conf's default) {bf_s * 1e3:.2f} ms/step = "
+        f"{128 / bf_s:.1f} images/s, max_memory_allocated {bf_peak / 2**30:.2f} GiB")
+    return f32, bf16
 
 
 # DINO at 96 images a step (the conf's 1024 cut: 768 locals pack 3 to a row),
@@ -3339,6 +3705,7 @@ def main() -> None:
     timed["fused_swin_layer"], timed["fused_swin_layer_bwd"] = phase(
         "3w map-resident Swin layer", swin_map_kernels, torch)
     phase("3a window attention", window_kernels, torch)
+    timed.update(phase("3bf bf16 forms", bf16_kernels, torch))
     fal, falb = "fused_attention_layer", "fused_attention_layer_bwd"
     ftl, ftlb = "fused_transformer_layer", "fused_transformer_layer_bwd"
     fhl, fhlb = "fused_halo_layer", "fused_halo_layer_bwd"
@@ -3378,6 +3745,7 @@ def main() -> None:
     phase("4 golden Swin swin", golden, torch, "Swin-S", ((64, depth("Swin-S", fsl)),),
           None, None, "swin")
     phase("4d golden DINO", dino_golden, torch)
+    phase("4bf golden ViT bf16", bf16_golden, torch)
     phase("4b train ViT", train_golden, torch, "ViT-S/16", depth("ViT-S/16", fal, falb))
     phase("4b train Swin", train_golden, torch, "Swin-S", depth("Swin-S", ftl, ftlb))
     phase("4b train Halo", train_golden, torch, "Halo-S", depth("Halo-S", fhl, fhlb))
@@ -3418,9 +3786,11 @@ def main() -> None:
                                "PVT-S", ((48, pvt),), "fused"),
         "Twins-SVT-S predict": phase("5 predict Twins", predict_main_path, torch, has_pil,
                                      "Twins-SVT-S", ((48, twins),)),
-        # 4 steps x 12 layers; the valid pass: 2 batches x 12 layers
-        "ViT-S/16 train": phase("6 trainer ViT", train_main_path, torch, has_pil,
-                                "ViT-S/16", {fal: 48, falb: 48, ftl: 24}),
+        # ViT-S/16 at f32 and at the conf's default precision, bf16: the
+        # same launches (4 steps x 12 layers; the valid pass: 2 batches x
+        # 12), every one of the bf16 run on the bf16 forms
+        **dict(zip(("ViT-S/16 train", "ViT-S/16 train (bf16)"), phase(
+            "6 trainer ViT f32 + bf16", vit_trainers, torch, has_pil))),
         # 4 steps x 2 micro-batches x 24 layers; the valid pass: 2 x 24
         "Swin-S train": phase("6 trainer Swin", train_main_path, torch, has_pil,
                               "Swin-S", {ftl: 24 * 2 * 4 + 24 * 2, ftlb: 24 * 2 * 4}),
@@ -3495,7 +3865,10 @@ def main() -> None:
                   hg: "Halo-S train (gather)", hgb: "Halo-S train (gather)",
                   blk: "ViT-S/16 train (block)", blkb: "ViT-S/16 train (block)",
                   fsl: "Swin-S train (swin)", fslb: "Swin-S train (swin)",
-                  fal + "+bias": "DINO train", falb + "+bias": "DINO train"}
+                  fal + "+bias": "DINO train", falb + "+bias": "DINO train",
+                  fal + "[bf16]": "ViT-S/16 train (bf16)",
+                  falb + "[bf16]": "ViT-S/16 train (bf16)",
+                  ftl + "[bf16]": "ViT-S/16 train (bf16)"}
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": paths[trainer_of[k]][k],

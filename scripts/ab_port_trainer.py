@@ -5,16 +5,19 @@ comparison run in turns within one call:
 
     for t in parent . . parent; do python3 scripts/ab_port_trainer.py $t; done
     python3 scripts/ab_port_trainer.py . "ViT-S/16 block" "Swin-S swin"
+    python3 scripts/ab_port_trainer.py . --precision bf16 "ViT-S/16"
 
 ``ROOT`` (default: this checkout) is the tree whose
 ``vision_transformers_tpu_torch`` is imported and built; labels after it
 (those of ``RUNS``) keep only those runs.  Each run is
-``train.main`` f32 at batch 128 for one synthetic epoch (4 steps, then the
+``train.main`` at batch 128 for one synthetic epoch (4 steps, then the
 256-image valid pass), as phase 6 runs it: ViT-S/16 (default; dropout;
 the FF kernel; 'block' with and without dropout), Swin-S ('layer1'
 default; 'swin' through ``VTX_ATTN_IMPL``; dropout), Halo-S at DropPath
 0.1 ('layer' default; 'direct'; 'gather'; window 4 / halo 3), PVT-S with
-its reduced-kv attention 'fused' and Twins-SVT-S at DropPath 0.1.  Prints
+its reduced-kv attention 'fused' and Twins-SVT-S at DropPath 0.1; f32
+unless ``--precision bf16`` (the JAX package's default precision, which
+only ViT's runs take), so that earlier records stay comparable.  Prints
 the card, each run's step times (steps 2-4, each ended by
 ``torch.cuda.synchronize()``) and their mean, and one JSON line.  Uses
 only the train entry point and the ``ops.set_*`` forces, so it runs any
@@ -81,7 +84,15 @@ def environ(env):
 
 
 def main() -> None:
-    root = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else
+    argv = sys.argv[1:]
+    precision = "f32"
+    if "--precision" in argv:
+        i = argv.index("--precision")
+        precision = argv[i + 1]
+        del argv[i:i + 2]
+        if precision not in ("f32", "bf16"):
+            raise SystemExit(f"--precision f32 or bf16, got {precision!r}")
+    root = os.path.abspath(argv[0] if argv else
                            os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     sys.path.insert(0, root)
     import torch
@@ -100,7 +111,7 @@ def main() -> None:
                           text=True, timeout=60).stdout.strip().splitlines()[0]
     train_step = engine.train_step
     out = {}
-    only = sys.argv[2:]
+    only = argv[1:]
     unknown = set(only) - {run[0] for run in RUNS}
     if unknown:
         raise SystemExit(f"unknown runs {sorted(unknown)}")
@@ -117,7 +128,7 @@ def main() -> None:
             return res
 
         with tempfile.TemporaryDirectory() as tmp:
-            args = ["--conf", os.path.join(root, conf), "--device", "cuda", "precision=f32",
+            args = ["--conf", os.path.join(root, conf), "--device", "cuda", f"precision={precision}",
                     "training.dataloader.batch_size=128", "training.epoch=1",
                     "data_backend=synthetic", "log_freq=1", *overrides,
                     f"checker.storage=[{{type: local, path: {tmp}}}]"]
@@ -132,7 +143,7 @@ def main() -> None:
         print(f"{label}: steps 2-{len(steps)} " + " / ".join(f"{t:.2f}" for t in ms)
               + f" ms, mean {out[label]:.2f} ms", flush=True)
     print(card)
-    print(json.dumps({"tree": sys.argv[1] if len(sys.argv) > 1 else ".", **out}))
+    print(json.dumps({"tree": argv[0] if argv else ".", "precision": precision, **out}))
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""H100 A/B of two paths of the port's f32 ViT-S/16 train step, in turns
-within one process:
+"""H100 A/B of two paths of the port's ViT-S/16 train step (f32, or with
+``--precision bf16`` the JAX package's default precision), in turns within
+one process:
 
 - ``--ab attention`` (with ``arch.dropout=0.1 arch.drop_ff=0.1``): the
   attention of the dropout step on the packed-qkv kernel (``fused``, the
@@ -17,7 +18,7 @@ each turn's median ms and images/s, each arm's median over its turns, the
 card and one JSON line.
 
     python3 scripts/ab_port_vit.py --ab attention arch.dropout=0.1 arch.drop_ff=0.1
-    python3 scripts/ab_port_vit.py --ab ff
+    python3 scripts/ab_port_vit.py --ab ff [--precision bf16]
 
 Needs CUDA; imports no JAX.
 """
@@ -44,6 +45,8 @@ def main() -> None:
     parser.add_argument("--steps", type=int, default=5)
     parser.add_argument("--warmup", type=int, default=2)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--precision", default="f32", choices=("f32", "bf16"),
+                        help="the compute dtype (f32 keeps earlier records comparable)")
     parser.add_argument("overrides", nargs="*", help="key=value conf overrides")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -59,12 +62,13 @@ def main() -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip().splitlines()[0]
-    conf = load_config(args.conf, ["precision=f32", *args.overrides])
+    conf = load_config(args.conf, [f"precision={args.precision}", *args.overrides])
     arch, training = conf.arch, conf.training
-    model = arch.make()
+    model = arch.make(dtype=torch.bfloat16 if args.precision == "bf16" else torch.float32)
     model.load_state_dict(to_torch(seeded_state_dict(arch, args.seed)), strict=True)
     model = model.cuda()
     state = engine.create_train_state(
@@ -96,7 +100,7 @@ def main() -> None:
             step()
             times.append((time.perf_counter() - t0) * 1e3)
         turns.append((arm, float(np.median(times)), times))
-        print(f"ViT-S/16 {' '.join(args.overrides)} {args.ab} {arm}: median "
+        print(f"ViT-S/16 {args.precision} {' '.join(args.overrides)} {args.ab} {arm}: median "
               f"{turns[-1][1]:.3f} ms/step = {args.rows / turns[-1][1] * 1e3:.1f} images/s "
               f"(steps " + ", ".join(f"{t:.2f}" for t in times) + ")", flush=True)
     ops.set_attention_impl(None)
@@ -105,7 +109,8 @@ def main() -> None:
     print(card)
     print("; ".join(f"{x}: {m:.3f} ms/step, {args.rows / m * 1e3:.1f} images/s"
                     for x, m in arms.items()))
-    print(json.dumps({"card": card, "ab": args.ab, "overrides": args.overrides,
+    print(json.dumps({"card": card, "ab": args.ab, "precision": args.precision,
+                      "overrides": args.overrides,
                       "rows": args.rows,
                       "turns": [{"arm": x, "median_ms": m, "steps_ms": t} for x, m, t in turns],
                       "arms_median_ms": arms}))

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's f32 train step on one GPU.
+"""Where the time goes in the port's train step on one GPU.
 
 Runs ``engine.train_step`` on the model of ``--conf`` (seeded weights and a
-synthetic batch, f32, no TF32, AdamW with the conf's clip and
+synthetic batch, f32 with no TF32 — or, with ``--precision bf16``, the
+JAX package's default precision, ViT only —, AdamW with the conf's clip and
 grad_accumulation, DropPath at the conf's rate drawn from a seeded
 generator) under ``torch.profiler`` after a warm-up and prints the device
 time by kernel per step, grouped by layer (hand-written GEMM in its
@@ -14,7 +15,7 @@ and ms per step), and one JSON line.
     python3 scripts/profile_port_train.py [--conf configs/vit-s-16.conf] [--rows 128]
         [--steps 5] [--trace out.json] [--halo-impl ...] [--sra-impl einsum|fused]
         [--attn-impl einsum|fused|layer|layer1|block|swin] [--ff-kernel]
-        [key=value conf overrides ...]
+        [--precision f32|bf16] [key=value conf overrides ...]
 
 ViT-S/16 at ``--rows`` ≥ 32 takes the fused attention layer (forward and
 backward kernels); Swin-S (``--conf configs/swin-transformer-s.conf``, two
@@ -77,6 +78,7 @@ GROUPS = (("at::native", "other (elementwise, reductions, conv)"),
           ("act_kernel", "other hand-written"), ("dact_mul", "other hand-written"),
           ("gather_rows", "other hand-written"), ("drs_part", "other hand-written"),
           ("gemm", "cuBLAS GEMM"), ("sgemm", "cuBLAS GEMM"), ("cutlass", "cuBLAS GEMM"),
+          ("nvjet", "cuBLAS GEMM"),  # cuBLAS's bf16 GEMMs
           ("Memcpy", "copies"), ("foreach", "optimizer (foreach)"))
 
 
@@ -143,6 +145,8 @@ def main() -> None:
                         help="the FF-half kernel at the 'layer' sites (default off)")
     parser.add_argument("--freeze", action="store_true",
                         help="DINO: the last layer frozen (epoch 0 of the recipe)")
+    parser.add_argument("--precision", default="f32", choices=("f32", "bf16"),
+                        help="the compute dtype (bf16: the ViT's bf16 forms)")
     parser.add_argument("overrides", nargs="*", help="key=value conf overrides")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -153,7 +157,8 @@ def main() -> None:
     from vision_transformers_tpu_torch.data.synthetic import SyntheticDataset
     from vision_transformers_tpu_torch.train import engine
     from vision_transformers_tpu_torch.train.optim import make_optimizer
-    from vision_transformers_tpu_torch.train.trainer import to_device
+    from vision_transformers_tpu_torch.train.trainer import (check_supported, compute_dtype,
+                                                             to_device)
     from vision_transformers_tpu_torch.utils.weights import seeded_state_dict, to_torch
 
     ops.set_halo_impl(args.halo_impl)
@@ -162,16 +167,20 @@ def main() -> None:
     ops.set_ff_kernel(args.ff_kernel or None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip().splitlines()[0]
-    conf = load_config(args.conf, ["precision=f32", *args.overrides])
+    conf = load_config(args.conf, [f"precision={args.precision}", *args.overrides])
+    if args.precision == "bf16":
+        check_supported(conf)  # bf16 is ported for ViT
+    dtype = compute_dtype(conf)
     arch, training = conf.arch, conf.training
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     if arch.type == "dino":
         step = dino_step(conf, args.rows, args.seed, args.freeze, gen)
     else:
-        model = arch.make()
+        model = arch.make(dtype=dtype) if dtype != torch.float32 else arch.make()
         model.load_state_dict(to_torch(seeded_state_dict(arch, args.seed)), strict=True)
         model = model.cuda()
         state = engine.create_train_state(
@@ -216,7 +225,7 @@ def main() -> None:
           f"{'halo path ' + args.halo_impl + ' ' if args.halo_impl else ''}"
           f"{'sra path ' + args.sra_impl + ' ' if args.sra_impl else ''}"
           f"{'attention ' + args.attn_impl + ' ' if args.attn_impl else ''}"
-          f"{'FF kernel ' if args.ff_kernel else ''}f32 "
+          f"{'FF kernel ' if args.ff_kernel else ''}{args.precision} "
           f"{'(last layer frozen) ' if args.freeze else ''}train step, {args.rows} rows "
           f"(grad_accumulation {training.grad_accumulation}), {args.steps} profiled "
           f"steps: wall {wall * 1e3:.3f} ms ({args.rows / wall:.1f} images/s), "

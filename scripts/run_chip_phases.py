@@ -21,9 +21,12 @@ under B1's bias calls, B2 and B9), ``3s`` (the reduced-kv attention, B6),
 whole Halo layer B4 and the halo attention B5a), ``3hb`` (their backwards),
 ``3g`` (the gathered halo attention, B5b), ``3k`` (the attention block, B8),
 ``3w`` (the map-resident Swin layer, B9), ``3f`` (the FF layer, B7), ``3d`` (B1
-with DINO's block mask at heads 64 wide), and two of chip_smoke's model
-phases: ``4d`` (the DINO golden) and ``6d`` (the DINO trainer).  Exits
-non-zero when a phase fails.  Needs CUDA; imports no JAX.
+with DINO's block mask at heads 64 wide), ``3bf`` (the bf16 forms: the GEMM
+core's, B1 forward and backward, B2's serving forward, the packed-row
+attention beside SDPA), and chip_smoke's model phases ``4d`` (the DINO
+golden), ``6d`` (the DINO trainer), ``4bf`` (ViT-S/16 at bf16 against its
+golden) and ``6bf`` (the ViT-S/16 trainer at f32 and at bf16, side by side).
+Exits non-zero when a phase fails.  Needs CUDA; imports no JAX.
 """
 
 import json
@@ -38,7 +41,8 @@ PHASES = {"3m": "gemm_kernels", "3": "kernels", "3v": "backward_kernel",
           "3q": "qkv_kernels", "3h": "halo_kernels", "3hb": "halo_backward_kernels",
           "3g": "gather_kernels", "3k": "block_kernels", "3w": "swin_map_kernels",
           "3f": "ff_kernels", "3d": "dino_layer_kernels", "4d": "dino_golden",
-          "6d": "dino_train_main_path"}
+          "6d": "dino_train_main_path", "3bf": "bf16_kernels", "4bf": "bf16_golden",
+          "6bf": "vit_trainers"}
 DEFAULT = ("3s", "3q")
 
 
@@ -56,7 +60,8 @@ def main() -> None:
     chip_smoke.probe(torch)
     chip_smoke.build()
     for phase in which:
-        result = getattr(chip_smoke, PHASES[phase])(torch)
+        fn = getattr(chip_smoke, PHASES[phase])
+        result = fn(torch, False) if phase == "6bf" else fn(torch)
         parts = result.values() if isinstance(result, dict) else result or ()
         # a phase returns records, lists of records or {kernel: records}
         # (a model phase: None, or its launch counts)

@@ -1,8 +1,15 @@
 // Pieces shared by the port's CUDA sources: the row LayerNorm, the
 // declarations of the GEMM core (csrc/gemm_tc.cu: 3xTF32 on wgmma, with its
-// split-K form for weight gradients) and the fixed-order column sums.
-// Everything is float32 and launches on the caller's stream; nothing here
-// allocates.
+// split-K form for weight gradients, and its bf16 form) and the fixed-order
+// column sums.  The passes take float32 and, where the bf16 forms of B1 and
+// B2 need them, bf16 activations (T below) with f32 statistics and sums;
+// everything launches on the caller's stream; nothing here allocates.
+//
+// bf16 follows the JAX package's rounding points (vision_transformers_tpu/
+// ops/fused_layer.py, fused_layer1.py at dtype bfloat16): each step's result
+// is computed in f32 from its bf16 inputs and rounded to bf16 (to nearest
+// even) once, where the Pallas kernel's .astype(bfloat16) rounds it; sums,
+// statistics and gradients of f32 parameters stay f32.
 //
 // Every reduction over rows is two-pass and fixed-order (per-slab partial
 // sums, then one ordered sum over the slabs), never float atomics, so a
@@ -10,10 +17,53 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace vtx {
+
+using bf16 = __nv_bfloat16;
+
+// The element types of the kernels' activations, as int template arguments
+// (so ptxas's and cuobjdump's names of the instantiations stay readable):
+// F32, or BF16 with f32 accumulation
+constexpr int F32 = 0, BF16 = 1;
+template <int E>
+struct Elt {
+  using T = float;
+};
+template <>
+struct Elt<BF16> {
+  using T = bf16;
+};
+
+// an element as f32, and f32 stored as an element (bf16: rounded to nearest
+// even); rnd: the value an element of type T would hold
+__device__ __forceinline__ float get(const float* p) { return *p; }
+__device__ __forceinline__ float get(const bf16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+template <typename T>
+__device__ __forceinline__ float rnd(float v) {
+  if constexpr (sizeof(T) == 2) return __bfloat162float(__float2bfloat16_rn(v));
+  return v;
+}
+// two f32 as a bf16 pair (lo in the low half: the element at the lower address)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// a bf16 pair's elements as f32
+__device__ __forceinline__ float lo_f32(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float hi_f32(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
+
+// T in a parameter that deduces nothing (its type comes from elsewhere)
+template <typename T>
+struct Id {
+  using type = T;
+};
 
 // B9's map addressing (fused_swin.cu): row r of the sample-major window-pair
 // rows lives at map pixel (r / hw)·hw + pix[r % hw], pix [hw] the table of
@@ -114,9 +164,38 @@ cudaError_t launch_gemm_splitk_x(const float* A, int lda, const float* B, long l
                                  long long som, long long son, int M, int N, int K,
                                  const GemmExtra& x, cudaStream_t stream);
 
+// The bf16 form (gemm_tc.cu): A, B, bias and res bf16, one wgmma k16 a
+// 16-deep slab, the f32 sums promoted as in the f32 form.  The row form
+// writes out bf16 at the JAX kernels' rounding points, round(round(round(acc)
+// + bias)·round(rs)) + res rounded (silu after the bias, rounded, where
+// set), or with out_f32 the sums as f32 (no epilogue); the split-K form
+// writes the f32 partials and their ordered f32 sum.
+cudaError_t launch_gemm_bf16(const bf16* A, const bf16* B, long long sbk, long long sbn,
+                             const bf16* bias, const float* rs, int rs_rows, const bf16* res,
+                             void* out, int out_f32, int M, int N, int K, int silu,
+                             cudaStream_t stream);
+
+cudaError_t launch_gemm_splitk_bf16(const bf16* A, int lda, const bf16* B, long long sbk,
+                                    long long sbn, float* part, int splits, float* out,
+                                    long long som, long long son, int M, int N, int K,
+                                    cudaStream_t stream);
+
 }  // namespace vtx
 
 using vtx::GemmExtra;
+using vtx::bf16;
+using vtx::BF16;
+using vtx::F32;
+using vtx::Elt;
+using vtx::Id;
+using vtx::get;
+using vtx::put;
+using vtx::rnd;
+using vtx::pack_bf16;
+using vtx::lo_f32;
+using vtx::hi_f32;
+using vtx::launch_gemm_bf16;
+using vtx::launch_gemm_splitk_bf16;
 using vtx::MapRows;
 using vtx::map_pixel;
 using vtx::ACT_NONE;
@@ -178,12 +257,13 @@ inline long long cdivll(long long a, long long b) { return (a + b - 1) / b; }
 constexpr int LN_THREADS = 256;
 
 // a warp's row statistics (every lane gets them): mu, rstd = rsqrt(var + eps)
-__device__ __forceinline__ void ln_row_stats(const float* xr, int C, float eps, float& mu,
+template <typename T>
+__device__ __forceinline__ void ln_row_stats(const T* xr, int C, float eps, float& mu,
                                              float& r) {
   const int lane = threadIdx.x & 31;
   float s = 0.f, ss = 0.f;
   for (int c = lane; c < C; c += 32) {
-    const float v = xr[c];
+    const float v = get(xr + c);
     s += v;
     ss = fmaf(v, v, ss);
   }
@@ -197,31 +277,33 @@ __device__ __forceinline__ void ln_row_stats(const float* xr, int C, float eps, 
   r = rsqrtf(var + eps);
 }
 
-template <bool MAP>
+// (T = bf16: x read as bf16, u rounded to bf16, the statistics f32)
+template <bool MAP, typename T = float>
 __global__ void __launch_bounds__(LN_THREADS)
-ln_rows_kernel(const float* __restrict__ x, const float* __restrict__ g,
-               const float* __restrict__ b, float* __restrict__ u,
+ln_rows_kernel(const T* __restrict__ x, const float* __restrict__ g,
+               const float* __restrict__ b, T* __restrict__ u,
                float* __restrict__ mu_out, float* __restrict__ rstd_out,
                int rows, int C, float eps, MapRows rows_map) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;  // uniform across the warp
-  const float* xr = x + (MAP ? map_pixel(rows_map, row) : (long long)row) * C;
+  const T* xr = x + (MAP ? map_pixel(rows_map, row) : (long long)row) * C;
   float mu, r;
   ln_row_stats(xr, C, eps, mu, r);
   if (lane == 0 && mu_out) {
     mu_out[row] = mu;
     rstd_out[row] = r;
   }
-  float* ur = u + (long long)row * C;
-  for (int c = lane; c < C; c += 32) ur[c] = (xr[c] - mu) * r * g[c] + b[c];
+  T* ur = u + (long long)row * C;
+  for (int c = lane; c < C; c += 32) put(ur + c, (get(xr + c) - mu) * r * g[c] + b[c]);
 }
 
 // The statistics alone (mu, rstd [rows]), the same values as
 // ln_rows_kernel's: the GEMM core's producer applies the LayerNorm from
 // them (GemmExtra::ln_*), so its output is never written
+template <typename T>
 __global__ void __launch_bounds__(LN_THREADS)
-ln_stats_kernel(const float* __restrict__ x, float* __restrict__ mu_out,
+ln_stats_kernel(const T* __restrict__ x, float* __restrict__ mu_out,
                 float* __restrict__ rstd_out, int rows, int C, float eps) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   if (row >= rows) return;  // uniform across the warp
@@ -233,17 +315,19 @@ ln_stats_kernel(const float* __restrict__ x, float* __restrict__ mu_out,
   }
 }
 
-inline cudaError_t launch_ln_stats(const float* x, float* mu, float* rstd, int rows, int C,
+template <typename T>
+inline cudaError_t launch_ln_stats(const T* x, float* mu, float* rstd, int rows, int C,
                                    float eps, cudaStream_t stream) {
-  ln_stats_kernel<<<cdiv(rows, LN_THREADS / 32), LN_THREADS, 0, stream>>>(x, mu, rstd, rows,
+  ln_stats_kernel<T><<<cdiv(rows, LN_THREADS / 32), LN_THREADS, 0, stream>>>(x, mu, rstd, rows,
                                                                            C, eps);
   return cudaGetLastError();
 }
 
-inline cudaError_t launch_ln(const float* x, const float* g, const float* b,
-                             float* u, float* mu, float* rstd, int rows, int C,
+template <typename T>
+inline cudaError_t launch_ln(const T* x, const float* g, const float* b,
+                             T* u, float* mu, float* rstd, int rows, int C,
                              float eps, cudaStream_t stream) {
-  ln_rows_kernel<false><<<cdiv(rows, LN_THREADS / 32), LN_THREADS, 0, stream>>>(
+  ln_rows_kernel<false, T><<<cdiv(rows, LN_THREADS / 32), LN_THREADS, 0, stream>>>(
       x, g, b, u, mu, rstd, rows, C, eps, MapRows{nullptr, 1});
   return cudaGetLastError();
 }
@@ -259,21 +343,24 @@ inline cudaError_t launch_ln_map(const float* x, const float* g, const float* b,
 
 constexpr int REDUCE_THREADS = 256;
 
-// out[m*som + n*son] = Σ_{z < S} part[z, m, n], summed in z order
+// out[m*som + n*son] = Σ_{z < S} part[z, m, n], summed in z order (O =
+// bf16: the f32 sum rounded once)
+template <typename O>
 __global__ void __launch_bounds__(REDUCE_THREADS)
 splitk_reduce_kernel(const float* __restrict__ part, int S, int M, int N,
-                     float* __restrict__ out, long long som, long long son) {
+                     O* __restrict__ out, long long som, long long son) {
   const long long idx = (long long)blockIdx.x * REDUCE_THREADS + threadIdx.x;
   const long long MN = (long long)M * N;
   if (idx >= MN) return;
   float s = 0.f;
   for (int z = 0; z < S; ++z) s += part[z * MN + idx];
   const long long m = idx / N, n = idx % N;
-  out[m * som + n * son] = s;
+  put(out + m * som + n * son, s);
 }
 
+template <typename O>
 inline cudaError_t launch_splitk_reduce(const float* part, int S, int M, int N,
-                                        float* out, long long som, long long son,
+                                        O* out, long long som, long long son,
                                         cudaStream_t stream) {
   const long long blocks = cdivll((long long)M * N, REDUCE_THREADS);
   splitk_reduce_kernel<<<(unsigned)blocks, REDUCE_THREADS, 0, stream>>>(
@@ -295,9 +382,9 @@ constexpr int COLSUM_ROWS = 128;  // rows per chunk (the GEMM epilogue's tile)
 
 inline int colsum_chunks(int M) { return cdiv(M, COLSUM_ROWS); }
 
-template <bool MAP>
+template <bool MAP, typename TA, typename TX>
 __global__ void __launch_bounds__(COLSUM_THREADS)
-colsum_kernel(const float* __restrict__ A, const float* __restrict__ X,
+colsum_kernel(const TA* __restrict__ A, const TX* __restrict__ X,
               const float* __restrict__ mu, const float* __restrict__ rstd,
               const float* __restrict__ rs, int rs_rows,
               float* __restrict__ part, int M, int C, MapRows rows_map) {
@@ -308,15 +395,19 @@ colsum_kernel(const float* __restrict__ A, const float* __restrict__ X,
   for (int r = r0; r < r1; ++r) {
     const long long i = (long long)r * C + c;
     const long long xi = MAP ? map_pixel(rows_map, r) * C + c : i;
-    // the scaled value rounded once, as a scaled copy would hold it
-    s += X ? A[i] * ((X[xi] - mu[r]) * rstd[r]) : rs ? __fmul_rn(A[i], rs[r / rs_rows]) : A[i];
+    // the scaled value rounded once, as a scaled f32 copy would hold it
+    const float a = get(A + i);
+    s += X ? a * ((get(X + xi) - mu[r]) * rstd[r]) : rs ? __fmul_rn(a, rs[r / rs_rows]) : a;
   }
   part[(long long)blockIdx.y * C + c] = s;
 }
 
 // part: scratch of colsum_chunks(M) * C floats; with rows_map.pix non-null,
 // X is read through the map addressing; rs (per rs_rows rows) only without X
-inline cudaError_t launch_colsum(const float* A, const float* X, const float* mu,
+// and with f32 A.  A and X are f32 or bf16 (TX named where X is bf16); the
+// sums f32
+template <typename TA, typename TX = float>
+inline cudaError_t launch_colsum(const TA* A, const typename Id<TX>::type* X, const float* mu,
                                  const float* rstd, float* part, float* out,
                                  int M, int C, cudaStream_t stream,
                                  MapRows rows_map = MapRows{nullptr, 1},
@@ -325,11 +416,13 @@ inline cudaError_t launch_colsum(const float* A, const float* X, const float* mu
   if (chunks > 65535) return cudaErrorInvalidValue;
   const dim3 grid(cdiv(C, COLSUM_THREADS), chunks);
   if (rows_map.pix)
-    colsum_kernel<true><<<grid, COLSUM_THREADS, 0, stream>>>(A, X, mu, rstd, rs, rs_rows,
-                                                            part, M, C, rows_map);
+    colsum_kernel<true, TA, TX><<<grid, COLSUM_THREADS, 0, stream>>>(A, X, mu, rstd, rs,
+                                                                    rs_rows, part, M, C,
+                                                                    rows_map);
   else
-    colsum_kernel<false><<<grid, COLSUM_THREADS, 0, stream>>>(A, X, mu, rstd, rs, rs_rows,
-                                                             part, M, C, rows_map);
+    colsum_kernel<false, TA, TX><<<grid, COLSUM_THREADS, 0, stream>>>(A, X, mu, rstd, rs,
+                                                                     rs_rows, part, M, C,
+                                                                     rows_map);
   VTX_CHECK(cudaGetLastError());
   return launch_splitk_reduce(part, chunks, 1, C, out, 0, 1, stream);
 }
@@ -344,25 +437,29 @@ inline unsigned ew_blocks(long long total) {
   return (unsigned)cdivll(total, EW_THREADS);
 }
 
-// dst = rs[row / rows_per_scale] · src over rows of width C
+// dst = rs[row / rows_per_scale] · src over rows of width C (bf16: the
+// scale rounded first and the product rounded, as the JAX kernels' da)
+template <typename T>
 __global__ void __launch_bounds__(EW_THREADS)
-scale_rows_kernel(const float* __restrict__ src, const float* __restrict__ rs,
+scale_rows_kernel(const T* __restrict__ src, const float* __restrict__ rs,
                   int rows_per_scale, int C, long long total,
-                  float* __restrict__ dst) {
+                  T* __restrict__ dst) {
   const long long i = (long long)blockIdx.x * EW_THREADS + threadIdx.x;
   if (i >= total) return;
-  dst[i] = src[i] * rs[(i / C) / rows_per_scale];
+  put(dst + i, get(src + i) * rnd<T>(rs[(i / C) / rows_per_scale]));
 }
 
 // Per sample b (one block) of a residual branch y = rs[b] ⊙ (a·W + bias):
-// given dacc₀ = dy·Wᵀ [N·HD per sample] and the branch input a,
+// given dacc₀ = dy·Wᵀ [N·HD per sample, f32] and the branch input a,
 //   drs[b] = Σ_{rows of b} (dacc₀·a + dy·bias)   (when drs is non-null)
-//   dacc   = rs[b] · dacc₀                         (in place)
+//   dacc   = rs[b] · dacc₀                         (f32: in place, dacc =
+//                                                   dacc0; bf16: rounded)
 constexpr int DRS_THREADS = 256;
 
+template <typename T>
 __global__ void __launch_bounds__(DRS_THREADS)
-row_scale_grad_kernel(float* __restrict__ dacc, const float* __restrict__ acc,
-                      const float* __restrict__ dz, const float* __restrict__ bout,
+row_scale_grad_kernel(const float* dacc0, T* dacc, const T* __restrict__ acc,
+                      const T* __restrict__ dz, const T* __restrict__ bout,
                       const float* __restrict__ rs, float* __restrict__ drs,
                       int N, int HD, int C) {
   __shared__ float red[DRS_THREADS];
@@ -371,15 +468,15 @@ row_scale_grad_kernel(float* __restrict__ dacc, const float* __restrict__ acc,
   const long long a0 = (long long)b * N * HD;
   float s = 0.f;
   for (long long i = t; i < (long long)N * HD; i += DRS_THREADS) {
-    const float d0 = dacc[a0 + i];
-    s = fmaf(d0, acc[a0 + i], s);
-    dacc[a0 + i] = d0 * r;
+    const float d0 = dacc0[a0 + i];
+    s = fmaf(d0, get(acc + a0 + i), s);
+    put(dacc + a0 + i, d0 * r);
   }
   if (drs) {
     if (bout) {
       const long long z0 = (long long)b * N * C;
       for (long long i = t; i < (long long)N * C; i += DRS_THREADS)
-        s = fmaf(dz[z0 + i], bout[i % C], s);
+        s = fmaf(get(dz + z0 + i), get(bout + i % C), s);
     }
     red[t] = s;
     __syncthreads();
@@ -436,30 +533,32 @@ inline cudaError_t launch_drs(const float* rpart, int N, const float* dy, const 
 // u = (x − mu)·rstd·g + b, a forward LayerNorm's output from its saved
 // statistics (the same expression as ln_rows_kernel, so bit-identical);
 // MAP: row r of x is map pixel map_pixel(rows_map, r)
-template <bool MAP>
+template <bool MAP, typename T = float>
 __global__ void __launch_bounds__(EW_THREADS)
-ln_apply_kernel(const float* __restrict__ x, const float* __restrict__ mu,
+ln_apply_kernel(const T* __restrict__ x, const float* __restrict__ mu,
                 const float* __restrict__ rstd, const float* __restrict__ g,
-                const float* __restrict__ b, float* __restrict__ u, int C,
+                const float* __restrict__ b, T* __restrict__ u, int C,
                 long long total, MapRows rows_map) {
   const long long i = (long long)blockIdx.x * EW_THREADS + threadIdx.x;
   if (i >= total) return;
   const long long r = i / C;
   const int c = i % C;
   const long long xi = MAP ? map_pixel(rows_map, (int)r) * C + c : i;
-  u[i] = (x[xi] - mu[r]) * rstd[r] * g[c] + b[c];
+  put(u + i, (get(x + xi) - mu[r]) * rstd[r] * g[c] + b[c]);
 }
 
 // LayerNorm backward, one warp per row (fused_layer.py:79-87):
 //   dx = dz + rstd·(dx̂ − mean(dx̂) − x̂·mean(dx̂⊙x̂)),  dx̂ = dln ⊙ g
 // MAP: row r of x and of dx is map pixel map_pixel(rows_map, r) (dln, dz
-// and the statistics stay in row order)
-template <bool MAP>
+// and the statistics stay in row order).  T = bf16: x, dz and dx bf16, the
+// LN's part rounded before the residual's add (dz + dx_ln.astype(bf16)),
+// dln f32
+template <bool MAP, typename T = float>
 __global__ void __launch_bounds__(LN_THREADS)
-ln_bwd_rows_kernel(const float* __restrict__ dln, const float* __restrict__ x,
+ln_bwd_rows_kernel(const float* __restrict__ dln, const T* __restrict__ x,
                    const float* __restrict__ mu, const float* __restrict__ rstd,
-                   const float* __restrict__ g, const float* __restrict__ dz,
-                   float* __restrict__ dx, int rows, int C, MapRows rows_map) {
+                   const float* __restrict__ g, const T* __restrict__ dz,
+                   T* __restrict__ dx, int rows, int C, MapRows rows_map) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;  // uniform across the warp
@@ -469,7 +568,7 @@ ln_bwd_rows_kernel(const float* __restrict__ dln, const float* __restrict__ x,
   float s1 = 0.f, s2 = 0.f;
   for (int c = lane; c < C; c += 32) {
     const float dxh = dln[off + c] * g[c];
-    const float xh = (x[xoff + c] - m) * r;
+    const float xh = (get(x + xoff + c) - m) * r;
     s1 += dxh;
     s2 = fmaf(dxh, xh, s2);
   }
@@ -481,8 +580,8 @@ ln_bwd_rows_kernel(const float* __restrict__ dln, const float* __restrict__ x,
   const float m1 = s1 / C, m2 = s2 / C;
   for (int c = lane; c < C; c += 32) {
     const float dxh = dln[off + c] * g[c];
-    const float xh = (x[xoff + c] - m) * r;
-    dx[xoff + c] = dz[off + c] + r * (dxh - m1 - xh * m2);
+    const float xh = (get(x + xoff + c) - m) * r;
+    put(dx + xoff + c, get(dz + off + c) + rnd<T>(r * (dxh - m1 - xh * m2)));
   }
 }
 
@@ -643,6 +742,18 @@ cudaError_t packed_attention_bwd(const float* qkv, const float* extra, int group
                                  const float* out, const float* lse, const float* dout,
                                  float* dq_part, float* dsbuf, float* dqkv, float* dextra,
                                  int B, int N, int H, int D, float scale, cudaStream_t s);
+
+// The bf16 form of the packed-row attention (attention_tc.cuh, compiled
+// into fused_attention_qkv.cu), bias-free, D a multiple of 8: the forward
+// writes out [B, N, H·D] bf16 and lse [B, H, N] f32 when non-null; the
+// backward writes dqkv bf16, dq through the f32 key-tile partials dq_part
+// [ceil(N / 64), B·N, H·D] (never null) summed in order and rounded once
+cudaError_t packed_attention_fwd_bf16(const bf16* qkv, bf16* out, float* lse, int B, int N,
+                                      int H, int D, float scale, cudaStream_t s);
+
+cudaError_t packed_attention_bwd_bf16(const bf16* qkv, const bf16* out, const float* lse,
+                                      const bf16* dout, float* dq_part, bf16* dqkv, int B,
+                                      int N, int H, int D, float scale, cudaStream_t s);
 
 // B9's attention over sample-major window pairs (fused_swin.cu): qkv
 // [P·N, 3·H·D] of P = B·G pairs, pair p taking the bias extra[p mod

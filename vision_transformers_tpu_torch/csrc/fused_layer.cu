@@ -53,8 +53,22 @@
 // it never stores an N x N matrix, so any N works.  No attention of the
 // layer runs on f32 FMAs.
 //
-// What later work changes: bf16 operands, and fusing each op's launch
-// sequence into fewer launches so intermediates stay on chip.
+// bf16 (vtx_fused_attention_layer_fwd_bf16, vtx_fused_transformer_layer_
+// fwd_bf16: the JAX package's default precision, bias-free — ViT-S/16's
+// training forward and its eval's whole layer).  The same sequences on the
+// bf16 forms of the passes and cores: x, the weights and biases, u, qkv,
+// acc, z, hid and out bf16; the LN parameters, statistics, row scales and
+// lse f32.  Each step rounds where the JAX kernels round (fused_layer.py:
+// 116-166, fused_layer1.py:91-171): u = LN(x) rounded by the LN pass; qkv,
+// the out projection's branch and the residual by the GEMM core's bf16
+// epilogue (round(round(acc) + b), × round(rs) rounded, + x rounded); the
+// attention's out on the packed-row core's bf16 form (attention_tc.cuh);
+// LN₂(z) by the LN pass; hid = round(silu(round(round(acc) + b₁))) in FF1's
+// epilogue, and FF2's as the out projection's.  The bf16 whole layer runs
+// the serving call only (no saves, silu).
+//
+// What later work changes: fusing each op's launch sequence into fewer
+// launches so intermediates stay on chip.
 //
 // B7 (the FF residual branch alone, under the FF-kernel switch) is the
 // whole layer's FF half: the LN statistics, a GEMM that applies the LN as
@@ -110,6 +124,23 @@ cudaError_t attention_half(
                         3 * HD, C, 0, stream));
   VTX_CHECK(launch_attention(qkv, extra, groups, acc, lse, B, N, H, D, scale, stream));
   return launch_gemm(acc, wout, wout_s0, wout_s1, bout, rs, N, x, z, M, C, HD, 0, stream);
+}
+
+// The bf16 attention half (no bias): LN pass → GEMM(+bqkv) → the packed-row
+// core → GEMM(+bout, ×r, +x), every activation bf16
+cudaError_t attention_half_bf16(
+    const bf16* x, const float* ln_g, const float* ln_b,
+    const bf16* wqkv, long long wqkv_s0, long long wqkv_s1, const bf16* bqkv,
+    const bf16* wout, long long wout_s0, long long wout_s1, const bf16* bout,
+    const float* rs, bf16* u, bf16* qkv, bf16* acc, float* mu, float* rstd, float* lse,
+    bf16* z, int B, int N, int C, int H, int D, float scale, float eps, cudaStream_t stream) {
+  const int M = B * N, HD = H * D;
+  VTX_CHECK(launch_ln(x, ln_g, ln_b, u, mu, rstd, M, C, eps, stream));
+  VTX_CHECK(launch_gemm_bf16(u, wqkv, wqkv_s0, wqkv_s1, bqkv, nullptr, 1, nullptr, qkv, 0, M,
+                             3 * HD, C, 0, stream));
+  VTX_CHECK(vtx::packed_attention_fwd_bf16(qkv, acc, lse, B, N, H, D, scale, stream));
+  return launch_gemm_bf16(acc, wout, wout_s0, wout_s1, bout, rs, N, x, z, 0, M, C, HD, 0,
+                          stream);
 }
 
 // o = z + rs_ff ⊙ (silu(LN2(z)·W1 + b1)·W2 + b2) after the attention half
@@ -182,6 +213,21 @@ cudaError_t vtx::ff_half_fwd(
   }
   return launch_gemm_x(h, w2, w2_s0, w2_s1, b2, rs_ff, rows_per_scale, z, out, M, C, F, 0, a,
                        s);
+}
+
+// The bf16 FF half, serving with silu: LN₂(z) into out (written last), FF1
+// with silu in its epilogue into hid, FF2 with the residual
+cudaError_t ff_half_fwd_bf16(const bf16* z, const float* ln2_g, const float* ln2_b,
+                             const bf16* w1, long long w1_s0, long long w1_s1, const bf16* b1,
+                             const bf16* w2, long long w2_s0, long long w2_s1, const bf16* b2,
+                             const float* rs_ff, int rows_per_scale, bf16* hid, bf16* out,
+                             int M, int C, int F, float eps, cudaStream_t s) {
+  VTX_CHECK(launch_ln(z, ln2_g, ln2_b, out, static_cast<float*>(nullptr),
+                      static_cast<float*>(nullptr), M, C, eps, s));
+  VTX_CHECK(launch_gemm_bf16(out, w1, w1_s0, w1_s1, b1, nullptr, 1, nullptr, hid, 0, M, F, C,
+                             1, s));
+  return launch_gemm_bf16(hid, w2, w2_s0, w2_s1, b2, rs_ff, rows_per_scale, z, out, 0, M, C,
+                          F, 0, s);
 }
 
 // B9's attention (common.cuh): pair p of the P = B·G sample-major pairs
@@ -269,4 +315,44 @@ extern "C" int vtx_fused_ff_layer_fwd(
       x, ln_g, ln_b, w1, w1_s0, w1_s1, b1, w2, w2_s0, w2_s1, b2, rs, N, hid, af,
       mu ? mu : u, mu ? rstd : u + M, out, M, C, F, eps, act, af != nullptr,
       static_cast<cudaStream_t>(stream)));
+}
+
+// The bf16 forms (the JAX package's default precision): the same parameter
+// lists, the activations, weights and biases bf16 (the LN parameters, rs,
+// mu, rstd and lse f32), no bias (extra null, groups 1; a non-null extra is
+// refused).  B1 takes the training saves as its f32 form does; the whole
+// layer serves only (af and the saves null).
+extern "C" int vtx_fused_attention_layer_fwd_bf16(
+    const bf16* x, const float* ln_g, const float* ln_b,
+    const bf16* wqkv, long long wqkv_s0, long long wqkv_s1, const bf16* bqkv,
+    const bf16* wout, long long wout_s0, long long wout_s1, const bf16* bout,
+    const float* extra, int groups, const float* rs, bf16* u, bf16* qkv,
+    bf16* acc, float* mu, float* rstd, float* lse, bf16* out, int B, int N, int C,
+    int H, int D, float scale, float eps, void* stream) {
+  if (extra || groups != 1) return cudaErrorInvalidValue;
+  return static_cast<int>(attention_half_bf16(
+      x, ln_g, ln_b, wqkv, wqkv_s0, wqkv_s1, bqkv, wout, wout_s0, wout_s1, bout, rs, u, qkv,
+      acc, mu, rstd, lse, out, B, N, C, H, D, scale, eps, static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int vtx_fused_transformer_layer_fwd_bf16(
+    const bf16* x, const float* ln1_g, const float* ln1_b,
+    const bf16* wqkv, long long wqkv_s0, long long wqkv_s1, const bf16* bqkv,
+    const bf16* wout, long long wout_s0, long long wout_s1, const bf16* bout,
+    const float* ln2_g, const float* ln2_b,
+    const bf16* w1, long long w1_s0, long long w1_s1, const bf16* b1,
+    const bf16* w2, long long w2_s0, long long w2_s1, const bf16* b2,
+    const float* extra, int groups, const float* rs_attn, const float* rs_ff,
+    bf16* u, bf16* qkv, bf16* acc, bf16* z, bf16* hid, bf16* af,
+    float* mu1, float* rstd1, float* lse, float* mu2, float* rstd2, bf16* out,
+    int B, int N, int C, int H, int D, int F, float scale, float eps,
+    void* stream) {
+  if (extra || groups != 1 || af || mu1 || rstd1 || lse || mu2 || rstd2)
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  VTX_CHECK(attention_half_bf16(x, ln1_g, ln1_b, wqkv, wqkv_s0, wqkv_s1, bqkv, wout, wout_s0,
+                                wout_s1, bout, rs_attn, u, qkv, acc, nullptr, nullptr, nullptr,
+                                z, B, N, C, H, D, scale, eps, s));
+  return static_cast<int>(ff_half_fwd_bf16(z, ln2_g, ln2_b, w1, w1_s0, w1_s1, b1, w2, w2_s0,
+                                           w2_s1, b2, rs_ff, N, hid, out, B * N, C, F, eps, s));
 }

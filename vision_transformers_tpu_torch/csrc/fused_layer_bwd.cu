@@ -70,9 +70,24 @@
 // registers; dk and dv leave once, dq as ceil(N / 64) partials (155 MB at
 // ViT-S/16, B = 128) summed in order, so no float atomics.
 //
-// What later work changes: bf16 storage of the saved residuals, and fusing
-// the launches (the LN backward into the dln GEMM's epilogue, the column
-// sums into the weight GEMMs).
+// bf16 (vtx_fused_attention_layer_bwd_bf16, bias-free: ViT-S/16's training
+// at the JAX package's default precision) runs the same six steps on the
+// bf16 forms, rounding where the JAX kernel (fused_layer.py:183-339) rounds:
+//   1. da = round(dz·round(r)) by a pass (into dln's memory, free until
+//      step 4); dwout = accᵀ·da and dbout = Σ da in f32
+//   2. dacc₀ = dz·woutᵀ in f32 (into dq_part, free until step 3); dr from
+//      dacc₀ and acc; dacc = round(r·dacc₀) (without r the GEMM's epilogue
+//      rounds dz·woutᵀ)
+//   3. the packed-row core's bf16 backward (P recomputed in f32, dS·scale
+//      rounded before dq and dk, dq by f32 partials) → dqkv bf16
+//   4. u = round(LN(x)) into dln's memory; dwqkv = uᵀ·dqkv, dbqkv in f32
+//   5. dln = dqkv·wqkvᵀ in f32
+//   6. dx = round(dz + round(LNᵀ(dln))); dg, db in f32
+// The weight and bias gradients leave in f32 (the wrapper rounds them to the
+// weights' bf16 once, as the JAX custom_vjp returns them).
+//
+// What later work changes: fusing the launches (the LN backward into the
+// dln GEMM's epilogue, the column sums into the weight GEMMs).
 
 #include "window_attention_tc.cuh"
 
@@ -161,8 +176,8 @@ cudaError_t vtx::out_proj_bwd(
   VTX_CHECK(launch_gemm(dz, wout, wout_s1, wout_s0, nullptr, nullptr, 1, nullptr,
                         dacc, M, HD, C, 0, s));
   if (rs) {
-    row_scale_grad_kernel<<<B, DRS_THREADS, 0, s>>>(dacc, acc, dz, bout, rs, drs,
-                                                    rows_per_scale, HD, C);
+    row_scale_grad_kernel<float><<<B, DRS_THREADS, 0, s>>>(dacc, dacc, acc, dz, bout, rs,
+                                                           drs, rows_per_scale, HD, C);
     VTX_CHECK(cudaGetLastError());
   }
   return cudaSuccess;
@@ -291,4 +306,76 @@ extern "C" int vtx_fused_attention_layer_bwd(
       dbpart, wpart, splits_out, splits_qkv, cpart, dx, dg, db, dwqkv, dwqkv_s0,
       dwqkv_s1, dbqkv, dwout, dwout_s0, dwout_s1, dbout, drs, dextra, B, N, C, H,
       D, scale, static_cast<cudaStream_t>(stream)));
+}
+
+// The bf16 form (bias-free): the same parameter list; x, the weights and
+// biases, qkv, acc, dz, dx, and the workspaces dacc [M, HD] and dqkv
+// [M, 3HD] bf16; dq_part [max(1, ceil(N / 64))·M·HD] f32 and never null
+// (it first holds dacc₀ [M, HD]); dln [M, C] f32 (first holding u bf16);
+// every gradient of a weight or bias f32; extra, dbpart and dextra null.
+extern "C" int vtx_fused_attention_layer_bwd_bf16(
+    const bf16* x, const float* ln_g, const float* ln_b,
+    const bf16* wqkv, long long wqkv_s0, long long wqkv_s1, const bf16* bqkv,
+    const bf16* wout, long long wout_s0, long long wout_s1, const bf16* bout,
+    const float* extra, int groups,
+    const float* rs, const bf16* qkv, const bf16* acc, const float* mu,
+    const float* rstd, const float* lse, const bf16* dz,
+    bf16* dacc, float* dq_part, bf16* dqkv, float* dln,
+    float* dbpart, float* wpart, int splits_out, int splits_qkv, float* cpart,
+    bf16* dx, float* dg, float* db,
+    float* dwqkv, long long dwqkv_s0, long long dwqkv_s1, float* dbqkv,
+    float* dwout, long long dwout_s0, long long dwout_s1, float* dbout,
+    float* drs, float* dextra, int B, int N, int C, int H, int D, float scale,
+    void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int M = B * N, HD = H * D;
+  if (extra || groups != 1 || dbpart || dextra || !dq_part || D > DMAX || B > 65535 ||
+      H > 65535)
+    return cudaErrorInvalidValue;
+  // 1. da = round(dz·round(r)) into dln's memory (free until step 4);
+  // dwout = accᵀ·da; dbout = Σ_rows da
+  const long long MC = (long long)M * C;
+  const bf16* da = dz;
+  if (rs) {
+    bf16* scaled = reinterpret_cast<bf16*>(dln);
+    scale_rows_kernel<<<ew_blocks(MC), EW_THREADS, 0, s>>>(dz, rs, N, C, MC, scaled);
+    VTX_CHECK(cudaGetLastError());
+    da = scaled;
+  }
+  VTX_CHECK(launch_gemm_splitk_bf16(acc, HD, da, C, 1, wpart, splits_out, dwout, dwout_s0,
+                                    dwout_s1, HD, C, M, s));
+  if (dbout) VTX_CHECK(launch_colsum(da, nullptr, nullptr, nullptr, cpart, dbout, M, C, s));
+  // 2. dacc (and dr)
+  if (rs) {
+    VTX_CHECK(launch_gemm_bf16(dz, wout, wout_s1, wout_s0, nullptr, nullptr, 1, nullptr,
+                               dq_part, 1, M, HD, C, 0, s));
+    row_scale_grad_kernel<bf16><<<B, DRS_THREADS, 0, s>>>(dq_part, dacc, acc, dz, bout, rs,
+                                                          drs, N, HD, C);
+    VTX_CHECK(cudaGetLastError());
+  } else {
+    VTX_CHECK(launch_gemm_bf16(dz, wout, wout_s1, wout_s0, nullptr, nullptr, 1, nullptr,
+                               dacc, 0, M, HD, C, 0, s));
+  }
+  // 3. attention backward → dqkv
+  VTX_CHECK(vtx::packed_attention_bwd_bf16(qkv, acc, lse, dacc, dq_part, dqkv, B, N, H, D,
+                                           scale, s));
+  // 4. u = round(LN(x)) in dln's memory; dwqkv = uᵀ·dqkv; dbqkv
+  bf16* u = reinterpret_cast<bf16*>(dln);
+  ln_apply_kernel<false, bf16><<<ew_blocks(MC), EW_THREADS, 0, s>>>(x, mu, rstd, ln_g, ln_b,
+                                                                    u, C, MC,
+                                                                    MapRows{nullptr, 1});
+  VTX_CHECK(cudaGetLastError());
+  VTX_CHECK(launch_gemm_splitk_bf16(u, C, dqkv, 3 * HD, 1, wpart, splits_qkv, dwqkv, dwqkv_s0,
+                                    dwqkv_s1, C, 3 * HD, M, s));
+  if (dbqkv)
+    VTX_CHECK(launch_colsum(dqkv, nullptr, nullptr, nullptr, cpart, dbqkv, M, 3 * HD, s));
+  // 5. dln = dqkv·wqkvᵀ (f32)
+  VTX_CHECK(launch_gemm_bf16(dqkv, wqkv, wqkv_s1, wqkv_s0, nullptr, nullptr, 1, nullptr, dln,
+                             1, M, C, 3 * HD, 0, s));
+  // 6. the LN backward; dg, db
+  ln_bwd_rows_kernel<false, bf16><<<cdiv(M, LN_THREADS / 32), LN_THREADS, 0, s>>>(
+      dln, x, mu, rstd, ln_g, dz, dx, M, C, MapRows{nullptr, 1});
+  VTX_CHECK(cudaGetLastError());
+  VTX_CHECK((launch_colsum<float, bf16>(dln, x, mu, rstd, cpart, dg, M, C, s)));
+  return static_cast<int>(launch_colsum(dln, nullptr, nullptr, nullptr, cpart, db, M, C, s));
 }

@@ -90,6 +90,26 @@
 // of 4, or its tile has 64 rows, by 4-byte loads.  Ragged M, N and K are
 // zero-filled.
 //
+// The bf16 form (launch_gemm_bf16, launch_gemm_splitk_bf16: B1's and B2's
+// projections at the JAX package's default precision).  The same tile
+// scheduler, ring, barriers and promotion, with the element type a template
+// argument (E, common.cuh): operands bf16 in device memory, 8-row x
+// 16-byte core matrices, no TF32 split, one wgmma.m64nBNk16.f32.bf16 a
+// 16-deep slab where f32 takes six, into f32 sums promoted every 64 k as in
+// the f32 form.  Where both operands are 16-byte chunks along K (the
+// forward's activations and weight views; the data gradients' weights as
+// contiguous copies) or both along their rows (the split-K weight
+// gradients' Aᵀ and dY), the producer is a copy: 16-byte cp.async global →
+// shared, four slabs (64 k) a stage, CP_LAG stages in flight, the MN-major
+// tiles read by wgmma through its transpose bits (produce_copies).  Any
+// other bf16 operand (a shape off 8-element chunks) takes the f32 form's
+// register path, loaded four elements a unit and stored as they were; the
+// bf16 form takes none of the producer's transforms.  The row
+// epilogue follows the JAX kernels' rounding points in registers:
+// round(acc), + bias rounded, silu rounded, × round(rs) rounded, + res
+// rounded (or, out_f32, the raw sums: the backward's dln and dacc₀); the
+// split-K form writes f32 partials and their ordered f32 sum.
+//
 // What bounds it on this card.  The port's projections are 2·M·N·K
 // operations against 4·(M·K + K·N + M·N) bytes: at every path's shape (K, N
 // ≥ 96, M ≥ 3,136) the f32-accurate tensor-core rate bounds them (495 / 3 =
@@ -132,24 +152,52 @@ static_assert(2 * STAGES < 16, "named barriers 1 .. 2·STAGES");
 // slower)
 constexpr int XF_NONE = 0, XF_LN = 1, XF_ACT = 2, XF_SCALE = 3, XF_EPILOGUE = 4;
 
+// p points at elements of the kernel's type E (f32 or bf16); cp (bf16):
+// K-contiguous in 16-byte chunks of 8 k (s_row and K multiples of 8, p
+// 16-byte aligned), cpt (bf16): row-contiguous in 16-byte chunks of 8 rows
+// (s_k and rows multiples of 8, p 16-byte aligned), so the producer copies
+// it straight into the stage, K-major or MN-major
 struct Operand {
-  const float* p;
+  const void* p;
   long long s_row, s_k;
   int rows;
-  bool kmajor, vec, tvec;
+  bool kmajor, vec, tvec, cp, cpt;
 };
 
+// bias, res and out in the kernel's element type (out f32 in the split-K
+// form and where out_f32 is set)
 struct Args {
   Operand a, b;
   GemmExtra x;
-  const float* bias;
+  const void* bias;
   const float* rs;
   int rs_rows;
-  const float* res;
-  float* out;
-  int M, N, K, k_chunk, silu;
+  const void* res;
+  void* out;
+  int M, N, K, k_chunk, silu, out_f32;
   MapRows rows_map;
 };
+
+// four consecutive elements at p[i] as f32 (16 bytes of f32, 8 of bf16,
+// aligned), and one
+template <int E>
+__device__ __forceinline__ float4 ld4(const void* p, long long i) {
+  if constexpr (E == F32) {
+    return __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(p) + i));
+  } else {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(static_cast<const bf16*>(p) + i));
+    return make_float4(lo_f32(u.x), hi_f32(u.x), lo_f32(u.y), hi_f32(u.y));
+  }
+}
+
+template <int E>
+__device__ __forceinline__ float ld1(const void* p, long long i) {
+  if constexpr (E == F32)
+    return __ldg(static_cast<const float*>(p) + i);
+  else
+    return __bfloat162float(static_cast<const bf16*>(p)[i]);
+}
+
 
 // a producer thread's units (4 k of one row) of an R-row x BK tile
 template <int R>
@@ -175,18 +223,17 @@ __device__ __forceinline__ void unit(bool kmajor, int pt, int i, int& r, int& c)
 
 // rows [r0, r0 + R) x k [k0, k0 + BK) of o into v, zero past o.rows and
 // past k_end
-template <int R>
+template <int R, int E>
 __device__ __forceinline__ void load_tile(float4 (&v)[units<R>()], const Operand& o, int pt,
                                           int r0, int k0, int k_end) {
   if constexpr (R == 128 && units<R>() == 4) {
-    if (o.tvec) {  // rows 4·lane .. + 3 at k 4·warp + i, one 16-byte load each
+    if (o.tvec) {  // rows 4·lane .. + 3 at k 4·warp + i, one 16-byte (8-byte) load each
       const int gr = r0 + 4 * (pt & 31), gk = k0 + 4 * (pt >> 5);
-      const float* src = o.p + gr + (long long)gk * o.s_k;
+      const long long src = gr + (long long)gk * o.s_k;
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        v[i] = gr < o.rows && gk + i < k_end
-                   ? __ldg(reinterpret_cast<const float4*>(src + i * o.s_k))
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
+        v[i] = gr < o.rows && gk + i < k_end ? ld4<E>(o.p, src + i * o.s_k)
+                                              : make_float4(0.f, 0.f, 0.f, 0.f);
       return;
     }
   }
@@ -195,16 +242,15 @@ __device__ __forceinline__ void load_tile(float4 (&v)[units<R>()], const Operand
     int r, c;
     unit<R>(o.kmajor, pt, i, r, c);
     const int gr = r0 + r, gk = k0 + 4 * c;
-    const float* src = o.p + (long long)gr * o.s_row + (long long)gk * o.s_k;
+    const long long src = (long long)gr * o.s_row + (long long)gk * o.s_k;
     if (o.vec) {
-      v[i] = gr < o.rows && gk < k_end ? __ldg(reinterpret_cast<const float4*>(src))
-                                        : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[i] = gr < o.rows && gk < k_end ? ld4<E>(o.p, src) : make_float4(0.f, 0.f, 0.f, 0.f);
     } else {
       const bool ok = gr < o.rows;
-      v[i].x = ok && gk < k_end ? __ldg(src) : 0.f;
-      v[i].y = ok && gk + 1 < k_end ? __ldg(src + o.s_k) : 0.f;
-      v[i].z = ok && gk + 2 < k_end ? __ldg(src + 2 * o.s_k) : 0.f;
-      v[i].w = ok && gk + 3 < k_end ? __ldg(src + 3 * o.s_k) : 0.f;
+      v[i].x = ok && gk < k_end ? ld1<E>(o.p, src) : 0.f;
+      v[i].y = ok && gk + 1 < k_end ? ld1<E>(o.p, src + o.s_k) : 0.f;
+      v[i].z = ok && gk + 2 < k_end ? ld1<E>(o.p, src + 2 * o.s_k) : 0.f;
+      v[i].w = ok && gk + 3 < k_end ? ld1<E>(o.p, src + 3 * o.s_k) : 0.f;
     }
   }
 }
@@ -222,11 +268,28 @@ __device__ __forceinline__ float4 halves(float4 x, float4& lo) {
                      __uint_as_float(h[3]));
 }
 
-// v split into the K-major tiles Hi / Lo (R rows x BK)
-template <int R>
-__device__ __forceinline__ void store_tile(float* Hi, float* Lo,
-                                           const float4 (&v)[units<R>()], const Operand& o,
-                                           int pt) {
+// the unit (row r, k 4·c .. 4·c + 3) of an R-row K-major tile at st: f32
+// split into the tiles Hi (st) / Lo (st + R·BK floats), float 4·(c·R + r);
+// bf16 rounded, element 8·((c / 2)·R + r) + 4·(c mod 2)
+template <int R, int E>
+__device__ __forceinline__ void store_unit(char* st, int r, int c, float4 x) {
+  if constexpr (E == F32) {
+    float* Hi = reinterpret_cast<float*>(st);
+    const int off = 4 * (c * R + r);
+    float4 lo;
+    *reinterpret_cast<float4*>(Hi + off) = halves(x, lo);
+    *reinterpret_cast<float4*>(Hi + R * BK + off) = lo;
+  } else {
+    bf16* T = reinterpret_cast<bf16*>(st);
+    *reinterpret_cast<uint2*>(T + 8 * ((c >> 1) * R + r) + 4 * (c & 1)) =
+        make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
+  }
+}
+
+// v into the K-major tile(s) at st (R rows x BK)
+template <int R, int E>
+__device__ __forceinline__ void store_tile(char* st, const float4 (&v)[units<R>()],
+                                           const Operand& o, int pt) {
   if constexpr (R == 128 && units<R>() == 4) {
     if (o.tvec) {  // v transposed: row 4·lane + i's 4 k of chunk warp
       const float4 rows[4] = {make_float4(v[0].x, v[1].x, v[2].x, v[3].x),
@@ -234,12 +297,7 @@ __device__ __forceinline__ void store_tile(float* Hi, float* Lo,
                               make_float4(v[0].z, v[1].z, v[2].z, v[3].z),
                               make_float4(v[0].w, v[1].w, v[2].w, v[3].w)};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int off = 4 * ((pt >> 5) * R + 4 * (pt & 31) + i);
-        float4 lo;
-        *reinterpret_cast<float4*>(Hi + off) = halves(rows[i], lo);
-        *reinterpret_cast<float4*>(Lo + off) = lo;
-      }
+      for (int i = 0; i < 4; ++i) store_unit<R, E>(st, 4 * (pt & 31) + i, pt >> 5, rows[i]);
       return;
     }
   }
@@ -247,17 +305,14 @@ __device__ __forceinline__ void store_tile(float* Hi, float* Lo,
   for (int i = 0; i < units<R>(); ++i) {
     int r, c;
     unit<R>(o.kmajor, pt, i, r, c);
-    const int off = 4 * (c * R + r);
-    float4 lo;
-    *reinterpret_cast<float4*>(Hi + off) = halves(v[i], lo);
-    *reinterpret_cast<float4*>(Lo + off) = lo;
+    store_unit<R, E>(st, r, c, v[i]);
   }
 }
 
 // wgmma descriptor of a K-major no-swizzle tile of R rows at p: leading byte
 // offset (the next 4 k) R·16, stride byte offset (the next 8 rows) 128
 template <int R>
-__device__ __forceinline__ uint64_t desc(const float* p) {
+__device__ __forceinline__ uint64_t desc(const void* p) {
   const uint64_t addr = tc::smem_addr(p);
   return ((addr & 0x3FFFF) >> 4) | ((uint64_t)((R * 16) >> 4) << 16) |
          ((uint64_t)(128 >> 4) << 32);
@@ -321,6 +376,49 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t
       : "memory");
 }
 
+// d[0, 32) = A·B + (scale_d ? d : 0) over k 16, m64n64k16, bf16, A and B
+// in shared memory, K-major (TA, TB 0) or MN-major (1: the transpose bits)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB)
+      : "memory");
+}
+
+// d[0, 64) = A·B + (scale_d ? d : 0) over k 16, m64n128k16, bf16
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB)
+      : "memory");
+}
+
 template <int BN>
 __device__ __forceinline__ void wgmma(float (&d)[BN / 2], uint64_t da, uint64_t db,
                                       int scale_d = 1) {
@@ -338,14 +436,22 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-template <int BN>
-__host__ __device__ constexpr int stage_floats() {
-  return 2 * (BM + BN) * BK;  // A_hi, A_lo, B_hi, B_lo
+// a stage: A_hi, A_lo, B_hi, B_lo (f32), or SPS slabs' A, B (bf16: one
+// slab on the register path, four where the producer copies them)
+template <int BN, int E, int SPS = 1>
+__host__ __device__ constexpr int stage_bytes() {
+  return E == F32 ? 2 * (BM + BN) * BK * 4 : SPS * (BM + BN) * BK * 2;
 }
 
-template <int BN>
+// A's tile(s) first, then B's
+template <int E>
+__host__ __device__ constexpr int a_tile_bytes() {
+  return E == F32 ? 2 * BM * BK * 4 : BM * BK * 2;
+}
+
+template <int BN, int E, int SPS = 1>
 __host__ __device__ constexpr int smem_bytes() {
-  return STAGES * stage_floats<BN>() * (int)sizeof(float);
+  return STAGES * stage_bytes<BN, E, SPS>();
 }
 
 // one slab's operands in registers, between its loads and its staging; with
@@ -447,11 +553,11 @@ __device__ __forceinline__ void load_params(Slab<BN>& r, const Args& a, int pt, 
   }
 }
 
-template <int BN, bool SPLIT_K, int XF>
+template <int BN, bool SPLIT_K, int XF, int E>
 __device__ __forceinline__ void load_slab(Slab<BN>& r, const Args& a, int pt, int m0,
                                           int n0, int k0, int k_end) {
-  load_tile<BM>(r.a, a.a, pt, m0, k0, k_end);
-  load_tile<BN>(r.b, a.b, pt, n0, k0, k_end);
+  load_tile<BM, E>(r.a, a.a, pt, m0, k0, k_end);
+  load_tile<BN, E>(r.b, a.b, pt, n0, k0, k_end);
   load_params<BN, SPLIT_K, XF>(r, a, pt, k0, k_end);
 }
 
@@ -543,7 +649,7 @@ __device__ __forceinline__ void scale_tile(Slab<BN>& s, const Args& a, int pt, i
 
 // the producer's transform of slab s (XF_LN: A's LayerNorm; XF_ACT: act on
 // A, and B's row scale with b_rs; XF_SCALE: B's row scale)
-template <int BN, bool SPLIT_K, int XF, int ACT>
+template <int BN, bool SPLIT_K, int XF, int ACT, int E>
 __device__ __forceinline__ void transform_slab(Slab<BN>& s, const Fixed& f, const Args& a,
                                                int pt, int k0, int k_end, int r0) {
   if constexpr (XF == XF_LN) ln_tile<BN, SPLIT_K>(s, f, a, pt, k0, k_end, r0);
@@ -557,13 +663,13 @@ __device__ __forceinline__ void transform_slab(Slab<BN>& s, const Fixed& f, cons
   if constexpr (XF == XF_SCALE) scale_tile<BN>(s, a, pt, k0);
 }
 
-// split into stage st: A_hi, A_lo, B_hi, B_lo
-template <int BN>
-__device__ __forceinline__ void store_slab(float* st, const Slab<BN>& r, const Args& a,
+// into stage st: A's tile(s), then B's (f32 split into hi / lo, bf16
+// rounded)
+template <int BN, int E>
+__device__ __forceinline__ void store_slab(char* st, const Slab<BN>& r, const Args& a,
                                            int pt) {
-  constexpr int AT = BM * BK, BT = BN * BK;
-  store_tile<BM>(st, st + AT, r.a, a.a, pt);
-  store_tile<BN>(st + 2 * AT, st + 2 * AT + BT, r.b, a.b, pt);
+  store_tile<BM, E>(st, r.a, a.a, pt);
+  store_tile<BN, E>(st + a_tile_bytes<E>(), r.b, a.b, pt);
 }
 
 // the ring's named barriers (0 is __syncthreads'): stage s full (the
@@ -578,26 +684,43 @@ __device__ __forceinline__ void bar_arrive(int id) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(THREADS) : "memory");
 }
 
-// the wgmmas of the slab in stage st (BK / 8 k steps x three passes, the
-// small terms first) into part, the first zeroing it where zero, committed
-// as one group
-template <int BN>
-__device__ __forceinline__ void mma_slab(float (&part)[BN / 2], const float* st, int wg,
-                                         bool zero) {
-  constexpr int AT = BM * BK, BT = BN * BK;
-  // this warpgroup's 64 rows of A: 8 core-matrix rows of 128 bytes on
-  const float* a_hi = st + 256 * wg;
-  const float* a_lo = a_hi + AT;
-  const float* b_hi = st + 2 * AT;
-  const float* b_lo = b_hi + BT;
+// the wgmmas of the nq ≤ SPS slabs in stage st into part, the first
+// zeroing it where zero, committed as one group: f32 BK / 8 k steps x three
+// passes, the small terms first; bf16 one k16 step a slab, A MN-major where
+// TRANS & 1, B where TRANS & 2
+template <int BN, int E, int SPS = 1, int TRANS = 0>
+__device__ __forceinline__ void mma_slab(float (&part)[BN / 2], const char* st, int wg,
+                                         bool zero, int nq = 1) {
   wg_fence();
+  if constexpr (E == F32) {
+    constexpr int AT = BM * BK, BT = BN * BK;
+    // this warpgroup's 64 rows of A: 8 core-matrix rows of 128 bytes on
+    const float* a_hi = reinterpret_cast<const float*>(st) + 256 * wg;
+    const float* a_lo = a_hi + AT;
+    const float* b_hi = reinterpret_cast<const float*>(st) + 2 * AT;
+    const float* b_lo = b_hi + BT;
 #pragma unroll
-  for (int s = 0; s < BK / 8; ++s) {  // k 8·s .. 8·s + 7: chunks 2s, 2s + 1
-    const uint64_t ah = desc<BM>(a_hi + 8 * s * BM), al = desc<BM>(a_lo + 8 * s * BM);
-    const uint64_t bh = desc<BN>(b_hi + 8 * s * BN), bl = desc<BN>(b_lo + 8 * s * BN);
-    wgmma<BN>(part, al, bh, !zero || s > 0);
-    wgmma<BN>(part, ah, bl);
-    wgmma<BN>(part, ah, bh);
+    for (int s = 0; s < BK / 8; ++s) {  // k 8·s .. 8·s + 7: chunks 2s, 2s + 1
+      const uint64_t ah = desc<BM>(a_hi + 8 * s * BM), al = desc<BM>(a_lo + 8 * s * BM);
+      const uint64_t bh = desc<BN>(b_hi + 8 * s * BN), bl = desc<BN>(b_lo + 8 * s * BN);
+      wgmma<BN>(part, al, bh, !zero || s > 0);
+      wgmma<BN>(part, ah, bl);
+      wgmma<BN>(part, ah, bh);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < SPS; ++q) {
+      if (q < nq) {
+        const char* sq = st + q * stage_bytes<BN, E>();
+        // the warpgroup's 64 rows: 1024 bytes on, as in f32 (the 8-row
+        // core-matrix groups are 128 bytes apart in either layout)
+        const uint64_t da = desc<BM>(sq + 1024 * wg), db = desc<BN>(sq + a_tile_bytes<E>());
+        if constexpr (BN == 128)
+          wgmma_bf16_n128<TRANS & 1, (TRANS >> 1)>(part, da, db, !zero || q > 0);
+        else
+          wgmma_bf16_n64<TRANS & 1, (TRANS >> 1)>(part, da, db, !zero || q > 0);
+      }
+    }
   }
   wg_commit();
 }
@@ -612,16 +735,17 @@ struct Tile {
 // once the consumers have left it (slab j − STAGES's), slab it + 1 loaded
 // into nxt first so that its loads are in flight meanwhile; (XF) cur
 // transformed (GemmExtra) on the way
-template <int BN, bool SPLIT_K, int XF, int ACT>
-__device__ __forceinline__ void produce(Slab<BN>& cur, Slab<BN>& nxt, float* smem,
+template <int BN, bool SPLIT_K, int XF, int ACT, int E>
+__device__ __forceinline__ void produce(Slab<BN>& cur, Slab<BN>& nxt, char* smem,
                                         const Args& a, int pt, const Tile& T, int it, int j,
                                         const Fixed& f) {
   if (it + 1 < T.slabs)
-    load_slab<BN, SPLIT_K, XF>(nxt, a, pt, T.m0, T.n0, T.k_begin + (it + 1) * BK, T.k_end);
+    load_slab<BN, SPLIT_K, XF, E>(nxt, a, pt, T.m0, T.n0, T.k_begin + (it + 1) * BK,
+                                  T.k_end);
   const int st = j % STAGES;
-  transform_slab<BN, SPLIT_K, XF, ACT>(cur, f, a, pt, T.k_begin + it * BK, T.k_end, T.m0);
+  transform_slab<BN, SPLIT_K, XF, ACT, E>(cur, f, a, pt, T.k_begin + it * BK, T.k_end, T.m0);
   if (j >= STAGES) bar_sync(empty_bar(st));
-  store_slab(smem + st * stage_floats<BN>(), cur, a, pt);
+  store_slab<BN, E>(smem + st * stage_bytes<BN, E>(), cur, a, pt);
   fence_proxy_async();
   bar_arrive(full_bar(st));
 }
@@ -644,14 +768,70 @@ __device__ __forceinline__ Tile tile_of(const Args& a, int t) {
 // the epilogue of tile T from the consumers' sums: d[4j + 2h + e] at row
 // 16·warp + lane / 4 + 8h, column 8j + 2·(lane % 4) + e of warpgroup wg's
 // 64 x BN
-template <int BN, bool SPLIT_K, int MAP>
+// The bf16 row form's epilogue: the JAX kernels' rounding points (or, with
+// out_f32, the raw f32 sums); columns n, n + 1 of row m
+__device__ __forceinline__ void epilogue_bf16(const Args& a, int m, int n, float r,
+                                              const float (&d)[2]) {
+  const int N = a.N;
+  const long long row_off = (long long)m * N;
+  if (a.out_f32) {
+    float* orow = static_cast<float*>(a.out) + row_off;
+    if (N % 2 == 0) {
+      *reinterpret_cast<float2*>(orow + n) = make_float2(d[0], d[1]);
+    } else {
+      orow[n] = d[0];
+      if (n + 1 < N) orow[n + 1] = d[1];
+    }
+    return;
+  }
+  const bf16* bias = static_cast<const bf16*>(a.bias);
+  const bf16* res = static_cast<const bf16*>(a.res);
+  float v[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    v[e] = rnd<bf16>(d[e]);
+    if (n + e < N) {
+      if (bias) v[e] = rnd<bf16>(v[e] + __bfloat162float(bias[n + e]));
+      if (a.silu) v[e] = rnd<bf16>(act_fwd<ACT_SILU>(v[e]));
+      if (a.rs) v[e] = rnd<bf16>(v[e] * r);
+      if (res) v[e] = v[e] + __bfloat162float(res[row_off + n + e]);  // rounded as stored
+    }
+  }
+  bf16* orow = static_cast<bf16*>(a.out) + row_off;
+  if (N % 2 == 0) {  // every row, and so the pair, 4-byte aligned
+    *reinterpret_cast<uint32_t*>(orow + n) = pack_bf16(v[0], v[1]);
+  } else {
+    orow[n] = __float2bfloat16_rn(v[0]);
+    if (n + 1 < N) orow[n + 1] = __float2bfloat16_rn(v[1]);
+  }
+}
+
+template <int BN, bool SPLIT_K, int MAP, int E>
 __device__ __forceinline__ void epilogue(const Args& a, const Tile& T, int wg,
                                          const float (&acc)[BN / 2]) {
   const int lane = threadIdx.x & 31;
   const int row0 = T.m0 + 64 * wg + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
   const int col0 = T.n0 + 2 * (lane & 3);
   const int M = a.M, N = a.N;
-  float* out = a.out + (SPLIT_K ? (long long)T.z * M * N : 0LL);
+  if constexpr (E == BF16 && !SPLIT_K) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = row0 + 8 * h;
+      if (m >= M) continue;
+      const float r = a.rs ? rnd<bf16>(a.rs[m / a.rs_rows]) : 1.f;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int n = col0 + 8 * j;
+        if (n >= N) continue;
+        const float d[2] = {acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]};
+        epilogue_bf16(a, m, n, r, d);
+      }
+    }
+    return;
+  }
+  const float* bias = static_cast<const float*>(a.bias);
+  const float* res = static_cast<const float*>(a.res);
+  float* out = static_cast<float*>(a.out) + (SPLIT_K ? (long long)T.z * M * N : 0LL);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int m = row0 + 8 * h;
@@ -661,7 +841,7 @@ __device__ __forceinline__ void epilogue(const Args& a, const Tile& T, int wg,
     const long long map_off = MAP == MAP_NONE ? 0 : map_pixel(a.rows_map, m) * N;
     const float r = !SPLIT_K && a.rs ? a.rs[m / a.rs_rows] : 1.f;
     float* orow = out + (MAP == MAP_OUT ? map_off : row_off);
-    const float* rrow = a.res ? a.res + (MAP == MAP_RES ? map_off : row_off) : nullptr;
+    const float* rrow = res ? res + (MAP == MAP_RES ? map_off : row_off) : nullptr;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int n = col0 + 8 * j;  // even: this thread's columns n, n + 1
@@ -671,7 +851,7 @@ __device__ __forceinline__ void epilogue(const Args& a, const Tile& T, int wg,
       for (int e = 0; e < 2; ++e) {
         v[e] = acc[4 * j + 2 * h + e];
         if (!SPLIT_K && n + e < N) {
-          if (a.bias) v[e] += a.bias[n + e];
+          if (bias) v[e] += bias[n + e];
           if (a.silu) v[e] = act_fwd<ACT_SILU>(v[e]);
           if (a.rs) v[e] *= r;
           if (rrow) v[e] += rrow[n + e];
@@ -718,6 +898,9 @@ __device__ __forceinline__ void epilogue_x(const Args& a, const Tile& T, int wg,
   const int col0 = T.n0 + 2 * (lane & 3);
   const int M = a.M, N = a.N;
   const GemmExtra& x = a.x;
+  const float* bias = static_cast<const float*>(a.bias);
+  const float* res = static_cast<const float*>(a.res);
+  float* out = static_cast<float*>(a.out);
   // the passes' partials (uniform across the block: kernel arguments)
   const bool rsum_on = x.rpart != nullptr, csum_on = x.cpart != nullptr;
   bool row_ok[2];
@@ -762,19 +945,19 @@ __device__ __forceinline__ void epilogue_x(const Args& a, const Tile& T, int wg,
       for (int e = 0; e < 2; ++e) {
         v[e] = acc[4 * j + 2 * h + e];
         if (row_ok[h] && n + e < N) {
-          if (a.bias) v[e] += a.bias[n + e];
+          if (bias) v[e] += bias[n + e];
           if (a.silu) v[e] = act_fwd<ACT_SILU>(v[e]);
           float fh = 0.f, gh = 1.f;
           if (x.hid) act_and_grad<ACT>(hg[j][h][e], fh, gh);
           if (rsum_on) rsum[h][j / 8] += v[e] * fh;
           if (a.rs) v[e] *= r[h];
           if (x.hid) v[e] *= gh;
-          if (a.res) v[e] += a.res[row_off[h] + n + e];
+          if (res) v[e] += res[row_off[h] + n + e];
           c[e] += v[e];
         }
       }
       if (row_ok[h] && n < N) {
-        float* orow = a.out + row_off[h];
+        float* orow = out + row_off[h];
         if (N % 2 == 0) {
           *reinterpret_cast<float2*>(orow + n) = make_float2(v[0], v[1]);
         } else {
@@ -815,30 +998,114 @@ __device__ __forceinline__ void epilogue_x(const Args& a, const Tile& T, int wg,
   }
 }
 
+// The bf16 producer where both operands are 16-byte chunks along K
+// (Operand::cp) or both along their rows (Operand::cpt), with no
+// transform: a stage holds CP_SLABS slabs (64 k), its tiles copied global →
+// shared with 16-byte cp.async (copy_tile), zero-filled past the rows and
+// K, and reported full CP_LAG stages later, once its copies have landed, so
+// up to CP_LAG + 1 stages (320 k) are in flight where the register path
+// keeps one slab.  CP_LAG ≤ STAGES − 2 keeps the ring from waiting on
+// itself.  (With one 16-deep slab a stage the copies' latency stayed
+// exposed: ViT-S/16's qkv product took 0.431 ms on the H100, 0.390 with
+// four; PERF.md.)
+constexpr int CP_LAG = STAGES - 2, CP_SLABS = 4;
+static_assert(PROMOTE % CP_SLABS == 0, "a stage inside one promotion group");
+
+// An R-row x BK tile's 2·R 16-byte chunks.  K-major (o.cp): chunk (row r,
+// k half c) — 8 k of one row, a core-matrix row — at byte 16·(c·R + r).
+// MN-major (o.cpt, MN): chunk (row group g of 8 rows, k) — 8 rows of one k
+// — at byte 128·g + 16·((k / 8)·R + k mod 8): the same 8 x 16-byte core
+// matrices at the same offsets, each holding rows along its 16 bytes and k
+// down its 8 lines, which wgmma reads with the transpose bit
+template <int R, bool MN>
+__device__ __forceinline__ void copy_tile(char* dst, const Operand& o, int pt, int r0, int k0,
+                                          int k_end) {
+  const bf16* p = static_cast<const bf16*>(o.p);
+#pragma unroll
+  for (int i = pt; i < 2 * R; i += PRODUCERS) {
+    int off, gr, gk;
+    long long src;
+    if constexpr (MN) {  // neighbouring threads: neighbouring row groups of one k
+      const int g = i % (R / 8), k = i / (R / 8);
+      off = 128 * g + 16 * ((k >> 3) * R + (k & 7));
+      gr = r0 + 8 * g;
+      gk = k0 + k;
+      src = gr + (long long)gk * o.s_k;
+    } else {
+      const int r = i >> 1, c = i & 1;
+      off = 16 * (c * R + r);
+      gr = r0 + r;
+      gk = k0 + 8 * c;
+      src = (long long)gr * o.s_row + gk;
+    }
+    const bool ok = gr < o.rows && gk < k_end;
+    tc::cp_async16(reinterpret_cast<float*>(dst + off),
+                   reinterpret_cast<const float*>(ok ? p + src : p), ok);
+  }
+}
+
+template <int BN, bool SPLIT_K, int TRANS>
+__device__ __forceinline__ void produce_copies(char* smem, const Args& a, int pt, int tiles,
+                                               int total) {
+  int j = 0;  // the block's stage
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const Tile T = tile_of<BN, SPLIT_K>(a, t);
+    for (int it = 0; it < T.slabs; it += CP_SLABS, ++j) {
+      const int st = j % STAGES;
+      if (j >= STAGES) bar_sync(empty_bar(st));
+      char* stage = smem + st * stage_bytes<BN, BF16, CP_SLABS>();
+      for (int q = 0; q < CP_SLABS && it + q < T.slabs; ++q) {
+        char* slab = stage + q * stage_bytes<BN, BF16>();
+        const int k0 = T.k_begin + (it + q) * BK;
+        copy_tile<BM, (TRANS & 1) != 0>(slab, a.a, pt, T.m0, k0, T.k_end);
+        copy_tile<BN, (TRANS & 2) != 0>(slab + a_tile_bytes<BF16>(), a.b, pt, T.n0, k0,
+                                        T.k_end);
+      }
+      tc::cp_async_commit();
+      if (j >= CP_LAG) {  // slab j − CP_LAG has landed: full
+        tc::cp_async_wait<CP_LAG>();
+        fence_proxy_async();
+        bar_arrive(full_bar((j - CP_LAG) % STAGES));
+      }
+    }
+  }
+  tc::cp_async_wait<0>();
+  fence_proxy_async();
+  for (int i = max(0, total - CP_LAG); i < total; ++i) bar_arrive(full_bar(i % STAGES));
+}
+
 // A persistent block (one an SM) takes tiles blockIdx.x, + gridDim.x, ...;
 // its slabs run through the ring in one sequence, g counting them, so the
 // producer fills the next tile's stages while the consumers finish a tile
 // and write it out.
-template <int BN, bool SPLIT_K, int MAP, int XF, int ACT>
+// SPS slabs a stage: 1, or CP_SLABS where the bf16 producer copies both
+// operands (produce_copies; TRANS: which of them are MN-major)
+template <int BN, bool SPLIT_K, int MAP, int XF, int ACT, int E, int SPS, int TRANS>
 __global__ void __launch_bounds__(THREADS, 1) gemm_tc_kernel(const Args a, int tiles) {
-  extern __shared__ __align__(128) float smem[];
+  extern __shared__ __align__(128) char smem[];
   const int wg = threadIdx.x >> 7;
-  int total = 0;  // the block's slabs
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) total += tile_of<BN, SPLIT_K>(a, t).slabs;
+  int total = 0;  // the block's stages
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x)
+    total += (tile_of<BN, SPLIT_K>(a, t).slabs + SPS - 1) / SPS;
 
   if (threadIdx.x >= CONSUMERS) {  // the producer warpgroup
     const int pt = threadIdx.x - CONSUMERS;
+    if constexpr (SPS > 1) {
+      produce_copies<BN, SPLIT_K, TRANS>(smem, a, pt, tiles, total);
+      return;
+    }
     int g = 0;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       const Tile T = tile_of<BN, SPLIT_K>(a, t);
       Slab<BN> r0, r1;  // two slabs, so that each register set is named statically
-      if (T.slabs > 0) load_slab<BN, SPLIT_K, XF>(r0, a, pt, T.m0, T.n0, T.k_begin, T.k_end);
+      if (T.slabs > 0)
+        load_slab<BN, SPLIT_K, XF, E>(r0, a, pt, T.m0, T.n0, T.k_begin, T.k_end);
       Fixed f;  // XF_LN: the tile's fixed rows' parameters
       if constexpr (XF == XF_LN) load_fixed<SPLIT_K>(f, a, pt, T.m0);
       for (int it = 0; it < T.slabs; it += 2) {
-        produce<BN, SPLIT_K, XF, ACT>(r0, r1, smem, a, pt, T, it, g + it, f);
+        produce<BN, SPLIT_K, XF, ACT, E>(r0, r1, smem, a, pt, T, it, g + it, f);
         if (it + 1 < T.slabs)
-          produce<BN, SPLIT_K, XF, ACT>(r1, r0, smem, a, pt, T, it + 1, g + it + 1, f);
+          produce<BN, SPLIT_K, XF, ACT, E>(r1, r0, smem, a, pt, T, it + 1, g + it + 1, f);
       }
       g += T.slabs;
     }
@@ -856,14 +1123,17 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_tc_kernel(const Args a, int t
     float acc[BN / 2], part[BN / 2];
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-    // slab it's wgmmas issued once its stage is full; then the previous
-    // slab's done (or, at the end of a promotion group, all, and part added
-    // to acc), and its stage given back to the producer where it waits
-    for (int it = 0; it < T.slabs; ++it) {
-      const int j = g + it, st = j % STAGES;
+    // stage is's slabs' wgmmas issued once it is full; then the previous
+    // stage's done (or, at the end of a promotion group, all, and part
+    // added to acc), and its stage given back to the producer where it
+    // waits
+    const int stages = (T.slabs + SPS - 1) / SPS;
+    for (int is = 0; is < stages; ++is) {
+      const int j = g + is, st = j % STAGES, it = is * SPS;
       bar_sync(full_bar(st));
-      mma_slab<BN>(part, smem + st * stage_floats<BN>(), wg, it % PROMOTE == 0);
-      if ((it + 1) % PROMOTE == 0 || it + 1 == T.slabs) {
+      mma_slab<BN, E, SPS, TRANS>(part, smem + st * stage_bytes<BN, E, SPS>(), wg,
+                           it % PROMOTE == 0, min(SPS, T.slabs - it));
+      if ((it + SPS) % PROMOTE == 0 || it + SPS >= T.slabs) {
         wg_wait<0>();
         fence_acc(part);
 #pragma unroll
@@ -876,30 +1146,39 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_tc_kernel(const Args a, int t
     if constexpr (XF == XF_EPILOGUE)
       epilogue_x<BN, ACT>(a, T, wg, acc);
     else
-      epilogue<BN, SPLIT_K, MAP>(a, T, wg, acc);
-    g += T.slabs;
+      epilogue<BN, SPLIT_K, MAP, E>(a, T, wg, acc);
+    g += stages;
   }
 }
 
-inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
-// element (r, k) at p[r·s_row + k·s_k]; 16-byte loads where every slab
-// boundary (a multiple of BK, or K) is a multiple of 4
-inline Operand operand(const float* p, long long s_row, long long s_k, int rows, int K) {
-  const bool kmajor = s_k == 1;
-  return Operand{p, s_row, s_k, rows, kmajor,
-                 kmajor && s_row % 4 == 0 && K % 4 == 0 && aligned16(p),
-                 !kmajor && s_row == 1 && s_k % 4 == 0 && rows % 4 == 0 && aligned16(p)};
+inline bool aligned(const void* p, int bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
-template <int BN, bool SPLIT_K, int MAP, int XF, int ACT>
+// element (r, k) at p[r·s_row + k·s_k] (elements of ``bytes`` each); loads
+// of four elements where every slab boundary (a multiple of BK, or K) is a
+// multiple of 4
+inline Operand operand(const void* p, long long s_row, long long s_k, int rows, int K,
+                       int bytes = 4) {
+  const bool kmajor = s_k == 1;
+  return Operand{p, s_row, s_k, rows, kmajor,
+                 kmajor && s_row % 4 == 0 && K % 4 == 0 && aligned(p, 4 * bytes),
+                 !kmajor && s_row == 1 && s_k % 4 == 0 && rows % 4 == 0 &&
+                     aligned(p, 4 * bytes),
+                 bytes == 2 && kmajor && s_row % 8 == 0 && K % 8 == 0 && aligned(p, 16),
+                 bytes == 2 && !kmajor && s_row == 1 && s_k % 8 == 0 && rows % 8 == 0 &&
+                     aligned(p, 16)};
+}
+
+template <int BN, bool SPLIT_K, int MAP, int XF, int ACT, int E = F32, int SPS = 1,
+          int TRANS = 0>
 cudaError_t launch_t(const Args& a, int splits, cudaStream_t s) {
-  static_assert(smem_bytes<BN>() <= 227 * 1024, "a block's shared memory");
+  static_assert(smem_bytes<BN, E, SPS>() <= 227 * 1024, "a block's shared memory");
   static bool sized = false;  // the attribute once per instantiation
   if (!sized) {
-    VTX_CHECK(cudaFuncSetAttribute(gemm_tc_kernel<BN, SPLIT_K, MAP, XF, ACT>,
+    VTX_CHECK(cudaFuncSetAttribute(gemm_tc_kernel<BN, SPLIT_K, MAP, XF, ACT, E, SPS, TRANS>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   smem_bytes<BN>()));
+                                   smem_bytes<BN, E, SPS>()));
     sized = true;
   }
   int dev, sms;  // persistent blocks: one an SM
@@ -908,9 +1187,35 @@ cudaError_t launch_t(const Args& a, int splits, cudaStream_t s) {
   const long long tiles = (long long)cdiv(a.N, BN) * cdiv(a.M, BM) * splits;
   if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   const int blocks = (int)(tiles < sms ? tiles : sms);
-  gemm_tc_kernel<BN, SPLIT_K, MAP, XF, ACT><<<blocks, THREADS, smem_bytes<BN>(), s>>>(
-      a, (int)tiles);
+  gemm_tc_kernel<BN, SPLIT_K, MAP, XF, ACT, E, SPS, TRANS>
+      <<<blocks, THREADS, smem_bytes<BN, E, SPS>(), s>>>(a, (int)tiles);
   return cudaGetLastError();
+}
+
+// the bf16 form: the row form and the split-K form, neither with a map or
+// a producer transform (B1's backward scales dY by a pass)
+template <bool SPLIT_K>
+cudaError_t launch_bf16(const Args& a, int splits, cudaStream_t s) {
+  if (a.M < 1 || a.N < 1 || a.K < 0 || splits < 1) return cudaErrorInvalidValue;
+  const GemmExtra& x = a.x;
+  if (x.ln_mu || x.a_act != ACT_NONE || x.b_rs || x.hid || x.rpart || x.cpart)
+    return cudaErrorInvalidValue;
+  if (!SPLIT_K && a.out_f32 && (a.bias || a.rs || a.res || a.silu))
+    return cudaErrorInvalidValue;
+  const bool narrow = cdiv(a.N, 64) * 64 < cdiv(a.N, 128) * 128;
+  if constexpr (SPLIT_K) {
+    if (a.a.cpt && a.b.cpt)  // both operands copied MN-major (the weight gradients)
+      return narrow
+                 ? launch_t<64, true, MAP_NONE, XF_NONE, ACT_SILU, BF16, CP_SLABS, 3>(a, splits,
+                                                                                   s)
+                 : launch_t<128, true, MAP_NONE, XF_NONE, ACT_SILU, BF16, CP_SLABS, 3>(a, splits,
+                                                                                    s);
+  } else if (a.a.cp && a.b.cp) {  // both operands copied, CP_SLABS slabs a stage
+    return narrow ? launch_t<64, false, MAP_NONE, XF_NONE, ACT_SILU, BF16, CP_SLABS>(a, 1, s)
+                  : launch_t<128, false, MAP_NONE, XF_NONE, ACT_SILU, BF16, CP_SLABS>(a, 1, s);
+  }
+  return narrow ? launch_t<64, SPLIT_K, MAP_NONE, XF_NONE, ACT_SILU, BF16>(a, splits, s)
+                : launch_t<128, SPLIT_K, MAP_NONE, XF_NONE, ACT_SILU, BF16>(a, splits, s);
 }
 
 template <bool SPLIT_K, int MAP>
@@ -1048,6 +1353,47 @@ cudaError_t vtx::launch_gemm_splitk_x(const float* A, int lda, const float* B, l
   return launch_splitk_reduce(part, splits, M, N, out, som, son, stream);
 }
 
+cudaError_t vtx::launch_gemm_bf16(const bf16* A, const bf16* B, long long sbk, long long sbn,
+                                  const bf16* bias, const float* rs, int rs_rows,
+                                  const bf16* res, void* out, int out_f32, int M, int N, int K,
+                                  int silu, cudaStream_t stream) {
+  gtc::Args a{};
+  a.a = gtc::operand(A, K, 1, M, K, 2);
+  a.b = gtc::operand(B, sbn, sbk, N, K, 2);
+  a.bias = bias;
+  a.rs = rs;
+  a.rs_rows = rs_rows;
+  a.res = res;
+  a.out = out;
+  a.out_f32 = out_f32;
+  a.M = M;
+  a.N = N;
+  a.K = K;
+  a.k_chunk = K;
+  a.silu = silu;
+  a.rows_map = MapRows{nullptr, 1};
+  return gtc::launch_bf16<false>(a, 1, stream);
+}
+
+cudaError_t vtx::launch_gemm_splitk_bf16(const bf16* A, int lda, const bf16* B, long long sbk,
+                                         long long sbn, float* part, int splits, float* out,
+                                         long long som, long long son, int M, int N, int K,
+                                         cudaStream_t stream) {
+  if (splits < 1) return cudaErrorInvalidValue;
+  gtc::Args a{};
+  a.a = gtc::operand(A, 1, lda, M, K, 2);
+  a.b = gtc::operand(B, sbn, sbk, N, K, 2);
+  a.rs_rows = 1;
+  a.out = part;
+  a.M = M;
+  a.N = N;
+  a.K = K;
+  a.k_chunk = cdiv(cdiv(K, splits), gtc::BK) * gtc::BK;
+  a.rows_map = MapRows{nullptr, 1};
+  VTX_CHECK(gtc::launch_bf16<true>(a, splits, stream));
+  return launch_splitk_reduce(part, splits, M, N, out, som, son, stream);
+}
+
 // The GEMM core alone, for its checks and timings (chip_smoke.py phase 3m):
 // form 0 launch_gemm_x, 1 launch_gemm_map<MAP_RES>, 2 launch_gemm_map<MAP_OUT>
 // (pix [map_hw] the row → pixel table), 3 launch_gemm_splitk_x (A as Aᵀ
@@ -1094,6 +1440,29 @@ extern "C" int vtx_gemm_tc(const float* A, int lda, const float* B, long long sb
     case 3:
       return static_cast<int>(launch_gemm_splitk_x(A, lda, B, sbk, sbn, part, splits, out,
                                                    som, son, M, N, K, x, s));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The bf16 form alone (chip_smoke.py phase 3bf, the card's tests): form 0
+// launch_gemm_bf16 (out bf16, or f32 with out_f32), 3 launch_gemm_splitk_bf16
+// (A as Aᵀ storage with leading dimension lda, part [splits, M, N], out f32
+// through (som, son)).
+extern "C" int vtx_gemm_tc_bf16(const bf16* A, int lda, const bf16* B, long long sbk,
+                                long long sbn, const bf16* bias, const float* rs, int rs_rows,
+                                const bf16* res, void* out, int out_f32, int form, float* part,
+                                int splits, long long som, long long son, int M, int N, int K,
+                                int silu, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (form) {
+    case 0:
+      return static_cast<int>(launch_gemm_bf16(A, B, sbk, sbn, bias, rs, rs_rows, res, out,
+                                               out_f32, M, N, K, silu, s));
+    case 3:
+      if (bias || rs || res || silu || out_f32) break;
+      return static_cast<int>(launch_gemm_splitk_bf16(A, lda, B, sbk, sbn, part, splits,
+                                                      static_cast<float*>(out), som, son, M,
+                                                      N, K, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

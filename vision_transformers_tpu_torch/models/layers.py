@@ -12,7 +12,7 @@ import torch
 from torch import nn
 
 __all__ = ["layer_norm", "LayerNorm", "FeedForward", "dropout", "drop_path_scale",
-           "patchify", "scaled", "pair"]
+           "patchify", "scaled", "pair", "dense"]
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -25,6 +25,17 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     var = (xf * xf).mean(-1, keepdim=True) - mu * mu
     mul = torch.rsqrt(var + eps) * weight.float()
     return ((xf - mu) * mul + bias.float()).to(x.dtype)
+
+
+def dense(x: torch.Tensor, linear: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """``linear`` applied in the compute dtype as the JAX package's
+    ``dense_apply`` (models/layers.py:121-131): x and the weight cast to
+    ``dtype``, the product accumulated in f32 and rounded to ``dtype``, then
+    the bias, cast to ``dtype``, added there.  In f32 the Linear itself."""
+    if dtype == torch.float32 and x.dtype == torch.float32:
+        return linear(x)
+    y = torch.matmul(x.to(dtype), linear.weight.to(dtype).t())
+    return y if linear.bias is None else y + linear.bias.to(dtype)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -56,19 +67,22 @@ class FeedForward(nn.Sequential):
     models/layer.py:186-196), keyed ``0`` / ``3`` as the reference's
     Sequential is; in training the dropout between the activation and the
     second Linear draws its mask from the caller's generator
-    (:func:`dropout`)."""
+    (:func:`dropout`).  ``dtype``: the compute dtype of both Linears
+    (:func:`dense`); the parameters stay f32."""
 
-    def __init__(self, in_dim: int, dim: int, dropout: float = 0.0):
+    def __init__(self, in_dim: int, dim: int, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__(nn.Linear(in_dim, dim), nn.SiLU(), nn.Identity(),
                          nn.Linear(dim, in_dim))
         self.rate = dropout
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        h = self[1](self[0](x))
+        h = self[1](dense(x, self[0], self.dtype))
         if self.training:
             h = dropout(h, self.rate, generator)
-        return self[3](h)
+        return dense(h, self[3], self.dtype)
 
 
 def drop_path_scale(b: int, rate: float, generator: torch.Generator | None,

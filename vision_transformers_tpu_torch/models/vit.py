@@ -37,7 +37,18 @@ DropPath keeps one draw per crop as token-level scales [b/p, p·seq], applied
 outside the kernel (``x + rs ⊙ (out − x)``; the FF half in plain torch).
 ``VTX_PACK_MODEL=0`` turns the packing off, as in the JAX package.  The
 pos-embed resize to another grid is the JAX package's torch-bicubic matrix
-(vit.py:41-66), applied as two einsums.  :class:`DINOModel` is the trunk with
+(vit.py:41-66), applied as two einsums.
+
+``dtype`` (:meth:`ViTConfig.make`, the JAX model's ``dtype``, vit.py:664) is
+the compute dtype: bf16 is the JAX package's default precision.  The
+parameters stay f32 and are cast at each use, as the JAX modules cast them
+(vit.py:106-108, :253-257): the patch embedding's conv in ``dtype`` with its
+bias added after (vit.py:322), the cls token and pos-embed cast, the
+layers' weights and biases cast before the kernels take them (their
+LayerNorm parameters stay f32), every dense in ``dtype``
+(:func:`layers.dense`), the final LayerNorm with f32 statistics and a
+``dtype`` output, and the head in f32 on the features promoted to f32
+(vit.py:450).  Gradients come back to the f32 parameters through the casts.  :class:`DINOModel` is the trunk with
 :class:`DINOHead` as its head (vit.py:575-637), in the reference state_dict
 layout.  scan_layers and remat are not ported.
 """
@@ -58,7 +69,7 @@ from torch import nn
 from .. import ops
 from ..config.registry import TypedConfig, register
 from . import layers
-from .layers import FeedForward, LayerNorm, drop_path_scale, pair, scaled
+from .layers import FeedForward, LayerNorm, dense, drop_path_scale, pair, scaled
 
 __all__ = ["MultiHeadedAttention", "TransformerLayer", "PatchEmbedding",
            "VisionTransformer", "ViTConfig", "DINOHead", "DINOModel", "DINOConfig",
@@ -115,12 +126,15 @@ def pack_mask(pack: int, seq: int, device) -> torch.Tensor:
 
 class MultiHeadedAttention(nn.Module):
     """Fused-qkv MHSA (reference: models/vit.py:16-45); ``dropout`` is the
-    attention-probability rate (the conf's ``drop_attn``)."""
+    attention-probability rate (the conf's ``drop_attn``), ``dtype`` the
+    compute dtype."""
 
-    def __init__(self, dim: int, n_head: int, dropout: float = 0.0):
+    def __init__(self, dim: int, n_head: int, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_head = n_head
         self.dropout = dropout
+        self.dtype = dtype
         self.qkv = nn.Linear(dim, dim * 3)
         self.linear = nn.Linear(dim, dim)
 
@@ -135,13 +149,15 @@ class MultiHeadedAttention(nn.Module):
         packed crops, added to the scores."""
         b, n, dim = x.shape
         d = dim // self.n_head
+        dt = self.dtype
         if impl == "block":
-            return ops.fused_attention_block(x, self.qkv.weight.t(), self.qkv.bias,
-                                             self.linear.weight.t(), self.linear.bias,
-                                             self.n_head, extra)
-        qkv = self.qkv(x)
+            return ops.fused_attention_block(x, self.qkv.weight.t().to(dt),
+                                             self.qkv.bias.to(dt),
+                                             self.linear.weight.t().to(dt),
+                                             self.linear.bias.to(dt), self.n_head, extra)
+        qkv = dense(x, self.qkv, dt)
         if impl == "fused":
-            return self.linear(ops.fused_attention_qkv(qkv, self.n_head, extra))
+            return dense(ops.fused_attention_qkv(qkv, self.n_head, extra), self.linear, dt)
         q, k, v = qkv.reshape(b, n, 3, self.n_head, d).unbind(2)
         attn = (torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(d))).float()
         if extra is not None:
@@ -150,20 +166,27 @@ class MultiHeadedAttention(nn.Module):
         if self.training:
             attn = layers.dropout(attn, self.dropout, generator)
         out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, n, dim)
-        return self.linear(out)
+        return dense(out, self.linear, dt)
+
+
+def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
+    return None if t is None else t.to(dtype)
 
 
 class TransformerLayer(nn.Module):
-    """Pre-LN block (reference: models/vit.py:48-66)."""
+    """Pre-LN block (reference: models/vit.py:48-66); ``dtype`` the compute
+    dtype."""
 
     def __init__(self, dim: int, n_head: int, dim_ff: int, dropout: float = 0.0,
-                 drop_attn: float = 0.0, drop_ff: float = 0.0):
+                 drop_attn: float = 0.0, drop_ff: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.norm_attn = LayerNorm(dim, eps=_LN_EPS)
-        self.attn = MultiHeadedAttention(dim, n_head, dropout=drop_attn)
+        self.attn = MultiHeadedAttention(dim, n_head, dropout=drop_attn, dtype=dtype)
         self.norm_ff = LayerNorm(dim, eps=_LN_EPS)
-        self.ff = FeedForward(dim, dim_ff, dropout=drop_ff)
+        self.ff = FeedForward(dim, dim_ff, dropout=drop_ff, dtype=dtype)
         self.dropout = dropout
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor, rs=None,
                 generator: torch.Generator | None = None,
@@ -181,10 +204,13 @@ class TransformerLayer(nn.Module):
         impl = ops.attention_impl(
             b, seq=n, default="layer" if n >= 128 or extra is not None else "einsum")
         dropping = self.training and (self.dropout, attn.dropout, ff.rate) != (0, 0, 0)
-        attn_w = (na.weight, na.bias, attn.qkv.weight.t(), attn.qkv.bias,
-                  attn.linear.weight.t(), attn.linear.bias)
-        ff_w = (nf.weight, nf.bias, ff[0].weight.t(), ff[0].bias, ff[3].weight.t(),
-                ff[3].bias)
+        # the kernels' weights and biases in the compute dtype, the
+        # LayerNorms' parameters f32 (vit.py:185-188, :253-257)
+        dt = self.dtype
+        attn_w = (na.weight, na.bias, _cast(attn.qkv.weight.t(), dt), _cast(attn.qkv.bias, dt),
+                  _cast(attn.linear.weight.t(), dt), _cast(attn.linear.bias, dt))
+        ff_w = (nf.weight, nf.bias, _cast(ff[0].weight.t(), dt), _cast(ff[0].bias, dt),
+                _cast(ff[3].weight.t(), dt), _cast(ff[3].bias, dt))
         if impl == "layer1" and not dropping and per_sample:
             # the whole layer only with per-sample scales (vit.py:243-258)
             return ops.fused_transformer_layer(
@@ -215,14 +241,23 @@ class TransformerLayer(nn.Module):
 
 class PatchEmbedding(nn.Module):
     """Stride-p conv over p×p patches → [B, h·w, dim] tokens in (h, w)
-    row-major order (reference: models/vit.py:69-76)."""
+    row-major order (reference: models/vit.py:69-76); in a compute
+    ``dtype`` other than f32 the conv runs there and its bias, cast, is
+    added after (flax's ``nn.Conv(dtype=...)``, JAX vit.py:322)."""
 
-    def __init__(self, dim: int, patch_size: int):
+    def __init__(self, dim: int, patch_size: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.linear = nn.Conv2d(3, dim, patch_size, stride=patch_size)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.linear(x).flatten(2).transpose(1, 2)
+        conv, dt = self.linear, self.dtype
+        if dt == torch.float32:
+            y = conv(x)
+        else:
+            y = F.conv2d(x.to(dt), conv.weight.to(dt), None, conv.stride)
+            y = y + conv.bias.to(dt)[:, None, None]
+        return y.flatten(2).transpose(1, 2)
 
 
 class VisionTransformer(nn.Module):
@@ -233,15 +268,17 @@ class VisionTransformer(nn.Module):
     def __init__(self, image_size, patch_size: int, depth: int, dim: int,
                  n_head: int, dim_ff: int, dropout: float = 0.0,
                  drop_attn: float = 0.0, drop_ff: float = 0.0,
-                 drop_path: float = 0.0, n_class: Optional[int] = 1000):
+                 drop_path: float = 0.0, n_class: Optional[int] = 1000,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         h, w = pair(image_size)
         n_patch = (h // patch_size) * (w // patch_size)
-        self.patch_embedding = PatchEmbedding(dim, patch_size)
+        self.dtype = dtype  # the compute dtype; the parameters stay f32
+        self.patch_embedding = PatchEmbedding(dim, patch_size, dtype)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, n_patch + 1, dim))
         self.layers = nn.ModuleList(
-            TransformerLayer(dim, n_head, dim_ff, dropout, drop_attn, drop_ff)
+            TransformerLayer(dim, n_head, dim_ff, dropout, drop_attn, drop_ff, dtype)
             for _ in range(depth))
         self.norm = LayerNorm(dim, eps=_LN_EPS)
         # n_class None: the features (the DINO trunk, vit.py:403)
@@ -359,7 +396,9 @@ class ViTConfig(TypedConfig):
     remat: bool = False
     scan_layers: bool = False
 
-    def make(self) -> VisionTransformer:
+    def make(self, dtype: torch.dtype = torch.float32) -> VisionTransformer:
+        """The model in compute ``dtype`` (the JAX ``make(dtype=...)``,
+        vit.py:664; the trainer passes the conf's precision)."""
         if self.remat or self.scan_layers:
             raise NotImplementedError(
                 "arch.remat / arch.scan_layers are not ported")
@@ -368,7 +407,7 @@ class ViTConfig(TypedConfig):
             depth=self.depth, dim=self.dim, n_head=self.n_head,
             dim_ff=self.dim_ff, dropout=self.dropout, drop_attn=self.drop_attn,
             drop_ff=self.drop_ff, drop_path=self.drop_path,
-            n_class=self.n_class)
+            n_class=self.n_class, dtype=dtype)
 
 
 class WeightNormLinear(nn.Module):

@@ -317,7 +317,30 @@ _SIGNATURES = {
         _P, _I, _P, _P,          # hid (nullable), its act, row partials, column partials
         _P,                      # stream
     ],
+    "vtx_gemm_tc_bf16": [
+        _P, _I, _P, _L, _L,      # A, lda (split-K), B, its (k, n) strides (bf16)
+        _P, _P, _I, _P,          # bias (bf16), row scale (f32), rows per scale, res
+        _P, _I, _I,              # out (bf16, or f32 with out_f32 / split-K), out_f32, form
+        _P, _I, _L, _L,          # split-K slabs (workspace), their count, out strides
+        _I, _I, _I, _I,          # M, N, K, silu
+        _P,                      # stream
+    ],
+    "vtx_packed_attention_fwd_bf16": [
+        _P, _P, _P,              # qkv, out, lse (nullable)
+        _I, _I, _I, _I,          # B, N, H, D
+        _F, _P,                  # scale, stream
+    ],
+    "vtx_packed_attention_bwd_bf16": [
+        _P, _P, _P, _P,          # qkv, out, lse, dout
+        _P, _P,                  # dq partials (workspace), dqkv
+        _I, _I, _I, _I,          # B, N, H, D
+        _F, _P,                  # scale, stream
+    ],
 }
+# the bf16 forms of B1 and B2 (bias-free): the f32 entries' parameter lists
+for _name in ("vtx_fused_attention_layer_fwd", "vtx_fused_attention_layer_bwd",
+              "vtx_fused_transformer_layer_fwd"):
+    _SIGNATURES[_name + "_bf16"] = _SIGNATURES[_name]
 
 
 def find_nvcc() -> str:

@@ -27,8 +27,8 @@ dots f32-accumulated, softmax f32) and the backward
 :func:`fused_attention_layer_bwd_reference`.  A CUDA tensor runs the
 hand-written kernels in ``csrc/fused_layer.cu`` (forward) and
 ``csrc/fused_layer_bwd.cu`` (backward) or raises; it never falls back to
-the plain versions.  The kernels take float32 and heads up to ``MAX_DIM_HEAD``
-wide.  A bias call over windows of up to ``MAX_BIAS_TOKENS`` tokens with
+the plain versions.  The kernels take float32, or bfloat16 (below), and
+heads up to ``MAX_DIM_HEAD`` wide.  A bias call over windows of up to ``MAX_BIAS_TOKENS`` tokens with
 heads up to ``MAX_BIAS_DIM_HEAD`` wide (Twins' and Swin's: 98 tokens, heads
 32 wide) runs on the tensor-core window attention
 (``csrc/window_attention_tc.cuh``, :func:`window_on_bias`); every other call
@@ -40,6 +40,20 @@ Anything else on a CUDA tensor raises NotImplementedError.  The weights may
 be any 2-D strided view: the model passes ``linear.weight.t()``, and the
 wrapper hands those strides to the kernels instead of copying the weights;
 their gradients come back in the view's shape and layout.
+
+bf16, the JAX package's default precision: with x bfloat16 the op computes
+at the JAX kernel's rounding points (fused_layer.py:116-166, 183-339): the
+activations, weights and biases bfloat16 (the model casts them at each use),
+the LN parameters and the row scale float32, every product accumulated in
+f32 and rounded once, the softmax and the LN statistics f32, the row scale
+rounded to bf16 before it scales.  The backward returns dx in bf16, the
+LN parameters' gradients and drs in f32, and the weights' and biases'
+gradients summed in f32 and rounded once to their bf16 dtype.  On the card
+the bias-free call runs the kernels' bf16 forms (``csrc/fused_layer.cu`` /
+``fused_layer_bwd.cu``'s ``_bf16`` entries, on the GEMM core's and the
+packed-row core's bf16 forms, heads a multiple of 8 wide); a bf16 call with
+the bias raises NotImplementedError (ROADMAP.md §A2).  The plain versions
+round where the kernels do.
 
 The FF residual branch has its own op here, as in the JAX module
 (fused_layer.py:701-971): :func:`fused_ff_layer`, ``x + row_scale ⊙
@@ -67,7 +81,9 @@ __all__ = ["fused_attention_layer", "fused_attention_layer_reference",
            "BWD_LAUNCHES", "BIAS_LAUNCHES", "BIAS_BWD_LAUNCHES", "fused_ff_layer",
            "fused_ff_layer_reference", "fused_ff_layer_fwd", "fused_ff_layer_bwd",
            "fused_ff_layer_fwd_reference", "fused_ff_layer_bwd_reference", "FFSaved",
-           "FF_GRAD_NAMES", "FF_LAUNCHES", "FF_BWD_LAUNCHES"]
+           "FF_GRAD_NAMES", "FF_LAUNCHES", "FF_BWD_LAUNCHES", "BF16_LAUNCHES",
+           "BF16_BWD_LAUNCHES", "BF16_TODO", "packed_attention_bf16",
+           "packed_attention_bf16_bwd", "packed_attention_reference"]
 
 # kernel launches through this module's wrappers, forward and backward
 # (chip_smoke.py reads them to show the main path went through the kernels),
@@ -76,6 +92,12 @@ LAUNCHES = 0
 BWD_LAUNCHES = 0
 BIAS_LAUNCHES = 0
 BIAS_BWD_LAUNCHES = 0
+# ... and of those the launches of the bf16 forms
+BF16_LAUNCHES = 0
+BF16_BWD_LAUNCHES = 0
+
+# where the bf16 forms still to write are queued
+BF16_TODO = "its bf16 form is not written yet (ROADMAP.md §A2, the bf16 queue)"
 
 # widest head the attention takes (csrc DMAX: the packed-row tensor-core
 # core, attention_tc.cuh, stages heads 32 or 64 floats wide)
@@ -111,6 +133,12 @@ def _ln(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float) -> torch.
 def _dot(a: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """[..., K] · [K, N], accumulated in f32, cast to the compute dtype."""
     return torch.matmul(a.float(), w.float()).to(dtype)
+
+
+def _rb(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """t (f32) as ``dtype`` would hold it, in f32: rounded where dtype is
+    bf16 (a step the backward's kernels round), t itself in f32."""
+    return t if dtype == torch.float32 else t.to(dtype).float()
 
 
 def _heads(t: torch.Tensor, n_head: int) -> torch.Tensor:
@@ -255,7 +283,7 @@ def fused_attention_layer_fwd_reference(x, ln_scale, ln_bias, wqkv, bqkv, wout,
     q, k, v = (_heads(qkv[..., i * HD:(i + 1) * HD], n_head) for i in range(3))
     s = _scores_bias(torch.einsum("bhnd,bhmd->bhnm", q, k) * scale, extra_g)
     lse = torch.logsumexp(s, dim=-1)
-    p = torch.softmax(s, dim=-1)
+    p = _rb(torch.softmax(s, dim=-1), x.dtype)
     acc = torch.einsum("bhnm,bhmd->bnhd", p, v).to(x.dtype).reshape(B, N, HD)
     a = _dot(acc, wout, x.dtype)
     if bout is not None:
@@ -270,12 +298,14 @@ def out_proj_bwd_reference(acc2, wout, bout, rs, dz2, rows_per_scale: int,
                            need_drs: bool = True):
     """Steps 1-2 of the attention half's plain backward, f32, given the
     branch input acc2 [M, HD] and dz2 [M, C] f32: → (dacc [M, HD] f32, dwout,
-    dbout, drs); ``rows_per_scale`` rows per sample of the row scale."""
-    f = torch.float32
+    dbout, drs); ``rows_per_scale`` rows per sample of the row scale.  With
+    acc2 bf16, da and dacc are rounded as the bf16 kernels round them."""
+    f, dt = torch.float32, acc2.dtype
     acc2 = acc2.to(f)
     rsr = None if rs is None else rs.to(f).repeat_interleave(rows_per_scale)[:, None]
-    # 1. da = r ⊙ dz; dwout = accᵀ·da; dbout = Σ_rows da
-    da = dz2 if rs is None else dz2 * rsr
+    # 1. da = r ⊙ dz (r rounded first, as the forward's); dwout = accᵀ·da;
+    # dbout = Σ_rows da
+    da = dz2 if rs is None else _rb(dz2 * _rb(rsr, dt), dt)
     dwout = acc2.t() @ da
     dbout = da.sum(0) if bout is not None else None
     # 2. dacc₀ = dz·woutᵀ; dr (reassociated); dacc = r ⊙ dacc₀
@@ -288,25 +318,26 @@ def out_proj_bwd_reference(acc2, wout, bout, rs, dz2, rows_per_scale: int,
                 per_row = per_row + dz2 @ bout.to(f)
             drs = per_row.reshape(-1, rows_per_scale).sum(1).to(rs.dtype)
         dacc = dacc * rsr
-    return dacc, cast_like(dwout, wout), cast_like(dbout, bout), drs
+    return _rb(dacc, dt), cast_like(dwout, wout), cast_like(dbout, bout), drs
 
 
 def qkv_proj_bwd_reference(x2, mu, rstd, g, b, wqkv, bqkv, dqkv, dz2):
     """Steps 4-6 of the attention half's plain backward, f32, given x2
     [M, C], its saved LN statistics, dqkv [M, 3HD] and the residual's
     cotangent dz2 [M, C]: → (dx [M, C] f32, dln_scale, dln_bias, dwqkv,
-    dbqkv)."""
-    f = torch.float32
+    dbqkv).  With x2 bf16, u and the LN's part of dx are rounded as the
+    bf16 kernels round them."""
+    f, dt = torch.float32, x2.dtype
     M = x2.shape[0]
     # 4. u from the saved statistics; dwqkv = uᵀ·dqkv; dbqkv = Σ_rows dqkv
     xhat = (x2.to(f) - mu.reshape(M, 1)) * rstd.reshape(M, 1)
-    u = xhat * g.to(f) + b.to(f)
+    u = _rb(xhat * g.to(f) + b.to(f), dt)
     dwqkv = u.t() @ dqkv
     dbqkv = dqkv.sum(0) if bqkv is not None else None
     # 5. dln = dqkv·wqkvᵀ
     dln = dqkv @ wqkv.to(f).t()
     # 6. LN backward (fused_layer.py:79-87)
-    dx, dg, db = ln_bwd_reference(dln, xhat, rstd.reshape(M, 1), g, dz2)
+    dx, dg, db = ln_bwd_reference(dln, xhat, rstd.reshape(M, 1), g, dz2, dt)
     return dx, cast_like(dg, g), cast_like(db, b), cast_like(dwqkv, wqkv), \
         cast_like(dbqkv, bqkv)
 
@@ -335,28 +366,38 @@ def attention_half_bwd_reference(saved: AttnSaved, dz2: torch.Tensor,
     delta = (do * o).sum(-1, keepdim=True)
     s = _scores_bias(torch.einsum("bhnd,bhmd->bhnm", q, k) * scale, extra_g)
     p = torch.exp(s - saved.lse[..., None].to(f))
-    dv = torch.einsum("bhnm,bhnd->bhmd", p, do)
+    # bf16: P and dS·scale rounded before their products, each of dq, dk, dv
+    # once after (the bf16 kernels' points, and the JAX kernel's)
+    dt = x.dtype
+    dv = torch.einsum("bhnm,bhnd->bhmd", _rb(p, dt), do)
     ds = p * (torch.einsum("bhnd,bhmd->bhnm", do, v) - delta)
     dextra_g = None
     if extra_g is not None and need_dextra:
         G = extra_g.shape[0]
         dextra_g = ds.reshape(G, B // G, H, N, N).sum(1)
-    dq = torch.einsum("bhnm,bhmd->bhnd", ds, k) * scale
-    dk = torch.einsum("bhnm,bhnd->bhmd", ds, q) * scale
-    dqkv = torch.cat([t.permute(0, 2, 1, 3).reshape(M, HD) for t in (dq, dk, dv)], -1)
+    if dt == f:
+        dq = torch.einsum("bhnm,bhmd->bhnd", ds, k) * scale
+        dk = torch.einsum("bhnm,bhnd->bhmd", ds, q) * scale
+    else:
+        dsb = _rb(ds * scale, dt)
+        dq = torch.einsum("bhnm,bhmd->bhnd", dsb, k)
+        dk = torch.einsum("bhnm,bhnd->bhmd", dsb, q)
+    dqkv = torch.cat([_rb(t.permute(0, 2, 1, 3).reshape(M, HD), dt) for t in (dq, dk, dv)],
+                     -1)
     # 4-6. the qkv projection and LN
     dx, dg, db, dwqkv, dbqkv = qkv_proj_bwd_reference(
         x.reshape(M, C), saved.mu, saved.rstd, g, b, wqkv, bqkv, dqkv, dz2)
     return dx, dg, db, dwqkv, dbqkv, dwout, dbout, drs, dextra_g
 
 
-def ln_bwd_reference(dln, xhat, rstd, g, dres):
+def ln_bwd_reference(dln, xhat, rstd, g, dres, dtype=torch.float32):
     """LayerNorm backward (fused_layer.py:79-87) plus the residual's
-    cotangent dres: (dx, dg, db), f32."""
+    cotangent dres: (dx, dg, db), f32; with ``dtype`` bf16 the LN's part and
+    dx rounded (the JAX kernel's dz + dx_ln.astype(bf16))."""
     dxhat = dln * g.float()
     m1 = dxhat.mean(-1, keepdim=True)
     m2 = (dxhat * xhat).mean(-1, keepdim=True)
-    dx = dres + rstd * (dxhat - m1 - xhat * m2)
+    dx = _rb(dres + _rb(rstd * (dxhat - m1 - xhat * m2), dtype), dtype)
     return dx, (dln * xhat).sum(0), dln.sum(0)
 
 
@@ -388,14 +429,42 @@ def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def check_f32(device: torch.device, **tensors: Optional[torch.Tensor]) -> None:
+    """Every tensor on ``device`` and float32; a bfloat16 one raises
+    NotImplementedError naming the queue of the bf16 forms still to write
+    (it is never cast and sent on)."""
+    check_dtype(device, torch.float32, **tensors)
+
+
+def check_dtype(device: torch.device, dtype: torch.dtype,
+                **tensors: Optional[torch.Tensor]) -> None:
     for name, t in tensors.items():
         if t is None:
             continue
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, x is on {device}")
-        if t.dtype != torch.float32:
+        if t.dtype != dtype:
+            todo = f"; {BF16_TODO}" if t.dtype == torch.bfloat16 else ""
             raise NotImplementedError(
-                f"the CUDA kernel takes float32; {name} is {t.dtype}")
+                f"the CUDA kernel takes {dtype}; {name} is {t.dtype}{todo}")
+
+
+def check_bf16_form(x: torch.Tensor, D: int, extra_g, params: dict, **acts) -> bool:
+    """Whether the call takes the kernels' bf16 form (x bfloat16): then
+    ``acts`` (the activations, weights, biases) bfloat16, ``params`` (the
+    LN parameters, row scales) float32, no bias, heads a multiple of 8
+    wide; else every tensor float32.  Raises NotImplementedError on what no
+    form takes."""
+    if x.dtype != torch.bfloat16:
+        check_f32(x.device, x=x, **acts, **params)
+        return False
+    check_dtype(x.device, torch.bfloat16, x=x, **acts)
+    check_dtype(x.device, torch.float32, **params)
+    if extra_g is not None:
+        raise NotImplementedError(f"the additive attention bias in bf16: {BF16_TODO}")
+    if D % 8:
+        raise NotImplementedError(
+            f"the bf16 kernels take heads a multiple of 8 wide; got {D}")
+    return True
 
 
 def check_vector(name: str, t: Optional[torch.Tensor], n: int) -> None:
@@ -462,11 +531,12 @@ def _cuda_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, n_head, extra_g, gro
               row_scale, scale, eps, save: bool):
     """The forward kernel: out, plus (qkv, acc, mu, rstd, lse) when ``save``;
     ``extra_g`` the grouped bias [G, H, N, N] (``groups`` = G) or None."""
-    global LAUNCHES, BIAS_LAUNCHES
-    check_f32(x.device, x=x, ln_scale=ln_scale, ln_bias=ln_bias, wqkv=wqkv,
-              bqkv=bqkv, wout=wout, bout=bout, extra=extra_g, row_scale=row_scale)
+    global LAUNCHES, BIAS_LAUNCHES, BF16_LAUNCHES
     B, N, C, H, D = check_attention_args(x, ln_scale, ln_bias, wqkv, bqkv,
                                          wout, bout, n_head)
+    bf16 = check_bf16_form(x, D, extra_g, dict(ln_scale=ln_scale, ln_bias=ln_bias,
+                                               row_scale=row_scale, extra=extra_g),
+                           wqkv=wqkv, bqkv=bqkv, wout=wout, bout=bout)
     check_extra(extra_g, H, N, D)
     check_vector("row_scale", row_scale, B)
     from ._build import build
@@ -474,17 +544,20 @@ def _cuda_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, n_head, extra_g, gro
     lib = build()
     M, HD = B * N, H * D
     opts = dict(device=x.device, dtype=torch.float32)
-    u = torch.empty((M, C), **opts)
-    qkv = torch.empty((B, N, 3 * HD), **opts)
-    acc = torch.empty((B, N, HD), **opts)
+    act = dict(device=x.device, dtype=x.dtype)  # the activations' workspace
+    u = torch.empty((M, C), **act)
+    qkv = torch.empty((B, N, 3 * HD), **act)
+    acc = torch.empty((B, N, HD), **act)
     mu, rstd, lse = ((torch.empty((B, N), **opts), torch.empty((B, N), **opts),
                       torch.empty((B, H, N), **opts)) if save else (None, None, None))
     out = torch.empty_like(x)
+    entry = lib.vtx_fused_attention_layer_fwd_bf16 if bf16 else lib.vtx_fused_attention_layer_fwd
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         LAUNCHES += 1
         BIAS_LAUNCHES += extra_g is not None
-        err = lib.vtx_fused_attention_layer_fwd(
+        BF16_LAUNCHES += bf16
+        err = entry(
             ptr(x), ptr(ln_scale), ptr(ln_bias),
             ptr(wqkv), wqkv.stride(0), wqkv.stride(1), ptr(bqkv),
             ptr(wout), wout.stride(0), wout.stride(1), ptr(bout),
@@ -496,8 +569,8 @@ def _cuda_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, n_head, extra_g, gro
 
 
 def like_layout(w: torch.Tensor) -> torch.Tensor:
-    """An empty gradient for weight view ``w``, in its layout when that is
-    dense (the [in, out] view of a torch [out, in] weight is), else
+    """An empty f32 gradient for weight view ``w``, in its layout when that
+    is dense (the [in, out] view of a torch [out, in] weight is), else
     contiguous."""
     if w.is_contiguous() or w.t().is_contiguous():
         return torch.empty_strided(w.shape, w.stride(), dtype=torch.float32,
@@ -548,13 +621,16 @@ def _splits(rows: int, cols: int, k: int) -> int:
                 min(counts, key=lambda s: (idle(s), s)))
 
 
-def dq_partials(n_keys: int, rows: int, width: int, opts) -> Optional[torch.Tensor]:
+def dq_partials(n_keys: int, rows: int, width: int, opts,
+                always: bool = False) -> Optional[torch.Tensor]:
     """The dq partials of csrc/attention_tc.cuh's backward (B1's and B2's
     attention off the window attention, B3, B6, B8): [ceil(n_keys / 64),
-    rows, width], one a 64-key tile, summed in key-tile order; None with one
-    key tile."""
+    rows, width] f32, one a 64-key tile, summed in key-tile order; None with
+    one key tile unless ``always`` (the bf16 form, whose dq always leaves
+    through them)."""
     key_tiles = -(-n_keys // 64)
-    return torch.empty((key_tiles, rows, width), **opts) if key_tiles > 1 else None
+    return torch.empty((key_tiles, rows, width), **opts) if key_tiles > 1 or always \
+        else None
 
 
 def attention_workspace(B: int, groups: int, H: int, N: int, D: int, has_bias: bool,
@@ -581,11 +657,10 @@ def rpart_floats(rows: int, F: int, B: int, rows_per_scale: int) -> int:
 def _cuda_bwd(saved: AttnSaved, dz: torch.Tensor, need_drs: bool, need_dextra: bool):
     """The backward kernel sequence: (dx, dg, db, dwqkv, dbqkv, dwout, dbout,
     drs, dextra_g)."""
-    global BWD_LAUNCHES, BIAS_BWD_LAUNCHES
+    global BWD_LAUNCHES, BIAS_BWD_LAUNCHES, BF16_BWD_LAUNCHES
     x, g, b, wqkv, bqkv, wout, bout, rs = saved[:8]
     extra_g = saved.extra_g
     dz = dz.contiguous()
-    check_f32(x.device, dz=dz, qkv=saved.qkv, acc=saved.acc, lse=saved.lse)
     if dz.shape != x.shape:
         raise ValueError(f"dz must be {tuple(x.shape)}, got {tuple(dz.shape)}")
     B, N, C = x.shape
@@ -593,19 +668,28 @@ def _cuda_bwd(saved: AttnSaved, dz: torch.Tensor, need_drs: bool, need_dextra: b
     HD = wqkv.shape[1] // 3
     D = HD // H
     M = B * N
+    bf16 = check_bf16_form(x, D, extra_g, dict(ln_scale=g, ln_bias=b, row_scale=rs,
+                                               extra=extra_g, mu=saved.mu,
+                                               rstd=saved.rstd, lse=saved.lse),
+                           wqkv=wqkv, bqkv=bqkv, wout=wout, bout=bout, dz=dz,
+                           qkv=saved.qkv, acc=saved.acc)
     from ._build import build
 
     lib = build()
     opts = dict(device=x.device, dtype=torch.float32)
+    act = dict(device=x.device, dtype=x.dtype)  # the activations' workspace
     s_out, s_qkv = _splits(HD, C, M), _splits(C, 3 * HD, M)
     chunks = -(-M // 128)  # csrc COLSUM_ROWS
     want_dextra = extra_g is not None and need_dextra
     groups = 1 if extra_g is None else extra_g.shape[0]
-    dq_part, dbpart = attention_workspace(B, groups, H, N, D, extra_g is not None,
-                                          want_dextra, opts)
+    if bf16:  # dq through f32 partials always (they first hold dacc₀)
+        dq_part, dbpart = dq_partials(N, M, HD, opts, always=True), None
+    else:
+        dq_part, dbpart = attention_workspace(B, groups, H, N, D, extra_g is not None,
+                                              want_dextra, opts)
     ws = dict(
-        dacc=torch.empty((M, HD), **opts), dq_part=dq_part,
-        dqkv=torch.empty((M, 3 * HD), **opts), dln=torch.empty((M, C), **opts),
+        dacc=torch.empty((M, HD), **act), dq_part=dq_part,
+        dqkv=torch.empty((M, 3 * HD), **act), dln=torch.empty((M, C), **opts),
         dbpart=dbpart,
         wpart=torch.empty((max(s_out * HD * C, s_qkv * C * 3 * HD),), **opts),
         cpart=torch.empty((chunks * max(C, 3 * HD),), **opts))
@@ -616,11 +700,18 @@ def _cuda_bwd(saved: AttnSaved, dz: torch.Tensor, need_drs: bool, need_dextra: b
     dbout = torch.empty((C,), **opts) if bout is not None else None
     drs = torch.empty((B,), **opts) if rs is not None and need_drs else None
     dextra = torch.empty_like(extra_g) if want_dextra else None
+    entry = lib.vtx_fused_attention_layer_bwd_bf16 if bf16 else lib.vtx_fused_attention_layer_bwd
+    if bf16:
+        # the data gradients read each weight along its other axis: a
+        # contiguous copy makes that axis K-contiguous, so the GEMM core's
+        # producer copies both operands (the model's views read it along N)
+        wqkv, wout = wqkv.contiguous(), wout.contiguous()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         BWD_LAUNCHES += 1
         BIAS_BWD_LAUNCHES += extra_g is not None
-        err = lib.vtx_fused_attention_layer_bwd(
+        BF16_BWD_LAUNCHES += bf16
+        err = entry(
             ptr(x), ptr(g), ptr(b),
             ptr(wqkv), wqkv.stride(0), wqkv.stride(1), ptr(bqkv),
             ptr(wout), wout.stride(0), wout.stride(1), ptr(bout),
@@ -634,7 +725,9 @@ def _cuda_bwd(saved: AttnSaved, dz: torch.Tensor, need_drs: bool, need_dextra: b
             ptr(dwout), dwout.stride(0), dwout.stride(1), ptr(dbout), ptr(drs),
             ptr(dextra), B, N, C, H, D, ctypes.c_float(saved.scale), stream)
     _raise_on(err, "fused_attention_layer backward")
-    return dx, dg, db, dwqkv, dbqkv, dwout, dbout, drs, dextra
+    # the weights' and biases' gradients, summed in f32, in their dtype
+    return (dx, dg, db, cast_like(dwqkv, wqkv), cast_like(dbqkv, bqkv),
+            cast_like(dwout, wout), cast_like(dbout, bout), drs, dextra)
 
 
 def fused_attention_layer_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
@@ -671,6 +764,89 @@ def fused_attention_layer_bwd(saved: AttnSaved, dz: torch.Tensor,
     raise NotImplementedError(f"no fused_attention_layer backward for {dz.device}")
 
 
+def packed_attention_reference(qkv, n_head: int, scale: Optional[float] = None):
+    """(out [B, N, H·D], lse [B, H, N]) of the bias-free attention on packed
+    qkv [B, N, 3·H·D] in plain torch, f32 scores and softmax, the normalised
+    p rounded to qkv's dtype before P·V and out rounded once (the JAX
+    kernel's points)."""
+    B, N, HD3 = qkv.shape
+    HD = HD3 // 3
+    scale = 1.0 / math.sqrt(HD // n_head) if scale is None else float(scale)
+    q, k, v = (_heads(qkv[..., i * HD:(i + 1) * HD], n_head) for i in range(3))
+    s = torch.einsum("bhnd,bhmd->bhnm", q, k) * scale
+    p = _rb(torch.softmax(s, dim=-1), qkv.dtype)
+    out = torch.einsum("bhnm,bhmd->bnhd", p, v).to(qkv.dtype).reshape(B, N, HD)
+    return out, torch.logsumexp(s, dim=-1)
+
+
+def _packed_checks(qkv, n_head):
+    if qkv.ndim != 3 or not qkv.is_contiguous() or qkv.shape[2] % (3 * n_head):
+        raise ValueError(f"qkv must be a contiguous [B, N, 3·H·D], got {tuple(qkv.shape)}")
+    B, N, HD3 = qkv.shape
+    D = HD3 // 3 // n_head
+    check_dtype(qkv.device, torch.bfloat16, qkv=qkv)
+    if D > MAX_DIM_HEAD or D % 8:
+        raise NotImplementedError(f"the bf16 attention takes heads a multiple of 8 up to "
+                                  f"{MAX_DIM_HEAD} wide; got {D}")
+    return B, N, D
+
+
+def packed_attention_bf16(qkv, n_head: int, scale: Optional[float] = None,
+                          save: bool = True):
+    """The bf16 form of the packed-row core alone (B1's and B2's bias-free
+    attention; the thin door chip_smoke.py times beside
+    scaled_dot_product_attention): (out, lse or None) from bf16 qkv on the
+    card (a CPU tensor: :func:`packed_attention_reference`).  No model calls
+    it."""
+    if qkv.device.type == "cpu":
+        out, lse = packed_attention_reference(qkv, n_head, scale)
+        return out, lse if save else None
+    B, N, D = _packed_checks(qkv, n_head)
+    scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
+    from ._build import build
+
+    lib = build()
+    out = torch.empty((B, N, n_head * D), device=qkv.device, dtype=qkv.dtype)
+    lse = torch.empty((B, n_head, N), device=qkv.device) if save else None
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = lib.vtx_packed_attention_fwd_bf16(ptr(qkv), ptr(out), ptr(lse), B, N, n_head, D,
+                                                ctypes.c_float(scale), stream)
+    _raise_on(err, "packed attention (bf16)")
+    return out, lse
+
+
+def packed_attention_bf16_bwd(qkv, out, lse, dout, n_head: int,
+                              scale: Optional[float] = None):
+    """Its backward: dqkv (bf16) from the forward's out and lse and dout (a
+    CPU tensor: the gradient of :func:`packed_attention_reference` in f32,
+    rounded once)."""
+    if qkv.device.type == "cpu":
+        q = qkv.float().requires_grad_()
+        with torch.enable_grad():
+            o, _ = packed_attention_reference(q, n_head, scale)
+            o.backward(dout.float())
+        return q.grad.to(qkv.dtype)
+    B, N, D = _packed_checks(qkv, n_head)
+    check_dtype(qkv.device, torch.bfloat16, out=out, dout=dout)
+    check_dtype(qkv.device, torch.float32, lse=lse)
+    scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
+    from ._build import build
+
+    lib = build()
+    dout = dout.contiguous()
+    dqkv = torch.empty_like(qkv)
+    dq_part = dq_partials(N, B * N, n_head * D, dict(device=qkv.device, dtype=torch.float32),
+                          always=True)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = lib.vtx_packed_attention_bwd_bf16(ptr(qkv), ptr(out), ptr(lse), ptr(dout),
+                                                ptr(dq_part), ptr(dqkv), B, N, n_head, D,
+                                                ctypes.c_float(scale), stream)
+    _raise_on(err, "packed attention backward (bf16)")
+    return dqkv
+
+
 class _FusedAttentionLayer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, extra, row_scale,
@@ -688,6 +864,8 @@ class _FusedAttentionLayer(torch.autograd.Function):
         saved = AttnSaved(*ctx.saved_tensors, *ctx.attrs)
         need = ctx.needs_input_grad
         *grads, dextra = fused_attention_layer_bwd(saved, dz, need[8], need[7])
+        # each gradient in its input's dtype
+        grads = [cast_like(d, t) for d, t in zip(grads, saved[:8])]
         return (*grads[:7], extra_grad(dextra, ctx.extra), grads[7], None, None, None)
 
 

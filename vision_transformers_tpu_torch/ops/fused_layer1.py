@@ -32,7 +32,13 @@ hand-written kernels in ``csrc/fused_layer.cu`` (forward) and
 ``csrc/fused_layer1_bwd.cu`` (backward) or raises; it never falls back to
 the plain versions.  The kernels take float32, ``activation="silu"`` and
 the bias only with heads up to 32 wide (Swin's are 32); anything else on a
-CUDA tensor raises NotImplementedError.  Weights may be
+CUDA tensor raises NotImplementedError.  With x bfloat16 (the JAX package's
+default precision: weights and biases bfloat16, LN parameters and row
+scales float32) the serving forward without a bias runs the kernels' bf16
+form (``csrc/fused_layer.cu``'s ``vtx_fused_transformer_layer_fwd_bf16``,
+the JAX kernel's rounding points, fused_layer1.py:91-171: ViT's eval
+step); the bf16 training forward, the backward and the bias raise
+NotImplementedError (ROADMAP.md §A2).  Weights may be
 any 2-D strided view (the model passes ``linear.weight.t()``; its strides
 go to the kernels, nothing is copied, and their gradients come back in the
 view's layout).
@@ -45,10 +51,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .fused_layer import (AttnSaved, _act, _default_scale, _dot, _ln,
+from .fused_layer import (AttnSaved, BF16_TODO, _act, _default_scale, _dot, _ln,
                           _raise_on, _residual, _splits, bias_partials,
                           attention_branch_reference, attention_half_bwd_reference,
-                          check_attention_args, check_extra, check_f32,
+                          check_attention_args, check_bf16_form, check_extra, check_f32,
                           check_matrix, check_vector, dq_partials, extra_grad, extra_groups,
                           ff_half_bwd_reference, ff_half_fwd_reference,
                           fused_attention_layer_fwd_reference, like_layout, ptr)
@@ -63,6 +69,8 @@ __all__ = ["fused_transformer_layer", "fused_transformer_layer_reference",
 # (chip_smoke.py reads them to show the main path went through the kernels)
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+# ... and of the forward's, the launches of its bf16 form
+BF16_LAUNCHES = 0
 
 GRAD_NAMES = ("dx", "dln1_scale", "dln1_bias", "dwqkv", "dbqkv", "dwout", "dbout",
               "dln2_scale", "dln2_bias", "dw1", "db1", "dw2", "db2", "dextra",
@@ -191,17 +199,23 @@ def fused_transformer_layer_bwd_reference(saved: L1Saved, do: torch.Tensor,
 
 
 def _check(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout, ln2_scale, ln2_bias,
-           w1, b1, w2, b2, n_head, extra_g, rs_attn, rs_ff, activation):
-    """Shape/type checks of the CUDA ops; returns (B, N, C, H, D, F)."""
+           w1, b1, w2, b2, n_head, extra_g, rs_attn, rs_ff, activation, save=True):
+    """Shape/type checks of the CUDA ops; returns (B, N, C, H, D, F, bf16)
+    with bf16 whether the call takes the forward's bf16 form (serving
+    only: a bf16 ``save`` raises)."""
     if activation != "silu":
         raise NotImplementedError(
             f"the CUDA kernel takes activation='silu', got {activation!r}")
-    check_f32(x.device, x=x, ln1_scale=ln1_scale, ln1_bias=ln1_bias, wqkv=wqkv,
-              bqkv=bqkv, wout=wout, bout=bout, ln2_scale=ln2_scale,
-              ln2_bias=ln2_bias, w1=w1, b1=b1, w2=w2, b2=b2, extra=extra_g,
-              rs_attn=rs_attn, rs_ff=rs_ff)
     B, N, C, H, D = check_attention_args(x, ln1_scale, ln1_bias, wqkv, bqkv,
                                          wout, bout, n_head)
+    bf16 = check_bf16_form(
+        x, D, extra_g, dict(ln1_scale=ln1_scale, ln1_bias=ln1_bias, ln2_scale=ln2_scale,
+                            ln2_bias=ln2_bias, extra=extra_g, rs_attn=rs_attn,
+                            rs_ff=rs_ff),
+        wqkv=wqkv, bqkv=bqkv, wout=wout, bout=bout, w1=w1, b1=b1, w2=w2, b2=b2)
+    if bf16 and save:
+        raise NotImplementedError(
+            f"the whole layer's bf16 training forward and backward: {BF16_TODO}")
     check_extra(extra_g, H, N, D, window_only=True)
     if w1.ndim != 2:
         raise ValueError(f"w1 must be [C, F], got {tuple(w1.shape)}")
@@ -214,7 +228,7 @@ def _check(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout, ln2_scale, ln2_bias,
     check_vector("b2", b2, C)
     check_vector("rs_attn", rs_attn, B)
     check_vector("rs_ff", rs_ff, B)
-    return B, N, C, H, D, Fdim
+    return B, N, C, H, D, Fdim, bf16
 
 
 def _cuda_fwd(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout, ln2_scale,
@@ -222,29 +236,33 @@ def _cuda_fwd(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout, ln2_scale,
               activation, scale, eps, save: bool):
     """The forward kernel: out, plus (qkv, acc, z, hid, mu1, rstd1, lse, mu2,
     rstd2) when ``save``."""
-    global LAUNCHES
-    B, N, C, H, D, Fdim = _check(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout,
-                                 ln2_scale, ln2_bias, w1, b1, w2, b2, n_head,
-                                 extra_g, rs_attn, rs_ff, activation)
+    global LAUNCHES, BF16_LAUNCHES
+    B, N, C, H, D, Fdim, bf16 = _check(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout,
+                                       ln2_scale, ln2_bias, w1, b1, w2, b2, n_head,
+                                       extra_g, rs_attn, rs_ff, activation, save)
     from ._build import build
 
     lib = build()
     M, HD = B * N, H * D
     opts = dict(device=x.device, dtype=torch.float32)
-    u = torch.empty((M, C), **opts)
-    qkv = torch.empty((B, N, 3 * HD), **opts)
-    acc = torch.empty((B, N, HD), **opts)
-    z = torch.empty((B, N, C), **opts)
-    hid = torch.empty((B, N, Fdim), **opts)
+    act = dict(device=x.device, dtype=x.dtype)  # the activations' workspace
+    u = torch.empty((M, C), **act)
+    qkv = torch.empty((B, N, 3 * HD), **act)
+    acc = torch.empty((B, N, HD), **act)
+    z = torch.empty((B, N, C), **act)
+    hid = torch.empty((B, N, Fdim), **act)
     af = torch.empty((M, Fdim), **opts) if save else None
     stats = [torch.empty((B, N), **opts) for _ in range(2)] + \
         [torch.empty((B, H, N), **opts)] + \
         [torch.empty((B, N), **opts) for _ in range(2)] if save else [None] * 5
     out = torch.empty_like(x)
+    entry = lib.vtx_fused_transformer_layer_fwd_bf16 if bf16 \
+        else lib.vtx_fused_transformer_layer_fwd
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         LAUNCHES += 1
-        err = lib.vtx_fused_transformer_layer_fwd(
+        BF16_LAUNCHES += bf16
+        err = entry(
             ptr(x), ptr(ln1_scale), ptr(ln1_bias),
             ptr(wqkv), wqkv.stride(0), wqkv.stride(1), ptr(bqkv),
             ptr(wout), wout.stride(0), wout.stride(1), ptr(bout),

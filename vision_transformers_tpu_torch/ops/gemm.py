@@ -46,16 +46,26 @@ A call takes A's LayerNorm, or act on A (with B's row scale where given),
 or B's row scale alone, or the epilogue's options.  With either partial
 asked for, :func:`gemm` returns (out, rpart, cpart): rpart [M, ceil(N /
 64)], cpart [ceil(M / 16), N] (None where not asked).
+
+The core's bf16 form, :func:`gemm_bf16` (the projections of B1 and B2 at
+the JAX package's default precision): a, b, bias and res bfloat16, rs f32,
+f32 sums; the row form rounds where the JAX kernels round,
+``round(round(round(a·b) + bias)·round(rs)) + res`` rounded (silu after the
+bias, rounded), or with ``out_f32`` returns the f32 sums; the split-K form
+returns the f32 sum of its slabs.  Neither takes the passes' options.
+:func:`gemm_bf16_reference` is its plain version.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .fused_layer import _act, _act_grad, _raise_on, check_f32, check_matrix, check_vector, ptr
+from .fused_layer import (_act, _act_grad, _raise_on, _rb, check_dtype, check_f32, check_matrix,
+                          check_vector, ptr)
 
 __all__ = ["gemm", "gemm_reference", "map_rows_of", "stage_a", "epilogue_partials",
-           "drs_sums", "FORMS", "ACTS", "GEMM_LAUNCHES", "RPART_COLS", "CPART_ROWS"]
+           "drs_sums", "FORMS", "ACTS", "GEMM_LAUNCHES", "RPART_COLS", "CPART_ROWS",
+           "gemm_bf16", "gemm_bf16_reference"]
 
 # kernel launches through :func:`gemm` (only chip_smoke.py's phase 3m and the
 # card's tests call it; the ops' own launches of the core are theirs)
@@ -271,4 +281,71 @@ def _cuda_gemm(a, b, bias, silu, rs, rs_rows, res, pix, form, splits, ln=None, a
     _raise_on(err, "gemm")
     if row_partials or col_partials:
         return out, rpart, cpart
+    return out
+
+
+def gemm_bf16_reference(a, b, bias=None, silu=False, rs=None, rs_rows=1, res=None,
+                        form="rows", out_f32=False):
+    """Plain version of :func:`gemm_bf16` (``"splitk"``: ``a`` the [K, M]
+    storage of the left operand's transpose): f32 products of the bf16
+    values, the JAX kernels' rounding points after."""
+    bf = torch.bfloat16
+    lhs = (a.t() if form == "splitk" else a).float()
+    out = lhs @ b.float()
+    if form == "splitk" or out_f32:
+        return out
+    out = _rb(out, bf)
+    if bias is not None:
+        out = _rb(out + bias.float(), bf)
+    if silu:
+        out = _rb(out * torch.sigmoid(out), bf)
+    if rs is not None:
+        out = _rb(_scale_rows(out, _rb(rs.float(), bf), rs_rows), bf)
+    if res is not None:
+        out = out + res.float()
+    return out.to(bf)
+
+
+def gemm_bf16(a, b, bias=None, silu=False, rs=None, rs_rows=1, res=None, form="rows",
+              splits=1, out_f32=False):
+    """The GEMM core's bf16 form; see the module.  A CPU tensor runs
+    :func:`gemm_bf16_reference`."""
+    if form not in ("rows", "splitk"):
+        raise ValueError(f"the bf16 form takes form 'rows' or 'splitk', got {form!r}")
+    if not a.is_cuda:
+        if a.device.type != "cpu":
+            raise NotImplementedError(f"no gemm for device {a.device}")
+        return gemm_bf16_reference(a, b, bias, silu, rs, rs_rows, res, form, out_f32)
+    global GEMM_LAUNCHES
+    check_dtype(a.device, torch.bfloat16, a=a, b=b, bias=bias, res=res)
+    check_dtype(a.device, torch.float32, rs=rs)
+    if a.ndim != 2 or not a.is_contiguous() or b.ndim != 2:
+        raise ValueError(f"a must be a contiguous 2-D tensor and b 2-D, got "
+                         f"{tuple(a.shape)} strides {a.stride()}, {tuple(b.shape)}")
+    K, M = a.shape if form == "splitk" else a.shape[::-1]
+    N = b.shape[1]
+    check_matrix("b", b, K, N)
+    splitk = form == "splitk"
+    if splitk and (any(t is not None for t in (bias, rs, res)) or silu or out_f32):
+        raise ValueError("the split-K form takes no epilogue")
+    if not splitk:
+        check_vector("bias", bias, N)
+        if out_f32 and (any(t is not None for t in (bias, rs, res)) or silu):
+            raise ValueError("out_f32 takes no epilogue")
+        if res is not None and (tuple(res.shape) != (M, N) or not res.is_contiguous()):
+            raise ValueError(f"res must be a contiguous [{M}, {N}], got {tuple(res.shape)}")
+    from ._build import build
+
+    lib = build()
+    f32 = splitk or out_f32
+    out = torch.empty((M, N), device=a.device, dtype=torch.float32 if f32 else torch.bfloat16)
+    part = torch.empty((splits * M * N,), device=a.device) if splitk else None
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        GEMM_LAUNCHES += 1
+        err = lib.vtx_gemm_tc_bf16(
+            ptr(a), M if splitk else K, ptr(b), b.stride(0), b.stride(1), ptr(bias), ptr(rs),
+            rs_rows, ptr(res), ptr(out), int(out_f32), FORMS[form], ptr(part), splits, N, 1,
+            M, N, K, int(silu), stream)
+    _raise_on(err, "gemm_bf16")
     return out

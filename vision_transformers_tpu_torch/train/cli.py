@@ -4,7 +4,10 @@ Same command line as the JAX package's ``train.py`` (reference
 train.py:389-396), plus ``--device`` (default ``cuda``):
 
     python -m vision_transformers_tpu_torch.train --conf configs/vit-s-16.conf \\
-        precision=f32 [--device cuda] [key=value ...]
+        [--device cuda] [key=value ...]
+
+The conf's ``precision`` (bf16 by default, as in the JAX schema) sets the
+compute dtype; ViT computes in bf16, the other models need ``precision=f32``.
 
 ``--n_gpu`` is accepted as an alias of ``--n_device``; only one device is
 ported.  Asked for CUDA where there is none, it raises; it never moves to
@@ -36,6 +39,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
     # f32 training stays full precision: no TF32 in the conv or the matmuls
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # bf16 products reduce in f32, as XLA's do (cuBLAS may otherwise sum
+    # partial products in bf16)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     conf = load_config(args.conf, args.overrides)
     if args.n_device:
         conf.n_device = args.n_device

@@ -90,7 +90,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     totals = None
     for i in range(grad_accumulation):
         part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-        logits = model(part["image"], generator=generator)
+        logits = model(part["image"], generator=generator).float()  # the loss in f32
         loss = L.mix_loss(logits, part["label1"], part["label2"], part["ratio"],
                           eps=label_smoothing)
         loss.backward()
@@ -129,7 +129,7 @@ def eval_step(model: torch.nn.Module, batch: Dict[str, torch.Tensor]) -> Dict[st
     'layer' sites take the whole-layer kernel, JAX engine.py:250-255)."""
     model.eval()
     with ops.forward_only():
-        logits = model(batch["image"])
+        logits = model(batch["image"]).float()
     losses = L.cross_entropy_loss(logits, batch["label1"], reduction="none")
     ranks = torch.topk(logits, 5, dim=-1).indices
     hit = ranks == batch["label1"][:, None]

@@ -7,11 +7,16 @@ Each epoch: the train loop, the valid loop (the EMA model when ``ema > 0``),
 synthetic backend, as the JAX trainer's (trainer.py:85-102): ``data_backend``
 ``synthetic``, or ``auto`` without ``<dataset_path>/train.rec``.
 
-Not ported yet (each raises NotImplementedError, see ROADMAP): ``precision``
-other than ``f32`` (bf16 arrives with the evaluate slice), ``fp16``, the
-records loader and its augmentation, progressive resizing
-(``progressive.step > 0``), ``resume``, ``profile_dir`` and more than one
-device.
+The compute dtype follows the conf as in the JAX trainer
+(trainer.py:58-61): ``precision=bf16`` (the schema's default) or ``fp16``
+computes in bf16, ``precision=f32`` in f32; the parameters, the optimizer,
+the EMA and the checkpoints stay f32 either way.  bf16 is ported for arch
+type ``vit``; any other arch type at bf16 raises NotImplementedError
+(ROADMAP.md §A2's bf16 queue) and runs with ``precision=f32``.
+
+Not ported yet (each raises NotImplementedError, see ROADMAP): the records
+loader and its augmentation, progressive resizing (``progressive.step >
+0``), ``resume``, ``profile_dir`` and more than one device.
 """
 
 from __future__ import annotations
@@ -32,17 +37,31 @@ from . import engine
 from .optim import make_optimizer
 from .schedule import make_schedule
 
-__all__ = ["train_classification", "check_supported", "to_device"]
+__all__ = ["train_classification", "check_supported", "to_device", "compute_dtype",
+           "BF16_ARCHS"]
+
+# the arch types whose models compute in bf16 on the card
+BF16_ARCHS = ("vit",)
+
+
+def compute_dtype(conf: ImageNetConfig) -> torch.dtype:
+    """The JAX trainer's ``_compute_dtype`` (trainer.py:58-61): bf16 for
+    ``precision=bf16`` or ``fp16``, else f32."""
+    return torch.bfloat16 if conf.precision == "bf16" or conf.fp16 else torch.float32
 
 
 def check_supported(conf: ImageNetConfig) -> None:
     """Raise NotImplementedError for what the port does not run yet."""
     todo = "is not ported yet (ROADMAP.md, queue A)"
-    if conf.precision != "f32" or conf.fp16:
+    if conf.precision not in ("f32", "bf16"):
         raise NotImplementedError(
-            f"precision={conf.precision!r} fp16={conf.fp16}: only precision=f32 "
-            f"is ported; bf16 arrives with the evaluate + bf16 slice "
-            f"(ROADMAP.md, queue A)")
+            f"precision={conf.precision!r}: the port computes in f32 or bf16")
+    if compute_dtype(conf) == torch.bfloat16 and conf.arch.type not in BF16_ARCHS:
+        raise NotImplementedError(
+            f"precision={conf.precision!r} fp16={conf.fp16} for arch type "
+            f"{conf.arch.type!r}: bf16 is ported for {', '.join(BF16_ARCHS)}; the other "
+            f"models' bf16 forms are ROADMAP.md §A2's bf16 queue (run them with "
+            f"precision=f32)")
     if conf.n_device > 1:
         raise NotImplementedError(f"n_device={conf.n_device}: multi-GPU {todo}")
     if conf.training.progressive.step > 0:
@@ -97,9 +116,10 @@ def train_classification(conf: ImageNetConfig, device: torch.device | str = "cud
         raise ValueError(f"batch_size {batch} must be divisible by "
                          f"grad_accumulation {accum}")
     checker = conf.checker.make()
-    logger.info(f"device: {device}; dtype: float32")
+    dtype = compute_dtype(conf)
+    logger.info(f"device: {device}; dtype: {str(dtype).replace('torch.', '')}")
 
-    model = conf.arch.make()
+    model = conf.arch.make(dtype=dtype) if dtype != torch.float32 else conf.arch.make()
     if conf.finetune:
         model.load_state_dict(load_checkpoint(conf.finetune), strict=True)
         logger.info(f"loaded pretrained weights from {conf.finetune}")
