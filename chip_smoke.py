@@ -157,8 +157,13 @@ non-zero and prints no ok line):
            form with each epilogue the paths use, its f32-out form, its
            split-K form with B's row scale) at odd shapes and ViT-S/16's
            products at 128 images (qkv, out projection, the eval's FF1 /
-           FF2, dln, the dW split-K sums), timed beside torch.matmul in bf16
-           with f32 reduction; B1 forward (saves, serving) and backward at
+           FF2, dln, the dW split-K sums), each call's route printed (TMA
+           or the register path: only operands off 16-byte rows), the
+           products timed on the device (a CUDA graph of 10 calls) beside
+           torch.matmul in bf16 with f32 reduction; the promotion check
+           (one accumulator over K and the sums promoted every 64 k against
+           an f64 product at ViT-S/16's K and the split-K slabs' depths,
+           within 1e-3·max(1, max|f64|)); B1 forward (saves, serving) and backward at
            two odd calls (N 17, 33, heads 32 wide) and the ViT-S/16
            trainer's (128 x 197, with and without per-sample row scales),
            B2's serving forward at the same shapes: forward within
@@ -439,7 +444,8 @@ def build():
     secs = time.perf_counter() - t0
     log(f"build: {secs:.2f} s")
     for line in _build.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if ("registers" in line or "spill" in line or "Compiling entry" in line
+                or "warning" in line):
             log(f"build: {line.strip()}")
     entries, spilling = spills(_build.BUILD_LOG)
     log(f"build: {len(spilling)} of {len(entries)} kernels spill (ptxas: spill stores or "
@@ -462,6 +468,37 @@ def spills(build_log):
         if m and entry and (int(m.group(1)) or int(m.group(2))):
             spilling.add(entry)
     return entries, spilling
+
+
+TMA_KERNEL_ARGS = ("BN", "TA", "TB", "F32OUT", "PROMO")
+
+
+def gemm_bf16_builds(build_log):
+    """Each kernel of the bf16 GEMM's TMA path (csrc/gemm_bf16_tma.cuh) that
+    ptxas compiled: its template arguments, registers and spill bytes, from
+    nvcc's ``-Xptxas -v`` report."""
+    out, cur = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = None
+            t = re.search(r"gemm_bf16_tma_kernelI((?:Li-?\d+E)+)E", m.group(1))
+            if t:
+                args = map(int, re.findall(r"Li(-?\d+)E", t.group(1)))
+                cur = {"kernel": "gemm_bf16_tma_kernel<" + ", ".join(
+                    f"{k}={v}" for k, v in zip(TMA_KERNEL_ARGS, args)) + ">"}
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            cur = None
+    return out
 
 
 def tensor_core_counts(_build, library):
@@ -1069,6 +1106,43 @@ def median_ms_queued(torch, fn, reps=20, inner=10, warmup=3):
     return median_ms(torch, many, reps, warmup) / inner
 
 
+_WARMUP_STREAM = []
+
+
+def device_ms(torch, fn, reps=20, inner=10, warmup=3):
+    """The device time of one call of fn: ``inner`` calls captured in a CUDA
+    graph after ``warmup`` calls, its replays timed with CUDA events (the
+    median of ``reps``), over ``inner``.  No host work between the calls or
+    before the first: a wrapper's checks, allocations and tensor-map
+    encodes stay out of a short kernel's time.  Warm-up and capture run on
+    one side stream, until release_timing_stream: cuBLAS keeps a workspace
+    per stream (~32 MiB), which a new stream a call would pile up."""
+    if not _WARMUP_STREAM:
+        _WARMUP_STREAM.append(torch.cuda.Stream())
+    side = _WARMUP_STREAM[0]
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(inner):
+            fn()
+    ms = median_ms(torch, graph.replay, reps, 1) / inner
+    del graph
+    return ms
+
+
+def release_timing_stream(torch):
+    """Drop device_ms's side stream and free cuBLAS's workspaces, so that
+    the timing stream's workspace stays out of later phases' peak memory
+    (the default stream's comes back at its next product)."""
+    torch.cuda.synchronize()
+    _WARMUP_STREAM.clear()
+    torch._C._cuda_clearCublasWorkspaces()
+
+
 def vit_shape(B):
     """ViT-S/16 @224 layer shape (B, N, C, H, D, F) at B rows."""
     return (B, 197, 384, 6, 64, 1536)
@@ -1282,40 +1356,60 @@ def b2_bf16_work(B, N, C, H, D, F):
 
 def gemm_bf16_calls():
     """(label, form, M, N, K, options) of the GEMM core's bf16 checks: odd
-    shapes, and ViT-S/16's products at the trainer's 128 images (qkv and the
-    out projection, FF1 / FF2 of the eval's whole layer, the split-K weight
-    gradients of both projections)."""
+    shapes (off 8-element rows: the register path; on 8-element rows: the
+    TMA path, the weight K-major or, "nmajor", N-major, ragged M, N and K),
+    and ViT-S/16's seven products at the trainer's 128 images as its paths
+    call them (qkv and the out projection, FF1 / FF2 of the eval's whole
+    layer, the data gradient dln with the weight read in place, the split-K
+    weight gradients of both projections)."""
     M = 128 * 197
     return [("odd", "rows", 37, 29, 45, ("bias", "rs", "res")),
             ("odd", "rows", 300, 200, 104, ("bias", "silu")),
             ("odd", "rows", 130, 7, 3, ("f32",)),
+            ("odd", "rows", 200, 136, 72, ("bias", "rs", "res", "nmajor")),
+            ("odd", "rows", 300, 200, 104, ("f32", "nmajor")),
+            ("odd", "rows", 77, 40, 520, ("f32",)),
             ("odd", "splitk", 45, 29, 1000, ()),
             ("odd", "splitk", 48, 40, 1000, ()),
             ("odd", "splitk", 40, 200, 333, ()),
+            ("odd", "splitk", 96, 64, 704, ("kmajor",)),
             ("ViT-S/16 qkv", "rows", M, 1152, 384, ("bias",)),
             ("ViT-S/16 out projection", "rows", M, 384, 384, ("bias", "rs", "res")),
             ("ViT-S/16 FF1 (eval)", "rows", M, 1536, 384, ("bias", "silu")),
             ("ViT-S/16 FF2 (eval)", "rows", M, 384, 1536, ("bias", "res")),
-            ("ViT-S/16 dln (f32 out)", "rows", M, 384, 1152, ("f32",)),
+            ("ViT-S/16 dln (f32 out)", "rows", M, 384, 1152, ("f32", "nmajor")),
             ("ViT-S/16 dwqkv", "splitk", 384, 1152, M, ()),
             ("ViT-S/16 dwout", "splitk", 384, 384, M, ())]
 
 
+def plan_text(plan):
+    return (f"{plan['route']}" + (f", {plan['bn']} columns, "
+                                  f"{'promoted every 64 k' if plan['promote'] else 'one accumulator'}"
+                                  f", {plan['stages']} stages" if plan["route"] == "tma" else
+                                  f", {plan['bn']} columns"))
+
+
 def gemm_bf16_kernels(torch):
-    """The GEMM core's bf16 form against its plain version (the odd shapes
-    off 8-element chunks on the register path, the rest copied), timed
-    beside torch.matmul in bf16 (f32 reduction) at ViT-S/16's products."""
+    """The GEMM core's bf16 form against its plain version, the route it
+    took printed (the odd shapes off 8-element rows on the register path,
+    the rest by TMA); at ViT-S/16's products timed beside torch.matmul in
+    bf16 (f32 reduction) and the bound.  Returns {label: (ms, matmul ms,
+    bound ms, plan)} of the products."""
     from vision_transformers_tpu_torch.ops import fused_layer as fl
     from vision_transformers_tpu_torch.ops import gemm as gm
 
     bf = torch.bfloat16
     g = torch.Generator(device=DEVICE).manual_seed(7)
+    timed = {}
     for label, form, M, N, K, opts in gemm_bf16_calls():
         def r(*shape, s=1.0):
             return (s * torch.randn(shape, generator=g, device=DEVICE)).to(bf)
         splitk = form == "splitk"
         a = r(K, M) if splitk else r(M, K)  # split-K: a [K, M], the storage of aᵀ
-        b = r(K, N) if splitk else r(N, K, s=0.05).t()
+        if splitk:  # dY [K, N] row-major (N-major), or a transposed view (K-major)
+            b = r(N, K).t() if "kmajor" in opts else r(K, N)
+        else:  # the forward's w.t() view (K-major), or a data gradient's w (N-major)
+            b = r(K, N, s=0.05) if "nmajor" in opts else r(N, K, s=0.05).t()
         kw = {}
         if "bias" in opts:
             kw["bias"] = r(N, s=0.1)
@@ -1331,22 +1425,65 @@ def gemm_bf16_kernels(torch):
         splits = fl._splits(M, N, K) if splitk else 1
         if splitk:
             kw["splits"] = splits
-        out = gm.gemm_bf16(a, b, form=form, **kw)
+        out, plan = gm.gemm_bf16(a, b, form=form, plan=True, **kw)
         torch.cuda.synchronize()
         ref_kw = {k: v for k, v in kw.items() if k != "splits"}
         plain = gm.gemm_bf16_reference(a, b, form=form, **ref_kw)
         f32_out = splitk or "f32" in opts
+        tol = 1e-3 if f32_out else BF16_FWD_TOL
         what = f"GEMM core {label} [{M}, {N}, {K}] {form} {'+'.join(opts) or 'plain'}"
-        bf16_close(torch, what, out, plain, 1e-3 if f32_out else BF16_FWD_TOL)
-        if label != "odd":
-            ms = median_ms(torch, lambda: gm.gemm_bf16(a, b, form=form, **kw))
-            lhs = a.t() if splitk else a
-            lib_ms = median_ms(torch, lambda: torch.matmul(lhs, b))
-            nbytes = 2 * (M * K + K * N) + (4 if f32_out else 2) * M * N
-            bound_ms, by = bound(2 * M * N * K, nbytes, H100_BF16_FLOPS)
-            log(f"bf16: {what}: kernel {ms:.3f} ms, torch.matmul (bf16, f32 reduction) "
-                f"{lib_ms:.3f} ms, bound {bound_ms:.3f} ms ({by})"
-                + (f", {splits} K-slabs" if splitk else ""))
+        bf16_close(torch, f"{what} (route: {plan_text(plan)})", out, plain, tol)
+        if label == "odd":
+            continue
+        call_ms = median_ms(torch, lambda: gm.gemm_bf16(a, b, form=form, **kw))
+        ms = device_ms(torch, lambda: gm.gemm_bf16(a, b, form=form, **kw))
+        lhs = a.t() if splitk else a
+        lib_ms = device_ms(torch, lambda: torch.matmul(lhs, b))
+        nbytes = 2 * (M * K + K * N) + (4 if f32_out else 2) * M * N
+        bound_ms, by = bound(2 * M * N * K, nbytes, H100_BF16_FLOPS)
+        log(f"bf16: {what}: kernel {ms:.3f} ms device ({call_ms:.3f} a call from the host; "
+            f"{plan_text(plan)}), torch.matmul (bf16, f32 reduction) {lib_ms:.3f} ms device, "
+            f"bound {bound_ms:.3f} ms ({by})" + (f", {splits} K-slabs" if splitk else ""))
+        timed[label] = (ms, lib_ms, bound_ms, plan)
+    release_timing_stream(torch)
+    return timed
+
+
+def promotion_check(torch):
+    """The bf16 sums with the promotion every 64 k and with one accumulator
+    over K (each tile's whole K in the kernel; the promoted kernel on
+    64-column tiles, one accumulator on the rule's), against an f64
+    product of the same bf16 operands, at ViT-S/16's
+    K (384, 1152, 1536) and the split-K slabs' depths at 25,216 rows
+    (_splits, in whole 64-deep stages): the error over max(1, max|exact|)
+    must stay within the f32-out limit, 1e-3, on the path's rule (one
+    accumulator).  Returns {K: (promoted, one accumulator)}."""
+    from vision_transformers_tpu_torch.ops import fused_layer as fl
+    from vision_transformers_tpu_torch.ops import gemm as gm
+
+    rows = 128 * 197
+    chunks = [-(-(-(-rows // fl._splits(m, n, rows))) // 64) * 64
+              for m, n in ((384, 1152), (384, 384))]
+    g = torch.Generator(device=DEVICE).manual_seed(11)
+    errs = {}
+    for K in (384, 1152, 1536, *chunks):
+        a = torch.randn(4096, K, generator=g, device=DEVICE).to(torch.bfloat16)
+        b = torch.randn(384, K, generator=g, device=DEVICE).to(torch.bfloat16).t()
+        exact = a.double() @ b.double()
+        scale = max(1.0, exact.abs().max().item())
+        pair = []
+        for promote in (True, False):
+            out, plan = gm.gemm_bf16(a, b, out_f32=True, promote=promote, plan=True)
+            torch.cuda.synchronize()
+            if plan["promote"] != promote:
+                raise RuntimeError(f"bf16 promotion check: asked {promote}, ran {plan}")
+            pair.append((out.double() - exact).abs().max().item() / scale)
+        log(f"bf16: promotion check K={K} [4096 x 384]: max|sums - f64| / max(1, max|f64|) "
+            f"promoted every 64 k {pair[0]:.3e}, one accumulator {pair[1]:.3e} (limit 1e-3)")
+        if max(pair) > 1e-3:
+            raise RuntimeError(f"bf16 promotion check: K={K} outside the f32-out limit")
+        errs[K] = tuple(pair)
+    return errs
 
 
 def bf16_kernels(torch):
@@ -1362,7 +1499,8 @@ def bf16_kernels(torch):
 
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     bf = torch.bfloat16
-    gemm_bf16_kernels(torch)
+    products = gemm_bf16_kernels(torch)
+    promotion = promotion_check(torch)
     worst = {"fwd": 0.0, "bwd": 0.0, "l1": 0.0}
     for shape in BF16_ODD + (VIT_TRAIN,):
         B, N, C, H, D, F = shape
@@ -1461,7 +1599,14 @@ def bf16_kernels(torch):
         "fused_attention_layer[bf16]": [{
             "shape": shape + ", saves", "max_abs_err": worst["fwd"], "ms": fwd_ms,
             "plain_ms": plain_fwd_ms, "bound_ms": fwd_bound, "bound_by": fwd_by,
-            "library_ms": None}],
+            "library_ms": None,
+            # the GEMM core's bf16 form under B1 and B2, product by product
+            # (device ms, torch.matmul's, the bound, the route), and its
+            # accumulation's error with and without the promotion
+            "gemm_products": {k: {"ms": v[0], "matmul_ms": v[1], "bound_ms": v[2], **v[3]}
+                              for k, v in products.items()},
+            "gemm_promotion_check": {str(k): {"promoted": v[0], "one_accumulator": v[1]}
+                                     for k, v in promotion.items()}}],
         "fused_attention_layer_bwd[bf16]": [{
             "shape": shape, "max_abs_err": worst["bwd"], "ms": bwd_ms,
             "plain_ms": plain_bwd_ms, "bound_ms": bwd_bound, "bound_by": bwd_by,
@@ -3869,11 +4014,15 @@ def main() -> None:
                   fal + "[bf16]": "ViT-S/16 train (bf16)",
                   falb + "[bf16]": "ViT-S/16 train (bf16)",
                   ftl + "[bf16]": "ViT-S/16 train (bf16)"}
+    # the bf16 entries run the GEMM core's bf16 form: its TMA kernels as built
+    from vision_transformers_tpu_torch.ops import _build
+    tma_kernels = gemm_bf16_builds(_build.BUILD_LOG)
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": paths[trainer_of[k]][k],
          "launches_by_path": {p: c[k] for p, c in paths.items()},
-         **timed[k][0], "other_shapes": timed[k][1:]}
+         **timed[k][0], "other_shapes": timed[k][1:],
+         **({"gemm_bf16_kernels": tma_kernels} if k.endswith("[bf16]") else {})}
         for k, (src, rep) in KERNELS.items()]}
     # a bound is the least time the card could take: no kernel beats it
     shares = {f"{k} {e['shape']}": e["bound_ms"] / e["ms"] for k in KERNELS

@@ -64,6 +64,11 @@ GROUPS = (("at::native", "other (elementwise, reductions, conv)"),
           ("gemm_tc_kernel<128, true", "hand-written GEMM, split-K (weight gradients)"),
           ("gemm_tc_kernel<64, true", "hand-written GEMM, split-K (weight gradients)"),
           ("gemm_tc_kernel", "hand-written GEMM, row-major"),
+          # the bf16 form on TMA: gemm_bf16_tma_kernel<BN, TA, ...>, TA 1 the split-K form
+          ("gemm_bf16_tma_kernel<64, 1", "hand-written GEMM, split-K (weight gradients)"),
+          ("gemm_bf16_tma_kernel<128, 1", "hand-written GEMM, split-K (weight gradients)"),
+          ("gemm_bf16_tma_kernel<192, 1", "hand-written GEMM, split-K (weight gradients)"),
+          ("gemm_bf16_tma_kernel", "hand-written GEMM, row-major"),
           ("halo_bwd_kernel", "hand-written halo attention backward"),
           ("halo_fwd_kernel", "hand-written halo attention forward"),
           ("halo_fold", "other hand-written"),

@@ -237,3 +237,56 @@ def test_cuda_gemm_bf16_matches_plain(mnk):
     bt = torch.randn(M, N, generator=g).to(bf).cuda()
     within("split-K", gemm.gemm_bf16(a, bt, form="splitk", splits=3),
            gemm.gemm_bf16_reference(a, bt, form="splitk"), 1e-3)
+
+
+# the GEMM core's bf16 form alone: name → (form, M, N, K, options, route).
+# The register path off 8-element rows; the TMA path with ragged M, N and
+# K, the weight K-major (the forward's w.t() view) or N-major (a data
+# gradient's w read in place), bf16 or f32 out; ViT-S/16's seven products
+# at the trainer's 25,216 rows as the paths call them
+GEMM_BF16_CALLS = {
+    "odd_registers": ("rows", 37, 29, 45, ("bias", "rs", "res"), "registers"),
+    "odd_registers_splitk": ("splitk", 45, 29, 1000, (), "registers"),
+    "odd_tma_silu": ("rows", 300, 200, 104, ("bias", "silu"), "tma"),
+    "odd_tma_nmajor": ("rows", 200, 136, 72, ("bias", "rs", "res", "nmajor"), "tma"),
+    "odd_tma_f32_nmajor": ("rows", 300, 200, 104, ("f32", "nmajor"), "tma"),
+    "odd_tma_splitk": ("splitk", 40, 200, 333, (), "tma"),
+    "odd_tma_splitk_kmajor": ("splitk", 96, 64, 704, ("kmajor",), "tma"),
+    "vit_qkv": ("rows", 25216, 1152, 384, ("bias",), "tma"),
+    "vit_out_projection": ("rows", 25216, 384, 384, ("bias", "rs", "res"), "tma"),
+    "vit_ff1": ("rows", 25216, 1536, 384, ("bias", "silu"), "tma"),
+    "vit_ff2": ("rows", 25216, 384, 1536, ("bias", "res"), "tma"),
+    "vit_dln": ("rows", 25216, 384, 1152, ("f32", "nmajor"), "tma"),
+    "vit_dwqkv": ("splitk", 384, 1152, 25216, (), "tma"),
+    "vit_dwout": ("splitk", 384, 384, 25216, (), "tma"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(GEMM_BF16_CALLS))
+def test_cuda_gemm_bf16_routes_and_matches_plain(name):
+    needs_card()
+    form, M, N, K, opts, route = GEMM_BF16_CALLS[name]
+    g = torch.Generator().manual_seed(M + N + K)
+
+    def r(*shape, s=1.0):
+        return (s * torch.randn(shape, generator=g)).to(bf).cuda()
+
+    splitk = form == "splitk"
+    a = r(K, M) if splitk else r(M, K)
+    if splitk:
+        b = r(N, K).t() if "kmajor" in opts else r(K, N)
+    else:
+        b = r(K, N, s=0.05) if "nmajor" in opts else r(N, K, s=0.05).t()
+    kw = dict(bias=r(N, s=0.1) if "bias" in opts else None, silu="silu" in opts,
+              res=r(M, N) if "res" in opts else None, out_f32="f32" in opts)
+    if "rs" in opts:
+        kw.update(rs=torch.rand(-(-M // 197), generator=g).cuda() + 0.5, rs_rows=197)
+    plain = gemm.gemm_bf16_reference(a, b, form=form, **kw)
+    if splitk:
+        kw = dict(splits=fused_layer._splits(M, N, K))
+    out, plan = gemm.gemm_bf16(a, b, form=form, plan=True, **kw)
+    assert plan["route"] == route, plan
+    within(name, out, plain, 1e-3 if splitk or "f32" in opts else FWD_TOL)
+    if splitk:  # the slabs summed in order: bit-identical from run to run
+        assert torch.equal(out, gemm.gemm_bf16(a, b, form=form, **kw))

@@ -17,11 +17,14 @@ run on a card (README: the card-only tests).
   bit-identical across two runs.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
 from test_torch_port_halo_entry import fake_cuda
+from vision_transformers_tpu_torch.ops import _build
 from vision_transformers_tpu_torch.ops import gemm as gm
 from torch_port_threads import one_torch_thread  # noqa: F401
 
@@ -146,3 +149,82 @@ def test_cuda_gemm_matches_plain(form, M, N, K):
     args = (a, b, bias, True, rs, 5, res) + ((pix, form) if form != "rows" else ())
     out = gm.gemm(*(t.cuda() if isinstance(t, torch.Tensor) else t for t in args))
     torch.testing.assert_close(out.cpu(), gm.gemm_reference(*args), atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 form's thin door and the bf16 backward's weights
+# ---------------------------------------------------------------------------
+
+
+def test_bf16_c_signature_is_declared():
+    from test_torch_port_halo_entry import c_entry_kinds
+
+    kinds = {ctypes.c_void_p: "P", ctypes.c_longlong: "L", ctypes.c_int: "I"}
+    declared = [kinds[t] for t in _build._SIGNATURES["vtx_gemm_tc_bf16"]]
+    assert declared == c_entry_kinds("vtx_gemm_tc_bf16")
+    assert declared[-3:] == ["I", "P", "P"]  # promote, plan, stream
+
+
+@pytest.mark.parametrize("choice", [dict(), dict(promote=False), dict(promote=True)],
+                         ids=["rule", "one_accumulator", "promoted"])
+def test_bf16_wrapper_passes_the_kernel_choices_and_reads_the_plan(monkeypatch, choice):
+    a = torch.randn(21, 16).to(torch.bfloat16)
+    b = torch.randn(8, 16).to(torch.bfloat16).t()  # the forward's w.t() view
+    seen = {}
+
+    def entry(*args):
+        seen["args"] = args
+        plan = ctypes.cast(args[-2], ctypes.POINTER(ctypes.c_int))
+        for i, v in enumerate((1, 64 if choice.get("promote") else 128,
+                               1 if choice.get("promote") else 2, 6)):
+            plan[i] = v
+        return 0
+
+    with fake_cuda(monkeypatch) as lib:
+        proto = ctypes.CFUNCTYPE(ctypes.c_int, *_build._SIGNATURES["vtx_gemm_tc_bf16"])
+        lib.vtx_gemm_tc_bf16 = proto(entry)
+        before = gm.GEMM_LAUNCHES
+        monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+        out, plan = gm.gemm_bf16(a, b, plan=True, **choice)
+    call = seen["args"]
+    assert gm.GEMM_LAUNCHES == before + 1 and out.shape == (21, 8)
+    assert call[0] == a.data_ptr() and call[2:5] == (b.data_ptr(), *b.stride())
+    assert call[16:20] == (21, 8, 16, 0)  # M, N, K, silu
+    assert call[20] == {None: 0, True: 1, False: 2}[choice.get("promote")]
+    assert plan == {"route": "tma", "bn": 64 if choice.get("promote") else 128,
+                    "promote": bool(choice.get("promote")), "stages": 6}
+
+
+def test_bf16_wrapper_refuses_unknown_choices_and_plain_plans():
+    a, b = torch.randn(4, 8).to(torch.bfloat16), torch.randn(8, 3).to(torch.bfloat16)
+    for kw in (dict(promote="every 64 k"), dict(promote=1)):
+        with pytest.raises(ValueError, match="promote must be"):
+            gm.gemm_bf16(a, b, **kw)
+    with pytest.raises(ValueError, match="no kernel to choose"):
+        gm.gemm_bf16(a, b, plan=True)  # a CPU tensor runs the plain version
+
+
+def test_bf16_backward_reads_the_weights_in_place(monkeypatch):
+    """The bf16 backward's data gradients read wqkv and wout as the model
+    passes them (its [in, out] views of the [out, in] weights): their own
+    pointers and strides, no contiguous copy."""
+    from test_torch_port_bf16_entry import SHAPES, bf16_inputs
+    from test_torch_port_vit_attention_tc import fake_cuda as fake_cuda_named
+    from vision_transformers_tpu_torch.ops import fused_layer
+
+    B, N, C, H, D, F = SHAPES["vit"]
+    args = bf16_inputs(B, N, C, H, D, F)[:7]
+    wqkv, wout = args[3], args[5]
+    assert not wqkv.is_contiguous() and not wout.is_contiguous()  # the views
+    copies = []
+    contiguous = torch.Tensor.contiguous
+    monkeypatch.setattr(torch.Tensor, "contiguous",
+                        lambda t, *a, **k: copies.append(t.data_ptr()) or contiguous(t, *a, **k))
+    with fake_cuda_named(monkeypatch) as lib:
+        out, res = fused_layer._cuda_fwd(*args, H, None, 1, None, D ** -0.5, 1e-6, save=True)
+        saved = fused_layer.AttnSaved(*args, None, *res, None, H, D ** -0.5, 1e-6)
+        fused_layer._cuda_bwd(saved, torch.zeros_like(out), True, False)
+        call = lib.calls["vtx_fused_attention_layer_bwd_bf16"]
+    assert (call["wqkv"], call["wqkv_s0"], call["wqkv_s1"]) == (wqkv.data_ptr(), *wqkv.stride())
+    assert (call["wout"], call["wout_s0"], call["wout_s1"]) == (wout.data_ptr(), *wout.stride())
+    assert wqkv.data_ptr() not in copies and wout.data_ptr() not in copies

@@ -164,8 +164,9 @@ cudaError_t launch_gemm_splitk_x(const float* A, int lda, const float* B, long l
                                  long long som, long long son, int M, int N, int K,
                                  const GemmExtra& x, cudaStream_t stream);
 
-// The bf16 form (gemm_tc.cu): A, B, bias and res bf16, one wgmma k16 a
-// 16-deep slab, the f32 sums promoted as in the f32 form.  The row form
+// The bf16 form (gemm_tc.cu): A, B, bias and res bf16, wgmma k16 products
+// into f32 sums; by TMA (gemm_bf16_tma.cuh) wherever it can describe the
+// operands and the output, else on the register path.  The row form
 // writes out bf16 at the JAX kernels' rounding points, round(round(round(acc)
 // + bias)·round(rs)) + res rounded (silu after the bias, rounded, where
 // set), or with out_f32 the sums as f32 (no epilogue); the split-K form
@@ -179,6 +180,38 @@ cudaError_t launch_gemm_splitk_bf16(const bf16* A, int lda, const bf16* B, long 
                                     long long sbn, float* part, int splits, float* out,
                                     long long som, long long son, int M, int N, int K,
                                     cudaStream_t stream);
+
+// The bf16 form's TMA path: A [M, K] row-major, or (the split-K form) its
+// transpose's storage [K, M]; B [N, K] (K-major) or [K, N] (MN-major), rows
+// ldb apart; out [splits, M, N] f32 (the partials, or with one slab the
+// sums) or [M, N] bf16 through the epilogue; slab z takes k in [z·k_chunk,
+// (z + 1)·k_chunk), k_chunk a multiple of 64
+struct TmaGemm {
+  const bf16* a;
+  long long lda;
+  const bf16* b;
+  long long ldb;
+  const bf16* bias;
+  const float* rs;
+  int rs_rows;
+  const bf16* res;
+  void* out;
+  int splits, M, N, K, k_chunk, silu;
+};
+
+// The thin door's choice, 0 for the rule's: promote 1 every 64 k, 2 one
+// accumulator over K.  plan, where not null, gets what ran: {1 TMA or 0 the
+// register path, the tile's columns, promote, the ring's stages}.
+struct Bf16Opts {
+  int promote;
+  int* plan;
+};
+
+// TA: A as its transpose's storage; TB: B MN-major; F32OUT: f32 out.
+// Instantiated in gemm_bf16_fwd.cu (TA 0, TB 0), gemm_bf16_dgrad.cu (TA
+// 0, TB 1) and gemm_bf16_splitk.cu (TA 1)
+template <int TA, int TB, int F32OUT>
+cudaError_t gemm_bf16_tma(const TmaGemm& g, const Bf16Opts& o, cudaStream_t stream);
 
 }  // namespace vtx
 

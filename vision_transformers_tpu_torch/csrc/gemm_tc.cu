@@ -91,24 +91,23 @@
 // zero-filled.
 //
 // The bf16 form (launch_gemm_bf16, launch_gemm_splitk_bf16: B1's and B2's
-// projections at the JAX package's default precision).  The same tile
-// scheduler, ring, barriers and promotion, with the element type a template
-// argument (E, common.cuh): operands bf16 in device memory, 8-row x
-// 16-byte core matrices, no TF32 split, one wgmma.m64nBNk16.f32.bf16 a
-// 16-deep slab where f32 takes six, into f32 sums promoted every 64 k as in
-// the f32 form.  Where both operands are 16-byte chunks along K (the
-// forward's activations and weight views; the data gradients' weights as
-// contiguous copies) or both along their rows (the split-K weight
-// gradients' Aᵀ and dY), the producer is a copy: 16-byte cp.async global →
-// shared, four slabs (64 k) a stage, CP_LAG stages in flight, the MN-major
-// tiles read by wgmma through its transpose bits (produce_copies).  Any
-// other bf16 operand (a shape off 8-element chunks) takes the f32 form's
-// register path, loaded four elements a unit and stored as they were; the
-// bf16 form takes none of the producer's transforms.  The row
-// epilogue follows the JAX kernels' rounding points in registers:
-// round(acc), + bias rounded, silu rounded, × round(rs) rounded, + res
-// rounded (or, out_f32, the raw sums: the backward's dln and dacc₀); the
-// split-K form writes f32 partials and their ordered f32 sum.
+// projections at the JAX package's default precision) routes by shape:
+// wherever TMA can describe the operands and the output (16-byte bases and
+// row strides, one axis contiguous: every product of the paths) it runs
+// gemm_bf16_tma.cuh's kernels (TMA loads into a 128-byte swizzled ring,
+// the epilogue staged through shared memory and stored by TMA under the
+// next tile's products; gemm_bf16_{fwd,dgrad,splitk}.cu compile them).
+// Any other bf16 operand or output (a shape off 8-element rows: the odd
+// shapes of chip_smoke.py's phase 3bf) takes the f32 form's scheduler,
+// ring, barriers and promotion here with the element type a template
+// argument (E, common.cuh): loaded four elements a unit by the register
+// producer and stored as they were into 8-row x 16-byte core matrices, no
+// TF32 split, one wgmma.m64nBNk16.f32.bf16 a 16-deep slab where f32 takes
+// six.  Its row epilogue follows the JAX kernels' rounding points in
+// registers: round(acc), + bias rounded, silu rounded, × round(rs) rounded,
+// + res rounded (or, out_f32, the raw sums: the backward's dln and dacc₀);
+// the split-K form writes f32 partials and their ordered f32 sum.  Neither
+// route takes the producer's transforms.
 //
 // What bounds it on this card.  The port's projections are 2·M·N·K
 // operations against 4·(M·K + K·N + M·N) bytes: at every path's shape (K, N
@@ -125,9 +124,12 @@
 
 #include "common.cuh"
 #include "mma_tf32.cuh"
+#include "wgmma.cuh"
 
 namespace {
 namespace gtc {
+
+using namespace wgm;
 
 // two consumer warpgroups (the products), one producer warpgroup (the
 // loads, the split, the staging)
@@ -152,16 +154,12 @@ static_assert(2 * STAGES < 16, "named barriers 1 .. 2·STAGES");
 // slower)
 constexpr int XF_NONE = 0, XF_LN = 1, XF_ACT = 2, XF_SCALE = 3, XF_EPILOGUE = 4;
 
-// p points at elements of the kernel's type E (f32 or bf16); cp (bf16):
-// K-contiguous in 16-byte chunks of 8 k (s_row and K multiples of 8, p
-// 16-byte aligned), cpt (bf16): row-contiguous in 16-byte chunks of 8 rows
-// (s_k and rows multiples of 8, p 16-byte aligned), so the producer copies
-// it straight into the stage, K-major or MN-major
+// p points at elements of the kernel's type E (f32 or bf16)
 struct Operand {
   const void* p;
   long long s_row, s_k;
   int rows;
-  bool kmajor, vec, tvec, cp, cpt;
+  bool kmajor, vec, tvec;
 };
 
 // bias, res and out in the kernel's element type (out f32 in the split-K
@@ -318,22 +316,6 @@ __device__ __forceinline__ uint64_t desc(const void* p) {
          ((uint64_t)(128 >> 4) << 32);
 }
 
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-// until at most N of this warpgroup's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-// the shared-memory stores above, made visible to wgmma's (async proxy) reads
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
 // d[0, 32) = A·B + (scale_d ? d : 0) over k 8, m64n64k8, A and B K-major
 // in shared memory
 __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db,
@@ -376,49 +358,6 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t
       : "memory");
 }
 
-// d[0, 32) = A·B + (scale_d ? d : 0) over k 16, m64n64k16, bf16, A and B
-// in shared memory, K-major (TA, TB 0) or MN-major (1: the transpose bits)
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32], uint64_t da, uint64_t db,
-                                               int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB)
-      : "memory");
-}
-
-// d[0, 64) = A·B + (scale_d ? d : 0) over k 16, m64n128k16, bf16
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], uint64_t da, uint64_t db,
-                                                int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB)
-      : "memory");
-}
-
 template <int BN>
 __device__ __forceinline__ void wgmma(float (&d)[BN / 2], uint64_t da, uint64_t db,
                                       int scale_d = 1) {
@@ -428,19 +367,10 @@ __device__ __forceinline__ void wgmma(float (&d)[BN / 2], uint64_t da, uint64_t 
     wgmma_n64(d, da, db, scale_d);
 }
 
-// keeps the compiler from moving accumulator reads or writes across the
-// wgmma fences and waits
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// a stage: A_hi, A_lo, B_hi, B_lo (f32), or SPS slabs' A, B (bf16: one
-// slab on the register path, four where the producer copies them)
-template <int BN, int E, int SPS = 1>
+// a stage: A_hi, A_lo, B_hi, B_lo (f32), or A, B (bf16)
+template <int BN, int E>
 __host__ __device__ constexpr int stage_bytes() {
-  return E == F32 ? 2 * (BM + BN) * BK * 4 : SPS * (BM + BN) * BK * 2;
+  return E == F32 ? 2 * (BM + BN) * BK * 4 : (BM + BN) * BK * 2;
 }
 
 // A's tile(s) first, then B's
@@ -449,9 +379,9 @@ __host__ __device__ constexpr int a_tile_bytes() {
   return E == F32 ? 2 * BM * BK * 4 : BM * BK * 2;
 }
 
-template <int BN, int E, int SPS = 1>
+template <int BN, int E>
 __host__ __device__ constexpr int smem_bytes() {
-  return STAGES * stage_bytes<BN, E, SPS>();
+  return STAGES * stage_bytes<BN, E>();
 }
 
 // one slab's operands in registers, between its loads and its staging; with
@@ -684,13 +614,12 @@ __device__ __forceinline__ void bar_arrive(int id) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(THREADS) : "memory");
 }
 
-// the wgmmas of the nq ≤ SPS slabs in stage st into part, the first
-// zeroing it where zero, committed as one group: f32 BK / 8 k steps x three
-// passes, the small terms first; bf16 one k16 step a slab, A MN-major where
-// TRANS & 1, B where TRANS & 2
-template <int BN, int E, int SPS = 1, int TRANS = 0>
+// the wgmmas of the slab in stage st into part, the first zeroing it where
+// zero, committed as one group: f32 BK / 8 k steps x three passes, the
+// small terms first; bf16 one k16 step
+template <int BN, int E>
 __device__ __forceinline__ void mma_slab(float (&part)[BN / 2], const char* st, int wg,
-                                         bool zero, int nq = 1) {
+                                         bool zero) {
   wg_fence();
   if constexpr (E == F32) {
     constexpr int AT = BM * BK, BT = BN * BK;
@@ -708,19 +637,10 @@ __device__ __forceinline__ void mma_slab(float (&part)[BN / 2], const char* st, 
       wgmma<BN>(part, ah, bh);
     }
   } else {
-#pragma unroll
-    for (int q = 0; q < SPS; ++q) {
-      if (q < nq) {
-        const char* sq = st + q * stage_bytes<BN, E>();
-        // the warpgroup's 64 rows: 1024 bytes on, as in f32 (the 8-row
-        // core-matrix groups are 128 bytes apart in either layout)
-        const uint64_t da = desc<BM>(sq + 1024 * wg), db = desc<BN>(sq + a_tile_bytes<E>());
-        if constexpr (BN == 128)
-          wgmma_bf16_n128<TRANS & 1, (TRANS >> 1)>(part, da, db, !zero || q > 0);
-        else
-          wgmma_bf16_n64<TRANS & 1, (TRANS >> 1)>(part, da, db, !zero || q > 0);
-      }
-    }
+    // the warpgroup's 64 rows: 1024 bytes on, as in f32 (the 8-row
+    // core-matrix groups are 128 bytes apart in either layout)
+    const uint64_t da = desc<BM>(st + 1024 * wg), db = desc<BN>(st + a_tile_bytes<E>());
+    wgmma_bf16<BN, 0, 0>(part, da, db, !zero);
   }
   wg_commit();
 }
@@ -998,102 +918,19 @@ __device__ __forceinline__ void epilogue_x(const Args& a, const Tile& T, int wg,
   }
 }
 
-// The bf16 producer where both operands are 16-byte chunks along K
-// (Operand::cp) or both along their rows (Operand::cpt), with no
-// transform: a stage holds CP_SLABS slabs (64 k), its tiles copied global →
-// shared with 16-byte cp.async (copy_tile), zero-filled past the rows and
-// K, and reported full CP_LAG stages later, once its copies have landed, so
-// up to CP_LAG + 1 stages (320 k) are in flight where the register path
-// keeps one slab.  CP_LAG ≤ STAGES − 2 keeps the ring from waiting on
-// itself.  (With one 16-deep slab a stage the copies' latency stayed
-// exposed: ViT-S/16's qkv product took 0.431 ms on the H100, 0.390 with
-// four; PERF.md.)
-constexpr int CP_LAG = STAGES - 2, CP_SLABS = 4;
-static_assert(PROMOTE % CP_SLABS == 0, "a stage inside one promotion group");
-
-// An R-row x BK tile's 2·R 16-byte chunks.  K-major (o.cp): chunk (row r,
-// k half c) — 8 k of one row, a core-matrix row — at byte 16·(c·R + r).
-// MN-major (o.cpt, MN): chunk (row group g of 8 rows, k) — 8 rows of one k
-// — at byte 128·g + 16·((k / 8)·R + k mod 8): the same 8 x 16-byte core
-// matrices at the same offsets, each holding rows along its 16 bytes and k
-// down its 8 lines, which wgmma reads with the transpose bit
-template <int R, bool MN>
-__device__ __forceinline__ void copy_tile(char* dst, const Operand& o, int pt, int r0, int k0,
-                                          int k_end) {
-  const bf16* p = static_cast<const bf16*>(o.p);
-#pragma unroll
-  for (int i = pt; i < 2 * R; i += PRODUCERS) {
-    int off, gr, gk;
-    long long src;
-    if constexpr (MN) {  // neighbouring threads: neighbouring row groups of one k
-      const int g = i % (R / 8), k = i / (R / 8);
-      off = 128 * g + 16 * ((k >> 3) * R + (k & 7));
-      gr = r0 + 8 * g;
-      gk = k0 + k;
-      src = gr + (long long)gk * o.s_k;
-    } else {
-      const int r = i >> 1, c = i & 1;
-      off = 16 * (c * R + r);
-      gr = r0 + r;
-      gk = k0 + 8 * c;
-      src = (long long)gr * o.s_row + gk;
-    }
-    const bool ok = gr < o.rows && gk < k_end;
-    tc::cp_async16(reinterpret_cast<float*>(dst + off),
-                   reinterpret_cast<const float*>(ok ? p + src : p), ok);
-  }
-}
-
-template <int BN, bool SPLIT_K, int TRANS>
-__device__ __forceinline__ void produce_copies(char* smem, const Args& a, int pt, int tiles,
-                                               int total) {
-  int j = 0;  // the block's stage
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const Tile T = tile_of<BN, SPLIT_K>(a, t);
-    for (int it = 0; it < T.slabs; it += CP_SLABS, ++j) {
-      const int st = j % STAGES;
-      if (j >= STAGES) bar_sync(empty_bar(st));
-      char* stage = smem + st * stage_bytes<BN, BF16, CP_SLABS>();
-      for (int q = 0; q < CP_SLABS && it + q < T.slabs; ++q) {
-        char* slab = stage + q * stage_bytes<BN, BF16>();
-        const int k0 = T.k_begin + (it + q) * BK;
-        copy_tile<BM, (TRANS & 1) != 0>(slab, a.a, pt, T.m0, k0, T.k_end);
-        copy_tile<BN, (TRANS & 2) != 0>(slab + a_tile_bytes<BF16>(), a.b, pt, T.n0, k0,
-                                        T.k_end);
-      }
-      tc::cp_async_commit();
-      if (j >= CP_LAG) {  // slab j − CP_LAG has landed: full
-        tc::cp_async_wait<CP_LAG>();
-        fence_proxy_async();
-        bar_arrive(full_bar((j - CP_LAG) % STAGES));
-      }
-    }
-  }
-  tc::cp_async_wait<0>();
-  fence_proxy_async();
-  for (int i = max(0, total - CP_LAG); i < total; ++i) bar_arrive(full_bar(i % STAGES));
-}
-
 // A persistent block (one an SM) takes tiles blockIdx.x, + gridDim.x, ...;
 // its slabs run through the ring in one sequence, g counting them, so the
 // producer fills the next tile's stages while the consumers finish a tile
 // and write it out.
-// SPS slabs a stage: 1, or CP_SLABS where the bf16 producer copies both
-// operands (produce_copies; TRANS: which of them are MN-major)
-template <int BN, bool SPLIT_K, int MAP, int XF, int ACT, int E, int SPS, int TRANS>
+template <int BN, bool SPLIT_K, int MAP, int XF, int ACT, int E>
 __global__ void __launch_bounds__(THREADS, 1) gemm_tc_kernel(const Args a, int tiles) {
   extern __shared__ __align__(128) char smem[];
   const int wg = threadIdx.x >> 7;
-  int total = 0;  // the block's stages
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x)
-    total += (tile_of<BN, SPLIT_K>(a, t).slabs + SPS - 1) / SPS;
+  int total = 0;  // the block's slabs
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) total += tile_of<BN, SPLIT_K>(a, t).slabs;
 
   if (threadIdx.x >= CONSUMERS) {  // the producer warpgroup
     const int pt = threadIdx.x - CONSUMERS;
-    if constexpr (SPS > 1) {
-      produce_copies<BN, SPLIT_K, TRANS>(smem, a, pt, tiles, total);
-      return;
-    }
     int g = 0;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       const Tile T = tile_of<BN, SPLIT_K>(a, t);
@@ -1123,17 +960,14 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_tc_kernel(const Args a, int t
     float acc[BN / 2], part[BN / 2];
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-    // stage is's slabs' wgmmas issued once it is full; then the previous
-    // stage's done (or, at the end of a promotion group, all, and part
-    // added to acc), and its stage given back to the producer where it
-    // waits
-    const int stages = (T.slabs + SPS - 1) / SPS;
-    for (int is = 0; is < stages; ++is) {
-      const int j = g + is, st = j % STAGES, it = is * SPS;
+    // slab it's wgmmas issued once its stage is full; then the previous
+    // slab's done (or, at the end of a promotion group, all, and part added
+    // to acc), and its stage given back to the producer where it waits
+    for (int it = 0; it < T.slabs; ++it) {
+      const int j = g + it, st = j % STAGES;
       bar_sync(full_bar(st));
-      mma_slab<BN, E, SPS, TRANS>(part, smem + st * stage_bytes<BN, E, SPS>(), wg,
-                           it % PROMOTE == 0, min(SPS, T.slabs - it));
-      if ((it + SPS) % PROMOTE == 0 || it + SPS >= T.slabs) {
+      mma_slab<BN, E>(part, smem + st * stage_bytes<BN, E>(), wg, it % PROMOTE == 0);
+      if ((it + 1) % PROMOTE == 0 || it + 1 == T.slabs) {
         wg_wait<0>();
         fence_acc(part);
 #pragma unroll
@@ -1147,7 +981,7 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_tc_kernel(const Args a, int t
       epilogue_x<BN, ACT>(a, T, wg, acc);
     else
       epilogue<BN, SPLIT_K, MAP, E>(a, T, wg, acc);
-    g += stages;
+    g += T.slabs;
   }
 }
 
@@ -1164,21 +998,17 @@ inline Operand operand(const void* p, long long s_row, long long s_k, int rows, 
   return Operand{p, s_row, s_k, rows, kmajor,
                  kmajor && s_row % 4 == 0 && K % 4 == 0 && aligned(p, 4 * bytes),
                  !kmajor && s_row == 1 && s_k % 4 == 0 && rows % 4 == 0 &&
-                     aligned(p, 4 * bytes),
-                 bytes == 2 && kmajor && s_row % 8 == 0 && K % 8 == 0 && aligned(p, 16),
-                 bytes == 2 && !kmajor && s_row == 1 && s_k % 8 == 0 && rows % 8 == 0 &&
-                     aligned(p, 16)};
+                     aligned(p, 4 * bytes)};
 }
 
-template <int BN, bool SPLIT_K, int MAP, int XF, int ACT, int E = F32, int SPS = 1,
-          int TRANS = 0>
+template <int BN, bool SPLIT_K, int MAP, int XF, int ACT, int E = F32>
 cudaError_t launch_t(const Args& a, int splits, cudaStream_t s) {
-  static_assert(smem_bytes<BN, E, SPS>() <= 227 * 1024, "a block's shared memory");
+  static_assert(smem_bytes<BN, E>() <= 227 * 1024, "a block's shared memory");
   static bool sized = false;  // the attribute once per instantiation
   if (!sized) {
-    VTX_CHECK(cudaFuncSetAttribute(gemm_tc_kernel<BN, SPLIT_K, MAP, XF, ACT, E, SPS, TRANS>,
+    VTX_CHECK(cudaFuncSetAttribute(gemm_tc_kernel<BN, SPLIT_K, MAP, XF, ACT, E>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   smem_bytes<BN, E, SPS>()));
+                                   smem_bytes<BN, E>()));
     sized = true;
   }
   int dev, sms;  // persistent blocks: one an SM
@@ -1187,35 +1017,91 @@ cudaError_t launch_t(const Args& a, int splits, cudaStream_t s) {
   const long long tiles = (long long)cdiv(a.N, BN) * cdiv(a.M, BM) * splits;
   if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   const int blocks = (int)(tiles < sms ? tiles : sms);
-  gemm_tc_kernel<BN, SPLIT_K, MAP, XF, ACT, E, SPS, TRANS>
-      <<<blocks, THREADS, smem_bytes<BN, E, SPS>(), s>>>(a, (int)tiles);
+  gemm_tc_kernel<BN, SPLIT_K, MAP, XF, ACT, E>
+      <<<blocks, THREADS, smem_bytes<BN, E>(), s>>>(a, (int)tiles);
   return cudaGetLastError();
 }
 
-// the bf16 form: the row form and the split-K form, neither with a map or
-// a producer transform (B1's backward scales dY by a pass)
+// the bf16 form's register path, for operands or outputs that TMA cannot
+// describe: the row form and the split-K form, neither with a map or a
+// producer transform (B1's backward scales dY by a pass)
 template <bool SPLIT_K>
-cudaError_t launch_bf16(const Args& a, int splits, cudaStream_t s) {
-  if (a.M < 1 || a.N < 1 || a.K < 0 || splits < 1) return cudaErrorInvalidValue;
-  const GemmExtra& x = a.x;
-  if (x.ln_mu || x.a_act != ACT_NONE || x.b_rs || x.hid || x.rpart || x.cpart)
-    return cudaErrorInvalidValue;
-  if (!SPLIT_K && a.out_f32 && (a.bias || a.rs || a.res || a.silu))
-    return cudaErrorInvalidValue;
+cudaError_t launch_bf16(const Args& a, int splits, const vtx::Bf16Opts& o, cudaStream_t s) {
+  if (o.promote) return cudaErrorInvalidValue;  // the TMA path's choice
   const bool narrow = cdiv(a.N, 64) * 64 < cdiv(a.N, 128) * 128;
-  if constexpr (SPLIT_K) {
-    if (a.a.cpt && a.b.cpt)  // both operands copied MN-major (the weight gradients)
-      return narrow
-                 ? launch_t<64, true, MAP_NONE, XF_NONE, ACT_SILU, BF16, CP_SLABS, 3>(a, splits,
-                                                                                   s)
-                 : launch_t<128, true, MAP_NONE, XF_NONE, ACT_SILU, BF16, CP_SLABS, 3>(a, splits,
-                                                                                    s);
-  } else if (a.a.cp && a.b.cp) {  // both operands copied, CP_SLABS slabs a stage
-    return narrow ? launch_t<64, false, MAP_NONE, XF_NONE, ACT_SILU, BF16, CP_SLABS>(a, 1, s)
-                  : launch_t<128, false, MAP_NONE, XF_NONE, ACT_SILU, BF16, CP_SLABS>(a, 1, s);
+  if (o.plan) {
+    o.plan[0] = 0;
+    o.plan[1] = narrow ? 64 : 128;
+    o.plan[2] = 1;
+    o.plan[3] = STAGES;
   }
   return narrow ? launch_t<64, SPLIT_K, MAP_NONE, XF_NONE, ACT_SILU, BF16>(a, splits, s)
                 : launch_t<128, SPLIT_K, MAP_NONE, XF_NONE, ACT_SILU, BF16>(a, splits, s);
+}
+
+// The bf16 form's route, by shape: TMA where it can describe A's rows, B's
+// rows or columns (B K-major where both would do) and the rows of out and
+// res (16-byte bases and row strides), else the register path
+inline bool tma_rows(const void* p, long long ld) { return aligned(p, 16) && ld % 8 == 0; }
+
+cudaError_t gemm_bf16_rows(const bf16* A, const bf16* B, long long sbk, long long sbn,
+                           const bf16* bias, const float* rs, int rs_rows, const bf16* res,
+                           void* out, int out_f32, int M, int N, int K, int silu,
+                           const vtx::Bf16Opts& o, cudaStream_t s) {
+  if (M < 1 || N < 1 || K < 0 || (out_f32 && (bias || rs || res || silu)))
+    return cudaErrorInvalidValue;
+  const bool b_k = sbk == 1 && tma_rows(B, sbn), b_mn = !b_k && sbn == 1 && tma_rows(B, sbk);
+  if (K > 0 && tma_rows(A, K) && (b_k || b_mn) && tma_rows(out, N * (out_f32 ? 2 : 1)) &&
+      (!res || tma_rows(res, N)) && (!bias || aligned(bias, 4))) {
+    const vtx::TmaGemm g{A,   K,   B, b_k ? sbn : sbk, bias, rs, rs_rows, res, out, 1, M, N, K,
+                         K, silu};
+    if (b_k)
+      return out_f32 ? vtx::gemm_bf16_tma<0, 0, 1>(g, o, s) : vtx::gemm_bf16_tma<0, 0, 0>(g, o, s);
+    return out_f32 ? vtx::gemm_bf16_tma<0, 1, 1>(g, o, s) : vtx::gemm_bf16_tma<0, 1, 0>(g, o, s);
+  }
+  Args a{};
+  a.a = operand(A, K, 1, M, K, 2);
+  a.b = operand(B, sbn, sbk, N, K, 2);
+  a.bias = bias;
+  a.rs = rs;
+  a.rs_rows = rs_rows;
+  a.res = res;
+  a.out = out;
+  a.out_f32 = out_f32;
+  a.M = M;
+  a.N = N;
+  a.K = K;
+  a.k_chunk = K;
+  a.silu = silu;
+  a.rows_map = MapRows{nullptr, 1};
+  return launch_bf16<false>(a, 1, o, s);
+}
+
+cudaError_t gemm_bf16_splitk(const bf16* A, int lda, const bf16* B, long long sbk,
+                             long long sbn, float* part, int splits, float* out, long long som,
+                             long long son, int M, int N, int K, const vtx::Bf16Opts& o,
+                             cudaStream_t s) {
+  if (M < 1 || N < 1 || K < 0 || splits < 1) return cudaErrorInvalidValue;
+  const bool b_k = sbk == 1 && tma_rows(B, sbn), b_mn = !b_k && sbn == 1 && tma_rows(B, sbk);
+  if (K > 0 && tma_rows(A, lda) && (b_k || b_mn) && tma_rows(part, 2 * (long long)N)) {
+    // slabs of whole 64-deep stages
+    const vtx::TmaGemm g{A,       lda, B, b_k ? sbn : sbk, nullptr, nullptr, 1, nullptr,
+                         part, splits, M, N, K, cdiv(cdiv(K, splits), 64) * 64, 0};
+    VTX_CHECK((b_k ? vtx::gemm_bf16_tma<1, 0, 1>(g, o, s) : vtx::gemm_bf16_tma<1, 1, 1>(g, o, s)));
+  } else {
+    Args a{};
+    a.a = operand(A, 1, lda, M, K, 2);
+    a.b = operand(B, sbn, sbk, N, K, 2);
+    a.rs_rows = 1;
+    a.out = part;
+    a.M = M;
+    a.N = N;
+    a.K = K;
+    a.k_chunk = cdiv(cdiv(K, splits), BK) * BK;
+    a.rows_map = MapRows{nullptr, 1};
+    VTX_CHECK(launch_bf16<true>(a, splits, o, s));
+  }
+  return launch_splitk_reduce(part, splits, M, N, out, som, son, s);
 }
 
 template <bool SPLIT_K, int MAP>
@@ -1357,41 +1243,16 @@ cudaError_t vtx::launch_gemm_bf16(const bf16* A, const bf16* B, long long sbk, l
                                   const bf16* bias, const float* rs, int rs_rows,
                                   const bf16* res, void* out, int out_f32, int M, int N, int K,
                                   int silu, cudaStream_t stream) {
-  gtc::Args a{};
-  a.a = gtc::operand(A, K, 1, M, K, 2);
-  a.b = gtc::operand(B, sbn, sbk, N, K, 2);
-  a.bias = bias;
-  a.rs = rs;
-  a.rs_rows = rs_rows;
-  a.res = res;
-  a.out = out;
-  a.out_f32 = out_f32;
-  a.M = M;
-  a.N = N;
-  a.K = K;
-  a.k_chunk = K;
-  a.silu = silu;
-  a.rows_map = MapRows{nullptr, 1};
-  return gtc::launch_bf16<false>(a, 1, stream);
+  return gtc::gemm_bf16_rows(A, B, sbk, sbn, bias, rs, rs_rows, res, out, out_f32, M, N, K,
+                             silu, vtx::Bf16Opts{}, stream);
 }
 
 cudaError_t vtx::launch_gemm_splitk_bf16(const bf16* A, int lda, const bf16* B, long long sbk,
                                          long long sbn, float* part, int splits, float* out,
                                          long long som, long long son, int M, int N, int K,
                                          cudaStream_t stream) {
-  if (splits < 1) return cudaErrorInvalidValue;
-  gtc::Args a{};
-  a.a = gtc::operand(A, 1, lda, M, K, 2);
-  a.b = gtc::operand(B, sbn, sbk, N, K, 2);
-  a.rs_rows = 1;
-  a.out = part;
-  a.M = M;
-  a.N = N;
-  a.K = K;
-  a.k_chunk = cdiv(cdiv(K, splits), gtc::BK) * gtc::BK;
-  a.rows_map = MapRows{nullptr, 1};
-  VTX_CHECK(gtc::launch_bf16<true>(a, splits, stream));
-  return launch_splitk_reduce(part, splits, M, N, out, som, son, stream);
+  return gtc::gemm_bf16_splitk(A, lda, B, sbk, sbn, part, splits, out, som, son, M, N, K,
+                               vtx::Bf16Opts{}, stream);
 }
 
 // The GEMM core alone, for its checks and timings (chip_smoke.py phase 3m):
@@ -1447,22 +1308,24 @@ extern "C" int vtx_gemm_tc(const float* A, int lda, const float* B, long long sb
 // The bf16 form alone (chip_smoke.py phase 3bf, the card's tests): form 0
 // launch_gemm_bf16 (out bf16, or f32 with out_f32), 3 launch_gemm_splitk_bf16
 // (A as Aᵀ storage with leading dimension lda, part [splits, M, N], out f32
-// through (som, son)).
+// through (som, son)); promote the TMA path's accumulation (0: the rule's;
+// Bf16Opts, common.cuh), plan (nullable) int[4] what ran.
 extern "C" int vtx_gemm_tc_bf16(const bf16* A, int lda, const bf16* B, long long sbk,
                                 long long sbn, const bf16* bias, const float* rs, int rs_rows,
                                 const bf16* res, void* out, int out_f32, int form, float* part,
                                 int splits, long long som, long long son, int M, int N, int K,
-                                int silu, void* stream) {
+                                int silu, int promote, int* plan, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const vtx::Bf16Opts o{promote, plan};
   switch (form) {
     case 0:
-      return static_cast<int>(launch_gemm_bf16(A, B, sbk, sbn, bias, rs, rs_rows, res, out,
-                                               out_f32, M, N, K, silu, s));
+      return static_cast<int>(gtc::gemm_bf16_rows(A, B, sbk, sbn, bias, rs, rs_rows, res, out,
+                                                   out_f32, M, N, K, silu, o, s));
     case 3:
       if (bias || rs || res || silu || out_f32) break;
-      return static_cast<int>(launch_gemm_splitk_bf16(A, lda, B, sbk, sbn, part, splits,
-                                                      static_cast<float*>(out), som, son, M,
-                                                      N, K, s));
+      return static_cast<int>(gtc::gemm_bf16_splitk(A, lda, B, sbk, sbn, part, splits,
+                                                    static_cast<float*>(out), som, son, M, N,
+                                                    K, o, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

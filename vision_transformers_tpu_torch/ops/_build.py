@@ -323,6 +323,7 @@ _SIGNATURES = {
         _P, _I, _I,              # out (bf16, or f32 with out_f32 / split-K), out_f32, form
         _P, _I, _L, _L,          # split-K slabs (workspace), their count, out strides
         _I, _I, _I, _I,          # M, N, K, silu
+        _I, _P,                  # the TMA path's promote (0: the rule's); plan
         _P,                      # stream
     ],
     "vtx_packed_attention_fwd_bf16": [

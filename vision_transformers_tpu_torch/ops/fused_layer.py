@@ -700,12 +700,9 @@ def _cuda_bwd(saved: AttnSaved, dz: torch.Tensor, need_drs: bool, need_dextra: b
     dbout = torch.empty((C,), **opts) if bout is not None else None
     drs = torch.empty((B,), **opts) if rs is not None and need_drs else None
     dextra = torch.empty_like(extra_g) if want_dextra else None
+    # the data gradients read each weight in place along its other axis (the
+    # bf16 GEMM's TMA loads take it N-major)
     entry = lib.vtx_fused_attention_layer_bwd_bf16 if bf16 else lib.vtx_fused_attention_layer_bwd
-    if bf16:
-        # the data gradients read each weight along its other axis: a
-        # contiguous copy makes that axis K-contiguous, so the GEMM core's
-        # producer copies both operands (the model's views read it along N)
-        wqkv, wout = wqkv.contiguous(), wout.contiguous()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         BWD_LAUNCHES += 1

@@ -53,10 +53,22 @@ f32 sums; the row form rounds where the JAX kernels round,
 ``round(round(round(a·b) + bias)·round(rs)) + res`` rounded (silu after the
 bias, rounded), or with ``out_f32`` returns the f32 sums; the split-K form
 returns the f32 sum of its slabs.  Neither takes the passes' options.
-:func:`gemm_bf16_reference` is its plain version.
+:func:`gemm_bf16_reference` is its plain version.  The kernel routes by
+shape (``csrc/gemm_tc.cu``): by TMA (``csrc/gemm_bf16_tma.cuh``) wherever
+every operand's rows and the output's are 16-byte strides from 16-byte
+bases (b may be K-major, the forward's ``w.t()``, or N-major, the data
+gradients' weight read in place), else on the register path; the TMA
+path picks its tile width by N.  ``promote`` chooses the TMA path's
+accumulation for chip_smoke.py's promotion check (``True``: the sums
+promoted every 64 k, at f32 out, K-major operands; ``False``: one
+accumulator over K, the rule's); None keeps the rule's, and a choice the
+kernels do not take raises.  ``plan=True`` also returns what ran:
+:data:`PLAN_KEYS` → values (route "tma" or "registers").
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -65,7 +77,7 @@ from .fused_layer import (_act, _act_grad, _raise_on, _rb, check_dtype, check_f3
 
 __all__ = ["gemm", "gemm_reference", "map_rows_of", "stage_a", "epilogue_partials",
            "drs_sums", "FORMS", "ACTS", "GEMM_LAUNCHES", "RPART_COLS", "CPART_ROWS",
-           "gemm_bf16", "gemm_bf16_reference"]
+           "gemm_bf16", "gemm_bf16_reference", "PLAN_KEYS"]
 
 # kernel launches through :func:`gemm` (only chip_smoke.py's phase 3m and the
 # card's tests call it; the ops' own launches of the core are theirs)
@@ -76,6 +88,7 @@ ACTS = {None: -1, "silu": 0, "gelu": 1}  # csrc/common.cuh ACT_NONE, ACT_SILU, A
 RPART_COLS = 64   # csrc/common.cuh: the row partials' column groups
 CPART_ROWS = 16   # csrc/common.cuh: the column partials' row slices
 DRS_ROWS = 64     # csrc/common.cuh: rows a block of the dr pass sums
+PLAN_KEYS = ("route", "bn", "promote", "stages")  # csrc/common.cuh Bf16Opts
 
 
 def map_rows_of(pix: torch.Tensor, M: int) -> torch.Tensor:
@@ -307,14 +320,18 @@ def gemm_bf16_reference(a, b, bias=None, silu=False, rs=None, rs_rows=1, res=Non
 
 
 def gemm_bf16(a, b, bias=None, silu=False, rs=None, rs_rows=1, res=None, form="rows",
-              splits=1, out_f32=False):
+              splits=1, out_f32=False, promote=None, plan=False):
     """The GEMM core's bf16 form; see the module.  A CPU tensor runs
-    :func:`gemm_bf16_reference`."""
+    :func:`gemm_bf16_reference` (and takes no kernel choice)."""
     if form not in ("rows", "splitk"):
         raise ValueError(f"the bf16 form takes form 'rows' or 'splitk', got {form!r}")
+    if promote is not None and not isinstance(promote, bool):
+        raise ValueError(f"promote must be None or a bool, got {promote!r}")
     if not a.is_cuda:
         if a.device.type != "cpu":
             raise NotImplementedError(f"no gemm for device {a.device}")
+        if plan or promote is not None:
+            raise ValueError("the plain version has no kernel to choose or plan")
         return gemm_bf16_reference(a, b, bias, silu, rs, rs_rows, res, form, out_f32)
     global GEMM_LAUNCHES
     check_dtype(a.device, torch.bfloat16, a=a, b=b, bias=bias, res=res)
@@ -340,12 +357,17 @@ def gemm_bf16(a, b, bias=None, silu=False, rs=None, rs_rows=1, res=None, form="r
     f32 = splitk or out_f32
     out = torch.empty((M, N), device=a.device, dtype=torch.float32 if f32 else torch.bfloat16)
     part = torch.empty((splits * M * N,), device=a.device) if splitk else None
+    ran = (ctypes.c_int * len(PLAN_KEYS))()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         GEMM_LAUNCHES += 1
         err = lib.vtx_gemm_tc_bf16(
             ptr(a), M if splitk else K, ptr(b), b.stride(0), b.stride(1), ptr(bias), ptr(rs),
             rs_rows, ptr(res), ptr(out), int(out_f32), FORMS[form], ptr(part), splits, N, 1,
-            M, N, K, int(silu), stream)
+            M, N, K, int(silu), {None: 0, True: 1, False: 2}[promote], ran, stream)
     _raise_on(err, "gemm_bf16")
-    return out
+    if not plan:
+        return out
+    route = {"route": "tma" if ran[0] else "registers", "bn": ran[1], "promote": ran[2] == 1,
+             "stages": ran[3]}
+    return out, route
