@@ -171,8 +171,15 @@ non-zero and prints no ok line):
            3e-2·max(1, max|plain|) and bit-identical across two runs; median
            ms of B1 forward / backward at the trainer's call and B2 at the
            eval's, bounds at the dense bf16 rate (989 TFLOP/s); the
-           packed-row core's bf16 form alone beside
-           F.scaled_dot_product_attention on the same bf16 q, k, v
+           packed-row attention's bf16 form alone (csrc/attention_bf16_tma.cuh,
+           wgmma fed by TMA): forward with and without lse and backward
+           against their plain versions at odd shapes (N 1 to 577, heads
+           16 to 64 wide), the backward bit-identical across two runs, and
+           at ViT-S/16's 128 x 197 timed on the device (a CUDA graph of 10
+           calls; the backward with its dq sum) beside
+           F.scaled_dot_product_attention's forward and its backward alone
+           (torch.autograd.grad on a retained graph) on the same bf16 q, k,
+           v, the single-call medians beside
 4. golden  ViT-S/16 @224 (depth 12), Swin-S @224 (depth 24), Halo-S @256
            (depth 12), PVT-S @224 (depth 16) and Twins-SVT-S @224 (depth
            18), seeded weights, against the JAX logits in
@@ -372,6 +379,13 @@ KERNELS = {  # name → (source, the TPU kernel it replaces)
                                         "vision_transformers_tpu/ops/fused_layer.py:183"),
     "fused_transformer_layer[bf16]": ("vision_transformers_tpu_torch/csrc/fused_layer.cu",
                                       "vision_transformers_tpu/ops/fused_layer1.py:91"),
+    # the attention inside B1's and B2's bf16 forms (the JAX kernels' bf16
+    # attention, fused_layer.py:116 / :183, fused_layer1.py:91), timed alone
+    # at ViT-S/16 and counted on the bf16 trainer's run
+    "packed_attention[bf16]": ("vision_transformers_tpu_torch/csrc/attention_bf16_tma.cuh",
+                               "vision_transformers_tpu/ops/fused_layer.py:116"),
+    "packed_attention_bwd[bf16]": ("vision_transformers_tpu_torch/csrc/attention_bf16_tma.cuh",
+                                   "vision_transformers_tpu/ops/fused_layer.py:183"),
 }
 # the tensor-core kernels (3xTF32): the attention of csrc/attention_tc.cuh, which
 # B6, B3 and B8 run, and of csrc/halo_attention_tc.cuh, which B5a, B5b and B4's
@@ -381,7 +395,7 @@ KERNELS = {  # name → (source, the TPU kernel it replaces)
 # tensor-core rate
 TENSOR_CORE_FUNCTIONS = ("attn_fwd_kernel", "attn_bwd_kernel", "halo_fwd_kernel",
                          "halo_bwd_kernel", "window_fwd_kernel", "window_bwd_kernel",
-                         "gemm_tc_kernel")
+                         "gemm_tc_kernel", "bf16_attn_fwd_kernel", "bf16_attn_bwd_kernel")
 KERNEL_TOL = 1e-4
 DEVICE = "cuda"
 
@@ -501,19 +515,47 @@ def gemm_bf16_builds(build_log):
     return out
 
 
+def attention_bf16_builds(build_log):
+    """Each kernel of the bf16 packed-row attention (csrc/attention_bf16_tma.cuh)
+    that ptxas compiled: its name, registers and spill bytes, from nvcc's
+    ``-Xptxas -v`` report."""
+    out, cur = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = None
+            t = re.search(r"3abt\d+(bf16_attn_\w+?_kernel)(I(?:L[ib]\d+E)+E)?", m.group(1))
+            if t:
+                args = ",".join(re.findall(r"L[ib](\d+)E", t.group(2) or ""))
+                cur = {"kernel": t.group(1) + (f"<{args}>" if args else "")}
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            cur = None
+    return out
+
+
 def tensor_core_counts(_build, library):
     """The tensor-core instructions in ``cuobjdump -sass`` (HMMA: mma.sync;
     HGMMA: wgmma) of each instantiation of the tensor-core kernels — the
     attention of attention_tc.cuh, halo_attention_tc.cuh and
     window_attention_tc.cuh, in each source that compiles them
     (fused_attention_qkv.cu alone for attention_tc.cuh: B6, B3, B8 and the
-    bias-free attention of B1 and B2; fused_halo.cu for B5a, B5b and B4;
-    fused_layer.cu / fused_layer_bwd.cu for B1's bias calls, B2 and B9),
-    and the GEMM core's (gemm_tc.cu); raises if one has none, or if
-    attention_tc.cuh's kernels come from more than one source."""
+    f32 bias-free attention of B1 and B2; fused_halo.cu for B5a, B5b and
+    B4; fused_layer.cu / fused_layer_bwd.cu for B1's bias calls, B2 and
+    B9), the bf16 packed-row attention's (attention_bf16.cu) and the GEMM
+    core's (gemm_tc.cu); raises if one has none, or if attention_tc.cuh's
+    kernels come from more than one source."""
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     sass = run([cuobjdump, "-sass", library], timeout=300)
-    pattern = re.compile(r"_GLOBAL__N__\w+?_\d+_(\w+?)_cu_[0-9a-f]+3(?:tca|hta|gtc|wta)\d+("
+    pattern = re.compile(r"_GLOBAL__N__\w+?_\d+_(\w+?)_cu_[0-9a-f]+3(?:tca|hta|gtc|wta|abt)\d+("
                          + "|".join(TENSOR_CORE_FUNCTIONS) + r")(?:I((?:L[ib]\d+E)+)E)?")
     counts, name = {}, None
     for line in sass.splitlines():
@@ -1486,14 +1528,115 @@ def promotion_check(torch):
     return errs
 
 
+# the packed-row attention's bf16 form at odd shapes (B, N, H, D): one key
+# (no gradient), one 128-key tile, two, the 208-key tile's edges, past the
+# 256 keys whose dq is summed in shared memory; heads 16 to 64 wide
+PACKED_BF16_ODD = ((2, 1, 2, 16), (2, 17, 3, 40), (2, 65, 2, 64), (2, 129, 3, 32),
+                   (2, 193, 2, 64), (2, 208, 2, 40), (2, 257, 2, 16), (2, 577, 2, 64))
+
+
+def packed_attention_bf16_kernels(torch):
+    """The packed-row attention's bf16 form alone (csrc/attention_bf16_tma.cuh,
+    through ops/fused_layer.py's thin doors): the forward with and without
+    lse and the backward against their plain versions at PACKED_BF16_ODD
+    and ViT-S/16's 128 x 197, the backward twice and bit-identical; at
+    ViT-S/16 the device times (a CUDA graph of 10 calls; the backward with
+    its dq sum and the L / Δ pass before it) beside
+    scaled_dot_product_attention's forward and its backward alone
+    (torch.autograd.grad on a retained graph, recorded on the timing
+    stream) on the same bf16 q, k, v, the single-call medians, the plain
+    versions' and the bounds.  Returns (forward record, backward record)."""
+    from vision_transformers_tpu_torch.ops import fused_layer as fl
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=DEVICE).manual_seed(19)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    B, N, C, H, D, F = VIT_TRAIN
+    for b_, n_, h_, d_ in PACKED_BF16_ODD + ((B, N, H, D),):
+        route = fl.packed_attention_bf16_route(n_)
+        what = (f"packed-row attention B,N,H,D=({b_},{n_},{h_},{d_}) (route: "
+                f"{route['key_tile']}-key tiles, dq in {route['dq']})")
+        qkv = torch.randn(b_, n_, 3 * h_ * d_, generator=g, device=DEVICE).to(bf)
+        do = torch.randn(b_, n_, h_ * d_, generator=g, device=DEVICE).to(bf)
+        out, lse = fl.packed_attention_bf16(qkv, h_)
+        serving, _ = fl.packed_attention_bf16(qkv, h_, save=False)
+        d1 = fl.packed_attention_bf16_bwd(qkv, out, lse, do, h_)
+        d2 = fl.packed_attention_bf16_bwd(qkv, out, lse, do, h_)
+        torch.cuda.synchronize()
+        ref, ref_lse = fl.packed_attention_reference(qkv, h_)
+        plain = fl.attention_bwd_reference(qkv, out, lse, do, h_, d_ ** -0.5, dtype=bf)[0]
+        if not torch.equal(serving, out):
+            raise RuntimeError(f"bf16: {what}: the serving forward differs from the saving one")
+        if not torch.equal(d1, d2):
+            raise RuntimeError(f"bf16: {what}: dqkv differs between two runs")
+        worst["fwd"] = max(worst["fwd"], bf16_close(torch, what + " out", out, ref,
+                                                    BF16_FWD_TOL))
+        bf16_close(torch, what + " lse", lse, ref_lse, 1e-5)
+        worst["bwd"] = max(worst["bwd"], bf16_close(
+            torch, what + " dqkv (bit-identical across two runs)", d1, plain, BF16_BWD_TOL))
+    # ViT-S/16: the last call's q, k, v
+    scale = D ** -0.5
+    q, k, v = (t.detach().requires_grad_() for t in
+               qkv.view(B, N, 3, H, D).permute(2, 0, 3, 1, 4).unbind(0))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bf16_close(torch, "packed-row attention at ViT-S/16 vs SDPA",
+               out.view(B, N, H, D).transpose(1, 2), sdpa(q, k, v).detach(), BF16_FWD_TOL)
+    ms = {"fwd": device_ms(torch, lambda: fl.packed_attention_bf16(qkv, H)),
+          "serving": device_ms(torch, lambda: fl.packed_attention_bf16(qkv, H, save=False)),
+          "bwd": device_ms(torch, lambda: fl.packed_attention_bf16_bwd(qkv, out, lse, do, H))}
+    call = {"fwd": median_ms(torch, lambda: fl.packed_attention_bf16(qkv, H)),
+            "bwd": median_ms(torch, lambda: fl.packed_attention_bf16_bwd(qkv, out, lse, do,
+                                                                         H))}
+    plain_ms = {"fwd": median_ms(torch, lambda: fl.packed_attention_reference(qkv, H)),
+                "bwd": median_ms(torch, lambda: fl.attention_bwd_reference(
+                    qkv, out, lse, do, H, scale, dtype=bf))}
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            sdpa(q, k, v)
+
+    sdpa_ms = {"fwd": device_ms(torch, sdpa_fwd)}
+    # its backward alone: the forward recorded on the timing stream, so that
+    # autograd runs the backward there, inside the capture
+    timing = _WARMUP_STREAM[0]
+    timing.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(timing):
+        o = sdpa(q, k, v)
+    torch.cuda.current_stream().wait_stream(timing)
+    dog = do.view(B, N, H, D).transpose(1, 2)
+    sdpa_ms["bwd"] = device_ms(torch, lambda: torch.autograd.grad(o, (q, k, v), dog,
+                                                                  retain_graph=True))
+    del o
+    work = 4 * B * H * N * N * D
+    bounds = {"fwd": bound(work, 2 * 4 * B * N * H * D + 4 * B * H * N, H100_BF16_FLOPS),
+              "bwd": bound(2.5 * work, 2 * 8 * B * N * H * D + 4 * B * H * N, H100_BF16_FLOPS)}
+    release_timing_stream(torch)
+    log(f"bf16: the packed-row attention alone at ViT-S/16 (128 x 197, 6 heads x 64), device "
+        f"ms (a CUDA graph of 10 calls): kernel fwd {ms['fwd']:.4f} (serving, no lse "
+        f"{ms['serving']:.4f}), bwd with its dq sum {ms['bwd']:.4f}; "
+        f"scaled_dot_product_attention fwd {sdpa_ms['fwd']:.4f}, bwd alone "
+        f"{sdpa_ms['bwd']:.4f}; bounds fwd {bounds['fwd'][0]:.4f} ({bounds['fwd'][1]}), bwd "
+        f"{bounds['bwd'][0]:.4f} ({bounds['bwd'][1]}); a call from the host fwd "
+        f"{call['fwd']:.3f}, bwd {call['bwd']:.3f}; plain fwd {plain_ms['fwd']:.3f}, bwd "
+        f"{plain_ms['bwd']:.3f}")
+    shape = "ViT-S/16, B,N,H,D=128,197,6,64"
+    return tuple({"shape": shape + (", lse" if kind == "fwd" else ", dq summed on chip"),
+                  "max_abs_err": worst[kind], "ms": ms[kind], "call_ms": call[kind],
+                  "plain_ms": plain_ms[kind], "bound_ms": bounds[kind][0],
+                  "bound_by": bounds[kind][1], "library_ms": sdpa_ms[kind],
+                  "route": fl.packed_attention_bf16_route(N),
+                  **({"serving_ms": ms["serving"]} if kind == "fwd" else {})}
+                 for kind in ("fwd", "bwd"))
+
+
 def bf16_kernels(torch):
     """3bf: the bf16 forms of B1 (forward with saves, serving, backward) and
     B2 (serving) against their plain versions at odd shapes and at the
     ViT-S/16 trainer's and eval's calls (128 images, per-sample row scales),
     the backward twice for bit-identity; the GEMM core's bf16 form at the
-    products of those calls, and the packed-row core's bf16 form alone beside
-    scaled_dot_product_attention on the same bf16 q, k, v.  Returns the
-    timed records of the three entries."""
+    products of those calls, and the packed-row attention's bf16 form alone
+    (packed_attention_bf16_kernels).  Returns the timed records of the three
+    entries and of the attention's two kernels."""
     from vision_transformers_tpu_torch.ops import fused_layer as fl
     from vision_transformers_tpu_torch.ops import fused_layer1 as fl1
 
@@ -1559,30 +1702,7 @@ def bf16_kernels(torch):
     fwd_bound, fwd_by = bound(*b1_bf16_work(B, N, C, H, D), H100_BF16_FLOPS)
     bwd_bound, bwd_by = bound(*b1_bf16_work(B, N, C, H, D, backward=True), H100_BF16_FLOPS)
     l1_bound, l1_by = bound(*b2_bf16_work(*VIT_TRAIN), H100_BF16_FLOPS)
-    # the packed-row core's bf16 form alone beside SDPA on the same q, k, v
-    qkv = torch.randn(B, N, 3 * H * D, device=DEVICE).to(bf)
-    do = torch.randn(B, N, H * D, device=DEVICE).to(bf)
-    att_out, lse = fl.packed_attention_bf16(qkv, H)
-    att_fwd_ms = median_ms(torch, lambda: fl.packed_attention_bf16(qkv, H))
-    att_bwd_ms = median_ms(torch, lambda: fl.packed_attention_bf16_bwd(qkv, att_out, lse, do,
-                                                                       H))
-    q, k, v = qkv.view(B, N, 3, H, D).permute(2, 0, 3, 1, 4).unbind(0)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    sdpa_fwd_ms = median_ms(torch, lambda: sdpa(q, k, v))
-    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    dog = do.view(B, N, H, D).transpose(1, 2)
-
-    def sdpa_fwd_bwd():
-        sdpa(qg, kg, vg).backward(dog)
-
-    sdpa_both_ms = median_ms(torch, sdpa_fwd_bwd)
-    bf16_close(torch, "packed-row attention B,N,H,D=(128,197,6,64) vs SDPA",
-               att_out.view(B, N, H, D).transpose(1, 2), sdpa(q, k, v), BF16_FWD_TOL)
-    att_work = 4 * B * H * N * N * D
-    att_fwd_bound, _ = bound(att_work, 2 * 4 * B * N * H * D + 4 * B * H * N,
-                             H100_BF16_FLOPS)
-    att_bwd_bound, _ = bound(2.5 * att_work, 2 * 8 * B * N * H * D + 4 * B * H * N,
-                             H100_BF16_FLOPS)
+    att_fwd, att_bwd = packed_attention_bf16_kernels(torch)
     log(f"bf16: B1 at the ViT-S/16 trainer's call B,N,C,H,D={VIT_TRAIN[:5]} with row scales "
         f"(median of 20, CUDA events): kernel fwd(saves) {fwd_ms:.3f} + bwd {bwd_ms:.3f} = "
         f"{fwd_ms + bwd_ms:.3f} ms; plain fwd {plain_fwd_ms:.3f} + bwd {plain_bwd_ms:.3f} ms; "
@@ -1590,10 +1710,6 @@ def bf16_kernels(torch):
         f"({bwd_by}) ms")
     log(f"bf16: B2 at the eval's call (128 rows): kernel {l1_ms:.3f} ms, plain "
         f"{plain_l1_ms:.3f} ms, bound {l1_bound:.3f} ms ({l1_by})")
-    log(f"bf16: the packed-row attention alone (128 x 197, 6 heads x 64): kernel fwd "
-        f"{att_fwd_ms:.3f} ms (bound {att_fwd_bound:.3f}), bwd {att_bwd_ms:.3f} ms (bound "
-        f"{att_bwd_bound:.3f}); scaled_dot_product_attention fwd {sdpa_fwd_ms:.3f} ms, fwd + "
-        f"bwd {sdpa_both_ms:.3f} ms")
     shape = "ViT-S/16 trainer, B,N,C,H,D=" + ",".join(map(str, VIT_TRAIN[:5])) + ", row scale"
     return {
         "fused_attention_layer[bf16]": [{
@@ -1614,7 +1730,9 @@ def bf16_kernels(torch):
         "fused_transformer_layer[bf16]": [{
             "shape": "ViT-S/16 eval, B,N,C,H,D,F=" + ",".join(map(str, VIT_TRAIN)),
             "max_abs_err": worst["l1"], "ms": l1_ms, "plain_ms": plain_l1_ms,
-            "bound_ms": l1_bound, "bound_by": l1_by, "library_ms": None}]}
+            "bound_ms": l1_bound, "bound_by": l1_by, "library_ms": None}],
+        "packed_attention[bf16]": [att_fwd],
+        "packed_attention_bwd[bf16]": [att_bwd]}
 
 
 # ---------------------------------------------------------------------------
@@ -3211,7 +3329,9 @@ def counted_modules():
             "fused_swin_layer_bwd": (fused_swin, "BWD_LAUNCHES"),
             "fused_attention_layer[bf16]": (fused_layer, "BF16_LAUNCHES"),
             "fused_attention_layer_bwd[bf16]": (fused_layer, "BF16_BWD_LAUNCHES"),
-            "fused_transformer_layer[bf16]": (fused_layer1, "BF16_LAUNCHES")}
+            "fused_transformer_layer[bf16]": (fused_layer1, "BF16_LAUNCHES"),
+            "packed_attention[bf16]": (fused_layer, "PACKED_BF16_LAUNCHES"),
+            "packed_attention_bwd[bf16]": (fused_layer, "PACKED_BF16_BWD_LAUNCHES")}
 
 
 def counts():
@@ -3489,7 +3609,8 @@ def bf16_golden(torch):
         before = counts()
         logits = mod.port_logits(seed, DEVICE, rows, impl, model)
         torch.cuda.synchronize()
-        expect_path(before, counts(), {kernel: 12, kernel + "[bf16]": 12},
+        expect_path(before, counts(), {kernel: 12, kernel + "[bf16]": 12,
+                                       "packed_attention[bf16]": 12},
                     f"bf16 golden, {rows} rows on {impl}")
         err, lim = mod.check_logits(logits, g, impl)
         log(f"golden: ViT-S/16 bf16 logits, {rows} rows via {kernel} (bf16): max|port - JAX "
@@ -3497,7 +3618,9 @@ def bf16_golden(torch):
     before = counts()
     ours = mod.port_train(seed, DEVICE, GOLDEN_ROWS, None, model)
     torch.cuda.synchronize()
-    expect_path(before, counts(), {fal: 12, fal + "[bf16]": 12, falb: 12, falb + "[bf16]": 12},
+    expect_path(before, counts(), {fal: 12, fal + "[bf16]": 12, falb: 12, falb + "[bf16]": 12,
+                                   "packed_attention[bf16]": 12,
+                                   "packed_attention_bwd[bf16]": 12},
                 f"bf16 golden train step, {GOLDEN_ROWS} rows")
     checks = mod.check_train(ours, g)
     log(f"golden: ViT-S/16 bf16 train step, {GOLDEN_ROWS} rows via {fal} (bf16) forward and "
@@ -3714,8 +3837,11 @@ def vit_trainers(torch, has_pil):
     expected = {fal: 48, falb: 48, ftl: 24}
     f32_run, bf16_run = {}, {}
     f32 = train_main_path(torch, has_pil, "ViT-S/16", expected, steady_out=f32_run)
+    # ... and the attention of each bf16 call on the packed-row core's bf16 form
     bf16 = train_main_path(torch, has_pil, "ViT-S/16",
-                           {**expected, **{k + "[bf16]": v for k, v in expected.items()}},
+                           {**expected, **{k + "[bf16]": v for k, v in expected.items()},
+                            "packed_attention[bf16]": 48 + 24,
+                            "packed_attention_bwd[bf16]": 48},
                            precision=None, steady_out=bf16_run)
     (f32_s, f32_peak), (bf_s, bf_peak) = f32_run.values(), bf16_run.values()
     log(f"trainer: ViT-S/16 at 128 images, steady state in this run: f32 {f32_s * 1e3:.2f} "
@@ -4013,16 +4139,25 @@ def main() -> None:
                   fal + "+bias": "DINO train", falb + "+bias": "DINO train",
                   fal + "[bf16]": "ViT-S/16 train (bf16)",
                   falb + "[bf16]": "ViT-S/16 train (bf16)",
-                  ftl + "[bf16]": "ViT-S/16 train (bf16)"}
-    # the bf16 entries run the GEMM core's bf16 form: its TMA kernels as built
+                  ftl + "[bf16]": "ViT-S/16 train (bf16)",
+                  "packed_attention[bf16]": "ViT-S/16 train (bf16)",
+                  "packed_attention_bwd[bf16]": "ViT-S/16 train (bf16)"}
+    # the bf16 layers run the GEMM core's bf16 form (its TMA kernels as
+    # built) and the packed-row attention's (its kernels as built)
     from vision_transformers_tpu_torch.ops import _build
     tma_kernels = gemm_bf16_builds(_build.BUILD_LOG)
+    attention_kernels = attention_bf16_builds(_build.BUILD_LOG)
+
+    def builds(k):
+        if k.startswith("packed_attention"):
+            return {"attention_bf16_kernels": attention_kernels}
+        return {"gemm_bf16_kernels": tma_kernels} if k.endswith("[bf16]") else {}
+
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": paths[trainer_of[k]][k],
          "launches_by_path": {p: c[k] for p, c in paths.items()},
-         **timed[k][0], "other_shapes": timed[k][1:],
-         **({"gemm_bf16_kernels": tma_kernels} if k.endswith("[bf16]") else {})}
+         **timed[k][0], "other_shapes": timed[k][1:], **builds(k)}
         for k, (src, rep) in KERNELS.items()]}
     # a bound is the least time the card could take: no kernel beats it
     shares = {f"{k} {e['shape']}": e["bound_ms"] / e["ms"] for k in KERNELS

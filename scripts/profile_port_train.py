@@ -75,6 +75,7 @@ GROUPS = (("at::native", "other (elementwise, reductions, conv)"),
           ("window_bwd_kernel", "hand-written attention backward"),
           ("window_fwd_kernel", "hand-written attention forward"),
           ("attn_bwd", "hand-written attention backward"),
+          ("attn_rows", "hand-written attention backward"),  # its L / Δ pass (bf16)
           ("attn_fwd", "hand-written attention forward"),
           ("splitk_reduce", "other hand-written"), ("colsum", "other hand-written"),
           ("ln_", "other hand-written"),

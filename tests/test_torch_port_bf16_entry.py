@@ -14,8 +14,11 @@ naming the ROADMAP queue, and casts nothing.
 The ``cuda`` tests hold the bf16 kernels against their plain versions on
 the card at chip_smoke.py's limits (one bf16 ulp is 2⁻⁸): forward within
 1.6e-2·max(1, max|plain|), every gradient within 3e-2·max(1, max|plain|)
-and bit-identical across two runs.  No JAX here, so they run where JAX is
-absent.
+and bit-identical across two runs; among them the packed-row attention's
+bf16 form alone (csrc/attention_bf16_tma.cuh) over N from 1 to 577 (one
+128-key tile, two, the 208-key tile, past the 256 keys whose dq is summed
+in shared memory) and heads 16 to 64 wide.  No JAX here, so they run where
+JAX is absent.
 """
 
 import numpy as np
@@ -70,24 +73,52 @@ def test_b1_bf16_takes_the_bf16_entries(monkeypatch, shape):
     assert dwqkv.shape == args[3].shape and dextra is None
 
 
-def test_b1_bf16_dq_partials_even_with_one_key_tile(monkeypatch):
-    B, N, C, H, D, F = SHAPES["odd"]
+def b1_bf16_workspaces(monkeypatch, shape, rows_scaled):
+    """The ``dq_part`` workspaces B1's bf16 backward allocates, and its call."""
+    B, N, C, H, D, F = shape
     args = bf16_inputs(B, N, C, H, D, F)[:7]
+    r = torch.full((B,), 1 / 0.9) if rows_scaled else None
     made = []
-    make = fused_layer.dq_partials
+    make = fused_layer.bf16_attention_workspace
 
     def record(*a, **kw):
         made.append(make(*a, **kw))
         return made[-1]
 
-    monkeypatch.setattr(fused_layer, "dq_partials", record)
+    monkeypatch.setattr(fused_layer, "bf16_attention_workspace", record)
     with fake_cuda(monkeypatch) as lib:
-        out, res = fused_layer._cuda_fwd(*args, H, None, 1, None, D ** -0.5, 1e-6, save=True)
-        saved = fused_layer.AttnSaved(*args, None, *res, None, H, D ** -0.5, 1e-6)
-        fused_layer._cuda_bwd(saved, torch.zeros_like(out), False, False)
-        bwd = lib.calls["vtx_fused_attention_layer_bwd_bf16"]
-    assert len(made) == 1 and made[0].shape == (1, B * N, H * D)
+        out, res = fused_layer._cuda_fwd(*args, H, None, 1, r, D ** -0.5, 1e-6, save=True)
+        saved = fused_layer.AttnSaved(*args, r, *res, None, H, D ** -0.5, 1e-6)
+        fused_layer._cuda_bwd(saved, torch.zeros_like(out), rows_scaled, False)
+        return made, lib.calls["vtx_fused_attention_layer_bwd_bf16"]
+
+
+def test_b1_bf16_dq_partials_even_with_one_key_tile(monkeypatch):
+    # one key tile and no row scale: the workspace is still passed, and holds
+    # only the attention's L and Δ rows [B·H, ceil(N / 64), 2, 64] (dq is
+    # summed in the kernel's shared memory: no f32 partials)
+    B, N, C, H, D, F = SHAPES["odd"]
+    made, bwd = b1_bf16_workspaces(monkeypatch, SHAPES["odd"], False)
+    assert len(made) == 1 and made[0].shape == (2 * B * H * 64,)
     assert made[0].dtype == torch.float32 and bwd["dq_part"] == made[0].data_ptr()
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_b1_bf16_workspace_holds_dacc0_with_a_row_scale(monkeypatch, shape):
+    B, N, C, H, D, F = SHAPES[shape]
+    made, bwd = b1_bf16_workspaces(monkeypatch, SHAPES[shape], True)
+    assert len(made) == 1 and made[0].shape == (B * N * H * D,)
+    assert bwd["dq_part"] == made[0].data_ptr() and bwd["rs"] is not None
+
+
+@pytest.mark.parametrize("N, floats", [
+    (1, 2 * 12 * 64), (64, 2 * 12 * 64), (65, 2 * 12 * 128), (197, 2 * 12 * 256),
+    (256, 2 * 12 * 256),
+    # past 256 keys the key tiles' dq partials [ceil(N / 128), B·N, H·D] follow
+    (257, 2 * 12 * 320 + 3 * 4 * 257 * 3 * 40), (577, 2 * 12 * 640 + 5 * 4 * 577 * 3 * 40)])
+def test_bf16_attention_workspace_rule(N, floats):
+    # B = 4 images, H = 3 heads 40 wide: the rows of csrc/attention_bf16.cu
+    assert fused_layer.packed_attention_bf16_floats(4, N, 3, 40) == floats
 
 
 def test_b2_bf16_serves_on_its_bf16_entry(monkeypatch):
@@ -216,6 +247,30 @@ def test_cuda_b2_bf16_matches_plain(shape):
     r = torch.tensor([1 / 0.9] * B).cuda()
     within("out", fused_layer1.fused_transformer_layer(*a, H, rs_attn=r, rs_ff=r),
            fused_layer1.fused_transformer_layer_reference(*a, H, rs_attn=r, rs_ff=r), FWD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32, 40, 64])
+@pytest.mark.parametrize("N", [1, 17, 64, 65, 128, 129, 197, 257, 577])
+def test_cuda_packed_attention_bf16_matches_plain(N, D):
+    needs_card()
+    B, H = 2, 3
+    g = torch.Generator().manual_seed(100 * N + D)
+    qkv = torch.randn(B, N, 3 * H * D, generator=g).to(bf).cuda()
+    dout = torch.randn(B, N, H * D, generator=g).to(bf).cuda()
+    out, lse = fused_layer.packed_attention_bf16(qkv, H)
+    serving, no_lse = fused_layer.packed_attention_bf16(qkv, H, save=False)
+    ref, ref_lse = fused_layer.packed_attention_reference(qkv, H)
+    assert no_lse is None and torch.equal(serving, out)
+    within("out", out, ref, FWD_TOL)
+    within("lse", lse, ref_lse, 1e-5)
+    dqkv = fused_layer.packed_attention_bf16_bwd(qkv, out, lse, dout, H)
+    again = fused_layer.packed_attention_bf16_bwd(qkv, out, lse, dout, H)
+    plain = fused_layer.attention_bwd_reference(qkv, out, lse, dout, H, D ** -0.5, dtype=bf)[0]
+    assert torch.equal(dqkv, again), "dqkv differs between two runs"
+    HD = H * D
+    for i, name in enumerate(("dq", "dk", "dv")):
+        within(name, dqkv[..., i * HD:(i + 1) * HD], plain[..., i * HD:(i + 1) * HD], BWD_TOL)
 
 
 @pytest.mark.cuda

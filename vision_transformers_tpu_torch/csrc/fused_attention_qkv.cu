@@ -1,6 +1,6 @@
 // Attention on Hopper's tensor cores, float32 (sm_90a): the one source that
 // compiles the attention core attention_tc.cuh, for the ops below (B3, B8,
-// the bias-free attention of B1 and B2, and B6).
+// the bias-free attention of B1 and B2 at f32, and B6).
 //
 // 1. Packed-qkv self-attention, forward and backward:
 //
@@ -66,14 +66,15 @@
 // next product through registers, and 16-byte cp.async keeps the next tile
 // in flight.
 //
-// The bf16 form of this attention (vtx::packed_attention_fwd_bf16 / _bwd_bf16
-// below: B1's and B2's bias-free attention at the JAX package's default
-// precision) is attention_tc.cuh's E = BF16 instantiation: bf16 q, k, v on
-// mma.sync m16n8k16, f32 softmax, lse and dq partials.
+// The bf16 form of this attention (B1's and B2's bias-free attention at
+// the JAX package's default precision) is a core of its own on wgmma fed by
+// TMA (attention_bf16_tma.cuh, compiled into attention_bf16.cu), not an
+// instantiation of this one.  B1's bias calls, B2's and B9's attention with
+// a bias run on window_attention_tc.cuh, which keeps a group's bias
+// resident over a chunk of windows instead of one (pair, head) a block.
 //
-// What later work changes: wgmma tiles (V transposed K-major).  (B1's bias calls, B2's and B9's attention with a bias run on
-// window_attention_tc.cuh, which keeps a group's bias resident over a chunk
-// of windows instead of one (pair, head) a block.)
+// What later work changes: wgmma tiles for the f32 form too (V transposed
+// K-major).
 //
 // 2. Reduced-kv attention (B6), forward and backward:
 //
@@ -163,13 +164,12 @@ group_sum_kernel(const float* __restrict__ ds, int R, long long per_row,
 }
 
 // q, k, v of the packed rows, extra as the grouped [G, H, N, N]
-template <typename T>
-void packed(tca::RowsT<T>& q, tca::RowsT<T>& k, tca::RowsT<T>& v, tca::Bias& bias,
-            const T* qkv, const float* extra, int groups, int B, int N, int H, int D) {
+void packed(tca::Rows& q, tca::Rows& k, tca::Rows& v, tca::Bias& bias, const float* qkv,
+            const float* extra, int groups, int B, int N, int H, int D) {
   const long long HD = (long long)H * D, rs = 3 * HD;
-  q = tca::RowsT<T>{qkv, N * rs, D, rs};
-  k = tca::RowsT<T>{qkv + HD, N * rs, D, rs};
-  v = tca::RowsT<T>{qkv + 2 * HD, N * rs, D, rs};
+  q = tca::Rows{qkv, N * rs, D, rs};
+  k = tca::Rows{qkv + HD, N * rs, D, rs};
+  v = tca::Rows{qkv + 2 * HD, N * rs, D, rs};
   const long long NN = (long long)N * N;
   bias = tca::Bias{extra, extra ? B / groups : 1, H * NN, NN, N};
 }
@@ -236,64 +236,8 @@ cudaError_t vtx::packed_attention_bwd(const float* qkv, const float* extra, int 
   return cudaSuccess;
 }
 
-// The bf16 form of the packed-row attention (common.cuh), bias-free: the
-// forward, out [B, N, H·D] bf16 and lse f32 or null ...
-cudaError_t vtx::packed_attention_fwd_bf16(const bf16* qkv, bf16* out, float* lse, int B,
-                                           int N, int H, int D, float scale, cudaStream_t s) {
-  VTX_CHECK(check_dims(nullptr, 1, B, N, H, D));
-  tca::FwdArgsT<BF16> a{};
-  packed(a.q, a.k, a.v, a.bias, qkv, nullptr, 1, B, N, H, D);
-  const long long HD = (long long)H * D;
-  a.out = tca::WRowsT<bf16>{out, N * HD, D, HD};
-  a.lse = lse;
-  a.M = a.N = N;
-  a.D = D;
-  a.scale = scale;
-  return tca::attention_fwd(a, B, H, s);
-}
-
-// ... and the backward: dqkv bf16 in the layout of qkv, dq through the f32
-// key-tile partials dq_part [ceil(N / 64), B·N, H·D] (never null here)
-cudaError_t vtx::packed_attention_bwd_bf16(const bf16* qkv, const bf16* out, const float* lse,
-                                           const bf16* dout, float* dq_part, bf16* dqkv, int B,
-                                           int N, int H, int D, float scale, cudaStream_t s) {
-  VTX_CHECK(check_dims(nullptr, 1, B, N, H, D));
-  const long long HD = (long long)H * D, rs = 3 * HD;
-  tca::BwdArgsT<BF16> a{};
-  packed(a.q, a.k, a.v, a.bias, qkv, nullptr, 1, B, N, H, D);
-  a.o = tca::RowsT<bf16>{out, N * HD, D, HD};
-  a.dout = tca::RowsT<bf16>{dout, N * HD, D, HD};
-  a.lse = lse;
-  a.dq = tca::WRowsT<bf16>{dqkv, N * rs, D, rs};
-  a.dk = tca::WRowsT<bf16>{dqkv + HD, N * rs, D, rs};
-  a.dv = tca::WRowsT<bf16>{dqkv + 2 * HD, N * rs, D, rs};
-  a.M = a.N = N;
-  a.D = D;
-  a.scale = scale;
-  return tca::attention_bwd(a, B, H, 1, dq_part, nullptr, s);
-}
-
 // The C entry points return the first cudaError_t met (0 = success).  qkv
 // [B, N, 3·H·D]; extra [G, H, N, N] (groups = G) may be null; D ≤ 64.
-
-// The bf16 packed-row attention alone, the thin door that chip_smoke.py
-// times beside scaled_dot_product_attention (B1's and B2's bias-free
-// attention at bf16): out [B, N, H·D], lse [B, H, N] or null; the backward
-// dqkv from out, lse and dout, dq_part [ceil(N / 64), B·N, H·D] workspace.
-extern "C" int vtx_packed_attention_fwd_bf16(const bf16* qkv, bf16* out, float* lse, int B,
-                                             int N, int H, int D, float scale, void* stream) {
-  return static_cast<int>(vtx::packed_attention_fwd_bf16(
-      qkv, out, lse, B, N, H, D, scale, static_cast<cudaStream_t>(stream)));
-}
-
-extern "C" int vtx_packed_attention_bwd_bf16(const bf16* qkv, const bf16* out,
-                                             const float* lse, const bf16* dout,
-                                             float* dq_part, bf16* dqkv, int B, int N, int H,
-                                             int D, float scale, void* stream) {
-  return static_cast<int>(vtx::packed_attention_bwd_bf16(
-      qkv, out, lse, dout, dq_part, dqkv, B, N, H, D, scale,
-      static_cast<cudaStream_t>(stream)));
-}
 
 // out [B, N, H·D]; lse [B, H, N] or null (no saves)
 extern "C" int vtx_fused_attention_qkv_fwd(

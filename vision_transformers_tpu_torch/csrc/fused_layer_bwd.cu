@@ -310,8 +310,10 @@ extern "C" int vtx_fused_attention_layer_bwd(
 
 // The bf16 form (bias-free): the same parameter list; x, the weights and
 // biases, qkv, acc, dz, dx, and the workspaces dacc [M, HD] and dqkv
-// [M, 3HD] bf16; dq_part [max(1, ceil(N / 64))·M·HD] f32 and never null
-// (it first holds dacc₀ [M, HD]); dln [M, C] f32 (first holding u bf16);
+// [M, 3HD] bf16; dq_part f32 and never null, the workspace of the bf16
+// attention's backward (vtx::packed_attention_bwd_bf16_floats floats), or
+// [M, HD] where that is larger and a row scale makes it first hold dacc₀;
+// dln [M, C] f32 (first holding u bf16);
 // every gradient of a weight or bias f32; extra, dbpart and dextra null.
 extern "C" int vtx_fused_attention_layer_bwd_bf16(
     const bf16* x, const float* ln_g, const float* ln_b,

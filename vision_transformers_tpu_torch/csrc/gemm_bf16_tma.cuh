@@ -70,16 +70,15 @@
 
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder, libcuda's, is reached
-                   // through the runtime's entry-point query, so the link needs no -lcuda
-
 #include "common.cuh"
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
 namespace gtma {
 
 using namespace wgm;
+using namespace tma;
 
 // a tile's rows, the depth of a stage, the block (two consumer warpgroups,
 // one producer warpgroup)
@@ -132,105 +131,9 @@ struct Params {
   int rs_rows, M, N, K, k_chunk, silu, has_res;
 };
 
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(saddr(b)), "r"(count)
-               : "memory");
-}
-// the barriers' initialisation, visible to the async proxy (TMA)
-__device__ __forceinline__ void fence_barrier_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
-  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
-                   saddr(b))
-               : "memory");
-}
-// one arrival that also expects `bytes` of TMA transactions
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, int bytes) {
-  asm volatile(
-      "{\n.reg .b64 state;\nmbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n" ::
-          "r"(saddr(b)),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* b, int parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(saddr(b)), "r"(parity)
-      : "memory");
-  return done;
-}
-// until the phase of parity `parity` has completed; a phase that never
-// completes (a fault in the ring's bookkeeping) traps after ~2^34 cycles
-// (~9 s) rather than hold the card
-__device__ __forceinline__ void mbar_wait(uint64_t* b, int parity) {
-  if (mbar_try_wait(b, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(b, parity))
-    if (clock64() - t0 > (1ll << 34)) __trap();
-}
-
-// box (c0 inner, c1) of a 2-D map into shared memory, counted on bar
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];" ::"r"(saddr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(saddr(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-// box (c0 inner, c1, c2) of a 3-D map from shared memory, in this thread's
-// bulk group
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0,
-                                          int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(saddr(src)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-// until this thread's stores have read their shared memory
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-}
-// until they have been written
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-}
-
-template <int R>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(R));
-}
-template <int R>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(R));
-}
-
 // a consumer warpgroup's barrier (0 is __syncthreads')
 __device__ __forceinline__ void wg_sync(int wg) {
   asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
-}
-
-// wgmma descriptors of 128-byte swizzled tiles (layout type 1 at bit 62),
-// 8-row (K-major) or 8-k (MN-major) groups 1024 bytes apart; MN-major
-// tiles' 64-element atoms along MN 8192 bytes apart (one box each)
-__device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
-  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-__device__ __forceinline__ uint64_t desc_mn(uint32_t addr) {
-  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)(8192 >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
 // k16 step kk of a stage: the 64 rows of A at sa (K-major: 32 bytes along
@@ -549,42 +452,17 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// CUtensorMapEncodeTiled, libcuda's, reached through the runtime
-using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeFn encoder() {
-  static const EncodeFn fn = []() -> EncodeFn {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q) !=
-            cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      return nullptr;
-    return reinterpret_cast<EncodeFn>(f);
-  }();
-  return fn;
-}
-
 // a map of rank 2 ([rows, cols]) or 3 ([depth, rows, cols]) over p: cols
 // contiguous, rows ld elements apart, the depth rows·ld apart; boxes of
 // box_cols x box_rows (x 1), 128-byte swizzled, zero-filled past the edges
 inline bool encode(CUtensorMap* m, const void* p, bool f32, int rank, long long cols,
                    long long rows, long long ld, int box_cols, int box_rows,
                    long long depth = 1) {
-  const EncodeFn fn = encoder();
-  if (!fn) return false;
   const cuuint64_t es = f32 ? 4 : 2;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)depth};
   const cuuint64_t strides[2] = {(cuuint64_t)ld * es, (cuuint64_t)ld * es * (cuuint64_t)rows};
   const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return fn(m, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-            const_cast<void*>(p), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_tiled(m, p, f32, rank, dims, strides, box);
 }
 
 template <int BN, int TA, int TB, int F32OUT, int PROMO>

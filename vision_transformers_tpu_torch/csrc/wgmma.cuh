@@ -1,10 +1,14 @@
-// Hopper's warpgroup products (wgmma, sm_90a) as the GEMM core's forms use
-// them: the fences, commits and waits of the asynchronous wgmma groups, and
-// the bf16 products m64nNk16 (f32 accumulators) for N = 64, 128 and 192
-// with both operands in shared memory, each K-major (TA, TB 0) or MN-major
-// (1: wgmma's transpose bits).  gemm_tc.cu (its f32 form and its register
-// path for bf16 operands off 16-byte strides) and gemm_bf16_tma.cuh (the
-// bf16 form on TMA) take them from here.
+// Hopper's warpgroup products (wgmma, sm_90a) as the port's kernels use
+// them: the fences, commits and waits of the asynchronous wgmma groups, the
+// descriptors of 128-byte swizzled shared-memory tiles, the bf16 products
+// m64nNk16 (f32 accumulators) for N = 64, 128, 192 and 208 with both operands in
+// shared memory, each K-major (TA, TB 0) or MN-major (1: wgmma's transpose
+// bits), and m64n64k16 with A in registers (the "RS" form: A as four bf16
+// pairs a thread, in the layout of a previous product's accumulators, B
+// K- or MN-major in shared memory).  gemm_tc.cu (its f32 form and its
+// register path for bf16 operands off 16-byte strides), gemm_bf16_tma.cuh
+// (the GEMM core's bf16 form on TMA) and attention_bf16_tma.cuh (the
+// packed-row attention's bf16 form) take them from here.
 
 #pragma once
 
@@ -28,6 +32,17 @@ __device__ __forceinline__ void wg_wait() {
 // reads, a TMA store's)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// wgmma descriptors of 128-byte swizzled tiles (layout type 1 at bit 62),
+// 8-row (K-major) or 8-k (MN-major) groups 1024 bytes apart; MN-major
+// tiles' 64-element atoms along MN 8192 bytes apart (one box each)
+__device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ uint64_t desc_mn(uint32_t addr) {
+  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)(8192 >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
 // keeps the compiler from moving accumulator reads or writes across the
@@ -110,6 +125,39 @@ __device__ __forceinline__ void wgmma_bf16_n192(float (&d)[96], uint64_t da, uin
       : "memory");
 }
 
+// d[0, 104) = A·B + (scale_d ? d : 0) over k 16, m64n208k16, bf16 (a key
+// tile of 208 keys: ViT's 197 tokens)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_bf16_n208(float (&d)[104], uint64_t da, uint64_t db,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %106, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n208k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103"
+      "}, %104, %105, p, 1, 1, %107, %108;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB)
+      : "memory");
+}
+
 template <int BN, int TA, int TB>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[BN / 2], uint64_t da, uint64_t db,
                                            int scale_d) {
@@ -120,6 +168,28 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[BN / 2], uint64_t da, uint
     wgmma_bf16_n128<TA, TB>(d, da, db, scale_d);
   else
     wgmma_bf16_n192<TA, TB>(d, da, db, scale_d);
+}
+
+// d[0, 32) = A·B + (scale_d ? d : 0) over k 16, m64n64k16, bf16, A from
+// registers: a[0..3] the thread's bf16 pairs of its warp's 16 rows, (row
+// lane / 4, k 2·(lane % 4) + {0, 1}), (row + 8, same k), (row, k + 8), (row
+// + 8, k + 8): the accumulators d[4j + 2h + e] of two adjacent 8-column
+// groups j, packed in pairs, are the A of the 16 columns they cover
+template <int TB>
+__device__ __forceinline__ void wgmma_bf16_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB)
+      : "memory");
 }
 
 }  // namespace wgm

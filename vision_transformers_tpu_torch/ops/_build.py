@@ -333,7 +333,7 @@ _SIGNATURES = {
     ],
     "vtx_packed_attention_bwd_bf16": [
         _P, _P, _P, _P,          # qkv, out, lse, dout
-        _P, _P,                  # dq partials (workspace), dqkv
+        _P, _P,                  # workspace (L and Δ rows; dq partials past 256 keys), dqkv
         _I, _I, _I, _I,          # B, N, H, D
         _F, _P,                  # scale, stream
     ],

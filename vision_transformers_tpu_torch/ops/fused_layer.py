@@ -50,10 +50,12 @@ rounded to bf16 before it scales.  The backward returns dx in bf16, the
 LN parameters' gradients and drs in f32, and the weights' and biases'
 gradients summed in f32 and rounded once to their bf16 dtype.  On the card
 the bias-free call runs the kernels' bf16 forms (``csrc/fused_layer.cu`` /
-``fused_layer_bwd.cu``'s ``_bf16`` entries, on the GEMM core's and the
-packed-row core's bf16 forms, heads a multiple of 8 wide); a bf16 call with
-the bias raises NotImplementedError (ROADMAP.md §A2).  The plain versions
-round where the kernels do.
+``fused_layer_bwd.cu``'s ``_bf16`` entries, on the GEMM core's bf16 form
+and the packed-row attention's, ``csrc/attention_bf16_tma.cuh``: wgmma fed
+by TMA, heads a multiple of 8 up to 64 wide, its backward's workspace
+:func:`packed_attention_bf16_floats`); a bf16 call with the bias raises
+NotImplementedError (ROADMAP.md §A2).  The plain versions round where the
+kernels do.
 
 The FF residual branch has its own op here, as in the JAX module
 (fused_layer.py:701-971): :func:`fused_ff_layer`, ``x + row_scale ⊙
@@ -83,7 +85,9 @@ __all__ = ["fused_attention_layer", "fused_attention_layer_reference",
            "fused_ff_layer_fwd_reference", "fused_ff_layer_bwd_reference", "FFSaved",
            "FF_GRAD_NAMES", "FF_LAUNCHES", "FF_BWD_LAUNCHES", "BF16_LAUNCHES",
            "BF16_BWD_LAUNCHES", "BF16_TODO", "packed_attention_bf16",
-           "packed_attention_bf16_bwd", "packed_attention_reference"]
+           "packed_attention_bf16_bwd", "packed_attention_reference",
+           "packed_attention_bf16_floats", "PACKED_BF16_LAUNCHES",
+           "PACKED_BF16_BWD_LAUNCHES"]
 
 # kernel launches through this module's wrappers, forward and backward
 # (chip_smoke.py reads them to show the main path went through the kernels),
@@ -95,6 +99,11 @@ BIAS_BWD_LAUNCHES = 0
 # ... and of those the launches of the bf16 forms
 BF16_LAUNCHES = 0
 BF16_BWD_LAUNCHES = 0
+# the launches of the packed-row attention's bf16 form
+# (csrc/attention_bf16_tma.cuh), forward and backward: one in each bf16 call
+# of B1 and B2 (fused_layer1.py) and of the thin doors below
+PACKED_BF16_LAUNCHES = 0
+PACKED_BF16_BWD_LAUNCHES = 0
 
 # where the bf16 forms still to write are queued
 BF16_TODO = "its bf16 form is not written yet (ROADMAP.md §A2, the bf16 queue)"
@@ -342,6 +351,36 @@ def qkv_proj_bwd_reference(x2, mu, rstd, g, b, wqkv, bqkv, dqkv, dz2):
         cast_like(dbqkv, bqkv)
 
 
+def attention_bwd_reference(qkv, out, lse, dout, n_head: int, scale: float, extra_g=None,
+                            dtype=torch.float32):
+    """The packed-row attention's plain backward: (dqkv [B, N, 3·H·D] f32,
+    as ``dtype`` holds it, and dS [B, H, N, N] f32) from qkv, the forward's
+    out and lse [B, H, N] and dout [B, N, H·D] (read in f32), P from the
+    log-sum-exp and Δ = rowsum(dout ⊙ out).  bf16: P and dS·scale rounded before their products,
+    each of dq, dk, dv once after (the bf16 kernels' points, and the JAX
+    kernel's)."""
+    B, N, HD3 = qkv.shape
+    HD = HD3 // 3
+    f = torch.float32
+    q, k, v = (_heads(qkv[..., i * HD:(i + 1) * HD], n_head) for i in range(3))
+    do, o = _heads(dout, n_head), _heads(out, n_head)
+    delta = (do * o).sum(-1, keepdim=True)
+    s = _scores_bias(torch.einsum("bhnd,bhmd->bhnm", q, k) * scale, extra_g)
+    p = torch.exp(s - lse[..., None].to(f))
+    dv = torch.einsum("bhnm,bhnd->bhmd", _rb(p, dtype), do)
+    ds = p * (torch.einsum("bhnd,bhmd->bhnm", do, v) - delta)
+    if dtype == f:
+        dq = torch.einsum("bhnm,bhmd->bhnd", ds, k) * scale
+        dk = torch.einsum("bhnm,bhnd->bhmd", ds, q) * scale
+    else:
+        dsb = _rb(ds * scale, dtype)
+        dq = torch.einsum("bhnm,bhmd->bhnd", dsb, k)
+        dk = torch.einsum("bhnm,bhnd->bhmd", dsb, q)
+    dqkv = torch.cat([_rb(t.permute(0, 2, 1, 3).reshape(B, N, HD), dtype)
+                      for t in (dq, dk, dv)], -1)
+    return dqkv, ds
+
+
 def attention_half_bwd_reference(saved: AttnSaved, dz2: torch.Tensor,
                                  need_drs: bool = True, need_dextra: bool = False):
     """The attention half's plain backward in the kernel's steps
@@ -355,35 +394,17 @@ def attention_half_bwd_reference(saved: AttnSaved, dz2: torch.Tensor,
     H, scale = saved.n_head, saved.scale
     HD = wqkv.shape[1] // 3
     M = B * N
-    f = torch.float32
     # 1-2. the out projection
     dacc, dwout, dbout, drs = out_proj_bwd_reference(
         saved.acc.reshape(M, HD), wout, bout, rs, dz2, N, need_drs)
     # 3. attention backward: p from the saved log-sum-exp
-    q, k, v = (_heads(saved.qkv[..., i * HD:(i + 1) * HD], H) for i in range(3))
-    do = _heads(dacc.reshape(B, N, HD), H)
-    o = _heads(saved.acc, H)
-    delta = (do * o).sum(-1, keepdim=True)
-    s = _scores_bias(torch.einsum("bhnd,bhmd->bhnm", q, k) * scale, extra_g)
-    p = torch.exp(s - saved.lse[..., None].to(f))
-    # bf16: P and dS·scale rounded before their products, each of dq, dk, dv
-    # once after (the bf16 kernels' points, and the JAX kernel's)
-    dt = x.dtype
-    dv = torch.einsum("bhnm,bhnd->bhmd", _rb(p, dt), do)
-    ds = p * (torch.einsum("bhnd,bhmd->bhnm", do, v) - delta)
+    dqkv, ds = attention_bwd_reference(saved.qkv, saved.acc, saved.lse,
+                                       dacc.reshape(B, N, HD), H, scale, extra_g, x.dtype)
+    dqkv = dqkv.reshape(M, 3 * HD)
     dextra_g = None
     if extra_g is not None and need_dextra:
         G = extra_g.shape[0]
         dextra_g = ds.reshape(G, B // G, H, N, N).sum(1)
-    if dt == f:
-        dq = torch.einsum("bhnm,bhmd->bhnd", ds, k) * scale
-        dk = torch.einsum("bhnm,bhnd->bhmd", ds, q) * scale
-    else:
-        dsb = _rb(ds * scale, dt)
-        dq = torch.einsum("bhnm,bhmd->bhnd", dsb, k)
-        dk = torch.einsum("bhnm,bhnd->bhmd", dsb, q)
-    dqkv = torch.cat([_rb(t.permute(0, 2, 1, 3).reshape(M, HD), dt) for t in (dq, dk, dv)],
-                     -1)
     # 4-6. the qkv projection and LN
     dx, dg, db, dwqkv, dbqkv = qkv_proj_bwd_reference(
         x.reshape(M, C), saved.mu, saved.rstd, g, b, wqkv, bqkv, dqkv, dz2)
@@ -531,7 +552,7 @@ def _cuda_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, n_head, extra_g, gro
               row_scale, scale, eps, save: bool):
     """The forward kernel: out, plus (qkv, acc, mu, rstd, lse) when ``save``;
     ``extra_g`` the grouped bias [G, H, N, N] (``groups`` = G) or None."""
-    global LAUNCHES, BIAS_LAUNCHES, BF16_LAUNCHES
+    global LAUNCHES, BIAS_LAUNCHES, BF16_LAUNCHES, PACKED_BF16_LAUNCHES
     B, N, C, H, D = check_attention_args(x, ln_scale, ln_bias, wqkv, bqkv,
                                          wout, bout, n_head)
     bf16 = check_bf16_form(x, D, extra_g, dict(ln_scale=ln_scale, ln_bias=ln_bias,
@@ -557,6 +578,7 @@ def _cuda_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, n_head, extra_g, gro
         LAUNCHES += 1
         BIAS_LAUNCHES += extra_g is not None
         BF16_LAUNCHES += bf16
+        PACKED_BF16_LAUNCHES += bf16
         err = entry(
             ptr(x), ptr(ln_scale), ptr(ln_bias),
             ptr(wqkv), wqkv.stride(0), wqkv.stride(1), ptr(bqkv),
@@ -621,16 +643,47 @@ def _splits(rows: int, cols: int, k: int) -> int:
                 min(counts, key=lambda s: (idle(s), s)))
 
 
-def dq_partials(n_keys: int, rows: int, width: int, opts,
-                always: bool = False) -> Optional[torch.Tensor]:
+def dq_partials(n_keys: int, rows: int, width: int, opts) -> Optional[torch.Tensor]:
     """The dq partials of csrc/attention_tc.cuh's backward (B1's and B2's
-    attention off the window attention, B3, B6, B8): [ceil(n_keys / 64),
+    f32 attention off the window attention, B3, B6, B8): [ceil(n_keys / 64),
     rows, width] f32, one a 64-key tile, summed in key-tile order; None with
-    one key tile unless ``always`` (the bf16 form, whose dq always leaves
-    through them)."""
+    one key tile."""
     key_tiles = -(-n_keys // 64)
-    return torch.empty((key_tiles, rows, width), **opts) if key_tiles > 1 or always \
-        else None
+    return torch.empty((key_tiles, rows, width), **opts) if key_tiles > 1 else None
+
+
+# csrc/attention_bf16_tma.cuh DQ_SMEM_MAX_N: up to here its backward sums a
+# head's dq in shared memory
+BF16_DQ_SMEM_MAX_N = 256
+
+
+def packed_attention_bf16_floats(B: int, N: int, H: int, D: int) -> int:
+    """The f32 workspace of the packed-row attention's bf16 backward
+    (csrc/attention_bf16.cu packed_attention_bwd_bf16_floats): the L and Δ
+    rows [B·H, ceil(N / 64), 2, 64], then, where N > 256 (a head's dq past
+    what shared memory holds), the key tiles' dq partials [ceil(N / 128),
+    B·N, H·D], summed in order."""
+    rows = 2 * B * H * -(-N // 64) * 64
+    return rows + (-(-N // 128) * B * N * H * D if N > BF16_DQ_SMEM_MAX_N else 0)
+
+
+def packed_attention_bf16_route(N: int) -> dict:
+    """The tiles the packed-row attention's bf16 kernels take for N tokens
+    (csrc/attention_bf16.cu): the forward's key tile, 208 keys where 192 <
+    N ≤ 208, else 128; the backward's dq summed over the key tiles in
+    shared memory up to BF16_DQ_SMEM_MAX_N tokens, else as f32 key-tile
+    partials summed in order."""
+    return {"key_tile": 208 if 192 < N <= 208 else 128,
+            "dq": "shared memory" if N <= BF16_DQ_SMEM_MAX_N else "key-tile partials"}
+
+
+def bf16_attention_workspace(B: int, N: int, H: int, D: int, row_scaled: bool,
+                             opts) -> torch.Tensor:
+    """B1's bf16 backward's f32 ``dq_part`` workspace: the attention's
+    (:func:`packed_attention_bf16_floats`), or with a row scale the out
+    projection's f32 dacc₀ [B·N, H·D] first, if that is larger."""
+    floats = packed_attention_bf16_floats(B, N, H, D)
+    return torch.empty((max(floats, B * N * H * D if row_scaled else 0),), **opts)
 
 
 def attention_workspace(B: int, groups: int, H: int, N: int, D: int, has_bias: bool,
@@ -657,7 +710,7 @@ def rpart_floats(rows: int, F: int, B: int, rows_per_scale: int) -> int:
 def _cuda_bwd(saved: AttnSaved, dz: torch.Tensor, need_drs: bool, need_dextra: bool):
     """The backward kernel sequence: (dx, dg, db, dwqkv, dbqkv, dwout, dbout,
     drs, dextra_g)."""
-    global BWD_LAUNCHES, BIAS_BWD_LAUNCHES, BF16_BWD_LAUNCHES
+    global BWD_LAUNCHES, BIAS_BWD_LAUNCHES, BF16_BWD_LAUNCHES, PACKED_BF16_BWD_LAUNCHES
     x, g, b, wqkv, bqkv, wout, bout, rs = saved[:8]
     extra_g = saved.extra_g
     dz = dz.contiguous()
@@ -682,8 +735,8 @@ def _cuda_bwd(saved: AttnSaved, dz: torch.Tensor, need_drs: bool, need_dextra: b
     chunks = -(-M // 128)  # csrc COLSUM_ROWS
     want_dextra = extra_g is not None and need_dextra
     groups = 1 if extra_g is None else extra_g.shape[0]
-    if bf16:  # dq through f32 partials always (they first hold dacc₀)
-        dq_part, dbpart = dq_partials(N, M, HD, opts, always=True), None
+    if bf16:
+        dq_part, dbpart = bf16_attention_workspace(B, N, H, D, rs is not None, opts), None
     else:
         dq_part, dbpart = attention_workspace(B, groups, H, N, D, extra_g is not None,
                                               want_dextra, opts)
@@ -708,6 +761,7 @@ def _cuda_bwd(saved: AttnSaved, dz: torch.Tensor, need_drs: bool, need_dextra: b
         BWD_LAUNCHES += 1
         BIAS_BWD_LAUNCHES += extra_g is not None
         BF16_BWD_LAUNCHES += bf16
+        PACKED_BF16_BWD_LAUNCHES += bf16
         err = entry(
             ptr(x), ptr(g), ptr(b),
             ptr(wqkv), wqkv.stride(0), wqkv.stride(1), ptr(bqkv),
@@ -790,11 +844,12 @@ def _packed_checks(qkv, n_head):
 
 def packed_attention_bf16(qkv, n_head: int, scale: Optional[float] = None,
                           save: bool = True):
-    """The bf16 form of the packed-row core alone (B1's and B2's bias-free
-    attention; the thin door chip_smoke.py times beside
-    scaled_dot_product_attention): (out, lse or None) from bf16 qkv on the
-    card (a CPU tensor: :func:`packed_attention_reference`).  No model calls
-    it."""
+    """The packed-row attention's bf16 form alone (B1's and B2's bias-free
+    attention, csrc/attention_bf16_tma.cuh; the thin door chip_smoke.py
+    times beside scaled_dot_product_attention): (out, lse or None) from bf16
+    qkv on the card (a CPU tensor: :func:`packed_attention_reference`).  No
+    model calls it."""
+    global PACKED_BF16_LAUNCHES
     if qkv.device.type == "cpu":
         out, lse = packed_attention_reference(qkv, n_head, scale)
         return out, lse if save else None
@@ -807,6 +862,7 @@ def packed_attention_bf16(qkv, n_head: int, scale: Optional[float] = None,
     lse = torch.empty((B, n_head, N), device=qkv.device) if save else None
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        PACKED_BF16_LAUNCHES += 1
         err = lib.vtx_packed_attention_fwd_bf16(ptr(qkv), ptr(out), ptr(lse), B, N, n_head, D,
                                                 ctypes.c_float(scale), stream)
     _raise_on(err, "packed attention (bf16)")
@@ -816,14 +872,14 @@ def packed_attention_bf16(qkv, n_head: int, scale: Optional[float] = None,
 def packed_attention_bf16_bwd(qkv, out, lse, dout, n_head: int,
                               scale: Optional[float] = None):
     """Its backward: dqkv (bf16) from the forward's out and lse and dout (a
-    CPU tensor: the gradient of :func:`packed_attention_reference` in f32,
-    rounded once)."""
+    CPU tensor: :func:`attention_bwd_reference`, rounding where the kernel
+    rounds)."""
+    global PACKED_BF16_BWD_LAUNCHES
     if qkv.device.type == "cpu":
-        q = qkv.float().requires_grad_()
-        with torch.enable_grad():
-            o, _ = packed_attention_reference(q, n_head, scale)
-            o.backward(dout.float())
-        return q.grad.to(qkv.dtype)
+        D = qkv.shape[-1] // 3 // n_head
+        scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
+        return attention_bwd_reference(qkv, out, lse, dout, n_head, scale,
+                                       dtype=qkv.dtype)[0].to(qkv.dtype)
     B, N, D = _packed_checks(qkv, n_head)
     check_dtype(qkv.device, torch.bfloat16, out=out, dout=dout)
     check_dtype(qkv.device, torch.float32, lse=lse)
@@ -833,12 +889,13 @@ def packed_attention_bf16_bwd(qkv, out, lse, dout, n_head: int,
     lib = build()
     dout = dout.contiguous()
     dqkv = torch.empty_like(qkv)
-    dq_part = dq_partials(N, B * N, n_head * D, dict(device=qkv.device, dtype=torch.float32),
-                          always=True)
+    ws = bf16_attention_workspace(B, N, n_head, D, False,
+                                  dict(device=qkv.device, dtype=torch.float32))
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        PACKED_BF16_BWD_LAUNCHES += 1
         err = lib.vtx_packed_attention_bwd_bf16(ptr(qkv), ptr(out), ptr(lse), ptr(dout),
-                                                ptr(dq_part), ptr(dqkv), B, N, n_head, D,
+                                                ptr(ws), ptr(dqkv), B, N, n_head, D,
                                                 ctypes.c_float(scale), stream)
     _raise_on(err, "packed attention backward (bf16)")
     return dqkv

@@ -51,6 +51,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from . import fused_layer
 from .fused_layer import (AttnSaved, BF16_TODO, _act, _default_scale, _dot, _ln,
                           _raise_on, _residual, _splits, bias_partials,
                           attention_branch_reference, attention_half_bwd_reference,
@@ -262,6 +263,7 @@ def _cuda_fwd(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout, ln2_scale,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         LAUNCHES += 1
         BF16_LAUNCHES += bf16
+        fused_layer.PACKED_BF16_LAUNCHES += bf16  # its attention's bf16 form
         err = entry(
             ptr(x), ptr(ln1_scale), ptr(ln1_bias),
             ptr(wqkv), wqkv.stride(0), wqkv.stride(1), ptr(bqkv),
