@@ -5,10 +5,10 @@ PyTorch version, runs full-width ViT-S/16 (also with dropout, with the FF
 kernel and under the 'block' force), Swin-S (also under 'block' and under
 'swin', the map-resident whole layer), Halo-S (also on the gather path),
 PVT-S, Twins-SVT-S and DINO DeiT-S/16 against the JAX package's stored
-logits, train-step gradients and DINO step, ViT-S/16 at bf16 (the confs'
-default precision) against the JAX package's bf16 and f32, and drives the
-serving and the training entry points of the five models and DINO's
-trainer end to end, ViT-S/16's also at bf16.
+logits, train-step gradients and DINO step, ViT-S/16 and DINO DeiT-S/16 at
+bf16 (the confs' default precision) against the JAX package's bf16 and
+f32, and drives the serving and the training entry points of the five
+models and DINO's trainer end to end, ViT-S/16's and DINO's also at bf16.
 
     python3 chip_smoke.py
 
@@ -86,7 +86,12 @@ non-zero and prints no ok line):
            DeiT-S/16's local call at 96 images (256 rows of 111 tokens);
            median ms beside the plain version and
            F.scaled_dot_product_attention with the mask as a float attn_mask
-           (the attention alone), forward and its autograd backward
+           (the attention alone), forward and its autograd backward; then
+           the same calls at bf16 (B1's bf16 form with the mask on the
+           packed-row attention's bf16 form; the odd call with per-sample
+           row scales) within phase 3bf's limits, bit-identical, the median
+           ms of the local call beside the plain version and the bound at
+           the bf16 rate
 3s.        the reduced-kv attention (PVT's SRA, Twins' GSA) on the models'
            strided head views: serving forward and training forward (with
            lse) within atol = rtol = 1e-4, backward per tensor within
@@ -179,7 +184,13 @@ non-zero and prints no ok line):
            calls; the backward with its dq sum) beside
            F.scaled_dot_product_attention's forward and its backward alone
            (torch.autograd.grad on a retained graph) on the same bf16 q, k,
-           v, the single-call medians beside
+           v, the single-call medians beside; and with the bias (the
+           HAS_BIAS instantiations): DINO's block mask at the local call
+           (256 x 111, 6 x 64) and a grouped bias (G = 2) over 200 tokens
+           whose second block's queries find their first 128-key tile all
+           masked, forward and backward against the plain versions,
+           bit-identical, timed at DINO's call beside SDPA with the mask as
+           a bf16 float attn_mask
 4. golden  ViT-S/16 @224 (depth 12), Swin-S @224 (depth 24), Halo-S @256
            (depth 12), PVT-S @224 (depth 16) and Twins-SVT-S @224 (depth
            18), seeded weights, against the JAX logits in
@@ -226,7 +237,14 @@ non-zero and prints no ok line):
            images' logits tiled to 64 rows on B1's bf16 form and to 256 rows
            on B2's, and one train step at 64 rows on B1's bf16 forward and
            backward (loss, gradient norms and projections, a few whole
-           gradients), each within 3 x the JAX package's own bf16 error
+           gradients), each within 3 x the JAX package's own bf16 error;
+           DINO DeiT-S/16's step at bf16 under the 'layer' force (B1's bf16
+           form in every layer, the locals with the mask) against
+           tests/data/dino_deit_s16_bf16_port_golden.npz: the loss's 54
+           cross-entropies, the tensors' gradient norms and projections,
+           both nets' output norms and projections within 3 x JAX's bf16
+           gap, the loss and the gradient norm within 3 x the root mean
+           square of JAX's gaps over six seeds
 5. predict the serving path of each model: ``predict.main`` on 48 and then
            160 seeded JPEGs (Halo, PVT — 'fused' — and Twins: 48) with a
            seeded ``.pt:ema``; the launch counters are zeroed just before
@@ -270,10 +288,11 @@ non-zero and prints no ok line):
            256 packed local rows, forward and backward, and B2 on the
            teacher's 192 global rows (192 + 192 B1 launches, 96 + 96 of them
            with the mask, 96 B2 launches); the steady-state step time.
-           ViT-S/16 at the conf's default precision, bf16 (no precision
-           override): the same launches as its f32 run, every one on the
-           bf16 forms; its steady-state step, images/s and peak memory are
-           printed beside the f32 run's
+           ViT-S/16 and DINO at the confs' default precision, bf16 (no
+           precision override): the same launches as their f32 runs, every
+           one on the bf16 forms (DINO's locals with the mask); the
+           steady-state step, images/s and peak memory of each printed
+           beside its f32 run's
 
 The line before the last is the kernels' JSON record: each kernel's
 launches on the trainer run that takes it (ViT's for the attention layer,
@@ -285,7 +304,9 @@ the gathered halo attention, ViT's under 'block' for the attention block,
 Swin's under ``VTX_ATTN_IMPL=swin`` for the map-resident layer, DINO's
 for the attention layer's bias calls, ``+bias``, timed at DINO's local
 call, ViT's at bf16 for the bf16 forms, ``[bf16]``, whose bound is at the
-bf16 rate; every path's in ``launches_by_path``) and its
+bf16 rate, DINO's at bf16 for the bf16 forms with the bias,
+``+bias[bf16]``, timed at DINO's local call; every path's in
+``launches_by_path``) and its
 times at a call that run makes (``shape``; other shapes in
 ``other_shapes``); the last line is ``{"ok": true, "device": {...}}``.
 Needs no network and no JAX.
@@ -386,6 +407,19 @@ KERNELS = {  # name → (source, the TPU kernel it replaces)
                                "vision_transformers_tpu/ops/fused_layer.py:116"),
     "packed_attention_bwd[bf16]": ("vision_transformers_tpu_torch/csrc/attention_bf16_tma.cuh",
                                    "vision_transformers_tpu/ops/fused_layer.py:183"),
+    # the bf16 forms with the additive bias: B1 and its attention with
+    # DINO's block mask, timed at DINO's local call and counted on the DINO
+    # trainer's bf16 run
+    "fused_attention_layer+bias[bf16]": ("vision_transformers_tpu_torch/csrc/fused_layer.cu",
+                                         "vision_transformers_tpu/ops/fused_layer.py:116"),
+    "fused_attention_layer_bwd+bias[bf16]": (
+        "vision_transformers_tpu_torch/csrc/fused_layer_bwd.cu",
+        "vision_transformers_tpu/ops/fused_layer.py:183"),
+    "packed_attention+bias[bf16]": ("vision_transformers_tpu_torch/csrc/attention_bf16_tma.cuh",
+                                    "vision_transformers_tpu/ops/fused_layer.py:116"),
+    "packed_attention_bwd+bias[bf16]": (
+        "vision_transformers_tpu_torch/csrc/attention_bf16_tma.cuh",
+        "vision_transformers_tpu/ops/fused_layer.py:183"),
 }
 # the tensor-core kernels (3xTF32): the attention of csrc/attention_tc.cuh, which
 # B6, B3 and B8 run, and of csrc/halo_attention_tc.cuh, which B5a, B5b and B4's
@@ -1629,6 +1663,132 @@ def packed_attention_bf16_kernels(torch):
                  for kind in ("fwd", "bwd"))
 
 
+# the packed-row attention's bf16 form with the additive bias: (label, B,
+# N, H, D, the bias) — DINO's local call at 96 images (256 rows of 111
+# tokens: 3 crops of 37 under the block-diagonal −1e9 mask), and a grouped
+# bias (G = 2) over 200 tokens whose −1e9 blocks leave the second block's
+# queries a first 128-key tile all masked
+PACKED_BF16_BIAS = (("DINO DeiT-S/16 locals (96 images)", 256, 111, 6, 64, "mask"),
+                    ("grouped G=2, a first key tile all masked", 8, 200, 6, 64, "grouped"))
+
+
+def packed_bias(torch, N, H, kind, g):
+    """The bias of a PACKED_BF16_BIAS call, f32 on the card."""
+    from vision_transformers_tpu_torch.models.vit import pack_mask
+
+    if kind == "mask":
+        return pack_mask(3, N // 3, DEVICE)
+    blocks = torch.block_diag(torch.ones(128, 128), torch.ones(N - 128, N - 128)).to(DEVICE)
+    return torch.where(blocks > 0, torch.randn(2, H, N, N, generator=g, device=DEVICE), -1e9)
+
+
+def bias_attention_work(B, N, H, D, G, backward=False):
+    """(operations, bytes) of the packed-row attention with a bias [G, H,
+    N, N] f32: q, k, v (and dout, out) read and out (dqkv) written in bf16,
+    lse 4 bytes a row, the bias read once."""
+    work, act, bias = 4 * B * H * N * N * D, 2 * B * N * H * D, 4 * (G * H * N * N + B * H * N)
+    return (2.5 * work, 8 * act + bias) if backward else (work, 4 * act + bias)
+
+
+def packed_attention_bf16_bias_kernels(torch):
+    """The packed-row attention's bf16 form with the bias alone
+    (csrc/attention_bf16_tma.cuh's HAS_BIAS instantiations, through the thin
+    doors): at PACKED_BF16_BIAS the forward with and without lse and the
+    backward against their plain versions, the backward twice and
+    bit-identical; at DINO's local call the device times (CUDA graphs of 10
+    calls; the same call without the bias beside) and
+    scaled_dot_product_attention's forward and its backward alone with the
+    mask as a float attn_mask (bf16, as SDPA takes it with
+    bf16 q, k, v), the single-call medians, the plain versions' and the
+    bounds.  Returns (forward record, backward record)."""
+    from vision_transformers_tpu_torch.ops import fused_layer as fl
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=DEVICE).manual_seed(23)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for label, B, N, H, D, kind in reversed(PACKED_BF16_BIAS):  # DINO's call last
+        extra = packed_bias(torch, N, H, kind, g)
+        what = f"packed-row attention + bias, {label}, B,N,H,D=({B},{N},{H},{D})"
+        qkv = torch.randn(B, N, 3 * H * D, generator=g, device=DEVICE).to(bf)
+        do = torch.randn(B, N, H * D, generator=g, device=DEVICE).to(bf)
+        out, lse = fl.packed_attention_bf16(qkv, H, extra=extra)
+        serving, _ = fl.packed_attention_bf16(qkv, H, save=False, extra=extra)
+        d1 = fl.packed_attention_bf16_bwd(qkv, out, lse, do, H, extra=extra)
+        d2 = fl.packed_attention_bf16_bwd(qkv, out, lse, do, H, extra=extra)
+        torch.cuda.synchronize()
+        ref, ref_lse = fl.packed_attention_reference(qkv, H, extra=extra)
+        extra_g = fl.extra_groups(extra, B, H, N)[0]
+        plain = fl.attention_bwd_reference(qkv, out, lse, do, H, D ** -0.5, extra_g,
+                                           dtype=bf)[0]
+        if not torch.equal(serving, out):
+            raise RuntimeError(f"bf16: {what}: the serving forward differs from the saving one")
+        if not torch.equal(d1, d2):
+            raise RuntimeError(f"bf16: {what}: dqkv differs between two runs")
+        worst["fwd"] = max(worst["fwd"], bf16_close(torch, what + " out", out, ref,
+                                                    BF16_FWD_TOL))
+        bf16_close(torch, what + " lse", lse, ref_lse, 1e-5)
+        worst["bwd"] = max(worst["bwd"], bf16_close(
+            torch, what + " dqkv (bit-identical across two runs)", d1, plain, BF16_BWD_TOL))
+    # DINO's local call: the last case's tensors
+    G = extra_g.shape[0]
+    q, k, v = (t.detach().requires_grad_() for t in
+               qkv.view(B, N, 3, H, D).permute(2, 0, 3, 1, 4).unbind(0))
+    mask = extra.to(bf)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bf16_close(torch, f"packed-row attention + mask at {label} vs SDPA",
+               out.view(B, N, H, D).transpose(1, 2), sdpa(q, k, v, attn_mask=mask).detach(),
+               BF16_FWD_TOL)
+    ms = {"fwd": device_ms(torch, lambda: fl.packed_attention_bf16(qkv, H, extra=extra)),
+          "bwd": device_ms(torch, lambda: fl.packed_attention_bf16_bwd(qkv, out, lse, do, H,
+                                                                       extra=extra))}
+    call = {"fwd": median_ms(torch, lambda: fl.packed_attention_bf16(qkv, H, extra=extra)),
+            "bwd": median_ms(torch, lambda: fl.packed_attention_bf16_bwd(qkv, out, lse, do, H,
+                                                                         extra=extra))}
+    out0, lse0 = fl.packed_attention_bf16(qkv, H)  # the same call without the bias
+    no_bias = {"fwd": device_ms(torch, lambda: fl.packed_attention_bf16(qkv, H)),
+               "bwd": device_ms(torch, lambda: fl.packed_attention_bf16_bwd(qkv, out0, lse0, do,
+                                                                            H))}
+    plain_ms = {"fwd": median_ms(torch, lambda: fl.packed_attention_reference(qkv, H,
+                                                                              extra=extra)),
+                "bwd": median_ms(torch, lambda: fl.attention_bwd_reference(
+                    qkv, out, lse, do, H, D ** -0.5, extra_g, dtype=bf))}
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            sdpa(q, k, v, attn_mask=mask)
+
+    sdpa_ms = {"fwd": device_ms(torch, sdpa_fwd)}
+    timing = _WARMUP_STREAM[0]  # its backward alone, recorded on the timing stream
+    timing.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(timing):
+        o = sdpa(q, k, v, attn_mask=mask)
+    torch.cuda.current_stream().wait_stream(timing)
+    dog = do.view(B, N, H, D).transpose(1, 2)
+    sdpa_ms["bwd"] = device_ms(torch, lambda: torch.autograd.grad(o, (q, k, v), dog,
+                                                                  retain_graph=True))
+    del o
+    bounds = {kind: bound(*bias_attention_work(B, N, H, D, G, kind == "bwd"), H100_BF16_FLOPS)
+              for kind in ("fwd", "bwd")}
+    release_timing_stream(torch)
+    log(f"bf16: the packed-row attention with DINO's mask alone at {label} ({B} x {N}, "
+        f"{H} heads x {D}), device ms (a CUDA graph of 10 calls): kernel fwd {ms['fwd']:.4f}, "
+        f"bwd with its dq sum {ms['bwd']:.4f} (the same call without the bias "
+        f"{no_bias['fwd']:.4f} / {no_bias['bwd']:.4f}); scaled_dot_product_attention with the "
+        f"mask "
+        f"fwd {sdpa_ms['fwd']:.4f}, bwd alone {sdpa_ms['bwd']:.4f}; bounds fwd "
+        f"{bounds['fwd'][0]:.4f} ({bounds['fwd'][1]}), bwd {bounds['bwd'][0]:.4f} "
+        f"({bounds['bwd'][1]}); a call from the host fwd {call['fwd']:.3f}, bwd "
+        f"{call['bwd']:.3f}; plain fwd {plain_ms['fwd']:.3f}, bwd {plain_ms['bwd']:.3f}")
+    shape = f"{label}, B,N,H,D={B},{N},{H},{D}, block mask"
+    return tuple({"shape": shape + (", lse" if kind == "fwd" else ", dq summed on chip"),
+                  "max_abs_err": worst[kind], "ms": ms[kind], "call_ms": call[kind],
+                  "plain_ms": plain_ms[kind], "bound_ms": bounds[kind][0],
+                  "bound_by": bounds[kind][1], "library_ms": sdpa_ms[kind],
+                  "no_bias_ms": no_bias[kind],
+                  "route": fl.packed_attention_bf16_route(N, bias=True)}
+                 for kind in ("fwd", "bwd"))
+
+
 def bf16_kernels(torch):
     """3bf: the bf16 forms of B1 (forward with saves, serving, backward) and
     B2 (serving) against their plain versions at odd shapes and at the
@@ -1703,6 +1863,7 @@ def bf16_kernels(torch):
     bwd_bound, bwd_by = bound(*b1_bf16_work(B, N, C, H, D, backward=True), H100_BF16_FLOPS)
     l1_bound, l1_by = bound(*b2_bf16_work(*VIT_TRAIN), H100_BF16_FLOPS)
     att_fwd, att_bwd = packed_attention_bf16_kernels(torch)
+    bias_fwd, bias_bwd = packed_attention_bf16_bias_kernels(torch)
     log(f"bf16: B1 at the ViT-S/16 trainer's call B,N,C,H,D={VIT_TRAIN[:5]} with row scales "
         f"(median of 20, CUDA events): kernel fwd(saves) {fwd_ms:.3f} + bwd {bwd_ms:.3f} = "
         f"{fwd_ms + bwd_ms:.3f} ms; plain fwd {plain_fwd_ms:.3f} + bwd {plain_bwd_ms:.3f} ms; "
@@ -1732,7 +1893,9 @@ def bf16_kernels(torch):
             "max_abs_err": worst["l1"], "ms": l1_ms, "plain_ms": plain_l1_ms,
             "bound_ms": l1_bound, "bound_by": l1_by, "library_ms": None}],
         "packed_attention[bf16]": [att_fwd],
-        "packed_attention_bwd[bf16]": [att_bwd]}
+        "packed_attention_bwd[bf16]": [att_bwd],
+        "packed_attention+bias[bf16]": [bias_fwd],
+        "packed_attention_bwd+bias[bf16]": [bias_bwd]}
 
 
 # ---------------------------------------------------------------------------
@@ -3076,6 +3239,92 @@ def dino_layer_kernels(torch):
     return fwd, bwd
 
 
+def dino_bf16_layer_kernels(torch):
+    """3d at bf16: B1's bf16 form with DINO's block mask (the bias on the
+    packed-row attention's bf16 form) at an odd call (2 crops a row, 74
+    tokens, with per-sample row scales) and at DINO DeiT-S/16's local call
+    at 96 images (256 rows of 111 tokens): the serving forward, the training
+    forward (with saves) and the backward against the plain versions, the
+    backward twice for bit-identity, the mask without a gradient, within
+    phase 3bf's limits; each crop's output blind to the others' tokens;
+    median ms of the local call beside the plain version and the bound at
+    the bf16 rate (the layer's products and its attention with the mask),
+    and the attention alone beside scaled_dot_product_attention with the
+    mask (phase 3bf's packed_attention+bias[bf16] record).  Returns the
+    timed entries of the forward and the backward."""
+    from vision_transformers_tpu_torch.models.vit import pack_mask
+    from vision_transformers_tpu_torch.ops import fused_layer as fl
+
+    bf = torch.bfloat16
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for call, rows_scaled in ((DINO_ODD, True), (DINO_LOCAL, False)):
+        B, N, C, H, D = call["shape"]
+        a = bf16_args(torch, B, N, C, H, D, 4 * C, seed=N)[:7]
+        mask = pack_mask(call["pack"], N // call["pack"], DEVICE)
+        r = None
+        if rows_scaled:
+            r = torch.full((B,), 1 / 0.9, device=DEVICE)
+            r[::3] = 0.0
+        dz = torch.randn(B, N, C, device=DEVICE, generator=torch.Generator(
+            device=DEVICE).manual_seed(B)).to(bf)
+        what = (f"B1 + DINO mask (bf16) {call['label']} B,N,C,H,D={call['shape']} "
+                f"rs={rows_scaled}")
+        seq = N // call["pack"]
+        with torch.no_grad():
+            serving = fl.fused_attention_layer(*a, H, extra=mask, row_scale=r)
+            moved = a[0].clone()
+            moved[:, seq:] += 1.0  # every crop but the first
+            other = fl.fused_attention_layer(moved, *a[1:], H, extra=mask, row_scale=r)
+        out, saved = fl.fused_attention_layer_fwd(*a, H, row_scale=r, extra=mask)
+        grads = fl.fused_attention_layer_bwd(saved, dz, need_dextra=False)
+        again = fl.fused_attention_layer_bwd(saved, dz, need_dextra=False)
+        torch.cuda.synchronize()
+        if not torch.equal(other[:, :seq], serving[:, :seq]):
+            raise RuntimeError(f"bf16: {what}: a crop's output moved with another crop")
+        out_p, saved_p = fl.fused_attention_layer_fwd_reference(*a, H, row_scale=r,
+                                                                extra_g=saved.extra_g)
+        plain = fl.fused_attention_layer_bwd_reference(saved_p, dz, need_dextra=False)
+        worst["fwd"] = max(worst["fwd"], bf16_close(torch, what + " out", out, out_p,
+                                                    BF16_FWD_TOL))
+        bf16_close(torch, what + " serving", serving, out_p, BF16_FWD_TOL)
+        for name, k, k2, p in zip(GRAD_NAMES + ("dextra",), grads, again, plain):
+            if p is None:
+                if k is not None:
+                    raise RuntimeError(f"bf16: {what} {name} should be None")
+                continue
+            if not torch.equal(k, k2):
+                raise RuntimeError(f"bf16: {what} {name} differs between two runs")
+            worst["bwd"] = max(worst["bwd"], bf16_close(
+                torch, f"{what} {name} ({k.dtype}, bit-identical across two runs)", k, p,
+                BF16_BWD_TOL))
+        del grads, again, plain, saved_p, other, moved
+    f_ms = median_ms(torch, lambda: fl.fused_attention_layer_fwd(*a, H, extra=mask))
+    b_ms = median_ms(torch, lambda: fl.fused_attention_layer_bwd(saved, dz, need_dextra=False))
+    pf_ms = median_ms(torch, lambda: fl.fused_attention_layer_fwd_reference(
+        *a, H, extra_g=saved.extra_g))
+    _, saved_p = fl.fused_attention_layer_fwd_reference(*a, H, extra_g=saved.extra_g)
+    pb_ms = median_ms(torch, lambda: fl.fused_attention_layer_bwd_reference(
+        saved_p, dz, need_dextra=False))
+    del saved_p
+    bias_bytes = 4 * H * N * N  # the mask, one group, read once
+    fw, fby = b1_bf16_work(B, N, C, H, D)
+    bw, bby = b1_bf16_work(B, N, C, H, D, backward=True)
+    fb, fby = bound(fw, fby + bias_bytes, H100_BF16_FLOPS)
+    bb, bby = bound(bw, bby + bias_bytes, H100_BF16_FLOPS)
+    log(f"bf16: B1 with DINO's mask at {DINO_LOCAL['label']} B,N,C,H,D={DINO_LOCAL['shape']} "
+        f"(median of 20, CUDA events): kernel fwd(saves) {f_ms:.3f} + bwd {b_ms:.3f} ms; "
+        f"plain fwd {pf_ms:.3f} + bwd {pb_ms:.3f} ms; bound (bf16 989 TFLOP/s) fwd "
+        f"{fb:.3f} ({fby}) + bwd {bb:.3f} ms ({bby})")
+    shape = f"{DINO_LOCAL['label']}, B,N,C,H,D=" + ",".join(map(str, DINO_LOCAL["shape"])) \
+        + ", block mask"
+    fwd = {"shape": shape + ", saves", "max_abs_err": worst["fwd"], "ms": f_ms,
+           "plain_ms": pf_ms, "bound_ms": fb, "bound_by": fby, "library_ms": None}
+    bwd = {"shape": shape, "max_abs_err": worst["bwd"], "ms": b_ms, "plain_ms": pb_ms,
+           "bound_ms": bb, "bound_by": bby, "library_ms": None}
+    del a, dz, out, saved
+    return fwd, bwd
+
+
 # ---------------------------------------------------------------------------
 # 3q. the packed-qkv attention (B3) vs its plain version
 # ---------------------------------------------------------------------------
@@ -3299,8 +3548,9 @@ def image_size(conf):
 def counted_modules():
     """counter name → (its ops module, the counter's name there): each
     kernel's launches, of the attention layer's those that carried the bias
-    (``+bias``), and of B1's and B2's those of their bf16 forms
-    (``[bf16]``)."""
+    (``+bias``), of B1's and B2's those of their bf16 forms (``[bf16]``),
+    and of B1's and the packed-row attention's bf16 launches those with the
+    bias (``+bias[bf16]``)."""
     from vision_transformers_tpu_torch.ops import (fused_attention_mod, fused_block,
                                                    fused_halo, fused_halo_layer,
                                                    fused_layer, fused_layer1, fused_swin)
@@ -3331,7 +3581,11 @@ def counted_modules():
             "fused_attention_layer_bwd[bf16]": (fused_layer, "BF16_BWD_LAUNCHES"),
             "fused_transformer_layer[bf16]": (fused_layer1, "BF16_LAUNCHES"),
             "packed_attention[bf16]": (fused_layer, "PACKED_BF16_LAUNCHES"),
-            "packed_attention_bwd[bf16]": (fused_layer, "PACKED_BF16_BWD_LAUNCHES")}
+            "packed_attention_bwd[bf16]": (fused_layer, "PACKED_BF16_BWD_LAUNCHES"),
+            "fused_attention_layer+bias[bf16]": (fused_layer, "BF16_BIAS_LAUNCHES"),
+            "fused_attention_layer_bwd+bias[bf16]": (fused_layer, "BF16_BIAS_BWD_LAUNCHES"),
+            "packed_attention+bias[bf16]": (fused_layer, "PACKED_BF16_BIAS_LAUNCHES"),
+            "packed_attention_bwd+bias[bf16]": (fused_layer, "PACKED_BF16_BIAS_BWD_LAUNCHES")}
 
 
 def counts():
@@ -3629,6 +3883,54 @@ def bf16_golden(torch):
         + ", ".join(f"{k} {e:.3e} ({lim:.3e})" for k, (e, lim) in checks.items()))
 
 
+DINO_BF16_GOLDEN_SCRIPT = os.path.join(ROOT, "scripts", "make_torch_port_dino_bf16_golden.py")
+
+
+def dino_bf16_golden(torch):
+    """One DINO step of DeiT-S/16 at the conf's default precision, bf16, on
+    the golden's 3 images under the 'layer' force (B1's bf16 form in every
+    layer: the teacher's globals serving, the student's globals and, with
+    the block mask, its 8 packed local rows, forward and backward) against
+    tests/data/dino_deit_s16_bf16_port_golden.npz
+    (scripts/make_torch_port_dino_bf16_golden.py): the loss's 54
+    cross-entropies, each tensor's gradient norm and projection, both nets'
+    per-crop output norms and projections, each vector within GAP_FACTOR
+    times the JAX package's own bf16-against-f32 gap at the golden's seed,
+    the loss and the gradient norm within GAP_FACTOR times the root mean
+    square of JAX's gaps over the golden's six seeds; the products set as
+    the training entry points set them."""
+    import importlib.util
+
+    from vision_transformers_tpu_torch.train.trainer import full_precision_products
+
+    spec = importlib.util.spec_from_file_location("make_torch_port_dino_bf16_golden",
+                                                  DINO_BF16_GOLDEN_SCRIPT)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)  # numpy at import; the port's step imports no JAX
+    with np.load(mod.GOLDEN) as f:
+        g = {k: f[k] for k in f.files}
+    fal, falb = "fused_attention_layer", "fused_attention_layer_bwd"
+    pa, pab = "packed_attention", "packed_attention_bwd"
+    expected = {fal: 36, fal + "+bias": 12, falb: 24, falb + "+bias": 12,
+                fal + "[bf16]": 36, fal + "+bias[bf16]": 12, falb + "[bf16]": 24,
+                falb + "+bias[bf16]": 12, pa + "[bf16]": 36, pa + "+bias[bf16]": 12,
+                pab + "[bf16]": 24, pab + "+bias[bf16]": 12}
+    full_precision_products()
+    before = counts()
+    with forced(attn="layer"):
+        ours = mod.port_bf16_step(int(g["seed"]), DEVICE)
+    torch.cuda.synchronize()
+    expect_path(before, counts(), expected, "golden DINO bf16")
+    errors = mod.check(ours, g)
+    log(f"golden: DINO DeiT-S/16 bf16 step, depth 12, {len(g['student_norms_bf16'])} student "
+        f"and {len(g['teacher_norms_bf16'])} teacher crops via B1's bf16 form (the locals "
+        f"with the mask): loss {float(ours['loss']):.6f} (JAX bf16 "
+        f"{float(g['loss_bf16']):.6f}, f32 {float(g['loss_f32']):.6f}); error (limit "
+        f"{mod.GAP_FACTOR} x JAX's bf16 gap; the scalars' gaps over "
+        f"{len(g['gap_seeds'])} seeds) " + ", ".join(
+            f"{k} {e:.3e} ({lim:.3e})" for k, (e, lim) in errors.items()))
+
+
 # ---------------------------------------------------------------------------
 # 5. predict end to end (the serving path)
 # ---------------------------------------------------------------------------
@@ -3767,6 +4069,8 @@ def train_main_path(torch, has_pil, model_name, expected, overrides=(), halo=Non
                 f"checker.storage=[{{type: local, path: {tmp}}}]"]
         engine.train_step = timed_step
         torch.cuda.reset_peak_memory_stats()
+        # torch's default, as a user's process starts: the entry sets its own
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
         try:
             with forced(halo, sra, attn, ff), environ(env or {}):
                 reset_counts()  # the main path's run starts here
@@ -3777,6 +4081,8 @@ def train_main_path(torch, has_pil, model_name, expected, overrides=(), halo=Non
         finally:
             engine.train_step = train_step
         peak = torch.cuda.max_memory_allocated()
+        if torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction:
+            raise RuntimeError(f"trainer {label}: the entry left bf16 products reducing in bf16")
         want = {k: expected.get(k, 0) for k in launches}
         if launches != want:
             raise RuntimeError(f"trainer {label}: expected launches {want}, "
@@ -3856,16 +4162,18 @@ def vit_trainers(torch, has_pil):
 DINO_BATCH, DINO_EPOCHS = 96, 2
 
 
-def dino_train_main_path(torch):
-    """``train_dino.main`` f32 from configs/dino_deit-s-16.conf at 96 images
-    a step for two synthetic epochs (4 steps each; the last layer frozen in
-    the first), DropPath 0.1 on the student: per step and layer, the student
-    takes B1 on its 192 global rows (per-sample row scales) and, with the
-    mask, on its 256 packed local rows (token-level scales applied outside),
-    forward and backward, and the teacher the whole-layer kernel B2 on its
-    192 global rows (forward only).  The counters are zeroed just before and
-    read just after; the loss must be finite and the epoch checkpoint hold
-    both nets.  Logs the steady-state step time."""
+def dino_train_main_path(torch, precision="f32", steady_out=None):
+    """``train_dino.main`` from configs/dino_deit-s-16.conf at 96 images a
+    step for two synthetic epochs (4 steps each; the last layer frozen in
+    the first), DropPath 0.1 on the student, at ``precision`` (f32, or
+    None: the conf's own, bf16): per step and layer, the student takes B1 on
+    its 192 global rows (per-sample row scales) and, with the mask, on its
+    256 packed local rows (token-level scales applied outside), forward and
+    backward, and the teacher the whole-layer kernel B2 on its 192 global
+    rows (forward only); at bf16 every one of them on the bf16 forms.  The
+    counters are zeroed just before and read just after; the loss must be
+    finite and the epoch checkpoint hold both nets, in f32.  Logs the
+    steady-state step time; ``steady_out`` takes it and the peak memory."""
     from vision_transformers_tpu_torch import train_dino
     from vision_transformers_tpu_torch.ops import _build
     from vision_transformers_tpu_torch.train import dino
@@ -3876,6 +4184,13 @@ def dino_train_main_path(torch):
         "fused_transformer_layer"
     expected = {fal: 24 * steps, fal + "+bias": 12 * steps, falb: 24 * steps,
                 falb + "+bias": 12 * steps, ftl: 12 * steps}
+    if precision is None:  # the same launches, each on its bf16 form
+        expected.update({k + "[bf16]": v for k, v in expected.items()})
+        expected.update({"packed_attention[bf16]": 36 * steps,
+                         "packed_attention+bias[bf16]": 12 * steps,
+                         "packed_attention_bwd[bf16]": 24 * steps,
+                         "packed_attention_bwd+bias[bf16]": 12 * steps})
+    label = "f32" if precision else "bf16 (the conf's default)"
     step_secs = []
     make_step = dino.make_dino_train_step
 
@@ -3892,12 +4207,15 @@ def dino_train_main_path(torch):
 
     _build._BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build._BUILD_DIR) as tmp:
-        args = ["--conf", DINO_CONF, "--device", DEVICE, "precision=f32",
+        args = ["--conf", DINO_CONF, "--device", DEVICE,
+                *([f"precision={precision}"] if precision else []),
                 f"training.dataloader.batch_size={DINO_BATCH}",
                 f"training.epoch={DINO_EPOCHS}", "log_freq=1",
                 f"checker.storage=[{{type: local, path: {tmp}}}]"]
         dino.make_dino_train_step = timed_make_step
         torch.cuda.reset_peak_memory_stats()
+        # torch's default, as a user's process starts: the entry sets its own
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
         try:
             reset_counts()  # the main path's run starts here
             t0 = time.perf_counter()
@@ -3907,6 +4225,8 @@ def dino_train_main_path(torch):
         finally:
             dino.make_dino_train_step = make_step
         peak = torch.cuda.max_memory_allocated()
+        if torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction:
+            raise RuntimeError("trainer DINO: the entry left bf16 products reducing in bf16")
         want = {k: expected.get(k, 0) for k in launches}
         if launches != want:
             raise RuntimeError(f"trainer DINO: expected launches {want}, counted {launches}")
@@ -3915,17 +4235,38 @@ def dino_train_main_path(torch):
         student, teacher = load_dino_checkpoint(os.path.join(tmp, f"epoch-{DINO_EPOCHS:03d}.pt"))
         if teacher is None or not all(torch.isfinite(v).all() for v in student.values()):
             raise RuntimeError("trainer DINO: the epoch checkpoint lacks a net")
+        if not all(v.dtype == torch.float32 for net in (student, teacher)
+                   for v in net.values()):
+            raise RuntimeError("trainer DINO: the checkpoint's nets are not f32")
     steady = float(np.mean(step_secs[1:]))
-    log(f"trainer: {DINO_EPOCHS} epochs of DINO DeiT-S/16 f32 ({len(step_secs)} steps x "
+    if steady_out is not None:
+        steady_out.update(seconds=steady, peak=peak)
+    log(f"trainer: {DINO_EPOCHS} epochs of DINO DeiT-S/16 {label} ({len(step_secs)} steps x "
         f"{DINO_BATCH} images: 2 x 224 + 8 x 96 crops each, the locals packed 3 to a row; "
         f"student_drop_path 0.1; epoch 0 with the last layer frozen) in {secs:.2f} s: loss "
         f"{metrics['loss']:.5f}; trainer images/s {metrics['images_per_sec']:.1f}; steps "
         + ", ".join(f"{t * 1e3:.1f}" for t in step_secs) + " ms; max_memory_allocated "
         f"{peak / 2**30:.2f} GiB")
-    log(f"trainer: DINO steady state (steps 2-{len(step_secs)}): {steady * 1e3:.2f} ms/step = "
-        f"{DINO_BATCH / steady:.1f} images/s")
-    log(f"trainer: DINO launches on the main path {launches}")
+    log(f"trainer: DINO {label} steady state (steps 2-{len(step_secs)}): "
+        f"{steady * 1e3:.2f} ms/step = {DINO_BATCH / steady:.1f} images/s")
+    log(f"trainer: DINO {label} launches on the main path {launches}")
     return launches
+
+
+def dino_trainers(torch):
+    """6 (DINO): the trainer at f32 and at the conf's default precision,
+    bf16 — the same launches, every one of the bf16 run on the bf16 forms —
+    and the two steady-state steps, images/s and peak memory side by side.
+    Returns (f32 launches, bf16 launches)."""
+    f32_run, bf16_run = {}, {}
+    f32 = dino_train_main_path(torch, "f32", f32_run)
+    bf16 = dino_train_main_path(torch, None, bf16_run)
+    (f32_s, f32_peak), (bf_s, bf_peak) = f32_run.values(), bf16_run.values()
+    log(f"trainer: DINO DeiT-S/16 at {DINO_BATCH} images, steady state in this run: f32 "
+        f"{f32_s * 1e3:.2f} ms/step = {DINO_BATCH / f32_s:.1f} images/s, max_memory_allocated "
+        f"{f32_peak / 2**30:.2f} GiB; bf16 (the conf's default) {bf_s * 1e3:.2f} ms/step = "
+        f"{DINO_BATCH / bf_s:.1f} images/s, max_memory_allocated {bf_peak / 2**30:.2f} GiB")
+    return f32, bf16
 
 
 def main() -> None:
@@ -3963,6 +4304,9 @@ def main() -> None:
     dino_fwd, dino_bwd = phase("3d attention layer + DINO mask", dino_layer_kernels, torch)
     timed["fused_attention_layer+bias"] = [dino_fwd]
     timed["fused_attention_layer_bwd+bias"] = [dino_bwd]
+    timed["fused_attention_layer+bias[bf16]"], timed["fused_attention_layer_bwd+bias[bf16]"] = (
+        [r] for r in phase("3d attention layer + DINO mask, bf16", dino_bf16_layer_kernels,
+                           torch))
     timed["fused_attention"], timed["fused_attention_bwd"] = phase(
         "3s reduced-kv", sra_kernels, torch)
     timed["fused_attention_qkv"], timed["fused_attention_qkv_bwd"] = phase(
@@ -4017,6 +4361,7 @@ def main() -> None:
           None, None, "swin")
     phase("4d golden DINO", dino_golden, torch)
     phase("4bf golden ViT bf16", bf16_golden, torch)
+    phase("4bf golden DINO bf16", dino_bf16_golden, torch)
     phase("4b train ViT", train_golden, torch, "ViT-S/16", depth("ViT-S/16", fal, falb))
     phase("4b train Swin", train_golden, torch, "Swin-S", depth("Swin-S", ftl, ftlb))
     phase("4b train Halo", train_golden, torch, "Halo-S", depth("Halo-S", fhl, fhlb))
@@ -4121,10 +4466,12 @@ def main() -> None:
         "Swin-S train (dropout)": phase(
             "6 trainer Swin dropout", train_main_path, torch, has_pil, "Swin-S",
             {ftl: 24 * 2}, ("arch.drop_attn=0.1", "arch.drop_ff=0.1")),
-        # DINO: 8 steps x 12 layers of B1 on the student's globals and, with
-        # the mask, on its packed locals, forward and backward, and of B2 on
-        # the teacher's globals
-        "DINO train": phase("6 trainer DINO", dino_train_main_path, torch),
+        # DINO at f32 and at the conf's default precision, bf16: 8 steps x
+        # 12 layers of B1 on the student's globals and, with the mask, on
+        # its packed locals, forward and backward, and of B2 on the
+        # teacher's globals; the bf16 run's every launch on the bf16 forms
+        **dict(zip(("DINO train", "DINO train (bf16)"), phase(
+            "6 trainer DINO f32 + bf16", dino_trainers, torch))),
     }
     trainer_of = {fal: "ViT-S/16 train", falb: "ViT-S/16 train",
                   ftl: "Swin-S train", ftlb: "Swin-S train",
@@ -4141,7 +4488,11 @@ def main() -> None:
                   falb + "[bf16]": "ViT-S/16 train (bf16)",
                   ftl + "[bf16]": "ViT-S/16 train (bf16)",
                   "packed_attention[bf16]": "ViT-S/16 train (bf16)",
-                  "packed_attention_bwd[bf16]": "ViT-S/16 train (bf16)"}
+                  "packed_attention_bwd[bf16]": "ViT-S/16 train (bf16)",
+                  fal + "+bias[bf16]": "DINO train (bf16)",
+                  falb + "+bias[bf16]": "DINO train (bf16)",
+                  "packed_attention+bias[bf16]": "DINO train (bf16)",
+                  "packed_attention_bwd+bias[bf16]": "DINO train (bf16)"}
     # the bf16 layers run the GEMM core's bf16 form (its TMA kernels as
     # built) and the packed-row attention's (its kernels as built)
     from vision_transformers_tpu_torch.ops import _build

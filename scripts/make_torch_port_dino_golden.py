@@ -21,6 +21,7 @@ script, by tests/test_torch_port_dino_golden.py and by chip_smoke.py.
 """
 
 import argparse
+import functools
 import os
 import sys
 
@@ -38,8 +39,10 @@ def seeded_center(seed: int, dim: int) -> np.ndarray:
     return 0.1 * np.random.default_rng([seed, 7]).standard_normal((1, dim), dtype=np.float32)
 
 
+@functools.lru_cache(maxsize=1)
 def step_inputs(seed: int):
-    """(port conf, student sd, teacher sd, crops, center) of the golden step."""
+    """(port conf, student sd, teacher sd, crops, center) of the golden step
+    (kept for the next call with the same seed: read only)."""
     from vision_transformers_tpu_torch.config.schema import load_config
     from vision_transformers_tpu_torch.utils.weights import (seeded_dino_crops,
                                                              seeded_state_dict)
@@ -52,49 +55,83 @@ def step_inputs(seed: int):
             seeded_center(seed, arch.dim_head_out))
 
 
-def summary(seed, loss, student_out, teacher_out, grads) -> dict:
-    """The stored numbers of one step (see the module docstring)."""
+def loss_terms(seed: int, student_out, teacher_out, student_temp: float = 0.1) -> np.ndarray:
+    """The DINO loss's cross-entropies, one per (teacher global, student
+    crop ≠ it, image), in f64 from the nets' outputs, the seeded center and
+    TEACHER_TEMP (train/loss.py's sum, not averaged): their mean is the
+    loss."""
+    s = np.asarray(student_out, np.float64) / student_temp
+    t = np.asarray(teacher_out, np.float64)
+    t = (t - seeded_center(seed, t.shape[-1])) / TEACHER_TEMP
+    q = np.exp(t - t.max(-1, keepdims=True))
+    q /= q.sum(-1, keepdims=True)
+    logp = s - s.max(-1, keepdims=True)
+    logp -= np.log(np.exp(logp).sum(-1, keepdims=True))
+    b = len(t) // 2
+    n_crop = len(s) // b
+    return np.array([-(q[i * b:(i + 1) * b] * logp[v * b:(v + 1) * b]).sum(-1)
+                     for i in range(2) for v in range(n_crop) if v != i]).ravel()
+
+
+def summary(seed, loss, student_out, teacher_out, grads, vectors=None) -> dict:
+    """The stored numbers of one step (see the module docstring);
+    ``vectors``: the gradients' projection tensors, made beforehand
+    (:func:`projection_vectors`)."""
     from vision_transformers_tpu_torch.utils.weights import (grad_projections,
                                                              row_projections)
 
     keys = sorted(grads)
-    proj = grad_projections(grads, seed)
+    proj = grad_projections(grads, seed, vectors)
     norms = np.array([np.linalg.norm(np.asarray(grads[k], np.float64)) for k in keys])
     return {"loss": float(loss), "grad_norm": float(np.sqrt((norms ** 2).sum())),
             "keys": keys, "norms": norms, "projections": np.array([proj[k] for k in keys]),
             "student_norms": np.linalg.norm(np.asarray(student_out, np.float64), axis=-1),
             "student_projections": row_projections(student_out, seed),
             "teacher_norms": np.linalg.norm(np.asarray(teacher_out, np.float64), axis=-1),
-            "teacher_projections": row_projections(teacher_out, seed)}
+            "teacher_projections": row_projections(teacher_out, seed),
+            "loss_terms": loss_terms(seed, student_out, teacher_out)}
 
 
-def port_dino_step(seed: int, device: str = "cpu") -> dict:
+def projection_vectors(seed: int) -> dict:
+    """The student's gradient projection tensors by state_dict key
+    (utils/weights.grad_projection_vector), for a caller that summarises
+    several steps of one seed."""
+    from vision_transformers_tpu_torch.utils.weights import grad_projection_vector
+
+    sd_s = step_inputs(seed)[1]
+    return {k: grad_projection_vector(seed, i, sd_s[k].shape) for i, k in enumerate(sorted(sd_s))}
+
+
+def port_dino_step(seed: int, device: str = "cpu", dtype=None, vectors=None) -> dict:
     """The same numbers from the port on ``device`` (its dispatch, or the
     caller's ``ops`` force), imports no JAX: the teacher under
-    ``forward_only`` and ``no_grad``, the student with gradients."""
+    ``forward_only`` and ``no_grad``, the student with gradients; both nets
+    at the compute ``dtype`` (None: f32); ``vectors`` as :func:`summary`'s."""
     import torch
 
     from vision_transformers_tpu_torch import ops
     from vision_transformers_tpu_torch.train import loss as L
     from vision_transformers_tpu_torch.utils.weights import to_torch
 
+    dtype = dtype or torch.float32
     conf, sd_s, sd_t, crops, center = step_inputs(seed)
-    student = conf.arch.make(drop_path=0.0)
-    student.load_state_dict(to_torch(sd_s), strict=True)
-    teacher = conf.arch.make(drop_path=0.0)
-    teacher.load_state_dict(to_torch(sd_t), strict=True)
+    with torch.device("meta"):  # no initializer runs: the weights are loaded
+        student = conf.arch.make(dtype=dtype, drop_path=0.0)
+        teacher = conf.arch.make(dtype=dtype, drop_path=0.0)
+    student.load_state_dict(to_torch(sd_s), strict=True, assign=True)
+    teacher.load_state_dict(to_torch(sd_t), strict=True, assign=True)
     student.to(device).train()
     teacher.to(device).eval()
     crops = [torch.from_numpy(c).to(device).permute(0, 3, 1, 2) for c in crops]
     with torch.no_grad(), ops.forward_only():
         t_out = teacher(crops[:2])
     s_out = student(crops)
-    loss = L.dino_loss(s_out, t_out, torch.from_numpy(center).to(device), TEACHER_TEMP,
-                       len(crops))
+    loss = L.dino_loss(s_out, t_out.float(), torch.from_numpy(center).to(device),
+                       TEACHER_TEMP, len(crops))
     loss.backward()
     grads = {k: p.grad.double().cpu().numpy() for k, p in student.named_parameters()}
-    return summary(seed, loss.detach().cpu(), s_out.detach().cpu().numpy(),
-                   t_out.cpu().numpy(), grads)
+    return summary(seed, loss.detach().cpu(), s_out.detach().float().cpu().numpy(),
+                   t_out.float().cpu().numpy(), grads, vectors)
 
 
 def jax_dino_step(seed: int) -> dict:

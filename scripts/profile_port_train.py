@@ -3,7 +3,7 @@
 
 Runs ``engine.train_step`` on the model of ``--conf`` (seeded weights and a
 synthetic batch, f32 with no TF32 — or, with ``--precision bf16``, the
-JAX package's default precision, ViT only —, AdamW with the conf's clip and
+JAX package's default precision, ViT and DINO —, AdamW with the conf's clip and
 grad_accumulation, DropPath at the conf's rate drawn from a seeded
 generator) under ``torch.profiler`` after a warm-up and prints the device
 time by kernel per step, grouped by layer (hand-written GEMM in its
@@ -40,7 +40,8 @@ window partition around it).  DINO (``--conf configs/dino_deit-s-16.conf
 trainer runs it: the uint8 multi-crop batch to the card, the augmentation,
 the teacher's forward on the 2 globals (the whole-layer kernel), the
 student's forward and backward on all 10 crops (the attention layer, the
-locals packed 3 to a row under the block mask), the DINO loss, the clip,
+locals packed 3 to a row under the block mask; at bf16 both nets on the
+bf16 forms, the mask on the packed-row attention's bf16 form), the DINO loss, the clip,
 AdamW with the scheduled decay and the teacher EMA (``--freeze`` with the
 last layer frozen); the conf's ``student_drop_path`` 0.1.  Needs CUDA;
 imports no JAX.
@@ -95,9 +96,10 @@ def group(name: str) -> str:
     return "other (elementwise, reductions, conv)"
 
 
-def dino_step(conf, images, seed, freeze, gen):
+def dino_step(conf, images, seed, freeze, gen, dtype):
     """The DINO trainer's step at ``images`` images a step, seeded weights
-    (the teacher a copy of the student), as train/dino.py runs it."""
+    (the teacher a copy of the student), both nets at compute ``dtype``, as
+    train/dino.py runs it."""
     from vision_transformers_tpu_torch.data.dino import make_dino_device_augment
     from vision_transformers_tpu_torch.data.synthetic import synthetic_dino_batches
     from vision_transformers_tpu_torch.train.dino import DINOTrainState, make_dino_train_step
@@ -106,8 +108,8 @@ def dino_step(conf, images, seed, freeze, gen):
 
     arch, task, training = conf.arch, conf.task, conf.training
     sd = to_torch(seeded_state_dict(arch, seed))
-    student = arch.make(drop_path=task.student_drop_path)
-    teacher = arch.make(drop_path=0.0)
+    student = arch.make(dtype=dtype, drop_path=task.student_drop_path)
+    teacher = arch.make(dtype=dtype, drop_path=0.0)
     student.load_state_dict(sd, strict=True)
     teacher.load_state_dict(sd, strict=True)
     student.cuda()
@@ -152,7 +154,7 @@ def main() -> None:
     parser.add_argument("--freeze", action="store_true",
                         help="DINO: the last layer frozen (epoch 0 of the recipe)")
     parser.add_argument("--precision", default="f32", choices=("f32", "bf16"),
-                        help="the compute dtype (bf16: the ViT's bf16 forms)")
+                        help="the compute dtype (bf16: ViT's and DINO's bf16 forms)")
     parser.add_argument("overrides", nargs="*", help="key=value conf overrides")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -179,12 +181,12 @@ def main() -> None:
                           text=True, timeout=60).stdout.strip().splitlines()[0]
     conf = load_config(args.conf, [f"precision={args.precision}", *args.overrides])
     if args.precision == "bf16":
-        check_supported(conf)  # bf16 is ported for ViT
+        check_supported(conf)  # bf16 is ported for ViT and DINO
     dtype = compute_dtype(conf)
     arch, training = conf.arch, conf.training
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     if arch.type == "dino":
-        step = dino_step(conf, args.rows, args.seed, args.freeze, gen)
+        step = dino_step(conf, args.rows, args.seed, args.freeze, gen, dtype)
     else:
         model = arch.make(dtype=dtype) if dtype != torch.float32 else arch.make()
         model.load_state_dict(to_torch(seeded_state_dict(arch, args.seed)), strict=True)

@@ -21,11 +21,13 @@ under B1's bias calls, B2 and B9), ``3s`` (the reduced-kv attention, B6),
 whole Halo layer B4 and the halo attention B5a), ``3hb`` (their backwards),
 ``3g`` (the gathered halo attention, B5b), ``3k`` (the attention block, B8),
 ``3w`` (the map-resident Swin layer, B9), ``3f`` (the FF layer, B7), ``3d`` (B1
-with DINO's block mask at heads 64 wide), ``3bf`` (the bf16 forms: the GEMM
-core's, B1 forward and backward, B2's serving forward, the packed-row
-attention beside SDPA), and chip_smoke's model phases ``4d`` (the DINO
-golden), ``6d`` (the DINO trainer), ``4bf`` (ViT-S/16 at bf16 against its
-golden) and ``6bf`` (the ViT-S/16 trainer at f32 and at bf16, side by side).
+with DINO's block mask at heads 64 wide), ``3dbf`` (the same at bf16),
+``3bf`` (the bf16 forms: the GEMM core's, B1 forward and backward, B2's
+serving forward, the packed-row attention beside SDPA, with and without the
+bias), and chip_smoke's model phases ``4d`` (the DINO golden), ``4dbf`` (the
+DINO golden at bf16), ``6d`` (the DINO trainer at f32 and at bf16, side by
+side), ``4bf`` (ViT-S/16 at bf16 against its golden) and ``6bf`` (the
+ViT-S/16 trainer at f32 and at bf16, side by side).
 Exits non-zero when a phase fails.  Needs CUDA; imports no JAX.
 """
 
@@ -41,8 +43,9 @@ PHASES = {"3m": "gemm_kernels", "3": "kernels", "3v": "backward_kernel",
           "3q": "qkv_kernels", "3h": "halo_kernels", "3hb": "halo_backward_kernels",
           "3g": "gather_kernels", "3k": "block_kernels", "3w": "swin_map_kernels",
           "3f": "ff_kernels", "3d": "dino_layer_kernels", "4d": "dino_golden",
-          "6d": "dino_train_main_path", "3bf": "bf16_kernels", "4bf": "bf16_golden",
-          "6bf": "vit_trainers"}
+          "6d": "dino_trainers", "3bf": "bf16_kernels", "4bf": "bf16_golden",
+          "6bf": "vit_trainers", "3dbf": "dino_bf16_layer_kernels",
+          "4dbf": "dino_bf16_golden"}
 DEFAULT = ("3s", "3q")
 
 

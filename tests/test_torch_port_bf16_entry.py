@@ -7,9 +7,13 @@ bfloat16, driven here through ctypes callbacks of the declared signatures
 (tests/test_torch_port_vit_attention_tc.py's fake library): the
 activations' workspaces are bfloat16, the statistics, lse and every
 reduction workspace f32, and the backward's dq partials are passed even
-with one key tile (they first hold the out projection's f32 dacc₀).  Every
-entry without a bf16 form raises NotImplementedError for a bfloat16 tensor,
-naming the ROADMAP queue, and casts nothing.
+with one key tile (they first hold the out projection's f32 dacc₀).  B1's
+bf16 entries take the additive
+bias (DINO's block mask, or a grouped [G, H, N, N] bias) as its grouped f32
+form and its group count, and no dbias workspace: a bf16 call that asks
+for the bias's gradient raises.  Every entry without a bf16 form raises
+NotImplementedError for a bfloat16 tensor, naming the ROADMAP queue item,
+and casts nothing.
 
 The ``cuda`` tests hold the bf16 kernels against their plain versions on
 the card at chip_smoke.py's limits (one bf16 ulp is 2⁻⁸): forward within
@@ -17,14 +21,17 @@ the card at chip_smoke.py's limits (one bf16 ulp is 2⁻⁸): forward within
 and bit-identical across two runs; among them the packed-row attention's
 bf16 form alone (csrc/attention_bf16_tma.cuh) over N from 1 to 577 (one
 128-key tile, two, the 208-key tile, past the 256 keys whose dq is summed
-in shared memory) and heads 16 to 64 wide.  No JAX here, so they run where
-JAX is absent.
+in shared memory) and heads 16 to 64 wide, and with the bias: DINO's
+block mask at 111 tokens, a grouped bias, and a mask under which a query's
+first 128-key tile is all masked (N 200 and 257), B1 with the mask at
+DINO's widths too.  No JAX here, so they run where JAX is absent.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from vision_transformers_tpu_torch.models.vit import pack_mask
 from vision_transformers_tpu_torch.ops import fused_attention_mod as fused_attention
 from vision_transformers_tpu_torch.ops import (fused_block, fused_halo, fused_halo_layer,
                                                fused_layer, fused_layer1, fused_swin, gemm)
@@ -121,6 +128,61 @@ def test_bf16_attention_workspace_rule(N, floats):
     assert fused_layer.packed_attention_bf16_floats(4, N, 3, 40) == floats
 
 
+def grouped_bias(G, H, N, seed=0):
+    """A seeded grouped bias [G, H, N, N] f32."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal((G, H, N, N)).astype(np.float32))
+
+
+# name → (B, N, C, H, D, the bias: "mask" DINO's block mask of 3 crops a
+# row, or G for a grouped bias)
+BIAS_SHAPES = {"dino": (6, 111, 128, 2, 64, "mask"), "grouped": (4, 17, 64, 2, 32, 2)}
+
+
+def bias_for(B, N, H, kind, seed=0):
+    return pack_mask(3, N // 3, "cpu") if kind == "mask" else grouped_bias(kind, H, N, seed)
+
+
+@pytest.mark.parametrize("shape", sorted(BIAS_SHAPES))
+def test_b1_bf16_with_the_bias_takes_the_bf16_entries(monkeypatch, shape):
+    B, N, C, H, D, kind = BIAS_SHAPES[shape]
+    args = bf16_inputs(B, N, C, H, D, 2 * C)[:7]
+    extra_g, groups = fused_layer.extra_groups(bias_for(B, N, H, kind), B, H, N)
+    r = torch.full((B,), 1 / 0.9)
+    names = ("BF16_LAUNCHES", "BF16_BWD_LAUNCHES", "BIAS_LAUNCHES", "BIAS_BWD_LAUNCHES",
+             "BF16_BIAS_LAUNCHES", "BF16_BIAS_BWD_LAUNCHES", "PACKED_BF16_BIAS_LAUNCHES",
+             "PACKED_BF16_BIAS_BWD_LAUNCHES")
+    before = [getattr(fused_layer, n) for n in names]
+    with fake_cuda(monkeypatch) as lib:
+        out, res = fused_layer._cuda_fwd(*args, H, extra_g, groups, r, D ** -0.5, 1e-6,
+                                         save=True)
+        saved = fused_layer.AttnSaved(*args, r, *res, extra_g, H, D ** -0.5, 1e-6)
+        grads = fused_layer._cuda_bwd(saved, torch.zeros_like(out), True, False)
+        fwd = lib.calls["vtx_fused_attention_layer_fwd_bf16"]
+        bwd = lib.calls["vtx_fused_attention_layer_bwd_bf16"]
+    assert [getattr(fused_layer, n) - b for n, b in zip(names, before)] == [1] * len(names)
+    assert extra_g.shape == (1 if kind == "mask" else kind, H, N, N)
+    assert extra_g.dtype == torch.float32 and extra_g.is_contiguous()
+    for call in (fwd, bwd):
+        assert call["extra"] == extra_g.data_ptr() and call["groups"] == groups
+    # no gradient of the bias at bf16: no dS workspace, no dextra
+    assert bwd["dbpart"] is None and bwd["dextra"] is None and bwd["dq_part"] is not None
+    assert grads[-1] is None and grads[0].dtype == bf
+
+
+def test_b1_bf16_bias_gradient_raises(monkeypatch):
+    B, N, C, H, D, kind = BIAS_SHAPES["grouped"]
+    args = bf16_inputs(B, N, C, H, D, 2 * C)[:7]
+    extra_g, groups = fused_layer.extra_groups(grouped_bias(kind, H, N), B, H, N)
+    with fake_cuda(monkeypatch) as lib:
+        out, res = fused_layer._cuda_fwd(*args, H, extra_g, groups, None, D ** -0.5, 1e-6,
+                                         save=True)
+        saved = fused_layer.AttnSaved(*args, None, *res, extra_g, H, D ** -0.5, 1e-6)
+        with pytest.raises(NotImplementedError, match="item 2"):
+            fused_layer._cuda_bwd(saved, torch.zeros_like(out), False, True)
+        assert "vtx_fused_attention_layer_bwd_bf16" not in lib.calls
+
+
 def test_b2_bf16_serves_on_its_bf16_entry(monkeypatch):
     B, N, C, H, D, F = SHAPES["vit"]
     args = bf16_inputs(B, N, C, H, D, F)
@@ -153,9 +215,11 @@ def _f(*shape):
 
 # every entry without a bf16 form, called with a bfloat16 tensor
 NO_BF16_FORM = {
-    "B1 with a bias": lambda: fused_layer._cuda_fwd(
-        *bf16_inputs(4, 18, 32, 2, 16, 64)[:7], 2, _f(1, 2, 18, 18), 1, None, 0.25, 1e-6,
-        save=False),
+    # B1's bf16 form takes the bias but not its gradient
+    "B1 with a bias": lambda: fused_layer._cuda_bwd(
+        fused_layer.AttnSaved(*bf16_inputs(4, 18, 32, 2, 16, 64)[:7], None, _b(4, 18, 96),
+                              _b(4, 18, 32), _f(4, 18), _f(4, 18), _f(4, 2, 18),
+                              _f(1, 2, 18, 18), 2, 0.25, 1e-6), _b(4, 18, 32), False, True),
     "B2 with a bias": lambda: fused_layer1._cuda_fwd(
         *bf16_inputs(4, 18, 32, 2, 16, 64), 2, _f(1, 2, 18, 18), 1, None, None, "silu",
         0.25, 1e-6, save=False),
@@ -271,6 +335,76 @@ def test_cuda_packed_attention_bf16_matches_plain(N, D):
     HD = H * D
     for i, name in enumerate(("dq", "dk", "dv")):
         within(name, dqkv[..., i * HD:(i + 1) * HD], plain[..., i * HD:(i + 1) * HD], BWD_TOL)
+
+
+def card_bias(B, N, H, kind, seed):
+    """The bias of a card test, f32 on the card: DINO's block mask of crops
+    of N // 3 tokens ("mask"), a seeded grouped bias of G groups (an int),
+    or ("first_tile_masked") a two-block mask whose first block holds the
+    first 128 keys: its second block's queries find their whole first key
+    tile at −1e9."""
+    if kind == "mask":
+        return pack_mask(3, N // 3, "cuda")
+    if kind == "first_tile_masked":
+        blocks = torch.block_diag(torch.ones(128, 128), torch.ones(N - 128, N - 128))
+        return torch.where(blocks > 0, 0.0, -1e9).cuda()
+    return grouped_bias(kind, H, N, seed).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("N, kind", [(111, "mask"), (17, 2), (129, 2), (197, 4),
+                                     (200, "first_tile_masked"), (257, "first_tile_masked"),
+                                     (300, 2)])
+def test_cuda_packed_attention_bf16_with_the_bias_matches_plain(N, kind, D):
+    needs_card()
+    B, H = 4, 3
+    g = torch.Generator().manual_seed(10 * N + D)
+    qkv = torch.randn(B, N, 3 * H * D, generator=g).to(bf).cuda()
+    dout = torch.randn(B, N, H * D, generator=g).to(bf).cuda()
+    extra = card_bias(B, N, H, kind, seed=N)
+    out, lse = fused_layer.packed_attention_bf16(qkv, H, extra=extra)
+    ref, ref_lse = fused_layer.packed_attention_reference(qkv, H, extra=extra)
+    within("out", out, ref, FWD_TOL)
+    within("lse", lse, ref_lse, 1e-5)
+    dqkv = fused_layer.packed_attention_bf16_bwd(qkv, out, lse, dout, H, extra=extra)
+    again = fused_layer.packed_attention_bf16_bwd(qkv, out, lse, dout, H, extra=extra)
+    extra_g = fused_layer.extra_groups(extra, B, H, N)[0]
+    plain = fused_layer.attention_bwd_reference(qkv, out, lse, dout, H, D ** -0.5, extra_g,
+                                                dtype=bf)[0]
+    assert torch.equal(dqkv, again), "dqkv differs between two runs"
+    HD = H * D
+    for i, name in enumerate(("dq", "dk", "dv")):
+        within(name, dqkv[..., i * HD:(i + 1) * HD], plain[..., i * HD:(i + 1) * HD], BWD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_scaled", [False, True], ids=["plain", "row_scale"])
+@pytest.mark.parametrize("shape", sorted(BIAS_SHAPES))
+def test_cuda_b1_bf16_with_the_bias_matches_plain(shape, rows_scaled):
+    needs_card()
+    B, N, C, H, D, kind = BIAS_SHAPES[shape]
+    a = [t.cuda() for t in bf16_inputs(B, N, C, H, D, 2 * C, seed=7)[:7]]
+    extra = card_bias(B, N, H, kind, seed=8)
+    r = torch.tensor([0.0] + [1 / 0.9] * (B - 1)).cuda() if rows_scaled else None
+    dz = torch.from_numpy(np.random.default_rng(9).standard_normal((B, N, C))
+                          .astype(np.float32)).cuda().to(bf)
+    out, saved = fused_layer.fused_attention_layer_fwd(*a, H, row_scale=r, extra=extra)
+    grads = fused_layer.fused_attention_layer_bwd(saved, dz, need_dextra=False)
+    again = fused_layer.fused_attention_layer_bwd(saved, dz, need_dextra=False)
+    out_p, saved_p = fused_layer.fused_attention_layer_fwd_reference(
+        *a, H, row_scale=r, extra_g=saved.extra_g)
+    plain = fused_layer.fused_attention_layer_bwd_reference(saved_p, dz, need_dextra=False)
+    within("out", out, out_p, FWD_TOL)
+    within("serving", fused_layer.fused_attention_layer(*a, H, extra=extra, row_scale=r),
+           out_p, FWD_TOL)
+    for name, k, k2, p in zip(("dx", "dg", "db", "dwqkv", "dbqkv", "dwout", "dbout", "drs",
+                               "dextra"), grads, again, plain):
+        if p is None:
+            assert k is None, name
+            continue
+        assert torch.equal(k, k2), f"{name} differs between two runs"
+        within(name, k, p, BWD_TOL)
 
 
 @pytest.mark.cuda

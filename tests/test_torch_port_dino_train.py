@@ -178,7 +178,10 @@ def test_train_dino_cli_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("override,error", [
-    ("precision=bf16", NotImplementedError),
+    # (the id "bf16" is kept from before DINO trained at bf16, which
+    # test_torch_port_dino_bf16.py now runs: a precision the port does not
+    # compute in still raises)
+    ("precision=fp16", NotImplementedError),
     ("training.agc=0.01", NotImplementedError),
     ("resume=auto", NotImplementedError),
     ("data_backend=records", NotImplementedError),

@@ -1,15 +1,32 @@
 // The packed-row attention core's bf16 form on Hopper (sm_90a): wgmma fed
-// by TMA, forward and backward.  It is the bias-free attention of B1 and B2
-// at the JAX package's default precision (bfloat16), the attention inside
+// by TMA, forward and backward.  It is the attention of B1 and B2 at the
+// JAX package's default precision (bfloat16), the attention inside
 //   vision_transformers_tpu/ops/fused_layer.py:116   (B1 forward)
 //   vision_transformers_tpu/ops/fused_layer.py:183   (B1 backward)
 //   vision_transformers_tpu/ops/fused_layer1.py:91   (B2 forward)
 // at ViT's calls (B = 128 images, N = 197 tokens, 6 heads 64 wide at
-// ViT-S/16), reading the projection's packed rows qkv [B, N, 3·H·D] (q-heads
-// | k-heads | v-heads) and writing out [B, N, H·D] and dqkv in the layout
-// of qkv, so nothing is transposed on either side:
+// ViT-S/16) and, with an additive bias, at DINO's packed local crops (B1:
+// 256 rows of 111 tokens at 96 images, the block-diagonal −1e9 mask),
+// reading the projection's packed rows qkv [B, N, 3·H·D] (q-heads | k-heads
+// | v-heads) and writing out [B, N, H·D] and dqkv in the layout of qkv, so
+// nothing is transposed on either side:
 //
-//   out[b, :, h] = softmax(q_h·k_hᵀ·scale)·v_h
+//   out[b, :, h] = softmax(q_h·k_hᵀ·scale + bias[b / (B / G), h])·v_h
+//
+// The bias (HAS_BIAS, a template parameter: the bias-free instantiations
+// are the kernels without it) is [G, H, N, N] f32, image b reading group
+// b / (B / G) (ops/fused_layer.py extra_groups' layout), as the JAX kernel
+// adds it (fused_layer.py:139-141: s = q·kᵀ·scale + extra in f32, before
+// the max).  Each score leaves the accumulators as a logit in the log₂
+// domain, fmaf(s, scale·log₂e, bias·log₂e), the bias read from global
+// memory in the accumulators' fragment layout (DINO's [111, 111] mask over
+// 6 heads is 296 KB: L2-resident; each row's lines prefetched into L1
+// while the tile's products run), on 128-key tiles at every N (the 208-key
+// tile's scores beside the bias's loads spilled); the backward recomputes P
+// with it.  It takes no gradient: DINO's mask is a constant.  A query whose
+// first key tiles are all masked sums them under a running max near
+// −1.44e9; the first tile with a real key rescales them by 2^(−1.44e9 − m)
+// = 0, as the exact softmax gives them 0.
 //
 // What bounds it on this card.  At ViT-S/16 the forward does 4·B·H·N²·D =
 // 7.6 GFLOP (0.008 ms at 989 TFLOP/s) against 78 MB of q, k, v, out and lse
@@ -41,9 +58,9 @@
 // loop of q·kᵀ and the width of P·V stay 64).  Keys past N are masked to
 // −∞ (forward) or to P = 0 (backward).
 //
-// Forward (bf16_attn_fwd_kernel<NW>): items (b, h, 128-query tile), qt
-// fastest (a head's two query tiles on neighbouring SMs at once: K and V
-// from L2 for the second).  The producer loads the item's Q [128 x 64] into
+// Forward (bf16_attn_fwd_kernel<NW, HAS_BIAS>): items (b, h, 128-query
+// tile), qt fastest (a head's two query tiles on neighbouring SMs at once:
+// K and V from L2 for the second).  The producer loads the item's Q [128 x 64] into
 // one of two Q slots and the K / V tiles into a ring of stages; the next
 // item's loads run under this one's products and epilogue.  The key tiles:
 // 128 keys in a ring of four stages (NW = 0), or, where 192 < N ≤ 208
@@ -63,13 +80,12 @@
 // memory and stored by TMA (clipped at N and D), left in flight; lse [B, H,
 // N] f32 only when asked (B1's training forward; B2's serving call not).
 //
-// Backward (bf16_attn_bwd_kernel): items (b, h); a block walks a head's
-// 128-key tiles and, for each, its 64-query tiles.  A short pass before it
-// (bf16_attn_rows_kernel) writes, per 64-query tile, L = lse·log₂e (+∞ past
-// N) and Δ = rowsum(dO ⊙ out) from the rounded out, in f32, once a query
-// row (1.6 MB at ViT-S/16, ~0.018 ms) — not once a key tile in every
-// block.  The
-// producer loads the key tile's K and V (two slots: the next key tile's
+// Backward (bf16_attn_bwd_kernel<DQ_SMEM, HAS_BIAS>): items (b, h); a block
+// walks a head's 128-key tiles and, for each, its 64-query tiles.  A short
+// pass before it (bf16_attn_rows_kernel) writes, per 64-query tile, L =
+// lse·log₂e (+∞ past N) and Δ = rowsum(dO ⊙ out) from the rounded out, in
+// f32, once a query row (1.6 MB at ViT-S/16, ~0.018 ms) — not once a key
+// tile in every block.  The producer loads the key tile's K and V (two slots: the next key tile's
 // under this one) and a ring of three stages of (Q, dO, L and Δ).
 // Consumer warpgroup w takes keys 64w..64w + 63:
 //   Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ    wgmma m64n64k16 from shared memory
@@ -225,12 +241,57 @@ __device__ __forceinline__ void tile_exp(float (&s)[NS], float scale2, const flo
   }
 }
 
+// HAS_BIAS: a tile's scores s as logits in the log₂ domain, s·scale·log₂e
+// + bias·log₂e in one FMA, before tile_max (which then takes scale2 = 1):
+// keys at or past N −∞, query rows past N a bias of 0 (their out is not
+// stored).  row0 the thread's first query (its second is row0 + 8), key0
+// the tile's first key, bias the (image's group, head) plane [N, N]; each
+// element read at an immediate offset from its row's pointer
+template <int NS>
+__device__ __forceinline__ void bias_logits(float (&s)[NS], const float* __restrict__ bias,
+                                            int N, int row0, int key0, int cq,
+                                            float scale2) {
+  const int lim = N - key0 - cq;  // the thread's keys 8·(c >> 2) + (c & 1) below it are real
+  const float* rp[2];
+  bool live[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    live[r] = row0 + 8 * r < N;
+    rp[r] = bias + (long long)(live[r] ? row0 + 8 * r : 0) * N + key0 + cq;
+  }
+#pragma unroll
+  for (int c = 0; c < NS; ++c) {
+    const int k = 8 * (c >> 2) + (c & 1), r = (c >> 1) & 1;
+    const float b2 = live[r] && k < lim ? __ldg(rp[r] + k) * LOG2E : 0.f;
+    s[c] = k < lim ? fmaf(s[c], scale2, b2) : -INFINITY;
+  }
+}
+
+// 128-byte lines of the bias into L1 while a tile's products run: thread t
+// of a warpgroup asks for `width` keys from key0 + width·(t & 1) of query
+// row row0 + (t >> 1), inside [N, N]
+__device__ __forceinline__ void prefetch_bias(const float* bias, int N, int row0, int key0,
+                                              int width) {
+  const int t = threadIdx.x & 127, row = row0 + (t >> 1), k = key0 + width * (t & 1);
+  if (row >= N || k >= N) return;
+  const float* a = bias + (long long)row * N + k;
+  const int last = min(width - 1, N - 1 - k);
+#pragma unroll
+  for (int i = 0; i < width; i += 32)
+    if (i <= last) asm volatile("prefetch.global.L1 [%0];" ::"l"(a + i));
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(a + last));
+}
+
+// (the bias's fields last: the bias-free kernels read the others at the
+// offsets they had before it)
 struct FwdParams {
-  CUtensorMap qkv;  // [B][N][3H][D], boxes 64 x 128 rows
-  CUtensorMap out;  // [B][N][H][D], boxes 64 x 64 rows
-  float* lse;       // [B, H, N] or null
+  CUtensorMap qkv;    // [B][N][3H][D], boxes 64 x 128 rows
+  CUtensorMap out;    // [B][N][H][D], boxes 64 x 64 rows
+  float* lse;         // [B, H, N] or null
   int N, H, QT, KT, items;
-  float scale2;     // scale·log₂e
+  float scale2;       // scale·log₂e
+  const float* bias;  // [G, H, N, N] (HAS_BIAS)
+  int per_group;      // images a bias group: image b reads group b / per_group
 };
 
 // The key tiles: NW = 0, tiles of 128 keys under the online softmax, K /
@@ -248,9 +309,12 @@ struct FwdTiles {
                        BAR = STG + 2 * TILE64, SMEM = 1024 + BAR + 256;
 };
 
-template <int NW>
+template <int NW, bool HAS_BIAS>
 __global__ void __launch_bounds__(THREADS, 1)
     bf16_attn_fwd_kernel(const __grid_constant__ FwdParams p) {
+  // a bias call takes the 128-key tiles: the 208-key tile's scores beside
+  // the bias's loads spilled
+  static_assert(!(NW && HAS_BIAS), "the bias on the 128-key tiles only");
   using T = FwdTiles<NW>;
   constexpr int S = T::STAGES;
   extern __shared__ char smem_raw[];
@@ -308,6 +372,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int i = blockIdx.x; i < p.items; i += gridDim.x) {
       const int qt = i % p.QT, bh = i / p.QT, h = bh % p.H, b = bh / p.H;
       const int q0 = qt * TQF + 64 * wg;  // the warpgroup's first query
+      const float* bias = nullptr;          // the (group, head) plane of the bias
+      if constexpr (HAS_BIAS)
+        bias = p.bias + ((long long)(b / p.per_group) * p.H + h) * p.N * p.N;
       mbar_wait(q_full + qs, qph);
       const uint32_t sq = saddr(smem + T::Q + qs * TILE128) + TILE64 * wg;
       float o[32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
@@ -338,16 +405,18 @@ __global__ void __launch_bounds__(THREADS, 1)
           for (int kk = 0; kk < 4; ++kk)
             wgmma_bf16_n128<0, 0>(s, desc_k(sq + 32 * kk), desc_k(sk + 32 * kk), kk > 0);
           wg_commit();
+          if constexpr (HAS_BIAS) prefetch_bias(bias, p.N, q0, kt * TK, TK / 2);
           wg_wait<0>();
           fence_acc(s);
-          tile_max(s, p.N - kt * TK, cq, p.scale2, m, alpha);
+          if constexpr (HAS_BIAS) bias_logits(s, bias, p.N, q0 + r0, kt * TK, cq, p.scale2);
+          tile_max(s, p.N - kt * TK, cq, HAS_BIAS ? 1.f : p.scale2, m, alpha);
 #pragma unroll
           for (int r = 0; r < 2; ++r) l[r] *= alpha[r];
           if (kt) {
 #pragma unroll
             for (int c = 0; c < 32; ++c) o[c] *= alpha[(c >> 1) & 1];
           }
-          tile_exp(s, p.scale2, m, l);
+          tile_exp(s, HAS_BIAS ? 1.f : p.scale2, m, l);
           uint32_t pa[32];
           a_frags(pa, s);
           wg_fence();
@@ -454,6 +523,8 @@ struct BwdParams {
   float* dq_part;    // [KT, B·N, H·D] where dq is not summed in shared memory
   int B, N, H, D, QT, KT;
   float scale, scale2;
+  const float* bias; // [G, H, N, N] (HAS_BIAS; the fields last, as FwdParams')
+  int per_group;     // images a bias group
 };
 
 // shared memory: K, V [2][128 rows each] | (Q, dO [64 rows each], L and Δ)
@@ -508,7 +579,7 @@ __device__ __forceinline__ void put_dq(const BwdParams& p, float (&dq)[32], floa
   }
 }
 
-template <bool DQ_SMEM>
+template <bool DQ_SMEM, bool HAS_BIAS>
 __global__ void __launch_bounds__(THREADS, 1)
     bf16_attn_bwd_kernel(const __grid_constant__ BwdParams p) {
   extern __shared__ char smem_raw[];
@@ -567,6 +638,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     int ks = 0, kph = 0, st = 0, ph = 0, it = 0;
     for (int i = blockIdx.x; i < items; i += gridDim.x) {
       const int h = i % p.H, b = i / p.H;
+      const float* bias = nullptr;  // the (group, head) plane of the bias
+      if constexpr (HAS_BIAS)
+        bias = p.bias + ((long long)(b / p.per_group) * p.H + h) * p.N * p.N;
       for (int kt = 0; kt < p.KT; ++kt) {
         mbar_wait(kv_full + ks, kph);
         const uint32_t sk = saddr(smem + BWD_KV + ks * 2 * TILE128), sv = sk + TILE128;
@@ -591,12 +665,21 @@ __global__ void __launch_bounds__(THREADS, 1)
             wgmma_bf16_n64<0, 0>(dp, desc_k(sv + TILE64 * wg + 32 * kk), desc_k(sdo + 32 * kk),
                                  kk > 0);
           wg_commit();
+          if constexpr (HAS_BIAS) prefetch_bias(bias, p.N, qt * TQ, kt * TK + 64 * wg, 32);
           wg_wait<0>();
           fence_acc(s);
           fence_acc(dp);
           // s[4j + 2h + e]: key r0 + 8h of the warpgroup's, query 8j + cq + e:
-          // P = 2^(s·scale·log₂e − L) (0 past the keys; L = +∞ past the
-          // queries), dS·scale = P ⊙ (dP − Δ)·scale
+          // P = 2^(s·scale·log₂e (+ bias·log₂e) − L) (0 past the keys; L =
+          // +∞ past the queries), dS·scale = P ⊙ (dP − Δ)·scale
+          const float* bq[2];  // HAS_BIAS: the bias at query qt·TQ + cq, key r0 + 8h
+          int q_lim = 0;       // ... and its queries 8j + e below it are real
+          if constexpr (HAS_BIAS) {
+            q_lim = p.N - qt * TQ - cq;
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              bq[r] = bias + (long long)(qt * TQ + cq) * p.N + kt * TK + 64 * wg + r0 + 8 * r;
+          }
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
             const float2 L = *reinterpret_cast<const float2*>(Ls + 8 * j + cq);
@@ -606,8 +689,17 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
               for (int e = 0; e < 2; ++e) {
                 const int c = 4 * j + 2 * r + e;
-                const float pv = exp2_fast(r0 + 8 * r < key_lim ? s[c] * p.scale2 - (e ? L.y : L.x)
-                                                                : -INFINITY);
+                float x;
+                if constexpr (HAS_BIAS) {  // element (8j + e) rows below its row's pointer
+                  const float b2 = q_lim > 8 * j + e && r0 + 8 * r < key_lim
+                                       ? __ldg(bq[r] + (8 * j + e) * p.N) * LOG2E
+                                       : 0.f;
+                  x = r0 + 8 * r < key_lim ? fmaf(s[c], p.scale2, b2) - (e ? L.y : L.x)
+                                           : -INFINITY;
+                } else {
+                  x = r0 + 8 * r < key_lim ? s[c] * p.scale2 - (e ? L.y : L.x) : -INFINITY;
+                }
+                const float pv = exp2_fast(x);
                 s[c] = pv;
                 dp[c] = pv * (dp[c] - (e ? dl.y : dl.x)) * p.scale;
               }

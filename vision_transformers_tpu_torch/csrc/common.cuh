@@ -777,18 +777,21 @@ cudaError_t packed_attention_bwd(const float* qkv, const float* extra, int group
                                  int B, int N, int H, int D, float scale, cudaStream_t s);
 
 // The bf16 form of the packed-row attention (attention_bf16_tma.cuh,
-// compiled into attention_bf16.cu: wgmma fed by TMA), bias-free, D a
-// multiple of 8 up to 64, any N: the forward writes out [B, N, H·D] bf16
-// and lse [B, H, N] f32 when non-null; the backward writes dqkv bf16, dq
-// summed over the key tiles in shared memory (N ≤ 256) or through f32
-// key-tile partials summed in order, rounded once either way; ws is its
+// compiled into attention_bf16.cu: wgmma fed by TMA), D a multiple of 8 up
+// to 64, any N, the additive bias [G, H, N, N] f32 or null (groups = G, row
+// b in group b / (B / G); no gradient of it): the forward writes out [B, N,
+// H·D] bf16 and lse [B, H, N] f32 when non-null; the backward writes dqkv
+// bf16, dq summed over the key tiles in shared memory (N ≤ 256) or through
+// f32 key-tile partials summed in order, rounded once either way; ws is its
 // workspace of packed_attention_bwd_bf16_floats floats (never null)
-cudaError_t packed_attention_fwd_bf16(const bf16* qkv, bf16* out, float* lse, int B, int N,
-                                      int H, int D, float scale, cudaStream_t s);
+cudaError_t packed_attention_fwd_bf16(const bf16* qkv, const float* bias, int groups,
+                                      bf16* out, float* lse, int B, int N, int H, int D,
+                                      float scale, cudaStream_t s);
 
-cudaError_t packed_attention_bwd_bf16(const bf16* qkv, const bf16* out, const float* lse,
-                                      const bf16* dout, float* ws, bf16* dqkv, int B,
-                                      int N, int H, int D, float scale, cudaStream_t s);
+cudaError_t packed_attention_bwd_bf16(const bf16* qkv, const float* bias, int groups,
+                                      const bf16* out, const float* lse, const bf16* dout,
+                                      float* ws, bf16* dqkv, int B, int N, int H, int D,
+                                      float scale, cudaStream_t s);
 
 long long packed_attention_bwd_bf16_floats(int B, int N, int H, int D);
 

@@ -54,15 +54,19 @@
 // layer runs on f32 FMAs.
 //
 // bf16 (vtx_fused_attention_layer_fwd_bf16, vtx_fused_transformer_layer_
-// fwd_bf16: the JAX package's default precision, bias-free — ViT-S/16's
-// training forward and its eval's whole layer).  The same sequences on the
+// fwd_bf16: the JAX package's default precision — ViT-S/16's training
+// forward and its eval's whole layer, bias-free; DINO's student, B1 with
+// the block mask as the bias on its packed local crops).  The same sequences on the
 // bf16 forms of the passes and cores: x, the weights and biases, u, qkv,
 // acc, z, hid and out bf16; the LN parameters, statistics, row scales and
 // lse f32.  Each step rounds where the JAX kernels round (fused_layer.py:
 // 116-166, fused_layer1.py:91-171): u = LN(x) rounded by the LN pass; qkv,
 // the out projection's branch and the residual by the GEMM core's bf16
 // epilogue (round(round(acc) + b), × round(rs) rounded, + x rounded); the
-// attention's out on the packed-row core's bf16 form (attention_tc.cuh);
+// attention's out on the packed-row core's bf16 form
+// (attention_bf16_tma.cuh, the bias added to the scores in f32 before the
+// max, as the JAX kernel adds it; at bf16 every bias call takes this core:
+// the window attention has no bf16 form);
 // LN₂(z) by the LN pass; hid = round(silu(round(round(acc) + b₁))) in FF1's
 // epilogue, and FF2's as the out projection's.  The bf16 whole layer runs
 // the serving call only (no saves, silu).
@@ -126,19 +130,22 @@ cudaError_t attention_half(
   return launch_gemm(acc, wout, wout_s0, wout_s1, bout, rs, N, x, z, M, C, HD, 0, stream);
 }
 
-// The bf16 attention half (no bias): LN pass → GEMM(+bqkv) → the packed-row
-// core → GEMM(+bout, ×r, +x), every activation bf16
+// The bf16 attention half: LN pass → GEMM(+bqkv) → the packed-row core
+// (with the bias extra [G, H, N, N] or null) → GEMM(+bout, ×r, +x), every
+// activation bf16
 cudaError_t attention_half_bf16(
     const bf16* x, const float* ln_g, const float* ln_b,
     const bf16* wqkv, long long wqkv_s0, long long wqkv_s1, const bf16* bqkv,
     const bf16* wout, long long wout_s0, long long wout_s1, const bf16* bout,
+    const float* extra, int groups,
     const float* rs, bf16* u, bf16* qkv, bf16* acc, float* mu, float* rstd, float* lse,
     bf16* z, int B, int N, int C, int H, int D, float scale, float eps, cudaStream_t stream) {
   const int M = B * N, HD = H * D;
   VTX_CHECK(launch_ln(x, ln_g, ln_b, u, mu, rstd, M, C, eps, stream));
   VTX_CHECK(launch_gemm_bf16(u, wqkv, wqkv_s0, wqkv_s1, bqkv, nullptr, 1, nullptr, qkv, 0, M,
                              3 * HD, C, 0, stream));
-  VTX_CHECK(vtx::packed_attention_fwd_bf16(qkv, acc, lse, B, N, H, D, scale, stream));
+  VTX_CHECK(vtx::packed_attention_fwd_bf16(qkv, extra, groups, acc, lse, B, N, H, D, scale,
+                                           stream));
   return launch_gemm_bf16(acc, wout, wout_s0, wout_s1, bout, rs, N, x, z, 0, M, C, HD, 0,
                           stream);
 }
@@ -319,9 +326,9 @@ extern "C" int vtx_fused_ff_layer_fwd(
 
 // The bf16 forms (the JAX package's default precision): the same parameter
 // lists, the activations, weights and biases bf16 (the LN parameters, rs,
-// mu, rstd and lse f32), no bias (extra null, groups 1; a non-null extra is
-// refused).  B1 takes the training saves as its f32 form does; the whole
-// layer serves only (af and the saves null).
+// mu, rstd and lse f32).  B1 takes the bias extra [G, H, N, N] f32 (groups
+// = G, dividing B) or null, and the training saves as its f32 form does;
+// the whole layer serves only, bias-free (extra, af and the saves null).
 extern "C" int vtx_fused_attention_layer_fwd_bf16(
     const bf16* x, const float* ln_g, const float* ln_b,
     const bf16* wqkv, long long wqkv_s0, long long wqkv_s1, const bf16* bqkv,
@@ -329,10 +336,11 @@ extern "C" int vtx_fused_attention_layer_fwd_bf16(
     const float* extra, int groups, const float* rs, bf16* u, bf16* qkv,
     bf16* acc, float* mu, float* rstd, float* lse, bf16* out, int B, int N, int C,
     int H, int D, float scale, float eps, void* stream) {
-  if (extra || groups != 1) return cudaErrorInvalidValue;
+  if (extra && (groups < 1 || B % groups)) return cudaErrorInvalidValue;
   return static_cast<int>(attention_half_bf16(
-      x, ln_g, ln_b, wqkv, wqkv_s0, wqkv_s1, bqkv, wout, wout_s0, wout_s1, bout, rs, u, qkv,
-      acc, mu, rstd, lse, out, B, N, C, H, D, scale, eps, static_cast<cudaStream_t>(stream)));
+      x, ln_g, ln_b, wqkv, wqkv_s0, wqkv_s1, bqkv, wout, wout_s0, wout_s1, bout, extra, groups,
+      rs, u, qkv, acc, mu, rstd, lse, out, B, N, C, H, D, scale, eps,
+      static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int vtx_fused_transformer_layer_fwd_bf16(
@@ -351,8 +359,8 @@ extern "C" int vtx_fused_transformer_layer_fwd_bf16(
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   VTX_CHECK(attention_half_bf16(x, ln1_g, ln1_b, wqkv, wqkv_s0, wqkv_s1, bqkv, wout, wout_s0,
-                                wout_s1, bout, rs_attn, u, qkv, acc, nullptr, nullptr, nullptr,
-                                z, B, N, C, H, D, scale, eps, s));
+                                wout_s1, bout, nullptr, 1, rs_attn, u, qkv, acc, nullptr,
+                                nullptr, nullptr, z, B, N, C, H, D, scale, eps, s));
   return static_cast<int>(ff_half_fwd_bf16(z, ln2_g, ln2_b, w1, w1_s0, w1_s1, b1, w2, w2_s0,
                                            w2_s1, b2, rs_ff, N, hid, out, B * N, C, F, eps, s));
 }

@@ -70,16 +70,18 @@
 // registers; dk and dv leave once, dq as ceil(N / 64) partials (155 MB at
 // ViT-S/16, B = 128) summed in order, so no float atomics.
 //
-// bf16 (vtx_fused_attention_layer_bwd_bf16, bias-free: ViT-S/16's training
-// at the JAX package's default precision) runs the same six steps on the
-// bf16 forms, rounding where the JAX kernel (fused_layer.py:183-339) rounds:
+// bf16 (vtx_fused_attention_layer_bwd_bf16: ViT-S/16's training at the JAX
+// package's default precision, and DINO's with the block mask as the bias,
+// which takes no gradient) runs the same six steps on the bf16 forms,
+// rounding where the JAX kernel (fused_layer.py:183-339) rounds:
 //   1. da = round(dz·round(r)) by a pass (into dln's memory, free until
 //      step 4); dwout = accᵀ·da and dbout = Σ da in f32
 //   2. dacc₀ = dz·woutᵀ in f32 (into dq_part, free until step 3); dr from
 //      dacc₀ and acc; dacc = round(r·dacc₀) (without r the GEMM's epilogue
 //      rounds dz·woutᵀ)
-//   3. the packed-row core's bf16 backward (P recomputed in f32, dS·scale
-//      rounded before dq and dk, dq by f32 partials) → dqkv bf16
+//   3. the packed-row core's bf16 backward (P recomputed in f32 with the
+//      bias, dS·scale rounded before dq and dk, dq summed on chip) → dqkv
+//      bf16
 //   4. u = round(LN(x)) into dln's memory; dwqkv = uᵀ·dqkv, dbqkv in f32
 //   5. dln = dqkv·wqkvᵀ in f32
 //   6. dx = round(dz + round(LNᵀ(dln))); dg, db in f32
@@ -308,13 +310,14 @@ extern "C" int vtx_fused_attention_layer_bwd(
       D, scale, static_cast<cudaStream_t>(stream)));
 }
 
-// The bf16 form (bias-free): the same parameter list; x, the weights and
-// biases, qkv, acc, dz, dx, and the workspaces dacc [M, HD] and dqkv
-// [M, 3HD] bf16; dq_part f32 and never null, the workspace of the bf16
-// attention's backward (vtx::packed_attention_bwd_bf16_floats floats), or
-// [M, HD] where that is larger and a row scale makes it first hold dacc₀;
-// dln [M, C] f32 (first holding u bf16);
-// every gradient of a weight or bias f32; extra, dbpart and dextra null.
+// The bf16 form: the same parameter list; x, the weights and biases, qkv,
+// acc, dz, dx, and the workspaces dacc [M, HD] and dqkv [M, 3HD] bf16;
+// dq_part f32 and never null, the workspace of the bf16 attention's
+// backward (vtx::packed_attention_bwd_bf16_floats floats), or [M, HD] where
+// that is larger and a row scale makes it first hold dacc₀; dln [M, C] f32
+// (first holding u bf16); every gradient of a weight or bias f32; extra
+// [G, H, N, N] f32 or null (groups = G, dividing B; any N, on the packed-row
+// core); dbpart and dextra null: no gradient of the bias in bf16.
 extern "C" int vtx_fused_attention_layer_bwd_bf16(
     const bf16* x, const float* ln_g, const float* ln_b,
     const bf16* wqkv, long long wqkv_s0, long long wqkv_s1, const bf16* bqkv,
@@ -331,8 +334,8 @@ extern "C" int vtx_fused_attention_layer_bwd_bf16(
     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * N, HD = H * D;
-  if (extra || groups != 1 || dbpart || dextra || !dq_part || D > DMAX || B > 65535 ||
-      H > 65535)
+  if ((extra && (groups < 1 || B % groups)) || dbpart || dextra || !dq_part || D > DMAX ||
+      B > 65535 || H > 65535)
     return cudaErrorInvalidValue;
   // 1. da = round(dz·round(r)) into dln's memory (free until step 4);
   // dwout = accᵀ·da; dbout = Σ_rows da
@@ -359,8 +362,8 @@ extern "C" int vtx_fused_attention_layer_bwd_bf16(
                                dacc, 0, M, HD, C, 0, s));
   }
   // 3. attention backward → dqkv
-  VTX_CHECK(vtx::packed_attention_bwd_bf16(qkv, acc, lse, dacc, dq_part, dqkv, B, N, H, D,
-                                           scale, s));
+  VTX_CHECK(vtx::packed_attention_bwd_bf16(qkv, extra, groups, acc, lse, dacc, dq_part, dqkv,
+                                           B, N, H, D, scale, s));
   // 4. u = round(LN(x)) in dln's memory; dwqkv = uᵀ·dqkv; dbqkv
   bf16* u = reinterpret_cast<bf16*>(dln);
   ln_apply_kernel<false, bf16><<<ew_blocks(MC), EW_THREADS, 0, s>>>(x, mu, rstd, ln_g, ln_b,

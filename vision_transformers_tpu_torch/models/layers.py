@@ -12,7 +12,7 @@ import torch
 from torch import nn
 
 __all__ = ["layer_norm", "LayerNorm", "FeedForward", "dropout", "drop_path_scale",
-           "patchify", "scaled", "pair", "dense"]
+           "patchify", "scaled", "pair", "dense", "f32_out_product"]
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -36,6 +36,37 @@ def dense(x: torch.Tensor, linear: nn.Linear, dtype: torch.dtype) -> torch.Tenso
         return linear(x)
     y = torch.matmul(x.to(dtype), linear.weight.to(dtype).t())
     return y if linear.bias is None else y + linear.bias.to(dtype)
+
+
+class _F32OutProduct(torch.autograd.Function):
+    """a·bᵀ of two compute-dtype operands with an f32 result; its backward
+    takes the f32 cotangent and rounds each operand's f32 gradient once to
+    the operand's dtype (JAX's transpose of a dot with
+    ``preferred_element_type``)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.is_cuda:
+            return torch.mm(a, b.t(), out_dtype=torch.float32)
+        # no CPU kernel for mm's out_dtype form: the operands' product in f32
+        return a.float() @ b.float().t()
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = (g @ b.float()).to(a.dtype) if ctx.needs_input_grad[0] else None
+        db = (g.t() @ a.float()).to(b.dtype) if ctx.needs_input_grad[1] else None
+        return da, db
+
+
+def f32_out_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [M, K] · bᵀ (b [N, K]) with an f32 result, the operands in their
+    (compute) dtype: the JAX package's ``lax.dot(a, b,
+    preferred_element_type=float32)`` (models/vit.py:620-625) — on the card
+    ``torch.mm(..., out_dtype=torch.float32)``, on the CPU the product of
+    the same operands in f32 — differentiable in both."""
+    return _F32OutProduct.apply(a, b)
 
 
 class LayerNorm(nn.LayerNorm):

@@ -50,7 +50,13 @@ LayerNorm parameters stay f32), every dense in ``dtype``
 ``dtype`` output, and the head in f32 on the features promoted to f32
 (vit.py:450).  Gradients come back to the f32 parameters through the casts.  :class:`DINOModel` is the trunk with
 :class:`DINOHead` as its head (vit.py:575-637), in the reference state_dict
-layout.  scan_layers and remat are not ported.
+layout, both at ``dtype`` (:meth:`DINOConfig.make`, vit.py:707): the head's
+MLP in ``dtype``, its L2 normalisation in f32 and its prototype product
+with ``dtype`` operands and an f32 result (:func:`layers.f32_out_product`);
+the local crops' interpolated pos-embed cast to ``dtype`` after the f32
+resize (vit.py:488), their token-level DropPath scales applied to the
+kernel's ``out − x`` in ``dtype`` (vit.py:228).  scan_layers and remat are
+not ported.
 """
 
 from __future__ import annotations
@@ -69,7 +75,8 @@ from torch import nn
 from .. import ops
 from ..config.registry import TypedConfig, register
 from . import layers
-from .layers import FeedForward, LayerNorm, dense, drop_path_scale, pair, scaled
+from .layers import (FeedForward, LayerNorm, dense, drop_path_scale, f32_out_product, pair,
+                     scaled)
 
 __all__ = ["MultiHeadedAttention", "TransformerLayer", "PatchEmbedding",
            "VisionTransformer", "ViTConfig", "DINOHead", "DINOModel", "DINOConfig",
@@ -441,13 +448,18 @@ class DINOHead(nn.Module):
     """MLP → L2 normalisation → weight-normed linear (reference
     models/vit.py:206-262, JAX vit.py:575-625): ``mlp`` a Sequential of
     Linear layers with exact GELUs in the odd slots (a bare Linear at
-    depth 1), the output L2-normalised (eps 1e-12) in f32, then ``last``.
-    ``use_bn`` (BatchNorm after each hidden Linear) is not ported."""
+    depth 1), each Linear in the compute ``dtype`` (:func:`layers.dense`),
+    the output L2-normalised (eps 1e-12) in f32, then ``last``: in f32 its
+    own Linear, else the product of the ``dtype``-rounded output and weight
+    with an f32 result (JAX vit.py:620-625) — the [crops, out_dim] logits
+    are never rounded to ``dtype``.  ``use_bn`` (BatchNorm after each hidden
+    Linear) is not ported."""
 
     def __init__(self, in_dim: int, out_dim: int, use_bn: bool = False,
                  norm_last_layer: bool = True, depth: int = 3, dim_ff: int = 2048,
-                 dim_bottleneck: int = 256):
+                 dim_bottleneck: int = 256, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         if use_bn:
             raise NotImplementedError(
                 "arch.use_bn: the DINO head's BatchNorm is not ported (ROADMAP.md, queue A)")
@@ -461,9 +473,15 @@ class DINOHead(nn.Module):
         self.last = WeightNormLinear(dim_bottleneck, out_dim, norm_last_layer)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.mlp(x).float()
+        dt = self.dtype
+        h = x
+        for m in self.mlp if isinstance(self.mlp, nn.Sequential) else (self.mlp,):
+            h = dense(h, m, dt) if isinstance(m, nn.Linear) else m(h)
+        h = h.float()
         h = h / torch.clamp(torch.linalg.vector_norm(h, dim=-1, keepdim=True), min=1e-12)
-        return self.last(h)
+        if dt == torch.float32:
+            return self.last(h)
+        return f32_out_product(h.to(dt), self.last.weight().to(dt))
 
 
 class DINOModel(VisionTransformer):
@@ -513,16 +531,19 @@ class DINOConfig(TypedConfig):
     remat: bool = False
     scan_layers: bool = False
 
-    def make(self, drop_path: Optional[float] = None) -> DINOModel:
-        """The network; ``drop_path`` overrides the conf's rate (the student
-        takes ``task.student_drop_path``, the teacher 0)."""
+    def make(self, dtype: torch.dtype = torch.float32,
+             drop_path: Optional[float] = None) -> DINOModel:
+        """The network in compute ``dtype`` (the JAX ``make(dtype=...)``,
+        vit.py:707; the trainer passes the conf's precision); ``drop_path``
+        overrides the conf's rate (the student takes
+        ``task.student_drop_path``, the teacher 0)."""
         if self.remat or self.scan_layers:
             raise NotImplementedError(
                 "arch.remat / arch.scan_layers are not ported (ROADMAP.md, queue A)")
         head = DINOHead(self.dim, self.dim_head_out, self.use_bn, self.norm_last_layer,
-                        self.depth_head, self.dim_head_ff, self.dim_head_bottleneck)
+                        self.depth_head, self.dim_head_ff, self.dim_head_bottleneck, dtype)
         return DINOModel(
             head, image_size=self.image_size, patch_size=self.window_size,
             depth=self.depth, dim=self.dim, n_head=self.n_head, dim_ff=self.dim_ff,
             dropout=self.dropout, drop_attn=self.drop_attn, drop_ff=self.drop_ff,
-            drop_path=self.drop_path if drop_path is None else drop_path)
+            drop_path=self.drop_path if drop_path is None else drop_path, dtype=dtype)

@@ -53,9 +53,11 @@ the bias-free call runs the kernels' bf16 forms (``csrc/fused_layer.cu`` /
 ``fused_layer_bwd.cu``'s ``_bf16`` entries, on the GEMM core's bf16 form
 and the packed-row attention's, ``csrc/attention_bf16_tma.cuh``: wgmma fed
 by TMA, heads a multiple of 8 up to 64 wide, its backward's workspace
-:func:`packed_attention_bf16_floats`); a bf16 call with the bias raises
-NotImplementedError (ROADMAP.md §A2).  The plain versions round where the
-kernels do.
+:func:`packed_attention_bf16_floats`), with or without the bias: DINO's
+block mask on its packed local crops (111 tokens) takes it as the JAX
+kernel does, s = q·kᵀ·scale + extra in f32 before the max.  A bf16 call
+whose bias asks for a gradient raises NotImplementedError (ROADMAP.md §A2's
+bf16 queue, item 2).  The plain versions round where the kernels do.
 
 The FF residual branch has its own op here, as in the JAX module
 (fused_layer.py:701-971): :func:`fused_ff_layer`, ``x + row_scale ⊙
@@ -87,7 +89,8 @@ __all__ = ["fused_attention_layer", "fused_attention_layer_reference",
            "BF16_BWD_LAUNCHES", "BF16_TODO", "packed_attention_bf16",
            "packed_attention_bf16_bwd", "packed_attention_reference",
            "packed_attention_bf16_floats", "PACKED_BF16_LAUNCHES",
-           "PACKED_BF16_BWD_LAUNCHES"]
+           "PACKED_BF16_BWD_LAUNCHES", "BF16_BIAS_LAUNCHES", "BF16_BIAS_BWD_LAUNCHES",
+           "PACKED_BF16_BIAS_LAUNCHES", "PACKED_BF16_BIAS_BWD_LAUNCHES"]
 
 # kernel launches through this module's wrappers, forward and backward
 # (chip_smoke.py reads them to show the main path went through the kernels),
@@ -96,17 +99,27 @@ LAUNCHES = 0
 BWD_LAUNCHES = 0
 BIAS_LAUNCHES = 0
 BIAS_BWD_LAUNCHES = 0
-# ... and of those the launches of the bf16 forms
+# ... and of those the launches of the bf16 forms, and of those the ones
+# with the bias
 BF16_LAUNCHES = 0
 BF16_BWD_LAUNCHES = 0
+BF16_BIAS_LAUNCHES = 0
+BF16_BIAS_BWD_LAUNCHES = 0
 # the launches of the packed-row attention's bf16 form
 # (csrc/attention_bf16_tma.cuh), forward and backward: one in each bf16 call
-# of B1 and B2 (fused_layer1.py) and of the thin doors below
+# of B1 and B2 (fused_layer1.py) and of the thin doors below; and of those
+# the ones with the bias
 PACKED_BF16_LAUNCHES = 0
 PACKED_BF16_BWD_LAUNCHES = 0
+PACKED_BF16_BIAS_LAUNCHES = 0
+PACKED_BF16_BIAS_BWD_LAUNCHES = 0
 
-# where the bf16 forms still to write are queued
-BF16_TODO = "its bf16 form is not written yet (ROADMAP.md §A2, the bf16 queue)"
+# where the bf16 forms still to write are queued, by the item each waits on
+BF16_SWIN = "ROADMAP.md §A2's bf16 queue, item 2 (Swin-S)"
+BF16_TODO = ("its bf16 form is not written yet (ROADMAP.md §A2's bf16 queue: B2's "
+             "backward and bias and the window attention item 2, Swin-S; B4, B5a and B5b "
+             "item 3, Halo-S; B6 item 4, PVT-S and Twins-SVT-S; B3 item 5, ViT with "
+             "dropout; B8 item 6; B9 item 7; B7 item 8)")
 
 # widest head the attention takes (csrc DMAX: the packed-row tensor-core
 # core, attention_tc.cuh, stages heads 32 or 64 floats wide)
@@ -119,9 +132,11 @@ MAX_BIAS_TOKENS = 128
 
 
 def window_on_bias(has_bias: bool, N: int, D: int) -> bool:
-    """Whether a B1 / B2 attention call runs on the window attention
+    """Whether an f32 B1 / B2 attention call runs on the window attention
     (csrc window_on_bias): a bias, N ≤ ``MAX_BIAS_TOKENS`` and heads up to
-    ``MAX_BIAS_DIM_HEAD`` wide; every other call on the packed-row core."""
+    ``MAX_BIAS_DIM_HEAD`` wide; every other call on the packed-row core.
+    At bf16 every call, with a bias or not, takes the packed-row core's bf16
+    form: the window attention has no bf16 form."""
     return has_bias and N <= MAX_BIAS_TOKENS and D <= MAX_BIAS_DIM_HEAD
 
 
@@ -469,19 +484,23 @@ def check_dtype(device: torch.device, dtype: torch.dtype,
                 f"the CUDA kernel takes {dtype}; {name} is {t.dtype}{todo}")
 
 
-def check_bf16_form(x: torch.Tensor, D: int, extra_g, params: dict, **acts) -> bool:
+def check_bf16_form(x: torch.Tensor, D: int, extra_g, params: dict, bias: bool = False,
+                    **acts) -> bool:
     """Whether the call takes the kernels' bf16 form (x bfloat16): then
     ``acts`` (the activations, weights, biases) bfloat16, ``params`` (the
-    LN parameters, row scales) float32, no bias, heads a multiple of 8
-    wide; else every tensor float32.  Raises NotImplementedError on what no
-    form takes."""
+    LN parameters, row scales, the bias) float32, heads a multiple of 8
+    wide, and a bias only where ``bias`` (B1's form takes it; B2's, whose
+    bias calls are Swin-S's, does not); else every tensor float32.  Raises
+    NotImplementedError on what no form takes."""
     if x.dtype != torch.bfloat16:
         check_f32(x.device, x=x, **acts, **params)
         return False
     check_dtype(x.device, torch.bfloat16, x=x, **acts)
     check_dtype(x.device, torch.float32, **params)
-    if extra_g is not None:
-        raise NotImplementedError(f"the additive attention bias in bf16: {BF16_TODO}")
+    if extra_g is not None and not bias:
+        raise NotImplementedError(
+            f"the whole layer's additive attention bias in bf16 (Swin-S's grouped bias): "
+            f"{BF16_SWIN}")
     if D % 8:
         raise NotImplementedError(
             f"the bf16 kernels take heads a multiple of 8 wide; got {D}")
@@ -552,12 +571,13 @@ def _cuda_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, n_head, extra_g, gro
               row_scale, scale, eps, save: bool):
     """The forward kernel: out, plus (qkv, acc, mu, rstd, lse) when ``save``;
     ``extra_g`` the grouped bias [G, H, N, N] (``groups`` = G) or None."""
-    global LAUNCHES, BIAS_LAUNCHES, BF16_LAUNCHES, PACKED_BF16_LAUNCHES
+    global LAUNCHES, BIAS_LAUNCHES, BF16_LAUNCHES, PACKED_BF16_LAUNCHES, \
+        BF16_BIAS_LAUNCHES, PACKED_BF16_BIAS_LAUNCHES
     B, N, C, H, D = check_attention_args(x, ln_scale, ln_bias, wqkv, bqkv,
                                          wout, bout, n_head)
     bf16 = check_bf16_form(x, D, extra_g, dict(ln_scale=ln_scale, ln_bias=ln_bias,
                                                row_scale=row_scale, extra=extra_g),
-                           wqkv=wqkv, bqkv=bqkv, wout=wout, bout=bout)
+                           bias=True, wqkv=wqkv, bqkv=bqkv, wout=wout, bout=bout)
     check_extra(extra_g, H, N, D)
     check_vector("row_scale", row_scale, B)
     from ._build import build
@@ -579,6 +599,8 @@ def _cuda_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, n_head, extra_g, gro
         BIAS_LAUNCHES += extra_g is not None
         BF16_LAUNCHES += bf16
         PACKED_BF16_LAUNCHES += bf16
+        BF16_BIAS_LAUNCHES += bf16 and extra_g is not None
+        PACKED_BF16_BIAS_LAUNCHES += bf16 and extra_g is not None
         err = entry(
             ptr(x), ptr(ln_scale), ptr(ln_bias),
             ptr(wqkv), wqkv.stride(0), wqkv.stride(1), ptr(bqkv),
@@ -667,13 +689,13 @@ def packed_attention_bf16_floats(B: int, N: int, H: int, D: int) -> int:
     return rows + (-(-N // 128) * B * N * H * D if N > BF16_DQ_SMEM_MAX_N else 0)
 
 
-def packed_attention_bf16_route(N: int) -> dict:
+def packed_attention_bf16_route(N: int, bias: bool = False) -> dict:
     """The tiles the packed-row attention's bf16 kernels take for N tokens
     (csrc/attention_bf16.cu): the forward's key tile, 208 keys where 192 <
-    N ≤ 208, else 128; the backward's dq summed over the key tiles in
-    shared memory up to BF16_DQ_SMEM_MAX_N tokens, else as f32 key-tile
-    partials summed in order."""
-    return {"key_tile": 208 if 192 < N <= 208 else 128,
+    N ≤ 208 without a bias, else 128; the backward's dq summed over the key
+    tiles in shared memory up to BF16_DQ_SMEM_MAX_N tokens, else as f32
+    key-tile partials summed in order."""
+    return {"key_tile": 208 if 192 < N <= 208 and not bias else 128,
             "dq": "shared memory" if N <= BF16_DQ_SMEM_MAX_N else "key-tile partials"}
 
 
@@ -688,11 +710,12 @@ def bf16_attention_workspace(B: int, N: int, H: int, D: int, row_scaled: bool,
 
 def attention_workspace(B: int, groups: int, H: int, N: int, D: int, has_bias: bool,
                         want_dextra: bool, opts):
-    """(dq_part, dbpart) of B1's and B2's attention backward on the route of
-    :func:`window_on_bias`: on the window attention no dq partials, and with
-    a bias gradient its per-block partials (:func:`bias_partials`); on the
-    packed-row core the dq partials, and with a bias gradient the dS buffer
-    [B, H, N, N] — DINO's mask needs no gradient, so none."""
+    """(dq_part, dbpart) of B1's and B2's f32 attention backward on the
+    route of :func:`window_on_bias`: on the window attention no dq partials,
+    and with a bias gradient its per-block partials (:func:`bias_partials`);
+    on the packed-row core the dq partials, and with a bias gradient the dS
+    buffer [B, H, N, N] — DINO's mask needs no gradient, so none.  (B1's
+    bf16 backward: :func:`bf16_attention_workspace`.)"""
     if window_on_bias(has_bias, N, D):
         return None, bias_partials(B, groups, H, N, opts) if want_dextra else None
     return (dq_partials(N, B * N, H * D, opts),
@@ -710,7 +733,8 @@ def rpart_floats(rows: int, F: int, B: int, rows_per_scale: int) -> int:
 def _cuda_bwd(saved: AttnSaved, dz: torch.Tensor, need_drs: bool, need_dextra: bool):
     """The backward kernel sequence: (dx, dg, db, dwqkv, dbqkv, dwout, dbout,
     drs, dextra_g)."""
-    global BWD_LAUNCHES, BIAS_BWD_LAUNCHES, BF16_BWD_LAUNCHES, PACKED_BF16_BWD_LAUNCHES
+    global BWD_LAUNCHES, BIAS_BWD_LAUNCHES, BF16_BWD_LAUNCHES, PACKED_BF16_BWD_LAUNCHES, \
+        BF16_BIAS_BWD_LAUNCHES, PACKED_BF16_BIAS_BWD_LAUNCHES
     x, g, b, wqkv, bqkv, wout, bout, rs = saved[:8]
     extra_g = saved.extra_g
     dz = dz.contiguous()
@@ -724,8 +748,13 @@ def _cuda_bwd(saved: AttnSaved, dz: torch.Tensor, need_drs: bool, need_dextra: b
     bf16 = check_bf16_form(x, D, extra_g, dict(ln_scale=g, ln_bias=b, row_scale=rs,
                                                extra=extra_g, mu=saved.mu,
                                                rstd=saved.rstd, lse=saved.lse),
-                           wqkv=wqkv, bqkv=bqkv, wout=wout, bout=bout, dz=dz,
+                           bias=True, wqkv=wqkv, bqkv=bqkv, wout=wout, bout=bout, dz=dz,
                            qkv=saved.qkv, acc=saved.acc)
+    want_dextra = extra_g is not None and need_dextra
+    if bf16 and want_dextra:
+        raise NotImplementedError(
+            f"the additive attention bias's gradient in bf16 (the bias's dS sums of "
+            f"Swin-S's relative-position bias): {BF16_SWIN}")
     from ._build import build
 
     lib = build()
@@ -733,7 +762,6 @@ def _cuda_bwd(saved: AttnSaved, dz: torch.Tensor, need_drs: bool, need_dextra: b
     act = dict(device=x.device, dtype=x.dtype)  # the activations' workspace
     s_out, s_qkv = _splits(HD, C, M), _splits(C, 3 * HD, M)
     chunks = -(-M // 128)  # csrc COLSUM_ROWS
-    want_dextra = extra_g is not None and need_dextra
     groups = 1 if extra_g is None else extra_g.shape[0]
     if bf16:
         dq_part, dbpart = bf16_attention_workspace(B, N, H, D, rs is not None, opts), None
@@ -762,6 +790,8 @@ def _cuda_bwd(saved: AttnSaved, dz: torch.Tensor, need_drs: bool, need_dextra: b
         BIAS_BWD_LAUNCHES += extra_g is not None
         BF16_BWD_LAUNCHES += bf16
         PACKED_BF16_BWD_LAUNCHES += bf16
+        BF16_BIAS_BWD_LAUNCHES += bf16 and extra_g is not None
+        PACKED_BF16_BIAS_BWD_LAUNCHES += bf16 and extra_g is not None
         err = entry(
             ptr(x), ptr(g), ptr(b),
             ptr(wqkv), wqkv.stride(0), wqkv.stride(1), ptr(bqkv),
@@ -815,22 +845,27 @@ def fused_attention_layer_bwd(saved: AttnSaved, dz: torch.Tensor,
     raise NotImplementedError(f"no fused_attention_layer backward for {dz.device}")
 
 
-def packed_attention_reference(qkv, n_head: int, scale: Optional[float] = None):
-    """(out [B, N, H·D], lse [B, H, N]) of the bias-free attention on packed
-    qkv [B, N, 3·H·D] in plain torch, f32 scores and softmax, the normalised
-    p rounded to qkv's dtype before P·V and out rounded once (the JAX
-    kernel's points)."""
+def packed_attention_reference(qkv, n_head: int, scale: Optional[float] = None,
+                               extra=None):
+    """(out [B, N, H·D], lse [B, H, N]) of the attention on packed qkv [B,
+    N, 3·H·D] in plain torch, f32 scores plus the f32 bias ``extra`` (any
+    form of :func:`extra_groups`, or None) and softmax, the normalised p
+    rounded to qkv's dtype before P·V and out rounded once (the JAX
+    kernel's points, fused_layer.py:139-148)."""
     B, N, HD3 = qkv.shape
     HD = HD3 // 3
     scale = 1.0 / math.sqrt(HD // n_head) if scale is None else float(scale)
     q, k, v = (_heads(qkv[..., i * HD:(i + 1) * HD], n_head) for i in range(3))
-    s = torch.einsum("bhnd,bhmd->bhnm", q, k) * scale
+    s = _scores_bias(torch.einsum("bhnd,bhmd->bhnm", q, k) * scale,
+                     extra_groups(extra, B, n_head, N)[0])
     p = _rb(torch.softmax(s, dim=-1), qkv.dtype)
     out = torch.einsum("bhnm,bhmd->bnhd", p, v).to(qkv.dtype).reshape(B, N, HD)
     return out, torch.logsumexp(s, dim=-1)
 
 
-def _packed_checks(qkv, n_head):
+def _packed_checks(qkv, n_head, extra):
+    """(B, N, D, the bias as contiguous f32 [G, H, N, N] or None, G) of a
+    thin door's call."""
     if qkv.ndim != 3 or not qkv.is_contiguous() or qkv.shape[2] % (3 * n_head):
         raise ValueError(f"qkv must be a contiguous [B, N, 3·H·D], got {tuple(qkv.shape)}")
     B, N, HD3 = qkv.shape
@@ -839,21 +874,25 @@ def _packed_checks(qkv, n_head):
     if D > MAX_DIM_HEAD or D % 8:
         raise NotImplementedError(f"the bf16 attention takes heads a multiple of 8 up to "
                                   f"{MAX_DIM_HEAD} wide; got {D}")
-    return B, N, D
+    extra_g, groups = extra_groups(extra, B, n_head, N)
+    check_extra(extra_g, n_head, N, D)
+    check_dtype(qkv.device, torch.float32, extra=extra_g)
+    return B, N, D, extra_g, groups
 
 
 def packed_attention_bf16(qkv, n_head: int, scale: Optional[float] = None,
-                          save: bool = True):
-    """The packed-row attention's bf16 form alone (B1's and B2's bias-free
-    attention, csrc/attention_bf16_tma.cuh; the thin door chip_smoke.py
-    times beside scaled_dot_product_attention): (out, lse or None) from bf16
-    qkv on the card (a CPU tensor: :func:`packed_attention_reference`).  No
-    model calls it."""
-    global PACKED_BF16_LAUNCHES
+                          save: bool = True, extra=None):
+    """The packed-row attention's bf16 form alone (B1's and B2's attention,
+    csrc/attention_bf16_tma.cuh; the thin door chip_smoke.py times beside
+    scaled_dot_product_attention): (out, lse or None) from bf16 qkv on the
+    card, with the additive f32 bias ``extra`` in any form of
+    :func:`extra_groups` (a CPU tensor: :func:`packed_attention_reference`).
+    No model calls it."""
+    global PACKED_BF16_LAUNCHES, PACKED_BF16_BIAS_LAUNCHES
     if qkv.device.type == "cpu":
-        out, lse = packed_attention_reference(qkv, n_head, scale)
+        out, lse = packed_attention_reference(qkv, n_head, scale, extra)
         return out, lse if save else None
-    B, N, D = _packed_checks(qkv, n_head)
+    B, N, D, extra_g, groups = _packed_checks(qkv, n_head, extra)
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
     from ._build import build
 
@@ -863,24 +902,29 @@ def packed_attention_bf16(qkv, n_head: int, scale: Optional[float] = None,
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         PACKED_BF16_LAUNCHES += 1
-        err = lib.vtx_packed_attention_fwd_bf16(ptr(qkv), ptr(out), ptr(lse), B, N, n_head, D,
+        PACKED_BF16_BIAS_LAUNCHES += extra_g is not None
+        err = lib.vtx_packed_attention_fwd_bf16(ptr(qkv), ptr(extra_g), groups, ptr(out),
+                                                ptr(lse), B, N, n_head, D,
                                                 ctypes.c_float(scale), stream)
     _raise_on(err, "packed attention (bf16)")
     return out, lse
 
 
 def packed_attention_bf16_bwd(qkv, out, lse, dout, n_head: int,
-                              scale: Optional[float] = None):
-    """Its backward: dqkv (bf16) from the forward's out and lse and dout (a
-    CPU tensor: :func:`attention_bwd_reference`, rounding where the kernel
+                              scale: Optional[float] = None, extra=None):
+    """Its backward: dqkv (bf16) from the forward's out and lse and dout, P
+    recomputed with the forward's ``extra`` (which takes no gradient; a CPU
+    tensor: :func:`attention_bwd_reference`, rounding where the kernel
     rounds)."""
-    global PACKED_BF16_BWD_LAUNCHES
+    global PACKED_BF16_BWD_LAUNCHES, PACKED_BF16_BIAS_BWD_LAUNCHES
     if qkv.device.type == "cpu":
-        D = qkv.shape[-1] // 3 // n_head
+        B, N, HD3 = qkv.shape
+        D = HD3 // 3 // n_head
         scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
         return attention_bwd_reference(qkv, out, lse, dout, n_head, scale,
+                                       extra_groups(extra, B, n_head, N)[0],
                                        dtype=qkv.dtype)[0].to(qkv.dtype)
-    B, N, D = _packed_checks(qkv, n_head)
+    B, N, D, extra_g, groups = _packed_checks(qkv, n_head, extra)
     check_dtype(qkv.device, torch.bfloat16, out=out, dout=dout)
     check_dtype(qkv.device, torch.float32, lse=lse)
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
@@ -894,9 +938,10 @@ def packed_attention_bf16_bwd(qkv, out, lse, dout, n_head: int,
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         PACKED_BF16_BWD_LAUNCHES += 1
-        err = lib.vtx_packed_attention_bwd_bf16(ptr(qkv), ptr(out), ptr(lse), ptr(dout),
-                                                ptr(ws), ptr(dqkv), B, N, n_head, D,
-                                                ctypes.c_float(scale), stream)
+        PACKED_BF16_BIAS_BWD_LAUNCHES += extra_g is not None
+        err = lib.vtx_packed_attention_bwd_bf16(ptr(qkv), ptr(extra_g), groups, ptr(out),
+                                                ptr(lse), ptr(dout), ptr(ws), ptr(dqkv), B, N,
+                                                n_head, D, ctypes.c_float(scale), stream)
     _raise_on(err, "packed attention backward (bf16)")
     return dqkv
 

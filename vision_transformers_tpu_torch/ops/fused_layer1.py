@@ -37,8 +37,9 @@ default precision: weights and biases bfloat16, LN parameters and row
 scales float32) the serving forward without a bias runs the kernels' bf16
 form (``csrc/fused_layer.cu``'s ``vtx_fused_transformer_layer_fwd_bf16``,
 the JAX kernel's rounding points, fused_layer1.py:91-171: ViT's eval
-step); the bf16 training forward, the backward and the bias raise
-NotImplementedError (ROADMAP.md §A2).  Weights may be
+step, and DINO's teacher); the bf16 training forward, the backward and
+the bias raise NotImplementedError (they wait on Swin-S, ROADMAP.md §A2's
+bf16 queue item 2).  Weights may be
 any 2-D strided view (the model passes ``linear.weight.t()``; its strides
 go to the kernels, nothing is copied, and their gradients come back in the
 view's layout).
@@ -52,7 +53,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import fused_layer
-from .fused_layer import (AttnSaved, BF16_TODO, _act, _default_scale, _dot, _ln,
+from .fused_layer import (AttnSaved, BF16_SWIN, _act, _default_scale, _dot, _ln,
                           _raise_on, _residual, _splits, bias_partials,
                           attention_branch_reference, attention_half_bwd_reference,
                           check_attention_args, check_bf16_form, check_extra, check_f32,
@@ -216,7 +217,7 @@ def _check(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout, ln2_scale, ln2_bias,
         wqkv=wqkv, bqkv=bqkv, wout=wout, bout=bout, w1=w1, b1=b1, w2=w2, b2=b2)
     if bf16 and save:
         raise NotImplementedError(
-            f"the whole layer's bf16 training forward and backward: {BF16_TODO}")
+            f"the whole layer's bf16 training forward and backward: {BF16_SWIN}")
     check_extra(extra_g, H, N, D, window_only=True)
     if w1.ndim != 2:
         raise ValueError(f"w1 must be [C, F], got {tuple(w1.shape)}")

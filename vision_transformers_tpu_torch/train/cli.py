@@ -19,11 +19,9 @@ from __future__ import annotations
 import argparse
 from typing import List, Optional
 
-import torch
-
 from ..config.schema import load_config
 from ..predict import resolve_device
-from .trainer import train_classification
+from .trainer import full_precision_products, train_classification
 
 __all__ = ["main"]
 
@@ -36,12 +34,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     parser.add_argument("overrides", nargs="*", help="key=value conf overrides")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
-    # f32 training stays full precision: no TF32 in the conv or the matmuls
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    # bf16 products reduce in f32, as XLA's do (cuBLAS may otherwise sum
-    # partial products in bf16)
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    full_precision_products()
     conf = load_config(args.conf, args.overrides)
     if args.n_device:
         conf.n_device = args.n_device

@@ -23,11 +23,17 @@ Data come from the synthetic multi-crop backend, as the JAX trainer's
 without ``train.rec`` (dino.py:259-292): 4 batches an epoch, augmented on
 the device (:mod:`..data.dino`).  Each epoch logs through the checker and
 writes ``epoch-NNN.pt``: {"student", "teacher" (reference layout),
-"center", "optimizer", "frozen_steps", "epoch"}.  Not ported (each raises
-NotImplementedError, see ROADMAP): ``precision`` other than ``f32``, more
-than one device, ``training.agc > 0``, ``resume`` and the records loader
-(``data_backend=records``); nor the JAX trainer's preemption checkpoint,
-which no conf field turns on (a SIGTERM ends the run).
+"center", "optimizer", "frozen_steps", "epoch"}.
+
+Both nets compute at the conf's precision, as the JAX trainer's
+(the JAX trainer, dino.py:245-254; ``trainer.compute_dtype``): bf16 (the schema's
+default, and DeiT-S/16's conf's) or f32.  The DINO loss, the center and its
+EMA stay f32 (the teacher's and the student's f32 logits, loss.py:128-131,
+:155), and so do the parameters, AdamW, the teacher EMA and the ``.pt``
+checkpoints.  Not ported (each raises NotImplementedError, see ROADMAP):
+more than one device, ``training.agc > 0``, ``resume`` and the records
+loader (``data_backend=records``); nor the JAX trainer's preemption
+checkpoint, which no conf field turns on (a SIGTERM ends the run).
 """
 
 from __future__ import annotations
@@ -49,7 +55,7 @@ from . import loss as L
 from .checkpoint import _to_cpu
 from .optim import AdamW, clip_by_global_norm, global_norm, make_optimizer
 from .schedule import cosine_schedule, make_schedule
-from .trainer import check_supported
+from .trainer import check_supported, compute_dtype
 
 __all__ = ["DINOTrainState", "make_dino_train_step", "train_dino", "last_layer_indices",
            "dino_checkpoint"]
@@ -172,11 +178,12 @@ def train_dino(conf: ImageNetConfig, device: torch.device | str = "cuda") -> dic
         raise ValueError(f"batch_size {batch} not divisible by grad_accumulation "
                          f"{training.grad_accumulation}")
     checker = conf.checker.make()
-    logger.info(f"device: {device}; dtype: float32")
+    dtype = compute_dtype(conf)
+    logger.info(f"device: {device}; dtype: {str(dtype).removeprefix('torch.')}")
 
     # the student takes drop-path (reference :47-49), the teacher none
-    student = conf.arch.make(drop_path=task.student_drop_path)
-    teacher = conf.arch.make(drop_path=0.0)
+    student = conf.arch.make(dtype=dtype, drop_path=task.student_drop_path)
+    teacher = conf.arch.make(dtype=dtype, drop_path=0.0)
     if conf.finetune:
         sd_s, sd_t = load_dino_checkpoint(conf.finetune)
         student.load_state_dict(sd_s, strict=True)

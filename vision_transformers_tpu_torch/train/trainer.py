@@ -11,8 +11,9 @@ The compute dtype follows the conf as in the JAX trainer
 (trainer.py:58-61): ``precision=bf16`` (the schema's default) or ``fp16``
 computes in bf16, ``precision=f32`` in f32; the parameters, the optimizer,
 the EMA and the checkpoints stay f32 either way.  bf16 is ported for arch
-type ``vit``; any other arch type at bf16 raises NotImplementedError
-(ROADMAP.md §A2's bf16 queue) and runs with ``precision=f32``.
+types ``vit`` (this trainer) and ``dino`` (``train/dino.py``); any other
+arch type at bf16 raises NotImplementedError (ROADMAP.md §A2's bf16 queue)
+and runs with ``precision=f32``.
 
 Not ported yet (each raises NotImplementedError, see ROADMAP): the records
 loader and its augmentation, progressive resizing (``progressive.step >
@@ -38,16 +39,26 @@ from .optim import make_optimizer
 from .schedule import make_schedule
 
 __all__ = ["train_classification", "check_supported", "to_device", "compute_dtype",
-           "BF16_ARCHS"]
+           "full_precision_products", "BF16_ARCHS"]
 
 # the arch types whose models compute in bf16 on the card
-BF16_ARCHS = ("vit",)
+BF16_ARCHS = ("vit", "dino")
 
 
 def compute_dtype(conf: ImageNetConfig) -> torch.dtype:
     """The JAX trainer's ``_compute_dtype`` (trainer.py:58-61): bf16 for
     ``precision=bf16`` or ``fp16``, else f32."""
     return torch.bfloat16 if conf.precision == "bf16" or conf.fp16 else torch.float32
+
+
+def full_precision_products() -> None:
+    """The training entry points' product numerics on the card: f32 stays
+    full precision (no TF32 in the conv or the matmuls), and bf16 products
+    reduce in f32, as XLA's do (cuBLAS may otherwise sum partial products
+    in bf16)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def check_supported(conf: ImageNetConfig) -> None:

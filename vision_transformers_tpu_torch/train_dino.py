@@ -5,7 +5,10 @@ Same command line as the JAX package's ``train_dino.py`` (reference
 train_dino.py:291-298), plus ``--device`` (default ``cuda``):
 
     python -m vision_transformers_tpu_torch.train_dino \\
-        --conf configs/dino_deit-s-16.conf precision=f32 [--device cuda] [key=value ...]
+        --conf configs/dino_deit-s-16.conf [--device cuda] [key=value ...]
+
+The nets compute at the conf's precision: bf16, DeiT-S/16's (the schema's
+default), or f32 with ``precision=f32``.
 
 ``--n_gpu`` is accepted as an alias of ``--n_device``; only one device is
 ported.  Asked for CUDA where there is none, it raises; it never moves to
@@ -17,11 +20,10 @@ from __future__ import annotations
 import argparse
 from typing import List, Optional
 
-import torch
-
 from .config.schema import load_config
 from .predict import resolve_device
 from .train.dino import train_dino
+from .train.trainer import full_precision_products
 
 __all__ = ["main"]
 
@@ -34,9 +36,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     parser.add_argument("overrides", nargs="*", help="key=value conf overrides")
     args = parser.parse_intermixed_args(argv)  # --device among the overrides
     device = resolve_device(args.device)
-    # f32 training stays full precision: no TF32 in the conv or the matmuls
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    full_precision_products()
     conf = load_config(args.conf, args.overrides)
     if args.n_device:
         conf.n_device = args.n_device

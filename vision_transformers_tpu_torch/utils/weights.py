@@ -615,13 +615,23 @@ def swin_dropout_calls(arch, n: int) -> list:
     return [c for c in calls if c[1] > 0]
 
 
-def grad_projections(grads: Dict[str, np.ndarray], seed: int) -> Dict[str, float]:
+def grad_projection_vector(seed: int, i: int, shape) -> np.ndarray:
+    """The standard-normal tensor of :func:`grad_projections` for the i-th
+    key in sorted order: ``shape``, drawn from ``(seed, 3, i)``."""
+    return np.random.default_rng([seed, 3, i]).standard_normal(shape, dtype=np.float32)
+
+
+def grad_projections(grads: Dict[str, np.ndarray], seed: int,
+                     vectors: Optional[Dict[str, np.ndarray]] = None) -> Dict[str, float]:
     """state_dict key → Σ grad · v, with v a standard-normal tensor of the
     grad's shape drawn from ``(seed, 3, i)`` for the i-th key in sorted
-    order: one number per tensor that moves with any part of it."""
+    order: one number per tensor that moves with any part of it.
+    ``vectors``: those tensors by key, made beforehand with
+    :func:`grad_projection_vector` (a caller projecting several steps' grads
+    draws them once)."""
     out = {}
     for i, k in enumerate(sorted(grads)):
         g = np.asarray(grads[k], np.float64)
-        v = np.random.default_rng([seed, 3, i]).standard_normal(g.shape, dtype=np.float32)
-        out[k] = float((g * v).sum())
+        v = vectors[k] if vectors is not None else grad_projection_vector(seed, i, g.shape)
+        out[k] = float(np.dot(g.ravel(), v.ravel().astype(np.float64)))
     return out
