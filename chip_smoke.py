@@ -5,10 +5,11 @@ PyTorch version, runs full-width ViT-S/16 (also with dropout, with the FF
 kernel and under the 'block' force), Swin-S (also under 'block' and under
 'swin', the map-resident whole layer), Halo-S (also on the gather path),
 PVT-S, Twins-SVT-S and DINO DeiT-S/16 against the JAX package's stored
-logits, train-step gradients and DINO step, ViT-S/16 and DINO DeiT-S/16 at
-bf16 (the confs' default precision) against the JAX package's bf16 and
-f32, and drives the serving and the training entry points of the five
-models and DINO's trainer end to end, ViT-S/16's and DINO's also at bf16.
+logits, train-step gradients and DINO step, ViT-S/16, Swin-S and DINO
+DeiT-S/16 at bf16 (the confs' default precision) against the JAX
+package's bf16 and f32, and drives the serving and the training entry
+points of the five models and DINO's trainer end to end, ViT-S/16's,
+Swin-S's and DINO's also at bf16.
 
     python3 chip_smoke.py
 
@@ -190,7 +191,17 @@ non-zero and prints no ok line):
            whose second block's queries find their first 128-key tile all
            masked, forward and backward against the plain versions,
            bit-identical, timed at DINO's call beside SDPA with the mask as
-           a bf16 float attn_mask
+           a bf16 float attn_mask.  Swin-S (swin_bf16_kernels): B2's bf16
+           training forward (saves, the grouped bias, both row scales) and
+           backward (every gradient, the bias's among them) and the
+           packed-row attention's bf16 backward with the bias's gradient
+           alone, at the four Swin-S stage calls of the trainer (64
+           images), within the same limits, bit-identical across two runs;
+           median ms of B2's forward and backward beside the plain versions
+           and the bounds, and the attention's backward with dbias on the
+           device beside scaled_dot_product_attention's backward alone with
+           the bias as a float attn_mask, the f32 window attention's
+           backward with dbias and the bound
 4. golden  ViT-S/16 @224 (depth 12), Swin-S @224 (depth 24), Halo-S @256
            (depth 12), PVT-S @224 (depth 16) and Twins-SVT-S @224 (depth
            18), seeded weights, against the JAX logits in
@@ -244,7 +255,12 @@ non-zero and prints no ok line):
            cross-entropies, the tensors' gradient norms and projections,
            both nets' output norms and projections within 3 x JAX's bf16
            gap, the loss and the gradient norm within 3 x the root mean
-           square of JAX's gaps over six seeds
+           square of JAX's gaps over six seeds; Swin-S at bf16 against
+           tests/data/swin_s_bf16_port_golden.npz
+           (scripts/make_torch_port_swin_bf16_golden.py): the logits tiled
+           to 64 rows and one train step at 64 rows on B2's bf16 forms with
+           the grouped bias ('layer1'), within 3 x JAX's bf16 gap (the
+           loss's: the root mean square over six seeds)
 5. predict the serving path of each model: ``predict.main`` on 48 and then
            160 seeded JPEGs (Halo, PVT — 'fused' — and Twins: 48) with a
            seeded ``.pt:ema``; the launch counters are zeroed just before
@@ -288,11 +304,12 @@ non-zero and prints no ok line):
            256 packed local rows, forward and backward, and B2 on the
            teacher's 192 global rows (192 + 192 B1 launches, 96 + 96 of them
            with the mask, 96 B2 launches); the steady-state step time.
-           ViT-S/16 and DINO at the confs' default precision, bf16 (no
-           precision override): the same launches as their f32 runs, every
-           one on the bf16 forms (DINO's locals with the mask); the
-           steady-state step, images/s and peak memory of each printed
-           beside its f32 run's
+           ViT-S/16, Swin-S and DINO at the confs' default precision, bf16
+           (no precision override): the same launches as their f32 runs,
+           every one on the bf16 forms (DINO's locals with the mask, Swin's
+           layers with the grouped bias, its gradient on the packed-row
+           attention's bf16 backward); the steady-state step, images/s and
+           peak memory of each printed beside its f32 run's
 
 The line before the last is the kernels' JSON record: each kernel's
 launches on the trainer run that takes it (ViT's for the attention layer,
@@ -305,7 +322,9 @@ Swin's under ``VTX_ATTN_IMPL=swin`` for the map-resident layer, DINO's
 for the attention layer's bias calls, ``+bias``, timed at DINO's local
 call, ViT's at bf16 for the bf16 forms, ``[bf16]``, whose bound is at the
 bf16 rate, DINO's at bf16 for the bf16 forms with the bias,
-``+bias[bf16]``, timed at DINO's local call; every path's in
+``+bias[bf16]``, timed at DINO's local call, Swin-S's at bf16 for B2's
+bf16 forms with the bias and the attention's backward with dbias,
+``+dbias[bf16]``, timed at the four Swin-S stages; every path's in
 ``launches_by_path``) and its
 times at a call that run makes (``shape``; other shapes in
 ``other_shapes``); the last line is ``{"ok": true, "device": {...}}``.
@@ -420,6 +439,18 @@ KERNELS = {  # name → (source, the TPU kernel it replaces)
     "packed_attention_bwd+bias[bf16]": (
         "vision_transformers_tpu_torch/csrc/attention_bf16_tma.cuh",
         "vision_transformers_tpu/ops/fused_layer.py:183"),
+    # Swin-S at bf16: B2's training forward with the saves and the grouped
+    # bias, its backward, and the packed-row attention's backward summing the
+    # bias's gradient, timed at the four Swin-S stage calls of the trainer
+    # (stage 1 first) and counted on the Swin-S trainer's bf16 run
+    "fused_transformer_layer+bias[bf16]": ("vision_transformers_tpu_torch/csrc/fused_layer.cu",
+                                           "vision_transformers_tpu/ops/fused_layer1.py:526"),
+    "fused_transformer_layer_bwd+bias[bf16]": (
+        "vision_transformers_tpu_torch/csrc/fused_layer1_bwd.cu",
+        "vision_transformers_tpu/ops/fused_layer1.py:606"),
+    "packed_attention_bwd+dbias[bf16]": (
+        "vision_transformers_tpu_torch/csrc/attention_bf16_tma.cuh",
+        "vision_transformers_tpu/ops/fused_layer1.py:606"),
 }
 # the tensor-core kernels (3xTF32): the attention of csrc/attention_tc.cuh, which
 # B6, B3 and B8 run, and of csrc/halo_attention_tc.cuh, which B5a, B5b and B4's
@@ -1423,11 +1454,25 @@ def b1_bf16_work(B, N, C, H, D, backward=False):
             2 * (2 * M * C + params + 4 * M * HD) + small)
 
 
-def b2_bf16_work(B, N, C, H, D, F):
-    """(operations, bytes) of B2's bf16 serving forward."""
+def b2_bf16_work(B, N, C, H, D, F, groups=0, saves=False, backward=False):
+    """(operations, bytes) of B2's bf16 serving forward, or with ``saves``
+    its training forward (qkv, acc, z, hid bf16 and the LN statistics and
+    lse f32 written too, both row scales read), or its ``backward`` (x, do,
+    qkv, acc, z, hid and the weights read, dx and the f32 gradients of the
+    weights, biases and LN parameters written); with ``groups`` the bias
+    [G, H, N, N] f32 read (and its gradient written)."""
     M, HD = B * N, H * D
-    return (4 * B * H * N * N * D + 8 * M * C * HD + 4 * M * C * F,
-            2 * (2 * M * C + 4 * C * HD + 2 * C * F + 3 * HD + 2 * C + F) + 4 * 4 * C)
+    params = 4 * C * HD + 2 * C * F + 3 * HD + 2 * C + F
+    bias = 4 * groups * H * N * N
+    if backward:
+        return (10 * B * H * N * N * D + 16 * M * C * HD + 8 * M * C * F,
+                2 * (4 * M * C + 4 * M * HD + M * F + params) + 4 * params
+                + 4 * (4 * M + B * H * N + 8 * C + 4 * B) + 2 * bias)
+    flops = 4 * B * H * N * N * D + 8 * M * C * HD + 4 * M * C * F
+    nbytes = 2 * (2 * M * C + params) + 4 * 4 * C + bias
+    if saves:
+        nbytes += 2 * (4 * M * HD + M * C + M * F) + 4 * (4 * M + B * H * N + 2 * B)
+    return flops, nbytes
 
 
 def gemm_bf16_calls():
@@ -1896,6 +1941,127 @@ def bf16_kernels(torch):
         "packed_attention_bwd[bf16]": [att_bwd],
         "packed_attention+bias[bf16]": [bias_fwd],
         "packed_attention_bwd+bias[bf16]": [bias_bwd]}
+
+
+def swin_bf16_kernels(torch):
+    """3bf (Swin-S): B2's bf16 training forward (saves, the grouped bias,
+    both row scales) and backward (every gradient, the bias's among them),
+    and the packed-row attention's bf16 backward with the bias's gradient
+    alone, against their plain versions at the four Swin-S stage calls of
+    the trainer (64 images) within BF16_FWD_TOL / BF16_BWD_TOL, each
+    backward twice and bit-identical; at each stage the median ms of B2's
+    forward and backward (CUDA events) beside the plain versions and the
+    bounds at the bf16 rate, and the attention's backward with dbias on the
+    device (a CUDA graph of 10 calls) beside scaled_dot_product_attention's
+    backward alone with the bias as a float attn_mask (q, k, v's gradients;
+    SDPA gives no grouped bias gradient), the f32 window attention's
+    backward with dbias (csrc/window_attention_tc.cuh, the f32 path's) and
+    the bound.  Returns the three records, stage 1 first."""
+    from vision_transformers_tpu_torch.ops import fused_layer as fl
+    from vision_transformers_tpu_torch.ops import fused_layer1 as fl1
+    from vision_transformers_tpu_torch.ops import window_attention as wa
+
+    bf = torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = torch.Generator(device=DEVICE).manual_seed(29)
+    recs = {"fwd": [], "bwd": [], "att": []}
+    for call in swin_stages(64):
+        B, N, C, H, D, F = call["shape"]
+        G, scale = call["groups"], D ** -0.5
+        a32, extra, rs = swin_layer_inputs(torch, call, True, seed=call["stage"])
+        a = [t if i in (1, 2, 7, 8) else t.to(bf) for i, t in enumerate(a32)]
+        what = f"B2 Swin-S stage {call['stage']} B,N,C,H,D,F={call['shape']} G={G}"
+        out, saved = fl1.fused_transformer_layer_fwd(*a, H, extra, *rs)
+        do = torch.randn(B, N, C, generator=g, device=DEVICE).to(bf)
+        grads = fl1.fused_transformer_layer_bwd(saved, do)
+        again = fl1.fused_transformer_layer_bwd(saved, do)
+        torch.cuda.synchronize()
+        out_p, saved_p = fl1.fused_transformer_layer_fwd_reference(*a, H, extra, *rs)
+        plain = fl1.fused_transformer_layer_bwd_reference(saved_p, do)
+        err_f = bf16_close(torch, what + " out", out, out_p, BF16_FWD_TOL)
+        for name in ("z", "hid"):
+            bf16_close(torch, f"{what} {name} (saved)", getattr(saved, name),
+                       getattr(saved_p, name), BF16_FWD_TOL)
+        err_b = 0.0
+        for name, k, k2, p in zip(fl1.GRAD_NAMES, grads, again, plain):
+            if not torch.equal(k, k2):
+                raise RuntimeError(f"bf16: {what} {name} differs between two runs")
+            err_b = max(err_b, bf16_close(
+                torch, f"{what} {name} ({k.dtype}, bit-identical across two runs)", k, p,
+                BF16_BWD_TOL))
+        # the attention's backward with the bias's gradient alone, on the saves
+        qkv, acc, lse = saved.qkv, saved.acc, saved.lse
+        dout = torch.randn(B, N, H * D, generator=g, device=DEVICE).to(bf)
+        d1, db1 = fl.packed_attention_bf16_bwd(qkv, acc, lse, dout, H, extra=extra, dbias=True)
+        d2, db2 = fl.packed_attention_bf16_bwd(qkv, acc, lse, dout, H, extra=extra, dbias=True)
+        torch.cuda.synchronize()
+        if not (torch.equal(d1, d2) and torch.equal(db1, db2)):
+            raise RuntimeError(f"bf16: {what} attention backward differs between two runs")
+        dq_p, ds = fl.attention_bwd_reference(qkv, acc, lse, dout, H, scale, extra, dtype=bf)
+        db_p = ds.reshape(G, B // G, H, N, N).sum(1)
+        del ds
+        aw = f"packed-row attention bwd + dbias, Swin-S stage {call['stage']} B,N,H,D=" \
+             f"({B},{N},{H},{D}) G={G}"
+        err_a = max(bf16_close(torch, aw + " dqkv", d1, dq_p.to(bf), BF16_BWD_TOL),
+                    bf16_close(torch, aw + " dbias (bit-identical across two runs)", db1, db_p,
+                               BF16_BWD_TOL))
+        # times: B2 (host-inclusive medians) and the attention's backward alone
+        fwd_ms = median_ms(torch, lambda: fl1.fused_transformer_layer_fwd(*a, H, extra, *rs))
+        bwd_ms = median_ms(torch, lambda: fl1.fused_transformer_layer_bwd(saved, do))
+        plain_fwd = median_ms(torch, lambda: fl1.fused_transformer_layer_fwd_reference(
+            *a, H, extra, *rs), reps=5, warmup=1)
+        plain_bwd = median_ms(torch, lambda: fl1.fused_transformer_layer_bwd_reference(
+            saved_p, do), reps=5, warmup=1)
+        att_ms = device_ms(torch, lambda: fl.packed_attention_bf16_bwd(
+            qkv, acc, lse, dout, H, extra=extra, dbias=True))
+        att_call = median_ms(torch, lambda: fl.packed_attention_bf16_bwd(
+            qkv, acc, lse, dout, H, extra=extra, dbias=True))
+        att_plain = median_ms(torch, lambda: fl.attention_bwd_reference(
+            qkv, acc, lse, dout, H, scale, extra, dtype=bf), reps=5, warmup=1)
+        q, k, v = (t.detach().requires_grad_() for t in
+                   qkv.view(B, N, 3, H, D).permute(2, 0, 3, 1, 4).unbind(0))
+        mask = extra[:, None].expand(G, B // G, H, N, N).reshape(B, H, N, N).to(bf)
+        timing = _WARMUP_STREAM[0]  # SDPA's backward alone, on the timing stream
+        timing.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(timing):
+            o = sdpa(q, k, v, attn_mask=mask)
+        torch.cuda.current_stream().wait_stream(timing)
+        dog = dout.view(B, N, H, D).transpose(1, 2)
+        sdpa_bwd = device_ms(torch, lambda: torch.autograd.grad(o, (q, k, v), dog,
+                                                                retain_graph=True))
+        del o, q, k, v, mask
+        q32 = qkv.float().reshape(B * N, 3 * H * D)
+        wo, wl = wa.window_attention_fwd(q32, extra, H, scale)
+        dw = dout.float().reshape(B * N, H * D)
+        window_bwd = device_ms(torch, lambda: wa.window_attention_bwd(q32, extra, wo, wl, dw,
+                                                                      H, scale))
+        del q32, wo, wl, dw
+        release_timing_stream(torch)
+        fb, fby = bound(*b2_bf16_work(B, N, C, H, D, F, G, saves=True), H100_BF16_FLOPS)
+        bb, bby = bound(*b2_bf16_work(B, N, C, H, D, F, G, backward=True), H100_BF16_FLOPS)
+        aops, abytes = bias_attention_work(B, N, H, D, G, backward=True)
+        ab, aby = bound(aops, abytes + 4 * G * H * N * N, H100_BF16_FLOPS)
+        log(f"bf16: {what}: B2 fwd(saves) {fwd_ms:.3f} + bwd {bwd_ms:.3f} ms (median of 20, "
+            f"CUDA events); plain {plain_fwd:.3f} + {plain_bwd:.3f}; bound (bf16 989 TFLOP/s) "
+            f"{fb:.3f} ({fby}) + {bb:.3f} ({bby}); the attention's bwd with dbias on the "
+            f"device {att_ms:.4f} ms (a call from the host {att_call:.3f}), SDPA + float mask "
+            f"bwd alone {sdpa_bwd:.4f}, the f32 window attention's bwd with dbias "
+            f"{window_bwd:.4f}, bound {ab:.4f} ({aby}), plain {att_plain:.3f}")
+        shape = (f"Swin-S stage {call['stage']} trainer (64 images), B,N,C,H,D,F="
+                 + ",".join(map(str, call["shape"])) + f", G={G}, both row scales")
+        recs["fwd"].append({"shape": shape + ", saves", "max_abs_err": err_f, "ms": fwd_ms,
+                            "plain_ms": plain_fwd, "bound_ms": fb, "bound_by": fby,
+                            "library_ms": None})
+        recs["bwd"].append({"shape": shape, "max_abs_err": err_b, "ms": bwd_ms,
+                            "plain_ms": plain_bwd, "bound_ms": bb, "bound_by": bby,
+                            "library_ms": None})
+        recs["att"].append({"shape": f"Swin-S stage {call['stage']}, B,N,H,D={B},{N},{H},{D}"
+                                     f", G={G}, dq and dbias on chip",
+                            "max_abs_err": err_a, "ms": att_ms, "call_ms": att_call,
+                            "plain_ms": att_plain, "bound_ms": ab, "bound_by": aby,
+                            "library_ms": sdpa_bwd, "window_f32_ms": window_bwd})
+        del a, a32, saved, saved_p, grads, again, plain, d1, d2, db1, db2, dq_p, db_p
+    return recs["fwd"], recs["bwd"], recs["att"]
 
 
 # ---------------------------------------------------------------------------
@@ -3549,8 +3715,9 @@ def counted_modules():
     """counter name → (its ops module, the counter's name there): each
     kernel's launches, of the attention layer's those that carried the bias
     (``+bias``), of B1's and B2's those of their bf16 forms (``[bf16]``),
-    and of B1's and the packed-row attention's bf16 launches those with the
-    bias (``+bias[bf16]``)."""
+    of B1's, B2's and the packed-row attention's bf16 launches those with
+    the bias (``+bias[bf16]``), and of the attention's bf16 backward those
+    that summed the bias's gradient (``+dbias[bf16]``)."""
     from vision_transformers_tpu_torch.ops import (fused_attention_mod, fused_block,
                                                    fused_halo, fused_halo_layer,
                                                    fused_layer, fused_layer1, fused_swin)
@@ -3585,7 +3752,11 @@ def counted_modules():
             "fused_attention_layer+bias[bf16]": (fused_layer, "BF16_BIAS_LAUNCHES"),
             "fused_attention_layer_bwd+bias[bf16]": (fused_layer, "BF16_BIAS_BWD_LAUNCHES"),
             "packed_attention+bias[bf16]": (fused_layer, "PACKED_BF16_BIAS_LAUNCHES"),
-            "packed_attention_bwd+bias[bf16]": (fused_layer, "PACKED_BF16_BIAS_BWD_LAUNCHES")}
+            "packed_attention_bwd+bias[bf16]": (fused_layer, "PACKED_BF16_BIAS_BWD_LAUNCHES"),
+            "fused_transformer_layer_bwd[bf16]": (fused_layer1, "BF16_BWD_LAUNCHES"),
+            "fused_transformer_layer+bias[bf16]": (fused_layer1, "BF16_BIAS_LAUNCHES"),
+            "fused_transformer_layer_bwd+bias[bf16]": (fused_layer1, "BF16_BIAS_BWD_LAUNCHES"),
+            "packed_attention_bwd+dbias[bf16]": (fused_layer, "PACKED_BF16_DBIAS_BWD_LAUNCHES")}
 
 
 def counts():
@@ -3883,6 +4054,55 @@ def bf16_golden(torch):
         + ", ".join(f"{k} {e:.3e} ({lim:.3e})" for k, (e, lim) in checks.items()))
 
 
+SWIN_BF16_GOLDEN_SCRIPT = os.path.join(ROOT, "scripts", "make_torch_port_swin_bf16_golden.py")
+
+
+def swin_bf16_golden(torch):
+    """Swin-S in bf16 (seeded weights, DropPath off) against
+    tests/data/swin_s_bf16_port_golden.npz: the golden's two images' logits
+    tiled to 64 rows and one train step at 64 rows, both on B2's bf16 forms
+    with the grouped bias ('layer1'; the train step's bias gradient on the
+    packed-row attention's bf16 backward), each within GAP_FACTOR times the
+    JAX package's own bf16 error (the loss's over the golden's seeds)."""
+    import importlib.util
+
+    from vision_transformers_tpu_torch.train.trainer import full_precision_products
+
+    full_precision_products()  # as the training entry point sets the products
+    spec = importlib.util.spec_from_file_location("make_torch_port_swin_bf16_golden",
+                                                  SWIN_BF16_GOLDEN_SCRIPT)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)  # numpy at import; the port's side imports no JAX
+    vit = mod.vit_golden()
+    with np.load(mod.GOLDEN) as f:
+        g = {k: f[k] for k in f.files}
+    seed = int(g["seed"])
+    model = vit.port_model(seed, DEVICE, mod.CONF)
+    ftl, ftlb, pa, pab = ("fused_transformer_layer", "fused_transformer_layer_bwd",
+                          "packed_attention", "packed_attention_bwd")
+    fwd = {ftl: 24, ftl + "[bf16]": 24, ftl + "+bias[bf16]": 24, pa + "[bf16]": 24,
+           pa + "+bias[bf16]": 24}
+    before = counts()
+    logits = vit.port_logits(seed, DEVICE, GOLDEN_ROWS, "layer1", model, mod.CONF)
+    torch.cuda.synchronize()
+    expect_path(before, counts(), fwd, f"Swin-S bf16 golden, {GOLDEN_ROWS} rows on layer1")
+    err, lim = vit.check_logits(logits, g, "layer1")
+    log(f"golden: Swin-S bf16 logits, {GOLDEN_ROWS} rows via {ftl} (bf16, the grouped bias): "
+        f"max|port - JAX bf16| {err:.4e} (limit {vit.GAP_FACTOR} x JAX's bf16 gap = {lim:.4e})")
+    before = counts()
+    ours = vit.port_train(seed, DEVICE, GOLDEN_ROWS, "layer1", model, mod.CONF, mod.FULL_KEYS)
+    torch.cuda.synchronize()
+    expect_path(before, counts(), {**fwd, ftlb: 24, ftlb + "[bf16]": 24,
+                                   ftlb + "+bias[bf16]": 24, pab + "[bf16]": 24,
+                                   pab + "+bias[bf16]": 24, pab + "+dbias[bf16]": 24},
+                f"Swin-S bf16 golden train step, {GOLDEN_ROWS} rows")
+    checks = vit.check_train(ours, g, mod.FULL_KEYS, mod.loss_gap(g))
+    log(f"golden: Swin-S bf16 train step, {GOLDEN_ROWS} rows via {ftl} (bf16) forward and "
+        f"backward: loss {float(ours['loss_port']):.6f} (JAX bf16 "
+        f"{float(g['loss_bf16']):.6f}, f32 {float(g['loss_f32']):.6f}); error (limit) "
+        + ", ".join(f"{k} {e:.3e} ({lim:.3e})" for k, (e, lim) in checks.items()))
+
+
 DINO_BF16_GOLDEN_SCRIPT = os.path.join(ROOT, "scripts", "make_torch_port_dino_bf16_golden.py")
 
 
@@ -4157,6 +4377,32 @@ def vit_trainers(torch, has_pil):
     return f32, bf16
 
 
+def swin_trainers(torch, has_pil):
+    """6 (Swin-S): the trainer at f32 and at the conf's default precision,
+    bf16 — the same launches (4 steps x 2 micro-batches x 24 layers; the
+    valid pass 2 x 24), every one of the bf16 run on B2's bf16 forms with
+    the grouped bias, its attention's backward summing the bias's gradient
+    — and the two steady-state steps, images/s and peak memory side by
+    side.  Returns (f32 launches, bf16 launches)."""
+    ftl, ftlb = "fused_transformer_layer", "fused_transformer_layer_bwd"
+    expected = {ftl: 24 * 2 * 4 + 24 * 2, ftlb: 24 * 2 * 4}
+    f32_run, bf16_run = {}, {}
+    f32 = train_main_path(torch, has_pil, "Swin-S", expected, steady_out=f32_run)
+    bf16 = train_main_path(
+        torch, has_pil, "Swin-S",
+        {**expected, **{k + s: v for k, v in expected.items() for s in ("[bf16]", "+bias[bf16]")},
+         "packed_attention[bf16]": expected[ftl], "packed_attention+bias[bf16]": expected[ftl],
+         **{"packed_attention_bwd" + s: expected[ftlb]
+            for s in ("[bf16]", "+bias[bf16]", "+dbias[bf16]")}},
+        precision=None, steady_out=bf16_run)
+    (f32_s, f32_peak), (bf_s, bf_peak) = f32_run.values(), bf16_run.values()
+    log(f"trainer: Swin-S at 128 images (2 micro-batches of 64), steady state in this run: "
+        f"f32 {f32_s * 1e3:.2f} ms/step = {128 / f32_s:.1f} images/s, max_memory_allocated "
+        f"{f32_peak / 2**30:.2f} GiB; bf16 (the conf's default) {bf_s * 1e3:.2f} ms/step = "
+        f"{128 / bf_s:.1f} images/s, max_memory_allocated {bf_peak / 2**30:.2f} GiB")
+    return f32, bf16
+
+
 # DINO at 96 images a step (the conf's 1024 cut: 768 locals pack 3 to a row),
 # 2 epochs of 4 synthetic steps, epoch 0 with the last layer frozen
 DINO_BATCH, DINO_EPOCHS = 96, 2
@@ -4321,6 +4567,9 @@ def main() -> None:
         "3w map-resident Swin layer", swin_map_kernels, torch)
     phase("3a window attention", window_kernels, torch)
     timed.update(phase("3bf bf16 forms", bf16_kernels, torch))
+    (timed["fused_transformer_layer+bias[bf16]"], timed["fused_transformer_layer_bwd+bias[bf16]"],
+     timed["packed_attention_bwd+dbias[bf16]"]) = phase("3bf Swin-S bf16", swin_bf16_kernels,
+                                                        torch)
     fal, falb = "fused_attention_layer", "fused_attention_layer_bwd"
     ftl, ftlb = "fused_transformer_layer", "fused_transformer_layer_bwd"
     fhl, fhlb = "fused_halo_layer", "fused_halo_layer_bwd"
@@ -4362,6 +4611,7 @@ def main() -> None:
     phase("4d golden DINO", dino_golden, torch)
     phase("4bf golden ViT bf16", bf16_golden, torch)
     phase("4bf golden DINO bf16", dino_bf16_golden, torch)
+    phase("4bf golden Swin-S bf16", swin_bf16_golden, torch)
     phase("4b train ViT", train_golden, torch, "ViT-S/16", depth("ViT-S/16", fal, falb))
     phase("4b train Swin", train_golden, torch, "Swin-S", depth("Swin-S", ftl, ftlb))
     phase("4b train Halo", train_golden, torch, "Halo-S", depth("Halo-S", fhl, fhlb))
@@ -4407,9 +4657,10 @@ def main() -> None:
         # 12), every one of the bf16 run on the bf16 forms
         **dict(zip(("ViT-S/16 train", "ViT-S/16 train (bf16)"), phase(
             "6 trainer ViT f32 + bf16", vit_trainers, torch, has_pil))),
-        # 4 steps x 2 micro-batches x 24 layers; the valid pass: 2 x 24
-        "Swin-S train": phase("6 trainer Swin", train_main_path, torch, has_pil,
-                              "Swin-S", {ftl: 24 * 2 * 4 + 24 * 2, ftlb: 24 * 2 * 4}),
+        # Swin-S at f32 and at the conf's default precision, bf16: 4 steps x
+        # 2 micro-batches x 24 layers; the valid pass: 2 x 24
+        **dict(zip(("Swin-S train", "Swin-S train (bf16)"), phase(
+            "6 trainer Swin f32 + bf16", swin_trainers, torch, has_pil))),
         # 4 steps x 12 layers (12 forward and 12 backward per step); the
         # valid pass: 2 batches x 12
         "Halo-S train": phase("6 trainer Halo", train_main_path, torch, has_pil,
@@ -4492,7 +4743,10 @@ def main() -> None:
                   fal + "+bias[bf16]": "DINO train (bf16)",
                   falb + "+bias[bf16]": "DINO train (bf16)",
                   "packed_attention+bias[bf16]": "DINO train (bf16)",
-                  "packed_attention_bwd+bias[bf16]": "DINO train (bf16)"}
+                  "packed_attention_bwd+bias[bf16]": "DINO train (bf16)",
+                  ftl + "+bias[bf16]": "Swin-S train (bf16)",
+                  ftlb + "+bias[bf16]": "Swin-S train (bf16)",
+                  "packed_attention_bwd+dbias[bf16]": "Swin-S train (bf16)"}
     # the bf16 layers run the GEMM core's bf16 form (its TMA kernels as
     # built) and the packed-row attention's (its kernels as built)
     from vision_transformers_tpu_torch.ops import _build

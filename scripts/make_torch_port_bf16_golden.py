@@ -98,31 +98,32 @@ def jax_side(seed: int) -> dict:
     return out
 
 
-def train_values(name, loss, grads, seed, grad_projections) -> dict:
+def train_values(name, loss, grads, seed, grad_projections, full_keys=FULL_KEYS) -> dict:
     """The stored values of one train step: loss, keys, norms, projections,
-    the FULL_KEYS gradients."""
+    the ``full_keys`` gradients."""
     keys = sorted(grads)
     proj = grad_projections(grads, seed)
     out = {f"loss_{name}": np.float64(loss), "keys": np.array(keys),
            f"norms_{name}": np.array([np.linalg.norm(np.asarray(grads[k], np.float64))
                                       for k in keys]),
            f"projections_{name}": np.array([proj[k] for k in keys])}
-    for k in FULL_KEYS:
+    for k in full_keys:
         out[f"grad_{name}.{k}"] = np.asarray(grads[k], np.float32)
     return out
 
 
-def port_logits(seed: int, device: str, rows: int, impl: str, model=None) -> np.ndarray:
+def port_logits(seed: int, device: str, rows: int, impl: str, model=None,
+                conf: str = CONF) -> np.ndarray:
     """The port's bf16 logits of the two seeded images tiled to ``rows``
     rows under forward_only, ``impl`` forced ('layer': B1, 'layer1': B2);
-    the first two rows."""
+    the first two rows (``conf``: the model, 224 px)."""
     import torch
 
     from vision_transformers_tpu_torch import ops
     from vision_transformers_tpu_torch.predict import predict_batch
     from vision_transformers_tpu_torch.utils.weights import seeded_images
 
-    model = model if model is not None else port_model(seed, device)
+    model = model if model is not None else port_model(seed, device, conf)
     images = np.tile(seeded_images(seed, N_IMAGES, 224), (rows // N_IMAGES, 1, 1, 1))
     ops.set_attention_impl(impl)
     try:
@@ -133,10 +134,10 @@ def port_logits(seed: int, device: str, rows: int, impl: str, model=None) -> np.
     return np.asarray(logits[:N_IMAGES], np.float32)
 
 
-def port_model(seed: int, device: str):
-    """The port's ViT-S/16 in bf16 with the seeded weights, on ``device``;
-    DropPath off (the golden's train step is the JAX model's at drop_path
-    0)."""
+def port_model(seed: int, device: str, conf: str = CONF):
+    """The port's model of ``conf`` (ViT-S/16) in bf16 with the seeded
+    weights, on ``device``; DropPath off (the golden's train step is the JAX
+    model's at drop_path 0)."""
     import dataclasses
 
     import torch
@@ -144,13 +145,14 @@ def port_model(seed: int, device: str):
     from vision_transformers_tpu_torch.config.schema import load_config
     from vision_transformers_tpu_torch.utils.weights import seeded_state_dict, to_torch
 
-    arch = dataclasses.replace(load_config(CONF).arch, drop_path=0.0)
+    arch = dataclasses.replace(load_config(conf).arch, drop_path=0.0)
     model = arch.make(dtype=torch.bfloat16)
     model.load_state_dict(to_torch(seeded_state_dict(arch, seed)), strict=True)
     return model.to(device)
 
 
-def port_train(seed: int, device: str, rows: int, impl=None, model=None) -> dict:
+def port_train(seed: int, device: str, rows: int, impl=None, model=None, conf: str = CONF,
+               full_keys=FULL_KEYS) -> dict:
     """One bf16 engine.train_step of the port on the seeded batch tiled to
     ``rows`` rows (the mean loss and gradients of the two images), lr 0."""
     import torch
@@ -161,7 +163,7 @@ def port_train(seed: int, device: str, rows: int, impl=None, model=None) -> dict
     from vision_transformers_tpu_torch.utils.weights import (grad_projections,
                                                              seeded_train_batch)
 
-    model = model if model is not None else port_model(seed, device)
+    model = model if model is not None else port_model(seed, device, conf)
     batch = seeded_train_batch(seed, N_IMAGES, 224, 1000)
     b = {k: torch.from_numpy(np.concatenate([v] * (rows // N_IMAGES))).to(device)
          for k, v in batch.items()}
@@ -175,7 +177,8 @@ def port_train(seed: int, device: str, rows: int, impl=None, model=None) -> dict
     finally:
         ops.set_attention_impl(None)
     grads = {k: p.grad.detach().float().cpu().numpy() for k, p in model.named_parameters()}
-    return train_values("port", float(metrics["loss"]), grads, seed, grad_projections)
+    return train_values("port", float(metrics["loss"]), grads, seed, grad_projections,
+                        full_keys)
 
 
 def rel(a, b) -> float:
@@ -193,19 +196,22 @@ def check_logits(ours: np.ndarray, g: dict, impl: str) -> tuple:
     return err, GAP_FACTOR * gap
 
 
-def check_train(ours: dict, g: dict) -> dict:
+def check_train(ours: dict, g: dict, full_keys=FULL_KEYS, loss_gap=None) -> dict:
     """{quantity: (error, limit)} of the port's bf16 train step against
     JAX's: the loss, the projections (relative Frobenius over all keys) and
-    each FULL_KEYS gradient."""
+    each ``full_keys`` gradient; the loss's gap ``loss_gap`` where given
+    (JAX's over several seeds), else JAX's at the golden's seed."""
     if list(ours["keys"]) != list(g["keys"]):
         raise AssertionError("the port's state_dict keys are not the golden's")
+    if loss_gap is None:
+        loss_gap = abs(float(g["loss_bf16"]) - float(g["loss_f32"]))
     out = {"loss": (abs(float(ours["loss_port"]) - float(g["loss_bf16"])),
-                    GAP_FACTOR * abs(float(g["loss_bf16"]) - float(g["loss_f32"]))),
+                    GAP_FACTOR * loss_gap),
            "projections": (rel(ours["projections_port"], g["projections_bf16"]),
                            GAP_FACTOR * rel(g["projections_bf16"], g["projections_f32"])),
            "norms": (rel(ours["norms_port"], g["norms_bf16"]),
                      GAP_FACTOR * rel(g["norms_bf16"], g["norms_f32"]))}
-    for k in FULL_KEYS:
+    for k in full_keys:
         out[k] = (rel(ours[f"grad_port.{k}"], g[f"grad_bf16.{k}"]),
                   GAP_FACTOR * rel(g[f"grad_bf16.{k}"], g[f"grad_f32.{k}"]))
     bad = {k: v for k, v in out.items() if not v[0] <= v[1]}

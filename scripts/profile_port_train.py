@@ -3,7 +3,7 @@
 
 Runs ``engine.train_step`` on the model of ``--conf`` (seeded weights and a
 synthetic batch, f32 with no TF32 — or, with ``--precision bf16``, the
-JAX package's default precision, ViT and DINO —, AdamW with the conf's clip and
+JAX package's default precision, ViT, Swin-S and DINO —, AdamW with the conf's clip and
 grad_accumulation, DropPath at the conf's rate drawn from a seeded
 generator) under ``torch.profiler`` after a warm-up and prints the device
 time by kernel per step, grouped by layer (hand-written GEMM in its
@@ -83,6 +83,8 @@ GROUPS = (("at::native", "other (elementwise, reductions, conv)"),
           ("row_scale_grad", "other hand-written"), ("scale_rows", "other hand-written"),
           ("silu", "other hand-written"), ("group_sum", "other hand-written"),
           ("act_kernel", "other hand-written"), ("dact_mul", "other hand-written"),
+          ("act_bf16_kernel", "other hand-written"),
+          ("act_grad_bf16_kernel", "other hand-written"),
           ("gather_rows", "other hand-written"), ("drs_part", "other hand-written"),
           ("gemm", "cuBLAS GEMM"), ("sgemm", "cuBLAS GEMM"), ("cutlass", "cuBLAS GEMM"),
           ("nvjet", "cuBLAS GEMM"),  # cuBLAS's bf16 GEMMs
@@ -181,7 +183,7 @@ def main() -> None:
                           text=True, timeout=60).stdout.strip().splitlines()[0]
     conf = load_config(args.conf, [f"precision={args.precision}", *args.overrides])
     if args.precision == "bf16":
-        check_supported(conf)  # bf16 is ported for ViT and DINO
+        check_supported(conf)  # bf16 is ported for ViT, Swin-S and DINO
     dtype = compute_dtype(conf)
     arch, training = conf.arch, conf.training
     gen = torch.Generator(device="cuda").manual_seed(args.seed)

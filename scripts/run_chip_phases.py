@@ -26,8 +26,13 @@ with DINO's block mask at heads 64 wide), ``3dbf`` (the same at bf16),
 serving forward, the packed-row attention beside SDPA, with and without the
 bias), and chip_smoke's model phases ``4d`` (the DINO golden), ``4dbf`` (the
 DINO golden at bf16), ``6d`` (the DINO trainer at f32 and at bf16, side by
-side), ``4bf`` (ViT-S/16 at bf16 against its golden) and ``6bf`` (the
-ViT-S/16 trainer at f32 and at bf16, side by side).
+side), ``4bf`` (ViT-S/16 at bf16 against its golden), ``6bf`` (the
+ViT-S/16 trainer at f32 and at bf16, side by side), ``3sbf`` (Swin-S's bf16
+kernels: B2's training forward and backward with the grouped bias and the
+packed-row attention's backward with the bias's gradient, at the four
+stages, beside SDPA and the f32 window attention), ``4sbf`` (Swin-S at bf16
+against its golden) and ``6sbf`` (the Swin-S trainer at f32 and at bf16,
+side by side).
 Exits non-zero when a phase fails.  Needs CUDA; imports no JAX.
 """
 
@@ -45,7 +50,8 @@ PHASES = {"3m": "gemm_kernels", "3": "kernels", "3v": "backward_kernel",
           "3f": "ff_kernels", "3d": "dino_layer_kernels", "4d": "dino_golden",
           "6d": "dino_trainers", "3bf": "bf16_kernels", "4bf": "bf16_golden",
           "6bf": "vit_trainers", "3dbf": "dino_bf16_layer_kernels",
-          "4dbf": "dino_bf16_golden"}
+          "4dbf": "dino_bf16_golden", "3sbf": "swin_bf16_kernels",
+          "4sbf": "swin_bf16_golden", "6sbf": "swin_trainers"}
 DEFAULT = ("3s", "3q")
 
 
@@ -64,7 +70,7 @@ def main() -> None:
     chip_smoke.build()
     for phase in which:
         fn = getattr(chip_smoke, PHASES[phase])
-        result = fn(torch, False) if phase == "6bf" else fn(torch)
+        result = fn(torch, False) if phase in ("6bf", "6sbf") else fn(torch)
         parts = result.values() if isinstance(result, dict) else result or ()
         # a phase returns records, lists of records or {kernel: records}
         # (a model phase: None, or its launch counts)

@@ -1,19 +1,20 @@
 """The bf16 forms' wrappers and C entries, checked on the CPU, and on the
 card against their plain versions.
 
-B1 (``fused_attention_layer``, forward and backward) and B2's serving
-forward (``fused_transformer_layer``) take the ``_bf16`` C entries when x is
-bfloat16, driven here through ctypes callbacks of the declared signatures
-(tests/test_torch_port_vit_attention_tc.py's fake library): the
-activations' workspaces are bfloat16, the statistics, lse and every
-reduction workspace f32, and the backward's dq partials are passed even
-with one key tile (they first hold the out projection's f32 dacc₀).  B1's
-bf16 entries take the additive
-bias (DINO's block mask, or a grouped [G, H, N, N] bias) as its grouped f32
-form and its group count, and no dbias workspace: a bf16 call that asks
-for the bias's gradient raises.  Every entry without a bf16 form raises
-NotImplementedError for a bfloat16 tensor, naming the ROADMAP queue item,
-and casts nothing.
+B1 (``fused_attention_layer``, forward and backward) and B2
+(``fused_transformer_layer``, serving and training forward, backward) take
+the ``_bf16`` C entries when x is bfloat16, driven here through ctypes
+callbacks of the declared signatures (tests/test_torch_port_vit_attention_tc.py's
+fake library): the activations' workspaces are bfloat16, the statistics,
+lse and every reduction workspace f32, and the backward's dq partials are
+passed even with one key tile (they first hold the out projection's f32
+dacc₀).  The bf16 entries take the additive bias (DINO's block mask, or a
+grouped [G, H, N, N] bias) as its grouped f32 form and its group count;
+its gradient, where asked for, comes back as dextra with the chunks' dS
+sums in the attention's workspace (no dbpart), over up to 128 tokens: a
+longer call that asks for it raises.  Every entry without a bf16 form
+raises NotImplementedError for a bfloat16 tensor, naming the ROADMAP queue
+item, and casts nothing.
 
 The ``cuda`` tests hold the bf16 kernels against their plain versions on
 the card at chip_smoke.py's limits (one bf16 ulp is 2⁻⁸): forward within
@@ -24,7 +25,11 @@ bf16 form alone (csrc/attention_bf16_tma.cuh) over N from 1 to 577 (one
 in shared memory) and heads 16 to 64 wide, and with the bias: DINO's
 block mask at 111 tokens, a grouped bias, and a mask under which a query's
 first 128-key tile is all masked (N 200 and 257), B1 with the mask at
-DINO's widths too.  No JAX here, so they run where JAX is absent.
+DINO's widths too; the bias's gradient (17 to 128 tokens, 1 to 3 groups,
+heads 16 to 64 wide), B1's bf16 backward with it, and B2's bf16 training
+forward and backward with a grouped bias and both row scales (Swin's
+window pair and window shapes among them).  No JAX here, so they run
+where JAX is absent.
 """
 
 import numpy as np
@@ -171,14 +176,30 @@ def test_b1_bf16_with_the_bias_takes_the_bf16_entries(monkeypatch, shape):
 
 
 def test_b1_bf16_bias_gradient_raises(monkeypatch):
+    """The bias's gradient at bf16 (one key tile, up to 128 tokens): dextra
+    and the chunks' dS sums after the attention's rows in dq_part; past 128
+    tokens the call raises before any launch."""
     B, N, C, H, D, kind = BIAS_SHAPES["grouped"]
     args = bf16_inputs(B, N, C, H, D, 2 * C)[:7]
     extra_g, groups = fused_layer.extra_groups(grouped_bias(kind, H, N), B, H, N)
+    before = fused_layer.PACKED_BF16_DBIAS_BWD_LAUNCHES
     with fake_cuda(monkeypatch) as lib:
         out, res = fused_layer._cuda_fwd(*args, H, extra_g, groups, None, D ** -0.5, 1e-6,
                                          save=True)
         saved = fused_layer.AttnSaved(*args, None, *res, extra_g, H, D ** -0.5, 1e-6)
-        with pytest.raises(NotImplementedError, match="item 2"):
+        grads = fused_layer._cuda_bwd(saved, torch.zeros_like(out), False, True)
+        bwd = lib.calls["vtx_fused_attention_layer_bwd_bf16"]
+    assert fused_layer.PACKED_BF16_DBIAS_BWD_LAUNCHES == before + 1
+    assert bwd["dbpart"] is None and bwd["dextra"] == grads[-1].data_ptr()
+    assert grads[-1].shape == extra_g.shape and grads[-1].dtype == torch.float32
+    Nl = fused_layer.MAX_BIAS_TOKENS + 2
+    args = bf16_inputs(B, Nl, C, H, D, 2 * C)[:7]
+    extra_g, groups = fused_layer.extra_groups(grouped_bias(kind, H, Nl), B, H, Nl)
+    with fake_cuda(monkeypatch) as lib:
+        out, res = fused_layer._cuda_fwd(*args, H, extra_g, groups, None, D ** -0.5, 1e-6,
+                                         save=True)
+        saved = fused_layer.AttnSaved(*args, None, *res, extra_g, H, D ** -0.5, 1e-6)
+        with pytest.raises(NotImplementedError, match="128 tokens"):
             fused_layer._cuda_bwd(saved, torch.zeros_like(out), False, True)
         assert "vtx_fused_attention_layer_bwd_bf16" not in lib.calls
 
@@ -198,11 +219,50 @@ def test_b2_bf16_serves_on_its_bf16_entry(monkeypatch):
 
 
 def test_b2_bf16_training_forward_raises(monkeypatch):
+    """B2's bf16 training forward with saves: the bf16 entry with af (bf16)
+    and the five statistics (f32); only a gelu layer still raises."""
     B, N, C, H, D, F = SHAPES["odd"]
     args = bf16_inputs(B, N, C, H, D, F)
-    with fake_cuda(monkeypatch), pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_layer1._cuda_fwd(*args, H, None, 1, None, None, "silu", D ** -0.5, 1e-6,
+    with fake_cuda(monkeypatch) as lib:
+        out, res = fused_layer1._cuda_fwd(*args, H, None, 1, None, None, "silu", D ** -0.5,
+                                          1e-6, save=True)
+        call = lib.calls["vtx_fused_transformer_layer_fwd_bf16"]
+    assert call["af"] is not None and call["mu1"] is not None and call["lse"] is not None
+    assert all(t.dtype == bf for t in res[:4]) and all(t.dtype == torch.float32
+                                                       for t in res[4:])
+    with fake_cuda(monkeypatch), pytest.raises(NotImplementedError, match="silu"):
+        fused_layer1._cuda_fwd(*args, H, None, 1, None, None, "gelu", D ** -0.5, 1e-6,
                                save=True)
+
+
+def test_b2_bf16_backward_takes_its_bf16_entry(monkeypatch):
+    """B2's bf16 backward with Swin's grouped bias and both row scales: the
+    bf16 entry, the activations' workspaces bf16, dq_part the largest of
+    the FF half's da₀ [M, F], dacc₀ and the attention's workspace with the
+    dbias sums, dbpart null, dextra grouped f32, the weights' gradients
+    rounded to bf16 once."""
+    B, N, C, H, D, G = 4, 18, 32, 2, 16, 2
+    F = 2 * C
+    args = bf16_inputs(B, N, C, H, D, F)
+    extra_g, groups = fused_layer.extra_groups(grouped_bias(G, H, N), B, H, N)
+    r = torch.full((B,), 1 / 0.9)
+    names = ("BF16_BWD_LAUNCHES", "BWD_LAUNCHES")
+    before = [getattr(fused_layer1, n) for n in names]
+    with fake_cuda(monkeypatch) as lib:
+        out, res = fused_layer1._cuda_fwd(*args, H, extra_g, groups, r, r, "silu",
+                                          D ** -0.5, 1e-6, save=True)
+        saved = fused_layer1.L1Saved(*args, extra_g, r, r, *res, H, "silu", D ** -0.5, 1e-6)
+        grads = fused_layer1._cuda_bwd(saved, torch.zeros_like(out), (True, True), True)
+        fwd = lib.calls["vtx_fused_transformer_layer_fwd_bf16"]
+        bwd = lib.calls["vtx_fused_transformer_layer_bwd_bf16"]
+        assert "vtx_fused_transformer_layer_bwd" not in lib.calls
+    assert [getattr(fused_layer1, n) - b for n, b in zip(names, before)] == [1, 1]
+    assert fwd["extra"] == extra_g.data_ptr() and fwd["groups"] == groups
+    assert bwd["dbpart"] is None and bwd["dq_part"] is not None
+    assert bwd["dextra"] == grads[13].data_ptr() and grads[13].shape == (G, H, N, N)
+    assert grads[0].dtype == bf and all(grads[i].dtype == bf for i in (3, 4, 5, 6, 9, 10, 11,
+                                                                         12))
+    assert all(grads[i].dtype == torch.float32 for i in (1, 2, 7, 8, 13, 14, 15))
 
 
 def _b(*shape):
@@ -215,17 +275,22 @@ def _f(*shape):
 
 # every entry without a bf16 form, called with a bfloat16 tensor
 NO_BF16_FORM = {
-    # B1's bf16 form takes the bias but not its gradient
+    # B1's and B2's bf16 forms take the bias's gradient over one key tile
+    # (up to 128 tokens) only, and heads a multiple of 8 wide
     "B1 with a bias": lambda: fused_layer._cuda_bwd(
-        fused_layer.AttnSaved(*bf16_inputs(4, 18, 32, 2, 16, 64)[:7], None, _b(4, 18, 96),
-                              _b(4, 18, 32), _f(4, 18), _f(4, 18), _f(4, 2, 18),
-                              _f(1, 2, 18, 18), 2, 0.25, 1e-6), _b(4, 18, 32), False, True),
-    "B2 with a bias": lambda: fused_layer1._cuda_fwd(
-        *bf16_inputs(4, 18, 32, 2, 16, 64), 2, _f(1, 2, 18, 18), 1, None, None, "silu",
-        0.25, 1e-6, save=False),
+        fused_layer.AttnSaved(*bf16_inputs(2, 130, 32, 2, 16, 64)[:7], None, _b(2, 130, 96),
+                              _b(2, 130, 32), _f(2, 130), _f(2, 130), _f(2, 2, 130),
+                              _f(1, 2, 130, 130), 2, 0.25, 1e-6), _b(2, 130, 32), False,
+        True),
+    "B2 with a bias": lambda: fused_layer1._cuda_bwd(
+        fused_layer1.L1Saved(*bf16_inputs(2, 130, 32, 2, 16, 64), _f(1, 2, 130, 130), None,
+                             None, _b(2, 130, 96), _b(2, 130, 32), _b(2, 130, 32),
+                             _b(2, 130, 64), *[_f(1)] * 5, 2, "silu", 0.25, 1e-6),
+        _b(2, 130, 32), (False, False), True),
     "B2 backward": lambda: fused_layer1._cuda_bwd(
-        fused_layer1.L1Saved(*bf16_inputs(2, 9, 32, 2, 16, 64), None, None, None,
-                             *[_b(1)] * 9, 2, "silu", 0.25, 1e-6), _b(2, 9, 32),
+        fused_layer1.L1Saved(*bf16_inputs(2, 9, 36, 3, 12, 64), None, None, None,
+                             _b(2, 9, 108), _b(2, 9, 36), _b(2, 9, 36), _b(2, 9, 64),
+                             *[_f(1)] * 5, 3, "silu", 0.25, 1e-6), _b(2, 9, 36),
         (False, False), False),
     "B3 fused_attention_qkv": lambda: fused_attention._check_qkv(_b(2, 9, 96), 2, None),
     "B4 fused_halo_layer": lambda: fused_halo_layer._check(
@@ -479,3 +544,86 @@ def test_cuda_gemm_bf16_routes_and_matches_plain(name):
     within(name, out, plain, 1e-3 if splitk or "f32" in opts else FWD_TOL)
     if splitk:  # the slabs summed in order: bit-identical from run to run
         assert torch.equal(out, gemm.gemm_bf16(a, b, form=form, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32, 64])
+@pytest.mark.parametrize("N, B, G", [(17, 6, 3), (49, 4, 1), (98, 8, 2), (128, 3, 3)])
+def test_cuda_packed_attention_bf16_dbias_matches_plain(N, B, G, D):
+    """The backward's bias gradient (one key tile): dS summed over each
+    group's images in chunks, then over the chunks in order."""
+    needs_card()
+    H = 3
+    g = torch.Generator().manual_seed(10 * N + D + G)
+    qkv = torch.randn(B, N, 3 * H * D, generator=g).to(bf).cuda()
+    dout = torch.randn(B, N, H * D, generator=g).to(bf).cuda()
+    extra = grouped_bias(G, H, N, seed=N).cuda()
+    out, lse = fused_layer.packed_attention_bf16(qkv, H, extra=extra)
+    dqkv, dbias = fused_layer.packed_attention_bf16_bwd(qkv, out, lse, dout, H, extra=extra,
+                                                        dbias=True)
+    d2, db2 = fused_layer.packed_attention_bf16_bwd(qkv, out, lse, dout, H, extra=extra,
+                                                    dbias=True)
+    plain, ds = fused_layer.attention_bwd_reference(qkv, out, lse, dout, H, D ** -0.5, extra,
+                                                    dtype=bf)
+    assert torch.equal(dqkv, d2) and torch.equal(dbias, db2), "differs between two runs"
+    within("dqkv", dqkv, plain, BWD_TOL)
+    within("dbias", dbias, ds.reshape(G, B // G, H, N, N).sum(1), BWD_TOL)
+    assert torch.equal(dqkv, fused_layer.packed_attention_bf16_bwd(qkv, out, lse, dout, H,
+                                                                   extra=extra))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_scaled", [False, True], ids=["plain", "row_scale"])
+@pytest.mark.parametrize("shape", [(6, 18, 48, 2, 16, 96, 3), (4, 98, 64, 2, 32, 128, 2),
+                                   (2, 49, 96, 3, 32, 192, 1)],
+                         ids=["odd", "window_pair", "window"])
+def test_cuda_b2_bf16_training_with_the_bias_matches_plain(shape, rows_scaled):
+    """B2's bf16 training forward (saves) and backward with a grouped bias
+    and both row scales: every gradient, the bias's among them."""
+    needs_card()
+    B, N, C, H, D, F, G = shape
+    a = [t.cuda() for t in bf16_inputs(B, N, C, H, D, F, seed=11)]
+    extra = grouped_bias(G, H, N, seed=12).cuda()
+    r = torch.tensor([0.0] + [1 / 0.9] * (B - 1)).cuda() if rows_scaled else None
+    do = torch.from_numpy(np.random.default_rng(13).standard_normal((B, N, C))
+                          .astype(np.float32)).cuda().to(bf)
+    out, saved = fused_layer1.fused_transformer_layer_fwd(*a, H, extra, r, r)
+    grads = fused_layer1.fused_transformer_layer_bwd(saved, do)
+    again = fused_layer1.fused_transformer_layer_bwd(saved, do)
+    out_p, saved_p = fused_layer1.fused_transformer_layer_fwd_reference(*a, H, extra, r, r)
+    plain = fused_layer1.fused_transformer_layer_bwd_reference(saved_p, do)
+    within("out", out, out_p, FWD_TOL)
+    within("serving", fused_layer1.fused_transformer_layer(*a, H, extra, r, r), out_p, FWD_TOL)
+    for name, k, k2, p in zip(fused_layer1.GRAD_NAMES, grads, again, plain):
+        if p is None:
+            assert k is None, name
+            continue
+        assert torch.equal(k, k2), f"{name} differs between two runs"
+        within(name, k, p, BWD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_scaled", [False, True], ids=["plain", "row_scale"])
+def test_cuda_b1_bf16_bias_gradient_matches_plain(rows_scaled):
+    """B1's bf16 backward with a grouped bias that asks for its gradient."""
+    needs_card()
+    B, N, C, H, D, G = BIAS_SHAPES["grouped"]
+    a = [t.cuda() for t in bf16_inputs(B, N, C, H, D, 2 * C, seed=14)[:7]]
+    extra = grouped_bias(G, H, N, seed=15).cuda()
+    r = torch.tensor([0.0] + [1 / 0.9] * (B - 1)).cuda() if rows_scaled else None
+    dz = torch.from_numpy(np.random.default_rng(16).standard_normal((B, N, C))
+                          .astype(np.float32)).cuda().to(bf)
+    out, saved = fused_layer.fused_attention_layer_fwd(*a, H, row_scale=r, extra=extra)
+    grads = fused_layer.fused_attention_layer_bwd(saved, dz)
+    again = fused_layer.fused_attention_layer_bwd(saved, dz)
+    _, saved_p = fused_layer.fused_attention_layer_fwd_reference(*a, H, row_scale=r,
+                                                                 extra_g=saved.extra_g)
+    plain = fused_layer.fused_attention_layer_bwd_reference(saved_p, dz)
+    assert grads[-1] is not None and grads[-1].shape == (G, H, N, N)
+    for name, k, k2, p in zip(("dx", "dg", "db", "dwqkv", "dbqkv", "dwout", "dbout", "drs",
+                               "dextra"), grads, again, plain):
+        if p is None:
+            assert k is None, name
+            continue
+        assert torch.equal(k, k2), f"{name} differs between two runs"
+        within(name, k, p, BWD_TOL)

@@ -194,17 +194,20 @@ def test_trainer_cli_runs_vit_at_the_default_precision(tmp_path):
 
 @pytest.mark.parametrize("conf", ["swin-transformer-s.conf", "dino_deit-s-16.conf"])
 def test_other_arch_types_refuse_bf16(conf):
-    """Swin-S refuses its conf's default precision, bf16, and runs at f32;
-    DINO, ported at bf16 since, takes both."""
+    """Swin-S and DINO, ported at bf16 since, take their confs' default
+    precision, bf16, and f32; Halo-S (tests/data/halo_s_port.conf, bf16 by
+    the schema's default) still refuses bf16 and runs at f32."""
     c = load_config(os.path.join(ROOT, "configs", conf))
     assert c.precision == "bf16"
-    if c.arch.type == "dino":
-        check_supported(c)
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            check_supported(c)
+    check_supported(c)
     c.precision = "f32"
     check_supported(c)
+    halo = load_config(os.path.join(ROOT, "tests", "data", "halo_s_port.conf"))
+    assert halo.precision == "bf16"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        check_supported(halo)
+    halo.precision = "f32"
+    check_supported(halo)
 
 
 def test_fp16_maps_to_bf16():

@@ -434,11 +434,11 @@ def test_head_logits_are_f32_and_not_rounded(dino_setup, monkeypatch):
 
 
 def test_dino_bf16_checks():
-    # check_supported takes dino at bf16, refuses Swin-S there
+    # check_supported takes dino at bf16, refuses Halo-S there
     c = load_config(os.path.join(ROOT, "configs", "dino_deit-s-16.conf"))
     assert c.precision == "bf16"
     check_supported(c)
-    s = load_config(os.path.join(ROOT, "configs", "swin-transformer-s.conf"))
+    s = load_config(os.path.join(ROOT, "tests", "data", "halo_s_port.conf"))
     with pytest.raises(NotImplementedError, match="§A2"):
         check_supported(s)
     # the nets carry the compute dtype through the trunk and the head
@@ -448,16 +448,28 @@ def test_dino_bf16_checks():
 
 
 def test_b2_bf16_still_refuses_a_bias(monkeypatch):
+    """B2's bf16 form takes the bias (Swin-S's grouped bias) since; what it
+    still refuses is the bias's gradient past one key tile (128 tokens)."""
     rng = np.random.default_rng(0)
     B, N, C, H, D, F = 4, 18, 32, 2, 16, 64
     args = [torch.from_numpy(a) for a in make_args(B, N, C, H, D, F)]
     args = [t if i in (1, 2, 7, 8) else t.to(bf) for i, t in enumerate(args)]
     extra = torch.from_numpy(rng.standard_normal((1, H, N, N)).astype(np.float32))
-    with fake_cuda(monkeypatch) as lib, pytest.raises(NotImplementedError,
-                                                      match="item 2 \\(Swin-S\\)"):
+    with fake_cuda(monkeypatch) as lib:
         fused_layer1._cuda_fwd(*args, H, extra, 1, None, None, "silu", 0.25, 1e-6,
                                save=False)
-    assert not lib.calls
+        assert lib.calls["vtx_fused_transformer_layer_fwd_bf16"]["extra"] == extra.data_ptr()
+    N = 130
+    args = [torch.from_numpy(a) for a in make_args(B, N, C, H, D, F)]
+    args = [t if i in (1, 2, 7, 8) else t.to(bf) for i, t in enumerate(args)]
+    extra = torch.zeros((1, H, N, N))
+    with fake_cuda(monkeypatch) as lib:
+        out, res = fused_layer1._cuda_fwd(*args, H, extra, 1, None, None, "silu", 0.25, 1e-6,
+                                          save=True)
+        saved = fused_layer1.L1Saved(*args, extra, None, None, *res, H, "silu", 0.25, 1e-6)
+        with pytest.raises(NotImplementedError, match="128 tokens"):
+            fused_layer1._cuda_bwd(saved, torch.zeros_like(out), (False, False), True)
+        assert "vtx_fused_transformer_layer_bwd_bf16" not in lib.calls
 
 
 DINO_TINY = ["arch.depth=2", "arch.dim=64", "arch.n_head=2", "arch.dim_ff=128",

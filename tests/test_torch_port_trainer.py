@@ -23,7 +23,7 @@ from torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 CONF = os.path.join(ROOT, "configs", "vit-s-16.conf")
-SWIN_CONF = os.path.join(ROOT, "configs", "swin-transformer-s.conf")
+HALO_CONF = os.path.join(ROOT, "tests", "data", "halo_s_port.conf")
 ARCH = dict(image_size=32, window_size=8, depth=2, dim=64, n_head=2,
             dim_ff=128, n_class=10)
 TINY = ["precision=f32", "training.epoch=1", "training.dataloader.batch_size=8",
@@ -90,9 +90,9 @@ def test_epoch_checkpoint_loads_into_predict(port_run, tmp_path):
                                       "resume=auto", "data_backend=records",
                                       "training.agc=0.01", "arch.remat=true"])
 def test_unported_options_raise(override, tmp_path):
-    # ViT computes in bf16 now; the bf16 case runs a Swin conf, whose model
-    # still refuses it
-    conf, tiny = (SWIN_CONF, []) if override == "precision=bf16" else (CONF, TINY)
+    # ViT and Swin compute in bf16 now; the bf16 case runs a Halo conf, whose
+    # model still refuses it (before any model is built)
+    conf, tiny = (HALO_CONF, []) if override == "precision=bf16" else (CONF, TINY)
     with pytest.raises(NotImplementedError):
         train.main(["--conf", conf, "--device", "cpu", *tiny, override,
                     f"checker.storage=[{{type: local, path: {tmp_path}}}]"])

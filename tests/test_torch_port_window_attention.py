@@ -26,6 +26,7 @@ no [P, H, N, N] dS buffer.
 
 import contextlib
 import ctypes
+import itertools
 import re
 from pathlib import Path
 
@@ -189,14 +190,23 @@ def test_chunked_bias_gradient_matches_the_group_sum_and_repeats(chunks):
 
 
 def test_chunk_rule_mirrors_the_kernel():
-    """ops' window_chunks is the header's bwd_chunks: the fewest chunks c
-    whose rounds of blocks (one an SM, 132 SMs) times the windows a block
-    takes come within 5% of the least, at most one chunk a window."""
-    src = HEADER.read_text()
-    assert "constexpr int SMS = 132;" in src and fused_layer._SMS == 132
+    """ops' window_chunks is common.cuh's bias_chunks, the one rule of the
+    window attention's and the bf16 packed-row attention's dbias chunks:
+    the fewest chunks c whose rounds of blocks (one an SM, 132 SMs) times
+    the windows a block takes come within 5% of the least, at most one
+    chunk a window, and none left empty."""
+    csrc = HEADER.parent
+    src = (csrc / "common.cuh").read_text()
+    assert "constexpr int CHUNK_SMS = 132;" in src and fused_layer._SMS == 132
     assert "return rounds * (((R + c - 1) / c + walkers - 1) / walkers);" in src
     assert "while (20 * cost(c) > 21 * best) ++c;" in src
-    assert "return chunk_count(P / G, G * H, SMS, 1);" in src
+    assert "return chunk_count(P / G, G * H, CHUNK_SMS, 1);" in src
+    for user in (HEADER, csrc / "attention_bf16.cu"):  # no copy of the rule beside it
+        text = user.read_text()
+        assert "bias_chunks(" in text and "while (20 * cost(c)" not in text, user.name
+    for G, R, H in itertools.product((1, 2, 8, 32), range(1, 160), (1, 3, 6, 12, 24)):
+        c = fused_layer.window_chunks(G * R, G, H)
+        assert -(-R // c) * (c - 1) < R, (G, R, H)  # the last chunk holds an image
     # Swin-S stages 1 (shifted / not), 2, 3 at 64 images; Twins stage 3
     assert fused_layer.window_chunks(2048, 32, 3) == 4
     assert fused_layer.window_chunks(2048, 1, 3) == 42

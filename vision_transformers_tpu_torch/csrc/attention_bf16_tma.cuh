@@ -4,9 +4,13 @@
 //   vision_transformers_tpu/ops/fused_layer.py:116   (B1 forward)
 //   vision_transformers_tpu/ops/fused_layer.py:183   (B1 backward)
 //   vision_transformers_tpu/ops/fused_layer1.py:91   (B2 forward)
+//   vision_transformers_tpu/ops/fused_layer1.py:181  (B2 backward)
 // at ViT's calls (B = 128 images, N = 197 tokens, 6 heads 64 wide at
 // ViT-S/16) and, with an additive bias, at DINO's packed local crops (B1:
-// 256 rows of 111 tokens at 96 images, the block-diagonal −1e9 mask),
+// 256 rows of 111 tokens at 96 images, the block-diagonal −1e9 mask) and
+// Swin-S's window pairs (B2: 2048 / 512 / 128 / 64 rows of 98 / 98 / 98 /
+// 49 tokens at 64 images, heads 32 wide, the grouped relative-position
+// bias and shift mask, and its gradient),
 // reading the projection's packed rows qkv [B, N, 3·H·D] (q-heads | k-heads
 // | v-heads) and writing out [B, N, H·D] and dqkv in the layout of qkv, so
 // nothing is transposed on either side:
@@ -23,7 +27,8 @@
 // 6 heads is 296 KB: L2-resident; each row's lines prefetched into L1
 // while the tile's products run), on 128-key tiles at every N (the 208-key
 // tile's scores beside the bias's loads spilled); the backward recomputes P
-// with it.  It takes no gradient: DINO's mask is a constant.  A query whose
+// with it.  DINO's mask takes no gradient; Swin-S's bias does (DBIAS,
+// below).  A query whose
 // first key tiles are all masked sums them under a running max near
 // −1.44e9; the first tile with a real key rescales them by 2^(−1.44e9 − m)
 // = 0, as the exact softmax gives them 0.
@@ -80,7 +85,7 @@
 // memory and stored by TMA (clipped at N and D), left in flight; lse [B, H,
 // N] f32 only when asked (B1's training forward; B2's serving call not).
 //
-// Backward (bf16_attn_bwd_kernel<DQ_SMEM, HAS_BIAS>): items (b, h); a block
+// Backward (bf16_attn_bwd_kernel<DQ, HAS_BIAS, DBIAS>): items (b, h); a block
 // walks a head's 128-key tiles and, for each, its 64-query tiles.  A short
 // pass before it (bf16_attn_rows_kernel) writes, per 64-query tile, L =
 // lse·log₂e (+∞ past N) and Δ = rowsum(dO ⊙ out) from the rounded out, in
@@ -106,6 +111,24 @@
 // f32 partials [ceil(N / 128), B·N, H·D], summed in key-tile order and
 // rounded once afterwards (common.cuh splitk_reduce_kernel).  Either way no
 // float atomics: the gradients are bit-identical from run to run.
+//
+// The bias's gradient (DBIAS: Swin-S's relative-position bias and shift
+// mask, B1's and B2's bf16 backward with dextra; N ≤ 128, so one key tile):
+// dbias[g, h] = Σ over the group's images of dS, in f32 from the f32 dS
+// before dS·scale is rounded (the JAX kernel's dextra_ref[0, h] += ds,
+// fused_layer1.py:350-356).  No [B, H, N, N] dS buffer (236 MB at Swin-S
+// stage 1, three times the attention's own bytes): as in the f32 window
+// attention (window_attention_tc.cuh), an item is a (chunk of a group's
+// images, group, head), a block walks the chunk's images in order and sums
+// each element of dSᵀ into an f32 [128 queries x 128 keys] tile in shared
+// memory that its thread alone owns (columns swizzled against bank
+// conflicts), and writes the tile to the chunk's f32 partial [chunks, G, H,
+// N, N] once; the partials are then summed in chunk order
+// (splitk_reduce_kernel).  The chunk count is the window attention's rule
+// (common.cuh bias_chunks; ops/fused_layer.py window_chunks).  With
+// one key tile a query tile's dq is complete after its dS·K, so it is
+// rounded and stored at once (DQ_TO_ROWS) and the head's dq needs no
+// shared memory.  No float atomics here either.
 //
 // A dq sum across a thread-block cluster of a head's key tiles (through
 // distributed shared memory) was the alternative: its barrier needs every
@@ -135,6 +158,9 @@ constexpr int TILE128 = 128 * 128;  // a 128-row box
 constexpr int FWD_KV_STAGES = 4;
 constexpr int BWD_QD_STAGES = 3;
 constexpr int DQ_SMEM_MAX_N = 256;  // the backward sums dq in shared memory up to here
+// where the backward's dq goes: key-tile partials in device memory, the
+// head's sum in shared memory, or (one key tile) straight into dqkv
+constexpr int DQ_TO_PART = 0, DQ_IN_SMEM = 1, DQ_TO_ROWS = 2;
 constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 
 // byte offset of bf16 element (r, c < 64) of a 128-byte swizzled box:
@@ -525,19 +551,48 @@ struct BwdParams {
   float scale, scale2;
   const float* bias; // [G, H, N, N] (HAS_BIAS; the fields last, as FwdParams')
   int per_group;     // images a bias group
+  float* dbias_part;      // DBIAS: the chunks' partials [chunks, G, H, N, N]
+  int G, chunks, per_chunk;  // ... the bias's groups, chunks a group, images a chunk
 };
 
 // shared memory: K, V [2][128 rows each] | (Q, dO [64 rows each], L and Δ)
 // [stages] | dSᵀ·scale [2][128 keys x 64 queries] | barriers | the head's
-// f32 dq [N rounded up to 64][64] (DQ_SMEM)
+// f32 dq [N rounded up to 64][64] (DQ_IN_SMEM) or the f32 dbias tile
+// [128 queries][128 keys] (DBIAS)
 constexpr int BWD_QD_BYTES = 2 * TILE64 + 1024;  // the L and Δ rows (512 bytes), aligned
 constexpr int BWD_KV = 0, BWD_QD = BWD_KV + 2 * 2 * TILE128,
               BWD_DS = BWD_QD + BWD_QD_STAGES * BWD_QD_BYTES, BWD_BAR = BWD_DS + 2 * TILE128,
               BWD_DQ = BWD_BAR + 256;
 constexpr int BWD_SMEM_BASE = 1024 + BWD_DQ;
 
-__host__ __device__ constexpr int bwd_smem(int N, bool dq_smem) {
-  return BWD_SMEM_BASE + (dq_smem ? (N + TQ - 1) / TQ * TQ * 64 * 4 : 0);
+constexpr int BWD_DB_BYTES = 2 * TQ * TK * 4;
+
+__host__ __device__ constexpr int bwd_smem(int N, int dq, bool dbias) {
+  return BWD_SMEM_BASE + (dq == DQ_IN_SMEM ? (N + TQ - 1) / TQ * TQ * 64 * 4 : 0) +
+         (dbias ? BWD_DB_BYTES : 0);
+}
+
+// the dbias tile's element (query q, key k): columns swizzled by
+// ((q / 2) mod 4)·8, so a warp's accesses of an accumulator layout (eight
+// keys by four query pairs) hit every bank once
+__device__ __forceinline__ int db_index(int q, int k) {
+  return q * TK + (k ^ (((q >> 1) & 3) << 3));
+}
+
+// A work item's head and images [b0, b1): (b, h) one image, or (DBIAS) the
+// images of chunk c of group g; gh = g·H + h
+struct BwdItem {
+  int h, b0, b1, gh, c;
+};
+template <bool DBIAS>
+__device__ __forceinline__ BwdItem bwd_item(const BwdParams& p, int i) {
+  if constexpr (DBIAS) {
+    const int h = i % p.H, gc = i / p.H, g = gc % p.G, c = gc / p.G;
+    const int b0 = g * p.per_group + c * p.per_chunk;
+    return {h, b0, min(b0 + p.per_chunk, (g + 1) * p.per_group), g * p.H + h, c};
+  } else {
+    return {i % p.H, i / p.H, i / p.H + 1, 0, 0};
+  }
 }
 
 // the head's f32 dq, element (q, c): columns swizzled by (q mod 4)·8, so a
@@ -547,12 +602,26 @@ __device__ __forceinline__ int dq_index(int q, int c) { return q * 64 + (c ^ ((q
 
 // A query tile's dq (dS·K over key tile kt, complete): into the head's f32
 // dq in shared memory, written at key tile 0 and summed in key-tile order
-// after (DQ_SMEM), or as key tile kt's partial
-template <bool DQ_SMEM>
+// after (DQ_IN_SMEM), as key tile kt's partial (DQ_TO_PART), or, the one
+// key tile's, rounded once into dqkv's q columns (DQ_TO_ROWS)
+template <int DQ>
 __device__ __forceinline__ void put_dq(const BwdParams& p, float (&dq)[32], float* dq_acc, int b,
                                        int h, int kt, int qt, int r0, int cq) {
   fence_acc(dq);
-  if constexpr (DQ_SMEM) {
+  if constexpr (DQ == DQ_TO_ROWS) {
+    const long long RS = 3LL * p.H * p.D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int q = qt * TQ + r0 + 8 * r;
+      if (q >= p.N) continue;
+      bf16* row = p.dqkv + ((long long)b * p.N + q) * RS + (long long)h * p.D;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (8 * j + cq < p.D)
+          *reinterpret_cast<uint32_t*>(row + 8 * j + cq) =
+              pack_bf16(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+    }
+  } else if constexpr (DQ == DQ_IN_SMEM) {
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -579,9 +648,11 @@ __device__ __forceinline__ void put_dq(const BwdParams& p, float (&dq)[32], floa
   }
 }
 
-template <bool DQ_SMEM, bool HAS_BIAS>
+template <int DQ, bool HAS_BIAS, bool DBIAS>
 __global__ void __launch_bounds__(THREADS, 1)
     bf16_attn_bwd_kernel(const __grid_constant__ BwdParams p) {
+  // the bias's gradient: with the bias, one key tile, dq straight to dqkv
+  static_assert(!DBIAS || (HAS_BIAS && DQ == DQ_TO_ROWS), "dbias: one key tile");
   extern __shared__ char smem_raw[];
   char* smem = smem_raw + ((1024 - (saddr(smem_raw) & 1023)) & 1023);
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + BWD_BAR);
@@ -589,8 +660,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   uint64_t* qd_full = kv_empty + 2;
   uint64_t* qd_empty = qd_full + BWD_QD_STAGES;
   float* dq_acc = reinterpret_cast<float*>(smem + BWD_DQ);
+  float* db_acc = reinterpret_cast<float*>(smem + BWD_DQ);  // DBIAS (no dq in shared memory)
   const int wg = threadIdx.x >> 7;
-  const int items = p.B * p.H;
+  const int items = DBIAS ? p.chunks * p.G * p.H : p.B * p.H;
   if (threadIdx.x == 0) {
     for (int i = 0; i < 2; ++i) {
       mbar_init(kv_full + i, 1);
@@ -609,23 +681,27 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (threadIdx.x == 256) {
       int ks = 0, kph = 0, st = 0, ph = 0;
       for (int i = blockIdx.x; i < items; i += gridDim.x) {
-        const int h = i % p.H, b = i / p.H;
-        for (int kt = 0; kt < p.KT; ++kt) {
-          mbar_wait(kv_empty + ks, kph ^ 1);
-          mbar_expect_tx(kv_full + ks, 2 * TILE128);
-          char* k = smem + BWD_KV + ks * 2 * TILE128;
-          tma_load_4d(k, &p.kv, kv_full + ks, 0, p.H + h, kt * TK, b);
-          tma_load_4d(k + TILE128, &p.kv, kv_full + ks, 0, 2 * p.H + h, kt * TK, b);
-          advance<2>(ks, kph);
-          for (int qt = 0; qt < p.QT; ++qt) {
-            mbar_wait(qd_empty + st, ph ^ 1);
-            mbar_expect_tx(qd_full + st, 2 * TILE64 + 2 * TQ * 4);
-            char* qd = smem + BWD_QD + st * BWD_QD_BYTES;
-            tma_load_4d(qd, &p.q, qd_full + st, 0, h, qt * TQ, b);
-            tma_load_4d(qd + TILE64, &p.dout, qd_full + st, 0, h, qt * TQ, b);
-            bulk_load(qd + 2 * TILE64, p.rows + ((long long)i * p.QT + qt) * 2 * TQ,
-                      2 * TQ * 4, qd_full + st);
-            advance<BWD_QD_STAGES>(st, ph);
+        const BwdItem t = bwd_item<DBIAS>(p, i);
+        const int h = t.h;
+        for (int b = t.b0; b < t.b1; ++b) {
+          const long long bh = (long long)b * p.H + h;
+          for (int kt = 0; kt < p.KT; ++kt) {
+            mbar_wait(kv_empty + ks, kph ^ 1);
+            mbar_expect_tx(kv_full + ks, 2 * TILE128);
+            char* k = smem + BWD_KV + ks * 2 * TILE128;
+            tma_load_4d(k, &p.kv, kv_full + ks, 0, p.H + h, kt * TK, b);
+            tma_load_4d(k + TILE128, &p.kv, kv_full + ks, 0, 2 * p.H + h, kt * TK, b);
+            advance<2>(ks, kph);
+            for (int qt = 0; qt < p.QT; ++qt) {
+              mbar_wait(qd_empty + st, ph ^ 1);
+              mbar_expect_tx(qd_full + st, 2 * TILE64 + 2 * TQ * 4);
+              char* qd = smem + BWD_QD + st * BWD_QD_BYTES;
+              tma_load_4d(qd, &p.q, qd_full + st, 0, h, qt * TQ, b);
+              tma_load_4d(qd + TILE64, &p.dout, qd_full + st, 0, h, qt * TQ, b);
+              bulk_load(qd + 2 * TILE64, p.rows + (bh * p.QT + qt) * 2 * TQ, 2 * TQ * 4,
+                        qd_full + st);
+              advance<BWD_QD_STAGES>(st, ph);
+            }
           }
         }
       }
@@ -637,155 +713,178 @@ __global__ void __launch_bounds__(THREADS, 1)
     const long long HD = (long long)p.H * p.D, RS = 3 * HD;
     int ks = 0, kph = 0, st = 0, ph = 0, it = 0;
     for (int i = blockIdx.x; i < items; i += gridDim.x) {
-      const int h = i % p.H, b = i / p.H;
-      const float* bias = nullptr;  // the (group, head) plane of the bias
-      if constexpr (HAS_BIAS)
-        bias = p.bias + ((long long)(b / p.per_group) * p.H + h) * p.N * p.N;
-      for (int kt = 0; kt < p.KT; ++kt) {
-        mbar_wait(kv_full + ks, kph);
-        const uint32_t sk = saddr(smem + BWD_KV + ks * 2 * TILE128), sv = sk + TILE128;
-        const int key_lim = p.N - kt * TK - 64 * wg;  // the warpgroup's keys below it are real
-        float dk[32], dv[32];
-#pragma unroll
-        for (int c = 0; c < 32; ++c) dk[c] = dv[c] = 0.f;
-        for (int qt = 0; qt < p.QT; ++qt, ++it) {
-          mbar_wait(qd_full + st, ph);
-          char* qd = smem + BWD_QD + st * BWD_QD_BYTES;
-          const uint32_t sq = saddr(qd), sdo = sq + TILE64;
-          const float* Ls = reinterpret_cast<const float*>(qd + 2 * TILE64);
-          const float* Ds = Ls + TQ;
-          float s[32], dp[32];
-          wg_fence();
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            wgmma_bf16_n64<0, 0>(s, desc_k(sk + TILE64 * wg + 32 * kk), desc_k(sq + 32 * kk),
-                                 kk > 0);
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            wgmma_bf16_n64<0, 0>(dp, desc_k(sv + TILE64 * wg + 32 * kk), desc_k(sdo + 32 * kk),
-                                 kk > 0);
-          wg_commit();
-          if constexpr (HAS_BIAS) prefetch_bias(bias, p.N, qt * TQ, kt * TK + 64 * wg, 32);
-          wg_wait<0>();
-          fence_acc(s);
-          fence_acc(dp);
-          // s[4j + 2h + e]: key r0 + 8h of the warpgroup's, query 8j + cq + e:
-          // P = 2^(s·scale·log₂e (+ bias·log₂e) − L) (0 past the keys; L =
-          // +∞ past the queries), dS·scale = P ⊙ (dP − Δ)·scale
-          const float* bq[2];  // HAS_BIAS: the bias at query qt·TQ + cq, key r0 + 8h
-          int q_lim = 0;       // ... and its queries 8j + e below it are real
-          if constexpr (HAS_BIAS) {
-            q_lim = p.N - qt * TQ - cq;
-#pragma unroll
-            for (int r = 0; r < 2; ++r)
-              bq[r] = bias + (long long)(qt * TQ + cq) * p.N + kt * TK + 64 * wg + r0 + 8 * r;
-          }
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const float2 L = *reinterpret_cast<const float2*>(Ls + 8 * j + cq);
-            const float2 dl = *reinterpret_cast<const float2*>(Ds + 8 * j + cq);
-#pragma unroll
-            for (int r = 0; r < 2; ++r)
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const int c = 4 * j + 2 * r + e;
-                float x;
-                if constexpr (HAS_BIAS) {  // element (8j + e) rows below its row's pointer
-                  const float b2 = q_lim > 8 * j + e && r0 + 8 * r < key_lim
-                                       ? __ldg(bq[r] + (8 * j + e) * p.N) * LOG2E
-                                       : 0.f;
-                  x = r0 + 8 * r < key_lim ? fmaf(s[c], p.scale2, b2) - (e ? L.y : L.x)
-                                           : -INFINITY;
-                } else {
-                  x = r0 + 8 * r < key_lim ? s[c] * p.scale2 - (e ? L.y : L.x) : -INFINITY;
-                }
-                const float pv = exp2_fast(x);
-                s[c] = pv;
-                dp[c] = pv * (dp[c] - (e ? dl.y : dl.x)) * p.scale;
-              }
-          }
-          if (p.N == 1) {  // a softmax over one key is 1 and has no gradient, exactly
-#pragma unroll
-            for (int c = 0; c < 32; ++c) {
-              s[c] = r0 + 8 * ((c >> 1) & 1) < key_lim &&
-                             Ls[8 * (c >> 2) + cq + (c & 1)] != INFINITY
-                         ? 1.f
-                         : 0.f;
-              dp[c] = 0.f;
-            }
-          }
-          uint32_t pa[16], da[16];
-          a_frags(pa, s);
-          a_frags(da, dp);
-          wg_fence();
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3]};
-            wgmma_bf16_rs_n64<1>(dv, a, desc_mn(sdo + 2048 * kk), 1);
-          }
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            const uint32_t a[4] = {da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3]};
-            wgmma_bf16_rs_n64<1>(dk, a, desc_mn(sq + 2048 * kk), 1);
-          }
-          wg_commit();
-          // dSᵀ·scale, rounded as the A operand above, into dS tile it % 2:
-          // row = key (64·wg + r0 + 8h), column = query
-          char* dst = smem + BWD_DS + (it & 1) * TILE128;
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-#pragma unroll
-            for (int r = 0; r < 2; ++r)
-              *reinterpret_cast<uint32_t*>(dst + slot(64 * wg + r0 + 8 * r, 8 * j + cq)) =
-                  da[4 * (j >> 1) + 2 * (j & 1) + r];
-          fence_proxy_async();
-          consumers_sync();  // both warpgroups' dS rows are in the tile
-          wg_wait<0>();
-          fence_acc(dv);
-          fence_acc(dk);
-          if (lane == 0) mbar_arrive(qd_empty + st);  // Q, dO, L and Δ read
-          advance<BWD_QD_STAGES>(st, ph);
-          if ((it & 1) == wg) {  // this query tile's dq = dS·K, the warpgroups in turn
-            float dq[32];
-            const uint32_t sds = saddr(dst);
+      const BwdItem t = bwd_item<DBIAS>(p, i);
+      const int h = t.h;
+      for (int b = t.b0; b < t.b1; ++b) {
+        const float* bias = nullptr;  // the (group, head) plane of the bias
+        if constexpr (HAS_BIAS)
+          bias = p.bias + ((long long)(b / p.per_group) * p.H + h) * p.N * p.N;
+        for (int kt = 0; kt < p.KT; ++kt) {
+          mbar_wait(kv_full + ks, kph);
+          const uint32_t sk = saddr(smem + BWD_KV + ks * 2 * TILE128), sv = sk + TILE128;
+          const int key_lim = p.N - kt * TK - 64 * wg;  // the warpgroup's keys below it are real
+          float dk[32], dv[32];
+  #pragma unroll
+          for (int c = 0; c < 32; ++c) dk[c] = dv[c] = 0.f;
+          for (int qt = 0; qt < p.QT; ++qt, ++it) {
+            mbar_wait(qd_full + st, ph);
+            char* qd = smem + BWD_QD + st * BWD_QD_BYTES;
+            const uint32_t sq = saddr(qd), sdo = sq + TILE64;
+            const float* Ls = reinterpret_cast<const float*>(qd + 2 * TILE64);
+            const float* Ds = Ls + TQ;
+            float s[32], dp[32];
             wg_fence();
-#pragma unroll
-            for (int kk = 0; kk < 8; ++kk)
-              wgmma_bf16_n64<1, 1>(dq, desc_mn(sds + 2048 * kk), desc_mn(sk + 2048 * kk),
+  #pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_bf16_n64<0, 0>(s, desc_k(sk + TILE64 * wg + 32 * kk), desc_k(sq + 32 * kk),
+                                   kk > 0);
+  #pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_bf16_n64<0, 0>(dp, desc_k(sv + TILE64 * wg + 32 * kk), desc_k(sdo + 32 * kk),
                                    kk > 0);
             wg_commit();
+            if constexpr (HAS_BIAS) prefetch_bias(bias, p.N, qt * TQ, kt * TK + 64 * wg, 32);
             wg_wait<0>();
-            put_dq<DQ_SMEM>(p, dq, dq_acc, b, h, kt, qt, r0, cq);
+            fence_acc(s);
+            fence_acc(dp);
+            // s[4j + 2h + e]: key r0 + 8h of the warpgroup's, query 8j + cq + e:
+            // P = 2^(s·scale·log₂e (+ bias·log₂e) − L) (0 past the keys; L =
+            // +∞ past the queries), dS·scale = P ⊙ (dP − Δ)·scale
+            const float* bq[2];  // HAS_BIAS: the bias at query qt·TQ + cq, key r0 + 8h
+            int q_lim = 0;       // ... and its queries 8j + e below it are real
+            if constexpr (HAS_BIAS) {
+              q_lim = p.N - qt * TQ - cq;
+  #pragma unroll
+              for (int r = 0; r < 2; ++r)
+                bq[r] = bias + (long long)(qt * TQ + cq) * p.N + kt * TK + 64 * wg + r0 + 8 * r;
+            }
+  #pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const float2 L = *reinterpret_cast<const float2*>(Ls + 8 * j + cq);
+              const float2 dl = *reinterpret_cast<const float2*>(Ds + 8 * j + cq);
+  #pragma unroll
+              for (int r = 0; r < 2; ++r)
+  #pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  const int c = 4 * j + 2 * r + e;
+                  float x;
+                  if constexpr (HAS_BIAS) {  // element (8j + e) rows below its row's pointer
+                    const float b2 = q_lim > 8 * j + e && r0 + 8 * r < key_lim
+                                         ? __ldg(bq[r] + (8 * j + e) * p.N) * LOG2E
+                                         : 0.f;
+                    x = r0 + 8 * r < key_lim ? fmaf(s[c], p.scale2, b2) - (e ? L.y : L.x)
+                                             : -INFINITY;
+                  } else {
+                    x = r0 + 8 * r < key_lim ? s[c] * p.scale2 - (e ? L.y : L.x) : -INFINITY;
+                  }
+                  const float pv = exp2_fast(x);
+                  s[c] = pv;
+                  // DBIAS keeps dS itself until its sum below
+                  const float ds = pv * (dp[c] - (e ? dl.y : dl.x));
+                  dp[c] = DBIAS ? ds : ds * p.scale;
+                }
+            }
+            if (p.N == 1) {  // a softmax over one key is 1 and has no gradient, exactly
+  #pragma unroll
+              for (int c = 0; c < 32; ++c) {
+                s[c] = r0 + 8 * ((c >> 1) & 1) < key_lim &&
+                               Ls[8 * (c >> 2) + cq + (c & 1)] != INFINITY
+                           ? 1.f
+                           : 0.f;
+                dp[c] = 0.f;
+              }
+            }
+            if constexpr (DBIAS) {  // dS (f32) into the thread's own elements of the tile
+              const bool first = b == t.b0;
+  #pragma unroll
+              for (int c = 0; c < 32; ++c) {
+                float* a = db_acc + db_index(qt * TQ + 8 * (c >> 2) + cq + (c & 1),
+                                             64 * wg + r0 + 8 * ((c >> 1) & 1));
+                *a = first ? dp[c] : *a + dp[c];
+                dp[c] *= p.scale;
+              }
+            }
+            uint32_t pa[16], da[16];
+            a_frags(pa, s);
+            a_frags(da, dp);
+            wg_fence();
+  #pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3]};
+              wgmma_bf16_rs_n64<1>(dv, a, desc_mn(sdo + 2048 * kk), 1);
+            }
+  #pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const uint32_t a[4] = {da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3]};
+              wgmma_bf16_rs_n64<1>(dk, a, desc_mn(sq + 2048 * kk), 1);
+            }
+            wg_commit();
+            // dSᵀ·scale, rounded as the A operand above, into dS tile it % 2:
+            // row = key (64·wg + r0 + 8h), column = query
+            char* dst = smem + BWD_DS + (it & 1) * TILE128;
+  #pragma unroll
+            for (int j = 0; j < 8; ++j)
+  #pragma unroll
+              for (int r = 0; r < 2; ++r)
+                *reinterpret_cast<uint32_t*>(dst + slot(64 * wg + r0 + 8 * r, 8 * j + cq)) =
+                    da[4 * (j >> 1) + 2 * (j & 1) + r];
+            fence_proxy_async();
+            consumers_sync();  // both warpgroups' dS rows are in the tile
+            wg_wait<0>();
+            fence_acc(dv);
+            fence_acc(dk);
+            if (lane == 0) mbar_arrive(qd_empty + st);  // Q, dO, L and Δ read
+            advance<BWD_QD_STAGES>(st, ph);
+            if ((it & 1) == wg) {  // this query tile's dq = dS·K, the warpgroups in turn
+              float dq[32];
+              const uint32_t sds = saddr(dst);
+              wg_fence();
+  #pragma unroll
+              for (int kk = 0; kk < 8; ++kk)
+                wgmma_bf16_n64<1, 1>(dq, desc_mn(sds + 2048 * kk), desc_mn(sk + 2048 * kk),
+                                     kk > 0);
+              wg_commit();
+              wg_wait<0>();
+              put_dq<DQ>(p, dq, dq_acc, b, h, kt, qt, r0, cq);
+            }
+          }
+          if (lane == 0) mbar_arrive(kv_empty + ks);  // K (this warpgroup's dq too) and V read
+          advance<2>(ks, kph);
+          // dK, dV rounded once into dqkv's k and v columns
+  #pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int key = kt * TK + 64 * wg + r0 + 8 * r;
+            if (key >= p.N) continue;
+            bf16* kr = p.dqkv + ((long long)b * p.N + key) * RS + HD + (long long)h * p.D;
+  #pragma unroll
+            for (int j = 0; j < 8; ++j)
+              if (8 * j + cq < p.D) {
+                *reinterpret_cast<uint32_t*>(kr + 8 * j + cq) =
+                    pack_bf16(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
+                *reinterpret_cast<uint32_t*>(kr + HD + 8 * j + cq) =
+                    pack_bf16(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+              }
           }
         }
-        if (lane == 0) mbar_arrive(kv_empty + ks);  // K (this warpgroup's dq too) and V read
-        advance<2>(ks, kph);
-        // dK, dV rounded once into dqkv's k and v columns
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int key = kt * TK + 64 * wg + r0 + 8 * r;
-          if (key >= p.N) continue;
-          bf16* kr = p.dqkv + ((long long)b * p.N + key) * RS + HD + (long long)h * p.D;
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            if (8 * j + cq < p.D) {
-              *reinterpret_cast<uint32_t*>(kr + 8 * j + cq) =
-                  pack_bf16(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
-              *reinterpret_cast<uint32_t*>(kr + HD + 8 * j + cq) =
-                  pack_bf16(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
-            }
+        if constexpr (DQ == DQ_IN_SMEM) {  // the head's dq rounded once into dqkv's q columns
+          consumers_sync();       // every key tile's dq is in
+          for (int e = threadIdx.x; e < p.N * 16; e += 256) {  // threads 0..255
+            const int q = e >> 4, c = (e & 15) * 4;
+            if (c >= p.D) continue;
+            const float4 v = *reinterpret_cast<const float4*>(dq_acc + dq_index(q, c));
+            *reinterpret_cast<uint2*>(p.dqkv + ((long long)b * p.N + q) * RS + (long long)h * p.D +
+                                      c) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+          }
         }
       }
-      if constexpr (DQ_SMEM) {  // the head's dq rounded once into dqkv's q columns
-        consumers_sync();       // every key tile's dq is in
-        const int t = threadIdx.x;  // 0..255
-        for (int e = t; e < p.N * 16; e += 256) {
-          const int q = e >> 4, c = (e & 15) * 4;
-          if (c >= p.D) continue;
-          const float4 v = *reinterpret_cast<const float4*>(dq_acc + dq_index(q, c));
-          *reinterpret_cast<uint2*>(p.dqkv + ((long long)b * p.N + q) * RS + (long long)h * p.D +
-                                    c) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+      if constexpr (DBIAS) {  // the chunk's sum of dS into its partial [q][k]
+        consumers_sync();     // every thread's elements are in
+        float* part = p.dbias_part + ((long long)t.c * p.G * p.H + t.gh) * p.N * p.N;
+        for (int e = threadIdx.x; e < p.N * p.N; e += 256) {
+          const int q = e / p.N;
+          part[e] = db_acc[db_index(q, e - q * p.N)];
         }
+        consumers_sync();  // read before the next item's first image writes the tile
       }
     }
   }

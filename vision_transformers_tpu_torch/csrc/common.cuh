@@ -259,6 +259,36 @@ constexpr int EXTRA_DMAX = 32;
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
+// chunks c of each group's R windows or images over G·H (group, head) rows
+// of blocks, ``slots`` blocks the card runs at once and ``walkers`` groups
+// of warps in a block sharing its chunk: the fewest whose rounds of blocks
+// times the windows a walker takes, ⌈G·H·c / slots⌉·⌈⌈R / c⌉ / walkers⌉,
+// come within 5% of the least over c ≤ R (wave quantisation: at Swin-S
+// stage 1 three chunks leave the third round of blocks 18% full).  No chunk
+// is left empty: where c - 1 chunks of ⌈R / c⌉ cover R, c - 1 costs no more
+inline int chunk_count(int R, int GH, int slots, int walkers) {
+  auto cost = [&](int c) {
+    const long long rounds = ((long long)GH * c + slots - 1) / slots;
+    return rounds * (((R + c - 1) / c + walkers - 1) / walkers);
+  };
+  long long best = cost(1);
+  for (int c = 2; c <= R; ++c) best = cost(c) < best ? cost(c) : best;
+  int c = 1;
+  while (20 * cost(c) > 21 * best) ++c;
+  return c;
+}
+
+// The H100 SXM's SMs, the slots of the bias gradient's chunk rule
+constexpr int CHUNK_SMS = 132;
+
+// The chunks of each bias group's P / G images or windows in a backward's
+// dbias sum, one block an SM: the f32 window attention's
+// (window_attention_tc.cuh) and the bf16 packed-row attention's
+// (attention_bf16.cu).  ops/fused_layer.py window_chunks mirrors it to size
+// the partials [chunks, G, H, N, N] before the launch, so the count is the
+// constant's, not the card's
+inline int bias_chunks(int P, int G, int H) { return chunk_count(P / G, G * H, CHUNK_SMS, 1); }
+
 // The GEMM core's output tiles along N (128 columns, or 64 where that pads
 // N less) and along M (128 rows).  A transform the producer stages is
 // redone for every tile its operand's tile meets, so the backward stages
@@ -655,6 +685,26 @@ act_kernel(const float* h, float* out, long long total) {
   out[i] = act_fwd<ACT>(h[i]);
 }
 
+// The bf16 FF passes (B2's bf16 training forward and backward): af =
+// round(act(hid)), the JAX kernels' _act_fwd(hid).astype(bf16) ...
+template <int ACT>
+__global__ void __launch_bounds__(EW_THREADS)
+act_bf16_kernel(const bf16* __restrict__ h, bf16* __restrict__ out, long long total) {
+  const long long i = (long long)blockIdx.x * EW_THREADS + threadIdx.x;
+  if (i >= total) return;
+  out[i] = __float2bfloat16_rn(act_fwd<ACT>(__bfloat162float(h[i])));
+}
+
+// ... and dh = round(da ⊙ act'(hid)), (da·_act_bwd(hid)).astype(bf16), in
+// place on da allowed
+template <int ACT>
+__global__ void __launch_bounds__(EW_THREADS)
+act_grad_bf16_kernel(const bf16* da, const bf16* __restrict__ h, bf16* dh, long long total) {
+  const long long i = (long long)blockIdx.x * EW_THREADS + threadIdx.x;
+  if (i >= total) return;
+  dh[i] = __float2bfloat16_rn(__bfloat162float(da[i]) * act_grad<ACT>(__bfloat162float(h[i])));
+}
+
 }  // namespace
 
 // Host-side launch sequences shared between the sources; rows_per_scale is
@@ -779,21 +829,43 @@ cudaError_t packed_attention_bwd(const float* qkv, const float* extra, int group
 // The bf16 form of the packed-row attention (attention_bf16_tma.cuh,
 // compiled into attention_bf16.cu: wgmma fed by TMA), D a multiple of 8 up
 // to 64, any N, the additive bias [G, H, N, N] f32 or null (groups = G, row
-// b in group b / (B / G); no gradient of it): the forward writes out [B, N,
-// H·D] bf16 and lse [B, H, N] f32 when non-null; the backward writes dqkv
-// bf16, dq summed over the key tiles in shared memory (N ≤ 256) or through
-// f32 key-tile partials summed in order, rounded once either way; ws is its
-// workspace of packed_attention_bwd_bf16_floats floats (never null)
+// b in group b / (B / G)): the forward writes out [B, N, H·D] bf16 and lse
+// [B, H, N] f32 when non-null; the backward writes dqkv bf16, dq summed
+// over the key tiles in shared memory (N ≤ 256) or through f32 key-tile
+// partials summed in order, rounded once either way, and with dbias [G, H,
+// N, N] non-null (the bias given, N ≤ 128) the bias's gradient, dS summed
+// over each group's images in f32 per chunk of them, then over the chunks
+// in order; ws is its workspace of packed_attention_bwd_bf16_floats floats
+// (never null)
 cudaError_t packed_attention_fwd_bf16(const bf16* qkv, const float* bias, int groups,
                                       bf16* out, float* lse, int B, int N, int H, int D,
                                       float scale, cudaStream_t s);
 
 cudaError_t packed_attention_bwd_bf16(const bf16* qkv, const float* bias, int groups,
                                       const bf16* out, const float* lse, const bf16* dout,
-                                      float* ws, bf16* dqkv, int B, int N, int H, int D,
-                                      float scale, cudaStream_t s);
+                                      float* ws, bf16* dqkv, float* dbias, int B, int N, int H,
+                                      int D, float scale, cudaStream_t s);
 
-long long packed_attention_bwd_bf16_floats(int B, int N, int H, int D);
+long long packed_attention_bwd_bf16_floats(int B, int N, int H, int D, int G, int dbias);
+
+// Backward of the attention residual branch at bf16 (fused_layer_bwd.cu),
+// shared by the attention layer's bf16 backward and the whole layer's
+// (fused_layer1_bwd.cu): the six steps of fused_layer_bwd.cu on the bf16
+// forms, dz bf16, the bias's gradient dextra (null: none) on the packed-row
+// core's bf16 backward; the workspaces as vtx_fused_attention_layer_bwd_bf16
+// takes them
+cudaError_t attention_half_bwd_bf16(
+    const bf16* x, const float* ln_g, const float* ln_b,
+    const bf16* wqkv, long long wqkv_s0, long long wqkv_s1, const bf16* bqkv,
+    const bf16* wout, long long wout_s0, long long wout_s1, const bf16* bout,
+    const float* extra, int groups, const float* rs, const bf16* qkv, const bf16* acc,
+    const float* mu, const float* rstd, const float* lse, const bf16* dz,
+    bf16* dacc, float* dq_part, bf16* dqkv, float* dln, float* wpart, int splits_out,
+    int splits_qkv, float* cpart, bf16* dx, float* dg, float* db,
+    float* dwqkv, long long dwqkv_s0, long long dwqkv_s1, float* dbqkv,
+    float* dwout, long long dwout_s0, long long dwout_s1, float* dbout,
+    float* drs, float* dextra, int B, int N, int C, int H, int D, float scale,
+    cudaStream_t s);
 
 // B9's attention over sample-major window pairs (fused_swin.cu): qkv
 // [P·N, 3·H·D] of P = B·G pairs, pair p taking the bias extra[p mod
@@ -805,7 +877,7 @@ cudaError_t window_attention_fwd(const float* qkv, const float* extra, int group
                                  float scale, cudaStream_t s);
 
 // ... and the backward writes dqkv and, when dextra is non-null, the
-// per-block dS sums into dbpart [wta::bwd_chunks(P, groups, H), groups, H,
+// per-block dS sums into dbpart [bias_chunks(P, groups, H), groups, H,
 // N, N] and dextra[g] = their sum in chunk order, the windows of a chunk in
 // sample order (fused_layer_bwd.cu); both on the tensor-core window
 // attention (window_attention_tc.cuh), N ≤ 128

@@ -56,7 +56,8 @@
 // bf16 (vtx_fused_attention_layer_fwd_bf16, vtx_fused_transformer_layer_
 // fwd_bf16: the JAX package's default precision — ViT-S/16's training
 // forward and its eval's whole layer, bias-free; DINO's student, B1 with
-// the block mask as the bias on its packed local crops).  The same sequences on the
+// the block mask as the bias on its packed local crops; Swin-S's whole
+// layer with the grouped bias, training and eval).  The same sequences on the
 // bf16 forms of the passes and cores: x, the weights and biases, u, qkv,
 // acc, z, hid and out bf16; the LN parameters, statistics, row scales and
 // lse f32.  Each step rounds where the JAX kernels round (fused_layer.py:
@@ -68,8 +69,12 @@
 // max, as the JAX kernel adds it; at bf16 every bias call takes this core:
 // the window attention has no bf16 form);
 // LN₂(z) by the LN pass; hid = round(silu(round(round(acc) + b₁))) in FF1's
-// epilogue, and FF2's as the out projection's.  The bf16 whole layer runs
-// the serving call only (no saves, silu).
+// epilogue when serving, and FF2's as the out projection's.  The bf16 whole
+// layer's training forward (Swin-S at bf16, with the grouped bias and both
+// row scales) keeps hid = round(round(acc) + b₁), the pre-activation, and
+// af = round(silu(hid)) comes from a pass (the JAX kernel's _act_fwd(hid)
+// .astype(bf16), fused_layer1.py:148); it saves qkv, acc, z, hid, the
+// LN₁ / LN₂ statistics and lse as its f32 form does.
 //
 // What later work changes: fusing each op's launch sequence into fewer
 // launches so intermediates stay on chip.
@@ -245,6 +250,27 @@ cudaError_t vtx::window_attention_fwd(const float* qkv, const float* extra, int 
   return wta::attention_fwd(qkv, extra, groups, true, out, lse, P, N, H, D, scale, s);
 }
 
+// The bf16 FF half in training (B2's bf16 training forward): LN₂(z) rounded
+// into out (written last) with its statistics saved; FF1 writes hid, the
+// pre-activation round(round(acc) + b₁); af = round(silu(hid)) by a pass
+// (the bf16 GEMM core's TMA producer stages no transform); FF2 with the
+// residual
+cudaError_t ff_half_train_bf16(const bf16* z, const float* ln2_g, const float* ln2_b,
+                               const bf16* w1, long long w1_s0, long long w1_s1, const bf16* b1,
+                               const bf16* w2, long long w2_s0, long long w2_s1, const bf16* b2,
+                               const float* rs_ff, int rows_per_scale, bf16* hid, bf16* af,
+                               float* mu2, float* rstd2, bf16* out, int M, int C, int F,
+                               float eps, cudaStream_t s) {
+  VTX_CHECK(launch_ln(z, ln2_g, ln2_b, out, mu2, rstd2, M, C, eps, s));
+  VTX_CHECK(launch_gemm_bf16(out, w1, w1_s0, w1_s1, b1, nullptr, 1, nullptr, hid, 0, M, F, C,
+                             0, s));
+  const long long MF = (long long)M * F;
+  act_bf16_kernel<ACT_SILU><<<ew_blocks(MF), EW_THREADS, 0, s>>>(hid, af, MF);
+  VTX_CHECK(cudaGetLastError());
+  return launch_gemm_bf16(af, w2, w2_s0, w2_s1, b2, rs_ff, rows_per_scale, z, out, 0, M, C, F,
+                          0, s);
+}
+
 // The C entry points return the first cudaError_t met (0 = success).
 // extra [G, H, N, N] (groups = G; heads up to 64 wide, window_on_bias), rs, mu,
 // rstd and lse may be null: the serving forward passes none of the last four.
@@ -326,9 +352,11 @@ extern "C" int vtx_fused_ff_layer_fwd(
 
 // The bf16 forms (the JAX package's default precision): the same parameter
 // lists, the activations, weights and biases bf16 (the LN parameters, rs,
-// mu, rstd and lse f32).  B1 takes the bias extra [G, H, N, N] f32 (groups
-// = G, dividing B) or null, and the training saves as its f32 form does;
-// the whole layer serves only, bias-free (extra, af and the saves null).
+// mu, rstd and lse f32).  Each takes the bias extra [G, H, N, N] f32
+// (groups = G, dividing B) or null, and the training saves as its f32 form
+// does: B1 mu, rstd, lse; the whole layer, with af [M, F] bf16 non-null
+// (the workspace of round(silu(hid))), all five statistics, hid keeping the
+// pre-activation; serving passes none of them.
 extern "C" int vtx_fused_attention_layer_fwd_bf16(
     const bf16* x, const float* ln_g, const float* ln_b,
     const bf16* wqkv, long long wqkv_s0, long long wqkv_s1, const bf16* bqkv,
@@ -355,12 +383,18 @@ extern "C" int vtx_fused_transformer_layer_fwd_bf16(
     float* mu1, float* rstd1, float* lse, float* mu2, float* rstd2, bf16* out,
     int B, int N, int C, int H, int D, int F, float scale, float eps,
     void* stream) {
-  if (extra || groups != 1 || af || mu1 || rstd1 || lse || mu2 || rstd2)
+  const bool save = af != nullptr;
+  if ((extra && (groups < 1 || B % groups)) ||
+      (save ? !(mu1 && rstd1 && lse && mu2 && rstd2) : (mu1 || rstd1 || lse || mu2 || rstd2)))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   VTX_CHECK(attention_half_bf16(x, ln1_g, ln1_b, wqkv, wqkv_s0, wqkv_s1, bqkv, wout, wout_s0,
-                                wout_s1, bout, nullptr, 1, rs_attn, u, qkv, acc, nullptr,
-                                nullptr, nullptr, z, B, N, C, H, D, scale, eps, s));
+                                wout_s1, bout, extra, groups, rs_attn, u, qkv, acc, mu1, rstd1,
+                                lse, z, B, N, C, H, D, scale, eps, s));
+  if (save)
+    return static_cast<int>(ff_half_train_bf16(z, ln2_g, ln2_b, w1, w1_s0, w1_s1, b1, w2, w2_s0,
+                                               w2_s1, b2, rs_ff, N, hid, af, mu2, rstd2, out,
+                                               B * N, C, F, eps, s));
   return static_cast<int>(ff_half_fwd_bf16(z, ln2_g, ln2_b, w1, w1_s0, w1_s1, b1, w2, w2_s0,
                                            w2_s1, b2, rs_ff, N, hid, out, B * N, C, F, eps, s));
 }

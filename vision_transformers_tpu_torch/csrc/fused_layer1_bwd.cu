@@ -61,9 +61,27 @@
 // the attention's registers: its per-group sum leaves a block as one
 // partial [G, H, N, N] per chunk of windows (≈ 11 MB at that shape).
 //
+// bf16 (vtx_fused_transformer_layer_bwd_bf16: Swin-S's training at the JAX
+// package's default precision, with the grouped bias and its gradient and
+// both row scales) runs the same steps on the bf16 forms, rounding where
+// the JAX kernel (fused_layer1.py:221-276) rounds; the GEMM core's bf16
+// TMA producer stages no transform, so each staged operand is a pass:
+//   1. af = round(silu(hid)); dout' = round(do·round(r₂)) (into dz's
+//      memory, free until step 5); dW₂ = afᵀ·dout', db₂ = Σ dout' in f32
+//   2. da₀ = do·W₂ᵀ in f32 (into dq_part, free until the attention half);
+//      dr₂ = Σ_rows of b (da₀ ⊙ af + do ⊙ b₂); da = round(r₂·da₀) (without
+//      r₂ the GEMM's epilogue rounds do·W₂ᵀ) into dh's memory
+//   3. dh = round(da ⊙ silu'(hid)) in place; db₁ = Σ dh in f32
+//   4. u₂ = round(LN₂(z)) into dz's memory; dW₁ = u₂ᵀ·dh
+//   5. dln₂ = dh·W₁ᵀ in f32; dz = round(do + round(LN₂ᵀ(dln₂))); dg₂, db₂ⁿ
+//   then the attention half's bf16 steps (fused_layer_bwd.cu,
+//   vtx::attention_half_bwd_bf16), the bias's gradient from the packed-row
+//   core's bf16 backward (dS summed in f32 per chunk of each group's
+//   windows on chip, then over the chunks in order: no [B, H, N, N] dS).
+//
 // What later work changes: the LN backward and its column sums into the dln
-// GEMM's epilogue, bf16 operands, and the same launch fusion as the
-// attention layer's backward.
+// GEMM's epilogue, and the same launch fusion as the attention layer's
+// backward.
 
 #include "common.cuh"
 
@@ -204,13 +222,73 @@ cudaError_t vtx::ff_half_bwd(
   return cudaSuccess;
 }
 
+// The FF half's bf16 backward, steps 1-5 above (rows_per_scale rows per
+// sample).  Workspace: af, dh [M, F] bf16, dz [M, C] bf16 (also the
+// output), dln [M, C] f32, da0 [M, F] f32 (used only with rs_ff), wpart,
+// cpart.
+static cudaError_t ff_half_bwd_bf16(
+    const bf16* z, const float* ln2_g, const float* ln2_b,
+    const bf16* w1, long long w1_s0, long long w1_s1,
+    const bf16* w2, long long w2_s0, long long w2_s1, const bf16* b2,
+    const float* rs_ff, int rows_per_scale, const bf16* hid, const float* mu2,
+    const float* rstd2, const bf16* dout, bf16* af, bf16* dh, float* da0, float* dln,
+    float* wpart, int splits_w1, int splits_w2, float* cpart, bf16* dz, float* dg2, float* db2,
+    float* dw1, long long dw1_s0, long long dw1_s1, float* db1f,
+    float* dw2, long long dw2_s0, long long dw2_s1, float* db2f, float* drs_ff,
+    int B, int M, int C, int F, cudaStream_t s) {
+  if (B > 65535 || (rs_ff && !da0)) return cudaErrorInvalidValue;
+  const long long MC = (long long)M * C, MF = (long long)M * F;
+  // 1. af; dout' = round(do·round(r₂)); dW₂ = afᵀ·dout'; db₂
+  act_bf16_kernel<ACT_SILU><<<ew_blocks(MF), EW_THREADS, 0, s>>>(hid, af, MF);
+  VTX_CHECK(cudaGetLastError());
+  const bf16* dff = dout;
+  if (rs_ff) {
+    scale_rows_kernel<<<ew_blocks(MC), EW_THREADS, 0, s>>>(dout, rs_ff, rows_per_scale, C, MC,
+                                                           dz);
+    VTX_CHECK(cudaGetLastError());
+    dff = dz;
+  }
+  VTX_CHECK(launch_gemm_splitk_bf16(af, F, dff, C, 1, wpart, splits_w2, dw2, dw2_s0, dw2_s1, F,
+                                    C, M, s));
+  if (db2f) VTX_CHECK(launch_colsum(dff, nullptr, nullptr, nullptr, cpart, db2f, M, C, s));
+  // 2. da (and dr₂) into dh's memory
+  if (rs_ff) {
+    VTX_CHECK(launch_gemm_bf16(dout, w2, w2_s1, w2_s0, nullptr, nullptr, 1, nullptr, da0, 1, M,
+                               F, C, 0, s));
+    row_scale_grad_kernel<bf16><<<B, DRS_THREADS, 0, s>>>(da0, dh, af, dout, b2, rs_ff,
+                                                          drs_ff, rows_per_scale, F, C);
+    VTX_CHECK(cudaGetLastError());
+  } else {
+    VTX_CHECK(launch_gemm_bf16(dout, w2, w2_s1, w2_s0, nullptr, nullptr, 1, nullptr, dh, 0, M,
+                               F, C, 0, s));
+  }
+  // 3. dh = round(da ⊙ silu'(hid)) in place; db₁
+  act_grad_bf16_kernel<ACT_SILU><<<ew_blocks(MF), EW_THREADS, 0, s>>>(dh, hid, dh, MF);
+  VTX_CHECK(cudaGetLastError());
+  if (db1f) VTX_CHECK(launch_colsum(dh, nullptr, nullptr, nullptr, cpart, db1f, M, F, s));
+  // 4. u₂ = round(LN₂(z)) into dz's memory; dW₁ = u₂ᵀ·dh
+  ln_apply_kernel<false, bf16><<<ew_blocks(MC), EW_THREADS, 0, s>>>(
+      z, mu2, rstd2, ln2_g, ln2_b, dz, C, MC, MapRows{nullptr, 1});
+  VTX_CHECK(cudaGetLastError());
+  VTX_CHECK(launch_gemm_splitk_bf16(dz, C, dh, F, 1, wpart, splits_w1, dw1, dw1_s0, dw1_s1, C,
+                                    F, M, s));
+  // 5. dln₂ = dh·W₁ᵀ (f32); dz = round(do + round(LN₂ᵀ(dln₂))); dg₂, db₂ⁿ
+  VTX_CHECK(launch_gemm_bf16(dh, w1, w1_s1, w1_s0, nullptr, nullptr, 1, nullptr, dln, 1, M, C,
+                             F, 0, s));
+  ln_bwd_rows_kernel<false, bf16><<<cdiv(M, LN_THREADS / 32), LN_THREADS, 0, s>>>(
+      dln, z, mu2, rstd2, ln2_g, dout, dz, M, C, MapRows{nullptr, 1});
+  VTX_CHECK(cudaGetLastError());
+  VTX_CHECK((launch_colsum<float, bf16>(dln, z, mu2, rstd2, cpart, dg2, M, C, s)));
+  return launch_colsum(dln, nullptr, nullptr, nullptr, cpart, db2, M, C, s);
+}
+
 // Returns the first cudaError_t met (0 = success).  Workspace, all
 // allocated by the caller (M = B·N): af [M, F] (the row partials of the dr₂
 // pass, used only with rs_ff and drs_ff), dh [M, F], dz [M, C], dacc
 // [M, HD], dq_part [ceil(N / 64)·M·HD] (the packed-row attention's dq
 // partials, used only without extra and where N > 64, else null), dqkv
 // [M, 3HD], dln [M, C], dbpart
-// [wta::bwd_chunks(B, G, H)·G·H·N·N] (used only with extra and dextra;
+// [bias_chunks(B, G, H)·G·H·N·N] (used only with extra and dextra;
 // ops/fused_layer.py window_chunks), wpart [max over the four weight
 // gradients of splits·rows·cols], cpart [ceil(M / 128) · max(C, 3HD, F)].  The weight
 // gradients are written through their (row, col) strides, so they may share
@@ -247,6 +325,50 @@ extern "C" int vtx_fused_transformer_layer_bwd(
       dwqkv_s1, dbqkv, dwout, dwout_s0, dwout_s1, dbout, dg2, db2, dw1, dw1_s0,
       dw1_s1, db1f, dw2, dw2_s0, dw2_s1, db2f, dextra, drs_attn, drs_ff, B, N,
       C, H, D, F, scale, static_cast<cudaStream_t>(stream)));
+}
+
+// The bf16 form: the same parameter list; x, the weights and biases, qkv,
+// acc, z, hid, dout, dx and the workspaces af, dh [M, F], dz [M, C], dacc
+// [M, HD] and dqkv [M, 3HD] bf16; dq_part f32 and never null: first da₀
+// [M, F] (with rs_ff), then the bf16 attention's workspace (with the dbias
+// chunks' sums when dextra is asked for) or dacc₀ [M, HD] (with rs_attn),
+// so the largest of the three; dln [M, C] f32; every gradient of a weight,
+// a bias or a LayerNorm f32; extra [G, H, N, N] f32 or null, dextra [G, H,
+// N, N] f32 or null (N ≤ 128); dbpart null.
+extern "C" int vtx_fused_transformer_layer_bwd_bf16(
+    const bf16* x, const float* ln1_g, const float* ln1_b,
+    const bf16* wqkv, long long wqkv_s0, long long wqkv_s1, const bf16* bqkv,
+    const bf16* wout, long long wout_s0, long long wout_s1, const bf16* bout,
+    const float* ln2_g, const float* ln2_b,
+    const bf16* w1, long long w1_s0, long long w1_s1, const bf16* b1,
+    const bf16* w2, long long w2_s0, long long w2_s1, const bf16* b2,
+    const float* extra, int groups, const float* rs_attn, const float* rs_ff,
+    const bf16* qkv, const bf16* acc, const bf16* z, const bf16* hid,
+    const float* mu1, const float* rstd1, const float* lse, const float* mu2,
+    const float* rstd2, const bf16* dout,
+    bf16* af, bf16* dh, bf16* dz, bf16* dacc, float* dq_part,
+    bf16* dqkv, float* dln, float* dbpart, float* wpart,
+    int splits_out, int splits_qkv, int splits_w1, int splits_w2, float* cpart,
+    bf16* dx, float* dg1, float* db1, float* dwqkv, long long dwqkv_s0,
+    long long dwqkv_s1, float* dbqkv, float* dwout, long long dwout_s0,
+    long long dwout_s1, float* dbout, float* dg2, float* db2,
+    float* dw1, long long dw1_s0, long long dw1_s1, float* db1f,
+    float* dw2, long long dw2_s0, long long dw2_s1, float* db2f,
+    float* dextra, float* drs_attn, float* drs_ff,
+    int B, int N, int C, int H, int D, int F, float scale, void* stream) {
+  (void)b1;  // its gradient is the column sum of dh
+  if (dbpart || !dq_part || B < 1 || N < 1 || (long long)B * N > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  VTX_CHECK(ff_half_bwd_bf16(z, ln2_g, ln2_b, w1, w1_s0, w1_s1, w2, w2_s0, w2_s1, b2, rs_ff, N,
+                             hid, mu2, rstd2, dout, af, dh, dq_part, dln, wpart, splits_w1,
+                             splits_w2, cpart, dz, dg2, db2, dw1, dw1_s0, dw1_s1, db1f, dw2,
+                             dw2_s0, dw2_s1, db2f, drs_ff, B, B * N, C, F, s));
+  return static_cast<int>(vtx::attention_half_bwd_bf16(
+      x, ln1_g, ln1_b, wqkv, wqkv_s0, wqkv_s1, bqkv, wout, wout_s0, wout_s1, bout, extra, groups,
+      rs_attn, qkv, acc, mu1, rstd1, lse, dz, dacc, dq_part, dqkv, dln, wpart, splits_out,
+      splits_qkv, cpart, dx, dg1, db1, dwqkv, dwqkv_s0, dwqkv_s1, dbqkv, dwout, dwout_s0,
+      dwout_s1, dbout, drs_attn, dextra, B, N, C, H, D, scale, s));
 }
 
 // B7's backward (vision_transformers_tpu/ops/fused_layer.py:743,

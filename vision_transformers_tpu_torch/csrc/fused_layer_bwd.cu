@@ -71,8 +71,10 @@
 // ViT-S/16, B = 128) summed in order, so no float atomics.
 //
 // bf16 (vtx_fused_attention_layer_bwd_bf16: ViT-S/16's training at the JAX
-// package's default precision, and DINO's with the block mask as the bias,
-// which takes no gradient) runs the same six steps on the bf16 forms,
+// package's default precision, DINO's with the block mask as the bias,
+// which takes no gradient, and, through vtx::attention_half_bwd_bf16, the
+// attention half of the whole layer's bf16 backward, Swin-S's with the
+// grouped bias and its gradient) runs the same six steps on the bf16 forms,
 // rounding where the JAX kernel (fused_layer.py:183-339) rounds:
 //   1. da = round(dz·round(r)) by a pass (into dln's memory, free until
 //      step 4); dwout = accᵀ·da and dbout = Σ da in f32
@@ -81,7 +83,8 @@
 //      rounds dz·woutᵀ)
 //   3. the packed-row core's bf16 backward (P recomputed in f32 with the
 //      bias, dS·scale rounded before dq and dk, dq summed on chip) → dqkv
-//      bf16
+//      bf16; with dextra the bias's gradient, dS summed in f32 per chunk of
+//      each group's images on chip, then over the chunks in order
 //   4. u = round(LN(x)) into dln's memory; dwqkv = uᵀ·dqkv, dbqkv in f32
 //   5. dln = dqkv·wqkvᵀ in f32
 //   6. dx = round(dz + round(LNᵀ(dln))); dg, db in f32
@@ -99,7 +102,7 @@ namespace {
 // (window_on_bias).  A bias call the window attention takes (extra [G, H, N,
 // N], row b in group b / (B/G); N ≤ 128, heads up to 32 wide): its backward,
 // which computes Δ itself and, when dextra is non-null, sums dS per block
-// into dbpart [wta::bwd_chunks(B, G, H), G, H, N, N] and those partials in
+// into dbpart [bias_chunks(B, G, H), G, H, N, N] and those partials in
 // order into dextra [G, H, N, N].  Every other call (ViT's and Twins' last
 // stage without a bias; DINO's block mask at heads 64 wide): the packed-row
 // core's one-pass backward (vtx::packed_attention_bwd, fused_attention_qkv.cu;
@@ -136,7 +139,7 @@ cudaError_t vtx::window_attention_bwd(const float* qkv, const float* dacc,
 // The window attention's backward alone (ops/window_attention.py): dqkv
 // [P·N, 3·H·D] from qkv, the forward's out and lse and dout [P·N, H·D]; with
 // dbias [G, H, N, N] non-null, the blocks' dS sums in dbpart
-// [wta::bwd_chunks(P, G, H), G, H, N, N] and their ordered sum in dbias
+// [bias_chunks(P, G, H), G, H, N, N] and their ordered sum in dbias
 extern "C" int vtx_window_attention_bwd(const float* qkv, const float* out,
                                         const float* dout, const float* lse,
                                         const float* bias, int groups, int cyclic,
@@ -241,7 +244,7 @@ cudaError_t vtx::qkv_proj_bwd(
 // z = x + r ⊙ OutProj(MHSA(QkvProj(LN(x)) + extra)) backward, steps 1-6
 // above.  extra [G, H, N, N] (row b in group b / (B/G)) may be null.  On
 // the window attention (window_on_bias) a non-null dextra takes the ordered
-// sum of the per-block dS sums in dbpart [wta::bwd_chunks(B, G, H), G, H, N,
+// sum of the per-block dS sums in dbpart [bias_chunks(B, G, H), G, H, N,
 // N]; on the packed-row core dq_part [ceil(N / 64), B·N, H·D] (null where N
 // ≤ 64) takes the dq partials, and a non-null dextra the ordered sum of dS
 // in dbpart [B, H, N, N].
@@ -281,7 +284,7 @@ cudaError_t vtx::attention_half_bwd(
 // allocated by the caller: dacc [M, HD], dq_part [ceil(N / 64)·M·HD]
 // (used only on the packed-row core and where N > 64, else null), dqkv
 // [M, 3HD], dln [M, C], dbpart (used only with dextra: on the window
-// attention [wta::bwd_chunks(B, G, H)·G·H·N·N], ops/fused_layer.py
+// attention [bias_chunks(B, G, H)·G·H·N·N], ops/fused_layer.py
 // window_chunks; on the packed-row core [B·H·N·N]), wpart [max(splits_out·HD·C,
 // splits_qkv·C·3HD)], cpart [ceil(M / 128) · max(C, 3HD)].  dwqkv / dwout are written through
 // their (row, col) strides, so they may share the layout of the weight view
@@ -310,31 +313,22 @@ extern "C" int vtx_fused_attention_layer_bwd(
       D, scale, static_cast<cudaStream_t>(stream)));
 }
 
-// The bf16 form: the same parameter list; x, the weights and biases, qkv,
-// acc, dz, dx, and the workspaces dacc [M, HD] and dqkv [M, 3HD] bf16;
-// dq_part f32 and never null, the workspace of the bf16 attention's
-// backward (vtx::packed_attention_bwd_bf16_floats floats), or [M, HD] where
-// that is larger and a row scale makes it first hold dacc₀; dln [M, C] f32
-// (first holding u bf16); every gradient of a weight or bias f32; extra
-// [G, H, N, N] f32 or null (groups = G, dividing B; any N, on the packed-row
-// core); dbpart and dextra null: no gradient of the bias in bf16.
-extern "C" int vtx_fused_attention_layer_bwd_bf16(
+// The bf16 steps (vtx_fused_attention_layer_bwd_bf16 below, and the whole
+// layer's bf16 backward after its FF half, fused_layer1_bwd.cu)
+cudaError_t vtx::attention_half_bwd_bf16(
     const bf16* x, const float* ln_g, const float* ln_b,
     const bf16* wqkv, long long wqkv_s0, long long wqkv_s1, const bf16* bqkv,
     const bf16* wout, long long wout_s0, long long wout_s1, const bf16* bout,
-    const float* extra, int groups,
-    const float* rs, const bf16* qkv, const bf16* acc, const float* mu,
-    const float* rstd, const float* lse, const bf16* dz,
-    bf16* dacc, float* dq_part, bf16* dqkv, float* dln,
-    float* dbpart, float* wpart, int splits_out, int splits_qkv, float* cpart,
-    bf16* dx, float* dg, float* db,
+    const float* extra, int groups, const float* rs, const bf16* qkv, const bf16* acc,
+    const float* mu, const float* rstd, const float* lse, const bf16* dz,
+    bf16* dacc, float* dq_part, bf16* dqkv, float* dln, float* wpart, int splits_out,
+    int splits_qkv, float* cpart, bf16* dx, float* dg, float* db,
     float* dwqkv, long long dwqkv_s0, long long dwqkv_s1, float* dbqkv,
     float* dwout, long long dwout_s0, long long dwout_s1, float* dbout,
     float* drs, float* dextra, int B, int N, int C, int H, int D, float scale,
-    void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    cudaStream_t s) {
   const int M = B * N, HD = H * D;
-  if ((extra && (groups < 1 || B % groups)) || dbpart || dextra || !dq_part || D > DMAX ||
+  if ((extra && (groups < 1 || B % groups)) || (dextra && !extra) || !dq_part || D > DMAX ||
       B > 65535 || H > 65535)
     return cudaErrorInvalidValue;
   // 1. da = round(dz·round(r)) into dln's memory (free until step 4);
@@ -361,9 +355,9 @@ extern "C" int vtx_fused_attention_layer_bwd_bf16(
     VTX_CHECK(launch_gemm_bf16(dz, wout, wout_s1, wout_s0, nullptr, nullptr, 1, nullptr,
                                dacc, 0, M, HD, C, 0, s));
   }
-  // 3. attention backward → dqkv
+  // 3. attention backward → dqkv (and dextra)
   VTX_CHECK(vtx::packed_attention_bwd_bf16(qkv, extra, groups, acc, lse, dacc, dq_part, dqkv,
-                                           B, N, H, D, scale, s));
+                                           dextra, B, N, H, D, scale, s));
   // 4. u = round(LN(x)) in dln's memory; dwqkv = uᵀ·dqkv; dbqkv
   bf16* u = reinterpret_cast<bf16*>(dln);
   ln_apply_kernel<false, bf16><<<ew_blocks(MC), EW_THREADS, 0, s>>>(x, mu, rstd, ln_g, ln_b,
@@ -382,5 +376,37 @@ extern "C" int vtx_fused_attention_layer_bwd_bf16(
       dln, x, mu, rstd, ln_g, dz, dx, M, C, MapRows{nullptr, 1});
   VTX_CHECK(cudaGetLastError());
   VTX_CHECK((launch_colsum<float, bf16>(dln, x, mu, rstd, cpart, dg, M, C, s)));
-  return static_cast<int>(launch_colsum(dln, nullptr, nullptr, nullptr, cpart, db, M, C, s));
+  return launch_colsum(dln, nullptr, nullptr, nullptr, cpart, db, M, C, s);
+}
+
+// The bf16 form: the same parameter list; x, the weights and biases, qkv,
+// acc, dz, dx, and the workspaces dacc [M, HD] and dqkv [M, 3HD] bf16;
+// dq_part f32 and never null, the workspace of the bf16 attention's
+// backward (vtx::packed_attention_bwd_bf16_floats floats, with the dbias
+// chunks' sums when dextra is asked for), or [M, HD] where that is larger
+// and a row scale makes it first hold dacc₀; dln [M, C] f32 (first holding
+// u bf16); every gradient of a weight or bias f32; extra [G, H, N, N] f32
+// or null (groups = G, dividing B; any N, on the packed-row core); dextra
+// [G, H, N, N] f32 or null (N ≤ 128); dbpart null (the dbias partials live
+// in dq_part).
+extern "C" int vtx_fused_attention_layer_bwd_bf16(
+    const bf16* x, const float* ln_g, const float* ln_b,
+    const bf16* wqkv, long long wqkv_s0, long long wqkv_s1, const bf16* bqkv,
+    const bf16* wout, long long wout_s0, long long wout_s1, const bf16* bout,
+    const float* extra, int groups,
+    const float* rs, const bf16* qkv, const bf16* acc, const float* mu,
+    const float* rstd, const float* lse, const bf16* dz,
+    bf16* dacc, float* dq_part, bf16* dqkv, float* dln,
+    float* dbpart, float* wpart, int splits_out, int splits_qkv, float* cpart,
+    bf16* dx, float* dg, float* db,
+    float* dwqkv, long long dwqkv_s0, long long dwqkv_s1, float* dbqkv,
+    float* dwout, long long dwout_s0, long long dwout_s1, float* dbout,
+    float* drs, float* dextra, int B, int N, int C, int H, int D, float scale,
+    void* stream) {
+  if (dbpart) return cudaErrorInvalidValue;
+  return static_cast<int>(vtx::attention_half_bwd_bf16(
+      x, ln_g, ln_b, wqkv, wqkv_s0, wqkv_s1, bqkv, wout, wout_s0, wout_s1, bout, extra, groups,
+      rs, qkv, acc, mu, rstd, lse, dz, dacc, dq_part, dqkv, dln, wpart, splits_out, splits_qkv,
+      cpart, dx, dg, db, dwqkv, dwqkv_s0, dwqkv_s1, dbqkv, dwout, dwout_s0, dwout_s1, dbout, drs,
+      dextra, B, N, C, H, D, scale, static_cast<cudaStream_t>(stream)));
 }

@@ -233,7 +233,7 @@ extern "C" int vtx_fused_swin_layer_fwd(
 // [B, H, W, C]; writes dx [B, H, W, C].  Workspace, all allocated by the
 // caller (M = B·H·W): dor [M, C], da [M, C] (no longer read), af [M, F]
 // (the dr₂ pass's row partials), dh [M, F], dz [M, C], dacc [M, HD], dqkv [M, 3HD], u, dln [M, C], dbpart
-// [wta::bwd_chunks(B·G, groups, nh), groups, nh, m, m] (used only with dextra;
+// [bias_chunks(B·G, groups, nh), groups, nh, m, m] (used only with dextra;
 // ops/fused_layer.py window_chunks), wpart [max over
 // the four weight gradients of splits·rows·cols], cpart [ceil(M / 128) ·
 // max(C, 3HD, F)].  The weight gradients are written through their (row,

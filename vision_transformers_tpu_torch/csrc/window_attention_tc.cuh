@@ -66,7 +66,7 @@
 //
 // Chunks: each group's windows are cut into the count that brings the
 // rounds of blocks the card runs at once times the windows a block walks
-// within 5% of its least (chunk_count): at Swin-S stage 1 a count aimed at
+// within 5% of its least (chunk_count, common.cuh): at Swin-S stage 1 a count aimed at
 // two waves (3 chunks, 288 blocks) leaves the third round 18% full, a
 // fifth of the backward's time.
 //
@@ -619,28 +619,6 @@ __global__ void __launch_bounds__(THREADS, 1) window_bwd_kernel(const Args a) {
 // host side
 // ---------------------------------------------------------------------------
 
-// chunks c of each group's R windows over G·H (group, head) rows of blocks,
-// ``slots`` blocks the card runs at once and ``walkers`` groups of warps in
-// a block sharing its chunk: the fewest whose rounds of blocks times the
-// windows a walker takes, ⌈G·H·c / slots⌉·⌈⌈R / c⌉ / walkers⌉, come within
-// 5% of the least over c ≤ R (wave quantisation: at Swin-S stage 1 three
-// chunks leave the third round of blocks 18% full)
-inline int chunk_count(int R, int GH, int slots, int walkers) {
-  auto cost = [&](int c) {
-    const long long rounds = ((long long)GH * c + slots - 1) / slots;
-    return rounds * (((R + c - 1) / c + walkers - 1) / walkers);
-  };
-  long long best = cost(1);
-  for (int c = 2; c <= R; ++c) best = cost(c) < best ? cost(c) : best;
-  int c = 1;
-  while (20 * cost(c) > 21 * best) ++c;
-  return c;
-}
-
-// the backward's chunks: one block an SM (ops/fused_layer.py's window_chunks
-// mirrors it to size the partials)
-inline int bwd_chunks(int P, int G, int H) { return chunk_count(P / G, G * H, SMS, 1); }
-
 inline bool valid(const Args& a) {
   return a.P >= 1 && a.G >= 1 && a.P % a.G == 0 && a.N >= 1 && a.N <= NMAX && a.D >= 1 &&
          a.D <= DH && a.H >= 1 && (long long)a.G * a.H <= 65535 && a.qkv && a.bias;
@@ -700,7 +678,7 @@ inline cudaError_t attention_fwd(const float* qkv, const float* bias, int G, boo
 }
 
 // dqkv [P·N, 3·H·D] from qkv, the forward's out and lse, dout [P·N, H·D];
-// with dbias non-null, its blocks' partials into part [bwd_chunks(P, G, H),
+// with dbias non-null, its blocks' partials into part [bias_chunks(P, G, H),
 // G, H, N, N] and their ordered sum into dbias [G, H, N, N]
 inline cudaError_t attention_bwd(const float* qkv, const float* out, const float* dout,
                                  const float* lse, const float* bias, int G, bool cyclic,
@@ -718,7 +696,7 @@ inline cudaError_t attention_bwd(const float* qkv, const float* out, const float
   if (!valid(a) || !out || !dout || !lse || !dqkv || (dbias && !part))
     return cudaErrorInvalidValue;
   set_vec(a);
-  const int QS = (N + 15) / 16, Np = (N + 7) & ~7, chunks = bwd_chunks(P, G, H);
+  const int QS = (N + 15) / 16, Np = (N + 7) & ~7, chunks = bias_chunks(P, G, H);
   const int Mp = 16 * QS;
   const size_t smem = (size_t)bwd_floats(Mp, Np, round_rows(Mp, Np)) * sizeof(float);
   if (smem > SMEM_MAX) return cudaErrorInvalidValue;

@@ -12,7 +12,7 @@ import torch
 from torch import nn
 
 __all__ = ["layer_norm", "LayerNorm", "FeedForward", "dropout", "drop_path_scale",
-           "patchify", "scaled", "pair", "dense", "f32_out_product"]
+           "patchify", "scaled", "pair", "dense", "kernel_weights", "f32_out_product"]
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -36,6 +36,15 @@ def dense(x: torch.Tensor, linear: nn.Linear, dtype: torch.dtype) -> torch.Tenso
         return linear(x)
     y = torch.matmul(x.to(dtype), linear.weight.to(dtype).t())
     return y if linear.bias is None else y + linear.bias.to(dtype)
+
+
+def kernel_weights(linear: nn.Linear, dtype: torch.dtype):
+    """(weight, bias) of ``linear`` as the layer kernels take them: the
+    weight as its [in, out] view, both in the compute ``dtype`` (the JAX
+    models cast the parameters at each use; they stay f32 here), the bias
+    None where there is none."""
+    bias = linear.bias
+    return linear.weight.t().to(dtype), None if bias is None else bias.to(dtype)
 
 
 class _F32OutProduct(torch.autograd.Function):

@@ -54,6 +54,22 @@ stage), and the DropPath ramp ``drop_path·i/sum(depths)``.  In training
 each layer draws two independent per-sample DropPath scales from an
 explicit ``torch.Generator``, all of them before the first dropout mask.
 remat is not ported.
+
+``dtype`` (:meth:`SwinConfig.make`, the JAX model's ``dtype``, swin.py:526)
+is the compute dtype: bf16 is the JAX package's default precision.  The
+parameters stay f32 and are cast where the JAX model casts them
+(swin.py:269-274, :422-448): the patch embedding's and the patch merges'
+Linears in ``dtype`` (:func:`layers.dense`), their LayerNorms and the final
+one returning ``dtype`` with f32 statistics, the whole-layer kernel's
+weights and biases in ``dtype`` with its LayerNorm parameters, the grouped
+bias (the relative-position tables and the shift mask) and the DropPath
+scales f32, and the classifier f32 on the pooled features promoted to f32
+(swin.py:503).  At bf16 a layer runs on 'layer1' (the default), a 'layer'
+force, or the plain 'einsum' path (small batches, dropout in training:
+its projections in ``dtype``, the scores and P·V in ``dtype``, the softmax
+in f32, as JAX swin.py:302-330); the 'fused' and 'block' forces raise
+NotImplementedError, and 'swin' raises in its op (ROADMAP.md §A2's bf16
+queue).
 """
 
 from __future__ import annotations
@@ -68,7 +84,8 @@ from torch import nn
 from .. import ops
 from ..config.registry import TypedConfig, register
 from . import layers
-from .layers import FeedForward, LayerNorm, drop_path_scale, pair, patchify, scaled
+from .layers import (FeedForward, LayerNorm, dense, drop_path_scale, kernel_weights, pair,
+                     patchify, scaled)
 
 __all__ = ["relative_position_index", "shifted_window_mask", "WindowAttention",
            "SwinLayer", "PatchEmbedding", "PatchMerge", "SwinTransformer",
@@ -162,11 +179,12 @@ class WindowAttention(nn.Module):
 
     def __init__(self, dim: int, n_head: int, dim_head: int,
                  input_size: Tuple[int, int], window: int, shift: bool,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         inner = n_head * dim_head
         self.n_head, self.dim_head = n_head, dim_head
         self.dropout = dropout
+        self.dtype = dtype  # the einsum path's projections
         self.input_size, self.window, self.shift = input_size, window, shift
         self.weight = nn.Linear(dim, inner * 3)  # qkv, q-heads | k-heads | v-heads
         self.linear = nn.Linear(inner, dim)
@@ -264,7 +282,7 @@ class WindowAttention(nn.Module):
             return self.unpartition(self.linear(out), b)
         win, pack, H, D = self.window, self.pack, self.n_head, self.dim_head
         hs, wsp = h // win, w // win // pack
-        qkv = self.weight(self._roll(x, -1))
+        qkv = dense(self._roll(x, -1), self.weight, self.dtype)
         qkv = qkv.reshape(b, hs, win, wsp, pack, win, 3, H, D)
         qkv = qkv.permute(0, 1, 3, 6, 7, 4, 2, 5, 8).reshape(b, hs * wsp, 3, H, -1, D)
         q, k, v = qkv.unbind(2)
@@ -278,21 +296,24 @@ class WindowAttention(nn.Module):
         out = torch.einsum("bshqk,bshkd->bshqd", attn, v)
         out = out.reshape(b, hs, wsp, H, pack, win, win, D)
         out = out.permute(0, 1, 5, 2, 4, 6, 3, 7).reshape(b, h, w, H * D)
-        return self._roll(self.linear(out), 1)
+        return self._roll(dense(out, self.linear, self.dtype), 1)
 
 
 class SwinLayer(nn.Module):
-    """Pre-LN window-attention block (reference: :163-197)."""
+    """Pre-LN window-attention block (reference: :163-197); ``dtype`` the
+    compute dtype."""
 
     def __init__(self, dim: int, n_head: int, dim_head: int, dim_ff: int,
                  input_size: Tuple[int, int], window: int, shift: bool,
-                 drop_ff: float = 0.0, drop_attn: float = 0.0):
+                 drop_ff: float = 0.0, drop_attn: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.norm_attn = LayerNorm(dim, eps=_LN_EPS)
         self.attn = WindowAttention(dim, n_head, dim_head, input_size, window, shift,
-                                    drop_attn)
+                                    drop_attn, dtype)
         self.norm_ff = LayerNorm(dim, eps=_LN_EPS)
-        self.ff = FeedForward(dim, dim_ff, dropout=drop_ff)
+        self.ff = FeedForward(dim, dim_ff, dropout=drop_ff, dtype=dtype)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor, rs=None,
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -310,6 +331,10 @@ class SwinLayer(nn.Module):
             # einsum wherever the probabilities are dropped
             if impl not in ("fused", "block") or (self.training and attn.dropout > 0):
                 impl = "einsum"
+            if impl != "einsum" and self.dtype != torch.float32:
+                raise NotImplementedError(
+                    f"Swin's {impl!r} attention at {self.dtype}: ROADMAP.md §A2's bf16 "
+                    f"queue (B3 item 5, B8 item 6)")
             x = x + scaled(attn(na(x), impl, generator), rs_attn)
             return x + scaled(ff(nf(x), generator), rs_ff)
         if impl == "swin":
@@ -325,13 +350,16 @@ class SwinLayer(nn.Module):
         G = attn.groups
         tile = lambda r: None if r is None else r.repeat(G)  # noqa: E731
         xw = attn.partition(x)
-        attn_w = (na.weight, na.bias, attn.weight.weight.t(), attn.weight.bias,
-                  attn.linear.weight.t(), attn.linear.bias)
+        # the kernels' weights and biases in the compute dtype, the
+        # LayerNorms' parameters and the bias f32 (swin.py:269-274)
+        dt = self.dtype
+        attn_w = (na.weight, na.bias, *kernel_weights(attn.weight, dt),
+                  *kernel_weights(attn.linear, dt))
         if impl == "layer1":
             out = ops.fused_transformer_layer(
-                xw, *attn_w, nf.weight, nf.bias, ff[0].weight.t(), ff[0].bias,
-                ff[3].weight.t(), ff[3].bias, attn.n_head, attn.grouped_bias(),
-                tile(rs_attn), tile(rs_ff), activation="silu", eps=_LN_EPS)
+                xw, *attn_w, nf.weight, nf.bias, *kernel_weights(ff[0], dt),
+                *kernel_weights(ff[3], dt), attn.n_head, attn.grouped_bias(), tile(rs_attn),
+                tile(rs_ff), activation="silu", eps=_LN_EPS)
             return attn.unpartition(out, b)
         out = ops.fused_attention_layer(xw, *attn_w, attn.n_head,
                                         extra=attn.grouped_bias(),
@@ -347,29 +375,35 @@ class SwinLayer(nn.Module):
 
 class PatchEmbedding(nn.Module):
     """patchify → linear → LN (eps 1e-5) (reference: :200-213); ``in_dim``
-    channels in (3 for images, the previous stage's width in Halo)."""
+    channels in (3 for images, the previous stage's width in Halo); the
+    linear in the compute ``dtype`` (JAX swin.py:422-436)."""
 
-    def __init__(self, out_dim: int, patch: int, in_dim: int = 3):
+    def __init__(self, out_dim: int, patch: int, in_dim: int = 3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.patch = patch
         self.linear = nn.Linear(in_dim * patch * patch, out_dim)
         self.norm = LayerNorm(out_dim, eps=1e-5)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.norm(self.linear(patchify(x, self.patch)))
+        return self.norm(dense(patchify(x, self.patch), self.linear, self.dtype))
 
 
 class PatchMerge(nn.Module):
-    """patchify → LN (eps 1e-5) → linear without bias (reference: :216-229)."""
+    """patchify → LN (eps 1e-5) → linear without bias (reference: :216-229),
+    the linear in the compute ``dtype`` (JAX swin.py:439-448)."""
 
-    def __init__(self, in_dim: int, out_dim: int, size: int = 2):
+    def __init__(self, in_dim: int, out_dim: int, size: int = 2,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.size = size
         self.norm = LayerNorm(in_dim * size * size, eps=1e-5)
         self.linear = nn.Linear(in_dim * size * size, out_dim, bias=False)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.linear(self.norm(patchify(x, self.size)))
+        return dense(self.norm(patchify(x, self.size)), self.linear, self.dtype)
 
 
 class SwinTransformer(nn.Module):
@@ -379,20 +413,22 @@ class SwinTransformer(nn.Module):
 
     def __init__(self, image_size, n_class: int, depths, dims, dim_head: int,
                  n_heads, dim_ffs, window_size: int, drop_ff: float = 0.0,
-                 drop_attn: float = 0.0, drop_path: float = 0.0):
+                 drop_attn: float = 0.0, drop_path: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         h, w = pair(image_size)
-        self.patch_embedding = PatchEmbedding(dims[0], 4)
+        self.dtype = dtype  # the compute dtype; the parameters stay f32
+        self.patch_embedding = PatchEmbedding(dims[0], 4, dtype=dtype)
         size = (h // 4, w // 4)
         for s, depth in enumerate(depths):
             stage = []
             if s > 0:
-                stage.append(PatchMerge(dims[s - 1], dims[s]))
+                stage.append(PatchMerge(dims[s - 1], dims[s], dtype=dtype))
                 size = (size[0] // 2, size[1] // 2)
             for i in range(depth):
                 layer = SwinLayer(dims[s], n_heads[s], dim_head, dim_ffs[s], size,
                                   window_size, shift=i % 2 == 0, drop_ff=drop_ff,
-                                  drop_attn=drop_attn)
+                                  drop_attn=drop_attn, dtype=dtype)
                 stage.append(layer)
             setattr(self, f"block{s + 1}", nn.ModuleList(stage))
         self.n_stages = len(depths)
@@ -463,7 +499,9 @@ class SwinConfig(TypedConfig):
     drop_path: float = 0.0
     remat: bool = False
 
-    def make(self) -> SwinTransformer:
+    def make(self, dtype: torch.dtype = torch.float32) -> SwinTransformer:
+        """The model in compute ``dtype`` (the JAX ``make(dtype=...)``,
+        swin.py:526; the trainer passes the conf's precision)."""
         if self.remat:
             raise NotImplementedError("arch.remat is not ported")
         return SwinTransformer(
@@ -471,4 +509,4 @@ class SwinConfig(TypedConfig):
             dims=self.dims, dim_head=self.dim_head, n_heads=self.n_heads,
             dim_ffs=self.dim_ffs, window_size=self.window_size,
             drop_ff=self.drop_ff, drop_attn=self.drop_attn,
-            drop_path=self.drop_path)
+            drop_path=self.drop_path, dtype=dtype)

@@ -75,8 +75,8 @@ from torch import nn
 from .. import ops
 from ..config.registry import TypedConfig, register
 from . import layers
-from .layers import (FeedForward, LayerNorm, dense, drop_path_scale, f32_out_product, pair,
-                     scaled)
+from .layers import (FeedForward, LayerNorm, dense, drop_path_scale, f32_out_product,
+                     kernel_weights, pair, scaled)
 
 __all__ = ["MultiHeadedAttention", "TransformerLayer", "PatchEmbedding",
            "VisionTransformer", "ViTConfig", "DINOHead", "DINOModel", "DINOConfig",
@@ -176,10 +176,6 @@ class MultiHeadedAttention(nn.Module):
         return dense(out, self.linear, dt)
 
 
-def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
-    return None if t is None else t.to(dtype)
-
-
 class TransformerLayer(nn.Module):
     """Pre-LN block (reference: models/vit.py:48-66); ``dtype`` the compute
     dtype."""
@@ -214,10 +210,9 @@ class TransformerLayer(nn.Module):
         # the kernels' weights and biases in the compute dtype, the
         # LayerNorms' parameters f32 (vit.py:185-188, :253-257)
         dt = self.dtype
-        attn_w = (na.weight, na.bias, _cast(attn.qkv.weight.t(), dt), _cast(attn.qkv.bias, dt),
-                  _cast(attn.linear.weight.t(), dt), _cast(attn.linear.bias, dt))
-        ff_w = (nf.weight, nf.bias, _cast(ff[0].weight.t(), dt), _cast(ff[0].bias, dt),
-                _cast(ff[3].weight.t(), dt), _cast(ff[3].bias, dt))
+        attn_w = (na.weight, na.bias, *kernel_weights(attn.qkv, dt),
+                  *kernel_weights(attn.linear, dt))
+        ff_w = (nf.weight, nf.bias, *kernel_weights(ff[0], dt), *kernel_weights(ff[3], dt))
         if impl == "layer1" and not dropping and per_sample:
             # the whole layer only with per-sample scales (vit.py:243-258)
             return ops.fused_transformer_layer(

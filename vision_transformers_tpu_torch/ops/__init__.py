@@ -230,7 +230,7 @@ def halo_impl(window: int, halo: int) -> str:
     "layer" force on a wider halo becomes "gather", as in JAX, and a
     "direct" force on one raises NotImplementedError.  JAX's 8 | window
     clause (aligned slices on the TPU) is not carried over: the CUDA kernels
-    take any window (ROADMAP A10)."""
+    take any window (ROADMAP A8)."""
     wide = 2 * halo > window
     env = os.environ.get("VTX_HALO_IMPL")
     impl = _HALO_FORCED or (env if env in _HALO_IMPLS else None)

@@ -333,17 +333,19 @@ _SIGNATURES = {
         _F, _P,                  # scale, stream
     ],
     "vtx_packed_attention_bwd_bf16": [
-        _P, _P, _I,              # qkv, bias (nullable; no gradient), groups
+        _P, _P, _I,              # qkv, bias (nullable), groups
         _P, _P, _P,              # out, lse, dout
-        _P, _P,                  # workspace (L and Δ rows; dq partials past 256 keys), dqkv
+        _P, _P,                  # workspace (L and Δ rows; dq partials past 256 keys;
+                                 # the dbias chunks' sums), dqkv
+        _P,                      # dbias [G, H, N, N] (nullable)
         _I, _I, _I, _I,          # B, N, H, D
         _F, _P,                  # scale, stream
     ],
 }
-# the bf16 forms of B1 (with or without the bias) and B2 (bias-free): the
-# f32 entries' parameter lists
+# the bf16 forms of B1 and B2 (with or without the bias and its gradient):
+# the f32 entries' parameter lists
 for _name in ("vtx_fused_attention_layer_fwd", "vtx_fused_attention_layer_bwd",
-              "vtx_fused_transformer_layer_fwd"):
+              "vtx_fused_transformer_layer_fwd", "vtx_fused_transformer_layer_bwd"):
     _SIGNATURES[_name + "_bf16"] = _SIGNATURES[_name]
 
 

@@ -54,10 +54,14 @@ the bias-free call runs the kernels' bf16 forms (``csrc/fused_layer.cu`` /
 and the packed-row attention's, ``csrc/attention_bf16_tma.cuh``: wgmma fed
 by TMA, heads a multiple of 8 up to 64 wide, its backward's workspace
 :func:`packed_attention_bf16_floats`), with or without the bias: DINO's
-block mask on its packed local crops (111 tokens) takes it as the JAX
-kernel does, s = q·kᵀ·scale + extra in f32 before the max.  A bf16 call
-whose bias asks for a gradient raises NotImplementedError (ROADMAP.md §A2's
-bf16 queue, item 2).  The plain versions round where the kernels do.
+block mask on its packed local crops (111 tokens) and Swin-S's grouped
+bias take it as the JAX kernel does, s = q·kᵀ·scale + extra in f32 before
+the max.  The bias's gradient at bf16 (Swin-S's relative-position bias)
+comes from the same core's backward, dS summed in f32 per chunk of each
+group's windows on chip and the chunks summed in order, over windows of
+up to ``MAX_BIAS_TOKENS`` tokens (one key tile); a longer call that asks
+for it raises NotImplementedError.  The plain versions round where the
+kernels do.
 
 The FF residual branch has its own op here, as in the JAX module
 (fused_layer.py:701-971): :func:`fused_ff_layer`, ``x + row_scale ⊙
@@ -90,7 +94,8 @@ __all__ = ["fused_attention_layer", "fused_attention_layer_reference",
            "packed_attention_bf16_bwd", "packed_attention_reference",
            "packed_attention_bf16_floats", "PACKED_BF16_LAUNCHES",
            "PACKED_BF16_BWD_LAUNCHES", "BF16_BIAS_LAUNCHES", "BF16_BIAS_BWD_LAUNCHES",
-           "PACKED_BF16_BIAS_LAUNCHES", "PACKED_BF16_BIAS_BWD_LAUNCHES"]
+           "PACKED_BF16_BIAS_LAUNCHES", "PACKED_BF16_BIAS_BWD_LAUNCHES",
+           "PACKED_BF16_DBIAS_BWD_LAUNCHES"]
 
 # kernel launches through this module's wrappers, forward and backward
 # (chip_smoke.py reads them to show the main path went through the kernels),
@@ -113,13 +118,13 @@ PACKED_BF16_LAUNCHES = 0
 PACKED_BF16_BWD_LAUNCHES = 0
 PACKED_BF16_BIAS_LAUNCHES = 0
 PACKED_BF16_BIAS_BWD_LAUNCHES = 0
+# ... and of the backward's, the launches that summed the bias's gradient
+PACKED_BF16_DBIAS_BWD_LAUNCHES = 0
 
 # where the bf16 forms still to write are queued, by the item each waits on
-BF16_SWIN = "ROADMAP.md §A2's bf16 queue, item 2 (Swin-S)"
-BF16_TODO = ("its bf16 form is not written yet (ROADMAP.md §A2's bf16 queue: B2's "
-             "backward and bias and the window attention item 2, Swin-S; B4, B5a and B5b "
-             "item 3, Halo-S; B6 item 4, PVT-S and Twins-SVT-S; B3 item 5, ViT with "
-             "dropout; B8 item 6; B9 item 7; B7 item 8)")
+BF16_TODO = ("its bf16 form is not written yet (ROADMAP.md §A2's bf16 queue: B4, B5a "
+             "and B5b item 3, Halo-S; B6 item 4, PVT-S and Twins-SVT-S; B3 item 5, ViT "
+             "with dropout; B8 item 6; B9 item 7; B7 item 8)")
 
 # widest head the attention takes (csrc DMAX: the packed-row tensor-core
 # core, attention_tc.cuh, stages heads 32 or 64 floats wide)
@@ -136,7 +141,8 @@ def window_on_bias(has_bias: bool, N: int, D: int) -> bool:
     (csrc window_on_bias): a bias, N ≤ ``MAX_BIAS_TOKENS`` and heads up to
     ``MAX_BIAS_DIM_HEAD`` wide; every other call on the packed-row core.
     At bf16 every call, with a bias or not, takes the packed-row core's bf16
-    form: the window attention has no bf16 form."""
+    form (the bias's gradient too): the window attention has no bf16
+    form."""
     return has_bias and N <= MAX_BIAS_TOKENS and D <= MAX_BIAS_DIM_HEAD
 
 
@@ -484,23 +490,17 @@ def check_dtype(device: torch.device, dtype: torch.dtype,
                 f"the CUDA kernel takes {dtype}; {name} is {t.dtype}{todo}")
 
 
-def check_bf16_form(x: torch.Tensor, D: int, extra_g, params: dict, bias: bool = False,
-                    **acts) -> bool:
+def check_bf16_form(x: torch.Tensor, D: int, params: dict, **acts) -> bool:
     """Whether the call takes the kernels' bf16 form (x bfloat16): then
     ``acts`` (the activations, weights, biases) bfloat16, ``params`` (the
-    LN parameters, row scales, the bias) float32, heads a multiple of 8
-    wide, and a bias only where ``bias`` (B1's form takes it; B2's, whose
-    bias calls are Swin-S's, does not); else every tensor float32.  Raises
-    NotImplementedError on what no form takes."""
+    LN parameters, row scales, the bias) float32 and heads a multiple of 8
+    wide; else every tensor float32.  Raises NotImplementedError on what no
+    form takes."""
     if x.dtype != torch.bfloat16:
         check_f32(x.device, x=x, **acts, **params)
         return False
     check_dtype(x.device, torch.bfloat16, x=x, **acts)
     check_dtype(x.device, torch.float32, **params)
-    if extra_g is not None and not bias:
-        raise NotImplementedError(
-            f"the whole layer's additive attention bias in bf16 (Swin-S's grouped bias): "
-            f"{BF16_SWIN}")
     if D % 8:
         raise NotImplementedError(
             f"the bf16 kernels take heads a multiple of 8 wide; got {D}")
@@ -545,8 +545,8 @@ def check_attention_args(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, n_head):
 def check_extra(extra_g: Optional[torch.Tensor], H: int, N: int, D: int,
                 window_only: bool = False) -> None:
     """The grouped bias [G, H, N, N] the kernels take.  B1 takes it at any
-    head width the attention takes; with ``window_only`` (B2, whose bias
-    calls — Swin's — stay on the window attention) heads up to
+    head width the attention takes; with ``window_only`` (B2's f32 form,
+    whose bias calls — Swin's — stay on the window attention) heads up to
     ``MAX_BIAS_DIM_HEAD`` wide and N up to ``MAX_BIAS_TOKENS``."""
     if extra_g is None:
         return
@@ -562,6 +562,15 @@ def check_extra(extra_g: Optional[torch.Tensor], H: int, N: int, D: int,
         raise ValueError(f"extra must be [G, {H}, {N}, {N}], got {tuple(extra_g.shape)}")
 
 
+def check_bf16_dbias(N: int) -> None:
+    """The bf16 attention sums the bias's gradient over one key tile:
+    windows of up to ``MAX_BIAS_TOKENS`` tokens (csrc attention_bf16.cu)."""
+    if N > MAX_BIAS_TOKENS:
+        raise NotImplementedError(
+            f"the bf16 attention's bias gradient takes up to {MAX_BIAS_TOKENS} tokens "
+            f"(one key tile); got {N}")
+
+
 def _raise_on(err: int, what: str) -> None:
     if err:
         raise RuntimeError(f"{what} CUDA launch failed: cudaError_t {err}")
@@ -575,9 +584,9 @@ def _cuda_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, n_head, extra_g, gro
         BF16_BIAS_LAUNCHES, PACKED_BF16_BIAS_LAUNCHES
     B, N, C, H, D = check_attention_args(x, ln_scale, ln_bias, wqkv, bqkv,
                                          wout, bout, n_head)
-    bf16 = check_bf16_form(x, D, extra_g, dict(ln_scale=ln_scale, ln_bias=ln_bias,
-                                               row_scale=row_scale, extra=extra_g),
-                           bias=True, wqkv=wqkv, bqkv=bqkv, wout=wout, bout=bout)
+    bf16 = check_bf16_form(x, D, dict(ln_scale=ln_scale, ln_bias=ln_bias,
+                                      row_scale=row_scale, extra=extra_g),
+                           wqkv=wqkv, bqkv=bqkv, wout=wout, bout=bout)
     check_extra(extra_g, H, N, D)
     check_vector("row_scale", row_scale, B)
     from ._build import build
@@ -627,11 +636,12 @@ _SMS = 132  # the H100's SMs: the GEMM core runs one persistent block on each
 
 @functools.lru_cache(maxsize=None)
 def window_chunks(P: int, G: int, H: int) -> int:
-    """Chunks of each group's windows in the window attention's backward
-    (csrc/window_attention_tc.cuh wta::bwd_chunks): the fewest c whose
-    rounds of blocks (one an SM) times the windows a block takes,
-    ⌈G·H·c / 132⌉·⌈R / c⌉ for R = P / G, come within 5% of the least over
-    c ≤ R.  Its dbias partials are [chunks, G, H, N, N]."""
+    """Chunks of each group's windows or images in the bias gradient's sum,
+    the f32 window attention's backward and the bf16 packed-row
+    attention's (csrc/common.cuh bias_chunks): the fewest c whose rounds of
+    blocks (one an SM) times the windows a block takes, ⌈G·H·c / 132⌉·⌈R /
+    c⌉ for R = P / G, come within 5% of the least over c ≤ R.  Their dbias
+    partials are [chunks, G, H, N, N]."""
     R, GH = P // G, G * H
 
     def cost(c):
@@ -679,14 +689,17 @@ def dq_partials(n_keys: int, rows: int, width: int, opts) -> Optional[torch.Tens
 BF16_DQ_SMEM_MAX_N = 256
 
 
-def packed_attention_bf16_floats(B: int, N: int, H: int, D: int) -> int:
+def packed_attention_bf16_floats(B: int, N: int, H: int, D: int, G: int = 1,
+                                 dbias: bool = False) -> int:
     """The f32 workspace of the packed-row attention's bf16 backward
     (csrc/attention_bf16.cu packed_attention_bwd_bf16_floats): the L and Δ
     rows [B·H, ceil(N / 64), 2, 64], then, where N > 256 (a head's dq past
     what shared memory holds), the key tiles' dq partials [ceil(N / 128),
-    B·N, H·D], summed in order."""
+    B·N, H·D], summed in order, and with the bias's gradient (``dbias``, G
+    groups) the chunks' dS sums [:func:`window_chunks`, G, H, N, N]."""
     rows = 2 * B * H * -(-N // 64) * 64
-    return rows + (-(-N // 128) * B * N * H * D if N > BF16_DQ_SMEM_MAX_N else 0)
+    dq = -(-N // 128) * B * N * H * D if N > BF16_DQ_SMEM_MAX_N else 0
+    return rows + dq + (window_chunks(B, G, H) * G * H * N * N if dbias else 0)
 
 
 def packed_attention_bf16_route(N: int, bias: bool = False) -> dict:
@@ -700,12 +713,15 @@ def packed_attention_bf16_route(N: int, bias: bool = False) -> dict:
 
 
 def bf16_attention_workspace(B: int, N: int, H: int, D: int, row_scaled: bool,
-                             opts) -> torch.Tensor:
-    """B1's bf16 backward's f32 ``dq_part`` workspace: the attention's
-    (:func:`packed_attention_bf16_floats`), or with a row scale the out
-    projection's f32 dacc₀ [B·N, H·D] first, if that is larger."""
-    floats = packed_attention_bf16_floats(B, N, H, D)
-    return torch.empty((max(floats, B * N * H * D if row_scaled else 0),), **opts)
+                             opts, G: int = 1, dbias: bool = False,
+                             first: int = 0) -> torch.Tensor:
+    """B1's and B2's bf16 backward's f32 ``dq_part`` workspace: the
+    attention's (:func:`packed_attention_bf16_floats`, with the dbias sums
+    of G groups where ``dbias``), or with a row scale the out projection's
+    f32 dacc₀ [B·N, H·D] first, or ``first`` floats (B2: the FF half's da₀),
+    whichever is largest."""
+    floats = packed_attention_bf16_floats(B, N, H, D, G, dbias)
+    return torch.empty((max(floats, B * N * H * D if row_scaled else 0, first),), **opts)
 
 
 def attention_workspace(B: int, groups: int, H: int, N: int, D: int, has_bias: bool,
@@ -734,7 +750,7 @@ def _cuda_bwd(saved: AttnSaved, dz: torch.Tensor, need_drs: bool, need_dextra: b
     """The backward kernel sequence: (dx, dg, db, dwqkv, dbqkv, dwout, dbout,
     drs, dextra_g)."""
     global BWD_LAUNCHES, BIAS_BWD_LAUNCHES, BF16_BWD_LAUNCHES, PACKED_BF16_BWD_LAUNCHES, \
-        BF16_BIAS_BWD_LAUNCHES, PACKED_BF16_BIAS_BWD_LAUNCHES
+        BF16_BIAS_BWD_LAUNCHES, PACKED_BF16_BIAS_BWD_LAUNCHES, PACKED_BF16_DBIAS_BWD_LAUNCHES
     x, g, b, wqkv, bqkv, wout, bout, rs = saved[:8]
     extra_g = saved.extra_g
     dz = dz.contiguous()
@@ -745,16 +761,14 @@ def _cuda_bwd(saved: AttnSaved, dz: torch.Tensor, need_drs: bool, need_dextra: b
     HD = wqkv.shape[1] // 3
     D = HD // H
     M = B * N
-    bf16 = check_bf16_form(x, D, extra_g, dict(ln_scale=g, ln_bias=b, row_scale=rs,
-                                               extra=extra_g, mu=saved.mu,
-                                               rstd=saved.rstd, lse=saved.lse),
-                           bias=True, wqkv=wqkv, bqkv=bqkv, wout=wout, bout=bout, dz=dz,
+    bf16 = check_bf16_form(x, D, dict(ln_scale=g, ln_bias=b, row_scale=rs,
+                                      extra=extra_g, mu=saved.mu, rstd=saved.rstd,
+                                      lse=saved.lse),
+                           wqkv=wqkv, bqkv=bqkv, wout=wout, bout=bout, dz=dz,
                            qkv=saved.qkv, acc=saved.acc)
     want_dextra = extra_g is not None and need_dextra
     if bf16 and want_dextra:
-        raise NotImplementedError(
-            f"the additive attention bias's gradient in bf16 (the bias's dS sums of "
-            f"Swin-S's relative-position bias): {BF16_SWIN}")
+        check_bf16_dbias(N)
     from ._build import build
 
     lib = build()
@@ -764,7 +778,9 @@ def _cuda_bwd(saved: AttnSaved, dz: torch.Tensor, need_drs: bool, need_dextra: b
     chunks = -(-M // 128)  # csrc COLSUM_ROWS
     groups = 1 if extra_g is None else extra_g.shape[0]
     if bf16:
-        dq_part, dbpart = bf16_attention_workspace(B, N, H, D, rs is not None, opts), None
+        dq_part = bf16_attention_workspace(B, N, H, D, rs is not None, opts, groups,
+                                           want_dextra)
+        dbpart = None
     else:
         dq_part, dbpart = attention_workspace(B, groups, H, N, D, extra_g is not None,
                                               want_dextra, opts)
@@ -792,6 +808,7 @@ def _cuda_bwd(saved: AttnSaved, dz: torch.Tensor, need_drs: bool, need_dextra: b
         PACKED_BF16_BWD_LAUNCHES += bf16
         BF16_BIAS_BWD_LAUNCHES += bf16 and extra_g is not None
         PACKED_BF16_BIAS_BWD_LAUNCHES += bf16 and extra_g is not None
+        PACKED_BF16_DBIAS_BWD_LAUNCHES += bf16 and want_dextra
         err = entry(
             ptr(x), ptr(g), ptr(b),
             ptr(wqkv), wqkv.stride(0), wqkv.stride(1), ptr(bqkv),
@@ -911,20 +928,32 @@ def packed_attention_bf16(qkv, n_head: int, scale: Optional[float] = None,
 
 
 def packed_attention_bf16_bwd(qkv, out, lse, dout, n_head: int,
-                              scale: Optional[float] = None, extra=None):
+                              scale: Optional[float] = None, extra=None,
+                              dbias: bool = False):
     """Its backward: dqkv (bf16) from the forward's out and lse and dout, P
-    recomputed with the forward's ``extra`` (which takes no gradient; a CPU
-    tensor: :func:`attention_bwd_reference`, rounding where the kernel
-    rounds)."""
-    global PACKED_BF16_BWD_LAUNCHES, PACKED_BF16_BIAS_BWD_LAUNCHES
+    recomputed with the forward's ``extra``; with ``dbias`` (``extra``
+    given, N ≤ ``MAX_BIAS_TOKENS``) also the bias's gradient in the grouped
+    form [G, H, N, N] f32, (dqkv, dbias_g) (a CPU tensor:
+    :func:`attention_bwd_reference`, rounding where the kernel rounds, its
+    dS summed over each group's images)."""
+    global PACKED_BF16_BWD_LAUNCHES, PACKED_BF16_BIAS_BWD_LAUNCHES, \
+        PACKED_BF16_DBIAS_BWD_LAUNCHES
     if qkv.device.type == "cpu":
         B, N, HD3 = qkv.shape
         D = HD3 // 3 // n_head
         scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
-        return attention_bwd_reference(qkv, out, lse, dout, n_head, scale,
-                                       extra_groups(extra, B, n_head, N)[0],
-                                       dtype=qkv.dtype)[0].to(qkv.dtype)
+        extra_g = extra_groups(extra, B, n_head, N)[0]
+        dqkv, ds = attention_bwd_reference(qkv, out, lse, dout, n_head, scale, extra_g,
+                                           dtype=qkv.dtype)
+        if not dbias:
+            return dqkv.to(qkv.dtype)
+        G = extra_g.shape[0]
+        return dqkv.to(qkv.dtype), ds.reshape(G, B // G, *ds.shape[1:]).sum(1)
     B, N, D, extra_g, groups = _packed_checks(qkv, n_head, extra)
+    if dbias:
+        if extra_g is None:
+            raise ValueError("dbias needs the bias")
+        check_bf16_dbias(N)
     check_dtype(qkv.device, torch.bfloat16, out=out, dout=dout)
     check_dtype(qkv.device, torch.float32, lse=lse)
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
@@ -933,17 +962,20 @@ def packed_attention_bf16_bwd(qkv, out, lse, dout, n_head: int,
     lib = build()
     dout = dout.contiguous()
     dqkv = torch.empty_like(qkv)
-    ws = bf16_attention_workspace(B, N, n_head, D, False,
-                                  dict(device=qkv.device, dtype=torch.float32))
+    opts = dict(device=qkv.device, dtype=torch.float32)
+    ws = bf16_attention_workspace(B, N, n_head, D, False, opts, groups, dbias)
+    dextra = torch.empty_like(extra_g) if dbias else None
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         PACKED_BF16_BWD_LAUNCHES += 1
         PACKED_BF16_BIAS_BWD_LAUNCHES += extra_g is not None
+        PACKED_BF16_DBIAS_BWD_LAUNCHES += dbias
         err = lib.vtx_packed_attention_bwd_bf16(ptr(qkv), ptr(extra_g), groups, ptr(out),
-                                                ptr(lse), ptr(dout), ptr(ws), ptr(dqkv), B, N,
-                                                n_head, D, ctypes.c_float(scale), stream)
+                                                ptr(lse), ptr(dout), ptr(ws), ptr(dqkv),
+                                                ptr(dextra), B, N, n_head, D,
+                                                ctypes.c_float(scale), stream)
     _raise_on(err, "packed attention backward (bf16)")
-    return dqkv
+    return (dqkv, dextra) if dbias else dqkv
 
 
 class _FusedAttentionLayer(torch.autograd.Function):
@@ -1048,17 +1080,19 @@ def ff_half_bwd_reference(z, ln2_scale, ln2_bias, w1, b1, w2, b2, rs_ff, hid, mu
     (csrc/fused_layer1_bwd.cu), on the branch input z [B, ..., C] (any token
     layout; rs_ff [B] per sample) and the saves of
     :func:`ff_half_fwd_reference`: → (dz [M, C] f32, dln2_scale, dln2_bias,
-    dw1, db1, dw2, db2, drs_ff)."""
+    dw1, db1, dw2, db2, drs_ff).  With z bf16 each step rounds where the
+    JAX kernel and the bf16 kernels round (fused_layer1.py:221-276): af,
+    r₂ ⊙ do (r₂ rounded first), da, dh, u₂ and dz's LN part and sum."""
     B, C = z.shape[0], z.shape[-1]
     M = z.numel() // C
     N = M // B
-    f = torch.float32
+    f, dt = torch.float32, z.dtype
     do2 = do.reshape(M, C).to(f)
     hid = hid.reshape(M, -1).to(f)
     # 1. dff = r₂ ⊙ do; af = act(hid); dW₂ = afᵀ·dff; db₂ = Σ_rows dff
     rsr = None if rs_ff is None else rs_ff.to(f).repeat_interleave(N)[:, None]
-    dff = do2 if rs_ff is None else do2 * rsr
-    af = _act(hid, activation)
+    dff = do2 if rs_ff is None else _rb(do2 * _rb(rsr, dt), dt)
+    af = _rb(_act(hid, activation), dt)
     dw2 = af.t() @ dff
     db2f = dff.sum(0) if b2 is not None else None
     # 2. da₀ = do·W₂ᵀ; dr₂ (reassociated); da = r₂ ⊙ da₀
@@ -1072,15 +1106,15 @@ def ff_half_bwd_reference(z, ln2_scale, ln2_bias, w1, b1, w2, b2, rs_ff, hid, mu
             drs_ff = per_row.reshape(B, N).sum(1).to(rs_ff.dtype)
         da = da * rsr
     # 3. dh = da ⊙ act'(hid)
-    dh = da * _act_grad(hid, activation)
+    dh = _rb(_rb(da, dt) * _act_grad(hid, activation), dt)
     # 4. u₂ from the saved statistics; dW₁ = u₂ᵀ·dh; db₁ = Σ_rows dh
     xhat2 = (z.reshape(M, C).to(f) - mu2.reshape(M, 1)) * rstd2.reshape(M, 1)
-    u2 = xhat2 * ln2_scale.to(f) + ln2_bias.to(f)
+    u2 = _rb(xhat2 * ln2_scale.to(f) + ln2_bias.to(f), dt)
     dw1 = u2.t() @ dh
     db1f = dh.sum(0) if b1 is not None else None
     # 5. dln₂ = dh·W₁ᵀ; dz = do + LN₂ᵀ(dln₂)
     dln2 = dh @ w1.to(f).t()
-    dz, dg2, db2n = ln_bwd_reference(dln2, xhat2, rstd2.reshape(M, 1), ln2_scale, do2)
+    dz, dg2, db2n = ln_bwd_reference(dln2, xhat2, rstd2.reshape(M, 1), ln2_scale, do2, dt)
     return (dz, cast_like(dg2, ln2_scale), cast_like(db2n, ln2_bias), cast_like(dw1, w1),
             cast_like(db1f, b1), cast_like(dw2, w2), cast_like(db2f, b2), drs_ff)
 

@@ -30,16 +30,19 @@ kernel: LN statistics f32, dots f32-accumulated, softmax and activation f32;
 :func:`fused_transformer_layer_bwd_reference`).  A CUDA tensor runs the
 hand-written kernels in ``csrc/fused_layer.cu`` (forward) and
 ``csrc/fused_layer1_bwd.cu`` (backward) or raises; it never falls back to
-the plain versions.  The kernels take float32, ``activation="silu"`` and
-the bias only with heads up to 32 wide (Swin's are 32); anything else on a
-CUDA tensor raises NotImplementedError.  With x bfloat16 (the JAX package's
-default precision: weights and biases bfloat16, LN parameters and row
-scales float32) the serving forward without a bias runs the kernels' bf16
-form (``csrc/fused_layer.cu``'s ``vtx_fused_transformer_layer_fwd_bf16``,
-the JAX kernel's rounding points, fused_layer1.py:91-171: ViT's eval
-step, and DINO's teacher); the bf16 training forward, the backward and
-the bias raise NotImplementedError (they wait on Swin-S, ROADMAP.md §A2's
-bf16 queue item 2).  Weights may be
+the plain versions.  The kernels take ``activation="silu"``, and in
+float32 the bias only with heads up to 32 wide (Swin's are 32); anything
+else on a CUDA tensor raises NotImplementedError.  With x bfloat16 (the JAX package's
+default precision: weights and biases bfloat16, LN parameters, row scales
+and the bias float32) every call runs the kernels' bf16 forms
+(``csrc/fused_layer.cu``'s ``vtx_fused_transformer_layer_fwd_bf16``,
+``csrc/fused_layer1_bwd.cu``'s ``vtx_fused_transformer_layer_bwd_bf16``,
+the JAX kernel's rounding points, fused_layer1.py:91-171, 221-339): ViT's
+eval step, DINO's teacher, and Swin-S's training and eval with the grouped
+bias on the packed-row attention's bf16 form, the bias's gradient summed
+there in f32 (windows of up to 128 tokens); the backward returns dx bf16,
+the LN parameters', the bias's and the row scales' gradients f32 and the
+weights' and biases' summed in f32 and rounded once to bf16.  Weights may be
 any 2-D strided view (the model passes ``linear.weight.t()``; its strides
 go to the kernels, nothing is copied, and their gradients come back in the
 view's layout).
@@ -53,26 +56,32 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import fused_layer
-from .fused_layer import (AttnSaved, BF16_SWIN, _act, _default_scale, _dot, _ln,
-                          _raise_on, _residual, _splits, bias_partials,
-                          attention_branch_reference, attention_half_bwd_reference,
-                          check_attention_args, check_bf16_form, check_extra, check_f32,
-                          check_matrix, check_vector, dq_partials, extra_grad, extra_groups,
-                          ff_half_bwd_reference, ff_half_fwd_reference,
-                          fused_attention_layer_fwd_reference, like_layout, ptr)
+from .fused_layer import (AttnSaved, _act, _default_scale, _dot, _ln, _raise_on,
+                          _residual, _splits, bias_partials, attention_branch_reference,
+                          attention_half_bwd_reference, bf16_attention_workspace,
+                          cast_like, check_attention_args, check_bf16_dbias,
+                          check_bf16_form, check_extra, check_vector, check_matrix,
+                          dq_partials, extra_grad, extra_groups, ff_half_bwd_reference,
+                          ff_half_fwd_reference, fused_attention_layer_fwd_reference,
+                          like_layout, ptr)
 
 __all__ = ["fused_transformer_layer", "fused_transformer_layer_reference",
            "fused_transformer_layer_fwd", "fused_transformer_layer_bwd",
            "fused_transformer_layer_fwd_reference",
            "fused_transformer_layer_bwd_reference", "L1Saved", "LAUNCHES",
-           "BWD_LAUNCHES"]
+           "BWD_LAUNCHES", "BF16_LAUNCHES", "BF16_BWD_LAUNCHES", "BF16_BIAS_LAUNCHES",
+           "BF16_BIAS_BWD_LAUNCHES"]
 
 # kernel launches through this module's wrappers, forward and backward
 # (chip_smoke.py reads them to show the main path went through the kernels)
 LAUNCHES = 0
 BWD_LAUNCHES = 0
-# ... and of the forward's, the launches of its bf16 form
+# ... and of those, the launches of the bf16 forms, and of those the ones
+# with the bias
 BF16_LAUNCHES = 0
+BF16_BWD_LAUNCHES = 0
+BF16_BIAS_LAUNCHES = 0
+BF16_BIAS_BWD_LAUNCHES = 0
 
 GRAD_NAMES = ("dx", "dln1_scale", "dln1_bias", "dwqkv", "dbqkv", "dwout", "dbout",
               "dln2_scale", "dln2_bias", "dw1", "db1", "dw2", "db2", "dextra",
@@ -201,24 +210,21 @@ def fused_transformer_layer_bwd_reference(saved: L1Saved, do: torch.Tensor,
 
 
 def _check(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout, ln2_scale, ln2_bias,
-           w1, b1, w2, b2, n_head, extra_g, rs_attn, rs_ff, activation, save=True):
-    """Shape/type checks of the CUDA ops; returns (B, N, C, H, D, F, bf16)
-    with bf16 whether the call takes the forward's bf16 form (serving
-    only: a bf16 ``save`` raises)."""
+           w1, b1, w2, b2, n_head, extra_g, rs_attn, rs_ff, activation, **saves):
+    """Shape/type checks of the CUDA ops (``saves``: the backward's saved
+    activations, bf16 where x is); returns (B, N, C, H, D, F, bf16) with
+    bf16 whether the call takes the kernels' bf16 forms."""
     if activation != "silu":
         raise NotImplementedError(
             f"the CUDA kernel takes activation='silu', got {activation!r}")
     B, N, C, H, D = check_attention_args(x, ln1_scale, ln1_bias, wqkv, bqkv,
                                          wout, bout, n_head)
     bf16 = check_bf16_form(
-        x, D, extra_g, dict(ln1_scale=ln1_scale, ln1_bias=ln1_bias, ln2_scale=ln2_scale,
-                            ln2_bias=ln2_bias, extra=extra_g, rs_attn=rs_attn,
-                            rs_ff=rs_ff),
-        wqkv=wqkv, bqkv=bqkv, wout=wout, bout=bout, w1=w1, b1=b1, w2=w2, b2=b2)
-    if bf16 and save:
-        raise NotImplementedError(
-            f"the whole layer's bf16 training forward and backward: {BF16_SWIN}")
-    check_extra(extra_g, H, N, D, window_only=True)
+        x, D, dict(ln1_scale=ln1_scale, ln1_bias=ln1_bias, ln2_scale=ln2_scale,
+                   ln2_bias=ln2_bias, extra=extra_g, rs_attn=rs_attn, rs_ff=rs_ff),
+        wqkv=wqkv, bqkv=bqkv, wout=wout, bout=bout, w1=w1, b1=b1, w2=w2, b2=b2, **saves)
+    # at bf16 the bias takes the packed-row core (any N, heads up to 64 wide)
+    check_extra(extra_g, H, N, D, window_only=not bf16)
     if w1.ndim != 2:
         raise ValueError(f"w1 must be [C, F], got {tuple(w1.shape)}")
     Fdim = w1.shape[1]
@@ -238,10 +244,10 @@ def _cuda_fwd(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout, ln2_scale,
               activation, scale, eps, save: bool):
     """The forward kernel: out, plus (qkv, acc, z, hid, mu1, rstd1, lse, mu2,
     rstd2) when ``save``."""
-    global LAUNCHES, BF16_LAUNCHES
+    global LAUNCHES, BF16_LAUNCHES, BF16_BIAS_LAUNCHES
     B, N, C, H, D, Fdim, bf16 = _check(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout,
                                        ln2_scale, ln2_bias, w1, b1, w2, b2, n_head,
-                                       extra_g, rs_attn, rs_ff, activation, save)
+                                       extra_g, rs_attn, rs_ff, activation)
     from ._build import build
 
     lib = build()
@@ -253,7 +259,7 @@ def _cuda_fwd(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout, ln2_scale,
     acc = torch.empty((B, N, HD), **act)
     z = torch.empty((B, N, C), **act)
     hid = torch.empty((B, N, Fdim), **act)
-    af = torch.empty((M, Fdim), **opts) if save else None
+    af = torch.empty((M, Fdim), **act) if save else None
     stats = [torch.empty((B, N), **opts) for _ in range(2)] + \
         [torch.empty((B, H, N), **opts)] + \
         [torch.empty((B, N), **opts) for _ in range(2)] if save else [None] * 5
@@ -264,7 +270,9 @@ def _cuda_fwd(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout, ln2_scale,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         LAUNCHES += 1
         BF16_LAUNCHES += bf16
+        BF16_BIAS_LAUNCHES += bf16 and extra_g is not None
         fused_layer.PACKED_BF16_LAUNCHES += bf16  # its attention's bf16 form
+        fused_layer.PACKED_BF16_BIAS_LAUNCHES += bf16 and extra_g is not None
         err = entry(
             ptr(x), ptr(ln1_scale), ptr(ln1_bias),
             ptr(wqkv), wqkv.stride(0), wqkv.stride(1), ptr(bqkv),
@@ -283,36 +291,44 @@ def _cuda_fwd(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout, ln2_scale,
 
 def _cuda_bwd(saved: L1Saved, do: torch.Tensor, need_drs, need_dextra: bool):
     """The backward kernel sequence: the 16 gradients of ``GRAD_NAMES``."""
-    global BWD_LAUNCHES
+    global BWD_LAUNCHES, BF16_BWD_LAUNCHES, BF16_BIAS_BWD_LAUNCHES
     s = saved
     x = s.x
     do = do.contiguous()
-    check_f32(x.device, do=do, qkv=s.qkv, acc=s.acc, z=s.z, hid=s.hid, lse=s.lse)
     if do.shape != x.shape:
         raise ValueError(f"do must be {tuple(x.shape)}, got {tuple(do.shape)}")
-    B, N, C = x.shape
-    H = s.n_head
-    HD = s.wqkv.shape[1] // 3
-    D = HD // H
-    Fdim = s.w1.shape[1]
+    B, N, C, H, D, Fdim, bf16 = _check(
+        x, s.ln1_scale, s.ln1_bias, s.wqkv, s.bqkv, s.wout, s.bout, s.ln2_scale, s.ln2_bias,
+        s.w1, s.b1, s.w2, s.b2, s.n_head, s.extra_g, s.rs_attn, s.rs_ff, s.activation,
+        do=do, qkv=s.qkv, acc=s.acc, z=s.z, hid=s.hid)
+    HD = H * D
     M = B * N
     groups = 1 if s.extra_g is None else s.extra_g.shape[0]
+    want_dextra = s.extra_g is not None and need_dextra
+    if bf16 and want_dextra:
+        check_bf16_dbias(N)
     from ._build import build
 
     lib = build()
     opts = dict(device=x.device, dtype=torch.float32)
+    act = dict(device=x.device, dtype=x.dtype)  # the activations' workspace
     splits = (_splits(HD, C, M), _splits(C, 3 * HD, M), _splits(C, Fdim, M),
               _splits(Fdim, C, M))
     wpart = max(splits[0] * HD * C, splits[1] * C * 3 * HD, splits[2] * C * Fdim,
                 splits[3] * Fdim * C)
     chunks = -(-M // 128)  # csrc COLSUM_ROWS
-    want_dextra = s.extra_g is not None and need_dextra
+    if bf16:  # the FF half's da₀, then the attention's workspace (with the dbias sums)
+        dq_part = bf16_attention_workspace(B, N, H, D, s.rs_attn is not None, opts, groups,
+                                           want_dextra, M * Fdim if s.rs_ff is not None else 0)
+        dbpart = None
+    else:
+        dq_part = dq_partials(N, M, HD, opts) if s.extra_g is None else None
+        dbpart = bias_partials(B, groups, H, N, opts) if want_dextra else None
     ws = dict(
-        af=torch.empty((M, Fdim), **opts), dh=torch.empty((M, Fdim), **opts),
-        dz=torch.empty((M, C), **opts), dacc=torch.empty((M, HD), **opts),
-        dq_part=dq_partials(N, M, HD, opts) if s.extra_g is None else None,
-        dqkv=torch.empty((M, 3 * HD), **opts), dln=torch.empty((M, C), **opts),
-        dbpart=bias_partials(B, groups, H, N, opts) if want_dextra else None,
+        af=torch.empty((M, Fdim), **act), dh=torch.empty((M, Fdim), **act),
+        dz=torch.empty((M, C), **act), dacc=torch.empty((M, HD), **act),
+        dq_part=dq_part, dqkv=torch.empty((M, 3 * HD), **act),
+        dln=torch.empty((M, C), **opts), dbpart=dbpart,
         wpart=torch.empty((wpart,), **opts),
         cpart=torch.empty((chunks * max(C, 3 * HD, Fdim),), **opts))
     vec = lambda n, t: torch.empty((n,), **opts) if t is not None else None  # noqa: E731
@@ -324,10 +340,18 @@ def _cuda_bwd(saved: L1Saved, do: torch.Tensor, need_drs, need_dextra: bool):
     dextra = torch.empty_like(s.extra_g) if want_dextra else None
     drs_attn = vec(B, s.rs_attn) if need_drs[0] else None
     drs_ff = vec(B, s.rs_ff) if need_drs[1] else None
+    entry = lib.vtx_fused_transformer_layer_bwd_bf16 if bf16 \
+        else lib.vtx_fused_transformer_layer_bwd
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         BWD_LAUNCHES += 1
-        err = lib.vtx_fused_transformer_layer_bwd(
+        BF16_BWD_LAUNCHES += bf16
+        BF16_BIAS_BWD_LAUNCHES += bf16 and s.extra_g is not None
+        # its attention's bf16 form, with the bias and its gradient
+        fused_layer.PACKED_BF16_BWD_LAUNCHES += bf16
+        fused_layer.PACKED_BF16_BIAS_BWD_LAUNCHES += bf16 and s.extra_g is not None
+        fused_layer.PACKED_BF16_DBIAS_BWD_LAUNCHES += bf16 and want_dextra
+        err = entry(
             ptr(x), ptr(s.ln1_scale), ptr(s.ln1_bias),
             ptr(s.wqkv), s.wqkv.stride(0), s.wqkv.stride(1), ptr(s.bqkv),
             ptr(s.wout), s.wout.stride(0), s.wout.stride(1), ptr(s.bout),
@@ -349,8 +373,11 @@ def _cuda_bwd(saved: L1Saved, do: torch.Tensor, need_drs, need_dextra: bool):
             ptr(dextra), ptr(drs_attn), ptr(drs_ff),
             B, N, C, H, D, Fdim, ctypes.c_float(s.scale), stream)
     _raise_on(err, "fused_transformer_layer backward")
-    return (dx, dg1, db1, dwqkv, dbqkv, dwout, dbout, dg2, db2, dw1, db1f, dw2,
-            db2f, dextra, drs_attn, drs_ff)
+    # the weights' and biases' gradients, summed in f32, in their dtype
+    return (dx, dg1, db1, cast_like(dwqkv, s.wqkv), cast_like(dbqkv, s.bqkv),
+            cast_like(dwout, s.wout), cast_like(dbout, s.bout), dg2, db2,
+            cast_like(dw1, s.w1), cast_like(db1f, s.b1), cast_like(dw2, s.w2),
+            cast_like(db2f, s.b2), dextra, drs_attn, drs_ff)
 
 
 def fused_transformer_layer_fwd(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout,

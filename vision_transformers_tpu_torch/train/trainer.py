@@ -11,9 +11,10 @@ The compute dtype follows the conf as in the JAX trainer
 (trainer.py:58-61): ``precision=bf16`` (the schema's default) or ``fp16``
 computes in bf16, ``precision=f32`` in f32; the parameters, the optimizer,
 the EMA and the checkpoints stay f32 either way.  bf16 is ported for arch
-types ``vit`` (this trainer) and ``dino`` (``train/dino.py``); any other
-arch type at bf16 raises NotImplementedError (ROADMAP.md §A2's bf16 queue)
-and runs with ``precision=f32``.
+types ``vit`` and ``swin_transformer`` (this trainer) and ``dino``
+(``train/dino.py``); any other arch type at bf16 raises
+NotImplementedError (ROADMAP.md §A2's bf16 queue) and runs with
+``precision=f32``.
 
 Not ported yet (each raises NotImplementedError, see ROADMAP): the records
 loader and its augmentation, progressive resizing (``progressive.step >
@@ -42,7 +43,7 @@ __all__ = ["train_classification", "check_supported", "to_device", "compute_dtyp
            "full_precision_products", "BF16_ARCHS"]
 
 # the arch types whose models compute in bf16 on the card
-BF16_ARCHS = ("vit", "dino")
+BF16_ARCHS = ("vit", "swin_transformer", "dino")
 
 
 def compute_dtype(conf: ImageNetConfig) -> torch.dtype:
