@@ -202,6 +202,18 @@ non-zero and prints no ok line):
            device beside scaled_dot_product_attention's backward alone with
            the bias as a float attn_mask, the f32 window attention's
            backward with dbias and the bound
+3hbf.      Halo-S at bf16 (halo_bf16_kernels): the halo core's bf16
+           kernels (E = BF16) as ptxas built them, 0 spill bytes or the
+           phase fails; B4's bf16 training forward (saves, the bias, both
+           row scales), serving forward and backward at the four Halo-S
+           stage calls (128 images), B5a's forward (lse) and backward at
+           stage 1 and B5b's at stage 1 and at window 4 / halo 3, each
+           against its plain version at bf16 within the same limits, every
+           backward bit-identical across two runs; median ms of each beside
+           the plain versions and the bounds at the bf16 rate, and for B5a
+           / B5b F.scaled_dot_product_attention on the same gathered problem
+           (bf16, the bias a float attn_mask), forward and backward with the
+           mask's gradient, on the device
 4. golden  ViT-S/16 @224 (depth 12), Swin-S @224 (depth 24), Halo-S @256
            (depth 12), PVT-S @224 (depth 16) and Twins-SVT-S @224 (depth
            18), seeded weights, against the JAX logits in
@@ -261,6 +273,11 @@ non-zero and prints no ok line):
            to 64 rows and one train step at 64 rows on B2's bf16 forms with
            the grouped bias ('layer1'), within 3 x JAX's bf16 gap (the
            loss's: the root mean square over six seeds)
+4hbf.      Halo-S at bf16 against tests/data/halo_s_bf16_port_golden.npz
+           (scripts/make_torch_port_halo_bf16_golden.py): the logits tiled
+           to 64 rows and one train step at 64 rows on B4's bf16 forms (the
+           default 'layer'), within 3 x JAX's bf16 gap (the loss's: the
+           root mean square over six seeds)
 5. predict the serving path of each model: ``predict.main`` on 48 and then
            160 seeded JPEGs (Halo, PVT — 'fused' — and Twins: 48) with a
            seeded ``.pt:ema``; the launch counters are zeroed just before
@@ -309,7 +326,12 @@ non-zero and prints no ok line):
            every one on the bf16 forms (DINO's locals with the mask, Swin's
            layers with the grouped bias, its gradient on the packed-row
            attention's bf16 backward); the steady-state step, images/s and
-           peak memory of each printed beside its f32 run's
+           peak memory of each printed beside its f32 run's.  Halo-S at f32
+           and at the conf's default precision, bf16, side by side (B4 and
+           its bf16 forms), predict serving the bf16 run's checkpoint at bf16
+           (``--precision conf``: 12 launches of B4's bf16 forward), then at
+           bf16 forced to 'direct' (B5a's bf16 forms); Halo-S forced to
+           'gather' runs at bf16 (B5b's bf16 forms), window 4 / halo 3 at f32
 
 The line before the last is the kernels' JSON record: each kernel's
 launches on the trainer run that takes it (ViT's for the attention layer,
@@ -324,8 +346,11 @@ call, ViT's at bf16 for the bf16 forms, ``[bf16]``, whose bound is at the
 bf16 rate, DINO's at bf16 for the bf16 forms with the bias,
 ``+bias[bf16]``, timed at DINO's local call, Swin-S's at bf16 for B2's
 bf16 forms with the bias and the attention's backward with dbias,
-``+dbias[bf16]``, timed at the four Swin-S stages; every path's in
-``launches_by_path``) and its
+``+dbias[bf16]``, timed at the four Swin-S stages, Halo-S's at bf16 for
+B4's bf16 forms, timed at the four Halo-S stages, its bf16 runs forced to
+'direct' and 'gather' for B5a's and B5b's, timed at stage 1 (B5b at window
+4 / halo 3 too), each with the halo core's bf16 kernels' registers and
+spills; every path's in ``launches_by_path``) and its
 times at a call that run makes (``shape``; other shapes in
 ``other_shapes``); the last line is ``{"ok": true, "device": {...}}``.
 Needs no network and no JAX.
@@ -451,6 +476,25 @@ KERNELS = {  # name → (source, the TPU kernel it replaces)
     "packed_attention_bwd+dbias[bf16]": (
         "vision_transformers_tpu_torch/csrc/attention_bf16_tma.cuh",
         "vision_transformers_tpu/ops/fused_layer1.py:606"),
+    # Halo-S at bf16: the whole Halo layer's bf16 forms (the GEMM core's bf16
+    # form and the halo core's, E = BF16), timed at the four Halo-S stage
+    # calls of the trainer (stage 1 first) and counted on the Halo-S
+    # trainer's bf16 run; the halo attention's bf16 forms, timed at stage 1
+    # (the gathered one at window 4 / halo 3 too) and counted on the bf16
+    # trainer runs forced to 'direct' and to 'gather'
+    "fused_halo_layer[bf16]": ("vision_transformers_tpu_torch/csrc/fused_halo.cu",
+                               "vision_transformers_tpu/ops/fused_halo_layer.py:92"),
+    "fused_halo_layer_bwd[bf16]": ("vision_transformers_tpu_torch/csrc/fused_halo.cu",
+                                   "vision_transformers_tpu/ops/fused_halo_layer.py:179"),
+    "halo_attention_direct[bf16]": ("vision_transformers_tpu_torch/csrc/halo_attention_tc.cuh",
+                                    "vision_transformers_tpu/ops/fused_halo.py:252"),
+    "halo_attention_direct_bwd[bf16]": (
+        "vision_transformers_tpu_torch/csrc/halo_attention_tc.cuh",
+        "vision_transformers_tpu/ops/fused_halo.py:282"),
+    "halo_attention[bf16]": ("vision_transformers_tpu_torch/csrc/halo_attention_tc.cuh",
+                             "vision_transformers_tpu/ops/fused_halo.py:44"),
+    "halo_attention_bwd[bf16]": ("vision_transformers_tpu_torch/csrc/halo_attention_tc.cuh",
+                                 "vision_transformers_tpu/ops/fused_halo.py:72"),
 }
 # the tensor-core kernels (3xTF32): the attention of csrc/attention_tc.cuh, which
 # B6, B3 and B8 run, and of csrc/halo_attention_tc.cuh, which B5a, B5b and B4's
@@ -594,6 +638,41 @@ def attention_bf16_builds(build_log):
                 args = ",".join(re.findall(r"L[ib](\d+)E", t.group(2) or ""))
                 cur = {"kernel": t.group(1) + (f"<{args}>" if args else "")}
                 out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            cur = None
+    return out
+
+
+HALO_KERNEL_ARGS = {"halo_fwd_kernel": ("DH", "SAVE_LSE", "GATHER", "E"),
+                    "halo_bwd_kernel": ("DH", "GATHER", "E", "ROUND")}
+
+
+def halo_bf16_builds(build_log):
+    """Each bf16 instantiation (E = 1) of the halo core's kernels
+    (csrc/halo_attention_tc.cuh) that ptxas compiled: its template
+    arguments, registers and spill bytes, from nvcc's ``-Xptxas -v``
+    report."""
+    out, cur = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = None
+            t = re.search(r"3hta\d+(halo_(?:fwd|bwd)_kernel)I((?:L[ib]\d+E)+)E", m.group(1))
+            if t:
+                args = dict(zip(HALO_KERNEL_ARGS[t.group(1)],
+                                map(int, re.findall(r"L[ib](\d+)E", t.group(2)))))
+                if args.get("E") == 1:
+                    cur = {"kernel": t.group(1) + "<" + ", ".join(
+                        f"{k}={v}" for k, v in args.items()) + ">"}
+                    out.append(cur)
             continue
         if cur is None:
             continue
@@ -777,66 +856,73 @@ def layer_bwd_work(B, N, C, H, D, F, groups=0, row_scales=False):
 
 
 def halo_layer_fwd_work(B, H, W, C, nh, D, F, window, halo, row_scales=False,
-                       saves=False):
+                       saves=False, a=4):
     """(operations, bytes) of the whole Halo layer's forward on M = B·H·W
     tokens: the four projection GEMMs (8·M·C·HD + 4·M·C·F) and halo
     attention over k² = (w + 2·halo)² positions (4·M·k²·HD); x, the weights
     and the bias [nh, w², k²] read, out written, and with ``saves`` qkv,
-    acc, z, hid, the statistics and lse written too."""
+    acc, z, hid, the statistics and lse written too.  ``a``: the bytes of an
+    activation, weight or bias (2 in the bf16 form; the LN parameters,
+    statistics, lse, row scales and the relative-position bias stay 4)."""
     M, HD, k2 = B * H * W, nh * D, (window + 2 * halo) ** 2
     flops = 8 * M * C * HD + 4 * M * C * F + 4 * M * k2 * HD
-    nbytes = 4 * (2 * M * C + 4 * C * HD + 2 * C * F + 6 * C + F
-                  + nh * window * window * k2 + (2 * B if row_scales else 0))
+    nbytes = (a * (2 * M * C + 4 * C * HD + 2 * C * F + 2 * C + F)
+              + 4 * (4 * C + nh * window * window * k2 + (2 * B if row_scales else 0)))
     if saves:
-        nbytes += 4 * (4 * M * HD + M * C + M * F + 4 * M + nh * M)
+        nbytes += a * (4 * M * HD + M * C + M * F) + 4 * (4 * M + nh * M)
     return flops, nbytes
 
 
-def halo_layer_bwd_work(B, H, W, C, nh, D, F, window, halo, row_scales=False):
+def halo_layer_bwd_work(B, H, W, C, nh, D, F, window, halo, row_scales=False, a=4):
     """(operations, bytes) of the whole Halo layer's backward: 16·M·C·HD +
     8·M·C·F of GEMMs and five halo attention products (recomputed scores,
     dv, dp, dk, dq: 10·M·k²·HD); reads x, do, the saves and the weights and bias
-    once, writes dx, the parameter gradients and dbias once."""
+    once, writes dx, the parameter gradients (f32) and dbias once; ``a`` as
+    in :func:`halo_layer_fwd_work`."""
     M, HD, k2 = B * H * W, nh * D, (window + 2 * halo) ** 2
     flops = 16 * M * C * HD + 8 * M * C * F + 10 * M * k2 * HD
     params = 4 * C * HD + 2 * C * F + 6 * C + F
-    nbytes = 4 * (3 * M * C + 4 * M * HD + M * C + M * F + 4 * M + nh * M
-                  + 2 * params + 2 * nh * window * window * k2
-                  + (4 * B if row_scales else 0))
+    nbytes = (a * (3 * M * C + 4 * M * HD + M * C + M * F + params) + 4 * params
+              + 4 * (4 * M + nh * M + 2 * nh * window * window * k2
+                     + (4 * B if row_scales else 0)))
     return flops, nbytes
 
 
-def halo_attn_fwd_work(B, H, W, nh, D, window, halo, saves=False):
+def halo_attn_fwd_work(B, H, W, nh, D, window, halo, saves=False, a=4):
     """(operations, bytes) of halo attention off the maps: 4·M·k²·HD; q, kv
-    and the bias read, out (and with ``saves`` lse) written."""
+    and the bias read, out (and with ``saves`` lse) written; ``a`` the bytes
+    of an element of q, kv, out."""
     M, HD, k2 = B * H * W, nh * D, (window + 2 * halo) ** 2
-    nbytes = 4 * (4 * M * HD + nh * window * window * k2 + (nh * M if saves else 0))
+    nbytes = a * 4 * M * HD + 4 * (nh * window * window * k2 + (nh * M if saves else 0))
     return 4 * M * k2 * HD, nbytes
 
 
-def halo_attn_bwd_work(B, H, W, nh, D, window, halo):
+def halo_attn_bwd_work(B, H, W, nh, D, window, halo, a=4):
     """(operations, bytes) of its backward: five products, 10·M·k²·HD; q,
-    kv, out, lse, do and the bias read, dq, dkv and dbias written."""
+    kv, out, lse, do and the bias read, dq, dkv and dbias written (the bf16
+    form reads no out)."""
     M, HD, k2 = B * H * W, nh * D, (window + 2 * halo) ** 2
-    return 10 * M * k2 * HD, 4 * (8 * M * HD + nh * M + 2 * nh * window * window * k2)
+    acts = 8 * M * HD if a == 4 else 7 * M * HD
+    return 10 * M * k2 * HD, a * acts + 4 * (nh * M + 2 * nh * window * window * k2)
 
 
-def gather_fwd_work(Bw, M, N, nh, D, saves=False):
+def gather_fwd_work(Bw, M, N, nh, D, saves=False, a=4):
     """(operations, bytes) of the gathered halo attention's forward over Bw
     windows: 4·Bw·M·N·HD; q, kv and the bias read, out (and with ``saves``
-    lse) written."""
+    lse) written; ``a`` the bytes of an element of q, kv, out."""
     HD = nh * D
-    nbytes = 4 * (2 * Bw * M * HD + 2 * Bw * N * HD + nh * M * N
-                  + (Bw * nh * M if saves else 0))
+    nbytes = (a * (2 * Bw * M * HD + 2 * Bw * N * HD)
+              + 4 * (nh * M * N + (Bw * nh * M if saves else 0)))
     return 4 * Bw * M * N * HD, nbytes
 
 
-def gather_bwd_work(Bw, M, N, nh, D):
+def gather_bwd_work(Bw, M, N, nh, D, a=4):
     """(operations, bytes) of its backward: five products, 10·Bw·M·N·HD; q,
-    kv, out, lse, do and the bias read, dq, dkv and dbias written."""
+    kv, out, lse, do and the bias read, dq, dkv and dbias written (the bf16
+    form reads no out)."""
     HD = nh * D
-    return 10 * Bw * M * N * HD, 4 * (4 * Bw * M * HD + 4 * Bw * N * HD + Bw * nh * M
-                                      + 2 * nh * M * N)
+    acts = (4 if a == 4 else 3) * Bw * M * HD + 4 * Bw * N * HD
+    return 10 * Bw * M * N * HD, a * acts + 4 * (Bw * nh * M + 2 * nh * M * N)
 
 
 def block_fwd_work(B, N, C, H, D, Cout, groups=0, saves=False):
@@ -2826,6 +2912,227 @@ def halo_backward_kernels(torch):
 
 
 # ---------------------------------------------------------------------------
+# 3hbf. the halo kernels' bf16 forms (B4, B5a, B5b) vs their plain versions
+# ---------------------------------------------------------------------------
+
+# the whole Halo layer's inputs that stay f32 in its bf16 form: the
+# LayerNorms' parameters and the relative-position bias
+HALO_F32_ARGS = (1, 2, 6, 7, 12)
+
+
+def halo_bf16_check(torch, what, names, outs, again, plain, tol, worst):
+    """Each kernel output finite, bit-identical across two runs, within tol
+    of its plain version (:func:`bf16_close`); the worst error into
+    ``worst``."""
+    for name, k, k2, p in zip(names, outs, again, plain):
+        if p is None:
+            if k is not None:
+                raise RuntimeError(f"bf16: {what} {name} should be None")
+            continue
+        if not torch.equal(k, k2):
+            raise RuntimeError(f"bf16: {what} {name} differs between two runs")
+        worst[0] = max(worst[0], bf16_close(
+            torch, f"{what} {name} ({k.dtype}, bit-identical across two runs)", k, p, tol))
+
+
+def halo_sdpa_times(torch, q, k, v, mask, scale, do):
+    """scaled_dot_product_attention on the same gathered problem, bf16 with
+    the bias as a float attn_mask: (forward ms, backward ms with the
+    mask's gradient), on the device (CUDA graphs of 10 calls)."""
+    import torch.nn.functional as F_
+
+    leaves = [t.detach().requires_grad_() for t in (q, k, v, mask)]
+    with torch.no_grad():
+        fwd = device_ms(torch, lambda: F_.scaled_dot_product_attention(
+            *leaves[:3], attn_mask=leaves[3], scale=scale))
+    timing = _WARMUP_STREAM[0]  # the graph's inputs made on the timing stream
+    timing.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(timing):
+        o = F_.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=scale)
+    torch.cuda.current_stream().wait_stream(timing)
+    bwd = device_ms(torch, lambda: torch.autograd.grad(o, leaves, do, retain_graph=True))
+    del o, leaves
+    return fwd, bwd
+
+
+def halo_bf16_kernels(torch):
+    """3hbf: the bf16 forms of the whole Halo layer B4 (training forward with
+    the saves and both row scales, serving forward, backward) at the four
+    Halo-S stages at 128 images, and of the halo attention B5a (off the
+    maps) and B5b (gathered: Halo-S stage 1 and stage 1 at window 4 / halo
+    3), forward with lse and backward, against their plain versions at
+    bf16 within BF16_FWD_TOL / BF16_BWD_TOL, every backward twice and
+    bit-identical; median ms (CUDA events) of each beside the plain
+    version, the bound at the bf16 rate and, for B5a / B5b,
+    scaled_dot_product_attention on the same gathered problem at bf16 (the
+    bias a float attn_mask; forward, and backward with the mask's
+    gradient, on the device).  Returns {kernel name: [records]}, the
+    trainer's call first."""
+    from vision_transformers_tpu_torch.ops import _build
+    from vision_transformers_tpu_torch.ops import fused_halo as fh
+    from vision_transformers_tpu_torch.ops import fused_halo_layer as fhl
+
+    built = halo_bf16_builds(_build.BUILD_LOG)
+    log("bf16: the halo core's bf16 kernels: " + "; ".join(
+        f"{k['kernel']} {k.get('registers')} registers, {k.get('spill_bytes')} spill bytes"
+        for k in built))
+    bf = torch.bfloat16
+    recs = {k: [] for k in ("fused_halo_layer[bf16]", "fused_halo_layer_bwd[bf16]",
+                            "halo_attention_direct[bf16]", "halo_attention_direct_bwd[bf16]",
+                            "halo_attention[bf16]", "halo_attention_bwd[bf16]")}
+    stages = halo_stages(128)
+    for call in stages:
+        B, H, W, C, nh, D, F = call["shape"]
+        kw = dict(window=call["window"], halo=call["halo"])
+        a32, (r1, r2) = halo_layer_inputs(torch, call, True, seed=call["stage"])
+        a = [t if i in HALO_F32_ARGS else t.to(bf) for i, t in enumerate(a32)]
+        del a32
+        what = halo_what(call, ", bf16, row scales")
+        do = torch.randn(B, H, W, C, device=DEVICE,
+                         generator=torch.Generator(DEVICE).manual_seed(5)).to(bf)
+        out, saved = fhl.fused_halo_layer_fwd(*a, nh, r1, r2, **kw)
+        grads = fhl.fused_halo_layer_bwd(saved, do)
+        again = fhl.fused_halo_layer_bwd(saved, do)
+        with torch.no_grad():
+            serve = fhl.fused_halo_layer(*a, nh, r1, r2, **kw)
+        torch.cuda.synchronize()
+        out_p, saved_p = fhl.fused_halo_layer_fwd_reference(*a, nh, r1, r2, **kw)
+        plain = fhl.fused_halo_layer_bwd_reference(saved_p, do)
+        err_f = [0.0]
+        halo_bf16_check(torch, what, ("out", "out (serving)", "qkv", "acc", "z", "hid"),
+                        (out, serve, saved.qkv, saved.acc, saved.z, saved.hid),
+                        (out, serve, saved.qkv, saved.acc, saved.z, saved.hid),
+                        (out_p, out_p, saved_p.qkv, saved_p.acc, saved_p.z, saved_p.hid),
+                        BF16_FWD_TOL, err_f)
+        err_b = [0.0]
+        halo_bf16_check(torch, what, fhl.GRAD_NAMES, grads, again, plain, BF16_BWD_TOL, err_b)
+        del grads, again, plain, serve
+        f_ms = median_ms(torch, lambda: fhl.fused_halo_layer_fwd(*a, nh, r1, r2, **kw))
+        b_ms = median_ms(torch, lambda: fhl.fused_halo_layer_bwd(saved, do))
+        pf_ms = median_ms(torch, lambda: fhl.fused_halo_layer_fwd_reference(
+            *a, nh, r1, r2, **kw), reps=5, warmup=1)
+        pb_ms = median_ms(torch, lambda: fhl.fused_halo_layer_bwd_reference(saved_p, do),
+                          reps=5, warmup=1)
+        fb, fby = bound(*halo_layer_fwd_work(*call["shape"], **kw, row_scales=True,
+                                             saves=True, a=2), H100_BF16_FLOPS)
+        bb, bby = bound(*halo_layer_bwd_work(*call["shape"], **kw, row_scales=True, a=2),
+                        H100_BF16_FLOPS)
+        log(f"bf16: fused_halo_layer Halo-S stage {call['stage']} train call (128 images, "
+            f"B,H,W,C,heads,D,F={call['shape']}, bias, row scales; median of 20, CUDA "
+            f"events): kernel fwd(saves) {f_ms:.3f} + bwd {b_ms:.3f} ms; plain fwd "
+            f"{pf_ms:.3f} + bwd {pb_ms:.3f} ms; bound (bf16 989 TFLOP/s) fwd {fb:.3f} "
+            f"({fby}) + bwd {bb:.3f} ms ({bby})")
+        shape = (f"Halo-S stage {call['stage']} train, B,H,W,C,heads,D,F="
+                 + ",".join(map(str, call["shape"])) + ", row scales")
+        recs["fused_halo_layer[bf16]"].append({
+            "shape": shape + ", saves", "max_abs_err": err_f[0], "ms": f_ms,
+            "plain_ms": pf_ms, "bound_ms": fb, "bound_by": fby, "library_ms": None})
+        recs["fused_halo_layer_bwd[bf16]"].append({
+            "shape": shape, "max_abs_err": err_b[0], "ms": b_ms, "plain_ms": pb_ms,
+            "bound_ms": bb, "bound_by": bby, "library_ms": None})
+        del a, saved, saved_p, out, out_p, do
+
+    # the halo attention alone: B5a at stage 1, B5b at stage 1 and at window
+    # 4 / halo 3
+    call = stages[0]
+    B, H, W, C, nh, D, F = call["shape"]
+    kw = dict(window=call["window"], halo=call["halo"])
+    q, kv, bias, do = (t if i == 2 else t.to(bf)
+                       for i, t in enumerate(halo_attn_inputs(torch, call, seed=3)))
+    what = halo_what(call, ", bf16, the attention off the maps")
+    out, saved = fh.halo_attention_direct_fwd(q, kv, bias, n_head=nh, **kw)
+    grads = fh.halo_attention_direct_bwd(saved, do)
+    again = fh.halo_attention_direct_bwd(saved, do)
+    torch.cuda.synchronize()
+    out_p, saved_p = direct_plain_fwd(torch, q, kv, bias, call)
+    plain = fh.halo_attention_direct_bwd_reference(saved_p, do)
+    err_f, err_b = [0.0], [0.0]
+    halo_bf16_check(torch, what, ("out", "lse"), (out, saved.lse), (out, saved.lse),
+                    (out_p, saved_p.lse), BF16_FWD_TOL, err_f)
+    halo_bf16_check(torch, what, ("dq", "dkv", "dbias"), grads, again, plain, BF16_BWD_TOL,
+                    err_b)
+    f_ms = median_ms(torch, lambda: fh.halo_attention_direct_fwd(q, kv, bias, n_head=nh,
+                                                                 **kw))
+    b_ms = median_ms(torch, lambda: fh.halo_attention_direct_bwd(saved, do))
+    pf_ms = median_ms(torch, lambda: direct_plain_fwd(torch, q, kv, bias, call), reps=5,
+                      warmup=1)
+    pb_ms = median_ms(torch, lambda: fh.halo_attention_direct_bwd_reference(saved_p, do),
+                      reps=5, warmup=1)
+    qg, kg, vg, mask, scale = sdpa_problem(torch, q, kv, bias, call)
+    dog = fh.windows(do, call["window"]).reshape(qg.shape[0], -1, nh, D).transpose(1, 2)
+    lf_ms, lb_ms = halo_sdpa_times(torch, qg, kg, vg, mask.to(bf), scale, dog)
+    release_timing_stream(torch)
+    fb, fby = bound(*halo_attn_fwd_work(B, H, W, nh, D, **kw, saves=True, a=2),
+                    H100_BF16_FLOPS)
+    bb, bby = bound(*halo_attn_bwd_work(B, H, W, nh, D, **kw, a=2), H100_BF16_FLOPS)
+    log(f"bf16: halo_attention_direct Halo-S stage 1 (128 images): kernel fwd(lse) "
+        f"{f_ms:.3f} + bwd {b_ms:.3f} ms; plain fwd {pf_ms:.3f} + bwd {pb_ms:.3f} ms; "
+        f"scaled_dot_product_attention (bf16, float mask) on the gathered problem fwd "
+        f"{lf_ms:.4f} + bwd {lb_ms:.4f} ms on the device; bound fwd {fb:.3f} ({fby}) + "
+        f"bwd {bb:.3f} ms ({bby})")
+    shape = "Halo-S stage 1, B,H,W,C,heads,D=" + ",".join(map(str, call["shape"][:6]))
+    recs["halo_attention_direct[bf16]"].append({
+        "shape": shape + ", lse", "max_abs_err": err_f[0], "ms": f_ms, "plain_ms": pf_ms,
+        "bound_ms": fb, "bound_by": fby, "library_ms": lf_ms})
+    recs["halo_attention_direct_bwd[bf16]"].append({
+        "shape": shape, "max_abs_err": err_b[0], "ms": b_ms, "plain_ms": pb_ms,
+        "bound_ms": bb, "bound_by": bby, "library_ms": lb_ms})
+    del q, kv, bias, do, out, saved, grads, again, out_p, saved_p, plain, qg, kg, vg, mask, dog
+
+    for call in (stages[0], dict(stages[0], stage="1 (window 4, halo 3)", window=4, halo=3)):
+        q, kv, bias, do = (t if i == 2 else t.to(bf)
+                           for i, t in enumerate(gathered_problem(torch, call)))
+        Bw, M, HD = q.shape
+        N = kv.shape[1]
+        what = halo_what(call, f", bf16, gathered: B'={Bw} M={M} N={N}")
+        out, saved = fh.halo_attention_fwd(q, kv, bias, nh)
+        grads = fh.halo_attention_bwd(saved, do)
+        again = fh.halo_attention_bwd(saved, do)
+        with torch.no_grad():
+            serve = fh.halo_attention(q, kv, bias, nh)
+        torch.cuda.synchronize()
+        scale = saved.scale
+        out_p, lse_p = fh.gathered_fwd_reference(q, kv, bias, nh, scale)
+        plain = fh.gathered_bwd_reference(q, kv, bias, lse_p, do, nh, scale)
+        err_f, err_b = [0.0], [0.0]
+        halo_bf16_check(torch, what, ("out", "out (serving)", "lse"),
+                        (out, serve, saved.lse), (out, serve, saved.lse),
+                        (out_p, out_p, lse_p), BF16_FWD_TOL, err_f)
+        halo_bf16_check(torch, what, ("dq", "dkv", "dbias"), grads, again, plain,
+                        BF16_BWD_TOL, err_b)
+        del grads, again, plain, serve
+        f_ms = median_ms(torch, lambda: fh.halo_attention_fwd(q, kv, bias, nh))
+        b_ms = median_ms(torch, lambda: fh.halo_attention_bwd(saved, do))
+        pf_ms = median_ms(torch, lambda: fh.gathered_fwd_reference(q, kv, bias, nh, scale),
+                          reps=5, warmup=1)
+        pb_ms = median_ms(torch, lambda: fh.gathered_bwd_reference(q, kv, bias, lse_p, do,
+                                                                   nh, scale),
+                          reps=5, warmup=1)
+        heads = lambda t: t.unflatten(-1, (nh, D)).transpose(1, 2).contiguous()  # noqa: E731
+        lf_ms, lb_ms = halo_sdpa_times(torch, heads(q), heads(kv[..., :HD]),
+                                       heads(kv[..., HD:]), bias[None].to(bf), scale,
+                                       heads(do))
+        release_timing_stream(torch)
+        fb, fby = bound(*gather_fwd_work(Bw, M, N, nh, D, saves=True, a=2), H100_BF16_FLOPS)
+        bb, bby = bound(*gather_bwd_work(Bw, M, N, nh, D, a=2), H100_BF16_FLOPS)
+        log(f"bf16: halo_attention {what}: kernel fwd(lse) {f_ms:.3f} + bwd {b_ms:.3f} ms; "
+            f"plain fwd {pf_ms:.3f} + bwd {pb_ms:.3f} ms; scaled_dot_product_attention "
+            f"(bf16, float mask) fwd {lf_ms:.4f} + bwd {lb_ms:.4f} ms on the device; bound "
+            f"fwd {fb:.3f} ({fby}) + bwd {bb:.3f} ms ({bby})")
+        shape = f"Halo-S stage {call['stage']}, B',M,N,heads,D={Bw},{M},{N},{nh},{D}"
+        recs["halo_attention[bf16]"].append({
+            "shape": shape + ", lse", "max_abs_err": err_f[0], "ms": f_ms,
+            "plain_ms": pf_ms, "bound_ms": fb, "bound_by": fby, "library_ms": lf_ms})
+        recs["halo_attention_bwd[bf16]"].append({
+            "shape": shape, "max_abs_err": err_b[0], "ms": b_ms, "plain_ms": pb_ms,
+            "bound_ms": bb, "bound_by": bby, "library_ms": lb_ms})
+        del q, kv, bias, do, out, saved, out_p, lse_p
+    if len(built) < 6 or any(k.get("spill_bytes", 1) for k in built):
+        raise RuntimeError(f"bf16: the halo core's bf16 kernels are missing or spill: {built}")
+    return recs
+
+
+# ---------------------------------------------------------------------------
 # 3g. the gathered halo attention (B5b) vs its plain version
 # ---------------------------------------------------------------------------
 
@@ -3756,7 +4063,13 @@ def counted_modules():
             "fused_transformer_layer_bwd[bf16]": (fused_layer1, "BF16_BWD_LAUNCHES"),
             "fused_transformer_layer+bias[bf16]": (fused_layer1, "BF16_BIAS_LAUNCHES"),
             "fused_transformer_layer_bwd+bias[bf16]": (fused_layer1, "BF16_BIAS_BWD_LAUNCHES"),
-            "packed_attention_bwd+dbias[bf16]": (fused_layer, "PACKED_BF16_DBIAS_BWD_LAUNCHES")}
+            "packed_attention_bwd+dbias[bf16]": (fused_layer, "PACKED_BF16_DBIAS_BWD_LAUNCHES"),
+            "fused_halo_layer[bf16]": (fused_halo_layer, "BF16_LAUNCHES"),
+            "fused_halo_layer_bwd[bf16]": (fused_halo_layer, "BF16_BWD_LAUNCHES"),
+            "halo_attention_direct[bf16]": (fused_halo, "BF16_LAUNCHES"),
+            "halo_attention_direct_bwd[bf16]": (fused_halo, "BF16_BWD_LAUNCHES"),
+            "halo_attention[bf16]": (fused_halo, "HALO_GATHER_BF16_LAUNCHES"),
+            "halo_attention_bwd[bf16]": (fused_halo, "HALO_GATHER_BF16_BWD_LAUNCHES")}
 
 
 def counts():
@@ -4103,6 +4416,50 @@ def swin_bf16_golden(torch):
         + ", ".join(f"{k} {e:.3e} ({lim:.3e})" for k, (e, lim) in checks.items()))
 
 
+HALO_BF16_GOLDEN_SCRIPT = os.path.join(ROOT, "scripts", "make_torch_port_halo_bf16_golden.py")
+
+
+def halo_bf16_golden(torch):
+    """Halo-S in bf16 (seeded weights, DropPath off) against
+    tests/data/halo_s_bf16_port_golden.npz: the golden's two images' logits
+    tiled to 64 rows and one train step at 64 rows, both on B4's bf16 forms
+    (the default 'layer' dispatch), each within GAP_FACTOR times the JAX
+    package's own bf16 error (the loss's over the golden's seeds)."""
+    import importlib.util
+
+    from vision_transformers_tpu_torch.train.trainer import full_precision_products
+
+    full_precision_products()  # as the training entry point sets the products
+    spec = importlib.util.spec_from_file_location("make_torch_port_halo_bf16_golden",
+                                                  HALO_BF16_GOLDEN_SCRIPT)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)  # numpy at import; the port's side imports no JAX
+    vit = mod.vit_golden()
+    with np.load(mod.GOLDEN) as f:
+        g = {k: f[k] for k in f.files}
+    seed = int(g["seed"])
+    model = mod.port_model(seed, DEVICE)
+    fhl, fhlb = "fused_halo_layer", "fused_halo_layer_bwd"
+    fwd = {fhl: 12, fhl + "[bf16]": 12}
+    before = counts()
+    logits = mod.port_logits(seed, DEVICE, GOLDEN_ROWS, model)
+    torch.cuda.synchronize()
+    expect_path(before, counts(), fwd, f"Halo-S bf16 golden, {GOLDEN_ROWS} rows")
+    err, lim = vit.check_logits(logits, g, "layer")
+    log(f"golden: Halo-S bf16 logits, {GOLDEN_ROWS} rows via {fhl} (bf16): max|port - JAX "
+        f"bf16| {err:.4e} (limit {vit.GAP_FACTOR} x JAX's bf16 gap = {lim:.4e})")
+    before = counts()
+    ours = mod.port_train(seed, DEVICE, GOLDEN_ROWS, model)
+    torch.cuda.synchronize()
+    expect_path(before, counts(), {**fwd, fhlb: 12, fhlb + "[bf16]": 12},
+                f"Halo-S bf16 golden train step, {GOLDEN_ROWS} rows")
+    checks = vit.check_train(ours, g, mod.FULL_KEYS, mod.loss_gap(g))
+    log(f"golden: Halo-S bf16 train step, {GOLDEN_ROWS} rows via {fhl} (bf16) forward and "
+        f"backward: loss {float(ours['loss_port']):.6f} (JAX bf16 "
+        f"{float(g['loss_bf16']):.6f}, f32 {float(g['loss_f32']):.6f}); error (limit) "
+        + ", ".join(f"{k} {e:.3e} ({lim:.3e})" for k, (e, lim) in checks.items()))
+
+
 DINO_BF16_GOLDEN_SCRIPT = os.path.join(ROOT, "scripts", "make_torch_port_dino_bf16_golden.py")
 
 
@@ -4250,14 +4607,18 @@ def predict_main_path(torch, has_pil, model_name, cases, sra=None):
 
 
 def train_main_path(torch, has_pil, model_name, expected, overrides=(), halo=None,
-                    sra=None, ff=None, attn=None, env=None, precision="f32", steady_out=None):
+                    sra=None, ff=None, attn=None, env=None, precision="f32", steady_out=None,
+                    predict_expected=None):
     """``train.main`` at batch 128 for one synthetic epoch, with conf
     ``overrides``, ``halo`` / ``sra`` / ``attn`` forcing a Halo / reduced-kv
     / attention path, ``ff`` the FF kernel and ``env`` environment variables
     set (the dispatch's forces); ``expected`` the launches of each counter
     on that run.  ``precision`` "f32" overrides the conf's; None leaves the
-    conf's default (bf16).  Returns the launches; puts the steady-state
-    seconds a step and the peak bytes in the dict ``steady_out`` if given."""
+    conf's default (bf16).  With ``predict_expected`` predict serves the
+    checkpoint at the trainer's precision (``--precision conf``), its
+    launches held to ``predict_expected``; else at f32.  Returns the
+    launches; puts the steady-state seconds a step and the peak bytes in
+    the dict ``steady_out`` if given."""
     from vision_transformers_tpu_torch import predict, train
     from vision_transformers_tpu_torch.config.schema import load_config
     from vision_transformers_tpu_torch.ops import _build
@@ -4323,8 +4684,11 @@ def train_main_path(torch, has_pil, model_name, expected, overrides=(), halo=Non
             f"state (steps 2-{len(step_secs)}) {steady * 1e3:.2f} ms/step = "
             f"{128 / steady:.1f} images/s; max_memory_allocated {peak / 2**30:.2f} GiB")
         log(f"trainer: {label} launches on the main path {launches}")
-        # the epoch checkpoint serves
+        # the epoch checkpoint serves (with predict_expected at the trainer's
+        # precision)
         noise = seeded_images(11, 48, 256)
+        serve_conf = predict_expected is not None
+        before = counts()
         if has_pil:
             files = write_jpegs(tmp, noise)
             buf = io.StringIO()
@@ -4332,12 +4696,15 @@ def train_main_path(torch, has_pil, model_name, expected, overrides=(), halo=Non
                     environ(env or {}):
                 predict.main(["--conf", conf_path, "--checkpoint", f"{ckpt}:model",
                               "--topk", "5", "--device", DEVICE, *files,
+                              *(["--precision", "conf"] if serve_conf else []),
                               *(o for o in overrides if o.startswith("arch."))])
             check_lines(buf.getvalue().splitlines(), files, 5)
         else:
+            from vision_transformers_tpu_torch.train.trainer import compute_dtype
             from vision_transformers_tpu_torch.utils.weights import load_checkpoint
 
-            model = conf.arch.make()
+            model = conf.arch.make(dtype=compute_dtype(conf)) if serve_conf else \
+                conf.arch.make()
             model.load_state_dict(load_checkpoint(f"{ckpt}:model"), strict=True)
             size = image_size(conf)
             with forced(halo, sra, attn, ff), environ(env or {}):
@@ -4345,8 +4712,10 @@ def train_main_path(torch, has_pil, model_name, expected, overrides=(), halo=Non
                                                    noise[:, :size, :size], 5, DEVICE)
             if not ((prob > 0) & (prob <= 1)).all():
                 raise RuntimeError("trainer: bad probabilities from the checkpoint")
+        if predict_expected is not None:
+            expect_path(before, counts(), predict_expected, f"predict {label}")
         log(f"trainer: predict read {label}'s epoch-001.pt:model and classified "
-            f"48 images")
+            f"48 images at {conf.precision if serve_conf else 'f32'}")
     if steady_out is not None:
         steady_out.update(seconds=float(steady), peak=peak)
     return launches
@@ -4401,6 +4770,35 @@ def swin_trainers(torch, has_pil):
         f"{f32_peak / 2**30:.2f} GiB; bf16 (the conf's default) {bf_s * 1e3:.2f} ms/step = "
         f"{128 / bf_s:.1f} images/s, max_memory_allocated {bf_peak / 2**30:.2f} GiB")
     return f32, bf16
+
+
+def halo_trainers(torch, has_pil):
+    """6 (Halo-S): the trainer at f32 and at the conf's default precision,
+    bf16, on the default dispatch ('layer') — the same launches (4 steps x
+    12 layers; the valid pass 2 x 12), every one of the bf16 run on B4's
+    bf16 forms, predict serving the bf16 run's checkpoint through B4's bf16
+    forward (48 images: 12 launches) — with the two steady-state steps,
+    images/s and peak memory side by side; then the bf16 run forced to
+    'direct' (B5a's bf16 forms between the projections).  Returns (f32
+    launches, bf16 launches, bf16 'direct' launches)."""
+    fhl, fhlb = "fused_halo_layer", "fused_halo_layer_bwd"
+    had, hadb = "halo_attention_direct", "halo_attention_direct_bwd"
+    dp = ("arch.drop_path=0.1",)
+    expected = {fhl: 12 * 4 + 12 * 2, fhlb: 12 * 4}
+    bf16_of = lambda e: {**e, **{k + "[bf16]": v for k, v in e.items()}}  # noqa: E731
+    f32_run, bf16_run = {}, {}
+    f32 = train_main_path(torch, has_pil, "Halo-S", expected, dp, steady_out=f32_run)
+    bf16 = train_main_path(torch, has_pil, "Halo-S", bf16_of(expected), dp, precision=None,
+                           steady_out=bf16_run, predict_expected=bf16_of({fhl: 12}))
+    (f32_s, f32_peak), (bf_s, bf_peak) = f32_run.values(), bf16_run.values()
+    log(f"trainer: Halo-S at 128 images, steady state in this run: f32 {f32_s * 1e3:.2f} "
+        f"ms/step = {128 / f32_s:.1f} images/s, max_memory_allocated "
+        f"{f32_peak / 2**30:.2f} GiB; bf16 (the conf's default) {bf_s * 1e3:.2f} ms/step = "
+        f"{128 / bf_s:.1f} images/s, max_memory_allocated {bf_peak / 2**30:.2f} GiB")
+    direct = train_main_path(torch, has_pil, "Halo-S",
+                             bf16_of({had: 12 * 4 + 12 * 2, hadb: 12 * 4}), dp, "direct",
+                             precision=None, predict_expected=bf16_of({had: 12}))
+    return f32, bf16, direct
 
 
 # DINO at 96 images a step (the conf's 1024 cut: 768 locals pack 3 to a row),
@@ -4570,6 +4968,7 @@ def main() -> None:
     (timed["fused_transformer_layer+bias[bf16]"], timed["fused_transformer_layer_bwd+bias[bf16]"],
      timed["packed_attention_bwd+dbias[bf16]"]) = phase("3bf Swin-S bf16", swin_bf16_kernels,
                                                         torch)
+    timed.update(phase("3hbf Halo-S bf16", halo_bf16_kernels, torch))
     fal, falb = "fused_attention_layer", "fused_attention_layer_bwd"
     ftl, ftlb = "fused_transformer_layer", "fused_transformer_layer_bwd"
     fhl, fhlb = "fused_halo_layer", "fused_halo_layer_bwd"
@@ -4612,6 +5011,7 @@ def main() -> None:
     phase("4bf golden ViT bf16", bf16_golden, torch)
     phase("4bf golden DINO bf16", dino_bf16_golden, torch)
     phase("4bf golden Swin-S bf16", swin_bf16_golden, torch)
+    phase("4hbf golden Halo-S bf16", halo_bf16_golden, torch)
     phase("4b train ViT", train_golden, torch, "ViT-S/16", depth("ViT-S/16", fal, falb))
     phase("4b train Swin", train_golden, torch, "Swin-S", depth("Swin-S", ftl, ftlb))
     phase("4b train Halo", train_golden, torch, "Halo-S", depth("Halo-S", fhl, fhlb))
@@ -4661,10 +5061,12 @@ def main() -> None:
         # 2 micro-batches x 24 layers; the valid pass: 2 x 24
         **dict(zip(("Swin-S train", "Swin-S train (bf16)"), phase(
             "6 trainer Swin f32 + bf16", swin_trainers, torch, has_pil))),
-        # 4 steps x 12 layers (12 forward and 12 backward per step); the
-        # valid pass: 2 batches x 12
-        "Halo-S train": phase("6 trainer Halo", train_main_path, torch, has_pil,
-                              "Halo-S", {fhl: 12 * 4 + 12 * 2, fhlb: 12 * 4}, halo_dp),
+        # Halo-S at f32 and at the conf's default precision, bf16: 4 steps x
+        # 12 layers (12 forward and 12 backward per step); the valid pass: 2
+        # batches x 12; the bf16 run's every launch on B4's bf16 forms; then
+        # bf16 forced to 'direct' (B5a's bf16 forms)
+        **dict(zip(("Halo-S train", "Halo-S train (bf16)", "Halo-S train (direct, bf16)"),
+                   phase("6 trainer Halo f32 + bf16", halo_trainers, torch, has_pil))),
         "Halo-S train (direct)": phase(
             "6 trainer Halo direct", train_main_path, torch, has_pil, "Halo-S",
             {had: 12 * 4 + 12 * 2, hadb: 12 * 4}, halo_dp, "direct"),
@@ -4686,11 +5088,14 @@ def main() -> None:
         "ViT-S/16 train (FF kernel)": phase(
             "6 trainer ViT FF kernel", train_main_path, torch, has_pil, "ViT-S/16",
             {fal: 48, falb: 48, ffl: 48, fflb: 48, ftl: 24}, (), None, None, True),
-        # the gathered halo attention forced: 4 steps x 12 layers; the valid
-        # pass: 2 batches x 12
-        "Halo-S train (gather)": phase(
-            "6 trainer Halo gather", train_main_path, torch, has_pil, "Halo-S",
-            {hg: 12 * 4 + 12 * 2, hgb: 12 * 4}, halo_dp, "gather"),
+        # the gathered halo attention forced, at the conf's precision, bf16:
+        # 4 steps x 12 layers; the valid pass: 2 batches x 12; every launch on
+        # B5b's bf16 forms
+        "Halo-S train (gather, bf16)": phase(
+            "6 trainer Halo gather bf16", train_main_path, torch, has_pil, "Halo-S",
+            {hg: 12 * 4 + 12 * 2, hgb: 12 * 4, hg + "[bf16]": 12 * 4 + 12 * 2,
+             hgb + "[bf16]": 12 * 4}, halo_dp, "gather", None, None, None, None, None, None,
+            {hg: 12, hg + "[bf16]": 12}),
         # window 4, halo 3, no force: the default dispatch takes the gathered
         # kernel in all 12 layers
         "Halo-S train (window 4, halo 3)": phase(
@@ -4731,7 +5136,8 @@ def main() -> None:
                   fa: "PVT-S train (sra fused)", fab: "PVT-S train (sra fused)",
                   qkv: "ViT-S/16 train (dropout)", qkvb: "ViT-S/16 train (dropout)",
                   ffl: "ViT-S/16 train (FF kernel)", fflb: "ViT-S/16 train (FF kernel)",
-                  hg: "Halo-S train (gather)", hgb: "Halo-S train (gather)",
+                  hg: "Halo-S train (window 4, halo 3)",
+                  hgb: "Halo-S train (window 4, halo 3)",
                   blk: "ViT-S/16 train (block)", blkb: "ViT-S/16 train (block)",
                   fsl: "Swin-S train (swin)", fslb: "Swin-S train (swin)",
                   fal + "+bias": "DINO train", falb + "+bias": "DINO train",
@@ -4746,16 +5152,26 @@ def main() -> None:
                   "packed_attention_bwd+bias[bf16]": "DINO train (bf16)",
                   ftl + "+bias[bf16]": "Swin-S train (bf16)",
                   ftlb + "+bias[bf16]": "Swin-S train (bf16)",
-                  "packed_attention_bwd+dbias[bf16]": "Swin-S train (bf16)"}
+                  "packed_attention_bwd+dbias[bf16]": "Swin-S train (bf16)",
+                  fhl + "[bf16]": "Halo-S train (bf16)", fhlb + "[bf16]": "Halo-S train (bf16)",
+                  had + "[bf16]": "Halo-S train (direct, bf16)",
+                  hadb + "[bf16]": "Halo-S train (direct, bf16)",
+                  hg + "[bf16]": "Halo-S train (gather, bf16)",
+                  hgb + "[bf16]": "Halo-S train (gather, bf16)"}
     # the bf16 layers run the GEMM core's bf16 form (its TMA kernels as
     # built) and the packed-row attention's (its kernels as built)
     from vision_transformers_tpu_torch.ops import _build
     tma_kernels = gemm_bf16_builds(_build.BUILD_LOG)
     attention_kernels = attention_bf16_builds(_build.BUILD_LOG)
+    halo_kernels_built = halo_bf16_builds(_build.BUILD_LOG)
 
     def builds(k):
         if k.startswith("packed_attention"):
             return {"attention_bf16_kernels": attention_kernels}
+        if k.startswith("halo_attention") and k.endswith("[bf16]"):
+            return {"halo_bf16_kernels": halo_kernels_built}
+        if k.startswith("fused_halo_layer") and k.endswith("[bf16]"):
+            return {"gemm_bf16_kernels": tma_kernels, "halo_bf16_kernels": halo_kernels_built}
         return {"gemm_bf16_kernels": tma_kernels} if k.endswith("[bf16]") else {}
 
     record = {"kernels": [

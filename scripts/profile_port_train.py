@@ -3,7 +3,7 @@
 
 Runs ``engine.train_step`` on the model of ``--conf`` (seeded weights and a
 synthetic batch, f32 with no TF32 — or, with ``--precision bf16``, the
-JAX package's default precision, ViT, Swin-S and DINO —, AdamW with the conf's clip and
+JAX package's default precision, ViT, Swin-S, Halo-S and DINO —, AdamW with the conf's clip and
 grad_accumulation, DropPath at the conf's rate drawn from a seeded
 generator) under ``torch.profiler`` after a warm-up and prints the device
 time by kernel per step, grouped by layer (hand-written GEMM in its

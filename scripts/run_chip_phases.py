@@ -31,8 +31,12 @@ ViT-S/16 trainer at f32 and at bf16, side by side), ``3sbf`` (Swin-S's bf16
 kernels: B2's training forward and backward with the grouped bias and the
 packed-row attention's backward with the bias's gradient, at the four
 stages, beside SDPA and the f32 window attention), ``4sbf`` (Swin-S at bf16
-against its golden) and ``6sbf`` (the Swin-S trainer at f32 and at bf16,
-side by side).
+against its golden), ``6sbf`` (the Swin-S trainer at f32 and at bf16,
+side by side), ``3hbf`` (Halo-S's bf16 kernels: B4's training forward,
+serving forward and backward at the four stages, B5a and B5b at stage 1,
+B5b at window 4 / halo 3 too, beside SDPA), ``4hbf`` (Halo-S at bf16
+against its golden) and ``6hbf`` (the Halo-S trainer at f32 and at bf16,
+side by side, then at bf16 forced to 'direct').
 Exits non-zero when a phase fails.  Needs CUDA; imports no JAX.
 """
 
@@ -51,7 +55,8 @@ PHASES = {"3m": "gemm_kernels", "3": "kernels", "3v": "backward_kernel",
           "6d": "dino_trainers", "3bf": "bf16_kernels", "4bf": "bf16_golden",
           "6bf": "vit_trainers", "3dbf": "dino_bf16_layer_kernels",
           "4dbf": "dino_bf16_golden", "3sbf": "swin_bf16_kernels",
-          "4sbf": "swin_bf16_golden", "6sbf": "swin_trainers"}
+          "4sbf": "swin_bf16_golden", "6sbf": "swin_trainers",
+          "3hbf": "halo_bf16_kernels", "4hbf": "halo_bf16_golden", "6hbf": "halo_trainers"}
 DEFAULT = ("3s", "3q")
 
 
@@ -70,7 +75,7 @@ def main() -> None:
     chip_smoke.build()
     for phase in which:
         fn = getattr(chip_smoke, PHASES[phase])
-        result = fn(torch, False) if phase in ("6bf", "6sbf") else fn(torch)
+        result = fn(torch, False) if phase in ("6bf", "6sbf", "6hbf") else fn(torch)
         parts = result.values() if isinstance(result, dict) else result or ()
         # a phase returns records, lists of records or {kernel: records}
         # (a model phase: None, or its launch counts)

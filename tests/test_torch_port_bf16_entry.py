@@ -293,13 +293,15 @@ NO_BF16_FORM = {
                              *[_f(1)] * 5, 3, "silu", 0.25, 1e-6), _b(2, 9, 36),
         (False, False), False),
     "B3 fused_attention_qkv": lambda: fused_attention._check_qkv(_b(2, 9, 96), 2, None),
+    # the bf16 forms of B4, B5a and B5b take heads a multiple of 8 up to 32
+    # wide and up to 144 keys a window (one key tile)
     "B4 fused_halo_layer": lambda: fused_halo_layer._check(
-        _b(1, 8, 8, 32), _f(32), _f(32), _b(32, 96), _b(32, 32), _b(32), _f(32), _f(32),
-        _b(32, 64), _b(64), _b(64, 32), _b(32), None, 2, None, None, "silu", 4, 2),
+        _b(1, 8, 8, 24), _f(24), _f(24), _b(24, 72), _b(24, 24), _b(24), _f(24), _f(24),
+        _b(24, 48), _b(48), _b(48, 24), _b(24), _f(2, 16, 64), 2, None, None, "silu", 4, 2),
     "B5a halo_attention_direct": lambda: fused_halo._cuda_fwd(
-        _b(1, 8, 8, 32), _b(1, 8, 8, 64), None, 4, 2, 2, 0.25, False),
+        _b(1, 8, 8, 80), _b(1, 8, 8, 160), _f(2, 16, 64), 4, 2, 2, 0.25, False),
     "B5b halo_attention": lambda: fused_halo._check_gathered(
-        _b(2, 16, 32), _b(2, 64, 64), None, 2),
+        _b(2, 16, 32), _b(2, 160, 64), _f(2, 16, 160), 2),
     "B6 fused_attention": lambda: fused_attention._check(
         _b(1, 2, 9, 16), _b(1, 2, 4, 16), _b(1, 2, 4, 16)),
     "B7 fused_ff_layer": lambda: fused_layer._check_ff(

@@ -195,19 +195,19 @@ def test_trainer_cli_runs_vit_at_the_default_precision(tmp_path):
 @pytest.mark.parametrize("conf", ["swin-transformer-s.conf", "dino_deit-s-16.conf"])
 def test_other_arch_types_refuse_bf16(conf):
     """Swin-S and DINO, ported at bf16 since, take their confs' default
-    precision, bf16, and f32; Halo-S (tests/data/halo_s_port.conf, bf16 by
+    precision, bf16, and f32; PVT-S (tests/data/pvt_s_port.conf, bf16 by
     the schema's default) still refuses bf16 and runs at f32."""
     c = load_config(os.path.join(ROOT, "configs", conf))
     assert c.precision == "bf16"
     check_supported(c)
     c.precision = "f32"
     check_supported(c)
-    halo = load_config(os.path.join(ROOT, "tests", "data", "halo_s_port.conf"))
-    assert halo.precision == "bf16"
+    pvt = load_config(os.path.join(ROOT, "tests", "data", "pvt_s_port.conf"))
+    assert pvt.precision == "bf16"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_supported(halo)
-    halo.precision = "f32"
-    check_supported(halo)
+        check_supported(pvt)
+    pvt.precision = "f32"
+    check_supported(pvt)
 
 
 def test_fp16_maps_to_bf16():

@@ -212,7 +212,9 @@ def test_grouped_packed_backbone_matches_jax(weights_sd, n_local):
              for s in [224] * 2 + [96] * n_local]
     params = jax_params(weights_sd)["backbone"]
     jmodel = JaxDINOConfig(**ARCH).make().backbone
-    theirs = np.asarray(jmodel.apply({"params": params}, [jnp.asarray(c) for c in crops]))
+    # one XLA program, not op-by-op dispatch
+    theirs = np.asarray(jax.jit(jmodel.apply)({"params": params},
+                                              [jnp.asarray(c) for c in crops]))
     model = port_model(weights_sd).eval()
     model.head = None  # the trunk's features
     with torch.no_grad():

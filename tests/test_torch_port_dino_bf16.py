@@ -434,11 +434,11 @@ def test_head_logits_are_f32_and_not_rounded(dino_setup, monkeypatch):
 
 
 def test_dino_bf16_checks():
-    # check_supported takes dino at bf16, refuses Halo-S there
+    # check_supported takes dino at bf16, refuses PVT-S there
     c = load_config(os.path.join(ROOT, "configs", "dino_deit-s-16.conf"))
     assert c.precision == "bf16"
     check_supported(c)
-    s = load_config(os.path.join(ROOT, "tests", "data", "halo_s_port.conf"))
+    s = load_config(os.path.join(ROOT, "tests", "data", "pvt_s_port.conf"))
     with pytest.raises(NotImplementedError, match="§A2"):
         check_supported(s)
     # the nets carry the compute dtype through the trunk and the head

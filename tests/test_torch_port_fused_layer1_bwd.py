@@ -80,11 +80,16 @@ def jax_run(args, ex, rs_attn, rs_ff, w, H):
         e, r1, r2 = unpack(a)
         return jax_fused_transformer_layer(*a[:13], H, e, r1, r2, interpret=True)
 
-    out = np.asarray(f(*inputs))
-    grads = jax.grad(lambda *a: jnp.sum(f(*a) * jnp.asarray(w)),
-                     argnums=tuple(range(len(inputs))))(*inputs)
+    def loss(*a):
+        out = f(*a)
+        return jnp.sum(out * jnp.asarray(w)), out
+
+    # one XLA program for the output and every gradient, not op-by-op
+    # dispatch of the interpreted kernel
+    (_, out), grads = jax.jit(jax.value_and_grad(
+        loss, argnums=tuple(range(len(inputs))), has_aux=True))(*inputs)
     grads = [np.asarray(g) for g in grads]
-    return out, grads[:13] + unpack(grads)
+    return np.asarray(out), grads[:13] + unpack(grads)
 
 
 def port_run(args, ex, rs_attn, rs_ff, w, H, fn=fused_layer1.fused_transformer_layer):

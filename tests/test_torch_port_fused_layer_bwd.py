@@ -52,7 +52,9 @@ def jax_grads(args, r, H):
                                         interpret=True)
         return jnp.sum(out ** 2)
 
-    return [np.asarray(g) for g in jax.grad(loss, argnums=tuple(range(len(inputs))))(*inputs)]
+    # one XLA program, not op-by-op dispatch of the interpreted kernel
+    grads = jax.jit(jax.grad(loss, argnums=tuple(range(len(inputs)))))(*inputs)
+    return [np.asarray(g) for g in grads]
 
 
 def port_grads(args, r, H, fn=fused_layer.fused_attention_layer):

@@ -68,12 +68,23 @@ def jax_layer(args, rs_attn, rs_ff, w, nh, window, halo):
         return jax_fused_halo_layer(*full, nh, r1, r2, window=window, halo=halo,
                                     interpret=True)
 
-    out = np.asarray(f(*inputs))
-    grads = jax.grad(lambda *a: jnp.sum(f(*a) * jnp.asarray(w)),
-                     argnums=tuple(range(len(inputs))))(*inputs)
-    grads = iter(np.asarray(g) for g in grads)
+    out, grads = jax_value_and_grads(f, inputs, w)
+    grads = iter(grads)
     full = [next(grads) if a is not None else None for a in args]
     return out, full + [next(grads) if t is not None else None for t in (rs_attn, rs_ff)]
+
+
+def jax_value_and_grads(f, inputs, w):
+    """(f(*inputs), the gradients of sum(f · w)) as numpy, from one jitted
+    program (one XLA program, not op-by-op dispatch of the interpreted
+    kernels)."""
+    def loss(*a):
+        out = f(*a)
+        return jnp.sum(out * jnp.asarray(w)), out
+
+    (_, out), grads = jax.jit(jax.value_and_grad(
+        loss, argnums=tuple(range(len(inputs))), has_aux=True))(*inputs)
+    return np.asarray(out), [np.asarray(g) for g in grads]
 
 
 def port_layer(args, rs_attn, rs_ff, w, nh, window, halo,
@@ -167,10 +178,7 @@ def test_direct_matches_jax_kernel(B, H, W, nh, D, window, halo):
     def f(q_, kv_, b_):
         return jax_halo_attention_direct(q_, kv_, b_, window, halo, nh, None, True)
 
-    inputs = [jnp.asarray(a) for a in (q, kv, bias)]
-    out_j = np.asarray(f(*inputs))
-    g_j = [np.asarray(g) for g in jax.grad(lambda *a: jnp.sum(f(*a) * jnp.asarray(w)),
-                                           argnums=(0, 1, 2))(*inputs)]
+    out_j, g_j = jax_value_and_grads(f, [jnp.asarray(a) for a in (q, kv, bias)], w)
     t = [torch.from_numpy(a).requires_grad_() for a in (q, kv, bias)]
     before = fused_halo.LAUNCHES, fused_halo.BWD_LAUNCHES
     out = fused_halo.halo_attention_direct(*t, window, halo, nh)

@@ -62,10 +62,19 @@ def jax_sra(q, kv, w, extra, G):
         kh, vh = heads(kv[..., :C], G), heads(kv[..., C:], G)
         return jax_fused_attention(qh, kh, vh, e[0] if e else None, None, True)
 
-    out = np.asarray(f(*inputs))
-    grads = jax.grad(lambda *a: jnp.sum(f(*a) * jnp.asarray(w)),
-                     argnums=tuple(range(len(inputs))))(*inputs)
-    return out, [np.asarray(g) for g in grads]
+    return jax_value_and_grads(f, inputs, w)
+
+
+def jax_value_and_grads(f, inputs, w):
+    """(f(*inputs), the gradients of sum(f · w)) as numpy, from one jitted
+    program (not op-by-op dispatch of the interpreted kernel)."""
+    def loss(*a):
+        out = f(*a)
+        return jnp.sum(out * jnp.asarray(w)), out
+
+    (_, out), grads = jax.jit(jax.value_and_grad(
+        loss, argnums=tuple(range(len(inputs))), has_aux=True))(*inputs)
+    return np.asarray(out), [np.asarray(g) for g in grads]
 
 
 def port_sra(q, kv, w, extra, G, fn=ops.fused_attention):
@@ -160,16 +169,14 @@ def test_layer_with_pair_mask_matches_jax(shape):
     def f(*a):
         return jax_fused_attention_layer(*a[:7], H, a[7], a[8], scale, 1e-6, interpret=True)
 
-    out_j = np.asarray(f(*inputs))
-    grads_j = jax.grad(lambda *a: jnp.sum(f(*a) * jnp.asarray(w)),
-                       argnums=tuple(range(9)))(*inputs)
+    out_j, grads_j = jax_value_and_grads(f, inputs, w)
     t = [torch.from_numpy(a).requires_grad_() for a in (*args, mask, rs)]
     before = fused_layer.BIAS_LAUNCHES, fused_layer.BIAS_BWD_LAUNCHES
     out = ops.fused_attention_layer(*t[:7], H, extra=t[7], row_scale=t[8], scale=scale)
     (out * torch.from_numpy(w)).sum().backward()
     assert (fused_layer.BIAS_LAUNCHES, fused_layer.BIAS_BWD_LAUNCHES) == before
-    assert_close((out.detach().numpy(), [x.grad.numpy() for x in t]),
-                 (out_j, [np.asarray(g) for g in grads_j]), LAYER_NAMES)
+    assert_close((out.detach().numpy(), [x.grad.numpy() for x in t]), (out_j, grads_j),
+                 LAYER_NAMES)
 
 
 def test_layer_mask_without_grad_gets_none():

@@ -104,7 +104,8 @@ def test_logits_match_jax(weights, batch, name):
     variables = jax.tree.map(jnp.asarray, convert_state_dict(cfg, weights))
     model = port_model(weights).eval()
     with impl(name):
-        theirs = np.asarray(cfg.make().apply(variables, jnp.asarray(x)))
+        # one XLA program (traced under the forced impl), not op-by-op dispatch
+        theirs = np.asarray(jax.jit(cfg.make().apply)(variables, jnp.asarray(x)))
         with torch.no_grad():
             ours = model(torch.from_numpy(x).permute(0, 3, 1, 2)).numpy()
     np.testing.assert_allclose(ours, theirs, atol=1e-5, rtol=0)

@@ -23,7 +23,13 @@ from torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 CONF = os.path.join(ROOT, "configs", "vit-s-16.conf")
-HALO_CONF = os.path.join(ROOT, "tests", "data", "halo_s_port.conf")
+PVT_CONF = os.path.join(ROOT, "tests", "data", "pvt_s_port.conf")
+# a tiny PVT (refused at bf16 before any model is built)
+PVT_TINY = ["training.epoch=1", "training.dataloader.batch_size=8", "data_backend=synthetic",
+            "arch.image_size=32", "arch.depths=[1, 1, 1, 1]",
+            "arch.patch_embed_dims=[16, 32, 64, 128]", "arch.n_heads=[1, 2, 4, 8]",
+            "arch.dim_ffs=[32, 64, 128, 256]", "arch.reductions=[4, 2, 2, 1]",
+            "training.train_size=32", "training.valid_size=32"]
 ARCH = dict(image_size=32, window_size=8, depth=2, dim=64, n_head=2,
             dim_ff=128, n_class=10)
 TINY = ["precision=f32", "training.epoch=1", "training.dataloader.batch_size=8",
@@ -90,9 +96,9 @@ def test_epoch_checkpoint_loads_into_predict(port_run, tmp_path):
                                       "resume=auto", "data_backend=records",
                                       "training.agc=0.01", "arch.remat=true"])
 def test_unported_options_raise(override, tmp_path):
-    # ViT and Swin compute in bf16 now; the bf16 case runs a Halo conf, whose
-    # model still refuses it (before any model is built)
-    conf, tiny = (HALO_CONF, []) if override == "precision=bf16" else (CONF, TINY)
+    # ViT, Swin and Halo compute in bf16 now; the bf16 case runs a tiny PVT,
+    # whose model still refuses it (before any model is built)
+    conf, tiny = (PVT_CONF, PVT_TINY) if override == "precision=bf16" else (CONF, TINY)
     with pytest.raises(NotImplementedError):
         train.main(["--conf", conf, "--device", "cpu", *tiny, override,
                     f"checker.storage=[{{type: local, path: {tmp_path}}}]"])

@@ -53,7 +53,8 @@ def jax_logits(sd, x, impl):
     jax_ops.set_attention_impl(impl, interpret=impl is not None)
     try:
         with jax_ops.forward_only():
-            return np.asarray(cfg.make().apply(variables, jnp.asarray(x)))
+            # one XLA program (traced under the force), not op-by-op dispatch
+            return np.asarray(jax.jit(cfg.make().apply)(variables, jnp.asarray(x)))
     finally:
         jax_ops.set_attention_impl(None)
 

@@ -867,6 +867,56 @@ cudaError_t attention_half_bwd_bf16(
     float* drs, float* dextra, int B, int N, int C, int H, int D, float scale,
     cudaStream_t s);
 
+// Its two projection halves (fused_layer_bwd.cu), which the Halo layer's
+// bf16 backward runs around its own attention (fused_halo.cu): steps 1-2,
+// dz → dacc (da = round(dz·round(r)) in dln's memory, dacc₀ f32 in rows
+// [M, HD] with rs, rows_per_scale rows a sample) ...
+cudaError_t out_proj_bwd_bf16(
+    const bf16* acc, const bf16* wout, long long wout_s0, long long wout_s1, const bf16* bout,
+    const float* rs, int rows_per_scale, const bf16* dz, bf16* dacc, float* rows, float* dln,
+    float* wpart, int splits_out, float* cpart, float* dwout, long long dwout_s0,
+    long long dwout_s1, float* dbout, float* drs, int B, int M, int C, int HD,
+    cudaStream_t s);
+
+// ... and steps 4-6, dqkv and the residual's dz → dx (u in dln's memory
+// first; dbqkv may be null)
+cudaError_t qkv_proj_bwd_bf16(
+    const bf16* x, const float* ln_g, const float* ln_b, const float* mu, const float* rstd,
+    const bf16* wqkv, long long wqkv_s0, long long wqkv_s1, const bf16* dqkv, const bf16* dz,
+    float* dln, float* wpart, int splits_qkv, float* cpart, bf16* dx, float* dg, float* db,
+    float* dwqkv, long long dwqkv_s0, long long dwqkv_s1, float* dbqkv, int M, int C, int HD,
+    cudaStream_t s);
+
+// The FF half at bf16 (B2's, and the Halo layer's): serving with silu in
+// FF1's epilogue, LN₂(z) into out first (fused_layer.cu) ...
+cudaError_t ff_half_fwd_bf16(const bf16* z, const float* ln2_g, const float* ln2_b,
+                             const bf16* w1, long long w1_s0, long long w1_s1, const bf16* b1,
+                             const bf16* w2, long long w2_s0, long long w2_s1, const bf16* b2,
+                             const float* rs_ff, int rows_per_scale, bf16* hid, bf16* out,
+                             int M, int C, int F, float eps, cudaStream_t s);
+
+// ... training, hid the pre-activation and af = round(silu(hid)) a pass,
+// the LN₂ statistics saved (fused_layer.cu) ...
+cudaError_t ff_half_train_bf16(const bf16* z, const float* ln2_g, const float* ln2_b,
+                               const bf16* w1, long long w1_s0, long long w1_s1, const bf16* b1,
+                               const bf16* w2, long long w2_s0, long long w2_s1, const bf16* b2,
+                               const float* rs_ff, int rows_per_scale, bf16* hid, bf16* af,
+                               float* mu2, float* rstd2, bf16* out, int M, int C, int F,
+                               float eps, cudaStream_t s);
+
+// ... and its backward, do → dz, with the workspaces af, dh [M, F] bf16, da0
+// [M, F] f32 (with rs_ff), dln [M, C] f32 (fused_layer1_bwd.cu)
+cudaError_t ff_half_bwd_bf16(
+    const bf16* z, const float* ln2_g, const float* ln2_b,
+    const bf16* w1, long long w1_s0, long long w1_s1,
+    const bf16* w2, long long w2_s0, long long w2_s1, const bf16* b2,
+    const float* rs_ff, int rows_per_scale, const bf16* hid, const float* mu2,
+    const float* rstd2, const bf16* dout, bf16* af, bf16* dh, float* da0, float* dln,
+    float* wpart, int splits_w1, int splits_w2, float* cpart, bf16* dz, float* dg2, float* db2,
+    float* dw1, long long dw1_s0, long long dw1_s1, float* db1f,
+    float* dw2, long long dw2_s0, long long dw2_s1, float* db2f, float* drs_ff,
+    int B, int M, int C, int F, cudaStream_t s);
+
 // B9's attention over sample-major window pairs (fused_swin.cu): qkv
 // [P·N, 3·H·D] of P = B·G pairs, pair p taking the bias extra[p mod
 // groups] [H, N, N] (groups = G, or 1 for one slab), heads up to 32 wide;

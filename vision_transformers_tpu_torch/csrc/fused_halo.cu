@@ -112,9 +112,10 @@ __device__ __forceinline__ int floor_div(int a, int b) {
   return a >= 0 ? a / b : -((-a + b - 1) / b);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(EW_THREADS)
 halo_fold_kernel(const float* __restrict__ dkvw, HaloGeom g, int lanes,
-                 long long total, float* __restrict__ out, int os) {
+                 long long total, T* __restrict__ out, int os) {
   const long long i = (long long)blockIdx.x * EW_THREADS + threadIdx.x;
   if (i >= total) return;
   const int lane = i % lanes;
@@ -134,7 +135,7 @@ halo_fold_kernel(const float* __restrict__ dkvw, HaloGeom g, int lanes,
       const int j = (y + g.halo - wy * g.w) * g.k + (x + g.halo - wx * g.w);
       s += dkvw[((b * S + wy * g.ws + wx) * nk + j) * lanes + lane];
     }
-  out[m * os + lane] = s;
+  put(out + m * os + lane, s);  // bf16: the f32 sum rounded once
 }
 
 // ---------------------------------------------------------------------------
@@ -151,14 +152,16 @@ cudaError_t check_geom(const HaloGeom& g, int B, int nh, int D) {
 }
 
 // q [row·qs + h·D + d], k / v [row·kvs + h·D + d], out [row·HD + h·D + d],
-// lse [B, heads, qn] (may be null); GATHER: B is the number of windows B'
-template <bool GATHER = false>
-cudaError_t halo_attention_fwd(const float* q, int qs, const float* k, const float* v,
-                               int kvs, const float* bias, float* out, float* lse,
-                               int B, const HaloGeom& g, int nh, int D, float scale,
+// lse [B, heads, qn] (may be null); GATHER: B is the number of windows B';
+// T float or bf16 (the core's bf16 form)
+template <bool GATHER = false, typename T>
+cudaError_t halo_attention_fwd(const T* q, int qs, const T* k, const T* v, int kvs,
+                               const float* bias, T* out, float* lse, int B,
+                               const HaloGeom& g, int nh, int D, float scale,
                                cudaStream_t s) {
+  constexpr int E = sizeof(T) == 2 ? BF16 : F32;
   if (!GATHER) VTX_CHECK(check_geom(g, B, nh, D));
-  hta::FwdArgs a{};
+  hta::FwdArgsT<T> a{};
   a.q = q;
   a.k = k;
   a.v = v;
@@ -172,7 +175,7 @@ cudaError_t halo_attention_fwd(const float* q, int qs, const float* k, const flo
   a.D = D;
   a.pairs = B * g.hs * g.ws;
   a.scale = scale;
-  return hta::attention_fwd<GATHER>(a, s);
+  return hta::attention_fwd<GATHER, E>(a, s);
 }
 
 // out, dout [row·HD + h·D + d] and lse: the training forward's and its
@@ -180,17 +183,19 @@ cudaError_t halo_attention_fwd(const float* q, int qs, const float* k, const flo
 // dbias [heads, w², k²]; workspace dkvw [B·S·k²·2HD], part
 // [chunks·heads·w²·k²], dq_part [key tiles·rows·HD] (null with one key
 // tile).  GATHER: dkvw is dkv itself [B', N, 2HD], and nothing is folded.
-template <bool GATHER = false>
-cudaError_t halo_attention_bwd(const float* q, int qs, const float* k, const float* v,
-                               int kvs, const float* bias, const float* out,
-                               const float* dout, const float* lse, float* dkvw,
-                               float* part, int chunks, float* dq_part, float* dq,
-                               int dqs, float* dkv, int dkvs, float* dbias, int B,
-                               const HaloGeom& g, int nh, int D, float scale,
-                               cudaStream_t s) {
+// T float or bf16 (the core's bf16 form: dq, dkv bf16, dkvw f32 on the map,
+// dq_part unused); ROUND B4's rounding of the bf16 form.
+template <bool GATHER = false, bool ROUND = false, typename T>
+cudaError_t halo_attention_bwd(const T* q, int qs, const T* k, const T* v, int kvs,
+                               const float* bias, const T* out, const T* dout,
+                               const float* lse, std::conditional_t<GATHER, T, float>* dkvw,
+                               float* part, int chunks, float* dq_part, T* dq, int dqs,
+                               T* dkv, int dkvs, float* dbias, int B, const HaloGeom& g,
+                               int nh, int D, float scale, cudaStream_t s) {
+  constexpr int E = sizeof(T) == 2 ? BF16 : F32;
   if (!GATHER) VTX_CHECK(check_geom(g, B, nh, D));
   const int pairs = B * g.hs * g.ws, HD = nh * D;
-  hta::BwdArgs a{};
+  hta::BwdArgsT<T> a{};
   a.q = q;
   a.k = k;
   a.v = v;
@@ -209,11 +214,12 @@ cudaError_t halo_attention_bwd(const float* q, int qs, const float* k, const flo
   a.D = D;
   a.pairs = pairs;
   a.scale = scale;
-  VTX_CHECK(hta::attention_bwd<GATHER>(a, chunks, dq_part, (long long)B * g.qn, s));
-  if (!GATHER) {
+  VTX_CHECK((hta::attention_bwd<GATHER, E, ROUND>(a, chunks, dq_part, (long long)B * g.qn,
+                                                  s)));
+  if constexpr (!GATHER) {
     const long long total = (long long)B * g.H * g.W * 2 * HD;
-    halo_fold_kernel<<<ew_blocks(total), EW_THREADS, 0, s>>>(dkvw, g, 2 * HD, total,
-                                                            dkv, dkvs);
+    halo_fold_kernel<T><<<ew_blocks(total), EW_THREADS, 0, s>>>(dkvw, g, 2 * HD, total,
+                                                               dkv, dkvs);
     VTX_CHECK(cudaGetLastError());
   }
   return launch_splitk_reduce(part, chunks, 1, nh * g.nq * g.nk, dbias, 0, 1, s);
@@ -377,6 +383,164 @@ extern "C" int vtx_halo_attention_bwd(
     const float* q, const float* kv, const float* bias, const float* out,
     const float* lse, const float* dout, float* part, int chunks, float* dq_part,
     float* dq, float* dkv, float* dbias, int B, int M, int N, int nh, int D,
+    float scale, void* stream) {
+  const int HD = nh * D;
+  if (B < 1 || M < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(halo_attention_bwd<true>(
+      q, HD, kv, kv + HD, 2 * HD, bias, out, dout, lse, dkv, part, chunks, dq_part, dq,
+      HD, dkv, 2 * HD, dbias, B, gather_geom(M, N), nh, D, scale,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 forms (the JAX package's default precision), on the GEMM core's
+// bf16 form (gemm_bf16_tma.cuh) and the halo core's (E = BF16): the
+// activations, weights and biases bf16, the LN parameters, statistics, lse,
+// row scales, the bias and every gradient of a parameter f32.  The whole
+// layer follows fused_halo_layer.py's rounding points (:110-175 forward,
+// :215-384 backward): u, qkv, acc, a, z, u₂, hid and silu(hid) rounded in
+// the forward, the out projection's epilogue round(round(round(acc) + bout)
+// · round(r₁)) + x; its backward is the whole transformer layer's bf16 FF
+// half and out / qkv projections (fused_layer1_bwd.cu, fused_layer_bwd.cu)
+// around the halo core's backward with B4's rounding, each window's dk / dv
+// rounded and their f32 fold rounded once per token.  (The Pallas kernel
+// folds a band's windows in f32 and adds the dx of the 2·halo rows two bands
+// share in bf16, fused_halo_layer.py:361-405; here the whole map folds in
+// f32 and the LN₁ backward runs once on it.)
+// ---------------------------------------------------------------------------
+
+// The training forward saves qkv, acc, z, hid (bf16), mu1, rstd1, lse, mu2,
+// rstd2 (f32) and takes af [M, F] bf16 (round(silu(hid)), FF2's operand);
+// serving (save 0) passes af and lse null.  u = round(LN₁(x)) lives in z's
+// memory until the out projection writes z.
+extern "C" int vtx_fused_halo_layer_fwd_bf16(
+    const bf16* x, const float* ln1_g, const float* ln1_b,
+    const bf16* wqkv, long long wqkv_s0, long long wqkv_s1,
+    const bf16* wout, long long wout_s0, long long wout_s1, const bf16* bout,
+    const float* ln2_g, const float* ln2_b,
+    const bf16* w1, long long w1_s0, long long w1_s1, const bf16* b1,
+    const bf16* w2, long long w2_s0, long long w2_s1, const bf16* b2,
+    const float* bias, const float* rs_attn, const float* rs_ff,
+    bf16* qkv, bf16* acc, bf16* z, bf16* hid, bf16* af,
+    float* mu1, float* rstd1, float* lse, float* mu2, float* rstd2, bf16* out,
+    int B, int H, int W, int C, int nh, int D, int F, int window, int halo,
+    float scale, float eps, int save, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const HaloGeom g = halo_geom(H, W, window, halo);
+  const int N = H * W, M = B * N, HD = nh * D;
+  if (D > 32 || !mu1 || !rstd1 || (save && !(af && lse && mu2 && rstd2)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  VTX_CHECK(launch_ln(x, ln1_g, ln1_b, z, mu1, rstd1, M, C, eps, s));
+  VTX_CHECK(launch_gemm_bf16(z, wqkv, wqkv_s0, wqkv_s1, nullptr, nullptr, 1, nullptr, qkv, 0,
+                             M, 3 * HD, C, 0, s));
+  VTX_CHECK(halo_attention_fwd(qkv, 3 * HD, qkv + HD, qkv + 2 * HD, 3 * HD, bias, acc,
+                               save ? lse : nullptr, B, g, nh, D, scale, s));
+  VTX_CHECK(launch_gemm_bf16(acc, wout, wout_s0, wout_s1, bout, rs_attn, N, x, z, 0, M, C,
+                             HD, 0, s));
+  if (save)
+    return static_cast<int>(vtx::ff_half_train_bf16(z, ln2_g, ln2_b, w1, w1_s0, w1_s1, b1, w2,
+                                                    w2_s0, w2_s1, b2, rs_ff, N, hid, af, mu2,
+                                                    rstd2, out, M, C, F, eps, s));
+  return static_cast<int>(vtx::ff_half_fwd_bf16(z, ln2_g, ln2_b, w1, w1_s0, w1_s1, b1, w2,
+                                                w2_s0, w2_s1, b2, rs_ff, N, hid, out, M, C,
+                                                F, eps, s));
+}
+
+// The f32 entry's parameter list with these slots: dh, dz, dacc, dqkv bf16;
+// dq_part the f32 rows workspace [max(M·F with rs_ff, M·HD with rs_attn)]
+// (da₀, then dacc₀; may be null without row scales); rpart af [M, F] bf16;
+// dln, dkvw, part, wpart, cpart f32; dx bf16; every parameter's gradient f32.
+extern "C" int vtx_fused_halo_layer_bwd_bf16(
+    const bf16* x, const float* ln1_g, const float* ln1_b,
+    const bf16* wqkv, long long wqkv_s0, long long wqkv_s1,
+    const bf16* wout, long long wout_s0, long long wout_s1, const bf16* bout,
+    const float* ln2_g, const float* ln2_b,
+    const bf16* w1, long long w1_s0, long long w1_s1, const bf16* b1,
+    const bf16* w2, long long w2_s0, long long w2_s1, const bf16* b2,
+    const float* bias, const float* rs_attn, const float* rs_ff,
+    const bf16* qkv, const bf16* acc, const bf16* z, const bf16* hid,
+    const float* mu1, const float* rstd1, const float* lse, const float* mu2,
+    const float* rstd2, const bf16* dout,
+    bf16* dh, bf16* dz, bf16* dacc, float* rows, bf16* dqkv, float* dln,
+    bf16* af, float* dkvw, float* part, int chunks,
+    float* wpart, int splits_out, int splits_qkv, int splits_w1, int splits_w2,
+    float* cpart,
+    bf16* dx, float* dg1, float* db1,
+    float* dwqkv, long long dwqkv_s0, long long dwqkv_s1,
+    float* dwout, long long dwout_s0, long long dwout_s1, float* dbout,
+    float* dg2, float* db2,
+    float* dw1, long long dw1_s0, long long dw1_s1, float* db1f,
+    float* dw2, long long dw2_s0, long long dw2_s1, float* db2f,
+    float* dbias, float* drs_attn, float* drs_ff,
+    int B, int H, int W, int C, int nh, int D, int F, int window, int halo,
+    float scale, void* stream) {
+  (void)b1;  // its gradient is the column sum of dh
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const HaloGeom g = halo_geom(H, W, window, halo);
+  const int N = H * W, M = B * N, HD = nh * D;
+  if (D > 32 || !af || ((rs_attn || rs_ff) && !rows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // FF half, given do → dz
+  VTX_CHECK(vtx::ff_half_bwd_bf16(z, ln2_g, ln2_b, w1, w1_s0, w1_s1, w2, w2_s0, w2_s1, b2,
+                                  rs_ff, N, hid, mu2, rstd2, dout, af, dh, rows, dln, wpart,
+                                  splits_w1, splits_w2, cpart, dz, dg2, db2, dw1, dw1_s0,
+                                  dw1_s1, db1f, dw2, dw2_s0, dw2_s1, db2f, drs_ff, B, M, C, F,
+                                  s));
+  // the out projection → dacc
+  VTX_CHECK(vtx::out_proj_bwd_bf16(acc, wout, wout_s0, wout_s1, bout, rs_attn, N, dz, dacc,
+                                   rows, dln, wpart, splits_out, cpart, dwout, dwout_s0,
+                                   dwout_s1, dbout, drs_attn, B, M, C, HD, s));
+  // halo attention (B4's rounding) → dqkv, dbias
+  VTX_CHECK((halo_attention_bwd<false, true>(qkv, 3 * HD, qkv + HD, qkv + 2 * HD, 3 * HD,
+                                             bias, acc, dacc, lse, dkvw, part, chunks,
+                                             nullptr, dqkv, 3 * HD, dqkv + HD, 3 * HD, dbias,
+                                             B, g, nh, D, scale, s)));
+  // the qkv projection (no bias) and LN₁, with the residual dz
+  return static_cast<int>(vtx::qkv_proj_bwd_bf16(
+      x, ln1_g, ln1_b, mu1, rstd1, wqkv, wqkv_s0, wqkv_s1, dqkv, dz, dln, wpart, splits_qkv,
+      cpart, dx, dg1, db1, dwqkv, dwqkv_s0, dwqkv_s1, nullptr, M, C, HD, s));
+}
+
+// The attention alone at bf16 (B5a, B5b: fused_halo.py's f32 math on the
+// bf16 inputs, P rounded before P·V): the f32 entries' parameter lists, q,
+// kv, out, do, dq and dkv bf16; B5a's dkvw f32 (each window's dk / dv, folded
+// in f32 and rounded once per token), B5b's each window's dkv rounded;
+// dq_part unused (one key tile)
+extern "C" int vtx_halo_attention_direct_fwd_bf16(
+    const bf16* q, const bf16* kv, const float* bias, bf16* out, float* lse,
+    int B, int H, int W, int nh, int D, int window, int halo, float scale,
+    void* stream) {
+  const int HD = nh * D;
+  return static_cast<int>(halo_attention_fwd(
+      q, HD, kv, kv + HD, 2 * HD, bias, out, lse, B, halo_geom(H, W, window, halo),
+      nh, D, scale, static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int vtx_halo_attention_direct_bwd_bf16(
+    const bf16* q, const bf16* kv, const float* bias, const bf16* out,
+    const float* lse, const bf16* dout, float* dkvw, float* part, int chunks,
+    float* dq_part, bf16* dq, bf16* dkv, float* dbias, int B, int H, int W, int nh,
+    int D, int window, int halo, float scale, void* stream) {
+  const int HD = nh * D;
+  return static_cast<int>(halo_attention_bwd(
+      q, HD, kv, kv + HD, 2 * HD, bias, out, dout, lse, dkvw, part, chunks, dq_part, dq,
+      HD, dkv, 2 * HD, dbias, B, halo_geom(H, W, window, halo), nh, D, scale,
+      static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int vtx_halo_attention_fwd_bf16(
+    const bf16* q, const bf16* kv, const float* bias, bf16* out, float* lse,
+    int B, int M, int N, int nh, int D, float scale, void* stream) {
+  const int HD = nh * D;
+  return static_cast<int>(halo_attention_fwd<true>(
+      q, HD, kv, kv + HD, 2 * HD, bias, out, lse, B, gather_geom(M, N), nh, D, scale,
+      static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int vtx_halo_attention_bwd_bf16(
+    const bf16* q, const bf16* kv, const float* bias, const bf16* out,
+    const float* lse, const bf16* dout, float* part, int chunks, float* dq_part,
+    bf16* dq, bf16* dkv, float* dbias, int B, int M, int N, int nh, int D,
     float scale, void* stream) {
   const int HD = nh * D;
   if (B < 1 || M < 1) return static_cast<int>(cudaErrorInvalidValue);

@@ -229,11 +229,12 @@ cudaError_t vtx::ff_half_fwd(
 
 // The bf16 FF half, serving with silu: LN₂(z) into out (written last), FF1
 // with silu in its epilogue into hid, FF2 with the residual
-cudaError_t ff_half_fwd_bf16(const bf16* z, const float* ln2_g, const float* ln2_b,
-                             const bf16* w1, long long w1_s0, long long w1_s1, const bf16* b1,
-                             const bf16* w2, long long w2_s0, long long w2_s1, const bf16* b2,
-                             const float* rs_ff, int rows_per_scale, bf16* hid, bf16* out,
-                             int M, int C, int F, float eps, cudaStream_t s) {
+cudaError_t vtx::ff_half_fwd_bf16(const bf16* z, const float* ln2_g, const float* ln2_b,
+                                  const bf16* w1, long long w1_s0, long long w1_s1,
+                                  const bf16* b1, const bf16* w2, long long w2_s0,
+                                  long long w2_s1, const bf16* b2, const float* rs_ff,
+                                  int rows_per_scale, bf16* hid, bf16* out, int M, int C,
+                                  int F, float eps, cudaStream_t s) {
   VTX_CHECK(launch_ln(z, ln2_g, ln2_b, out, static_cast<float*>(nullptr),
                       static_cast<float*>(nullptr), M, C, eps, s));
   VTX_CHECK(launch_gemm_bf16(out, w1, w1_s0, w1_s1, b1, nullptr, 1, nullptr, hid, 0, M, F, C,
@@ -255,12 +256,13 @@ cudaError_t vtx::window_attention_fwd(const float* qkv, const float* extra, int 
 // pre-activation round(round(acc) + b₁); af = round(silu(hid)) by a pass
 // (the bf16 GEMM core's TMA producer stages no transform); FF2 with the
 // residual
-cudaError_t ff_half_train_bf16(const bf16* z, const float* ln2_g, const float* ln2_b,
-                               const bf16* w1, long long w1_s0, long long w1_s1, const bf16* b1,
-                               const bf16* w2, long long w2_s0, long long w2_s1, const bf16* b2,
-                               const float* rs_ff, int rows_per_scale, bf16* hid, bf16* af,
-                               float* mu2, float* rstd2, bf16* out, int M, int C, int F,
-                               float eps, cudaStream_t s) {
+cudaError_t vtx::ff_half_train_bf16(const bf16* z, const float* ln2_g, const float* ln2_b,
+                                    const bf16* w1, long long w1_s0, long long w1_s1,
+                                    const bf16* b1, const bf16* w2, long long w2_s0,
+                                    long long w2_s1, const bf16* b2, const float* rs_ff,
+                                    int rows_per_scale, bf16* hid, bf16* af, float* mu2,
+                                    float* rstd2, bf16* out, int M, int C, int F, float eps,
+                                    cudaStream_t s) {
   VTX_CHECK(launch_ln(z, ln2_g, ln2_b, out, mu2, rstd2, M, C, eps, s));
   VTX_CHECK(launch_gemm_bf16(out, w1, w1_s0, w1_s1, b1, nullptr, 1, nullptr, hid, 0, M, F, C,
                              0, s));
@@ -392,9 +394,9 @@ extern "C" int vtx_fused_transformer_layer_fwd_bf16(
                                 wout_s1, bout, extra, groups, rs_attn, u, qkv, acc, mu1, rstd1,
                                 lse, z, B, N, C, H, D, scale, eps, s));
   if (save)
-    return static_cast<int>(ff_half_train_bf16(z, ln2_g, ln2_b, w1, w1_s0, w1_s1, b1, w2, w2_s0,
+    return static_cast<int>(vtx::ff_half_train_bf16(z, ln2_g, ln2_b, w1, w1_s0, w1_s1, b1, w2, w2_s0,
                                                w2_s1, b2, rs_ff, N, hid, af, mu2, rstd2, out,
                                                B * N, C, F, eps, s));
-  return static_cast<int>(ff_half_fwd_bf16(z, ln2_g, ln2_b, w1, w1_s0, w1_s1, b1, w2, w2_s0,
+  return static_cast<int>(vtx::ff_half_fwd_bf16(z, ln2_g, ln2_b, w1, w1_s0, w1_s1, b1, w2, w2_s0,
                                            w2_s1, b2, rs_ff, N, hid, out, B * N, C, F, eps, s));
 }

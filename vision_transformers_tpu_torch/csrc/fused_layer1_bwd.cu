@@ -226,7 +226,7 @@ cudaError_t vtx::ff_half_bwd(
 // sample).  Workspace: af, dh [M, F] bf16, dz [M, C] bf16 (also the
 // output), dln [M, C] f32, da0 [M, F] f32 (used only with rs_ff), wpart,
 // cpart.
-static cudaError_t ff_half_bwd_bf16(
+cudaError_t vtx::ff_half_bwd_bf16(
     const bf16* z, const float* ln2_g, const float* ln2_b,
     const bf16* w1, long long w1_s0, long long w1_s1,
     const bf16* w2, long long w2_s0, long long w2_s1, const bf16* b2,
@@ -360,7 +360,7 @@ extern "C" int vtx_fused_transformer_layer_bwd_bf16(
   if (dbpart || !dq_part || B < 1 || N < 1 || (long long)B * N > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  VTX_CHECK(ff_half_bwd_bf16(z, ln2_g, ln2_b, w1, w1_s0, w1_s1, w2, w2_s0, w2_s1, b2, rs_ff, N,
+  VTX_CHECK(vtx::ff_half_bwd_bf16(z, ln2_g, ln2_b, w1, w1_s0, w1_s1, w2, w2_s0, w2_s1, b2, rs_ff, N,
                              hid, mu2, rstd2, dout, af, dh, dq_part, dln, wpart, splits_w1,
                              splits_w2, cpart, dz, dg2, db2, dw1, dw1_s0, dw1_s1, db1f, dw2,
                              dw2_s0, dw2_s1, db2f, drs_ff, B, B * N, C, F, s));

@@ -313,31 +313,24 @@ extern "C" int vtx_fused_attention_layer_bwd(
       D, scale, static_cast<cudaStream_t>(stream)));
 }
 
-// The bf16 steps (vtx_fused_attention_layer_bwd_bf16 below, and the whole
-// layer's bf16 backward after its FF half, fused_layer1_bwd.cu)
-cudaError_t vtx::attention_half_bwd_bf16(
-    const bf16* x, const float* ln_g, const float* ln_b,
-    const bf16* wqkv, long long wqkv_s0, long long wqkv_s1, const bf16* bqkv,
-    const bf16* wout, long long wout_s0, long long wout_s1, const bf16* bout,
-    const float* extra, int groups, const float* rs, const bf16* qkv, const bf16* acc,
-    const float* mu, const float* rstd, const float* lse, const bf16* dz,
-    bf16* dacc, float* dq_part, bf16* dqkv, float* dln, float* wpart, int splits_out,
-    int splits_qkv, float* cpart, bf16* dx, float* dg, float* db,
-    float* dwqkv, long long dwqkv_s0, long long dwqkv_s1, float* dbqkv,
-    float* dwout, long long dwout_s0, long long dwout_s1, float* dbout,
-    float* drs, float* dextra, int B, int N, int C, int H, int D, float scale,
+// The bf16 steps 1-2: the out projection's backward, given dz → dacc (and
+// dwout, dbout, dr); the scaled branch da in dln's memory, dacc₀ f32 in
+// rows (with rs) — also the Halo layer's (fused_halo.cu)
+cudaError_t vtx::out_proj_bwd_bf16(
+    const bf16* acc, const bf16* wout, long long wout_s0, long long wout_s1, const bf16* bout,
+    const float* rs, int rows_per_scale, const bf16* dz, bf16* dacc, float* rows, float* dln,
+    float* wpart, int splits_out, float* cpart, float* dwout, long long dwout_s0,
+    long long dwout_s1, float* dbout, float* drs, int B, int M, int C, int HD,
     cudaStream_t s) {
-  const int M = B * N, HD = H * D;
-  if ((extra && (groups < 1 || B % groups)) || (dextra && !extra) || !dq_part || D > DMAX ||
-      B > 65535 || H > 65535)
-    return cudaErrorInvalidValue;
+  if (rs && !rows) return cudaErrorInvalidValue;
   // 1. da = round(dz·round(r)) into dln's memory (free until step 4);
   // dwout = accᵀ·da; dbout = Σ_rows da
   const long long MC = (long long)M * C;
   const bf16* da = dz;
   if (rs) {
     bf16* scaled = reinterpret_cast<bf16*>(dln);
-    scale_rows_kernel<<<ew_blocks(MC), EW_THREADS, 0, s>>>(dz, rs, N, C, MC, scaled);
+    scale_rows_kernel<<<ew_blocks(MC), EW_THREADS, 0, s>>>(dz, rs, rows_per_scale, C, MC,
+                                                           scaled);
     VTX_CHECK(cudaGetLastError());
     da = scaled;
   }
@@ -347,17 +340,25 @@ cudaError_t vtx::attention_half_bwd_bf16(
   // 2. dacc (and dr)
   if (rs) {
     VTX_CHECK(launch_gemm_bf16(dz, wout, wout_s1, wout_s0, nullptr, nullptr, 1, nullptr,
-                               dq_part, 1, M, HD, C, 0, s));
-    row_scale_grad_kernel<bf16><<<B, DRS_THREADS, 0, s>>>(dq_part, dacc, acc, dz, bout, rs,
-                                                          drs, N, HD, C);
-    VTX_CHECK(cudaGetLastError());
-  } else {
-    VTX_CHECK(launch_gemm_bf16(dz, wout, wout_s1, wout_s0, nullptr, nullptr, 1, nullptr,
-                               dacc, 0, M, HD, C, 0, s));
+                               rows, 1, M, HD, C, 0, s));
+    row_scale_grad_kernel<bf16><<<B, DRS_THREADS, 0, s>>>(rows, dacc, acc, dz, bout, rs,
+                                                          drs, rows_per_scale, HD, C);
+    return cudaGetLastError();
   }
-  // 3. attention backward → dqkv (and dextra)
-  VTX_CHECK(vtx::packed_attention_bwd_bf16(qkv, extra, groups, acc, lse, dacc, dq_part, dqkv,
-                                           dextra, B, N, H, D, scale, s));
+  return launch_gemm_bf16(dz, wout, wout_s1, wout_s0, nullptr, nullptr, 1, nullptr, dacc, 0,
+                          M, HD, C, 0, s);
+}
+
+// The bf16 steps 4-6: the qkv projection's and the LayerNorm's backward,
+// given dqkv and the residual's dz → dx (and dwqkv, dbqkv, dg, db); u in
+// dln's memory first — also the Halo layer's (fused_halo.cu)
+cudaError_t vtx::qkv_proj_bwd_bf16(
+    const bf16* x, const float* ln_g, const float* ln_b, const float* mu, const float* rstd,
+    const bf16* wqkv, long long wqkv_s0, long long wqkv_s1, const bf16* dqkv, const bf16* dz,
+    float* dln, float* wpart, int splits_qkv, float* cpart, bf16* dx, float* dg, float* db,
+    float* dwqkv, long long dwqkv_s0, long long dwqkv_s1, float* dbqkv, int M, int C, int HD,
+    cudaStream_t s) {
+  const long long MC = (long long)M * C;
   // 4. u = round(LN(x)) in dln's memory; dwqkv = uᵀ·dqkv; dbqkv
   bf16* u = reinterpret_cast<bf16*>(dln);
   ln_apply_kernel<false, bf16><<<ew_blocks(MC), EW_THREADS, 0, s>>>(x, mu, rstd, ln_g, ln_b,
@@ -377,6 +378,37 @@ cudaError_t vtx::attention_half_bwd_bf16(
   VTX_CHECK(cudaGetLastError());
   VTX_CHECK((launch_colsum<float, bf16>(dln, x, mu, rstd, cpart, dg, M, C, s)));
   return launch_colsum(dln, nullptr, nullptr, nullptr, cpart, db, M, C, s);
+}
+
+// The bf16 steps (vtx_fused_attention_layer_bwd_bf16 below, and the whole
+// layer's bf16 backward after its FF half, fused_layer1_bwd.cu)
+cudaError_t vtx::attention_half_bwd_bf16(
+    const bf16* x, const float* ln_g, const float* ln_b,
+    const bf16* wqkv, long long wqkv_s0, long long wqkv_s1, const bf16* bqkv,
+    const bf16* wout, long long wout_s0, long long wout_s1, const bf16* bout,
+    const float* extra, int groups, const float* rs, const bf16* qkv, const bf16* acc,
+    const float* mu, const float* rstd, const float* lse, const bf16* dz,
+    bf16* dacc, float* dq_part, bf16* dqkv, float* dln, float* wpart, int splits_out,
+    int splits_qkv, float* cpart, bf16* dx, float* dg, float* db,
+    float* dwqkv, long long dwqkv_s0, long long dwqkv_s1, float* dbqkv,
+    float* dwout, long long dwout_s0, long long dwout_s1, float* dbout,
+    float* drs, float* dextra, int B, int N, int C, int H, int D, float scale,
+    cudaStream_t s) {
+  const int M = B * N, HD = H * D;
+  if ((extra && (groups < 1 || B % groups)) || (dextra && !extra) || !dq_part || D > DMAX ||
+      B > 65535 || H > 65535)
+    return cudaErrorInvalidValue;
+  // 1-2. the out projection → dacc (dacc₀ in dq_part with rs)
+  VTX_CHECK(vtx::out_proj_bwd_bf16(acc, wout, wout_s0, wout_s1, bout, rs, N, dz, dacc, dq_part,
+                                   dln, wpart, splits_out, cpart, dwout, dwout_s0, dwout_s1,
+                                   dbout, drs, B, M, C, HD, s));
+  // 3. attention backward → dqkv (and dextra)
+  VTX_CHECK(vtx::packed_attention_bwd_bf16(qkv, extra, groups, acc, lse, dacc, dq_part, dqkv,
+                                           dextra, B, N, H, D, scale, s));
+  // 4-6. the qkv projection and the LN
+  return vtx::qkv_proj_bwd_bf16(x, ln_g, ln_b, mu, rstd, wqkv, wqkv_s0, wqkv_s1, dqkv, dz, dln,
+                                wpart, splits_qkv, cpart, dx, dg, db, dwqkv, dwqkv_s0, dwqkv_s1,
+                                dbqkv, M, C, HD, s);
 }
 
 // The bf16 form: the same parameter list; x, the weights and biases, qkv,

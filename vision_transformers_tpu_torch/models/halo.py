@@ -29,6 +29,16 @@ plain projections, the gather and its adjoint torch data movement
 (halo.py:163-175); ``einsum`` the plain torch neighbourhood attention
 (halo.py:179-204).
 
+``dtype`` (:meth:`HaloConfig.make`, the JAX model's ``dtype``, halo.py:337-353)
+is the compute dtype: bf16 is the JAX package's default precision.  The
+parameters stay f32 and are cast at each use: the patch embeddings' Linears
+in ``dtype`` (Swin's :class:`PatchEmbedding`), the layers' weights and
+biases in ``dtype`` with their LayerNorm parameters, the relative-position
+bias and the DropPath scales f32 (halo.py:125-145), the einsum path's
+scores and P·V in ``dtype`` with its softmax f32 (:179-201), the head's LN
+→ Linear → LN → SiLU in ``dtype`` and the classifier f32 on an f32 input
+(:306-314).
+
 Reference quirks reproduced: the qkv projection has no bias, LayerNorm eps
 1e-6 in the layers and 1e-5 in the embeddings and the head, the widened
 final head LN → Linear(2·C) → LN → SiLU before the spatial mean and the
@@ -50,11 +60,10 @@ from torch import nn
 
 from .. import ops
 from ..config.registry import TypedConfig, register
-from ..ops.fused_halo import (attention_fwd_reference, halo_attention,
-                              halo_attention_direct, unwindows, windows)
+from ..ops.fused_halo import halo_attention, halo_attention_direct, unwindows, windows
 from ..ops.fused_halo import neighborhoods as halo_neighborhoods
 from ..ops.fused_halo_layer import fused_halo_layer
-from .layers import FeedForward, LayerNorm, drop_path_scale, scaled
+from .layers import FeedForward, LayerNorm, dense, drop_path_scale, kernel_weights, scaled
 from .swin import PatchEmbedding
 
 __all__ = ["halo_position_index", "halo_neighborhoods", "HaloAttention", "HaloLayer",
@@ -82,10 +91,12 @@ class HaloAttention(nn.Module):
     """Halo windowed MHSA (reference: models/halo_transformer.py:22-116);
     ``forward`` is the direct / einsum path on an LN'd map."""
 
-    def __init__(self, dim: int, n_head: int, dim_head: int, window: int, halo: int):
+    def __init__(self, dim: int, n_head: int, dim_head: int, window: int, halo: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         inner = n_head * dim_head
         self.n_head, self.dim_head, self.window, self.halo = n_head, dim_head, window, halo
+        self.dtype = dtype  # the projections' compute dtype
         self.weight = nn.Linear(dim, inner * 3, bias=False)  # q-heads | k-heads | v-heads
         self.linear = nn.Linear(inner, dim)
         pos, max_pos = halo_position_index(window, halo)
@@ -101,7 +112,7 @@ class HaloAttention(nn.Module):
         """Attention on an LN'd map [b, H, W, C], projected back to C."""
         inner, H = self.n_head * self.dim_head, self.n_head
         scale = 1.0 / math.sqrt(self.dim_head)
-        qkv = self.weight(x)
+        qkv = dense(x, self.weight, self.dtype)
         q, kv = qkv[..., :inner], qkv[..., inner:]
         if impl == "direct":
             out = halo_attention_direct(q.contiguous(), kv.contiguous(),
@@ -117,23 +128,37 @@ class HaloAttention(nn.Module):
             nb = halo_neighborhoods(kv, win, self.halo).reshape(-1, k * k, 2 * inner)
             out = halo_attention(qw, nb.contiguous(), self.relative_bias(), H, scale)
             out = unwindows(out.reshape(b, -1, win * win, inner), win, h, w)
-        else:  # the plain neighbourhood attention (JAX halo.py:179-204)
-            out = attention_fwd_reference(q, kv[..., :inner], kv[..., inner:],
-                                          self.relative_bias(), H, self.window,
-                                          self.halo, scale)[0]
-        return self.linear(out)
+        else:
+            out = self._einsum(q, kv, scale)
+        return dense(out, self.linear, self.dtype)
+
+    def _einsum(self, q: torch.Tensor, kv: torch.Tensor, scale: float) -> torch.Tensor:
+        """The plain neighbourhood attention as the JAX model computes it
+        (halo.py:179-204): scores and P·V in the compute dtype, the bias added
+        there, the softmax in f32."""
+        b, h, w, inner = q.shape
+        H, D, win = self.n_head, self.dim_head, self.window
+        qw = windows(q, win).unflatten(-1, (H, D)).permute(0, 3, 1, 2, 4)  # [b, H, S, w², D]
+        nb = halo_neighborhoods(kv, win, self.halo).unflatten(-1, (2, H, D))
+        key, value = (nb[..., i, :, :].permute(0, 3, 1, 2, 4) for i in range(2))
+        score = torch.einsum("bhsqd,bhskd->bhsqk", qw, key) * scale
+        score = score + self.relative_bias().to(score.dtype)[None, :, None]
+        attn = torch.softmax(score.float(), dim=-1).to(q.dtype)
+        out = torch.einsum("bhsqk,bhskd->bhsqd", attn, value)
+        return unwindows(out.permute(0, 2, 3, 1, 4).flatten(-2), win, h, w)
 
 
 class HaloLayer(nn.Module):
     """Pre-LN Halo block (reference: models/halo_transformer.py:119-150)."""
 
     def __init__(self, dim: int, n_head: int, dim_head: int, dim_ff: int, window: int,
-                 halo: int, drop_ff: float = 0.0):
+                 halo: int, drop_ff: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.norm_attn = LayerNorm(dim, eps=_LN_EPS)
-        self.attn = HaloAttention(dim, n_head, dim_head, window, halo)
+        self.attn = HaloAttention(dim, n_head, dim_head, window, halo, dtype)
         self.norm_ff = LayerNorm(dim, eps=_LN_EPS)
-        self.ff = FeedForward(dim, dim_ff, dropout=drop_ff)
+        self.ff = FeedForward(dim, dim_ff, dropout=drop_ff, dtype=dtype)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor, rs=None) -> torch.Tensor:
         """x [b, H, W, C]; ``rs``: pre-drawn DropPath scales
@@ -142,12 +167,15 @@ class HaloLayer(nn.Module):
         na, attn, nf, ff = self.norm_attn, self.attn, self.norm_ff, self.ff
         impl = ops.halo_impl(attn.window, attn.halo)
         if impl == "layer":
+            # the weights and biases in the compute dtype, the LayerNorms'
+            # parameters, the bias and the row scales f32 (halo.py:125-145)
+            dt = self.dtype
             return fused_halo_layer(
-                x, na.weight, na.bias, attn.weight.weight.t(), attn.linear.weight.t(),
-                attn.linear.bias, nf.weight, nf.bias, ff[0].weight.t(), ff[0].bias,
-                ff[3].weight.t(), ff[3].bias, attn.relative_bias(), attn.n_head,
-                rs_attn, rs_ff, activation="silu", window=attn.window, halo=attn.halo,
-                eps=_LN_EPS)
+                x, na.weight, na.bias, kernel_weights(attn.weight, dt)[0],
+                *kernel_weights(attn.linear, dt), nf.weight, nf.bias,
+                *kernel_weights(ff[0], dt), *kernel_weights(ff[3], dt),
+                attn.relative_bias(), attn.n_head, rs_attn, rs_ff, activation="silu",
+                window=attn.window, halo=attn.halo, eps=_LN_EPS)
         x = x + scaled(attn(na(x), impl), rs_attn)
         return x + scaled(ff(nf(x)), rs_ff)
 
@@ -159,13 +187,16 @@ class HaloTransformer(nn.Module):
 
     def __init__(self, image_size, n_class: int, depths, dims, dim_head: int,
                  n_heads, dim_ffs, window_size: int, halo_size: int,
-                 drop_ff: float = 0.0, drop_attn: float = 0.0, drop_path: float = 0.0):
+                 drop_ff: float = 0.0, drop_attn: float = 0.0, drop_path: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype  # the compute dtype; the parameters stay f32
         in_dim = 3
         for s, (depth, reduction) in enumerate(zip(depths, (4, 2, 2, 2))):
-            stage = [PatchEmbedding(dims[s], reduction, in_dim=in_dim)]
+            stage = [PatchEmbedding(dims[s], reduction, in_dim=in_dim, dtype=dtype)]
             stage += [HaloLayer(dims[s], n_heads[s], dim_head, dim_ffs[s], window_size,
-                                halo_size, drop_ff=drop_ff) for _ in range(depth)]
+                                halo_size, drop_ff=drop_ff, dtype=dtype)
+                      for _ in range(depth)]
             setattr(self, f"block{s + 1}", nn.ModuleList(stage))
             in_dim = dims[s]
         self.n_stages = len(depths)
@@ -221,7 +252,10 @@ class HaloTransformer(nn.Module):
             out = embed(out)
             for layer in layers:
                 out = layer(out, next(scales))
-        out = self.final_linear(out).mean(dim=(1, 2))
+        # LN → Linear → LN → SiLU in the compute dtype, the classifier f32
+        # on an f32 input (halo.py:306-314)
+        norm, linear, norm2, act = self.final_linear
+        out = act(norm2(dense(norm(out), linear, self.dtype))).mean(dim=(1, 2))
         return self.classifier(out.float())
 
 
@@ -245,7 +279,9 @@ class HaloConfig(TypedConfig):
     drop_path: float = 0.0
     remat: bool = False
 
-    def make(self) -> HaloTransformer:
+    def make(self, dtype: torch.dtype = torch.float32) -> HaloTransformer:
+        """The model in compute ``dtype`` (the JAX ``make(dtype=...)``,
+        halo.py:337-353; the trainer passes the conf's precision)."""
         if self.remat:
             raise NotImplementedError("arch.remat is not ported")
         return HaloTransformer(
@@ -253,4 +289,4 @@ class HaloConfig(TypedConfig):
             dims=self.dims, dim_head=self.dim_head, n_heads=self.n_heads,
             dim_ffs=self.dim_ffs, window_size=self.window_size,
             halo_size=self.halo_size, drop_ff=self.drop_ff, drop_attn=self.drop_attn,
-            drop_path=self.drop_path)
+            drop_path=self.drop_path, dtype=dtype)

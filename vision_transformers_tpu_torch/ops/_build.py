@@ -342,11 +342,19 @@ _SIGNATURES = {
         _F, _P,                  # scale, stream
     ],
 }
-# the bf16 forms of B1 and B2 (with or without the bias and its gradient):
-# the f32 entries' parameter lists
+# the bf16 forms of B1 and B2 (with or without the bias and its gradient),
+# B4's backward, B5a and B5b: the f32 entries' parameter lists
 for _name in ("vtx_fused_attention_layer_fwd", "vtx_fused_attention_layer_bwd",
-              "vtx_fused_transformer_layer_fwd", "vtx_fused_transformer_layer_bwd"):
+              "vtx_fused_transformer_layer_fwd", "vtx_fused_transformer_layer_bwd",
+              "vtx_fused_halo_layer_bwd", "vtx_halo_attention_direct_fwd",
+              "vtx_halo_attention_direct_bwd", "vtx_halo_attention_fwd",
+              "vtx_halo_attention_bwd"):
     _SIGNATURES[_name + "_bf16"] = _SIGNATURES[_name]
+# B4's bf16 forward: the f32 list with af (round(silu(hid)), nullable)
+# after hid
+_SIGNATURES["vtx_fused_halo_layer_fwd_bf16"] = (
+    _SIGNATURES["vtx_fused_halo_layer_fwd"][:27] + [_P] +
+    _SIGNATURES["vtx_fused_halo_layer_fwd"][27:])
 
 
 def find_nvcc() -> str:

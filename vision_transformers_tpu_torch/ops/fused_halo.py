@@ -26,9 +26,13 @@ hand-written kernels of ``csrc/fused_halo.cu`` or raises; it never falls
 back to the plain versions: two tensor-core kernels (3xTF32) of
 ``csrc/halo_attention_tc.cuh``, a block per head and chunk of windows with
 the head's bias resident, one pass per window each way.  The kernels take
-float32, heads up to ``MAX_DIM_HEAD`` wide, windows of up to
-``MAX_QUERIES`` tokens and 2·halo ≤ window (each token lies in at most
-2 x 2 neighbourhoods); anything else on a CUDA tensor raises
+heads up to ``MAX_DIM_HEAD`` wide, windows of up to ``MAX_QUERIES`` tokens
+and 2·halo ≤ window (each token lies in at most 2 x 2 neighbourhoods); at
+bfloat16 (q and kv bf16, the bias f32) the core's bf16 form, heads up to
+``BF16_MAX_DIM_HEAD`` wide and up to ``BF16_MAX_KEYS`` keys a window, the
+plain versions at the JAX kernels' rounding (P normalized and rounded
+before P·V, the backward's products in f32 on the bf16 inputs, dq and the
+folded dkv rounded once); anything else on a CUDA tensor raises
 NotImplementedError.
 
 The module also holds the JAX module's gathered form, :func:`halo_attention`
@@ -42,9 +46,9 @@ package.  Its forward keeps lse [B', n_head, M]; its backward returns dq,
 dkv [B', N, 2C] and dbias summed over the B' windows.  A CPU tensor runs
 :func:`gathered_fwd_reference` / :func:`gathered_bwd_reference`; a CUDA
 tensor runs the same two kernels as the direct op, in their gathered
-addressing, f32, heads up to ``MAX_DIM_HEAD`` wide, windows of up to
+addressing, heads up to ``MAX_DIM_HEAD`` wide, windows of up to
 ``MAX_QUERIES`` queries and any N (past one resident tile the keys
-stream), or raises.
+stream; the bf16 form: one tile, each window's dkv rounded), or raises.
 """
 
 from __future__ import annotations
@@ -58,7 +62,7 @@ import torch.nn.functional as F
 
 from .fused_attention import attention_bwd_reference as sra_bwd_reference
 from .fused_attention import attention_fwd_reference as sra_fwd_reference
-from .fused_layer import _raise_on, check_f32, ptr
+from .fused_layer import _raise_on, _rb, check_bf16_form, check_f32, ptr
 
 __all__ = ["halo_attention_direct", "halo_attention_direct_reference",
            "halo_attention_direct_fwd", "halo_attention_direct_bwd",
@@ -67,7 +71,8 @@ __all__ = ["halo_attention_direct", "halo_attention_direct_reference",
            "BWD_LAUNCHES", "halo_attention", "halo_attention_reference",
            "halo_attention_fwd", "halo_attention_bwd", "gathered_fwd_reference",
            "gathered_bwd_reference", "GatherSaved", "HALO_GATHER_LAUNCHES",
-           "HALO_GATHER_BWD_LAUNCHES"]
+           "HALO_GATHER_BWD_LAUNCHES", "BF16_LAUNCHES", "BF16_BWD_LAUNCHES",
+           "HALO_GATHER_BF16_LAUNCHES", "HALO_GATHER_BF16_BWD_LAUNCHES"]
 
 # kernel launches through this module's wrappers, forward and backward
 # (chip_smoke.py reads them to show the main path went through the kernels):
@@ -76,9 +81,19 @@ LAUNCHES = 0
 BWD_LAUNCHES = 0
 HALO_GATHER_LAUNCHES = 0
 HALO_GATHER_BWD_LAUNCHES = 0
+# ... and of those, the launches of the core's bf16 form
+BF16_LAUNCHES = 0
+BF16_BWD_LAUNCHES = 0
+HALO_GATHER_BF16_LAUNCHES = 0
+HALO_GATHER_BF16_BWD_LAUNCHES = 0
 
 MAX_DIM_HEAD = 64  # csrc halo_attention_tc.cuh: heads 32 or 64 wide in shared memory
 MAX_QUERIES = 64   # four 16-row query slices of a window
+# the core's bf16 form (csrc halo_attention_tc.cuh, E = BF16): heads up to 32
+# wide and a window's keys in one tile, so the forward normalizes P before it
+# rounds and the backward sums Δ = Σ p·dP over the window's keys
+BF16_MAX_DIM_HEAD = 32
+BF16_MAX_KEYS = 144
 
 # backward blocks to aim the chunking at: two waves of 132 SMs x the one
 # block (up to 8 warps, ~185 KB of shared memory) an SM holds
@@ -175,32 +190,53 @@ def _scores(q, k, bias, n_head, window, halo, scale):
 def attention_fwd_reference(q, k, v, bias, n_head: int, window: int, halo: int,
                             scale: float):
     """Halo attention on the maps q, k, v [b, H, W, HD] (any strides): →
-    (out [b, H, W, HD] in q's dtype, lse [b, n_head, H·W] f32)."""
+    (out [b, H, W, HD] in q's dtype, lse [b, n_head, H·W] f32).  bf16: P
+    normalized, then rounded before P·V (fused_halo.py:62, :272;
+    fused_halo_layer.py:136)."""
     _, H, W, _ = q.shape
     _, _, s = _scores(q, k, bias, n_head, window, halo, scale)
     vn = _split_heads(neighborhoods(v, window, halo), n_head)
-    o = torch.einsum("bshqk,bshkd->bshqd", torch.softmax(s, dim=-1), vn)
+    o = torch.einsum("bshqk,bshkd->bshqd", _rb(torch.softmax(s, dim=-1), v.dtype), vn)
     out = unwindows(_merge_heads(o), window, H, W).to(q.dtype)
     return out, _lse_tokens(torch.logsumexp(s, dim=-1), window, H, W)
 
 
 def attention_bwd_reference(q, k, v, bias, out, lse, do, n_head: int, window: int,
-                            halo: int, scale: float):
+                            halo: int, scale: float, round_products: bool = False):
     """The plain backward in the kernels' steps, f32: Δ = rowsum(do ⊙ out),
     p from the saved lse, dv = pᵀ·do, dS = p ⊙ (do·vᵀ − Δ), dq = dS·k·s,
     dk = dSᵀ·q·s, dbias = Σ over images and windows of dS, and dk / dv
     folded back onto the map: → (dq, dk, dv [b, H, W, HD], dbias
-    [n_head, w², k²])."""
+    [n_head, w², k²]), f32.  With bf16 inputs Δ = Σ_j p·dP (the JAX
+    kernels' form, fused_halo.py:105, :324, fused_halo_layer.py:345; at
+    f32 the same sum), and with ``round_products`` (the whole layer's
+    backward, fused_halo_layer.py:337-356) P and dS·s rounded before their
+    products and each window's dq, dk, dv rounded before the fold; without
+    it (the attention alone, fused_halo.py:72-118, :282-338) the products
+    are f32 on the bf16 inputs.  The fold sums in f32 and the caller rounds
+    once (where the JAX kernels fold a band's windows in f32 and the bands
+    in bf16, fused_halo.py:338-356, fused_halo_layer.py:361-405)."""
     _, H, W, _ = q.shape
+    dt = q.dtype
     qw, kn, s = _scores(q, k, bias, n_head, window, halo, scale)
     vn = _split_heads(neighborhoods(v, window, halo), n_head)
     dow = _split_heads(windows(do, window), n_head)
-    delta = (dow * _split_heads(windows(out, window), n_head)).sum(-1, keepdim=True)
     p = torch.exp(s - _lse_windows(lse.float(), window, H, W)[..., None])
-    dvn = torch.einsum("bshqk,bshqd->bshkd", p, dow)
-    ds = p * (torch.einsum("bshqd,bshkd->bshqk", dow, vn) - delta)
-    dq = torch.einsum("bshqk,bshkd->bshqd", ds, kn) * scale
-    dkn = torch.einsum("bshqk,bshqd->bshkd", ds, qw) * scale
+    dp = torch.einsum("bshqd,bshkd->bshqk", dow, vn)
+    if dt == torch.float32:
+        delta = (dow * _split_heads(windows(out, window), n_head)).sum(-1, keepdim=True)
+    else:
+        delta = (dp * p).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    if round_products:
+        dsb = _rb(ds * scale, dt)
+        dvn = _rb(torch.einsum("bshqk,bshqd->bshkd", _rb(p, dt), dow), dt)
+        dq = _rb(torch.einsum("bshqk,bshkd->bshqd", dsb, kn), dt)
+        dkn = _rb(torch.einsum("bshqk,bshqd->bshkd", dsb, qw), dt)
+    else:
+        dvn = torch.einsum("bshqk,bshqd->bshkd", p, dow)
+        dq = torch.einsum("bshqk,bshkd->bshqd", ds, kn) * scale
+        dkn = torch.einsum("bshqk,bshqd->bshkd", ds, qw) * scale
     fold = lambda t: fold_neighborhoods(_merge_heads(t), window, halo, H, W)  # noqa: E731
     return (unwindows(_merge_heads(dq), window, H, W), fold(dkn), fold(dvn),
             ds.sum((0, 1)))
@@ -268,6 +304,16 @@ def check_halo_geometry(H: int, W: int, n_head: int, D: int, window: int,
             f"up to {MAX_DIM_HEAD} wide; got window {window}, head width {D}")
 
 
+def check_bf16_halo(D: int, n_keys: int) -> None:
+    """Raise for a head width or key count the core's bf16 form does not
+    take."""
+    if D > BF16_MAX_DIM_HEAD or n_keys > BF16_MAX_KEYS:
+        raise NotImplementedError(
+            f"the bf16 halo attention takes heads up to {BF16_MAX_DIM_HEAD} wide and up to "
+            f"{BF16_MAX_KEYS} keys a window (one key tile); got head width {D}, {n_keys} "
+            f"keys (ROADMAP.md B.2)")
+
+
 def check_bias(bias: torch.Tensor, n_head: int, window: int, halo: int) -> None:
     k = window + 2 * halo
     want = (n_head, window * window, k * k)
@@ -312,23 +358,36 @@ def _check_maps(q, kv, n_head):
     return b, H, W, C, C // n_head
 
 
+def _check_direct(q, kv, bias, n_head, window, halo, **acts):
+    """The direct op's checks (``acts``: the backward's activations, in q's
+    dtype); returns (b, H, W, D, bf16) with bf16 whether the call takes the
+    core's bf16 form."""
+    b, H, W, _, D = _check_maps(q, kv, n_head)
+    bf16 = check_bf16_form(q, D, dict(bias=bias), kv=kv, **acts)
+    check_halo_geometry(H, W, n_head, D, window, halo)
+    if bf16:
+        check_bf16_halo(D, (window + 2 * halo) ** 2)
+    check_bias(bias, n_head, window, halo)
+    return b, H, W, D, bf16
+
+
 def _cuda_fwd(q, kv, bias, window, halo, n_head, scale, save: bool):
     """The forward kernel: out, and lse [b, n_head, H·W] when ``save``."""
-    global LAUNCHES
-    check_f32(q.device, q=q, kv=kv, bias=bias)
-    b, H, W, _, D = _check_maps(q, kv, n_head)
-    check_halo_geometry(H, W, n_head, D, window, halo)
-    check_bias(bias, n_head, window, halo)
+    global LAUNCHES, BF16_LAUNCHES
+    b, H, W, D, bf16 = _check_direct(q, kv, bias, n_head, window, halo)
     from ._build import build
 
     lib = build()
     out = torch.empty_like(q)
     lse = torch.empty((b, n_head, H * W), device=q.device, dtype=torch.float32) \
         if save else None
+    entry = lib.vtx_halo_attention_direct_fwd_bf16 if bf16 \
+        else lib.vtx_halo_attention_direct_fwd
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         LAUNCHES += 1
-        err = lib.vtx_halo_attention_direct_fwd(
+        BF16_LAUNCHES += bf16
+        err = entry(
             ptr(q), ptr(kv), ptr(bias), ptr(out), ptr(lse), b, H, W, n_head, D,
             window, halo, ctypes.c_float(scale), stream)
     _raise_on(err, "halo_attention_direct")
@@ -337,15 +396,15 @@ def _cuda_fwd(q, kv, bias, window, halo, n_head, scale, save: bool):
 
 def _cuda_bwd(saved: DirectSaved, do: torch.Tensor):
     """The backward kernel sequence: (dq, dkv, dbias)."""
-    global BWD_LAUNCHES
+    global BWD_LAUNCHES, BF16_BWD_LAUNCHES
     q, kv, bias, out, lse = saved[:5]
     do = do.contiguous()
-    check_f32(q.device, do=do, out=out, lse=lse)
+    nh, window, halo = saved.n_head, saved.window, saved.halo
+    b, H, W, D, bf16 = _check_direct(q, kv, bias, nh, window, halo, do=do, out=out)
+    check_f32(q.device, lse=lse)
     if do.shape != q.shape:
         raise ValueError(f"do must be {tuple(q.shape)}, got {tuple(do.shape)}")
-    b, H, W, C = q.shape
-    nh, window, halo = saved.n_head, saved.window, saved.halo
-    k, D = window + 2 * halo, C // nh
+    C, k = q.shape[-1], window + 2 * halo
     S = (H // window) * (W // window)
     chunks = dbias_chunks(b * S, nh, window, halo, D)
     from ._build import build
@@ -357,10 +416,13 @@ def _cuda_bwd(saved: DirectSaved, do: torch.Tensor):
     dq_part = dq_partials(k * k, b * H * W, D, nh, **opts)
     dq, dkv = torch.empty_like(q), torch.empty_like(kv)
     dbias = torch.empty_like(bias)
+    entry = lib.vtx_halo_attention_direct_bwd_bf16 if bf16 \
+        else lib.vtx_halo_attention_direct_bwd
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         BWD_LAUNCHES += 1
-        err = lib.vtx_halo_attention_direct_bwd(
+        BF16_BWD_LAUNCHES += bf16
+        err = entry(
             ptr(q), ptr(kv), ptr(bias), ptr(out), ptr(lse), ptr(do), ptr(dkvw),
             ptr(part), chunks, ptr(dq_part), ptr(dq), ptr(dkv), ptr(dbias), b, H, W, nh,
             D, window, halo, ctypes.c_float(saved.scale), stream)
@@ -485,10 +547,10 @@ class GatherSaved(NamedTuple):
     scale: float
 
 
-def _check_gathered(q, kv, bias, n_head):
-    """Shapes, layouts and limits the gathered kernels take; returns (B', M,
-    N, D)."""
-    check_f32(q.device, q=q, kv=kv, bias=bias)
+def _check_gathered(q, kv, bias, n_head, **acts):
+    """Shapes, layouts and limits the gathered kernels take (``acts``: the
+    backward's activations, in q's dtype); returns (B', M, N, D, bf16) with
+    bf16 whether the call takes the core's bf16 form."""
     if q.ndim != 3 or kv.ndim != 3 or not q.is_contiguous() or not kv.is_contiguous():
         raise ValueError("q and kv must be contiguous [B', M, C] / [B', N, 2C] tensors")
     B, M, C = q.shape
@@ -496,34 +558,39 @@ def _check_gathered(q, kv, bias, n_head):
     if kv.shape[0] != B or kv.shape[2] != 2 * C or C % n_head or min(B, M, N) < 1:
         raise ValueError(f"kv must be [{B}, N, {2 * C}] with {n_head} heads dividing "
                          f"{C}; got q {tuple(q.shape)}, kv {tuple(kv.shape)}")
+    D = C // n_head
+    bf16 = check_bf16_form(q, D, dict(bias=bias), kv=kv, **acts)
     if tuple(bias.shape) != (n_head, M, N) or not bias.is_contiguous():
         raise ValueError(f"bias must be a contiguous [{n_head}, {M}, {N}] tensor, got "
                          f"shape {tuple(bias.shape)} strides {bias.stride()}")
-    D = C // n_head
     if M > MAX_QUERIES or D > MAX_DIM_HEAD:
         raise NotImplementedError(
             f"the CUDA halo_attention takes windows of up to {MAX_QUERIES} queries and "
             f"heads up to {MAX_DIM_HEAD} wide; got {M} queries, head width {D} "
             f"(ROADMAP B)")
-    return B, M, N, D
+    if bf16:
+        check_bf16_halo(D, N)
+    return B, M, N, D, bf16
 
 
 def _cuda_gathered_fwd(q, kv, bias, n_head, scale, save: bool):
     """The gathered forward kernel: out, and lse [B', n_head, M] when
     ``save``."""
-    global HALO_GATHER_LAUNCHES
-    B, M, N, D = _check_gathered(q, kv, bias, n_head)
+    global HALO_GATHER_LAUNCHES, HALO_GATHER_BF16_LAUNCHES
+    B, M, N, D, bf16 = _check_gathered(q, kv, bias, n_head)
     from ._build import build
 
     lib = build()
     out = torch.empty_like(q)
     lse = torch.empty((B, n_head, M), device=q.device, dtype=torch.float32) \
         if save else None
+    entry = lib.vtx_halo_attention_fwd_bf16 if bf16 else lib.vtx_halo_attention_fwd
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         HALO_GATHER_LAUNCHES += 1
-        err = lib.vtx_halo_attention_fwd(ptr(q), ptr(kv), ptr(bias), ptr(out), ptr(lse),
-                                         B, M, N, n_head, D, ctypes.c_float(scale), stream)
+        HALO_GATHER_BF16_LAUNCHES += bf16
+        err = entry(ptr(q), ptr(kv), ptr(bias), ptr(out), ptr(lse), B, M, N, n_head, D,
+                    ctypes.c_float(scale), stream)
     _raise_on(err, "halo_attention")
     return out, lse
 
@@ -531,11 +598,11 @@ def _cuda_gathered_fwd(q, kv, bias, n_head, scale, save: bool):
 def _cuda_gathered_bwd(saved: GatherSaved, do: torch.Tensor):
     """The gathered backward kernel sequence: (dq, dkv, dbias), dq and dkv
     written in place in q's and kv's layouts."""
-    global HALO_GATHER_BWD_LAUNCHES
+    global HALO_GATHER_BWD_LAUNCHES, HALO_GATHER_BF16_BWD_LAUNCHES
     q, kv, bias, out, lse = saved[:5]
     do = do.contiguous()
-    B, M, N, D = _check_gathered(q, kv, bias, saved.n_head)
-    check_f32(q.device, do=do, out=out, lse=lse)
+    B, M, N, D, bf16 = _check_gathered(q, kv, bias, saved.n_head, do=do, out=out)
+    check_f32(q.device, lse=lse)
     if do.shape != q.shape or out.shape != q.shape:
         raise ValueError(f"do and out must be {tuple(q.shape)}, got {tuple(do.shape)}, "
                          f"{tuple(out.shape)}")
@@ -548,10 +615,12 @@ def _cuda_gathered_bwd(saved: GatherSaved, do: torch.Tensor):
     part = torch.empty((chunks * nh * M * N,), **opts)
     dq_part = dq_partials(N, B * M, D, nh, **opts)
     dq, dkv, dbias = torch.empty_like(q), torch.empty_like(kv), torch.empty_like(bias)
+    entry = lib.vtx_halo_attention_bwd_bf16 if bf16 else lib.vtx_halo_attention_bwd
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         HALO_GATHER_BWD_LAUNCHES += 1
-        err = lib.vtx_halo_attention_bwd(
+        HALO_GATHER_BF16_BWD_LAUNCHES += bf16
+        err = entry(
             ptr(q), ptr(kv), ptr(bias), ptr(out), ptr(lse), ptr(do), ptr(part), chunks,
             ptr(dq_part), ptr(dq), ptr(dkv), ptr(dbias), B, M, N, nh, D,
             ctypes.c_float(saved.scale), stream)

@@ -25,11 +25,22 @@ nothing.
 A CPU tensor runs the plain torch versions (LN statistics f32, dots
 f32-accumulated, softmax and activation f32); a CUDA tensor runs the
 hand-written kernels of ``csrc/fused_halo.cu`` or raises, never the plain
-versions.  The kernels take float32, ``activation="silu"``, heads up to
-``MAX_DIM_HEAD`` wide and the geometry
-:func:`.fused_halo.check_halo_geometry` admits.  Weights may be
-any 2-D strided view (the model passes ``linear.weight.t()``; their
-gradients come back in the view's layout).
+versions.  The kernels take ``activation="silu"``, heads up to
+``MAX_DIM_HEAD`` wide and the geometry :func:`.fused_halo.check_halo_geometry`
+admits.  With x bfloat16 (the JAX package's default precision: weights and
+biases bfloat16, LN parameters, row scales and the bias float32) the
+plain versions round where the JAX kernel rounds (fused_halo_layer.py:
+110-175, 215-384: u, qkv, P normalized before P·V, acc, a, the scales
+before they multiply, z, u₂, hid, silu(hid); in the backward P and dS·s
+before their products, each window's dq, dk, dv, and their fold once, in
+f32 — where the JAX kernel folds the 2·halo rows two bands share as bf16
+dx) and the CUDA path takes the kernels' bf16 forms
+(``vtx_fused_halo_layer_fwd_bf16`` / ``_bwd_bf16``: the GEMM core's bf16
+form and the halo core's, heads up to 32 wide, up to 144 keys a window);
+the backward returns dx bf16, the LN parameters', the bias's and the row
+scales' gradients f32 and the weights' and biases' summed in f32 and
+rounded once.  Weights may be any 2-D strided view (the model passes
+``linear.weight.t()``; their gradients come back in the view's layout).
 """
 
 from __future__ import annotations
@@ -40,22 +51,26 @@ from typing import NamedTuple, Optional
 import torch
 
 from .fused_halo import (attention_bwd_reference, attention_fwd_reference,
-                         check_bias, check_halo_geometry, dbias_chunks, dq_partials)
-from .fused_layer import (_default_scale, _dot, _ln_stats, _raise_on, _residual,
-                          _splits, cast_like, check_f32, check_matrix, check_vector,
-                          like_layout, out_proj_bwd_reference, ptr, rpart_floats,
-                          ff_half_bwd_reference, ff_half_fwd_reference,
+                         check_bf16_halo, check_bias, check_halo_geometry, dbias_chunks,
+                         dq_partials)
+from .fused_layer import (_default_scale, _dot, _ln_stats, _raise_on, _rb, _residual,
+                          _splits, cast_like, check_bf16_form, check_f32, check_matrix,
+                          check_vector, like_layout, out_proj_bwd_reference, ptr,
+                          rpart_floats, ff_half_bwd_reference, ff_half_fwd_reference,
                           qkv_proj_bwd_reference)
 
 __all__ = ["fused_halo_layer", "fused_halo_layer_reference", "fused_halo_layer_fwd",
            "fused_halo_layer_bwd", "fused_halo_layer_fwd_reference",
            "fused_halo_layer_bwd_reference", "HaloSaved", "GRAD_NAMES", "LAUNCHES",
-           "BWD_LAUNCHES"]
+           "BWD_LAUNCHES", "BF16_LAUNCHES", "BF16_BWD_LAUNCHES"]
 
 # kernel launches through this module's wrappers, forward and backward
-# (chip_smoke.py reads them to show the main path went through the kernels)
+# (chip_smoke.py reads them to show the main path went through the kernels),
+# and of those the launches of the bf16 forms
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+BF16_LAUNCHES = 0
+BF16_BWD_LAUNCHES = 0
 
 MAX_DIM_HEAD = 32  # the whole layer's own limit (the attention alone takes 64)
 
@@ -163,11 +178,12 @@ def fused_halo_layer_bwd_reference(saved: HaloSaved, do: torch.Tensor,
         s.acc.reshape(M, HD), s.wout, s.bout, s.rs_attn, dz, H * W, need_drs[0])
     # halo attention → dqkv, dbias
     qkv = s.qkv.reshape(B, H, W, 3 * HD)
+    dt = s.x.dtype
     dq, dk, dv, dbias = attention_bwd_reference(
         qkv[..., :HD], qkv[..., HD:2 * HD], qkv[..., 2 * HD:], s.bias,
-        s.acc.reshape(B, H, W, HD), s.lse, dacc.reshape(B, H, W, HD), s.n_head,
-        s.window, s.halo, s.scale)
-    dqkv = torch.cat([dq, dk, dv], -1).reshape(M, 3 * HD)
+        s.acc.reshape(B, H, W, HD), s.lse, dacc.reshape(B, H, W, HD).to(dt), s.n_head,
+        s.window, s.halo, s.scale, round_products=dt != torch.float32)
+    dqkv = _rb(torch.cat([dq, dk, dv], -1).reshape(M, 3 * HD), dt)
     # the qkv projection and LN₁, with the residual dz
     dx, dg1, db1, dwqkv, _ = qkv_proj_bwd_reference(
         s.x.reshape(M, C), s.mu1, s.rstd1, s.ln1_scale, s.ln1_bias, s.wqkv, None,
@@ -182,14 +198,13 @@ def fused_halo_layer_bwd_reference(saved: HaloSaved, do: torch.Tensor,
 
 
 def _check(x, ln1_scale, ln1_bias, wqkv, wout, bout, ln2_scale, ln2_bias, w1, b1,
-           w2, b2, bias, n_head, rs_attn, rs_ff, activation, window, halo):
-    """Shape/type checks of the CUDA ops; returns (B, H, W, C, D, F)."""
+           w2, b2, bias, n_head, rs_attn, rs_ff, activation, window, halo, **saves):
+    """Shape/type checks of the CUDA ops (``saves``: the backward's saved
+    activations, bf16 where x is); returns (B, H, W, C, D, F, bf16) with
+    bf16 whether the call takes the kernels' bf16 form."""
     if activation != "silu":
         raise NotImplementedError(
             f"the CUDA kernel takes activation='silu', got {activation!r}")
-    check_f32(x.device, x=x, ln1_scale=ln1_scale, ln1_bias=ln1_bias, wqkv=wqkv,
-              wout=wout, bout=bout, ln2_scale=ln2_scale, ln2_bias=ln2_bias, w1=w1,
-              b1=b1, w2=w2, b2=b2, bias=bias, rs_attn=rs_attn, rs_ff=rs_ff)
     if x.ndim != 4 or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous [B, H, W, C] map, got shape "
                          f"{tuple(x.shape)} strides {x.stride()}")
@@ -199,10 +214,16 @@ def _check(x, ln1_scale, ln1_bias, wqkv, wout, bout, ln2_scale, ln2_bias, w1, b1
                          f"{tuple(wqkv.shape)}, {tuple(w1.shape)}")
     HD = wqkv.shape[1] // 3
     D, Fdim = HD // n_head, w1.shape[1]
+    bf16 = check_bf16_form(
+        x, D, dict(ln1_scale=ln1_scale, ln1_bias=ln1_bias, ln2_scale=ln2_scale,
+                   ln2_bias=ln2_bias, bias=bias, rs_attn=rs_attn, rs_ff=rs_ff),
+        wqkv=wqkv, wout=wout, bout=bout, w1=w1, b1=b1, w2=w2, b2=b2, **saves)
     if D > MAX_DIM_HEAD:
         raise NotImplementedError(
             f"the CUDA fused_halo_layer takes heads up to {MAX_DIM_HEAD} wide; got {D}")
     check_halo_geometry(H, W, n_head, D, window, halo)
+    if bf16:
+        check_bf16_halo(D, (window + 2 * halo) ** 2)
     check_bias(bias, n_head, window, halo)
     check_vector("ln1_scale", ln1_scale, C)
     check_vector("ln1_bias", ln1_bias, C)
@@ -217,7 +238,7 @@ def _check(x, ln1_scale, ln1_bias, wqkv, wout, bout, ln2_scale, ln2_bias, w1, b1
     check_vector("b2", b2, C)
     check_vector("rs_attn", rs_attn, B)
     check_vector("rs_ff", rs_ff, B)
-    return B, H, W, C, D, Fdim
+    return B, H, W, C, D, Fdim, bf16
 
 
 def _cuda_fwd(x, ln1_scale, ln1_bias, wqkv, wout, bout, ln2_scale, ln2_bias, w1, b1,
@@ -225,28 +246,34 @@ def _cuda_fwd(x, ln1_scale, ln1_bias, wqkv, wout, bout, ln2_scale, ln2_bias, w1,
               eps, save: bool):
     """The forward kernel: out, plus (qkv, acc, z, hid, mu1, rstd1, lse, mu2,
     rstd2) when ``save``."""
-    global LAUNCHES
-    B, H, W, C, D, Fdim = _check(x, ln1_scale, ln1_bias, wqkv, wout, bout, ln2_scale,
-                                 ln2_bias, w1, b1, w2, b2, bias, n_head, rs_attn, rs_ff,
-                                 activation, window, halo)
+    global LAUNCHES, BF16_LAUNCHES
+    B, H, W, C, D, Fdim, bf16 = _check(x, ln1_scale, ln1_bias, wqkv, wout, bout, ln2_scale,
+                                       ln2_bias, w1, b1, w2, b2, bias, n_head, rs_attn,
+                                       rs_ff, activation, window, halo)
     from ._build import build
 
     lib = build()
     HD = n_head * D
     opts = dict(device=x.device, dtype=torch.float32)
-    qkv = torch.empty((B, H, W, 3 * HD), **opts)
-    acc = torch.empty((B, H, W, HD), **opts)
-    z = torch.empty((B, H, W, C), **opts)
-    hid = torch.empty((B, H, W, Fdim), **opts)
+    act = dict(device=x.device, dtype=x.dtype)  # the activations' workspace
+    qkv = torch.empty((B, H, W, 3 * HD), **act)
+    acc = torch.empty((B, H, W, HD), **act)
+    z = torch.empty((B, H, W, C), **act)
+    hid = torch.empty((B, H, W, Fdim), **act)
+    # bf16: round(silu(hid)), FF2's operand in training (a pass: the bf16
+    # GEMM core stages no transform)
+    af = (torch.empty((B, H, W, Fdim), **act) if save else None,) if bf16 else ()
     # the LayerNorms' statistics (saves, or the serving call's workspace) and lse
     stats = [torch.empty((B, H, W), **opts) for _ in range(2)] + \
         [torch.empty((B, n_head, H * W), **opts) if save else None] + \
         [torch.empty((B, H, W), **opts) for _ in range(2)]
     out = torch.empty_like(x)
+    entry = lib.vtx_fused_halo_layer_fwd_bf16 if bf16 else lib.vtx_fused_halo_layer_fwd
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         LAUNCHES += 1
-        err = lib.vtx_fused_halo_layer_fwd(
+        BF16_LAUNCHES += bf16
+        err = entry(
             ptr(x), ptr(ln1_scale), ptr(ln1_bias),
             ptr(wqkv), wqkv.stride(0), wqkv.stride(1),
             ptr(wout), wout.stride(0), wout.stride(1), ptr(bout),
@@ -254,7 +281,8 @@ def _cuda_fwd(x, ln1_scale, ln1_bias, wqkv, wout, bout, ln2_scale, ln2_bias, w1,
             ptr(w1), w1.stride(0), w1.stride(1), ptr(b1),
             ptr(w2), w2.stride(0), w2.stride(1), ptr(b2),
             ptr(bias), ptr(rs_attn), ptr(rs_ff),
-            ptr(qkv), ptr(acc), ptr(z), ptr(hid), *map(ptr, stats), ptr(out),
+            ptr(qkv), ptr(acc), ptr(z), ptr(hid), *map(ptr, af), *map(ptr, stats),
+            ptr(out),
             B, H, W, C, n_head, D, Fdim, window, halo, ctypes.c_float(scale),
             ctypes.c_float(eps), int(save), stream)
     _raise_on(err, "fused_halo_layer")
@@ -263,17 +291,19 @@ def _cuda_fwd(x, ln1_scale, ln1_bias, wqkv, wout, bout, ln2_scale, ln2_bias, w1,
 
 def _cuda_bwd(saved: HaloSaved, do: torch.Tensor, need_drs):
     """The backward kernel sequence: the 15 gradients of ``GRAD_NAMES``."""
-    global BWD_LAUNCHES
+    global BWD_LAUNCHES, BF16_BWD_LAUNCHES
     s = saved
     x = s.x
     do = do.contiguous()
-    check_f32(x.device, do=do, qkv=s.qkv, acc=s.acc, z=s.z, hid=s.hid, lse=s.lse)
+    B, H, W, C, D, Fdim, bf16 = _check(
+        x, s.ln1_scale, s.ln1_bias, s.wqkv, s.wout, s.bout, s.ln2_scale, s.ln2_bias, s.w1,
+        s.b1, s.w2, s.b2, s.bias, s.n_head, s.rs_attn, s.rs_ff, s.activation, s.window,
+        s.halo, do=do, qkv=s.qkv, acc=s.acc, z=s.z, hid=s.hid)
+    check_f32(x.device, lse=s.lse)
     if do.shape != x.shape:
         raise ValueError(f"do must be {tuple(x.shape)}, got {tuple(do.shape)}")
-    B, H, W, C = x.shape
     nh, window, halo = s.n_head, s.window, s.halo
-    HD = s.wqkv.shape[1] // 3
-    D, Fdim = HD // nh, s.w1.shape[1]
+    HD = nh * D
     M, k = B * H * W, window + 2 * halo
     S = (H // window) * (W // window)
     chunks = dbias_chunks(B * S, nh, window, halo, D)
@@ -286,13 +316,23 @@ def _cuda_bwd(saved: HaloSaved, do: torch.Tensor, need_drs):
     wpart = max(splits[0] * HD * C, splits[1] * C * 3 * HD, splits[2] * C * Fdim,
                 splits[3] * Fdim * C)
     chunks_c = -(-M // 128)  # csrc COLSUM_ROWS
+    act = dict(device=x.device, dtype=x.dtype)  # the activations' workspace
+    if bf16:
+        # dq_part's slot: the f32 rows da₀ [M, F] (with rs_ff), then dacc₀
+        # [M, HD] (with rs_attn); rpart's: af = round(silu(hid)) [M, F]
+        rows = max(M * Fdim if s.rs_ff is not None else 0,
+                   M * HD if s.rs_attn is not None else 0)
+        dq_part = torch.empty((rows,), **opts) if rows else None
+        rpart = torch.empty((M, Fdim), **act)
+    else:
+        dq_part = dq_partials(k * k, M, D, nh, **opts)
+        rpart = torch.empty((rpart_floats(M, Fdim, B, H * W),), **opts) \
+            if (s.rs_ff is not None and need_drs[1]) or s.b1 is not None else None
     ws = dict(
-        dh=torch.empty((M, Fdim), **opts), dz=torch.empty((M, C), **opts),
-        dacc=torch.empty((M, HD), **opts), dq_part=dq_partials(k * k, M, D, nh, **opts),
-        dqkv=torch.empty((M, 3 * HD), **opts), dln=torch.empty((M, C), **opts),
-        rpart=torch.empty((rpart_floats(M, Fdim, B, H * W),), **opts)
-        if (s.rs_ff is not None and need_drs[1]) or s.b1 is not None else None,
-        dkvw=torch.empty((B * S * k * k * 2 * HD,), **opts),
+        dh=torch.empty((M, Fdim), **act), dz=torch.empty((M, C), **act),
+        dacc=torch.empty((M, HD), **act), dq_part=dq_part,
+        dqkv=torch.empty((M, 3 * HD), **act), dln=torch.empty((M, C), **opts),
+        rpart=rpart, dkvw=torch.empty((B * S * k * k * 2 * HD,), **opts),
         part=torch.empty((chunks * nh * window * window * k * k,), **opts))
     wpart_t = torch.empty((wpart,), **opts)
     cpart = torch.empty((chunks_c * max(C, 3 * HD, Fdim),), **opts)
@@ -304,10 +344,12 @@ def _cuda_bwd(saved: HaloSaved, do: torch.Tensor, need_drs):
     dbias = torch.empty_like(s.bias)
     drs_attn = vec(B, s.rs_attn) if need_drs[0] else None
     drs_ff = vec(B, s.rs_ff) if need_drs[1] else None
+    entry = lib.vtx_fused_halo_layer_bwd_bf16 if bf16 else lib.vtx_fused_halo_layer_bwd
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         BWD_LAUNCHES += 1
-        err = lib.vtx_fused_halo_layer_bwd(
+        BF16_BWD_LAUNCHES += bf16
+        err = entry(
             ptr(x), ptr(s.ln1_scale), ptr(s.ln1_bias),
             ptr(s.wqkv), s.wqkv.stride(0), s.wqkv.stride(1),
             ptr(s.wout), s.wout.stride(0), s.wout.stride(1), ptr(s.bout),
@@ -329,8 +371,10 @@ def _cuda_bwd(saved: HaloSaved, do: torch.Tensor, need_drs):
             ptr(dbias), ptr(drs_attn), ptr(drs_ff),
             B, H, W, C, nh, D, Fdim, window, halo, ctypes.c_float(s.scale), stream)
     _raise_on(err, "fused_halo_layer backward")
-    return (dx, dg1, db1, dwqkv, dwout, dbout, dg2, db2, dw1, db1f, dw2, db2f, dbias,
-            drs_attn, drs_ff)
+    # the weights' and biases' gradients, summed in f32, in their dtype
+    return (dx, dg1, db1, cast_like(dwqkv, s.wqkv), cast_like(dwout, s.wout),
+            cast_like(dbout, s.bout), dg2, db2, cast_like(dw1, s.w1), cast_like(db1f, s.b1),
+            cast_like(dw2, s.w2), cast_like(db2f, s.b2), dbias, drs_attn, drs_ff)
 
 
 def fused_halo_layer_fwd(x, ln1_scale, ln1_bias, wqkv, wout, bout, ln2_scale,

@@ -1,7 +1,9 @@
 """Classify images from files — the serving-style entry point of the port.
 
 Same flags and output as the JAX package's ``predict.py``, plus
-``--device`` (default ``cuda``):
+``--device`` (default ``cuda``) and ``--precision`` (default ``f32``;
+``conf`` computes in the conf's precision, as the trainer does, for the
+arch types ported at bf16):
 
     python -m vision_transformers_tpu_torch.predict --conf configs/vit-s-16.conf \\
         --checkpoint ckpt.pt:ema cat.jpg dog.jpg [--topk 5] [--labels names.txt]
@@ -24,6 +26,7 @@ from . import ops
 from .config.schema import load_config
 from .data.ops import normalize
 from .data.pipeline import decode_valid
+from .train.trainer import BF16_ARCHS, compute_dtype
 from .utils.weights import load_checkpoint
 
 __all__ = ["predict_batch", "main"]
@@ -65,6 +68,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     parser.add_argument("--no-ema", action="store_true",
                         help="accepted for parity; a .pt picks its state_dict by :key")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--precision", default="f32", choices=("f32", "conf"),
+                        help="f32, or conf: the conf's compute dtype (bf16 by default)")
     parser.add_argument("images", nargs="+",
                         help="image files to classify; key=value conf overrides "
                              "may be mixed in")
@@ -82,7 +87,11 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     conf = load_config(args.conf, overrides)
     size = args.size or conf.training.valid_size
-    model = conf.arch.make()
+    dtype = compute_dtype(conf) if args.precision == "conf" else torch.float32
+    if dtype != torch.float32 and conf.arch.type not in BF16_ARCHS:
+        raise NotImplementedError(f"--precision conf: arch type {conf.arch.type!r} has no "
+                                  f"bf16 form yet (ROADMAP.md §A2's bf16 queue)")
+    model = conf.arch.make(dtype=dtype) if dtype != torch.float32 else conf.arch.make()
     model.load_state_dict(load_checkpoint(args.checkpoint), strict=True)
     model.to(device).eval()
 

@@ -11,9 +11,9 @@ The compute dtype follows the conf as in the JAX trainer
 (trainer.py:58-61): ``precision=bf16`` (the schema's default) or ``fp16``
 computes in bf16, ``precision=f32`` in f32; the parameters, the optimizer,
 the EMA and the checkpoints stay f32 either way.  bf16 is ported for arch
-types ``vit`` and ``swin_transformer`` (this trainer) and ``dino``
-(``train/dino.py``); any other arch type at bf16 raises
-NotImplementedError (ROADMAP.md §A2's bf16 queue) and runs with
+types ``vit``, ``swin_transformer`` and ``halo_transformer`` (this
+trainer) and ``dino`` (``train/dino.py``); PVT and Twins at bf16 raise
+NotImplementedError (ROADMAP.md §A2's bf16 queue) and run with
 ``precision=f32``.
 
 Not ported yet (each raises NotImplementedError, see ROADMAP): the records
@@ -43,7 +43,7 @@ __all__ = ["train_classification", "check_supported", "to_device", "compute_dtyp
            "full_precision_products", "BF16_ARCHS"]
 
 # the arch types whose models compute in bf16 on the card
-BF16_ARCHS = ("vit", "swin_transformer", "dino")
+BF16_ARCHS = ("vit", "swin_transformer", "dino", "halo_transformer")
 
 
 def compute_dtype(conf: ImageNetConfig) -> torch.dtype:
@@ -71,8 +71,8 @@ def check_supported(conf: ImageNetConfig) -> None:
     if compute_dtype(conf) == torch.bfloat16 and conf.arch.type not in BF16_ARCHS:
         raise NotImplementedError(
             f"precision={conf.precision!r} fp16={conf.fp16} for arch type "
-            f"{conf.arch.type!r}: bf16 is ported for {', '.join(BF16_ARCHS)}; the other "
-            f"models' bf16 forms are ROADMAP.md §A2's bf16 queue (run them with "
+            f"{conf.arch.type!r}: bf16 is ported for {', '.join(BF16_ARCHS)}; PVT's and "
+            f"Twins' bf16 forms are ROADMAP.md §A2's bf16 queue (run them with "
             f"precision=f32)")
     if conf.n_device > 1:
         raise NotImplementedError(f"n_device={conf.n_device}: multi-GPU {todo}")
